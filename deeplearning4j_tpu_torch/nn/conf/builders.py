@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from deeplearning4j_tpu_torch import updaters as _upd
+from deeplearning4j_tpu_torch.regularization import RegularizationConf
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import GlobalConf, Layer
 from deeplearning4j_tpu_torch.nn.conf.layers.conv import BaseConvLayer, SubsamplingLayer
@@ -49,8 +50,7 @@ class NeuralNetConfiguration:
         return self
 
     def updater(self, u) -> "NeuralNetConfiguration":
-        """An updater config (e.g. ``updaters.Nesterovs(0.1, 0.9)``); carried
-        as configuration data until the training slice."""
+        """An updater config, e.g. ``updaters.Nesterovs(0.1, 0.9)``."""
         if not isinstance(u, _upd.TaggedConf):
             raise NotImplementedError(
                 "updater by name is not ported yet (ROADMAP § A); pass an "
@@ -76,6 +76,6 @@ class NeuralNetConfiguration:
         from deeplearning4j_tpu_torch.nn.conf.graph_builder import GraphBuilder
 
         if self._reg_kwargs:
-            self._g.regularization = _upd.RegularizationConf(**self._reg_kwargs)
+            self._g.regularization = RegularizationConf(**self._reg_kwargs)
             self._reg_kwargs = {}
         return GraphBuilder(self._g)

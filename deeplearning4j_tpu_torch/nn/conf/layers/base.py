@@ -9,9 +9,10 @@ match) and the same methods:
 - ``init_layer_state(input_type, dtype)`` -> dict (BN running stats)
 - ``apply(params, x, state=..., train=False)`` -> (y, new_state)
 
-Slice 1 is inference only: ``apply(..., train=True)`` raises, and the
-training fields (updater, regularization, dropout, ...) are carried as
-configuration data.
+``train=True`` takes batch statistics where a layer has them (BN) and
+returns the new running state. Input dropout and weight noise are not
+ported yet: the graph refuses a layer that configures them
+(:func:`check_trainable`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from deeplearning4j_tpu_torch import activations as _act
 from deeplearning4j_tpu_torch import initializers as _init
 from deeplearning4j_tpu_torch import updaters as _upd
+from deeplearning4j_tpu_torch.regularization import RegularizationConf
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 
@@ -32,8 +34,6 @@ LayerState = Dict[str, torch.Tensor]
 # Sentinel: "not set here — inherit the network-level default at build()"
 INHERIT = None
 
-TRAINING_SLICE = ("training is not ported yet: the PyTorch port serves only "
-                  "(ROADMAP § A, training slices)")
 
 
 class Layer:
@@ -104,9 +104,20 @@ class Layer:
         return f"{type(self).__name__}({fields})"
 
 
-def check_inference(layer: Layer, train: bool) -> None:
-    if train:
-        raise NotImplementedError(f"{type(layer).__name__}: {TRAINING_SLICE}")
+def check_trainable(layer: Layer) -> None:
+    """Refuse, at train time, the layer options this slice does not port:
+    input dropout, weight noise and parameter constraints."""
+    what = []
+    if not isinstance(layer.dropout, (int, float)) or layer.dropout:
+        what.append(f"dropout={layer.dropout!r}")
+    if layer.weight_noise is not None:
+        what.append("weight_noise")
+    if layer.constraints:
+        what.append("constraints")
+    if what:
+        raise NotImplementedError(
+            f"{type(layer).__name__} ({layer.name}): {', '.join(what)} "
+            "not ported yet (ROADMAP § A, training slices)")
 
 
 class GlobalConf:
@@ -133,7 +144,7 @@ class GlobalConf:
         self.activation = activation
         self.bias_init = float(bias_init)
         self.regularization = (regularization if regularization is not None
-                               else _upd.RegularizationConf())
+                               else RegularizationConf())
         self.gradient_normalization = gradient_normalization
         self.gradient_normalization_threshold = float(
             gradient_normalization_threshold)

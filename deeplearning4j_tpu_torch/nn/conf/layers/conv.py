@@ -27,7 +27,6 @@ from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (
     FeedForwardLayer,
     Layer,
-    check_inference,
 )
 
 IntPair = Union[int, Sequence[int]]
@@ -123,7 +122,6 @@ class ConvolutionLayer(BaseConvLayer):
         return p
 
     def apply(self, params, x, *, state=None, train=False):
-        check_inference(self, train)
         (lh, hh), (lw, hw) = _spatial_pads(self, x, self.dilation)
         xc = _nchw(x)
         if (lh, lw) != (hh, hw):
@@ -163,11 +161,12 @@ class SubsamplingLayer(Layer):
         return InputType.convolutional(h, w, input_type.channels)
 
     def apply(self, params, x, *, state=None, train=False):
-        check_inference(self, train)
         if self.pooling_type != "max":
             raise NotImplementedError(
                 f"pooling type '{self.pooling_type}' is not ported yet "
                 "(ROADMAP § A)")
+        # at equal values in a window, the gradient may go to another
+        # element than XLA's select-and-scatter picks (after a ReLU, zeros)
         (lh, hh), (lw, hw) = _spatial_pads(self, x)
         xc = F.pad(_nchw(x), (lw, hw, lh, hh), value=float("-inf"))
         y = F.max_pool2d(xc, tuple(self.kernel_size), tuple(self.stride))

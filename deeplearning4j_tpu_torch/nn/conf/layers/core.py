@@ -13,12 +13,9 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch import activations as _act
+from deeplearning4j_tpu_torch import losses as _losses
 from deeplearning4j_tpu_torch.nn.conf import serde
-from deeplearning4j_tpu_torch.nn.conf.layers.base import (
-    FeedForwardLayer,
-    Layer,
-    check_inference,
-)
+from deeplearning4j_tpu_torch.nn.conf.layers.base import FeedForwardLayer, Layer
 
 
 def _affine(params, x: torch.Tensor) -> torch.Tensor:
@@ -38,7 +35,6 @@ class DenseLayer(FeedForwardLayer):
                 "b": self._bias((self.n_out,), dtype)}
 
     def apply(self, params, x, *, state=None, train=False):
-        check_inference(self, train)
         return self.act_fn()(_affine(params, x)), state or {}
 
 
@@ -51,20 +47,25 @@ class ActivationLayer(Layer):
         self.activation = activation
 
     def apply(self, params, x, *, state=None, train=False):
-        check_inference(self, train)
         return _act.get(self.activation)(x), state or {}
 
 
 @serde.register
 class BaseOutputLayer(DenseLayer):
-    """Dense layer + loss head; inference applies the activation (the loss
-    is scored by the training slice)."""
+    """Dense layer + loss head: inference applies the activation, training
+    scores the loss from the logits."""
 
     is_output_layer = True
 
     def __init__(self, loss: str = "mcxent", **kwargs):
         super().__init__(**kwargs)
         self.loss = loss
+
+    def compute_score(self, params, x, labels, mask=None) -> torch.Tensor:
+        """Per-example loss vector from this layer's input activations
+        (the graph hands them over in f32 under a compute dtype)."""
+        return _losses.get(self.loss)(labels, _affine(params, x),
+                                      self.activation, mask)
 
 
 @serde.register

@@ -1,17 +1,21 @@
 """FusedResNetBottleneck: one ResNet bottleneck block (1x1 reduce -> 3x3 ->
 1x1 expand, + identity/projection shortcut) as a single layer driving the
-fused conv+BN+ReLU kernels (``nn/ops/fused_conv.py``).
+fused conv+BN+ReLU ops (``nn/ops/fused_conv.py``).
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/layers/fused_block.py``, eval
-path, with the same parameter and state names. Each conv folds the
-upstream BatchNormalization's normalize (+ReLU) into its input read; the
-per-channel fold coefficients are computed here in f32 from the running
-statistics.
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers/fused_block.py``, with
+the same parameter and state names. Each conv emits its raw output and its
+per-channel (sum, sum of squares); the next conv folds the upstream
+BatchNormalization's normalize (+ReLU) into its input read. The per-channel
+fold coefficients are computed here in f32: in eval from the running
+statistics, in train from the convs' statistics (so the gradient of each BN
+reaches its conv through the ``stats`` cotangent) while the running
+statistics move by the EMA.
 
-Routing follows the reference: the CUDA kernels run for CUDA tensors in
-bf16 unless ``use_pallas is False`` (the option keeps the reference's
-name); otherwise the block computes through the plain versions, with the
-same parameter layout.
+Routing follows the reference: the differentiable kernel ops run for CUDA
+tensors in bf16 unless ``use_pallas is False`` (the option keeps the
+reference's name); otherwise the block computes through the plain forward
+versions under plain autograd, with the same parameter layout (the
+reference's path when its Pallas probe fails, as it does off the TPU).
 """
 
 from __future__ import annotations
@@ -23,10 +27,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers.base import (
-    FeedForwardLayer,
-    check_inference,
-)
+from deeplearning4j_tpu_torch.nn.conf.layers.base import FeedForwardLayer
 from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
 
 
@@ -106,13 +107,23 @@ class FusedResNetBottleneck(FeedForwardLayer):
         return (x.device.type == "cuda" and x.dtype == torch.bfloat16
                 and self.use_pallas is not False)
 
-    def _bn_fold(self, gamma, beta, mean, var):
-        """Running statistics -> (scale, shift) f32 for the consumer's fold."""
+    def _bn_fold(self, stats, count, gamma, beta, r_mean, r_var, train):
+        """stats (2, C) of a conv -> fold coefficients (scale, shift) f32 for
+        its consumer, and the new running (mean, var)."""
+        if train:
+            mean = stats[0] / count
+            var = stats[1] / count - mean * mean
+            var = torch.maximum(var, torch.zeros_like(var))
+            new_running = (
+                (self.decay * r_mean + (1 - self.decay) * mean).detach(),
+                (self.decay * r_var + (1 - self.decay) * var).detach())
+        else:
+            mean, var = r_mean, r_var
+            new_running = (r_mean, r_var)
         inv = torch.rsqrt(var + self.eps)
-        return gamma * inv, beta - mean * inv * gamma
+        return gamma * inv, beta - mean * inv * gamma, new_running
 
     def apply(self, params, x, *, state=None, train=False):
-        check_inference(self, train)
         if state is None or "mean_a" not in state:
             raise ValueError("FusedResNetBottleneck needs its running-stat state")
         if self.uses_kernels(x):
@@ -129,24 +140,31 @@ class FusedResNetBottleneck(FeedForwardLayer):
         m = n * hs * ws
         ones = torch.ones((cin,), dtype=torch.float32, device=x.device)
         zeros = torch.zeros((cin,), dtype=torch.float32, device=x.device)
+        new_state = {}
 
-        def fold(tag):
-            return self._bn_fold(params[f"gamma_{tag}"], params[f"beta_{tag}"],
-                                 state[f"mean_{tag}"], state[f"var_{tag}"])
+        def fold(tag, stats):
+            s, t, (r_mean, r_var) = self._bn_fold(
+                stats, m, params[f"gamma_{tag}"], params[f"beta_{tag}"],
+                state[f"mean_{tag}"], state[f"var_{tag}"], train)
+            new_state[f"mean_{tag}"], new_state[f"var_{tag}"] = r_mean, r_var
+            return s, t
 
         # conv a: the block input is already normalized, no fold
-        za, _ = pw(x_in.reshape(m, cin), ones, zeros, params["W_a"], False)
-        s_a, t_a = fold("a")
-        zb, _ = c3(za.reshape(n, hs, ws, wd), s_a, t_a, params["W_b"], True)
-        s_b, t_b = fold("b")
-        zc, _ = pw(zb.reshape(m, wd), s_b, t_b, params["W_c"], True)
-        s_c, t_c = fold("c")
+        za, st_a = pw(x_in.reshape(m, cin), ones, zeros, params["W_a"], False)
+        s_a, t_a = fold("a", st_a)
+        zb, st_b = c3(za.reshape(n, hs, ws, wd), s_a, t_a, params["W_b"], True)
+        s_b, t_b = fold("b", st_b)
+        zc, st_c = pw(zb.reshape(m, wd), s_b, t_b, params["W_c"], True)
+        s_c, t_c = fold("c", st_c)
         dt = x.dtype
         nc = zc.reshape(n, hs, ws, cout).to(dt) * s_c.to(dt) + t_c.to(dt)
         if self.project:
-            zp, _ = pw(x_in.reshape(m, cin), ones, zeros, params["W_p"], False)
-            s_p, t_p = fold("p")
+            zp, st_p = pw(x_in.reshape(m, cin), ones, zeros, params["W_p"], False)
+            s_p, t_p = fold("p", st_p)
             shortcut = zp.reshape(n, hs, ws, cout).to(dt) * s_p.to(dt) + t_p.to(dt)
         else:
             shortcut = x
-        return torch.relu(nc + shortcut), state
+        # a maximum with 0, not relu: the gradient at a tie is 0.5, as the
+        # reference's jnp.maximum gives
+        out = nc + shortcut
+        return torch.maximum(out, torch.zeros_like(out)), new_state

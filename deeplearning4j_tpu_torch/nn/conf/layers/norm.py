@@ -1,10 +1,13 @@
-"""BatchNormalization, inference math.
+"""BatchNormalization.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers/norm.py``. Eval mode
-normalizes with the running statistics: the per-channel scale and bias are
-computed in f32 and cast once to the input dtype, then ``y = x*scale + bias``
-in that dtype, as the reference does. Batch statistics (``train=True``)
-come with the training slice.
+normalizes with the running statistics; train mode with the batch's, over
+every axis but the last, and returns the running statistics moved by the
+EMA ``decay*old + (1-decay)*batch``. For bf16 (and f16) input the
+statistics are taken in f32 as ``max(E[x^2] - mean^2, 0)``; for f32 input
+the variance is ``var``. The per-channel scale and bias are computed in f32
+and cast once to the input dtype, then ``y = x*scale + bias`` in that
+dtype, as the reference does.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 from deeplearning4j_tpu_torch import activations as _act
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer, check_inference
+from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer
 
 
 @serde.register
@@ -55,10 +58,27 @@ class BatchNormalization(Layer):
                 "var": torch.ones((self.n_feat,), dtype=dtype)}
 
     def apply(self, params, x, *, state=None, train=False):
-        check_inference(self, train)
         if state is None or "mean" not in state:
             raise ValueError("BatchNormalization needs its running-stat state")
-        mean, var = state["mean"], state["var"]
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            if x.dtype in (torch.bfloat16, torch.float16):
+                xf = x.float()
+                mean = xf.mean(dims)
+                var = (xf * xf).mean(dims) - mean * mean
+                # jnp.maximum: gradient 0.5 at a tie
+                var = torch.maximum(var, torch.zeros_like(var))
+            else:
+                mean = x.mean(dims)
+                var = x.var(dims, unbiased=False)
+            # the running statistics are state, not differentiated
+            new_state = {
+                "mean": (self.decay * state["mean"] + (1 - self.decay) * mean).detach(),
+                "var": (self.decay * state["var"] + (1 - self.decay) * var).detach(),
+            }
+        else:
+            mean, var = state["mean"], state["var"]
+            new_state = state
         inv = torch.rsqrt(var + self.eps)
         if self.lock_gamma_beta:
             gamma, beta = self.gamma, self.beta
@@ -69,4 +89,4 @@ class BatchNormalization(Layer):
         y = x * scale + bias
         if self.activation != "identity":
             y = _act.get(self.activation)(y)
-        return y, state
+        return y, new_state

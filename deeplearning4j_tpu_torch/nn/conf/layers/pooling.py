@@ -12,7 +12,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer, check_inference
+from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer
 
 
 @serde.register
@@ -34,7 +34,6 @@ class GlobalPoolingLayer(Layer):
         return input_type
 
     def apply(self, params, x, *, state=None, train=False):
-        check_inference(self, train)
         if x.dim() != 4:
             raise NotImplementedError(
                 "GlobalPoolingLayer over time (rank-3 input) comes with the "

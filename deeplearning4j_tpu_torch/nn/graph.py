@@ -1,33 +1,55 @@
-"""ComputationGraph: DAG network runtime, inference.
+"""ComputationGraph: DAG network runtime, inference and training.
 
-Counterpart of ``deeplearning4j_tpu/nn/graph.py`` (slice 1: ``init``, the
-eval-mode forward walk over the topological order, ``output`` and
-``output_single``). PyTorch runs the walk eagerly; there is no compiled
-program. Parameter and state layout are the reference's:
+Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``init``, the forward
+walk over the topological order, ``output``/``output_single``, and the
+train side: ``fit``, ``score``, ``compute_gradient_and_score``. PyTorch
+runs the walk eagerly; there is no compiled program. The train step is the
+reference's unguarded one: loss (f32) and new layer state from a train-mode
+forward, gradients by autograd, then the per-layer update pipeline
+(``nn/multilayer.apply_layer_updates``) with ``t = iteration + 1``; the
+score is the loss plus the regularization score of the params before the
+update. State layout is the reference's:
 
 - ``params_``: dict vertex name -> dict param name -> tensor (``dtype``,
   f32 master weights)
 - ``state_``:  dict vertex name -> dict (BN running statistics)
+- ``opt_state_``: dict vertex name -> dict param name -> updater slots (f32),
+  made at the first train step (or by ``interop.load_jax_params``)
 
 Under ``compute_dtype`` the forward casts float params (except those of
 normalization and output layers and a layer's ``keep_fp32_params``) and
-float inputs to the compute dtype, as the reference does.
+float inputs to the compute dtype, as the reference does. The cast happens
+inside the differentiated function, so the gradients the updater sees are
+f32. Fault policy, rematerialization, telemetry, listeners, bundled steps,
+sharded updates and tBPTT are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import _dtype_of, resolve_device
+from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.data.iterators import (
+    DataSetIterator,
+    ListDataSetIterator,
+    MultiDataSetIterator,
+)
 from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
     ComputationGraphConfiguration,
     LayerVertex,
 )
+from deeplearning4j_tpu_torch.nn.conf.layers.base import check_trainable
 from deeplearning4j_tpu_torch.nn.conf.layers.norm import BatchNormalization
+from deeplearning4j_tpu_torch.nn.multilayer import apply_layer_updates
+from deeplearning4j_tpu_torch.regularization import as_regularization
+from deeplearning4j_tpu_torch.updaters import as_updater
+
+NOT_PORTED = "not ported yet (ROADMAP § A, training slices)"
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -52,7 +74,11 @@ class ComputationGraph:
             n for n in self.topo if isinstance(conf.vertices[n], LayerVertex)]
         self.params_: Optional[Dict[str, Tensors]] = None
         self.state_: Optional[Dict[str, Tensors]] = None
+        self.opt_state_: Optional[Dict[str, Dict[str, Tensors]]] = None
         self.device: Optional[torch.device] = None
+        self.iteration = 0
+        self.epoch = 0
+        self.score_: Optional[torch.Tensor] = None
         self._compute_dtype = _dtype_of(getattr(conf.global_conf, "compute_dtype", None))
         self._output_layers()
 
@@ -86,6 +112,8 @@ class ComputationGraph:
             state[name] = {k: v.to(device) for k, v in
                            layer.init_layer_state(lt[name], dtype).items()}
         self.params_, self.state_, self.device = params, state, device
+        self.opt_state_ = None
+        self.iteration = self.epoch = 0
         return self
 
     def num_params(self) -> int:
@@ -107,10 +135,12 @@ class ComputationGraph:
         return out
 
     def _forward(self, params, state, inputs, *, train: bool = False,
-                 cast_params: bool = True) -> Dict[str, torch.Tensor]:
-        """Forward walk over the topological order; returns every vertex's
-        activation. ``cast_params=False`` when ``params`` is already the
-        output of :meth:`compute_params`."""
+                 cast_params: bool = True):
+        """Forward walk over the topological order. Returns ``(acts,
+        out_inputs, new_state)``: every vertex's activation, the input of
+        each output layer (what its score is computed from), and each
+        layer's new state. ``cast_params=False`` when ``params`` is already
+        the output of :meth:`compute_params`."""
         conf = self.conf
         if self._compute_dtype is not None and cast_params:
             params = self.compute_params(params)
@@ -119,16 +149,21 @@ class ComputationGraph:
         in_dt = self._compute_dtype or _dtype_of(conf.global_conf.dtype)
         inputs = [x.to(in_dt) if x.is_floating_point() else x for x in inputs]
         acts: Dict[str, torch.Tensor] = dict(zip(conf.network_inputs, inputs))
+        out_inputs: Dict[str, torch.Tensor] = {}
+        new_state: Dict[str, Tensors] = {}
         for name in self.topo:
             v = conf.vertices[name]
             in_acts = [acts[s] for s in conf.vertex_inputs[name]]
             if isinstance(v, LayerVertex):
-                y, _ = v.layer.apply(params.get(name, {}), in_acts[0],
-                                     state=state.get(name, {}), train=train)
+                if v.layer.is_output_layer:
+                    out_inputs[name] = in_acts[0]
+                y, st = v.layer.apply(params.get(name, {}), in_acts[0],
+                                      state=state.get(name, {}), train=train)
                 acts[name] = y
+                new_state[name] = st if st is not None else {}
             else:
                 acts[name] = v.apply(in_acts)
-        return acts
+        return acts, out_inputs, new_state
 
     def _as_input(self, x) -> torch.Tensor:
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
@@ -140,8 +175,8 @@ class ComputationGraph:
         if self.params_ is None:
             raise ValueError("init() the graph (or load params) first")
         with torch.inference_mode():
-            acts = self._forward(self.params_, self.state_,
-                                 [self._as_input(x) for x in inputs])
+            acts, _, _ = self._forward(self.params_, self.state_,
+                                       [self._as_input(x) for x in inputs])
         out = []
         for name in self.conf.network_outputs:
             y = acts[name]
@@ -155,3 +190,152 @@ class ComputationGraph:
         if len(ys) != 1:
             raise ValueError(f"Graph has {len(ys)} outputs; use output()")
         return ys[0]
+
+    # ----------------------------------------------------------------- scoring
+    def _loss_and_new_state(self, params, state, features, labels, lmasks,
+                            train: bool = True):
+        """Mean per-example loss summed over the outputs (f32: under a
+        compute dtype the output layer's input is widened first), and the
+        layers' new state."""
+        _, out_inputs, new_state = self._forward(params, state, features, train=train)
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i, name in enumerate(self.conf.network_outputs):
+            x = out_inputs[name]
+            if self._compute_dtype is not None:
+                x = x.float()
+            lmask = lmasks[i] if i < len(lmasks) else None
+            per_ex = self._layer(name).compute_score(params[name], x, labels[i], lmask)
+            loss = loss + per_ex.mean()
+        return loss, new_state
+
+    @torch.no_grad()
+    def _reg_score(self, params) -> torch.Tensor:
+        s = torch.zeros((), dtype=torch.float32, device=self.device)
+        for name in self.layer_names:
+            reg = as_regularization(self._layer(name).regularization)
+            if reg is None:
+                continue
+            for pn, arr in params[name].items():
+                s = s + reg.score_term(pn, arr)
+        return s
+
+    def _batch(self, mds: MultiDataSet):
+        """A MultiDataSet's arrays as tensors on the model's device: float
+        features as given (the forward casts them), float labels in f32."""
+        if any(m is not None for m in mds.features_masks):
+            raise NotImplementedError(f"feature masks are {NOT_PORTED}")
+
+        def dev(a, label=False):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if label and t.is_floating_point():
+                t = t.to(torch.float32)
+            return t.to(self.device)
+
+        feats = [dev(f) for f in mds.features]
+        labels = [dev(lab, True) for lab in mds.labels]
+        lmasks = [None if m is None else dev(m, True) for m in mds.labels_masks]
+        return feats, labels, lmasks
+
+    def _value_and_grad(self, feats, labels, lmasks):
+        """(loss, new_state, grads) of a train-mode forward at ``params_``;
+        grads has the layout of ``params_``."""
+        diff = {v: {k: t.detach().requires_grad_() for k, t in p.items()}
+                for v, p in self.params_.items()}
+        loss, new_state = self._loss_and_new_state(diff, self.state_, feats,
+                                                   labels, lmasks)
+        leaves = [(v, k) for v, p in diff.items() for k in p]
+        flat = torch.autograd.grad(loss, [diff[v][k] for v, k in leaves],
+                                   allow_unused=True) if leaves else ()
+        grads: Dict[str, Tensors] = {v: {} for v in diff}
+        for (v, k), g in zip(leaves, flat):
+            grads[v][k] = torch.zeros_like(diff[v][k]) if g is None else g
+        return loss.detach(), new_state, grads
+
+    def score(self, ds: Optional[Union[DataSet, MultiDataSet]] = None) -> float:
+        """The last train step's score, or the eval-mode loss plus the
+        regularization score on ``ds``."""
+        if ds is None:
+            if self.score_ is None:
+                raise ValueError("No score available; fit() first or pass a DataSet")
+            return float(self.score_)
+        feats, labels, lmasks = self._batch(_as_multi(ds))
+        with torch.no_grad():
+            loss, _ = self._loss_and_new_state(self.params_, self.state_, feats,
+                                               labels, lmasks, train=False)
+            return float(loss + self._reg_score(self.params_))
+
+    def compute_gradient_and_score(self, ds: Union[DataSet, MultiDataSet]):
+        """(gradients in the layout of ``params_``, score) of one train-mode
+        forward on ``ds``; nothing is updated."""
+        self._check_trainable()
+        feats, labels, lmasks = self._batch(_as_multi(ds))
+        loss, _, grads = self._value_and_grad(feats, labels, lmasks)
+        return grads, float(loss + self._reg_score(self.params_))
+
+    # ------------------------------------------------------------------- fit
+    def set_listeners(self, *listeners) -> None:
+        raise NotImplementedError(f"training listeners are {NOT_PORTED}")
+
+    def _check_trainable(self) -> None:
+        g = self.conf.global_conf
+        refused = [
+            (g.fault_policy is not None, "fault_policy"),
+            (g.remat_policy not in (None, "none"), "remat_policy"),
+            (g.telemetry not in (None, False), "telemetry"),
+            (g.steps_per_call > 1, "steps_per_call > 1 (bundled steps)"),
+            (g.sharded_update, "sharded_update"),
+            (self.conf.backprop_type == "tbptt", "tbptt"),
+        ]
+        names = [what for bad, what in refused if bad]
+        if names:
+            raise NotImplementedError(f"{', '.join(names)}: {NOT_PORTED}")
+        for name in self.layer_names:
+            check_trainable(self._layer(name))
+
+    def _ensure_opt_state(self) -> Dict[str, Dict[str, Tensors]]:
+        if self.opt_state_ is None:
+            self.opt_state_ = {
+                name: {pn: as_updater(self._layer(name).updater).init_state(t)
+                       for pn, t in self.params_[name].items()}
+                for name in self.layer_names}
+        return self.opt_state_
+
+    def fit(self, data: Union[DataSet, MultiDataSet, DataSetIterator,
+                              MultiDataSetIterator],
+            epochs: int = 1, batch_size: int = 32) -> "ComputationGraph":
+        """Train: one step per minibatch, ``epochs`` passes."""
+        if self.params_ is None:
+            raise ValueError("init() the graph (or load params) first")
+        if isinstance(data, DataSet):
+            data = ListDataSetIterator(data, batch_size)
+        if isinstance(data, MultiDataSet):
+            data = MultiDataSetIterator.from_list([data])
+        self._check_trainable()
+        for _ in range(epochs):
+            for ds in data:
+                self._fit_batch(_as_multi(ds))
+            data.reset()
+            self.epoch += 1
+        return self
+
+    def _fit_batch(self, mds: MultiDataSet) -> None:
+        feats, labels, lmasks = self._batch(mds)
+        opt_state = self._ensure_opt_state()
+        loss, new_state, grads = self._value_and_grad(feats, labels, lmasks)
+        names = self.layer_names
+        new_params, new_opt = apply_layer_updates(
+            [self._layer(n) for n in names], [self.params_[n] for n in names],
+            [grads[n] for n in names], [opt_state[n] for n in names],
+            self.iteration + 1, self.iteration, self.epoch)
+        self.score_ = loss + self._reg_score(self.params_)
+        self.params_ = dict(zip(names, new_params))
+        self.opt_state_ = dict(zip(names, new_opt))
+        self.state_ = new_state
+        self.iteration += 1
+
+
+def _as_multi(ds: Union[DataSet, MultiDataSet]) -> MultiDataSet:
+    if isinstance(ds, MultiDataSet):
+        return ds
+    return MultiDataSet([ds.features], [] if ds.labels is None else [ds.labels],
+                        [ds.features_mask], [ds.labels_mask])

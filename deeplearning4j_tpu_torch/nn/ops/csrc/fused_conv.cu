@@ -39,19 +39,14 @@
 // This first kernel is simple (WMMA + register-staged double buffering); wgmma
 // and TMA are later work. Times are in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "fused_conv_common.cuh"
 
 namespace {
 
 using namespace nvcuda;
 
-constexpr int BM = 64;          // output rows (pixels) per block
-constexpr int BN = 64;          // output channels per block
-constexpr int BK = 32;          // depth per pipeline step
-constexpr int THREADS = 128;    // four warps, 2x2 over the 64x64 tile
 constexpr int LDA = BK + 8;     // padded leading dims (bank conflicts)
 constexpr int LDB = BN + 8;
 constexpr int LDC = BN + 4;
@@ -61,21 +56,6 @@ constexpr int B_ELEMS = BK * LDB;
 constexpr int AB_BYTES = 2 * (A_ELEMS + B_ELEMS) * 2;   // two stages, bf16
 constexpr int C_BYTES = BM * LDC * 4;                   // f32 epilogue tile
 constexpr int SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, int n_valid) {
-  // 8 consecutive bf16 values; entries past n_valid read as 0
-  if (n_valid >= 8 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  unsigned short* dst = reinterpret_cast<unsigned short*>(&v);
-  const unsigned short* src = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (j < n_valid) dst[j] = src[j];
-  }
-  return v;
-}
 
 template <int TAPS>
 __global__ void __launch_bounds__(THREADS)
@@ -269,26 +249,6 @@ fused_conv_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// partial (tiles, cols) -> out (cols): a fixed summation order, so the
-// statistics are the same on every run
-__global__ void __launch_bounds__(1024)
-stats_reduce_kernel(const float* __restrict__ partial, int tiles, int cols,
-                    float* __restrict__ out) {
-  __shared__ float buf[32][33];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
-  if (c < cols) {
-    for (int t = threadIdx.y; t < tiles; t += 32) s += partial[(long long)t * cols + c];
-  }
-  buf[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < cols) {
-    float total = 0.f;
-    for (int g = 0; g < 32; ++g) total += buf[g][threadIdx.x];
-    out[c] = total;
-  }
-}
-
 int launch(int taps, const void* x, const void* scale, const void* shift,
            const void* w, void* y, void* partial, void* stats, int m, int h,
            int wd, int cin, int cout, int relu_in, void* stream) {
@@ -312,18 +272,17 @@ int launch(int taps, const void* x, const void* scale, const void* shift,
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int cols = 2 * cout;
-  stats_reduce_kernel<<<dim3((cols + 31) / 32), dim3(32, 32), 0, s>>>(
-      pp, (int)grid.x, cols, static_cast<float*>(stats));
-  return (int)cudaGetLastError();
+  return (int)launch_stats_reduce(pp, (int)grid.x, 2 * cout,
+                                  static_cast<float*>(stats), s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// rows per block: the wrapper sizes the (tiles, 2, Cout) partials buffer by it
-int dl4j_fused_conv_block_m(void) { return BM; }
+// tile sizes: 0 -> rows per block (sizes the (tiles, 2, Cout) partials),
+// 1 -> columns per block, 2 -> depth step
+int dl4j_fused_conv_tile(int which) { return which == 0 ? BM : which == 1 ? BN : BK; }
 
 // x (m, cin) bf16, scale/shift (cin,) f32, w (cin, cout) bf16
 // -> y (m, cout) bf16, stats (2, cout) f32; partial is (ceil(m/BM), 2, cout) f32

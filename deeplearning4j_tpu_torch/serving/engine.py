@@ -115,8 +115,8 @@ class InferenceEngine:
         model = snap.model
         xt = torch.from_numpy(np.ascontiguousarray(xp)).to(self.device)
         with torch.inference_mode():
-            acts = model._forward(snap.params, snap.state, [xt],
-                                  cast_params=False)
+            acts, _, _ = model._forward(snap.params, snap.state, [xt],
+                                        cast_params=False)
             y = acts[model.conf.network_outputs[0]]
             if y.dtype in (torch.bfloat16, torch.float16):
                 y = y.float()

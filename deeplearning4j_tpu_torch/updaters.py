@@ -1,42 +1,128 @@
-"""Updater and regularization configs, as data.
+"""Per-parameter gradient updaters (optimizers).
 
-The serving slice carries the training configuration of a model so that
-its configuration dict matches the reference's, but it runs no optimizer:
-the updater math and the train step come with the training slice
-(ROADMAP § A). Each class here is a :class:`TaggedConf` holding exactly the
-dict ``deeplearning4j_tpu.nn.conf.serde.encode`` writes for its reference
-counterpart.
+Counterpart of ``deeplearning4j_tpu/updaters.py``. Each updater is a
+:class:`TaggedConf`: it holds exactly the dict that the reference's
+``serde.encode`` writes for its counterpart (so configuration dicts match
+and round-trip), and has the reference's two methods:
+
+- ``init_state(param)`` -> dict of state tensors (zeros, the param's shape)
+- ``apply(grad, state, t, iteration, epoch)`` -> ``(update, new_state)``;
+  the train step computes ``param - update``.
+
+``t`` is the 1-based step count. Scalars (learning rate, momentum, bias
+corrections) are 0-dim f32 tensors, so they round as the reference's f32
+scalars do. This slice ports ``Sgd``, ``NoOp``, ``Nesterovs`` and ``Adam``
+(the oracle of the later fused-Adam kernel); a configuration naming another
+updater still loads, and :func:`as_updater` raises when it is trained.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
+import torch
+
 from deeplearning4j_tpu_torch.nn.conf.serde import TaggedConf
+from deeplearning4j_tpu_torch.schedules import as_schedule
+
+State = Dict[str, torch.Tensor]
 
 
-def _fixed(value: float) -> dict:
-    return {"@schedule": True, "@class": "FixedSchedule",
-            "value": float(value), "schedule_type": "iteration"}
+def _schedule_dict(value) -> dict:
+    return {"@schedule": True, **as_schedule(value).to_dict()}
 
 
-class Sgd(TaggedConf):
-    def __init__(self, learning_rate: float = 1e-1):
-        super().__init__({"@type": "updater", "@class": "Sgd",
-                          "learning_rate": _fixed(learning_rate)})
+class Updater(TaggedConf):
+    """Base updater config: a dict ``{"@type": "updater", "@class": ...}``."""
+
+    def __init__(self, fields: dict):
+        super().__init__({"@type": "updater", "@class": type(self).__name__,
+                          **fields})
+
+    def _sched(self, key: str, iteration, epoch) -> torch.Tensor:
+        return as_schedule(self[key]).value_at(iteration, epoch)
+
+    def lr(self, iteration, epoch) -> torch.Tensor:
+        return self._sched("learning_rate", iteration, epoch)
+
+    def init_state(self, param: torch.Tensor) -> State:
+        return {}
+
+    def apply(self, grad, state, t, iteration, epoch) -> Tuple[torch.Tensor, State]:
+        raise NotImplementedError
 
 
-class Nesterovs(TaggedConf):
-    def __init__(self, learning_rate: float = 0.1, momentum: float = 0.9):
-        super().__init__({"@type": "updater", "@class": "Nesterovs",
-                          "learning_rate": _fixed(learning_rate),
-                          "momentum": _fixed(momentum)})
+class Sgd(Updater):
+    def __init__(self, learning_rate=1e-1):
+        super().__init__({"learning_rate": _schedule_dict(learning_rate)})
+
+    def apply(self, grad, state, t, iteration, epoch):
+        return self.lr(iteration, epoch) * grad, state
 
 
-class RegularizationConf(TaggedConf):
-    def __init__(self, l1: float = 0.0, l2: float = 0.0, l1_bias: float = 0.0,
-                 l2_bias: float = 0.0, weight_decay: float = 0.0,
-                 weight_decay_bias: float = 0.0):
-        super().__init__({"@type": "regularization", "l1": float(l1),
-                          "l2": float(l2), "l1_bias": float(l1_bias),
-                          "l2_bias": float(l2_bias),
-                          "weight_decay": float(weight_decay),
-                          "weight_decay_bias": float(weight_decay_bias)})
+class NoOp(Updater):
+    """Pass the raw gradient through unchanged."""
+
+    def __init__(self):
+        super().__init__({"learning_rate": None})
+
+    def apply(self, grad, state, t, iteration, epoch):
+        return grad, state
+
+
+class Nesterovs(Updater):
+    """v' = mu*v - lr*g ;  update = mu*v - (1+mu)*v'."""
+
+    def __init__(self, learning_rate=0.1, momentum=0.9):
+        super().__init__({"learning_rate": _schedule_dict(learning_rate),
+                          "momentum": _schedule_dict(momentum)})
+
+    def init_state(self, param):
+        return {"v": torch.zeros_like(param)}
+
+    def apply(self, grad, state, t, iteration, epoch):
+        mu = self._sched("momentum", iteration, epoch)
+        v_prev = state["v"]
+        v = mu * v_prev - self.lr(iteration, epoch) * grad
+        return mu * v_prev - (1.0 + mu) * v, {"v": v}
+
+
+class Adam(Updater):
+    def __init__(self, learning_rate=1e-3, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8):
+        super().__init__({"learning_rate": _schedule_dict(learning_rate),
+                          "beta1": float(beta1), "beta2": float(beta2),
+                          "epsilon": float(epsilon)})
+
+    def init_state(self, param):
+        return {"m": torch.zeros_like(param), "v": torch.zeros_like(param)}
+
+    def apply(self, grad, state, t, iteration, epoch):
+        b1, b2 = self["beta1"], self["beta2"]
+        m = b1 * state["m"] + (1 - b1) * grad
+        v = b2 * state["v"] + (1 - b2) * grad * grad
+        tf = torch.tensor(float(t), dtype=torch.float32)
+        alpha = (self.lr(iteration, epoch) * torch.sqrt(1 - b2 ** tf)
+                 / (1 - b1 ** tf))
+        return alpha * m / (torch.sqrt(v) + self["epsilon"]), {"m": m, "v": v}
+
+
+_UPDATERS = {c.__name__: c for c in (Sgd, NoOp, Nesterovs, Adam)}
+
+
+def as_updater(conf) -> Updater:
+    """The updater for a layer's ``updater`` config: an :class:`Updater`
+    passes through; a dict read from JSON becomes its class (same dict);
+    None is :class:`NoOp`, as in the reference."""
+    if conf is None:
+        return NoOp()
+    if isinstance(conf, Updater):
+        return conf
+    name = conf.get("@class")
+    if name not in _UPDATERS:
+        raise NotImplementedError(
+            f"updater {name!r} is not ported yet (ROADMAP § A, training "
+            f"slices); ported: {sorted(_UPDATERS)}")
+    upd = _UPDATERS[name].__new__(_UPDATERS[name])
+    dict.__init__(upd, conf)
+    return upd

@@ -39,27 +39,30 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
-def profile_requests(engine, x, reps: int):
-    engine.infer(x)
+def profile_calls(fn, reps: int):
+    """Profile ``reps`` calls of ``fn`` after one warm-up call. Per call:
+    host ms, device busy ms, idle share, device ops, and the top device-time
+    entries (device us and count per call)."""
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            engine.infer(x)
+            fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / reps
     rows = []
     for evt in prof.key_averages():
         dev = _device_time_us(evt)
         if dev > 0 and evt.device_type.name in ("CUDA", "PrivateUse1"):
-            rows.append({"name": evt.key, "device_us_per_request": dev / reps,
-                         "count_per_request": evt.count / reps})
-    rows.sort(key=lambda r: -r["device_us_per_request"])
-    busy_ms = sum(r["device_us_per_request"] for r in rows) / 1e3
-    launches = sum(r["count_per_request"] for r in rows)
-    return {"host_ms_per_request": host_ms, "device_busy_ms": busy_ms,
+            rows.append({"name": evt.key, "device_us": dev / reps,
+                         "count": evt.count / reps})
+    rows.sort(key=lambda r: -r["device_us"])
+    busy_ms = sum(r["device_us"] for r in rows) / 1e3
+    launches = sum(r["count"] for r in rows)
+    return {"host_ms": host_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / host_ms),
-            "device_ops_per_request": launches, "top": rows[:40]}
+            "device_ops": launches, "top": rows[:40]}
 
 
 def main() -> int:
@@ -79,14 +82,14 @@ def main() -> int:
         (32, 224, 224, 3)).astype(np.float32)
     out = {"card": card, "torch": torch.__version__}
     for n, reps in ((32, 10), (1, 20)):
-        r = profile_requests(engine, x[:n], reps)
+        r = profile_calls(lambda: engine.infer(x[:n]), reps)
         out[f"rows_{n}"] = r
-        print(f"rows {n}: host {r['host_ms_per_request']:.3f} ms/request, device busy "
+        print(f"rows {n}: host {r['host_ms']:.3f} ms/request, device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
-              f"{r['device_ops_per_request']:.0f} device ops/request, on {card}",
+              f"{r['device_ops']:.0f} device ops/request, on {card}",
               flush=True)
         for row in r["top"][:12]:
-            print(f"  {row['device_us_per_request']:10.1f} us  x{row['count_per_request']:6.1f}  "
+            print(f"  {row['device_us']:10.1f} us  x{row['count']:6.1f}  "
                   f"{row['name'][:90]}", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "serve_profile.json"), "w") as f:

@@ -5,9 +5,11 @@ installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Every test is marked ``cuda`` and skips without a card (the kernels have no
-CPU mode). Tolerances as in ``chip_smoke.py``: kernel ``y`` within one bf16
-rounding step plus the worst-case f32 summation-order difference over
-depth K; statistics rtol 1e-4, atol 1e-3 at these small shapes.
+CPU mode). Tolerances as in ``chip_smoke.py``: kernel ``y``, ``dx`` and
+``dW`` within one bf16 rounding step plus the worst-case f32
+summation-order difference over the product's depth K; statistics,
+``dscale`` and ``dshift`` rtol 1e-4, atol 1e-3 plus 1e-5 of the sum of
+their terms' magnitudes.
 """
 
 import copy
@@ -18,11 +20,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.data import DataSet
 from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
 from deeplearning4j_tpu_torch.serving import InferenceEngine
+from deeplearning4j_tpu_torch.updaters import Nesterovs
 
 pytestmark = pytest.mark.cuda
 
@@ -103,8 +107,87 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
             (3, 3, 32, 8), dtype=torch.bfloat16, device=x.device), True)
 
 
+def _bwd_inputs(op, x_shape, w_shape, seed):
+    """Forward inputs, the forward's y as z, and seeded cotangents."""
+    x, s, t, w = _inputs(x_shape, w_shape, seed)
+    fwd = fc.pw_conv_plain if op == "pw" else fc.conv3x3_plain
+    z, _ = fwd(x, s, t, w, True)
+    g = torch.Generator().manual_seed(seed + 1)
+    dz = (torch.randn(tuple(z.shape), generator=g) * 0.1).to(torch.bfloat16).cuda()
+    dst = torch.stack([torch.randn(w_shape[-1], generator=g) * 0.01,
+                       torch.randn(w_shape[-1], generator=g) * 0.002]).cuda()
+    return x, s, t, w, z, dz, dst
+
+
+def _bwd_tolerances(op, x, s, t, w, z, dz, dst, relu_in, dx_p, dw_p):
+    """|dx| and |dW| bounds: 2^-7|p| + 2K*2^-24*sum|terms| (K = the depth
+    of the product: Cout or 9*Cout for dx, the pixel count for dW)."""
+    g = (dz.float() + dst[0] + 2.0 * z.float() * dst[1]).to(torch.bfloat16).float().abs()
+    xn = fc._fold(x, s, t, relu_in).to(torch.bfloat16).float().abs()
+    wa = w.float().abs()
+    if op == "pw":
+        k_dx, mag_dx = w.shape[1], (g @ wa.T) * s.abs()
+        k_dw, mag_dw = x.shape[0], xn.T @ g
+    else:
+        k_dx = 9 * w.shape[3]
+        mag_dx = F.conv2d(g.permute(0, 3, 1, 2), wa.flip(0, 1).permute(2, 3, 0, 1),
+                          padding=1).permute(0, 2, 3, 1) * s.abs()
+        k_dw = x.shape[0] * x.shape[1] * x.shape[2]
+        ones, zeros = torch.ones_like(s), torch.zeros_like(t)
+        mag_dw = fc.conv3x3_bwd_dw_plain(xn.to(torch.bfloat16), ones, zeros, w,
+                                         torch.zeros_like(z), g, torch.zeros_like(dst),
+                                         False).float().abs()
+    return (2.0 ** -7 * dx_p.float().abs() + 2 * k_dx * 2.0 ** -24 * mag_dx,
+            2.0 ** -7 * dw_p.float().abs() + 2 * k_dw * 2.0 ** -24 * mag_dw)
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("op,x_shape,w_shape", CASES,
+                         ids=[f"{c[0]}-{'x'.join(map(str, c[1]))}" for c in CASES])
+def test_backward_kernels_match_plain(card, op, x_shape, w_shape, relu_in):
+    args = _bwd_inputs(op, x_shape, w_shape, seed=len(x_shape) * 100 + x_shape[-1])
+    pre = "pw_conv" if op == "pw" else "conv3x3"
+    kdx = fc.pw_conv_bwd_dx if op == "pw" else fc.conv3x3_bwd_dx
+    kdw = fc.pw_conv_bwd_dw if op == "pw" else fc.conv3x3_bwd_dw
+    pdx = fc.pw_conv_bwd_dx_plain if op == "pw" else fc.conv3x3_bwd_dx_plain
+    pdw = fc.pw_conv_bwd_dw_plain if op == "pw" else fc.conv3x3_bwd_dw_plain
+    before = dict(fc.launch_counts)
+    dx, ds, dt = kdx(*args, relu_in)
+    dw = kdw(*args, relu_in)
+    dx_p, ds_p, dt_p = pdx(*args, relu_in)
+    dw_p = pdw(*args, relu_in)
+    torch.cuda.synchronize()
+    for name in (f"{pre}_dx", f"{pre}_dw"):
+        assert fc.launch_counts[name] == before.get(name, 0) + 1
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    assert dx.shape == args[0].shape and dw.shape == args[3].shape
+    tol_dx, tol_dw = _bwd_tolerances(op, *args, relu_in, dx_p, dw_p)
+    for got, want, tol in ((dx, dx_p, tol_dx), (dw, dw_p, tol_dw)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= tol).all()), float((err / tol).max())
+    x = args[0].float()
+    rows = x.reshape(-1, x.shape[-1]).abs().sum(0)
+    for got, want in ((ds, ds_p), (dt, dt_p)):
+        # the terms are du*x (or du), |du| <= |dxn|: bounded via |x| sums
+        assert bool(((got - want).abs() <= 1e-3 + 1e-4 * want.abs()
+                     + 1e-5 * rows * float(dx_p.float().abs().max() + 1)).all())
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x, s, t, w, z, dz, dst = _bwd_inputs("pw", (64, 32), (32, 16), seed=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.pw_conv_bwd_dx(x, s, t, w, z, dz.t().contiguous().t(), dst, True)
+    with pytest.raises(TypeError):
+        fc.pw_conv_bwd_dw(x, s, t, w, z, dz, dst.double(), True)
+    with pytest.raises(ValueError, match="shape"):
+        fc.pw_conv_bwd_dw(x, s, t, w, z[:, :8].contiguous(), dz, dst, True)
+    with pytest.raises(ValueError):
+        fc.conv3x3_bwd_dx(x, s, t, w, z, dz, dst, True)
+
+
 def _narrow_conf():
     gb = (NeuralNetConfiguration.builder().seed(5).weight_init("relu")
+          .updater(Nesterovs(1e-3, 0.9)).l2(1e-4)
           .compute_dtype("bfloat16").graph_builder().add_inputs("input")
           .set_input_types(InputType.convolutional(20, 20, 3)))
     gb.add_layer("stem_conv", L.ConvolutionLayer(
@@ -124,9 +207,9 @@ def _narrow_conf():
     return gb.build()
 
 
-def test_engine_on_the_card_goes_through_the_kernels(card):
-    """A bf16 graph served on the card launches each block's convs as
-    kernels and agrees with the same weights on the plain path."""
+def _model_and_plain():
+    """The narrow bf16 graph on the card with randomized BN, and the same
+    weights (shared tensors) on the plain path (use_pallas=False)."""
     conf = _narrow_conf()
     model = ComputationGraph(conf).init()
     g = torch.Generator().manual_seed(9)
@@ -146,7 +229,13 @@ def test_engine_on_the_card_goes_through_the_kernels(card):
             v.layer.use_pallas = False
     plain = ComputationGraph(plain_conf)
     plain.params_, plain.state_, plain.device = model.params_, model.state_, model.device
+    return model, plain
 
+
+def test_engine_on_the_card_goes_through_the_kernels(card):
+    """A bf16 graph served on the card launches each block's convs as
+    kernels and agrees with the same weights on the plain path."""
+    model, plain = _model_and_plain()
     engine = InferenceEngine(model, buckets=[4])
     x = np.random.default_rng(3).standard_normal((3, 20, 20, 3)).astype(np.float32)
     fc.reset_launch_counts()
@@ -158,3 +247,35 @@ def test_engine_on_the_card_goes_through_the_kernels(card):
     assert sum(fc.launch_counts.values()) == 0
     assert y.shape == (3, 10) and np.isfinite(y).all()
     assert np.abs(y - ref).max() <= 0.03
+
+
+def test_train_step_on_the_card_goes_through_the_kernels(card):
+    """One train step of the narrow bf16 graph launches every fused conv's
+    forward and backward kernels once (8 pointwise, 3 3x3), and its
+    gradients agree with the plain path's within 5e-2 relative norm per
+    tensor (the reference's probe bound)."""
+    model, plain = _model_and_plain()
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((6, 20, 20, 3)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 6)]
+    ds = DataSet(x, y)
+    fc.reset_launch_counts()
+    grads, score = model.compute_gradient_and_score(ds)
+    torch.cuda.synchronize()
+    assert dict(fc.launch_counts) == {"pw_conv": 8, "conv3x3": 3, "pw_conv_dx": 8,
+                                      "pw_conv_dw": 8, "conv3x3_dx": 3, "conv3x3_dw": 3}
+    fc.reset_launch_counts()
+    ref, ref_score = plain.compute_gradient_and_score(ds)
+    assert sum(fc.launch_counts.values()) == 0
+    assert abs(score - ref_score) <= 5e-2 * (abs(ref_score) + 1.0)
+    for v in ref:
+        for k in ref[v]:
+            a, b = grads[v][k].float(), ref[v][k].float()
+            assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+            rel = float((a - b).norm() / b.norm().clamp_min(1e-12))
+            assert rel <= 5e-2, (v, k, rel)
+    fc.reset_launch_counts()
+    model.fit(ds)
+    assert fc.launch_counts["conv3x3_dw"] == 3 and model.iteration == 1
+    assert all(bool(torch.isfinite(p).all()) for d in model.params_.values()
+               for p in d.values())

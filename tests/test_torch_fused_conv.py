@@ -17,6 +17,7 @@ Tolerances:
 - stats: rtol 1e-4, atol 1e-3, as ``test_fused_conv.py`` holds its kernels.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,3 +156,180 @@ def test_non_cuda_device_is_refused_not_computed():
     w = torch.empty((16, 8), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfc.pw_conv(x, s, s, w, False)
+
+
+# ------------------------------------------------------------------ backward
+def _cotangents(seed, y_shape, cout):
+    """dy (bf16) and a nonzero dstats (f32), seeded."""
+    rng = np.random.default_rng(seed)
+    dy = (rng.standard_normal(y_shape) * 0.1).astype(np.float32)
+    dst = np.stack([rng.standard_normal(cout) * 0.01,
+                    rng.standard_normal(cout) * 0.002]).astype(np.float32)
+    return dy, dst
+
+
+def _port_vjp(op, targs, relu_in, dy, dst):
+    """Gradients of the port's autograd op (plain backward on the CPU)."""
+    x, s, t, w = (a.clone().requires_grad_() for a in targs)
+    y, st = _port(op)(x, s, t, w, relu_in)
+    torch.autograd.backward((y, st), (torch.from_numpy(dy).to(y.dtype),
+                                      torch.from_numpy(dst)))
+    return y, [a.grad for a in (x, s, t, w)]
+
+
+def _grad_tolerance(name, op, targs, relu_in, dy, dst, ref):
+    """One bf16 step of the reference plus the worst-case f32
+    summation-order difference over the depth of the product (Cout or
+    9*Cout for dx, the pixel count for dW), from |dz_eff| and |w| or |xn|."""
+    x, s, t, w = (a.float() for a in targs)
+    z = _port(op)(*targs, relu_in)[0].float()
+    g = (torch.from_numpy(dy).to(torch.bfloat16).float() + torch.from_numpy(dst[0])
+         + 2.0 * z * torch.from_numpy(dst[1])).abs()
+    wa = w.abs()
+    if name == "dx":
+        if op == "pw":
+            k, mag = w.shape[1], g @ wa.T
+        else:
+            k = 9 * w.shape[3]
+            mag = torch.nn.functional.conv2d(
+                g.permute(0, 3, 1, 2), wa.flip(0, 1).permute(2, 3, 0, 1),
+                padding=1).permute(0, 2, 3, 1)
+        mag = mag * s.abs()
+    else:
+        xn = tfc._fold(targs[0], targs[1], targs[2], relu_in).abs()
+        if op == "pw":
+            k, mag = x.shape[0], xn.T @ g
+        else:
+            k = x.shape[0] * x.shape[1] * x.shape[2]
+            mag = tfc.conv3x3_bwd_dw_plain(
+                xn.to(torch.bfloat16), torch.ones_like(s), torch.zeros_like(t),
+                w, torch.zeros_like(z), g, torch.zeros_like(torch.from_numpy(dst)),
+                False).float().abs()
+    return 2.0 ** -7 * np.abs(ref) + 2 * k * 2.0 ** -24 * mag.numpy()
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("op", ["pw", "c3"])
+def test_vjp_matches_pallas_interpret(op, relu_in):
+    """The port's backward (the plain versions, through the autograd op)
+    against ``jax.vjp`` of the Pallas kernels in interpret mode, under the
+    same cotangents (dy, dstats), on the unaligned shapes.
+
+    Tolerances: dx and dW within one bf16 step plus the f32 summation-order
+    allowance over the product's depth (both sides round to bf16 after an
+    f32 sum taken in another order); dscale/dshift rtol 1e-4, atol 1e-3.
+    The interpreter's 3x3 dW is not the exactly rounded sum: measured up to
+    2^-5 off at values near 5 and 0.0036 off at 0.0004, where the port's
+    dW equals an f64 evaluation rounded once (test_conv3x3_dw_is_exactly_
+    rounded). So the 3x3 dW also gets half a bf16 step of its largest
+    value, 2^-8 * max|dW| (0.041 here)."""
+    jargs, targs = _both(op, "bfloat16", relu_in, seed=13)
+    kern = jfc.pw_conv if op == "pw" else jfc.conv3x3
+    (y_ref, st_ref), vjp = jax.vjp(lambda *a: kern(*a, relu_in, True), *jargs)
+    dy, dst = _cotangents(5, y_ref.shape, y_ref.shape[-1])
+    ref = vjp((jnp.asarray(dy, jnp.bfloat16), jnp.asarray(dst)))
+    y, grads = _port_vjp(op, targs, relu_in, dy, dst)
+    for name, g, r in zip(("dx", "dscale", "dshift", "dW"), grads, ref):
+        r = np.asarray(r, np.float32)
+        g = g.float().numpy()
+        assert g.shape == r.shape, name
+        if name in ("dscale", "dshift"):
+            np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-3, err_msg=name)
+        else:
+            tol = _grad_tolerance(name, op, targs, relu_in, dy, dst, r)
+            if op == "c3" and name == "dW":
+                tol = tol + 2.0 ** -8 * np.abs(r).max()
+            err = np.abs(g - r)
+            assert (err <= tol).all(), f"{name}: max err/tol {(err / tol).max():.3g}"
+    assert grads[0].dtype == torch.bfloat16 and grads[3].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("op", ["pw", "c3"])
+def test_plain_backward_is_the_forward_gradient(op, relu_in):
+    """In f32 (no bf16 rounding anywhere) the hand-written backward equals
+    autograd of the plain forward: the flipped taps of the transposed 3x3
+    conv, the shifted dW products and the statistics' cotangent are right.
+    Random inputs put no fold input exactly on the ReLU's tie."""
+    _, targs = _both(op, "float32", relu_in, seed=17)
+    x, s, t, w = (a.clone().requires_grad_() for a in targs)
+    plain = tfc.pw_conv_plain if op == "pw" else tfc.conv3x3_plain
+    y, st = plain(x, s, t, w, relu_in)
+    dy, dst = _cotangents(9, tuple(y.shape), y.shape[-1])
+    dy, dst = torch.from_numpy(dy), torch.from_numpy(dst)
+    want = torch.autograd.grad((y, st), (x, s, t, w), (dy, dst))
+    bwd = tfc.pw_conv_bwd_plain if op == "pw" else tfc.conv3x3_bwd_plain
+    got = bwd(*targs, y.detach(), dy, dst, relu_in)
+    for name, g, r in zip(("dx", "dscale", "dshift", "dW"), got, want):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+def test_conv3x3_dw_is_exactly_rounded(relu_in):
+    """The port's 3x3 dW (bf16) against the same sum taken in f64 from the
+    same bf16 operands: within half a bf16 step plus the f32
+    summation-order allowance over the pixel depth."""
+    _, targs = _both("c3", "bfloat16", relu_in, seed=13)
+    x, s, t, w = targs
+    z, _ = tfc.conv3x3_plain(x, s, t, w, relu_in)
+    dy, dst = _cotangents(5, tuple(z.shape), z.shape[-1])
+    dz, dst = torch.from_numpy(dy).to(torch.bfloat16), torch.from_numpy(dst)
+    got = tfc.conv3x3_bwd_dw_plain(x, s, t, w, z, dz, dst, relu_in).double()
+    xn = tfc._fold(x, s, t, relu_in).to(torch.bfloat16).double()
+    g = (dz.float() + dst[0] + 2.0 * z.float() * dst[1]).to(torch.bfloat16).double()
+    xp = torch.nn.functional.pad(xn, (0, 0, 1, 1, 1, 1))
+    n, h, wd, cin = x.shape
+    taps = [xp[:, a:a + h, b:b + wd, :].reshape(-1, cin) for a in range(3) for b in range(3)]
+    g2 = g.reshape(-1, g.shape[-1])
+    exact = torch.stack([p.T @ g2 for p in taps]).reshape(got.shape)
+    mag = torch.stack([p.abs().T @ g2.abs() for p in taps]).reshape(got.shape)
+    tol = 2.0 ** -8 * exact.abs() + 2 * g2.shape[0] * 2.0 ** -24 * mag
+    assert bool(((got - exact).abs() <= tol).all())
+
+
+def test_stats_cotangent_reaches_dw():
+    """The downstream BN's gradient enters through the stats output:
+    zeroing dstats changes dW (test_fused_conv.py's check, on the port)."""
+    _, targs = _both("pw", "bfloat16", False, seed=19)
+    dy, dst = _cotangents(3, (200, 160), 160)
+    _, with_st = _port_vjp("pw", targs, False, dy, dst)
+    _, without = _port_vjp("pw", targs, False, dy, np.zeros_like(dst))
+    assert (with_st[3].float() - without[3].float()).abs().max() > 1e-4
+
+
+def test_relu_tie_gradient_is_the_references():
+    """At a fold input of exactly 0 the gradient is 0.5 of the upstream one,
+    as jnp.maximum's: half of the rows sit on the tie (x = 0, shift = 0)."""
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((16, 8)).astype(np.float32)
+    x[::2] = 0.0
+    s = np.full(8, 1.5, np.float32)
+    t = np.zeros(8, np.float32)
+    t[4:] = 0.25
+    w = (rng.standard_normal((8, 6)) * 0.3).astype(np.float32)
+    dy = rng.standard_normal((16, 6)).astype(np.float32)
+
+    def jf(x_):
+        y, st = jfc.pw_conv_reference(x_, jnp.asarray(s), jnp.asarray(t),
+                                      jnp.asarray(w), True)
+        return jnp.sum(y * dy) + jnp.sum(st[1]) * 1e-3
+
+    ref = np.asarray(jax.grad(jf)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    y, st = tfc.pw_conv_plain(xt, torch.from_numpy(s), torch.from_numpy(t),
+                              torch.from_numpy(w), True)
+    (y * torch.from_numpy(dy)).sum().add(st[1].sum() * 1e-3).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), ref, rtol=1e-6, atol=1e-6)
+    # the tie rows carry half of the gradient of the rows just above zero
+    assert np.abs(ref[::2, :4]).max() > 0
+
+
+def test_dw_split_covers_the_pixels():
+    for m, cin, cout, taps in ((100352, 64, 64, 1), (100352, 64, 64, 9),
+                               (1568, 1024, 2048, 1), (49, 512, 512, 9), (1, 8, 8, 1)):
+        chunk, splits = tfc.dw_split(m, cin, cout, taps, 132)
+        assert chunk % 32 == 0 and splits * chunk >= m > (splits - 1) * chunk
+        if m >= 32 * 264:
+            # about two blocks per SM even when the output is one tile
+            blocks = splits * taps * -(-cin // 64) * -(-cout // 64)
+            assert 1.9 * 132 <= blocks < 4 * 132

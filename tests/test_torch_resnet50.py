@@ -134,13 +134,6 @@ def test_bottleneck_eval_matches_jax(stride, project, dtype):
         assert np.median(err) <= 2.0 ** -7 * np.median(np.abs(jy))
 
 
-def test_bottleneck_train_mode_is_refused():
-    tl = tlayers.FusedResNetBottleneck(width=4, project=True)
-    tl.initialize(tconf.InputType.convolutional(4, 4, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.apply({}, torch.zeros((1, 4, 4, 4)), state={"mean_a": 0}, train=True)
-
-
 # -------------------------------------------------------------- narrow graph
 def _narrow(conf_pkg, layers, compute_dtype):
     """Stem, pool, two bottlenecks, avgpool, output: the same builder calls
