@@ -8,12 +8,16 @@ Run from the repository root with no arguments::
 It builds the port's CUDA kernels from ``deeplearning4j_tpu_torch/nn/ops/
 csrc`` (phase 1), holds each forward kernel (phase 2) and each backward
 kernel (phase 2b) against its plain PyTorch version at every ResNet-50 shape
-it runs, serves a full-width bf16 ResNet-50 (random weights from a seed)
-through ``InferenceEngine`` (phase 3), and trains it with
-``ComputationGraph.fit`` (phase 4): gradients against the plain path on the
-card, the kernel launches of each train step, five steps whose score falls,
-and the train speed. Each phase prints one or more lines; any failure
-raises, and the script exits nonzero. The last three lines are the
+it runs, and the int8 matmul (phase 2c) at VGG16's and LeNet's head shapes;
+serves a full-width bf16 ResNet-50 (random weights from a seed) through
+``InferenceEngine`` (phase 3), and trains it with ``ComputationGraph.fit``
+(phase 4): gradients against the plain path on the card, the kernel
+launches of each train step, five steps whose score falls, and the train
+speed. Phase 5 serves a full-width f32 VGG16 (seeded) in an int8-head
+engine and an f32 engine; phase 6 drives the entry points: the HTTP server
+over the int8 VGG16 engine, ``cli serve --smoke`` on a LeNet checkpoint
+written by the port, and ``/reload``. Each phase prints one or more lines;
+any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
 prints them), and
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 
 SEED = 20261016
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12        # H100 SXM f32 rate of the CUDA cores (no tensor cores)
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 F32_EPS = 2.0 ** -24
 BF16_STEP = 2.0 ** -7         # one bf16 rounding step, relative
@@ -66,7 +71,21 @@ KERNELS = {
     "pw_conv_dw": (f"{CSRC}/fused_conv_bwd.cu", f"{REF}:138"),
     "conv3x3_dx": (f"{CSRC}/fused_conv_bwd.cu", f"{REF}:330"),
     "conv3x3_dw": (f"{CSRC}/fused_conv_bwd.cu", f"{REF}:363"),
+    "int8_matmul": (f"{CSRC}/int8_matmul.cu", "deeplearning4j_tpu/nn/ops/int8_matmul.py:80"),
 }
+# VGG16 (1000 classes, 224x224x3): the three dense heads (K, N), the layer
+# index of the first one, and the int8 report the engine must give
+VGG_HEADS = [(25088, 4096), (4096, 4096), (4096, 1000)]
+VGG_FIRST_HEAD = 18
+VGG_BYTES_F32 = 4 * sum(k * n for k, n in VGG_HEADS)                    # 494,534,656
+VGG_BYTES_INT8 = sum(k * n + 4 * n for k, n in VGG_HEADS)               # 123,670,432
+LENET_HEADS = [(2450, 500), (500, 10)]
+PAD_TOL = 1e-6                # padding: 7 rows padded to bucket 8 vs the same rows of 8
+# across buckets (1 and 7 rows against 32): cuDNN picks its algorithm by the
+# batch size (an FFT at 32, implicit GEMMs at 1 and 8), so the f32 summation
+# order differs; the f32 bound the CPU tests use on probabilities
+BUCKET_TOL = 1e-5
+INT8_PLAIN_TOL = 1e-4         # served int8 probabilities vs the plain int8 heads
 
 # (Cin, Cout, H=W, launches in one ResNet-50 forward; a train step's backward
 # launches each backward kernel as often)
@@ -107,8 +126,8 @@ def time_ms(fn) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -385,6 +404,86 @@ def backward_phase(fc):
     return rows, summary
 
 
+def int8_cases():
+    """(B, K, N, dtype, launches per VGG16 forward at this B): VGG16's three
+    heads at buckets 1, 8 and 32 in f32 (the VGG16 path) and bf16, LeNet's
+    two heads, and a ragged case."""
+    cases = [(b, k, n, dt, 1 if dt == torch.float32 else 0)
+             for b in (1, 8, 32) for k, n in VGG_HEADS
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(b, k, n, torch.float32, 0) for b in (1, 8) for k, n in LENET_HEADS]
+    return cases + [(3, 777, 130, torch.float32, 0), (3, 777, 130, torch.bfloat16, 0)]
+
+
+def check_int8(im, x, q, s):
+    """Kernel vs plain version: |k - p| <= 2K*2^-24*(|x|.|q|)*s, the f32
+    summation-order difference; for bf16 x plus one bf16 step of |p| for the
+    output and one for the scale. Returns (max_abs_err, err/tol)."""
+    yk = im.int8_matmul(x, q, s)
+    yp = im.int8_matmul_plain(x, q, s)
+    torch.cuda.synchronize()
+    tol = 2 * x.shape[1] * F32_EPS * (x.float().abs() @ q.float().abs()) * s
+    if x.dtype == torch.bfloat16:
+        tol = tol + 2 * BF16_STEP * yp.float().abs()
+    err = (yk.float() - yp.float()).abs()
+    if not bool(torch.isfinite(yk.float()).all()):
+        raise AssertionError("int8_matmul returned non-finite values")
+    return float(err.max()), float((err / tol.clamp_min(1e-30)).max())
+
+
+def int8_phase(im):
+    """Phase 2c: the int8 kernel against its plain version on the card;
+    times summed over the three head launches of one VGG16 forward at
+    B = 1 and 32 (f32 x): the kernel, the plain version, and the library's
+    f32 matmul on the dequantized weight."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows, sums = [], {}
+    for b, k, n, dt, count in int8_cases():
+        x = torch.randn(b, k, generator=gen, device="cuda").to(dt)
+        w = torch.randn(k, n, generator=gen, device="cuda") * math.sqrt(2.0 / k)
+        q, s = im.quantize_int8(w)
+        q, s = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+        err, ratio = check_int8(im, x, q, s)
+        row = {"b": b, "k": k, "n": n, "dtype": str(dt).split(".")[-1],
+               "launches_per_forward": count, "max_abs_err": err, "err_over_tol": ratio}
+        timing = ""
+        if count and b in (1, 32):
+            wf = q.float() * s
+            row["kernel_ms"] = time_ms(lambda: im.int8_matmul(x, q, s))
+            row["plain_ms"] = time_ms(lambda: im.int8_matmul_plain(x, q, s))
+            row["library_ms"] = time_ms(lambda: torch.matmul(x, wf))
+            flops = 2.0 * b * k * n
+            nbytes = b * k * 4 + k * n + n * 4 + b * n * 4
+            row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)
+            acc = sums.setdefault(b, {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                      "bound_ms": 0.0, "bound_bytes_ms": 0.0,
+                                      "bound_ops_ms": 0.0})
+            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms"):
+                acc[key] += row[key]
+            acc["bound_bytes_ms"] += nbytes / PEAK_BYTES * 1e3
+            acc["bound_ops_ms"] += flops / PEAK_F32_FLOPS * 1e3
+            timing = (f" kernel_ms {row['kernel_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                      f"library_ms {row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+                      f"({row['bound_by']})")
+        rows.append(row)
+        print(f"phase 2c kernel int8_matmul B {b} K {k} N {n} {row['dtype']}: max_abs_err "
+              f"{err:.3g} err/tol {ratio:.3g} (tol = 2K*2^-24*(|x|.|q|)*s"
+              f"{' + 2*2^-7|p|' if dt == torch.bfloat16 else ''}){timing} "
+              f"{'ok' if ratio <= 1 else 'FAIL'}", flush=True)
+        if ratio > 1:
+            raise AssertionError(f"int8_matmul disagrees with its plain version: {row}")
+    for b, acc in sums.items():
+        acc["bound_by"] = "operations" if acc["bound_ops_ms"] >= acc["bound_bytes_ms"] else "bytes"
+        print(f"phase 2c VGG16 heads B {b}: kernel_ms {acc['kernel_ms']:.4f} plain_ms "
+              f"{acc['plain_ms']:.4f} library_ms {acc['library_ms']:.4f} (torch.matmul on the "
+              f"dequantized f32 weight) bound_ms {acc['bound_ms']:.4f} ({acc['bound_by']}: "
+              f"bytes {acc['bound_bytes_ms']:.4f} at 3.35 TB/s, operations "
+              f"{acc['bound_ops_ms']:.4f} at the 67 TFLOP/s f32 CUDA-core peak)", flush=True)
+    summary = {**sums[32], "max_abs_err": max(r["max_abs_err"] for r in rows),
+               "b1": sums[1]}
+    return rows, summary
+
+
 def randomize_bn(model, seed: int) -> None:
     """BN running stats and affine params from the seed, so BN is not the
     identity; the last BN of each residual branch gets a small gamma, which
@@ -643,6 +742,257 @@ def train_phase(fc, card: str):
             "lr": TRAIN_LR}
 
 
+def spread_softmax(model, x: np.ndarray, target: float = 0.3) -> float:
+    """Scale the output layer's seeded W (in place) so that the mean max
+    probability on ``x`` is about ``target``: a random VGG16's softmax is
+    otherwise saturated or flat, and every comparison of probabilities would
+    be vacuous. Returns the scale."""
+    n = len(model.layers)
+    with torch.inference_mode():
+        h, _ = model._forward(model.params_, model.state_,
+                              torch.from_numpy(x).cuda(), stop_before=n - 1)
+        p = model.params_[n - 1]
+        z0 = h @ p["W"]
+        lo, hi = 1e-4, 1e4
+        for _ in range(60):
+            mid = math.sqrt(lo * hi)
+            m = float(torch.softmax(mid * z0 + p["b"], -1).max(1).values.mean())
+            lo, hi = (lo, mid) if m > target else (mid, hi)
+    scale = math.sqrt(lo * hi)
+    model.params_[n - 1]["W"] = p["W"] * scale
+    return scale
+
+
+def _speed(engine, x):
+    """(images/s at bucket 32, median ms at bucket 1, peak GiB): host clock,
+    copies included, after the warm-up of the main path."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        engine.infer(x)
+    t32 = (time.perf_counter() - t0) / iters
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        engine.infer(x[:1])
+        lat.append(time.perf_counter() - t0)
+    return BATCH / t32, float(np.median(lat) * 1e3), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _row_sum_dev(r) -> float:
+    return float(np.abs(r.sum(1) - 1.0).max())
+
+
+def vgg_phase(fc, im, card: str):
+    """Phase 5: full-width f32 VGG16 (1000 classes, 224x224x3, seeded) in an
+    int8-head engine and an f32 engine, buckets [1, 8, 32]."""
+    from deeplearning4j_tpu_torch.models import VGG16
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+
+    t0 = time.perf_counter()
+    model = VGG16(num_classes=1000, seed=SEED).init()
+    rng = np.random.default_rng(SEED + 7)
+    x = rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32)
+    scale = spread_softmax(model, x)
+    e8 = InferenceEngine(model, buckets=[1, 8, 32], int8_serving=True)
+    e32 = InferenceEngine(model, buckets=[1, 8, 32])
+    init_s = time.perf_counter() - t0
+    rep = e8.int8_report
+    heads = e8._snap.params[VGG_FIRST_HEAD:]
+    snap_ok = all("W" not in p and p["W_q8"].dtype == torch.int8
+                  and p["W_q8"].device.type == e8.device.type for p in heads)
+    print(f"phase 5 setup: VGG16 1000 classes 224x224x3 f32, {model.num_params():,} params, "
+          f"init {init_s:.1f}s, output W scaled by {scale:.4g}; int8 report {rep}; "
+          f"snapshot heads hold W_q8/W_scale only: {snap_ok}", flush=True)
+
+    # the main path: counts from 0 just before, read just after
+    fc.reset_launch_counts()
+    warm8 = e8.warmup()
+    r1, r7, r8 = e8.infer(x[:1]), e8.infer(x[:7]), e8.infer(x[:8])
+    before = dict(fc.launch_counts)
+    r32 = e8.infer(x)
+    after = dict(fc.launch_counts)
+    main_launches = dict(fc.launch_counts)
+    per_forward = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+    fc.reset_launch_counts()
+    warm32 = e32.warmup()
+    f1, f7, f8, f32 = (e32.infer(x[:n]) for n in (1, 7, 8, BATCH))
+    f32_launches = sum(fc.launch_counts.values())
+    print(f"phase 5 serve: warmup int8 {warm8} f32 {warm32}; launches in one int8 forward "
+          f"{per_forward}, main-path launches {main_launches}; f32 engine launches "
+          f"{f32_launches}", flush=True)
+
+    # the int8 heads on their plain version, from the snapshot's activations
+    # into the first head
+    snap = e8._snap
+    with torch.inference_mode():
+        a, _ = model._forward(snap.params, snap.state, torch.from_numpy(x).cuda(),
+                              stop_before=VGG_FIRST_HEAD, cast_params=False)
+        for i, p in enumerate(heads):
+            z = im.int8_matmul_plain(a, p["W_q8"], p["W_scale"]) + p["b"]
+            a = torch.relu(z) if i < len(heads) - 1 else torch.softmax(z, -1)
+        ref8 = a.cpu().numpy()
+    d_plain = float(np.abs(r32 - ref8).max())
+    pad8 = float(np.abs(r7 - r8[:7]).max())
+    pad32 = float(np.abs(f7 - f8[:7]).max())
+    cross8 = float(max(np.abs(r1 - r32[:1]).max(), np.abs(r7 - r32[:7]).max()))
+    cross32 = float(max(np.abs(f1 - f32[:1]).max(), np.abs(f7 - f32[:7]).max()))
+    dp = float(np.abs(r32 - f32).max())
+    top2 = np.sort(f32, 1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * dp
+    agree = r32.argmax(1) == f32.argmax(1)
+    maxprob = float(f32.max(1).mean())
+    print(f"phase 5 check: rows sum to 1 (max dev int8 {_row_sum_dev(r32):.3g}, f32 "
+          f"{_row_sum_dev(f32):.3g}); int8 vs its plain heads on the card max|dp| {d_plain:.3g} "
+          f"(tol {INT8_PLAIN_TOL}); padding (7 rows in bucket 8 vs the same rows of 8) "
+          f"max|dp| int8 {pad8:.3g} f32 {pad32:.3g} (tol {PAD_TOL}); across buckets (1 and 7 "
+          f"rows vs 32) max|dp| int8 {cross8:.3g} f32 {cross32:.3g} (tol {BUCKET_TOL}); int8 vs f32 max|dp| {dp:.3g}, top-1 agreement "
+          f"{int(agree.sum())}/{BATCH} ({int(decided.sum())} rows with f32 top-2 gap > "
+          f"2 max|dp|, all of which must agree); mean max prob {maxprob:.3f}", flush=True)
+
+    s8, l8, m8 = _speed(e8, x)
+    s32, l32, m32 = _speed(e32, x)
+    print(f"phase 5 speed: int8 heads {s8:.1f} images/s at bucket 32, {l8:.2f} ms median at "
+          f"bucket 1, peak {m8:.2f} GiB; f32 {s32:.1f} images/s, {l32:.2f} ms, peak "
+          f"{m32:.2f} GiB (host clock, copies included) on {card}", flush=True)
+
+    failed = []
+    if per_forward != {"int8_matmul": 3} or f32_launches:
+        failed.append(f"launches: int8 forward {per_forward}, f32 engine {f32_launches}")
+    if (rep["layers_quantized"], rep["weight_bytes_fp32"], rep["weight_bytes_int8"]) != (
+            3, VGG_BYTES_F32, VGG_BYTES_INT8) or not snap_ok:
+        failed.append(f"int8 report {rep} or snapshot")
+    for name, rows in (("int8", (r1, r7, r8, r32)), ("f32", (f1, f7, f8, f32))):
+        for r, n in zip(rows, (1, 7, 8, BATCH)):
+            if r.shape != (n, 1000) or not np.isfinite(r).all() or _row_sum_dev(r) > 1e-5:
+                failed.append(f"{name} engine: bad output for {n} rows")
+    if d_plain > INT8_PLAIN_TOL:
+        failed.append(f"int8 engine vs plain int8 heads {d_plain}")
+    if max(pad8, pad32) > PAD_TOL:
+        failed.append(f"bucket padding changed rows by {max(pad8, pad32)}")
+    if max(cross8, cross32) > BUCKET_TOL:
+        failed.append(f"rows differ across buckets by {max(cross8, cross32)}")
+    if not agree[decided].all():
+        failed.append("int8 top-1 differs from f32 on a decided row")
+    if not 0.05 <= maxprob <= 0.9:
+        failed.append(f"mean max probability {maxprob} outside [0.05, 0.9]")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return e8, x, {
+        "main_launches": main_launches, "per_forward": per_forward,
+        "f32_engine_launches": f32_launches, "int8_report": rep, "output_w_scale": scale,
+        "max_abs_dp_vs_plain_heads": d_plain, "pad_diff_int8": pad8, "pad_diff_f32": pad32,
+        "bucket_diff_int8": cross8, "bucket_diff_f32": cross32,
+        "max_abs_dp_int8_vs_f32": dp, "top1_agree": int(agree.sum()),
+        "rows_decided": int(decided.sum()), "mean_max_prob": maxprob,
+        "int8": {"images_per_s_b32": s8, "latency_ms_b1": l8, "peak_gib": m8},
+        "f32": {"images_per_s_b32": s32, "latency_ms_b1": l32, "peak_gib": m32},
+        "warmup_int8": warm8, "warmup_f32": warm32}
+
+
+def _http(port, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _npy_bytes(x) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, x)
+    return buf.getvalue()
+
+
+def entry_points_phase(e8, x):
+    """Phase 6: the HTTP server over the int8 VGG16 engine; ``cli serve
+    --smoke`` on a LeNet checkpoint written by the port; ``/reload``."""
+    import io
+
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.serving import InferenceEngine, InferenceServer
+    from deeplearning4j_tpu_torch.train.model_serializer import ModelSerializer
+
+    failed = []
+    srv = InferenceServer(e8, port=0).start()
+    try:
+        req0 = e8.metrics.requests
+        code, raw = _http(srv.port, "POST", "/predict_npy", _npy_bytes(x[:8]))
+        d8 = float(np.abs(np.load(io.BytesIO(raw)) - e8.infer(x[:8])).max()) \
+            if code == 200 else float("inf")
+        code1, raw1 = _http(srv.port, "POST", "/predict",
+                            json.dumps({"inputs": x[:1].tolist()}))
+        d1 = (float(np.abs(np.asarray(json.loads(raw1)["outputs"]) - e8.infer(x[:1])).max())
+              if code1 == 200 else float("inf"))
+        _, h = _http(srv.port, "GET", "/healthz")
+        h = json.loads(h)
+        _, m = _http(srv.port, "GET", "/metrics")
+        m = json.loads(m)
+    finally:
+        srv.shutdown()
+    print(f"phase 6 http: /predict_npy 8 rows HTTP {code} max|d| {d8:.3g} vs engine.infer, "
+          f"/predict 1 row HTTP {code1} max|d| {d1:.3g}; /healthz int8_serving "
+          f"{h.get('int8_serving')} report {h.get('int8_report')}; /metrics requests "
+          f"{m.get('requests')} (before {req0})", flush=True)
+    if max(d8, d1) > 1e-6:
+        failed.append(f"HTTP answers differ from engine.infer by {max(d8, d1)}")
+    if h.get("int8_serving") is not True or h.get("int8_report") != e8.int8_report:
+        failed.append(f"/healthz {h}")
+    if m.get("requests") != req0 + 2:
+        failed.append(f"/metrics counted {m.get('requests')} requests, expected {req0 + 2}")
+
+    out_dir = os.path.abspath(os.path.join("chiprun_out", "chip_smoke_ckpt"))
+    os.makedirs(out_dir, exist_ok=True)
+    zips = []
+    for i in range(2):
+        path = os.path.join(out_dir, f"lenet_{i}.zip")
+        ModelSerializer.write_model(LeNet(num_classes=10, seed=SEED + i).init(), path)
+        zips.append(path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "serve",
+                        "--model", zips[0], "--int8-serving", "--port", "0", "--smoke"],
+                       cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=300)
+    cli_ok = r.returncode == 0 and "smoke: HTTP 200 ok" in r.stdout
+    print(f"phase 6 cli serve --model {zips[0]} --int8-serving --port 0 --smoke: exit "
+          f"{r.returncode} in {time.perf_counter() - t0:.1f}s; "
+          f"{' | '.join(r.stdout.strip().splitlines())}", flush=True)
+    if not cli_ok:
+        failed.append(f"cli serve --smoke failed: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+
+    eng = InferenceEngine.from_checkpoint(zips[0], buckets=[1, 8], int8_serving=True)
+    srv = InferenceServer(eng, port=0).start()
+    xl = json.dumps({"inputs": np.random.default_rng(SEED + 8).standard_normal(
+        (2, 28, 28, 1)).astype(np.float32).tolist()})
+    try:
+        _, a = _http(srv.port, "POST", "/predict", xl)
+        code_r, rep = _http(srv.port, "POST", "/reload", json.dumps({"path": zips[1]}))
+        _, b = _http(srv.port, "POST", "/predict", xl)
+    finally:
+        srv.shutdown()
+    a, rep, b = json.loads(a), json.loads(rep), json.loads(b)
+    change = float(np.abs(np.asarray(a["outputs"]) - np.asarray(b["outputs"])).max())
+    print(f"phase 6 reload: HTTP {code_r} {rep}; answers from version {b['model_version']} "
+          f"differ from version {a['model_version']} by max|d| {change:.3g}", flush=True)
+    if not (code_r == 200 and rep.get("version") == 1 and b["model_version"] == 1
+            and change > 1e-3):
+        failed.append("/reload did not swap in the second checkpoint")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"http_max_abs_diff": max(d8, d1), "cli_smoke_stdout": r.stdout,
+            "reload": rep, "reload_answer_change": change}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -650,6 +1000,7 @@ def main() -> int:
         return 2
     from deeplearning4j_tpu_torch.nn.ops import build
     from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
+    from deeplearning4j_tpu_torch.nn.ops import int8_matmul as im
 
     card = smi_line()
     t0 = time.perf_counter()
@@ -657,7 +1008,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"phase 1 device: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernel build {build_s:.1f}s", flush=True)
-    for lib in ("fused_conv", "fused_conv_bwd"):
+    for lib in ("fused_conv", "fused_conv_bwd", "int8_matmul"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1 ptxas {lib}: {line.strip()}", flush=True)
@@ -665,26 +1016,39 @@ def main() -> int:
     rows, summary = kernels_phase(fc)
     bwd_rows, bwd_summary = backward_phase(fc)
     summary.update(bwd_summary)
+    int8_rows, summary["int8_matmul"] = int8_phase(im)
     serve = serve_phase(fc, card)
     train = train_phase(fc, card)
+    e8, x, vgg = vgg_phase(fc, im, card)
+    entry = entry_points_phase(e8, x)
 
-    # launches: the train phase's main path (TRAIN_STEPS fit steps); times:
-    # summed over one batch-32 forward (or backward) at the 19 shapes
+    # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
+    # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine);
+    # times: the convs' summed over one batch-32 forward (or backward) at the
+    # 19 shapes, the int8 matmul's over the three heads of one VGG16 forward
+    # at bucket 32 (bucket 1 under "b1")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]
-        kernels.append({
+        entry_k = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train["main_launches"].get(name, 0),
-            "launches_per_train_step": train["launches_per_step"].get(name, 0),
+            "launches": (vgg if name == "int8_matmul" else train)["main_launches"].get(name, 0),
             "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
+        if name == "int8_matmul":
+            entry_k["launches_per_forward"] = vgg["per_forward"].get(name, 0)
+            entry_k["b1"] = {k: s["b1"][k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "library_ms")}
+        else:
+            entry_k["launches_per_train_step"] = train["launches_per_step"].get(name, 0)
+        kernels.append(entry_k)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build_s": build_s,
-                   "cases": rows, "backward_cases": bwd_rows, "summary": summary,
-                   "serve": serve, "train": train, "kernels": kernels}, f, indent=1)
+                   "cases": rows, "backward_cases": bwd_rows, "int8_cases": int8_rows,
+                   "summary": summary, "serve": serve, "train": train, "vgg16": vgg,
+                   "entry_points": entry, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,8 @@ __version__ = "0.1.0"
 # default for fp32 convolutions — stays off for matmuls and convolutions.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# and a bf16 matmul accumulates in f32 to the end, as XLA's does
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 #: the device an entry point uses when the caller names none
 DEFAULT_DEVICE = "cuda"

@@ -4,7 +4,8 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/graph_builder.py``: named
 vertices, named inputs/outputs, per-vertex input lists, validation, a
 deterministic topological order and type inference. The configuration dict
 (``to_dict``/``to_json``) is the reference's, so a configuration written by
-either package builds in the other.
+either package builds in the other. ``build`` inserts input preprocessors
+where the reference's graph builder does (``builders.infer_preprocessor``).
 """
 
 from __future__ import annotations
@@ -28,11 +29,14 @@ class LayerVertex(GraphVertex):
         self.layer = layer
         self.preprocessor = preprocessor
 
-    def get_output_type(self, *input_types: InputType) -> InputType:
+    def layer_input_type(self, input_type: InputType) -> InputType:
+        """The type the layer sees: ``input_type`` after the preprocessor."""
         if self.preprocessor is not None:
-            raise NotImplementedError(
-                "input preprocessors are not ported yet (ROADMAP § A)")
-        return self.layer.get_output_type(input_types[0])
+            return self.preprocessor.get_output_type(input_type)
+        return input_type
+
+    def get_output_type(self, *input_types: InputType) -> InputType:
+        return self.layer.get_output_type(self.layer_input_type(input_types[0]))
 
     def to_dict(self) -> dict:
         return {"@class": "LayerVertex", "layer": serde.encode(self.layer),
@@ -99,7 +103,7 @@ class ComputationGraphConfiguration:
             v = self.vertices[name]
             in_types = [types[src] for src in self.vertex_inputs[name]]
             if isinstance(v, LayerVertex):
-                seen[name] = in_types[0]
+                seen[name] = v.layer_input_type(in_types[0])
             types[name] = v.get_output_type(*in_types)
         return seen
 
@@ -170,8 +174,9 @@ class GraphBuilder:
         self._input_types = list(types)
         return self
 
-    def add_layer(self, name: str, layer: Layer, *inputs: str) -> "GraphBuilder":
-        return self.add_vertex(name, LayerVertex(layer), *inputs)
+    def add_layer(self, name: str, layer: Layer, *inputs: str,
+                  preprocessor=None) -> "GraphBuilder":
+        return self.add_vertex(name, LayerVertex(layer, preprocessor), *inputs)
 
     def add_vertex(self, name: str, vertex: GraphVertex, *inputs: str) -> "GraphBuilder":
         if name in self._vertices or name in self._inputs:
@@ -191,7 +196,7 @@ class GraphBuilder:
         return self
 
     def build(self) -> ComputationGraphConfiguration:
-        from deeplearning4j_tpu_torch.nn.conf.builders import check_no_preprocessor
+        from deeplearning4j_tpu_torch.nn.conf.builders import infer_preprocessor
 
         if not self._inputs:
             raise ValueError("addInputs(...) required")
@@ -216,9 +221,11 @@ class GraphBuilder:
                 v = self._vertices[name]
                 in_types = [types[src] for src in self._vertex_inputs[name]]
                 if isinstance(v, LayerVertex):
-                    check_no_preprocessor(in_types[0], v.layer)
-                    v.layer.initialize(in_types[0])
-                    types[name] = v.layer.get_output_type(in_types[0])
+                    if v.preprocessor is None:
+                        v.preprocessor = infer_preprocessor(in_types[0], v.layer)
+                    t = v.layer_input_type(in_types[0])
+                    v.layer.initialize(t)
+                    types[name] = v.layer.get_output_type(t)
                 else:
                     types[name] = v.get_output_type(*in_types)
         return ComputationGraphConfiguration(

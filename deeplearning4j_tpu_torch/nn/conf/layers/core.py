@@ -1,11 +1,13 @@
 """Core feed-forward layers: ActivationLayer, DenseLayer, OutputLayer.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers/core.py``. Dense and
-output layers are a plain matmul (``torch.matmul``, TF32 off), as the
-reference leaves them to XLA. Under ``compute_dtype`` the output layer keeps
-f32 params while its input is bf16: JAX promotes the product to f32
-silently, torch refuses mixed-dtype matmuls, so :func:`_affine` promotes
-explicitly and the softmax runs in f32 as in JAX.
+output layers go through ``int8_matmul.serving_matmul``, as the reference's
+do: a plain matmul (``torch.matmul``, TF32 off) for f32 params, the int8
+kernel for a serving snapshot's quantized ``W_q8``/``W_scale``. Under
+``compute_dtype`` the output layer keeps f32 params while its input is
+bf16: JAX promotes the product to f32 silently, torch refuses mixed-dtype
+matmuls, so :func:`_affine` promotes explicitly and the softmax runs in f32
+as in JAX. A layer's ``dropout`` is the identity in eval, as in JAX.
 """
 
 from __future__ import annotations
@@ -16,13 +18,15 @@ from deeplearning4j_tpu_torch import activations as _act
 from deeplearning4j_tpu_torch import losses as _losses
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.layers.base import FeedForwardLayer, Layer
+from deeplearning4j_tpu_torch.nn.ops.int8_matmul import serving_matmul
 
 
 def _affine(params, x: torch.Tensor) -> torch.Tensor:
-    """``x @ W + b`` with JAX's dtype promotion."""
-    w, b = params["W"], params["b"]
-    dt = torch.promote_types(torch.promote_types(x.dtype, w.dtype), b.dtype)
-    return x.to(dt) @ w.to(dt) + b.to(dt)
+    """``x @ W + b`` with JAX's dtype promotion (``W`` or its int8 form)."""
+    y = serving_matmul(params, x)
+    b = params["b"]
+    dt = torch.promote_types(y.dtype, b.dtype)
+    return y.to(dt) + b.to(dt)
 
 
 @serde.register

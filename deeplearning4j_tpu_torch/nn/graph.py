@@ -44,25 +44,18 @@ from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
     LayerVertex,
 )
 from deeplearning4j_tpu_torch.nn.conf.layers.base import check_trainable
-from deeplearning4j_tpu_torch.nn.conf.layers.norm import BatchNormalization
-from deeplearning4j_tpu_torch.nn.multilayer import apply_layer_updates
+from deeplearning4j_tpu_torch.nn.multilayer import (
+    apply_layer_updates,
+    cast_layer_params_for_compute,
+    flatten_tensors,
+    unflatten_tensors,
+)
 from deeplearning4j_tpu_torch.regularization import as_regularization
 from deeplearning4j_tpu_torch.updaters import as_updater
 
 NOT_PORTED = "not ported yet (ROADMAP § A, training slices)"
 
 Tensors = Dict[str, torch.Tensor]
-
-
-def cast_layer_params_for_compute(layer, p: Tensors, cd: torch.dtype, *,
-                                  is_output: bool) -> Tensors:
-    """Mixed-precision cast of one layer's params: float params -> ``cd``,
-    except normalization layers, output layers and ``keep_fp32_params``."""
-    if isinstance(layer, BatchNormalization) or is_output:
-        return p
-    keep = getattr(layer, "keep_fp32_params", ())
-    return {k: v.to(cd) if v.is_floating_point() and k not in keep else v
-            for k, v in p.items()}
 
 
 class ComputationGraph:
@@ -119,6 +112,15 @@ class ComputationGraph:
     def num_params(self) -> int:
         return int(sum(t.numel() for p in self.params_.values() for t in p.values()))
 
+    def params_flat(self) -> np.ndarray:
+        """One flat f32 parameter vector: layers in topological order, param
+        names sorted (the checkpoint's ``coefficients.bin`` order)."""
+        return flatten_tensors([self.params_[n] for n in self.layer_names])
+
+    def set_params_flat(self, vec: np.ndarray) -> None:
+        new = unflatten_tensors({n: self.params_[n] for n in self.layer_names}, vec)
+        self.params_ = {**self.params_, **new}
+
     # -------------------------------------------------------------- forward
     def compute_params(self, params: Optional[Dict[str, Tensors]] = None
                        ) -> Dict[str, Tensors]:
@@ -155,9 +157,12 @@ class ComputationGraph:
             v = conf.vertices[name]
             in_acts = [acts[s] for s in conf.vertex_inputs[name]]
             if isinstance(v, LayerVertex):
+                x = in_acts[0]
+                if v.preprocessor is not None:
+                    x = v.preprocessor.pre_process(x)
                 if v.layer.is_output_layer:
-                    out_inputs[name] = in_acts[0]
-                y, st = v.layer.apply(params.get(name, {}), in_acts[0],
+                    out_inputs[name] = x
+                y, st = v.layer.apply(params.get(name, {}), x,
                                       state=state.get(name, {}), train=train)
                 acts[name] = y
                 new_state[name] = st if st is not None else {}

@@ -25,7 +25,7 @@ conv through its statistics.
 Dispatch: a CPU tensor goes to the plain versions (``*_plain``). A CUDA
 tensor goes to the kernels (bf16 in and out, f32 accumulation), or the
 wrapper raises: there is no fallback. Each launch adds one to
-``launch_counts[name]``:
+``launch_counts[name]`` (``launch.py``, shared with the int8 matmul):
 
 =============  =========================  ====================================
 name           kernel (csrc/)             replaces (JAX ``fused_conv.py``)
@@ -41,28 +41,21 @@ name           kernel (csrc/)             replaces (JAX ``fused_conv.py``)
 
 from __future__ import annotations
 
-import collections
-import ctypes
-import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.nn.ops import build
-
-#: kernel launches in this process, by kernel name; callers reset it to 0
-#: around the work they want to attribute
-launch_counts: "collections.Counter[str]" = collections.Counter()
-
-
-class KernelLaunchError(RuntimeError):
-    """A kernel launch was refused (the C function returned a nonzero
-    ``cudaGetLastError``)."""
-
-
-def reset_launch_counts() -> None:
-    launch_counts.clear()
+from deeplearning4j_tpu_torch.nn.ops.launch import (  # noqa: F401 (re-exported)
+    KernelLaunchError,
+    KernelLibrary,
+    check_kernel_args as _check_kernel_args,
+    launch as _launch,
+    launch_counts,
+    ptrs as _ptrs,
+    reset_launch_counts,
+    sm_count as _sm_count,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -193,57 +186,13 @@ def conv3x3_bwd_plain(x, scale, shift, w, z, dz, dst, relu_in: bool = False):
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-class _Lib:
-    """ctypes binding of one ``csrc/<name>.cu``, loaded (and built) on the
-    first kernel call."""
-
-    def __init__(self, name: str, signatures, tiles: str):
-        self.name, self.signatures, self.tiles = name, signatures, tiles
-        self.handle = None
-        self.tile = {}
-
-    def get(self):
-        if self.handle is None:
-            lib = build.load(self.name)
-            for fn, (n_ptr, n_int) in self.signatures.items():
-                getattr(lib, fn).argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
-                getattr(lib, fn).restype = _I
-            query = getattr(lib, self.tiles)
-            query.argtypes, query.restype = [_I], _I
-            self.tile = {k: int(query(i)) for i, k in enumerate("mnk")}
-            self.handle = lib
-        return self.handle
-
-
-_FWD = _Lib("fused_conv", {"dl4j_pw_conv_fwd": (7, 4), "dl4j_conv3x3_fwd": (7, 6)},
-            "dl4j_fused_conv_tile")
-_BWD = _Lib("fused_conv_bwd", {
+_FWD = KernelLibrary("fused_conv",
+                     {"dl4j_pw_conv_fwd": (7, 4), "dl4j_conv3x3_fwd": (7, 6)},
+                     "dl4j_fused_conv_tile")
+_BWD = KernelLibrary("fused_conv_bwd", {
     "dl4j_pw_conv_bwd_dx": (10, 4), "dl4j_conv3x3_bwd_dx": (10, 6),
     "dl4j_pw_conv_bwd_dw": (8, 5), "dl4j_conv3x3_bwd_dw": (8, 7)},
     "dl4j_fused_conv_bwd_tile")
-
-
-def _check_kernel_args(op: str, x, specs) -> None:
-    """``specs``: (name, tensor, dtype, shape) for every tensor the kernel
-    reads; the kernel takes CUDA tensors of one device, of those types and
-    shapes, contiguous."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{op}: the kernel takes CUDA tensors, got {x.device}")
-    for name, t, dt, shape in specs:
-        if t.device != x.device:
-            raise ValueError(f"{op}: {name} is on {t.device}, x on {x.device}")
-        if t.dtype != dt:
-            raise TypeError(f"{op}: {name} must be {dt}, got {t.dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{op}: {name} must have shape {tuple(shape)}, "
-                             f"got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(
-                f"{op}: {name} must be contiguous (strides {t.stride()}); "
-                "a strided view such as x[:, ::2, ::2, :] needs .contiguous()")
 
 
 def _geometry(op: str, x, w):
@@ -262,17 +211,6 @@ def _geometry(op: str, x, w):
     m = x.numel() // cin if cin else 0
     dims = (m,) if pointwise else tuple(x.shape[:3])
     return pointwise, m, cin, cout, dims
-
-
-def _launch(fn, op: str, args) -> None:
-    rc = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if rc != 0:
-        raise KernelLaunchError(f"{op} kernel launch failed: cudaError {rc}")
-    launch_counts[op] += 1
-
-
-def _ptrs(*ts):
-    return tuple(t.data_ptr() for t in ts)
 
 
 def _fused_fwd(op: str, x, scale, shift, w, relu_in: bool):
@@ -327,11 +265,6 @@ def _fused_bwd_dx(op: str, x, scale, shift, w, z, dz, dst, relu_in: bool):
         _launch(fn, op, (*_ptrs(x, scale, shift, w, z, dz, dst, dx, partial, gst),
                          *dims, cin, cout, int(bool(relu_in))))
     return dx, gst[0], gst[1]
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dw_split(m: int, cin: int, cout: int, taps: int, sms: int,

@@ -1,0 +1,191 @@
+"""Zip-format model checkpoints, the reference's format.
+
+Counterpart of ``deeplearning4j_tpu/train/model_serializer.py``. Entries:
+``configuration.json`` (the configuration dict), ``coefficients.bin`` (the
+params as one little-endian f32 vector: layers in order, param names
+sorted), ``state.bin`` (layer state, e.g. BN running statistics, the same
+way; a graph's vertices sorted by name) and ``meta.json`` (iteration,
+epoch, model type). A zip written by either package restores in the
+other.
+
+The ``updaterState.bin`` entry (updater slots) comes with the training
+slice (ROADMAP § A, slice 4): a zip that has one restores with
+``load_updater=False`` (the default here) and the entry is ignored;
+asking to write or load it raises :class:`UpdaterStateNotPortedError`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import warnings
+import zipfile
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.train.faults import atomic_tmp_path
+
+CONFIG_ENTRY = "configuration.json"
+COEFFICIENTS_ENTRY = "coefficients.bin"
+UPDATER_ENTRY = "updaterState.bin"
+STATE_ENTRY = "state.bin"
+META_ENTRY = "meta.json"
+
+_UPDATER_NOT_PORTED = ("the zip's updaterState.bin entry (updater state) is "
+                       "not ported yet (ROADMAP § A, slice 4)")
+
+
+class UpdaterStateNotPortedError(NotImplementedError):
+    """Writing or loading a checkpoint's updater state was asked for."""
+
+
+def _state_groups(state):
+    """The layer-state dicts in checkpoint order: a MultiLayerNetwork's in
+    layer order, a ComputationGraph's by vertex name."""
+    if isinstance(state, dict):
+        return [state[k] for k in sorted(state)]
+    return list(state or [])
+
+
+class ModelSerializer:
+    @staticmethod
+    def write_model(model, path: str, save_updater: bool = False) -> None:
+        """Write ``model`` to the zip ``path``, staged in a same-directory
+        temp file and published with ``os.replace``: a crash mid-write
+        leaves the previous file at ``path`` as it was."""
+        from deeplearning4j_tpu_torch.nn.multilayer import flatten_tensors
+
+        if save_updater:
+            raise UpdaterStateNotPortedError(_UPDATER_NOT_PORTED)
+        tmp = atomic_tmp_path(path)
+        try:
+            with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as z:
+                z.writestr(CONFIG_ENTRY, model.conf.to_json())
+                z.writestr(COEFFICIENTS_ENTRY,
+                           model.params_flat().astype("<f4").tobytes())
+                z.writestr(STATE_ENTRY, flatten_tensors(
+                    _state_groups(model.state_)).astype("<f4").tobytes())
+                z.writestr(META_ENTRY, json.dumps(_build_meta(model)))
+            with open(tmp, "rb") as f:
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+    @staticmethod
+    def _restore(path: str, conf_cls, net_cls, load_updater: bool, device):
+        from deeplearning4j_tpu_torch.nn.multilayer import unflatten_tensors
+
+        with zipfile.ZipFile(path, "r") as z:
+            names = set(z.namelist())
+            missing = {CONFIG_ENTRY, COEFFICIENTS_ENTRY} - names
+            if missing:
+                raise ValueError(
+                    f"{path!r} is not a model checkpoint: required entries "
+                    f"{sorted(missing)} are missing (zip contains {sorted(names)})")
+            if load_updater and UPDATER_ENTRY in names:
+                raise UpdaterStateNotPortedError(_UPDATER_NOT_PORTED)
+            net = net_cls(conf_cls.from_json(z.read(CONFIG_ENTRY).decode()))
+            net.init(device=device)
+            net.set_params_flat(np.frombuffer(z.read(COEFFICIENTS_ENTRY), dtype="<f4"))
+            if STATE_ENTRY in names:
+                vec = np.frombuffer(z.read(STATE_ENTRY), dtype="<f4")
+                groups = _state_groups(net.state_)
+                expected = sum(t.numel() for g in groups for t in g.values())
+                if vec.size == expected:
+                    new = unflatten_tensors(groups, vec)
+                    if isinstance(net.state_, dict):
+                        net.state_ = dict(zip(sorted(net.state_), new))
+                    else:
+                        net.state_ = new
+                else:
+                    # the layer-state layout changed since the zip was
+                    # written: keep the fresh state, as the reference does
+                    warnings.warn(
+                        f"checkpoint layer-state size {vec.size} != current "
+                        f"layout {expected}; keeping freshly initialized layer "
+                        "state", stacklevel=3)
+            if META_ENTRY in names:
+                meta = json.loads(z.read(META_ENTRY).decode())
+                net.iteration = int(meta.get("iteration", 0))
+                net.epoch = int(meta.get("epoch", 0))
+        return net
+
+    @staticmethod
+    def restore_multi_layer_network(path: str, load_updater: bool = False,
+                                    device=None):
+        """The MultiLayerNetwork in ``path``, on ``device`` (default the
+        CUDA card)."""
+        from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        return ModelSerializer._restore(path, MultiLayerConfiguration,
+                                        MultiLayerNetwork, load_updater, device)
+
+    @staticmethod
+    def restore_computation_graph(path: str, load_updater: bool = False,
+                                  device=None):
+        """The ComputationGraph in ``path``, on ``device`` (default the CUDA
+        card)."""
+        from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
+            ComputationGraphConfiguration,
+        )
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+        return ModelSerializer._restore(path, ComputationGraphConfiguration,
+                                        ComputationGraph, load_updater, device)
+
+    @staticmethod
+    def checkpoint_meta(path: str) -> dict:
+        """A peek at a checkpoint without restoring it: ``meta.json`` plus
+        ``conf_json`` (the configuration entry) and ``entries``."""
+        with zipfile.ZipFile(path, "r") as z:
+            names = set(z.namelist())
+            missing = {CONFIG_ENTRY, COEFFICIENTS_ENTRY} - names
+            if missing:
+                raise ValueError(
+                    f"{path!r} is not a model checkpoint: required entries "
+                    f"{sorted(missing)} are missing")
+            meta = json.loads(z.read(META_ENTRY).decode()) if META_ENTRY in names else {}
+            meta["conf_json"] = z.read(CONFIG_ENTRY).decode()
+            meta["entries"] = sorted(names)
+        return meta
+
+
+def _build_meta(model) -> dict:
+    """``meta.json``: the counters, the model type and where it was written.
+    (The reference also records its RNG chain and fault-guard state, which
+    the port's models do not have yet.)"""
+    device = getattr(model, "device", None)
+    return {
+        "iteration": int(model.iteration),
+        "epoch": int(model.epoch),
+        "model_type": type(model).__name__,
+        "framework": "deeplearning4j_tpu_torch",
+        "topology": {"n_devices": 1,
+                     "backend": "cpu" if device is None else torch.device(device).type},
+    }
+
+
+class ModelGuesser:
+    """Sniff a saved file and restore it as the model type it holds."""
+
+    @staticmethod
+    def load_model_guess(path: str, device=None):
+        try:
+            with zipfile.ZipFile(path, "r") as z:
+                names = z.namelist()
+                meta = json.loads(z.read(META_ENTRY).decode()) if META_ENTRY in names else {}
+        except zipfile.BadZipFile as e:
+            raise ValueError(f"Cannot identify model format for {path!r}: not a "
+                             f"readable zip ({e})") from e
+        if CONFIG_ENTRY in names and COEFFICIENTS_ENTRY in names:
+            if meta.get("model_type", "MultiLayerNetwork") == "ComputationGraph":
+                return ModelSerializer.restore_computation_graph(path, device=device)
+            return ModelSerializer.restore_multi_layer_network(path, device=device)
+        raise ValueError(
+            f"Cannot identify model format for {path!r}: expected checkpoint "
+            f"entries [{CONFIG_ENTRY!r}, {COEFFICIENTS_ENTRY!r}] but the zip "
+            f"contains {sorted(names)}")

@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""Where the serving time goes: profile the PyTorch port's ResNet-50 engine.
+"""Where the serving time goes: profile one of the PyTorch port's engines.
 
 Run from the repository root on a CUDA card::
 
-    python3 scripts/torch_serve_profile.py
+    python3 scripts/torch_serve_profile.py                      # ResNet-50
+    python3 scripts/torch_serve_profile.py --model vgg16 --int8 # VGG16, int8 heads
+    python3 scripts/torch_serve_profile.py --model vgg16        # VGG16, f32 heads
 
-Builds the same model as ``chip_smoke.py``'s serve phase (full-width bf16
-ResNet-50, 1000 classes, 224x224, fused bottlenecks, seeded random weights
-with randomized BN), warms the engine up, then profiles requests of 32 rows
-and of 1 row with ``torch.profiler`` (CPU + CUDA activities). It prints, per
-request size: host milliseconds per request, device busy milliseconds (the
-sum of device kernel and copy time), the device's idle share, kernel
-launches per request and the top device-time entries by name. The full
-tables go to ``chiprun_out/serve_profile.json``.
+Builds the same model as ``chip_smoke.py``: for ``resnet50`` its serve
+phase's (full-width bf16 ResNet-50, 1000 classes, 224x224, fused
+bottlenecks, seeded random weights with randomized BN), for ``vgg16`` its
+phase 5's (full-width f32 VGG16, 1000 classes, 224x224x3, seeded, the
+output layer's W scaled to spread the softmax; ``--int8`` serves the three
+dense heads through the int8 kernel). It warms the engine up, then profiles
+requests of 32 rows and of 1 row with ``torch.profiler`` (CPU + CUDA
+activities). It prints, per request size: host milliseconds per request,
+device busy milliseconds (the sum of device kernel and copy time), the
+device's idle share, device ops per request, the device time by group
+(the port's kernels, convolutions, copies, the rest; groups are read from
+the kernel names) and the top device-time entries by name. The full tables
+go to ``chiprun_out/serve_profile_<model>[_int8].json``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -39,10 +47,36 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
+# device-time groups, by kernel name (first match wins): cuDNN's kernels
+# carry "cudnn" or an FFT/layout-transform name (its FFT path runs a complex
+# GEMM, "gemm_cf32"); cuBLAS's f32 GEMM/GEMV come after them
+GROUPS = (
+    ("int8_matmul kernels", ("int8_partial_kernel", "int8_reduce_kernel")),
+    ("fused conv kernels", ("fused_conv_fwd_kernel", "conv_bwd_dx_kernel",
+                            "conv_bwd_dw_kernel", "dw_reduce_kernel", "stats_reduce")),
+    ("copies", ("memcpy", "memset")),
+    ("convolutions (cuDNN)", ("cudnn", "convolve", "fft", "flip_filter",
+                              "mult_and_sum_complex", "nchwtonhwc", "nhwctonchw",
+                              "gemm_cf32", "winograd", "dgrad", "wgrad")),
+    ("matmuls (cuBLAS)", ("gemm", "gemv")),
+)
+
+
+def groups(rows) -> dict:
+    """Device us per request by group of kernel names; the rest is "other"."""
+    out = {name: 0.0 for name, _ in GROUPS}
+    out["other"] = 0.0
+    for r in rows:
+        key = r["name"].lower()
+        name = next((g for g, pats in GROUPS if any(p in key for p in pats)), "other")
+        out[name] += r["device_us"]
+    return out
+
+
 def profile_calls(fn, reps: int):
     """Profile ``reps`` calls of ``fn`` after one warm-up call. Per call:
     host ms, device busy ms, idle share, device ops, and the top device-time
-    entries (device us and count per call)."""
+    entries (device us and count per call) and the device us by group."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -62,37 +96,63 @@ def profile_calls(fn, reps: int):
     launches = sum(r["count"] for r in rows)
     return {"host_ms": host_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / host_ms),
-            "device_ops": launches, "top": rows[:40]}
+            "device_ops": launches, "groups_us": groups(rows), "top": rows[:40]}
+
+
+def build_engine(model_name: str, int8: bool):
+    """The engine and a seeded batch of 32 rows, as ``chip_smoke.py`` builds
+    them."""
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+
+    x = np.random.default_rng(chip_smoke.SEED).standard_normal(
+        (32, 224, 224, 3)).astype(np.float32)
+    if model_name == "resnet50":
+        from deeplearning4j_tpu_torch.models import ResNet50
+
+        model = ResNet50(num_classes=1000, height=224, width=224, fused_pallas=True,
+                         compute_dtype="bfloat16", seed=chip_smoke.SEED).init()
+        chip_smoke.randomize_bn(model, chip_smoke.SEED)
+    else:
+        from deeplearning4j_tpu_torch.models import VGG16
+
+        model = VGG16(num_classes=1000, seed=chip_smoke.SEED).init()
+        chip_smoke.spread_softmax(model, x)
+    return InferenceEngine(model, buckets=[1, 8, 32], int8_serving=int8), x
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=("resnet50", "vgg16"), default="resnet50")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve the dense heads through the int8 kernel (vgg16)")
+    args = ap.parse_args()
+    if args.int8 and args.model != "vgg16":
+        ap.error("--int8 serves a MultiLayerNetwork's heads: use --model vgg16")
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 2
-    from deeplearning4j_tpu_torch.models import ResNet50
-    from deeplearning4j_tpu_torch.serving import InferenceEngine
 
     card = chip_smoke.smi_line()
-    model = ResNet50(num_classes=1000, height=224, width=224, fused_pallas=True,
-                     compute_dtype="bfloat16", seed=chip_smoke.SEED).init()
-    chip_smoke.randomize_bn(model, chip_smoke.SEED)
-    engine = InferenceEngine(model, buckets=[1, 8, 32])
+    engine, x = build_engine(args.model, args.int8)
     engine.warmup()
-    x = np.random.default_rng(chip_smoke.SEED).standard_normal(
-        (32, 224, 224, 3)).astype(np.float32)
-    out = {"card": card, "torch": torch.__version__}
+    tag = args.model + ("_int8" if args.int8 else "")
+    out = {"card": card, "torch": torch.__version__, "model": tag}
     for n, reps in ((32, 10), (1, 20)):
         r = profile_calls(lambda: engine.infer(x[:n]), reps)
         out[f"rows_{n}"] = r
-        print(f"rows {n}: host {r['host_ms']:.3f} ms/request, device busy "
+        print(f"{tag} rows {n}: host {r['host_ms']:.3f} ms/request, device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
               f"{r['device_ops']:.0f} device ops/request, on {card}",
               flush=True)
+        busy_us = max(r["device_busy_ms"] * 1e3, 1e-9)
+        print("  by group: " + ", ".join(
+            f"{g} {us / 1e3:.3f} ms ({us / busy_us:.3f} of busy)"
+            for g, us in r["groups_us"].items()), flush=True)
         for row in r["top"][:12]:
             print(f"  {row['device_us']:10.1f} us  x{row['count']:6.1f}  "
                   f"{row['name'][:90]}", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "serve_profile.json"), "w") as f:
+    with open(os.path.join("chiprun_out", f"serve_profile_{tag}.json"), "w") as f:
         json.dump(out, f, indent=1)
     return 0
 

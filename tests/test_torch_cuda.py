@@ -9,7 +9,9 @@ CPU mode). Tolerances as in ``chip_smoke.py``: kernel ``y``, ``dx`` and
 ``dW`` within one bf16 rounding step plus the worst-case f32
 summation-order difference over the product's depth K; statistics,
 ``dscale`` and ``dshift`` rtol 1e-4, atol 1e-3 plus 1e-5 of the sum of
-their terms' magnitudes.
+their terms' magnitudes. The int8 matmul: ``|k - p| <= 2*K*2^-24*(|x|.|q|)*s``
+(f32 summation order), plus for bf16 ``x`` one bf16 step of ``|p|`` for the
+output and one for the scale.
 """
 
 import copy
@@ -25,6 +27,7 @@ from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
+from deeplearning4j_tpu_torch.nn.ops import int8_matmul as im
 from deeplearning4j_tpu_torch.serving import InferenceEngine
 from deeplearning4j_tpu_torch.updaters import Nesterovs
 
@@ -279,3 +282,82 @@ def test_train_step_on_the_card_goes_through_the_kernels(card):
     assert fc.launch_counts["conv3x3_dw"] == 3 and model.iteration == 1
     assert all(bool(torch.isfinite(p).all()) for d in model.params_.values()
                for p in d.values())
+
+
+# (B, K, N): VGG16's three heads at buckets 1, 8, 32, LeNet's two heads, and
+# ragged shapes (N not a multiple of 4; more rows than one block holds)
+INT8_CASES = [(b, k, n) for b in (1, 8, 32)
+              for k, n in ((25088, 4096), (4096, 4096), (4096, 1000))]
+INT8_CASES += [(8, 2450, 500), (8, 500, 10), (3, 777, 130), (40, 300, 70)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,k,n", INT8_CASES, ids=[f"{b}x{k}x{n}" for b, k, n in INT8_CASES])
+def test_int8_kernel_matches_plain(card, b, k, n, dtype):
+    g = torch.Generator().manual_seed(b * 7 + k + n)
+    x = torch.randn(b, k, generator=g).to(dtype).cuda()
+    q, s = im.quantize_int8(torch.randn(k, n, generator=g) * math.sqrt(2.0 / k))
+    q, s = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+    before = fc.launch_counts["int8_matmul"]
+    y = im.int8_matmul(x, q, s)
+    assert fc.launch_counts["int8_matmul"] == before + 1
+    ref = im.int8_matmul_plain(x, q, s)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and tuple(y.shape) == (b, n)
+    tol = 2 * k * 2.0 ** -24 * (x.float().abs() @ q.float().abs()) * s
+    if dtype == torch.bfloat16:
+        tol = tol + 2 * 2.0 ** -7 * ref.float().abs()
+    assert bool(((y.float() - ref.float()).abs() <= tol).all())
+    # the same bits in every run, and a row's bits in every bucket
+    assert torch.equal(im.int8_matmul(x, q, s), y)
+    assert torch.equal(im.int8_matmul(x[:1].contiguous(), q, s), y[:1])
+
+
+def test_int8_kernel_refusals(card):
+    q = torch.zeros(8, 4, dtype=torch.int8, device="cuda")
+    s = torch.ones(4, device="cuda")
+    with pytest.raises(TypeError):
+        im.int8_matmul(torch.zeros(2, 8, dtype=torch.float16, device="cuda"), q, s)
+    with pytest.raises(ValueError):
+        im.int8_matmul(torch.zeros(8, 2, device="cuda").t(), q, s)  # not contiguous
+    with pytest.raises(ValueError):
+        im.int8_matmul(torch.zeros(2, 7, device="cuda"), q, s)
+
+
+def test_mln_int8_forward_launches_one_kernel_per_head(card):
+    """A LeNet served with int8 heads launches exactly 2 int8 kernels per
+    forward (Dense 500, Output 10); the f32 engine launches none."""
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    model = LeNet(num_classes=10).init()
+    x = np.random.default_rng(5).standard_normal((5, 28, 28, 1)).astype(np.float32)
+    e8 = InferenceEngine(model, buckets=[8], int8_serving=True)
+    e32 = InferenceEngine(model, buckets=[8])
+    fc.reset_launch_counts()
+    y8 = e8.infer(x)
+    assert dict(fc.launch_counts) == {"int8_matmul": 2}
+    fc.reset_launch_counts()
+    y32 = e32.infer(x)
+    assert sum(fc.launch_counts.values()) == 0
+    assert y8.shape == (5, 10) and np.abs(y8.sum(1) - 1).max() < 1e-5
+    assert np.abs(y8 - y32).max() < 0.05
+    assert e8.describe()["int8_report"]["layers_quantized"] == 2
+
+
+def test_mln_int8_forward_under_bf16_compute(card):
+    """Under compute_dtype="bfloat16" the hidden head gets bf16 x and a bf16
+    W_scale, the output head bf16 x and an f32 W_scale: both reach the
+    kernel's bf16 instantiation, once each per forward."""
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    model = LeNet(num_classes=10, compute_dtype="bfloat16").init()
+    x = np.random.default_rng(6).standard_normal((5, 28, 28, 1)).astype(np.float32)
+    e8 = InferenceEngine(model, buckets=[8], int8_serving=True)
+    heads = [p for p in e8._snap.params if "W_q8" in p]
+    assert [p["W_scale"].dtype for p in heads] == [torch.bfloat16, torch.float32]
+    fc.reset_launch_counts()
+    y8 = e8.infer(x)
+    assert dict(fc.launch_counts) == {"int8_matmul": 2}
+    y = InferenceEngine(model, buckets=[8]).infer(x)
+    assert y8.dtype == np.float32 and np.abs(y8.sum(1) - 1).max() < 1e-5
+    assert np.abs(y8 - y).max() < 0.05
