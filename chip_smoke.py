@@ -16,7 +16,16 @@ launches of each train step, five steps whose score falls, and the train
 speed. Phase 5 serves a full-width f32 VGG16 (seeded) in an int8-head
 engine and an f32 engine; phase 6 drives the entry points: the HTTP server
 over the int8 VGG16 engine, ``cli serve --smoke`` on a LeNet checkpoint
-written by the port, and ``/reload``. Each phase prints one or more lines;
+written by the port, and ``/reload``. Phase 2d holds the fused LSTM cell
+against its plain version at TextGenerationLSTM's shapes (f32, bf16 and the
+mixed compute-dtype flow, with and without peepholes) and checks that a
+row's bits do not depend on its batch. Phase 7 serves a full-width
+TextGenerationLSTM (77 characters, two GravesLSTM(256); seeded) through a
+32-slot ``GenerationEngine`` (64 requests, half greedy, half sampled):
+exact launch counts, a teacher-forced comparison with the plain path on the
+card, engine == solo, tokens/s; then a seq-bucketed and an int8-head
+``InferenceEngine``; phase 6 adds ``POST /generate`` and ``cli serve
+--gen-slots --smoke``. Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
 prints them), and
@@ -72,6 +81,7 @@ KERNELS = {
     "conv3x3_dx": (f"{CSRC}/fused_conv_bwd.cu", f"{REF}:330"),
     "conv3x3_dw": (f"{CSRC}/fused_conv_bwd.cu", f"{REF}:363"),
     "int8_matmul": (f"{CSRC}/int8_matmul.cu", "deeplearning4j_tpu/nn/ops/int8_matmul.py:80"),
+    "fused_lstm_cell": (f"{CSRC}/fused_lstm.cu", "deeplearning4j_tpu/nn/ops/fused_lstm.py:93"),
 }
 # VGG16 (1000 classes, 224x224x3): the three dense heads (K, N), the layer
 # index of the first one, and the int8 report the engine must give
@@ -744,19 +754,19 @@ def train_phase(fc, card: str):
 
 def spread_softmax(model, x: np.ndarray, target: float = 0.3) -> float:
     """Scale the output layer's seeded W (in place) so that the mean max
-    probability on ``x`` is about ``target``: a random VGG16's softmax is
-    otherwise saturated or flat, and every comparison of probabilities would
-    be vacuous. Returns the scale."""
+    probability on ``x`` is about ``target``: a random VGG16's (or
+    TextGenerationLSTM's) softmax is otherwise saturated or flat, and every
+    comparison of probabilities would be vacuous. Returns the scale."""
     n = len(model.layers)
     with torch.inference_mode():
-        h, _ = model._forward(model.params_, model.state_,
-                              torch.from_numpy(x).cuda(), stop_before=n - 1)
+        h, _, _ = model._forward(model.params_, model.state_,
+                                 torch.from_numpy(x).cuda(), stop_before=n - 1)
         p = model.params_[n - 1]
         z0 = h @ p["W"]
         lo, hi = 1e-4, 1e4
         for _ in range(60):
             mid = math.sqrt(lo * hi)
-            m = float(torch.softmax(mid * z0 + p["b"], -1).max(1).values.mean())
+            m = float(torch.softmax(mid * z0 + p["b"], -1).amax(-1).mean())
             lo, hi = (lo, mid) if m > target else (mid, hi)
     scale = math.sqrt(lo * hi)
     model.params_[n - 1]["W"] = p["W"] * scale
@@ -829,8 +839,8 @@ def vgg_phase(fc, im, card: str):
     # into the first head
     snap = e8._snap
     with torch.inference_mode():
-        a, _ = model._forward(snap.params, snap.state, torch.from_numpy(x).cuda(),
-                              stop_before=VGG_FIRST_HEAD, cast_params=False)
+        a, _, _ = model._forward(snap.params, snap.state, torch.from_numpy(x).cuda(),
+                                 stop_before=VGG_FIRST_HEAD, cast_params=False)
         for i, p in enumerate(heads):
             z = im.int8_matmul_plain(a, p["W_q8"], p["W_scale"]) + p["b"]
             a = torch.relu(z) if i < len(heads) - 1 else torch.softmax(z, -1)
@@ -993,6 +1003,462 @@ def entry_points_phase(e8, x):
             "reload": rep, "reload_answer_change": change}
 
 
+# ---------------------------------------------------------------------------
+# the fused LSTM cell (phase 2d) and TextGenerationLSTM generation (phase 7)
+# ---------------------------------------------------------------------------
+F32, BF16 = torch.float32, torch.bfloat16
+# (x, weights, carries): all f32 (the main path), all bf16, and the
+# compute-dtype flow (bf16 x and weights with f32 carries)
+LSTM_DTYPES = {"f32": (F32, F32, F32), "bf16": (BF16, BF16, BF16), "mixed": (BF16, BF16, F32)}
+LSTM_UNITS, TEXTGEN_VOCAB = 256, 77
+GEN_SLOTS, GEN_MAX_LENGTH, GEN_BUCKETS = 32, 256, [8, 16, 32, 64, 256]
+GEN_REQUESTS, GEN_MAX_NEW = 64, 64
+SAMPLED = {"temperature": 0.8, "top_k": 20, "top_p": 0.95}
+# per-step probabilities, kernel path vs the plain path on the card: f32
+# summation order through a recurrence of up to 163 steps (PERF.md)
+TEACHER_TOL = 1e-4
+INT8_HEAD_TOL = 0.05          # int8 vs f32 head, probabilities
+
+
+def lstm_cases():
+    """(B, n_in, n, peephole, dtype): TextGenerationLSTM's two layers (n_in
+    77 and 256, n 256) at the prefill row (B 1) and decode batches 8, 32, 64,
+    and a ragged case."""
+    return ([(b, n_in, LSTM_UNITS, pe, dt) for n_in in (TEXTGEN_VOCAB, LSTM_UNITS)
+             for b in (1, 8, 32, 64) for pe in (False, True) for dt in LSTM_DTYPES]
+            + [(3, 33, 100, pe, dt) for pe in (False, True) for dt in LSTM_DTYPES])
+
+
+def lstm_args(gen, b, n_in, n, peephole, dtypes):
+    """Seeded cell operands on the card at the full-width scales: x and h in
+    (-1, 1), c N(0, 1), xavier-like weights, live biases and peepholes."""
+    tx, tw, ts = dtypes
+    dev = "cuda"
+    x = (torch.rand(b, n_in, generator=gen, device=dev) * 2 - 1).to(tx)
+    h = (torch.rand(b, n, generator=gen, device=dev) * 2 - 1).to(ts)
+    c = torch.randn(b, n, generator=gen, device=dev).to(ts)
+    std = math.sqrt(2.0 / (n_in + n))
+    ws = [torch.randn(n_in, 4 * n, generator=gen, device=dev) * std,
+          torch.randn(n, 4 * n, generator=gen, device=dev) * std,
+          torch.randn(4 * n, generator=gen, device=dev) * 0.3]
+    if peephole:
+        ws += [torch.randn(n, generator=gen, device=dev) * 0.3 for _ in range(3)]
+    return [x, h, c] + [w.to(tw) for w in ws]
+
+
+# the cell's f32 outputs against the plain version in f32: the reference
+# probe's limit (summation order, expf/tanhf against torch's, in ulps)
+LSTM_F32_TOL = 1e-5
+
+
+def lstm_oracle(fl, args, out_dtype):
+    """The plain version in f32 on the operands widened exactly (what the
+    kernel computes: f32 products and gate chain), rounded once to the
+    kernel's output dtype; also the unrounded f32 ``h'``, for the tolerance."""
+    h32, c32 = fl.reference_lstm_cell(*[a.float() for a in args])
+    return (h32.to(out_dtype), c32.to(out_dtype)), (h32, c32)
+
+
+def lstm_tolerance(ref32, out_dtype):
+    """f32 outputs: LSTM_F32_TOL. bf16 outputs: the kernel and the oracle
+    each round once from f32 values at most LSTM_F32_TOL apart, so they
+    differ by at most one bf16 step (2^-7 |ref|) plus twice that."""
+    if out_dtype == BF16:
+        return BF16_STEP * ref32.abs() + 2 * LSTM_F32_TOL
+    return torch.full_like(ref32, LSTM_F32_TOL)
+
+
+def lstm_cost(args, out_dtype):
+    """(FLOPs, bytes) of one cell call: the two products and the gate chain;
+    each input read once (the weights too), each output written once."""
+    x, h, _c, wx = args[:4]
+    b, n_in = x.shape
+    n = h.shape[1]
+    flops = 2.0 * b * (n_in + n) * 4 * n + 20.0 * b * n
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + 2 * b * n * torch.tensor([], dtype=out_dtype).element_size())
+    peak = PEAK_BF16_FLOPS if wx.dtype == BF16 else PEAK_F32_FLOPS
+    return bound(flops, nbytes, peak)
+
+
+def library_cell(args):
+    """``torch.lstm_cell`` on the same weights, reordered to its [i, f, g, o]
+    gates and (4n, K) layout (a non-peephole cell only: no single PyTorch
+    call has the peepholes). Built once, outside the timed call."""
+    x, h, c, wx, wh, b = args[:6]
+    n = h.shape[1]
+
+    def ifgo(w):
+        i, f, o, g = w.split(n, dim=-1)
+        return torch.cat([i, f, g, o], dim=-1)
+
+    w_ih, w_hh = ifgo(wx).t().contiguous(), ifgo(wh).t().contiguous()
+    b_ih, b_hh = ifgo(b).contiguous(), torch.zeros_like(b)
+    return lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)
+
+
+def lstm_phase(fl):
+    """Phase 2d: the fused cell against its plain version on the card at
+    every case; times at the f32 shapes; the batch-invariance check."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    for b, n_in, n, pe, dt in lstm_cases():
+        args = lstm_args(gen, b, n_in, n, pe, LSTM_DTYPES[dt])
+        with torch.inference_mode():
+            hk, ck = fl.fused_lstm_cell(*args)
+            hp, cp = fl.reference_lstm_cell(*args)
+            (ho, co), refs32 = lstm_oracle(fl, args, hk.dtype)
+        torch.cuda.synchronize()
+        if (hk.dtype, hk.shape) != (hp.dtype, hp.shape) or ck.dtype != hk.dtype:
+            raise AssertionError(f"fused_lstm_cell gave {hk.dtype} {tuple(hk.shape)}, the "
+                                 f"plain version {hp.dtype} {tuple(hp.shape)}")
+        errs, ratios = [], []
+        for k_, o_, r32 in ((hk, ho, refs32[0]), (ck, co, refs32[1])):
+            err = (k_.float() - o_.float()).abs()
+            errs.append(float(err.max()))
+            ratios.append(float((err / lstm_tolerance(r32, hk.dtype)).max()))
+        row = {"b": b, "n_in": n_in, "n": n, "peephole": pe, "dtype": dt,
+               "out_dtype": str(hk.dtype).split(".")[-1], "max_abs_err": max(errs),
+               "err_over_tol": max(ratios),
+               "finite": bool(torch.isfinite(hk.float()).all() and torch.isfinite(ck.float()).all())}
+        timing = ""
+        if (dt == "f32" and n == LSTM_UNITS) or (dt == "bf16" and pe and b == 32):
+            with torch.inference_mode():
+                row["kernel_ms"] = time_ms(lambda: fl.fused_lstm_cell(*args))
+                row["plain_ms"] = time_ms(lambda: fl.reference_lstm_cell(*args))
+                row["library_ms"] = None
+                if not pe and dt == "f32":
+                    lib = library_cell(args)
+                    hl, cl = lib()
+                    lib_err = max(float((hl - hp).abs().max()), float((cl - cp).abs().max()))
+                    if lib_err > 1e-4:
+                        raise AssertionError(f"torch.lstm_cell on the reordered weights differs "
+                                             f"from the plain cell by {lib_err}")
+                    row["library_ms"] = time_ms(lib)
+            row["bound_ms"], row["bound_by"] = lstm_cost(args, hk.dtype)
+            timing = (f" kernel_ms {row['kernel_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                      f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']}) library_ms "
+                      + ("none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"))
+        rows.append(row)
+        ok = row["err_over_tol"] <= 1 and row["finite"]
+        print(f"phase 2d kernel fused_lstm_cell B {b} n_in {n_in} n {n} "
+              f"{'peephole' if pe else 'plain'} {dt} -> {row['out_dtype']}: max_abs_err "
+              f"{row['max_abs_err']:.3g} vs the plain version in f32 rounded once (tol "
+              f"{'2^-7|ref| + 2e-5' if hk.dtype == BF16 else LSTM_F32_TOL}) err/tol "
+              f"{row['err_over_tol']:.3g}{timing} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"fused_lstm_cell disagrees with its plain version: {row}")
+    # batch invariance: each row of a 32-row call equals the row alone, bitwise
+    invariant = {}
+    for dt in ("f32", "bf16"):
+        for n_in in (TEXTGEN_VOCAB, LSTM_UNITS):
+            args = lstm_args(gen, 32, n_in, LSTM_UNITS, True, LSTM_DTYPES[dt])
+            with torch.inference_mode():
+                hk, ck = fl.fused_lstm_cell(*args)
+                same = all(
+                    torch.equal(o1, o[r:r + 1]) for r in range(32)
+                    for o1, o in zip(fl.fused_lstm_cell(*[a[r:r + 1].contiguous() if i < 3 else a
+                                                           for i, a in enumerate(args)]), (hk, ck)))
+            invariant[f"{dt}_n_in{n_in}"] = same
+    print(f"phase 2d batch invariance (row r at B 1 == row r at B 32, bitwise): {invariant}",
+          flush=True)
+    if not all(invariant.values()):
+        raise AssertionError(f"fused_lstm_cell is not batch-invariant: {invariant}")
+
+    def step(b, pe):
+        mine = [r for r in rows if r["dtype"] == "f32" and r["b"] == b and r["peephole"] == pe
+                and r["n"] == LSTM_UNITS]
+        out = {k: sum(r[k] for r in mine) for k in ("kernel_ms", "plain_ms", "bound_ms")}
+        out["library_ms"] = (None if pe else sum(r["library_ms"] for r in mine))
+        weight = {k: sum(r["bound_ms"] for r in mine if r["bound_by"] == k)
+                  for k in ("bytes", "operations")}
+        out["bound_by"] = max(weight, key=weight.get)
+        return out
+
+    summary = {**step(32, True), "max_abs_err": max(r["max_abs_err"] for r in rows),
+               "max_err_over_tol": max(r["err_over_tol"] for r in rows),
+               "b1": step(1, True), "no_peephole_b32": step(32, False),
+               "no_peephole_b1": step(1, False), "batch_invariant": invariant}
+    print(f"phase 2d one decode step (2 cells, B 32, GravesLSTM, f32): {summary}", flush=True)
+    return rows, summary
+
+
+def randomize_lstm(model, seed: int) -> None:
+    """Seeded biases and peepholes for the GravesLSTM layers (peepholes
+    start at 0, which would leave the peephole path untested)."""
+    g = torch.Generator().manual_seed(seed)
+    for p in model.params_:
+        for k in ("b", "pI", "pF", "pO"):
+            if k in p and "Wh" in p:
+                p[k] = p[k] + (torch.randn(p[k].shape, generator=g) * 0.3).to(p[k].device)
+
+
+def plain_forward(fl, model, x, mask):
+    """TextGenerationLSTM on its plain path on the card, written out here:
+    ``reference_lstm_cell`` per layer and step, the reference's masked carry
+    hold, and the per-timestep softmax head by torch ops."""
+    params, (b, t_len, _) = model.params_, x.shape
+    seq = x
+    for p in params[:-1]:
+        n = p["Wh"].shape[0]
+        h = torch.zeros(b, n, device=x.device)
+        c = torch.zeros(b, n, device=x.device)
+        outs = []
+        for t in range(t_len):
+            hn, cn = fl.reference_lstm_cell(seq[:, t], h, c, p["Wx"], p["Wh"], p["b"],
+                                            p["pI"], p["pF"], p["pO"])
+            m = mask[:, t:t + 1]
+            h, c = m * hn + (1 - m) * h, m * cn + (1 - m) * c
+            outs.append(hn * m)
+        seq = torch.stack(outs, dim=1)
+    head = params[-1]
+    return torch.softmax(seq @ head["W"] + head["b"], -1) * mask[..., None]
+
+
+def _one_hot(seqs, t_len):
+    x = np.zeros((len(seqs), t_len, TEXTGEN_VOCAB), np.float32)
+    mask = np.zeros((len(seqs), t_len), np.float32)
+    for i, s in enumerate(seqs):
+        x[i, np.arange(len(s)), s] = 1.0
+        mask[i, :len(s)] = 1.0
+    return torch.from_numpy(x).cuda(), torch.from_numpy(mask).cuda()
+
+
+def _decided(probs, dp):
+    """Whether each position's top-2 gap exceeds 2 max|dp|."""
+    top2 = torch.topk(probs, 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > 2 * dp
+
+
+def generation_phase(fl, card: str):
+    """Phase 7: a full-width TextGenerationLSTM (77 characters, two
+    GravesLSTM(256), RnnOutputLayer(77); seeded) served by a 32-slot
+    GenerationEngine, a seq-bucketed InferenceEngine and an int8-head
+    engine."""
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.serving import BucketPolicy, InferenceEngine
+    from deeplearning4j_tpu_torch.serving.generate import GenerationEngine
+
+    t0 = time.perf_counter()
+    model = TextGenerationLSTM(num_classes=TEXTGEN_VOCAB, units=LSTM_UNITS, seed=SEED).init()
+    randomize_lstm(model, SEED)
+    rng = np.random.default_rng(SEED + 21)
+    spread_x = np.eye(TEXTGEN_VOCAB, dtype=np.float32)[rng.integers(0, TEXTGEN_VOCAB, (16, 32))]
+    scale = spread_softmax(model, spread_x)
+    engine = GenerationEngine(model, n_slots=GEN_SLOTS, max_length=GEN_MAX_LENGTH,
+                              prefill_buckets=GEN_BUCKETS, queue_limit=2 * GEN_REQUESTS,
+                              default_timeout_s=600.0)
+    prompts = [rng.integers(0, TEXTGEN_VOCAB, int(rng.integers(3, 101))).astype(np.int32)
+               for _ in range(GEN_REQUESTS)]
+    knobs = [SAMPLED if i % 2 else {} for i in range(GEN_REQUESTS)]
+    print(f"phase 7 setup: TextGenerationLSTM {TEXTGEN_VOCAB} classes, 2 x GravesLSTM"
+          f"({LSTM_UNITS}), f32, {model.num_params():,} params, output W scaled by "
+          f"{scale:.4g}, init {time.perf_counter() - t0:.1f}s; engine {engine.describe()}",
+          flush=True)
+
+    # the main path: counts from 0 just before, read just after
+    fl.reset_launch_counts()
+    warm = engine.warmup()
+    decode_s, prefill_s = [], {}
+    # cell launches of each decode step, and of each prefill by its bucket
+    decode_n, prefill_n = [], {}
+    decode, prefill = engine.backend.decode, engine.backend.prefill
+
+    def timed_decode(*a):
+        n0, t = fl.launch_counts[fl.OP], time.perf_counter()
+        out = decode(*a)  # ends in the device-to-host copy of the tokens
+        decode_s.append(time.perf_counter() - t)
+        decode_n.append(fl.launch_counts[fl.OP] - n0)
+        return out
+
+    def timed_prefill(*a):
+        n0, t = fl.launch_counts[fl.OP], time.perf_counter()
+        out = prefill(*a)
+        prefill_s.setdefault(out[2], []).append(time.perf_counter() - t)
+        prefill_n.setdefault(out[2], []).append(fl.launch_counts[fl.OP] - n0)
+        return out
+
+    engine.backend.decode, engine.backend.prefill = timed_decode, timed_prefill
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' tensors still alive
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new=GEN_MAX_NEW, seed=SEED + i, **kw)
+            for i, (p, kw) in enumerate(zip(prompts, knobs))]
+    outs = [r.result(600) for r in reqs]
+    wall = time.perf_counter() - t0
+    main_launches = dict(fl.launch_counts)
+    engine.backend.decode, engine.backend.prefill = decode, prefill
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    steps = engine.metrics.snapshot()["decode_steps"]
+    tbs = [engine.backend.bucket_for(len(p)) for p in prompts]
+    expected = (2 * sum(engine.backend.buckets) + 2   # warmup: a prefill per bucket, a decode
+                + 2 * steps + 2 * sum(tbs))
+    tokens = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+    tok_s = tokens / wall
+    step_ms = float(np.median(decode_s) * 1e3)
+    prefill_ms = {int(tb): float(np.median(v) * 1e3) for tb, v in sorted(prefill_s.items())}
+    per_decode = sorted(set(decode_n))
+    per_prefill = {int(tb): sorted(set(v)) for tb, v in sorted(prefill_n.items())}
+    print(f"phase 7 generate: {GEN_REQUESTS} requests (prompts 3-100, max_new {GEN_MAX_NEW}, "
+          f"half greedy, half {SAMPLED}) in {wall:.3f}s: {tokens} tokens, {tok_s:.1f} tokens/s, "
+          f"{steps} decode steps, median decode step {step_ms:.3f} ms (host clock, ends in the "
+          f"token copy), median prefill ms by bucket {prefill_ms}, peak {peak_gib:.4f} GiB above "
+          f"the {held / 2 ** 30:.3f} GiB earlier phases hold; "
+          f"warmup {warm}; launches {main_launches} (expected fused_lstm_cell {expected} = 2 per "
+          f"decode step, 2 tb per prefill, and the warmup's); measured per decode step "
+          f"{per_decode} over {len(decode_n)} steps, per prefill by bucket {per_prefill} on "
+          f"{card}", flush=True)
+
+    # teacher-forced: each request's own tokens through both paths
+    seqs = [o[:-1] for o in outs]
+    t_len = max(len(s) for s in seqs)
+    x, mask = _one_hot(seqs, t_len)
+    with torch.inference_mode():
+        yk, _, _ = model._forward(model.params_, model.state_, x, fmask=mask)
+        yp = plain_forward(fl, model, x, mask)
+    dp = float((yk - yp).abs().max())
+    decided_all = _decided(yp, dp)
+    greedy_ok, decided_n, greedy_n = True, 0, 0
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        if knobs[i]:
+            continue
+        pos = np.arange(len(p) - 1, len(o) - 1)
+        want = yp[i, pos].argmax(-1).cpu().numpy()
+        dec = decided_all[i, pos].cpu().numpy()
+        got = o[len(p):]
+        greedy_ok &= bool(np.all(got[dec] == want[dec]))
+        decided_n += int(dec.sum())
+        greedy_n += len(pos)
+    maxprob = float(yp.amax(-1)[mask > 0].mean())
+    print(f"phase 7 check: teacher-forced per-step probabilities, kernel path vs plain path on "
+          f"the card, max|dp| {dp:.3g} (tol {TEACHER_TOL}); greedy tokens equal the plain "
+          f"argmax at {decided_n}/{greedy_n} decided steps (top-2 gap > 2 max|dp|): "
+          f"{greedy_ok}; mean max prob {maxprob:.3f}", flush=True)
+
+    # engine == solo: four greedy requests alone in a 1-slot engine
+    solo_eng = GenerationEngine(model, n_slots=1, max_length=GEN_MAX_LENGTH,
+                                prefill_buckets=GEN_BUCKETS, default_timeout_s=600.0)
+    exact, solo_ok = [], True
+    try:
+        for i in (0, 2, 4, 6):
+            alone = solo_eng.submit(prompts[i], max_new=GEN_MAX_NEW, seed=SEED + i).result(600)
+            exact.append(bool(np.array_equal(alone, outs[i])))
+            if not exact[-1]:  # the first divergence must sit on an undecided step
+                j = int(np.argmax(alone != outs[i]))
+                solo_ok &= not bool(decided_all[i, j - 1])
+    finally:
+        solo_eng.shutdown()
+    print(f"phase 7 engine == solo: 4 greedy requests alone in a 1-slot engine, token-identical "
+          f"{exact} (cuBLAS f32 head batch-invariant here: {all(exact)})", flush=True)
+
+    # seq-bucketed predict and the int8 head engine
+    seq_buckets = list(TextGenerationLSTM.serving_seq_buckets)
+    e32 = InferenceEngine(model, buckets=BucketPolicy(batch_buckets=[1, 4],
+                                                      seq_buckets=seq_buckets))
+    e8 = InferenceEngine(model, buckets=BucketPolicy(batch_buckets=[1, 4],
+                                                     seq_buckets=seq_buckets), int8_serving=True)
+    predict, failed = [], []
+    for length in (5, 17, 40):
+        ids = rng.integers(0, TEXTGEN_VOCAB, length)
+        xs, ms = _one_hot([ids], length)
+        tb = next(t for t in seq_buckets if t >= length)
+        fl.reset_launch_counts()
+        y = e32.infer(xs.cpu().numpy())
+        l32 = dict(fl.launch_counts)
+        fl.reset_launch_counts()
+        y8 = e8.infer(xs.cpu().numpy())
+        l8 = dict(fl.launch_counts)
+        with torch.inference_mode():
+            ref = plain_forward(fl, model, xs, ms).cpu().numpy()
+        row = {"length": length, "bucket": tb, "launches_f32": l32, "launches_int8": l8,
+               "max_abs_dp_vs_plain": float(np.abs(y - ref).max()),
+               "max_abs_dp_int8_vs_f32": float(np.abs(y8 - y).max())}
+        predict.append(row)
+        if l32 != {"fused_lstm_cell": 2 * tb}:
+            failed.append(f"seq predict {length}: launches {l32}, expected {2 * tb} cells")
+        if l8 != {"fused_lstm_cell": 2 * tb, "int8_matmul": 1}:
+            failed.append(f"int8 predict {length}: launches {l8}")
+        if row["max_abs_dp_vs_plain"] > TEACHER_TOL or row["max_abs_dp_int8_vs_f32"] > INT8_HEAD_TOL:
+            failed.append(f"seq predict {row}")
+        if y.shape != (1, length, TEXTGEN_VOCAB) or _row_sum_dev(y.reshape(-1, TEXTGEN_VOCAB)) > 1e-5:
+            failed.append(f"seq predict {length}: bad output {y.shape}")
+    print(f"phase 7 predict: seq-bucketed InferenceEngine (buckets {seq_buckets}) and its int8 "
+          f"head engine, {predict}; int8 report {e8.int8_report}", flush=True)
+
+    if main_launches.get("fused_lstm_cell") != expected or set(main_launches) != {"fused_lstm_cell"}:
+        failed.append(f"launches {main_launches}, expected fused_lstm_cell {expected}")
+    if per_decode != [2] or any(v != [2 * tb] for tb, v in per_prefill.items()):
+        failed.append(f"cell launches per decode step {per_decode}, per prefill {per_prefill}: "
+                      f"expected [2] and 2 tb")
+    if any(len(o) != len(p) + GEN_MAX_NEW or o.min() < 0 or o.max() >= TEXTGEN_VOCAB
+           for o, p in zip(outs, prompts)):
+        failed.append("a generated sequence has the wrong length or a token out of range")
+    if dp > TEACHER_TOL or not np.isfinite(dp):
+        failed.append(f"teacher-forced max|dp| {dp}")
+    if not greedy_ok:
+        failed.append("a greedy token differs from the plain argmax at a decided step")
+    if not solo_ok:
+        failed.append(f"engine vs solo diverged at a decided step: {exact}")
+    if not 0.05 <= maxprob <= 0.9:
+        failed.append(f"mean max probability {maxprob} outside [0.05, 0.9]")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return engine, e32, prompts, outs, {
+        "main_launches": main_launches, "expected_launches": expected,
+        "decode_steps": steps, "prefill_buckets": tbs, "output_w_scale": scale,
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tok_s,
+        "launches_per_decode_step": per_decode, "launches_per_prefill_by_bucket": per_prefill,
+        "median_decode_step_ms": step_ms, "decode_step_ms": [d * 1e3 for d in decode_s],
+        "median_prefill_ms_by_bucket": prefill_ms, "peak_gib": peak_gib, "warmup": warm,
+        "teacher_forced_max_abs_dp": dp, "greedy_decided_steps": decided_n,
+        "greedy_steps": greedy_n, "mean_max_prob": maxprob, "engine_vs_solo_exact": exact,
+        "predict": predict, "int8_report": e8.int8_report}
+
+
+def generation_entry_points(engine_seq, gen, prompts, outs):
+    """Phase 6 for generation: ``POST /generate`` over HTTP equals
+    ``engine.submit``; ``cli serve --model textgenlstm --gen-slots 4
+    --smoke`` exits 0."""
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    srv = InferenceServer(engine_seq, port=0, generation=gen).start()
+    try:
+        code, raw = _http(srv.port, "POST", "/generate", json.dumps(
+            {"prompt": prompts[0].tolist(), "max_new": GEN_MAX_NEW, "stream": False}))
+        body = json.loads(raw)
+        _, h = _http(srv.port, "GET", "/healthz")
+        h = json.loads(h)
+    finally:
+        srv.shutdown()  # also drains and stops the generation engine
+    same = code == 200 and body.get("sequence") == outs[0].tolist()
+    print(f"phase 6 generate: POST /generate (greedy, {len(prompts[0])}-token prompt) HTTP "
+          f"{code}, equals engine.submit: {same}; /healthz generation "
+          f"{h.get('generation', {}).get('backend')} inflight {h.get('generation_inflight')}",
+          flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "serve",
+                        "--model", "textgenlstm", "--num-classes", str(TEXTGEN_VOCAB),
+                        "--gen-slots", "4", "--port", "0", "--smoke"],
+                       cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=300)
+    cli_ok = (r.returncode == 0 and "smoke: HTTP 200 ok" in r.stdout
+              and "smoke: generate HTTP 200 ok" in r.stdout)
+    print(f"phase 6 cli serve --model textgenlstm --num-classes {TEXTGEN_VOCAB} --gen-slots 4 "
+          f"--port 0 --smoke: exit {r.returncode} in {time.perf_counter() - t0:.1f}s; "
+          f"{' | '.join(r.stdout.strip().splitlines())}", flush=True)
+    failed = []
+    if not same:
+        failed.append(f"/generate answered {code} {body}")
+    if not cli_ok:
+        failed.append(f"cli serve --gen-slots --smoke failed: {r.stdout[-2000:]} "
+                      f"{r.stderr[-2000:]}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"generate_equals_submit": same, "cli_smoke_stdout": r.stdout}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1000,6 +1466,7 @@ def main() -> int:
         return 2
     from deeplearning4j_tpu_torch.nn.ops import build
     from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
+    from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
     from deeplearning4j_tpu_torch.nn.ops import int8_matmul as im
 
     card = smi_line()
@@ -1008,7 +1475,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"phase 1 device: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernel build {build_s:.1f}s", flush=True)
-    for lib in ("fused_conv", "fused_conv_bwd", "int8_matmul"):
+    for lib in ("fused_conv", "fused_conv_bwd", "int8_matmul", "fused_lstm"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1 ptxas {lib}: {line.strip()}", flush=True)
@@ -1017,26 +1484,37 @@ def main() -> int:
     bwd_rows, bwd_summary = backward_phase(fc)
     summary.update(bwd_summary)
     int8_rows, summary["int8_matmul"] = int8_phase(im)
+    lstm_rows, summary["fused_lstm_cell"] = lstm_phase(fl)
     serve = serve_phase(fc, card)
     train = train_phase(fc, card)
     e8, x, vgg = vgg_phase(fc, im, card)
     entry = entry_points_phase(e8, x)
+    gen_engine, seq_engine, prompts, outs, gen = generation_phase(fl, card)
+    entry["generate"] = generation_entry_points(seq_engine, gen_engine, prompts, outs)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
-    # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine);
-    # times: the convs' summed over one batch-32 forward (or backward) at the
-    # 19 shapes, the int8 matmul's over the three heads of one VGG16 forward
-    # at bucket 32 (bucket 1 under "b1")
+    # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
+    # the LSTM cell's from phase 7's (the generation engine); times: the
+    # convs' summed over one batch-32 forward (or backward) at the 19 shapes,
+    # the int8 matmul's over the three heads of one VGG16 forward at bucket
+    # 32 (bucket 1 under "b1"), the LSTM cell's over the two cells of one
+    # decode step at 32 slots (one prefill step, B 1, under "b1")
     kernels = []
+    main_of = {"int8_matmul": vgg, "fused_lstm_cell": gen}
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]
         entry_k = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": (vgg if name == "int8_matmul" else train)["main_launches"].get(name, 0),
+            "launches": main_of.get(name, train)["main_launches"].get(name, 0),
             "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
-        if name == "int8_matmul":
+        if name == "fused_lstm_cell":
+            entry_k["launches_per_decode_step"] = gen["launches_per_decode_step"]
+            entry_k["launches_per_prefill_by_bucket"] = gen["launches_per_prefill_by_bucket"]
+            entry_k["b1"] = s["b1"]
+            entry_k["no_peephole"] = {"b32": s["no_peephole_b32"], "b1": s["no_peephole_b1"]}
+        elif name == "int8_matmul":
             entry_k["launches_per_forward"] = vgg["per_forward"].get(name, 0)
             entry_k["b1"] = {k: s["b1"][k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                                      "bound_by", "library_ms")}
@@ -1047,7 +1525,8 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build_s": build_s,
                    "cases": rows, "backward_cases": bwd_rows, "int8_cases": int8_rows,
-                   "summary": summary, "serve": serve, "train": train, "vgg16": vgg,
+                   "lstm_cases": lstm_rows, "summary": summary, "serve": serve,
+                   "train": train, "vgg16": vgg, "generation": gen,
                    "entry_points": entry, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,14 +2,18 @@
 
 The JAX package ``deeplearning4j_tpu`` is the reference; this package
 mirrors its module paths, its configuration dicts and its public layouts
-(NHWC activations, HWIO conv weights), and imports nothing of it. Slice 1
-serves a ComputationGraph (ResNet-50) through ``InferenceEngine``; the two
-fused conv+BN+ReLU forward kernels on that path are hand-written CUDA for
-Hopper (``nn/ops/csrc/fused_conv.cu``).
+(NHWC activations, HWIO conv weights), and imports nothing of it. It serves
+and trains ResNet-50, serves MultiLayerNetworks (VGG16, LeNet, int8 heads)
+and recurrent networks (TextGenerationLSTM, through ``InferenceEngine`` and
+the continuous-batching ``GenerationEngine``) behind ``InferenceServer`` and
+``cli serve``; the kernels on those paths are hand-written CUDA for Hopper
+(``nn/ops/csrc``).
 
-Entry points (``ZooModel.init``, ``ComputationGraph.init``,
-``InferenceEngine``) run on the CUDA card unless the caller passes
-``device="cpu"``; without a card they raise :class:`DeviceUnavailableError`.
+Entry points (``ZooModel.init``, ``MultiLayerNetwork.init``,
+``ComputationGraph.init``, ``InferenceEngine``) run on the CUDA card unless
+the caller passes ``device="cpu"``; without a card they raise
+:class:`DeviceUnavailableError`. A ``GenerationEngine`` runs where its model
+lives.
 """
 
 from __future__ import annotations

@@ -2,9 +2,10 @@
 
 Counterpart of ``deeplearning4j_tpu/activations.py``: layer configs name
 their activation, and :func:`get` resolves the name (case-insensitive,
-underscores ignored) to a torch function. Slice 1 ports the activations
-the ResNet-50 serving path uses, plus ``sigmoid`` (the GlobalConf
-default); the other names raise.
+underscores ignored) to a torch function. The port has the activations
+its served models use: ResNet-50's and VGG16's, ``sigmoid`` (the
+GlobalConf default) and ``tanh`` (the recurrent layers'); the other names
+raise.
 """
 
 from __future__ import annotations
@@ -32,12 +33,17 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     return torch.softmax(x, dim=-1)
 
 
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
 _REGISTRY: dict = {
     "identity": identity,
     "linear": identity,
     "relu": relu,
     "sigmoid": sigmoid,
     "softmax": softmax,
+    "tanh": tanh,
 }
 
 

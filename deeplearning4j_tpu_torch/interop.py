@@ -4,8 +4,10 @@ The two packages draw different random numbers from the same seed, so a
 model moves between them by its arrays, never by its seed. Arrays travel as
 the model's own layout of numpy arrays: for a ComputationGraph nested dicts
 (vertex name -> param name -> array), for a MultiLayerNetwork a list (per
-layer) of dicts; updater state one level deeper (param name -> slot name ->
-array). On the reference's side that is e.g.
+layer) of dicts (recurrent layers: ``Wx``, ``Wh``, ``b`` and a GravesLSTM's
+``pI``/``pF``/``pO``; a Bidirectional layer nests its two copies under
+``"fwd"``/``"bwd"``); updater state one level deeper (param name -> slot
+name -> array). On the reference's side that is e.g.
 ``jax.tree_util.tree_map(np.asarray, net.params_)``. Layouts are the same in
 both packages (HWIO conv weights, (nIn, nOut) dense weights, NHWC
 flattening), so no array is transposed.

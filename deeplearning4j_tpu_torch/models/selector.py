@@ -2,8 +2,7 @@
 
 Counterpart of ``deeplearning4j_tpu/models/selector.py``. The port's zoo
 holds the architectures ported so far; the reference's other names
-(AlexNet, Darknet19, FaceNet, GoogLeNet, SimpleCNN, TextGenerationLSTM,
-TinyYOLO, YOLO2) raise :class:`ZooModelNotPortedError`. A zoo name always
+(AlexNet, Darknet19, FaceNet, GoogLeNet, SimpleCNN, TinyYOLO, YOLO2) raise :class:`ZooModelNotPortedError`. A zoo name always
 initializes fresh seeded weights: there is no pretrained lookup and no
 download.
 """
@@ -15,14 +14,16 @@ from typing import Dict, Type
 
 from deeplearning4j_tpu_torch.models.lenet import LeNet
 from deeplearning4j_tpu_torch.models.resnet50 import ResNet50
+from deeplearning4j_tpu_torch.models.textgen_lstm import TextGenerationLSTM
 from deeplearning4j_tpu_torch.models.vgg import VGG16, VGG19
 from deeplearning4j_tpu_torch.models.zoo import ZooModel
 
-ZOO: Dict[str, Type[ZooModel]] = {m.name: m for m in (LeNet, ResNet50, VGG16, VGG19)}
+ZOO: Dict[str, Type[ZooModel]] = {
+    m.name: m for m in (LeNet, ResNet50, TextGenerationLSTM, VGG16, VGG19)}
 
 #: zoo names of the reference that the port does not have yet
 NOT_PORTED = ("alexnet", "darknet19", "facenetnn4small2", "googlenet",
-              "inceptionresnetv1", "simplecnn", "textgenlstm", "tinyyolo", "yolo2")
+              "inceptionresnetv1", "simplecnn", "tinyyolo", "yolo2")
 
 
 class UnknownZooModelError(KeyError):

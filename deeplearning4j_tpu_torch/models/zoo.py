@@ -7,6 +7,8 @@ over from a checkpoint (``train/model_serializer.py``).
 
 from __future__ import annotations
 
+from typing import Optional
+
 
 class ZooModel:
     """Subclasses implement ``conf()`` returning a built configuration."""
@@ -19,6 +21,11 @@ class ZooModel:
     #: --int8-serving``, ``InferenceEngine(int8_serving=True)``); a model
     #: class that sets this False refuses the flag.
     serving_int8: bool = True
+
+    #: serving hint: sequence-length buckets for rank-3 inputs (the engine
+    #: pads time to them under a mask); None for fixed-shape models.
+    #: ``cli serve`` reads it when ``--seq-buckets`` is not given.
+    serving_seq_buckets: Optional[tuple] = None
 
     def __init__(self, num_classes: int = 1000, seed: int = 123, **kwargs):
         self.num_classes = int(num_classes)

@@ -21,6 +21,7 @@ from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import GlobalConf, Layer
 from deeplearning4j_tpu_torch.nn.conf.layers.conv import BaseConvLayer, SubsamplingLayer
 from deeplearning4j_tpu_torch.nn.conf.layers.core import BaseOutputLayer, DenseLayer
+from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor,
     FeedForwardToCnnPreProcessor,
@@ -53,6 +54,13 @@ def infer_preprocessor(input_type: InputType, layer: Layer
             raise ValueError(
                 "Recurrent input into OutputLayer: use RnnOutputLayer, "
                 "LastTimeStep, or a GlobalPoolingLayer first")
+        # a dense layer on recurrent input runs per timestep, without the
+        # reference's Rnn<->FF reshape round trip
+        return None
+    if isinstance(layer, BaseRecurrentLayer) or layer.is_recurrent:
+        if kind == "feedforward":
+            raise ValueError(
+                f"Cannot feed feedforward input into recurrent layer {layer}")
     return None
 
 
@@ -189,6 +197,9 @@ class ListBuilder:
         self._layers: List[Optional[Layer]] = []
         self._preprocessors: Dict[int, InputPreProcessor] = {}
         self._input_type: Optional[InputType] = None
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def layer(self, *args) -> "ListBuilder":
         """``layer(conf)`` appends; ``layer(index, conf)`` places."""
@@ -211,8 +222,21 @@ class ListBuilder:
 
     def backprop_type(self, t: str, fwd_length: int = 20,
                       back_length: int = 20) -> "ListBuilder":
-        raise NotImplementedError(
-            "tBPTT comes with the recurrent slice (ROADMAP § A)")
+        """``"standard"`` or ``"tbptt"`` with its forward/backward lengths:
+        configuration data (the JSON both packages write). Training with
+        it comes with the recurrent training slice (ROADMAP § A)."""
+        self._backprop_type = t.lower()
+        self._tbptt_fwd = int(fwd_length)
+        self._tbptt_back = int(back_length)
+        return self
+
+    def tbptt_fwd_length(self, n: int) -> "ListBuilder":
+        self._tbptt_fwd = int(n)
+        return self
+
+    def tbptt_back_length(self, n: int) -> "ListBuilder":
+        self._tbptt_back = int(n)
+        return self
 
     def build(self) -> MultiLayerConfiguration:
         if any(layer is None for layer in self._layers):
@@ -234,4 +258,7 @@ class ListBuilder:
                 ct = layer.get_output_type(ct)
         return MultiLayerConfiguration(global_conf=self._g, layers=layers,
                                        preprocessors=self._preprocessors,
-                                       input_type=self._input_type)
+                                       input_type=self._input_type,
+                                       backprop_type=self._backprop_type,
+                                       tbptt_fwd_length=self._tbptt_fwd,
+                                       tbptt_back_length=self._tbptt_back)

@@ -62,6 +62,14 @@ class InputType:
     def timesteps(self) -> Optional[int]:
         return self.dims.get("timesteps")
 
+    def arity(self) -> int:
+        """Flattened element count per example."""
+        if self.kind == "feedforward":
+            return self.size
+        if self.kind == "recurrent":
+            return self.size * (self.timesteps or 1)
+        return self.dims["height"] * self.dims["width"] * self.dims["channels"]
+
     def shape(self, batch: int = 1) -> Tuple[int, ...]:
         """Concrete activation shape for a given batch size."""
         if self.kind == "feedforward":

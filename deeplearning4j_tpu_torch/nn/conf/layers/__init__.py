@@ -1,4 +1,5 @@
-"""The ported layer catalog (slice 1: what ResNet-50 serving needs)."""
+"""The ported layer catalog: what ResNet-50, VGG16/LeNet and the recurrent
+networks (TextGenerationLSTM) need."""
 
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (  # noqa: F401
     FeedForwardLayer,
@@ -21,3 +22,15 @@ from deeplearning4j_tpu_torch.nn.conf.layers.fused_block import (  # noqa: F401
 )
 from deeplearning4j_tpu_torch.nn.conf.layers.norm import BatchNormalization  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.layers.pooling import GlobalPoolingLayer  # noqa: F401
+from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (  # noqa: F401
+    LSTM,
+    BaseRecurrentLayer,
+    Bidirectional,
+    GravesBidirectionalLSTM,
+    GravesLSTM,
+    LastTimeStep,
+    MaskZeroLayer,
+    RnnLossLayer,
+    RnnOutputLayer,
+    SimpleRnn,
+)

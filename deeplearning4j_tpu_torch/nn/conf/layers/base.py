@@ -7,7 +7,7 @@ match) and the same methods:
 - ``initialize(input_type)`` / ``get_output_type(input_type)``
 - ``init_params(gen, input_type, dtype)`` -> dict of tensors (on the CPU)
 - ``init_layer_state(input_type, dtype)`` -> dict (BN running stats)
-- ``apply(params, x, state=..., train=False)`` -> (y, new_state)
+- ``apply(params, x, state=..., train=False, mask=None)`` -> (y, new_state)
 
 ``train=True`` takes batch statistics where a layer has them (BN) and
 returns the new running state. Input dropout and weight noise are not
@@ -80,9 +80,22 @@ class Layer:
         return {}
 
     def apply(self, params: Params, x: torch.Tensor, *,
-              state: Optional[LayerState] = None, train: bool = False
+              state: Optional[LayerState] = None, train: bool = False,
+              mask: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, LayerState]:
+        """``mask``: the (b, T) feature mask of recurrent input, or None;
+        layers that do not read it ignore it."""
         raise NotImplementedError
+
+    def n_params(self, input_type: InputType) -> int:
+        """Parameter count at ``input_type`` (the memory report's)."""
+        p = self.init_params(torch.Generator().manual_seed(0), input_type)
+
+        def count(d):
+            return sum(count(v) if isinstance(v, dict) else v.numel()
+                       for v in d.values())
+
+        return int(count(p))
 
     is_recurrent = False
     is_output_layer = False

@@ -1,9 +1,10 @@
 """Global pooling over space.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/layers/pooling.py`` for CNN
-input ``(b, h, w, c)`` -> ``(b, c)``. The mean accumulates in f32 and is
-cast back to the input dtype, as ``jnp.mean`` does for bf16. Pooling over
-time with masks comes with the recurrent slice.
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers/pooling.py``: CNN input
+``(b, h, w, c)`` pools over space to ``(b, c)``, recurrent input
+``(b, T, d)`` over time to ``(b, d)``, skipping masked steps. The unmasked
+mean accumulates in f32 and is cast back to the input dtype, as
+``jnp.mean`` does for bf16.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer
 
 @serde.register
 class GlobalPoolingLayer(Layer):
-    """Pooling types: max | avg (sum and pnorm wait for a later slice)."""
+    """Pooling types: max | avg | sum | pnorm."""
 
     def __init__(self, pooling_type: str = "max", pnorm: int = 2,
                  collapse_dimensions: bool = True, **kwargs):
@@ -33,18 +34,38 @@ class GlobalPoolingLayer(Layer):
             return InputType.feed_forward(input_type.channels)
         return input_type
 
-    def apply(self, params, x, *, state=None, train=False):
-        if x.dim() != 4:
-            raise NotImplementedError(
-                "GlobalPoolingLayer over time (rank-3 input) comes with the "
-                "recurrent slice (ROADMAP § A)")
+    def _pool(self, x, dims, mask_b=None):
         pt = self.pooling_type
         if pt == "max":
-            y = x.amax(dim=(1, 2))
-        elif pt in ("avg", "average"):
+            if mask_b is not None:
+                x = torch.where(mask_b > 0, x, torch.full((), float("-inf"),
+                                                          dtype=x.dtype, device=x.device))
+            return x.amax(dim=dims)
+        if pt in ("avg", "average"):
+            if mask_b is not None:
+                s = (x * mask_b).sum(dim=dims)
+                cnt = torch.clamp(mask_b.sum(dim=dims), min=1.0)
+                return s / cnt
+            # f32 accumulation, back to the input dtype, as jnp.mean on bf16
             acc = torch.promote_types(x.dtype, torch.float32)
-            y = x.to(acc).mean(dim=(1, 2)).to(x.dtype)
+            return x.to(acc).mean(dim=dims).to(x.dtype)
+        if pt == "sum":
+            if mask_b is not None:
+                x = x * mask_b
+            return x.sum(dim=dims)
+        if pt == "pnorm":
+            p = float(self.pnorm)
+            if mask_b is not None:
+                x = x * mask_b
+            return (x.abs() ** p).sum(dim=dims) ** (1.0 / p)
+        raise ValueError(f"Unknown pooling type {pt}")
+
+    def apply(self, params, x, *, state=None, train=False, mask=None):
+        if x.dim() == 3:  # (b, T, d): over time, mask-aware
+            mask_b = None if mask is None else mask[..., None]
+            y = self._pool(x, (1,), mask_b)
+        elif x.dim() == 4:  # (b, h, w, c): over space
+            y = self._pool(x, (1, 2))
         else:
-            raise NotImplementedError(
-                f"pooling type '{pt}' is not ported yet (ROADMAP § A)")
+            raise ValueError(f"GlobalPooling expects 3d/4d input, got {tuple(x.shape)}")
         return y, state or {}

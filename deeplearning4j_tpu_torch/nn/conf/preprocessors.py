@@ -1,14 +1,18 @@
 """Input preprocessors: shape adapters between layer families.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/preprocessors.py`` (slice 3:
-the CNN <-> feed-forward pair). Layouts are the reference's: FF ``(b, s)``,
-CNN ``(b, h, w, c)`` NHWC, so a flatten is in (h, w, c) order, as
-``x.reshape(b, -1)`` is in JAX, and a dense weight that follows a conv
-stack lines up with the reference's row for row. The recurrent
-preprocessors come with the recurrent slice (ROADMAP § A).
+Counterpart of ``deeplearning4j_tpu/nn/conf/preprocessors.py``: the CNN <->
+feed-forward pair and the recurrent <-> feed-forward pair. Layouts are the
+reference's: FF ``(b, s)``, RNN ``(b, T, s)``, CNN ``(b, h, w, c)`` NHWC, so
+a flatten is in (h, w, c) order, as ``x.reshape(b, -1)`` is in JAX, and a
+dense weight that follows a conv stack lines up with the reference's row
+for row. A preprocessor also maps the feature mask
+(:meth:`InputPreProcessor.feed_forward_mask`). The CNN <-> RNN pair comes
+with a later slice (ROADMAP § A).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -22,6 +26,11 @@ class InputPreProcessor:
 
     def get_output_type(self, input_type: InputType) -> InputType:
         raise NotImplementedError
+
+    def feed_forward_mask(self, mask):
+        """The mask that goes with the preprocessed activations (the same
+        by default)."""
+        return mask
 
     def to_dict(self) -> dict:
         return serde.generic_to_dict(self)
@@ -65,3 +74,35 @@ class FeedForwardToCnnPreProcessor(InputPreProcessor):
 
     def get_output_type(self, input_type):
         return InputType.convolutional(self.height, self.width, self.channels)
+
+
+@serde.register
+class RnnToFeedForwardPreProcessor(InputPreProcessor):
+    """(b, T, s) -> (b*T, s): per-timestep dense processing; the (b, T) mask
+    flattens with it."""
+
+    def pre_process(self, x, mask=None):
+        return x.reshape(-1, x.shape[-1])
+
+    def feed_forward_mask(self, mask):
+        return None if mask is None else mask.reshape(-1)
+
+    def get_output_type(self, input_type):
+        return InputType.feed_forward(input_type.size)
+
+
+@serde.register
+class FeedForwardToRnnPreProcessor(InputPreProcessor):
+    """(b*T, s) -> (b, T, s); needs the timestep count."""
+
+    def __init__(self, timesteps: Optional[int] = None):
+        self.timesteps = timesteps
+
+    def pre_process(self, x, mask=None):
+        t = self.timesteps
+        if t is None:
+            raise ValueError("FeedForwardToRnnPreProcessor needs timesteps")
+        return x.reshape(-1, t, x.shape[-1])
+
+    def get_output_type(self, input_type):
+        return InputType.recurrent(input_type.size, self.timesteps)

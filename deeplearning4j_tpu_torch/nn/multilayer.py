@@ -1,8 +1,10 @@
 """MultiLayerNetwork: the sequential network runtime, and the per-layer
 update pipeline shared by the train steps.
 
-Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` (slice 3: ``init``,
-the eval forward, ``output``, the flat parameter vector and ``summary``).
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``, the eval
+forward with feature masks and recurrent carries, ``output``, the
+streaming ``rnn_time_step`` family, the flat parameter vector and
+``summary``.
 State layout is the reference's:
 
 - ``params_``: list (per layer) of dicts param name -> tensor (``dtype``,
@@ -13,14 +15,14 @@ Under ``compute_dtype`` the forward casts float params (except those of
 normalization layers, the output layer and a layer's ``keep_fp32_params``)
 and float inputs to the compute dtype, as the reference does; int8 serving
 weights (``W_q8``) stay int8 and their ``W_scale`` is cast like any float
-param. ``fit``, ``score``, tBPTT and ``rnn_time_step`` come with the
-training and recurrent slices (ROADMAP § A) and raise.
+param. ``fit``, ``score`` and tBPTT training come with the training slices
+(ROADMAP § A) and raise.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,8 +49,28 @@ def cast_layer_params_for_compute(layer, p: Tensors, cd: torch.dtype, *,
     if isinstance(layer, BatchNormalization) or is_output:
         return p
     keep = getattr(layer, "keep_fp32_params", ())
-    return {k: v.to(cd) if v.is_floating_point() and k not in keep else v
+    return {k: (map_tensors(lambda t: t.to(cd) if t.is_floating_point() else t, v)
+                if k not in keep else v)
             for k, v in p.items()}
+
+
+def map_tensors(fn, tree):
+    """``fn`` over every tensor of a param dict, nested dicts included (a
+    Bidirectional layer keeps its two copies under "fwd"/"bwd")."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tensor_leaves(tree):
+    """The tensors of a param dict in checkpoint order: names sorted,
+    nested dicts walked in place."""
+    for name in sorted(tree):
+        v = tree[name]
+        if isinstance(v, dict):
+            yield from tensor_leaves(v)
+        else:
+            yield v
 
 
 @torch.no_grad()
@@ -97,6 +119,8 @@ class MultiLayerNetwork:
         self.device: Optional[torch.device] = None
         self.iteration = 0
         self.epoch = 0
+        #: the streaming state of :meth:`rnn_time_step`
+        self._rnn_carries: Optional[List[Any]] = None
         self._compute_dtype = _dtype_of(getattr(conf.global_conf, "compute_dtype", None))
 
     # ------------------------------------------------------------------ init
@@ -112,10 +136,10 @@ class MultiLayerNetwork:
         types = self.conf.layer_types()
         params, state = [], []
         for i, layer in enumerate(self.layers):
-            params.append({k: v.to(device) for k, v in
-                           layer.init_params(gen, types[i], dtype).items()})
-            state.append({k: v.to(device) for k, v in
-                          layer.init_layer_state(types[i], dtype).items()})
+            params.append(map_tensors(lambda t: t.to(device),
+                                      layer.init_params(gen, types[i], dtype)))
+            state.append(map_tensors(lambda t: t.to(device),
+                                     layer.init_layer_state(types[i], dtype)))
         self.params_, self.state_, self.device = params, state, device
         self.iteration = self.epoch = 0
         return self
@@ -135,13 +159,22 @@ class MultiLayerNetwork:
                 for i, (layer, p) in enumerate(zip(self.layers, params))]
 
     def _forward(self, params, state, x: torch.Tensor, *, train: bool = False,
-                 stop_before: Optional[int] = None, cast_params: bool = True
-                 ) -> Tuple[torch.Tensor, List[Tensors]]:
-        """The eval forward. Returns ``(x, new_states)``: ``x`` is the
-        activation into layer ``stop_before`` (after its preprocessor), or
-        the network's output when ``stop_before`` is None.
-        ``cast_params=False`` when ``params`` is already the output of
-        :meth:`compute_params`."""
+                 stop_before: Optional[int] = None, cast_params: bool = True,
+                 fmask: Optional[torch.Tensor] = None,
+                 carries: Optional[List[Any]] = None
+                 ) -> Tuple[torch.Tensor, List[Tensors], List[Any]]:
+        """The eval forward. Returns ``(x, new_states, new_carries)``: ``x``
+        is the activation into layer ``stop_before`` (after its
+        preprocessor), or the network's output when ``stop_before`` is
+        None. ``fmask``: the (b, T) feature mask of recurrent input
+        (preprocessors map it, pooling and last-step layers consume it).
+        ``carries``: per layer, the recurrent state to start from (None
+        entries start from zeros, as :meth:`_init_carries` gives);
+        ``new_carries`` holds each recurrent layer's final state where a
+        carry was given, else None. ``cast_params=False`` when ``params`` is
+        already the output of :meth:`compute_params`."""
+        from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
+
         if train:
             raise NotImplementedError(f"MultiLayerNetwork training is {NOT_PORTED}")
         if self._compute_dtype is not None and cast_params:
@@ -153,34 +186,106 @@ class MultiLayerNetwork:
             x = x.to(in_dt)
         n = len(self.layers)
         stop = n if stop_before is None else stop_before
+        mask = fmask
         new_states: List[Tensors] = []
+        new_carries: List[Any] = [None] * n
         for i in range(n):
+            layer = self.layers[i]
             if i in self.conf.preprocessors:
-                x = self.conf.preprocessors[i].pre_process(x)
+                prep = self.conf.preprocessors[i]
+                x = prep.pre_process(x, mask)
+                mask = prep.feed_forward_mask(mask)
             if i >= stop:
                 break
-            x, st = self.layers[i].apply(params[i], x, state=state[i], train=False)
+            if (carries is not None and isinstance(layer, BaseRecurrentLayer)
+                    and carries[i] is not None):
+                x, new_carries[i] = layer.apply_with_carry(params[i], x, carries[i],
+                                                           mask=mask)
+                st = state[i]
+            else:
+                x, st = layer.apply(params[i], x, state=state[i], train=False, mask=mask)
             new_states.append(st if st is not None else {})
-        return x, new_states
+            if layer.is_recurrent and mask is not None:
+                pass  # recurrent layers keep the (b, T) mask
+            elif x.dim() == 2 and mask is not None and mask.dim() > 1:
+                mask = None  # consumed by a pooling or last-step layer
+        return x, new_states, new_carries
+
+    def _init_carries(self, batch: int, dtype=torch.float32) -> List[Any]:
+        """Zero recurrent state for ``batch`` rows on the model's device: a
+        carry per recurrent layer, None for the others."""
+        from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
+
+        return [layer.init_carry(batch, dtype, self.device)
+                if isinstance(layer, BaseRecurrentLayer) else None
+                for layer in self.layers]
 
     def _as_input(self, x) -> torch.Tensor:
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
         return t.to(self.device)
 
-    def output(self, x) -> np.ndarray:
-        """Inference: the network's output for ``x`` as a numpy array (f32
-        for a bf16 compute dtype)."""
-        if self.params_ is None:
-            raise ValueError("init() the network (or load params) first")
-        with torch.inference_mode():
-            y, _ = self._forward(self.params_, self.state_, self._as_input(x))
+    @staticmethod
+    def _host(y: torch.Tensor) -> np.ndarray:
         if y.dtype in (torch.bfloat16, torch.float16):
             y = y.float()
         return y.cpu().numpy()
 
+    def output(self, x, mask=None) -> np.ndarray:
+        """Inference: the network's output for ``x`` as a numpy array (f32
+        for a bf16 compute dtype). ``mask``: the (b, T) feature mask of
+        recurrent input."""
+        if self.params_ is None:
+            raise ValueError("init() the network (or load params) first")
+        with torch.inference_mode():
+            m = None if mask is None else self._as_input(mask).float()
+            y, _, _ = self._forward(self.params_, self.state_, self._as_input(x), fmask=m)
+        return self._host(y)
+
+    # ---------------------------------------------------------- rnn state
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_carries = None
+
+    def rnn_get_previous_state(self):
+        """Per-layer streaming state as numpy (a tuple ``(h, c)`` for an
+        LSTM layer, None for a non-recurrent one); None before any
+        :meth:`rnn_time_step`."""
+        from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import tree_map
+
+        if self._rnn_carries is None:
+            return None
+        return [None if c is None else tree_map(self._host, c)
+                for c in self._rnn_carries]
+
+    def rnn_set_previous_state(self, carries) -> None:
+        """Restore state taken by :meth:`rnn_get_previous_state` (e.g. to
+        resume streaming after a restart)."""
+        from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import tree_map
+
+        self._rnn_carries = None if carries is None else [
+            None if c is None else tree_map(
+                lambda a: torch.as_tensor(np.asarray(a)).to(self.device), c)
+            for c in carries]
+
+    def rnn_time_step(self, x) -> np.ndarray:
+        """Stateful streaming inference: ``x`` (b, T, size) or one step (b,
+        size), continuing from the state the last call left."""
+        x = self._as_input(x)
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[:, None, :]
+        if self._rnn_carries is None:
+            # the input's dtype, as the reference (which has no float64)
+            dt = torch.float32 if x.dtype == torch.float64 else x.dtype
+            self._rnn_carries = self._init_carries(x.shape[0], dt)
+        with torch.inference_mode():
+            y, _, self._rnn_carries = self._forward(self.params_, self.state_, x,
+                                                    carries=self._rnn_carries)
+        y = self._host(y)
+        return y[:, -1, :] if squeeze else y
+
     # ------------------------------------------------------- params utilities
     def num_params(self) -> int:
-        return int(sum(t.numel() for p in self.params_ for t in p.values()))
+        return int(sum(t.numel() for p in self.params_ for t in tensor_leaves(p)))
 
     def summary(self) -> str:
         """Layer table: index, layer, input -> output type, #params."""
@@ -188,7 +293,7 @@ class MultiLayerNetwork:
         rows = [("idx", "layer", "input", "output", "params")]
         total = 0
         for i, layer in enumerate(self.layers):
-            n = (int(sum(t.numel() for t in self.params_[i].values()))
+            n = (int(sum(t.numel() for t in tensor_leaves(self.params_[i])))
                  if self.params_ is not None else 0)
             total += n
             rows.append((str(i), type(layer).__name__, str(types[i]),
@@ -214,17 +319,15 @@ class MultiLayerNetwork:
     def score(self, *args, **kwargs):
         raise NotImplementedError(f"MultiLayerNetwork.score is {NOT_PORTED}")
 
-    def rnn_time_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "rnn_time_step comes with the recurrent slice (ROADMAP § A)")
 
 
 def flatten_tensors(groups) -> np.ndarray:
     """Tensors of a list of dicts (or a dict of dicts, walked in the caller's
-    order) as one f32 vector: group by group, names sorted."""
+    order) as one f32 vector: group by group, names sorted (nested dicts
+    in place, :func:`tensor_leaves`)."""
     groups = groups.values() if isinstance(groups, dict) else groups
-    chunks = [g[name].detach().float().cpu().numpy().reshape(-1)
-              for g in groups for name in sorted(g)]
+    chunks = [t.detach().float().cpu().numpy().reshape(-1)
+              for g in groups for t in tensor_leaves(g)]
     return np.concatenate(chunks) if chunks else np.zeros((0,), np.float32)
 
 
@@ -232,25 +335,27 @@ def unflatten_tensors(groups, vec: np.ndarray):
     """The inverse of :func:`flatten_tensors`: new tensors of each tensor's
     shape, dtype and device, read from ``vec`` in the same order."""
     vec = np.asarray(vec, np.float32)
-    keyed = isinstance(groups, dict)
-    items = groups.items() if keyed else enumerate(groups)
     off = 0
-    out = {} if keyed else []
-    for key, g in items:
-        new = {}
-        for name in sorted(g):
-            t = g[name]
-            n = t.numel()
-            if off + n > vec.size:
-                raise ValueError(f"Param vector length {vec.size} is shorter than "
-                                 "the model")
-            new[name] = torch.tensor(vec[off:off + n].reshape(tuple(t.shape)),
-                                     dtype=t.dtype, device=t.device)
-            off += n
-        if keyed:
-            out[key] = new
-        else:
-            out.append(new)
+
+    def take(t: torch.Tensor) -> torch.Tensor:
+        nonlocal off
+        n = t.numel()
+        if off + n > vec.size:
+            raise ValueError(f"Param vector length {vec.size} is shorter than "
+                             "the model")
+        out = torch.tensor(vec[off:off + n].reshape(tuple(t.shape)),
+                           dtype=t.dtype, device=t.device)
+        off += n
+        return out
+
+    def rebuild(g):
+        return {name: rebuild(g[name]) if isinstance(g[name], dict) else take(g[name])
+                for name in sorted(g)}
+
+    if isinstance(groups, dict):
+        out = {key: rebuild(g) for key, g in groups.items()}
+    else:
+        out = [rebuild(g) for g in groups]
     if off != vec.size:
         raise ValueError(f"Param vector length {vec.size} != model size {off}")
     return out

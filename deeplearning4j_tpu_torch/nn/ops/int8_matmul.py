@@ -159,13 +159,15 @@ def serving_matmul(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Te
 # ---------------------------------------------------------------------------
 def quantizable_layer(layer) -> bool:
     """Layers whose ``W`` routes through :func:`serving_matmul`: the dense
-    and output heads (``RnnOutputLayer`` comes with the recurrent slice)."""
+    and output heads, the per-timestep ``RnnOutputLayer`` included. The
+    recurrent gate matrices stay float (the fused LSTM cell owns them)."""
     from deeplearning4j_tpu_torch.nn.conf.layers.core import (
         BaseOutputLayer,
         DenseLayer,
     )
+    from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import RnnOutputLayer
 
-    return isinstance(layer, (DenseLayer, BaseOutputLayer))
+    return isinstance(layer, (DenseLayer, BaseOutputLayer, RnnOutputLayer))
 
 
 def quantize_layer_params(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

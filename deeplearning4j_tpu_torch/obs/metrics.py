@@ -17,6 +17,7 @@ training and data-pipeline publishers come with their slices (ROADMAP
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 _LabelKey = Tuple[Tuple[str, str], ...]
@@ -222,6 +223,39 @@ class MetricsRegistry:
                 txt = repr(v) if v != int(v) else str(int(v))
                 lines.append(f"{name}{_label_str(lkey)} {txt}")
         return "\n".join(lines) + "\n"
+
+
+# --------------------------------------------------------------------------
+# scrape-to-scrape rates (a copy of deeplearning4j_tpu/obs/cost.py:205-230)
+# --------------------------------------------------------------------------
+#: scrapes closer together than this share one rate window
+RATE_MIN_WINDOW_S = 0.25
+
+
+def value_rate_fn(value_fn: Callable[[], float]) -> Callable[[], float]:
+    """A gauge callback giving the scrape-to-scrape rate of a monotonic
+    value: ``delta(value) / delta(time)`` since the previous window (0 on
+    the first scrape, or after a reset). Calls within
+    :data:`RATE_MIN_WINDOW_S` of the last window return the same rate."""
+    state = {"t": None, "v": 0.0, "rate": 0.0}
+    lock = threading.Lock()
+
+    def rate() -> float:
+        now = time.monotonic()
+        with lock:
+            t0 = state["t"]
+            if t0 is not None and now - t0 < RATE_MIN_WINDOW_S:
+                return state["rate"]
+            v = float(value_fn())
+            v0 = state["v"]
+            state["t"], state["v"] = now, v
+            if t0 is None or now <= t0 or v < v0:
+                state["rate"] = 0.0
+            else:
+                state["rate"] = (v - v0) / (now - t0)
+            return state["rate"]
+
+    return rate
 
 
 # --------------------------------------------------------------------------

@@ -10,9 +10,10 @@ queued, and a submit that slips past the flag fails its own request, so no
 caller blocks on a request nobody will serve. Completion is first-wins.
 
 The worker thread runs the dispatch under ``torch.inference_mode()``,
-which is per thread. The reference's chaos hooks, lock witness and
-per-request stage traces come with the control-plane slice, feature masks
-with the recurrent slice (ROADMAP § A).
+which is per thread. A request may carry a feature mask for rank-3 input;
+requests coalesce only with requests of the same row shape and mask shape.
+The reference's chaos hooks, lock witness and per-request stage traces
+come with the control-plane slice (ROADMAP § A).
 """
 
 from __future__ import annotations
@@ -53,11 +54,12 @@ class InferenceRequest:
     """One submitted request: input rows and a completion event.
     ``finish``/``fail`` are idempotent and first-wins."""
 
-    __slots__ = ("x", "deadline", "enqueued_at", "_event", "_lock",
+    __slots__ = ("x", "mask", "deadline", "enqueued_at", "_event", "_lock",
                  "result_", "error_", "model_version")
 
-    def __init__(self, x, deadline: Optional[float] = None):
+    def __init__(self, x, mask=None, deadline: Optional[float] = None):
         self.x = np.asarray(x)
+        self.mask = None if mask is None else np.asarray(mask)
         #: absolute time.monotonic() deadline, or None
         self.deadline = deadline
         self.enqueued_at = time.monotonic()
@@ -111,21 +113,27 @@ class InferenceRequest:
 def make_dispatcher(infer: Callable[..., np.ndarray],
                     metrics: Optional[ServingMetrics] = None
                     ) -> Callable[[List[InferenceRequest]], None]:
-    """Standard dispatch: group coalesced requests by per-row shape,
-    concatenate each group into one ``infer(x)`` call, slice the rows back
-    to their requests. ``infer`` may return the rows or ``(rows, version)``
+    """Standard dispatch: group coalesced requests by per-row shape and mask
+    shape, concatenate each group into one ``infer(x)`` call (``infer(x,
+    mask)`` for a group with masks), slice the rows back to their requests.
+    ``infer`` may return the rows or ``(rows, version)``
     (``InferenceEngine.infer_versioned``); the version is stamped on each
     request before it completes."""
+
+    def signature(r: InferenceRequest):
+        return r.x.shape[1:], None if r.mask is None else r.mask.shape[1:]
 
     def dispatch(batch: List[InferenceRequest]) -> None:
         groups: dict = {}
         for r in batch:
-            groups.setdefault(r.x.shape[1:], []).append(r)
+            groups.setdefault(signature(r), []).append(r)
         for reqs in groups.values():
             x = (reqs[0].x if len(reqs) == 1
                  else np.concatenate([r.x for r in reqs], axis=0))
+            mask = (None if reqs[0].mask is None
+                    else np.concatenate([r.mask for r in reqs], axis=0))
             try:
-                out = infer(x)
+                out = infer(x) if mask is None else infer(x, mask)
             except Exception as e:  # noqa: BLE001 — routed to every request's typed failure path
                 if metrics is not None:
                     metrics.record_error()
@@ -178,13 +186,14 @@ class DynamicBatcher:
         per_dispatch = self._dispatch_ewma_s or 0.0
         return min(max(self._queue.qsize() * per_dispatch, 1.0), 60.0)
 
-    def submit(self, x, timeout: Optional[float] = None) -> InferenceRequest:
+    def submit(self, x, mask=None, timeout: Optional[float] = None) -> InferenceRequest:
         """Enqueue a request; returns at once (block on ``req.result()``).
+        ``mask``: the (b, T) feature mask of rank-3 input, or None.
         ``timeout`` sets the request's deadline, enforced while queued and
         by ``result``'s wait."""
         if self._shutdown:
             raise ServerShutdownError("server is shut down")
-        req = InferenceRequest(x, deadline=None if timeout is None
+        req = InferenceRequest(x, mask, deadline=None if timeout is None
                                else time.monotonic() + float(timeout))
         try:
             self._queue.put_nowait(req)

@@ -5,15 +5,17 @@ Counterpart of ``deeplearning4j_tpu/serving/engine.py`` (``:68-665``). The
 engine holds one immutable snapshot of the model: its params (int8-
 quantized heads when ``int8_serving``), cast for the compute dtype and
 placed, with the state, on the engine's device. A request is padded up to
-its batch bucket, run through the model's forward, and sliced back.
+its batch bucket (a rank-3 sequence also to its sequence bucket, under a
+feature mask), run through the model's forward, and sliced back.
 
 - Models: a ``MultiLayerNetwork``, or a single-output ``ComputationGraph``
   (served through its single-output forward, the route the reference
   engine's generic branch intends).
 - ``int8_serving=True`` builds every snapshot (init and reloads) with the
-  dense/output heads quantized (``nn/ops/int8_matmul.py``): the snapshot on
-  the device holds ``W_q8``/``W_scale`` and not the f32 ``W`` of those
-  layers; the model's own params stay f32. A ``ComputationGraph`` is
+  dense/output heads, ``RnnOutputLayer`` included, quantized
+  (``nn/ops/int8_matmul.py``): the snapshot on the device holds
+  ``W_q8``/``W_scale`` and not the f32 ``W`` of those layers; the model's
+  own params stay f32. A ``ComputationGraph`` is
   refused with ``TypeError``, as the reference does.
 - ``from_checkpoint`` and ``reload`` resolve a zip or a directory through
   :func:`resolve_checkpoint_source` (an invalid zip falls back to its
@@ -42,8 +44,8 @@ import torch
 
 from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-from deeplearning4j_tpu_torch.serving.buckets import BucketPolicy
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, map_tensors
+from deeplearning4j_tpu_torch.serving.buckets import BucketPolicy, slice_result
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 
 
@@ -63,8 +65,8 @@ class _Snapshot:
         self.loaded_at = time.time()
 
 
-def conf_example_shape(conf) -> Optional[Tuple[int, ...]]:
-    """Per-example input shape declared by a configuration (None when it
+def conf_input_type(conf):
+    """The single input type a configuration declares (None when it
     declares none, or a graph has several inputs)."""
     itype = getattr(conf, "input_type", None)
     if itype is None:
@@ -72,7 +74,15 @@ def conf_example_shape(conf) -> Optional[Tuple[int, ...]]:
         if not types or len(types) != 1:
             return None
         itype = types[0]
-    return tuple(itype.shape(1)[1:])
+    return itype
+
+
+def conf_example_shape(conf) -> Optional[Tuple[int, ...]]:
+    """Per-example input shape declared by a configuration (a recurrent
+    input declares one step when it names no length); None when it declares
+    none."""
+    itype = conf_input_type(conf)
+    return None if itype is None else tuple(itype.shape(1)[1:])
 
 
 def resolve_checkpoint_source(source: str) -> str:
@@ -104,8 +114,8 @@ def resolve_checkpoint_source(source: str) -> str:
 def _place(tree, device: torch.device):
     """A list or dict of param dicts with every tensor on ``device``."""
     if isinstance(tree, dict):
-        return {k: {n: t.to(device) for n, t in d.items()} for k, d in tree.items()}
-    return [{n: t.to(device) for n, t in d.items()} for d in tree]
+        return {k: map_tensors(lambda t: t.to(device), d) for k, d in tree.items()}
+    return [map_tensors(lambda t: t.to(device), d) for d in tree]
 
 
 def _path_fingerprint(path: str) -> Optional[Tuple[int, int]]:
@@ -230,35 +240,57 @@ class InferenceEngine:
         """Per-example input shape from the model conf's input type."""
         return conf_example_shape(self._snap.model.conf)
 
-    def infer(self, x) -> np.ndarray:
+    def infer(self, x, mask=None) -> np.ndarray:
         """One bucketed forward: pad up to the bucket, run, slice back.
-        (Feature masks come with the recurrent slice, ROADMAP § A.)"""
-        return self.infer_versioned(x)[0]
+        ``mask``: the (b, T) feature mask of rank-3 input (made for rank-3
+        input when the policy has sequence buckets and none is given)."""
+        return self.infer_versioned(x, mask)[0]
 
-    def infer_versioned(self, x) -> Tuple[np.ndarray, int]:
+    def infer_versioned(self, x, mask=None) -> Tuple[np.ndarray, int]:
         """:meth:`infer` plus the version of the snapshot that computed it
         (the snapshot reference is read once)."""
         snap = self._snap
-        return self._infer_on(snap, x), snap.version
+        return self._infer_on(snap, x, mask), snap.version
 
-    def _infer_on(self, snap: _Snapshot, x) -> np.ndarray:
+    def _infer_on(self, snap: _Snapshot, x, mask=None) -> np.ndarray:
         x = np.asarray(x)
-        shape = conf_example_shape(snap.model.conf)
-        if shape is not None and tuple(x.shape[1:]) != shape:
+        itype = conf_input_type(snap.model.conf)
+        shape = None if itype is None else tuple(itype.shape(1)[1:])
+        if itype is not None and itype.kind == "recurrent" and itype.timesteps is None:
+            # sequences of any length, each step of the model's size
+            if x.ndim != 3 or x.shape[2] != itype.size:
+                raise ValueError(f"input of shape {tuple(x.shape)}; the model takes "
+                                 f"(batch, time, {itype.size}) sequences")
+        elif shape is not None and tuple(x.shape[1:]) != shape:
             raise ValueError(f"input rows of shape {tuple(x.shape[1:])}; the model "
                              f"takes rows of shape {shape}")
-        xp, n = self.buckets.pad_batch(x)
+        if mask is not None:
+            mask = np.asarray(mask, np.float32)
+            if x.ndim < 3 or mask.shape != x.shape[:2]:
+                raise ValueError(f"mask of shape {mask.shape} does not match input "
+                                 f"rows and steps {x.shape[:2]}")
+        t_orig = x.shape[1] if x.ndim >= 3 else None
+        xp, mp, n = self.buckets.pad_batch(x, mask)
+        t_padded = xp.shape[1] if t_orig is not None else None
         self.metrics.record_dispatch(xp.shape[0], real_rows=n)
-        return self._forward_raw(snap, xp)[:n]
+        return slice_result(self._forward_raw(snap, xp, mp), n, t_orig, t_padded)
 
-    def _forward_raw(self, snap: _Snapshot, xp: np.ndarray) -> np.ndarray:
+    def _forward_raw(self, snap: _Snapshot, xp: np.ndarray,
+                     mp: Optional[np.ndarray] = None) -> np.ndarray:
         """The exact-shape forward under ``snap``, no padding."""
         model = snap.model
         xt = torch.from_numpy(np.ascontiguousarray(xp)).to(self.device)
         with torch.inference_mode():
             if isinstance(model, MultiLayerNetwork):
-                y, _ = model._forward(snap.params, snap.state, xt, cast_params=False)
+                mt = None if mp is None else torch.from_numpy(
+                    np.ascontiguousarray(mp, np.float32)).to(self.device)
+                y, _, _ = model._forward(snap.params, snap.state, xt, cast_params=False,
+                                         fmask=mt)
             else:
+                if mp is not None:
+                    raise NotImplementedError(
+                        "feature masks into a ComputationGraph are not ported yet "
+                        "(ROADMAP § A)")
                 acts, _, _ = model._forward(snap.params, snap.state, [xt],
                                             cast_params=False)
                 y = acts[model.conf.network_outputs[0]]
@@ -269,8 +301,9 @@ class InferenceEngine:
     # -- warmup -------------------------------------------------------------
     def _warm_snapshot(self, snap: _Snapshot, example_shape) -> int:
         shapes = self.buckets.warmup_shapes(tuple(example_shape))
-        for full_shape in shapes:
-            self._infer_on(snap, np.zeros(full_shape, np.float32))
+        for full_shape, with_mask in shapes:
+            mask = np.ones(full_shape[:2], np.float32) if with_mask else None
+            self._infer_on(snap, np.zeros(full_shape, np.float32), mask)
         return len(shapes)
 
     def warmup(self) -> dict:

@@ -4,10 +4,11 @@ per-bucket hits and pad waste, latency quantiles from a fixed-size ring.
 A copy of ``ServingMetrics`` of ``deeplearning4j_tpu/serving/metrics.py``
 (``:34-218``): the same ``record_*`` methods, attribute reads and
 ``snapshot()`` keys for the ``/metrics`` endpoint, and the Prometheus text
-of the backing registry. By default each instance owns a private registry,
-so independent engines never double-count; ``cli serve`` hands it the
-process-wide one. ``GenerationMetrics`` comes with the generation slice
-(ROADMAP § A).
+of the backing registry; and ``GenerationMetrics`` (``:220-440``) for the
+generation engine, without the speculative-decoding and prefix-cache
+series (ROADMAP § A, slice 6). By default each instance owns a private
+registry, so independent engines never double-count; ``cli serve`` hands
+it the process-wide one.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional
 
-from deeplearning4j_tpu_torch.obs.metrics import MetricsRegistry
+from deeplearning4j_tpu_torch.obs.metrics import MetricsRegistry, value_rate_fn
 
 
 class ServingMetrics:
@@ -189,3 +190,130 @@ class ServingMetrics:
                                 "pending requests in the batcher queue"
                                 ).set(int(queue_depth))
         return self.registry.prometheus_text()
+
+
+class GenerationMetrics:
+    """The generation engine's metrics (``serving/generate.py``): requests,
+    rejects, deadlines, errors, tokens, prefills and decode steps with their
+    wall seconds (the prefill/decode split), slot occupancy, request
+    latency, and ``generation_tokens_per_sec`` (the scrape-to-scrape rate
+    of the token counter)."""
+
+    def __init__(self, ring_size: int = 2048,
+                 registry: Optional[MetricsRegistry] = None):
+        self.registry = registry if registry is not None else MetricsRegistry()
+        reg = self.registry
+        self._requests = reg.counter(
+            "generation_requests_total", "generation requests accepted into the queue")
+        self._rejects = reg.counter(
+            "generation_rejects_total",
+            "generation requests rejected (queue full / invalid window)")
+        self._deadline = reg.counter(
+            "generation_deadline_total",
+            "generation requests past their deadline (queued or mid-decode)")
+        self._errors = reg.counter(
+            "generation_errors_total", "generation failures propagated to callers")
+        self._tokens = reg.counter(
+            "generation_tokens_total", "tokens generated across requests")
+        self._prefills = reg.counter(
+            "generation_prefills_total", "prompt prefills (slot claims)")
+        self._decode_steps = reg.counter(
+            "generation_decode_steps_total",
+            "batched decode dispatches (one per token for ALL slots)")
+        self._prefill_s = reg.counter(
+            "generation_prefill_seconds_total", "wall seconds spent in prompt prefill")
+        self._decode_s = reg.counter(
+            "generation_decode_seconds_total",
+            "wall seconds spent in batched decode steps")
+        self._latency = reg.histogram(
+            "generation_request_seconds",
+            "end-to-end request latency (ring-buffer window)", ring_size=ring_size)
+        self._slots = reg.gauge("generation_slots", "decode slots in the engine")
+        self._active = reg.gauge("generation_active_slots", "slots currently decoding")
+        reg.gauge("generation_tokens_per_sec",
+                  "generated tokens/sec (scrape-to-scrape rate)",
+                  fn=value_rate_fn(lambda: self._tokens.value()))
+        self.started_at = time.time()
+
+    # -- recording ----------------------------------------------------------
+    def set_slots(self, n: int) -> None:
+        self._slots.set(int(n))
+
+    def set_active_slots(self, n: int) -> None:
+        self._active.set(int(n))
+
+    def record_request(self) -> None:
+        self._requests.inc()
+
+    def record_reject(self) -> None:
+        self._rejects.inc()
+
+    def record_deadline(self) -> None:
+        self._deadline.inc()
+
+    def record_error(self) -> None:
+        self._errors.inc()
+
+    def record_prefill(self, seconds: float) -> None:
+        self._prefills.inc()
+        self._prefill_s.inc(float(seconds))
+
+    def record_decode_step(self, seconds: float, tokens: int) -> None:
+        self._decode_steps.inc()
+        self._decode_s.inc(float(seconds))
+        if tokens:
+            self._tokens.inc(int(tokens))
+
+    def record_first_token(self) -> None:
+        self._tokens.inc()
+
+    def record_finish(self, latency_seconds: float) -> None:
+        self._latency.observe(float(latency_seconds))
+
+    # -- reading ------------------------------------------------------------
+    @property
+    def tokens(self) -> int:
+        return int(self._tokens.value())
+
+    @property
+    def requests(self) -> int:
+        return int(self._requests.value())
+
+    @property
+    def rejects(self) -> int:
+        return int(self._rejects.value())
+
+    @property
+    def deadline_exceeded(self) -> int:
+        return int(self._deadline.value())
+
+    @property
+    def errors(self) -> int:
+        return int(self._errors.value())
+
+    def snapshot(self) -> dict:
+        """JSON-ready dict merged into the server's /metrics body."""
+        window = self._latency.window()
+        n = len(window)
+        prefill_s = self._prefill_s.value()
+        decode_s = self._decode_s.value()
+        out = {
+            "requests": self.requests,
+            "rejects": self.rejects,
+            "deadline_exceeded": self.deadline_exceeded,
+            "errors": self.errors,
+            "tokens": self.tokens,
+            "prefills": int(self._prefills.value()),
+            "decode_steps": int(self._decode_steps.value()),
+            "prefill_seconds": round(prefill_s, 4),
+            "decode_seconds": round(decode_s, 4),
+            "prefill_fraction": (round(prefill_s / (prefill_s + decode_s), 4)
+                                 if (prefill_s + decode_s) > 0 else None),
+            "slots": int(self._slots.value()),
+            "active_slots": int(self._active.value()),
+            "latency_window": n,
+        }
+        for name, q in (("p50", 0.50), ("p90", 0.90), ("p99", 0.99)):
+            out[f"latency_{name}_ms"] = (
+                None if n == 0 else round(window[min(int(q * n), n - 1)] * 1e3, 3))
+        return out

@@ -12,8 +12,9 @@ and round-trip), and has the reference's two methods:
 ``t`` is the 1-based step count. Scalars (learning rate, momentum, bias
 corrections) are 0-dim f32 tensors, so they round as the reference's f32
 scalars do. This slice ports ``Sgd``, ``NoOp``, ``Nesterovs`` and ``Adam``
-(the oracle of the later fused-Adam kernel); a configuration naming another
-updater still loads, and :func:`as_updater` raises when it is trained.
+(the oracle of the later fused-Adam kernel), and ``RmsProp`` as
+configuration data; a configuration naming another updater still loads,
+and :func:`as_updater` raises when it is trained.
 """
 
 from __future__ import annotations
@@ -107,7 +108,26 @@ class Adam(Updater):
         return alpha * m / (torch.sqrt(v) + self["epsilon"]), {"m": m, "v": v}
 
 
-_UPDATERS = {c.__name__: c for c in (Sgd, NoOp, Nesterovs, Adam)}
+class RmsProp(Updater):
+    """Configuration data only (``TextGenerationLSTM.conf()`` names it): it
+    writes the reference's dict and makes its one slot, ``r``; training
+    with it comes with the recurrent training slice."""
+
+    def __init__(self, learning_rate=1e-1, rms_decay: float = 0.95,
+                 epsilon: float = 1e-8):
+        super().__init__({"learning_rate": _schedule_dict(learning_rate),
+                          "rms_decay": float(rms_decay), "epsilon": float(epsilon)})
+
+    def init_state(self, param):
+        return {"r": torch.zeros_like(param)}
+
+    def apply(self, grad, state, t, iteration, epoch):
+        raise NotImplementedError(
+            "RmsProp updates are not ported yet (ROADMAP § A, slice 4: the "
+            "rest of the training core)")
+
+
+_UPDATERS = {c.__name__: c for c in (Sgd, NoOp, Nesterovs, Adam, RmsProp)}
 
 
 def as_updater(conf) -> Updater:

@@ -6,20 +6,25 @@ Run from the repository root on a CUDA card::
     python3 scripts/torch_serve_profile.py                      # ResNet-50
     python3 scripts/torch_serve_profile.py --model vgg16 --int8 # VGG16, int8 heads
     python3 scripts/torch_serve_profile.py --model vgg16        # VGG16, f32 heads
+    python3 scripts/torch_serve_profile.py --model textgenlstm --generate
 
 Builds the same model as ``chip_smoke.py``: for ``resnet50`` its serve
 phase's (full-width bf16 ResNet-50, 1000 classes, 224x224, fused
 bottlenecks, seeded random weights with randomized BN), for ``vgg16`` its
 phase 5's (full-width f32 VGG16, 1000 classes, 224x224x3, seeded, the
 output layer's W scaled to spread the softmax; ``--int8`` serves the three
-dense heads through the int8 kernel). It warms the engine up, then profiles
-requests of 32 rows and of 1 row with ``torch.profiler`` (CPU + CUDA
-activities). It prints, per request size: host milliseconds per request,
+dense heads through the int8 kernel), for ``textgenlstm --generate`` its
+phase 7's (full-width TextGenerationLSTM, 77 characters, two
+GravesLSTM(256), seeded, in a 32-slot GenerationEngine). It warms the engine
+up, then profiles requests of 32 rows and of 1 row with ``torch.profiler``
+(CPU + CUDA activities); with ``--generate``, one decode step with all 32
+slots active (half greedy, half sampled) and one prefill at each prefill
+bucket. It prints, per request size (or step): host milliseconds per call,
 device busy milliseconds (the sum of device kernel and copy time), the
 device's idle share, device ops per request, the device time by group
 (the port's kernels, convolutions, copies, the rest; groups are read from
 the kernel names) and the top device-time entries by name. The full tables
-go to ``chiprun_out/serve_profile_<model>[_int8].json``.
+go to ``chiprun_out/serve_profile_<model>[_int8|_generate].json``.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ def _device_time_us(evt) -> float:
 # carry "cudnn" or an FFT/layout-transform name (its FFT path runs a complex
 # GEMM, "gemm_cf32"); cuBLAS's f32 GEMM/GEMV come after them
 GROUPS = (
+    ("fused LSTM cell kernels", ("lstm_cell_kernel",)),
     ("int8_matmul kernels", ("int8_partial_kernel", "int8_reduce_kernel")),
     ("fused conv kernels", ("fused_conv_fwd_kernel", "conv_bwd_dx_kernel",
                             "conv_bwd_dw_kernel", "dw_reduce_kernel", "stats_reduce")),
@@ -120,29 +126,84 @@ def build_engine(model_name: str, int8: bool):
     return InferenceEngine(model, buckets=[1, 8, 32], int8_serving=int8), x
 
 
+def generation_calls():
+    """The phase-7 generation engine's backend, and the calls to profile:
+    one decode step with every slot active (even slots greedy, odd slots
+    sampled as phase 7 samples) and one prefill per bucket."""
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.serving.generate import GenerationEngine
+
+    cs = chip_smoke
+    model = TextGenerationLSTM(num_classes=cs.TEXTGEN_VOCAB, units=cs.LSTM_UNITS,
+                               seed=cs.SEED).init()
+    cs.randomize_lstm(model, cs.SEED)
+    rng = np.random.default_rng(cs.SEED + 21)
+    cs.spread_softmax(model, np.eye(cs.TEXTGEN_VOCAB, dtype=np.float32)[
+        rng.integers(0, cs.TEXTGEN_VOCAB, (16, 32))])
+    engine = GenerationEngine(model, n_slots=cs.GEN_SLOTS, max_length=cs.GEN_MAX_LENGTH,
+                              prefill_buckets=cs.GEN_BUCKETS)
+    engine.warmup()
+    backend, S = engine.backend, cs.GEN_SLOTS
+    sampled = np.arange(S) % 2 == 1
+    tokens = rng.integers(0, cs.TEXTGEN_VOCAB, S).astype(np.int32)
+    temp = np.where(sampled, cs.SAMPLED["temperature"], 0.0).astype(np.float32)
+    top_k = np.where(sampled, cs.SAMPLED["top_k"], 0).astype(np.int64)
+    top_p = np.where(sampled, cs.SAMPLED["top_p"], 0.0).astype(np.float32)
+    keys = np.stack([np.arange(S), np.zeros(S)], 1).astype(np.int64)
+    active = np.ones(S, bool)
+
+    def decode():
+        with torch.inference_mode():
+            backend.decode(tokens, active, temp, top_k, top_p, keys)
+
+    def prefill(tb):
+        prompt = rng.integers(0, cs.TEXTGEN_VOCAB, tb).astype(np.int32)
+
+        def run():
+            with torch.inference_mode():
+                backend.prefill(0, prompt, 0.0, 0, 0.0, np.zeros(2, np.int64))
+        return run
+
+    calls = [("decode step, 32 slots", decode, 50)]
+    calls += [(f"prefill bucket {tb}", prefill(tb), 5) for tb in backend.buckets]
+    return engine, calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("resnet50", "vgg16"), default="resnet50")
+    ap.add_argument("--model", choices=("resnet50", "vgg16", "textgenlstm"),
+                    default="resnet50")
     ap.add_argument("--int8", action="store_true",
                     help="serve the dense heads through the int8 kernel (vgg16)")
+    ap.add_argument("--generate", action="store_true",
+                    help="profile the generation engine's decode steps and prefills "
+                         "(textgenlstm)")
     args = ap.parse_args()
     if args.int8 and args.model != "vgg16":
         ap.error("--int8 serves a MultiLayerNetwork's heads: use --model vgg16")
+    if args.generate != (args.model == "textgenlstm"):
+        ap.error("--generate goes with --model textgenlstm, and textgenlstm with --generate")
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 2
 
     card = chip_smoke.smi_line()
-    engine, x = build_engine(args.model, args.int8)
-    engine.warmup()
-    tag = args.model + ("_int8" if args.int8 else "")
+    if args.generate:
+        engine, calls = generation_calls()
+        tag = "textgenlstm_generate"
+    else:
+        engine, x = build_engine(args.model, args.int8)
+        engine.warmup()
+        tag = args.model + ("_int8" if args.int8 else "")
+        calls = [(f"rows {n}", (lambda n=n: engine.infer(x[:n])), reps)
+                 for n, reps in ((32, 10), (1, 20))]
     out = {"card": card, "torch": torch.__version__, "model": tag}
-    for n, reps in ((32, 10), (1, 20)):
-        r = profile_calls(lambda: engine.infer(x[:n]), reps)
-        out[f"rows_{n}"] = r
-        print(f"{tag} rows {n}: host {r['host_ms']:.3f} ms/request, device busy "
+    for what, fn, reps in calls:
+        r = profile_calls(fn, reps)
+        out[what] = r
+        print(f"{tag} {what}: host {r['host_ms']:.3f} ms/call, device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
-              f"{r['device_ops']:.0f} device ops/request, on {card}",
+              f"{r['device_ops']:.0f} device ops/call, on {card}",
               flush=True)
         busy_us = max(r["device_busy_ms"] * 1e3, 1e-9)
         print("  by group: " + ", ".join(
@@ -154,6 +215,8 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"serve_profile_{tag}.json"), "w") as f:
         json.dump(out, f, indent=1)
+    if args.generate:
+        engine.shutdown()
     return 0
 
 

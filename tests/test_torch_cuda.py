@@ -11,7 +11,11 @@ summation-order difference over the product's depth K; statistics,
 ``dscale`` and ``dshift`` rtol 1e-4, atol 1e-3 plus 1e-5 of the sum of
 their terms' magnitudes. The int8 matmul: ``|k - p| <= 2*K*2^-24*(|x|.|q|)*s``
 (f32 summation order), plus for bf16 ``x`` one bf16 step of ``|p|`` for the
-output and one for the scale.
+output and one for the scale. The LSTM cell against the plain version run in
+f32 on its operands widened exactly and rounded once to the kernel's output
+dtype: f32 outputs within the reference probe's 1e-5, bf16 outputs within one
+bf16 step of ``|ref|`` plus 2e-5 (``_lstm_tol``); a row's bits do not depend
+on its batch.
 """
 
 import copy
@@ -361,3 +365,125 @@ def test_mln_int8_forward_under_bf16_compute(card):
     y = InferenceEngine(model, buckets=[8]).infer(x)
     assert y8.dtype == np.float32 and np.abs(y8.sum(1) - 1).max() < 1e-5
     assert np.abs(y8 - y).max() < 0.05
+
+
+# ------------------------------------------------------------ fused LSTM cell
+def _lstm_args(b, n_in, n, peephole, dtypes, seed):
+    """Seeded cell operands at the full-width scales: x and h in (-1, 1), c
+    N(0, 1), xavier-like weights, live biases and peepholes. ``dtypes``:
+    (x, weights, carries)."""
+    g = torch.Generator().manual_seed(seed)
+    tx, tw, ts = dtypes
+    x = (torch.rand(b, n_in, generator=g) * 2 - 1).to(tx)
+    h = (torch.rand(b, n, generator=g) * 2 - 1).to(ts)
+    c = torch.randn(b, n, generator=g).to(ts)
+    std = math.sqrt(2.0 / (n_in + n))
+    ws = [torch.randn(n_in, 4 * n, generator=g) * std, torch.randn(n, 4 * n, generator=g) * std,
+          torch.randn(4 * n, generator=g) * 0.3]
+    if peephole:
+        ws += [torch.randn(n, generator=g) * 0.3 for _ in range(3)]
+    return [t.cuda() for t in (x, h, c)] + [w.to(tw).cuda() for w in ws]
+
+
+def _lstm_tol(ref32, out_dtype):
+    """f32 outputs: 1e-5 (summation order, expf/tanhf against torch's). bf16
+    outputs: kernel and oracle each round once from f32 values at most 1e-5
+    apart, so they differ by one bf16 step (2^-7 |ref|) plus twice that."""
+    if out_dtype == torch.bfloat16:
+        return 2.0 ** -7 * ref32.abs() + 2e-5
+    return torch.full_like(ref32, 1e-5)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+LSTM_DTYPES = {"f32": (F32, F32, F32), "bf16": (BF16, BF16, BF16), "mixed": (BF16, BF16, F32)}
+LSTM_CASES = [(b, n_in, 256) for n_in in (77, 256) for b in (1, 8, 32, 64)] + [(3, 33, 100)]
+
+
+@pytest.mark.parametrize("dt", sorted(LSTM_DTYPES))
+@pytest.mark.parametrize("peephole", [False, True], ids=["plain", "peephole"])
+@pytest.mark.parametrize("b,n_in,n", LSTM_CASES, ids=[f"{b}x{i}x{n}" for b, i, n in LSTM_CASES])
+def test_lstm_kernel_matches_plain(card, b, n_in, n, peephole, dt):
+    from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
+
+    args = _lstm_args(b, n_in, n, peephole, LSTM_DTYPES[dt], seed=b * 31 + n_in)
+    before = fc.launch_counts["fused_lstm_cell"]
+    with torch.inference_mode():
+        hk, ck = fl.fused_lstm_cell(*args)
+        hp, cp = fl.reference_lstm_cell(*args)
+        # the oracle: the plain version in f32 on the widened operands
+        h32, c32 = fl.reference_lstm_cell(*[a.float() for a in args])
+    torch.cuda.synchronize()
+    assert fc.launch_counts["fused_lstm_cell"] == before + 1
+    assert hk.dtype == ck.dtype == hp.dtype == cp.dtype
+    for k_, r32 in ((hk, h32), (ck, c32)):
+        err = (k_.float() - r32.to(k_.dtype).float()).abs()
+        assert bool((err <= _lstm_tol(r32, k_.dtype)).all()), float(err.max())
+    # a row's bits do not depend on the batch it runs in
+    with torch.inference_mode():
+        h1, c1 = fl.fused_lstm_cell(*[a[-1:].contiguous() if i < 3 else a
+                                      for i, a in enumerate(args)])
+    assert torch.equal(h1, hk[-1:]) and torch.equal(c1, ck[-1:])
+
+
+def test_lstm_kernel_refusals(card):
+    from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
+
+    args = _lstm_args(4, 8, 16, True, LSTM_DTYPES["f32"], seed=1)
+    grad = [a.clone().requires_grad_(i == 3) for i, a in enumerate(args)]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fl.fused_lstm_cell(*grad)
+    with torch.no_grad():
+        fl.fused_lstm_cell(*grad)  # no gradient is recorded: the kernel runs
+    with pytest.raises(TypeError):
+        fl.fused_lstm_cell(args[0].half(), *args[1:])
+    with pytest.raises(TypeError):  # h and c of two dtypes
+        fl.fused_lstm_cell(args[0], args[1], args[2].bfloat16(), *args[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.fused_lstm_cell(args[0].t().contiguous().t(), *args[1:])
+    with pytest.raises(ValueError):
+        fl.fused_lstm_cell(args[0][:, :7].contiguous(), *args[1:])
+
+
+def _textgen(units=32, vocab=20):
+    """A narrow TextGenerationLSTM on the card with live peepholes and
+    biases, and a one-hot batch."""
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+
+    model = TextGenerationLSTM(num_classes=vocab, units=units).init()
+    g = torch.Generator().manual_seed(3)
+    for p in model.params_[:2]:
+        for k in ("b", "pI", "pF", "pO"):
+            p[k] = p[k] + (torch.randn(p[k].shape, generator=g) * 0.3).cuda()
+    return model
+
+
+def test_textgen_forward_and_generation_on_the_card(card):
+    """A seq-bucketed forward launches 2 cells per padded step; a decode
+    step launches 2; a slot among others decodes as it does alone."""
+    from deeplearning4j_tpu_torch.serving import BucketPolicy
+    from deeplearning4j_tpu_torch.serving.generate import GenerationEngine
+
+    model = _textgen()
+    eng = InferenceEngine(model, buckets=BucketPolicy(batch_buckets=[4], seq_buckets=[8, 16]))
+    x = np.eye(20, dtype=np.float32)[np.random.default_rng(2).integers(0, 20, (3, 11))]
+    fc.reset_launch_counts()
+    y = eng.infer(x)
+    assert dict(fc.launch_counts) == {"fused_lstm_cell": 2 * 16}
+    assert y.shape == (3, 11, 20) and np.abs(y.sum(-1) - 1).max() < 1e-5
+    gen = GenerationEngine(model, n_slots=4, max_length=64, prefill_buckets=[8, 16])
+    solo = GenerationEngine(model, n_slots=1, max_length=64, prefill_buckets=[8, 16])
+    try:
+        prompts = [[1, 2, 3], [4, 5, 6, 7, 8, 9, 10, 11, 12], [0], [7, 7]]
+        fc.reset_launch_counts()
+        reqs = [gen.submit(p, max_new=10, temperature=0.9, top_k=8, seed=i)
+                for i, p in enumerate(prompts)]
+        outs = [r.result(120) for r in reqs]
+        steps = gen.metrics.snapshot()["decode_steps"]
+        prefill = sum(2 * (8 if len(p) <= 8 else 16) for p in prompts)
+        assert fc.launch_counts["fused_lstm_cell"] == 2 * steps + prefill
+        for i, (p, o) in enumerate(zip(prompts, outs)):
+            alone = solo.submit(p, max_new=10, temperature=0.9, top_k=8, seed=i).result(120)
+            assert np.array_equal(o, alone)
+    finally:
+        gen.shutdown()
+        solo.shutdown()

@@ -82,7 +82,7 @@ def test_graph_builder_inserts_the_references_preprocessor():
 
 
 def test_unported_zoo_names_and_features_raise():
-    assert sorted(ZOO) == ["lenet", "resnet50", "vgg16", "vgg19"]
+    assert sorted(ZOO) == ["lenet", "resnet50", "textgenlstm", "vgg16", "vgg19"]
     with pytest.raises(ZooModelNotPortedError, match="ROADMAP"):
         ModelSelector.select("alexnet")
     net = TNet(CONFS["lenet"](PORT)).init(device="cpu")
@@ -120,8 +120,8 @@ def test_stop_before_gives_the_first_heads_input():
     jnet, tnet = pair("narrow_vgg")
     x = inputs("narrow_vgg", 3)
     with torch.inference_mode():
-        h, _ = tnet._forward(tnet.params_, tnet.state_, torch.from_numpy(x),
-                             stop_before=5)
+        h, _, _ = tnet._forward(tnet.params_, tnet.state_, torch.from_numpy(x),
+                                stop_before=5)
     hj, _, _, _, _ = jnet._forward(jnet.params_, jnet.state_, x, train=False,
                                    rng=None, stop_before=5)
     assert tuple(h.shape) == (3, 4 * 4 * 16)

@@ -116,7 +116,7 @@ def test_bucket_policy_matches_the_reference(kw):
     for n in (1, 2, 3, 5, 9, 17, 40):
         assert mine.bucket_for(n) == ref.bucket_for(n)
         x = np.arange(n * 2, dtype=np.float32).reshape(n, 2)
-        (xp, rows), (xr, _, rows_r) = mine.pad_batch(x), ref.pad_batch(x)
+        (xp, _, rows), (xr, _, rows_r) = mine.pad_batch(x), ref.pad_batch(x)
         assert rows == rows_r == n
         np.testing.assert_array_equal(xp, xr)
     assert mine.batch_buckets == ref.batch_buckets

@@ -209,10 +209,13 @@ def test_bad_payloads_are_400_and_unported_routes_404(servers):
     assert _http(ts.port, "POST", "/predict_npy", b"junk")[0] == 400
     code, body, _ = _http(ts.port, "POST", "/predict", {"inputs": [[1.0, 2.0]]})
     assert code == 400 and "(28, 28, 1)" in body["message"]
-    for method, path in (("POST", "/generate"), ("GET", "/alerts"), ("GET", "/trace"),
+    for method, path in (("GET", "/alerts"), ("GET", "/trace"),
                          ("GET", "/debug/flight"), ("POST", "/models/m/predict")):
         code, body, _ = _http(ts.port, method, path)
         assert code == 404 and "ROADMAP" in body["message"]
+    # the server was started without a generation engine
+    code, body, _ = _http(ts.port, "POST", "/generate", {"prompt": [1]})
+    assert code == 409 and "--gen-slots" in body["message"]
     assert _http(ts.port, "GET", "/nowhere")[0] == 404
 
 
