@@ -25,7 +25,17 @@ TextGenerationLSTM (77 characters, two GravesLSTM(256); seeded) through a
 exact launch counts, a teacher-forced comparison with the plain path on the
 card, engine == solo, tokens/s; then a seq-bucketed and an int8-head
 ``InferenceEngine``; phase 6 adds ``POST /generate`` and ``cli serve
---gen-slots --smoke``. Each phase prints one or more lines;
+--gen-slots --smoke``. Phase 2e holds the flash-attention forward against its
+plain version (the prefill and /predict shapes of the TransformerLM below,
+non-causal, segment ids, head dims 32/40/128, f32). Phase 8 serves a
+full-width TransformerLM (GPT-2 small's shape, 32,000 tokens, bf16; seeded)
+through a 32-slot ``GenerationEngine`` (64 requests, prompts of 20-900
+tokens): the flash launches read around every prefill and decode step, a
+teacher-forced comparison with plain attention on the card, prefill and
+decode against the forward, ``generate_cached`` and a solo engine against
+the storm, tokens/s; then ``/predict`` through an ``InferenceEngine``;
+phase 6 adds ``POST /generate`` and ``/predict`` to it. Each phase prints
+one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
 prints them), and
@@ -82,6 +92,8 @@ KERNELS = {
     "conv3x3_dw": (f"{CSRC}/fused_conv_bwd.cu", f"{REF}:363"),
     "int8_matmul": (f"{CSRC}/int8_matmul.cu", "deeplearning4j_tpu/nn/ops/int8_matmul.py:80"),
     "fused_lstm_cell": (f"{CSRC}/fused_lstm.cu", "deeplearning4j_tpu/nn/ops/fused_lstm.py:93"),
+    "flash_attention_fwd": (f"{CSRC}/flash_attention.cu",
+                            "deeplearning4j_tpu/nn/ops/flash_attention.py:79"),
 }
 # VGG16 (1000 classes, 224x224x3): the three dense heads (K, N), the layer
 # index of the first one, and the int8 report the engine must give
@@ -1459,12 +1471,460 @@ def generation_entry_points(engine_seq, gen, prompts, outs):
     return {"generate_equals_submit": same, "cli_smoke_stdout": r.stdout}
 
 
+# ---------------------------------------------------------------------------
+# the flash-attention forward (phase 2e) and TransformerLM serving (phase 8)
+# ---------------------------------------------------------------------------
+# GPT-2 small's widths, depth and context, the JAX package's benchmark
+# vocabulary and dtype (bench.py _bench_lm_decode / _bench_transformer)
+LM_CONF = dict(vocab_size=32000, d_model=768, n_heads=12, n_layers=12, max_length=1024,
+               compute_dtype="bfloat16")
+LM_HEADS, LM_HD = 12, 64
+LM_SLOTS, LM_REQUESTS, LM_MAX_NEW = 32, 64, 64
+LM_BUCKETS = [16, 32, 64, 128, 256, 512, 1024]
+LM_TARGET_MAXPROB = 0.3
+# phase 8's limits on max|dlogit| (bf16 model, logits f32). Each is set from
+# a reading on the H100 with room on both sides: the teacher-forced forward
+# (kernel vs plain attention) read 0.25 and is held to 1.0; prefill against
+# forward read exactly 0 at buckets >= 128 (the same kernel and row-wise ops;
+# the limit leaves one bf16 step of the final logits) and 0.22 at bucket 32
+# (the einsum path); the decode path teacher-forced read 0.23; /predict
+# against the plain-attention forward 0.25 and 0.26
+PREFILL_LIMIT_KERNEL = 0.0625
+PREFILL_LIMIT_EINSUM = 0.5
+DECODE_LIMIT = 1.0
+PREDICT_LIMIT = 1.0
+# (b, h, T, hd, causal, dtype, segmented): the prefill buckets >= 128 (b 1),
+# a /predict forward (b 2, T 1024), non-causal, segment ids cut off the
+# 64-row tiles, head dims 32, 128 and a ragged 40, and f32 at two shapes
+FLASH_CASES = ([(1, LM_HEADS, t, LM_HD, True, BF16, False) for t in (128, 256, 512, 1024)]
+               + [(2, LM_HEADS, 1024, LM_HD, True, BF16, False),
+                  (1, LM_HEADS, 512, LM_HD, False, BF16, False),
+                  (1, LM_HEADS, 512, LM_HD, True, BF16, True),
+                  (1, 4, 256, 32, True, BF16, False), (1, 4, 256, 128, True, BF16, False),
+                  (1, 4, 256, 40, True, BF16, True),
+                  (1, LM_HEADS, 256, LM_HD, True, F32, False),
+                  (2, 4, 512, 40, False, F32, True)])
+FLASH_F32_TOL = 1e-5          # f32 o and lse, and bf16 lse, against the plain version in f32
+
+
+def flash_segments(b, t_len):
+    """Three packed sequences per row, cut at T/3 and T/3 + 77 (off the
+    kernel's 64-row tiles)."""
+    seg = torch.zeros(b, t_len, dtype=torch.int32, device="cuda")
+    seg[:, t_len // 3:] = 1
+    seg[:, t_len // 3 + 77:] = 2
+    return seg
+
+
+def flash_oracle(fa, q, k, v, causal, scale, seg):
+    """The plain version in f32 on the exactly widened operands, and the
+    per-element limit: f32 FLASH_F32_TOL; bf16 2^-8 (P @ |v|) + 2^-8 |o| +
+    1e-5 (one rounding of p and one of o, nothing more)."""
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    o_ref, lse_ref = fa.flash_attention_plain(q32, k32, v32, causal, scale, seg)
+    if q.dtype == F32:
+        return o_ref, lse_ref, torch.full_like(o_ref, FLASH_F32_TOL)
+    p_ref = torch.softmax(fa.masked_scores(q32, k32, causal, scale, seg), -1)
+    tol = 2.0 ** -8 * (p_ref @ v32.abs()) + 2.0 ** -8 * o_ref.abs() + FLASH_F32_TOL
+    return o_ref, lse_ref, tol
+
+
+def flash_cost(b, h, t_len, hd, causal, dtype, segmented):
+    """(FLOPs, bytes) of one call: QK^T and PV, 4 T^2 hd b h FLOPs, half of
+    it causal; q, k, v read once, o and lse written once, segment ids read."""
+    flops = 4.0 * t_len * t_len * hd * b * h * (0.5 if causal else 1.0)
+    size = 2 if dtype == BF16 else 4
+    nbytes = 4 * t_len * b * h * hd * size + 4 * t_len * b * h + (4 * b * t_len if segmented else 0)
+    return bound(flops, nbytes, PEAK_BF16_FLOPS if dtype == BF16 else PEAK_F32_FLOPS)
+
+
+def flash_phase(fa):
+    """Phase 2e: the flash-attention forward against its plain version on
+    the card at every case; times at the prefill and /predict shapes, beside
+    F.scaled_dot_product_attention on the same inputs (the yardstick only)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    rows = []
+    for b, h, t_len, hd, causal, dtype, segmented in FLASH_CASES:
+        q, k, v = (torch.randn(b, h, t_len, hd, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        seg = flash_segments(b, t_len) if segmented else None
+        scale = hd ** -0.5
+        with torch.inference_mode():
+            o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, seg)
+            torch.cuda.synchronize()
+            o_ref, lse_ref, tol = flash_oracle(fa, q, k, v, causal, scale, seg)
+            err = (o.float() - o_ref).abs()
+            lse_err = float((lse - lse_ref).abs().max())
+            row = {"b": b, "h": h, "T": t_len, "hd": hd, "causal": causal,
+                   "dtype": str(dtype).split(".")[-1], "segmented": segmented,
+                   "max_abs_err": float(err.max()), "err_over_tol": float((err / tol).max()),
+                   "lse_max_abs_err": lse_err,
+                   "finite": bool(torch.isfinite(o.float()).all())}
+            if causal:  # the limit would catch a lost causal mask
+                o_nc = fa.flash_attention_plain(q.float(), k.float(), v.float(), False, scale,
+                                                seg)[0]
+                row["lost_mask_over_tol"] = float(((o_nc - o_ref).abs() / tol).max())
+            timing = ""
+            if dtype == BF16 and hd == LM_HD and causal and not segmented:
+                row["kernel_ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, scale))
+                row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, True, scale))
+                sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale)
+                row["library_max_abs_err"] = float((sdpa.float() - o_ref).abs().max())
+                row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=scale))
+                row["bound_ms"], row["bound_by"] = flash_cost(b, h, t_len, hd, causal, dtype,
+                                                              segmented)
+                timing = (f" kernel_ms {row['kernel_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                          f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']}) library_ms "
+                          f"{row['library_ms']:.4f} (SDPA, max|d| vs f32 "
+                          f"{row['library_max_abs_err']:.3g})")
+        rows.append(row)
+        ok = (row["err_over_tol"] <= 1 and lse_err <= FLASH_F32_TOL and row["finite"]
+              and row.get("lost_mask_over_tol", 2.0) > 1)
+        mask_txt = (f" lost-mask diff/tol {row['lost_mask_over_tol']:.3g}" if causal else "")
+        print(f"phase 2e kernel flash_attention_fwd b {b} h {h} T {t_len} hd {hd} "
+              f"{'causal' if causal else 'full'}{' segments' if segmented else ''} "
+              f"{row['dtype']}: max_abs_err {row['max_abs_err']:.3g} vs the plain version in f32 "
+              f"(tol {'2^-8 P|v| + 2^-8|o| + 1e-5' if dtype == BF16 else FLASH_F32_TOL}) "
+              f"err/tol {row['err_over_tol']:.3g}; lse max_abs_err {lse_err:.3g}"
+              f"{mask_txt}{timing} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {row}")
+    timed = [r for r in rows if "kernel_ms" in r]
+    head = next(r for r in timed if r["b"] == 1 and r["T"] == 1024)
+    summary = {k: head[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+    summary.update({"max_abs_err": max(r["max_abs_err"] for r in rows),
+                    "max_err_over_tol": max(r["err_over_tol"] for r in rows),
+                    "min_lost_mask_over_tol": min(r["lost_mask_over_tol"] for r in rows
+                                                  if "lost_mask_over_tol" in r),
+                    "by_shape": [{k: r[k] for k in ("b", "T", "kernel_ms", "plain_ms",
+                                                    "bound_ms", "bound_by", "library_ms")}
+                                 for r in timed]})
+    print(f"phase 2e summary (headline: b 1, 12 heads, T 1024, causal bf16): {summary}",
+          flush=True)
+    return rows, summary
+
+
+def lm_spread_softmax(tlm, model, ids: torch.Tensor, target: float = LM_TARGET_MAXPROB) -> float:
+    """Scale the seeded head (in place) so that the mean max probability of
+    the served softmax on ``ids`` is about ``target``: with head ~ N(0, 1/d)
+    over 32,000 tokens it is ~1e-3, and every greedy check would be decided
+    by noise. Returns the scale."""
+    with torch.inference_mode():
+        z = tlm.forward(model.cfg, model.compute_params(), ids).reshape(-1, model.cfg.vocab_size)
+        lo, hi = 1e-2, 1e3
+        for _ in range(50):
+            mid = math.sqrt(lo * hi)
+            m = float(torch.softmax(mid * z, -1).amax(-1).mean())
+            lo, hi = (lo, mid) if m > target else (mid, hi)
+    scale = math.sqrt(lo * hi)
+    with torch.no_grad():
+        model.params_["head"].mul_(scale)
+    return scale
+
+
+def _top2_gap(logits):
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def _first_divergence(a, b):
+    """Index of the first differing generated token, or None."""
+    diff = np.nonzero(np.asarray(a) != np.asarray(b))[0]
+    return None if diff.size == 0 else int(diff[0])
+
+
+def lm_phase(fa, card: str):
+    """Phase 8: a full-width TransformerLM (GPT-2 small's shape, 32,000
+    tokens, bf16; seeded, head scaled) served by a 32-slot GenerationEngine
+    (64 requests) and an InferenceEngine (/predict)."""
+    from deeplearning4j_tpu_torch.models import transformer_lm as tlm
+    from deeplearning4j_tpu_torch.serving import BucketPolicy, InferenceEngine
+    from deeplearning4j_tpu_torch.serving.generate import GenerationEngine
+
+    t0 = time.perf_counter()
+    model = tlm.TransformerLM(seed=SEED, **LM_CONF).init()
+    cfg = model.cfg
+    n_layers = cfg.n_layers  # one flash launch per layer of a prefill or forward
+    rng = np.random.default_rng(SEED + 41)
+    V = cfg.vocab_size
+    ids2 = torch.from_numpy(rng.integers(0, V, (2, 1024))).cuda()
+    scale = lm_spread_softmax(tlm, model, ids2[:, :256])
+    init_s = time.perf_counter() - t0
+
+    def plain_attn(q, k, v, *, causal, mask=None):
+        return fa.flash_attention_plain(q, k, v, causal, q.shape[-1] ** -0.5)[0]
+
+    # teacher-forced: the kernel route against the plain attention, b 2, T 1024
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        params = model.compute_params()
+        yk = tlm.forward(cfg, params, ids2)
+        fwd_launches = dict(fa.launch_counts)
+        yp = tlm.forward(cfg, params, ids2, attn_fn=plain_attn)
+    d_kernel = float((yk - yp).abs().max())
+    # the one noise yardstick of phase 8: two positions' top-1 must agree
+    # where the top-2 gap is over twice the kernel's measured difference
+    # from the plain attention
+    thr = 2 * d_kernel
+    decided = _top2_gap(yp) > thr
+    top1_ok = bool((yk.argmax(-1) == yp.argmax(-1))[decided].all())
+    maxprob_fwd = float(torch.softmax(yk, -1).amax(-1).mean())
+    # prefill at length= against forward at that position (row 0). At a
+    # bucket >= 128 both run the kernel and the same row-wise ops (measured
+    # bitwise equal on the H100); below, prefill's einsum path differs from
+    # the kernel by bf16 rounding, as the kernel differs from the plain path
+    prefill_rows = []
+    for length in (20, 100, 128, 129, 300, 1000):
+        tb = next(t for t in LM_BUCKETS if t >= length)
+        padded = torch.zeros(1, tb, dtype=torch.int64, device="cuda")
+        padded[0, :length] = ids2[0, :length]
+        cache = tlm.init_decode_cache(cfg, 1, device="cuda")
+        fa.reset_launch_counts()
+        with torch.inference_mode():
+            lg, cache = tlm.prefill_cache(cfg, params, cache, padded, length=length)
+        n = fa.launch_counts[fa.OP]
+        d = float((lg[0] - yk[0, length - 1]).abs().max())
+        decided_p = float(_top2_gap(yk[0, length - 1])) > thr
+        same = bool(lg[0].argmax() == yk[0, length - 1].argmax()) or not decided_p
+        prefill_rows.append({"length": length, "bucket": tb, "launches": n,
+                             "max_abs_dlogit_vs_forward": d,
+                             "limit": PREFILL_LIMIT_KERNEL if tb >= 128 else PREFILL_LIMIT_EINSUM,
+                             "decided": decided_p, "top1_ok": same})
+    # the decode path teacher-forced: prefill a prompt, feed the sequence's
+    # own next tokens one decode step at a time, against forward's logits
+    tp, steps = 300, 64
+    cache = tlm.init_decode_cache(cfg, 1, device="cuda")
+    padded = torch.zeros(1, 512, dtype=torch.int64, device="cuda")
+    padded[0, :tp] = ids2[0, :tp]
+    with torch.inference_mode():
+        lg, cache = tlm.prefill_cache(cfg, params, cache, padded, length=tp)
+        dec = [lg[0]]
+        fa.reset_launch_counts()
+        for j in range(steps - 1):
+            lg, cache = tlm.decode_step(cfg, params, cache, ids2[0, tp + j:tp + j + 1])
+            dec.append(lg[0])
+        decode_launches = fa.launch_counts[fa.OP]
+    d_decode = float((torch.stack(dec) - yk[0, tp - 1:tp - 1 + steps]).abs().max())
+    print(f"phase 8 setup: TransformerLM {LM_CONF}, {model.num_params():,} params, head "
+          f"scaled by {scale:.4g}, init {init_s:.1f}s", flush=True)
+    print(f"phase 8 check: teacher-forced forward b 2 T 1024, kernel route vs plain attention "
+          f"on the card: max|dlogit| {d_kernel:.4g}, top-1 equal at {int(decided.sum())}/"
+          f"{decided.numel()} decided positions (top-2 gap > 2 max|dlogit|): {top1_ok}; "
+          f"launches {fwd_launches} (expected {n_layers}); mean max prob {maxprob_fwd:.3f}; prefill at "
+          f"length= vs forward: {prefill_rows}; decode path teacher-forced ({steps} steps after "
+          f"a {tp}-token prompt) vs forward max|dlogit| {d_decode:.4g}, flash launches in "
+          f"those decode steps {decode_launches} (limit {DECODE_LIMIT}); decided-step threshold "
+          f"2 x the kernel's max|dlogit| = {thr:.4g}",
+          flush=True)
+
+    # the generation storm
+    engine = GenerationEngine(model, n_slots=LM_SLOTS, max_length=cfg.max_length,
+                              prefill_buckets=LM_BUCKETS, queue_limit=2 * LM_REQUESTS,
+                              default_timeout_s=600.0)
+    lengths = list(rng.integers(20, 129, LM_REQUESTS // 2)) + \
+        list(rng.integers(129, 901, LM_REQUESTS // 2))
+    rng.shuffle(lengths)
+    prompts = [rng.integers(0, V, int(n)).astype(np.int32) for n in lengths]
+    knobs = [SAMPLED if i % 2 else {} for i in range(LM_REQUESTS)]
+    print(f"phase 8 engine: {engine.describe()}", flush=True)
+    fa.reset_launch_counts()
+    warm = engine.warmup()
+    warm_launches = fa.launch_counts[fa.OP]
+    decode_s, prefill_s, decode_n, prefill_n = [], {}, [], {}
+    decode, prefill = engine.backend.decode, engine.backend.prefill
+
+    def timed_decode(*a):
+        n0, t = fa.launch_counts[fa.OP], time.perf_counter()
+        out = decode(*a)  # ends in the device-to-host copy of the tokens
+        decode_s.append(time.perf_counter() - t)
+        decode_n.append(fa.launch_counts[fa.OP] - n0)
+        return out
+
+    def timed_prefill(*a):
+        n0, t = fa.launch_counts[fa.OP], time.perf_counter()
+        out = prefill(*a)
+        prefill_s.setdefault(out[2], []).append(time.perf_counter() - t)
+        prefill_n.setdefault(out[2], []).append(fa.launch_counts[fa.OP] - n0)
+        return out
+
+    engine.backend.decode, engine.backend.prefill = timed_decode, timed_prefill
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new=LM_MAX_NEW, seed=SEED + i, **kw)
+            for i, (p, kw) in enumerate(zip(prompts, knobs))]
+    outs = [r.result(600) for r in reqs]
+    wall = time.perf_counter() - t0
+    main_launches = dict(fa.launch_counts)
+    engine.backend.decode, engine.backend.prefill = decode, prefill
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    n_steps = len(decode_s)
+    tbs = [engine.backend.bucket_for(len(p)) for p in prompts]
+    expected = n_layers * sum(tb >= 128 for tb in tbs)
+    tokens = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+    tok_s = tokens / wall
+    step_ms = float(np.median(decode_s) * 1e3)
+    prefill_ms = {int(tb): float(np.median(v) * 1e3) for tb, v in sorted(prefill_s.items())}
+    per_decode = sorted(set(decode_n))
+    per_prefill = {int(tb): sorted(set(v)) for tb, v in sorted(prefill_n.items())}
+    print(f"phase 8 generate: {LM_REQUESTS} requests (prompts {min(lengths)}-{max(lengths)} "
+          f"tokens, {sum(n > 128 for n in lengths)} over 128, max_new {LM_MAX_NEW}, half greedy, "
+          f"half {SAMPLED}) in {wall:.3f}s: {tokens} tokens, {tok_s:.1f} tokens/s, {n_steps} "
+          f"decode steps, median decode step {step_ms:.3f} ms (host clock, ends in the token "
+          f"copy), median prefill ms by bucket {prefill_ms}, peak {peak_gib:.4f} GiB above the "
+          f"{held / 2 ** 30:.3f} GiB held (the slab "
+          f"{engine.backend.cache_bytes / 2 ** 30:.3f} GiB among it); warmup {warm} with "
+          f"{warm_launches} flash launches; launches {main_launches} (expected "
+          f"flash_attention_fwd {expected} = {n_layers} per prefill at a bucket >= 128); measured per "
+          f"decode step {per_decode} over {n_steps} steps, per prefill by bucket {per_prefill} "
+          f"on {card}", flush=True)
+
+    # agreement: generate_cached, engine == solo, on the greedy requests
+    greedy = [i for i in range(LM_REQUESTS) if not knobs[i]]
+    picks = [i for i in greedy if len(prompts[i]) > 128][:2] + \
+        [i for i in greedy if len(prompts[i]) <= 128][:2]
+    solo = GenerationEngine(model, n_slots=1, max_length=cfg.max_length,
+                            prefill_buckets=LM_BUCKETS, default_timeout_s=600.0)
+    agree, failed = [], []
+    try:
+        for i in picks:
+            p, o = prompts[i], outs[i]
+            cached = model.generate_cached(p[None], max_new=LM_MAX_NEW)[0]
+            alone = solo.submit(p, max_new=LM_MAX_NEW, seed=SEED + i).result(600)
+            with torch.inference_mode():
+                gap = _top2_gap(tlm.forward(cfg, params, torch.from_numpy(
+                    o[:-1].astype(np.int64))[None].cuda())[0, len(p) - 1:])
+            row = {"request": i, "prompt": len(p)}
+            for name, other in (("generate_cached", cached), ("solo", alone)):
+                j = _first_divergence(o[len(p):], other[len(p):])
+                row[name] = "identical" if j is None else \
+                    f"diverges at step {j}, top-2 gap {float(gap[j]):.4g}"
+                if j is not None and float(gap[j]) > thr:
+                    failed.append(f"request {i}: {name} diverges at a decided step {j}")
+            agree.append(row)
+    finally:
+        solo.shutdown()
+    with torch.inference_mode():
+        gen_probs = [float(torch.softmax(tlm.forward(cfg, params, torch.from_numpy(
+            o[:-1].astype(np.int64))[None].cuda())[0, len(p) - 1:], -1).amax(-1).mean())
+            for p, o in zip(prompts[:8], outs[:8])]
+    maxprob = float(np.mean(gen_probs))
+    print(f"phase 8 agreement: {agree}; mean max prob over the first 8 generated sequences "
+          f"{maxprob:.3f}", flush=True)
+
+    # /predict: T 1024 (12 launches per forward) and T 100 (the einsum path)
+    pe = InferenceEngine(model, buckets=BucketPolicy(batch_buckets=[1, 2]))
+    predict = []
+    for b, t_len in ((2, 1024), (1, 100)):
+        x = ids2[:b, :t_len].cpu().numpy()
+        fa.reset_launch_counts()
+        y = pe.infer(x)
+        n = dict(fa.launch_counts)
+        with torch.inference_mode():
+            ref = tlm.forward(cfg, params, ids2[:b, :t_len], attn_fn=plain_attn)
+        yt = torch.from_numpy(y).cuda()
+        d = float((yt - ref).abs().max())
+        dec = _top2_gap(ref) > thr
+        ok1 = bool((yt.argmax(-1) == ref.argmax(-1))[dec].all())
+        predict.append({"rows": b, "T": t_len, "launches": n, "max_abs_dlogit_vs_plain": d,
+                        "limit": PREDICT_LIMIT, "top1_equal_at_decided": ok1,
+                        "decided": int(dec.sum())})
+        want = {"flash_attention_fwd": n_layers} if t_len % 128 == 0 else {}
+        if n != want or not ok1 or not int(dec.sum()) or not d <= PREDICT_LIMIT or \
+                y.shape != (b, t_len, V) or not np.isfinite(y).all():
+            failed.append(f"/predict {predict[-1]}")
+    print(f"phase 8 predict: InferenceEngine(TransformerLM), buckets [1, 2]: {predict}",
+          flush=True)
+
+    if fwd_launches != {"flash_attention_fwd": n_layers}:
+        failed.append(f"forward launches {fwd_launches}, expected {n_layers}")
+    if not d_kernel <= 1.0 or not top1_ok or not int(decided.sum()):
+        failed.append(f"teacher-forced max|dlogit| {d_kernel} (limit 1.0), top-1 at "
+                      f"{int(decided.sum())} decided positions {top1_ok}")
+    for r in prefill_rows:
+        want = n_layers if r["bucket"] >= 128 else 0
+        if r["launches"] != want or not r["top1_ok"] or \
+                not r["max_abs_dlogit_vs_forward"] <= r["limit"]:
+            failed.append(f"prefill {r}: expected {want} launches")
+    if not any(r["decided"] for r in prefill_rows):
+        failed.append("no prefill position decided its top-1")
+    if not d_decode <= DECODE_LIMIT:
+        failed.append(f"decode path max|dlogit| vs forward {d_decode} over {DECODE_LIMIT}")
+    if decode_launches != 0:
+        failed.append(f"{decode_launches} flash launches in decode steps")
+    if main_launches.get(fa.OP, 0) != expected or set(main_launches) - {fa.OP}:
+        failed.append(f"launches {main_launches}, expected flash_attention_fwd {expected}")
+    if warm_launches != n_layers * sum(tb >= 128 for tb in engine.backend.buckets):
+        failed.append(f"warmup launched {warm_launches}")
+    if per_decode != [0] or any(v != [n_layers if tb >= 128 else 0]
+                                for tb, v in per_prefill.items()):
+        failed.append(f"launches per decode step {per_decode}, per prefill {per_prefill}: "
+                      f"expected [0], {n_layers} at buckets >= 128 and 0 below")
+    if sum(n > 128 for n in lengths) < 8:
+        failed.append("fewer than 8 prompts over 128 tokens")
+    if any(len(o) != len(p) + LM_MAX_NEW or o.min() < 0 or o.max() >= V
+           for o, p in zip(outs, prompts)):
+        failed.append("a generated sequence has the wrong length or a token out of range")
+    if not 0.05 <= maxprob <= 0.9:
+        failed.append(f"mean max probability {maxprob} outside [0.05, 0.9]")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return engine, pe, prompts, outs, {
+        "conf": LM_CONF, "num_params": model.num_params(), "head_scale": scale,
+        "teacher_forced_max_abs_dlogit": d_kernel, "top1_decided": int(decided.sum()),
+        "prefill_vs_forward": prefill_rows, "decode_vs_forward_max_abs_dlogit": d_decode,
+        "decided_threshold": thr, "main_launches": main_launches,
+        "expected_launches": expected, "warmup_launches": warm_launches,
+        "launches_per_decode_step": per_decode, "launches_per_prefill_by_bucket": per_prefill,
+        "decode_steps": n_steps, "tokens": tokens, "wall_s": wall, "tokens_per_s": tok_s,
+        "median_decode_step_ms": step_ms, "decode_step_ms": [s * 1e3 for s in decode_s],
+        "median_prefill_ms_by_bucket": prefill_ms, "peak_gib": peak_gib,
+        "slab_bytes": engine.backend.cache_bytes, "warmup": warm, "agreement": agree,
+        "mean_max_prob": maxprob, "predict": predict}
+
+
+def lm_entry_points(pe, gen, prompts, outs):
+    """Phase 6 for the TransformerLM: ``POST /generate`` over HTTP equals
+    ``engine.submit``; ``POST /predict`` of a 16-token row equals
+    ``engine.infer``."""
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    i = next(j for j in range(len(prompts)) if j % 2 == 0)  # a greedy request
+    srv = InferenceServer(pe, port=0, generation=gen).start()
+    try:
+        code, raw = _http(srv.port, "POST", "/generate", json.dumps(
+            {"prompt": prompts[i].tolist(), "max_new": LM_MAX_NEW, "stream": False}))
+        body = json.loads(raw)
+        row = prompts[i][:16][None]
+        code_p, raw_p = _http(srv.port, "POST", "/predict",
+                              json.dumps({"inputs": row.tolist()}))
+        yp = np.asarray(json.loads(raw_p)["outputs"], np.float32)
+        _, h = _http(srv.port, "GET", "/healthz")
+        h = json.loads(h)
+    finally:
+        srv.shutdown()  # also drains and stops the generation engine
+    same = code == 200 and body.get("sequence") == outs[i].tolist()
+    dp = float(np.abs(yp - pe.infer(row)).max())
+    print(f"phase 6 generate (TransformerLM): POST /generate (greedy, {len(prompts[i])}-token "
+          f"prompt) HTTP {code}, equals engine.submit: {same}; POST /predict 16 tokens HTTP "
+          f"{code_p}, max|d| vs engine.infer {dp:.3g}; /healthz generation "
+          f"{h.get('generation', {}).get('backend')}", flush=True)
+    if not same or code_p != 200 or dp > 1e-6:
+        raise AssertionError(f"TransformerLM HTTP: /generate {code} {body}, /predict {code_p} {dp}")
+    return {"generate_equals_submit": same, "predict_max_abs_diff": dp}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
     from deeplearning4j_tpu_torch.nn.ops import build
+    from deeplearning4j_tpu_torch.nn.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
     from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
     from deeplearning4j_tpu_torch.nn.ops import int8_matmul as im
@@ -1475,7 +1935,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"phase 1 device: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernel build {build_s:.1f}s", flush=True)
-    for lib in ("fused_conv", "fused_conv_bwd", "int8_matmul", "fused_lstm"):
+    for lib in ("fused_conv", "fused_conv_bwd", "int8_matmul", "fused_lstm", "flash_attention"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1 ptxas {lib}: {line.strip()}", flush=True)
@@ -1485,22 +1945,28 @@ def main() -> int:
     summary.update(bwd_summary)
     int8_rows, summary["int8_matmul"] = int8_phase(im)
     lstm_rows, summary["fused_lstm_cell"] = lstm_phase(fl)
+    flash_rows, summary["flash_attention_fwd"] = flash_phase(fa)
     serve = serve_phase(fc, card)
     train = train_phase(fc, card)
     e8, x, vgg = vgg_phase(fc, im, card)
     entry = entry_points_phase(e8, x)
     gen_engine, seq_engine, prompts, outs, gen = generation_phase(fl, card)
     entry["generate"] = generation_entry_points(seq_engine, gen_engine, prompts, outs)
+    lm_gen, lm_predict, lm_prompts, lm_outs, lm = lm_phase(fa, card)
+    entry["transformer"] = lm_entry_points(lm_predict, lm_gen, lm_prompts, lm_outs)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
-    # the LSTM cell's from phase 7's (the generation engine); times: the
+    # the LSTM cell's from phase 7's (the generation engine), the flash
+    # forward's from phase 8's (the TransformerLM generation engine); times: the
     # convs' summed over one batch-32 forward (or backward) at the 19 shapes,
     # the int8 matmul's over the three heads of one VGG16 forward at bucket
     # 32 (bucket 1 under "b1"), the LSTM cell's over the two cells of one
-    # decode step at 32 slots (one prefill step, B 1, under "b1")
+    # decode step at 32 slots (one prefill step, B 1, under "b1"), the flash
+    # forward's at the T 1024 prefill (b 1, 12 heads; every timed shape under
+    # "by_shape")
     kernels = []
-    main_of = {"int8_matmul": vgg, "fused_lstm_cell": gen}
+    main_of = {"int8_matmul": vgg, "fused_lstm_cell": gen, "flash_attention_fwd": lm}
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]
         entry_k = {
@@ -1514,6 +1980,10 @@ def main() -> int:
             entry_k["launches_per_prefill_by_bucket"] = gen["launches_per_prefill_by_bucket"]
             entry_k["b1"] = s["b1"]
             entry_k["no_peephole"] = {"b32": s["no_peephole_b32"], "b1": s["no_peephole_b1"]}
+        elif name == "flash_attention_fwd":
+            entry_k["launches_per_decode_step"] = lm["launches_per_decode_step"]
+            entry_k["launches_per_prefill_by_bucket"] = lm["launches_per_prefill_by_bucket"]
+            entry_k["by_shape"] = s["by_shape"]
         elif name == "int8_matmul":
             entry_k["launches_per_forward"] = vgg["per_forward"].get(name, 0)
             entry_k["b1"] = {k: s["b1"][k] for k in ("kernel_ms", "plain_ms", "bound_ms",
@@ -1525,8 +1995,9 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build_s": build_s,
                    "cases": rows, "backward_cases": bwd_rows, "int8_cases": int8_rows,
-                   "lstm_cases": lstm_rows, "summary": summary, "serve": serve,
-                   "train": train, "vgg16": vgg, "generation": gen,
+                   "lstm_cases": lstm_rows, "flash_cases": flash_rows, "summary": summary,
+                   "serve": serve, "train": train, "vgg16": vgg, "generation": gen,
+                   "transformer": lm,
                    "entry_points": entry, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

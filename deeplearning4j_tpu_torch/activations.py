@@ -4,8 +4,8 @@ Counterpart of ``deeplearning4j_tpu/activations.py``: layer configs name
 their activation, and :func:`get` resolves the name (case-insensitive,
 underscores ignored) to a torch function. The port has the activations
 its served models use: ResNet-50's and VGG16's, ``sigmoid`` (the
-GlobalConf default) and ``tanh`` (the recurrent layers'); the other names
-raise.
+GlobalConf default), ``tanh`` (the recurrent layers') and ``gelu`` (the
+transformer blocks'); the other names raise.
 """
 
 from __future__ import annotations
@@ -37,7 +37,13 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``: its default is the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 _REGISTRY: dict = {
+    "gelu": gelu,
     "identity": identity,
     "linear": identity,
     "relu": relu,

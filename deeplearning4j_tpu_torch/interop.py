@@ -6,9 +6,11 @@ the model's own layout of numpy arrays: for a ComputationGraph nested dicts
 (vertex name -> param name -> array), for a MultiLayerNetwork a list (per
 layer) of dicts (recurrent layers: ``Wx``, ``Wh``, ``b`` and a GravesLSTM's
 ``pI``/``pF``/``pO``; a Bidirectional layer nests its two copies under
-``"fwd"``/``"bwd"``); updater state one level deeper (param name -> slot
-name -> array). On the reference's side that is e.g.
-``jax.tree_util.tree_map(np.asarray, net.params_)``. Layouts are the same in
+``"fwd"``/``"bwd"``), for a TransformerLM the reference's nested dict
+(``embed``, ``pos``, ``blocks`` of ``(n_layers, ...)`` stacks, ``lnf_g``,
+``lnf_b``, ``head``; no state, so ``state`` is None); updater state one
+level deeper (param name -> slot name -> array). On the reference's side
+that is e.g. ``jax.tree_util.tree_map(np.asarray, net.params_)``. Layouts are the same in
 both packages (HWIO conv weights, (nIn, nOut) dense weights, NHWC
 flattening), so no array is transposed.
 
@@ -65,7 +67,8 @@ def load_jax_params(model, params, state, opt_state: Optional[Mapping] = None,
         raise ValueError("init() the port's model first: it fixes the device "
                          "and the expected names and shapes")
     _fill("params", model.params_, params)
-    _fill("state", model.state_, state)
+    if model.state_ is not None or state is not None:
+        _fill("state", model.state_, state)
     if opt_state is not None:
         _fill("opt_state", model._ensure_opt_state(), opt_state)
     if iteration is not None:
@@ -73,6 +76,8 @@ def load_jax_params(model, params, state, opt_state: Optional[Mapping] = None,
 
 
 def _numpy(tree):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):

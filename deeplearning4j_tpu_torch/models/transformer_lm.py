@@ -1,15 +1,34 @@
-"""The sampling half of ``deeplearning4j_tpu/models/transformer_lm.py``: what
-the generation engine's recurrent backend imports from it.
+"""TransformerLM: a GPT-style causal language model, served on the card.
 
-- :class:`ContextWindowExceeded` and :func:`_validate_sampling`
-  (``transformer_lm.py:210-234``);
-- :func:`_filter_logits`, :func:`sample_next_device` and
-  :func:`sample_next_rows` (``:266-344``): greedy, temperature, top-k and
-  top-p as data, row by row, on the logits' device;
-- :func:`prefill_bucket_lengths` (``:604-623``).
+Counterpart of ``deeplearning4j_tpu/models/transformer_lm.py``, its
+functions under the same names over the same nested-dict params (block
+params stacked along a leading ``(n_layers,)`` axis):
 
-``TransformerLM`` itself (its blocks, KV-cache decode and flash attention)
-comes with the TransformerLM slice (ROADMAP § A, slice 6).
+- :class:`TransformerLMConfig` (``:37-83``), :func:`init_params`
+  (``:86-123``, drawn from a ``torch.Generator`` seeded by ``cfg.seed``),
+  :func:`block_apply` (``:145-207``, dense and ``fused_qkv``),
+  :func:`init_decode_cache` (``:343-356``), :func:`prefill_cache` with
+  ``length=`` (``:359-428``), :func:`decode_step` with a scalar or per-row
+  ``pos`` (``:431-515``), :func:`forward` (``:626-660``), :func:`token_nll`
+  (``:663-679``) and the :class:`TransformerLM` model (``:711-937``:
+  ``init``, ``logits``, ``output``, ``generate``, ``generate_cached``,
+  ``perplexity``);
+- the sampler (``:210-344``, ``:604-623``): greedy, temperature, top-k and
+  top-p as data, row by row, on the logits' device.
+
+Mixed precision follows JAX's: under ``compute_dtype="bfloat16"`` the
+``W*``/``b*`` params and the head are cast to bf16, LayerNorm params stay
+f32 and ``_ln`` computes in f32; the residual stream is bf16; decode
+attention scores are f32 and ``p`` is cast to the slab's dtype before ``p @
+v``; logits come back f32. Prefill and full forwards at T % 128 == 0 run the
+flash-attention kernel through ``dense_attention``; decode attention reads
+the whole slab with ``torch.matmul``, as the reference's is an XLA einsum.
+The KV cache is written in place (JAX returns a new one): the functions
+return the cache dict they were given, its tensors updated.
+
+Refused with typed errors naming ROADMAP: training (``fit_batch``, ``lm_loss``
+gradients), MoE (``n_experts > 0``), ``decode_steps`` (speculative
+decoding), and the tensor/expert-parallel arguments of ``block_apply``.
 
 Random draws. JAX's threefry key chain cannot be reproduced in torch, so a
 key here is a counter-based generator of the port's own: an int64 pair
@@ -24,9 +43,195 @@ sampled tokens are not JAX's; its greedy tokens are.
 
 from __future__ import annotations
 
-from typing import Tuple
+import json
+import math
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch import activations as _act
+from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.models.zoo import ZooModel
+from deeplearning4j_tpu_torch.nn.conf.layers.attention import (
+    _layer_norm,
+    _softmax,
+    dense_attention,
+)
+
+NO_MOE = ("mixture-of-experts TransformerLMs (n_experts > 0) are not ported yet: "
+          "nn/conf/layers/moe.py comes with a later TransformerLM slice (ROADMAP § A, "
+          "slice 6)")
+NO_TRAINING = ("TransformerLM training (fit_batch, lm_loss gradients and the "
+               "flash-attention backward kernels) comes with the TransformerLM "
+               "training slice (ROADMAP § A, slice 6)")
+NO_SPEC = ("decode_steps (speculative verification) comes with speculative decoding "
+           "(ROADMAP § A, slice 6)")
+NO_PARALLEL = ("manual tensor/expert parallelism (tp_axis, expert_axis) comes with the "
+               "model-parallel slice (ROADMAP § A, slice 7)")
+
+
+class TransformerLMConfig:
+    def __init__(self, vocab_size: int, d_model: int = 256, n_heads: int = 4,
+                 n_layers: int = 4, mlp_ratio: int = 4, max_length: int = 512,
+                 seed: int = 0, n_experts: int = 0, top_k: int = 2,
+                 capacity_factor: float = 1.25, aux_loss_weight: float = 1e-2,
+                 compute_dtype: Optional[str] = None, fused_qkv: bool = False):
+        if d_model % n_heads:
+            raise ValueError("d_model must be divisible by n_heads")
+        self.vocab_size = int(vocab_size)
+        self.d_model = int(d_model)
+        self.n_heads = int(n_heads)
+        self.n_layers = int(n_layers)
+        self.mlp_ratio = int(mlp_ratio)
+        self.max_length = int(max_length)
+        self.seed = int(seed)
+        # MoE (n_experts > 0) is carried as configuration only (NO_MOE)
+        self.n_experts = int(n_experts)
+        self.top_k = int(top_k)
+        self.capacity_factor = float(capacity_factor)
+        self.aux_loss_weight = float(aux_loss_weight)
+        if compute_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(
+                f"compute_dtype must be None, 'float32' or 'bfloat16', got {compute_dtype!r}")
+        self.compute_dtype = None if compute_dtype == "float32" else compute_dtype
+        # Q, K, V as one (d, 3d) matmul per block: the same outputs, the
+        # param layout unchanged
+        self.fused_qkv = bool(fused_qkv)
+
+    def to_dict(self):
+        return dict(self.__dict__)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(**d)
+
+
+def _check_dense(cfg: TransformerLMConfig) -> None:
+    if cfg.n_experts > 0:
+        raise NotImplementedError(NO_MOE)
+
+
+def init_params(cfg: TransformerLMConfig, gen: Optional[torch.Generator] = None,
+                dtype=torch.float32, device=None) -> Dict:
+    """The stacked-parameter dict (block params lead with ``(n_layers,)``),
+    drawn on the CPU from ``gen`` (default seeded by ``cfg.seed``) in the
+    reference's order and scales, then placed on ``device``."""
+    _check_dense(cfg)
+    gen = gen if gen is not None else torch.Generator().manual_seed(cfg.seed)
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    d, h = cfg.d_model, cfg.d_model * cfg.mlp_ratio
+    L, V = cfg.n_layers, cfg.vocab_size
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32).mul_(scale)
+        return w.to(device=dev, dtype=dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    embed = normal((V, d), 0.02)
+    pos = normal((cfg.max_length, d), 0.02)
+    blocks = {"ln1_g": ones(L, d), "ln1_b": zeros(L, d)}
+    for name in ("Wq", "Wk", "Wv", "Wo"):
+        blocks[name] = normal((L, d, d), 1.0 / math.sqrt(d))
+    blocks.update({"bo": zeros(L, d), "ln2_g": ones(L, d), "ln2_b": zeros(L, d),
+                   "W1": normal((L, d, h), 1.0 / math.sqrt(d)), "b1": zeros(L, h),
+                   "W2": normal((L, h, d), 1.0 / math.sqrt(h)), "b2": zeros(L, d)})
+    return {"embed": embed, "pos": pos, "blocks": blocks,
+            "lnf_g": ones(d), "lnf_b": zeros(d),
+            "head": normal((d, V), 1.0 / math.sqrt(d))}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _cdtype(cfg: TransformerLMConfig) -> Optional[torch.dtype]:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
+def _ln(x, g, b, cd):
+    """LayerNorm with f32 statistics under mixed precision."""
+    if cd is None:
+        return _layer_norm(x, g, b)
+    return _layer_norm(x.float(), g, b).to(cd)
+
+
+def _cast_block(bp: Dict, cd) -> Dict:
+    """The reference's cast: ``W*``/``b*`` params to the compute dtype (the
+    LayerNorm params stay). A no-op on params cast already."""
+    if cd is None:
+        return bp
+    return {k: (v.to(cd) if k[0] in ("W", "b") else v) for k, v in bp.items()}
+
+
+def _layers(cfg: TransformerLMConfig, params: Dict) -> List[Dict]:
+    """One param dict per block: views of the stacked ``blocks``, or the
+    list that :func:`compute_params` made already."""
+    blocks = params["blocks"]
+    if isinstance(blocks, list):
+        return blocks
+    return [{k: v[i] for k, v in blocks.items()} for i in range(cfg.n_layers)]
+
+
+def _head(params: Dict, cd):
+    return params["head"] if cd is None else params["head"].to(cd)
+
+
+def compute_params(cfg: TransformerLMConfig, params: Dict) -> Dict:
+    """``params`` as the forward functions use them: each block's dict split
+    out, its ``W*``/``b*`` and the head cast to the compute dtype once (the
+    functions then cast nothing per call)."""
+    cd = _cdtype(cfg)
+    return {**params, "blocks": [_cast_block(bp, cd) for bp in _layers(cfg, params)],
+            "head": _head(params, cd)}
+
+
+def _heads(x, W, hn: int):
+    b, T, _ = x.shape
+    return (x @ W).reshape(b, T, hn, -1).transpose(1, 2)
+
+
+def block_apply(cfg: TransformerLMConfig, bp: Dict, x, attn_fn=None,
+                tp_axis: Optional[str] = None, expert_axis: Optional[str] = None):
+    """One pre-LN block on (b, T, d); ``bp`` holds one layer's params.
+    ``attn_fn`` replaces :func:`dense_attention`."""
+    if tp_axis is not None or expert_axis is not None:
+        raise NotImplementedError(NO_PARALLEL)
+    _check_dense(cfg)
+    b, T, d = x.shape
+    hn = cfg.n_heads
+    cd = _cdtype(cfg)
+    if cd is not None:
+        x = x.to(cd)
+        bp = _cast_block(bp, cd)
+    a_in = _ln(x, bp["ln1_g"], bp["ln1_b"], cd)
+    if cfg.fused_qkv:
+        qkv = a_in @ torch.cat([bp["Wq"], bp["Wk"], bp["Wv"]], dim=-1)
+        q, k, v = (t.reshape(b, T, hn, -1).transpose(1, 2) for t in qkv.split(d, dim=-1))
+    else:
+        q, k, v = (_heads(a_in, bp[n], hn) for n in ("Wq", "Wk", "Wv"))
+    fn = attn_fn if attn_fn is not None else dense_attention
+    o = fn(q, k, v, causal=True, mask=None)
+    o = o.transpose(1, 2).reshape(b, T, d).to(x.dtype)
+    x = x + o @ bp["Wo"] + bp["bo"]
+    m_in = _ln(x, bp["ln2_g"], bp["ln2_b"], cd)
+    h = _act.gelu(m_in @ bp["W1"] + bp["b1"])
+    return x + h @ bp["W2"] + bp["b2"]
 
 
 class ContextWindowExceeded(ValueError):
@@ -185,3 +390,315 @@ def prefill_bucket_lengths(max_length: int, hint=None):
     if not bs or bs[-1] != max_length:
         bs.append(max_length)
     return bs
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decoding
+# ---------------------------------------------------------------------------
+def init_decode_cache(cfg: TransformerLMConfig, batch: int, max_length: Optional[int] = None,
+                      device=None) -> Dict:
+    """Preallocated per-layer K/V buffers ``(L, batch, heads, max_length,
+    head_dim)`` of the compute dtype (f32 without one) and a position 0.
+    ``max_length`` overrides the slab's time extent (default
+    ``cfg.max_length``)."""
+    cd = _cdtype(cfg) or torch.float32
+    hd = cfg.d_model // cfg.n_heads
+    T = cfg.max_length if max_length is None else int(max_length)
+    shape = (cfg.n_layers, int(batch), cfg.n_heads, T, hd)
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    return {"k": torch.zeros(shape, dtype=cd, device=dev),
+            "v": torch.zeros(shape, dtype=cd, device=dev), "pos": 0}
+
+
+def _embed(params, ids, positions, cd):
+    x = params["embed"][ids] + params["pos"][positions]
+    return x if cd is None else x.to(cd)
+
+
+def _final_logits(params, x, cd):
+    x = _ln(x, params["lnf_g"], params["lnf_b"], cd)
+    return (x @ _head(params, cd)).float()
+
+
+def prefill_cache(cfg: TransformerLMConfig, params: Dict, cache: Dict, ids, length=None):
+    """Batched prompt prefill: ids (b, Tp) into ``cache`` (its positions
+    [0, Tp) of every layer written in place) -> (the logits at the last real
+    position (b, V) f32, the cache with ``pos`` = Tp, or ``length``).
+
+    ``length`` (an int or a 0-d tensor, <= Tp) marks the real prompt length
+    of a right-padded prompt: causal attention makes the padding exact, as
+    position i attends only to positions <= i; the pad positions' K/V are
+    written, masked from every decode read (decode masks to <= pos) and
+    overwritten as decoding advances."""
+    _check_dense(cfg)
+    cd = _cdtype(cfg)
+    b, Tp = ids.shape
+    hn, d = cfg.n_heads, cfg.d_model
+    x = _embed(params, ids, slice(0, Tp), cd)
+    for i, bp in enumerate(_layers(cfg, params)):
+        bp = _cast_block(bp, cd)
+        a_in = _ln(x, bp["ln1_g"], bp["ln1_b"], cd)
+        q, k, v = (_heads(a_in, bp[n], hn) for n in ("Wq", "Wk", "Wv"))
+        cache["k"][i, :, :, :Tp] = k
+        cache["v"][i, :, :, :Tp] = v
+        o = dense_attention(q, k, v, causal=True, mask=None)
+        o = o.transpose(1, 2).reshape(b, Tp, d).to(x.dtype)
+        x = x + o @ bp["Wo"] + bp["bo"]
+        m_in = _ln(x, bp["ln2_g"], bp["ln2_b"], cd)
+        x = x + _act.gelu(m_in @ bp["W1"] + bp["b1"]) @ bp["W2"] + bp["b2"]
+    if length is None:
+        x_last, pos_out = x[:, -1], Tp
+    elif isinstance(length, torch.Tensor):
+        pos_out = length
+        x_last = x.index_select(1, (length.to(x.device).long() - 1).reshape(1))[:, 0]
+    else:
+        pos_out = int(length)
+        x_last = x[:, pos_out - 1]
+    return _final_logits(params, x_last, cd), {**cache, "pos": pos_out}
+
+
+def decode_step(cfg: TransformerLMConfig, params: Dict, cache: Dict, ids_1):
+    """One autoregressive step: ids_1 (b,) at position ``cache["pos"]`` ->
+    (logits (b, V) f32, the cache with its K/V written in place and ``pos``
+    advanced by 1). ``pos`` is an int (every row at one position, written at
+    ``min(pos, T - 1)``) or a (b,) tensor (each slot its own position, each
+    row written at its own clamped index). Attention reads the whole slab,
+    masked to positions <= pos; every op is row-wise, so a row decoded among
+    others computes what it computes alone (up to the library GEMM's choice
+    of algorithm at another row count)."""
+    _check_dense(cfg)
+    cd = _cdtype(cfg)
+    pos = cache["pos"]
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    kc_all, vc_all = cache["k"], cache["v"]
+    T = kc_all.shape[3]
+    dev = kc_all.device
+    last = params["pos"].shape[0] - 1
+    if per_row:
+        pos = pos.to(dev)
+        x = _embed(params, ids_1, pos.clamp(0, last), cd)
+        valid = torch.arange(T, device=dev)[None, :] <= pos[:, None]     # (b, T)
+        valid = valid[:, None, :]
+        rows = torch.arange(ids_1.shape[0], device=dev)
+        wp = pos.clamp(0, T - 1)
+    else:
+        p_int = int(pos)
+        x = _embed(params, ids_1, min(max(p_int, 0), last), cd)
+        valid = (torch.arange(T, device=dev) <= p_int)[None, None, :]
+    b = x.shape[0]
+    hn, d = cfg.n_heads, cfg.d_model
+    scale = 1.0 / math.sqrt(d // hn)
+    for i, bp in enumerate(_layers(cfg, params)):
+        bp = _cast_block(bp, cd)
+        kc, vc = kc_all[i], vc_all[i]                                  # (b, hn, T, hd)
+        a_in = _ln(x, bp["ln1_g"], bp["ln1_b"], cd)
+        q, k, v = ((a_in @ bp[n]).reshape(b, hn, -1) for n in ("Wq", "Wk", "Wv"))
+        if per_row:
+            kc[rows, :, wp] = k.to(kc.dtype)
+            vc[rows, :, wp] = v.to(vc.dtype)
+        else:
+            kc[:, :, min(max(p_int, 0), T - 1)] = k
+            vc[:, :, min(max(p_int, 0), T - 1)] = v
+        scores = torch.matmul(q[:, :, None, :], kc.transpose(-1, -2))[:, :, 0].float() * scale
+        p = _softmax(torch.where(valid, scores, -1e30)).to(kc.dtype)
+        o = torch.matmul(p[:, :, None, :], vc)[:, :, 0].reshape(b, d).to(x.dtype)
+        x = x + o @ bp["Wo"] + bp["bo"]
+        m_in = _ln(x, bp["ln2_g"], bp["ln2_b"], cd)
+        x = x + _act.gelu(m_in @ bp["W1"] + bp["b1"]) @ bp["W2"] + bp["b2"]
+    return _final_logits(params, x, cd), {**cache, "pos": cache["pos"] + 1}
+
+
+def decode_steps(cfg: TransformerLMConfig, params: Dict, cache: Dict, ids_k):
+    """K-column decode for speculative verification: not ported yet."""
+    raise NotImplementedError(NO_SPEC)
+
+
+def forward(cfg: TransformerLMConfig, params: Dict, ids, attn_fn=None, pos_offset: int = 0,
+            cast_logits: bool = True):
+    """ids (b, T) -> logits (b, T, V). ``attn_fn`` replaces
+    :func:`dense_attention`; ``cast_logits=False`` keeps the logits in the
+    compute dtype."""
+    _check_dense(cfg)
+    cd = _cdtype(cfg)
+    x = _embed(params, ids, slice(pos_offset, pos_offset + ids.shape[1]), cd)
+    for bp in _layers(cfg, params):
+        x = block_apply(cfg, bp, x, attn_fn=attn_fn)
+    x = _ln(x, params["lnf_g"], params["lnf_b"], cd)
+    logits = x @ _head(params, cd)
+    return logits.float() if cast_logits else logits
+
+
+def token_nll(logits, targets):
+    """Per-token next-token NLL as ``lse(logits) - logits[target]``; targets
+    -1 are ignored. Returns (mean_nll, valid_count)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = targets.clamp_min(0).long()
+    tgt_logit = torch.gather(lf, -1, tgt[..., None])[..., 0]
+    valid = (targets >= 0).float()
+    nll = (lse - tgt_logit) * valid
+    count = valid.sum().clamp_min(1.0)
+    return nll.sum() / count, count
+
+
+def lm_loss(cfg: TransformerLMConfig, params, ids, targets):
+    """Mean next-token cross-entropy, evaluated (its gradients come with the
+    training slice)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in _leaves(params) if isinstance(t, torch.Tensor)):
+        raise NotImplementedError(NO_TRAINING)
+    logits = forward(cfg, params, ids, cast_logits=False)
+    return token_nll(logits, targets)[0]
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+class TransformerLM(ZooModel):
+    """The zoo wrapper: ``init`` on a device (default the CUDA card),
+    ``logits``/``output`` (token ids (b, T) -> f32 logits (b, T, V)),
+    ``generate`` (a host loop of full forwards), ``generate_cached``
+    (KV-cache decoding) and ``perplexity``. ``params_`` are f32 master
+    params; :meth:`compute_params` casts them for the compute dtype once and
+    keeps the cast until a param tensor changes."""
+
+    name = "transformerlm"
+
+    #: prompt-length buckets for KV-cache prefill (filtered to the
+    #: instance's max_length at use; see ``prefill_bucket_lengths``)
+    serving_seq_buckets = (16, 32, 64, 128, 256, 512)
+
+    def __init__(self, vocab_size: int = 1000, d_model: int = 256, n_heads: int = 4,
+                 n_layers: int = 4, mlp_ratio: int = 4, max_length: int = 512,
+                 seed: int = 123, n_experts: int = 0, top_k: int = 2,
+                 capacity_factor: float = 1.25, aux_loss_weight: float = 1e-2,
+                 compute_dtype: Optional[str] = None, fused_qkv: bool = False, **kwargs):
+        super().__init__(num_classes=vocab_size, seed=seed, **kwargs)
+        self.cfg = TransformerLMConfig(
+            vocab_size, d_model, n_heads, n_layers, mlp_ratio, max_length, seed=seed,
+            n_experts=n_experts, top_k=top_k, capacity_factor=capacity_factor,
+            aux_loss_weight=aux_loss_weight, compute_dtype=compute_dtype,
+            fused_qkv=fused_qkv)
+        self.params_: Optional[Dict] = None
+        #: no layer running state (the serving engine reads this attribute)
+        self.state_ = None
+        self.device: Optional[torch.device] = None
+        self._compute_cache: Optional[Tuple[tuple, Dict]] = None
+
+    def init(self, device=None) -> "TransformerLM":
+        """Seeded params (``cfg.seed``) on ``device`` (default the CUDA card)."""
+        self.device = resolve_device(device)
+        self.params_ = init_params(self.cfg, device=self.device)
+        return self
+
+    def compute_params(self, params: Optional[Dict] = None) -> Dict:
+        """``params`` (default ``params_``) as :func:`compute_params` gives
+        them; for ``params_`` the result is kept until a tensor of it is
+        replaced or changed in place."""
+        if params is not None:
+            return compute_params(self.cfg, params)
+        leaves = tuple((id(t), t._version) for t in _leaves(self.params_))
+        if self._compute_cache is None or self._compute_cache[0] != leaves:
+            self._compute_cache = (leaves, compute_params(self.cfg, self.params_))
+        return self._compute_cache[1]
+
+    def _ids(self, ids) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids), dtype=torch.int64).to(self.device)
+
+    def fit_batch(self, ids, targets, segment_ids=None) -> float:
+        raise NotImplementedError(NO_TRAINING)
+
+    def logits(self, ids) -> np.ndarray:
+        with torch.inference_mode():
+            return forward(self.cfg, self.compute_params(), self._ids(ids)).cpu().numpy()
+
+    def output(self, x, mask=None) -> np.ndarray:
+        """Token ids (b, T) -> f32 logits (b, T, V)."""
+        return self.logits(np.asarray(x).astype(np.int64))
+
+    # -- the serving engine's surface for a model without ``_forward`` -------
+    def conf_json(self) -> str:
+        """The architecture key the engine compares on reload."""
+        return self.cfg.to_json()
+
+    def serving_rows(self, x) -> np.ndarray:
+        """A request as int64 token ids: (b, T) integral values in [0,
+        vocab), 1 <= T <= max_length; a ValueError otherwise."""
+        x = np.asarray(x)
+        cfg = self.cfg
+        if x.ndim != 2 or not 1 <= x.shape[1] <= cfg.max_length:
+            raise ValueError(f"input of shape {tuple(x.shape)}; the model takes (batch, time) "
+                             f"token ids with 1 <= time <= {cfg.max_length}")
+        ids = x.astype(np.int64)
+        if x.size and (np.any(ids != x) or ids.min() < 0 or ids.max() >= cfg.vocab_size):
+            raise ValueError(f"token ids must be integers in [0, {cfg.vocab_size})")
+        return ids
+
+    def serving_forward(self, params: Dict, ids: torch.Tensor) -> torch.Tensor:
+        """f32 logits (b, T, V) of token ids (b, T) under ``params`` as
+        :meth:`compute_params` gives them (an engine's snapshot)."""
+        return forward(self.cfg, params, ids)
+
+    def num_params(self) -> int:
+        return sum(int(t.numel()) for t in _leaves(self.params_))
+
+    def generate(self, prompt_ids, max_new: int = 20, temperature: float = 0.0, rng=None,
+                 top_k: int = 0, top_p: float = 0.0) -> np.ndarray:
+        """Continuation by a host loop of full forwards over the growing
+        prefix, windowed to the last ``max_length`` tokens. ``rng``: a key of
+        :func:`new_key` (default seed 0)."""
+        ids = np.asarray(prompt_ids, np.int64)
+        if ids.ndim == 1:
+            ids = ids[None]
+        _validate_sampling(temperature, top_k, top_p)
+        key = (rng if rng is not None else new_key(0)).to(self.device)
+        for _ in range(max_new):
+            window = ids[:, -self.cfg.max_length:]
+            with torch.inference_mode():
+                logits = forward(self.cfg, self.compute_params(), self._ids(window))[:, -1]
+                nxt, key = sample_next_device(logits, temperature, top_k, top_p, key)
+            ids = np.concatenate([ids, nxt.cpu().numpy().astype(np.int64)[:, None]], axis=1)
+        return ids.astype(np.int32)
+
+    def prefill_buckets(self):
+        """The prompt-length buckets prefill pads to."""
+        return prefill_bucket_lengths(self.cfg.max_length, self.serving_seq_buckets)
+
+    def generate_cached(self, prompt_ids, max_new: int = 20, temperature: float = 0.0,
+                        rng=None, top_k: int = 0, top_p: float = 0.0) -> np.ndarray:
+        """KV-cache decoding: the prompt, right-padded to its bucket,
+        prefills the per-layer K/V slab; each new token is one
+        :func:`decode_step`; sampling runs on the device and the tokens come
+        back once at the end. Raises :class:`ContextWindowExceeded` when
+        prompt_len + max_new > max_length."""
+        ids = np.asarray(prompt_ids, np.int64)
+        if ids.ndim == 1:
+            ids = ids[None]
+        if ids.shape[1] + max_new > self.cfg.max_length:
+            raise ContextWindowExceeded(ids.shape[1], max_new, self.cfg.max_length)
+        _validate_sampling(temperature, top_k, top_p)
+        if max_new <= 0:
+            return ids.astype(np.int32)
+        key = (rng if rng is not None else new_key(0)).to(self.device)
+        b, tp = ids.shape
+        tb = next(t for t in self.prefill_buckets() if t >= tp)
+        padded = np.zeros((b, tb), np.int64)
+        padded[:, :tp] = ids
+        with torch.inference_mode():
+            params = self.compute_params()
+            cache = init_decode_cache(self.cfg, b, device=self.device)
+            logits, cache = prefill_cache(self.cfg, params, cache, self._ids(padded), length=tp)
+            tok, key = sample_next_device(logits, temperature, top_k, top_p, key)
+            toks = [tok]
+            for _ in range(max_new - 1):
+                logits, cache = decode_step(self.cfg, params, cache, tok.long())
+                tok, key = sample_next_device(logits, temperature, top_k, top_p, key)
+                toks.append(tok)
+            gen = torch.stack(toks, dim=1).cpu().numpy()
+        return np.concatenate([ids, gen.astype(np.int64)], axis=1).astype(np.int32)
+
+    def perplexity(self, ids, targets) -> float:
+        """exp(mean next-token NLL) over valid targets (-1 = ignore)."""
+        with torch.inference_mode():
+            nll = lm_loss(self.cfg, self.compute_params(), self._ids(ids), self._ids(targets))
+        return float(np.exp(float(nll)))

@@ -1,6 +1,12 @@
-"""The ported layer catalog: what ResNet-50, VGG16/LeNet and the recurrent
-networks (TextGenerationLSTM) need."""
+"""The ported layer catalog: what ResNet-50, VGG16/LeNet, the recurrent
+networks (TextGenerationLSTM) and the transformer layers need."""
 
+from deeplearning4j_tpu_torch.nn.conf.layers.attention import (  # noqa: F401
+    LayerNormalization,
+    PositionalEmbeddingLayer,
+    SelfAttentionLayer,
+    TransformerBlock,
+)
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (  # noqa: F401
     FeedForwardLayer,
     GlobalConf,

@@ -4,8 +4,8 @@ ctypes binding of a built library, argument checks and the launch itself.
 Each wrapper adds one to ``launch_counts[name]`` where it launches its
 kernel, and nowhere else, so a run can show that its main path went
 through the kernels: callers reset the counter to 0 around the work they
-want to attribute. The fused-conv ops (``fused_conv.py``) and the int8
-matmul (``int8_matmul.py``) count into the same counter.
+want to attribute. Every kernel module of ``nn/ops`` counts into this
+counter.
 """
 
 from __future__ import annotations
@@ -33,18 +33,18 @@ def reset_launch_counts() -> None:
     launch_counts.clear()
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 class KernelLibrary:
     """ctypes binding of one ``csrc/<name>.cu``, loaded (and built) on the
     first kernel call. ``signatures``: C function -> (pointer args, int
-    args), each followed by the stream; every function returns a
-    ``cudaError_t`` as int. ``tiles``: a C function ``int f(int which)``
-    giving the kernel's tile sizes, read into ``tile`` by the keys of
-    ``tile_keys``."""
+    args[, float args]), in that order, followed by the stream; every
+    function returns a ``cudaError_t`` as int. ``tiles``: a C function
+    ``int f(int which)`` giving the kernel's tile sizes, read into ``tile``
+    by the keys of ``tile_keys``."""
 
-    def __init__(self, name: str, signatures: Dict[str, Tuple[int, int]],
+    def __init__(self, name: str, signatures: Dict[str, Tuple[int, ...]],
                  tiles: str, tile_keys: str = "mnk"):
         self.name, self.signatures, self.tiles = name, signatures, tiles
         self.tile_keys = tile_keys
@@ -54,8 +54,9 @@ class KernelLibrary:
     def get(self):
         if self.handle is None:
             lib = build.load(self.name)
-            for fn, (n_ptr, n_int) in self.signatures.items():
-                getattr(lib, fn).argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
+            for fn, (n_ptr, n_int, *n_float) in self.signatures.items():
+                getattr(lib, fn).argtypes = ([_P] * n_ptr + [_I] * n_int
+                                             + [_F] * sum(n_float) + [_P])
                 getattr(lib, fn).restype = _I
             query = getattr(lib, self.tiles)
             query.argtypes, query.restype = [_I], _I

@@ -8,9 +8,16 @@ placed, with the state, on the engine's device. A request is padded up to
 its batch bucket (a rank-3 sequence also to its sequence bucket, under a
 feature mask), run through the model's forward, and sliced back.
 
-- Models: a ``MultiLayerNetwork``, or a single-output ``ComputationGraph``
+- Models: a ``MultiLayerNetwork``, a single-output ``ComputationGraph``
   (served through its single-output forward, the route the reference
-  engine's generic branch intends).
+  engine's generic branch intends), or a model without the layer-graph
+  ``_forward`` that offers ``compute_params``, ``conf_json``,
+  ``serving_rows`` (checks a request, returns its rows) and
+  ``serving_forward(params, x)`` on the snapshot's params, such as a
+  ``TransformerLM`` (token ids ``(b, T)`` -> f32 logits ``(b, T, V)``; the
+  reference's ``output`` branch, ``engine.py:409-420``). Such a model's
+  requests are padded in batch only, and ``warmup`` needs an
+  ``example_shape`` such as ``(T,)``.
 - ``int8_serving=True`` builds every snapshot (init and reloads) with the
   dense/output heads, ``RnnOutputLayer`` included, quantized
   (``nn/ops/int8_matmul.py``): the snapshot on the device holds
@@ -44,7 +51,7 @@ import torch
 
 from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, map_tensors
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.serving.buckets import BucketPolicy, slice_result
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 
@@ -112,10 +119,20 @@ def resolve_checkpoint_source(source: str) -> str:
 
 
 def _place(tree, device: torch.device):
-    """A list or dict of param dicts with every tensor on ``device``."""
+    """Lists and dicts of tensors, nested, with every tensor on ``device``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
-        return {k: map_tensors(lambda t: t.to(device), d) for k, d in tree.items()}
-    return [map_tensors(lambda t: t.to(device), d) for d in tree]
+        return {k: _place(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_place(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _serves_itself(model) -> bool:
+    """A model without the layer-graph ``_forward``: it serves through its
+    own ``serving_rows``/``serving_forward``."""
+    return not hasattr(model, "_forward")
 
 
 def _path_fingerprint(path: str) -> Optional[Tuple[int, int]]:
@@ -184,10 +201,12 @@ class InferenceEngine:
                 "cannot serve int8 heads")
         single_graph = (isinstance(model, ComputationGraph)
                         and len(model.conf.network_outputs) == 1)
-        if not (isinstance(model, MultiLayerNetwork) or single_graph):
+        own = _serves_itself(model) and hasattr(model, "serving_forward")
+        if not (isinstance(model, MultiLayerNetwork) or single_graph or own):
             raise TypeError(
                 f"{type(model).__name__} cannot be served: the engine needs a "
-                "MultiLayerNetwork or a single-output ComputationGraph")
+                "MultiLayerNetwork, a single-output ComputationGraph or a model with "
+                "serving_forward (a TransformerLM)")
         if model.params_ is None:
             raise ValueError("init() the model (or load params) before serving")
 
@@ -202,10 +221,18 @@ class InferenceEngine:
             params, self.int8_report = quantize_model_params(model)
         return _place(model.compute_params(params), self.device)
 
+    @staticmethod
+    def _conf_json(model) -> str:
+        return model.conf_json() if _serves_itself(model) else model.conf.to_json()
+
+    @staticmethod
+    def _example_shape(model) -> Optional[Tuple[int, ...]]:
+        return None if _serves_itself(model) else conf_example_shape(model.conf)
+
     def _build_snapshot(self, model, version: int, source) -> _Snapshot:
         params = self._snapshot_params(model)
         return _Snapshot(model, params, _place(model.state_, self.device),
-                         model.conf.to_json(), version, source)
+                         self._conf_json(model), version, source)
 
     # -- properties ---------------------------------------------------------
     @property
@@ -237,8 +264,10 @@ class InferenceEngine:
 
     # -- inference ----------------------------------------------------------
     def example_shape(self) -> Optional[Tuple[int, ...]]:
-        """Per-example input shape from the model conf's input type."""
-        return conf_example_shape(self._snap.model.conf)
+        """Per-example input shape from the model conf's input type (None
+        for a model that serves itself, such as a TransformerLM, whose rows
+        may have any length)."""
+        return self._example_shape(self._snap.model)
 
     def infer(self, x, mask=None) -> np.ndarray:
         """One bucketed forward: pad up to the bucket, run, slice back.
@@ -254,6 +283,12 @@ class InferenceEngine:
 
     def _infer_on(self, snap: _Snapshot, x, mask=None) -> np.ndarray:
         x = np.asarray(x)
+        if _serves_itself(snap.model):
+            if mask is not None:
+                raise ValueError(f"{type(snap.model).__name__} takes no feature mask")
+            xp, _, n = self.buckets.pad_batch(snap.model.serving_rows(x))
+            self.metrics.record_dispatch(xp.shape[0], real_rows=n)
+            return slice_result(self._forward_raw(snap, xp), n, None, None)
         itype = conf_input_type(snap.model.conf)
         shape = None if itype is None else tuple(itype.shape(1)[1:])
         if itype is not None and itype.kind == "recurrent" and itype.timesteps is None:
@@ -281,7 +316,9 @@ class InferenceEngine:
         model = snap.model
         xt = torch.from_numpy(np.ascontiguousarray(xp)).to(self.device)
         with torch.inference_mode():
-            if isinstance(model, MultiLayerNetwork):
+            if _serves_itself(model):
+                y = model.serving_forward(snap.params, xt)
+            elif isinstance(model, MultiLayerNetwork):
                 mt = None if mp is None else torch.from_numpy(
                     np.ascontiguousarray(mp, np.float32)).to(self.device)
                 y, _, _ = model._forward(snap.params, snap.state, xt, cast_params=False,
@@ -306,13 +343,14 @@ class InferenceEngine:
             self._infer_on(snap, np.zeros(full_shape, np.float32), mask)
         return len(shapes)
 
-    def warmup(self) -> dict:
+    def warmup(self, example_shape: Optional[Tuple[int, ...]] = None) -> dict:
         """Run every bucket shape once (allocator, library handles and kernel
-        build are then warm). Returns {shapes, seconds}."""
-        shape = self.example_shape()
+        build are then warm). ``example_shape``: one row's shape, default the
+        conf's. Returns {shapes, seconds}."""
+        shape = tuple(example_shape) if example_shape is not None else self.example_shape()
         if shape is None:
             raise ValueError("the model conf declares no single input type "
-                             "to warm up with")
+                             "to warm up with; pass warmup(example_shape=...)")
         t0 = time.perf_counter()
         n_shapes = self._warm_snapshot(self._snap, shape)
         self.warm = True
@@ -345,7 +383,7 @@ class InferenceEngine:
             meta = ModelSerializer.checkpoint_meta(path)
             new_model = ModelGuesser.load_model_guess(path, device=self.device)
             old = self._snap
-            conf_json = new_model.conf.to_json()
+            conf_json = self._conf_json(new_model)
             same_arch = conf_json == old.conf_json
             if same_arch:
                 # params and state only: the old layer graph stays
@@ -355,7 +393,7 @@ class InferenceEngine:
             else:
                 snap = self._build_snapshot(new_model, version=old.version + 1,
                                             source=path)
-                shape = conf_example_shape(new_model.conf)
+                shape = self._example_shape(new_model)
                 if self.warm and shape is not None:
                     self._warm_snapshot(snap, shape)
             self._snap = snap  # the atomic publish

@@ -1,39 +1,46 @@
 """Continuous-batching autoregressive generation engine.
 
 Counterpart of ``deeplearning4j_tpu/serving/generate.py``
-(``GenerationRequest`` ``:91``, ``_RecurrentBackend`` ``:716``,
-``generation_memory_report`` ``:944``, ``GenerationEngine`` ``:994``). The
-/predict path batches requests; generation batches tokens:
+(``GenerationRequest`` ``:91``, ``_TransformerBackend`` ``:372``,
+``_RecurrentBackend`` ``:716``, ``generation_memory_report`` ``:944``,
+``GenerationEngine`` ``:994``). The /predict path batches requests;
+generation batches tokens:
 
-- the engine owns a slot slab: for a recurrent network (TextGenerationLSTM)
-  each recurrent layer's carried ``(h, c)`` stacked to ``(n_slots, units)``
-  on the model's device;
-- a request claims a free slot, prefills its prompt padded to a bucket
-  length under a mask (``prefill_bucket_lengths``), and joins the next
-  decode step;
-- every token step is one batched decode for all slots: the direct cell
-  stack (one fused LSTM cell launch per recurrent layer) or, for a stack
-  the cell path cannot take, the network's ``_forward`` over a T = 1
-  sequence; then the head and the
-  sampler (greedy, temperature, top-k, top-p as per-row data), and one
-  device-to-host copy of the new tokens and keys;
+- the engine owns a slot slab on the model's device: for a TransformerLM
+  the per-layer K/V cache ``(L, n_slots, heads, max_length, head_dim)``,
+  for a recurrent network (TextGenerationLSTM) each recurrent layer's
+  carried ``(h, c)`` stacked to ``(n_slots, units)``;
+- a request claims a free slot and prefills its prompt padded to a bucket
+  length (``prefill_bucket_lengths``): a TransformerLM writes the slot's
+  K/V in one causal pass (the flash-attention kernel at buckets of 128 and
+  up), a recurrent network steps through the prompt under a mask; then the
+  request joins the next decode step;
+- every token step is one batched decode for all slots, each at its own
+  position: a TransformerLM's ``decode_step`` over the slab, or the direct
+  cell stack of a recurrent network (one fused LSTM cell launch per
+  recurrent layer; a stack the cell path cannot take runs the network's
+  ``_forward`` over a T = 1 sequence); then the sampler (greedy,
+  temperature, top-k, top-p as per-row data), and one device-to-host copy
+  of the new tokens and keys;
 - finished, expired or abandoned requests free their slot at token
   granularity, and the next queued request claims it while the others
   keep decoding.
 
 A slot decoded among others gives the same tokens as the request alone:
-every op of a step is row-wise (the fused cell's sums run in a fixed order
-whatever the batch, and each slot samples from its own counter-based
-generator seeded from the request's seed, ``models/transformer_lm.py``).
+every op of a step is row-wise, and each slot samples from its own
+counter-based generator seeded from the request's seed
+(``models/transformer_lm.py``). (The fused LSTM cell's sums run in a fixed
+order whatever the batch; a library GEMM may pick another algorithm at
+another row count, so a TransformerLM slot can differ in the last bits.)
 
 Typed failures reuse the batcher's vocabulary: queue full ->
 ``ServerOverloadedError`` (HTTP 503), deadline -> ``RequestDeadlineExceeded``
 (504), window overflow -> ``ContextWindowExceeded`` (400), a slab over the
 memory budget -> :class:`GenerationMemoryError` at build time, a hung
-decode -> :class:`DecodeStalledError` (the watchdog). The KV-cache backend
-of TransformerLM, speculative decoding and the shared-prefix cache come
-with the TransformerLM slice (ROADMAP § A, slice 6) and raise
-:class:`GenerationNotPortedError`; the reference's chaos seams, request
+decode -> :class:`DecodeStalledError` (the watchdog). Speculative decoding
+and the shared-prefix cache come with the next TransformerLM slice
+(ROADMAP § A, slice 6) and raise :class:`GenerationNotPortedError`, as does
+a mixture-of-experts TransformerLM; the reference's chaos seams, request
 traces, flight events and lock witness come with the control-plane slice.
 """
 
@@ -161,6 +168,117 @@ class GenerationRequest:
 
 
 # --------------------------------------------------------------------------
+# the TransformerLM backend
+# --------------------------------------------------------------------------
+class _TransformerBackend:
+    """TransformerLM decode: a fixed ``(L, S, heads, T, head_dim)`` K/V slab
+    of the compute dtype on the model's device, per-slot positions, prompts
+    prefilled at bucket lengths. The slab is written in place: a prefill
+    writes its slot's positions [0, bucket), a decode step each row's
+    position; positions past a slot's own are masked from its reads."""
+
+    kind = "transformer"
+    cell_path = None
+
+    def __init__(self, model, n_slots: int, max_length: Optional[int],
+                 prefill_buckets: Optional[Sequence[int]]):
+        from deeplearning4j_tpu_torch.models.transformer_lm import (
+            NO_MOE,
+            prefill_bucket_lengths,
+        )
+
+        cfg = model.cfg
+        if cfg.n_experts > 0:
+            raise GenerationNotPortedError(NO_MOE)
+        if model.params_ is None:
+            raise ValueError("init() the model (or load params) before generating")
+        self.model = model
+        self.device = model.device
+        self.n_slots = int(n_slots)
+        self.max_length = (cfg.max_length if max_length is None
+                           else min(int(max_length), cfg.max_length))
+        self.buckets = prefill_bucket_lengths(
+            self.max_length, prefill_buckets or getattr(model, "serving_seq_buckets", None))
+        self.vocab = cfg.vocab_size
+        self.reset()
+        self.cache_bytes = 2 * self._kc.numel() * self._kc.element_size()
+
+    def reset(self) -> None:
+        """(Re)build the slab: at construction, and after a failed or stalled
+        decode."""
+        from deeplearning4j_tpu_torch.models.transformer_lm import init_decode_cache
+
+        slab = init_decode_cache(self.model.cfg, self.n_slots, max_length=self.max_length,
+                                 device=self.device)
+        self._kc, self._vc = slab["k"], slab["v"]
+
+    def bucket_for(self, prompt_len: int) -> int:
+        return next(t for t in self.buckets if t >= prompt_len)
+
+    def prefill(self, slot: int, prompt: np.ndarray, temperature: float, top_k: int,
+                top_p: float, key: np.ndarray):
+        """Prefill ``prompt`` padded to its bucket into ``slot``; returns
+        ``(first token, advanced key, bucket, last-position logits (V,))``."""
+        from deeplearning4j_tpu_torch.models.transformer_lm import (
+            prefill_cache,
+            sample_next_device,
+        )
+
+        dev = self.device
+        tp = int(prompt.shape[0])
+        tb = self.bucket_for(tp)
+        ids = np.zeros((1, tb), np.int64)
+        ids[0, :tp] = prompt
+        view = {"k": self._kc[:, slot:slot + 1], "v": self._vc[:, slot:slot + 1], "pos": 0}
+        logits, _ = prefill_cache(self.model.cfg, self.model.compute_params(), view,
+                                  torch.from_numpy(ids).to(dev), length=tp)
+        tok0, key_t = sample_next_device(logits, temperature, top_k, top_p,
+                                         torch.from_numpy(key).to(dev))
+        out = torch.cat([tok0.to(torch.int64), key_t]).cpu().numpy()
+        return int(out[0]), out[1:], tb, logits[0]
+
+    def decode(self, tokens: np.ndarray, pos: np.ndarray, active: np.ndarray,
+               temperature: np.ndarray, top_k: np.ndarray, top_p: np.ndarray,
+               keys: np.ndarray):
+        """One token for every slot at its own position; inactive slots keep
+        their token and key (their K/V write lands at their stale position,
+        masked until a prefill or decode overwrites it). Returns ``(tokens
+        (S,) int32, keys (S, 2) int64)``."""
+        from deeplearning4j_tpu_torch.models.transformer_lm import decode_step
+
+        dev = self.device
+        toks = torch.from_numpy(np.ascontiguousarray(tokens, np.int64)).to(dev)
+        pos_t = torch.from_numpy(np.ascontiguousarray(pos, np.int64)).to(dev)
+        act = torch.from_numpy(np.ascontiguousarray(active, np.bool_)).to(dev)
+        keys_t = torch.from_numpy(np.ascontiguousarray(keys, np.int64)).to(dev)
+        logits, _ = decode_step(self.model.cfg, self.model.compute_params(),
+                                {"k": self._kc, "v": self._vc, "pos": pos_t}, toks)
+        return _sample_rows(logits, toks, act, temperature, top_k, top_p, keys_t)
+
+    def window_check(self, prompt_len: int, max_new: int) -> None:
+        from deeplearning4j_tpu_torch.models.transformer_lm import ContextWindowExceeded
+
+        if prompt_len + max_new > self.max_length:
+            raise ContextWindowExceeded(prompt_len, max_new, self.max_length)
+
+
+def _sample_rows(logits, toks, act, temperature, top_k, top_p, keys_t):
+    """Per-slot sampling; inactive rows keep their token and key. Returns
+    host ``(tokens (S,) int32, keys (S, 2) int64)`` in one copy."""
+    from deeplearning4j_tpu_torch.models.transformer_lm import sample_next_rows
+
+    dev = logits.device
+    nxt, nkeys = sample_next_rows(
+        logits, torch.from_numpy(np.asarray(temperature, np.float32)).to(dev),
+        torch.from_numpy(np.asarray(top_k, np.int64)).to(dev),
+        torch.from_numpy(np.asarray(top_p, np.float32)).to(dev), keys_t)
+    nxt = torch.where(act, nxt.to(torch.int64), toks)
+    nkeys = torch.where(act[:, None], nkeys, keys_t)
+    out = torch.cat([nxt[:, None], nkeys], dim=1).cpu().numpy()
+    return out[:, 0].astype(np.int32), out[:, 1:]
+
+
+# --------------------------------------------------------------------------
 # the recurrent backend
 # --------------------------------------------------------------------------
 def _cell_decode_supported(model) -> bool:
@@ -278,11 +396,12 @@ class _RecurrentBackend:
         out = torch.cat([tok0.to(torch.int64), key_t]).cpu().numpy()
         return int(out[0]), out[1:], tb, logits[0]
 
-    def decode(self, tokens: np.ndarray, active: np.ndarray, temperature: np.ndarray,
-               top_k: np.ndarray, top_p: np.ndarray, keys: np.ndarray):
-        """One token for every slot; inactive slots keep their token, key and
-        state. Returns ``(tokens (S,) int32, keys (S, 2) int64)``."""
-        from deeplearning4j_tpu_torch.models.transformer_lm import sample_next_rows
+    def decode(self, tokens: np.ndarray, pos: np.ndarray, active: np.ndarray,
+               temperature: np.ndarray, top_k: np.ndarray, top_p: np.ndarray,
+               keys: np.ndarray):
+        """One token for every slot (``pos`` plays no part: the carry is the
+        position); inactive slots keep their token, key and state. Returns
+        ``(tokens (S,) int32, keys (S, 2) int64)``."""
         from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import tree_map
 
         model, dev = self.model, self.device
@@ -297,18 +416,11 @@ class _RecurrentBackend:
             y, _, nc = model._forward(model.params_, model.state_, x[:, None, :],
                                       carries=self._carries)
             logits = _logits(y[:, -1, :])
-        nxt, nkeys = sample_next_rows(
-            logits, torch.from_numpy(np.asarray(temperature, np.float32)).to(dev),
-            torch.from_numpy(np.asarray(top_k, np.int64)).to(dev),
-            torch.from_numpy(np.asarray(top_p, np.float32)).to(dev), keys_t)
-        nxt = torch.where(act, nxt.to(torch.int64), toks)
-        nkeys = torch.where(act[:, None], nkeys, keys_t)
         self._carries = [
             None if old is None else tree_map(
                 lambda a, b: torch.where(act[:, None], a.to(b.dtype), b), new, old)
             for new, old in zip(nc, self._carries)]
-        out = torch.cat([nxt[:, None], nkeys], dim=1).cpu().numpy()
-        return out[:, 0].astype(np.int32), out[:, 1:]
+        return _sample_rows(logits, toks, act, temperature, top_k, top_p, keys_t)
 
     def window_check(self, prompt_len: int, max_new: int) -> None:
         from deeplearning4j_tpu_torch.models.transformer_lm import ContextWindowExceeded
@@ -318,16 +430,14 @@ class _RecurrentBackend:
 
 
 def _is_transformer_lm(model) -> bool:
-    return any(k.__name__ == "TransformerLM" for k in type(model).__mro__)
+    from deeplearning4j_tpu_torch.models.transformer_lm import TransformerLM
+
+    return isinstance(model, TransformerLM)
 
 
-_NO_TRANSFORMER = ("TransformerLM generation (the KV-cache backend) is not ported "
-                   "yet (ROADMAP § A, slice 6)")
-
-
-def _pick_backend(model, n_slots, max_length, prefill_buckets) -> _RecurrentBackend:
+def _pick_backend(model, n_slots, max_length, prefill_buckets):
     if _is_transformer_lm(model):
-        raise GenerationNotPortedError(_NO_TRANSFORMER)
+        return _TransformerBackend(model, n_slots, max_length, prefill_buckets)
     from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
 
     layers = getattr(model, "layers", None)
@@ -335,21 +445,32 @@ def _pick_backend(model, n_slots, max_length, prefill_buckets) -> _RecurrentBack
         return _RecurrentBackend(model, n_slots, max_length, prefill_buckets)
     raise TypeError(
         f"{type(model).__name__} has no incremental-decode path: expected a "
-        "MultiLayerNetwork with recurrent layers (carried h/c state)")
+        "TransformerLM (KV-cache slab) or a MultiLayerNetwork with recurrent layers "
+        "(carried h/c state)")
 
 
 def generation_memory_report(model, n_slots: int, max_length: Optional[int] = None) -> dict:
-    """Whether the decode state fits, before it is allocated: for a
-    recurrent network the layer-wise estimate (``nn/conf/memory.py``) of the
-    params and of the per-slot activation state at ``n_slots`` rows."""
+    """Whether the decode state fits, before it is allocated: a
+    TransformerLM's K/V slab (2 L n_slots heads T head_dim, 2 bytes each
+    under bf16 compute, else 4) and its params; for a recurrent network the
+    layer-wise estimate (``nn/conf/memory.py``) of the params and of the
+    per-slot activation state at ``n_slots`` rows."""
     if _is_transformer_lm(model):
-        raise GenerationNotPortedError(_NO_TRANSFORMER)
-    from deeplearning4j_tpu_torch.nn.conf.memory import memory_report_mln
+        cfg = model.cfg
+        T = cfg.max_length if max_length is None else min(int(max_length), cfg.max_length)
+        itemsize = 2 if cfg.compute_dtype == "bfloat16" else 4
+        cache = 2 * cfg.n_layers * int(n_slots) * cfg.n_heads * T \
+            * (cfg.d_model // cfg.n_heads) * itemsize
+        from deeplearning4j_tpu_torch.models.transformer_lm import _leaves
 
-    report = memory_report_mln(model.conf)
-    params = report.total_params * 4
-    cache = max(report.total_memory_bytes(batch_size=int(n_slots), training=False)
-                - params, 0)
+        params = sum(t.numel() * t.element_size() for t in _leaves(model.params_))
+    else:
+        from deeplearning4j_tpu_torch.nn.conf.memory import memory_report_mln
+
+        report = memory_report_mln(model.conf)
+        params = report.total_params * 4
+        cache = max(report.total_memory_bytes(batch_size=int(n_slots), training=False)
+                    - params, 0)
     return {"cache_bytes": int(cache), "param_bytes": int(params),
             "total_bytes": int(cache) + int(params), "n_slots": int(n_slots),
             "max_length": max_length}
@@ -431,6 +552,8 @@ class GenerationEngine:
         self._slots: List[Optional[GenerationRequest]] = [None] * S
         self._active = np.zeros((S,), bool)
         self._tokens = np.zeros((S,), np.int32)
+        #: each slot's position: its next token's index in the sequence
+        self._pos = np.zeros((S,), np.int64)
         self._temp = np.zeros((S,), np.float32)
         self._topk = np.zeros((S,), np.int64)
         self._topp = np.zeros((S,), np.float32)
@@ -537,8 +660,8 @@ class GenerationEngine:
                 # a tb-long prompt fills bucket tb (no decode follows, so the
                 # window check does not apply)
                 self.backend.prefill(0, np.zeros((tb,), np.int32), 0.0, 0, 0.0, key)
-            self.backend.decode(self._tokens, np.zeros_like(self._active), self._temp,
-                                self._topk, self._topp, self._keys)
+            self.backend.decode(self._tokens, self._pos, np.zeros_like(self._active),
+                                self._temp, self._topk, self._topp, self._keys)
         return {"buckets": list(self.backend.buckets),
                 "seconds": round(time.perf_counter() - t0, 3)}
 
@@ -576,6 +699,7 @@ class GenerationEngine:
             req.slot = slot
             self._active[slot] = True
             self._tokens[slot] = tok0
+            self._pos[slot] = req.prompt.size
             self._temp[slot] = req.temperature
             self._topk[slot] = req.top_k
             self._topp[slot] = req.top_p
@@ -643,8 +767,8 @@ class GenerationEngine:
         gen = self._dispatch_gen
         self._dispatch_t0 = t0
         try:
-            toks, keys = self.backend.decode(self._tokens, self._active, self._temp,
-                                             self._topk, self._topp, self._keys)
+            toks, keys = self.backend.decode(self._tokens, self._pos, self._active,
+                                             self._temp, self._topk, self._topp, self._keys)
         except Exception as e:  # noqa: BLE001 — fail the active requests typed, keep the worker
             self._dispatch_t0 = None
             self._stall_tripped = False
@@ -670,6 +794,7 @@ class GenerationEngine:
         self.metrics.record_decode_step(dt, n_active)
         self._tokens = np.array(toks, np.int32)
         self._keys = np.array(keys, np.int64)
+        self._pos[self._active] += 1
         now = time.monotonic()
         for slot in range(self.n_slots):
             if not self._active[slot]:

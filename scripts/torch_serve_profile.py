@@ -7,6 +7,8 @@ Run from the repository root on a CUDA card::
     python3 scripts/torch_serve_profile.py --model vgg16 --int8 # VGG16, int8 heads
     python3 scripts/torch_serve_profile.py --model vgg16        # VGG16, f32 heads
     python3 scripts/torch_serve_profile.py --model textgenlstm --generate
+    python3 scripts/torch_serve_profile.py --model transformerlm --generate
+    python3 scripts/torch_serve_profile.py --model transformerlm   # /predict
 
 Builds the same model as ``chip_smoke.py``: for ``resnet50`` its serve
 phase's (full-width bf16 ResNet-50, 1000 classes, 224x224, fused
@@ -15,11 +17,15 @@ phase 5's (full-width f32 VGG16, 1000 classes, 224x224x3, seeded, the
 output layer's W scaled to spread the softmax; ``--int8`` serves the three
 dense heads through the int8 kernel), for ``textgenlstm --generate`` its
 phase 7's (full-width TextGenerationLSTM, 77 characters, two
-GravesLSTM(256), seeded, in a 32-slot GenerationEngine). It warms the engine
-up, then profiles requests of 32 rows and of 1 row with ``torch.profiler``
-(CPU + CUDA activities); with ``--generate``, one decode step with all 32
-slots active (half greedy, half sampled) and one prefill at each prefill
-bucket. It prints, per request size (or step): host milliseconds per call,
+GravesLSTM(256), seeded, in a 32-slot GenerationEngine), for
+``transformerlm`` its phase 8's (GPT-2 small's shape, 32,000 tokens, bf16,
+seeded, the head scaled; ``--generate`` in a 32-slot GenerationEngine, else
+in an InferenceEngine answering token ids). It warms the engine up, then
+profiles requests of 32 rows and of 1 row (transformerlm: 2 rows of 1024
+tokens and 1 row of 100) with ``torch.profiler`` (CPU + CUDA activities);
+with ``--generate``, one decode step with all 32 slots active (half greedy,
+half sampled; a TransformerLM's slots at position 512 of the window) and
+one prefill at each prefill bucket. It prints, per request size (or step): host milliseconds per call,
 device busy milliseconds (the sum of device kernel and copy time), the
 device's idle share, device ops per request, the device time by group
 (the port's kernels, convolutions, copies, the rest; groups are read from
@@ -54,8 +60,10 @@ def _device_time_us(evt) -> float:
 
 # device-time groups, by kernel name (first match wins): cuDNN's kernels
 # carry "cudnn" or an FFT/layout-transform name (its FFT path runs a complex
-# GEMM, "gemm_cf32"); cuBLAS's f32 GEMM/GEMV come after them
+# GEMM, "gemm_cf32"); cuBLAS's GEMM/GEMV come after them (its bf16 kernels
+# are named "nvjet_*" or "cutlass*")
 GROUPS = (
+    ("flash-attention kernels", ("flash_fwd_kernel",)),
     ("fused LSTM cell kernels", ("lstm_cell_kernel",)),
     ("int8_matmul kernels", ("int8_partial_kernel", "int8_reduce_kernel")),
     ("fused conv kernels", ("fused_conv_fwd_kernel", "conv_bwd_dx_kernel",
@@ -64,7 +72,9 @@ GROUPS = (
     ("convolutions (cuDNN)", ("cudnn", "convolve", "fft", "flip_filter",
                               "mult_and_sum_complex", "nchwtonhwc", "nhwctonchw",
                               "gemm_cf32", "winograd", "dgrad", "wgrad")),
-    ("matmuls (cuBLAS)", ("gemm", "gemv")),
+    ("matmuls (cuBLAS)", ("gemm", "gemv", "nvjet", "cutlass")),
+    ("sorts (the sampler)", ("radixsort", "sort")),
+    ("reductions (norms, softmax sums, argmax)", ("reduce_kernel",)),
 )
 
 
@@ -126,71 +136,114 @@ def build_engine(model_name: str, int8: bool):
     return InferenceEngine(model, buckets=[1, 8, 32], int8_serving=int8), x
 
 
-def generation_calls():
-    """The phase-7 generation engine's backend, and the calls to profile:
-    one decode step with every slot active (even slots greedy, odd slots
-    sampled as phase 7 samples) and one prefill per bucket."""
-    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+def _decode_inputs(rng, S, vocab):
+    """Every slot active, even slots greedy and odd slots sampled as
+    ``chip_smoke.py`` samples."""
+    cs = chip_smoke
+    sampled = np.arange(S) % 2 == 1
+    return dict(
+        tokens=rng.integers(0, vocab, S).astype(np.int32),
+        temperature=np.where(sampled, cs.SAMPLED["temperature"], 0.0).astype(np.float32),
+        top_k=np.where(sampled, cs.SAMPLED["top_k"], 0).astype(np.int64),
+        top_p=np.where(sampled, cs.SAMPLED["top_p"], 0.0).astype(np.float32),
+        keys=np.stack([np.arange(S), np.zeros(S)], 1).astype(np.int64),
+        active=np.ones(S, bool))
+
+
+def generation_calls(model_name: str):
+    """The generation engine of phase 7 (textgenlstm) or phase 8
+    (transformerlm), warmed up, and the calls to profile: one decode step
+    with every slot active and one prefill per bucket."""
     from deeplearning4j_tpu_torch.serving.generate import GenerationEngine
 
     cs = chip_smoke
-    model = TextGenerationLSTM(num_classes=cs.TEXTGEN_VOCAB, units=cs.LSTM_UNITS,
-                               seed=cs.SEED).init()
-    cs.randomize_lstm(model, cs.SEED)
-    rng = np.random.default_rng(cs.SEED + 21)
-    cs.spread_softmax(model, np.eye(cs.TEXTGEN_VOCAB, dtype=np.float32)[
-        rng.integers(0, cs.TEXTGEN_VOCAB, (16, 32))])
-    engine = GenerationEngine(model, n_slots=cs.GEN_SLOTS, max_length=cs.GEN_MAX_LENGTH,
-                              prefill_buckets=cs.GEN_BUCKETS)
+    if model_name == "textgenlstm":
+        from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+
+        model = TextGenerationLSTM(num_classes=cs.TEXTGEN_VOCAB, units=cs.LSTM_UNITS,
+                                   seed=cs.SEED).init()
+        cs.randomize_lstm(model, cs.SEED)
+        rng = np.random.default_rng(cs.SEED + 21)
+        cs.spread_softmax(model, np.eye(cs.TEXTGEN_VOCAB, dtype=np.float32)[
+            rng.integers(0, cs.TEXTGEN_VOCAB, (16, 32))])
+        vocab, slots = cs.TEXTGEN_VOCAB, cs.GEN_SLOTS
+        engine = GenerationEngine(model, n_slots=slots, max_length=cs.GEN_MAX_LENGTH,
+                                  prefill_buckets=cs.GEN_BUCKETS)
+        pos = np.zeros(slots, np.int64)
+    else:
+        model, rng = transformer_model()
+        vocab, slots = model.cfg.vocab_size, cs.LM_SLOTS
+        engine = GenerationEngine(model, n_slots=slots, max_length=model.cfg.max_length,
+                                  prefill_buckets=cs.LM_BUCKETS)
+        pos = np.full(slots, 512, np.int64)
     engine.warmup()
-    backend, S = engine.backend, cs.GEN_SLOTS
-    sampled = np.arange(S) % 2 == 1
-    tokens = rng.integers(0, cs.TEXTGEN_VOCAB, S).astype(np.int32)
-    temp = np.where(sampled, cs.SAMPLED["temperature"], 0.0).astype(np.float32)
-    top_k = np.where(sampled, cs.SAMPLED["top_k"], 0).astype(np.int64)
-    top_p = np.where(sampled, cs.SAMPLED["top_p"], 0.0).astype(np.float32)
-    keys = np.stack([np.arange(S), np.zeros(S)], 1).astype(np.int64)
-    active = np.ones(S, bool)
+    backend = engine.backend
+    d = _decode_inputs(rng, slots, vocab)
 
     def decode():
         with torch.inference_mode():
-            backend.decode(tokens, active, temp, top_k, top_p, keys)
+            backend.decode(d["tokens"], pos, d["active"], d["temperature"], d["top_k"],
+                           d["top_p"], d["keys"])
 
     def prefill(tb):
-        prompt = rng.integers(0, cs.TEXTGEN_VOCAB, tb).astype(np.int32)
+        prompt = rng.integers(0, vocab, tb).astype(np.int32)
 
         def run():
             with torch.inference_mode():
                 backend.prefill(0, prompt, 0.0, 0, 0.0, np.zeros(2, np.int64))
         return run
 
-    calls = [("decode step, 32 slots", decode, 50)]
+    calls = [(f"decode step, {slots} slots", decode, 50)]
     calls += [(f"prefill bucket {tb}", prefill(tb), 5) for tb in backend.buckets]
     return engine, calls
 
 
+def transformer_model():
+    """Phase 8's TransformerLM (seeded, head scaled) and its rng."""
+    from deeplearning4j_tpu_torch.models import transformer_lm as tlm
+
+    cs = chip_smoke
+    model = tlm.TransformerLM(seed=cs.SEED, **cs.LM_CONF).init()
+    rng = np.random.default_rng(cs.SEED + 41)
+    ids = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (2, 256))).cuda()
+    cs.lm_spread_softmax(tlm, model, ids)
+    return model, rng
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("resnet50", "vgg16", "textgenlstm"),
+    ap.add_argument("--model", choices=("resnet50", "vgg16", "textgenlstm", "transformerlm"),
                     default="resnet50")
     ap.add_argument("--int8", action="store_true",
                     help="serve the dense heads through the int8 kernel (vgg16)")
     ap.add_argument("--generate", action="store_true",
                     help="profile the generation engine's decode steps and prefills "
-                         "(textgenlstm)")
+                         "(textgenlstm, transformerlm)")
     args = ap.parse_args()
     if args.int8 and args.model != "vgg16":
         ap.error("--int8 serves a MultiLayerNetwork's heads: use --model vgg16")
-    if args.generate != (args.model == "textgenlstm"):
-        ap.error("--generate goes with --model textgenlstm, and textgenlstm with --generate")
+    if args.generate and args.model not in ("textgenlstm", "transformerlm"):
+        ap.error("--generate goes with --model textgenlstm or transformerlm")
+    if args.model == "textgenlstm" and not args.generate:
+        ap.error("--model textgenlstm goes with --generate")
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 2
 
     card = chip_smoke.smi_line()
     if args.generate:
-        engine, calls = generation_calls()
-        tag = "textgenlstm_generate"
+        engine, calls = generation_calls(args.model)
+        tag = f"{args.model}_generate"
+    elif args.model == "transformerlm":
+        from deeplearning4j_tpu_torch.serving import InferenceEngine
+
+        model, rng = transformer_model()
+        engine = InferenceEngine(model, buckets=[1, 2])
+        engine.warmup(example_shape=(1024,))
+        ids = rng.integers(0, model.cfg.vocab_size, (2, 1024))
+        tag = args.model
+        calls = [("rows 2 x 1024 tokens", lambda: engine.infer(ids), 10),
+                 ("rows 1 x 100 tokens", lambda: engine.infer(ids[:1, :100]), 20)]
     else:
         engine, x = build_engine(args.model, args.int8)
         engine.warmup()

@@ -15,7 +15,10 @@ output and one for the scale. The LSTM cell against the plain version run in
 f32 on its operands widened exactly and rounded once to the kernel's output
 dtype: f32 outputs within the reference probe's 1e-5, bf16 outputs within one
 bf16 step of ``|ref|`` plus 2e-5 (``_lstm_tol``); a row's bits do not depend
-on its batch.
+on its batch. The flash-attention forward against the plain version run in
+f32 on its operands widened exactly: f32 ``o`` and ``lse`` within 1e-5; bf16
+``o`` within ``2^-8 (P @ |v|) + 2^-8 |o_ref| + 1e-5`` per element (the
+rounding of ``p`` and of ``o``, ``_flash_tol``), ``lse`` within 1e-5.
 """
 
 import copy
@@ -30,6 +33,7 @@ from deeplearning4j_tpu_torch.data import DataSet
 from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
 from deeplearning4j_tpu_torch.nn.ops import int8_matmul as im
 from deeplearning4j_tpu_torch.serving import InferenceEngine
@@ -487,3 +491,151 @@ def test_textgen_forward_and_generation_on_the_card(card):
     finally:
         gen.shutdown()
         solo.shutdown()
+
+
+# ------------------------------------------------------------ flash attention
+def _qkv(b, h, T, hd, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, h, T, hd, generator=g).to(dtype).cuda() for _ in range(3)]
+
+
+def _flash_tol(q, k, v, causal, scale, seg):
+    """Per-element limit of |o_kernel - o_ref| (o_ref: the plain version in
+    f32 on the widened operands): f32 1e-5; bf16 one rounding of p (2^-9 of
+    P @ |v|) and one of o (2^-9 |o|), each allowed twice, plus 1e-5."""
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    o_ref, lse_ref = fa.flash_attention_plain(q32, k32, v32, causal, scale, seg)
+    if q.dtype == torch.float32:
+        return o_ref, lse_ref, torch.full_like(o_ref, 1e-5)
+    p_ref = torch.softmax(fa.masked_scores(q32, k32, causal, scale, seg), -1)
+    tol = 2.0 ** -8 * (p_ref @ v32.abs()) + 2.0 ** -8 * o_ref.abs() + 1e-5
+    return o_ref, lse_ref, tol
+
+
+FLASH_CASES = [  # (b, h, T, hd, causal, dtype, segmented)
+    (1, 12, 128, 64, True, torch.bfloat16, False),
+    (1, 12, 256, 64, True, torch.bfloat16, False),
+    (1, 12, 1024, 64, True, torch.bfloat16, False),
+    (2, 12, 1024, 64, True, torch.bfloat16, False),
+    (2, 4, 256, 64, False, torch.bfloat16, False),
+    (2, 4, 384, 64, True, torch.bfloat16, True),
+    (1, 3, 256, 32, True, torch.bfloat16, False),
+    (1, 3, 256, 40, False, torch.bfloat16, True),
+    (1, 2, 128, 128, True, torch.bfloat16, False),
+    (1, 3, 256, 64, True, torch.float32, False),
+    (2, 2, 128, 40, False, torch.float32, True),
+]
+
+
+@pytest.mark.parametrize("b,h,T,hd,causal,dtype,segmented", FLASH_CASES)
+def test_flash_kernel_matches_plain(card, b, h, T, hd, causal, dtype, segmented):
+    q, k, v = _qkv(b, h, T, hd, dtype, seed=T + hd)
+    seg = None
+    if segmented:  # three packed sequences, cuts off the 64-row tiles
+        seg = torch.zeros(b, T, dtype=torch.int32)
+        seg[:, T // 3:] = 1
+        seg[:, T // 3 + 77:] = 2
+        seg = seg.cuda()
+    scale = hd ** -0.5
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, seg)
+    torch.cuda.synchronize()
+    assert dict(fa.launch_counts) == {"flash_attention_fwd": 1}
+    o_ref, lse_ref, tol = _flash_tol(q, k, v, causal, scale, seg)
+    assert o.dtype == dtype and o.shape == (b, h, T, hd) and lse.shape == (b * h, T)
+    err = (o.float() - o_ref).abs()
+    assert bool((err <= tol).all()), f"max err/tol {float((err / tol).max())}"
+    assert float((lse - lse_ref).abs().max()) <= 1e-5
+    if causal:  # the limit would catch a lost mask
+        o_nc = fa.flash_attention_plain(q.float(), k.float(), v.float(), False, scale, seg)[0]
+        assert float(((o_nc - o_ref).abs() / tol).max()) > 10
+
+
+def test_flash_kernel_takes_strided_heads_and_runs_bit_identical(card):
+    """q, k, v as the model makes them (a transpose of (b, T, h, hd)); rows
+    do not depend on the batch or the run."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 256, 3, 12, 64, generator=g).bfloat16().cuda()
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous()
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
+        o2, lse2 = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                          True, 0.125)
+        o1, _ = fa.flash_attention_fwd(q[1:], k[1:], v[1:], True, 0.125)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(o[1:], o1)
+    # o is a (b, h, T, hd) view of (b, T, h, hd): merging heads is free
+    assert o.transpose(1, 2).is_contiguous()
+
+
+def test_flash_kernel_refusals(card):
+    q, k, v = _qkv(1, 2, 128, 64, torch.bfloat16, seed=1)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.half(), k.half(), v.half(), True, 0.125)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q, k.float(), v, True, 0.125)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q[:, :, :100], k[:, :, :100], v[:, :, :100], True, 0.125)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, k[:, :, :64], v, True, 0.125)
+    with pytest.raises(ValueError, match="unit-stride"):
+        fa.flash_attention_fwd(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3),
+                               True, 0.125)
+    big = torch.zeros(1, 1, 128, 129, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(big, big, big, True, 0.1)
+    with pytest.raises(ValueError, match="segment"):
+        fa.flash_attention_fwd(q, k, v, True, 0.125,
+                               torch.zeros(1, 128, dtype=torch.int64, device="cuda"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.flash_attention_fwd(q.requires_grad_(), k, v, True, 0.125)
+
+
+def test_transformer_forward_prefill_and_decode_on_the_card(card):
+    """A narrow bf16 TransformerLM: a forward at T 256 launches one flash
+    kernel per layer, a prefill at a bucket >= 128 too, below 128 none, a
+    decode step none; the kernel route agrees with plain attention; the
+    engine's greedy tokens equal generate_cached's where decided."""
+    from deeplearning4j_tpu_torch.models import transformer_lm as tlm
+    from deeplearning4j_tpu_torch.serving.generate import GenerationEngine
+
+    model = tlm.TransformerLM(vocab_size=128, d_model=64, n_heads=2, n_layers=3,
+                              max_length=512, compute_dtype="bfloat16").init()
+    with torch.no_grad():
+        model.params_["head"].mul_(4.0)
+    cfg, params = model.cfg, model.compute_params()
+    ids = torch.randint(0, 128, (2, 256), generator=torch.Generator().manual_seed(1)).cuda()
+
+    def plain(q, k, v, *, causal, mask=None):
+        return fa.flash_attention_plain(q, k, v, causal, q.shape[-1] ** -0.5)[0]
+
+    with torch.inference_mode():
+        fa.reset_launch_counts()
+        y = tlm.forward(cfg, params, ids)
+        assert dict(fa.launch_counts) == {"flash_attention_fwd": 3}
+        yp = tlm.forward(cfg, params, ids, attn_fn=plain)
+        d = float((y - yp).abs().max())
+        gap = torch.topk(yp, 2, -1).values
+        decided = gap[..., 0] - gap[..., 1] > 2 * d
+        assert bool((y.argmax(-1) == yp.argmax(-1))[decided].all()) and d < 0.5
+        for length, want in ((100, 3), (129, 3), (40, 0)):
+            tb = next(t for t in model.prefill_buckets() if t >= length)
+            padded = torch.zeros(1, tb, dtype=torch.long, device="cuda")
+            padded[0, :length] = ids[0, :length]
+            fa.reset_launch_counts()
+            lg, cache = tlm.prefill_cache(cfg, params, tlm.init_decode_cache(cfg, 1, device="cuda"),
+                                          padded, length=length)
+            assert fa.launch_counts[fa.OP] == want
+            assert float((lg[0] - y[0, length - 1]).abs().max()) <= 2 * d + 0.05
+        fa.reset_launch_counts()
+        tlm.decode_step(cfg, params, cache, ids[0, 40:41])
+        assert fa.launch_counts[fa.OP] == 0
+    gen = GenerationEngine(model, n_slots=4)
+    try:
+        prompts = [ids[0, :n].cpu().numpy() for n in (5, 130, 300)]
+        outs = [r.result(120) for r in [gen.submit(p, max_new=8) for p in prompts]]
+    finally:
+        gen.shutdown()
+    for p, o in zip(prompts, outs):
+        assert o.shape == (len(p) + 8,) and o.min() >= 0 and o.max() < 128

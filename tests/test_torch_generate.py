@@ -329,7 +329,12 @@ def test_unsupported_models_and_features_are_refused(nets):
     _, lenet = pair("lenet")
     with pytest.raises(TypeError, match="incremental-decode"):
         GenerationEngine(lenet, n_slots=1)
+    # a TransformerLM decodes through the KV-cache backend
+    # (test_torch_generate_transformer.py); its MoE form is not ported
     with pytest.raises(GenerationNotPortedError, match="ROADMAP"):
+        GenerationEngine(tlm.TransformerLM(vocab_size=16, d_model=16, n_heads=2, n_layers=1,
+                                           n_experts=2), n_slots=1)
+    with pytest.raises(TypeError, match="incremental-decode"):  # the reference's model
         GenerationEngine(jlm.TransformerLM(vocab_size=16, d_model=16, n_heads=2, n_layers=1),
                          n_slots=1)
     with pytest.raises(GenerationNotPortedError, match="ROADMAP"):
