@@ -34,8 +34,16 @@ tokens): the flash launches read around every prefill and decode step, a
 teacher-forced comparison with plain attention on the card, prefill and
 decode against the forward, ``generate_cached`` and a solo engine against
 the storm, tokens/s; then ``/predict`` through an ``InferenceEngine``;
-phase 6 adds ``POST /generate`` and ``/predict`` to it. Each phase prints
-one or more lines;
+phase 6 adds ``POST /generate`` and ``/predict`` to it. Phase 2f holds the
+flash-attention backward kernels (dq, dkv) against their plain version at the
+train shapes (b 16 x T 512, b 4 x T 2048) and beside them, with two runs
+bit-identical. Phase 9 trains a full-width TransformerLM (bench.py's train
+config: GPT-2 small's shape, 32,000 tokens, bf16, Adam(3e-4), 16 x 512;
+seeded) through ``fit_batch``: one step's gradients against the plain path
+on the card, dense and packed (two documents per row), exactly 12 forward,
+12 dq and 12 dkv launches per step, ten steps whose loss falls, train
+tokens/s at 16 x 512 and 4 x 2048, and logits after training against the
+uncached forward. Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
 prints them), and
@@ -94,6 +102,10 @@ KERNELS = {
     "fused_lstm_cell": (f"{CSRC}/fused_lstm.cu", "deeplearning4j_tpu/nn/ops/fused_lstm.py:93"),
     "flash_attention_fwd": (f"{CSRC}/flash_attention.cu",
                             "deeplearning4j_tpu/nn/ops/flash_attention.py:79"),
+    "flash_attention_dq": (f"{CSRC}/flash_attention_bwd.cu",
+                           "deeplearning4j_tpu/nn/ops/flash_attention.py:125"),
+    "flash_attention_dkv": (f"{CSRC}/flash_attention_bwd.cu",
+                            "deeplearning4j_tpu/nn/ops/flash_attention.py:166"),
 }
 # VGG16 (1000 classes, 224x224x3): the three dense heads (K, N), the layer
 # index of the first one, and the int8 report the engine must give
@@ -640,6 +652,41 @@ STEP_LAUNCHES = {"pw_conv": 36, "conv3x3": 16, "pw_conv_dx": 36, "pw_conv_dw": 3
                  "conv3x3_dx": 16, "conv3x3_dw": 16}
 
 
+def _flat(tree, prefix=""):
+    """(``a/b/c`` name, leaf) for every leaf of a nested dict."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flat(val, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def _quantiles(d):
+    """median, p90, max, and the three largest"""
+    top = sorted(d.items(), key=lambda kv: -kv[1])[:3]
+    return ([round(float(v), 4) for v in np.quantile(list(d.values()), [0.5, 0.9, 1.0])]
+            + [(n, round(v, 4)) for n, v in top])
+
+
+def grad_agreement(gk, gp, g32):
+    """The gradient rule of phases 4 and 9 over flat {name: gradient} dicts
+    (k kernel path, p plain path, f32 the plain path in f32) -> (ok, the
+    three ratios by name): every gradient of the kernel path finite; per
+    tensor ||g_k - g_p|| <= max(GRAD_REL_TOL ||g_p||, GRAD_NOISE_FACTOR
+    ||g_p - g_f32||); over the tensors the median of ||g_k - g_f32|| /
+    ||g_p - g_f32|| <= GRAD_F32_MEDIAN."""
+    rels, ratios, to_f32, finite = {}, {}, {}, True
+    for name in gp:
+        a, b, c = gk[name].float(), gp[name].float(), g32[name].float()
+        finite = finite and bool(torch.isfinite(a).all())
+        rels[name] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        ratios[name] = float((a - b).norm() / (b - c).norm().clamp_min(1e-30))
+        to_f32[name] = float((a - c).norm() / (b - c).norm().clamp_min(1e-30))
+    ok = finite and all(rels[n] <= GRAD_REL_TOL or ratios[n] <= GRAD_NOISE_FACTOR for n in rels)
+    ok = ok and float(np.median(list(to_f32.values()))) <= GRAD_F32_MEDIAN
+    return ok, rels, ratios, to_f32
+
+
 def _finite(model) -> bool:
     return all(bool(torch.isfinite(p).all())
                for d in model.params_.values() for p in d.values())
@@ -676,27 +723,11 @@ def train_phase(fc, card: str):
     f32_conf = copy.deepcopy(plain.conf)
     f32_conf.global_conf.compute_dtype = None
     g32, score32 = twin(model, f32_conf).compute_gradient_and_score(ds)
-    rels, ratios, to_f32, grads_finite = {}, {}, {}, True
-    for v in ref:
-        for k in ref[v]:
-            a, b, c = grads[v][k].float(), ref[v][k].float(), g32[v][k]
-            grads_finite = grads_finite and bool(torch.isfinite(a).all())
-            name = f"{v}/{k}"
-            rels[name] = float((a - b).norm() / b.norm().clamp_min(1e-30))
-            ratios[name] = float((a - b).norm() / (b - c).norm().clamp_min(1e-30))
-            to_f32[name] = float((a - c).norm() / (b - c).norm().clamp_min(1e-30))
+    grads_ok, rels, ratios, to_f32 = grad_agreement(*(dict(_flat(g)) for g in (grads, ref, g32)))
     del grads, ref, g32
     score_rel = abs(score - ref_score) / abs(ref_score)
-    grads_ok = grads_finite and score_rel <= 1e-3 and all(
-        rels[n] <= GRAD_REL_TOL or ratios[n] <= GRAD_NOISE_FACTOR for n in rels)
-    grads_ok = grads_ok and float(np.median(list(to_f32.values()))) <= GRAD_F32_MEDIAN
-
-    def q(d):
-        """median, p90, max, and the three largest"""
-        top = sorted(d.items(), key=lambda kv: -kv[1])[:3]
-        return ([round(float(v), 4) for v in np.quantile(list(d.values()), [0.5, 0.9, 1.0])]
-                + [(n, round(v, 4)) for n, v in top])
-
+    grads_ok = grads_ok and score_rel <= 1e-3
+    q = _quantiles
     print(f"phase 4 gradients: ResNet-50 1000 classes 224x224 bf16 fused, batch {BATCH}, "
           f"init {init_s:.1f}s; over {len(rels)} tensors (k kernel path, p plain path, "
           f"f32 plain path in f32): ||g_k - g_p|| / ||g_p|| {q(rels)}; "
@@ -1918,6 +1949,429 @@ def lm_entry_points(pe, gen, prompts, outs):
     return {"generate_equals_submit": same, "predict_max_abs_diff": dp}
 
 
+# ---------------------------------------------------------------------------
+# the flash-attention backward (phase 2f) and TransformerLM training (phase 9)
+# ---------------------------------------------------------------------------
+# (b, h, T, hd, causal, dtype, segmented): the train step's shape (b 16, T
+# 512) and its long-context variant (b 4, T 2048), T 128 and 1024,
+# non-causal, segment ids cut off the 64-row tiles, head dims 32, 128 and a
+# ragged 40, and f32 at two shapes; the first two are timed
+FLASH_BWD_CASES = [(16, LM_HEADS, 512, LM_HD, True, BF16, False),
+                   (4, LM_HEADS, 2048, LM_HD, True, BF16, False),
+                   (2, LM_HEADS, 128, LM_HD, True, BF16, False),
+                   (2, LM_HEADS, 1024, LM_HD, True, BF16, False),
+                   (2, LM_HEADS, 512, LM_HD, False, BF16, False),
+                   (2, LM_HEADS, 512, LM_HD, True, BF16, True),
+                   (1, 4, 256, 32, True, BF16, False), (1, 4, 256, 128, True, BF16, False),
+                   (1, 4, 256, 40, True, BF16, True),
+                   (1, LM_HEADS, 256, LM_HD, True, F32, False),
+                   (2, 4, 512, 40, False, F32, True)]
+FLASH_BWD_TIMED = 2
+# the JAX probe's gradient limits (8 x its forward's 2e-4 f32 and 2e-2 bf16,
+# deeplearning4j_tpu/nn/conf/layers/attention.py:123,136-139): no per-element
+# limit of phase 2f is looser
+FLASH_BWD_CAP = {F32: 8 * 2e-4, BF16: 8 * 2e-2}
+WARM_CALLS = 10
+
+
+def warmed_ms(fn):
+    """(ms, warm-up ms): WARM_CALLS calls each timed by CUDA events, then
+    :func:`time_ms` (its own warm-up included)."""
+    warm = []
+    for _ in range(WARM_CALLS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        warm.append(a.elapsed_time(b))
+    return time_ms(fn), warm
+
+
+def flash_bwd_oracle(fa, q, k, v, o, lse, do, causal, scale, seg):
+    """(dq, dk, dv) of the plain backward in f32 on the exactly widened
+    operands, and per-element limits: FLASH_F32_TOL x (1 + the sum of the
+    terms' magnitudes) for the f32 summation order; bf16 adds one rounding
+    of ds (dq, dk) or of p (dv), 2^-8 of the terms' magnitudes, and one of
+    the output, 2^-8 |ref| (each allowed twice); every limit capped at
+    FLASH_BWD_CAP."""
+    q32, k32, v32, o32, do32 = (t.float() for t in (q, k, v, o, do))
+    ref = fa.flash_attention_bwd_plain(q32, k32, v32, o32, lse, do32, causal, scale, seg)
+    b, h, t_len, _ = q.shape
+    p = torch.exp(fa.masked_scores(q32, k32, causal, scale, seg) - lse.reshape(b, h, t_len, 1))
+    ds = p * (do32 @ v32.transpose(-1, -2)
+              - fa.row_dot(o32, do32).reshape(b, h, t_len, 1)) * scale
+    terms = (ds.abs() @ k32.abs(), ds.abs().transpose(-1, -2) @ q32.abs(),
+             p.transpose(-1, -2) @ do32.abs())
+    del p, ds
+    tols = []
+    for r, m in zip(ref, terms):
+        tol = FLASH_F32_TOL * (1 + m)
+        if q.dtype == BF16:
+            tol = tol + 2.0 ** -8 * m + 2.0 ** -8 * r.abs()
+        tols.append(tol.clamp_max(FLASH_BWD_CAP[q.dtype]))
+    return ref, tols
+
+
+def flash_bwd_cost(kernel, b, h, t_len, hd, causal, dtype, segmented):
+    """(FLOPs, bytes) of one call: dq 6 T^2 hd and dkv 8 T^2 hd FLOPs per
+    head (the recomputed scores and dp, then one product per output), half
+    of it causal; q, k, v, dO, lse and D read once, the outputs written
+    once, segment ids read."""
+    n_out = 1 if kernel == "dq" else 2
+    flops = (6.0 if kernel == "dq" else 8.0) * t_len * t_len * hd * b * h
+    flops *= 0.5 if causal else 1.0
+    size = 2 if dtype == BF16 else 4
+    nbytes = ((4 + n_out) * t_len * b * h * hd * size + 2 * 4 * t_len * b * h
+              + (4 * b * t_len if segmented else 0))
+    return bound(flops, nbytes, PEAK_BF16_FLOPS if dtype == BF16 else PEAK_F32_FLOPS)
+
+
+def flash_bwd_phase(fa):
+    """Phase 2f: the flash-attention backward kernels against their plain
+    version in f32 on the card at every case, two runs bit-identical, a lost
+    causal mask over the limit; times at the train shapes beside the backward
+    of F.scaled_dot_product_attention (the yardstick only)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    rows = []
+    for n, (b, h, t_len, hd, causal, dtype, segmented) in enumerate(FLASH_BWD_CASES):
+        q, k, v, do = (torch.randn(b, h, t_len, hd, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        seg = flash_segments(b, t_len) if segmented else None
+        scale = hd ** -0.5
+        row = {"b": b, "h": h, "T": t_len, "hd": hd, "causal": causal,
+               "dtype": str(dtype).split(".")[-1], "segmented": segmented}
+        with torch.inference_mode():
+            o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, seg)
+            dcap = fa.row_dot(o, do).contiguous()
+            got = (fa.flash_attention_dq(q, k, v, lse, do, dcap, causal, scale, seg),
+                   *fa.flash_attention_dkv(q, k, v, lse, do, dcap, causal, scale, seg))
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale, seg)
+            torch.cuda.synchronize()
+            ref, tols = flash_bwd_oracle(fa, q, k, v, o, lse, do, causal, scale, seg)
+            lost = fa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o)), lse,
+                                                do.float(), False, scale, seg) if causal else None
+            for i, name in enumerate(("dq", "dk", "dv")):
+                err = (got[i].float() - ref[i]).abs()
+                row[f"{name}_max_abs_err"] = float(err.max())
+                row[f"{name}_err_over_tol"] = float((err / tols[i]).max())
+                row[f"{name}_max_tol"] = float(tols[i].max())
+                if causal:
+                    row[f"{name}_lost_mask_over_tol"] = float(((lost[i] - ref[i]).abs()
+                                                               / tols[i]).max())
+            row["bit_identical"] = all(torch.equal(x, y) for x, y in zip(got, again))
+            row["finite"] = all(bool(torch.isfinite(x.float()).all()) for x in got)
+            row["max_abs_err"] = max(row[f"{n_}_max_abs_err"] for n_ in ("dq", "dk", "dv"))
+            del ref, tols, lost
+        timing = ""
+        if n < FLASH_BWD_TIMED:
+            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal, scale=scale)
+            lib_ms, lib_warm = warmed_ms(lambda: torch.autograd.grad(
+                sdpa, (qr, kr, vr), do, retain_graph=True))
+            del sdpa
+            args = (q, k, v, lse, do, dcap, causal, scale)
+            with torch.inference_mode():
+                for kern, fn, plain in (
+                        ("dq", lambda: fa.flash_attention_dq(*args),
+                         lambda: fa.flash_attention_dq_plain(*args)),
+                        ("dkv", lambda: fa.flash_attention_dkv(*args),
+                         lambda: fa.flash_attention_dkv_plain(*args))):
+                    ms, warm = warmed_ms(fn)
+                    bms, by = flash_bwd_cost(kern, b, h, t_len, hd, causal, dtype, segmented)
+                    row[kern] = {"kernel_ms": ms, "warmup_ms": warm, "plain_ms": time_ms(plain),
+                                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                                 "library_warmup_ms": lib_warm}
+                    timing += (f" {kern}: kernel_ms {ms:.4f} (warm-up calls "
+                               f"{[round(w, 3) for w in warm[:3]]}...) plain_ms "
+                               f"{row[kern]['plain_ms']:.4f} bound_ms {bms:.5f} ({by});")
+            timing += f" library_ms {lib_ms:.4f} (SDPA's whole backward)"
+        rows.append(row)
+        over = max(row[f"{n_}_err_over_tol"] for n_ in ("dq", "dk", "dv"))
+        lost_min = min((row[f"{n_}_lost_mask_over_tol"] for n_ in ("dq", "dk", "dv")),
+                       default=2.0) if causal else 2.0
+        ok = over <= 1 and row["finite"] and row["bit_identical"] and lost_min > 1
+        print(f"phase 2f kernels flash_attention_dq/dkv b {b} h {h} T {t_len} hd {hd} "
+              f"{'causal' if causal else 'full'}{' segments' if segmented else ''} "
+              f"{row['dtype']}: max_abs_err dq {row['dq_max_abs_err']:.3g} dk "
+              f"{row['dk_max_abs_err']:.3g} dv {row['dv_max_abs_err']:.3g} vs the plain version "
+              f"in f32, err/tol {over:.3g} (largest limit "
+              f"{max(row[f'{n_}_max_tol'] for n_ in ('dq', 'dk', 'dv')):.3g}, cap "
+              f"{FLASH_BWD_CAP[dtype]}); bit-identical rerun {row['bit_identical']}"
+              f"{f'; lost-mask diff/tol >= {lost_min:.3g}' if causal else ''};{timing} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"flash backward kernels disagree with the plain version: {row}")
+        del q, k, v, do, o, lse, dcap, got, again
+    summary = {}
+    for kern, op in (("dq", fa.OP_DQ), ("dkv", fa.OP_DKV)):
+        head = rows[0][kern]
+        summary[op] = {key: head[key] for key in ("kernel_ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms")}
+        summary[op]["max_abs_err"] = max(
+            r[f"{n_}_max_abs_err"] for r in rows for n_ in ((kern,) if kern == "dq"
+                                                           else ("dk", "dv")))
+        summary[op]["by_shape"] = [{"b": r["b"], "T": r["T"], **{
+            key: r[kern][key] for key in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")}} for r in rows[:FLASH_BWD_TIMED]]
+    print(f"phase 2f summary (headline: b 16, 12 heads, T 512, causal bf16): {summary}",
+          flush=True)
+    return rows, summary
+
+
+# bench.py's TransformerLM train step (_bench_transformer): GPT-2 small's
+# widths and depth, vocabulary 32,000, bf16, Adam(3e-4), batch 16 x T 512 and
+# the long-context variant 4 x 2048
+LM_TRAIN_CONF = dict(vocab_size=32000, d_model=768, n_heads=12, n_layers=12, max_length=512,
+                     compute_dtype="bfloat16")
+LM_TRAIN_LR = 3e-4
+LM_TRAIN_BATCH, LM_LONG_BATCH = (16, 512), (4, 2048)
+LM_TRAIN_STEPS = 10            # phase 9's main path: fit_batch steps on one batch
+LM_PACKED_STEPS = 3
+LM_TIMED_STEPS = 10
+LM_WARM_STEPS = 3
+
+
+def lm_batch(rng, b, t_len, vocab):
+    """Seeded ids, targets = ids rolled by -1 with the last target -1
+    (bench.py:274-276), on the card."""
+    ids = rng.integers(0, vocab, (b, t_len))
+    tgt = np.roll(ids, -1, axis=1)
+    tgt[:, -1] = -1
+    return torch.from_numpy(ids).cuda(), torch.from_numpy(tgt).cuda()
+
+
+def packed_batch(ids, tgt):
+    """Two documents per row, the cut at 201 + 37 (r mod 8) in row r (off the
+    64-row tiles); the target before each cut is -1, so that no token
+    predicts into the next document (tests/test_flash_kernel.py:218-233)."""
+    b, t_len = ids.shape
+    seg = torch.zeros(b, t_len, dtype=torch.int32, device=ids.device)
+    tgt = tgt.clone()
+    for r in range(b):
+        cut = 201 + 37 * (r % 8)
+        seg[r, cut:] = 1
+        tgt[r, cut - 1] = -1
+    return seg, tgt
+
+
+def plain_flash(fa):
+    """``seg -> attn_fn``: the flash function's plain forward and backward,
+    differentiable, as ``forward``'s ``attn_fn`` (phase 9's plain path)."""
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, seg, causal, scale):
+            o, lse = fa.flash_attention_plain(q, k, v, causal, scale, seg)
+            ctx.save_for_backward(q, k, v, o, lse, seg)
+            ctx.causal, ctx.scale = causal, scale
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse, seg = ctx.saved_tensors
+            return (*fa.flash_attention_bwd_plain(q, k, v, o, lse, do, ctx.causal, ctx.scale,
+                                                  seg), None, None, None)
+
+    def attn_fn(seg=None):
+        def fn(q, k, v, *, causal, mask=None):
+            return PlainFlash.apply(q, k, v, seg, causal, q.shape[-1] ** -0.5)
+        return fn
+
+    return attn_fn
+
+
+def lm_gradients(fa, tlm, model, ids, tgt, seg):
+    """Phase 9 (a): one step's gradients, kernel path (``lm_loss``) against
+    the plain path (``forward`` with the plain flash function) on the same
+    params and batch, and the plain path in f32 as the bf16-noise yardstick;
+    phase 4's rule per tensor."""
+    cfg = model.cfg
+    cfg32 = tlm.TransformerLMConfig.from_dict({**cfg.to_dict(), "compute_dtype": None})
+    plain = plain_flash(fa)(seg)
+
+    def plain_loss(c):
+        return lambda p: tlm.token_nll(tlm.forward(c, p, ids, attn_fn=plain, cast_logits=False),
+                                       tgt)[0]
+
+    fa.reset_launch_counts()
+    lk, gk = tlm.value_and_grad(lambda p: tlm.lm_loss(cfg, p, ids, tgt, segment_ids=seg),
+                                model.params_)
+    launches = dict(fa.launch_counts)
+    fa.reset_launch_counts()
+    lp, gp = tlm.value_and_grad(plain_loss(cfg), model.params_)
+    l32, g32 = tlm.value_and_grad(plain_loss(cfg32), model.params_)
+    plain_launches = sum(fa.launch_counts.values())
+    ok, rels, ratios, to_f32 = grad_agreement(*(dict(_flat(g)) for g in (gk, gp, g32)))
+    lk, lp, l32 = float(lk), float(lp), float(l32)
+    loss_rel = abs(lk - lp) / abs(lp)
+    return {"ok": ok and loss_rel <= 1e-3, "loss": lk, "plain_loss": lp, "f32_loss": l32, "loss_rel": loss_rel,
+            "launches": launches, "plain_launches": plain_launches, "grad_rel_err": rels,
+            "grad_err_over_bf16_noise": ratios, "grad_f32_distance_ratio": to_f32}
+
+
+def lm_fit_steps(fa, model, ids, tgt, steps, seg=None):
+    """``steps`` fit_batch calls, the counts read around each -> (losses,
+    launches per step)."""
+    losses, per_step = [], []
+    for _ in range(steps):
+        before = dict(fa.launch_counts)
+        losses.append(model.fit_batch(ids, tgt, segment_ids=seg))
+        per_step.append({k: fa.launch_counts[k] - before.get(k, 0) for k in fa.launch_counts
+                         if fa.launch_counts[k] - before.get(k, 0)})
+    return losses, per_step
+
+
+def lm_step_speed(model, ids, tgt, timed):
+    """Host seconds per ``_make_step`` call (bench.py's way of driving the
+    step) over ``timed`` calls, synchronized once at the end, after
+    LM_WARM_STEPS warm-up calls each timed alone; the peak memory of the
+    timed window and the memory held when it began (GiB), and the last
+    loss."""
+    step = model._make_step()
+    params, opt, t = model.params_, model.opt_state_, model.iteration
+    warm = []
+    for _ in range(LM_WARM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t += 1
+        params, opt, loss = step(params, opt, ids, tgt, t)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        t += 1
+        params, opt, loss = step(params, opt, ids, tgt, t)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / timed
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return sec, warm, peak, held, float(loss)
+
+
+def lm_train_phase(fa, card: str):
+    """Phase 9: TransformerLM.fit_batch at bench.py's train config (GPT-2
+    small's shape, 32,000 tokens, bf16, Adam(3e-4); seeded): gradients
+    against the plain path, exact launch counts, falling losses (dense and
+    packed), tokens/s at 16 x 512 and 4 x 2048, and logits after training
+    against the uncached forward."""
+    from deeplearning4j_tpu_torch.models import transformer_lm as tlm
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    t0 = time.perf_counter()
+    model = tlm.TransformerLM(seed=SEED, updater=Adam(LM_TRAIN_LR), **LM_TRAIN_CONF).init()
+    init_s = time.perf_counter() - t0
+    n_layers, V = model.cfg.n_layers, model.cfg.vocab_size
+    want_step = {fa.OP: n_layers, fa.OP_DQ: n_layers, fa.OP_DKV: n_layers}
+    rng = np.random.default_rng(SEED + 71)
+    ids, tgt = lm_batch(rng, *LM_TRAIN_BATCH, V)
+    seg, tgt_p = packed_batch(ids, tgt)
+
+    # (a) gradients of one step, dense and packed
+    grads = {"dense": lm_gradients(fa, tlm, model, ids, tgt, None),
+             "packed": lm_gradients(fa, tlm, model, ids, tgt_p, seg)}
+    for kind, g in grads.items():
+        print(f"phase 9 gradients ({kind}{', two documents per row' if kind == 'packed' else ''})"
+              f": TransformerLM {LM_TRAIN_CONF}, {model.num_params():,} params, batch "
+              f"{LM_TRAIN_BATCH}, init {init_s:.1f}s; over {len(g['grad_rel_err'])} tensors "
+              f"(k kernel path, p plain path, f32 plain path in f32): ||g_k - g_p|| / ||g_p|| "
+              f"{_quantiles(g['grad_rel_err'])}; ||g_k - g_p|| / ||g_p - g_f32|| "
+              f"{_quantiles(g['grad_err_over_bf16_noise'])} (each <= {GRAD_NOISE_FACTOR} where "
+              f"the first > {GRAD_REL_TOL}); ||g_k - g_f32|| / ||g_p - g_f32|| "
+              f"{_quantiles(g['grad_f32_distance_ratio'])} (median <= {GRAD_F32_MEDIAN}); loss "
+              f"{g['loss']:.6g} vs plain {g['plain_loss']:.6g} (rel {g['loss_rel']:.3g}, tol "
+              f"1e-3), f32 {g['f32_loss']:.6g}; launches {g['launches']}, plain path "
+              f"{g['plain_launches']} {'ok' if g['ok'] else 'FAIL'}", flush=True)
+
+    # (b, c) the main path: LM_TRAIN_STEPS fit_batch steps, counts from 0
+    # just before and read just after; the cache filled before training
+    before = model.logits(ids[:2].cpu().numpy())
+    fa.reset_launch_counts()
+    losses, per_step = lm_fit_steps(fa, model, ids, tgt, LM_TRAIN_STEPS)
+    main_launches = dict(fa.launch_counts)
+    fa.reset_launch_counts()
+    p_losses, p_per_step = lm_fit_steps(fa, model, ids, tgt_p, LM_PACKED_STEPS, seg)
+    print(f"phase 9 steps: {LM_TRAIN_STEPS} fit_batch steps, Adam({LM_TRAIN_LR}); losses "
+          f"{[round(x, 5) for x in losses]}; launches per step {per_step[0]} (expected "
+          f"{want_step}); main-path launches {main_launches}; then {LM_PACKED_STEPS} packed "
+          f"steps: losses {[round(x, 5) for x in p_losses]}, launches per step {p_per_step[0]}",
+          flush=True)
+
+    # (g) after training: logits through compute_params' cache == the
+    # uncached forward, and not the cast of the params before training
+    after = model.logits(ids[:2].cpu().numpy())
+    with torch.inference_mode():
+        fresh = tlm.forward(model.cfg, tlm.compute_params(model.cfg, model.params_),
+                            ids[:2]).cpu().numpy()
+    d_fresh = float(np.abs(after - fresh).max())
+    d_before = float(np.abs(after - before).max())
+    print(f"phase 9 cache: logits after training vs the uncached forward max|d| {d_fresh:.4g} "
+          f"(limit {PREFILL_LIMIT_KERNEL}); vs the logits before training {d_before:.4g}",
+          flush=True)
+
+    # (d) speed at 16 x 512
+    tokens = LM_TRAIN_BATCH[0] * LM_TRAIN_BATCH[1]
+    sec, warm, peak, held, last = lm_step_speed(model, ids, tgt, LM_TIMED_STEPS)
+    print(f"phase 9 speed: {tokens / sec:.1f} train tokens/s at batch {LM_TRAIN_BATCH} "
+          f"({sec * 1e3:.2f} ms per _make_step call, host clock, {LM_TIMED_STEPS} calls "
+          f"synchronized at the end, after {LM_WARM_STEPS} warm-up calls of "
+          f"{[round(w, 1) for w in warm]} ms); peak memory {peak:.2f} GiB, of it "
+          f"{held:.2f} GiB held when the window began (this phase's model and earlier "
+          f"phases' engines); last loss {last:.5g}; on {card}", flush=True)
+    finite = all(bool(torch.isfinite(p).all()) for _, p in _flat(model.params_))
+    del model, before, after, fresh
+    torch.cuda.empty_cache()
+
+    # (e) long context: 4 x 2048
+    long_model = tlm.TransformerLM(seed=SEED, updater=Adam(LM_TRAIN_LR),
+                                   **{**LM_TRAIN_CONF, "max_length": LM_LONG_BATCH[1]}).init()
+    ids_l, tgt_l = lm_batch(rng, *LM_LONG_BATCH, V)
+    fa.reset_launch_counts()
+    l_losses, l_per_step = lm_fit_steps(fa, long_model, ids_l, tgt_l, LM_PACKED_STEPS)
+    l_sec, l_warm, l_peak, l_held, _ = lm_step_speed(long_model, ids_l, tgt_l,
+                                                     LM_TIMED_STEPS // 2)
+    l_tokens = LM_LONG_BATCH[0] * LM_LONG_BATCH[1]
+    print(f"phase 9 long context: batch {LM_LONG_BATCH}, {LM_PACKED_STEPS} fit_batch steps: "
+          f"losses {[round(x, 5) for x in l_losses]}, launches per step {l_per_step[0]}; "
+          f"{l_tokens / l_sec:.1f} train tokens/s ({l_sec * 1e3:.2f} ms per _make_step call, "
+          f"warm-up {[round(w, 1) for w in l_warm]} ms); peak memory {l_peak:.2f} GiB, "
+          f"{l_held:.2f} GiB held",
+          flush=True)
+    del long_model
+    torch.cuda.empty_cache()
+
+    failed = [f"{kind} gradients disagree with the plain path"
+              for kind, g in grads.items() if not g["ok"]]
+    failed += [f"{kind} gradient launches {g['launches']}, plain {g['plain_launches']}"
+               for kind, g in grads.items()
+               if g["launches"] != want_step or g["plain_launches"]]
+    for name, ls, steps in (("dense", losses, per_step), ("packed", p_losses, p_per_step),
+                            ("long-context", l_losses, l_per_step)):
+        if any(s != want_step for s in steps):
+            failed.append(f"{name}: a step launched {steps}, expected {want_step}")
+        if not all(math.isfinite(x) for x in ls) or not ls[-1] < ls[0]:
+            failed.append(f"{name}: losses {ls} not finite or not falling")
+    if not finite:
+        failed.append("params not finite after training")
+    if not d_fresh <= PREFILL_LIMIT_KERNEL or not d_before > 4 * PREFILL_LIMIT_KERNEL:
+        failed.append(f"logits after training: {d_fresh} from the uncached forward, "
+                      f"{d_before} from those before training")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"conf": LM_TRAIN_CONF, "lr": LM_TRAIN_LR, "batch": LM_TRAIN_BATCH,
+            "init_s": init_s, "gradients": grads, "losses": losses,
+            "launches_per_step": per_step[0], "main_launches": main_launches,
+            "packed_losses": p_losses, "packed_launches_per_step": p_per_step[0],
+            "logits_vs_uncached_max_abs": d_fresh, "logits_moved_max_abs": d_before,
+            "tokens_per_s": tokens / sec, "ms_per_step": sec * 1e3, "warmup_ms": warm,
+            "peak_mem_gib": peak, "held_mem_gib": held,
+            "long": {"batch": LM_LONG_BATCH, "losses": l_losses,
+                     "launches_per_step": l_per_step[0], "tokens_per_s": l_tokens / l_sec,
+                     "ms_per_step": l_sec * 1e3, "warmup_ms": l_warm, "peak_mem_gib": l_peak,
+                     "held_mem_gib": l_held}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1935,7 +2389,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"phase 1 device: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernel build {build_s:.1f}s", flush=True)
-    for lib in ("fused_conv", "fused_conv_bwd", "int8_matmul", "fused_lstm", "flash_attention"):
+    for lib in ("fused_conv", "fused_conv_bwd", "int8_matmul", "fused_lstm", "flash_attention",
+                "flash_attention_bwd"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1 ptxas {lib}: {line.strip()}", flush=True)
@@ -1946,6 +2401,8 @@ def main() -> int:
     int8_rows, summary["int8_matmul"] = int8_phase(im)
     lstm_rows, summary["fused_lstm_cell"] = lstm_phase(fl)
     flash_rows, summary["flash_attention_fwd"] = flash_phase(fa)
+    flash_bwd_rows, bwd_flash_summary = flash_bwd_phase(fa)
+    summary.update(bwd_flash_summary)
     serve = serve_phase(fc, card)
     train = train_phase(fc, card)
     e8, x, vgg = vgg_phase(fc, im, card)
@@ -1954,19 +2411,24 @@ def main() -> int:
     entry["generate"] = generation_entry_points(seq_engine, gen_engine, prompts, outs)
     lm_gen, lm_predict, lm_prompts, lm_outs, lm = lm_phase(fa, card)
     entry["transformer"] = lm_entry_points(lm_predict, lm_gen, lm_prompts, lm_outs)
+    del lm_gen, lm_predict
+    lm_train = lm_train_phase(fa, card)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
     # the LSTM cell's from phase 7's (the generation engine), the flash
-    # forward's from phase 8's (the TransformerLM generation engine); times: the
+    # forward's from phase 8's (the TransformerLM generation engine), the flash
+    # backward's from phase 9's (TransformerLM.fit_batch); times: the
     # convs' summed over one batch-32 forward (or backward) at the 19 shapes,
     # the int8 matmul's over the three heads of one VGG16 forward at bucket
     # 32 (bucket 1 under "b1"), the LSTM cell's over the two cells of one
     # decode step at 32 slots (one prefill step, B 1, under "b1"), the flash
     # forward's at the T 1024 prefill (b 1, 12 heads; every timed shape under
-    # "by_shape")
+    # "by_shape"), the flash backward's at the train step's shape (b 16, 12
+    # heads, T 512; T 2048 under "by_shape")
     kernels = []
-    main_of = {"int8_matmul": vgg, "fused_lstm_cell": gen, "flash_attention_fwd": lm}
+    main_of = {"int8_matmul": vgg, "fused_lstm_cell": gen, "flash_attention_fwd": lm,
+               "flash_attention_dq": lm_train, "flash_attention_dkv": lm_train}
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]
         entry_k = {
@@ -1983,6 +2445,10 @@ def main() -> int:
         elif name == "flash_attention_fwd":
             entry_k["launches_per_decode_step"] = lm["launches_per_decode_step"]
             entry_k["launches_per_prefill_by_bucket"] = lm["launches_per_prefill_by_bucket"]
+            entry_k["launches_per_train_step"] = lm_train["launches_per_step"].get(name, 0)
+            entry_k["by_shape"] = s["by_shape"]
+        elif name in ("flash_attention_dq", "flash_attention_dkv"):
+            entry_k["launches_per_train_step"] = lm_train["launches_per_step"].get(name, 0)
             entry_k["by_shape"] = s["by_shape"]
         elif name == "int8_matmul":
             entry_k["launches_per_forward"] = vgg["per_forward"].get(name, 0)
@@ -1995,9 +2461,10 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build_s": build_s,
                    "cases": rows, "backward_cases": bwd_rows, "int8_cases": int8_rows,
-                   "lstm_cases": lstm_rows, "flash_cases": flash_rows, "summary": summary,
+                   "lstm_cases": lstm_rows, "flash_cases": flash_rows,
+                   "flash_bwd_cases": flash_bwd_rows, "summary": summary,
                    "serve": serve, "train": train, "vgg16": vgg, "generation": gen,
-                   "transformer": lm,
+                   "transformer": lm, "transformer_train": lm_train,
                    "entry_points": entry, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

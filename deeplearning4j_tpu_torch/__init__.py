@@ -6,8 +6,8 @@ mirrors its module paths, its configuration dicts and its public layouts
 and trains ResNet-50, serves MultiLayerNetworks (VGG16, LeNet, int8 heads)
 and recurrent networks (TextGenerationLSTM, through ``InferenceEngine`` and
 the continuous-batching ``GenerationEngine``) behind ``InferenceServer`` and
-``cli serve``; the kernels on those paths are hand-written CUDA for Hopper
-(``nn/ops/csrc``).
+``cli serve``, and serves and trains a TransformerLM (``fit_batch``); the
+kernels on those paths are hand-written CUDA for Hopper (``nn/ops/csrc``).
 
 Entry points (``ZooModel.init``, ``MultiLayerNetwork.init``,
 ``ComputationGraph.init``, ``InferenceEngine``) run on the CUDA card unless

@@ -9,14 +9,15 @@ layer) of dicts (recurrent layers: ``Wx``, ``Wh``, ``b`` and a GravesLSTM's
 ``"fwd"``/``"bwd"``), for a TransformerLM the reference's nested dict
 (``embed``, ``pos``, ``blocks`` of ``(n_layers, ...)`` stacks, ``lnf_g``,
 ``lnf_b``, ``head``; no state, so ``state`` is None); updater state one
-level deeper (param name -> slot name -> array). On the reference's side
+level deeper (param name -> slot name -> array; a TransformerLM's Adam
+slots ``{"m", "v"}`` under each leaf of its params' layout). On the reference's side
 that is e.g. ``jax.tree_util.tree_map(np.asarray, net.params_)``. Layouts are the same in
 both packages (HWIO conv weights, (nIn, nOut) dense weights, NHWC
 flattening), so no array is transposed.
 
 - :func:`load_jax_params` fills the port's model with the reference's
-  ``params_``, ``state_`` and, for a graph, optionally its ``opt_state_``
-  and ``iteration`` (to continue a run).
+  ``params_``, ``state_`` and, for a graph or a TransformerLM, optionally
+  its ``opt_state_`` and ``iteration`` (to continue a run).
 - :func:`export_params`, :func:`export_state`, :func:`export_opt_state`
   give the port's arrays in that form, for the reference or a test.
 - :func:`export_serving_params` gives an engine's serving snapshot (int8

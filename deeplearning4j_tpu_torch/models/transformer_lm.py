@@ -1,4 +1,5 @@
-"""TransformerLM: a GPT-style causal language model, served on the card.
+"""TransformerLM: a GPT-style causal language model, served and trained on
+the card.
 
 Counterpart of ``deeplearning4j_tpu/models/transformer_lm.py``, its
 functions under the same names over the same nested-dict params (block
@@ -10,9 +11,10 @@ params stacked along a leading ``(n_layers,)`` axis):
   :func:`init_decode_cache` (``:343-356``), :func:`prefill_cache` with
   ``length=`` (``:359-428``), :func:`decode_step` with a scalar or per-row
   ``pos`` (``:431-515``), :func:`forward` (``:626-660``), :func:`token_nll`
-  (``:663-679``) and the :class:`TransformerLM` model (``:711-937``:
-  ``init``, ``logits``, ``output``, ``generate``, ``generate_cached``,
-  ``perplexity``);
+  (``:663-679``), :func:`lm_loss` with ``segment_ids`` (``:682-708``) and the
+  :class:`TransformerLM` model (``:711-937``: ``init`` with the updater and
+  its state, ``_make_step``, ``fit_batch``, ``logits``, ``output``,
+  ``generate``, ``generate_cached``, ``perplexity``);
 - the sampler (``:210-344``, ``:604-623``): greedy, temperature, top-k and
   top-p as data, row by row, on the logits' device.
 
@@ -26,9 +28,16 @@ the whole slab with ``torch.matmul``, as the reference's is an XLA einsum.
 The KV cache is written in place (JAX returns a new one): the functions
 return the cache dict they were given, its tensors updated.
 
-Refused with typed errors naming ROADMAP: training (``fit_batch``, ``lm_loss``
-gradients), MoE (``n_experts > 0``), ``decode_steps`` (speculative
-decoding), and the tensor/expert-parallel arguments of ``block_apply``.
+Training follows JAX's ``_make_step``: the loss and its gradients are taken
+over the f32 master params (the bf16 cast happens inside the forward, under
+autograd), then ``Adam.apply`` runs per leaf and the step returns ``p -
+update``. Attention at T % 128 == 0 on the card runs the flash forward and
+backward kernels (``nn/ops/flash_attention.py``); packed sequences pass
+``segment_ids`` through ``lm_loss`` into every attention path.
+
+Refused with typed errors naming ROADMAP: MoE (``n_experts > 0``),
+``decode_steps`` (speculative decoding), and the tensor/expert-parallel
+arguments of ``block_apply``.
 
 Random draws. JAX's threefry key chain cannot be reproduced in torch, so a
 key here is a counter-based generator of the port's own: an int64 pair
@@ -58,13 +67,11 @@ from deeplearning4j_tpu_torch.nn.conf.layers.attention import (
     _softmax,
     dense_attention,
 )
+from deeplearning4j_tpu_torch.updaters import Adam
 
 NO_MOE = ("mixture-of-experts TransformerLMs (n_experts > 0) are not ported yet: "
           "nn/conf/layers/moe.py comes with a later TransformerLM slice (ROADMAP § A, "
           "slice 6)")
-NO_TRAINING = ("TransformerLM training (fit_batch, lm_loss gradients and the "
-               "flash-attention backward kernels) comes with the TransformerLM "
-               "training slice (ROADMAP § A, slice 6)")
 NO_SPEC = ("decode_steps (speculative verification) comes with speculative decoding "
            "(ROADMAP § A, slice 6)")
 NO_PARALLEL = ("manual tensor/expert parallelism (tp_axis, expert_axis) comes with the "
@@ -180,12 +187,15 @@ def _cast_block(bp: Dict, cd) -> Dict:
 
 
 def _layers(cfg: TransformerLMConfig, params: Dict) -> List[Dict]:
-    """One param dict per block: views of the stacked ``blocks``, or the
+    """One param dict per block: views of the stacked ``blocks`` (by
+    ``unbind``, whose backward stacks the layers' gradients once, where
+    indexing layer by layer would add a zero-filled stack per layer), or the
     list that :func:`compute_params` made already."""
     blocks = params["blocks"]
     if isinstance(blocks, list):
         return blocks
-    return [{k: v[i] for k, v in blocks.items()} for i in range(cfg.n_layers)]
+    per_param = {k: v.unbind(0) for k, v in blocks.items()}
+    return [{k: v[i] for k, v in per_param.items()} for i in range(cfg.n_layers)]
 
 
 def _head(params: Dict, cd):
@@ -541,14 +551,59 @@ def token_nll(logits, targets):
     return nll.sum() / count, count
 
 
-def lm_loss(cfg: TransformerLMConfig, params, ids, targets):
-    """Mean next-token cross-entropy, evaluated (its gradients come with the
-    training slice)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in _leaves(params) if isinstance(t, torch.Tensor)):
-        raise NotImplementedError(NO_TRAINING)
-    logits = forward(cfg, params, ids, cast_logits=False)
+def lm_loss(cfg: TransformerLMConfig, params, ids, targets, segment_ids=None):
+    """Mean next-token cross-entropy; targets (b, T) ints, -1 ignored.
+    ``segment_ids``: optional (b, T) ints for packed-sequence training (several
+    documents per row): attention stays within each segment on every
+    attention path; a boundary token's target should be -1, so that it does
+    not predict into the next document."""
+    attn_fn = None
+    if segment_ids is not None:
+        seg = torch.as_tensor(segment_ids, device=ids.device)
+
+        def attn_fn(q, k, v, *, causal, mask=None):
+            return dense_attention(q, k, v, causal=causal, mask=mask, segment_ids=seg)
+
+    logits = forward(cfg, params, ids, attn_fn=attn_fn, cast_logits=False)
     return token_nll(logits, targets)[0]
+
+
+def _named_leaves(tree: Dict, prefix: Tuple[str, ...] = ()):
+    """(path, tensor) for every tensor of a nested dict, in insertion order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _at(tree: Dict, path: Tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _nest(items) -> Dict:
+    """The nested dict of (path, value) pairs."""
+    out: Dict = {}
+    for path, v in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def value_and_grad(loss_fn, params: Dict) -> Tuple[torch.Tensor, Dict]:
+    """``(loss_fn(params), its gradient)`` over every tensor of the nested
+    dict ``params``, the gradient in the same layout (``jax.value_and_grad``
+    of a loss over a params pytree). ``params`` are not changed; the loss
+    comes back detached."""
+    named = [(path, p.detach().requires_grad_()) for path, p in _named_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(_nest(named))
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+    return loss.detach(), _nest((path, g) for (path, _), g in zip(named, grads))
 
 
 # ---------------------------------------------------------------------------
@@ -556,11 +611,14 @@ def lm_loss(cfg: TransformerLMConfig, params, ids, targets):
 # ---------------------------------------------------------------------------
 class TransformerLM(ZooModel):
     """The zoo wrapper: ``init`` on a device (default the CUDA card),
-    ``logits``/``output`` (token ids (b, T) -> f32 logits (b, T, V)),
-    ``generate`` (a host loop of full forwards), ``generate_cached``
-    (KV-cache decoding) and ``perplexity``. ``params_`` are f32 master
-    params; :meth:`compute_params` casts them for the compute dtype once and
-    keeps the cast until a param tensor changes."""
+    ``fit_batch`` (one Adam step, default ``Adam(3e-4)``; ``updater=`` to
+    the constructor overrides it), ``logits``/``output`` (token ids (b, T) ->
+    f32 logits (b, T, V)), ``generate`` (a host loop of full forwards),
+    ``generate_cached`` (KV-cache decoding) and ``perplexity``. ``params_``
+    are f32 master params, ``opt_state_`` the updater's slots in the same
+    nested layout (per leaf ``{"m", "v"}``); :meth:`compute_params` casts the
+    params for the compute dtype once and keeps the cast while every param
+    tensor is the same object at the same version."""
 
     name = "transformerlm"
 
@@ -580,33 +638,97 @@ class TransformerLM(ZooModel):
             aux_loss_weight=aux_loss_weight, compute_dtype=compute_dtype,
             fused_qkv=fused_qkv)
         self.params_: Optional[Dict] = None
+        self.opt_state_: Optional[Dict] = None
         #: no layer running state (the serving engine reads this attribute)
         self.state_ = None
         self.device: Optional[torch.device] = None
-        self._compute_cache: Optional[Tuple[tuple, Dict]] = None
+        self.updater = None
+        self.iteration = 0
+        self.score_: Optional[float] = None
+        #: ([(leaf, its _version)], the cast params) of the last compute_params()
+        self._compute_cache: Optional[Tuple[List[Tuple[torch.Tensor, int]], Dict]] = None
 
     def init(self, device=None) -> "TransformerLM":
-        """Seeded params (``cfg.seed``) on ``device`` (default the CUDA card)."""
+        """Seeded params (``cfg.seed``) on ``device`` (default the CUDA card),
+        zero updater slots and iteration 0."""
         self.device = resolve_device(device)
         self.params_ = init_params(self.cfg, device=self.device)
+        self.updater = self.kwargs.get("updater", Adam(3e-4))
+        self.opt_state_ = None
+        self._ensure_opt_state()
+        self.iteration, self.score_ = 0, None
         return self
+
+    def _ensure_opt_state(self) -> Dict:
+        """The updater slots, made (zeros) where none exist yet."""
+        if self.opt_state_ is None:
+            self.opt_state_ = _nest((path, self.updater.init_state(t))
+                                    for path, t in _named_leaves(self.params_))
+        return self.opt_state_
 
     def compute_params(self, params: Optional[Dict] = None) -> Dict:
         """``params`` (default ``params_``) as :func:`compute_params` gives
         them; for ``params_`` the result is kept until a tensor of it is
-        replaced or changed in place."""
+        replaced or changed in place. The key holds the leaf tensors
+        themselves (compared with ``is``) and their versions: an ``id`` alone
+        can be reused by a new tensor once the old one is freed."""
         if params is not None:
             return compute_params(self.cfg, params)
-        leaves = tuple((id(t), t._version) for t in _leaves(self.params_))
-        if self._compute_cache is None or self._compute_cache[0] != leaves:
-            self._compute_cache = (leaves, compute_params(self.cfg, self.params_))
+        leaves = list(_leaves(self.params_))
+        cached = self._compute_cache
+        if cached is None or len(cached[0]) != len(leaves) or any(
+                t is not held or t._version != version
+                for t, (held, version) in zip(leaves, cached[0])):
+            self._compute_cache = ([(t, t._version) for t in leaves],
+                                   compute_params(self.cfg, self.params_))
         return self._compute_cache[1]
 
     def _ids(self, ids) -> torch.Tensor:
+        """Token ids (numpy, a list or a tensor) as int64 on the model's device."""
+        if isinstance(ids, torch.Tensor):
+            return ids.to(device=self.device, dtype=torch.int64)
         return torch.as_tensor(np.asarray(ids), dtype=torch.int64).to(self.device)
 
+    def _make_step(self, with_seg: bool = False):
+        """``step(params, opt_state, ids, targets, t, seg=None) -> (params,
+        opt_state, loss)``, JAX's contract: the loss and its gradients over
+        the f32 master ``params`` (``seg`` is passed to :func:`lm_loss` when
+        ``with_seg``), then per leaf ``(update, slots) = updater.apply(g,
+        slots, t, t, 0)`` and ``p - update``. Returns new tensors; the inputs
+        are not changed. ``loss`` is a 0-dim tensor on the params' device."""
+        cfg, upd = self.cfg, self.updater
+
+        def step(params, opt_state, ids, targets, t, seg=None):
+            loss, grads = value_and_grad(
+                lambda p: lm_loss(cfg, p, ids, targets, segment_ids=seg if with_seg else None),
+                params)
+            new_p, new_o = [], []
+            with torch.no_grad():
+                for path, p in _named_leaves(params):
+                    update, slots = upd.apply(_at(grads, path), _at(opt_state, path), t, t, 0)
+                    new_p.append((path, p - update))
+                    new_o.append((path, slots))
+            return _nest(new_p), _nest(new_o), loss
+
+        return step
+
     def fit_batch(self, ids, targets, segment_ids=None) -> float:
-        raise NotImplementedError(NO_TRAINING)
+        """One train step on token ids (b, T) and targets (b, T) (-1 =
+        ignore); ``segment_ids`` (b, T) ints enable packed-sequence training
+        (see :func:`lm_loss`). Returns the loss before the update (also
+        ``score_``)."""
+        if self.params_ is None:
+            raise ValueError("init() the model (or load params) first")
+        step = self._make_step(with_seg=segment_ids is not None)
+        self.iteration += 1
+        args = [self.params_, self._ensure_opt_state(), self._ids(ids), self._ids(targets),
+                self.iteration]
+        if segment_ids is not None:
+            args.append(self._ids(segment_ids).to(torch.int32))
+        self.params_, self.opt_state_, loss = step(*args)
+        self._compute_cache = None  # the old cast and the old params are freed now
+        self.score_ = float(loss)
+        return self.score_
 
     def logits(self, ids) -> np.ndarray:
         with torch.inference_mode():
@@ -698,7 +820,8 @@ class TransformerLM(ZooModel):
         return np.concatenate([ids, gen.astype(np.int64)], axis=1).astype(np.int32)
 
     def perplexity(self, ids, targets) -> float:
-        """exp(mean next-token NLL) over valid targets (-1 = ignore)."""
+        """exp(mean next-token NLL) over valid targets (-1 = ignore), under the
+        current params (read through :meth:`compute_params`)."""
         with torch.inference_mode():
             nll = lm_loss(self.cfg, self.compute_params(), self._ids(ids), self._ids(targets))
         return float(np.exp(float(nll)))

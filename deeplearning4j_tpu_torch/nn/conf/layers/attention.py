@@ -1,4 +1,4 @@
-"""Attention and transformer layers (eval forward).
+"""Attention and transformer layers.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers/attention.py``. Layers
 work on recurrent-format activations ``(b, T, d)``; attention on ``(b, h, T,
@@ -12,15 +12,20 @@ hd)``.
   allows it, else to the query-blocked path for T >= 1024, else to the
   einsum path. The reference's kill switch and compile probe (the kernel
   registry) are ROADMAP § B0 and not ported: on CUDA tensors the route's
-  conditions alone decide.
+  conditions alone decide. Every path is differentiable: the flash route
+  through the kernels' ``FlashAttention`` function, the einsum and blocked
+  paths through torch's autograd (the blocked path recomputes each query
+  block in the backward, ``torch.utils.checkpoint``, as the reference's
+  ``jax.checkpoint`` body does). ``segment_ids`` reach every path.
 - The einsum and blocked paths repeat JAX's dtype flow: scores in the
   operands' dtype, the scale rounded to it (a Python float is weakly typed
   in JAX), the softmax as ``jax.nn.softmax`` writes it (its sum in f32 under
   bf16), ``p`` in the operands' dtype before ``p @ v``.
 - :class:`SelfAttentionLayer`, :class:`TransformerBlock` and
   :class:`PositionalEmbeddingLayer` have the reference's fields, ``@class``
-  names and params. Attention dropout and the train-mode forward come with
-  the TransformerLM training slice and raise :class:`NotImplementedError`.
+  names and params. Attention dropout and the train-mode forward of these
+  layers come with ``MultiLayerNetwork.fit`` and raise
+  :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
@@ -39,8 +45,9 @@ from deeplearning4j_tpu_torch.nn.ops.flash_attention import MAX_SEQ_LEN, flash_a
 _NEG_INF = -1e30
 BLOCKED_ATTENTION_MIN_T = 1024
 
-NO_TRAINING = ("attention dropout and the train-mode forward come with the "
-               "TransformerLM training slice (ROADMAP § A, slice 6)")
+NO_TRAINING = ("attention dropout and the train-mode forward of the attention layers "
+               "come with MultiLayerNetwork.fit (ROADMAP § A, slice 4: the rest of the "
+               "training core)")
 
 
 def _layer_norm(x, gamma, beta, eps: float = 1e-5):
@@ -130,14 +137,21 @@ def _blocked_attention(q, k, v, *, causal: bool, mask, scale: float, block_q: in
                        segment_ids=None):
     """Dense attention one query block at a time: live scores (b, h,
     block_q, T) instead of (b, h, T, T) (the reference's XLA fallback for T
-    >= BLOCKED_ATTENTION_MIN_T)."""
+    >= BLOCKED_ATTENTION_MIN_T). Where a gradient is recorded each block is
+    recomputed in the backward rather than stored, as the reference's
+    ``jax.checkpoint`` body is."""
     T = q.shape[2]
+
+    def block(q_blk, k, v, q_pos):
+        s = _masked(_scores(q_blk, k, scale), causal, mask, segment_ids, q_pos)
+        return torch.matmul(_softmax(s).to(v.dtype), v)
+
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     out = []
     for i in range(T // block_q):
-        q_pos = torch.arange(i * block_q, (i + 1) * block_q, device=q.device)
-        s = _masked(_scores(q[:, :, i * block_q:(i + 1) * block_q], k, scale),
-                    causal, mask, segment_ids, q_pos)
-        out.append(torch.matmul(_softmax(s).to(v.dtype), v))
+        args = (q[:, :, i * block_q:(i + 1) * block_q], k, v,
+                torch.arange(i * block_q, (i + 1) * block_q, device=q.device))
+        out.append(checkpoint(block, *args, use_reentrant=False) if remat else block(*args))
     return torch.cat(out, dim=2)
 
 

@@ -1,5 +1,5 @@
-"""Flash attention, forward: a hand-written CUDA kernel for Hopper beside its
-plain PyTorch version.
+"""Flash attention, forward and backward: hand-written CUDA kernels for
+Hopper beside their plain PyTorch versions.
 
 Counterpart of ``deeplearning4j_tpu/nn/ops/flash_attention.py``. For q, k, v
 of shape ``(b, h, T, hd)``, equal lengths::
@@ -9,26 +9,42 @@ of shape ``(b, h, T, hd)``, equal lengths::
     lse = logsumexp(s)                           (f32, (b*h, T))
 
 with an optional causal mask and packed-sequence segment ids (a query
-attends only to keys of its own segment; composes with ``causal``).
+attends only to keys of its own segment; composes with ``causal``). The
+backward (the reference's ``_bwd_impl``, FlashAttention-2 style) recomputes
+``p = exp(s - lse)`` from the forward's ``lse``::
 
-- :func:`flash_attention_plain` is the plain version: the reference
-  kernel's arithmetic written whole (f32 scores, ``-1e30`` masking, row max
-  and sum, ``p`` rounded to ``v``'s dtype before ``p @ v`` as
-  ``flash_attention.py:107`` does, one division, ``lse = m + log(max(l,
-  1e-30))``). The CPU path and the tests use it.
-- :func:`flash_attention_fwd` takes the plain version for a CPU tensor and
-  for a CUDA tensor launches the kernel (``csrc/flash_attention.cu``, which
-  replaces the reference's ``_fwd_kernel``) or raises: there is no fallback
-  and no probe (the availability registry is ROADMAP § B0). Each launch adds
-  one to ``launch_counts["flash_attention_fwd"]`` (``launch.py``). q, k and v
-  may be strided views with a unit-stride head dimension (the model's head
-  split is a transpose); ``o`` comes back as a ``(b, h, T, hd)`` view of a
-  ``(b, T, h, hd)`` buffer, so merging the heads after it copies nothing.
+    D  = rowsum(dO * O)                          (f32, both widened)
+    dv = p~^T dO,  dp = dO v^T,  ds = p (dp - D) scale
+    dq = ds~ k,    dk = ds~^T q                  (~: rounded to the operand dtype)
+
+every product summed in f32.
+
+- :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain` (made of
+  :func:`flash_attention_dq_plain` and :func:`flash_attention_dkv_plain`,
+  which split the work as the two backward kernels do) are the plain
+  versions: the reference kernels' arithmetic written whole. The CPU path
+  and the tests use them.
+- :func:`flash_attention_fwd`, :func:`flash_attention_dq` and
+  :func:`flash_attention_dkv` take the plain version for a CPU tensor and
+  for a CUDA tensor launch their kernel (``csrc/flash_attention.cu``, which
+  replaces the reference's ``_fwd_kernel``; ``csrc/flash_attention_bwd.cu``,
+  which replaces ``_dq_kernel`` and ``_dkv_kernel``) or raise: there is no
+  fallback and no probe (the availability registry is ROADMAP § B0).
+  :func:`flash_attention_bwd` is the reference's ``_bwd_impl``: ``D`` by
+  :func:`row_dot`, then the two. Each launch adds one to
+  ``launch_counts`` under ``flash_attention_fwd``, ``flash_attention_dq`` or
+  ``flash_attention_dkv`` (``launch.py``). q, k, v and dO may be strided
+  views with a unit-stride head dimension (the model's head split is a
+  transpose); ``o``, dq, dk and dv come back as ``(b, h, T, hd)`` views of
+  ``(b, T, h, hd)`` buffers, so merging the heads after them copies nothing.
+- Gradients: where grad mode is on and q, k or v requires grad,
+  :func:`flash_attention_fwd` runs through :class:`FlashAttention` (the
+  reference's custom VJP ``_flash``/``_flash_seg``), which saves ``q, k, v,
+  o, lse`` and the segment ids and calls :func:`flash_attention_bwd` in the
+  backward; segment ids and ``lse`` get no gradient. Under ``no_grad`` or
+  ``inference_mode`` nothing is saved and no backward kernel launches.
 - :func:`flash_attention` is the reference's public function: the same
   validation and messages (``:380-419``).
-- The backward kernels (``_dq_kernel``, ``_dkv_kernel``) come with the
-  TransformerLM training slice: a CUDA call that would record a gradient
-  raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -46,11 +62,13 @@ from deeplearning4j_tpu_torch.nn.ops.launch import (  # noqa: F401  (counters re
 )
 
 OP = "flash_attention_fwd"
+OP_DQ = "flash_attention_dq"
+OP_DKV = "flash_attention_dkv"
 
 _LANE = 128
 #: the reference's cap on T (it kept K and V of a head resident in VMEM)
 MAX_SEQ_LEN = 4096
-#: the largest head dim the kernel takes
+#: the largest head dim the kernels take
 MAX_HEAD_DIM = 128
 _NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -58,13 +76,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 WIDER = ("other dtypes and head dims over 128 wait for a wider kernel (ROADMAP § A, "
          "flash attention)")
 
-NO_BACKWARD = ("the flash-attention backward kernels (_dq_kernel, _dkv_kernel) come "
-               "with the TransformerLM training slice (ROADMAP § A, slice 6); run "
-               "the forward under torch.no_grad() or inference_mode()")
-
 
 # ---------------------------------------------------------------------------
-# plain version (the CPU path, and the oracle the kernel is held to)
+# plain versions (the CPU path, and the oracles the kernels are held to)
 # ---------------------------------------------------------------------------
 def masked_scores(q, k, causal: bool, scale: float,
                   segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -84,8 +98,8 @@ def masked_scores(q, k, causal: bool, scale: float,
 def flash_attention_plain(q, k, v, causal: bool, scale: float,
                           segment_ids: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain torch -> ``(o (b, h, T, hd) of q's
-    dtype, lse (b*h, T) f32)``."""
+    """The forward kernel's function in plain torch -> ``(o (b, h, T, hd) of
+    q's dtype, lse (b*h, T) f32)``."""
     b, h, T, _ = q.shape
     s = masked_scores(q, k, causal, scale, segment_ids)
     m = s.amax(-1, keepdim=True)
@@ -99,88 +113,268 @@ def flash_attention_plain(q, k, v, causal: bool, scale: float,
     return o, lse
 
 
+def _probs(q, k, lse, causal, scale, segment_ids):
+    """``p = exp(s - lse)`` (b, h, T, T) f32, ``s`` recomputed as the
+    forward computes it."""
+    b, h, T, _ = q.shape
+    s = masked_scores(q, k, causal, scale, segment_ids)
+    return torch.exp(s - lse.reshape(b, h, T, 1))
+
+
+def row_dot(o, do) -> torch.Tensor:
+    """``D = rowsum(dO * O)``, (b*h, T) f32 from both operands widened (the
+    reference's XLA reduction outside its kernels, ``:271-273``)."""
+    b, h, T, _ = o.shape
+    return (do.float() * o.float()).sum(-1).reshape(b * h, T)
+
+
+def flash_attention_dq_plain(q, k, v, lse, do, dcap, causal: bool, scale: float,
+                             segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``_dq_kernel``'s function: ``dq = ds~ k`` with ``ds = p (dO v^T -
+    D) scale`` rounded to k's dtype; dq in q's dtype. ``dcap``: ``D``."""
+    b, h, T, _ = q.shape
+    p = _probs(q, k, lse, causal, scale, segment_ids)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - dcap.reshape(b, h, T, 1)) * scale
+    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+
+
+def flash_attention_dkv_plain(q, k, v, lse, do, dcap, causal: bool, scale: float,
+                              segment_ids: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``_dkv_kernel``'s function: ``dv = p~^T dO`` (p rounded to dO's
+    dtype) and ``dk = ds~^T q`` (ds rounded to q's dtype), in k's and v's
+    dtypes."""
+    b, h, T, _ = q.shape
+    p = _probs(q, k, lse, causal, scale, segment_ids)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - dcap.reshape(b, h, T, 1)) * scale
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float,
+                              segment_ids: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function in plain torch -> ``(dq, dk, dv)`` in
+    q's, k's and v's dtypes (the reference's ``_bwd_impl``)."""
+    dcap = row_dot(o, do)
+    dq = flash_attention_dq_plain(q, k, v, lse, do, dcap, causal, scale, segment_ids)
+    dk, dv = flash_attention_dkv_plain(q, k, v, lse, do, dcap, causal, scale, segment_ids)
+    return dq, dk, dv
+
+
 # ---------------------------------------------------------------------------
-# the CUDA kernel
+# the CUDA kernels
 # ---------------------------------------------------------------------------
 _LIB = KernelLibrary("flash_attention", {"dl4j_flash_fwd": (6, 18, 1)},
                      "dl4j_flash_tile", tile_keys="mnd")
-
+_BWD_LIB = KernelLibrary("flash_attention_bwd", {"dl4j_flash_bwd_dq": (8, 21, 1),
+                                                 "dl4j_flash_bwd_dkv": (9, 24, 1)},
+                         "dl4j_flash_bwd_tile", tile_keys="mnd")
+_BLOCK = 64
 _I32_MAX = 2 ** 31 - 1
 
 
-def _strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
+def _strides(op: str, name: str, t: torch.Tensor) -> Tuple[int, int, int]:
     """(batch, head, time) element strides of a (b, h, T, hd) operand whose
     head dim is unit-stride; every offset must fit the kernel's int32."""
     if t.stride(3) != 1 and t.shape[3] > 1:
-        raise ValueError(f"{OP}: {name} needs a unit-stride head dim (strides "
+        raise ValueError(f"{op}: {name} needs a unit-stride head dim (strides "
                          f"{t.stride()}); use .contiguous()")
     span = sum((n - 1) * abs(st) for n, st in zip(t.shape, t.stride()))
     if span > _I32_MAX:
-        raise ValueError(f"{OP}: {name} spans {span} elements, over the kernel's "
+        raise ValueError(f"{op}: {name} spans {span} elements, over the kernel's "
                          "int32 offsets")
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _kernel(q, k, v, causal: bool, scale: float, seg: Optional[torch.Tensor]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check_operands(op: str, q, k, v, seg: Optional[torch.Tensor], extra=()) -> None:
+    """What every flash kernel takes: f32 or bf16 q, k, v (and ``extra``
+    tensors, (name, tensor) pairs) of one shape, dtype and device, T a
+    positive multiple of 64, 1 <= hd <= 128, b*h <= 65535, contiguous int32
+    (b, T) segment ids."""
     if q.dim() != 4:
-        raise ValueError(f"{OP}: q must be (b, h, T, hd), got {tuple(q.shape)}")
+        raise ValueError(f"{op}: q must be (b, h, T, hd), got {tuple(q.shape)}")
     b, h, T, hd = q.shape
     if q.dtype not in _DTYPES:
-        raise TypeError(f"{OP}: the kernel takes f32 or bf16, got {q.dtype}; {WIDER}")
-    for name, t in (("k", k), ("v", v)):
+        raise TypeError(f"{op}: the kernel takes f32 or bf16, got {q.dtype}; {WIDER}")
+    for name, t in (("k", k), ("v", v), *extra):
         if t.device != q.device:
-            raise ValueError(f"{OP}: {name} is on {t.device}, q on {q.device}")
+            raise ValueError(f"{op}: {name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
-            raise TypeError(f"{OP}: {name} must be {q.dtype}, got {t.dtype}")
+            raise TypeError(f"{op}: {name} must be {q.dtype}, got {t.dtype}")
         if tuple(t.shape) != tuple(q.shape):
-            raise ValueError(f"{OP}: {name} must have shape {tuple(q.shape)}, "
+            raise ValueError(f"{op}: {name} must have shape {tuple(q.shape)}, "
                              f"got {tuple(t.shape)}")
-    bm = 64
-    if T == 0 or T % bm or not 1 <= hd <= MAX_HEAD_DIM or b * h > 65535:
-        raise ValueError(f"{OP}: the kernel takes T a positive multiple of {bm}, "
+    if T == 0 or T % _BLOCK or not 1 <= hd <= MAX_HEAD_DIM or b * h > 65535:
+        raise ValueError(f"{op}: the kernel takes T a positive multiple of {_BLOCK}, "
                          f"1 <= hd <= {MAX_HEAD_DIM} and b*h <= 65535, got "
                          f"{tuple(q.shape)}; {WIDER}")
     if seg is not None:
         if seg.device != q.device or seg.dtype != torch.int32 or \
                 tuple(seg.shape) != (b, T) or not seg.is_contiguous():
-            raise ValueError(f"{OP}: segment ids must be a contiguous int32 (b, T)="
+            raise ValueError(f"{op}: segment ids must be a contiguous int32 (b, T)="
                              f"({b}, {T}) tensor on {q.device}, got {seg.dtype} "
                              f"{tuple(seg.shape)} on {seg.device}")
+
+
+def _heads_buffer(q) -> torch.Tensor:
+    """An empty (b, h, T, hd) view of a (b, T, h, hd) buffer of q's dtype."""
+    b, h, T, hd = q.shape
+    return torch.empty((b, T, h, hd), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+
+
+def _out_strides(t) -> Tuple[int, int, int]:
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _load(lib: KernelLibrary, op: str):
+    handle = lib.get()
+    if lib.tile["m"] != _BLOCK:
+        raise RuntimeError(f"{op}: the kernel's row block is {lib.tile['m']}, not {_BLOCK}")
+    return handle
+
+
+def _kernel(q, k, v, causal: bool, scale: float, seg: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_operands(OP, q, k, v, seg)
+    b, h, T, hd = q.shape
     strides = [s for name, t in (("q", q), ("k", k), ("v", v))
-               for s in _strides(name, t)]
-    # o as a (b, h, T, hd) view of a (b, T, h, hd) buffer
-    o = torch.empty((b, T, h, hd), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+               for s in _strides(OP, name, t)]
+    o = _heads_buffer(q)
     lse = torch.empty((b * h, T), dtype=torch.float32, device=q.device)
-    lib = _LIB.get()
-    if _LIB.tile["m"] != bm:
-        raise RuntimeError(f"{OP}: the kernel's row block is {_LIB.tile['m']}, not {bm}")
+    lib = _load(_LIB, OP)
     with torch.cuda.device(q.device):
         launch(lib.dl4j_flash_fwd, OP,
                (*ptrs(q, k, v), 0 if seg is None else seg.data_ptr(), *ptrs(o, lse),
                 b, h, T, hd, int(causal), int(q.dtype == torch.bfloat16), *strides,
-                o.stride(0), o.stride(1), o.stride(2), float(scale)))
+                *_out_strides(o), float(scale)))
     return o, lse
+
+
+def _bwd_args(op, q, k, v, lse, do, dcap, seg):
+    """Checks of a backward kernel's operands -> (dO with a unit-stride head
+    dim, the (batch, head, time) strides of q, k, v and dO). Autograd may
+    hand over an expanded or strided gradient: the kernels read dO through
+    its strides, so only a head dim that is not unit-stride is copied."""
+    if do.dim() == 4 and do.stride(3) != 1 and do.shape[3] > 1:
+        do = do.contiguous()
+    _check_operands(op, q, k, v, seg, (("dO", do),))
+    b, h, T, _ = q.shape
+    for name, t in (("lse", lse), ("D", dcap)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b * h, T) or \
+                not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{op}: {name} must be a contiguous f32 (b*h, T)=({b * h}, {T}) "
+                             f"tensor on {q.device}, got {t.dtype} {tuple(t.shape)}")
+    ins = [s for name, t in (("q", q), ("k", k), ("v", v), ("dO", do))
+           for s in _strides(op, name, t)]
+    return do, ins
+
+
+def flash_attention_dq(q, k, v, lse, do, dcap, causal: bool, scale: float,
+                       segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dq (the reference's ``_dq_kernel``; ``dcap``: ``D``, (b*h, T) f32). A
+    CPU ``q`` takes :func:`flash_attention_dq_plain`; a CUDA ``q`` the
+    kernel, or it raises."""
+    if q.device.type == "cpu":
+        return flash_attention_dq_plain(q, k, v, lse, do, dcap, causal, scale, segment_ids)
+    do, ins = _bwd_args(OP_DQ, q, k, v, lse, do, dcap, segment_ids)
+    b, h, T, hd = q.shape
+    dq = _heads_buffer(q)
+    lib = _load(_BWD_LIB, OP_DQ)
+    with torch.cuda.device(q.device):
+        launch(lib.dl4j_flash_bwd_dq, OP_DQ,
+               (*ptrs(q, k, v, do, lse, dcap), 0 if segment_ids is None else segment_ids.data_ptr(),
+                dq.data_ptr(), b, h, T, hd, int(causal), int(q.dtype == torch.bfloat16), *ins,
+                *_out_strides(dq), float(scale)))
+    return dq
+
+
+def flash_attention_dkv(q, k, v, lse, do, dcap, causal: bool, scale: float,
+                        segment_ids: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) (the reference's ``_dkv_kernel``). A CPU ``q`` takes
+    :func:`flash_attention_dkv_plain`; a CUDA ``q`` the kernel, or it
+    raises."""
+    if q.device.type == "cpu":
+        return flash_attention_dkv_plain(q, k, v, lse, do, dcap, causal, scale, segment_ids)
+    do, ins = _bwd_args(OP_DKV, q, k, v, lse, do, dcap, segment_ids)
+    b, h, T, hd = q.shape
+    dk, dv = _heads_buffer(k), _heads_buffer(v)
+    lib = _load(_BWD_LIB, OP_DKV)
+    with torch.cuda.device(q.device):
+        launch(lib.dl4j_flash_bwd_dkv, OP_DKV,
+               (*ptrs(q, k, v, do, lse, dcap), 0 if segment_ids is None else segment_ids.data_ptr(),
+                *ptrs(dk, dv), b, h, T, hd, int(causal), int(q.dtype == torch.bfloat16), *ins,
+                *_out_strides(dk), *_out_strides(dv), float(scale)))
+    return dk, dv
+
+
+def _forward(q, k, v, causal, scale, segment_ids):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, scale, segment_ids)
+    return _kernel(q, k, v, causal, scale, segment_ids)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
+                        segment_ids: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` from the forward's ``o`` and ``lse`` and the gradient
+    ``do`` of ``o`` (the reference's ``_bwd_impl``): ``D`` by
+    :func:`row_dot`, then :func:`flash_attention_dq` and
+    :func:`flash_attention_dkv` (the plain versions for a CPU ``q``; on
+    CUDA the kernels, at the forward's limits, ``do`` of q's dtype and
+    shape with any batch/head/time strides, or it raises)."""
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"{OP_DQ}: o and dO must have q's shape {tuple(q.shape)}, got "
+                         f"{tuple(o.shape)} and {tuple(do.shape)}")
+    dcap = row_dot(o, do).contiguous()
+    dq = flash_attention_dq(q, k, v, lse, do, dcap, causal, scale, segment_ids)
+    dk, dv = flash_attention_dkv(q, k, v, lse, do, dcap, causal, scale, segment_ids)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's custom VJP (``_flash``/``_flash_seg``): the forward
+    kernel (the plain version on the CPU) saving ``q, k, v, o, lse`` and the
+    segment ids; the backward kernels in the backward. ``lse`` and the
+    segment ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, causal, scale):
+        o, lse = _forward(q, k, v, causal, scale, seg)
+        ctx.save_for_backward(q, k, v, o, lse, seg)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, seg = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale, seg)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_fwd(q, k, v, causal: bool, scale: float,
                         segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)``: the kernel's entry (the reference's ``_fwd_impl``). A CPU
-    ``q`` takes the plain version; a CUDA ``q`` the kernel (f32 or bf16
-    q/k/v of one shape, ``T % 64 == 0``, ``hd <= 128``, int32 segment ids),
-    or it raises. Forward only."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, scale, segment_ids)
+    """``(o, lse)``: the forward kernel's entry (the reference's
+    ``_fwd_impl``). A CPU ``q`` takes the plain version; a CUDA ``q`` the
+    kernel (f32 or bf16 q/k/v of one shape, ``T % 64 == 0``, ``hd <= 128``,
+    int32 segment ids), or it raises. Where a gradient is recorded it runs
+    through :class:`FlashAttention`, so ``o`` carries one."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(f"{OP}: {NO_BACKWARD}")
-    return _kernel(q, k, v, causal, scale, segment_ids)
+        return FlashAttention.apply(q, k, v, segment_ids, causal, scale)
+    return _forward(q, k, v, causal, scale, segment_ids)
 
 
 def flash_attention(q, k, v, *, causal: bool = False, sm_scale: Optional[float] = None,
                     segment_ids=None) -> torch.Tensor:
     """O(T)-memory attention. q, k, v: (b, h, T, head_dim) with equal q/kv
-    lengths, T a multiple of 128 and <= MAX_SEQ_LEN. ``segment_ids``: an
+    lengths, T a multiple of 128 and <= MAX_SEQ_LEN. Differentiable (the
+    backward kernels under :class:`FlashAttention`). ``segment_ids``: an
     optional (b, T) int array for packed sequences (a token attends only to
     keys with the same id; composes with ``causal``)."""
     b, h, T, hd = q.shape

@@ -63,7 +63,8 @@ def _device_time_us(evt) -> float:
 # GEMM, "gemm_cf32"); cuBLAS's GEMM/GEMV come after them (its bf16 kernels
 # are named "nvjet_*" or "cutlass*")
 GROUPS = (
-    ("flash-attention kernels", ("flash_fwd_kernel",)),
+    ("flash-attention kernels", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                 "flash_bwd_dkv_kernel")),
     ("fused LSTM cell kernels", ("lstm_cell_kernel",)),
     ("int8_matmul kernels", ("int8_partial_kernel", "int8_reduce_kernel")),
     ("fused conv kernels", ("fused_conv_fwd_kernel", "conv_bwd_dx_kernel",

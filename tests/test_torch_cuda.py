@@ -18,11 +18,17 @@ bf16 step of ``|ref|`` plus 2e-5 (``_lstm_tol``); a row's bits do not depend
 on its batch. The flash-attention forward against the plain version run in
 f32 on its operands widened exactly: f32 ``o`` and ``lse`` within 1e-5; bf16
 ``o`` within ``2^-8 (P @ |v|) + 2^-8 |o_ref| + 1e-5`` per element (the
-rounding of ``p`` and of ``o``, ``_flash_tol``), ``lse`` within 1e-5.
+rounding of ``p`` and of ``o``, ``_flash_tol``), ``lse`` within 1e-5. The
+flash backward kernels against ``chip_smoke.flash_bwd_oracle`` (phase 2f's
+limits: the plain backward in f32 on the widened operands; f32 within 1e-5 of
+the terms' magnitudes, bf16 one rounding of ``p``/``ds`` and one of the
+output, each capped at the JAX probe's 1.6e-3 / 0.16).
 """
 
 import copy
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,6 +44,9 @@ from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
 from deeplearning4j_tpu_torch.nn.ops import int8_matmul as im
 from deeplearning4j_tpu_torch.serving import InferenceEngine
 from deeplearning4j_tpu_torch.updaters import Nesterovs
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (phase 2f's oracle of the flash backward)
 
 pytestmark = pytest.mark.cuda
 
@@ -588,8 +597,11 @@ def test_flash_kernel_refusals(card):
     with pytest.raises(ValueError, match="segment"):
         fa.flash_attention_fwd(q, k, v, True, 0.125,
                                torch.zeros(1, 128, dtype=torch.int64, device="cuda"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention_fwd(q.requires_grad_(), k, v, True, 0.125)
+    # a call that records a gradient runs the kernel and carries one
+    qg = q.detach().requires_grad_()
+    fa.reset_launch_counts()
+    o, _ = fa.flash_attention_fwd(qg, k, v, True, 0.125)
+    assert o.grad_fn is not None and dict(fa.launch_counts) == {"flash_attention_fwd": 1}
 
 
 def test_transformer_forward_prefill_and_decode_on_the_card(card):
@@ -639,3 +651,134 @@ def test_transformer_forward_prefill_and_decode_on_the_card(card):
         gen.shutdown()
     for p, o in zip(prompts, outs):
         assert o.shape == (len(p) + 8,) and o.min() >= 0 and o.max() < 128
+
+
+# --------------------------------------------------- flash attention backward
+FLASH_BWD_CASES = [  # (b, h, T, hd, causal, dtype, segmented)
+    (2, 4, 256, 64, True, torch.bfloat16, False),
+    (1, 12, 512, 64, True, torch.bfloat16, False),
+    (2, 4, 256, 64, False, torch.bfloat16, False),
+    (2, 4, 384, 64, True, torch.bfloat16, True),
+    (1, 3, 256, 32, True, torch.bfloat16, False),
+    (1, 3, 256, 40, False, torch.bfloat16, True),
+    (1, 2, 128, 128, True, torch.bfloat16, False),
+    (1, 3, 256, 64, True, torch.float32, False),
+    (2, 2, 128, 40, False, torch.float32, True),
+    (1, 2, 128, 128, True, torch.float32, True),
+]
+
+
+def _bwd_case(b, h, T, hd, causal, dtype, segmented, seed):
+    q, k, v = _qkv(b, h, T, hd, dtype, seed)
+    do = _qkv(b, h, T, hd, dtype, seed + 1)[0]
+    seg = None
+    if segmented:  # three packed sequences, cuts off the 64-row tiles
+        seg = torch.zeros(b, T, dtype=torch.int32)
+        seg[:, T // 3:] = 1
+        seg[:, T // 3 + 77:] = 2
+        seg = seg.cuda()
+    scale = hd ** -0.5
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, seg)
+    return q, k, v, o, lse, do, scale, seg
+
+
+@pytest.mark.parametrize("b,h,T,hd,causal,dtype,segmented", FLASH_BWD_CASES)
+def test_flash_backward_kernels_match_plain(card, b, h, T, hd, causal, dtype, segmented):
+    q, k, v, o, lse, do, scale, seg = _bwd_case(b, h, T, hd, causal, dtype, segmented, T + hd)
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale, seg)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale, seg)
+    torch.cuda.synchronize()
+    assert dict(fa.launch_counts) == {"flash_attention_dq": 2, "flash_attention_dkv": 2}
+    ref, tols = chip_smoke.flash_bwd_oracle(fa, q, k, v, o, lse, do, causal, scale, seg)
+    if causal:  # the limits would catch a lost mask
+        lost = fa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o)), lse,
+                                            do.float(), False, scale, seg)
+    for name, g, g2, r, tol, i in zip(("dq", "dk", "dv"), got, again, ref, tols, range(3)):
+        assert g.dtype == dtype and g.shape == (b, h, T, hd), name
+        assert g.transpose(1, 2).is_contiguous(), name       # a view of (b, T, h, hd)
+        assert torch.equal(g, g2), f"{name}: two runs differ"
+        err = (g.float() - r).abs()
+        assert bool((err <= tol).all()), f"{name}: max err/tol {float((err / tol).max())}"
+        if causal:
+            assert float(((lost[i] - r).abs() / tol).max()) > 10, name
+
+
+def test_flash_backward_takes_strided_and_expanded_gradients(card):
+    """dO as autograd hands it over: a (b, h, T, hd) view of (b, T, h, hd), or
+    expanded (stride 0); the kernels give what they give on dO contiguous."""
+    q, k, v, o, lse, _, scale, _ = _bwd_case(2, 3, 256, 64, True, torch.bfloat16, False, 7)
+    g = torch.Generator().manual_seed(9)
+    do_view = torch.randn(2, 256, 3, 64, generator=g).bfloat16().cuda().transpose(1, 2)
+    do_exp = torch.full((1, 1, 1, 1), 0.5, dtype=torch.bfloat16, device="cuda").expand(
+        2, 3, 256, 64)
+    with torch.inference_mode():
+        for do in (do_view, do_exp):
+            a = fa.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+            b_ = fa.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), True, scale)
+            assert all(torch.equal(x, y) for x, y in zip(a, b_))
+
+
+def test_flash_backward_refusals(card):
+    q, k, v, o, lse, do, scale, _ = _bwd_case(1, 2, 128, 64, True, torch.bfloat16, False, 3)
+    bwd = fa.flash_attention_bwd
+    with pytest.raises(TypeError, match="ROADMAP"):
+        bwd(q.half(), k.half(), v.half(), o.half(), lse, do.half(), True, scale)
+    with pytest.raises(TypeError):
+        bwd(q, k, v, o, lse, do.float(), True, scale)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        bwd(*(t[:, :, :96] for t in (q, k, v, o)), lse[:, :96].contiguous(), do[:, :, :96],
+            True, scale)
+    big = torch.zeros(1, 1, 128, 160, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        bwd(big, big, big, big, torch.zeros(1, 128, device="cuda"), big, True, 0.1)
+    with pytest.raises(ValueError, match="lse"):
+        bwd(q, k, v, o, lse[:1], do, True, scale)
+    with pytest.raises(ValueError, match="segment"):
+        bwd(q, k, v, o, lse, do, True, scale, torch.zeros(1, 128, dtype=torch.int64,
+                                                           device="cuda"))
+
+
+def test_flash_attention_gradients_through_the_function(card):
+    """``flash_attention`` records a gradient on the card: its backward runs
+    the two kernels once each and gives what ``flash_attention_bwd`` gives."""
+    q, k, v, o, lse, do, scale, seg = _bwd_case(1, 2, 256, 64, True, torch.bfloat16, True, 11)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    fa.reset_launch_counts()
+    out = fa.flash_attention(qr, kr, vr, causal=True, sm_scale=scale, segment_ids=seg)
+    grads = torch.autograd.grad(out, (qr, kr, vr), do)
+    assert dict(fa.launch_counts) == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+                                      "flash_attention_dkv": 1}
+    with torch.inference_mode():
+        want = fa.flash_attention_bwd(q, k, v, o, lse, do, True, scale, seg)
+    assert torch.equal(out.detach(), o)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
+def test_transformer_fit_batch_on_the_card(card):
+    """A narrow bf16 TransformerLM: each fit_batch at T 256 launches exactly
+    one flash forward, one dq and one dkv kernel per layer; the loss falls;
+    logits afterwards follow the trained params."""
+    from deeplearning4j_tpu_torch.models import transformer_lm as tlm
+
+    model = tlm.TransformerLM(vocab_size=128, d_model=64, n_heads=2, n_layers=3,
+                              max_length=256, compute_dtype="bfloat16").init()
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, 128, (2, 256))
+    tgt = np.roll(ids, -1, axis=1)
+    tgt[:, -1] = -1
+    before = model.logits(ids[:1])
+    losses = []
+    for _ in range(5):
+        fa.reset_launch_counts()
+        losses.append(model.fit_batch(ids, tgt))
+        assert dict(fa.launch_counts) == {"flash_attention_fwd": 3, "flash_attention_dq": 3,
+                                          "flash_attention_dkv": 3}
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    after = model.logits(ids[:1])
+    with torch.inference_mode():
+        fresh = tlm.forward(model.cfg, tlm.compute_params(model.cfg, model.params_),
+                            torch.from_numpy(ids[:1]).cuda()).cpu().numpy()
+    assert np.array_equal(after, fresh) and not np.array_equal(after, before)

@@ -16,8 +16,9 @@ the JAX package's Pallas kernel on the CPU.
   for the same shapes on "cuda" (``tests/test_attention.py:318-339``),
   head dims over 128 and f16 included: the kernel's argument checks, not
   the route, refuse those, so nothing on the card falls back.
-- A call on a non-CPU tensor that would record a gradient raises before any
-  kernel is reached (the backward kernels come with the training slice).
+- A call that records a gradient goes through ``FlashAttention``: off the
+  CPU to the kernel, on the CPU through the plain versions (their gradients
+  against JAX's are in ``test_torch_flash_bwd.py``).
 """
 
 import importlib
@@ -182,7 +183,26 @@ def test_constants_match_jax():
     assert fa._NEG_INF == jfa._NEG_INF
 
 
-def test_a_gradient_call_off_the_cpu_raises_before_the_kernel():
+def test_a_gradient_call_off_the_cpu_raises_before_the_kernel(monkeypatch):
+    """A call that records a gradient is no longer refused. Off the CPU it
+    goes through ``FlashAttention`` to the kernel: here the kernel library's
+    loader, stubbed to raise, shows that it got there, before any launch. On
+    the CPU it runs the plain versions and carries a gradient."""
+
+    class Reached(Exception):
+        pass
+
+    def reached():
+        raise Reached
+
+    monkeypatch.setattr(fa._LIB, "get", reached)
     q = torch.zeros(1, 1, 128, 16, device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    n0 = dict(fa.launch_counts)
+    with pytest.raises(Reached):
         fa.flash_attention_fwd(q, q, q, True, 0.25)
+    assert dict(fa.launch_counts) == n0
+    qc = torch.randn(1, 1, 128, 16, requires_grad=True)
+    o, lse = fa.flash_attention_fwd(qc, qc, qc, True, 0.25)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward" and not lse.requires_grad
+    o.sum().backward()
+    assert qc.grad is not None and bool(torch.isfinite(qc.grad).all())

@@ -18,11 +18,16 @@ the CPU, with params carried from JAX through ``interop``.
   op by op, so logits agree within 4 bf16 steps (4 * 2^-7) of the largest
   |logit|, and tokens are identical up to the first step whose JAX top-2
   gap is within twice the measured logit difference.
-- The typed refusals: MoE, ``fit_batch``, ``decode_steps``, manual
-  parallelism, attention dropout and train mode.
+- The typed refusals: MoE, ``decode_steps``, manual parallelism, attention
+  dropout and the attention layers' train mode; ``fit_batch`` and
+  ``lm_loss``'s gradients, refused before training was ported, now run
+  (their parity with JAX is in ``test_torch_transformer_train.py``).
+- ``compute_params``' cache follows replaced and trained params (a freed
+  tensor's ``id`` reused by a new one served a stale cast before).
 """
 
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -334,14 +339,57 @@ def test_typed_refusals():
         TransformerLM(n_experts=4, **CONF).init(device="cpu")
     tm = TransformerLM(**CONF).init(device="cpu")
     ids = np.zeros((1, 8), np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.fit_batch(ids, ids)
+    # training is ported: fit_batch takes a step, lm_loss carries gradients
+    assert math.isfinite(tm.fit_batch(ids, ids)) and tm.iteration == 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.decode_steps(tm.cfg, tm.params_, tlm.init_decode_cache(tm.cfg, 1),
                          torch.zeros(1, 2, dtype=torch.long))
     layer0 = {k: v[0] for k, v in tm.params_["blocks"].items()}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.block_apply(tm.cfg, layer0, torch.zeros(1, 4, 32), tp_axis="model")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.lm_loss(tm.cfg, {**tm.params_, "head": tm.params_["head"].requires_grad_()},
-                    torch.zeros(1, 4, dtype=torch.long), torch.zeros(1, 4, dtype=torch.long))
+    head = tm.params_["head"].detach().requires_grad_()
+    tlm.lm_loss(tm.cfg, {**tm.params_, "head": head}, torch.zeros(1, 4, dtype=torch.long),
+                torch.zeros(1, 4, dtype=torch.long)).backward()
+    assert head.grad is not None and float(head.grad.abs().sum()) > 0
+
+
+# ------------------------------------------------------- compute_params' cache
+def _c1_model():
+    return TransformerLM(vocab_size=50, d_model=32, n_heads=4, n_layers=1, max_length=64,
+                         compute_dtype="bfloat16").init(device="cpu")
+
+
+def _uncached(tm, ids):
+    with torch.inference_mode():
+        return tlm.forward(tm.cfg, tlm.compute_params(tm.cfg, tm.params_),
+                           torch.from_numpy(ids)).numpy()
+
+
+def test_compute_params_follows_replaced_params():
+    """ROADMAP § C1: keyed on ``(id, _version)``, the cache served the cast
+    of a freed head once a new tensor took its ``id`` (49 of 50 trials of
+    this sequence). Keyed on the tensors themselves, ``logits`` equals the
+    uncached forward after every replacement and every in-place change."""
+    tm = _c1_model()
+    ids = np.random.default_rng(0).integers(0, 50, (2, 16))
+    for trial in range(20):
+        tm.logits(ids)
+        for _ in range(2):
+            tm.params_["head"] = torch.randn_like(tm.params_["head"])
+        np.testing.assert_array_equal(tm.logits(ids), _uncached(tm, ids), err_msg=str(trial))
+    with torch.no_grad():
+        tm.params_["blocks"]["W1"].mul_(2.0)
+    np.testing.assert_array_equal(tm.logits(ids), _uncached(tm, ids))
+
+
+def test_logits_follow_fit_batch():
+    tm = _c1_model()
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 50, (2, 16))
+    tgt = np.roll(ids, -1, axis=1)
+    tgt[:, -1] = -1
+    before = tm.logits(ids)
+    tm.fit_batch(ids, tgt)
+    after = tm.logits(ids)
+    np.testing.assert_array_equal(after, _uncached(tm, ids))
+    assert not np.array_equal(after, before)
