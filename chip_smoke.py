@@ -43,7 +43,17 @@ seeded) through ``fit_batch``: one step's gradients against the plain path
 on the card, dense and packed (two documents per row), exactly 12 forward,
 12 dq and 12 dkv launches per step, ten steps whose loss falls, train
 tokens/s at 16 x 512 and 4 x 2048, and logits after training against the
-uncached forward. Each phase prints one or more lines;
+uncached forward. Phase 2g holds the fused Adam of the ZeRO-1 sharded
+update against its plain version (the eager ``Adam.apply``), torch.equal on
+p, m and v at ResNet-50's and VGG16's flat group sizes and ragged ones, and
+times it. Phase 10 trains the full-width ResNet-50 with Adam through
+``ParallelWrapper(workers=1, sharded_update=True)`` on a one-rank NCCL group:
+one sharded update against the per-layer eager update, bit for bit; five fit
+steps with exact launch counts (the fused convs' and one fused Adam per f32
+Adam group) and a falling score; a checkpoint written mid-fit restored with
+its updater state, whose next step equals the uninterrupted run's; train
+images/s; and LeNet through ``MultiLayerNetwork.fit`` and the wrapper,
+replicated and sharded, bit for bit. Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
 prints them), and
@@ -62,6 +72,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,6 +117,7 @@ KERNELS = {
                            "deeplearning4j_tpu/nn/ops/flash_attention.py:125"),
     "flash_attention_dkv": (f"{CSRC}/flash_attention_bwd.cu",
                             "deeplearning4j_tpu/nn/ops/flash_attention.py:166"),
+    "fused_adam": (f"{CSRC}/fused_update.cu", "deeplearning4j_tpu/nn/ops/fused_update.py:59"),
 }
 # VGG16 (1000 classes, 224x224x3): the three dense heads (K, N), the layer
 # index of the first one, and the int8 report the engine must give
@@ -2372,6 +2384,344 @@ def lm_train_phase(fa, card: str):
                      "held_mem_gib": l_held}}
 
 
+# phase 2g: the fused Adam at the sizes of the sharded update's flat groups:
+# ResNet-50's (from its layout), VGG16's 138,357,544 parameters, ragged ones
+VGG16_PARAMS = 138_357_544
+ADAM_RAGGED = [1, 3, 4095, 4097, 1_000_003]
+ADAM_STEPS = [1, 2, 1000]
+ADAM_LR = 1e-4                # phase 10: Adam(ADAM_LR) on ResNet-50 and LeNet
+ADAM_BYTES_PER_ELEM = 28      # reads p, g, m, v; writes p', m', v' (f32)
+ZERO1_STEPS = 5               # phase 10's main path: sharded fit steps on one batch
+LENET_STEPS = 3
+
+
+def adam_inputs(n, seed):
+    """Seeded f32 (p, g, m, v) on the card; v non-negative."""
+    g = torch.Generator().manual_seed(seed)
+    p, grad, m = (torch.randn(n, generator=g).cuda() for _ in range(3))
+    v = torch.randn(n, generator=g).abs().cuda() * 1e-4
+    return p, grad, m * 1e-2, v
+
+
+def resnet50_adam_groups():
+    """The element counts of the flat groups of a one-rank sharded update
+    of the full-width ResNet-50 under Adam(ADAM_LR)."""
+    from deeplearning4j_tpu_torch.parallel import zero
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    model, _ = resnet50(updater=Adam(ADAM_LR))
+    sizes = [g.total for g in zero.build_layout(model, 1).groups]
+    del model
+    torch.cuda.empty_cache()
+    return sizes
+
+
+def library_adam(p, grad, m, v, alpha_step):
+    """``torch._fused_adam_`` over the one flat tensor (in place): a timing
+    yardstick only (its eps sits inside the bias correction, so it is not
+    DL4J's Adam), never called by the port. None where torch lacks it."""
+    fn = getattr(torch, "_fused_adam_", None)
+    if fn is None:
+        return None
+    step = torch.tensor([float(alpha_step)], device=p.device)
+    return lambda: fn([p], [grad], [m], [v], [], [step], lr=ADAM_LR, beta1=0.9,
+                      beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                      maximize=False)
+
+
+def adam_phase(fu):
+    """Phase 2g: the fused Adam kernel against its plain version (the eager
+    ``Adam.apply`` composition) on the card: torch.equal on p', m', v' at
+    every size and step, the zero padding lanes of a group padded to 4
+    shards, two runs bit-identical; times at ResNet-50's group size."""
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    upd = Adam(ADAM_LR)
+    groups = resnet50_adam_groups()
+    sizes = groups + [VGG16_PARAMS] + ADAM_RAGGED
+    rows, failed = [], []
+    for n in sizes:
+        p, grad, m, v = adam_inputs(n, SEED + n % 9973)
+        for t in ADAM_STEPS:
+            alpha = upd.alpha(t, t - 1, 0)
+            got = fu.fused_adam_apply(p, grad, m, v, alpha, b1=0.9, b2=0.999, eps=1e-8)
+            want = fu.fused_adam_plain(p, grad, m, v, alpha, b1=0.9, b2=0.999, eps=1e-8)
+            again = fu.fused_adam_apply(p, grad, m, v, alpha, b1=0.9, b2=0.999, eps=1e-8)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            rerun = all(torch.equal(a, b) for a, b in zip(got, again))
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            rows.append({"n": n, "t": t, "equal": equal, "rerun_identical": rerun,
+                         "max_abs_err": err})
+            if not (equal and rerun):
+                failed.append((n, t, err, rerun))
+            del got, want, again
+        del p, grad, m, v
+    # a group of 1,000,003 elements padded to 4 shards of 250,001: one zero lane
+    n = ADAM_RAGGED[-1]
+    padded = [torch.cat([a, a.new_zeros((-n) % 4)]).view(4, -1) for a in adam_inputs(n, SEED)]
+    lanes = [a.reshape(-1)[n:] for a in fu.fused_adam_apply(
+        *padded, upd.alpha(3, 2, 0), b1=0.9, b2=0.999, eps=1e-8)]
+    lanes_zero = all(bool((a == 0).all()) for a in lanes) and lanes[0].numel() == 1
+    # times at ResNet-50's group size
+    n = groups[0]
+    p, grad, m, v = adam_inputs(n, SEED)
+    alpha = upd.alpha(2, 1, 0)
+    kernel_ms = time_ms(lambda: fu.fused_adam_apply(p, grad, m, v, alpha, b1=0.9, b2=0.999,
+                                                    eps=1e-8))
+    plain_ms = time_ms(lambda: fu.fused_adam_plain(p, grad, m, v, alpha, b1=0.9, b2=0.999,
+                                                   eps=1e-8))
+    lib = library_adam(p.clone(), grad, m.clone(), v.clone(), 2)
+    library_ms = None if lib is None else time_ms(lib)
+    bound_ms, bound_by = bound(0.0, ADAM_BYTES_PER_ELEM * n)
+    vgg_kernel_ms = None
+    del p, grad, m, v
+    p, grad, m, v = adam_inputs(VGG16_PARAMS, SEED)
+    vgg_kernel_ms = time_ms(lambda: fu.fused_adam_apply(p, grad, m, v, alpha, b1=0.9,
+                                                        b2=0.999, eps=1e-8))
+    vgg_bound_ms = bound(0.0, ADAM_BYTES_PER_ELEM * VGG16_PARAMS)[0]
+    del p, grad, m, v
+    torch.cuda.empty_cache()
+    print(f"phase 2g fused_adam: {len(rows)} cases (sizes {sizes}, t {ADAM_STEPS}) "
+          f"torch.equal to the plain version on p, m, v: "
+          f"{sum(r['equal'] for r in rows)}/{len(rows)}, reruns bit-identical "
+          f"{sum(r['rerun_identical'] for r in rows)}/{len(rows)}; padding lane of a "
+          f"4-shard group stays 0: {lanes_zero}; at ResNet-50's {n:,} elements: kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, torch._fused_adam_ "
+          f"{library_ms if library_ms is None else round(library_ms, 4)} ms (yardstick "
+          f"only: not DL4J's eps), bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{ADAM_BYTES_PER_ELEM} B/element); VGG16's {VGG16_PARAMS:,}: kernel "
+          f"{vgg_kernel_ms:.4f} ms, bound {vgg_bound_ms:.4f} ms", flush=True)
+    if failed or not lanes_zero:
+        raise AssertionError(f"fused_adam disagrees with its plain version: {failed}, "
+                             f"padding lanes zero {lanes_zero}")
+    return rows, {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
+                  "elements": n, "vgg16": {"elements": VGG16_PARAMS,
+                                           "kernel_ms": vgg_kernel_ms,
+                                           "bound_ms": vgg_bound_ms}}
+
+
+class RecordingIterator:
+    """Iterates ``batches``, calling ``before(i)`` ahead of handing out
+    batch i (a train step follows each): where a step's launches are read,
+    and where a checkpoint is written in the middle of a fit."""
+
+    def __init__(self, batches, before):
+        from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+
+        self.inner = ExistingDataSetIterator(batches)
+        self.before, self.i = before, 0
+
+    def __iter__(self):
+        for ds in self.inner:
+            self.before(self.i)
+            self.i += 1
+            yield ds
+
+    def reset(self):
+        self.inner.reset()
+        self.i = 0
+
+
+def _opt_tensors(opt):
+    """(name, tensor) for every slot of a graph's or a list network's
+    updater state."""
+    groups = opt.items() if isinstance(opt, dict) else enumerate(opt)
+    for key, o in groups:
+        for pn in sorted(o):
+            for slot in sorted(o[pn]):
+                yield f"{key}/{pn}/{slot}", o[pn][slot]
+
+
+def zero1_phase(fc, fu, card: str, train: dict):
+    """Phase 10: ResNet-50 (and LeNet) through ParallelWrapper with the
+    ZeRO-1 sharded update on a one-rank NCCL group."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import LeNet
+    from deeplearning4j_tpu_torch.nn.graph import _as_multi
+    from deeplearning4j_tpu_torch.nn.multilayer import apply_layer_updates
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, TrainingMesh, zero
+    from deeplearning4j_tpu_torch.train.model_serializer import ModelSerializer
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    failed = []
+    mesh = TrainingMesh(workers=1, device="cuda")
+    model, _ = resnet50(updater=Adam(ADAM_LR))
+    rng = np.random.default_rng(SEED + 10)
+    x = rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)]
+    ds = DataSet(x, y)
+    names = model.layer_names
+    layers = [model._layer(nm) for nm in names]
+
+    # (a) one update, bitwise: the sharded update with the kernel against
+    # the per-layer eager Adam.apply, from the same params, gradients, slots
+    _, _, grads = model._value_and_grad(*model._batch(_as_multi(ds)))
+    g = torch.Generator().manual_seed(SEED)
+    opt = {nm: {pn: {"m": (torch.randn(t.shape, generator=g) * 1e-3).cuda(),
+                     "v": (torch.rand(t.shape, generator=g) * 1e-6).cuda()}
+                for pn, t in model.params_[nm].items()} for nm in names}
+    p_list, g_list = [model.params_[nm] for nm in names], [grads[nm] for nm in names]
+    o_list = [opt[nm] for nm in names]
+    ref_p, ref_o = apply_layer_updates(layers, p_list, g_list, o_list, 3, 2, 0)
+    layout = zero.build_layout(model, mesh.n_data)
+    impls = fu.resolve_group_impls(layout)
+    n_groups = sum(i is not None for i in impls)
+    fc.reset_launch_counts()
+    got_p, zopt = zero.apply_sharded_updates(layout, p_list, g_list,
+                                             layout.shard_opt_state(o_list, mesh), 3, 2, 0,
+                                             mesh=mesh, fused_impls=impls)
+    one_update = fc.launch_counts.get("fused_adam", 0)
+    got_o = layout.unshard_opt_state(zopt, o_list, mesh)
+    torch.cuda.synchronize()
+    unequal = [f"{nm}/{k}" for nm, a, b in zip(names, got_p, ref_p) for k in b
+               if not torch.equal(a[k], b[k])]
+    unequal += [f"{nm}/{k}/{s}" for nm, a, b in zip(names, got_o, ref_o) for k in b
+                for s in b[k] if not torch.equal(a[k][s], b[k][s])]
+    n_tensors = sum(len(b) for b in ref_p) + sum(len(b[k]) for b in ref_o for k in b)
+    print(f"phase 10 one update: ResNet-50 1000 classes 224x224 bf16 fused, Adam({ADAM_LR}), "
+          f"{mesh}; layout: {len(layout.groups)} groups, {n_groups} f32 Adam groups (G) of "
+          f"{[grp.total for grp in layout.groups]} elements; sharded update with the kernel "
+          f"({one_update} fused_adam launches) vs per-layer eager Adam.apply: "
+          f"{n_tensors - len(unequal)}/{n_tensors} params and slots torch.equal", flush=True)
+    if unequal or one_update != n_groups or n_groups < 1:
+        failed.append(f"one update: {len(unequal)} tensors differ ({unequal[:5]}), "
+                      f"{one_update} launches for {n_groups} groups")
+    del grads, opt, p_list, g_list, o_list, ref_p, ref_o, got_p, got_o, zopt
+
+    # (b) the main path: sharded fit steps through the wrapper; counts from 0
+    # just before, read just after; each step's launches read as the next
+    # batch is handed out
+    pw = ParallelWrapper.builder(model).workers(1).sharded_update(True).build()
+    marks = []
+    fc.reset_launch_counts()
+    it = RecordingIterator([ds] * ZERO1_STEPS, lambda i: marks.append(
+        (dict(fc.launch_counts), None if model.score_ is None else float(model.score_))))
+    pw.fit(it)
+    torch.cuda.synchronize()
+    main_launches = dict(fc.launch_counts)
+    marks.append((main_launches, float(model.score_)))
+    per_step = [{k: b[0].get(k, 0) - a[0].get(k, 0) for k in b[0]}
+                for a, b in zip(marks, marks[1:])]
+    scores = [s for _, s in marks[1:]]
+    want_step = dict(STEP_LAUNCHES, fused_adam=n_groups)
+    canonical = (isinstance(model.opt_state_, dict) and list(model.opt_state_) == names
+                 and all(model.opt_state_[nm][pn][s].shape == model.params_[nm][pn].shape
+                         for nm in names for pn in model.params_[nm] for s in ("m", "v")))
+    print(f"phase 10 steps: {ZERO1_STEPS} ParallelWrapper(workers=1, sharded_update) fit "
+          f"steps, Adam({ADAM_LR}); scores {[round(s, 5) for s in scores]}; launches per "
+          f"step {per_step[0]}; main-path launches {main_launches}; opt_state_ back in the "
+          f"per-layer layout: {canonical}", flush=True)
+    if any(s != want_step for s in per_step):
+        failed.append(f"a sharded step launched {per_step}, expected {want_step}")
+    if not (_finite(model) and all(math.isfinite(s) for s in scores) and scores[-1] < scores[0]):
+        failed.append(f"sharded fit: not finite, or score {scores[-1]} not below {scores[0]}")
+    if not canonical:
+        failed.append("opt_state_ not gathered back to the per-layer layout")
+
+    # (c) checkpoint round trip: a zip written in the middle of a sharded fit
+    # (through _opt_state_sync) restores with its updater state and resumes;
+    # its next step equals the uninterrupted run's, bit for bit under
+    # deterministic cuDNN
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    at = model.iteration + 1
+    t0 = time.perf_counter()
+    # the zip (~270 MiB) lives in a directory of the checkout that is removed
+    # at once
+    with tempfile.TemporaryDirectory(dir=os.getcwd(), prefix=".phase10-") as tmp:
+        path = os.path.join(tmp, "midfit.zip")
+
+        def write_at(i):
+            if model.iteration == at:
+                ModelSerializer.write_model(model, path)
+
+        pw.fit(RecordingIterator([ds] * 2, write_at))
+        uninterrupted = (model.params_flat(), model.opt_state_flat(), float(model.score_))
+        zip_mib = os.path.getsize(path) / 2 ** 20
+        resumed = ModelSerializer.restore_computation_graph(path)
+    restored_it = resumed.iteration
+    ParallelWrapper.builder(resumed).workers(1).sharded_update(True).build().fit(
+        ExistingDataSetIterator([ds]))
+    torch.cuda.synchronize()
+    ckpt_s = time.perf_counter() - t0
+    p_equal = np.array_equal(resumed.params_flat(), uninterrupted[0])
+    o_equal = np.array_equal(resumed.opt_state_flat(), uninterrupted[1])
+    p_err = float(np.abs(resumed.params_flat() - uninterrupted[0]).max())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    print(f"phase 10 checkpoint: zip written mid-fit at iteration {at} "
+          f"({zip_mib:.1f} MiB, with updaterState.bin), restored at "
+          f"iteration {restored_it}, one resumed step vs the uninterrupted run (deterministic "
+          f"cuDNN): params equal {p_equal} (max|dp| {p_err:.3g}), slots equal {o_equal}, "
+          f"score {float(resumed.score_):.6g} vs {uninterrupted[2]:.6g}; {ckpt_s:.1f}s",
+          flush=True)
+    if not (p_equal and o_equal and restored_it == at):
+        failed.append("checkpoint: the resumed step differs from the uninterrupted run")
+    del resumed
+
+    # (d) speed, after the warm-up above: one fit over TIMED_STEPS batches
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pw.fit(ExistingDataSetIterator([ds] * TIMED_STEPS))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 10 speed: {BATCH / step_s:.1f} train images/s at batch {BATCH} "
+          f"({step_s * 1e3:.2f} ms per step, host clock, synchronized, {TIMED_STEPS} steps in "
+          f"one fit incl. its re-shard and gather), peak memory {peak_gib:.2f} GiB (held when "
+          f"the window began {held_gib:.2f} GiB); phase 4 "
+          f"(ComputationGraph.fit, Nesterovs) {train['images_per_s']:.1f} images/s; on {card}",
+          flush=True)
+    del model, pw
+    torch.cuda.empty_cache()
+
+    # (e) LeNet: MultiLayerNetwork.fit, and the wrapper replicated and sharded
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    rng = np.random.default_rng(SEED + 11)
+    lx = rng.standard_normal((64, 28, 28, 1)).astype(np.float32)
+    ly = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 64)]
+    lds = DataSet(lx, ly)
+    nets, lenet_launch = [], []
+    for how in ("fit", "replicated", "sharded"):
+        net = LeNet(num_classes=10, seed=SEED, updater=Adam(ADAM_LR)).init()
+        fc.reset_launch_counts()
+        if how == "fit":
+            net.fit(ExistingDataSetIterator([lds] * LENET_STEPS))
+        else:
+            ParallelWrapper.builder(net).workers(1).sharded_update(how == "sharded").build() \
+                .fit(ExistingDataSetIterator([lds] * LENET_STEPS))
+        torch.cuda.synchronize()
+        lenet_launch.append(fc.launch_counts.get("fused_adam", 0))
+        nets.append(net)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    lenet_groups = sum(i is not None for i in fu.resolve_group_impls(
+        zero.build_layout(nets[2], 1)))
+    same = [np.array_equal(nets[0].params_flat(), n.params_flat())
+            and np.array_equal(nets[0].opt_state_flat(), n.opt_state_flat()) for n in nets[1:]]
+    lenet_scores = [n.score() for n in nets]
+    print(f"phase 10 LeNet: {LENET_STEPS} steps of batch 64, Adam({ADAM_LR}), deterministic "
+          f"cuDNN; fused_adam launches fit/replicated/sharded {lenet_launch} (G {lenet_groups}); "
+          f"replicated == fit {same[0]}, sharded == fit {same[1]} (params and slots); "
+          f"scores {[round(s, 5) for s in lenet_scores]}", flush=True)
+    if lenet_launch != [0, 0, LENET_STEPS * lenet_groups] or not all(same):
+        failed.append(f"LeNet: launches {lenet_launch}, equal {same}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"main_launches": main_launches, "launches_per_step": per_step[0],
+            "groups": [grp.total for grp in layout.groups], "fused_groups": n_groups,
+            "scores": scores, "lr": ADAM_LR, "one_update_equal": not unequal,
+            "checkpoint": {"params_equal": p_equal, "slots_equal": o_equal,
+                           "seconds": ckpt_s},
+            "images_per_s": BATCH / step_s, "ms_per_step": step_s * 1e3,
+            "peak_mem_gib": peak_gib, "held_gib": held_gib,
+            "phase4_images_per_s": train["images_per_s"],
+            "lenet": {"launches": lenet_launch, "groups": lenet_groups, "equal": same,
+                      "scores": lenet_scores}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2381,6 +2731,7 @@ def main() -> int:
     from deeplearning4j_tpu_torch.nn.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
     from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.nn.ops import fused_update as fu
     from deeplearning4j_tpu_torch.nn.ops import int8_matmul as im
 
     card = smi_line()
@@ -2390,7 +2741,7 @@ def main() -> int:
     print(f"phase 1 device: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernel build {build_s:.1f}s", flush=True)
     for lib in ("fused_conv", "fused_conv_bwd", "int8_matmul", "fused_lstm", "flash_attention",
-                "flash_attention_bwd"):
+                "flash_attention_bwd", "fused_update"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1 ptxas {lib}: {line.strip()}", flush=True)
@@ -2403,6 +2754,7 @@ def main() -> int:
     flash_rows, summary["flash_attention_fwd"] = flash_phase(fa)
     flash_bwd_rows, bwd_flash_summary = flash_bwd_phase(fa)
     summary.update(bwd_flash_summary)
+    adam_rows, summary["fused_adam"] = adam_phase(fu)
     serve = serve_phase(fc, card)
     train = train_phase(fc, card)
     e8, x, vgg = vgg_phase(fc, im, card)
@@ -2413,6 +2765,7 @@ def main() -> int:
     entry["transformer"] = lm_entry_points(lm_predict, lm_gen, lm_prompts, lm_outs)
     del lm_gen, lm_predict
     lm_train = lm_train_phase(fa, card)
+    zero1 = zero1_phase(fc, fu, card, train)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -2425,10 +2778,13 @@ def main() -> int:
     # decode step at 32 slots (one prefill step, B 1, under "b1"), the flash
     # forward's at the T 1024 prefill (b 1, 12 heads; every timed shape under
     # "by_shape"), the flash backward's at the train step's shape (b 16, 12
-    # heads, T 512; T 2048 under "by_shape")
+    # heads, T 512; T 2048 under "by_shape"); the fused Adam's launches from
+    # phase 10's (ParallelWrapper's sharded fit steps), its times at
+    # ResNet-50's flat group (VGG16's under "vgg16")
     kernels = []
     main_of = {"int8_matmul": vgg, "fused_lstm_cell": gen, "flash_attention_fwd": lm,
-               "flash_attention_dq": lm_train, "flash_attention_dkv": lm_train}
+               "flash_attention_dq": lm_train, "flash_attention_dkv": lm_train,
+               "fused_adam": zero1}
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]
         entry_k = {
@@ -2450,6 +2806,10 @@ def main() -> int:
         elif name in ("flash_attention_dq", "flash_attention_dkv"):
             entry_k["launches_per_train_step"] = lm_train["launches_per_step"].get(name, 0)
             entry_k["by_shape"] = s["by_shape"]
+        elif name == "fused_adam":
+            entry_k["launches_per_train_step"] = zero1["launches_per_step"].get(name, 0)
+            entry_k["elements"] = s["elements"]
+            entry_k["vgg16"] = s["vgg16"]
         elif name == "int8_matmul":
             entry_k["launches_per_forward"] = vgg["per_forward"].get(name, 0)
             entry_k["b1"] = {k: s["b1"][k] for k in ("kernel_ms", "plain_ms", "bound_ms",
@@ -2457,14 +2817,18 @@ def main() -> int:
         else:
             entry_k["launches_per_train_step"] = train["launches_per_step"].get(name, 0)
         kernels.append(entry_k)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # phase 10's one-rank NCCL group
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build_s": build_s,
                    "cases": rows, "backward_cases": bwd_rows, "int8_cases": int8_rows,
                    "lstm_cases": lstm_rows, "flash_cases": flash_rows,
-                   "flash_bwd_cases": flash_bwd_rows, "summary": summary,
+                   "flash_bwd_cases": flash_bwd_rows, "adam_cases": adam_rows,
+                   "summary": summary,
                    "serve": serve, "train": train, "vgg16": vgg, "generation": gen,
-                   "transformer": lm, "transformer_train": lm_train,
+                   "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
                    "entry_points": entry, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -41,3 +41,6 @@ class MultiDataSet:
                                else [None] * len(self.features))
         self.labels_masks = (list(labels_masks) if labels_masks
                              else [None] * len(self.labels))
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])

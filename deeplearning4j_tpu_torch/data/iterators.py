@@ -1,7 +1,7 @@
 """DataSetIterator protocol and the iterators ``fit`` consumes.
 
 Counterpart of ``deeplearning4j_tpu/data/iterators.py`` (the subset the
-training slice needs): ``has_next()/next()/reset()`` plus Python
+training slices need): ``has_next()/next()/reset()`` plus Python
 iteration. Pre-processors, async prefetch and the other combinators come
 with the data slice (ROADMAP § A).
 """
@@ -52,6 +52,26 @@ class ListDataSetIterator(DataSetIterator):
         d = self._data
         return DataSet(d.features[lo:hi], cut(d.labels), cut(d.features_mask),
                        cut(d.labels_mask))
+
+    def reset(self) -> None:
+        self._pos = 0
+
+
+class ExistingDataSetIterator(DataSetIterator):
+    """Iterate a list of prepared DataSets (reference
+    ``ExistingDataSetIterator``)."""
+
+    def __init__(self, datasets: List[DataSet]):
+        self._ds = list(datasets)
+        self._pos = 0
+
+    def has_next(self) -> bool:
+        return self._pos < len(self._ds)
+
+    def next(self) -> DataSet:
+        d = self._ds[self._pos]
+        self._pos += 1
+        return d
 
     def reset(self) -> None:
         self._pos = 0

@@ -16,8 +16,9 @@ both packages (HWIO conv weights, (nIn, nOut) dense weights, NHWC
 flattening), so no array is transposed.
 
 - :func:`load_jax_params` fills the port's model with the reference's
-  ``params_``, ``state_`` and, for a graph or a TransformerLM, optionally
-  its ``opt_state_`` and ``iteration`` (to continue a run).
+  ``params_``, ``state_`` and optionally its ``opt_state_`` and
+  ``iteration`` (to continue a run; a MultiLayerNetwork, a graph or a
+  TransformerLM).
 - :func:`export_params`, :func:`export_state`, :func:`export_opt_state`
   give the port's arrays in that form, for the reference or a test.
 - :func:`export_serving_params` gives an engine's serving snapshot (int8

@@ -27,7 +27,9 @@ from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     FeedForwardToCnnPreProcessor,
     InputPreProcessor,
 )
-from deeplearning4j_tpu_torch.regularization import RegularizationConf
+# the module, not the name: importing regularization first loads this
+# package part-way (regularization -> nn.conf.serde -> nn.conf -> here)
+from deeplearning4j_tpu_torch import regularization as _reg
 
 CONF_FORMAT_VERSION = 1
 
@@ -174,9 +176,18 @@ class NeuralNetConfiguration:
         self._g.compute_dtype = dt
         return self
 
+    def sharded_update(self, b: bool = True) -> "NeuralNetConfiguration":
+        """ZeRO-1 sharded weight update for the data-parallel runtime
+        (``parallel/zero.py``): gradients reduce-scatter over the ranks, each
+        rank applies the updater to its 1/N flat shard, the updated shards
+        all-gather back. Only ``ParallelWrapper`` reads it; a plain ``fit``
+        ignores it, as the reference's does."""
+        self._g.sharded_update = bool(b)
+        return self
+
     def _global_conf(self) -> GlobalConf:
         if self._reg_kwargs:
-            self._g.regularization = RegularizationConf(**self._reg_kwargs)
+            self._g.regularization = _reg.RegularizationConf(**self._reg_kwargs)
             self._reg_kwargs = {}
         return self._g
 

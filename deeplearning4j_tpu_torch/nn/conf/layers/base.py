@@ -24,7 +24,9 @@ import torch
 from deeplearning4j_tpu_torch import activations as _act
 from deeplearning4j_tpu_torch import initializers as _init
 from deeplearning4j_tpu_torch import updaters as _upd
-from deeplearning4j_tpu_torch.regularization import RegularizationConf
+# the module, not the name: importing regularization first loads this
+# package part-way (regularization -> nn.conf.serde -> nn.conf -> here)
+from deeplearning4j_tpu_torch import regularization as _reg
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 
@@ -157,7 +159,7 @@ class GlobalConf:
         self.activation = activation
         self.bias_init = float(bias_init)
         self.regularization = (regularization if regularization is not None
-                               else RegularizationConf())
+                               else _reg.RegularizationConf())
         self.gradient_normalization = gradient_normalization
         self.gradient_normalization_threshold = float(
             gradient_normalization_threshold)

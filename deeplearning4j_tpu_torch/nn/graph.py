@@ -20,8 +20,11 @@ Under ``compute_dtype`` the forward casts float params (except those of
 normalization and output layers and a layer's ``keep_fp32_params``) and
 float inputs to the compute dtype, as the reference does. The cast happens
 inside the differentiated function, so the gradients the updater sees are
-f32. Fault policy, rematerialization, telemetry, listeners, bundled steps,
-sharded updates and tBPTT are not ported yet and raise.
+f32. ``_value_and_grad`` and ``_apply_step`` are the two halves of the step,
+which ``ParallelWrapper`` calls apart; ``sharded_update`` is the wrapper's
+knob and a plain ``fit`` ignores it, as the reference's does. Fault policy,
+rematerialization, telemetry, listeners, bundled steps and tBPTT are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers.base import check_trainable
 from deeplearning4j_tpu_torch.nn.multilayer import (
     apply_layer_updates,
     cast_layer_params_for_compute,
+    check_train_conf,
     flatten_tensors,
     unflatten_tensors,
 )
@@ -120,6 +124,18 @@ class ComputationGraph:
     def set_params_flat(self, vec: np.ndarray) -> None:
         new = unflatten_tensors({n: self.params_[n] for n in self.layer_names}, vec)
         self.params_ = {**self.params_, **new}
+
+    def opt_state_flat(self) -> np.ndarray:
+        """One flat f32 updater-state vector: layers in topological order,
+        param names, slot names sorted (the checkpoint's
+        ``updaterState.bin`` order); zeros before the first train step."""
+        opt = self._ensure_opt_state()
+        return flatten_tensors([opt[n] for n in self.layer_names])
+
+    def set_opt_state_flat(self, vec: np.ndarray) -> None:
+        opt = self._ensure_opt_state()
+        new = unflatten_tensors({n: opt[n] for n in self.layer_names}, vec)
+        self.opt_state_ = {**opt, **new}
 
     # -------------------------------------------------------------- forward
     def compute_params(self, params: Optional[Dict[str, Tensors]] = None
@@ -282,18 +298,7 @@ class ComputationGraph:
         raise NotImplementedError(f"training listeners are {NOT_PORTED}")
 
     def _check_trainable(self) -> None:
-        g = self.conf.global_conf
-        refused = [
-            (g.fault_policy is not None, "fault_policy"),
-            (g.remat_policy not in (None, "none"), "remat_policy"),
-            (g.telemetry not in (None, False), "telemetry"),
-            (g.steps_per_call > 1, "steps_per_call > 1 (bundled steps)"),
-            (g.sharded_update, "sharded_update"),
-            (self.conf.backprop_type == "tbptt", "tbptt"),
-        ]
-        names = [what for bad, what in refused if bad]
-        if names:
-            raise NotImplementedError(f"{', '.join(names)}: {NOT_PORTED}")
+        check_train_conf(self.conf, NOT_PORTED)
         for name in self.layer_names:
             check_trainable(self._layer(name))
 
@@ -324,9 +329,14 @@ class ComputationGraph:
         return self
 
     def _fit_batch(self, mds: MultiDataSet) -> None:
-        feats, labels, lmasks = self._batch(mds)
+        self._apply_step(*self._value_and_grad(*self._batch(mds)))
+
+    def _apply_step(self, loss, new_state, grads) -> None:
+        """The second half of a train step (``_value_and_grad`` is the
+        first): the per-layer updates from ``grads``, the score (``loss``
+        plus the regularization score before the update), the new state,
+        ``iteration + 1``."""
         opt_state = self._ensure_opt_state()
-        loss, new_state, grads = self._value_and_grad(feats, labels, lmasks)
         names = self.layer_names
         new_params, new_opt = apply_layer_updates(
             [self._layer(n) for n in names], [self.params_[n] for n in names],

@@ -1,34 +1,50 @@
 """MultiLayerNetwork: the sequential network runtime, and the per-layer
 update pipeline shared by the train steps.
 
-Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``, the eval
-forward with feature masks and recurrent carries, ``output``, the
-streaming ``rnn_time_step`` family, the flat parameter vector and
-``summary``.
-State layout is the reference's:
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``, the
+forward with feature masks and recurrent carries (eval and train mode),
+``output``, the streaming ``rnn_time_step`` family, the train side
+(``fit``, ``score``, ``compute_gradient_and_score``), the flat parameter
+and updater-state vectors and ``summary``. PyTorch runs the step eagerly;
+there is no compiled program. The train step is the reference's unguarded
+one, split in two halves that ``ParallelWrapper`` calls apart: loss (f32)
+and new layer state from a train-mode forward, gradients by autograd
+(:meth:`MultiLayerNetwork._value_and_grad`); then the per-layer update
+pipeline (:func:`apply_layer_updates`) with ``t = iteration + 1``, the score
+being the loss plus the regularization score of the params before the
+update (:meth:`MultiLayerNetwork._apply_step`). State layout is the
+reference's:
 
 - ``params_``: list (per layer) of dicts param name -> tensor (``dtype``,
   f32 master weights)
 - ``state_``:  list of dicts (BN running statistics)
+- ``opt_state_``: list of dicts param name -> updater slots (f32), made at
+  the first train step (or by ``interop.load_jax_params`` or a checkpoint's
+  updater state)
 
 Under ``compute_dtype`` the forward casts float params (except those of
 normalization layers, the output layer and a layer's ``keep_fp32_params``)
 and float inputs to the compute dtype, as the reference does; int8 serving
 weights (``W_q8``) stay int8 and their ``W_scale`` is cast like any float
-param. ``fit``, ``score`` and tBPTT training come with the training slices
-(ROADMAP § A) and raise.
+param. The cast happens inside the differentiated function, so the
+gradients the updater sees are f32. Fault policy, rematerialization,
+telemetry, listeners, bundled steps and tBPTT are not ported yet and raise
+(:func:`check_train_conf`).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import _dtype_of, resolve_device
+from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.iterators import DataSetIterator, ListDataSetIterator
 from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.conf.layers.base import check_trainable
 from deeplearning4j_tpu_torch.nn.conf.layers.norm import BatchNormalization
 from deeplearning4j_tpu_torch.regularization import (
     as_regularization,
@@ -39,6 +55,29 @@ from deeplearning4j_tpu_torch.updaters import as_updater
 Tensors = Dict[str, torch.Tensor]
 
 NOT_PORTED = "not ported yet (ROADMAP § A, slice 4: the rest of the training core)"
+
+
+def check_train_conf(conf, not_ported: str) -> None:
+    """Refuse, at train time, the global training options the port does not
+    have yet: the fault policy, remat, telemetry, bundled steps and tBPTT.
+    (``sharded_update`` is for ``ParallelWrapper``: a plain ``fit`` ignores
+    it, as the reference's does.) Shared by MultiLayerNetwork and
+    ComputationGraph."""
+    g = conf.global_conf
+
+    def knob(name, default=None):  # configurations older than a knob lack it
+        return getattr(g, name, default)
+
+    refused = [
+        (knob("fault_policy") is not None, "fault_policy"),
+        (knob("remat_policy") not in (None, "none"), "remat_policy"),
+        (knob("telemetry") not in (None, False), "telemetry"),
+        (knob("steps_per_call", 1) > 1, "steps_per_call > 1 (bundled steps)"),
+        (conf.backprop_type == "tbptt", "tbptt"),
+    ]
+    names = [what for bad, what in refused if bad]
+    if names:
+        raise NotImplementedError(f"{', '.join(names)}: {not_ported}")
 
 
 def cast_layer_params_for_compute(layer, p: Tensors, cd: torch.dtype, *,
@@ -116,9 +155,11 @@ class MultiLayerNetwork:
         self.layers = conf.layers
         self.params_: Optional[List[Tensors]] = None
         self.state_: Optional[List[Tensors]] = None
+        self.opt_state_: Optional[List[Dict[str, Tensors]]] = None
         self.device: Optional[torch.device] = None
         self.iteration = 0
         self.epoch = 0
+        self.score_: Optional[torch.Tensor] = None
         #: the streaming state of :meth:`rnn_time_step`
         self._rnn_carries: Optional[List[Any]] = None
         self._compute_dtype = _dtype_of(getattr(conf.global_conf, "compute_dtype", None))
@@ -141,6 +182,7 @@ class MultiLayerNetwork:
             state.append(map_tensors(lambda t: t.to(device),
                                      layer.init_layer_state(types[i], dtype)))
         self.params_, self.state_, self.device = params, state, device
+        self.opt_state_ = None
         self.iteration = self.epoch = 0
         return self
 
@@ -163,20 +205,29 @@ class MultiLayerNetwork:
                  fmask: Optional[torch.Tensor] = None,
                  carries: Optional[List[Any]] = None
                  ) -> Tuple[torch.Tensor, List[Tensors], List[Any]]:
-        """The eval forward. Returns ``(x, new_states, new_carries)``: ``x``
-        is the activation into layer ``stop_before`` (after its
-        preprocessor), or the network's output when ``stop_before`` is
-        None. ``fmask``: the (b, T) feature mask of recurrent input
-        (preprocessors map it, pooling and last-step layers consume it).
-        ``carries``: per layer, the recurrent state to start from (None
-        entries start from zeros, as :meth:`_init_carries` gives);
-        ``new_carries`` holds each recurrent layer's final state where a
-        carry was given, else None. ``cast_params=False`` when ``params`` is
-        already the output of :meth:`compute_params`."""
+        """The forward. Returns ``(x, new_states, new_carries)``: ``x`` is
+        the activation into layer ``stop_before`` (after its preprocessor),
+        or the network's output when ``stop_before`` is None. ``train``
+        takes batch statistics where a layer has them (BN), and the new
+        running statistics come back in ``new_states``. ``fmask``: the (b,
+        T) feature mask of recurrent input (preprocessors map it, pooling
+        and last-step layers consume it). ``carries``: per layer, the
+        recurrent state to start from (None entries start from zeros, as
+        :meth:`_init_carries` gives); ``new_carries`` holds each recurrent
+        layer's final state where a carry was given, else None.
+        ``cast_params=False`` when ``params`` is already the output of
+        :meth:`compute_params`."""
+        x, _, new_states, new_carries = self._walk(
+            params, state, x, train=train, stop_before=stop_before,
+            cast_params=cast_params, fmask=fmask, carries=carries)
+        return x, new_states, new_carries
+
+    def _walk(self, params, state, x, *, train, stop_before, cast_params, fmask,
+              carries):
+        """:meth:`_forward`'s walk; also returns the feature mask as it
+        stands at ``x`` (the label mask of a time-series head)."""
         from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
 
-        if train:
-            raise NotImplementedError(f"MultiLayerNetwork training is {NOT_PORTED}")
         if self._compute_dtype is not None and cast_params:
             params = self.compute_params(params)
         # float inputs take the compute dtype, else the params dtype (the
@@ -200,16 +251,16 @@ class MultiLayerNetwork:
             if (carries is not None and isinstance(layer, BaseRecurrentLayer)
                     and carries[i] is not None):
                 x, new_carries[i] = layer.apply_with_carry(params[i], x, carries[i],
-                                                           mask=mask)
+                                                           mask=mask, train=train)
                 st = state[i]
             else:
-                x, st = layer.apply(params[i], x, state=state[i], train=False, mask=mask)
+                x, st = layer.apply(params[i], x, state=state[i], train=train, mask=mask)
             new_states.append(st if st is not None else {})
             if layer.is_recurrent and mask is not None:
                 pass  # recurrent layers keep the (b, T) mask
             elif x.dim() == 2 and mask is not None and mask.dim() > 1:
                 mask = None  # consumed by a pooling or last-step layer
-        return x, new_states, new_carries
+        return x, mask, new_states, new_carries
 
     def _init_carries(self, batch: int, dtype=torch.float32) -> List[Any]:
         """Zero recurrent state for ``batch`` rows on the model's device: a
@@ -312,12 +363,149 @@ class MultiLayerNetwork:
     def set_params_flat(self, vec: np.ndarray) -> None:
         self.params_ = unflatten_tensors(self.params_, vec)
 
-    # --------------------------------------------------------------- refusals
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(f"MultiLayerNetwork.fit is {NOT_PORTED}")
+    def opt_state_flat(self) -> np.ndarray:
+        """One flat f32 updater-state vector: layer, param name, slot name,
+        each ascending (the checkpoint's ``updaterState.bin`` order); zeros
+        before the first train step."""
+        return flatten_tensors(self._ensure_opt_state())
 
-    def score(self, *args, **kwargs):
-        raise NotImplementedError(f"MultiLayerNetwork.score is {NOT_PORTED}")
+    def set_opt_state_flat(self, vec: np.ndarray) -> None:
+        self.opt_state_ = unflatten_tensors(self._ensure_opt_state(), vec)
+
+    # ----------------------------------------------------------------- scoring
+    def _output_layer(self):
+        last = self.layers[-1]
+        if not last.is_output_layer:
+            raise ValueError(f"Last layer {last} is not an output layer")
+        return last
+
+    def _loss_and_new_state(self, params, state, features, labels, fmask, lmask,
+                            train: bool = True):
+        """Mean per-example loss of the output layer (f32: under a compute
+        dtype its input is widened first) and the layers' new state. The
+        label mask defaults to the feature mask as it reaches the head."""
+        n = len(self.layers)
+        x, mask, new_states, _ = self._walk(params, state, features, train=train,
+                                            stop_before=n - 1, cast_params=True,
+                                            fmask=fmask, carries=None)
+        if self._compute_dtype is not None:
+            x = x.float()  # loss and softmax in full precision
+        out_layer = self._output_layer()
+        per_ex = out_layer.compute_score(params[-1], x, labels,
+                                         lmask if lmask is not None else mask)
+        new_states.append(state[-1])
+        return per_ex.mean(), new_states
+
+    @torch.no_grad()
+    def _reg_score(self, params) -> torch.Tensor:
+        s = torch.zeros((), dtype=torch.float32, device=self.device)
+        for layer, p in zip(self.layers, params):
+            reg = as_regularization(layer.regularization)
+            if reg is None:
+                continue
+            for name, arr in p.items():
+                s = s + reg.score_term(name, arr)
+        return s
+
+    def _batch(self, ds: DataSet):
+        """A DataSet's arrays as tensors on the model's device: float
+        features as given (the forward casts them), float labels and masks
+        in f32."""
+        def dev(a, f32=False):
+            if a is None:
+                return None
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+            if f32 and t.is_floating_point():
+                t = t.to(torch.float32)
+            return t.to(self.device)
+
+        return (dev(ds.features), dev(ds.labels, True), dev(ds.features_mask, True),
+                dev(ds.labels_mask, True))
+
+    def score(self, ds: Optional[DataSet] = None) -> float:
+        """The last train step's score, or the eval-mode loss plus the
+        regularization score on ``ds``."""
+        if ds is None:
+            if self.score_ is None:
+                raise ValueError("No score available; fit() first or pass a DataSet")
+            return float(self.score_)
+        with torch.no_grad():
+            loss, _ = self._loss_and_new_state(self.params_, self.state_,
+                                               *self._batch(ds), train=False)
+            return float(loss + self._reg_score(self.params_))
+
+    def compute_gradient_and_score(self, ds: DataSet):
+        """(gradients in the layout of ``params_``, score) of one train-mode
+        forward on ``ds``; nothing is updated."""
+        self._check_trainable()
+        loss, _, grads = self._value_and_grad(*self._batch(ds))
+        return grads, float(loss + self._reg_score(self.params_))
+
+    # ------------------------------------------------------------------- fit
+    def set_listeners(self, *listeners) -> None:
+        raise NotImplementedError(f"training listeners are {NOT_PORTED}")
+
+    def _check_trainable(self) -> None:
+        check_train_conf(self.conf, NOT_PORTED)
+        for layer in self.layers:
+            check_trainable(layer)
+
+    def _ensure_opt_state(self) -> List[Dict[str, Tensors]]:
+        if self.opt_state_ is None:
+            self.opt_state_ = [
+                {name: as_updater(layer.updater).init_state(t) for name, t in p.items()}
+                for layer, p in zip(self.layers, self.params_)]
+        return self.opt_state_
+
+    def _value_and_grad(self, features, labels, fmask, lmask):
+        """The first half of a train step: ``(loss, new_states, grads)`` of a
+        train-mode forward at ``params_``; grads has the layout of
+        ``params_``."""
+        diff = [{k: t.detach().requires_grad_() for k, t in p.items()}
+                for p in self.params_]
+        loss, new_states = self._loss_and_new_state(diff, self.state_, features,
+                                                    labels, fmask, lmask)
+        leaves = [(i, k) for i, p in enumerate(diff) for k in p]
+        flat = torch.autograd.grad(loss, [diff[i][k] for i, k in leaves],
+                                   allow_unused=True) if leaves else ()
+        grads: List[Tensors] = [{} for _ in diff]
+        for (i, k), g in zip(leaves, flat):
+            grads[i][k] = torch.zeros_like(diff[i][k]) if g is None else g
+        return loss.detach(), new_states, grads
+
+    def _apply_step(self, loss, new_states, grads) -> None:
+        """The second half: the per-layer updates from ``grads``, the score
+        (``loss`` plus the regularization score before the update), the
+        new state, ``iteration + 1``."""
+        opt_state = self._ensure_opt_state()
+        new_params, new_opt = apply_layer_updates(
+            self.layers, self.params_, grads, opt_state,
+            self.iteration + 1, self.iteration, self.epoch)
+        self.score_ = loss + self._reg_score(self.params_)
+        self.params_, self.opt_state_, self.state_ = new_params, new_opt, new_states
+        self.iteration += 1
+
+    def fit(self, data: Union[DataSet, DataSetIterator, np.ndarray],
+            labels: Optional[np.ndarray] = None, epochs: int = 1,
+            batch_size: int = 32) -> "MultiLayerNetwork":
+        """Train: one step per minibatch, ``epochs`` passes. ``data`` is a
+        DataSet (cut into ``batch_size`` minibatches), an iterator of
+        DataSets, or a features array with ``labels``."""
+        if self.params_ is None:
+            raise ValueError("init() the network (or load params) first")
+        if isinstance(data, np.ndarray):
+            data = DataSet(data, labels)
+        it = ListDataSetIterator(data, batch_size) if isinstance(data, DataSet) else data
+        self._check_trainable()
+        for _ in range(epochs):
+            for ds in it:
+                self._fit_batch(ds)
+            it.reset()
+            self.epoch += 1
+        return self
+
+    def _fit_batch(self, ds: DataSet) -> None:
+        self._apply_step(*self._value_and_grad(*self._batch(ds)))
 
 
 

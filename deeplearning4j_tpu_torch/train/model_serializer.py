@@ -8,10 +8,14 @@ way; a graph's vertices sorted by name) and ``meta.json`` (iteration,
 epoch, model type). A zip written by either package restores in the
 other.
 
-The ``updaterState.bin`` entry (updater slots) comes with the training
-slice (ROADMAP § A, slice 4): a zip that has one restores with
-``load_updater=False`` (the default here) and the entry is ignored;
-asking to write or load it raises :class:`UpdaterStateNotPortedError`.
+``updaterState.bin`` holds the updater slots as one f32 vector (layers in
+order, param names, then slot names sorted: ``opt_state_flat``), written
+when the model has updater state and ``save_updater`` (the default) is
+set, and read back by default, so a restored model resumes training where
+it stopped. During a ZeRO-1 sharded fit the live updater state is sharded
+and ``model.opt_state_`` is stale: the wrapper installs
+``model._opt_state_sync``, which :meth:`ModelSerializer.write_model` calls
+first to gather it (a collective: every rank writes, or at least calls it).
 """
 
 from __future__ import annotations
@@ -32,14 +36,6 @@ UPDATER_ENTRY = "updaterState.bin"
 STATE_ENTRY = "state.bin"
 META_ENTRY = "meta.json"
 
-_UPDATER_NOT_PORTED = ("the zip's updaterState.bin entry (updater state) is "
-                       "not ported yet (ROADMAP § A, slice 4)")
-
-
-class UpdaterStateNotPortedError(NotImplementedError):
-    """Writing or loading a checkpoint's updater state was asked for."""
-
-
 def _state_groups(state):
     """The layer-state dicts in checkpoint order: a MultiLayerNetwork's in
     layer order, a ComputationGraph's by vertex name."""
@@ -50,20 +46,25 @@ def _state_groups(state):
 
 class ModelSerializer:
     @staticmethod
-    def write_model(model, path: str, save_updater: bool = False) -> None:
+    def write_model(model, path: str, save_updater: bool = True) -> None:
         """Write ``model`` to the zip ``path``, staged in a same-directory
         temp file and published with ``os.replace``: a crash mid-write
-        leaves the previous file at ``path`` as it was."""
+        leaves the previous file at ``path`` as it was. The updater state
+        goes in when ``save_updater`` and the model has any."""
         from deeplearning4j_tpu_torch.nn.multilayer import flatten_tensors
 
-        if save_updater:
-            raise UpdaterStateNotPortedError(_UPDATER_NOT_PORTED)
+        sync = getattr(model, "_opt_state_sync", None)
+        if sync is not None:
+            sync()
         tmp = atomic_tmp_path(path)
         try:
             with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as z:
                 z.writestr(CONFIG_ENTRY, model.conf.to_json())
                 z.writestr(COEFFICIENTS_ENTRY,
                            model.params_flat().astype("<f4").tobytes())
+                if save_updater and getattr(model, "opt_state_", None) is not None:
+                    z.writestr(UPDATER_ENTRY,
+                               model.opt_state_flat().astype("<f4").tobytes())
                 z.writestr(STATE_ENTRY, flatten_tensors(
                     _state_groups(model.state_)).astype("<f4").tobytes())
                 z.writestr(META_ENTRY, json.dumps(_build_meta(model)))
@@ -85,11 +86,11 @@ class ModelSerializer:
                 raise ValueError(
                     f"{path!r} is not a model checkpoint: required entries "
                     f"{sorted(missing)} are missing (zip contains {sorted(names)})")
-            if load_updater and UPDATER_ENTRY in names:
-                raise UpdaterStateNotPortedError(_UPDATER_NOT_PORTED)
             net = net_cls(conf_cls.from_json(z.read(CONFIG_ENTRY).decode()))
             net.init(device=device)
             net.set_params_flat(np.frombuffer(z.read(COEFFICIENTS_ENTRY), dtype="<f4"))
+            if load_updater and UPDATER_ENTRY in names:
+                net.set_opt_state_flat(np.frombuffer(z.read(UPDATER_ENTRY), dtype="<f4"))
             if STATE_ENTRY in names:
                 vec = np.frombuffer(z.read(STATE_ENTRY), dtype="<f4")
                 groups = _state_groups(net.state_)
@@ -114,7 +115,7 @@ class ModelSerializer:
         return net
 
     @staticmethod
-    def restore_multi_layer_network(path: str, load_updater: bool = False,
+    def restore_multi_layer_network(path: str, load_updater: bool = True,
                                     device=None):
         """The MultiLayerNetwork in ``path``, on ``device`` (default the
         CUDA card)."""
@@ -125,7 +126,7 @@ class ModelSerializer:
                                         MultiLayerNetwork, load_updater, device)
 
     @staticmethod
-    def restore_computation_graph(path: str, load_updater: bool = False,
+    def restore_computation_graph(path: str, load_updater: bool = True,
                                   device=None):
         """The ComputationGraph in ``path``, on ``device`` (default the CUDA
         card)."""

@@ -12,7 +12,7 @@ and round-trip), and has the reference's two methods:
 ``t`` is the 1-based step count. Scalars (learning rate, momentum, bias
 corrections) are 0-dim f32 tensors, so they round as the reference's f32
 scalars do. This slice ports ``Sgd``, ``NoOp``, ``Nesterovs`` and ``Adam``
-(the oracle of the later fused-Adam kernel), and ``RmsProp`` as
+(whose :meth:`Adam.alpha` the fused-Adam kernel shares), and ``RmsProp`` as
 configuration data; a configuration naming another updater still loads,
 and :func:`as_updater` raises when it is trained.
 """
@@ -98,13 +98,19 @@ class Adam(Updater):
     def init_state(self, param):
         return {"m": torch.zeros_like(param), "v": torch.zeros_like(param)}
 
+    def alpha(self, t, iteration, epoch) -> torch.Tensor:
+        """The bias-corrected step size ``lr*sqrt(1-b2^t)/(1-b1^t)``, a 0-dim
+        f32 tensor: the one scalar pipeline of :meth:`apply` and of the fused
+        update (``nn/ops/fused_update.py``), so both use the same bits."""
+        tf = torch.tensor(float(t), dtype=torch.float32)
+        return (self.lr(iteration, epoch) * torch.sqrt(1 - self["beta2"] ** tf)
+                / (1 - self["beta1"] ** tf))
+
     def apply(self, grad, state, t, iteration, epoch):
         b1, b2 = self["beta1"], self["beta2"]
         m = b1 * state["m"] + (1 - b1) * grad
         v = b2 * state["v"] + (1 - b2) * grad * grad
-        tf = torch.tensor(float(t), dtype=torch.float32)
-        alpha = (self.lr(iteration, epoch) * torch.sqrt(1 - b2 ** tf)
-                 / (1 - b1 ** tf))
+        alpha = self.alpha(t, iteration, epoch)
         return alpha * m / (torch.sqrt(v) + self["epsilon"]), {"m": m, "v": v}
 
 

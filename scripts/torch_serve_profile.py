@@ -66,6 +66,9 @@ GROUPS = (
     ("flash-attention kernels", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                  "flash_bwd_dkv_kernel")),
     ("fused LSTM cell kernels", ("lstm_cell_kernel",)),
+    ("fused Adam kernel", ("fused_adam_kernel",)),
+    ("collectives (NCCL)", ("nccl",)),
+    ("concatenations (torch.cat)", ("catarraybatchedcopy",)),
     ("int8_matmul kernels", ("int8_partial_kernel", "int8_reduce_kernel")),
     ("fused conv kernels", ("fused_conv_fwd_kernel", "conv_bwd_dx_kernel",
                             "conv_bwd_dw_kernel", "dw_reduce_kernel", "stats_reduce")),

@@ -5,6 +5,7 @@ Run from the repository root on a CUDA card::
 
     python3 scripts/torch_train_profile.py                        # ResNet-50
     python3 scripts/torch_train_profile.py --model transformerlm  # TransformerLM
+    python3 scripts/torch_train_profile.py --model resnet50_zero1 # ParallelWrapper, ZeRO-1
 
 ``resnet50`` builds the model of ``chip_smoke.py``'s phase 4 (full-width bf16
 ResNet-50, 1000 classes, 224x224, fused bottlenecks, seeded random weights
@@ -16,7 +17,15 @@ small's shape, 32,000 tokens, bf16, ``Adam(3e-4)``; a seeded batch of 16 x
 call, and beside it, apart, the step's two halves (the loss and its
 gradients; the Adam updates of the 16 param tensors) and its loss head (the
 head's bf16 GEMM and ``token_nll``, forward and backward, on a seeded
-activation of the same shape). Each profile uses ``torch.profiler`` (CPU +
+activation of the same shape). ``resnet50_zero1`` builds phase 10's model
+(the same ResNet-50 with ``Adam(chip_smoke.ADAM_LR)``) on a one-rank NCCL
+``TrainingMesh`` and profiles the wrapper's ZeRO-1 step, and apart its parts:
+the loss and gradients, the sharded update (flatten, ``reduce_scatter``,
+the fused Adam, ``all_gather``, scatter back), of it the flatten of params
+and gradients and the kernel alone; beside them the replicated step
+(``all_reduce``, per-tensor eager Adam) and one ``ParallelWrapper.fit`` call
+of one batch (the step plus the re-shard and gather of the updater state).
+Each profile uses ``torch.profiler`` (CPU +
 CUDA activities) and prints host milliseconds per call, device busy
 milliseconds, the device's idle share, device ops per call, the device time
 by group of kernel names and the top entries; the full tables go to
@@ -51,6 +60,64 @@ def resnet50_calls():
     ds = DataSet(x, y)
     model.fit(ds)
     return {f"train step, batch {chip_smoke.BATCH}": lambda: model.fit(ds)}
+
+
+def resnet50_zero1_calls():
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.graph import _as_multi
+    from deeplearning4j_tpu_torch.nn.multilayer import apply_layer_updates
+    from deeplearning4j_tpu_torch.nn.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, TrainingMesh, zero
+    from deeplearning4j_tpu_torch.parallel.wrapper import _mean_over_ranks
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    mesh = TrainingMesh(workers=1, device="cuda")
+    model, _ = chip_smoke.resnet50(updater=Adam(chip_smoke.ADAM_LR))
+    rng = np.random.default_rng(chip_smoke.SEED + 10)
+    x = rng.standard_normal((chip_smoke.BATCH, 224, 224, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, chip_smoke.BATCH)]
+    ds = DataSet(x, y)
+    pw = ParallelWrapper(model, mesh=mesh, sharded_update=True)
+    pw.fit(ExistingDataSetIterator([ds]))
+    step, layout = zero.make_sharded_train_step(model, mesh)
+    impls = fu.resolve_group_impls(layout)
+    names = model.layer_names
+    layers = [model._layer(n) for n in names]
+    batch = model._batch(_as_multi(ds))
+    state = {"zopt": zero.shard_model_opt_state(model, layout, mesh)}
+
+    def sharded_step():
+        model.params_, state["zopt"], model.state_, model.score_ = step(state["zopt"], batch)
+        model.iteration += 1
+
+    _, _, grads = model._value_and_grad(*batch)
+    p_list, g_list = [model.params_[n] for n in names], [grads[n] for n in names]
+    o_list = [model.opt_state_[n] for n in names]
+    (grp,) = layout.groups
+    flat = [layout._flatten_group(grp, t) for t in (p_list, g_list)]
+    m, v = (layout._flatten_group(grp, [{k: o[k][s] for k in o} for o in o_list])
+            for s in ("m", "v"))
+    alpha = grp.updater.alpha(2, 1, 0)
+
+    def sharded_update():
+        zero.apply_sharded_updates(layout, p_list, g_list, state["zopt"], 2, 1, 0,
+                                   mesh=mesh, fused_impls=impls)
+
+    def replicated_step():
+        loss, new_state, g = _mean_over_ranks(mesh, *model._value_and_grad(*batch))
+        apply_layer_updates(layers, p_list, [g[n] for n in names], o_list, 2, 1, 0)
+
+    return {f"ZeRO-1 step (the wrapper's sharded step), batch {chip_smoke.BATCH}": sharded_step,
+            "  of it: loss and gradients": lambda: model._value_and_grad(*batch),
+            "  of it: sharded update (flatten, reduce_scatter, fused Adam, all_gather, "
+            "scatter)": sharded_update,
+            "    of it: flatten of params and gradients (torch.cat)":
+                lambda: [layout._flatten_group(grp, t) for t in (p_list, g_list)],
+            "    of it: the fused Adam kernel": lambda: fu.fused_adam_apply(
+                *flat, m, v, alpha, b1=0.9, b2=0.999, eps=1e-8),
+            "replicated step (all_reduce, per-tensor eager Adam)": replicated_step,
+            "ParallelWrapper.fit of one batch (step + re-shard + gather)":
+                lambda: pw.fit(ExistingDataSetIterator([ds]))}
 
 
 def transformer_calls():
@@ -101,13 +168,15 @@ def transformer_calls():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("resnet50", "transformerlm"), default="resnet50")
+    ap.add_argument("--model", choices=("resnet50", "transformerlm", "resnet50_zero1"),
+                    default="resnet50")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
     card = chip_smoke.smi_line()
-    calls = resnet50_calls() if args.model == "resnet50" else transformer_calls()
+    calls = {"resnet50": resnet50_calls, "transformerlm": transformer_calls,
+             "resnet50_zero1": resnet50_zero1_calls}[args.model]()
     out = {"card": card, "torch": torch.__version__}
     for label, fn in calls.items():
         r = profile_calls(fn, 5)
@@ -122,7 +191,7 @@ def main() -> int:
                   f"{row['name'][:90]}", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     name = "train_profile.json" if args.model == "resnet50" else \
-        "train_profile_transformerlm.json"
+        f"train_profile_{args.model}.json"
     with open(os.path.join("chiprun_out", name), "w") as f:
         json.dump(out, f, indent=1)
     return 0

@@ -782,3 +782,105 @@ def test_transformer_fit_batch_on_the_card(card):
         fresh = tlm.forward(model.cfg, tlm.compute_params(model.cfg, model.params_),
                             torch.from_numpy(ids[:1]).cuda()).cpu().numpy()
     assert np.array_equal(after, fresh) and not np.array_equal(after, before)
+
+
+# ---------------------------------------------------------------- fused Adam
+ADAM_SIZES = [1, 3, 4095, 4097, 1_000_003]
+
+
+def _adam_inputs(card, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    p, grad, m = (torch.randn(n, generator=g).to(card) for _ in range(3))
+    v = torch.randn(n, generator=g).abs().to(card) * 0.01
+    return p, grad, m * 0.1, v
+
+
+@pytest.mark.parametrize("t", [1, 2, 1000])
+@pytest.mark.parametrize("n", ADAM_SIZES)
+def test_fused_adam_kernel_is_the_plain_version_bit_for_bit(card, n, t):
+    """p', m' and v' torch.equal to the plain version and to the eager
+    ``Adam.apply`` on the card; one launch; a rerun gives the same bits;
+    the inputs are not changed."""
+    from deeplearning4j_tpu_torch.nn.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.nn.ops import launch as ops_launch
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    upd = Adam(1e-3)
+    p, grad, m, v = _adam_inputs(card, n, seed=n + t)
+    copies = [a.clone() for a in (p, grad, m, v)]
+    alpha = upd.alpha(t, t - 1, 0)
+    ops_launch.reset_launch_counts()
+    got = fu.fused_adam_apply(p, grad, m, v, alpha, b1=0.9, b2=0.999, eps=1e-8)
+    assert dict(ops_launch.launch_counts) == {"fused_adam": 1}
+    plain = fu.fused_adam_plain(p, grad, m, v, alpha, b1=0.9, b2=0.999, eps=1e-8)
+    delta, st = upd.apply(grad, {"m": m, "v": v}, t, t - 1, 0)
+    again = fu.fused_adam_apply(p, grad, m, v, alpha, b1=0.9, b2=0.999, eps=1e-8)
+    for a, b, c, d in zip(got, plain, (p - delta, st["m"], st["v"]), again):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+    assert all(torch.equal(a, b) for a, b in zip((p, grad, m, v), copies))
+
+
+def test_fused_adam_kernel_unaligned_and_padded(card):
+    """Views 4 bytes off a 16-byte boundary take the scalar path, same bits;
+    zero padding lanes of a (4, chunk) group stay zero."""
+    from deeplearning4j_tpu_torch.nn.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    upd = Adam(1e-2)
+    alpha = upd.alpha(3, 2, 0)
+    base = _adam_inputs(card, 40_001, seed=9)
+    views = [a[1:] for a in base]
+    assert views[0].data_ptr() % 16
+    got = fu.fused_adam_apply(*views, alpha, b1=0.9, b2=0.999, eps=1e-8)
+    want = fu.fused_adam_plain(*views, alpha, b1=0.9, b2=0.999, eps=1e-8)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    padded = []
+    for a in _adam_inputs(card, 66, seed=4):
+        padded.append(torch.cat([a, a.new_zeros(2)]).view(4, 17))
+    for a in fu.fused_adam_apply(*padded, alpha, b1=0.9, b2=0.999, eps=1e-8):
+        assert torch.equal(a.reshape(-1)[66:], torch.zeros(2, device=card))
+
+
+def test_fused_adam_kernel_refusals(card):
+    from deeplearning4j_tpu_torch.nn.ops import fused_update as fu
+
+    p, grad, m, v = _adam_inputs(card, 64, seed=1)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    with pytest.raises(TypeError, match="float32"):
+        fu.fused_adam_apply(p.half(), grad, m, v, 1e-3, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        fu.fused_adam_apply(p, grad[:32], m, v, 1e-3, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fu.fused_adam_apply(p.view(8, 8).t(), grad.view(8, 8), m.view(8, 8), v.view(8, 8),
+                            1e-3, **kw)
+    with pytest.raises(ValueError, match="cpu"):
+        fu.fused_adam_apply(p, grad.cpu(), m, v, 1e-3, **kw)
+
+
+def test_wrapper_on_the_card_sharded_equals_replicated(card):
+    """A narrow Adam MLN through ParallelWrapper on a one-rank NCCL group:
+    the sharded run launches the fused Adam once per f32 Adam group and
+    step, and gives the replicated run's params and slots bit for bit."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.ops import launch as ops_launch
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    conf = (NeuralNetConfiguration.builder().seed(3).updater(Adam(1e-2)).list()
+            .layer(L.DenseLayer(n_out=64, activation="tanh"))
+            .layer(L.OutputLayer(n_out=10, activation="softmax"))
+            .set_input_type(InputType.feed_forward(32)).build())
+    rng = np.random.default_rng(0)
+    ds = DataSet(rng.standard_normal((16, 32)).astype(np.float32),
+                 np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)])
+    nets = []
+    for sharded in (False, True):
+        net = MultiLayerNetwork(conf).init()
+        ops_launch.reset_launch_counts()
+        pw = ParallelWrapper.builder(net).workers(1).sharded_update(sharded).build()
+        pw.fit(ExistingDataSetIterator([ds]), epochs=3)
+        assert ops_launch.launch_counts.get("fused_adam", 0) == (3 if sharded else 0)
+        nets.append(net)
+    assert np.array_equal(nets[0].params_flat(), nets[1].params_flat())
+    assert np.array_equal(nets[0].opt_state_flat(), nets[1].opt_state_flat())

@@ -75,3 +75,13 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                            capture_output=True, text=True, timeout=240)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_the_data_parallel_modules_are_checked():
+    """The checks above walk the package, so the modules of the
+    data-parallel slice (and the kernel wrapper they launch) are among
+    them."""
+    rel = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for name in ("parallel/__init__.py", "parallel/mesh.py", "parallel/wrapper.py",
+                 "parallel/zero.py", "nn/ops/fused_update.py"):
+        assert f"deeplearning4j_tpu_torch/{name}" in rel, name

@@ -34,7 +34,6 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork as TNet
 from deeplearning4j_tpu_torch.train.model_serializer import (
     ModelGuesser,
     ModelSerializer,
-    UpdaterStateNotPortedError,
 )
 from tests.torch_mln_pairs import CONFS, JAX, PORT, inputs, numpy_tree, pair, small_graph
 
@@ -85,7 +84,9 @@ def test_unported_zoo_names_and_features_raise():
     assert sorted(ZOO) == ["lenet", "resnet50", "textgenlstm", "vgg16", "vgg19"]
     with pytest.raises(ZooModelNotPortedError, match="ROADMAP"):
         ModelSelector.select("alexnet")
-    net = TNet(CONFS["lenet"](PORT)).init(device="cpu")
+    conf = CONFS["lenet"](PORT)
+    conf.global_conf.steps_per_call = 4  # bundled steps: not ported
+    net = TNet(conf).init(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         net.fit(inputs("lenet", 2), np.eye(10, dtype=np.float32)[:2])
 
@@ -148,10 +149,13 @@ def test_regression_fixture_matches_its_golden():
     g = np.load(os.path.join(FIXTURES, "cnn_bn_adam_v1_golden.npz"))
     np.testing.assert_allclose(net.output(g["x"]), g["y"], atol=1e-6)
     assert net.iteration == int(g["iteration"])
+    assert net.opt_state_ is None
     assert isinstance(ModelGuesser.load_model_guess(path, device="cpu"), TNet)
-    with pytest.raises(UpdaterStateNotPortedError, match="ROADMAP"):
-        ModelSerializer.restore_multi_layer_network(path, load_updater=True,
-                                                    device="cpu")
+    # the updater state restores by default, as in the reference
+    with_updater = ModelSerializer.restore_multi_layer_network(path, device="cpu")
+    flat = with_updater.opt_state_flat()
+    assert flat.size > 0 and np.abs(flat).max() > 0
+    np.testing.assert_array_equal(with_updater.params_flat(), net.params_flat())
 
 
 def test_port_written_zip_restores_in_jax(tmp_path):
@@ -159,8 +163,8 @@ def test_port_written_zip_restores_in_jax(tmp_path):
     tnet.iteration, tnet.epoch = 7, 2
     path = str(tmp_path / "port.zip")
     ModelSerializer.write_model(tnet, path)
-    with pytest.raises(UpdaterStateNotPortedError):
-        ModelSerializer.write_model(tnet, str(tmp_path / "u.zip"), save_updater=True)
+    # no train step yet, so no updater state to write
+    assert tnet.opt_state_ is None
     assert sorted(zipfile.ZipFile(path).namelist()) == [
         "coefficients.bin", "configuration.json", "meta.json", "state.bin"]
     meta = json.loads(zipfile.ZipFile(path).read("meta.json"))
