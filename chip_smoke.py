@@ -172,6 +172,32 @@ def time_ms(fn) -> float:
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time of one call without the host's launch cost: ``calls``
+    calls captured in one CUDA graph, timed by CUDA events over ``replays``
+    replays (beside :func:`time_ms`, which a host slower than the kernel
+    bounds)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (calls * replays)
+
+
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -1537,14 +1563,17 @@ PREFILL_LIMIT_EINSUM = 0.5
 DECODE_LIMIT = 1.0
 PREDICT_LIMIT = 1.0
 # (b, h, T, hd, causal, dtype, segmented): the prefill buckets >= 128 (b 1),
-# a /predict forward (b 2, T 1024), non-causal, segment ids cut off the
-# 64-row tiles, head dims 32, 128 and a ragged 40, and f32 at two shapes
+# a /predict forward (b 2, T 1024), the train step's (b 16 x T 512, b 4 x T
+# 2048), non-causal, segment ids cut off the 128-row tiles, head dims 32,
+# 128, 40 and a ragged 20 (the padded layout copy), and f32 at two shapes
 FLASH_CASES = ([(1, LM_HEADS, t, LM_HD, True, BF16, False) for t in (128, 256, 512, 1024)]
                + [(2, LM_HEADS, 1024, LM_HD, True, BF16, False),
+                  (16, LM_HEADS, 512, LM_HD, True, BF16, False),
+                  (4, LM_HEADS, 2048, LM_HD, True, BF16, False),
                   (1, LM_HEADS, 512, LM_HD, False, BF16, False),
                   (1, LM_HEADS, 512, LM_HD, True, BF16, True),
                   (1, 4, 256, 32, True, BF16, False), (1, 4, 256, 128, True, BF16, False),
-                  (1, 4, 256, 40, True, BF16, True),
+                  (1, 4, 256, 40, True, BF16, True), (1, 4, 256, 20, True, BF16, False),
                   (1, LM_HEADS, 256, LM_HD, True, F32, False),
                   (2, 4, 512, 40, False, F32, True)])
 FLASH_F32_TOL = 1e-5          # f32 o and lse, and bf16 lse, against the plain version in f32
@@ -1552,7 +1581,7 @@ FLASH_F32_TOL = 1e-5          # f32 o and lse, and bf16 lse, against the plain v
 
 def flash_segments(b, t_len):
     """Three packed sequences per row, cut at T/3 and T/3 + 77 (off the
-    kernel's 64-row tiles)."""
+    kernels' 64- and 128-row tiles)."""
     seg = torch.zeros(b, t_len, dtype=torch.int32, device="cuda")
     seg[:, t_len // 3:] = 1
     seg[:, t_len // 3 + 77:] = 2
@@ -1609,18 +1638,23 @@ def flash_phase(fa):
                 row["lost_mask_over_tol"] = float(((o_nc - o_ref).abs() / tol).max())
             timing = ""
             if dtype == BF16 and hd == LM_HD and causal and not segmented:
-                row["kernel_ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, scale))
+                kern = lambda: fa.flash_attention_fwd(q, k, v, True, scale)  # noqa: E731
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=True, scale=scale)
+                row["kernel_ms"] = time_ms(kern)
                 row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, True, scale))
-                sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale)
+                sdpa = lib()
                 row["library_max_abs_err"] = float((sdpa.float() - o_ref).abs().max())
-                row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, scale=scale))
+                row["library_ms"] = time_ms(lib)
+                row["kernel_device_ms"], row["library_device_ms"] = graph_ms(kern), graph_ms(lib)
                 row["bound_ms"], row["bound_by"] = flash_cost(b, h, t_len, hd, causal, dtype,
                                                               segmented)
                 timing = (f" kernel_ms {row['kernel_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
                           f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']}) library_ms "
                           f"{row['library_ms']:.4f} (SDPA, max|d| vs f32 "
-                          f"{row['library_max_abs_err']:.3g})")
+                          f"{row['library_max_abs_err']:.3g}); device only (CUDA graph): "
+                          f"kernel {row['kernel_device_ms']:.4f} SDPA "
+                          f"{row['library_device_ms']:.4f}")
         rows.append(row)
         ok = (row["err_over_tol"] <= 1 and lse_err <= FLASH_F32_TOL and row["finite"]
               and row.get("lost_mask_over_tol", 2.0) > 1)
@@ -1642,7 +1676,8 @@ def flash_phase(fa):
                     "min_lost_mask_over_tol": min(r["lost_mask_over_tol"] for r in rows
                                                   if "lost_mask_over_tol" in r),
                     "by_shape": [{k: r[k] for k in ("b", "T", "kernel_ms", "plain_ms",
-                                                    "bound_ms", "bound_by", "library_ms")}
+                                                    "bound_ms", "bound_by", "library_ms",
+                                                    "kernel_device_ms", "library_device_ms")}
                                  for r in timed]})
     print(f"phase 2e summary (headline: b 1, 12 heads, T 1024, causal bf16): {summary}",
           flush=True)
@@ -1966,8 +2001,9 @@ def lm_entry_points(pe, gen, prompts, outs):
 # ---------------------------------------------------------------------------
 # (b, h, T, hd, causal, dtype, segmented): the train step's shape (b 16, T
 # 512) and its long-context variant (b 4, T 2048), T 128 and 1024,
-# non-causal, segment ids cut off the 64-row tiles, head dims 32, 128 and a
-# ragged 40, and f32 at two shapes; the first two are timed
+# non-causal, segment ids cut off the 64- and 128-row tiles, head dims 32,
+# 128, 40 and a ragged 20 (the padded layout copy), and f32 at two shapes;
+# the first two are timed
 FLASH_BWD_CASES = [(16, LM_HEADS, 512, LM_HD, True, BF16, False),
                    (4, LM_HEADS, 2048, LM_HD, True, BF16, False),
                    (2, LM_HEADS, 128, LM_HD, True, BF16, False),
@@ -1975,7 +2011,7 @@ FLASH_BWD_CASES = [(16, LM_HEADS, 512, LM_HD, True, BF16, False),
                    (2, LM_HEADS, 512, LM_HD, False, BF16, False),
                    (2, LM_HEADS, 512, LM_HD, True, BF16, True),
                    (1, 4, 256, 32, True, BF16, False), (1, 4, 256, 128, True, BF16, False),
-                   (1, 4, 256, 40, True, BF16, True),
+                   (1, 4, 256, 40, True, BF16, True), (1, 4, 256, 20, True, BF16, True),
                    (1, LM_HEADS, 256, LM_HD, True, F32, False),
                    (2, 4, 512, 40, False, F32, True)]
 FLASH_BWD_TIMED = 2
@@ -2093,9 +2129,11 @@ def flash_bwd_phase(fa):
                     bms, by = flash_bwd_cost(kern, b, h, t_len, hd, causal, dtype, segmented)
                     row[kern] = {"kernel_ms": ms, "warmup_ms": warm, "plain_ms": time_ms(plain),
                                  "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-                                 "library_warmup_ms": lib_warm}
+                                 "library_warmup_ms": lib_warm,
+                                 "kernel_device_ms": graph_ms(fn)}
                     timing += (f" {kern}: kernel_ms {ms:.4f} (warm-up calls "
-                               f"{[round(w, 3) for w in warm[:3]]}...) plain_ms "
+                               f"{[round(w, 3) for w in warm[:3]]}...; device only, CUDA "
+                               f"graph: {row[kern]['kernel_device_ms']:.4f}) plain_ms "
                                f"{row[kern]['plain_ms']:.4f} bound_ms {bms:.5f} ({by});")
             timing += f" library_ms {lib_ms:.4f} (SDPA's whole backward)"
         rows.append(row)
@@ -2125,7 +2163,8 @@ def flash_bwd_phase(fa):
                                                            else ("dk", "dv")))
         summary[op]["by_shape"] = [{"b": r["b"], "T": r["T"], **{
             key: r[kern][key] for key in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms")}} for r in rows[:FLASH_BWD_TIMED]]
+                                          "library_ms", "kernel_device_ms")}}
+            for r in rows[:FLASH_BWD_TIMED]]
     print(f"phase 2f summary (headline: b 16, 12 heads, T 512, causal bf16): {summary}",
           flush=True)
     return rows, summary

@@ -20,31 +20,37 @@
 // lse (which a fully masked tile did not disturb) is all the backward needs.
 //
 // dq kernel: one block per (b*h, 64-row query block); it loops over the key
-// tiles (up to the diagonal tile when causal, masked inside it). dkv kernel:
-// one block per (b*h, 64-row key block); it loops over the query tiles
-// (from the diagonal tile when causal, masked inside it). Each output tile is
-// owned by one block and summed in a fixed order, with no atomics, so two
-// runs give the same bits.
+// tiles (up to the diagonal tile when causal, masked inside it). Each output
+// tile is owned by one block and summed in a fixed order, with no atomics,
+// so two runs give the same bits.
 //
-// Types. q, k, v, dO and the outputs are all bf16 or all f32. bf16: the
+// dkv kernel, bf16: a warp-specialized Hopper kernel (TMA, mbarriers,
+// wgmma; scores, p, ds and the dK, dV accumulators in registers), one block
+// per (b*h, 128-key block), looping over the query tiles from the diagonal
+// when causal; see flash_bwd_dkv_kernel_sm90. Its tensor maps are built on
+// the host per call (hopper.cuh); an operand TMA cannot take is copied by
+// the wrapper into a padded buffer first. dkv kernel, f32: one block per
+// (b*h, 64-row key block), 4 warps, tiles staged in shared memory.
+//
+// Types. q, k, v, dO and the outputs are all bf16 or all f32. bf16: dq's
 // four products of a tile run on the tensor cores (WMMA 16x16x16 bf16, f32
-// accumulation, the accumulators in registers). f32: f32 FMAs on the CUDA
-// cores (no TF32: fp32 means fp32 in this port).
+// accumulation, the accumulators in registers), dkv's on wgmma. f32: f32
+// FMAs on the CUDA cores (no TF32: fp32 means fp32 in this port).
 //
 // Bound on an H100: per (b, h) the dq kernel does 6*T^2*hd FLOPs and the dkv
 // kernel 8*T^2*hd (half of each when causal) on ~5*T*hd operand elements, so
-// at the train shape (T 512, hd 64) the tensor-core FLOPs bound both. This
-// first version is latency-bound like the forward: scalar tile loads,
-// 4 warps of 16 rows each, the score tiles through shared memory.
+// at the train shape (T 512, hd 64) the tensor-core FLOPs bound both. The dq
+// kernel is latency-bound: scalar tile loads, 4 warps of 16 rows each, the
+// score tiles through shared memory (ROADMAP § B: it should take dkv's
+// pipeline next).
 //
-// Layout. Each warp owns 16 rows of the block's own tile (queries in dq,
-// keys in dkv) and computes their 16 x 64 score and dp tiles against the
-// streamed tile; two lanes per row form p and ds on them. Head dims 1 to 128
-// are padded to a multiple of 16 with zeros in shared memory. q, k, v and dO
-// are read, and dq, dk, dv written, through their batch, head and time
-// strides (the head dimension unit-stride), so the wrapper can hand in the
-// model's head-split views and hand back (b, h, T, hd) views of (b, T, h, hd)
-// buffers.
+// Layout (dq, f32 dkv). Each warp owns 16 rows of the block's own tile and
+// computes their 16 x 64 score and dp tiles against the streamed tile; two
+// lanes per row form p and ds on them. Head dims 1 to 128 are padded to a
+// multiple of 16 with zeros in shared memory. q, k, v and dO are read, and
+// dq, dk, dv written, through their batch, head and time strides (the head
+// dimension unit-stride), so the wrapper can hand in the model's head-split
+// views and hand back (b, h, T, hd) views of (b, T, h, hd) buffers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,9 +58,12 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int BM = 64;          // rows of the block's own tile
@@ -89,11 +98,11 @@ __host__ __device__ constexpr size_t align128(size_t x) {
 
 // Shared memory: the block's two own tiles and the two streamed tiles (all
 // BM = BN rows of the operand type), the f32 score and dp tiles, the bf16
-// p~ and ds~ tiles (tensor-core path), the streamed rows' lse and D (dkv)
+// ds~ tile (dq on the tensor cores), the streamed rows' lse and D (dkv)
 // or the own rows' (dq), and the segment ids of both.
 struct Layout {
   int ld, lds, ldp;
-  size_t own0, own1, str0, str1, s, dp, pb, db, lse, dcap, segown, segstr, total;
+  size_t own0, own1, str0, str1, s, dp, db, lse, dcap, segown, segstr, total;
 };
 
 template <typename TI>
@@ -110,7 +119,6 @@ __host__ __device__ Layout layout(int hdp) {
   m.str1 = off; off = align128(off + sizeof(TI) * BN * m.ld);
   m.s = off; off = align128(off + sizeof(float) * BM * m.lds);
   m.dp = off; off = align128(off + sizeof(float) * BM * m.lds);
-  m.pb = off; if (tc) off = align128(off + sizeof(bf16) * BM * m.ldp);
   m.db = off; if (tc) off = align128(off + sizeof(bf16) * BM * m.ldp);
   m.lse = off; off = align128(off + sizeof(float) * BN);
   m.dcap = off; off = align128(off + sizeof(float) * BN);
@@ -383,20 +391,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Args a) {
   }
 }
 
-// ---- dk, dv: one block per (b*h, key block) ----------------------------------
-template <typename TI>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Args a) {
-  constexpr bool tc = std::is_same<TI, bf16>::value;
+// ---- f32 dk, dv: one block per (b*h, key block) ----------------------------------
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel_f32(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout<TI>(a.hdp);
-  TI* ksm = reinterpret_cast<TI*>(smem + L.own0);
-  TI* vsm = reinterpret_cast<TI*>(smem + L.own1);
-  TI* qsm = reinterpret_cast<TI*>(smem + L.str0);
-  TI* dosm = reinterpret_cast<TI*>(smem + L.str1);
+  const Layout L = layout<float>(a.hdp);
+  float* ksm = reinterpret_cast<float*>(smem + L.own0);
+  float* vsm = reinterpret_cast<float*>(smem + L.own1);
+  float* qsm = reinterpret_cast<float*>(smem + L.str0);
+  float* dosm = reinterpret_cast<float*>(smem + L.str1);
   float* s = reinterpret_cast<float*>(smem + L.s);
   float* dp = reinterpret_cast<float*>(smem + L.dp);
-  bf16* pb = reinterpret_cast<bf16*>(smem + L.pb);
-  bf16* db = reinterpret_cast<bf16*>(smem + L.db);
   float* lse = reinterpret_cast<float*>(smem + L.lse);
   float* dcap = reinterpret_cast<float*>(smem + L.dcap);
   int* segk = reinterpret_cast<int*>(smem + L.segown);
@@ -411,10 +415,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Args a) {
   const int lane = threadIdx.x % 32;
   const bool has_seg = a.seg != nullptr;
 
-  const TI* qg = head_ptr<TI>(a.q, a.qs, bi, hi);
-  const TI* kg = head_ptr<TI>(a.k, a.ks, bi, hi);
-  const TI* vg = head_ptr<TI>(a.v, a.vs, bi, hi);
-  const TI* dg = head_ptr<TI>(a.dout, a.ds, bi, hi);
+  const float* qg = head_ptr<float>(a.q, a.qs, bi, hi);
+  const float* kg = head_ptr<float>(a.k, a.ks, bi, hi);
+  const float* vg = head_ptr<float>(a.v, a.vs, bi, hi);
+  const float* dg = head_ptr<float>(a.dout, a.ds, bi, hi);
 
   load_tile(ksm, L.ld, kg, a.ks[2], kb * BM, hd, hdp);
   load_tile(vsm, L.ld, vg, a.vs[2], kb * BM, hd, hdp);
@@ -422,20 +426,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Args a) {
     for (int i = threadIdx.x; i < BM; i += THREADS) segk[i] = a.seg[bi * T + kb * BM + i];
   }
 
-  FragAcc dk_tc[NT], dv_tc[NT];
   float dk_f[NJ][16], dv_f[NJ][16];
-  if constexpr (tc) {
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      wmma::fill_fragment(dk_tc[t], 0.f);
-      wmma::fill_fragment(dv_tc[t], 0.f);
-    }
-  } else {
+  for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int r = 0; r < 16; ++r) dk_f[j][r] = dv_f[j][r] = 0.f;
-    }
+    for (int r = 0; r < 16; ++r) dk_f[j][r] = dv_f[j][r] = 0.f;
   }
 
   // the key row a lane helps with, and its half of the 64 query columns
@@ -456,13 +451,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Args a) {
     __syncthreads();
 
     // transposed tiles: rows are this block's keys, columns the queries
-    if constexpr (tc) {
-      abt_tc(ksm, qsm, s, L.ld, L.lds, hdp, warp);
-      abt_tc(vsm, dosm, dp, L.ld, L.lds, hdp, warp);
-    } else {
-      abt_f32(ksm, qsm, s, L.ld, L.lds, hdp, warp, lane);
-      abt_f32(vsm, dosm, dp, L.ld, L.lds, hdp, warp, lane);
-    }
+    abt_f32(ksm, qsm, s, L.ld, L.lds, hdp, warp, lane);
+    abt_f32(vsm, dosm, dp, L.ld, L.lds, hdp, warp, lane);
     __syncwarp();
 
     for (int c = c0; c < c0 + BN / 2; ++c) {
@@ -470,37 +460,302 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Args a) {
       if (a.causal && gkey > i * BN + c) sc = NEG_INF;
       if (has_seg && segk[row] != segq[c]) sc = NEG_INF;
       const float p = expf(sc - lse[c]);
-      const float dsv = p * (dp[row * L.lds + c] - dcap[c]) * a.scale;
-      if constexpr (tc) {
-        pb[row * L.ldp + c] = __float2bfloat16_rn(p);
-        db[row * L.ldp + c] = __float2bfloat16_rn(dsv);
-      } else {
-        s[row * L.lds + c] = p;
-        dp[row * L.lds + c] = dsv;
-      }
+      s[row * L.lds + c] = p;
+      dp[row * L.lds + c] = p * (dp[row * L.lds + c] - dcap[c]) * a.scale;
     }
     __syncwarp();
 
-    if constexpr (tc) {
-      ab_tc(pb, L.ldp, dosm, L.ld, dv_tc, hdp, warp);
-      ab_tc(db, L.ldp, qsm, L.ld, dk_tc, hdp, warp);
-    } else {
-      ab_f32(s, L.lds, dosm, L.ld, dv_f, hdp, warp, lane);
-      ab_f32(dp, L.lds, qsm, L.ld, dk_f, hdp, warp, lane);
-    }
+    ab_f32(s, L.lds, dosm, L.ld, dv_f, hdp, warp, lane);
+    ab_f32(dp, L.lds, qsm, L.ld, dk_f, hdp, warp, lane);
   }
 
   const long long r0 = kb * BM + warp * 16;
-  TI* dkd = head_ptr_out<TI>(a.dk, a.dks, bi, hi) + r0 * a.dks[2];
-  TI* dvd = head_ptr_out<TI>(a.dv, a.dvs, bi, hi) + r0 * a.dvs[2];
-  __syncwarp();
-  if constexpr (tc) {
-    write_tc(dk_tc, s + warp * 16 * L.lds, L.lds, dkd, a.dks[2], hd, hdp, lane);
-    write_tc(dv_tc, s + warp * 16 * L.lds, L.lds, dvd, a.dvs[2], hd, hdp, lane);
-  } else {
-    write_f32(dk_f, dkd, a.dks[2], hd, lane);
-    write_f32(dv_f, dvd, a.dvs[2], hd, lane);
+  write_f32(dk_f, head_ptr_out<float>(a.dk, a.dks, bi, hi) + r0 * a.dks[2], a.dks[2], hd, lane);
+  write_f32(dv_f, head_ptr_out<float>(a.dv, a.dvs, bi, hi) + r0 * a.dvs[2], a.dvs[2], hd, lane);
+}
+
+// ---- bf16 dk, dv: TMA, wgmma, warp specialization ----------------------------------
+// A block of 288 threads owns 128 keys of one (b, h): a producer warp and
+// two consumer warpgroups of 64 keys. K and V arrive once (TMA); the
+// producer streams the query tiles of Q, dO, lse, D (and the segment ids)
+// through a ring of 2 stages on full/empty mbarriers, from the diagonal
+// when causal. Per query tile each consumer warpgroup computes, with dK and
+// dV accumulating in registers for the whole loop:
+//   S^T  = K Q^T           wgmma, both K-major from shared memory
+//   dP^T = V dO^T          wgmma, both K-major
+//   P^T  = exp(S^T scale - lse), masked only on the diagonal band (and
+//          under segment ids, by selects), in registers (exp as the
+//          hardware's exp2, denormals flushed)
+//   dV  += P~^T dO         wgmma, P~ the register A operand, dO MN-major
+//   dS^T = P^T (dP^T - D) scale, in registers
+//   dK  += dS~^T Q         wgmma, dS~ from registers, Q MN-major
+// (~: rounded to bf16). No dq here: it would need atomics; the dq kernel
+// keeps it. Wave y of the grid takes the key block y: causal, key block 0
+// has the longest loop, so the longest loops start first.
+constexpr int KB = 128;                 // keys per block
+constexpr int H_CONSUMER_WARPS = 8;
+constexpr int H_THREADS = (H_CONSUMER_WARPS + 1) * 32;
+constexpr int H_STAGES = 2;
+
+template <int HD>
+struct Dkv {
+  static constexpr int BQ = HD == 64 ? 64 : 32;     // queries per streamed tile (registers)
+  static constexpr int PANELS = HD / 64;
+  static constexpr int KV_BYTES = KB * HD * 2;
+  static constexpr int TILE_BYTES = BQ * HD * 2;
+  // shared memory, every tile 1024-byte aligned
+  static constexpr int K = 0;
+  static constexpr int V = K + KV_BYTES;
+  static constexpr int Q = V + KV_BYTES;                    // stage s at Q + s * TILE_BYTES
+  static constexpr int DO = Q + H_STAGES * TILE_BYTES;
+  static constexpr int VEC = DO + H_STAGES * TILE_BYTES;    // per stage: lse, D, seg (BQ each)
+  static constexpr int BAR = VEC + H_STAGES * 3 * BQ * 4;   // kv, full[H_STAGES], empty[H_STAGES]
+  static constexpr int BYTES = BAR + (1 + 2 * H_STAGES) * 8 + 1024;  // + the alignment slack
+};
+
+struct HArgs {
+  const float* lse;             // (b*h, T)
+  const float* dcap;            // (b*h, T)
+  const int* seg;               // (b, T) int32 or null
+  void* dk;
+  void* dv;
+  int h, T, hd;
+  int dks[3], dvs[3];           // batch, head, time strides of dk and dv
+  float scale;
+  int causal;
+  MapPos qp, kp, vp, dp;
+};
+
+// rows r (slot 0) and r + 8 (slot 1) of a (64 x HD) accumulator, rounded
+// once, to dst through its strides (rows at or past T are not stored)
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 2], bf16* base,
+                                           const int (&st)[3], int r, int T, int hd, int c) {
+  const bool pairs = ((hd | st[0] | st[1] | st[2]) & 1) == 0;
+#pragma unroll
+  for (int slot = 0; slot < 2; ++slot) {
+    const int row = r + 8 * slot;
+    if (row >= T) continue;
+    bf16* dst = base + static_cast<long long>(row) * st[2];
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      const int col = 8 * i + 2 * c;
+      if (col >= hd) continue;
+      const float x0 = acc[4 * i + 2 * slot], x1 = acc[4 * i + 2 * slot + 1];
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        dst[col] = __float2bfloat16_rn(x0);
+        if (col + 1 < hd) dst[col + 1] = __float2bfloat16_rn(x1);
+      }
+    }
   }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(H_THREADS, 1)
+    flash_bwd_dkv_kernel_sm90(__grid_constant__ const CUtensorMap mq,
+                              __grid_constant__ const CUtensorMap mk,
+                              __grid_constant__ const CUtensorMap mv,
+                              __grid_constant__ const CUtensorMap mdo, const HArgs a) {
+  using L = Dkv<HD>;
+  constexpr int BQ = L::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* sk = reinterpret_cast<bf16*>(smem + L::K);
+  bf16* sv = reinterpret_cast<bf16*>(smem + L::V);
+  bf16* sq = reinterpret_cast<bf16*>(smem + L::Q);
+  bf16* sdo = reinterpret_cast<bf16*>(smem + L::DO);
+  float* vec = reinterpret_cast<float*>(smem + L::VEC);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + H_STAGES;
+
+  const int T = a.T;
+  const int bh = blockIdx.x;
+  const int bi = bh / a.h;
+  const int hi = bh - bi * a.h;
+  const int kb = blockIdx.y;  // key block 0 has the longest causal loop
+  const int i0 = a.causal ? kb * KB / BQ : 0;
+  const int n_q = T / BQ;
+  const bool has_seg = a.seg != nullptr;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < H_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], H_CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == H_CONSUMER_WARPS) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::KV_BYTES);
+      for (int p = 0; p < L::PANELS; ++p) {
+        tma_load_rows(sk + p * KB * 64, &mk, bar_kv, p * 64, kb * KB, hi, bi, a.kp);
+        tma_load_rows(sv + p * KB * 64, &mv, bar_kv, p * 64, kb * KB, hi, bi, a.vp);
+      }
+      for (int n = 0; i0 + n < n_q; ++n) {
+        const int i = i0 + n;
+        const int s = n % H_STAGES;
+        if (n >= H_STAGES) mbar_wait(&empty[s], (n / H_STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * L::TILE_BYTES + (has_seg ? 3 : 2) * BQ * 4);
+        for (int p = 0; p < L::PANELS; ++p) {
+          tma_load_rows(sq + s * BQ * HD + p * BQ * 64, &mq, &full[s], p * 64, i * BQ, hi, bi,
+                        a.qp);
+          tma_load_rows(sdo + s * BQ * HD + p * BQ * 64, &mdo, &full[s], p * 64, i * BQ, hi,
+                        bi, a.dp);
+        }
+        float* v = vec + s * 3 * BQ;
+        const long long at = static_cast<long long>(bh) * T + i * BQ;
+        bulk_load(v, a.lse + at, BQ * 4, &full[s]);
+        bulk_load(v + BQ, a.dcap + at, BQ * 4, &full[s]);
+        if (has_seg) bulk_load(v + 2 * BQ, a.seg + bi * T + i * BQ, BQ * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg owns keys [wg*64, wg*64 + 64) of the block;
+  // this thread holds keys k0 (slot 0) and k0 + 8 (slot 1)
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  const int first_key = kb * KB + wg * 64;
+  const int k0 = first_key + (warp % 4) * 16 + g;
+  int sk0 = 0, sk1 = 0;
+  if (has_seg) {
+    sk0 = k0 < T ? a.seg[bi * T + k0] : -1;
+    sk1 = k0 + 8 < T ? a.seg[bi * T + k0 + 8] : -1;
+  }
+  float dk[HD / 2], dv[HD / 2], st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
+  const bf16* kw = sk + wg * 64 * 64;
+  const bf16* vw = sv + wg * 64 * 64;
+  mbar_wait(bar_kv, 0);
+
+  for (int n = 0; i0 + n < n_q; ++n) {
+    const int i = i0 + n;
+    const int s = n % H_STAGES;
+    mbar_wait(&full[s], (n / H_STAGES) & 1);
+    const bf16* qt = sq + s * BQ * HD;
+    const bf16* dt = sdo + s * BQ * HD;
+    const float* lse_t = vec + s * 3 * BQ;
+    const float* d_t = lse_t + BQ;
+    const int* seg_t = reinterpret_cast<const int*>(lse_t + 2 * BQ);
+
+    // S^T = K Q^T and dP^T = V dO^T, two groups in flight
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss<0>(st, desc_kmajor(kw + (kk / 4) * KB * 64 + (kk % 4) * 16),
+                  desc_kmajor(qt + (kk / 4) * BQ * 64 + (kk % 4) * 16), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss<0>(dpt, desc_kmajor(vw + (kk / 4) * KB * 64 + (kk % 4) * 16),
+                  desc_kmajor(dt + (kk / 4) * BQ * 64 + (kk % 4) * 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // P^T = exp(S^T scale - lse), masked on the diagonal band and under
+    // segment ids
+    if (has_seg || (a.causal && i * BQ < first_key + 63)) {
+#pragma unroll
+      for (int ii = 0; ii < BQ / 8; ++ii) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * ii + 2 * c + e;
+          const int qrow = i * BQ + col;
+          const int sq_ = has_seg ? seg_t[col] : 0;
+          const bool dead0 = (a.causal & (k0 > qrow)) | (sk0 != sq_);
+          const bool dead1 = (a.causal & (k0 + 8 > qrow)) | (sk1 != sq_);
+          const float s0 = dead0 ? NEG_INF : st[4 * ii + e] * a.scale;
+          const float s1 = dead1 ? NEG_INF : st[4 * ii + 2 + e] * a.scale;
+          st[4 * ii + e] = exp_ftz(s0 - lse_t[col]);
+          st[4 * ii + 2 + e] = exp_ftz(s1 - lse_t[col]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ii = 0; ii < BQ / 8; ++ii) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * ii + 2 * c + e;
+          st[4 * ii + e] = exp_ftz(st[4 * ii + e] * a.scale - lse_t[col]);
+          st[4 * ii + 2 + e] = exp_ftz(st[4 * ii + 2 + e] * a.scale - lse_t[col]);
+        }
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+
+    // dS^T = P^T (dP^T - D) scale; both rounded to bf16 pairs as A operands
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int ii = 0; ii < BQ / 8; ++ii) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * ii + 2 * c + e;
+        dpt[4 * ii + e] = st[4 * ii + e] * (dpt[4 * ii + e] - d_t[col]) * a.scale;
+        dpt[4 * ii + 2 + e] = st[4 * ii + 2 + e] * (dpt[4 * ii + 2 + e] - d_t[col]) * a.scale;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+        da[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+      }
+    }
+
+    // dV += P~^T dO, dK += dS~^T Q
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs<1>(dv, pa[kk], desc_mnmajor(dt + kk * 16 * 64, BQ * 128), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs<1>(dk, da[kk], desc_mnmajor(qt + kk * 16 * 64, BQ * 128), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  store_rows<HD>(dk, static_cast<bf16*>(a.dk) + static_cast<long long>(bi) * a.dks[0] +
+                         static_cast<long long>(hi) * a.dks[1],
+                 a.dks, k0, T, a.hd, c);
+  store_rows<HD>(dv, static_cast<bf16*>(a.dv) + static_cast<long long>(bi) * a.dvs[0] +
+                         static_cast<long long>(hi) * a.dvs[1],
+                 a.dvs, k0, T, a.hd, c);
+}
+
+template <int HD>
+int launch_dkv_sm90(const HArgs& a, const HeadMap& q, const HeadMap& k, const HeadMap& v,
+                    const HeadMap& d, int bh, int n_blocks, cudaStream_t stream) {
+  const int bytes = Dkv<HD>::BYTES;
+  static bool done[64] = {};  // per HD: each instantiation opts in for itself
+  const int err = opt_in_smem(flash_bwd_dkv_kernel_sm90<HD>, bytes, done);
+  if (err != 0) return err;
+  flash_bwd_dkv_kernel_sm90<HD><<<dim3(bh, n_blocks), H_THREADS, bytes, stream>>>(
+      q.map, k.map, v.map, d.map, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TI>
@@ -515,15 +770,14 @@ int launch_dq(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TI>
-int launch_dkv(const Args& a, cudaStream_t stream) {
-  const size_t bytes = layout<TI>(a.hdp).total;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<TI>,
+int launch_dkv_f32(const Args& a, cudaStream_t stream) {
+  const size_t bytes = layout<float>(a.hdp).total;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_f32,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.T / BM, a.b * a.h);
-  flash_bwd_dkv_kernel<TI><<<grid, THREADS, bytes, stream>>>(a);
+  flash_bwd_dkv_kernel_f32<<<grid, THREADS, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -592,22 +846,60 @@ int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v, const void* d
 }
 
 // as dl4j_flash_bwd_dq; dk, dv: (b, h, T, hd) of the operand type through
-// their strides
+// their strides. bf16: qd, kd, vd, dd are the operands' own last dims (>= hd;
+// zero past hd), each operand TMA-readable (16-byte aligned base, strides
+// multiples of 8 elements), lse, dcap and seg 16-byte aligned (ceil(T / 128)
+// key blocks). Returns
+// cudaGetLastError(), or 1000 + a driver error of the tensor-map encoding.
 int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* dcap, const void* seg, void* dk, void* dv,
                        int b, int h, int T, int hd, int causal, int is_bf16, int qsb, int qsh,
                        int qst, int ksb, int ksh, int kst, int vsb, int vsh, int vst, int dsb,
                        int dsh, int dst, int dksb, int dksh, int dkst, int dvsb, int dvsh,
-                       int dvst, float scale, void* stream) {
+                       int dvst, int qd, int kd, int vd, int dd, float scale,
+                       void* stream) {
   if (bad_shape(b, h, T, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  Args a = common(q, k, v, dout, lse, dcap, seg, b, h, T, hd, causal, qsb, qsh, qst, ksb, ksh,
-                  kst, vsb, vsh, vst, dsb, dsh, dst, scale);
+  cudaStream_t stm = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    Args a = common(q, k, v, dout, lse, dcap, seg, b, h, T, hd, causal, qsb, qsh, qst, ksb,
+                    ksh, kst, vsb, vsh, vst, dsb, dsh, dst, scale);
+    a.dk = dk;
+    a.dv = dv;
+    set3(a.dks, dksb, dksh, dkst);
+    set3(a.dvs, dvsb, dvsh, dvst);
+    return launch_dkv_f32(a, stm);
+  }
+  const int n_blocks = (T + KB - 1) / KB;
+  if (qd < hd || kd < hd || vd < hd || dd < hd || qd > MAX_HD || kd > MAX_HD ||
+      vd > MAX_HD || dd > MAX_HD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int bq = hd <= 64 ? Dkv<64>::BQ : Dkv<128>::BQ;
+  HeadMap mq, mk, mv, md;
+  int rc = encode_heads(&mq, q, qd, T, h, b, qsb, qsh, qst, bq);
+  if (rc == 0) rc = encode_heads(&mk, k, kd, T, h, b, ksb, ksh, kst, KB);
+  if (rc == 0) rc = encode_heads(&mv, v, vd, T, h, b, vsb, vsh, vst, KB);
+  if (rc == 0) rc = encode_heads(&md, dout, dd, T, h, b, dsb, dsh, dst, bq);
+  if (rc != 0) return rc;
+  HArgs a{};
+  a.lse = static_cast<const float*>(lse);
+  a.dcap = static_cast<const float*>(dcap);
+  a.seg = static_cast<const int*>(seg);
   a.dk = dk;
   a.dv = dv;
+  a.h = h;
+  a.T = T;
+  a.hd = hd;
   set3(a.dks, dksb, dksh, dkst);
   set3(a.dvs, dvsb, dvsh, dvst);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dkv<bf16>(a, st) : launch_dkv<float>(a, st);
+  a.scale = scale;
+  a.causal = causal;
+  a.qp = mq.pos;
+  a.kp = mk.pos;
+  a.vp = mv.pos;
+  a.dp = md.pos;
+  return hd <= 64 ? launch_dkv_sm90<64>(a, mq, mk, mv, md, b * h, n_blocks, stm)
+                  : launch_dkv_sm90<128>(a, mq, mk, mv, md, b * h, n_blocks, stm);
 }
 
 }  // extern "C"

@@ -30,6 +30,10 @@ every product summed in f32.
   replaces the reference's ``_fwd_kernel``; ``csrc/flash_attention_bwd.cu``,
   which replaces ``_dq_kernel`` and ``_dkv_kernel``) or raise: there is no
   fallback and no probe (the availability registry is ROADMAP § B0).
+  The bf16 forward and dkv kernels are Hopper designs (TMA tile loads on
+  mbarriers, wgmma, scores and accumulators in registers): an operand their
+  TMA loads cannot read (:func:`tma_ready`) is first copied into a padded
+  buffer (:func:`padded_operand`, a layout copy for the same kernel).
   :func:`flash_attention_bwd` is the reference's ``_bwd_impl``: ``D`` by
   :func:`row_dot`, then the two. Each launch adds one to
   ``launch_counts`` under ``flash_attention_fwd``, ``flash_attention_dq`` or
@@ -168,33 +172,76 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float,
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
-_LIB = KernelLibrary("flash_attention", {"dl4j_flash_fwd": (6, 18, 1)},
+_LIB = KernelLibrary("flash_attention", {"dl4j_flash_fwd": (6, 21, 1)},
                      "dl4j_flash_tile", tile_keys="mnd")
 _BWD_LIB = KernelLibrary("flash_attention_bwd", {"dl4j_flash_bwd_dq": (8, 21, 1),
-                                                 "dl4j_flash_bwd_dkv": (9, 24, 1)},
+                                                 "dl4j_flash_bwd_dkv": (9, 28, 1)},
                          "dl4j_flash_bwd_tile", tile_keys="mnd")
-_BLOCK = 64
+#: query rows per block of the forward (T must be a multiple: the reference's
+#: own rule), and of the dq kernel (the backward's T rule)
+_FWD_BLOCK = 128
+_BWD_BLOCK = 64
 _I32_MAX = 2 ** 31 - 1
+#: TMA reads 16-byte aligned bases and strides (8 bf16)
+_TMA_ALIGN = 16
 
 
 def _strides(op: str, name: str, t: torch.Tensor) -> Tuple[int, int, int]:
     """(batch, head, time) element strides of a (b, h, T, hd) operand whose
     head dim is unit-stride; every offset must fit the kernel's int32."""
-    if t.stride(3) != 1 and t.shape[3] > 1:
+    shape, st = t.shape, t.stride()
+    if st[3] != 1 and shape[3] > 1:
         raise ValueError(f"{op}: {name} needs a unit-stride head dim (strides "
-                         f"{t.stride()}); use .contiguous()")
-    span = sum((n - 1) * abs(st) for n, st in zip(t.shape, t.stride()))
+                         f"{st}); use .contiguous()")
+    span = ((shape[0] - 1) * abs(st[0]) + (shape[1] - 1) * abs(st[1])
+            + (shape[2] - 1) * abs(st[2]) + (shape[3] - 1) * abs(st[3]))
     if span > _I32_MAX:
         raise ValueError(f"{op}: {name} spans {span} elements, over the kernel's "
                          "int32 offsets")
-    return t.stride(0), t.stride(1), t.stride(2)
+    return st[0], st[1], st[2]
 
 
-def _check_operands(op: str, q, k, v, seg: Optional[torch.Tensor], extra=()) -> None:
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels' TMA loads can read a (b, h, T, hd) operand
+    as it is: a 16-byte aligned base, a unit-stride head dim, and the batch,
+    head and time strides of every dimension longer than 1 positive
+    multiples of 16 bytes. A ragged hd (20) in a dense layout, a stride-0
+    (expanded) or misaligned view is not."""
+    shape, st = t.shape, t.stride()
+    if t.data_ptr() % _TMA_ALIGN or (st[3] != 1 and shape[3] > 1):
+        return False
+    step = _TMA_ALIGN // t.element_size()
+    for i in range(3):
+        if shape[i] != 1 and (st[i] <= 0 or st[i] % step):
+            return False
+    return True
+
+
+def padded_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a contiguous (b, h, T, hd8) buffer, hd8 = hd rounded
+    up to a multiple of 8, zero past hd: the layout copy that lets the same
+    kernel read an operand that is not :func:`tma_ready`."""
+    b, h, T, hd = t.shape
+    out = torch.zeros((b, h, T, -(-hd // 8) * 8), dtype=t.dtype, device=t.device)
+    out[..., :hd].copy_(t)
+    return out
+
+
+def aligned_vector(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """lse, D or segment ids as the kernels' bulk copies read them: a
+    16-byte aligned base (a copy if not)."""
+    if t is None or t.data_ptr() % _TMA_ALIGN == 0:
+        return t
+    return t.clone()
+
+
+def _check_operands(op: str, q, k, v, seg: Optional[torch.Tensor], extra=(),
+                    block: int = _BWD_BLOCK) -> None:
     """What every flash kernel takes: f32 or bf16 q, k, v (and ``extra``
     tensors, (name, tensor) pairs) of one shape, dtype and device, T a
-    positive multiple of 64, 1 <= hd <= 128, b*h <= 65535, contiguous int32
-    (b, T) segment ids."""
+    positive multiple of ``block`` (128 in the forward, 64 in the backward),
+    1 <= hd <= 128, b*h <= 65535, unit-stride head dims (int32 offsets),
+    contiguous int32 (b, T) segment ids."""
     if q.dim() != 4:
         raise ValueError(f"{op}: q must be (b, h, T, hd), got {tuple(q.shape)}")
     b, h, T, hd = q.shape
@@ -208,8 +255,10 @@ def _check_operands(op: str, q, k, v, seg: Optional[torch.Tensor], extra=()) -> 
         if tuple(t.shape) != tuple(q.shape):
             raise ValueError(f"{op}: {name} must have shape {tuple(q.shape)}, "
                              f"got {tuple(t.shape)}")
-    if T == 0 or T % _BLOCK or not 1 <= hd <= MAX_HEAD_DIM or b * h > 65535:
-        raise ValueError(f"{op}: the kernel takes T a positive multiple of {_BLOCK}, "
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
+        _strides(op, name, t)
+    if T == 0 or T % block or not 1 <= hd <= MAX_HEAD_DIM or b * h > 65535:
+        raise ValueError(f"{op}: the kernel takes T a positive multiple of {block}, "
                          f"1 <= hd <= {MAX_HEAD_DIM} and b*h <= 65535, got "
                          f"{tuple(q.shape)}; {WIDER}")
     if seg is not None:
@@ -223,42 +272,53 @@ def _check_operands(op: str, q, k, v, seg: Optional[torch.Tensor], extra=()) -> 
 def _heads_buffer(q) -> torch.Tensor:
     """An empty (b, h, T, hd) view of a (b, T, h, hd) buffer of q's dtype."""
     b, h, T, hd = q.shape
-    return torch.empty((b, T, h, hd), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    return q.new_empty_strided((b, h, T, hd), (T * h * hd, hd, h * hd, 1))
 
 
 def _out_strides(t) -> Tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _load(lib: KernelLibrary, op: str):
+def _load(lib: KernelLibrary, op: str, block: int):
     handle = lib.get()
-    if lib.tile["m"] != _BLOCK:
-        raise RuntimeError(f"{op}: the kernel's row block is {lib.tile['m']}, not {_BLOCK}")
+    if lib.tile["m"] != block:
+        raise RuntimeError(f"{op}: the kernel's row block is {lib.tile['m']}, not {block}")
     return handle
+
+
+def _kernel_operands(ts):
+    """The operands as the kernel reads them -> (tensors, their (batch,
+    head, time) strides flattened, their last dims). bf16: an operand that
+    is not :func:`tma_ready` is replaced by its :func:`padded_operand`
+    (:func:`_check_operands` has held every dtype to a unit-stride head
+    dim)."""
+    if ts[0].dtype == torch.bfloat16:
+        ts = [t if tma_ready(t) else padded_operand(t) for t in ts]
+    return ts, [x for t in ts for x in t.stride()[:3]], [t.shape[3] for t in ts]
 
 
 def _kernel(q, k, v, causal: bool, scale: float, seg: Optional[torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_operands(OP, q, k, v, seg)
+    _check_operands(OP, q, k, v, seg, block=_FWD_BLOCK)
     b, h, T, hd = q.shape
-    strides = [s for name, t in (("q", q), ("k", k), ("v", v))
-               for s in _strides(OP, name, t)]
     o = _heads_buffer(q)
-    lse = torch.empty((b * h, T), dtype=torch.float32, device=q.device)
-    lib = _load(_LIB, OP)
+    lse = q.new_empty((b * h, T), dtype=torch.float32)
+    (q, k, v), strides, dims = _kernel_operands([q, k, v])
+    seg = aligned_vector(seg)
+    lib = _load(_LIB, OP, _FWD_BLOCK)
     with torch.cuda.device(q.device):
         launch(lib.dl4j_flash_fwd, OP,
                (*ptrs(q, k, v), 0 if seg is None else seg.data_ptr(), *ptrs(o, lse),
                 b, h, T, hd, int(causal), int(q.dtype == torch.bfloat16), *strides,
-                *_out_strides(o), float(scale)))
+                *_out_strides(o), *dims, float(scale)))
     return o, lse
 
 
 def _bwd_args(op, q, k, v, lse, do, dcap, seg):
-    """Checks of a backward kernel's operands -> (dO with a unit-stride head
-    dim, the (batch, head, time) strides of q, k, v and dO). Autograd may
-    hand over an expanded or strided gradient: the kernels read dO through
-    its strides, so only a head dim that is not unit-stride is copied."""
+    """Checks of a backward kernel's operands -> dO with a unit-stride head
+    dim. Autograd may hand over an expanded or strided gradient: the kernels
+    read dO through its strides, so only a head dim that is not unit-stride
+    is copied."""
     if do.dim() == 4 and do.stride(3) != 1 and do.shape[3] > 1:
         do = do.contiguous()
     _check_operands(op, q, k, v, seg, (("dO", do),))
@@ -268,9 +328,7 @@ def _bwd_args(op, q, k, v, lse, do, dcap, seg):
                 not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{op}: {name} must be a contiguous f32 (b*h, T)=({b * h}, {T}) "
                              f"tensor on {q.device}, got {t.dtype} {tuple(t.shape)}")
-    ins = [s for name, t in (("q", q), ("k", k), ("v", v), ("dO", do))
-           for s in _strides(op, name, t)]
-    return do, ins
+    return do
 
 
 def flash_attention_dq(q, k, v, lse, do, dcap, causal: bool, scale: float,
@@ -280,10 +338,11 @@ def flash_attention_dq(q, k, v, lse, do, dcap, causal: bool, scale: float,
     kernel, or it raises."""
     if q.device.type == "cpu":
         return flash_attention_dq_plain(q, k, v, lse, do, dcap, causal, scale, segment_ids)
-    do, ins = _bwd_args(OP_DQ, q, k, v, lse, do, dcap, segment_ids)
+    do = _bwd_args(OP_DQ, q, k, v, lse, do, dcap, segment_ids)
+    ins = [s for t in (q, k, v, do) for s in t.stride()[:3]]
     b, h, T, hd = q.shape
     dq = _heads_buffer(q)
-    lib = _load(_BWD_LIB, OP_DQ)
+    lib = _load(_BWD_LIB, OP_DQ, _BWD_BLOCK)
     with torch.cuda.device(q.device):
         launch(lib.dl4j_flash_bwd_dq, OP_DQ,
                (*ptrs(q, k, v, do, lse, dcap), 0 if segment_ids is None else segment_ids.data_ptr(),
@@ -300,15 +359,17 @@ def flash_attention_dkv(q, k, v, lse, do, dcap, causal: bool, scale: float,
     raises."""
     if q.device.type == "cpu":
         return flash_attention_dkv_plain(q, k, v, lse, do, dcap, causal, scale, segment_ids)
-    do, ins = _bwd_args(OP_DKV, q, k, v, lse, do, dcap, segment_ids)
+    do = _bwd_args(OP_DKV, q, k, v, lse, do, dcap, segment_ids)
     b, h, T, hd = q.shape
     dk, dv = _heads_buffer(k), _heads_buffer(v)
-    lib = _load(_BWD_LIB, OP_DKV)
+    (q, k, v, do), ins, dims = _kernel_operands([q, k, v, do])
+    lse, dcap, seg = (aligned_vector(t) for t in (lse, dcap, segment_ids))
+    lib = _load(_BWD_LIB, OP_DKV, _BWD_BLOCK)
     with torch.cuda.device(q.device):
         launch(lib.dl4j_flash_bwd_dkv, OP_DKV,
-               (*ptrs(q, k, v, do, lse, dcap), 0 if segment_ids is None else segment_ids.data_ptr(),
+               (*ptrs(q, k, v, do, lse, dcap), 0 if seg is None else seg.data_ptr(),
                 *ptrs(dk, dv), b, h, T, hd, int(causal), int(q.dtype == torch.bfloat16), *ins,
-                *_out_strides(dk), *_out_strides(dv), float(scale)))
+                *_out_strides(dk), *_out_strides(dv), *dims, float(scale)))
     return dk, dv
 
 
@@ -362,7 +423,7 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)``: the forward kernel's entry (the reference's
     ``_fwd_impl``). A CPU ``q`` takes the plain version; a CUDA ``q`` the
-    kernel (f32 or bf16 q/k/v of one shape, ``T % 64 == 0``, ``hd <= 128``,
+    kernel (f32 or bf16 q/k/v of one shape, ``T % 128 == 0``, ``hd <= 128``,
     int32 segment ids), or it raises. Where a gradient is recorded it runs
     through :class:`FlashAttention`, so ``o`` carries one."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -27,6 +27,7 @@ output, each capped at the JAX probe's 1.6e-3 / 0.16).
 
 import copy
 import math
+import subprocess
 import sys
 from pathlib import Path
 
@@ -45,7 +46,8 @@ from deeplearning4j_tpu_torch.nn.ops import int8_matmul as im
 from deeplearning4j_tpu_torch.serving import InferenceEngine
 from deeplearning4j_tpu_torch.updaters import Nesterovs
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402  (phase 2f's oracle of the flash backward)
 
 pytestmark = pytest.mark.cuda
@@ -531,6 +533,10 @@ FLASH_CASES = [  # (b, h, T, hd, causal, dtype, segmented)
     (1, 3, 256, 32, True, torch.bfloat16, False),
     (1, 3, 256, 40, False, torch.bfloat16, True),
     (1, 2, 128, 128, True, torch.bfloat16, False),
+    (16, 12, 512, 64, True, torch.bfloat16, False),    # the train step's shape
+    (1, 4, 512, 64, True, torch.bfloat16, True),       # cuts off the 128-row tiles
+    (1, 3, 256, 20, True, torch.bfloat16, False),      # ragged: the padded layout copy
+    (1, 3, 256, 20, False, torch.bfloat16, True),
     (1, 3, 256, 64, True, torch.float32, False),
     (2, 2, 128, 40, False, torch.float32, True),
 ]
@@ -576,6 +582,84 @@ def test_flash_kernel_takes_strided_heads_and_runs_bit_identical(card):
     assert torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(o[1:], o1)
     # o is a (b, h, T, hd) view of (b, T, h, hd): merging heads is free
     assert o.transpose(1, 2).is_contiguous()
+
+
+def _fused_qkv(b, T, h, hd, seed):
+    """q, k, v as the fused qkv projection's head split makes them: views
+    of one (b, T, 3, h, hd) tensor, TMA-readable as they are."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, T, 3, h, hd, generator=g).bfloat16().cuda()
+    return [x[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+@pytest.mark.parametrize("hd", [64, 40])
+def test_flash_kernel_takes_the_fused_qkv_split(card, hd):
+    q, k, v = _fused_qkv(2, 256, 3, hd, 13)
+    assert all(fa.tma_ready(t) and not t.is_contiguous() for t in (q, k, v))
+    seg = torch.zeros(2, 256, dtype=torch.int32)
+    seg[:, 150:] = 1
+    seg = seg.cuda()
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_fwd(q, k, v, True, hd ** -0.5, seg)
+        o2, lse2 = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), True,
+                                          hd ** -0.5, seg)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_ref, _, tol = _flash_tol(q, k, v, True, hd ** -0.5, seg)
+    assert bool(((o.float() - o_ref).abs() <= tol).all())
+
+
+def test_flash_kernel_copies_what_tma_cannot_read(card):
+    """A misaligned view (a column slice) and an expanded tensor go
+    through the padded layout copy: the same kernel, the same bits as on
+    contiguous copies."""
+    g = torch.Generator().manual_seed(17)
+    wide = torch.randn(1, 4, 256, 66, generator=g).bfloat16().cuda()
+    q = wide[..., 1:65]
+    k = torch.randn(1, 1, 1, 64, generator=g).bfloat16().cuda().expand(1, 4, 256, 64)
+    v = torch.randn(1, 4, 256, 64, generator=g).bfloat16().cuda()
+    assert not fa.tma_ready(q) and not fa.tma_ready(k)
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
+        o2, lse2 = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v, True, 0.125)
+    assert dict(fa.launch_counts) == {"flash_attention_fwd": 2}
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+_OPT_IN_RUN = """
+import torch
+from deeplearning4j_tpu_torch.nn.ops import flash_attention as fa
+
+def run(hds):
+    out = {}
+    for hd in hds:
+        g = torch.Generator().manual_seed(hd)
+        q, k, v, do = (torch.randn(1, 2, 256, hd, generator=g).bfloat16().cuda()
+                       for _ in range(4))
+        with torch.inference_mode():
+            o, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
+            dcap = fa.row_dot(o, do).contiguous()
+            dk, dv = fa.flash_attention_dkv(q, k, v, lse, do, dcap, True, 0.125)
+        out[hd] = [t.cpu() for t in (o, lse, dk, dv)]
+    return out
+"""
+
+
+@pytest.mark.parametrize("order", [(128, 64), (64, 128)], ids=["128-then-64", "64-then-128"])
+def test_flash_kernels_opt_in_per_head_dim_in_any_order(card, tmp_path, order):
+    """The forward and dkv kernels' hd-64 and hd-128 instantiations each ask
+    for their own shared memory above 48 KB, whichever runs first in a fresh
+    process (hd 128 asks for more: it must not leave hd 64 without its own
+    opt-in). The fresh process's results equal this one's bit for bit."""
+    path = tmp_path / "out.pt"
+    script = _OPT_IN_RUN + f"torch.save(run({order!r}), {str(path)!r})\n"
+    subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True, timeout=600)
+    got = torch.load(path)
+    ns = {}
+    exec(_OPT_IN_RUN, ns)
+    want = ns["run"](order)
+    for hd in order:
+        assert all(torch.equal(a, b) for a, b in zip(got[hd], want[hd])), hd
 
 
 def test_flash_kernel_refusals(card):
@@ -662,6 +746,10 @@ FLASH_BWD_CASES = [  # (b, h, T, hd, causal, dtype, segmented)
     (1, 3, 256, 32, True, torch.bfloat16, False),
     (1, 3, 256, 40, False, torch.bfloat16, True),
     (1, 2, 128, 128, True, torch.bfloat16, False),
+    (16, 12, 512, 64, True, torch.bfloat16, False),    # the train step's shape
+    (2, 4, 128, 64, True, torch.bfloat16, False),      # T 128: the diagonal tile only
+    (1, 4, 512, 64, True, torch.bfloat16, True),       # cuts off the 128-row tiles
+    (1, 3, 256, 20, True, torch.bfloat16, True),       # ragged: the padded layout copy
     (1, 3, 256, 64, True, torch.float32, False),
     (2, 2, 128, 40, False, torch.float32, True),
     (1, 2, 128, 128, True, torch.float32, True),
@@ -704,6 +792,43 @@ def test_flash_backward_kernels_match_plain(card, b, h, T, hd, causal, dtype, se
         assert bool((err <= tol).all()), f"{name}: max err/tol {float((err / tol).max())}"
         if causal:
             assert float(((lost[i] - r).abs() / tol).max()) > 10, name
+
+
+def test_dkv_kernel_reruns_bit_identical_and_batch_independent(card):
+    """dk, dv from the fused qkv split's views: two runs give the same bits,
+    contiguous copies give the same bits, and a batch row's bits do not
+    depend on the other rows."""
+    q, k, v = _fused_qkv(3, 512, 4, 64, 23)
+    do = _qkv(3, 4, 512, 64, torch.bfloat16, 24)[0]
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
+        dcap = fa.row_dot(o, do).contiguous()
+        dk, dv = fa.flash_attention_dkv(q, k, v, lse, do, dcap, True, 0.125)
+        dk2, dv2 = fa.flash_attention_dkv(q, k, v, lse, do, dcap, True, 0.125)
+        dkc, dvc = fa.flash_attention_dkv(q.contiguous(), k.contiguous(), v.contiguous(), lse,
+                                          do, dcap, True, 0.125)
+        dk1, dv1 = fa.flash_attention_dkv(q[1:], k[1:], v[1:], lse[4:].contiguous(), do[1:],
+                                          dcap[4:].contiguous(), True, 0.125)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dk, dkc) and torch.equal(dv, dvc)
+    assert torch.equal(dk[1:], dk1) and torch.equal(dv[1:], dv1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_dkv_kernel_last_key_block_past_t(card, causal):
+    """T 192: the backward takes T % 64, so the dkv kernel's last block of
+    128 keys hangs 64 rows past T (TMA fills them with zeros; nothing is
+    stored there). o and lse from the plain forward."""
+    q, k, v = _qkv(2, 3, 192, 64, torch.bfloat16, 31)
+    do = _qkv(2, 3, 192, 64, torch.bfloat16, 32)[0]
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_plain(q, k, v, causal, 0.125)
+        dcap = fa.row_dot(o, do).contiguous()
+        dk, dv = fa.flash_attention_dkv(q, k, v, lse, do, dcap, causal, 0.125)
+    torch.cuda.synchronize()
+    ref, tols = chip_smoke.flash_bwd_oracle(fa, q, k, v, o, lse, do, causal, 0.125, None)
+    for g, r, tol in ((dk, ref[1], tols[1]), (dv, ref[2], tols[2])):
+        assert bool(((g.float() - r).abs() <= tol).all())
 
 
 def test_flash_backward_takes_strided_and_expanded_gradients(card):

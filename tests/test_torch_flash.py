@@ -19,6 +19,10 @@ the JAX package's Pallas kernel on the CPU.
 - A call that records a gradient goes through ``FlashAttention``: off the
   CPU to the kernel, on the CPU through the plain versions (their gradients
   against JAX's are in ``test_torch_flash_bwd.py``).
+- The forward wrapper's host logic, on CPU and "meta" tensors with the
+  launch stubbed: which operands TMA reads as they are (``tma_ready``) and
+  which go through the padded layout copy, the T rule (a multiple of 128,
+  the reference's), and the aligned lse and segment-id bases.
 """
 
 import importlib
@@ -165,7 +169,8 @@ def test_route_predicate():
 @pytest.mark.parametrize("shape,dtype,err", [
     ((1, 2, 128, 160), torch.float32, ValueError),    # head dim over 128
     ((1, 2, 128, 64), torch.float16, TypeError),
-    ((1, 2, 96, 64), torch.bfloat16, ValueError),      # T not a multiple of 64
+    ((1, 2, 96, 64), torch.bfloat16, ValueError),      # T not a multiple of 128
+    ((1, 2, 192, 64), torch.bfloat16, ValueError),     # a multiple of 64, not of 128
 ])
 def test_kernel_argument_checks_refuse_off_the_cpu(shape, dtype, err):
     """A tensor off the CPU (here "meta", which reaches the kernel's wrapper
@@ -173,7 +178,7 @@ def test_kernel_argument_checks_refuse_off_the_cpu(shape, dtype, err):
     launch, naming ROADMAP; there is no fallback to the plain version."""
     q = torch.zeros(shape, dtype=dtype, device="meta")
     n0 = fa.launch_counts[fa.OP]
-    with pytest.raises(err, match="ROADMAP" if shape[2] % 64 == 0 else "multiple of 64"):
+    with pytest.raises(err, match="ROADMAP" if shape[2] % 128 == 0 else "multiple of 128"):
         fa.flash_attention_fwd(q, q, q, True, 0.125)
     assert fa.launch_counts[fa.OP] == n0
 
@@ -206,3 +211,110 @@ def test_a_gradient_call_off_the_cpu_raises_before_the_kernel(monkeypatch):
     assert type(o.grad_fn).__name__ == "FlashAttentionBackward" and not lse.requires_grad
     o.sum().backward()
     assert qc.grad is not None and bool(torch.isfinite(qc.grad).all())
+
+
+# ---------------------------------------------------------------- host logic
+def _qkv_split(b, T, h, hd, dtype=torch.bfloat16):
+    """q, k, v as the fused qkv projection's head split makes them."""
+    x = torch.zeros(b, T, 3, h, hd, dtype=dtype)
+    return [x[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+def _views():
+    dense = torch.zeros(2, 3, 256, 64, dtype=torch.bfloat16)
+    heads = torch.zeros(2, 256, 3, 64, dtype=torch.bfloat16).transpose(1, 2)
+    wide = torch.zeros(2, 3, 256, 66, dtype=torch.bfloat16)
+    return {
+        "dense": (dense, True),
+        "head-split (b, T, h, hd)": (heads, True),
+        "fused qkv split": (_qkv_split(2, 256, 3, 64)[1], True),
+        "hd 40": (torch.zeros(1, 3, 256, 40, dtype=torch.bfloat16), True),
+        "hd 32": (torch.zeros(1, 3, 256, 32, dtype=torch.bfloat16), True),
+        "ragged hd 20": (torch.zeros(1, 3, 256, 20, dtype=torch.bfloat16), False),
+        "misaligned base": (wide[..., 1:65], False),
+        "expanded (stride 0)": (torch.zeros(1, 1, 1, 1, dtype=torch.bfloat16).expand(2, 3, 256, 64),
+                                False),
+        "size-1 dims, odd strides": (torch.zeros(1, 1, 256, 64, dtype=torch.bfloat16).as_strided(
+            (1, 1, 256, 64), (3, 5, 64, 1)), True),
+        "meta": (torch.zeros(2, 256, 3, 64, dtype=torch.bfloat16, device="meta").transpose(1, 2),
+                 True),
+    }
+
+
+@pytest.mark.parametrize("name", list(_views()))
+def test_tma_ready(name):
+    """TMA reads an operand as it is when its base is 16-byte aligned and
+    every batch/head/time stride of a dimension longer than 1 is a positive
+    multiple of 16 bytes; the model's head-split views qualify."""
+    t, want = _views()[name]
+    assert fa.tma_ready(t) is want
+
+
+def test_padded_operand_is_the_layout_copy():
+    x = torch.randn(1, 3, 128, 20).bfloat16()
+    p = fa.padded_operand(x)
+    assert p.shape == (1, 3, 128, 24) and p.is_contiguous() and fa.tma_ready(p)
+    assert torch.equal(p[..., :20], x) and not p[..., 20:].any()
+    y = torch.randn(1, 3, 128, 66).bfloat16()[..., 1:65]
+    assert torch.equal(fa.padded_operand(y), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+def test_aligned_vector_copies_only_a_misaligned_base(offset, dtype):
+    """lse, D and segment ids reach the kernels' bulk copies at a 16-byte
+    aligned base: one that is already aligned passes as it is, any other is
+    copied (the same values)."""
+    t = torch.arange(40).to(dtype)[offset:offset + 32]
+    out = fa.aligned_vector(t)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, t)
+    assert (out is t) == (t.data_ptr() % 16 == 0)
+    assert fa.aligned_vector(None) is None
+
+
+class _Recorded:
+    """Stands in for the kernel library: records the launch's arguments."""
+
+    tile = {"m": 128, "n": 128, "d": 128}
+
+    def __init__(self):
+        self.args = None
+
+    def launch(self, fn, op, args):
+        self.args = args
+        fa.launch_counts[op] += 1
+
+
+def _stub_launch(monkeypatch, lib):
+    import contextlib
+
+    rec = _Recorded()
+    monkeypatch.setattr(lib, "get", lambda: type("H", (), {
+        "dl4j_flash_fwd": None, "dl4j_flash_bwd_dkv": None, "dl4j_flash_bwd_dq": None})())
+    monkeypatch.setattr(lib, "tile", {"m": 128 if lib is fa._LIB else 64, "n": 128, "d": 128})
+    monkeypatch.setattr(fa, "launch", rec.launch)
+    monkeypatch.setattr(fa.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    return rec
+
+
+@pytest.mark.parametrize("hd,causal,split", [(64, True, True), (20, True, False),
+                                               (40, False, True), (128, True, False)])
+def test_forward_wrapper_hands_the_kernel_tma_operands(monkeypatch, hd, causal, split):
+    """On "meta" tensors (off the CPU, no card): the forward hands the
+    kernel its operands' own strides where TMA can read them, the padded
+    copy's where it cannot (hd 20), and their last dims."""
+    rec = _stub_launch(monkeypatch, fa._LIB)
+    T, h = 256, 3
+    if split:
+        q, k, v = (t.to("meta") for t in _qkv_split(2, T, h, hd))
+    else:
+        q = k = v = torch.zeros(2, h, T, hd, dtype=torch.bfloat16, device="meta")
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, 0.125)
+    a = rec.args
+    ints = a[6:6 + 21]
+    assert ints[:6] == (2, h, T, hd, int(causal), 1)
+    hd8 = -(-hd // 8) * 8
+    want = q.stride()[:3] if fa.tma_ready(q) else (h * T * hd8, T * hd8, hd8)
+    assert ints[6:9] == want and ints[18:21] == (hd if hd % 8 == 0 else hd8,) * 3
+    assert ints[15:18] == o.stride()[:3] and o.transpose(1, 2).is_contiguous()
+    assert o.shape == (2, h, T, hd) and lse.shape == (2 * h, T)

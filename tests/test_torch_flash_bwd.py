@@ -17,6 +17,11 @@ the JAX package's Pallas kernels on the CPU.
   both round the same f32 ``p`` and ``ds`` and may part at a tie), and in
   f32 against float64 autograd of dense softmax attention (within 1e-5).
 - Under ``no_grad`` or ``inference_mode`` the forward records nothing.
+- The dK/dV wrapper's host logic, on "meta" tensors with the launch
+  stubbed: TMA-readable operands pass with their own strides, the others
+  (an expanded dO, a ragged hd) through the padded layout copy; the
+  backward's T rule stays a multiple of 64 (the forward's is 128), so the
+  last 128-key block may hang past T.
 """
 
 import importlib
@@ -168,3 +173,70 @@ def test_nothing_is_recorded_without_grad(mode):
     assert o.grad_fn is None and o2.grad_fn is None and not o.requires_grad
     o3, _ = fa.flash_attention_fwd(q, q, q, True, 0.25)
     assert torch.equal(o, o3.detach()) and o3.grad_fn is not None
+
+
+# ---------------------------------------------------------------- host logic
+class _Recorded:
+    def __init__(self):
+        self.args = {}
+
+    def launch(self, fn, op, args):
+        self.args[op] = args
+        fa.launch_counts[op] += 1
+
+
+def _stub(monkeypatch):
+    import contextlib
+
+    rec = _Recorded()
+    monkeypatch.setattr(fa._BWD_LIB, "get", lambda: type("H", (), {
+        "dl4j_flash_bwd_dkv": None, "dl4j_flash_bwd_dq": None})())
+    monkeypatch.setattr(fa._BWD_LIB, "tile", {"m": 64, "n": 64, "d": 128})
+    monkeypatch.setattr(fa, "launch", rec.launch)
+    monkeypatch.setattr(fa.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    return rec
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("T,hd,causal,expanded", [(512, 64, True, False), (192, 64, True, True),
+                                                  (256, 20, False, False),
+                                                  (128, 128, True, False)])
+def test_dkv_wrapper_hands_the_kernel_tma_operands(monkeypatch, T, hd, causal, expanded):
+    rec = _stub(monkeypatch)
+    b, h = 2, 3
+    q = k = v = _meta((b, h, T, hd))
+    do = (_meta((1, 1, 1, hd)).expand(b, h, T, hd) if expanded
+          else _meta((b, T, h, hd)).transpose(1, 2))
+    lse = dcap = _meta((b * h, T), torch.float32)
+    dk, dv = fa.flash_attention_dkv(q, k, v, lse, do, dcap, causal, 0.125)
+    ints = rec.args[fa.OP_DKV][9:9 + 28]
+    hd8 = -(-hd // 8) * 8
+    assert ints[:6] == (b, h, T, hd, int(causal), 1)
+    dense = (h * T * hd8, T * hd8, hd8)
+    want_q = q.stride()[:3] if fa.tma_ready(q) else dense
+    want_do = do.stride()[:3] if fa.tma_ready(do) else dense
+    assert ints[6:9] == want_q and ints[15:18] == want_do
+    assert fa.tma_ready(do) is not (expanded or hd % 8 != 0)
+    assert ints[24:28] == ((hd if hd % 8 == 0 else hd8),) * 3 + (
+        hd if fa.tma_ready(do) else hd8,)
+    assert dk.shape == dv.shape == (b, h, T, hd) and dk.transpose(1, 2).is_contiguous()
+
+
+def test_backward_t_rule_is_a_multiple_of_64(monkeypatch):
+    """dq and dkv take T 192, which the forward refuses (a multiple of 128,
+    the reference's rule); f32 operands pass as they are (no padded copy)."""
+    rec = _stub(monkeypatch)
+    q = _meta((1, 2, 192, 20), torch.float32)
+    lse = _meta((2, 192), torch.float32)
+    fa.flash_attention_dq(q, q, q, lse, q, lse, True, 0.25)
+    fa.flash_attention_dkv(q, q, q, lse, q, lse, True, 0.25)
+    assert rec.args[fa.OP_DKV][9 + 24:9 + 28] == (20,) * 4
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fa.flash_attention_fwd(_meta((1, 2, 192, 64)), _meta((1, 2, 192, 64)),
+                               _meta((1, 2, 192, 64)), True, 0.125)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fa.flash_attention_dkv(*(_meta((1, 2, 96, 64)),) * 3, _meta((2, 96), torch.float32),
+                               _meta((1, 2, 96, 64)), _meta((2, 96), torch.float32), True, 0.1)
