@@ -452,6 +452,9 @@ def backward_phase(fc):
                      fc.pw_conv_bwd_dw_plain if pw else fc.conv3x3_bwd_dw_plain,
                      lib_dw, x_b + io_b + w_b)):
                 row[f"{kind}_kernel_ms"] = time_ms(lambda: kern(*args, True))
+                if pw and kind == "dx":  # device only: the host's wrapper not in it
+                    row["dx_kernel_device_ms"] = graph_ms(lambda: kern(*args, True))
+                    line += f"; dx device only (CUDA graph) {row['dx_kernel_device_ms']:.4f}"
                 row[f"{kind}_plain_ms"] = time_ms(lambda: plain(*args, True))
                 row[f"{kind}_library_ms"] = time_ms(lib)
                 row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound(flops, nbytes)
@@ -473,6 +476,15 @@ def backward_phase(fc):
                  **{key: r.get(f"{kind}_{key}") for key in
                     ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
                 for r in rows if r["op"] == op])
+    pw_dx = summary["pw_conv_dx"]
+    pw_dx["kernel_device_ms"] = sum(r["launches_per_forward"] * r["dx_kernel_device_ms"]
+                                    for r in rows if r["op"] == "pw_conv"
+                                    and r["launches_per_forward"])
+    print(f"phase 2b pw_conv_dx over a train step's 36 launches: kernel_ms "
+          f"{pw_dx['kernel_ms']:.4f} (device only, CUDA graph: {pw_dx['kernel_device_ms']:.4f}) "
+          f"plain_ms {pw_dx['plain_ms']:.4f} bound_ms {pw_dx['bound_ms']:.4f} "
+          f"({pw_dx['bound_by']}) library_ms {pw_dx['library_ms']:.4f} (torch.matmul dz W^T)",
+          flush=True)
     return rows, summary
 
 
@@ -2002,8 +2014,9 @@ def lm_entry_points(pe, gen, prompts, outs):
 # (b, h, T, hd, causal, dtype, segmented): the train step's shape (b 16, T
 # 512) and its long-context variant (b 4, T 2048), T 128 and 1024,
 # non-causal, segment ids cut off the 64- and 128-row tiles, head dims 32,
-# 128, 40 and a ragged 20 (the padded layout copy), and f32 at two shapes;
-# the first two are timed
+# 128, 40 and a ragged 20 (the padded layout copy), f32 at two shapes, and T
+# 192 (the backward's T % 64: dq's and dkv's last 128-row block half past T;
+# o and lse from the plain forward, which takes it); the first two are timed
 FLASH_BWD_CASES = [(16, LM_HEADS, 512, LM_HD, True, BF16, False),
                    (4, LM_HEADS, 2048, LM_HD, True, BF16, False),
                    (2, LM_HEADS, 128, LM_HD, True, BF16, False),
@@ -2013,7 +2026,9 @@ FLASH_BWD_CASES = [(16, LM_HEADS, 512, LM_HD, True, BF16, False),
                    (1, 4, 256, 32, True, BF16, False), (1, 4, 256, 128, True, BF16, False),
                    (1, 4, 256, 40, True, BF16, True), (1, 4, 256, 20, True, BF16, True),
                    (1, LM_HEADS, 256, LM_HD, True, F32, False),
-                   (2, 4, 512, 40, False, F32, True)]
+                   (2, 4, 512, 40, False, F32, True),
+                   (2, LM_HEADS, 192, LM_HD, True, BF16, False),
+                   (1, 4, 192, 128, False, BF16, True)]
 FLASH_BWD_TIMED = 2
 # the JAX probe's gradient limits (8 x its forward's 2e-4 f32 and 2e-2 bf16,
 # deeplearning4j_tpu/nn/conf/layers/attention.py:123,136-139): no per-element
@@ -2090,7 +2105,8 @@ def flash_bwd_phase(fa):
         row = {"b": b, "h": h, "T": t_len, "hd": hd, "causal": causal,
                "dtype": str(dtype).split(".")[-1], "segmented": segmented}
         with torch.inference_mode():
-            o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, seg)
+            fwd = fa.flash_attention_fwd if t_len % 128 == 0 else fa.flash_attention_plain
+            o, lse = fwd(q, k, v, causal, scale, seg)
             dcap = fa.row_dot(o, do).contiguous()
             got = (fa.flash_attention_dq(q, k, v, lse, do, dcap, causal, scale, seg),
                    *fa.flash_attention_dkv(q, k, v, lse, do, dcap, causal, scale, seg))
@@ -2855,6 +2871,8 @@ def main() -> int:
                                                      "bound_by", "library_ms")}
         else:
             entry_k["launches_per_train_step"] = train["launches_per_step"].get(name, 0)
+            if name == "pw_conv_dx":
+                entry_k["device_ms"] = s["kernel_device_ms"]
         kernels.append(entry_k)
     import torch.distributed as dist
 

@@ -19,60 +19,51 @@
 // Masked entries give p = exp(-1e30 - lse) = 0 exactly, so the forward's
 // lse (which a fully masked tile did not disturb) is all the backward needs.
 //
-// dq kernel: one block per (b*h, 64-row query block); it loops over the key
-// tiles (up to the diagonal tile when causal, masked inside it). Each output
-// tile is owned by one block and summed in a fixed order, with no atomics,
-// so two runs give the same bits.
+// bf16: two warp-specialized Hopper kernels (TMA tile loads on mbarriers,
+// wgmma, every score, probability and accumulator in registers):
+// - dq (flash_bwd_dq_kernel_sm90): one block per (b*h, 128 query rows); Q
+//   and dO arrive once, the key tiles of K and V stream through a ring; dS~
+//   is the register A operand of dQ += dS~ K, and dQ stays in registers
+//   until it is rounded once at the end.
+// - dkv (flash_bwd_dkv_kernel_sm90): one block per (b*h, 128 keys); K and V
+//   arrive once, the query tiles stream; dK and dV stay in registers.
+// Each output tile is owned by one block and summed in a fixed order, with
+// no atomics, so two runs give the same bits. Tensor maps are built on the
+// host per call (hopper.cuh); an operand TMA cannot take is copied by the
+// wrapper into a padded buffer first.
 //
-// dkv kernel, bf16: a warp-specialized Hopper kernel (TMA, mbarriers,
-// wgmma; scores, p, ds and the dK, dV accumulators in registers), one block
-// per (b*h, 128-key block), looping over the query tiles from the diagonal
-// when causal; see flash_bwd_dkv_kernel_sm90. Its tensor maps are built on
-// the host per call (hopper.cuh); an operand TMA cannot take is copied by
-// the wrapper into a padded buffer first. dkv kernel, f32: one block per
-// (b*h, 64-row key block), 4 warps, tiles staged in shared memory.
-//
-// Types. q, k, v, dO and the outputs are all bf16 or all f32. bf16: dq's
-// four products of a tile run on the tensor cores (WMMA 16x16x16 bf16, f32
-// accumulation, the accumulators in registers), dkv's on wgmma. f32: f32
-// FMAs on the CUDA cores (no TF32: fp32 means fp32 in this port).
+// f32 (q, k, v, dO and the outputs all f32): f32 FMAs on the CUDA cores (no
+// TF32: fp32 means fp32 in this port), one block per (b*h, 64-row block),
+// 4 warps; not on the main path. Each warp owns 16 rows of the block's own
+// tile and computes their 16 x 64 score and dp tiles against the streamed
+// tile in shared memory; two lanes per row form p and ds on them.
 //
 // Bound on an H100: per (b, h) the dq kernel does 6*T^2*hd FLOPs and the dkv
 // kernel 8*T^2*hd (half of each when causal) on ~5*T*hd operand elements, so
-// at the train shape (T 512, hd 64) the tensor-core FLOPs bound both. The dq
-// kernel is latency-bound: scalar tile loads, 4 warps of 16 rows each, the
-// score tiles through shared memory (ROADMAP § B: it should take dkv's
-// pipeline next).
+// at the train shapes (T 512 and 2048, hd 64) the tensor-core FLOPs bound
+// both (PERF.md).
 //
-// Layout (dq, f32 dkv). Each warp owns 16 rows of the block's own tile and
-// computes their 16 x 64 score and dp tiles against the streamed tile; two
-// lanes per row form p and ds on them. Head dims 1 to 128 are padded to a
-// multiple of 16 with zeros in shared memory. q, k, v and dO are read, and
-// dq, dk, dv written, through their batch, head and time strides (the head
-// dimension unit-stride), so the wrapper can hand in the model's head-split
-// views and hand back (b, h, T, hd) views of (b, T, h, hd) buffers.
+// q, k, v and dO are read, and dq, dk, dv written, through their batch,
+// head and time strides (the head dimension unit-stride), so the wrapper can
+// hand in the model's head-split views and hand back (b, h, T, hd) views of
+// (b, T, h, hd) buffers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int BM = 64;          // rows of the block's own tile
-constexpr int BN = 64;          // rows of each streamed tile
+constexpr int BM = 64;          // rows of the block's own tile (f32); the T rule's unit
+constexpr int BN = 64;          // rows of each streamed tile (f32)
 constexpr int WARPS = 4;        // each warp owns 16 rows of the own tile
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_HD = 128;
-constexpr int NT = MAX_HD / 16; // 16-wide head-dim tiles at most
-constexpr int NJ = MAX_HD / 32; // head-dim columns per lane at most (f32)
+constexpr int NJ = MAX_HD / 32; // head-dim columns per lane at most
 constexpr float NEG_INF = -1e30f;
 
 struct Args {
@@ -96,30 +87,25 @@ __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) & ~static_cast<size_t>(127);
 }
 
-// Shared memory: the block's two own tiles and the two streamed tiles (all
-// BM = BN rows of the operand type), the f32 score and dp tiles, the bf16
-// ds~ tile (dq on the tensor cores), the streamed rows' lse and D (dkv)
-// or the own rows' (dq), and the segment ids of both.
+// Shared memory (f32): the block's two own tiles and the two streamed tiles
+// (BM = BN rows), the score and dp tiles, the streamed rows' lse and D
+// (dkv) or the own rows' (dq), and the segment ids of both.
 struct Layout {
-  int ld, lds, ldp;
-  size_t own0, own1, str0, str1, s, dp, db, lse, dcap, segown, segstr, total;
+  int ld, lds;
+  size_t own0, own1, str0, str1, s, dp, lse, dcap, segown, segstr, total;
 };
 
-template <typename TI>
 __host__ __device__ Layout layout(int hdp) {
-  constexpr bool tc = std::is_same<TI, bf16>::value;
   Layout m{};
-  m.ld = tc ? hdp + 8 : hdp + 1;
-  m.lds = tc ? BN + 4 : BN + 1;
-  m.ldp = BN + 8;
+  m.ld = hdp + 1;
+  m.lds = BN + 1;
   size_t off = 0;
-  m.own0 = off; off = align128(off + sizeof(TI) * BM * m.ld);
-  m.own1 = off; off = align128(off + sizeof(TI) * BM * m.ld);
-  m.str0 = off; off = align128(off + sizeof(TI) * BN * m.ld);
-  m.str1 = off; off = align128(off + sizeof(TI) * BN * m.ld);
+  m.own0 = off; off = align128(off + sizeof(float) * BM * m.ld);
+  m.own1 = off; off = align128(off + sizeof(float) * BM * m.ld);
+  m.str0 = off; off = align128(off + sizeof(float) * BN * m.ld);
+  m.str1 = off; off = align128(off + sizeof(float) * BN * m.ld);
   m.s = off; off = align128(off + sizeof(float) * BM * m.lds);
   m.dp = off; off = align128(off + sizeof(float) * BM * m.lds);
-  m.db = off; if (tc) off = align128(off + sizeof(bf16) * BM * m.ldp);
   m.lse = off; off = align128(off + sizeof(float) * BN);
   m.dcap = off; off = align128(off + sizeof(float) * BN);
   m.segown = off; off = align128(off + sizeof(int) * BM);
@@ -128,93 +114,17 @@ __host__ __device__ Layout layout(int hdp) {
   return m;
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-template <typename TI> __device__ __forceinline__ TI zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16_rn(0.f); }
-
 // rows [r0, r0 + 64) of one head (src: its row 0, st: its time stride) into
 // dst (leading dimension ld); columns hd .. hdp - 1 are zero-filled
-template <typename TI>
-__device__ __forceinline__ void load_tile(TI* dst, int ld, const TI* __restrict__ src,
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* __restrict__ src,
                                           int st, int r0, int hd, int hdp) {
   for (int i = threadIdx.x; i < BM * hdp; i += THREADS) {
     const int r = i / hdp;
     const int c = i - r * hdp;
-    dst[r * ld + c] = c < hd ? src[static_cast<long long>(r0 + r) * st + c] : zero<TI>();
+    dst[r * ld + c] = c < hd ? src[static_cast<long long>(r0 + r) * st + c] : 0.f;
   }
 }
 
-// ---- bf16: tensor cores -----------------------------------------------------
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// C[warp rows][0, 64) = A[warp rows][0, hdp) . B[0, 64)[0, hdp)^T (A, B in
-// shared memory with leading dimension ld; C with ldc)
-__device__ __forceinline__ void abt_tc(const bf16* a, const bf16* bm, float* c, int ld,
-                                       int ldc, int hdp, int warp) {
-  FragA af;
-  FragBt bf;
-  FragAcc acc;
-#pragma unroll
-  for (int n = 0; n < BN / 16; ++n) {
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      if (t * 16 < hdp) {
-        wmma::load_matrix_sync(af, a + warp * 16 * ld + t * 16, ld);
-        // B^T as a col-major (hd x 64) matrix: element (d, r) at bm[r * ld + d]
-        wmma::load_matrix_sync(bf, bm + n * 16 * ld + t * 16, ld);
-        wmma::mma_sync(acc, af, bf, acc);
-      }
-    }
-    wmma::store_matrix_sync(c + warp * 16 * ldc + n * 16, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-// acc[d tile] += P[warp rows][0, 64) . B[0, 64)[d tile] (P bf16 with ldp,
-// B with ld)
-__device__ __forceinline__ void ab_tc(const bf16* p, int ldp, const bf16* bm, int ld,
-                                      FragAcc (&acc)[NT], int hdp, int warp) {
-  FragA pf;
-  FragB bf;
-#pragma unroll
-  for (int kk = 0; kk < BN; kk += 16) {
-    wmma::load_matrix_sync(pf, p + warp * 16 * ldp + kk, ldp);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      if (t * 16 < hdp) {
-        wmma::load_matrix_sync(bf, bm + kk * ld + t * 16, ld);
-        wmma::mma_sync(acc[t], pf, bf, acc[t]);
-      }
-    }
-  }
-}
-
-// the warp's 16 rows of acc, rounded once, to dst (row r0 of the warp's
-// rows; time stride ts), staged 16 x 16 at a time through stage (ld lds)
-template <typename TI>
-__device__ __forceinline__ void write_tc(FragAcc (&acc)[NT], float* stage, int lds, TI* dst,
-                                         int ts, int hd, int hdp, int lane) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if (t * 16 < hdp) {
-      wmma::store_matrix_sync(stage, acc[t], lds, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e / 16;
-        const int d = t * 16 + (e % 16);
-        if (d < hd) store(dst + static_cast<long long>(r) * ts + d, stage[r * lds + (e % 16)]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// ---- f32: CUDA cores --------------------------------------------------------
 // C[warp rows][c] for c = lane, lane + 32: A[row] . B[c], f32 FMAs over d in order
 __device__ __forceinline__ void abt_f32(const float* a, const float* bm, float* c, int ld,
                                         int ldc, int hdp, int warp, int lane) {
@@ -256,45 +166,39 @@ __device__ __forceinline__ void ab_f32(const float* p, int ldp, const float* bm,
   }
 }
 
-template <typename TI>
-__device__ __forceinline__ void write_f32(const float (&acc)[NJ][16], TI* dst, int ts, int hd,
+__device__ __forceinline__ void write_f32(const float (&acc)[NJ][16], float* dst, int ts, int hd,
                                           int lane) {
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int d = lane + 32 * j;
     if (d < hd) {
 #pragma unroll
-      for (int r = 0; r < 16; ++r) store(dst + static_cast<long long>(r) * ts + d, acc[j][r]);
+      for (int r = 0; r < 16; ++r) dst[static_cast<long long>(r) * ts + d] = acc[j][r];
     }
   }
 }
 
-template <typename TI>
-__device__ __forceinline__ const TI* head_ptr(const void* base, const int (&st)[3], int bi,
-                                              int hi) {
-  return static_cast<const TI*>(base) + static_cast<long long>(bi) * st[0] +
+__device__ __forceinline__ const float* head_ptr(const void* base, const int (&st)[3], int bi,
+                                                 int hi) {
+  return static_cast<const float*>(base) + static_cast<long long>(bi) * st[0] +
          static_cast<long long>(hi) * st[1];
 }
 
-template <typename TI>
-__device__ __forceinline__ TI* head_ptr_out(void* base, const int (&st)[3], int bi, int hi) {
-  return static_cast<TI*>(base) + static_cast<long long>(bi) * st[0] +
+__device__ __forceinline__ float* head_ptr_out(void* base, const int (&st)[3], int bi, int hi) {
+  return static_cast<float*>(base) + static_cast<long long>(bi) * st[0] +
          static_cast<long long>(hi) * st[1];
 }
 
-// ---- dq: one block per (b*h, query block) ------------------------------------
-template <typename TI>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Args a) {
-  constexpr bool tc = std::is_same<TI, bf16>::value;
+// ---- f32 dq: one block per (b*h, 64-row query block) ----------------------------
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel_f32(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout<TI>(a.hdp);
-  TI* qsm = reinterpret_cast<TI*>(smem + L.own0);
-  TI* dosm = reinterpret_cast<TI*>(smem + L.own1);
-  TI* ksm = reinterpret_cast<TI*>(smem + L.str0);
-  TI* vsm = reinterpret_cast<TI*>(smem + L.str1);
+  const Layout L = layout(a.hdp);
+  float* qsm = reinterpret_cast<float*>(smem + L.own0);
+  float* dosm = reinterpret_cast<float*>(smem + L.own1);
+  float* ksm = reinterpret_cast<float*>(smem + L.str0);
+  float* vsm = reinterpret_cast<float*>(smem + L.str1);
   float* s = reinterpret_cast<float*>(smem + L.s);
   float* dp = reinterpret_cast<float*>(smem + L.dp);
-  bf16* db = reinterpret_cast<bf16*>(smem + L.db);
   float* lse = reinterpret_cast<float*>(smem + L.lse);
   float* dcap = reinterpret_cast<float*>(smem + L.dcap);
   int* segq = reinterpret_cast<int*>(smem + L.segown);
@@ -309,10 +213,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Args a) {
   const int lane = threadIdx.x % 32;
   const bool has_seg = a.seg != nullptr;
 
-  const TI* qg = head_ptr<TI>(a.q, a.qs, bi, hi);
-  const TI* kg = head_ptr<TI>(a.k, a.ks, bi, hi);
-  const TI* vg = head_ptr<TI>(a.v, a.vs, bi, hi);
-  const TI* dg = head_ptr<TI>(a.dout, a.ds, bi, hi);
+  const float* qg = head_ptr(a.q, a.qs, bi, hi);
+  const float* kg = head_ptr(a.k, a.ks, bi, hi);
+  const float* vg = head_ptr(a.v, a.vs, bi, hi);
+  const float* dg = head_ptr(a.dout, a.ds, bi, hi);
 
   load_tile(qsm, L.ld, qg, a.qs[2], qb * BM, hd, hdp);
   load_tile(dosm, L.ld, dg, a.ds[2], qb * BM, hd, hdp);
@@ -322,17 +226,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Args a) {
     if (has_seg) segq[i] = a.seg[bi * T + qb * BM + i];
   }
 
-  FragAcc acc_tc[NT];
-  float acc_f[NJ][16];
-  if constexpr (tc) {
+  float acc[NJ][16];
 #pragma unroll
-    for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc_tc[t], 0.f);
-  } else {
+  for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int r = 0; r < 16; ++r) acc_f[j][r] = 0.f;
-    }
+    for (int r = 0; r < 16; ++r) acc[j][r] = 0.f;
   }
 
   // the row a lane helps with, and its half of the 64 columns
@@ -350,13 +248,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Args a) {
     }
     __syncthreads();
 
-    if constexpr (tc) {
-      abt_tc(qsm, ksm, s, L.ld, L.lds, hdp, warp);
-      abt_tc(dosm, vsm, dp, L.ld, L.lds, hdp, warp);
-    } else {
-      abt_f32(qsm, ksm, s, L.ld, L.lds, hdp, warp, lane);
-      abt_f32(dosm, vsm, dp, L.ld, L.lds, hdp, warp, lane);
-    }
+    abt_f32(qsm, ksm, s, L.ld, L.lds, hdp, warp, lane);
+    abt_f32(dosm, vsm, dp, L.ld, L.lds, hdp, warp, lane);
     __syncwarp();
 
     const float lr = lse[row], dr = dcap[row];
@@ -365,36 +258,22 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Args a) {
       if (a.causal && j * BN + c > grow) sc = NEG_INF;
       if (has_seg && segq[row] != segk[c]) sc = NEG_INF;
       const float p = expf(sc - lr);
-      const float dsv = p * (dp[row * L.lds + c] - dr) * a.scale;
-      if constexpr (tc) {
-        db[row * L.ldp + c] = __float2bfloat16_rn(dsv);
-      } else {
-        s[row * L.lds + c] = dsv;
-      }
+      s[row * L.lds + c] = p * (dp[row * L.lds + c] - dr) * a.scale;
     }
     __syncwarp();
 
-    if constexpr (tc) {
-      ab_tc(db, L.ldp, ksm, L.ld, acc_tc, hdp, warp);
-    } else {
-      ab_f32(s, L.lds, ksm, L.ld, acc_f, hdp, warp, lane);
-    }
+    ab_f32(s, L.lds, ksm, L.ld, acc, hdp, warp, lane);
   }
 
-  TI* dst = head_ptr_out<TI>(a.dq, a.dqs, bi, hi) +
-            static_cast<long long>(qb * BM + warp * 16) * a.dqs[2];
-  __syncwarp();
-  if constexpr (tc) {
-    write_tc(acc_tc, s + warp * 16 * L.lds, L.lds, dst, a.dqs[2], hd, hdp, lane);
-  } else {
-    write_f32(acc_f, dst, a.dqs[2], hd, lane);
-  }
+  float* dst = head_ptr_out(a.dq, a.dqs, bi, hi) +
+               static_cast<long long>(qb * BM + warp * 16) * a.dqs[2];
+  write_f32(acc, dst, a.dqs[2], hd, lane);
 }
 
 // ---- f32 dk, dv: one block per (b*h, key block) ----------------------------------
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel_f32(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout<float>(a.hdp);
+  const Layout L = layout(a.hdp);
   float* ksm = reinterpret_cast<float*>(smem + L.own0);
   float* vsm = reinterpret_cast<float*>(smem + L.own1);
   float* qsm = reinterpret_cast<float*>(smem + L.str0);
@@ -415,10 +294,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel_f32(const Args a
   const int lane = threadIdx.x % 32;
   const bool has_seg = a.seg != nullptr;
 
-  const float* qg = head_ptr<float>(a.q, a.qs, bi, hi);
-  const float* kg = head_ptr<float>(a.k, a.ks, bi, hi);
-  const float* vg = head_ptr<float>(a.v, a.vs, bi, hi);
-  const float* dg = head_ptr<float>(a.dout, a.ds, bi, hi);
+  const float* qg = head_ptr(a.q, a.qs, bi, hi);
+  const float* kg = head_ptr(a.k, a.ks, bi, hi);
+  const float* vg = head_ptr(a.v, a.vs, bi, hi);
+  const float* dg = head_ptr(a.dout, a.ds, bi, hi);
 
   load_tile(ksm, L.ld, kg, a.ks[2], kb * BM, hd, hdp);
   load_tile(vsm, L.ld, vg, a.vs[2], kb * BM, hd, hdp);
@@ -470,8 +349,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel_f32(const Args a
   }
 
   const long long r0 = kb * BM + warp * 16;
-  write_f32(dk_f, head_ptr_out<float>(a.dk, a.dks, bi, hi) + r0 * a.dks[2], a.dks[2], hd, lane);
-  write_f32(dv_f, head_ptr_out<float>(a.dv, a.dvs, bi, hi) + r0 * a.dvs[2], a.dvs[2], hd, lane);
+  write_f32(dk_f, head_ptr_out(a.dk, a.dks, bi, hi) + r0 * a.dks[2], a.dks[2], hd, lane);
+  write_f32(dv_f, head_ptr_out(a.dv, a.dvs, bi, hi) + r0 * a.dvs[2], a.dvs[2], hd, lane);
 }
 
 // ---- bf16 dk, dv: TMA, wgmma, warp specialization ----------------------------------
@@ -758,20 +637,263 @@ int launch_dkv_sm90(const HArgs& a, const HeadMap& q, const HeadMap& k, const He
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TI>
-int launch_dq(const Args& a, cudaStream_t stream) {
-  const size_t bytes = layout<TI>(a.hdp).total;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<TI>,
+// ---- bf16 dq: TMA, wgmma, warp specialization ---------------------------------------
+// A block of 288 threads owns 128 query rows of one (b, h): a producer warp
+// and two consumer warpgroups of 64 rows. Q and dO arrive once (TMA); the
+// producer streams the key tiles of K and V (and their segment ids) through
+// a ring of 3 stages on full/empty mbarriers, up to the diagonal when
+// causal. Each consumer thread reads the lse, D (and segment ids) of its
+// two rows once. Per key tile each consumer warpgroup computes, with dQ
+// accumulating in registers for the whole loop:
+//   S  = Q K^T             wgmma, both K-major from shared memory
+//   dP = dO V^T            wgmma, both K-major
+//   P  = exp(S scale - lse), masked only on the tiles that cross the
+//        warpgroup's diagonal (and under segment ids), by selects
+//   dS = P (dP - D) scale, in registers, rounded to bf16 pairs
+//   dQ += dS~ K            wgmma, dS~ the register A operand, K MN-major
+// The ring's empty barriers count the warps that read the tiles: a
+// warpgroup whose rows all lie at or past T (the last block when T % 128 ==
+// 64) reads none, and a causal warpgroup stops at its own diagonal, after
+// which the producer loads nothing more. Wave y of the grid takes the query
+// block n - 1 - y when causal, so the longest loops start first.
+template <int HD>
+struct Dq {
+  static constexpr int BK = HD == 64 ? 64 : 32;     // keys per streamed tile (registers)
+  static constexpr int STAGES = 3;
+  static constexpr int PANELS = HD / 64;
+  static constexpr int ROW_BYTES = KB * HD * 2;     // Q or dO: 128 rows
+  static constexpr int TILE_BYTES = BK * HD * 2;
+  // shared memory, every tile 1024-byte aligned
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + ROW_BYTES;
+  static constexpr int K = DO + ROW_BYTES;                  // stage s at K + s * TILE_BYTES
+  static constexpr int V = K + STAGES * TILE_BYTES;
+  static constexpr int SEG = V + STAGES * TILE_BYTES;       // BK key segment ids per stage
+  static constexpr int BAR = SEG + STAGES * BK * 4;         // qdo, full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR + (1 + 2 * STAGES) * 8 + 1024;  // + the alignment slack
+};
+
+struct QArgs {
+  const float* lse;             // (b*h, T)
+  const float* dcap;            // (b*h, T)
+  const int* seg;               // (b, T) int32 or null
+  void* dq;
+  int h, T, hd;
+  int dqs[3];                   // batch, head, time strides of dq
+  float scale;
+  int causal;
+  MapPos qp, kp, vp, dp;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(H_THREADS, 1)
+    flash_bwd_dq_kernel_sm90(__grid_constant__ const CUtensorMap mq,
+                             __grid_constant__ const CUtensorMap mk,
+                             __grid_constant__ const CUtensorMap mv,
+                             __grid_constant__ const CUtensorMap mdo, const QArgs a) {
+  using L = Dq<HD>;
+  constexpr int BK = L::BK;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* sq = reinterpret_cast<bf16*>(smem + L::Q);
+  bf16* sdo = reinterpret_cast<bf16*>(smem + L::DO);
+  bf16* sk = reinterpret_cast<bf16*>(smem + L::K);
+  bf16* sv = reinterpret_cast<bf16*>(smem + L::V);
+  int* segk = reinterpret_cast<int*>(smem + L::SEG);
+  uint64_t* bar_qdo = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = bar_qdo + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int T = a.T;
+  const int bh = blockIdx.x;
+  const int bi = bh / a.h;
+  const int hi = bh - bi * a.h;
+  // the longest causal rows first
+  const int qb = a.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y)
+                          : static_cast<int>(blockIdx.y);
+  const int q_end = min(T, (qb + 1) * KB);  // a multiple of 64, so of BK
+  const int n_kv = a.causal ? q_end / BK : T / BK;
+  const bool has_seg = a.seg != nullptr;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    // the warps that read the tiles: the second warpgroup's rows may lie past T
+    const int readers = (qb * KB + 64 < T ? 2 : 1) * 4;
+    mbar_init(bar_qdo, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], readers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == H_CONSUMER_WARPS) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(bar_qdo, 2 * L::ROW_BYTES);
+      for (int p = 0; p < L::PANELS; ++p) {
+        tma_load_rows(sq + p * KB * 64, &mq, bar_qdo, p * 64, qb * KB, hi, bi, a.qp);
+        tma_load_rows(sdo + p * KB * 64, &mdo, bar_qdo, p * 64, qb * KB, hi, bi, a.dp);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(&empty[s], (j / STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * L::TILE_BYTES + (has_seg ? BK * 4 : 0));
+        for (int p = 0; p < L::PANELS; ++p) {
+          tma_load_rows(sk + s * BK * HD + p * BK * 64, &mk, &full[s], p * 64, j * BK, hi, bi,
+                        a.kp);
+          tma_load_rows(sv + s * BK * HD + p * BK * 64, &mv, &full[s], p * 64, j * BK, hi, bi,
+                        a.vp);
+        }
+        if (has_seg) bulk_load(segk + s * BK, a.seg + bi * T + j * BK, BK * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg owns rows [wg*64, wg*64 + 64) of the block;
+  // this thread holds rows r0 (slot 0) and r0 + 8 (slot 1)
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  const int first_row = qb * KB + wg * 64;
+  if (first_row >= T) return;  // rows past T: nothing to read, nothing to store
+  const int r0 = first_row + (warp % 4) * 16 + g;
+  // a causal warpgroup's last tile is the one that holds its last row's key
+  const int n_mine = a.causal ? (first_row + 64) / BK : n_kv;
+  const long long at = static_cast<long long>(bh) * T;
+  const float lse0 = a.lse[at + r0], lse1 = a.lse[at + r0 + 8];
+  const float d0 = a.dcap[at + r0], d1 = a.dcap[at + r0 + 8];
+  int sq0 = 0, sq1 = 0;
+  if (has_seg) {
+    sq0 = a.seg[bi * T + r0];
+    sq1 = a.seg[bi * T + r0 + 8];
+  }
+  float dq[HD / 2], sacc[BK / 2], pacc[BK / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sacc[i] = pacc[i] = 0.f;
+  const bf16* qw = sq + wg * 64 * 64;
+  const bf16* dw = sdo + wg * 64 * 64;
+  mbar_wait(bar_qdo, 0);
+
+  for (int j = 0; j < n_mine; ++j) {
+    const int s = j % STAGES;
+    mbar_wait(&full[s], (j / STAGES) & 1);
+    const bf16* kt = sk + s * BK * HD;
+    const bf16* vt = sv + s * BK * HD;
+
+    // S = Q K^T and dP = dO V^T, two groups in flight
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss<0>(sacc, desc_kmajor(qw + (kk / 4) * KB * 64 + (kk % 4) * 16),
+                  desc_kmajor(kt + (kk / 4) * BK * 64 + (kk % 4) * 16), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss<0>(pacc, desc_kmajor(dw + (kk / 4) * KB * 64 + (kk % 4) * 16),
+                  desc_kmajor(vt + (kk / 4) * BK * 64 + (kk % 4) * 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sacc);
+
+    // P = exp(S scale - lse): masked only where the tile crosses this
+    // warpgroup's diagonal, and under segment ids (selects, no branches)
+    if (has_seg || (a.causal && j * BK + BK - 1 > first_row)) {
+      const int* sg = segk + s * BK;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * i + 2 * c + e;
+          const int key = j * BK + col;
+          const int sk_ = has_seg ? sg[col] : 0;
+          const bool dead0 = (a.causal & (key > r0)) | (sq0 != sk_);
+          const bool dead1 = (a.causal & (key > r0 + 8)) | (sq1 != sk_);
+          const float v0 = dead0 ? NEG_INF : sacc[4 * i + e] * a.scale;
+          const float v1 = dead1 ? NEG_INF : sacc[4 * i + 2 + e] * a.scale;
+          sacc[4 * i + e] = exp_ftz(v0 - lse0);
+          sacc[4 * i + 2 + e] = exp_ftz(v1 - lse1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sacc[4 * i + e] = exp_ftz(sacc[4 * i + e] * a.scale - lse0);
+          sacc[4 * i + 2 + e] = exp_ftz(sacc[4 * i + 2 + e] * a.scale - lse1);
+        }
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(pacc);
+
+    // dS = P (dP - D) scale, rounded to bf16 pairs: the register A operand
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        pacc[4 * i + e] = sacc[4 * i + e] * (pacc[4 * i + e] - d0) * a.scale;
+        pacc[4 * i + 2 + e] = sacc[4 * i + 2 + e] * (pacc[4 * i + 2 + e] - d1) * a.scale;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) da[kk][r] = pack_bf16(pacc[8 * kk + 2 * r], pacc[8 * kk + 2 * r + 1]);
+    }
+
+    // dQ += dS~ K: the key tile read MN-major (keys are the depth)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_rs<1>(dq, da[kk], desc_mnmajor(kt + kk * 16 * 64, BK * 128), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  store_rows<HD>(dq, static_cast<bf16*>(a.dq) + static_cast<long long>(bi) * a.dqs[0] +
+                         static_cast<long long>(hi) * a.dqs[1],
+                 a.dqs, r0, T, a.hd, c);
+}
+
+template <int HD>
+int launch_dq_sm90(const QArgs& a, const HeadMap& q, const HeadMap& k, const HeadMap& v,
+                   const HeadMap& d, int bh, int n_blocks, cudaStream_t stream) {
+  const int bytes = Dq<HD>::BYTES;
+  static bool done[64] = {};  // per HD: each instantiation opts in for itself
+  const int err = opt_in_smem(flash_bwd_dq_kernel_sm90<HD>, bytes, done);
+  if (err != 0) return err;
+  flash_bwd_dq_kernel_sm90<HD><<<dim3(bh, n_blocks), H_THREADS, bytes, stream>>>(
+      q.map, k.map, v.map, d.map, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dq_f32(const Args& a, cudaStream_t stream) {
+  const size_t bytes = layout(a.hdp).total;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel_f32,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.T / BM, a.b * a.h);
-  flash_bwd_dq_kernel<TI><<<grid, THREADS, bytes, stream>>>(a);
+  flash_bwd_dq_kernel_f32<<<grid, THREADS, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_dkv_f32(const Args& a, cudaStream_t stream) {
-  const size_t bytes = layout<float>(a.hdp).total;
+  const size_t bytes = layout(a.hdp).total;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_f32,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
@@ -783,6 +905,12 @@ int launch_dkv_f32(const Args& a, cudaStream_t stream) {
 
 bool bad_shape(int b, int h, int T, int hd) {
   return b <= 0 || h <= 0 || T <= 0 || T % BM || hd < 1 || hd > MAX_HD || b * h > 65535;
+}
+
+// the operands' own last dims (bf16): at least hd, at most the widest kernel
+bool bad_dims(int hd, int qd, int kd, int vd, int dd) {
+  return qd < hd || kd < hd || vd < hd || dd < hd || qd > MAX_HD || kd > MAX_HD ||
+         vd > MAX_HD || dd > MAX_HD;
 }
 
 void set3(int (&dst)[3], int s0, int s1, int s2) {
@@ -821,7 +949,8 @@ Args common(const void* q, const void* k, const void* v, const void* dout, const
 
 extern "C" {
 
-// which: 0 -> rows per block, 1 -> rows per streamed tile, 2 -> largest head dim
+// which: 0 -> the T rule's unit (rows per f32 block), 1 -> rows per f32 streamed
+// tile, 2 -> largest head dim
 int dl4j_flash_bwd_tile(int which) {
   return which == 0 ? BM : which == 1 ? BN : MAX_HD;
 }
@@ -829,20 +958,52 @@ int dl4j_flash_bwd_tile(int which) {
 // q, k, v, dout: (b, h, T, hd) through strides (batch, head, time; the head
 // dim unit-stride), all bf16 or all f32; lse, dcap: (b*h, T) f32 contiguous;
 // seg: (b, T) int32 contiguous or null; dq: (b, h, T, hd) of the operand
-// type through its strides. Needs T % 64 == 0, 1 <= hd <= 128. Returns
-// cudaGetLastError().
+// type through its strides. Needs T % 64 == 0, 1 <= hd <= 128. bf16: qd, kd,
+// vd, dd are the operands' own last dims (>= hd; zero past hd), each operand
+// TMA-readable (16-byte aligned base, strides multiples of 8 elements), seg
+// 16-byte aligned (ceil(T / 128) query blocks). Returns cudaGetLastError(),
+// or 1000 + the CUresult of a failed tensor-map encoding.
 int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* dcap, const void* seg, void* dq, int b,
                       int h, int T, int hd, int causal, int is_bf16, int qsb, int qsh, int qst,
                       int ksb, int ksh, int kst, int vsb, int vsh, int vst, int dsb, int dsh,
-                      int dst, int dqsb, int dqsh, int dqst, float scale, void* stream) {
+                      int dst, int dqsb, int dqsh, int dqst, int qd, int kd, int vd, int dd,
+                      float scale, void* stream) {
   if (bad_shape(b, h, T, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  Args a = common(q, k, v, dout, lse, dcap, seg, b, h, T, hd, causal, qsb, qsh, qst, ksb, ksh,
-                  kst, vsb, vsh, vst, dsb, dsh, dst, scale);
+  cudaStream_t stm = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    Args a = common(q, k, v, dout, lse, dcap, seg, b, h, T, hd, causal, qsb, qsh, qst, ksb,
+                    ksh, kst, vsb, vsh, vst, dsb, dsh, dst, scale);
+    a.dq = dq;
+    set3(a.dqs, dqsb, dqsh, dqst);
+    return launch_dq_f32(a, stm);
+  }
+  if (bad_dims(hd, qd, kd, vd, dd)) return static_cast<int>(cudaErrorInvalidValue);
+  const int bk = hd <= 64 ? Dq<64>::BK : Dq<128>::BK;
+  HeadMap mq, mk, mv, md;
+  int rc = encode_heads(&mq, q, qd, T, h, b, qsb, qsh, qst, KB);
+  if (rc == 0) rc = encode_heads(&mk, k, kd, T, h, b, ksb, ksh, kst, bk);
+  if (rc == 0) rc = encode_heads(&mv, v, vd, T, h, b, vsb, vsh, vst, bk);
+  if (rc == 0) rc = encode_heads(&md, dout, dd, T, h, b, dsb, dsh, dst, KB);
+  if (rc != 0) return rc;
+  QArgs a{};
+  a.lse = static_cast<const float*>(lse);
+  a.dcap = static_cast<const float*>(dcap);
+  a.seg = static_cast<const int*>(seg);
   a.dq = dq;
+  a.h = h;
+  a.T = T;
+  a.hd = hd;
   set3(a.dqs, dqsb, dqsh, dqst);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dq<bf16>(a, st) : launch_dq<float>(a, st);
+  a.scale = scale;
+  a.causal = causal;
+  a.qp = mq.pos;
+  a.kp = mk.pos;
+  a.vp = mv.pos;
+  a.dp = md.pos;
+  const int n_blocks = (T + KB - 1) / KB;
+  return hd <= 64 ? launch_dq_sm90<64>(a, mq, mk, mv, md, b * h, n_blocks, stm)
+                  : launch_dq_sm90<128>(a, mq, mk, mv, md, b * h, n_blocks, stm);
 }
 
 // as dl4j_flash_bwd_dq; dk, dv: (b, h, T, hd) of the operand type through
@@ -870,10 +1031,7 @@ int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* 
     return launch_dkv_f32(a, stm);
   }
   const int n_blocks = (T + KB - 1) / KB;
-  if (qd < hd || kd < hd || vd < hd || dd < hd || qd > MAX_HD || kd > MAX_HD ||
-      vd > MAX_HD || dd > MAX_HD) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_dims(hd, qd, kd, vd, dd)) return static_cast<int>(cudaErrorInvalidValue);
   const int bq = hd <= 64 ? Dkv<64>::BQ : Dkv<128>::BQ;
   HeadMap mq, mk, mv, md;
   int rc = encode_heads(&mq, q, qd, T, h, b, qsb, qsh, qst, bq);

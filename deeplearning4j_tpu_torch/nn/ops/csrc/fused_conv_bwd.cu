@@ -17,20 +17,23 @@
 // The f32 products and sums are written with __fmul_rn/__fadd_rn where the
 // plain version rounds each step, so the two round alike.
 //
-// Design. Two kernel templates, each an implicit GEMM with 64x64 output
-// tiles, four warps of 16x16x16 bf16 WMMA into f32 accumulators, depth in
-// steps of 32 through two shared-memory stages (the next step's global loads
-// wait in registers while the tensor cores work), as in fused_conv.cu.
+// Design. The pointwise dx is a Hopper kernel (pw_bwd_dx_kernel_sm90 below:
+// TMA ring, register-A wgmma, dz_eff formed in its prologue, a fused
+// epilogue). The 3x3 dx and both dW kernels are implicit GEMMs with 64x64
+// output tiles, four warps of 16x16x16 bf16 WMMA into f32 accumulators,
+// depth in steps of 32 through two shared-memory stages (the next step's
+// global loads wait in registers while the tensor cores work), as in
+// fused_conv.cu.
 //
-// dx: rows = pixels, columns = Cin, depth = TAPS * Cout. The A tile is
-//   dz_eff, formed from dz, z and dst as it is read. For the 3x3 conv the
-//   tap (dy, dx) of output pixel (h, w) reads dz_eff at (h+1-dy, w+1-dx):
-//   the transposed conv with the taps flipped. An out-of-image tap loads 0,
-//   NOT dz_eff of a zero pixel (which would add dst[0]): the Pallas kernel
-//   forms dz_eff over the valid pixels only and scatters into a zero halo.
-//   The epilogue recomputes u from x, applies the ReLU mask and the scale,
-//   stores dx, and writes per-block column partials of du*x and du that a
-//   second kernel sums over the row tiles in a fixed order.
+// 3x3 dx: rows = pixels, columns = Cin, depth = 9 * Cout. The A tile is
+//   dz_eff, formed from dz, z and dst as it is read. The tap (dy, dx) of
+//   output pixel (h, w) reads dz_eff at (h+1-dy, w+1-dx): the transposed
+//   conv with the taps flipped. An out-of-image tap loads 0, NOT dz_eff of a
+//   zero pixel (which would add dst[0]): the Pallas kernel forms dz_eff over
+//   the valid pixels only and scatters into a zero halo. The epilogue
+//   recomputes u from x, applies the ReLU mask and the scale, stores dx, and
+//   writes per-block column partials of du*x and du that a second kernel
+//   sums over the row tiles in a fixed order.
 // dW: rows = Cin, columns = Cout, depth = pixels, one GEMM per tap. The
 //   output is small and the depth huge (stage 1 at batch 32: one 64x64 tile
 //   over 100352 pixels). The TPU accumulated over a sequential grid
@@ -41,18 +44,19 @@
 //   is zero AFTER the fold, as in the forward.
 //
 // Bound on an H100: the deep GEMMs are bound by tensor-core operations, the
-// 64-channel stage-1 ones by bytes (see chip_smoke.py phase 2b). Simple first
-// kernels; wgmma and TMA are later work. Times are in PERF.md.
+// 64-channel stage-1 ones by bytes (see chip_smoke.py phase 2b). Times are in
+// PERF.md.
 
 #include <mma.h>
 
 #include "fused_conv_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace nvcuda;
 
-// dx kernel: A tile [row][k] (pixels x Cout-depth), B tile [n][k] (Cin x
+// 3x3 dx kernel: A tile [row][k] (pixels x Cout-depth), B tile [n][k] (Cin x
 // Cout-depth, read as col-major K x N)
 constexpr int LDK = BK + 8;
 constexpr int LDC = BN + 4;
@@ -128,12 +132,11 @@ __device__ __forceinline__ Pixel pixel_of(int m, int H, int W) {
 }
 
 // ---------------------------------------------------------------------------
-// dx, dscale, dshift
+// 3x3 dx, dscale, dshift
 // ---------------------------------------------------------------------------
 
-template <int TAPS>
 __global__ void __launch_bounds__(THREADS)
-conv_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x,
+conv3x3_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x,
                    const float* __restrict__ scale,
                    const float* __restrict__ shift,
                    const __nv_bfloat16* __restrict__ w,
@@ -143,6 +146,7 @@ conv_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x,
                    __nv_bfloat16* __restrict__ dx,
                    float* __restrict__ partial,
                    int M, int H, int W, int Cin, int Cout, int relu_in) {
+  constexpr int TAPS = 9;
   __shared__ __align__(128) unsigned char smem[DX_SMEM];
   __shared__ float red[2][2][BN];
 
@@ -170,12 +174,7 @@ conv_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x,
   for (int i = 0; i < 2; ++i) {
     const int m = m0 + a_row + 32 * i;
     a_valid[i] = m < M;
-    if (TAPS == 1) {
-      a_px[i].n = m;
-      a_px[i].h = a_px[i].w = 0;
-    } else {
-      a_px[i] = pixel_of(a_valid[i] ? m : 0, H, W);
-    }
+    a_px[i] = pixel_of(a_valid[i] ? m : 0, H, W);
   }
   // B tile: each thread stages one 8-channel (Cout) chunk of Cin rows r, r + 32
   const int b_row = tid >> 2;
@@ -188,22 +187,18 @@ conv_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x,
   int na[2];
 
   auto load = [&](int kt) {
-    const int tap = (TAPS == 1) ? 0 : kt / CK;
+    const int tap = kt / CK;
     const int c0 = (kt - tap * CK) * BK;
     const int c = c0 + a_kc;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       long long pix = -1;
       if (a_valid[i]) {
-        if (TAPS == 1) {
-          pix = a_px[i].n;
-        } else {
-          // flipped tap: the transposed conv
-          const int hs = a_px[i].h + 1 - tap / 3;
-          const int ws = a_px[i].w + 1 - tap % 3;
-          if (hs >= 0 && hs < H && ws >= 0 && ws < W) {
-            pix = (a_px[i].n * H + hs) * W + ws;
-          }
+        // flipped tap: the transposed conv
+        const int hs = a_px[i].h + 1 - tap / 3;
+        const int ws = a_px[i].w + 1 - tap % 3;
+        if (hs >= 0 && hs < H && ws >= 0 && ws < W) {
+          pix = (a_px[i].n * H + hs) * W + ws;
         }
       }
       const int nv = pix >= 0 ? min(8, Cout - c) : 0;
@@ -222,7 +217,7 @@ conv_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x,
   };
 
   auto store = [&](int kt, int buf) {
-    const int tap = (TAPS == 1) ? 0 : kt / CK;
+    const int tap = kt / CK;
     const int c = (kt - tap * CK) * BK + a_kc;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -303,6 +298,298 @@ conv_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x,
     partial[base] = red[0][0][tid] + red[0][1][tid];
     partial[base + Cin] = red[1][0][tid] + red[1][1][tid];
   }
+}
+
+// ---------------------------------------------------------------------------
+// pointwise dx, dscale, dshift on Hopper: TMA ring, register-A wgmma, fused
+// prologue and epilogue
+// ---------------------------------------------------------------------------
+// A GEMM with rows = pixels (M), columns = Cin, depth = Cout. A block owns
+// 128 pixel rows x N input channels (N = 64, 128 or 256: Cin rounded up,
+// at most 256): a producer warp and two consumer warpgroups of 64 rows. At
+// N = 256 the accumulator alone
+// is 128 registers a thread: the producer is then a whole warpgroup (384
+// threads) that hands its registers to the consumers (setmaxnreg: 40 for
+// the producer, 232 for each consumer thread), where 288 threads would be
+// held to 168 and spill.
+// - The producer first loads the block's x tile (128 x N) for the epilogue
+//   into a buffer of its own, then streams, per 64 channels of Cout, the dz
+//   and z tiles (128 x 64) and the W tile (N x 64: W is (Cin, Cout), K-major
+//   as stored) into a ring of stages on full/empty mbarriers (TMA, 128-byte
+//   swizzle, zero fill past M, Cin and Cout), with the stage's 64 columns
+//   of dst[0] and dst[1] beside them (bulk copies: no global load waits in
+//   the consumers' loop).
+// - Prologue: each consumer thread forms dz_eff for its two rows and sixteen
+//   depth columns of a stage from the shared tiles (conflict-free 32-bit
+//   reads of the swizzled rows), in f32 with the plain version's rounding,
+//   and packs it in bf16 pairs straight into wgmma's register A layout. Rows
+//   at or past M give 0: TMA's zero fill would leave dst[0] there, and the
+//   reference masks rows >= m_valid. The next stage's dz_eff is formed while
+//   this stage's wgmma runs (two sets of A registers); dxn = dz_eff W^T
+//   accumulates in registers over the whole depth.
+// - Epilogue, from the accumulator registers: x of the thread's rows and
+//   channels from the shared x tile (0 past M and Cin, as the reference's
+//   zero-padded rows), u = x scale + shift, the ReLU mask, dx = bf16(du
+//   scale) written over x in the tile and stored by TMA (which writes no row
+//   past M); du*x and du of the thread's two rows go to a shared table of
+//   the block's 64 row groups (columns swizzled by row: conflict-free), and
+//   one thread per channel sums its 64 entries in order into the block's
+//   partials, which stats_reduce_kernel sums over the row blocks in order.
+//   No float atomics: reruns give the same bits.
+// Bound on an H100: at ResNet-50's shapes the bytes (x, dz, z, dx once).
+constexpr int PW_BM = 128;                 // pixel rows per block
+constexpr int PW_BK = 64;                  // Cout depth per stage
+constexpr int PW_CONSUMERS = 256;          // two consumer warpgroups
+constexpr int PW_GROUPS = PW_CONSUMERS / 4;  // row groups of 2 rows: a quad's lanes share them
+
+template <int N>
+struct PwDx {
+  static constexpr int NW = N < 128 ? N : 128;     // columns per wgmma
+  static constexpr int NH = N / NW;                // wgmmas per k-step
+  static constexpr int STAGES = N == 128 ? 3 : 2;
+  static constexpr int MIN_BLOCKS = N == 64 ? 2 : 1;
+  static constexpr bool WIDE = N == 256;           // a producer warpgroup, setmaxnreg
+  static constexpr int THREADS = PW_CONSUMERS + (WIDE ? 128 : 32);
+  static constexpr int ROWS_BYTES = PW_BM * PW_BK * 2;   // a dz or z tile
+  static constexpr int W_BYTES = N * PW_BK * 2;
+  static constexpr int STAGE_BYTES = 2 * ROWS_BYTES + W_BYTES;  // dz, z, W; 1024-aligned
+  static constexpr int X_BYTES = PW_BM * N * 2;         // x, then dx: N / 64 panels of 128 rows
+  static constexpr int RING = X_BYTES;                  // stage s at RING + s * STAGE_BYTES
+  static constexpr int DST = RING + STAGES * STAGE_BYTES;  // [STAGES][dst0, dst1][64] f32
+  static constexpr int BAR = DST + STAGES * 2 * PW_BK * 4;  // full[STAGES], empty[STAGES], x
+  static constexpr int SC = BAR + 64;                   // scale, shift of the N channels
+  static constexpr int BYTES = SC + 2 * N * 4 + 1024;   // + the alignment slack
+  static constexpr int RED_BYTES = 2 * PW_GROUPS * N * 4;  // the row sums, over the spent ring
+  static_assert(RED_BYTES <= STAGES * STAGE_BYTES, "the row sums reuse the ring");
+  static_assert((2 * STAGES + 1) * 8 <= 64, "the barriers fit");
+};
+
+template <int N>
+__global__ void __launch_bounds__(PwDx<N>::THREADS, PwDx<N>::MIN_BLOCKS)
+pw_bwd_dx_kernel_sm90(__grid_constant__ const CUtensorMap mdz,
+                      __grid_constant__ const CUtensorMap mz,
+                      __grid_constant__ const CUtensorMap mw,
+                      __grid_constant__ const CUtensorMap mx,
+                      __grid_constant__ const CUtensorMap mdx,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ shift,
+                      const float* __restrict__ dst,
+                      float* __restrict__ partial,
+                      int M, int Cin, int Cout, int relu_in) {
+  using namespace hopper;
+  using L = PwDx<N>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sx = smem;
+  unsigned char* ring = smem + L::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* bar_x = empty + STAGES;
+  float* sdst = reinterpret_cast<float*>(smem + L::DST);
+  float* ssc = reinterpret_cast<float*>(smem + L::SC);   // [scale; shift] of the block's N
+
+  const int m0 = blockIdx.x * PW_BM;
+  const int n0 = blockIdx.y * N;
+  const int nk = (Cout + PW_BK - 1) / PW_BK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], PW_CONSUMERS / 32);
+    }
+    mbar_init(bar_x, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= PW_CONSUMERS) {  // the producer
+    if constexpr (L::WIDE) regs_dec<40>();
+    if (threadIdx.x == PW_CONSUMERS) {
+      mbar_expect_tx(bar_x, L::X_BYTES);
+      for (int p = 0; p < N / 64; ++p) {
+        tma_load_2d(sx + p * PW_BM * 128, &mx, bar_x, n0 + p * 64, m0);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(&empty[s], (j / STAGES - 1) & 1);
+        unsigned char* st = ring + s * L::STAGE_BYTES;
+        // dst's columns of the stage: Cout is a multiple of 8, so whole 32 bytes
+        const uint32_t dbytes = min(PW_BK, Cout - j * PW_BK) * 4;
+        mbar_expect_tx(&full[s], L::STAGE_BYTES + 2 * dbytes);
+        tma_load_2d(st, &mdz, &full[s], j * PW_BK, m0);
+        tma_load_2d(st + L::ROWS_BYTES, &mz, &full[s], j * PW_BK, m0);
+        tma_load_2d(st + 2 * L::ROWS_BYTES, &mw, &full[s], j * PW_BK, n0);
+        bulk_load(sdst + s * 2 * PW_BK, dst + j * PW_BK, dbytes, &full[s]);
+        bulk_load(sdst + s * 2 * PW_BK + PW_BK, dst + Cout + j * PW_BK, dbytes, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg owns tile rows [wg*64, wg*64 + 64); this thread
+  // holds tile rows lr (slot 0) and lr + 8 (slot 1)
+  if constexpr (L::WIDE) regs_inc<232>();
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  const int lr = wg * 64 + (warp % 4) * 16 + g;
+  const bool live0 = m0 + lr < M, live1 = m0 + lr + 8 < M;
+  float acc[L::NH][L::NW / 2];
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < L::NW / 2; ++i) acc[h][i] = 0.f;
+  }
+
+  // stage j's dz_eff in wgmma's register A layout: a[kk] = {(slot 0, cols
+  // 16kk + 2c, +1), (slot 1, the same), (slot 0, 8 columns on), (slot 1, 8 on)}
+  const auto build = [&](uint32_t (&a)[PW_BK / 16][4], int j) {
+    const unsigned char* tdz = ring + (j % STAGES) * L::STAGE_BYTES;
+    const unsigned char* tz = tdz + L::ROWS_BYTES;
+    const float* sd = sdst + (j % STAGES) * 2 * PW_BK;
+#pragma unroll
+    for (int kk = 0; kk < PW_BK / 16; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int cc = 16 * kk + 8 * half + 2 * c;   // the stage's column
+        // past Cout the shared slice holds stale values: 0 (Cout is even)
+        const bool in = j * PW_BK + cc < Cout;
+        const float2 s0 = *reinterpret_cast<const float2*>(sd + cc);
+        const float2 s1 = *reinterpret_cast<const float2*>(sd + PW_BK + cc);
+        const float2 d0 = in ? s0 : make_float2(0.f, 0.f);
+        const float2 d1 = in ? s1 : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int slot = 0; slot < 2; ++slot) {
+          const int r = lr + 8 * slot;
+          const uint32_t wdz = sw128_word(tdz, r, 2 * kk + half, c);
+          const uint32_t wz = sw128_word(tz, r, 2 * kk + half, c);
+          const float2 fdz = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wdz));
+          const float2 fz = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wz));
+          a[kk][2 * half + slot] =
+              (slot ? live1 : live0) ? pack_bf16(dz_eff(fdz.x, fz.x, d0.x, d1.x),
+                                                 dz_eff(fdz.y, fz.y, d0.y, d1.y))
+                                     : 0u;
+        }
+      }
+    }
+  };
+  // dxn += dz_eff W^T for stage j (W's tile, N rows of Cin by 64 of Cout, is
+  // K-major); the next stage's A is formed under it, then the stage is freed
+  const auto step = [&](const uint32_t (&a)[PW_BK / 16][4], uint32_t (&next)[PW_BK / 16][4],
+                        int j) {
+    const __nv_bfloat16* tw = reinterpret_cast<const __nv_bfloat16*>(
+        ring + (j % STAGES) * L::STAGE_BYTES + 2 * L::ROWS_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PW_BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < L::NH; ++h) {
+        wgmma_rs<0>(acc[h], a[kk], desc_kmajor(tw + h * L::NW * 64 + kk * 16), 1);
+      }
+    }
+    wgmma_commit();
+    if (j + 1 < nk) {
+      mbar_wait(&full[(j + 1) % STAGES], ((j + 1) / STAGES) & 1);
+      build(next, j + 1);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < L::NH; ++h) fence_regs(acc[h]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % STAGES]);
+  };
+  uint32_t a0[PW_BK / 16][4], a1[PW_BK / 16][4];
+  mbar_wait(&full[0], 0);
+  build(a0, 0);
+  for (int j = 0; j < nk; j += 2) {
+    step(a0, a1, j);
+    if (j + 1 < nk) step(a1, a0, j + 1);
+  }
+
+  // epilogue: the block's scale and shift (0 past Cin) beside the tile
+  for (int i = threadIdx.x; i < 2 * N; i += PW_CONSUMERS) {
+    const int col = n0 + (i < N ? i : i - N);
+    ssc[i] = col < Cin ? __ldg((i < N ? scale : shift) + col) : 0.f;
+  }
+  float* red = reinterpret_cast<float*>(ring);  // [du*x, du][64 row groups][N], over the ring
+  mbar_wait(bar_x, 0);
+  named_barrier(1, PW_CONSUMERS);  // both warpgroups are done with the ring; ssc is written
+  const int rg = warp * 8 + g;     // this thread's row group
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < L::NW / 8; ++i) {
+      const int cl = h * L::NW + 8 * i + 2 * c;  // the block's column of this pair
+      const float2 sc = *reinterpret_cast<const float2*>(ssc + cl);
+      const float2 sh = *reinterpret_cast<const float2*>(ssc + N + cl);
+      unsigned char* panel = sx + (cl / 64) * PW_BM * 128;
+      float dux0 = 0.f, dux1 = 0.f, du0s = 0.f, du1s = 0.f;
+#pragma unroll
+      for (int slot = 0; slot < 2; ++slot) {
+        const int r = lr + 8 * slot;
+        uint32_t* word = reinterpret_cast<uint32_t*>(
+            panel + r * 128 + ((((cl % 64) / 8) ^ (r & 7)) << 4) + 4 * c);
+        const uint32_t wx = *word;
+        const float2 fx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wx));
+        float du0 = acc[h][4 * i + 2 * slot], du1 = acc[h][4 * i + 2 * slot + 1];
+        if (relu_in) {
+          if (!(__fadd_rn(__fmul_rn(fx.x, sc.x), sh.x) > 0.f)) du0 = 0.f;
+          if (!(__fadd_rn(__fmul_rn(fx.y, sc.y), sh.y) > 0.f)) du1 = 0.f;
+        }
+        *word = pack_bf16(__fmul_rn(du0, sc.x), __fmul_rn(du1, sc.y));
+        dux0 += du0 * fx.x;
+        dux1 += du1 * fx.y;
+        du0s += du0;
+        du1s += du1;
+      }
+      const int pc = cl ^ (g << 3);  // swizzled by row group: conflict-free
+      *reinterpret_cast<float2*>(red + rg * N + pc) = make_float2(dux0, dux1);
+      *reinterpret_cast<float2*>(red + (PW_GROUPS + rg) * N + pc) = make_float2(du0s, du1s);
+    }
+  }
+  fence_proxy_async();             // dx in the tile, for the TMA store
+  named_barrier(1, PW_CONSUMERS);
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < N / 64; ++p) tma_store_2d(&mdx, sx + p * PW_BM * 128, n0 + p * 64, m0);
+    tma_store_commit();
+  }
+  for (int cl = threadIdx.x; cl < N; cl += PW_CONSUMERS) {
+    const int col = n0 + cl;
+    if (col >= Cin) break;
+    float s1 = 0.f, s2 = 0.f;
+    for (int r = 0; r < PW_GROUPS; ++r) {
+      const int pc = cl ^ ((r & 7) << 3);
+      s1 += red[r * N + pc];
+      s2 += red[(PW_GROUPS + r) * N + pc];
+    }
+    const long long base = static_cast<long long>(blockIdx.x) * 2 * Cin + col;
+    partial[base] = s1;
+    partial[base + Cin] = s2;
+  }
+  if (threadIdx.x == 0) tma_store_wait_read();
+}
+
+template <int N>
+int launch_pw_dx_sm90(const CUtensorMap& mdz, const CUtensorMap& mz, const CUtensorMap& mw,
+                      const CUtensorMap& mx, const CUtensorMap& mdx, const void* scale,
+                      const void* shift, const void* dst, void* partial, void* gst, int m,
+                      int cin, int cout, int relu_in, cudaStream_t s) {
+  const int bytes = PwDx<N>::BYTES;
+  static bool done[64] = {};  // per N: each instantiation opts in for itself
+  const int err = hopper::opt_in_smem(pw_bwd_dx_kernel_sm90<N>, bytes, done);
+  if (err != 0) return err;
+  const dim3 grid((m + PW_BM - 1) / PW_BM, (cin + N - 1) / N);
+  pw_bwd_dx_kernel_sm90<N><<<grid, PwDx<N>::THREADS, bytes, s>>>(
+      mdz, mz, mw, mx, mdx, static_cast<const float*>(scale), static_cast<const float*>(shift),
+      static_cast<const float*>(dst), static_cast<float*>(partial), m, cin, cout, relu_in);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_stats_reduce(static_cast<const float*>(partial),
+                                              static_cast<int>(grid.x), 2 * cin,
+                                              static_cast<float*>(gst), s));
 }
 
 // ---------------------------------------------------------------------------
@@ -450,31 +737,22 @@ __global__ void dw_reduce_kernel(const float* __restrict__ partial, int splits,
   out[i] = __float2bfloat16_rn(s);
 }
 
-int launch_dx(int taps, const void* x, const void* scale, const void* shift,
-              const void* w, const void* z, const void* dz, const void* dst, void* dx,
-              void* partial, void* gst, int m, int h, int wd, int cin, int cout,
-              int relu_in, void* stream) {
+int launch_conv3x3_dx(const void* x, const void* scale, const void* shift, const void* w,
+                      const void* z, const void* dz, const void* dst, void* dx, void* partial,
+                      void* gst, int m, int h, int wd, int cin, int cout, int relu_in,
+                      void* stream) {
   if (m <= 0 || cin <= 0 || cout <= 0 || (cin + BN - 1) / BN > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const dim3 grid((m + BM - 1) / BM, (cin + BN - 1) / BN);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* sh = static_cast<const float*>(shift);
-  const auto* wb = static_cast<const __nv_bfloat16*>(w);
-  const auto* zb = static_cast<const __nv_bfloat16*>(z);
-  const auto* dzb = static_cast<const __nv_bfloat16*>(dz);
-  const auto* ds = static_cast<const float*>(dst);
-  auto* dxb = static_cast<__nv_bfloat16*>(dx);
   auto* pp = static_cast<float*>(partial);
-  if (taps == 1) {
-    conv_bwd_dx_kernel<1><<<grid, THREADS, 0, s>>>(xb, sc, sh, wb, zb, dzb, ds, dxb, pp,
-                                                   m, h, wd, cin, cout, relu_in);
-  } else {
-    conv_bwd_dx_kernel<9><<<grid, THREADS, 0, s>>>(xb, sc, sh, wb, zb, dzb, ds, dxb, pp,
-                                                   m, h, wd, cin, cout, relu_in);
-  }
+  conv3x3_bwd_dx_kernel<<<grid, THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(dz),
+      static_cast<const float*>(dst), static_cast<__nv_bfloat16*>(dx), pp, m, h, wd, cin, cout,
+      relu_in);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)launch_stats_reduce(pp, (int)grid.x, 2 * cin, static_cast<float*>(gst), s);
@@ -518,21 +796,43 @@ int launch_dw(int taps, const void* x, const void* scale, const void* shift,
 
 extern "C" {
 
-// tile sizes: 0 -> rows per dx block (sizes the (tiles, 2, Cin) partials),
-// 1 -> columns per block, 2 -> depth step (the dW pixel chunk is a multiple)
+// tile sizes: 0 -> rows per 3x3 dx block (sizes its (tiles, 2, Cin) partials),
+// 1 -> columns per block, 2 -> depth step (the dW pixel chunk is a multiple),
+// 3 -> rows per pointwise dx block (sizes its partials)
 int dl4j_fused_conv_bwd_tile(int which) {
-  return which == 0 ? BM : which == 1 ? BN : BK;
+  return which == 0 ? BM : which == 1 ? BN : which == 2 ? BK : PW_BM;
 }
 
-// x (m, cin) bf16, scale/shift (cin,) f32, w (cin, cout) bf16, z/dz (m, cout)
-// bf16, dst (2, cout) f32 -> dx (m, cin) bf16, gst (2, cin) f32 = [dscale;
-// dshift]; partial is (ceil(m/BM), 2, cin) f32
+// x (m, cin) bf16, scale/shift (cin,) f32, w (cin, cout) bf16, z/dz (m,
+// cout) bf16, dst (2, cout) f32 -> dx (m, cin) bf16, gst (2, cin) f32 =
+// [dscale; dshift]; x and dx with row stride ld; partial is (ceil(m/128), 2,
+// cin) f32. What TMA reads and writes: cout and ld multiples of 8, x, dx, w,
+// z, dz and dst 16-byte aligned. Returns cudaGetLastError(),
+// or 1000 + the CUresult of a failed tensor-map encoding.
 int dl4j_pw_conv_bwd_dx(const void* x, const void* scale, const void* shift,
                         const void* w, const void* z, const void* dz, const void* dst,
-                        void* dx, void* partial, void* gst, int m, int cin, int cout,
+                        void* dx, void* partial, void* gst, int m, int cin, int cout, int ld,
                         int relu_in, void* stream) {
-  return launch_dx(1, x, scale, shift, w, z, dz, dst, dx, partial, gst, m, 1, 1, cin,
-                   cout, relu_in, stream);
+  const auto misaligned = [](const void* p, uintptr_t to) {
+    return (reinterpret_cast<uintptr_t>(p) & (to - 1)) != 0;
+  };
+  if (m <= 0 || cin <= 0 || cout <= 0 || cout % 8 || ld < cin || ld % 8 ||
+      (cin + 63) / 64 > 65535 || misaligned(x, 16) || misaligned(dx, 16) ||
+      misaligned(w, 16) || misaligned(z, 16) || misaligned(dz, 16) || misaligned(dst, 16)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n = cin <= 64 ? 64 : cin <= 128 ? 128 : 256;
+  CUtensorMap mdz, mz, mw, mx, mdx;
+  int rc = hopper::encode_rows(&mdz, dz, cout, m, cout, PW_BM);
+  if (rc == 0) rc = hopper::encode_rows(&mz, z, cout, m, cout, PW_BM);
+  if (rc == 0) rc = hopper::encode_rows(&mw, w, cout, cin, cout, n);
+  if (rc == 0) rc = hopper::encode_rows(&mx, x, cin, m, ld, PW_BM);
+  if (rc == 0) rc = hopper::encode_rows(&mdx, dx, cin, m, ld, PW_BM);
+  if (rc != 0) return rc;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto run = n == 64 ? launch_pw_dx_sm90<64>
+                   : n == 128 ? launch_pw_dx_sm90<128> : launch_pw_dx_sm90<256>;
+  return run(mdz, mz, mw, mx, mdx, scale, shift, dst, partial, gst, m, cin, cout, relu_in, s);
 }
 
 // NHWC x (n, h, wd, cin), HWIO w (3, 3, cin, cout), z/dz (n, h, wd, cout)
@@ -541,8 +841,8 @@ int dl4j_conv3x3_bwd_dx(const void* x, const void* scale, const void* shift,
                         void* dx, void* partial, void* gst, int n, int h, int wd,
                         int cin, int cout, int relu_in, void* stream) {
   if (n <= 0 || h <= 0 || wd <= 0) return (int)cudaErrorInvalidValue;
-  return launch_dx(9, x, scale, shift, w, z, dz, dst, dx, partial, gst, n * h * wd, h,
-                   wd, cin, cout, relu_in, stream);
+  return launch_conv3x3_dx(x, scale, shift, w, z, dz, dst, dx, partial, gst, n * h * wd, h,
+                           wd, cin, cout, relu_in, stream);
 }
 
 // -> dw (cin, cout) bf16; partial is (ceil(m/chunk), cin, cout) f32

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels: mbarriers,
-// TMA tile loads, wgmma descriptors and instructions, and the host-side
-// encoding of a head-split operand as a TMA tensor map.
+// Hopper (sm_90a) building blocks of the flash-attention kernels and the
+// pointwise-conv dx kernel: mbarriers, TMA tile loads, wgmma descriptors and
+// instructions, and the host-side encoding of a head-split operand or a
+// row-major matrix as a TMA tensor map.
 //
 // Shared-memory tiles are 128-byte swizzled rows of 64 bf16 (the layout TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with layout type 1):
@@ -87,6 +88,45 @@ __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a row-major matrix map (64 columns from `col`, the box's rows
+// from `row`) into dst, completing on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// one box of a row-major matrix map stored from src (shared memory, in the
+// map's swizzled layout); out-of-bounds rows and columns are not written.
+// Before it: fence_proxy_async() by every thread that wrote src, then a
+// barrier; after it: tma_store_commit(), and tma_store_wait_read() before
+// src is reused or the block exits.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int col,
+                                             int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// makes this thread's generic writes to shared memory visible to the async
+// proxy (TMA stores, wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) into dst,
 // completing on bar
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -128,6 +168,33 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// a barrier among `threads` threads of the block (a multiple of 32): the
+// consumer warpgroups meet on it once the producer warp has left
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a warpgroup's register budget, moved at run time (every warp of the
+// warpgroup executes it): the producer gives registers back, the consumers
+// take them
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// the 32-bit word (two bf16 columns) at row r, 16-byte chunk `chunk` (0..7)
+// and word w (0..3) of a 128-byte swizzled tile: TMA's SWIZZLE_128B puts
+// chunk j of row r at chunk j ^ (r % 8)
+__device__ __forceinline__ uint32_t sw128_word(const unsigned char* tile, int r, int chunk,
+                                               int w) {
+  return *reinterpret_cast<const uint32_t*>(tile + r * 128 + ((chunk ^ (r & 7)) << 4) + 4 * w);
 }
 
 // keeps the compiler from moving reads of an accumulator above the wait
@@ -361,6 +428,26 @@ inline int encode_heads(HeadMap* out, const void* base, int d, int T, int h, int
                             const_cast<void*>(base), gdim, gstride, box, estride,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_ERROR + static_cast<int>(r);
+}
+
+// A row-major bf16 matrix (rows x cols, row stride `stride` elements) as a
+// 2-D tensor map: boxes of 64 columns by `box_rows` rows, 128-byte swizzled,
+// zero-filled out of bounds. The caller has checked a 16-byte aligned base
+// and a stride that is a multiple of 8. Returns 0 or MAP_ERROR + the
+// CUresult.
+inline int encode_rows(CUtensorMap* out, const void* base, int cols, int rows,
+                       long long stride, int box_rows) {
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return MAP_ERROR + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  cuuint64_t gdim[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  cuuint64_t gstride[1] = {static_cast<cuuint64_t>(stride) * 2};
+  cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t estride[2] = {1, 1};
+  const CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : MAP_ERROR + static_cast<int>(r);
 }

@@ -30,10 +30,10 @@ every product summed in f32.
   replaces the reference's ``_fwd_kernel``; ``csrc/flash_attention_bwd.cu``,
   which replaces ``_dq_kernel`` and ``_dkv_kernel``) or raise: there is no
   fallback and no probe (the availability registry is ROADMAP § B0).
-  The bf16 forward and dkv kernels are Hopper designs (TMA tile loads on
-  mbarriers, wgmma, scores and accumulators in registers): an operand their
-  TMA loads cannot read (:func:`tma_ready`) is first copied into a padded
-  buffer (:func:`padded_operand`, a layout copy for the same kernel).
+  The bf16 forward, dq and dkv kernels are Hopper designs (TMA tile loads
+  on mbarriers, wgmma, scores and accumulators in registers): an operand
+  their TMA loads cannot read (:func:`tma_ready`) is first copied into a
+  padded buffer (:func:`padded_operand`, a layout copy for the same kernel).
   :func:`flash_attention_bwd` is the reference's ``_bwd_impl``: ``D`` by
   :func:`row_dot`, then the two. Each launch adds one to
   ``launch_counts`` under ``flash_attention_fwd``, ``flash_attention_dq`` or
@@ -174,11 +174,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float,
 # ---------------------------------------------------------------------------
 _LIB = KernelLibrary("flash_attention", {"dl4j_flash_fwd": (6, 21, 1)},
                      "dl4j_flash_tile", tile_keys="mnd")
-_BWD_LIB = KernelLibrary("flash_attention_bwd", {"dl4j_flash_bwd_dq": (8, 21, 1),
+_BWD_LIB = KernelLibrary("flash_attention_bwd", {"dl4j_flash_bwd_dq": (8, 25, 1),
                                                  "dl4j_flash_bwd_dkv": (9, 28, 1)},
                          "dl4j_flash_bwd_tile", tile_keys="mnd")
 #: query rows per block of the forward (T must be a multiple: the reference's
-#: own rule), and of the dq kernel (the backward's T rule)
+#: own rule), and the backward's T rule
 _FWD_BLOCK = 128
 _BWD_BLOCK = 64
 _I32_MAX = 2 ** 31 - 1
@@ -339,15 +339,16 @@ def flash_attention_dq(q, k, v, lse, do, dcap, causal: bool, scale: float,
     if q.device.type == "cpu":
         return flash_attention_dq_plain(q, k, v, lse, do, dcap, causal, scale, segment_ids)
     do = _bwd_args(OP_DQ, q, k, v, lse, do, dcap, segment_ids)
-    ins = [s for t in (q, k, v, do) for s in t.stride()[:3]]
     b, h, T, hd = q.shape
     dq = _heads_buffer(q)
+    (q, k, v, do), ins, dims = _kernel_operands([q, k, v, do])
+    lse, dcap, seg = (aligned_vector(t) for t in (lse, dcap, segment_ids))
     lib = _load(_BWD_LIB, OP_DQ, _BWD_BLOCK)
     with torch.cuda.device(q.device):
         launch(lib.dl4j_flash_bwd_dq, OP_DQ,
-               (*ptrs(q, k, v, do, lse, dcap), 0 if segment_ids is None else segment_ids.data_ptr(),
+               (*ptrs(q, k, v, do, lse, dcap), 0 if seg is None else seg.data_ptr(),
                 dq.data_ptr(), b, h, T, hd, int(causal), int(q.dtype == torch.bfloat16), *ins,
-                *_out_strides(dq), float(scale)))
+                *_out_strides(dq), *dims, float(scale)))
     return dq
 
 

@@ -24,8 +24,11 @@ conv through its statistics.
 
 Dispatch: a CPU tensor goes to the plain versions (``*_plain``). A CUDA
 tensor goes to the kernels (bf16 in and out, f32 accumulation), or the
-wrapper raises: there is no fallback. Each launch adds one to
-``launch_counts[name]`` (``launch.py``, shared with the int8 matmul):
+wrapper raises: there is no fallback. The pointwise dx kernel is a Hopper
+design (TMA tile loads, wgmma): a Cout or base its TMA loads cannot read
+reaches it through :func:`tma_rows`, a zero-padded layout copy for the same
+kernel. Each launch adds one to ``launch_counts[name]`` (``launch.py``,
+shared with the int8 matmul):
 
 =============  =========================  ====================================
 name           kernel (csrc/)             replaces (JAX ``fused_conv.py``)
@@ -189,10 +192,15 @@ def conv3x3_bwd_plain(x, scale, shift, w, z, dz, dst, relu_in: bool = False):
 _FWD = KernelLibrary("fused_conv",
                      {"dl4j_pw_conv_fwd": (7, 4), "dl4j_conv3x3_fwd": (7, 6)},
                      "dl4j_fused_conv_tile")
+#: tiles of the backward: "m" rows of a 3x3 dx block, "n" columns, "k" the
+#: dW depth step, "p" rows of a pointwise dx block (each dx kernel's
+#: partials have one row per row block)
 _BWD = KernelLibrary("fused_conv_bwd", {
-    "dl4j_pw_conv_bwd_dx": (10, 4), "dl4j_conv3x3_bwd_dx": (10, 6),
+    "dl4j_pw_conv_bwd_dx": (10, 5), "dl4j_conv3x3_bwd_dx": (10, 6),
     "dl4j_pw_conv_bwd_dw": (8, 5), "dl4j_conv3x3_bwd_dw": (8, 7)},
-    "dl4j_fused_conv_bwd_tile")
+    "dl4j_fused_conv_bwd_tile", tile_keys="mnkp")
+#: TMA reads 16-byte aligned bases and row strides (8 bf16)
+_TMA_ALIGN = 16
 
 
 def _geometry(op: str, x, w):
@@ -248,6 +256,33 @@ def _check_bwd_args(op, x, scale, shift, w, z, dz, dst):
     return pointwise, m, cin, cout, dims
 
 
+def tma_rows(t: torch.Tensor, cols: int) -> torch.Tensor:
+    """A contiguous (rows, c) bf16 matrix as the pointwise dx kernel's TMA
+    loads read it: ``t`` itself when its base is 16-byte aligned and ``c ==
+    cols``, else a copy into a zero-filled (rows, cols) buffer (the layout
+    copy for a ragged Cout or a misaligned view; the same kernel)."""
+    if t.shape[1] == cols and t.data_ptr() % _TMA_ALIGN == 0:
+        return t
+    out = t.new_zeros((t.shape[0], cols))
+    out[:, :t.shape[1]].copy_(t)
+    return out
+
+
+def _pw_dx_operands(x, w, z, dz, dst):
+    """(x, w, z, dz, dst, Cout8) as the pointwise dx kernel reads them: Cin
+    and Cout rounded up to a multiple of 8 (TMA's 16-byte row stride), the
+    padded columns zero, so they add nothing to ``dz_eff W^T`` and x's are
+    never read (dx takes x's padded width, and its padding is dropped after
+    the launch); dst (2, Cout8) 16-byte aligned."""
+    cin, cout = w.shape
+    cout8 = -(-cout // 8) * 8
+    x = tma_rows(x, -(-cin // 8) * 8)
+    w, z, dz = (tma_rows(t, cout8) for t in (w, z, dz))
+    if cout8 != cout or dst.data_ptr() % _TMA_ALIGN:
+        dst = torch.nn.functional.pad(dst, (0, cout8 - cout))
+    return x, w, z, dz, dst, cout8
+
+
 def _fused_bwd_dx(op: str, x, scale, shift, w, z, dz, dst, relu_in: bool):
     """The dx kernel of ``op`` ("pw_conv_dx" or "conv3x3_dx"):
     ``(dx, dscale, dshift)``."""
@@ -257,13 +292,20 @@ def _fused_bwd_dx(op: str, x, scale, shift, w, z, dz, dst, relu_in: bool):
         return torch.empty_like(x), zeros, zeros.clone()
     lib = _BWD.get()
     with torch.cuda.device(x.device):
-        dx = torch.empty_like(x)
-        partial = torch.empty((-(-m // _BWD.tile["m"]), 2, cin),
-                              dtype=torch.float32, device=x.device)
+        rows = _BWD.tile["p" if pointwise else "m"]
+        partial = torch.empty((-(-m // rows), 2, cin), dtype=torch.float32, device=x.device)
         gst = torch.empty((2, cin), dtype=torch.float32, device=x.device)
-        fn = lib.dl4j_pw_conv_bwd_dx if pointwise else lib.dl4j_conv3x3_bwd_dx
+        if pointwise:  # dx is written by TMA too: x's padded row stride
+            x, w, z, dz, dst, cout = _pw_dx_operands(x, w, z, dz, dst)
+            dx = torch.empty_like(x)
+            fn, ints = lib.dl4j_pw_conv_bwd_dx, (m, cin, cout, x.shape[1])
+        else:
+            dx = torch.empty_like(x)
+            fn, ints = lib.dl4j_conv3x3_bwd_dx, (*dims, cin, cout)
         _launch(fn, op, (*_ptrs(x, scale, shift, w, z, dz, dst, dx, partial, gst),
-                         *dims, cin, cout, int(bool(relu_in))))
+                         *ints, int(bool(relu_in))))
+        if dx.shape[-1] != cin:
+            dx = dx[:, :cin].contiguous()
     return dx, gst[0], gst[1]
 
 

@@ -207,6 +207,75 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(card):
         fc.conv3x3_bwd_dx(x, s, t, w, z, dz, dst, True)
 
 
+# (Cin, Cout, H=W) of ResNet-50's fifteen pointwise convs at batch 32, and
+# ragged cases: M off the 128-row block, Cout off TMA's 16-byte row, batch 1
+PW_DX_CASES = ([(32 * hw * hw, ci, co) for ci, co, hw, _ in chip_smoke.PW_CASES]
+               + [(49, 2048, 512), (507, 36, 70), (200, 96, 160), (1000, 256, 64),
+                  (130, 64, 8)])
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("m,cin,cout", PW_DX_CASES,
+                         ids=[f"{m}x{ci}-{co}" for m, ci, co in PW_DX_CASES])
+def test_pw_dx_kernel_matches_plain(card, m, cin, cout, relu_in):
+    """The Hopper pointwise dx kernel (dx, dscale, dshift) against its plain
+    version at ResNet-50's shapes and ragged ones, a nonzero dstats; a rerun
+    gives the same bits."""
+    args = _bwd_inputs("pw", (m, cin), (cin, cout), seed=m + cin + cout)
+    fc.reset_launch_counts()
+    dx, ds, dt = fc.pw_conv_bwd_dx(*args, relu_in)
+    dx2, ds2, dt2 = fc.pw_conv_bwd_dx(*args, relu_in)
+    dx_p, ds_p, dt_p = fc.pw_conv_bwd_dx_plain(*args, relu_in)
+    torch.cuda.synchronize()
+    assert dict(fc.launch_counts) == {"pw_conv_dx": 2}
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2) and torch.equal(dt, dt2)
+    tol_dx, _ = _bwd_tolerances("pw", *args, relu_in, dx_p, torch.zeros_like(args[3]))
+    err = (dx.float() - dx_p.float()).abs()
+    assert bool((err <= tol_dx).all()), float((err / tol_dx).max())
+    rows = args[0].float().abs().sum(0)
+    for got, want in ((ds, ds_p), (dt, dt_p)):
+        tol = 1e-3 + 1e-4 * want.abs() + 1e-5 * rows * float(dx_p.float().abs().max() + 1)
+        assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+def test_pw_dx_kernel_masks_rows_past_m(card, relu_in):
+    """M = 200 leaves 56 rows of the last 128-row block past M, which TMA
+    fills with dz = z = 0. Without the kernel's row mask they would carry
+    dz_eff = dst[0] into dshift (and dscale): that difference is over the
+    limit, and the kernel is within it."""
+    x, s, t, w, z, dz, dst = _bwd_inputs("pw", (200, 96), (96, 160), seed=41)
+    dst = dst * 50.0
+    t = t.abs() + 0.1     # u = shift > 0 on a zero row: the ReLU keeps its du
+    args = (x, s, t, w, z, dz, dst)
+    _, ds, dt = fc.pw_conv_bwd_dx(*args, relu_in)
+    _, ds_p, dt_p = fc.pw_conv_bwd_dx_plain(*args, relu_in)
+    pad = lambda a: torch.cat([a, a.new_zeros((56, a.shape[1]))])  # noqa: E731
+    _, _, dt_lost = fc.pw_conv_bwd_dx_plain(pad(x), s, t, w, pad(z), pad(dz), dst, relu_in)
+    dx_p = fc.pw_conv_bwd_dx_plain(*args, relu_in)[0]
+    tol = (1e-3 + 1e-4 * dt_p.abs()
+           + 1e-5 * x.float().abs().sum(0) * float(dx_p.float().abs().max() + 1))
+    assert bool(((dt - dt_p).abs() <= tol).all())
+    assert bool(((ds - ds_p).abs() <= 1e-3 + 1e-4 * ds_p.abs()
+                 + 1e-5 * x.float().abs().sum(0) * float(dx_p.float().abs().max() + 1)).all())
+    assert float(((dt_lost - dt_p).abs() / tol).max()) > 10
+
+
+def test_pw_dx_kernel_reads_misaligned_views_through_the_padded_copy(card):
+    """dz, z and w that TMA cannot read as they are (a base off 16 bytes)
+    go through the padded layout copy: the same kernel, the same bits as on
+    aligned copies."""
+    x, s, t, w, z, dz, dst = _bwd_inputs("pw", (300, 64), (64, 128), seed=43)
+    dz_off = torch.empty(300 * 128 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(300, 128)
+    dz_off.copy_(dz)
+    assert dz_off.data_ptr() % 16 and dz_off.is_contiguous()
+    fc.reset_launch_counts()
+    a = fc.pw_conv_bwd_dx(x, s, t, w, z, dz_off, dst, True)
+    b_ = fc.pw_conv_bwd_dx(x, s, t, w, z, dz, dst, True)
+    assert dict(fc.launch_counts) == {"pw_conv_dx": 2}
+    assert all(torch.equal(p, q) for p, q in zip(a, b_))
+
+
 def _narrow_conf():
     gb = (NeuralNetConfiguration.builder().seed(5).weight_init("relu")
           .updater(Nesterovs(1e-3, 0.9)).l2(1e-4)
@@ -640,17 +709,18 @@ def run(hds):
             o, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
             dcap = fa.row_dot(o, do).contiguous()
             dk, dv = fa.flash_attention_dkv(q, k, v, lse, do, dcap, True, 0.125)
-        out[hd] = [t.cpu() for t in (o, lse, dk, dv)]
+            dq = fa.flash_attention_dq(q, k, v, lse, do, dcap, True, 0.125)
+        out[hd] = [t.cpu() for t in (o, lse, dk, dv, dq)]
     return out
 """
 
 
 @pytest.mark.parametrize("order", [(128, 64), (64, 128)], ids=["128-then-64", "64-then-128"])
 def test_flash_kernels_opt_in_per_head_dim_in_any_order(card, tmp_path, order):
-    """The forward and dkv kernels' hd-64 and hd-128 instantiations each ask
-    for their own shared memory above 48 KB, whichever runs first in a fresh
-    process (hd 128 asks for more: it must not leave hd 64 without its own
-    opt-in). The fresh process's results equal this one's bit for bit."""
+    """The forward, dkv and dq kernels' hd-64 and hd-128 instantiations each
+    ask for their own shared memory above 48 KB, whichever runs first in a
+    fresh process (hd 128 asks for more: it must not leave hd 64 without its
+    own opt-in). The fresh process's results equal this one's bit for bit."""
     path = tmp_path / "out.pt"
     script = _OPT_IN_RUN + f"torch.save(run({order!r}), {str(path)!r})\n"
     subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True, timeout=600)
@@ -829,6 +899,85 @@ def test_dkv_kernel_last_key_block_past_t(card, causal):
     ref, tols = chip_smoke.flash_bwd_oracle(fa, q, k, v, o, lse, do, causal, 0.125, None)
     for g, r, tol in ((dk, ref[1], tols[1]), (dv, ref[2], tols[2])):
         assert bool(((g.float() - r).abs() <= tol).all())
+
+
+DQ_CASES = [  # (b, h, T, hd, causal, segmented): the train shapes, T 192 (the
+    # last 128-row block half past T), hd 20 / 64 / 128, full and segmented
+    (4, 12, 2048, 64, True, False),
+    (16, 12, 512, 64, True, False),
+    (2, 3, 192, 64, True, False),
+    (2, 3, 192, 64, False, True),
+    (1, 3, 192, 128, True, False),
+    (1, 3, 320, 128, False, True),
+    (1, 3, 192, 20, True, True),
+    (2, 3, 256, 20, False, False),
+]
+
+
+@pytest.mark.parametrize("b,h,T,hd,causal,segmented", DQ_CASES)
+def test_dq_kernel_matches_plain(card, b, h, T, hd, causal, segmented):
+    """The Hopper dq kernel against the plain backward in f32 on the
+    widened operands (phase 2f's limits, capped at the JAX probe's 0.16);
+    o and lse from the plain forward (it takes T 192); a rerun gives the
+    same bits; a lost causal mask is over the limit."""
+    q, k, v = _qkv(b, h, T, hd, torch.bfloat16, 3 * T + hd)
+    do = _qkv(b, h, T, hd, torch.bfloat16, 3 * T + hd + 1)[0]
+    seg = None
+    if segmented:
+        seg = torch.zeros(b, T, dtype=torch.int32)
+        seg[:, T // 3:] = 1
+        seg[:, T // 3 + 77:] = 2
+        seg = seg.cuda()
+    scale = hd ** -0.5
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_plain(q, k, v, causal, scale, seg)
+        dcap = fa.row_dot(o, do).contiguous()
+        fa.reset_launch_counts()
+        dq = fa.flash_attention_dq(q, k, v, lse, do, dcap, causal, scale, seg)
+        dq2 = fa.flash_attention_dq(q, k, v, lse, do, dcap, causal, scale, seg)
+    torch.cuda.synchronize()
+    assert dict(fa.launch_counts) == {"flash_attention_dq": 2}
+    assert dq.dtype == torch.bfloat16 and dq.shape == (b, h, T, hd)
+    assert torch.equal(dq, dq2)
+    ref, tols = chip_smoke.flash_bwd_oracle(fa, q, k, v, o, lse, do, causal, scale, seg)
+    err = (dq.float() - ref[0]).abs()
+    assert bool(torch.isfinite(dq.float()).all())
+    assert bool((err <= tols[0]).all()), float((err / tols[0]).max())
+    if causal:
+        lost = fa.flash_attention_dq_plain(*(t.float() for t in (q, k, v)), lse, do.float(),
+                                           dcap, False, scale, seg)
+        assert float(((lost - ref[0]).abs() / tols[0]).max()) > 10
+
+
+def test_dq_kernel_reruns_bit_identical_and_batch_independent(card):
+    """dq from the fused qkv split's views, from contiguous copies, with an
+    expanded dO and a misaligned q (both through the padded layout copy):
+    the same bits; a batch row's bits do not depend on the other rows."""
+    q, k, v = _fused_qkv(3, 512, 4, 64, 29)
+    do = _qkv(3, 4, 512, 64, torch.bfloat16, 30)[0]
+    assert fa.tma_ready(q) and not q.is_contiguous()
+    g = torch.Generator().manual_seed(31)
+    wide = torch.randn(3, 4, 512, 66, generator=g).bfloat16().cuda()
+    wide[..., 1:65] = q
+    q_off = wide[..., 1:65]
+    assert not fa.tma_ready(q_off)
+    do_exp = torch.full((1, 1, 1, 1), 0.25, dtype=torch.bfloat16, device="cuda").expand(
+        3, 4, 512, 64)
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
+        dcap = fa.row_dot(o, do).contiguous()
+        dq = fa.flash_attention_dq(q, k, v, lse, do, dcap, True, 0.125)
+        dq2 = fa.flash_attention_dq(q, k, v, lse, do, dcap, True, 0.125)
+        dqc = fa.flash_attention_dq(q.contiguous(), k.contiguous(), v.contiguous(), lse,
+                                    do, dcap, True, 0.125)
+        dqo = fa.flash_attention_dq(q_off, k, v, lse, do, dcap, True, 0.125)
+        dq1 = fa.flash_attention_dq(q[1:], k[1:], v[1:], lse[4:].contiguous(), do[1:],
+                                    dcap[4:].contiguous(), True, 0.125)
+        dce = fa.row_dot(o, do_exp).contiguous()
+        dqe = fa.flash_attention_dq(q, k, v, lse, do_exp, dce, True, 0.125)
+        dqe2 = fa.flash_attention_dq(q, k, v, lse, do_exp.contiguous(), dce, True, 0.125)
+    assert torch.equal(dq, dq2) and torch.equal(dq, dqc) and torch.equal(dq, dqo)
+    assert torch.equal(dq[1:], dq1) and torch.equal(dqe, dqe2)
 
 
 def test_flash_backward_takes_strided_and_expanded_gradients(card):

@@ -225,6 +225,37 @@ def test_dkv_wrapper_hands_the_kernel_tma_operands(monkeypatch, T, hd, causal, e
     assert dk.shape == dv.shape == (b, h, T, hd) and dk.transpose(1, 2).is_contiguous()
 
 
+@pytest.mark.parametrize("T,hd,causal,expanded", [(512, 64, True, False), (192, 64, True, True),
+                                                  (256, 20, False, False),
+                                                  (128, 128, True, False)])
+def test_dq_wrapper_hands_the_kernel_tma_operands(monkeypatch, T, hd, causal, expanded):
+    """The bf16 dq kernel reads q, k, v and dO by TMA: an operand TMA cannot
+    read (a ragged hd, an expanded dO) reaches it as its padded copy, with
+    its own last dim; lse, D and the segment ids 16-byte aligned."""
+    rec = _stub(monkeypatch)
+    b, h = 2, 3
+    q = k = v = _meta((b, h, T, hd))
+    do = (_meta((1, 1, 1, hd)).expand(b, h, T, hd) if expanded
+          else _meta((b, T, h, hd)).transpose(1, 2))
+    lse = dcap = _meta((b * h, T), torch.float32)
+    seg = torch.zeros((b, T), dtype=torch.int32, device="meta")
+    dq = fa.flash_attention_dq(q, k, v, lse, do, dcap, causal, 0.125, seg)
+    args = rec.args[fa.OP_DQ]
+    ints = args[8:8 + 25]
+    hd8 = -(-hd // 8) * 8
+    assert ints[:6] == (b, h, T, hd, int(causal), 1)
+    dense = (h * T * hd8, T * hd8, hd8)
+    want_q = q.stride()[:3] if fa.tma_ready(q) else dense
+    want_do = do.stride()[:3] if fa.tma_ready(do) else dense
+    assert ints[6:9] == want_q and ints[15:18] == want_do
+    assert fa.tma_ready(do) is not (expanded or hd % 8 != 0)
+    assert ints[21:25] == ((hd if hd % 8 == 0 else hd8),) * 3 + (
+        hd if fa.tma_ready(do) else hd8,)
+    assert len(args) == 8 + 25 + 1 and isinstance(args[-1], float)
+    assert all(p % fa._TMA_ALIGN == 0 for p in args[4:7])
+    assert dq.shape == (b, h, T, hd) and dq.transpose(1, 2).is_contiguous()
+
+
 def test_backward_t_rule_is_a_multiple_of_64(monkeypatch):
     """dq and dkv take T 192, which the forward refuses (a multiple of 128,
     the reference's rule); f32 operands pass as they are (no padded copy)."""
@@ -233,6 +264,7 @@ def test_backward_t_rule_is_a_multiple_of_64(monkeypatch):
     lse = _meta((2, 192), torch.float32)
     fa.flash_attention_dq(q, q, q, lse, q, lse, True, 0.25)
     fa.flash_attention_dkv(q, q, q, lse, q, lse, True, 0.25)
+    assert rec.args[fa.OP_DQ][8 + 21:8 + 25] == (20,) * 4
     assert rec.args[fa.OP_DKV][9 + 24:9 + 28] == (20,) * 4
     with pytest.raises(ValueError, match="multiple of 128"):
         fa.flash_attention_fwd(_meta((1, 2, 192, 64)), _meta((1, 2, 192, 64)),

@@ -333,3 +333,98 @@ def test_dw_split_covers_the_pixels():
             # about two blocks per SM even when the output is one tile
             blocks = splits * taps * -(-cin // 64) * -(-cout // 64)
             assert 1.9 * 132 <= blocks < 4 * 132
+
+
+# ------------------------------------------------------- host logic (stubbed)
+class _Recorded:
+    def __init__(self):
+        self.args = {}
+
+    def launch(self, fn, op, args):
+        self.args[op] = args
+        tfc.launch_counts[op] += 1
+
+
+def _stub_bwd(monkeypatch):
+    """The backward wrappers on "meta" tensors, with the library, the
+    CUDA-only checks and the launch stubbed: what the kernel would get."""
+    import contextlib
+
+    rec = _Recorded()
+    monkeypatch.setattr(tfc._BWD, "get", lambda: type("H", (), {
+        "dl4j_pw_conv_bwd_dx": None, "dl4j_conv3x3_bwd_dx": None})())
+    monkeypatch.setattr(tfc._BWD, "tile", {"m": 64, "n": 64, "k": 32, "p": 128})
+    monkeypatch.setattr(tfc, "_launch", rec.launch)
+    monkeypatch.setattr(tfc, "_ptrs", lambda *ts: ts)   # the launch sees the tensors
+    monkeypatch.setattr(tfc, "_check_kernel_args", lambda op, x, specs: None)
+    monkeypatch.setattr(tfc.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    return rec
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("m,cin,cout", [(100352, 64, 64), (6272, 1024, 256), (507, 36, 70),
+                                        (49, 2048, 512), (200, 96, 160)])
+def test_pw_dx_wrapper_sizes_partials_by_its_own_tile_and_pads_for_tma(monkeypatch, m, cin,
+                                                                       cout):
+    """The pointwise dx kernel's partials have one row per 128-pixel block
+    (its own tile, "p"); a Cout that is not a multiple of 8 (TMA's 16-byte
+    row stride) reaches the kernel as zero-padded w, z, dz and dst of Cout8
+    columns, a Cin that is not as a zero-padded x of Cin8 (its row stride
+    handed over); dx keeps x's shape."""
+    rec = _stub_bwd(monkeypatch)
+    x, w = _meta((m, cin)), _meta((cin, cout))
+    s = _meta((cin,), torch.float32)
+    z = dz = _meta((m, cout))
+    dst = _meta((2, cout), torch.float32)
+    dx, ds, dt = tfc.pw_conv_bwd_dx(x, s, s, w, z, dz, dst, True)
+    args = rec.args["pw_conv_dx"]
+    cout8, cin8 = -(-cout // 8) * 8, -(-cin // 8) * 8
+    assert args[10:] == (m, cin, cout8, cin8, 1)
+    assert args[0].shape == args[7].shape == (m, cin8) and (args[0] is x) is (cin8 == cin)
+    wk, zk, dzk, dstk, partial = args[3], args[4], args[5], args[6], args[8]
+    assert wk.shape == (cin, cout8) and zk.shape == dzk.shape == (m, cout8)
+    assert dstk.shape == (2, cout8)
+    assert (wk is w) is (cout8 == cout) and (dzk is dz) is (cout8 == cout)
+    assert partial.shape == (-(-m // 128), 2, cin)
+    assert dx.shape == (m, cin) and ds.shape == dt.shape == (cin,)
+
+
+def test_pw_dx_padding_adds_nothing():
+    """The padded operands of a ragged Cout hold the operands unchanged and
+    zeros past Cout, so they give the plain version's dx, dscale and dshift
+    (up to the f32 summation order of the longer product)."""
+    rng = np.random.default_rng(3)
+    m, cin, cout = 37, 36, 70
+    x = torch.from_numpy(rng.standard_normal((m, cin)).astype(np.float32)).bfloat16()
+    s = torch.from_numpy((rng.standard_normal(cin) * 0.2 + 1).astype(np.float32))
+    t = torch.from_numpy((rng.standard_normal(cin) * 0.1).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((cin, cout)) * 0.1).astype(np.float32)).bfloat16()
+    z = torch.from_numpy(rng.standard_normal((m, cout)).astype(np.float32)).bfloat16()
+    dz = torch.from_numpy(rng.standard_normal((m, cout)).astype(np.float32)).bfloat16()
+    dst = torch.from_numpy((rng.standard_normal((2, cout)) * 0.01).astype(np.float32))
+    xp, wp, zp, dzp, dstp, cout8 = tfc._pw_dx_operands(x, w, z, dz, dst)
+    assert xp.shape == (m, 40) and not xp[:, 36:].any() and torch.equal(xp[:, :36], x)
+    assert cout8 == 72 and wp.shape == (cin, 72) and zp.shape == dzp.shape == (m, 72)
+    assert dstp.shape == (2, 72) and not dstp[:, 70:].any() and not wp[:, 70:].any()
+    assert not zp[:, 70:].any() and not dzp[:, 70:].any()
+    for a, b in ((w, wp), (z, zp), (dz, dzp), (dst, dstp)):
+        assert torch.equal(a, b[:, :70])
+    for a, b in zip(tfc.pw_conv_bwd_dx_plain(x, s, t, w, z, dz, dst, True),
+                    tfc.pw_conv_bwd_dx_plain(x, s, t, wp, zp, dzp, dstp, True)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7, atol=1e-6)
+
+
+def test_conv3x3_dx_keeps_its_64_row_partials(monkeypatch):
+    rec = _stub_bwd(monkeypatch)
+    x = _meta((2, 7, 7, 64))
+    w = _meta((3, 3, 64, 64))
+    s = _meta((64,), torch.float32)
+    z = dz = _meta((2, 7, 7, 64))
+    dst = _meta((2, 64), torch.float32)
+    tfc.conv3x3_bwd_dx(x, s, s, w, z, dz, dst, False)
+    args = rec.args["conv3x3_dx"]
+    assert args[10:] == (2, 7, 7, 64, 64, 0)
+    assert args[3] is w and args[5] is dz and args[8].shape == (-(-98 // 64), 2, 64)
