@@ -8,7 +8,10 @@ Run from the repository root with no arguments::
 It builds the port's CUDA kernels from ``deeplearning4j_tpu_torch/nn/ops/
 csrc`` (phase 1), holds each forward kernel (phase 2) and each backward
 kernel (phase 2b) against its plain PyTorch version at every ResNet-50 shape
-it runs, and the int8 matmul (phase 2c) at VGG16's and LeNet's head shapes;
+it runs (phase 2 also at the forward's trap cases: the 3x3 halo, images
+sharing a block, rows past M, a box past Cin, a misaligned x, reruns bit
+for bit; and by device time beside CUDA events), and the int8 matmul
+(phase 2c) at VGG16's and LeNet's head shapes;
 serves a full-width bf16 ResNet-50 (random weights from a seed) through
 ``InferenceEngine`` (phase 3), and trains it with ``ComputationGraph.fit``
 (phase 4): gradients against the plain path on the card, the kernel
@@ -272,6 +275,88 @@ def case_inputs(gen, op, cin, cout, hw, batch):
             m, 9)
 
 
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds a call spends enqueuing ``fn`` (the wrapper's
+    Python, its C launcher and the launches), at a shape whose kernels end
+    sooner than their enqueue: the clock stops before the device is waited
+    for."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def trap_inputs(gen, op, x_shape, cout, zero_x):
+    """Seeded inputs of a trap case; with ``zero_x`` x is 0 and the shift
+    positive, so every in-image tap and every valid row folds to
+    relu(shift) > 0 while the SAME halo and the rows past M must give 0."""
+    cin = x_shape[-1]
+    w_shape = (cin, cout) if op == "pw_conv" else (3, 3, cin, cout)
+    x, s, t, w = make_inputs(gen, x_shape, w_shape, math.prod(w_shape[:-1]))
+    if zero_x:
+        x, t = torch.zeros_like(x), t.abs() + 0.1
+    return x, s, t, w
+
+
+# (what it shows, op, x shape, Cout, x = 0 with relu(shift) > 0): the places
+# where a forward conv kernel goes wrong without failing a shape case
+TRAP_CASES = [
+    ("halo at 56x56", "conv3x3", (2, 56, 56, 64), 64, True),
+    ("halo, images sharing a block at 7x7", "conv3x3", (3, 7, 7, 512), 512, True),
+    ("rows past M = 49", "pw_conv", (49, 1024), 512, True),
+    ("rows past M = 49, 3x3", "conv3x3", (1, 7, 7, 512), 512, True),
+    ("a box past Cin", "conv3x3", (2, 9, 5, 36), 70, False),
+    ("a box past Cin, pointwise", "pw_conv", (90, 36), 70, False),
+]
+
+
+def traps_phase(fc, gen):
+    """Phase 2's trap cases against the plain version (check_case's
+    tolerance), a misaligned x against an aligned copy and reruns, bit for
+    bit."""
+    out = []
+    for what, op, x_shape, cout, zero_x in TRAP_CASES:
+        x, s, t, w = trap_inputs(gen, op, x_shape, cout, zero_x)
+        c = [check_case(fc, op, x, s, t, w, r) for r in (False, True)]
+        ok = all(r["ok"] for r in c)
+        out.append({"trap": what, "op": op, "x": list(x_shape), "cout": cout,
+                    "y_err_over_tol": max(r["y_err_over_tol"] for r in c),
+                    "stats_err_over_tol": max(r["stats_err_over_tol"] for r in c), "ok": ok})
+        print(f"phase 2 trap {what}: {op} x {tuple(x_shape)} -> {cout}: y err/tol "
+              f"{out[-1]['y_err_over_tol']:.3g} stats err/tol "
+              f"{out[-1]['stats_err_over_tol']:.3g} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"trap case {what} disagrees with the plain version: {out[-1]}")
+    for op, x_shape, cout in (("pw_conv", (6272, 256), 1024),
+                              ("conv3x3", (2, 14, 14, 256), 256)):
+        x, s, t, w = trap_inputs(gen, op, x_shape, cout, False)
+        kern = fc.pw_conv if op == "pw_conv" else fc.conv3x3
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        x_off = buf[1:].view(x.shape)          # contiguous, base 2 bytes off 16
+        x_off.copy_(x)
+        first = kern(x, s, t, w, True)
+        again = kern(x, s, t, w, True)
+        off = kern(x_off, s, t, w, True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        aligned = all(torch.equal(a, b) for a, b in zip(first, off))
+        ok = same and aligned and x_off.data_ptr() % 16 != 0
+        out.append({"trap": "rerun and misaligned view", "op": op, "x": list(x_shape),
+                    "cout": cout, "rerun_bit_identical": same,
+                    "misaligned_bit_identical": aligned, "ok": ok})
+        print(f"phase 2 trap rerun and misaligned view: {op} x {tuple(x_shape)} -> {cout}: "
+              f"rerun bit-identical {same}, misaligned x bit-identical {aligned} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{op}: a rerun or a misaligned x changed the bits: {out[-1]}")
+    return out
+
+
 def kernels_phase(fc):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows, summary = [], {}
@@ -292,19 +377,24 @@ def kernels_phase(fc):
         if count:
             kern = fc.pw_conv if op == "pw_conv" else fc.conv3x3
             plain = fc.pw_conv_plain if op == "pw_conv" else fc.conv3x3_plain
-            row["kernel_ms"] = time_ms(lambda: kern(x, s, t, w, True))
-            row["plain_ms"] = time_ms(lambda: plain(x, s, t, w, True))
             if op == "pw_conv":
-                row["library_ms"] = time_ms(lambda: torch.matmul(x, w))
+                lib = functools.partial(torch.matmul, x, w)
             else:
                 xc = x.permute(0, 3, 1, 2)
                 wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-                row["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, padding=1))
+                lib = functools.partial(F.conv2d, xc, wc, padding=1)
+            row["kernel_ms"] = time_ms(lambda: kern(x, s, t, w, True))
+            row["kernel_device_ms"] = graph_ms(lambda: kern(x, s, t, w, True))
+            row["plain_ms"] = time_ms(lambda: plain(x, s, t, w, True))
+            row["library_ms"] = time_ms(lib)
+            row["library_device_ms"] = graph_ms(lib)
             row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
         rows.append(row)
-        timing = (f" kernel_ms {row['kernel_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+        timing = (f" kernel_ms {row['kernel_ms']:.4f} (device only, CUDA graph: "
+                  f"{row['kernel_device_ms']:.4f}) plain_ms {row['plain_ms']:.4f} "
                   f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}) "
-                  f"library_ms {row['library_ms']:.4f}") if count else ""
+                  f"library_ms {row['library_ms']:.4f} (device only: "
+                  f"{row['library_device_ms']:.4f})") if count else ""
         print(f"phase 2 kernel {op} {cin}->{cout} @{hw}x{hw} batch {batch}: "
               f"y max_abs_err {row['y_max_abs_err']:.3g} "
               f"(err/tol {row['y_err_over_tol']:.3g}; tol = 2^-7|p| + 2K*2^-24*sum|u*w|) "
@@ -313,9 +403,23 @@ def kernels_phase(fc):
               f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
         if not row["ok"]:
             raise AssertionError(f"{op} disagrees with its plain version: {row}")
-    for op in ("pw_conv", "conv3x3"):
-        summary[op] = summarize([{**r, "max_abs_err": r["y_max_abs_err"]}
-                                 for r in rows if r["op"] == op])
+    for op, launches, lib in (("pw_conv", 36, "torch.matmul"), ("conv3x3", 16, "F.conv2d")):
+        mine = [r for r in rows if r["op"] == op]
+        s = summary[op] = summarize([{**r, "max_abs_err": r["y_max_abs_err"]} for r in mine])
+        for key in ("kernel_device_ms", "library_device_ms"):
+            s[key] = sum(r["launches_per_forward"] * r[key] for r in mine
+                         if r["launches_per_forward"])
+        # the wrapper's host cost at the batch-1 7x7 shape (M = 49)
+        (x, sc, sh, w), _, _ = case_inputs(gen, op, 512, 512, 7, 1)
+        kern = fc.pw_conv if op == "pw_conv" else fc.conv3x3
+        s["host_us_per_call"] = host_us(lambda: kern(x, sc, sh, w, True))
+        print(f"phase 2 {op} over a forward's {launches} launches: kernel_ms "
+              f"{s['kernel_ms']:.4f} (device only, CUDA graph: {s['kernel_device_ms']:.4f}) "
+              f"plain_ms {s['plain_ms']:.4f} bound_ms {s['bound_ms']:.4f} ({s['bound_by']}) "
+              f"library_ms {s['library_ms']:.4f} (device only: {s['library_device_ms']:.4f}; "
+              f"{lib}); host {s['host_us_per_call']:.1f} us a call at 512->512 @7x7 batch 1",
+              flush=True)
+    rows += traps_phase(fc, gen)
     return rows, summary
 
 
@@ -2873,6 +2977,9 @@ def main() -> int:
             entry_k["launches_per_train_step"] = train["launches_per_step"].get(name, 0)
             if name == "pw_conv_dx":
                 entry_k["device_ms"] = s["kernel_device_ms"]
+            elif name in ("pw_conv", "conv3x3"):
+                entry_k["device_ms"] = s["kernel_device_ms"]
+                entry_k["library_device_ms"] = s["library_device_ms"]
         kernels.append(entry_k)
     import torch.distributed as dist
 

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels and the
-// pointwise-conv dx kernel: mbarriers, TMA tile loads, wgmma descriptors and
-// instructions, and the host-side encoding of a head-split operand or a
-// row-major matrix as a TMA tensor map.
+// Hopper (sm_90a) building blocks of the flash-attention kernels, the fused
+// conv forward and the pointwise-conv dx kernel: mbarriers, TMA tile loads,
+// wgmma descriptors and instructions, and the host-side encoding of a
+// head-split operand, a row-major matrix or a stack of them as a TMA tensor
+// map.
 //
 // Shared-memory tiles are 128-byte swizzled rows of 64 bf16 (the layout TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with layout type 1):
@@ -96,6 +97,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// one box of a stacked-matrix map (64 columns from `col`, the box's rows
+// from `row`, of matrix `mat`) into dst, completing on bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row, int mat) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(mat)
       : "memory");
 }
 
@@ -202,6 +214,13 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// max(u, 0) that keeps a NaN, as torch.maximum does, in one instruction
+__device__ __forceinline__ float relu_nan(float u) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(u));
+  return r;
 }
 
 // exp(x) as the hardware's exp2 of x log2(e), denormals flushed (one MUFU
@@ -446,6 +465,29 @@ inline int encode_rows(CUtensorMap* out, const void* base, int cols, int rows,
   cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   cuuint32_t estride[2] = {1, 1};
   const CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_ERROR + static_cast<int>(r);
+}
+
+// `mats` row-major bf16 matrices stored one after the other (rows x cols
+// each, row stride `stride` elements, matrix stride rows * stride) as a 3-D
+// tensor map: boxes of 64 columns by `box_rows` rows of one matrix,
+// 128-byte swizzled, zero-filled past cols and rows, so a box never reads
+// into the next matrix. The caller has checked a 16-byte aligned base and a
+// stride that is a multiple of 8. Returns 0 or MAP_ERROR + the CUresult.
+inline int encode_stack(CUtensorMap* out, const void* base, int cols, int rows, int mats,
+                        long long stride, int box_rows) {
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return MAP_ERROR + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  cuuint64_t gdim[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                        static_cast<cuuint64_t>(mats)};
+  cuuint64_t gstride[2] = {static_cast<cuuint64_t>(stride) * 2,
+                           static_cast<cuuint64_t>(stride) * rows * 2};
+  cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  cuuint32_t estride[3] = {1, 1, 1};
+  const CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                             gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

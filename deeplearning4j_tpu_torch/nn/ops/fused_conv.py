@@ -24,11 +24,11 @@ conv through its statistics.
 
 Dispatch: a CPU tensor goes to the plain versions (``*_plain``). A CUDA
 tensor goes to the kernels (bf16 in and out, f32 accumulation), or the
-wrapper raises: there is no fallback. The pointwise dx kernel is a Hopper
-design (TMA tile loads, wgmma): a Cout or base its TMA loads cannot read
-reaches it through :func:`tma_rows`, a zero-padded layout copy for the same
-kernel. Each launch adds one to ``launch_counts[name]`` (``launch.py``,
-shared with the int8 matmul):
+wrapper raises: there is no fallback. The forward kernel (both ops) and the
+pointwise dx kernel are Hopper designs (TMA tile loads, wgmma): a Cin, Cout
+or base their TMA loads cannot read reaches them through :func:`tma_rows`,
+a zero-padded layout copy for the same kernel. Each launch adds one to
+``launch_counts[name]`` (``launch.py``, shared with the int8 matmul):
 
 =============  =========================  ====================================
 name           kernel (csrc/)             replaces (JAX ``fused_conv.py``)
@@ -189,8 +189,10 @@ def conv3x3_bwd_plain(x, scale, shift, w, z, dz, dst, relu_in: bool = False):
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
+#: tiles of the forward: "m" rows of a block (its partials have one row per
+#: row block), "n" the widest column tile, "k" input channels per step
 _FWD = KernelLibrary("fused_conv",
-                     {"dl4j_pw_conv_fwd": (7, 4), "dl4j_conv3x3_fwd": (7, 6)},
+                     {"dl4j_pw_conv_fwd": (8, 6), "dl4j_conv3x3_fwd": (8, 8)},
                      "dl4j_fused_conv_tile")
 #: tiles of the backward: "m" rows of a 3x3 dx block, "n" columns, "k" the
 #: dW depth step, "p" rows of a pointwise dx block (each dx kernel's
@@ -221,8 +223,55 @@ def _geometry(op: str, x, w):
     return pointwise, m, cin, cout, dims
 
 
+def fwd_tiles(m: int, cin: int, cout: int, taps: int, sms: int,
+              rows: int = 128, depth: int = 64) -> Tuple[int, int]:
+    """``(n, splits)`` of the forward kernel: its column tile ``n`` is Cout
+    rounded up to 64, 128 or 256 (the grid covers a wider Cout in such
+    tiles); when the ``rows``-row x ``n`` tiles would leave two thirds of
+    the SMs idle over a depth of at least 32 steps (taps x Cin in steps of
+    ``depth`` channels: the 3x3 convs of the 7x7 stage, the deepest
+    pointwise ones, small batches), ``splits`` blocks share each tile's
+    depth, at least eight steps each, and a second kernel adds their f32
+    sums in split order. A shallower depth does not repay the workspace."""
+    n = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    tiles = -(-m // rows) * -(-cout // n)
+    steps = taps * -(-cin // depth)
+    if 3 * tiles > sms or steps < 32:
+        return n, 1
+    return n, min(sms // tiles, steps // 8)
+
+
+def _tma_vector(v: torch.Tensor, n: int) -> torch.Tensor:
+    """A contiguous f32 (..., c) vector (or stack of them) as the Hopper
+    kernels' bulk copies read it: ``v`` itself when c is ``n`` and its base
+    16-byte aligned, else a copy zero-padded to (..., n)."""
+    if v.shape[-1] == n and v.data_ptr() % _TMA_ALIGN == 0:
+        return v
+    return F.pad(v, (0, n - v.shape[-1]))
+
+
+def _fwd_operands(x, scale, shift, w):
+    """(x, scale, shift, w, Cout8) as the forward kernel reads them: x as an
+    (M, Cin8) matrix and w as a (taps * Cin, Cout8) one (Cin and Cout rounded
+    up to a multiple of 8, TMA's 16-byte row stride; the kernel's maps stop
+    at Cin and Cout, so the padded columns are never read), scale and shift
+    with Cin8 entries (the kernel masks the channels past Cin), each 16-byte
+    aligned: the operands themselves where they are so (contiguous, as the
+    wrapper checked), else a padded layout copy."""
+    cin, cout = w.shape[-2], w.shape[-1]
+    cin8, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
+    if cin8 != cin or x.data_ptr() % _TMA_ALIGN:
+        x = tma_rows(x.reshape(-1, cin), cin8)
+    if cout8 != cout or w.data_ptr() % _TMA_ALIGN:
+        w = tma_rows(w.reshape(-1, cout), cout8)
+    return x, _tma_vector(scale, cin8), _tma_vector(shift, cin8), w, cout8
+
+
 def _fused_fwd(op: str, x, scale, shift, w, relu_in: bool):
-    """The forward kernel of ``op`` ("pw_conv" or "conv3x3")."""
+    """The forward kernel of ``op`` ("pw_conv" or "conv3x3"). y is written
+    with row stride Cout8: a ragged Cout drops y's padding after the
+    launch. A depth split (:func:`fwd_tiles`) takes an f32 workspace of
+    (splits, M, Cout8)."""
     pointwise, m, cin, cout, dims = _geometry(op, x, w)
     _check_kernel_args(op, x, (
         ("x", x, torch.bfloat16, x.shape), ("w", w, torch.bfloat16, w.shape),
@@ -234,13 +283,21 @@ def _fused_fwd(op: str, x, scale, shift, w, relu_in: bool):
                 torch.zeros((2, cout), dtype=torch.float32, device=x.device))
     lib = _FWD.get()
     with torch.cuda.device(x.device):
-        y = torch.empty(y_shape, dtype=torch.bfloat16, device=x.device)
+        xk, sk, tk, wk, cout8 = _fwd_operands(x, scale, shift, w)
+        n, splits = fwd_tiles(m, cin, cout, 1 if pointwise else 9,
+                              _sm_count(x.device.index or 0), _FWD.tile["m"],
+                              _FWD.tile["k"])
+        y = torch.empty((*y_shape[:-1], cout8), dtype=torch.bfloat16, device=x.device)
         partial = torch.empty((-(-m // _FWD.tile["m"]), 2, cout),
                               dtype=torch.float32, device=x.device)
         stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+        ws = (torch.empty((splits, m, cout8), dtype=torch.float32, device=x.device)
+              if splits > 1 else stats)
         fn = lib.dl4j_pw_conv_fwd if pointwise else lib.dl4j_conv3x3_fwd
-        _launch(fn, op, (*_ptrs(x, scale, shift, w, y, partial, stats),
-                         *dims, cin, cout, int(bool(relu_in))))
+        _launch(fn, op, (*_ptrs(xk, sk, tk, wk, y, partial, stats, ws),
+                         *dims, cin, cout, int(bool(relu_in)), n, splits))
+        if cout8 != cout:
+            y = y[..., :cout].contiguous()
     return y, stats
 
 
@@ -257,10 +314,10 @@ def _check_bwd_args(op, x, scale, shift, w, z, dz, dst):
 
 
 def tma_rows(t: torch.Tensor, cols: int) -> torch.Tensor:
-    """A contiguous (rows, c) bf16 matrix as the pointwise dx kernel's TMA
-    loads read it: ``t`` itself when its base is 16-byte aligned and ``c ==
+    """A contiguous (rows, c) bf16 matrix as the Hopper kernels' TMA loads
+    read it: ``t`` itself when its base is 16-byte aligned and ``c ==
     cols``, else a copy into a zero-filled (rows, cols) buffer (the layout
-    copy for a ragged Cout or a misaligned view; the same kernel)."""
+    copy for a ragged Cin or Cout or a misaligned view; the same kernel)."""
     if t.shape[1] == cols and t.data_ptr() % _TMA_ALIGN == 0:
         return t
     out = t.new_zeros((t.shape[0], cols))
@@ -278,9 +335,7 @@ def _pw_dx_operands(x, w, z, dz, dst):
     cout8 = -(-cout // 8) * 8
     x = tma_rows(x, -(-cin // 8) * 8)
     w, z, dz = (tma_rows(t, cout8) for t in (w, z, dz))
-    if cout8 != cout or dst.data_ptr() % _TMA_ALIGN:
-        dst = torch.nn.functional.pad(dst, (0, cout8 - cout))
-    return x, w, z, dz, dst, cout8
+    return x, w, z, dz, _tma_vector(dst, cout8), cout8
 
 
 def _fused_bwd_dx(op: str, x, scale, shift, w, z, dz, dst, relu_in: bool):

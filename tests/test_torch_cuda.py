@@ -129,6 +129,182 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
             (3, 3, 32, 8), dtype=torch.bfloat16, device=x.device), True)
 
 
+def _assert_fwd_matches_plain(op, x, s, t, w, relu_in):
+    """The kernel's y and stats against the plain version (the tolerances
+    of test_kernel_matches_plain); returns the kernel's (y, stats)."""
+    kern, plain = ((fc.pw_conv, fc.pw_conv_plain) if op == "pw"
+                   else (fc.conv3x3, fc.conv3x3_plain))
+    y, st = kern(x, s, t, w, relu_in)
+    y_ref, st_ref = plain(x, s, t, w, relu_in)
+    torch.cuda.synchronize()
+    err = (y.float() - y_ref.float()).abs()
+    tol = _y_tolerance(op, x, s, t, w, relu_in, y_ref.float())
+    assert bool((err <= tol).all()), float((err / tol).max())
+    torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-3)
+    return y, st
+
+
+@pytest.mark.parametrize("shape", [(2, 56, 56, 64), (3, 7, 7, 512), (1, 13, 10, 64)],
+                         ids=["56x56", "7x7-batch3", "130-rows"])
+def test_fwd_kernel_halo_is_zero_after_the_fold(card, shape):
+    """x = 0, relu(shift) = 0.5 and w = 1: each output is 0.5 * Cin times
+    the number of its taps inside its image, exactly (the closed form of
+    test_torch_fused_conv.py::test_halo_is_zero_after_the_fold). TMA's zero
+    fill folds to relu(shift), not 0; at 7x7 a block of 128 rows holds the
+    end of one image and the start of the next, and at 13x10 the last block's
+    shifted boxes lie wholly past M: only the position decides the halo.
+    Reruns give the same bits."""
+    n, h, wd, cin = shape
+    x = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    s = torch.rand(cin, device="cuda") + 0.5
+    t = torch.full((cin,), 0.5, device="cuda")
+    w = torch.ones((3, 3, cin, cin), dtype=torch.bfloat16, device="cuda")
+    y, st = _assert_fwd_matches_plain("c3", x, s, t, w, True)
+    inside = lambda size: torch.tensor([2.0] + [3.0] * (size - 2) + [2.0])  # noqa: E731
+    want = (inside(h)[:, None] * inside(wd)[None, :] * 0.5 * cin).cuda()
+    assert torch.equal(y.float(), want[None, :, :, None].expand(n, h, wd, cin))
+    y2, st2 = fc.conv3x3(x, s, t, w, True)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@pytest.mark.parametrize("op,x_shape,cout", [("pw", (49, 1024), 512), ("c3", (1, 7, 7, 512), 512),
+                                             ("pw", (200, 96), 160)],
+                         ids=["pw-49", "c3-49", "pw-200"])
+def test_fwd_kernel_masks_rows_past_m(card, op, x_shape, cout):
+    """x = 0 and relu(shift) > 0 fold to a nonzero row everywhere: the rows
+    of the last 128-row block past M (TMA zero-filled) would fold to it too.
+    The kernel's y and stats are within the limit, and statistics that took
+    those rows in (at the positions of the next image's pixels, for the 3x3)
+    land more than 10x over it."""
+    cin = x_shape[-1]
+    w_shape = (cin, cout) if op == "pw" else (3, 3, cin, cout)
+    x, s, t, w = _inputs(x_shape, w_shape, seed=cin + cout)
+    x, t = torch.zeros_like(x), t.abs() + 0.1
+    _, st = _assert_fwd_matches_plain(op, x, s, t, w, True)
+    m = x.numel() // cin
+    rows = -(-m // 128) * 128
+    if op == "pw":
+        _, st_lost = fc.pw_conv_plain(x.new_zeros((rows, cin)), s, t, w, True)
+    else:
+        images = x.new_zeros((-(-rows // m), *x_shape[1:]))
+        y_lost = fc.conv3x3_plain(images, s, t, w, True)[0].float().reshape(-1, cout)[:rows]
+        st_lost = torch.stack([y_lost.sum(0), (y_lost * y_lost).sum(0)])
+    tol = 1e-3 + 1e-4 * st.abs()
+    assert float(((st_lost - st).abs() / tol).max()) > 10
+
+
+@pytest.mark.parametrize("op,x_shape,cout", [("c3", (2, 9, 5, 40), 70), ("pw", (300, 40), 70),
+                                             ("c3", (2, 9, 5, 36), 70)],
+                         ids=["c3-40", "pw-40", "c3-36"])
+def test_fwd_kernel_channels_past_cin_give_zero(card, op, x_shape, cout):
+    """A 64-channel stage past Cin: the shared scale and shift entries past
+    Cin are stale. A launch of the same instantiation (the same M and Cout)
+    with NaN in those entries leaves them NaN in shared memory; the next
+    launch must still give 0 in A for those channels (a NaN times W's
+    zero-filled rows would be NaN)."""
+    cin = x_shape[-1]
+    w_shape = (cin, cout) if op == "pw" else (3, 3, cin, cout)
+    x, s, t, w = _inputs(x_shape, w_shape, seed=7 * cin + cout)
+    kern = fc.pw_conv if op == "pw" else fc.conv3x3
+    poison_shape = (*x_shape[:-1], 64)
+    px = torch.ones(poison_shape, dtype=torch.bfloat16, device="cuda")
+    ps = torch.full((64,), float("nan"), device="cuda")
+    pw = torch.ones((*w_shape[:-2], 64, cout), dtype=torch.bfloat16, device="cuda")
+    for _ in range(3):
+        kern(px, ps, ps, pw, True)
+        y, st = _assert_fwd_matches_plain(op, x, s, t, w, True)
+        assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(st).all())
+
+
+@pytest.mark.parametrize("op,x_shape,cout", [("pw", (300, 64), 128), ("c3", (2, 14, 14, 256), 256)],
+                         ids=["pw", "c3"])
+def test_fwd_kernel_reads_misaligned_views_through_the_padded_copy(card, op, x_shape, cout):
+    """x, scale, shift and w at bases off 16 bytes go through the padded
+    layout copy: the same kernel, the same bits as on aligned tensors."""
+    cin = x_shape[-1]
+    w_shape = (cin, cout) if op == "pw" else (3, 3, cin, cout)
+    args = _inputs(x_shape, w_shape, seed=cin * 3 + cout)
+
+    def off(a):
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+        v = buf[1:].view(a.shape)
+        v.copy_(a)
+        assert v.data_ptr() % 16 and v.is_contiguous()
+        return v
+
+    kern = fc.pw_conv if op == "pw" else fc.conv3x3
+    name = "pw_conv" if op == "pw" else "conv3x3"
+    fc.reset_launch_counts()
+    a = kern(*args, True)
+    b_ = kern(*(off(v) for v in args), True)
+    torch.cuda.synchronize()
+    assert dict(fc.launch_counts) == {name: 2}
+    assert all(torch.equal(p, q) for p, q in zip(a, b_))
+
+
+@pytest.mark.parametrize("op,x_shape,cout", [("pw", (37, 1), 1), ("c3", (2, 3, 5, 1), 1),
+                                             ("pw", (130, 3), 1000), ("c3", (1, 4, 70, 20), 9)],
+                         ids=["pw-1-1", "c3-1-1", "pw-3-1000", "c3-wide-70"])
+def test_fwd_kernel_takes_any_channel_count(card, op, x_shape, cout):
+    """One input or output channel, a Cout over four 256-column tiles, and a
+    3x3 image 70 pixels wide (its taps' boxes start 71 rows before the
+    tile): the shapes the WMMA kernel took, against the plain version."""
+    cin = x_shape[-1]
+    w_shape = (cin, cout) if op == "pw" else (3, 3, cin, cout)
+    x, s, t, w = _inputs(x_shape, w_shape, seed=11 * cin + cout)
+    name = "pw_conv" if op == "pw" else "conv3x3"
+    fc.reset_launch_counts()
+    for relu_in in (False, True):
+        y, _ = _assert_fwd_matches_plain(op, x, s, t, w, relu_in)
+        assert y.shape == (*x_shape[:-1], cout) and y.is_contiguous()
+    assert dict(fc.launch_counts) == {name: 2}
+
+
+_FWD_OPT_IN_RUN = """
+import torch
+from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
+
+# (op, x shape, Cout): the column tile N is 64, 128 or 256 by Cout (at least
+# one block per SM at these row counts)
+SHAPES = {64: ("pw", (20000, 64), 64), 128: ("c3", (8, 56, 56, 64), 128),
+          256: ("pw", (20000, 128), 256), "c3-64": ("c3", (4, 56, 56, 64), 64)}
+
+def run(order):
+    out = {}
+    for key in order:
+        op, xs, cout = SHAPES[key]
+        cin = xs[-1]
+        g = torch.Generator().manual_seed(cin + cout)
+        x = torch.randn(xs, generator=g).bfloat16().cuda()
+        s = (torch.randn(cin, generator=g) * 0.2 + 1).cuda()
+        t = (torch.randn(cin, generator=g) * 0.1).cuda()
+        ws = (cin, cout) if op == "pw" else (3, 3, cin, cout)
+        w = (torch.randn(ws, generator=g) * 0.05).bfloat16().cuda()
+        kern = fc.pw_conv if op == "pw" else fc.conv3x3
+        out[key] = [a.cpu() for a in kern(x, s, t, w, True)]
+    return out
+"""
+
+
+@pytest.mark.parametrize("order", [("c3-64", 128, 256, 64), (256, 128, 64, "c3-64")],
+                         ids=["3x3-and-64-first", "pointwise-and-256-first"])
+def test_fwd_kernel_opts_in_per_instantiation_in_any_order(card, tmp_path, order):
+    """The forward kernel's N-64, N-128 and N-256 instantiations share a
+    function type; each asks for its own shared memory above 48 KB, whichever
+    runs first in a fresh process (3x3 or pointwise, the widest or the
+    narrowest first). The fresh process's results equal this one's bit for
+    bit."""
+    path = tmp_path / "out.pt"
+    script = _FWD_OPT_IN_RUN + f"torch.save(run({order!r}), {str(path)!r})\n"
+    subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True, timeout=600)
+    got = torch.load(path)
+    ns = {}
+    exec(_FWD_OPT_IN_RUN, ns)
+    want = ns["run"](order)
+    for key in order:
+        assert all(torch.equal(a, b) for a, b in zip(got[key], want[key])), key
+
+
 def _bwd_inputs(op, x_shape, w_shape, seed):
     """Forward inputs, the forward's y as z, and seeded cotangents."""
     x, s, t, w = _inputs(x_shape, w_shape, seed)

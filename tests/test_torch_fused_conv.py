@@ -345,20 +345,30 @@ class _Recorded:
         tfc.launch_counts[op] += 1
 
 
-def _stub_bwd(monkeypatch):
-    """The backward wrappers on "meta" tensors, with the library, the
-    CUDA-only checks and the launch stubbed: what the kernel would get."""
+def _stub(monkeypatch, lib, names, tile):
+    """The wrappers of ``lib`` on "meta" (or CPU) tensors, with the library,
+    the CUDA-only checks and the launch stubbed: what the kernel would get."""
     import contextlib
 
     rec = _Recorded()
-    monkeypatch.setattr(tfc._BWD, "get", lambda: type("H", (), {
-        "dl4j_pw_conv_bwd_dx": None, "dl4j_conv3x3_bwd_dx": None})())
-    monkeypatch.setattr(tfc._BWD, "tile", {"m": 64, "n": 64, "k": 32, "p": 128})
+    monkeypatch.setattr(lib, "get", lambda: type("H", (), dict.fromkeys(names))())
+    monkeypatch.setattr(lib, "tile", tile)
     monkeypatch.setattr(tfc, "_launch", rec.launch)
     monkeypatch.setattr(tfc, "_ptrs", lambda *ts: ts)   # the launch sees the tensors
     monkeypatch.setattr(tfc, "_check_kernel_args", lambda op, x, specs: None)
     monkeypatch.setattr(tfc.torch.cuda, "device", lambda d: contextlib.nullcontext())
     return rec
+
+
+def _stub_bwd(monkeypatch):
+    return _stub(monkeypatch, tfc._BWD, ("dl4j_pw_conv_bwd_dx", "dl4j_conv3x3_bwd_dx"),
+                 {"m": 64, "n": 64, "k": 32, "p": 128})
+
+
+def _stub_fwd(monkeypatch, rows=128):
+    monkeypatch.setattr(tfc, "_sm_count", lambda index: 132)
+    return _stub(monkeypatch, tfc._FWD, ("dl4j_pw_conv_fwd", "dl4j_conv3x3_fwd"),
+                 {"m": rows, "n": 256, "k": 64})
 
 
 def _meta(shape, dtype=torch.bfloat16):
@@ -428,3 +438,138 @@ def test_conv3x3_dx_keeps_its_64_row_partials(monkeypatch):
     args = rec.args["conv3x3_dx"]
     assert args[10:] == (2, 7, 7, 64, 64, 0)
     assert args[3] is w and args[5] is dz and args[8].shape == (-(-98 // 64), 2, 64)
+
+
+FWD_STUB_CASES = [("pw_conv", (100352, 64), 64), ("pw_conv", (6272, 1024), 256),
+                  ("pw_conv", (507, 36), 70), ("pw_conv", (49, 2048), 512),
+                  ("pw_conv", (200, 96), 160), ("conv3x3", (2, 9, 5, 36), 70),
+                  ("conv3x3", (32, 7, 7, 512), 512), ("conv3x3", (1, 7, 7, 40), 64)]
+
+
+@pytest.mark.parametrize("op,x_shape,cout", FWD_STUB_CASES,
+                         ids=[f"{o}-{'x'.join(map(str, x))}-{c}" for o, x, c in FWD_STUB_CASES])
+def test_fwd_wrapper_sizes_partials_by_its_own_tile_and_pads_for_tma(monkeypatch, op, x_shape,
+                                                                     cout):
+    """The forward kernel's partials have one row per 128-pixel block (its
+    own tile, "m"); a Cin that is not a multiple of 8 (TMA's 16-byte row
+    stride) reaches the kernel as a zero-padded (M, Cin8) x and Cin8-entry
+    scale and shift, a Cout that is not as a zero-padded (taps*Cin, Cout8) w
+    and an (M, Cout8) y whose padding is dropped; aligned operands go as
+    they are (views, no copy). The column tile and the depth split are
+    fwd_tiles', and a split comes with its (splits, M, Cout8) f32
+    workspace."""
+    rec = _stub_fwd(monkeypatch)
+    cin = x_shape[-1]
+    w_shape = (cin, cout) if op == "pw_conv" else (3, 3, cin, cout)
+    x, w = _meta(x_shape), _meta(w_shape)
+    s, t = _meta((cin,), torch.float32), _meta((cin,), torch.float32)
+    fwd = tfc.pw_conv_fwd if op == "pw_conv" else tfc.conv3x3_fwd
+    y, st = fwd(x, s, t, w, True)
+    args = rec.args[op]
+    m, taps = x.numel() // cin, (1 if op == "pw_conv" else 9)
+    cin8, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
+    dims = (m,) if op == "pw_conv" else x_shape[:3]
+    n, splits = tfc.fwd_tiles(m, cin, cout, taps, 132)
+    assert args[8:] == (*dims, cin, cout, 1, n, splits)
+    xk, sk, tk, wk, yk, partial, stats, ws = args[:8]
+    assert (ws.shape == (splits, m, cout8)) if splits > 1 else ws is stats
+    assert xk.numel() == m * cin8 and xk.shape[-1] == cin8 and (xk is x) is (cin8 == cin)
+    assert sk.shape == tk.shape == (cin8,)
+    assert (sk is s) is (cin8 == cin) and (tk is t) is (cin8 == cin)
+    assert wk.numel() == taps * cin * cout8 and wk.shape[-1] == cout8
+    assert (wk is w) is (cout8 == cout)
+    assert yk.shape == (*x_shape[:-1], cout8) and stats.shape == (2, cout)
+    assert partial.shape == (-(-m // 128), 2, cout)
+    assert y.shape == (*x_shape[:-1], cout) and st is stats
+
+
+def test_fwd_wrapper_sizes_partials_by_the_tile_query(monkeypatch):
+    """The partials follow the kernel's own row tile, not a constant."""
+    rec = _stub_fwd(monkeypatch, rows=96)
+    x, w, s = _meta((1000, 64)), _meta((64, 64)), _meta((64,), torch.float32)
+    tfc.pw_conv_fwd(x, s, s, w, False)
+    assert rec.args["pw_conv"][5].shape == (-(-1000 // 96), 2, 64)
+
+
+@pytest.mark.parametrize("op", ["pw_conv", "conv3x3"])
+def test_fwd_wrapper_copies_misaligned_bases(monkeypatch, op):
+    """x, scale, shift and w at bases off 16 bytes (CPU tensors handed to
+    the kernel path directly, the launch stubbed) reach the kernel as
+    aligned copies that hold the same values."""
+    rec = _stub_fwd(monkeypatch)
+    x_shape, cin, cout = ((40, 64), 64, 32) if op == "pw_conv" else ((1, 5, 8, 64), 64, 32)
+    w_shape = (cin, cout) if op == "pw_conv" else (3, 3, cin, cout)
+    rng = np.random.default_rng(5)
+
+    def off(shape, dtype):
+        n = int(np.prod(shape))
+        v = torch.empty(n + 1, dtype=dtype)[1:].view(shape)
+        v.copy_(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)))
+        assert v.data_ptr() % 16
+        return v
+
+    x, w = off(x_shape, torch.bfloat16), off(w_shape, torch.bfloat16)
+    s, t = off((cin,), torch.float32), off((cin,), torch.float32)
+    tfc._fused_fwd(op, x, s, t, w, True)
+    xk, sk, tk, wk = rec.args[op][:4]
+    assert all(a.data_ptr() % 16 == 0 for a in (xk, sk, tk, wk))
+    assert torch.equal(xk.reshape(x.shape), x) and torch.equal(wk.reshape(w.shape), w)
+    assert torch.equal(sk, s) and torch.equal(tk, t)
+
+
+@pytest.mark.parametrize("op", ["pw_conv", "conv3x3"])
+def test_fwd_padding_adds_nothing(op):
+    """The padded operands of a ragged Cin and Cout hold the operands
+    unchanged and zeros past them; on what the kernel reads of them (Cin
+    columns of x, Cin rows of each tap of w, Cout8 columns) the plain
+    version gives y with zero columns past Cout and the same statistics
+    (up to the f32 summation order of the wider product)."""
+    rng = np.random.default_rng(3)
+    cin, cout = 36, 70
+    x_shape = (37, cin) if op == "pw_conv" else (2, 5, 4, cin)
+    w_shape = (cin, cout) if op == "pw_conv" else (3, 3, cin, cout)
+    x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).bfloat16()
+    s = torch.from_numpy((rng.standard_normal(cin) * 0.2 + 1).astype(np.float32))
+    t = torch.from_numpy((rng.standard_normal(cin) * 0.1).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal(w_shape) * 0.1).astype(np.float32)).bfloat16()
+    xk, sk, tk, wk, cout8 = tfc._fwd_operands(x, s, t, w)
+    assert cout8 == 72 and xk.shape == (x.numel() // cin, 40)
+    assert wk.shape == (w.numel() // cout, 72)
+    assert not xk[:, cin:].any() and not sk[cin:].any() and not tk[cin:].any()
+    assert not wk[:, cout:].any() and torch.equal(wk[:, :cout], w.reshape(-1, cout))
+    assert torch.equal(xk[:, :cin], x.reshape(-1, cin)) and torch.equal(sk[:cin], s)
+    plain = tfc.pw_conv_plain if op == "pw_conv" else tfc.conv3x3_plain
+    y, st = plain(x, s, t, w, True)
+    yp, stp = plain(xk[:, :cin].reshape(x_shape), sk[:cin], tk[:cin],
+                    wk.reshape(*w_shape[:-1], cout8), True)
+    assert not yp[..., cout:].any() and not stp[:, cout:].any()
+    torch.testing.assert_close(yp[..., :cout].float(), y.float(), rtol=2.0 ** -7, atol=1e-6)
+    torch.testing.assert_close(stp[:, :cout], st, rtol=1e-5, atol=1e-5)
+
+
+def test_fwd_tiles_split_the_depth_only_where_the_tiles_leave_sms_idle():
+    """At ResNet-50's batch-32 shapes the column tile is Cout rounded up to
+    64, 128 or 256; the depth is split only where the tiles leave two thirds
+    of the SMs idle over at least 32 steps (the 3x3 conv at 7x7 and the
+    deepest pointwise conv there), into at most as many blocks as SMs, each
+    with at least eight 64-channel steps; batch 1 splits too."""
+    sms = 132
+    pw = [(64, 64, 56), (64, 256, 56), (256, 64, 56), (256, 128, 28), (128, 512, 28),
+          (256, 512, 28), (512, 128, 28), (512, 256, 14), (256, 1024, 14), (512, 1024, 14),
+          (1024, 256, 14), (1024, 512, 7), (512, 2048, 7), (1024, 2048, 7), (2048, 512, 7)]
+    shapes = ([(32 * hw * hw, ci, co, 1) for ci, co, hw in pw]
+              + [(32 * hw * hw, c, c, 9) for c, hw in ((64, 56), (128, 28), (256, 14), (512, 7))])
+    split = []
+    for m, cin, cout, taps in shapes:
+        n, splits = tfc.fwd_tiles(m, cin, cout, taps, sms)
+        assert n == (64 if cout <= 64 else 128 if cout <= 128 else 256)
+        tiles = -(-m // 128) * -(-cout // n)
+        assert tiles * splits <= max(tiles, sms)
+        assert splits == 1 or taps * -(-cin // 64) // splits >= 8
+        if splits > 1:
+            split.append((cin, cout, taps))
+    assert split == [(2048, 512, 1), (512, 512, 9)]
+    assert tfc.fwd_tiles(1568, 512, 512, 9, sms) == (256, 5)     # 3x3 at 7x7
+    assert tfc.fwd_tiles(6272, 256, 256, 9, sms) == (256, 1)     # 3x3 at 14x14
+    assert tfc.fwd_tiles(49, 512, 512, 9, sms) == (256, 9)       # batch 1 at 7x7
+    assert tfc.fwd_tiles(90, 40, 70, 9, sms) == (128, 1)         # 9 steps: too shallow
