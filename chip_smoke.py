@@ -10,7 +10,8 @@ csrc`` (phase 1), holds each forward kernel (phase 2) and each backward
 kernel (phase 2b) against its plain PyTorch version at every ResNet-50 shape
 it runs (phase 2 also at the forward's trap cases: the 3x3 halo, images
 sharing a block, rows past M, a box past Cin, a misaligned x, reruns bit
-for bit; and by device time beside CUDA events), and the int8 matmul
+for bit; phase 2b the pointwise dW's reruns bit for bit; both by device
+time beside CUDA events), and the int8 matmul
 (phase 2c) at VGG16's and LeNet's head shapes;
 serves a full-width bf16 ResNet-50 (random weights from a seed) through
 ``InferenceEngine`` (phase 3), and trains it with ``ComputationGraph.fit``
@@ -516,8 +517,10 @@ def check_bwd_case(fc, op, args, relu_in):
 
 def backward_phase(fc):
     """Phase 2b: the four backward kernels against their plain versions at
-    the shapes of phase 2, both relu_in, a nonzero dstats; times of each
-    kernel, its plain version and the library call at the 19 shapes."""
+    the shapes of phase 2, both relu_in, a nonzero dstats, and the pointwise
+    dW rerun bit for bit; times of each kernel (CUDA events and device only),
+    its plain version and the library call (both ways) at the 19 shapes,
+    and each kernel's total over a train step's launches."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
     for op, cin, cout, hw, count, batch in shape_cases():
@@ -532,6 +535,11 @@ def backward_phase(fc):
                 + " ".join(f"{n} max_abs_err {row[f'{n}_max_abs_err']:.3g} "
                            f"(err/tol {row[f'{n}_err_over_tol']:.3g})"
                            for n in ("dx", "dw", "dscale", "dshift")))
+        if op == "pw_conv":
+            first, again = (fc.pw_conv_bwd_dw(*args, True) for _ in range(2))
+            row["dw_rerun_bit_identical"] = bool(torch.equal(first, again))
+            row["ok"] = row["ok"] and row["dw_rerun_bit_identical"]
+            line += f"; dw rerun bit-identical {row['dw_rerun_bit_identical']}"
         if count:
             flops = 2.0 * m * taps * cin * cout
             x_b, io_b = m * cin * 2 + 2 * cin * 4, 2 * m * cout * 2 + 2 * cout * 4
@@ -556,39 +564,43 @@ def backward_phase(fc):
                      fc.pw_conv_bwd_dw_plain if pw else fc.conv3x3_bwd_dw_plain,
                      lib_dw, x_b + io_b + w_b)):
                 row[f"{kind}_kernel_ms"] = time_ms(lambda: kern(*args, True))
-                if pw and kind == "dx":  # device only: the host's wrapper not in it
-                    row["dx_kernel_device_ms"] = graph_ms(lambda: kern(*args, True))
-                    line += f"; dx device only (CUDA graph) {row['dx_kernel_device_ms']:.4f}"
+                # device only: the host's wrapper not in it
+                row[f"{kind}_kernel_device_ms"] = graph_ms(lambda: kern(*args, True))
                 row[f"{kind}_plain_ms"] = time_ms(lambda: plain(*args, True))
                 row[f"{kind}_library_ms"] = time_ms(lib)
+                row[f"{kind}_library_device_ms"] = graph_ms(lib)
                 row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound(flops, nbytes)
                 line += (f"; {kind} kernel_ms {row[f'{kind}_kernel_ms']:.4f} "
+                         f"(device only, CUDA graph: {row[f'{kind}_kernel_device_ms']:.4f}) "
                          f"plain_ms {row[f'{kind}_plain_ms']:.4f} "
                          f"bound_ms {row[f'{kind}_bound_ms']:.4f} "
                          f"({row[f'{kind}_bound_by']}) "
-                         f"library_ms {row[f'{kind}_library_ms']:.4f}")
+                         f"library_ms {row[f'{kind}_library_ms']:.4f} (device only: "
+                         f"{row[f'{kind}_library_device_ms']:.4f})")
         rows.append(row)
         print(f"{line} {'ok' if row['ok'] else 'FAIL'}", flush=True)
         if not row["ok"]:
             raise AssertionError(f"{op} backward disagrees with its plain version: {row}")
     summary = {}
-    for op in ("pw_conv", "conv3x3"):
+    libs = {"pw_conv_dx": "torch.matmul dz W^T", "pw_conv_dw": "torch.matmul x^T dz",
+            "conv3x3_dx": "conv2d_input", "conv3x3_dw": "conv2d_weight"}
+    for op, launches in (("pw_conv", 36), ("conv3x3", 16)):
+        mine = [r for r in rows if r["op"] == op]
         for kind in ("dx", "dw"):
-            summary[f"{op}_{kind}"] = summarize([
+            k = summary[f"{op}_{kind}"] = summarize([
                 {"launches_per_forward": r["launches_per_forward"],
                  "max_abs_err": r[f"{kind}_max_abs_err"],
                  **{key: r.get(f"{kind}_{key}") for key in
                     ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-                for r in rows if r["op"] == op])
-    pw_dx = summary["pw_conv_dx"]
-    pw_dx["kernel_device_ms"] = sum(r["launches_per_forward"] * r["dx_kernel_device_ms"]
-                                    for r in rows if r["op"] == "pw_conv"
-                                    and r["launches_per_forward"])
-    print(f"phase 2b pw_conv_dx over a train step's 36 launches: kernel_ms "
-          f"{pw_dx['kernel_ms']:.4f} (device only, CUDA graph: {pw_dx['kernel_device_ms']:.4f}) "
-          f"plain_ms {pw_dx['plain_ms']:.4f} bound_ms {pw_dx['bound_ms']:.4f} "
-          f"({pw_dx['bound_by']}) library_ms {pw_dx['library_ms']:.4f} (torch.matmul dz W^T)",
-          flush=True)
+                for r in mine])
+            for key in ("kernel_device_ms", "library_device_ms"):
+                k[key] = sum(r["launches_per_forward"] * r[f"{kind}_{key}"] for r in mine
+                             if r["launches_per_forward"])
+            print(f"phase 2b {op}_{kind} over a train step's {launches} launches: kernel_ms "
+                  f"{k['kernel_ms']:.4f} (device only, CUDA graph: {k['kernel_device_ms']:.4f}) "
+                  f"plain_ms {k['plain_ms']:.4f} bound_ms {k['bound_ms']:.4f} "
+                  f"({k['bound_by']}) library_ms {k['library_ms']:.4f} (device only: "
+                  f"{k['library_device_ms']:.4f}; {libs[f'{op}_{kind}']})", flush=True)
     return rows, summary
 
 
@@ -2975,11 +2987,8 @@ def main() -> int:
                                                      "bound_by", "library_ms")}
         else:
             entry_k["launches_per_train_step"] = train["launches_per_step"].get(name, 0)
-            if name == "pw_conv_dx":
-                entry_k["device_ms"] = s["kernel_device_ms"]
-            elif name in ("pw_conv", "conv3x3"):
-                entry_k["device_ms"] = s["kernel_device_ms"]
-                entry_k["library_device_ms"] = s["library_device_ms"]
+            entry_k["device_ms"] = s["kernel_device_ms"]
+            entry_k["library_device_ms"] = s["library_device_ms"]
         kernels.append(entry_k)
     import torch.distributed as dist
 

@@ -17,13 +17,12 @@
 // The f32 products and sums are written with __fmul_rn/__fadd_rn where the
 // plain version rounds each step, so the two round alike.
 //
-// Design. The pointwise dx is a Hopper kernel (pw_bwd_dx_kernel_sm90 below:
-// TMA ring, register-A wgmma, dz_eff formed in its prologue, a fused
-// epilogue). The 3x3 dx and both dW kernels are implicit GEMMs with 64x64
-// output tiles, four warps of 16x16x16 bf16 WMMA into f32 accumulators,
-// depth in steps of 32 through two shared-memory stages (the next step's
-// global loads wait in registers while the tensor cores work), as in
-// fused_conv.cu.
+// Design. The pointwise dx and dW are Hopper kernels (pw_bwd_dx_kernel_sm90
+// and pw_bwd_dw_kernel_sm90 below: TMA rings, register-A wgmma, dz_eff
+// formed on chip). The 3x3 dx and dW are implicit GEMMs with 64x64 output
+// tiles, four warps of 16x16x16 bf16 WMMA into f32 accumulators, depth in
+// steps of 32 through two shared-memory stages (the next step's global loads
+// wait in registers while the tensor cores work).
 //
 // 3x3 dx: rows = pixels, columns = Cin, depth = 9 * Cout. The A tile is
 //   dz_eff, formed from dz, z and dst as it is read. The tap (dy, dx) of
@@ -34,18 +33,18 @@
 //   recomputes u from x, applies the ReLU mask and the scale, stores dx, and
 //   writes per-block column partials of du*x and du that a second kernel
 //   sums over the row tiles in a fixed order.
-// dW: rows = Cin, columns = Cout, depth = pixels, one GEMM per tap. The
-//   output is small and the depth huge (stage 1 at batch 32: one 64x64 tile
-//   over 100352 pixels). The TPU accumulated over a sequential grid
-//   (dw_ref +=); here the pixels are split into chunks across blocks (grid z
-//   = tap x chunk), each writes an f32 partial tile, and a second kernel sums
-//   the partials in a fixed order and rounds to bf16 only after the sum. No
-//   float atomics: the result is the same on every run. The 3x3 input halo
-//   is zero AFTER the fold, as in the forward.
+// dW (both): rows = Cin, columns = Cout, depth = pixels (for the 3x3, one
+//   GEMM per tap). The output is small and the depth huge (stage 1 at batch
+//   32: one 64x256 tile over 100352 pixels). The TPU accumulated over a
+//   sequential grid (dw_ref +=); here the pixels are split into chunks across
+//   blocks, each writes an f32 partial tile, and dw_reduce_kernel sums the
+//   partials in a fixed order and rounds to bf16 only after the sum. No float
+//   atomics: the result is the same on every run. The 3x3 input halo is zero
+//   AFTER the fold, as in the forward.
 //
-// Bound on an H100: the deep GEMMs are bound by tensor-core operations, the
-// 64-channel stage-1 ones by bytes (see chip_smoke.py phase 2b). Times are in
-// PERF.md.
+// Bound on an H100: the deep 3x3 GEMMs are bound by tensor-core operations,
+// the pointwise ones and the 64-channel stage-1 ones by bytes (see
+// chip_smoke.py phase 2b). Times are in PERF.md.
 
 #include <mma.h>
 
@@ -62,7 +61,7 @@ constexpr int LDK = BK + 8;
 constexpr int LDC = BN + 4;
 constexpr int DX_STAGE = BM * LDK + BN * LDK;                  // bf16 elements
 constexpr int DX_AB_BYTES = 2 * DX_STAGE * 2;
-// dW kernel: A tile [k][i] (pixel-depth x Cin, read as col-major M x K),
+// 3x3 dW kernel: A tile [k][i] (pixel-depth x Cin, read as col-major M x K),
 // B tile [k][n] (pixel-depth x Cout)
 constexpr int LDT = BM + 8;
 constexpr int DW_STAGE = BK * LDT + BK * LDT;
@@ -593,19 +592,347 @@ int launch_pw_dx_sm90(const CUtensorMap& mdz, const CUtensorMap& mz, const CUten
 }
 
 // ---------------------------------------------------------------------------
-// dW, split over pixel chunks
+// dW, split over pixel chunks: the f32 partials of the chunks summed in order
 // ---------------------------------------------------------------------------
 
-template <int TAPS>
+// partial (splits, n) f32 -> out (n) bf16, summed over the splits in order
+__global__ void dw_reduce_kernel(const float* __restrict__ partial, int splits,
+                                 long long n, __nv_bfloat16* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += partial[(long long)k * n + i];
+  out[i] = __float2bfloat16_rn(s);
+}
+
+cudaError_t launch_dw_reduce(const float* partial, int splits, long long n, void* dw,
+                             cudaStream_t s) {
+  dw_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      partial, splits, n, static_cast<__nv_bfloat16*>(dw));
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// pointwise dW on Hopper: TMA ring, xn^T formed into register A, dz_eff
+// formed on chip as the shared B operand
+// ---------------------------------------------------------------------------
+// A GEMM with rows = input channels, columns = output channels, depth = the
+// pixels: dW = xn^T dz_eff. A block owns 128 channels of Cin x N channels of
+// Cout (N = 64, 128 or 256: Cout rounded up, at most 256) over one chunk of
+// the pixels (a whole number of 32-pixel stages, planned by the wrapper):
+// a producer warp and two consumer warpgroups of 64 channels. At N = 256 the
+// producer is a whole warpgroup that hands its registers to the consumers
+// (setmaxnreg 40 / 232), as in the pointwise dx. The Cin tiles, then the
+// Cout tiles of one chunk are neighbours in launch order: the dz, z and x
+// tiles they share are read from L2.
+// - The producer streams, per stage of 32 pixels, the x tile (32 pixels x
+//   128 channels as stored: two 64-channel panels) and the dz and z tiles
+//   (32 x N) into a ring on full/empty mbarriers (TMA, 128-byte swizzle,
+//   zero fill past M, Cin and Cout; a panel wholly past Cin or Cout is not
+//   loaded).
+// - B = dz_eff, formed on chip once per stage: each consumer thread owns an
+//   8-column chunk of the tile (its dst[0] and dst[1] in registers, 0 past
+//   Cout) and some rows of it (a quarter-warp takes 8 consecutive rows:
+//   conflict-free 16-byte accesses of the swizzled rows). It forms dz_eff in
+//   f32 with the plain version's rounding, rounds it to bf16 and writes it
+//   over dz at the same offsets. Rows at or past M are 0 by position: TMA's
+//   zero fill would leave dst[0] there, and the reference masks rows >=
+//   m_valid. Then fence.proxy.async and a barrier of the consumers, and
+//   wgmma reads the tile MN-major, as the forward reads W.
+// - A = xn^T from registers: ldmatrix.trans reads each warp's 16 channels by
+//   16 pixels of the stored tile transposed, straight into wgmma's register
+//   A layout. A thread's A rows are two fixed channels, so their scale and
+//   shift stay in registers (0 past Cin: nothing is read past the vectors)
+//   and the fold is a product, a sum and a ReLU per element, with the plain
+//   version's rounding. The next stage's B and A are formed while this
+//   stage's wgmma runs. Rows past Cin (the second warpgroup's where a Cin
+//   tile has at most 64 channels, its x panel not loaded) are computed and
+//   never stored.
+// - Epilogue: the block's f32 tile (rows < Cin, columns < Cout) goes from the
+//   registers into its chunk's slice of partial (splits, Cin, Cout), and
+//   dw_reduce_kernel sums the splits in order and rounds to bf16. No float
+//   atomics: reruns give the same bits.
+// Bound on an H100: at ResNet-50's shapes the bytes (x, z and dz read once).
+constexpr int DW_ROWS = 128;                  // input channels per block
+constexpr int DW_BK = 32;                     // pixels per stage
+constexpr int DW_KS = DW_BK / 16;             // wgmma k-steps per stage
+constexpr int DW_PANEL = DW_BK * 128;         // a stage's 64-column panel, 1024-aligned
+constexpr int DW_CONSUMERS = 256;             // two consumer warpgroups
+
+template <int N>
+struct PwDw {
+  static constexpr int NW = N < 128 ? N : 128;               // columns per wgmma
+  static constexpr int NH = N / NW;                          // wgmmas per k-step
+  static constexpr int STAGES = N == 256 ? 4 : 6;
+  static constexpr int MIN_BLOCKS = N == 64 ? 2 : 1;
+  static constexpr bool WIDE = N == 256;                     // a producer warpgroup, setmaxnreg
+  static constexpr int THREADS = DW_CONSUMERS + (WIDE ? 128 : 32);
+  static constexpr int X_BYTES = 2 * DW_PANEL;               // x: two 64-channel panels
+  static constexpr int Y_BYTES = (N / 64) * DW_PANEL;        // dz (then dz_eff), z
+  static constexpr int STAGE_BYTES = X_BYTES + 2 * Y_BYTES;
+  static constexpr int BAR = STAGES * STAGE_BYTES;           // full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR + 2 * STAGES * 8 + 1024;  // + the alignment slack
+  static constexpr int TPC = 2048 / N;                       // threads per 8-column chunk of B
+  static constexpr int ROWS = DW_BK / TPC;                   // B rows a thread forms per stage
+};
+
+struct DwArgs {
+  const float* scale;   // (Cin,)
+  const float* shift;
+  const float* dst;     // (2, Cout)
+  float* partial;       // (splits, Cin, Cout)
+  int M, Cin, Cout, relu_in, chunk, cin_tiles, col_tiles;
+};
+
+// a bf16 pair of one channel folded, act(x * scale + shift), with the plain
+// version's rounding (a product, then a sum: no FMA), rounded to bf16
+__device__ __forceinline__ uint32_t fold2(uint32_t v, float s, float t, int relu_in) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  float u0 = __fadd_rn(__fmul_rn(f.x, s), t);
+  float u1 = __fadd_rn(__fmul_rn(f.y, s), t);
+  if (relu_in) {
+    u0 = hopper::relu_nan(u0);
+    u1 = hopper::relu_nan(u1);
+  }
+  return hopper::pack_bf16(u0, u1);
+}
+
+template <int N>
+__global__ void __launch_bounds__(PwDw<N>::THREADS, PwDw<N>::MIN_BLOCKS)
+pw_bwd_dw_kernel_sm90(__grid_constant__ const CUtensorMap mx,
+                      __grid_constant__ const CUtensorMap mdz,
+                      __grid_constant__ const CUtensorMap mz, const DwArgs a) {
+  using namespace hopper;
+  using L = PwDw<N>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::BAR);
+  uint64_t* empty = full + STAGES;
+
+  const int c_tile = blockIdx.x % a.cin_tiles;
+  const int rest = blockIdx.x / a.cin_tiles;
+  const int split = rest / a.col_tiles;
+  const int ci0 = c_tile * DW_ROWS;
+  const int n0 = (rest - split * a.col_tiles) * N;
+  const int p0 = split * a.chunk;
+  const int steps = (min(a.M - p0, a.chunk) + DW_BK - 1) / DW_BK;
+  const int x_panels = a.Cin - ci0 > 64 ? 2 : 1;  // x panels with a channel < Cin
+  const int panels = min(N / 64, (a.Cout - n0 + 63) / 64);  // dz/z panels with a column < Cout
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], DW_CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= DW_CONSUMERS) {  // the producer
+    if constexpr (L::WIDE) regs_dec<40>();
+    if (threadIdx.x == DW_CONSUMERS) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        unsigned char* st = ring + s * L::STAGE_BYTES;
+        const int row = p0 + i * DW_BK;
+        mbar_expect_tx(&full[s], (x_panels + 2 * panels) * DW_PANEL);
+        for (int p = 0; p < x_panels; ++p) {
+          tma_load_2d(st + p * DW_PANEL, &mx, &full[s], ci0 + 64 * p, row);
+        }
+        for (int p = 0; p < panels; ++p) {
+          tma_load_2d(st + L::X_BYTES + p * DW_PANEL, &mdz, &full[s], n0 + 64 * p, row);
+          tma_load_2d(st + L::X_BYTES + L::Y_BYTES + p * DW_PANEL, &mz, &full[s], n0 + 64 * p,
+                      row);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg owns 64 channels; this thread's A rows are
+  // channels ch0 and ch0 + 8
+  if constexpr (L::WIDE) regs_inc<232>();
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  const int ch0 = ci0 + 64 * wg + (warp % 4) * 16 + g;
+  const float sc0 = ch0 < a.Cin ? __ldg(a.scale + ch0) : 0.f;
+  const float sh0 = ch0 < a.Cin ? __ldg(a.shift + ch0) : 0.f;
+  const float sc1 = ch0 + 8 < a.Cin ? __ldg(a.scale + ch0 + 8) : 0.f;
+  const float sh1 = ch0 + 8 < a.Cin ? __ldg(a.shift + ch0 + 8) : 0.f;
+  // ldmatrix: lane l gives row l % 8 of matrix l / 8, which is pixels
+  // 8 (l / 16) .. + 7 of a k-step by channels 16 (warp % 4) + 8 ((l / 8) & 1)
+  // .. + 7 of the warpgroup's panel
+  const int lm_row = 8 * (lane / 16) + lane % 8;
+  const int lm_off = wg * DW_PANEL + lm_row * 128 +
+                     (((2 * (warp % 4) + ((lane / 8) & 1)) ^ (lane % 8)) << 4);
+  // B: this thread's 8-column chunk cc of the tile, rows sub + TPC q
+  const int cc = threadIdx.x / L::TPC;
+  const int sub = threadIdx.x % L::TPC;
+  const int col = n0 + 8 * cc;
+  float d0[8], d1[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const bool in = col + e < a.Cout;
+    d0[e] = in ? __ldg(a.dst + col + e) : 0.f;
+    d1[e] = in ? __ldg(a.dst + a.Cout + col + e) : 0.f;
+  }
+  const int b_off = L::X_BYTES + (cc / 8) * DW_PANEL;  // the chunk's panel of dz in a stage
+
+  float acc[L::NH][L::NW / 2];
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < L::NW / 2; ++i) acc[h][i] = 0.f;
+  }
+
+  // stage i's dz_eff over its dz: rows at or past M, and chunks past Cout, 0
+  const auto form = [&](int i) {
+    unsigned char* tdz = ring + (i % STAGES) * L::STAGE_BYTES + b_off;
+    const unsigned char* tz = tdz + L::Y_BYTES;
+    const int left = col < a.Cout ? a.M - (p0 + i * DW_BK) : 0;  // live rows of the stage
+#pragma unroll
+    for (int q = 0; q < L::ROWS; ++q) {
+      const int r = sub + L::TPC * q;
+      const int off = r * 128 + (((cc % 8) ^ (r & 7)) << 4);
+      const uint4 vdz = *reinterpret_cast<const uint4*>(tdz + off);
+      const uint4 vz = *reinterpret_cast<const uint4*>(tz + off);
+      const uint32_t* wdz = reinterpret_cast<const uint32_t*>(&vdz);
+      const uint32_t* wz = reinterpret_cast<const uint32_t*>(&vz);
+      uint4 out;
+      uint32_t* wo = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 fdz = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wdz[e]));
+        const float2 fz = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wz[e]));
+        wo[e] = r < left ? pack_bf16(dz_eff(fdz.x, fz.x, d0[2 * e], d1[2 * e]),
+                                     dz_eff(fdz.y, fz.y, d0[2 * e + 1], d1[2 * e + 1]))
+                         : 0u;
+      }
+      *reinterpret_cast<uint4*>(tdz + off) = out;
+    }
+  };
+  // stage i's fold of x, transposed, in wgmma's register A layout: av[kk] =
+  // {(ch0, pixels 16kk + 2c, +1), (ch0 + 8, the same), (ch0, 8 pixels on),
+  // (ch0 + 8, 8 on)}
+  const auto build = [&](uint32_t (&av)[DW_KS][4], int i) {
+    const unsigned char* tx = ring + (i % STAGES) * L::STAGE_BYTES + lm_off;
+#pragma unroll
+    for (int kk = 0; kk < DW_KS; ++kk) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, tx + kk * 16 * 128);
+      av[kk][0] = fold2(r[0], sc0, sh0, a.relu_in);
+      av[kk][1] = fold2(r[1], sc1, sh1, a.relu_in);
+      av[kk][2] = fold2(r[2], sc0, sh0, a.relu_in);
+      av[kk][3] = fold2(r[3], sc1, sh1, a.relu_in);
+    }
+  };
+  // dW += xn^T dz_eff for stage i (dz_eff's tile, 32 pixel rows by N, is
+  // MN-major: 64-column panels DW_PANEL apart). The wgmma of stage i - 1 is
+  // then waited for, which frees its stage and its A registers (next), and
+  // the next stage's B and A are formed while stage i's wgmma runs.
+  const auto step = [&](const uint32_t (&av)[DW_KS][4], uint32_t (&next)[DW_KS][4], int i) {
+    const __nv_bfloat16* tb = reinterpret_cast<const __nv_bfloat16*>(
+        ring + (i % STAGES) * L::STAGE_BYTES + L::X_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DW_KS; ++kk) {
+#pragma unroll
+      for (int h = 0; h < L::NH; ++h) {
+        wgmma_rs<1>(acc[h], av[kk],
+                    desc_mnmajor(tb + h * (L::NW / 64) * DW_BK * 64 + kk * 16 * 64, DW_PANEL), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+    }
+    if (i + 1 < steps) {
+      mbar_wait(&full[(i + 1) % STAGES], ((i + 1) / STAGES) & 1);
+      form(i + 1);
+      fence_proxy_async();  // dz_eff in the tile, for wgmma
+      build(next, i + 1);
+      named_barrier(1, DW_CONSUMERS);
+    }
+  };
+  uint32_t a0[DW_KS][4], a1[DW_KS][4];
+  mbar_wait(&full[0], 0);
+  form(0);
+  fence_proxy_async();
+  build(a0, 0);
+  named_barrier(1, DW_CONSUMERS);
+  for (int i = 0; i < steps; i += 2) {
+    step(a0, a1, i);
+    if (i + 1 < steps) step(a1, a0, i + 1);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) fence_regs(acc[h]);
+
+  // the tile's rows < Cin and columns < Cout into the chunk's partial
+  float* out = a.partial + static_cast<long long>(split) * a.Cin * a.Cout;
+  const bool pairs = (a.Cout & 1) == 0;  // 8-byte aligned column pairs
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < L::NW / 8; ++i) {
+      const int co = n0 + h * L::NW + 8 * i + 2 * c;
+#pragma unroll
+      for (int slot = 0; slot < 2; ++slot) {
+        const int ci = ch0 + 8 * slot;
+        if (ci >= a.Cin || co >= a.Cout) continue;
+        float* p = out + static_cast<long long>(ci) * a.Cout + co;
+        const float v0 = acc[h][4 * i + 2 * slot], v1 = acc[h][4 * i + 2 * slot + 1];
+        if (pairs) {
+          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {
+          p[0] = v0;
+          if (co + 1 < a.Cout) p[1] = v1;
+        }
+      }
+    }
+  }
+}
+
+template <int N>
+int launch_pw_dw_sm90(const CUtensorMap& mx, const CUtensorMap& mdz, const CUtensorMap& mz,
+                      DwArgs a, int splits, void* dw, cudaStream_t s) {
+  const int bytes = PwDw<N>::BYTES;
+  static bool done[64] = {};  // per N: each instantiation opts in for itself
+  const int err = hopper::opt_in_smem(pw_bwd_dw_kernel_sm90<N>, bytes, done);
+  if (err != 0) return err;
+  a.cin_tiles = (a.Cin + DW_ROWS - 1) / DW_ROWS;
+  a.col_tiles = (a.Cout + N - 1) / N;
+  const long long blocks = static_cast<long long>(a.cin_tiles) * a.col_tiles * splits;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  pw_bwd_dw_kernel_sm90<N><<<static_cast<unsigned>(blocks), PwDw<N>::THREADS, bytes, s>>>(
+      mx, mdz, mz, a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      launch_dw_reduce(a.partial, splits, static_cast<long long>(a.Cin) * a.Cout, dw, s));
+}
+
+// ---------------------------------------------------------------------------
+// 3x3 dW: one GEMM per tap, WMMA
+// ---------------------------------------------------------------------------
+
 __global__ void __launch_bounds__(THREADS)
-conv_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ shift,
-                   const __nv_bfloat16* __restrict__ z,
-                   const __nv_bfloat16* __restrict__ dz,
-                   const float* __restrict__ dst,
-                   float* __restrict__ partial,
-                   int M, int H, int W, int Cin, int Cout, int relu_in, int chunk) {
+conv3x3_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ shift,
+                      const __nv_bfloat16* __restrict__ z,
+                      const __nv_bfloat16* __restrict__ dz,
+                      const float* __restrict__ dst,
+                      float* __restrict__ partial,
+                      int M, int H, int W, int Cin, int Cout, int relu_in, int chunk) {
+  constexpr int TAPS = 9;
   __shared__ __align__(128) unsigned char smem[DW_SMEM];
 
   __nv_bfloat16* As[2];
@@ -622,7 +949,7 @@ conv_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x,
   const int wn = warp & 1;
   const int i0 = blockIdx.x * BM;   // first input channel of the tile
   const int n0 = blockIdx.y * BN;   // first output channel of the tile
-  const int tap = (TAPS == 1) ? 0 : blockIdx.z % TAPS;
+  const int tap = blockIdx.z % TAPS;
   const int split = blockIdx.z / TAPS;
   const int p_begin = split * chunk;
   const int p_end = min(M, p_begin + chunk);
@@ -644,14 +971,10 @@ conv_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x,
       const int p = p_begin + kt * BK + t_k + 16 * j;
       long long src = -1;
       if (p < p_end) {
-        if (TAPS == 1) {
-          src = p;
-        } else {
-          const Pixel px = pixel_of(p, H, W);
-          const int hs = px.h + dy;
-          const int ws = px.w + dxo;
-          if (hs >= 0 && hs < H && ws >= 0 && ws < W) src = (px.n * H + hs) * W + ws;
-        }
+        const Pixel px = pixel_of(p, H, W);
+        const int hs = px.h + dy;
+        const int ws = px.w + dxo;
+        if (hs >= 0 && hs < H && ws >= 0 && ws < W) src = (px.n * H + hs) * W + ws;
       }
       // the zero halo: an out-of-image tap contributes 0, not act(shift)
       const int nva = src >= 0 ? min(8, Cin - (i0 + t_c)) : 0;
@@ -664,7 +987,6 @@ conv_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x,
       rz[j] = nvb > 0 ? load8(z + off, nvb) : make_uint4(0u, 0u, 0u, 0u);
     }
   };
-
   auto store = [&](int buf) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -727,15 +1049,6 @@ conv_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// partial (splits, n) f32 -> out (n) bf16, summed over the splits in order
-__global__ void dw_reduce_kernel(const float* __restrict__ partial, int splits,
-                                 long long n, __nv_bfloat16* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += partial[(long long)k * n + i];
-  out[i] = __float2bfloat16_rn(s);
-}
 
 int launch_conv3x3_dx(const void* x, const void* scale, const void* shift, const void* w,
                       const void* z, const void* dz, const void* dst, void* dx, void* partial,
@@ -758,38 +1071,27 @@ int launch_conv3x3_dx(const void* x, const void* scale, const void* shift, const
   return (int)launch_stats_reduce(pp, (int)grid.x, 2 * cin, static_cast<float*>(gst), s);
 }
 
-int launch_dw(int taps, const void* x, const void* scale, const void* shift,
-              const void* z, const void* dz, const void* dst, void* partial, void* dw,
-              int m, int h, int wd, int cin, int cout, int relu_in, int chunk,
-              void* stream) {
+int launch_conv3x3_dw(const void* x, const void* scale, const void* shift, const void* z,
+                      const void* dz, const void* dst, void* partial, void* dw, int m, int h,
+                      int wd, int cin, int cout, int relu_in, int chunk, void* stream) {
+  constexpr int TAPS = 9;
   if (m <= 0 || cin <= 0 || cout <= 0 || chunk <= 0 || chunk % BK != 0 ||
       (cout + BN - 1) / BN > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const int splits = (m + chunk - 1) / chunk;
-  if ((long long)splits * taps > 65535) return (int)cudaErrorInvalidValue;
+  if ((long long)splits * TAPS > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid((cin + BM - 1) / BM, (cout + BN - 1) / BN, splits * taps);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* sh = static_cast<const float*>(shift);
-  const auto* zb = static_cast<const __nv_bfloat16*>(z);
-  const auto* dzb = static_cast<const __nv_bfloat16*>(dz);
-  const auto* ds = static_cast<const float*>(dst);
+  const dim3 grid((cin + BM - 1) / BM, (cout + BN - 1) / BN, splits * TAPS);
   auto* pp = static_cast<float*>(partial);
-  if (taps == 1) {
-    conv_bwd_dw_kernel<1><<<grid, THREADS, 0, s>>>(xb, sc, sh, zb, dzb, ds, pp, m, h, wd,
-                                                   cin, cout, relu_in, chunk);
-  } else {
-    conv_bwd_dw_kernel<9><<<grid, THREADS, 0, s>>>(xb, sc, sh, zb, dzb, ds, pp, m, h, wd,
-                                                   cin, cout, relu_in, chunk);
-  }
+  conv3x3_bwd_dw_kernel<<<grid, THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<const __nv_bfloat16*>(z),
+      static_cast<const __nv_bfloat16*>(dz), static_cast<const float*>(dst), pp, m, h, wd, cin,
+      cout, relu_in, chunk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long n = (long long)taps * cin * cout;
-  dw_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      pp, splits, n, static_cast<__nv_bfloat16*>(dw));
-  return (int)cudaGetLastError();
+  return (int)launch_dw_reduce(pp, splits, (long long)TAPS * cin * cout, dw, s);
 }
 
 }  // namespace
@@ -797,10 +1099,13 @@ int launch_dw(int taps, const void* x, const void* scale, const void* shift,
 extern "C" {
 
 // tile sizes: 0 -> rows per 3x3 dx block (sizes its (tiles, 2, Cin) partials),
-// 1 -> columns per block, 2 -> depth step (the dW pixel chunk is a multiple),
-// 3 -> rows per pointwise dx block (sizes its partials)
+// 1 -> columns per 3x3 block, 2 -> the 3x3 dW depth step (its pixel chunk is
+// a multiple), 3 -> rows per pointwise dx block (sizes its partials), 4 ->
+// input channels per pointwise dW block, 5 -> pixels per pointwise dW stage
+// (its pixel chunk is a multiple)
 int dl4j_fused_conv_bwd_tile(int which) {
-  return which == 0 ? BM : which == 1 ? BN : which == 2 ? BK : PW_BM;
+  const int tiles[6] = {BM, BN, BK, PW_BM, DW_ROWS, DW_BK};
+  return which >= 0 && which < 6 ? tiles[which] : 0;
 }
 
 // x (m, cin) bf16, scale/shift (cin,) f32, w (cin, cout) bf16, z/dz (m,
@@ -845,13 +1150,38 @@ int dl4j_conv3x3_bwd_dx(const void* x, const void* scale, const void* shift,
                            wd, cin, cout, relu_in, stream);
 }
 
-// -> dw (cin, cout) bf16; partial is (ceil(m/chunk), cin, cout) f32
-int dl4j_pw_conv_bwd_dw(const void* x, const void* scale, const void* shift,
-                        const void* z, const void* dz, const void* dst, void* partial,
-                        void* dw, int m, int cin, int cout, int relu_in, int chunk,
+// x (m, cin) bf16 with row stride ldx, scale/shift (cin,) f32, z/dz (m, cout)
+// bf16 with row stride ldy, dst (2, cout) f32 -> dw (cin, cout) bf16;
+// partial is (ceil(m/chunk), cin, cout) f32. tile_n: the column tile (64,
+// 128 or 256); chunk: the pixels of a split, a multiple of the 32-pixel
+// stage. What TMA reads: ldx and ldy multiples of 8, x, z and dz 16-byte
+// aligned. Returns cudaGetLastError(), or 1000 + the CUresult of a failed
+// tensor-map encoding.
+int dl4j_pw_conv_bwd_dw(const void* x, const void* scale, const void* shift, const void* z,
+                        const void* dz, const void* dst, void* partial, void* dw, int m,
+                        int cin, int cout, int ldx, int ldy, int relu_in, int tile_n, int chunk,
                         void* stream) {
-  return launch_dw(1, x, scale, shift, z, dz, dst, partial, dw, m, 1, 1, cin, cout,
-                   relu_in, chunk, stream);
+  const auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  };
+  if (m <= 0 || cin <= 0 || cout <= 0 || ldx < cin || ldx % 8 || ldy < cout || ldy % 8 ||
+      (tile_n != 64 && tile_n != 128 && tile_n != 256) || chunk <= 0 || chunk % DW_BK ||
+      static_cast<long long>(m) + chunk > 0x7fffffffLL || misaligned(x) || misaligned(z) ||
+      misaligned(dz)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap mx, mdz, mz;
+  int rc = hopper::encode_rows(&mx, x, cin, m, ldx, DW_BK);
+  if (rc == 0) rc = hopper::encode_rows(&mdz, dz, cout, m, ldy, DW_BK);
+  if (rc == 0) rc = hopper::encode_rows(&mz, z, cout, m, ldy, DW_BK);
+  if (rc != 0) return rc;
+  const DwArgs a{static_cast<const float*>(scale), static_cast<const float*>(shift),
+                 static_cast<const float*>(dst), static_cast<float*>(partial), m, cin, cout,
+                 relu_in, chunk, 0, 0};
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto run = tile_n == 64 ? launch_pw_dw_sm90<64>
+                   : tile_n == 128 ? launch_pw_dw_sm90<128> : launch_pw_dw_sm90<256>;
+  return run(mx, mdz, mz, a, (m + chunk - 1) / chunk, dw, s);
 }
 
 // -> dw (3, 3, cin, cout) bf16; partial is (ceil(m/chunk), 9, cin, cout) f32
@@ -860,8 +1190,8 @@ int dl4j_conv3x3_bwd_dw(const void* x, const void* scale, const void* shift,
                         void* dw, int n, int h, int wd, int cin, int cout, int relu_in,
                         int chunk, void* stream) {
   if (n <= 0 || h <= 0 || wd <= 0) return (int)cudaErrorInvalidValue;
-  return launch_dw(9, x, scale, shift, z, dz, dst, partial, dw, n * h * wd, h, wd, cin,
-                   cout, relu_in, chunk, stream);
+  return launch_conv3x3_dw(x, scale, shift, z, dz, dst, partial, dw, n * h * wd, h, wd, cin,
+                           cout, relu_in, chunk, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels, the fused
-// conv forward and the pointwise-conv dx kernel: mbarriers, TMA tile loads,
-// wgmma descriptors and instructions, and the host-side encoding of a
-// head-split operand, a row-major matrix or a stack of them as a TMA tensor
-// map.
+// conv forward and the pointwise-conv dx and dW kernels: mbarriers, TMA tile
+// loads, transposed ldmatrix, wgmma descriptors and instructions, and the
+// host-side encoding of a head-split operand, a row-major matrix or a stack
+// of them as a TMA tensor map.
 //
 // Shared-memory tiles are 128-byte swizzled rows of 64 bf16 (the layout TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with layout type 1):
@@ -207,6 +207,18 @@ __device__ __forceinline__ void regs_inc() {
 __device__ __forceinline__ uint32_t sw128_word(const unsigned char* tile, int r, int chunk,
                                                int w) {
   return *reinterpret_cast<const uint32_t*>(tile + r * 128 + ((chunk ^ (r & 7)) << 4) + 4 * w);
+}
+
+// four 8x8 bf16 matrices of shared memory, transposed: lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes); register j of thread t
+// gets elements (2(t%4), t/4) and (2(t%4)+1, t/4) of matrix j (stored row,
+// column), the first in the low half. Read from a tile whose rows are the
+// product's depth, that is wgmma's register A of the tile's transpose.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
 }
 
 // keeps the compiler from moving reads of an accumulator above the wait

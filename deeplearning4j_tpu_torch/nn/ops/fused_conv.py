@@ -25,10 +25,11 @@ conv through its statistics.
 Dispatch: a CPU tensor goes to the plain versions (``*_plain``). A CUDA
 tensor goes to the kernels (bf16 in and out, f32 accumulation), or the
 wrapper raises: there is no fallback. The forward kernel (both ops) and the
-pointwise dx kernel are Hopper designs (TMA tile loads, wgmma): a Cin, Cout
-or base their TMA loads cannot read reaches them through :func:`tma_rows`,
-a zero-padded layout copy for the same kernel. Each launch adds one to
-``launch_counts[name]`` (``launch.py``, shared with the int8 matmul):
+pointwise dx and dW kernels are Hopper designs (TMA tile loads, wgmma): a
+Cin, Cout or base their TMA loads cannot read reaches them through
+:func:`tma_rows`, a zero-padded layout copy for the same kernel. Each launch
+adds one to ``launch_counts[name]`` (``launch.py``, shared with the int8
+matmul):
 
 =============  =========================  ====================================
 name           kernel (csrc/)             replaces (JAX ``fused_conv.py``)
@@ -194,13 +195,14 @@ def conv3x3_bwd_plain(x, scale, shift, w, z, dz, dst, relu_in: bool = False):
 _FWD = KernelLibrary("fused_conv",
                      {"dl4j_pw_conv_fwd": (8, 6), "dl4j_conv3x3_fwd": (8, 8)},
                      "dl4j_fused_conv_tile")
-#: tiles of the backward: "m" rows of a 3x3 dx block, "n" columns, "k" the
-#: dW depth step, "p" rows of a pointwise dx block (each dx kernel's
-#: partials have one row per row block)
+#: tiles of the backward: "m" rows of a 3x3 dx block, "n" columns of a 3x3
+#: block, "k" the 3x3 dW depth step, "p" rows of a pointwise dx block (each
+#: dx kernel's partials have one row per row block), "c" input channels of
+#: a pointwise dW block, "s" pixels of a pointwise dW stage
 _BWD = KernelLibrary("fused_conv_bwd", {
     "dl4j_pw_conv_bwd_dx": (10, 5), "dl4j_conv3x3_bwd_dx": (10, 6),
-    "dl4j_pw_conv_bwd_dw": (8, 5), "dl4j_conv3x3_bwd_dw": (8, 7)},
-    "dl4j_fused_conv_bwd_tile", tile_keys="mnkp")
+    "dl4j_pw_conv_bwd_dw": (8, 8), "dl4j_conv3x3_bwd_dw": (8, 7)},
+    "dl4j_fused_conv_bwd_tile", tile_keys="mnkpcs")
 #: TMA reads 16-byte aligned bases and row strides (8 bf16)
 _TMA_ALIGN = 16
 
@@ -366,32 +368,71 @@ def _fused_bwd_dx(op: str, x, scale, shift, w, z, dz, dst, relu_in: bool):
 
 def dw_split(m: int, cin: int, cout: int, taps: int, sms: int,
              tile: int = 64, step: int = 32) -> Tuple[int, int]:
-    """``(chunk, splits)``: the dW kernels split the ``m`` pixels of their
-    depth into ``splits`` chunks of ``chunk`` pixels (a multiple of the
-    depth ``step``), one block per (output tile, tap, chunk), so that about
-    two blocks per SM are in flight even when the output is one tile."""
+    """``(chunk, splits)`` of the 3x3 dW kernel: it splits the ``m`` pixels
+    of its depth into ``splits`` chunks of ``chunk`` pixels (a multiple of
+    the depth ``step``), one block per (output tile, tap, chunk), so that
+    about two blocks per SM are in flight even when the output is one tile."""
     tiles = -(-cin // tile) * -(-cout // tile) * taps
     splits = max(1, min(-(-m // step), -(-2 * sms // tiles)))
     chunk = -(-(-(-m // splits)) // step) * step
     return chunk, -(-m // chunk)
 
 
+def pw_dw_tiles(m: int, cin: int, cout: int, sms: int, rows: int = 128,
+                step: int = 32) -> Tuple[int, int, int]:
+    """``(n, chunk, splits)`` of the pointwise dW kernel. A block owns
+    ``rows`` input channels by ``n`` output channels (Cout rounded up to 64,
+    128 or 256; the grid covers a wider Cin or Cout in such tiles) over one
+    chunk of the ``m`` pixels: ``chunk`` is a whole number of ``step``-pixel
+    stages, and the ``splits`` chunks cover every pixel once. The chunks are
+    as long as one wave of blocks allows (two blocks an SM at n 64, one
+    otherwise): fewer, longer chunks keep the ring full and the f32
+    partials (splits, Cin, Cout) small."""
+    n = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    tiles = -(-cin // rows) * -(-cout // n)
+    blocks = (2 if n == 64 else 1) * sms
+    splits = max(1, min(-(-m // step), blocks // tiles))
+    chunk = -(-(-(-m // splits)) // step) * step
+    return n, chunk, -(-m // chunk)
+
+
+def _pw_dw_operands(x, z, dz):
+    """(x, z, dz) as the pointwise dW kernel's TMA loads read them: rows of
+    Cin8 and Cout8 columns (Cin and Cout rounded up to a multiple of 8,
+    TMA's 16-byte row stride), 16-byte aligned; the kernel's maps stop at
+    Cin and Cout, so padded columns are never read."""
+    cin, cout = x.shape[1], z.shape[1]
+    return (tma_rows(x, -(-cin // 8) * 8), tma_rows(z, -(-cout // 8) * 8),
+            tma_rows(dz, -(-cout // 8) * 8))
+
+
 def _fused_bwd_dw(op: str, x, scale, shift, w, z, dz, dst, relu_in: bool):
-    """The dW kernel of ``op`` ("pw_conv_dw" or "conv3x3_dw"): dW in bf16."""
+    """The dW kernel of ``op`` ("pw_conv_dw" or "conv3x3_dw"): dW in bf16.
+    Each split of the pixels writes an f32 (Cin, Cout) slice of the
+    partials (nine of them for the 3x3), and the kernel's second pass sums
+    the splits in a fixed order."""
     pointwise, m, cin, cout, dims = _check_bwd_args(op, x, scale, shift, w, z, dz, dst)
     if m == 0:
         return torch.zeros_like(w)
     lib = _BWD.get()
-    taps = 1 if pointwise else 9
-    chunk, splits = dw_split(m, cin, cout, taps, _sm_count(x.device.index or 0),
-                             _BWD.tile["n"], _BWD.tile["k"])
+    index = x.device.index or 0
     with torch.cuda.device(x.device):
         dw = torch.empty_like(w)
-        partial = torch.empty((splits, taps, cin, cout), dtype=torch.float32,
-                              device=x.device)
-        fn = lib.dl4j_pw_conv_bwd_dw if pointwise else lib.dl4j_conv3x3_bwd_dw
-        _launch(fn, op, (*_ptrs(x, scale, shift, z, dz, dst, partial, dw),
-                         *dims, cin, cout, int(bool(relu_in)), chunk))
+        if pointwise:
+            n, chunk, splits = pw_dw_tiles(m, cin, cout, _sm_count(index), _BWD.tile["c"],
+                                           _BWD.tile["s"])
+            x, z, dz = _pw_dw_operands(x, z, dz)
+            partial = torch.empty((splits, cin, cout), dtype=torch.float32, device=x.device)
+            fn = lib.dl4j_pw_conv_bwd_dw
+            ints = (m, cin, cout, x.shape[1], z.shape[1], int(bool(relu_in)), n, chunk)
+        else:
+            chunk, splits = dw_split(m, cin, cout, 9, _sm_count(index), _BWD.tile["n"],
+                                     _BWD.tile["k"])
+            partial = torch.empty((splits, 9, cin, cout), dtype=torch.float32,
+                                  device=x.device)
+            fn = lib.dl4j_conv3x3_bwd_dw
+            ints = (*dims, cin, cout, int(bool(relu_in)), chunk)
+        _launch(fn, op, (*_ptrs(x, scale, shift, z, dz, dst, partial, dw), *ints))
     return dw
 
 

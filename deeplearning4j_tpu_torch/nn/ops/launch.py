@@ -68,9 +68,8 @@ class KernelLibrary:
 def check_kernel_args(op: str, x, specs) -> None:
     """``specs``: (name, tensor, dtype, shape) for every tensor the kernel
     reads; the kernel takes CUDA tensors of one device, of those types and
-    shapes, contiguous."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{op}: the kernel takes CUDA tensors, got {x.device}")
+    shapes, contiguous. The device type is checked last, so that tensors of
+    another device ("meta") show the other checks without a card."""
     for name, t, dt, shape in specs:
         if t.device != x.device:
             raise ValueError(f"{op}: {name} is on {t.device}, x on {x.device}")
@@ -83,6 +82,8 @@ def check_kernel_args(op: str, x, specs) -> None:
             raise ValueError(
                 f"{op}: {name} must be contiguous (strides {t.stride()}); "
                 "a strided view such as x[:, ::2, ::2, :] needs .contiguous()")
+    if x.device.type != "cuda":
+        raise ValueError(f"{op}: the kernel takes CUDA tensors, got {x.device}")
 
 
 def launch(fn, op: str, args) -> None:

@@ -71,8 +71,8 @@ GROUPS = (
     ("concatenations (torch.cat)", ("catarraybatchedcopy",)),
     ("int8_matmul kernels", ("int8_partial_kernel", "int8_reduce_kernel")),
     ("fused conv kernels", ("fused_conv_fwd_kernel", "conv3x3_bwd_dx_kernel",
-                            "pw_bwd_dx_kernel", "conv_bwd_dw_kernel", "dw_reduce_kernel",
-                            "stats_reduce", "splitk_reduce")),
+                            "pw_bwd_dx_kernel", "pw_bwd_dw_kernel", "conv3x3_bwd_dw_kernel",
+                            "dw_reduce_kernel", "stats_reduce", "splitk_reduce")),
     ("copies", ("memcpy", "memset")),
     ("convolutions (cuDNN)", ("cudnn", "convolve", "fft", "flip_filter",
                               "mult_and_sum_complex", "nchwtonhwc", "nhwctonchw",

@@ -452,6 +452,158 @@ def test_pw_dx_kernel_reads_misaligned_views_through_the_padded_copy(card):
     assert all(torch.equal(p, q) for p, q in zip(a, b_))
 
 
+def _dw_tolerance(args, relu_in, dw_p):
+    """|dW| bound: 2^-7|p| + 2M*2^-24*(|xn|^T |dz_eff|) (M pixels of depth)."""
+    return _bwd_tolerances("pw", *args, relu_in, torch.zeros_like(args[0]), dw_p)[1]
+
+
+def _assert_dw_matches_plain(args, relu_in):
+    """The kernel's dW against the plain version, twice: the same bits on
+    the rerun, within the limit, finite; returns the kernel's dW."""
+    dw = fc.pw_conv_bwd_dw(*args, relu_in)
+    again = fc.pw_conv_bwd_dw(*args, relu_in)
+    dw_p = fc.pw_conv_bwd_dw_plain(*args, relu_in)
+    torch.cuda.synchronize()
+    assert dw.dtype == torch.bfloat16 and dw.shape == args[3].shape
+    assert torch.equal(dw, again)
+    assert bool(torch.isfinite(dw.float()).all())
+    err = (dw.float() - dw_p.float()).abs()
+    tol = _dw_tolerance(args, relu_in, dw_p)
+    assert bool((err <= tol).all()), float((err / tol).max())
+    return dw
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("m,cin,cout", PW_DX_CASES,
+                         ids=[f"{m}x{ci}-{co}" for m, ci, co in PW_DX_CASES])
+def test_pw_dw_kernel_matches_plain(card, m, cin, cout, relu_in):
+    """The Hopper pointwise dW kernel against its plain version at
+    ResNet-50's fifteen pointwise shapes at batch 32 (many pixel chunks
+    each) and ragged ones (batch 1 at 7x7, M off the 32-pixel stage, Cin
+    and Cout off the 64-channel panel and the 16-byte row), a nonzero
+    dstats; a rerun gives the same bits; one launch a call."""
+    args = _bwd_inputs("pw", (m, cin), (cin, cout), seed=m + cin + cout + 5)
+    fc.reset_launch_counts()
+    _assert_dw_matches_plain(args, relu_in)
+    assert dict(fc.launch_counts) == {"pw_conv_dw": 2}
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+def test_pw_dw_kernel_masks_rows_past_m(card, relu_in):
+    """M = 5000 at 256 -> 512 is neither a whole number of 32-pixel stages
+    nor of chunks (the last chunk holds 40 pixels): the rows of its last
+    stage past M are TMA's zero fill, dz = z = 0, whose dz_eff would be
+    dst[0] = 4 and whose fold is relu(shift) > 0. On the valid rows dz
+    cancels dst[0] up to noise, so those 24 rows would stand out: the
+    kernel is within the limit, and a dW that took them in lands more than
+    10x over it."""
+    m, cin, cout = 5000, 256, 512
+    _, chunk, splits = fc.pw_dw_tiles(m, cin, cout, torch.cuda.get_device_properties(0)
+                                      .multi_processor_count)
+    assert m % 32 and m % chunk and splits > 1
+    x, s, t, w, z, dz, dst = _bwd_inputs("pw", (m, cin), (cin, cout), seed=47)
+    dst = torch.stack([dst[0] + 4.0, dst[1]])
+    dz = (dz.float() - 4.0).bfloat16()
+    t = t.abs() + 0.1
+    args = (x, s, t, w, z, dz, dst)
+    dw = _assert_dw_matches_plain(args, relu_in)
+    pad = -(-m // 32) * 32 - m
+    rows = lambda a: torch.cat([a, a.new_zeros((pad, a.shape[1]))])  # noqa: E731
+    dw_lost = fc.pw_conv_bwd_dw_plain(rows(x), s, t, w, rows(z), rows(dz), dst, relu_in)
+    tol = _dw_tolerance(args, relu_in, fc.pw_conv_bwd_dw_plain(*args, relu_in))
+    assert float(((dw_lost.float() - dw.float()).abs() / tol).max()) > 10
+
+
+def _past_the_end(v, n_extra=256):
+    """A copy of the f32 vector (or (2, c) stack) ``v`` whose memory past
+    each row's end holds NaN: a view into a NaN-filled buffer."""
+    rows = v.reshape(-1, v.shape[-1])
+    buf = torch.full((rows.shape[0], rows.shape[1] + n_extra), float("nan"), device=v.device)
+    buf[:, :rows.shape[1]] = rows
+    out = buf[:, :rows.shape[1]]
+    return out.contiguous() if rows.shape[0] > 1 else out.reshape(v.shape)
+
+
+@pytest.mark.parametrize("m,cin,cout", [(300, 36, 70), (300, 96, 160), (1000, 192, 1000),
+                                        (37, 1, 1), (130, 3, 1000), (640, 64, 8)],
+                         ids=["36-70", "96-160", "192-1000", "1-1", "3-1000", "64-8"])
+def test_pw_dw_kernel_channels_past_cin_and_cout(card, m, cin, cout):
+    """Channels past Cin and Cout: a Cin tile of 1, 3, 36 or 64 channels
+    (the second warpgroup's x panel not loaded: stale shared memory), of 96
+    (the second warpgroup's rows past Cin), a last tile of 64 of 192, and
+    Cout past the last 64-column panel and tile (70, 1000, 1, 8). scale and
+    shift are views whose memory past Cin is NaN, and a launch before left
+    NaN in the ring: the rows past Cin are computed but never stored, so the
+    kernel's dW is finite and within the limit, and no row spills into the
+    next chunk's partials."""
+    args = list(_bwd_inputs("pw", (m, cin), (cin, cout), seed=3 * cin + cout))
+    args[1], args[2] = _past_the_end(args[1]), _past_the_end(args[2])
+    nan = torch.full((m, cout), float("nan"), device="cuda").bfloat16()
+    fc.pw_conv_bwd_dw(args[0], args[1], args[2], args[3], nan, nan, args[6], True)
+    for relu_in in (False, True):
+        _assert_dw_matches_plain(tuple(args), relu_in)
+
+
+def test_pw_dw_kernel_reads_misaligned_views_through_the_padded_copy(card):
+    """x, z and dz at bases off 16 bytes go through the padded layout copy:
+    the same kernel, the same bits as on aligned tensors."""
+    x, s, t, w, z, dz, dst = _bwd_inputs("pw", (3000, 256), (256, 128), seed=53)
+
+    def off(a):
+        v = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:].view(a.shape)
+        v.copy_(a)
+        assert v.data_ptr() % 16 and v.is_contiguous()
+        return v
+
+    fc.reset_launch_counts()
+    a = fc.pw_conv_bwd_dw(x, s, t, w, z, dz, dst, True)
+    b_ = fc.pw_conv_bwd_dw(off(x), s, t, w, off(z), off(dz), dst, True)
+    assert dict(fc.launch_counts) == {"pw_conv_dw": 2}
+    assert torch.equal(a, b_)
+
+
+_DW_OPT_IN_RUN = """
+import torch
+from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
+
+# (M, Cin, Cout): the column tile N is 64, 128 or 256 by Cout
+SHAPES = {64: (20000, 256, 64), 128: (20000, 64, 128), 256: (20000, 128, 256)}
+
+def run(order):
+    out = {}
+    for key in order:
+        m, cin, cout = SHAPES[key]
+        g = torch.Generator().manual_seed(cin + cout)
+        x = torch.randn((m, cin), generator=g).bfloat16().cuda()
+        s = (torch.randn(cin, generator=g) * 0.2 + 1).cuda()
+        t = (torch.randn(cin, generator=g) * 0.1).cuda()
+        w = torch.zeros((cin, cout), dtype=torch.bfloat16, device="cuda")
+        z = torch.randn((m, cout), generator=g).bfloat16().cuda()
+        dz = (torch.randn((m, cout), generator=g) * 0.1).bfloat16().cuda()
+        dst = (torch.randn((2, cout), generator=g) * 0.01).cuda()
+        out[key] = fc.pw_conv_bwd_dw(x, s, t, w, z, dz, dst, True).cpu()
+    return out
+"""
+
+
+@pytest.mark.parametrize("order", [(64, 128, 256), (256, 128, 64)],
+                         ids=["64-first", "256-first"])
+def test_pw_dw_kernel_opts_in_per_instantiation_in_any_order(card, tmp_path, order):
+    """The pointwise dW kernel's N-64, N-128 and N-256 instantiations share
+    a function type; each asks for its own shared memory above 48 KB,
+    whichever runs first in a fresh process. The fresh process's results
+    equal this one's bit for bit."""
+    path = tmp_path / "out.pt"
+    script = _DW_OPT_IN_RUN + f"torch.save(run({order!r}), {str(path)!r})\n"
+    subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True, timeout=600)
+    got = torch.load(path)
+    ns = {}
+    exec(_DW_OPT_IN_RUN, ns)
+    want = ns["run"](order)
+    for key in order:
+        assert torch.equal(got[key], want[key]), key
+
+
 def _narrow_conf():
     gb = (NeuralNetConfiguration.builder().seed(5).weight_init("relu")
           .updater(Nesterovs(1e-3, 0.9)).l2(1e-4)

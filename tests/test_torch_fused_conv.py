@@ -361,8 +361,10 @@ def _stub(monkeypatch, lib, names, tile):
 
 
 def _stub_bwd(monkeypatch):
-    return _stub(monkeypatch, tfc._BWD, ("dl4j_pw_conv_bwd_dx", "dl4j_conv3x3_bwd_dx"),
-                 {"m": 64, "n": 64, "k": 32, "p": 128})
+    monkeypatch.setattr(tfc, "_sm_count", lambda index: 132)
+    return _stub(monkeypatch, tfc._BWD, ("dl4j_pw_conv_bwd_dx", "dl4j_conv3x3_bwd_dx",
+                                         "dl4j_pw_conv_bwd_dw", "dl4j_conv3x3_bwd_dw"),
+                 {"m": 64, "n": 64, "k": 32, "p": 128, "c": 128, "s": 32})
 
 
 def _stub_fwd(monkeypatch, rows=128):
@@ -438,6 +440,174 @@ def test_conv3x3_dx_keeps_its_64_row_partials(monkeypatch):
     args = rec.args["conv3x3_dx"]
     assert args[10:] == (2, 7, 7, 64, 64, 0)
     assert args[3] is w and args[5] is dz and args[8].shape == (-(-98 // 64), 2, 64)
+
+
+# (M, Cin, Cout) of ResNet-50's fifteen pointwise convs at batch 32, batch 1
+# at 7x7, one pixel, and channel counts off the tiles
+_PW = [(64, 64, 56), (64, 256, 56), (256, 64, 56), (256, 128, 28), (128, 512, 28),
+       (256, 512, 28), (512, 128, 28), (512, 256, 14), (256, 1024, 14), (512, 1024, 14),
+       (1024, 256, 14), (1024, 512, 7), (512, 2048, 7), (1024, 2048, 7), (2048, 512, 7)]
+PW_DW_SHAPES = ([(32 * hw * hw, ci, co) for ci, co, hw in _PW]
+                + [(49, 1024, 512), (49, 2048, 512), (1, 64, 64), (1, 2048, 512),
+                   (507, 36, 70), (5000, 192, 1000), (200, 96, 160), (37, 1, 1)])
+
+
+@pytest.mark.parametrize("m,cin,cout", PW_DW_SHAPES,
+                         ids=[f"{m}x{ci}-{co}" for m, ci, co in PW_DW_SHAPES])
+def test_pw_dw_tiles_cover_every_pixel_once_in_whole_stages(m, cin, cout):
+    """The pointwise dW kernel's pixel chunks: each a whole number of
+    32-pixel stages, every pixel in exactly one chunk (the last chunk ends
+    past M by less than a chunk), at most one wave of blocks (two an SM at
+    N 64) unless the output tiles alone exceed it, and a grid within CUDA's
+    limits (a 1-D grid of at most 2^31 - 1 blocks); N is Cout rounded up to
+    64, 128 or 256. ResNet-50's shapes fill at least half a wave."""
+    sms = 132
+    n, chunk, splits = tfc.pw_dw_tiles(m, cin, cout, sms)
+    assert n == (64 if cout <= 64 else 128 if cout <= 128 else 256)
+    assert chunk > 0 and chunk % 32 == 0
+    assert (splits - 1) * chunk < m <= splits * chunk
+    starts = [k * chunk for k in range(splits)]
+    covered = sum(min(m, s + chunk) - s for s in starts)
+    assert covered == m and all(s < m for s in starts)
+    tiles = -(-cin // 128) * -(-cout // n)
+    wave = (2 if n == 64 else 1) * sms
+    blocks = tiles * splits
+    assert blocks <= max(tiles, wave) and blocks <= 2 ** 31 - 1
+    if m >= 32 * 32 * 7 * 7 and tiles < wave:
+        assert blocks * 2 > wave
+
+
+def test_pw_dw_tiles_fill_the_wave_with_fewer_longer_chunks():
+    """At stage 1 (64 -> 256, 100,352 pixels) one 64 x 256 tile is split
+    into 131 chunks of 24 stages, about one block an SM; dw_split, which the
+    3x3 keeps, plans four 64 x 64 tiles over 66 chunks of 1536 pixels for
+    it. More tiles than a wave take one chunk each."""
+    assert tfc.pw_dw_tiles(100352, 64, 256, 132) == (256, 768, 131)
+    assert tfc.pw_dw_tiles(100352, 64, 64, 132) == (64, 384, 262)
+    assert tfc.pw_dw_tiles(1568, 1024, 2048, 132) == (256, 800, 2)
+    assert tfc.pw_dw_tiles(1, 2048, 512, 132) == (256, 32, 1)
+    assert tfc.pw_dw_tiles(2000, 4096, 4096, 132) == (256, 2016, 1)
+    assert tfc.dw_split(100352, 64, 256, 1, 132) == (1536, 66)
+
+
+@pytest.mark.parametrize("m,cin,cout", [(100352, 64, 256), (1568, 1024, 2048), (507, 36, 70),
+                                        (200, 96, 160), (49, 2048, 512)])
+def test_pw_dw_wrapper_hands_the_kernel_tma_operands(monkeypatch, m, cin, cout):
+    """The pointwise dW kernel gets x as (M, Cin8) and z, dz as (M, Cout8)
+    (a Cin or Cout that is not a multiple of 8, TMA's 16-byte row stride, as
+    a zero-padded copy; aligned operands as they are), their row strides,
+    the column tile and chunk of :func:`pw_dw_tiles`, and (splits, Cin,
+    Cout) f32 partials; dst, scale and shift as they are; dW has w's shape."""
+    rec = _stub_bwd(monkeypatch)
+    x, w = _meta((m, cin)), _meta((cin, cout))
+    s = _meta((cin,), torch.float32)
+    z, dz = _meta((m, cout)), _meta((m, cout))
+    dst = _meta((2, cout), torch.float32)
+    dw = tfc.pw_conv_bwd_dw(x, s, s, w, z, dz, dst, True)
+    args = rec.args["pw_conv_dw"]
+    cin8, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
+    n, chunk, splits = tfc.pw_dw_tiles(m, cin, cout, 132)
+    assert args[8:] == (m, cin, cout, cin8, cout8, 1, n, chunk)
+    xk, sk, tk, zk, dzk, dstk, partial, dwk = args[:8]
+    assert xk.shape == (m, cin8) and (xk is x) is (cin8 == cin)
+    assert zk.shape == dzk.shape == (m, cout8)
+    assert (zk is z) is (cout8 == cout) and (dzk is dz) is (cout8 == cout)
+    assert sk is s and tk is s and dstk is dst
+    assert partial.shape == (splits, cin, cout) and partial.dtype == torch.float32
+    assert dwk is dw and dw.shape == (cin, cout) and dw.dtype == torch.bfloat16
+
+
+def test_conv3x3_dw_keeps_its_split(monkeypatch):
+    """The 3x3 dW kernel keeps :func:`dw_split`'s chunk and its (splits, 9,
+    Cin, Cout) partials."""
+    rec = _stub_bwd(monkeypatch)
+    x, w = _meta((32, 56, 56, 64)), _meta((3, 3, 64, 64))
+    s = _meta((64,), torch.float32)
+    z = dz = _meta((32, 56, 56, 64))
+    dst = _meta((2, 64), torch.float32)
+    tfc.conv3x3_bwd_dw(x, s, s, w, z, dz, dst, False)
+    args = rec.args["conv3x3_dw"]
+    chunk, splits = tfc.dw_split(100352, 64, 64, 9, 132)
+    assert args[8:] == (32, 56, 56, 64, 64, 0, chunk)
+    assert args[0] is x and args[4] is dz and args[6].shape == (splits, 9, 64, 64)
+
+
+def test_pw_dw_padding_adds_nothing():
+    """The padded operands of a ragged Cin and Cout hold the operands
+    unchanged and zeros past them; on what the kernel reads of them (Cin
+    columns of x, Cout columns of z and dz) the plain version gives the same
+    dW."""
+    rng = np.random.default_rng(3)
+    m, cin, cout = 37, 36, 70
+    x = torch.from_numpy(rng.standard_normal((m, cin)).astype(np.float32)).bfloat16()
+    s = torch.from_numpy((rng.standard_normal(cin) * 0.2 + 1).astype(np.float32))
+    t = torch.from_numpy((rng.standard_normal(cin) * 0.1).astype(np.float32))
+    w = torch.zeros((cin, cout), dtype=torch.bfloat16)
+    z = torch.from_numpy(rng.standard_normal((m, cout)).astype(np.float32)).bfloat16()
+    dz = torch.from_numpy(rng.standard_normal((m, cout)).astype(np.float32)).bfloat16()
+    dst = torch.from_numpy((rng.standard_normal((2, cout)) * 0.01).astype(np.float32))
+    xp, zp, dzp = tfc._pw_dw_operands(x, z, dz)
+    assert xp.shape == (m, 40) and zp.shape == dzp.shape == (m, 72)
+    assert not xp[:, cin:].any() and not zp[:, cout:].any() and not dzp[:, cout:].any()
+    assert torch.equal(xp[:, :cin], x) and torch.equal(zp[:, :cout], z)
+    assert torch.equal(dzp[:, :cout], dz)
+    want = tfc.pw_conv_bwd_dw_plain(x, s, t, w, z, dz, dst, True)
+    got = tfc.pw_conv_bwd_dw_plain(xp[:, :cin], s, t, w, zp[:, :cout], dzp[:, :cout], dst, True)
+    assert torch.equal(got, want)
+    aligned = _meta((64, 64))
+    assert all(a is aligned for a in tfc._pw_dw_operands(aligned, aligned, aligned))
+
+
+def _bad_dw_args(case):
+    """Pointwise dW arguments on "meta" tensors, one of them wrong."""
+    m, cin, cout = 96, 40, 24
+    a = {"x": _meta((m, cin)), "scale": _meta((cin,), torch.float32),
+         "shift": _meta((cin,), torch.float32), "w": _meta((cin, cout)),
+         "z": _meta((m, cout)), "dz": _meta((m, cout)),
+         "dst": _meta((2, cout), torch.float32)}
+    if case == "f32 dz":
+        a["dz"] = _meta((m, cout), torch.float32)
+    elif case == "f64 dst":
+        a["dst"] = _meta((2, cout), torch.float64)
+    elif case == "short z":
+        a["z"] = _meta((m, cout - 8))
+    elif case == "w of another Cin":
+        a["w"] = _meta((cin + 8, cout))
+    elif case == "strided dz":
+        a["dz"] = _meta((cout, m)).t()
+    elif case == "x rank 3":
+        a["x"] = _meta((2, m // 2, cin))
+    elif case == "scale on the CPU":
+        a["scale"] = torch.zeros(cin)
+    return a
+
+
+@pytest.mark.parametrize("case,err,msg", [
+    ("f32 dz", TypeError, "dz must be torch.bfloat16"),
+    ("f64 dst", TypeError, "dst must be torch.float32"),
+    ("short z", ValueError, "z must have shape"),
+    ("w of another Cin", ValueError, "w must be"),
+    ("strided dz", ValueError, "dz must be contiguous"),
+    ("x rank 3", ValueError, "x must have rank 2"),
+    ("scale on the CPU", ValueError, "scale is on cpu"),
+    ("all well", ValueError, "the kernel takes CUDA tensors")])
+def test_pw_dw_wrapper_refuses_bad_arguments_off_the_cpu(monkeypatch, case, err, msg):
+    """Off the CPU (here "meta", which reaches the kernel's wrapper without
+    a card) the pointwise dW wrapper refuses what its kernel does not take,
+    before the kernel library is built or a launch is counted, each with its
+    own message; arguments it takes are refused for the device alone. There
+    is no fallback to the plain version."""
+
+    def unbuilt():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(tfc._BWD, "get", unbuilt)
+    a = _bad_dw_args(case)
+    before = dict(tfc.launch_counts)
+    with pytest.raises(err, match=msg):
+        tfc.pw_conv_bwd_dw(a["x"], a["scale"], a["shift"], a["w"], a["z"], a["dz"], a["dst"],
+                           True)
+    assert dict(tfc.launch_counts) == before
 
 
 FWD_STUB_CASES = [("pw_conv", (100352, 64), 64), ("pw_conv", (6272, 1024), 256),
