@@ -10,7 +10,7 @@ csrc`` (phase 1), holds each forward kernel (phase 2) and each backward
 kernel (phase 2b) against its plain PyTorch version at every ResNet-50 shape
 it runs (phase 2 also at the forward's trap cases: the 3x3 halo, images
 sharing a block, rows past M, a box past Cin, a misaligned x, reruns bit
-for bit; phase 2b the pointwise dW's reruns bit for bit; both by device
+for bit; phase 2b both dW kernels' reruns bit for bit; both by device
 time beside CUDA events), and the int8 matmul
 (phase 2c) at VGG16's and LeNet's head shapes;
 serves a full-width bf16 ResNet-50 (random weights from a seed) through
@@ -517,8 +517,8 @@ def check_bwd_case(fc, op, args, relu_in):
 
 def backward_phase(fc):
     """Phase 2b: the four backward kernels against their plain versions at
-    the shapes of phase 2, both relu_in, a nonzero dstats, and the pointwise
-    dW rerun bit for bit; times of each kernel (CUDA events and device only),
+    the shapes of phase 2, both relu_in, a nonzero dstats, and both dW
+    kernels rerun bit for bit; times of each kernel (CUDA events and device only),
     its plain version and the library call (both ways) at the 19 shapes,
     and each kernel's total over a train step's launches."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -535,11 +535,11 @@ def backward_phase(fc):
                 + " ".join(f"{n} max_abs_err {row[f'{n}_max_abs_err']:.3g} "
                            f"(err/tol {row[f'{n}_err_over_tol']:.3g})"
                            for n in ("dx", "dw", "dscale", "dshift")))
-        if op == "pw_conv":
-            first, again = (fc.pw_conv_bwd_dw(*args, True) for _ in range(2))
-            row["dw_rerun_bit_identical"] = bool(torch.equal(first, again))
-            row["ok"] = row["ok"] and row["dw_rerun_bit_identical"]
-            line += f"; dw rerun bit-identical {row['dw_rerun_bit_identical']}"
+        kdw = fc.pw_conv_bwd_dw if op == "pw_conv" else fc.conv3x3_bwd_dw
+        row["dw_rerun_bit_identical"] = all(
+            bool(torch.equal(*(kdw(*args, r) for _ in range(2)))) for r in (False, True))
+        row["ok"] = row["ok"] and row["dw_rerun_bit_identical"]
+        line += f"; dw rerun bit-identical {row['dw_rerun_bit_identical']}"
         if count:
             flops = 2.0 * m * taps * cin * cout
             x_b, io_b = m * cin * 2 + 2 * cin * 4, 2 * m * cout * 2 + 2 * cout * 4

@@ -17,12 +17,13 @@
 // The f32 products and sums are written with __fmul_rn/__fadd_rn where the
 // plain version rounds each step, so the two round alike.
 //
-// Design. The pointwise dx and dW are Hopper kernels (pw_bwd_dx_kernel_sm90
-// and pw_bwd_dw_kernel_sm90 below: TMA rings, register-A wgmma, dz_eff
-// formed on chip). The 3x3 dx and dW are implicit GEMMs with 64x64 output
-// tiles, four warps of 16x16x16 bf16 WMMA into f32 accumulators, depth in
-// steps of 32 through two shared-memory stages (the next step's global loads
-// wait in registers while the tensor cores work).
+// Design. The pointwise dx, the pointwise dW and the 3x3 dW are Hopper
+// kernels (pw_bwd_dx_kernel_sm90, pw_bwd_dw_kernel_sm90 and
+// conv3x3_bwd_dw_kernel_sm90 below: TMA rings, register-A wgmma, dz_eff
+// formed on chip). The 3x3 dx is an implicit GEMM with 64x64 output tiles,
+// four warps of 16x16x16 bf16 WMMA into f32 accumulators, depth in steps of
+// 32 through two shared-memory stages (the next step's global loads wait in
+// registers while the tensor cores work).
 //
 // 3x3 dx: rows = pixels, columns = Cin, depth = 9 * Cout. The A tile is
 //   dz_eff, formed from dz, z and dst as it is read. The tap (dy, dx) of
@@ -33,9 +34,9 @@
 //   recomputes u from x, applies the ReLU mask and the scale, stores dx, and
 //   writes per-block column partials of du*x and du that a second kernel
 //   sums over the row tiles in a fixed order.
-// dW (both): rows = Cin, columns = Cout, depth = pixels (for the 3x3, one
-//   GEMM per tap). The output is small and the depth huge (stage 1 at batch
-//   32: one 64x256 tile over 100352 pixels). The TPU accumulated over a
+// dW (both): rows = Cin (for the 3x3, (tap, Cin)), columns = Cout, depth =
+//   pixels. The output is small and the depth huge (stage 1 at batch 32:
+//   one 64x256 tile over 100352 pixels). The TPU accumulated over a
 //   sequential grid (dw_ref +=); here the pixels are split into chunks across
 //   blocks, each writes an f32 partial tile, and dw_reduce_kernel sums the
 //   partials in a fixed order and rounds to bf16 only after the sum. No float
@@ -61,14 +62,8 @@ constexpr int LDK = BK + 8;
 constexpr int LDC = BN + 4;
 constexpr int DX_STAGE = BM * LDK + BN * LDK;                  // bf16 elements
 constexpr int DX_AB_BYTES = 2 * DX_STAGE * 2;
-// 3x3 dW kernel: A tile [k][i] (pixel-depth x Cin, read as col-major M x K),
-// B tile [k][n] (pixel-depth x Cout)
-constexpr int LDT = BM + 8;
-constexpr int DW_STAGE = BK * LDT + BK * LDT;
-constexpr int DW_AB_BYTES = 2 * DW_STAGE * 2;
 constexpr int C_BYTES = BM * LDC * 4;
 constexpr int DX_SMEM = DX_AB_BYTES > C_BYTES ? DX_AB_BYTES : C_BYTES;
-constexpr int DW_SMEM = DW_AB_BYTES > C_BYTES ? DW_AB_BYTES : C_BYTES;
 
 __device__ __forceinline__ float dz_eff(float dz, float z, float d0, float d1) {
   // (dz + dst0) + (2z) * dst1, each step rounded, as the plain version
@@ -90,25 +85,6 @@ __device__ __forceinline__ uint4 dz_eff8(uint4 rdz, uint4 rz, const float* dst,
                  __ldg(dst + c + j), __ldg(dst + cout + c + j));
     }
     ob[j] = __float2bfloat16_rn(e);
-  }
-  return out;
-}
-
-// 8 channels of the folded input xn = act(x * scale + shift) in bf16
-__device__ __forceinline__ uint4 fold8(uint4 rx, const float* scale, const float* shift,
-                                       int c, int n_valid, int relu_in) {
-  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(&rx);
-  uint4 out;
-  __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(&out);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float u = 0.f;
-    if (j < n_valid) {
-      u = __fadd_rn(__fmul_rn(__bfloat162float(xb[j]), __ldg(scale + c + j)),
-                    __ldg(shift + c + j));
-      if (relu_in && u < 0.f) u = 0.f;
-    }
-    ob[j] = __float2bfloat16_rn(u);
   }
   return out;
 }
@@ -920,135 +896,341 @@ int launch_pw_dw_sm90(const CUtensorMap& mx, const CUtensorMap& mdz, const CUten
 }
 
 // ---------------------------------------------------------------------------
-// 3x3 dW: one GEMM per tap, WMMA
+// 3x3 dW on Hopper: one GEMM over (tap, Cin) rows; xn^T at the tap's row
+// offset formed into register A, the halo by position; dz_eff formed on chip
+// as the B operand the taps share
 // ---------------------------------------------------------------------------
+// dW (3, 3, Cin, Cout) is the row-major (9 Cin, Cout) matrix with rows (tap,
+// ci): dW = sum over the pixels p of A[(tap, ci), p] B[p, co], where A is the
+// fold of x at p's tap neighbour (0 outside the image) and B = dz_eff, the
+// same for all nine taps. The rows are cut into 64-row panels that never
+// straddle a tap (ceil(Cin / 64) a tap, tap-major), and a block takes two
+// neighbouring panels, one per consumer warpgroup, by N columns of Cout (64,
+// 128 or 256: Cout rounded up) over one chunk of whole 32-pixel stages:
+// PwDw<N>'s geometry and ring. At Cin 64 a block's two warpgroups are two
+// taps of the same channels; at Cin 128, 256 or 512 two halves of 128
+// channels of one tap. Either way they share the stage's B tile. The panels
+// of one chunk, then its column tiles, are neighbours in launch order: the
+// dz, z and x tiles they share come from L2. (All nine taps in one block
+// would hold nine accumulators: 9 N / 2 registers a thread.)
+// - The producer streams, per stage, each panel's x tile (32 pixels x 64
+//   channels) from the row of the stage's tap neighbours, p + (dy-1)W +
+//   (dx-1) (TMA takes a negative or past-the-end start and zero-fills; a box
+//   that would lie wholly outside x starts one row inside it instead, so
+//   every A value is finite), and the stage's dz and z tiles (32 x N). A
+//   panel past the last (an odd panel count) is not loaded.
+// - A = xn^T from registers, as in the pointwise dW: ldmatrix.trans, then
+//   the fold with the panel's per-thread scale and shift (0 past Cin). The
+//   halo by POSITION, after the fold: each warp takes the stage's 32 pixels,
+//   one a lane, finds whether the pixel's tap neighbour lies in its image
+//   (each lane's (h, w) moves on by 32 pixels a stage: no division in the
+//   loop), and a ballot gives the stage's 32-bit mask; a thread ANDs each
+//   folded bf16 pair with its two pixels' bits. Never by value, and never
+//   by TMA's zero fill: an offset row inside x still wraps past the image
+//   row's end or into the next image (at 7x7 and 13x10 a stage spans
+//   images), and a zero-filled x folds to act(shift), not 0.
+// - B = dz_eff, formed once a stage over dz in shared memory as in the
+//   pointwise dW (rows at or past M 0 by position: their A is not masked),
+//   read by both warpgroups' wgmma MN-major. The next stage's B and A are
+//   formed while this stage's wgmma runs.
+// - Epilogue: with one chunk the block rounds its tile to bf16 and stores
+//   it into dW (the bits of a one-split reduce); with more, its f32 tile goes
+//   into its chunk's slice of partial (splits, 9, Cin, Cout), and
+//   dw_reduce_kernel sums the splits in order and rounds. No float atomics:
+//   reruns give the same bits.
+// Bound on an H100: tensor-core operations at ResNet-50's shapes (9 Cin Cout
+// MACs a pixel against 2 (Cin + 2 Cout) bytes). Measured, the consumers'
+// forming of B and A holds it well above that bound (PERF.md).
+struct C3DwArgs {
+  const float* scale;   // (Cin,)
+  const float* shift;
+  const float* dst;     // (2, Cout)
+  float* partial;       // (splits, 9, Cin, Cout) when splits > 1
+  __nv_bfloat16* dw;    // (9, Cin, Cout)
+  int M, H, W, Cin, Cout, relu_in, chunk, splits, row_tiles, col_tiles;
+};
 
-__global__ void __launch_bounds__(THREADS)
-conv3x3_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ shift,
-                      const __nv_bfloat16* __restrict__ z,
-                      const __nv_bfloat16* __restrict__ dz,
-                      const float* __restrict__ dst,
-                      float* __restrict__ partial,
-                      int M, int H, int W, int Cin, int Cout, int relu_in, int chunk) {
-  constexpr int TAPS = 9;
-  __shared__ __align__(128) unsigned char smem[DW_SMEM];
+template <int N>
+__global__ void __launch_bounds__(PwDw<N>::THREADS, PwDw<N>::MIN_BLOCKS)
+conv3x3_bwd_dw_kernel_sm90(__grid_constant__ const CUtensorMap mx,
+                           __grid_constant__ const CUtensorMap mdz,
+                           __grid_constant__ const CUtensorMap mz, const C3DwArgs a) {
+  using namespace hopper;
+  using L = PwDw<N>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::BAR);
+  uint64_t* empty = full + STAGES;
 
-  __nv_bfloat16* As[2];
-  __nv_bfloat16* Bs[2];
-  As[0] = reinterpret_cast<__nv_bfloat16*>(smem);
-  Bs[0] = As[0] + BK * LDT;
-  As[1] = Bs[0] + BK * LDT;
-  Bs[1] = As[1] + BK * LDT;
-  float* Cs = reinterpret_cast<float*>(smem);
+  const int r_tile = blockIdx.x % a.row_tiles;
+  const int rest = blockIdx.x / a.row_tiles;
+  const int split = rest / a.col_tiles;
+  const int n0 = (rest - split * a.col_tiles) * N;
+  const int p0 = split * a.chunk;
+  const int steps = (min(a.M - p0, a.chunk) + DW_BK - 1) / DW_BK;
+  const int per_tap = (a.Cin + 63) / 64;  // 64-channel panels of a tap
+  const int panels = 9 * per_tap;         // panels that exist
+  const int ypanels = min(N / 64, (a.Cout - n0 + 63) / 64);  // dz/z panels with a column < Cout
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // panel 2 r_tile + k: its tap, first channel and the row offset of the tap
+  const auto tap_of = [&](int k) { return (2 * r_tile + k) / per_tap; };
+  const auto offset_of = [&](int tap) { return (tap / 3 - 1) * a.W + tap % 3 - 1; };
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  const int i0 = blockIdx.x * BM;   // first input channel of the tile
-  const int n0 = blockIdx.y * BN;   // first output channel of the tile
-  const int tap = blockIdx.z % TAPS;
-  const int split = blockIdx.z / TAPS;
-  const int p_begin = split * chunk;
-  const int p_end = min(M, p_begin + chunk);
-  const int dy = tap / 3 - 1;
-  const int dxo = tap % 3 - 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], DW_CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  // both tiles: each thread stages one 8-channel chunk of depth rows k, k + 16
-  const int t_k = tid >> 3;
-  const int t_c = (tid & 7) * 8;
-
-  const int KT = (p_end - p_begin + BK - 1) / BK;
-
-  uint4 ra[2], rdz[2], rz[2];
-  int na[2], nb[2];
-
-  auto load = [&](int kt) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int p = p_begin + kt * BK + t_k + 16 * j;
-      long long src = -1;
-      if (p < p_end) {
-        const Pixel px = pixel_of(p, H, W);
-        const int hs = px.h + dy;
-        const int ws = px.w + dxo;
-        if (hs >= 0 && hs < H && ws >= 0 && ws < W) src = (px.n * H + hs) * W + ws;
+  if (threadIdx.x >= DW_CONSUMERS) {  // the producer
+    if constexpr (L::WIDE) regs_dec<40>();
+    if (threadIdx.x == DW_CONSUMERS) {
+      const int xpanels = 2 * r_tile + 1 < panels ? 2 : 1;
+      int c0[2], off[2];
+      for (int k = 0; k < 2; ++k) {
+        c0[k] = (2 * r_tile + k - tap_of(k) * per_tap) * 64;
+        off[k] = offset_of(tap_of(k));
       }
-      // the zero halo: an out-of-image tap contributes 0, not act(shift)
-      const int nva = src >= 0 ? min(8, Cin - (i0 + t_c)) : 0;
-      na[j] = nva;
-      ra[j] = nva > 0 ? load8(x + src * Cin + i0 + t_c, nva) : make_uint4(0u, 0u, 0u, 0u);
-      const int nvb = p < p_end ? min(8, Cout - (n0 + t_c)) : 0;
-      nb[j] = nvb;
-      const long long off = (long long)p * Cout + n0 + t_c;
-      rdz[j] = nvb > 0 ? load8(dz + off, nvb) : make_uint4(0u, 0u, 0u, 0u);
-      rz[j] = nvb > 0 ? load8(z + off, nvb) : make_uint4(0u, 0u, 0u, 0u);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        unsigned char* st = ring + s * L::STAGE_BYTES;
+        const int row = p0 + i * DW_BK;
+        mbar_expect_tx(&full[s], (xpanels + 2 * ypanels) * DW_PANEL);
+        for (int k = 0; k < xpanels; ++k) {
+          // every row of a box wholly outside x is masked (halo or past M):
+          // one row inside keeps the load legal and the values finite
+          const int r = min(max(row + off[k], 1 - DW_BK), a.M - 1);
+          tma_load_2d(st + k * DW_PANEL, &mx, &full[s], c0[k], r);
+        }
+        for (int p = 0; p < ypanels; ++p) {
+          tma_load_2d(st + L::X_BYTES + p * DW_PANEL, &mdz, &full[s], n0 + 64 * p, row);
+          tma_load_2d(st + L::X_BYTES + L::Y_BYTES + p * DW_PANEL, &mz, &full[s], n0 + 64 * p,
+                      row);
+        }
+      }
     }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = t_k + 16 * j;
-      *reinterpret_cast<uint4*>(As[buf] + k * LDT + t_c) =
-          fold8(ra[j], scale, shift, i0 + t_c, na[j], relu_in);
-      *reinterpret_cast<uint4*>(Bs[buf] + k * LDT + t_c) =
-          dz_eff8(rdz[j], rz[j], dst, Cout, n0 + t_c, nb[j]);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  if (KT > 0) {
-    load(0);
-    store(0);
-  }
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < KT) load(kt + 1);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As[cur] + kk * LDT + wm * 32 + i * 16, LDT);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs[cur] + kk * LDT + wn * 32 + j * 16, LDT);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (kt + 1 < KT) store(cur ^ 1);
-    __syncthreads();
+    return;
   }
 
+  // a consumer: warpgroup wg owns panel 2 r_tile + wg (tap, channels from
+  // ci0); this thread's A rows are channels ch0 and ch0 + 8 of it
+  if constexpr (L::WIDE) regs_inc<232>();
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  const bool real = 2 * r_tile + wg < panels;  // not the panel past the last
+  const int tap = tap_of(wg);
+  const int ci0 = (2 * r_tile + wg - tap * per_tap) * 64;
+  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+  const int ch0 = ci0 + (warp % 4) * 16 + g;
+  const float sc0 = ch0 < a.Cin ? __ldg(a.scale + ch0) : 0.f;
+  const float sh0 = ch0 < a.Cin ? __ldg(a.shift + ch0) : 0.f;
+  const float sc1 = ch0 + 8 < a.Cin ? __ldg(a.scale + ch0 + 8) : 0.f;
+  const float sh1 = ch0 + 8 < a.Cin ? __ldg(a.shift + ch0 + 8) : 0.f;
+  // ldmatrix: lane l gives row l % 8 of matrix l / 8, which is pixels
+  // 8 (l / 16) .. + 7 of a k-step by channels 16 (warp % 4) + 8 ((l / 8) & 1)
+  // .. + 7 of the warpgroup's panel
+  const int lm_row = 8 * (lane / 16) + lane % 8;
+  const int lm_off = wg * DW_PANEL + lm_row * 128 +
+                     (((2 * (warp % 4) + ((lane / 8) & 1)) ^ (lane % 8)) << 4);
+  // B: this thread's 8-column chunk cc of the tile, rows sub + TPC q
+  const int cc = threadIdx.x / L::TPC;
+  const int sub = threadIdx.x % L::TPC;
+  const int col = n0 + 8 * cc;
+  // dst[0] and 2 dst[1]: (2z) dst[1] and z (2 dst[1]) are one rounding of
+  // the same product
+  float d0[8], d1x2[8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
+  for (int e = 0; e < 8; ++e) {
+    const bool in = col + e < a.Cout;
+    d0[e] = in ? __ldg(a.dst + col + e) : 0.f;
+    d1x2[e] = in ? 2.f * __ldg(a.dst + a.Cout + col + e) : 0.f;
+  }
+  const int b_off = L::X_BYTES + (cc / 8) * DW_PANEL;  // the chunk's panel of dz in a stage
+  // lane j's pixel of the next stage to build, (qh, qw) in its image; a
+  // stage moves it by 32 pixels, adv_h rows (mod H) and adv_w columns
+  int qw = (p0 + lane) % a.W;
+  int qh = ((p0 + lane) / a.W) % a.H;
+  const int adv_w = DW_BK % a.W, adv_h = (DW_BK / a.W) % a.H;
 
-  float* out = partial + ((long long)split * TAPS + tap) * Cin * Cout;
-  for (int idx = tid; idx < BM * BN; idx += THREADS) {
-    const int r = idx / BN;
-    const int c = idx - r * BN;
-    if (i0 + r < Cin && n0 + c < Cout) {
-      out[(long long)(i0 + r) * Cout + n0 + c] = Cs[r * LDC + c];
+  float acc[L::NH][L::NW / 2];
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < L::NW / 2; ++i) acc[h][i] = 0.f;
+  }
+
+  // stage i's dz_eff over its dz: rows at or past M, and chunks past Cout, 0
+  const auto form = [&](int i) {
+    unsigned char* tdz = ring + (i % STAGES) * L::STAGE_BYTES + b_off;
+    const unsigned char* tz = tdz + L::Y_BYTES;
+    const int left = col < a.Cout ? a.M - (p0 + i * DW_BK) : 0;  // live rows of the stage
+#pragma unroll
+    for (int q = 0; q < L::ROWS; ++q) {
+      const int r = sub + L::TPC * q;
+      const int off = r * 128 + (((cc % 8) ^ (r & 7)) << 4);
+      const uint4 vdz = *reinterpret_cast<const uint4*>(tdz + off);
+      const uint4 vz = *reinterpret_cast<const uint4*>(tz + off);
+      const uint32_t* wdz = reinterpret_cast<const uint32_t*>(&vdz);
+      const uint32_t* wz = reinterpret_cast<const uint32_t*>(&vz);
+      uint4 out;
+      uint32_t* wo = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 fdz = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wdz[e]));
+        const float2 fz = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wz[e]));
+        const auto eff = [&](float d, float zz, int k) {  // column 2e + k, as dz_eff()
+          return __fadd_rn(__fadd_rn(d, d0[2 * e + k]), __fmul_rn(zz, d1x2[2 * e + k]));
+        };
+        wo[e] = r < left ? pack_bf16(eff(fdz.x, fz.x, 0), eff(fdz.y, fz.y, 1)) : 0u;
+      }
+      *reinterpret_cast<uint4*>(tdz + off) = out;
+    }
+  };
+  // the next stage's halo: bit j set where pixel j's tap neighbour lies in
+  // its image (called once a stage, in order: no division in the loop)
+  const auto inside = [&]() -> uint32_t {
+    const bool ok = static_cast<unsigned>(qh + dy) < static_cast<unsigned>(a.H) &&
+                    static_cast<unsigned>(qw + dx) < static_cast<unsigned>(a.W);
+    qw += adv_w;
+    const int carry = qw >= a.W ? 1 : 0;
+    qw -= carry * a.W;
+    qh += adv_h + carry;      // < 2H
+    qh -= qh >= a.H ? a.H : 0;
+    return __ballot_sync(0xffffffffu, ok);
+  };
+  // the bf16-pair mask of stage pixels j and j + 1: bit j rotated to bit 7
+  // of one word and bit j + 1 of another, each byte's sign spread over its
+  // half of the mask (prmt's sign-replicating selectors 8 and C)
+  const auto pair = [](uint32_t bits, int j) {
+    const uint32_t lo = __funnelshift_l(bits, bits, (7 - j) & 31);
+    const uint32_t hi = __funnelshift_l(bits, bits, (6 - j) & 31);
+    uint32_t m;
+    asm("prmt.b32 %0, %1, %2, 0xCC88;" : "=r"(m) : "r"(lo), "r"(hi));
+    return m;
+  };
+  // stage i's fold of x, transposed, in wgmma's register A layout, the halo
+  // 0: av[kk] = {(ch0, pixels 16kk + 2c, +1), (ch0 + 8, the same), (ch0, 8
+  // pixels on), (ch0 + 8, 8 on)}
+  const auto build = [&](uint32_t (&av)[DW_KS][4], int i) {
+    const unsigned char* tx = ring + (i % STAGES) * L::STAGE_BYTES + lm_off;
+    const uint32_t bits = inside();
+#pragma unroll
+    for (int kk = 0; kk < DW_KS; ++kk) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, tx + kk * 16 * 128);
+      const uint32_t m0 = pair(bits, 16 * kk + 2 * c), m1 = pair(bits, 16 * kk + 8 + 2 * c);
+      av[kk][0] = fold2(r[0], sc0, sh0, a.relu_in) & m0;
+      av[kk][1] = fold2(r[1], sc1, sh1, a.relu_in) & m0;
+      av[kk][2] = fold2(r[2], sc0, sh0, a.relu_in) & m1;
+      av[kk][3] = fold2(r[3], sc1, sh1, a.relu_in) & m1;
+    }
+  };
+  // dW += xn^T dz_eff for stage i (dz_eff's tile, 32 pixel rows by N, is
+  // MN-major: 64-column panels DW_PANEL apart). The wgmma of stage i - 1 is
+  // then waited for, which frees its stage and its A registers (next), and
+  // the next stage's B and A are formed while stage i's wgmma runs.
+  const auto step = [&](const uint32_t (&av)[DW_KS][4], uint32_t (&next)[DW_KS][4], int i) {
+    const __nv_bfloat16* tb = reinterpret_cast<const __nv_bfloat16*>(
+        ring + (i % STAGES) * L::STAGE_BYTES + L::X_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DW_KS; ++kk) {
+#pragma unroll
+      for (int h = 0; h < L::NH; ++h) {
+        wgmma_rs<1>(acc[h], av[kk],
+                    desc_mnmajor(tb + h * (L::NW / 64) * DW_BK * 64 + kk * 16 * 64, DW_PANEL), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+    }
+    if (i + 1 < steps) {
+      mbar_wait(&full[(i + 1) % STAGES], ((i + 1) / STAGES) & 1);
+      form(i + 1);
+      fence_proxy_async();  // dz_eff in the tile, for wgmma
+      build(next, i + 1);
+      named_barrier(1, DW_CONSUMERS);
+    }
+  };
+  uint32_t a0[DW_KS][4], a1[DW_KS][4];
+  mbar_wait(&full[0], 0);
+  form(0);
+  fence_proxy_async();
+  build(a0, 0);
+  named_barrier(1, DW_CONSUMERS);
+  for (int i = 0; i < steps; i += 2) {
+    step(a0, a1, i);
+    if (i + 1 < steps) step(a1, a0, i + 1);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) fence_regs(acc[h]);
+  if (!real) return;
+
+  // the tile's rows < Cin and columns < Cout: dW row tap Cin + ci, into dW
+  // itself (one split) or the chunk's partial
+  const long long row0 = static_cast<long long>(tap) * a.Cin;
+  float* out = a.partial + static_cast<long long>(split) * 9 * a.Cin * a.Cout;
+  const bool pairs = (a.Cout & 1) == 0;  // aligned column pairs
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < L::NW / 8; ++i) {
+      const int co = n0 + h * L::NW + 8 * i + 2 * c;
+#pragma unroll
+      for (int slot = 0; slot < 2; ++slot) {
+        const int ci = ch0 + 8 * slot;
+        if (ci >= a.Cin || co >= a.Cout) continue;
+        const long long o = (row0 + ci) * a.Cout + co;
+        const float v0 = acc[h][4 * i + 2 * slot], v1 = acc[h][4 * i + 2 * slot + 1];
+        if (a.splits == 1) {
+          // as dw_reduce_kernel rounds one split: 0 + v (a -0 sum gives +0)
+          const float r0 = __fadd_rn(0.f, v0), r1 = __fadd_rn(0.f, v1);
+          if (pairs) {
+            *reinterpret_cast<uint32_t*>(a.dw + o) = pack_bf16(r0, r1);
+          } else {
+            a.dw[o] = __float2bfloat16_rn(r0);
+            if (co + 1 < a.Cout) a.dw[o + 1] = __float2bfloat16_rn(r1);
+          }
+        } else if (pairs) {
+          *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+        } else {
+          out[o] = v0;
+          if (co + 1 < a.Cout) out[o + 1] = v1;
+        }
+      }
     }
   }
 }
 
+template <int N>
+int launch_c3_dw_sm90(const CUtensorMap& mx, const CUtensorMap& mdz, const CUtensorMap& mz,
+                      C3DwArgs a, cudaStream_t s) {
+  const int bytes = PwDw<N>::BYTES;
+  static bool done[64] = {};  // per N: each instantiation opts in for itself
+  const int err = hopper::opt_in_smem(conv3x3_bwd_dw_kernel_sm90<N>, bytes, done);
+  if (err != 0) return err;
+  a.row_tiles = (9 * ((a.Cin + 63) / 64) + 1) / 2;
+  a.col_tiles = (a.Cout + N - 1) / N;
+  const long long blocks = static_cast<long long>(a.row_tiles) * a.col_tiles * a.splits;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  conv3x3_bwd_dw_kernel_sm90<N><<<static_cast<unsigned>(blocks), PwDw<N>::THREADS, bytes, s>>>(
+      mx, mdz, mz, a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return static_cast<int>(e);
+  return static_cast<int>(
+      launch_dw_reduce(a.partial, a.splits, 9LL * a.Cin * a.Cout, a.dw, s));
+}
 
 int launch_conv3x3_dx(const void* x, const void* scale, const void* shift, const void* w,
                       const void* z, const void* dz, const void* dst, void* dx, void* partial,
@@ -1071,41 +1253,18 @@ int launch_conv3x3_dx(const void* x, const void* scale, const void* shift, const
   return (int)launch_stats_reduce(pp, (int)grid.x, 2 * cin, static_cast<float*>(gst), s);
 }
 
-int launch_conv3x3_dw(const void* x, const void* scale, const void* shift, const void* z,
-                      const void* dz, const void* dst, void* partial, void* dw, int m, int h,
-                      int wd, int cin, int cout, int relu_in, int chunk, void* stream) {
-  constexpr int TAPS = 9;
-  if (m <= 0 || cin <= 0 || cout <= 0 || chunk <= 0 || chunk % BK != 0 ||
-      (cout + BN - 1) / BN > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int splits = (m + chunk - 1) / chunk;
-  if ((long long)splits * TAPS > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid((cin + BM - 1) / BM, (cout + BN - 1) / BN, splits * TAPS);
-  auto* pp = static_cast<float*>(partial);
-  conv3x3_bwd_dw_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<const __nv_bfloat16*>(z),
-      static_cast<const __nv_bfloat16*>(dz), static_cast<const float*>(dst), pp, m, h, wd, cin,
-      cout, relu_in, chunk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_dw_reduce(pp, splits, (long long)TAPS * cin * cout, dw, s);
-}
-
 }  // namespace
 
 extern "C" {
 
 // tile sizes: 0 -> rows per 3x3 dx block (sizes its (tiles, 2, Cin) partials),
-// 1 -> columns per 3x3 block, 2 -> the 3x3 dW depth step (its pixel chunk is
-// a multiple), 3 -> rows per pointwise dx block (sizes its partials), 4 ->
-// input channels per pointwise dW block, 5 -> pixels per pointwise dW stage
-// (its pixel chunk is a multiple)
+// 1 -> rows per pointwise dx block (sizes its partials), 2 -> dW rows per
+// block (input channels of a pointwise dW block; two 64-row panels of the
+// 3x3's (tap, Cin) rows), 3 -> pixels per dW stage (a pixel chunk of either
+// dW is a multiple)
 int dl4j_fused_conv_bwd_tile(int which) {
-  const int tiles[6] = {BM, BN, BK, PW_BM, DW_ROWS, DW_BK};
-  return which >= 0 && which < 6 ? tiles[which] : 0;
+  const int tiles[4] = {BM, PW_BM, DW_ROWS, DW_BK};
+  return which >= 0 && which < 4 ? tiles[which] : 0;
 }
 
 // x (m, cin) bf16, scale/shift (cin,) f32, w (cin, cout) bf16, z/dz (m,
@@ -1184,14 +1343,43 @@ int dl4j_pw_conv_bwd_dw(const void* x, const void* scale, const void* shift, con
   return run(mx, mdz, mz, a, (m + chunk - 1) / chunk, dw, s);
 }
 
-// -> dw (3, 3, cin, cout) bf16; partial is (ceil(m/chunk), 9, cin, cout) f32
-int dl4j_conv3x3_bwd_dw(const void* x, const void* scale, const void* shift,
-                        const void* z, const void* dz, const void* dst, void* partial,
-                        void* dw, int n, int h, int wd, int cin, int cout, int relu_in,
+// NHWC x (n, h, wd, cin) bf16 with row stride ldx, scale/shift (cin,) f32,
+// z/dz (n, h, wd, cout) bf16 with row stride ldy, dst (2, cout) f32 -> dw
+// (3, 3, cin, cout) bf16. tile_n: the column tile (64, 128 or 256); chunk:
+// the pixels of a split, a multiple of the 32-pixel stage; with more than
+// one split, partial is (splits, 9, cin, cout) f32 (else unused). What TMA
+// reads: ldx and ldy multiples of 8, x, z and dz 16-byte aligned; dw 16-byte
+// aligned. Returns cudaGetLastError(), or 1000 + the CUresult of a failed
+// tensor-map encoding.
+int dl4j_conv3x3_bwd_dw(const void* x, const void* scale, const void* shift, const void* z,
+                        const void* dz, const void* dst, void* partial, void* dw, int n, int h,
+                        int wd, int cin, int cout, int ldx, int ldy, int relu_in, int tile_n,
                         int chunk, void* stream) {
-  if (n <= 0 || h <= 0 || wd <= 0) return (int)cudaErrorInvalidValue;
-  return launch_conv3x3_dw(x, scale, shift, z, dz, dst, partial, dw, n * h * wd, h, wd, cin,
-                           cout, relu_in, chunk, stream);
+  const auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  };
+  const long long m = static_cast<long long>(n) * h * wd;
+  if (n <= 0 || h <= 0 || wd <= 0 || m + chunk > 0x7fffffffLL || cin <= 0 || cout <= 0 ||
+      ldx < cin || ldx % 8 || ldy < cout || ldy % 8 ||
+      (tile_n != 64 && tile_n != 128 && tile_n != 256) || chunk <= 0 || chunk % DW_BK ||
+      misaligned(x) || misaligned(z) || misaligned(dz) || misaligned(dw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int splits = static_cast<int>((m + chunk - 1) / chunk);
+  if (splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mdz, mz;
+  int rc = hopper::encode_rows(&mx, x, cin, static_cast<int>(m), ldx, DW_BK);
+  if (rc == 0) rc = hopper::encode_rows(&mdz, dz, cout, static_cast<int>(m), ldy, DW_BK);
+  if (rc == 0) rc = hopper::encode_rows(&mz, z, cout, static_cast<int>(m), ldy, DW_BK);
+  if (rc != 0) return rc;
+  const C3DwArgs a{static_cast<const float*>(scale), static_cast<const float*>(shift),
+                   static_cast<const float*>(dst), static_cast<float*>(partial),
+                   static_cast<__nv_bfloat16*>(dw), static_cast<int>(m), h, wd, cin, cout,
+                   relu_in, chunk, splits, 0, 0};
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto run = tile_n == 64 ? launch_c3_dw_sm90<64>
+                   : tile_n == 128 ? launch_c3_dw_sm90<128> : launch_c3_dw_sm90<256>;
+  return run(mx, mdz, mz, a, s);
 }
 
 }  // extern "C"

@@ -24,10 +24,10 @@ conv through its statistics.
 
 Dispatch: a CPU tensor goes to the plain versions (``*_plain``). A CUDA
 tensor goes to the kernels (bf16 in and out, f32 accumulation), or the
-wrapper raises: there is no fallback. The forward kernel (both ops) and the
-pointwise dx and dW kernels are Hopper designs (TMA tile loads, wgmma): a
-Cin, Cout or base their TMA loads cannot read reaches them through
-:func:`tma_rows`, a zero-padded layout copy for the same kernel. Each launch
+wrapper raises: there is no fallback. The forward kernel (both ops), the
+pointwise dx and both dW kernels are Hopper designs (TMA tile loads,
+wgmma): a Cin, Cout or base their TMA loads cannot read reaches them
+through :func:`tma_rows`, a zero-padded layout copy for the same kernel. Each launch
 adds one to ``launch_counts[name]`` (``launch.py``, shared with the int8
 matmul):
 
@@ -195,14 +195,14 @@ def conv3x3_bwd_plain(x, scale, shift, w, z, dz, dst, relu_in: bool = False):
 _FWD = KernelLibrary("fused_conv",
                      {"dl4j_pw_conv_fwd": (8, 6), "dl4j_conv3x3_fwd": (8, 8)},
                      "dl4j_fused_conv_tile")
-#: tiles of the backward: "m" rows of a 3x3 dx block, "n" columns of a 3x3
-#: block, "k" the 3x3 dW depth step, "p" rows of a pointwise dx block (each
-#: dx kernel's partials have one row per row block), "c" input channels of
-#: a pointwise dW block, "s" pixels of a pointwise dW stage
+#: tiles of the backward: "m" rows of a 3x3 dx block, "p" rows of a
+#: pointwise dx block (each dx kernel's partials have one row per row
+#: block), "c" dW rows of a block (input channels of a pointwise dW block,
+#: two 64-row panels of the 3x3's (tap, Cin) rows), "s" pixels of a dW stage
 _BWD = KernelLibrary("fused_conv_bwd", {
     "dl4j_pw_conv_bwd_dx": (10, 5), "dl4j_conv3x3_bwd_dx": (10, 6),
-    "dl4j_pw_conv_bwd_dw": (8, 8), "dl4j_conv3x3_bwd_dw": (8, 7)},
-    "dl4j_fused_conv_bwd_tile", tile_keys="mnkpcs")
+    "dl4j_pw_conv_bwd_dw": (8, 8), "dl4j_conv3x3_bwd_dw": (8, 10)},
+    "dl4j_fused_conv_bwd_tile", tile_keys="mpcs")
 #: TMA reads 16-byte aligned bases and row strides (8 bf16)
 _TMA_ALIGN = 16
 
@@ -366,73 +366,76 @@ def _fused_bwd_dx(op: str, x, scale, shift, w, z, dz, dst, relu_in: bool):
     return dx, gst[0], gst[1]
 
 
-def dw_split(m: int, cin: int, cout: int, taps: int, sms: int,
-             tile: int = 64, step: int = 32) -> Tuple[int, int]:
-    """``(chunk, splits)`` of the 3x3 dW kernel: it splits the ``m`` pixels
-    of its depth into ``splits`` chunks of ``chunk`` pixels (a multiple of
-    the depth ``step``), one block per (output tile, tap, chunk), so that
-    about two blocks per SM are in flight even when the output is one tile."""
-    tiles = -(-cin // tile) * -(-cout // tile) * taps
-    splits = max(1, min(-(-m // step), -(-2 * sms // tiles)))
-    chunk = -(-(-(-m // splits)) // step) * step
-    return chunk, -(-m // chunk)
-
-
-def pw_dw_tiles(m: int, cin: int, cout: int, sms: int, rows: int = 128,
-                step: int = 32) -> Tuple[int, int, int]:
-    """``(n, chunk, splits)`` of the pointwise dW kernel. A block owns
-    ``rows`` input channels by ``n`` output channels (Cout rounded up to 64,
-    128 or 256; the grid covers a wider Cin or Cout in such tiles) over one
-    chunk of the ``m`` pixels: ``chunk`` is a whole number of ``step``-pixel
+def _dw_chunks(m: int, cout: int, row_tiles: int, sms: int, step: int
+               ) -> Tuple[int, int, int]:
+    """``(n, chunk, splits)`` of a dW kernel whose blocks own one of
+    ``row_tiles`` row tiles by ``n`` output channels (Cout rounded up to 64,
+    128 or 256; the grid covers a wider Cout in such tiles) over one chunk
+    of the ``m`` pixels: ``chunk`` is a whole number of ``step``-pixel
     stages, and the ``splits`` chunks cover every pixel once. The chunks are
     as long as one wave of blocks allows (two blocks an SM at n 64, one
     otherwise): fewer, longer chunks keep the ring full and the f32
-    partials (splits, Cin, Cout) small."""
+    partials (splits, rows, Cout) small."""
     n = 64 if cout <= 64 else 128 if cout <= 128 else 256
-    tiles = -(-cin // rows) * -(-cout // n)
+    tiles = row_tiles * -(-cout // n)
     blocks = (2 if n == 64 else 1) * sms
     splits = max(1, min(-(-m // step), blocks // tiles))
     chunk = -(-(-(-m // splits)) // step) * step
     return n, chunk, -(-m // chunk)
 
 
-def _pw_dw_operands(x, z, dz):
-    """(x, z, dz) as the pointwise dW kernel's TMA loads read them: rows of
-    Cin8 and Cout8 columns (Cin and Cout rounded up to a multiple of 8,
-    TMA's 16-byte row stride), 16-byte aligned; the kernel's maps stop at
-    Cin and Cout, so padded columns are never read."""
-    cin, cout = x.shape[1], z.shape[1]
-    return (tma_rows(x, -(-cin // 8) * 8), tma_rows(z, -(-cout // 8) * 8),
-            tma_rows(dz, -(-cout // 8) * 8))
+def pw_dw_tiles(m: int, cin: int, cout: int, sms: int, rows: int = 128,
+                step: int = 32) -> Tuple[int, int, int]:
+    """``(n, chunk, splits)`` of the pointwise dW kernel: a block owns
+    ``rows`` input channels (the grid covers a wider Cin in such tiles);
+    the rest as :func:`_dw_chunks`."""
+    return _dw_chunks(m, cout, -(-cin // rows), sms, step)
+
+
+def c3_dw_tiles(m: int, cin: int, cout: int, sms: int, rows: int = 128,
+                step: int = 32) -> Tuple[int, int, int]:
+    """``(n, chunk, splits)`` of the 3x3 dW kernel. Its rows are dW's (tap,
+    Cin) rows in panels of ``rows / 2`` that never straddle a tap
+    (``ceil(Cin / 64)`` a tap), and a block owns two neighbouring panels;
+    the rest as :func:`_dw_chunks`."""
+    panels = 9 * -(-cin // (rows // 2))
+    return _dw_chunks(m, cout, -(-panels // 2), sms, step)
+
+
+def _dw_operands(x, z, dz):
+    """(x, z, dz) as the dW kernels' TMA loads read them: (M, Cin8) and (M,
+    Cout8) rows (Cin and Cout rounded up to a multiple of 8, TMA's 16-byte
+    row stride; the 3x3's NHWC tensors as their pixel rows), 16-byte
+    aligned; the kernels' maps stop at Cin and Cout, so padded columns are
+    never read."""
+    rows = lambda t: t if t.dim() == 2 else t.reshape(-1, t.shape[-1])  # noqa: E731
+    cin, cout = x.shape[-1], z.shape[-1]
+    return (tma_rows(rows(x), -(-cin // 8) * 8), tma_rows(rows(z), -(-cout // 8) * 8),
+            tma_rows(rows(dz), -(-cout // 8) * 8))
 
 
 def _fused_bwd_dw(op: str, x, scale, shift, w, z, dz, dst, relu_in: bool):
     """The dW kernel of ``op`` ("pw_conv_dw" or "conv3x3_dw"): dW in bf16.
     Each split of the pixels writes an f32 (Cin, Cout) slice of the
     partials (nine of them for the 3x3), and the kernel's second pass sums
-    the splits in a fixed order."""
+    the splits in a fixed order; the 3x3 kernel with one split stores dW
+    itself and takes no partials."""
     pointwise, m, cin, cout, dims = _check_bwd_args(op, x, scale, shift, w, z, dz, dst)
     if m == 0:
         return torch.zeros_like(w)
     lib = _BWD.get()
-    index = x.device.index or 0
+    sms = _sm_count(x.device.index or 0)
     with torch.cuda.device(x.device):
         dw = torch.empty_like(w)
-        if pointwise:
-            n, chunk, splits = pw_dw_tiles(m, cin, cout, _sm_count(index), _BWD.tile["c"],
-                                           _BWD.tile["s"])
-            x, z, dz = _pw_dw_operands(x, z, dz)
-            partial = torch.empty((splits, cin, cout), dtype=torch.float32, device=x.device)
-            fn = lib.dl4j_pw_conv_bwd_dw
-            ints = (m, cin, cout, x.shape[1], z.shape[1], int(bool(relu_in)), n, chunk)
-        else:
-            chunk, splits = dw_split(m, cin, cout, 9, _sm_count(index), _BWD.tile["n"],
-                                     _BWD.tile["k"])
-            partial = torch.empty((splits, 9, cin, cout), dtype=torch.float32,
-                                  device=x.device)
-            fn = lib.dl4j_conv3x3_bwd_dw
-            ints = (*dims, cin, cout, int(bool(relu_in)), chunk)
-        _launch(fn, op, (*_ptrs(x, scale, shift, z, dz, dst, partial, dw), *ints))
+        plan = pw_dw_tiles if pointwise else c3_dw_tiles
+        n, chunk, splits = plan(m, cin, cout, sms, _BWD.tile["c"], _BWD.tile["s"])
+        x, z, dz = _dw_operands(x, z, dz)
+        shape = ((splits, cin, cout) if pointwise
+                 else (splits if splits > 1 else 0, 9, cin, cout))
+        partial = torch.empty(shape, dtype=torch.float32, device=x.device)
+        fn = lib.dl4j_pw_conv_bwd_dw if pointwise else lib.dl4j_conv3x3_bwd_dw
+        _launch(fn, op, (*_ptrs(x, scale, shift, z, dz, dst, partial, dw), *dims, cin, cout,
+                         x.shape[1], z.shape[1], int(bool(relu_in)), n, chunk))
     return dw
 
 

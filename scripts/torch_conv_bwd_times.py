@@ -16,10 +16,15 @@ step's launches. The phase's code is this checkout's; only the package
 built there), so two trees can be timed in turns in one call on one card.
 Prints the card's name and power limit and, last, one JSON line of the four
 kernels' totals; the per-shape rows go to
-``chiprun_out/conv_bwd_times[_NAME].json``. With ``--dw-only`` it times the
-pointwise dW kernel alone by device time at the fifteen pointwise shapes,
-without the checks (for variants of the kernel whose results are not
-meant to be right, such as one that skips its reduce).
+``chiprun_out/conv_bwd_times[_NAME].json``. With ``--dw-only`` it times a
+dW kernel alone by device time, without the checks (for variants of the
+kernel whose results are not meant to be right, such as one that skips its
+reduce): ``--op pw_conv`` (the default) at the fifteen pointwise shapes,
+``--op conv3x3`` at the four 3x3 shapes; with ``--splits 1,2,4`` the 3x3 dW
+is timed at each given number of pixel chunks instead of its planner's
+(``fused_conv.c3_dw_tiles`` overridden), to choose the planner's split::
+
+    python3 scripts/torch_conv_bwd_times.py --dw-only --op conv3x3 --splits 1,2,4,7
 """
 
 from __future__ import annotations
@@ -35,23 +40,43 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def dw_alone(cs, fc):
-    """Device ms of the pointwise dW kernel at each pointwise shape of a
-    batch-32 ResNet-50 step (phase 2b's inputs), and their sum over the
-    step's 36 launches."""
+def dw_alone(cs, fc, op, splits=()):
+    """Device ms of the ``op`` dW kernel at each of its shapes in a batch-32
+    ResNet-50 step (phase 2b's inputs), and their sum over the step's
+    launches; with ``splits``, the 3x3 dW at each forced number of pixel
+    chunks (a row per shape and chunk count, no step sum)."""
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 2)
+    pw = op == "pw_conv"
+    cases = cs.PW_CASES if pw else [(c, c, hw, n) for c, hw, n in cs.C3_CASES]
+    kern = fc.pw_conv_bwd_dw if pw else fc.conv3x3_bwd_dw
+    plan = fc.c3_dw_tiles
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for cin, cout, hw, count in cs.PW_CASES:
-        (x, s, t, w), m, _ = cs.case_inputs(gen, "pw_conv", cin, cout, hw, cs.BATCH)
-        args = cs.bwd_case(fc, gen, "pw_conv", x, s, t, w)
-        ms = cs.graph_ms(lambda: fc.pw_conv_bwd_dw(*args, True))
-        rows.append({"cin": cin, "cout": cout, "hw": hw, "launches_per_forward": count,
-                     "dw_kernel_device_ms": ms})
-        print(f"pw_conv_dw {cin}->{cout} @{hw}x{hw} batch {cs.BATCH}: device only (CUDA "
-              f"graph) {ms:.4f} ms", flush=True)
+    for cin, cout, hw, count in cases:
+        (x, s, t, w), m, _ = cs.case_inputs(gen, op, cin, cout, hw, cs.BATCH)
+        args = cs.bwd_case(fc, gen, op, x, s, t, w)
+        for k in splits or [None]:
+            chunk = None if pw else plan(m, cin, cout, sms)[1]
+            if k is not None:   # k chunks of whole 32-pixel stages
+                chunk = -(-(-(-m // k)) // 32) * 32
+                fc.c3_dw_tiles = lambda *a, c=chunk: (plan(*a)[0], c, -(-a[0] // c))
+            try:
+                ms = cs.graph_ms(lambda: kern(*args, True))
+            finally:
+                fc.c3_dw_tiles = plan
+            chunks = None if pw else -(-m // chunk)
+            rows.append({"cin": cin, "cout": cout, "hw": hw, "launches_per_forward": count,
+                         "chunks": chunks, "dw_kernel_device_ms": ms})
+            print(f"{op}_dw {cin}->{cout} @{hw}x{hw} batch {cs.BATCH}"
+                  f"{'' if pw else f', {chunks} chunks'}: device only (CUDA graph) "
+                  f"{ms:.4f} ms", flush=True)
+    if splits:
+        return rows, {}
     total = sum(r["launches_per_forward"] * r["dw_kernel_device_ms"] for r in rows)
-    print(f"pw_conv_dw over a train step's 36 launches: device only {total:.4f} ms", flush=True)
-    return rows, {"pw_conv_dw": {"kernel_device_ms": total}}
+    launches = sum(r["launches_per_forward"] for r in rows)
+    print(f"{op}_dw over a train step's {launches} launches: device only {total:.4f} ms",
+          flush=True)
+    return rows, {f"{op}_dw": {"kernel_device_ms": total}}
 
 
 def main() -> int:
@@ -59,8 +84,16 @@ def main() -> int:
     ap.add_argument("--root", default=REPO, help="the tree whose package is timed")
     ap.add_argument("--label", default="", help="a name for the output file")
     ap.add_argument("--dw-only", action="store_true",
-                    help="time the pointwise dW kernel alone, without the checks")
+                    help="time one dW kernel alone, without the checks")
+    ap.add_argument("--op", choices=("pw_conv", "conv3x3"), default="pw_conv",
+                    help="the dW kernel that --dw-only times")
+    ap.add_argument("--splits", default="",
+                    help="with --dw-only --op conv3x3: pixel chunk counts to time, "
+                         "comma-separated, in place of the planner's")
     args = ap.parse_args()
+    splits = [int(k) for k in args.splits.split(",") if k]
+    if splits and not (args.dw_only and args.op == "conv3x3"):
+        ap.error("--splits takes --dw-only --op conv3x3")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -75,7 +108,8 @@ def main() -> int:
         raise RuntimeError(f"imported {fc.__file__}, not the package under {root}")
     card = cs.smi_line()
     print(f"conv backward times of {root}: {card}", flush=True)
-    rows, summary = dw_alone(cs, fc) if args.dw_only else cs.backward_phase(fc)
+    rows, summary = (dw_alone(cs, fc, args.op, splits) if args.dw_only
+                     else cs.backward_phase(fc))
     os.makedirs("chiprun_out", exist_ok=True)
     name = f"conv_bwd_times{'_' + args.label if args.label else ''}.json"
     with open(os.path.join("chiprun_out", name), "w") as f:

@@ -604,6 +604,183 @@ def test_pw_dw_kernel_opts_in_per_instantiation_in_any_order(card, tmp_path, ord
         assert torch.equal(got[key], want[key]), key
 
 
+def _assert_c3_dw_matches_plain(args, relu_in):
+    """The 3x3 dW kernel against its plain version, twice: the same bits on
+    the rerun, within ``_bwd_tolerances``' limit, finite; returns the
+    kernel's dW and the limit."""
+    dw = fc.conv3x3_bwd_dw(*args, relu_in)
+    again = fc.conv3x3_bwd_dw(*args, relu_in)
+    dw_p = fc.conv3x3_bwd_dw_plain(*args, relu_in)
+    torch.cuda.synchronize()
+    assert dw.dtype == torch.bfloat16 and dw.shape == args[3].shape
+    assert torch.equal(dw, again)
+    assert bool(torch.isfinite(dw.float()).all())
+    _, tol = _bwd_tolerances("c3", *args, relu_in, torch.zeros_like(args[0]), dw_p)
+    err = (dw.float() - dw_p.float()).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+    return dw, tol
+
+
+# (x shape, Cout): ResNet-50's four 3x3 convs at batch 32, batch 1 at 7x7,
+# 36 -> 70 at 9x9 (Cin and Cout off the panel and the 16-byte row), and a
+# non-square 13x10 (W does not divide the 32-pixel stage; stages span images)
+C3_DW_CASES = ([((chip_smoke.BATCH, hw, hw, c), c) for c, hw, _ in chip_smoke.C3_CASES]
+               + [((1, 7, 7, 512), 512), ((2, 9, 9, 36), 70), ((3, 13, 10, 64), 64)])
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("x_shape,cout", C3_DW_CASES,
+                         ids=[f"{'x'.join(map(str, x))}-{c}" for x, c in C3_DW_CASES])
+def test_c3_dw_kernel_matches_plain(card, x_shape, cout, relu_in):
+    """The Hopper 3x3 dW kernel against its plain version at ResNet-50's
+    four 3x3 shapes at batch 32 (many pixel chunks; at Cin 64 a block's
+    warpgroups are two taps), batch 1 at 7x7 (one chunk: the kernel stores
+    dW itself), 36 -> 70 and a 13x10 image, a nonzero dstats; a rerun gives
+    the same bits; one launch a call."""
+    cin = x_shape[3]
+    args = _bwd_inputs("c3", x_shape, (3, 3, cin, cout), seed=sum(x_shape) + cout)
+    fc.reset_launch_counts()
+    _assert_c3_dw_matches_plain(args, relu_in)
+    assert dict(fc.launch_counts) == {"conv3x3_dw": 2}
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("x_shape,cout", [((2, 14, 14, 64), 64), ((3, 7, 7, 256), 128),
+                                          ((2, 13, 10, 128), 256)],
+                         ids=["14x14-64", "7x7-256", "13x10-128"])
+def test_c3_dw_kernel_halo_closed_form(card, x_shape, cout, relu_in):
+    """x = 0 and shift = 1: the fold is 1 inside the image and the SAME halo
+    0 after it, so tap (dy, dx)'s dW[ci, co] is, for every ci, the sum of
+    dz_eff[., co] over the pixels whose neighbour (h + dy - 1, w + dx - 1)
+    lies in the image. The kernel gives that within the limit; the halo
+    matters (the sum over all pixels is far over it) at every tap but the
+    centre. Cin 64 pairs two taps in a block, 7x7 stages span images, 13x10
+    rows wrap inside a stage."""
+    n, h, wd, cin = x_shape
+    x, s, t, w, z, dz, dst = _bwd_inputs("c3", x_shape, (3, 3, cin, cout), seed=h * wd + cin)
+    x, t = torch.zeros_like(x), torch.ones_like(t)
+    args = (x, s, t, w, z, dz, dst)
+    dw, tol = _assert_c3_dw_matches_plain(args, relu_in)
+    g = fc._dz_eff(x, z, dz, dst).double()                     # (n, h, wd, cout)
+    hh = torch.arange(h, device="cuda").view(1, h, 1, 1)
+    ww = torch.arange(wd, device="cuda").view(1, 1, wd, 1)
+    for dy in range(3):
+        for dx in range(3):
+            inside = ((hh + dy - 1 >= 0) & (hh + dy - 1 < h) & (ww + dx - 1 >= 0)
+                      & (ww + dx - 1 < wd))
+            want = (g * inside).sum((0, 1, 2))
+            err = (dw[dy, dx].double() - want).abs()
+            assert bool((err <= tol[dy, dx]).all()), (dy, dx, float((err / tol[dy, dx]).max()))
+            if (dy, dx) != (1, 1):
+                lost = (g.sum((0, 1, 2)) - want).abs()
+                assert float((lost / tol[dy, dx]).max()) > 10, (dy, dx)
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+def test_c3_dw_kernel_masks_rows_past_m(card, relu_in):
+    """3 images of 7x7 are M = 147 pixels, 13 short of five 32-pixel
+    stages: those rows are TMA's zero fill, dz = z = 0, whose dz_eff would
+    be dst[0] = 4, and at the centre tap their x is zero fill too, which
+    folds to act(shift) > 0. On the valid rows dz cancels dst[0] up to
+    noise. The kernel is within the limit; a dW that took the 13 rows in
+    would be off at the centre tap by 13 act(shift) dst[0], more than 10x
+    the limit."""
+    x_shape, cout = (3, 7, 7, 256), 256
+    x, s, t, w, z, dz, dst = _bwd_inputs("c3", x_shape, (3, 3, 256, cout), seed=49)
+    dst = torch.stack([dst[0] + 4.0, dst[1]])
+    dz = (dz.float() - 4.0).bfloat16()
+    t = t.abs() + 0.1
+    args = (x, s, t, w, z, dz, dst)
+    _, tol = _assert_c3_dw_matches_plain(args, relu_in)
+    pad = -(-147 // 32) * 32 - 147
+    lost = pad * t.view(-1, 1) * dst[0].view(1, -1)      # act(shift) = shift > 0
+    assert float((lost / tol[1, 1]).max()) > 10
+
+
+@pytest.mark.parametrize("x_shape,cout", [((2, 9, 5, 36), 70), ((2, 9, 5, 96), 160),
+                                          ((2, 9, 5, 192), 1000), ((2, 3, 5, 1), 1),
+                                          ((3, 7, 7, 64), 8)],
+                         ids=["36-70", "96-160", "192-1000", "1-1", "64-8"])
+def test_c3_dw_kernel_channels_past_cin_and_cout(card, x_shape, cout):
+    """Channels past Cin and Cout: a panel of 1, 36 or 64 channels, of 96
+    (the second panel of a tap past Cin), 192 (three panels a tap: 27 in
+    all, so the last block's second warpgroup has no panel, and the others
+    pair panels of two taps), Cout past the last 64-column panel and tile
+    (70, 160, 1000, 1, 8). scale and shift are views whose memory past Cin
+    is NaN, and a launch before left NaN in the ring: rows past Cin are
+    computed but never stored, so the kernel's dW is finite and within the
+    limit."""
+    cin = x_shape[3]
+    args = list(_bwd_inputs("c3", x_shape, (3, 3, cin, cout), seed=3 * cin + cout))
+    args[1], args[2] = _past_the_end(args[1]), _past_the_end(args[2])
+    nan = torch.full((*x_shape[:3], cout), float("nan"), device="cuda").bfloat16()
+    fc.conv3x3_bwd_dw(args[0], args[1], args[2], args[3], nan, nan, args[6], True)
+    for relu_in in (False, True):
+        _assert_c3_dw_matches_plain(tuple(args), relu_in)
+
+
+def test_c3_dw_kernel_reads_misaligned_views_through_the_padded_copy(card):
+    """x, z and dz at bases off 16 bytes go through the padded layout copy:
+    the same kernel, the same bits as on aligned tensors."""
+    x, s, t, w, z, dz, dst = _bwd_inputs("c3", (4, 14, 14, 128), (3, 3, 128, 128), seed=59)
+
+    def off(a):
+        v = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:].view(a.shape)
+        v.copy_(a)
+        assert v.data_ptr() % 16 and v.is_contiguous()
+        return v
+
+    fc.reset_launch_counts()
+    a = fc.conv3x3_bwd_dw(x, s, t, w, z, dz, dst, True)
+    b_ = fc.conv3x3_bwd_dw(off(x), s, t, w, off(z), off(dz), dst, True)
+    assert dict(fc.launch_counts) == {"conv3x3_dw": 2}
+    assert torch.equal(a, b_)
+
+
+_C3_DW_OPT_IN_RUN = """
+import torch
+from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
+
+# (x shape, Cout): the column tile N is 64, 128 or 256 by Cout
+SHAPES = {64: ((8, 28, 28, 128), 64), 128: ((8, 28, 28, 64), 128),
+          256: ((8, 14, 14, 128), 256)}
+
+def run(order):
+    out = {}
+    for key in order:
+        x_shape, cout = SHAPES[key]
+        cin = x_shape[3]
+        g = torch.Generator().manual_seed(cin + cout)
+        x = torch.randn(x_shape, generator=g).bfloat16().cuda()
+        s = (torch.randn(cin, generator=g) * 0.2 + 1).cuda()
+        t = (torch.randn(cin, generator=g) * 0.1).cuda()
+        w = torch.zeros((3, 3, cin, cout), dtype=torch.bfloat16, device="cuda")
+        z = torch.randn((*x_shape[:3], cout), generator=g).bfloat16().cuda()
+        dz = (torch.randn((*x_shape[:3], cout), generator=g) * 0.1).bfloat16().cuda()
+        dst = (torch.randn((2, cout), generator=g) * 0.01).cuda()
+        out[key] = fc.conv3x3_bwd_dw(x, s, t, w, z, dz, dst, True).cpu()
+    return out
+"""
+
+
+@pytest.mark.parametrize("order", [(64, 128, 256), (256, 128, 64)],
+                         ids=["64-first", "256-first"])
+def test_c3_dw_kernel_opts_in_per_instantiation_in_any_order(card, tmp_path, order):
+    """The 3x3 dW kernel's N-64, N-128 and N-256 instantiations share a
+    function type; each asks for its own shared memory above 48 KB,
+    whichever runs first in a fresh process. The fresh process's results
+    equal this one's bit for bit."""
+    path = tmp_path / "out.pt"
+    script = _C3_DW_OPT_IN_RUN + f"torch.save(run({order!r}), {str(path)!r})\n"
+    subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True, timeout=600)
+    got = torch.load(path)
+    ns = {}
+    exec(_C3_DW_OPT_IN_RUN, ns)
+    want = ns["run"](order)
+    for key in order:
+        assert torch.equal(got[key], want[key]), key
+
+
 def _narrow_conf():
     gb = (NeuralNetConfiguration.builder().seed(5).weight_init("relu")
           .updater(Nesterovs(1e-3, 0.9)).l2(1e-4)

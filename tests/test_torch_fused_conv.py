@@ -17,11 +17,14 @@ Tolerances:
 - stats: rtol 1e-4, atol 1e-3, as ``test_fused_conv.py`` holds its kernels.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu.nn.ops import fused_conv as jfc
 from deeplearning4j_tpu_torch.nn.ops import fused_conv as tfc
@@ -325,14 +328,21 @@ def test_relu_tie_gradient_is_the_references():
 
 
 def test_dw_split_covers_the_pixels():
-    for m, cin, cout, taps in ((100352, 64, 64, 1), (100352, 64, 64, 9),
-                               (1568, 1024, 2048, 1), (49, 512, 512, 9), (1, 8, 8, 1)):
-        chunk, splits = tfc.dw_split(m, cin, cout, taps, 132)
+    """The 3x3 dW kernel's plan (c3_dw_tiles) at ResNet-50's four 3x3
+    shapes at batch 32, batch 1 at 7x7 and one pixel: two 64-row panels of
+    dW's (tap, Cin) rows a block (Cin 64: five row tiles, the last with one
+    panel), N = Cout rounded up, and the pixels in whole 32-pixel stages, at
+    most one wave of blocks (two an SM at N 64) unless the tiles alone
+    exceed it."""
+    for m, cin, cout in ((100352, 64, 64), (25088, 128, 128), (6272, 256, 256),
+                         (1568, 512, 512), (49, 512, 512), (1, 8, 8)):
+        n, chunk, splits = tfc.c3_dw_tiles(m, cin, cout, 132)
         assert chunk % 32 == 0 and splits * chunk >= m > (splits - 1) * chunk
-        if m >= 32 * 264:
-            # about two blocks per SM even when the output is one tile
-            blocks = splits * taps * -(-cin // 64) * -(-cout // 64)
-            assert 1.9 * 132 <= blocks < 4 * 132
+        tiles = -(-9 * -(-cin // 64) // 2) * -(-cout // n)
+        assert tiles * splits <= max(tiles, (2 if n == 64 else 1) * 132)
+    assert tfc.c3_dw_tiles(100352, 64, 64, 132) == (64, 1952, 52)
+    assert tfc.c3_dw_tiles(1568, 512, 512, 132) == (256, 1568, 1)
+    assert tfc.c3_dw_tiles(1, 8, 8, 132) == (64, 32, 1)
 
 
 # ------------------------------------------------------- host logic (stubbed)
@@ -364,7 +374,7 @@ def _stub_bwd(monkeypatch):
     monkeypatch.setattr(tfc, "_sm_count", lambda index: 132)
     return _stub(monkeypatch, tfc._BWD, ("dl4j_pw_conv_bwd_dx", "dl4j_conv3x3_bwd_dx",
                                          "dl4j_pw_conv_bwd_dw", "dl4j_conv3x3_bwd_dw"),
-                 {"m": 64, "n": 64, "k": 32, "p": 128, "c": 128, "s": 32})
+                 {"m": 64, "p": 128, "c": 128, "s": 32})
 
 
 def _stub_fwd(monkeypatch, rows=128):
@@ -479,15 +489,13 @@ def test_pw_dw_tiles_cover_every_pixel_once_in_whole_stages(m, cin, cout):
 
 def test_pw_dw_tiles_fill_the_wave_with_fewer_longer_chunks():
     """At stage 1 (64 -> 256, 100,352 pixels) one 64 x 256 tile is split
-    into 131 chunks of 24 stages, about one block an SM; dw_split, which the
-    3x3 keeps, plans four 64 x 64 tiles over 66 chunks of 1536 pixels for
-    it. More tiles than a wave take one chunk each."""
+    into 131 chunks of 24 stages, about one block an SM. More tiles than a
+    wave take one chunk each."""
     assert tfc.pw_dw_tiles(100352, 64, 256, 132) == (256, 768, 131)
     assert tfc.pw_dw_tiles(100352, 64, 64, 132) == (64, 384, 262)
     assert tfc.pw_dw_tiles(1568, 1024, 2048, 132) == (256, 800, 2)
     assert tfc.pw_dw_tiles(1, 2048, 512, 132) == (256, 32, 1)
     assert tfc.pw_dw_tiles(2000, 4096, 4096, 132) == (256, 2016, 1)
-    assert tfc.dw_split(100352, 64, 256, 1, 132) == (1536, 66)
 
 
 @pytest.mark.parametrize("m,cin,cout", [(100352, 64, 256), (1568, 1024, 2048), (507, 36, 70),
@@ -518,8 +526,9 @@ def test_pw_dw_wrapper_hands_the_kernel_tma_operands(monkeypatch, m, cin, cout):
 
 
 def test_conv3x3_dw_keeps_its_split(monkeypatch):
-    """The 3x3 dW kernel keeps :func:`dw_split`'s chunk and its (splits, 9,
-    Cin, Cout) partials."""
+    """The 3x3 dW kernel gets c3_dw_tiles' column tile and chunk, NHWC x
+    and dz as their (M, C) pixel rows, their row strides, and (splits, 9,
+    Cin, Cout) f32 partials (stage 1 at batch 32: 52 chunks)."""
     rec = _stub_bwd(monkeypatch)
     x, w = _meta((32, 56, 56, 64)), _meta((3, 3, 64, 64))
     s = _meta((64,), torch.float32)
@@ -527,9 +536,155 @@ def test_conv3x3_dw_keeps_its_split(monkeypatch):
     dst = _meta((2, 64), torch.float32)
     tfc.conv3x3_bwd_dw(x, s, s, w, z, dz, dst, False)
     args = rec.args["conv3x3_dw"]
-    chunk, splits = tfc.dw_split(100352, 64, 64, 9, 132)
-    assert args[8:] == (32, 56, 56, 64, 64, 0, chunk)
-    assert args[0] is x and args[4] is dz and args[6].shape == (splits, 9, 64, 64)
+    n, chunk, splits = tfc.c3_dw_tiles(100352, 64, 64, 132)
+    assert splits == 52
+    assert args[8:] == (32, 56, 56, 64, 64, 64, 64, 0, n, chunk)
+    assert args[0].shape == args[4].shape == (100352, 64)
+    assert args[0]._base is x and args[4]._base is dz   # views, no copy
+    assert args[6].shape == (splits, 9, 64, 64)
+
+
+C3_DW_SHAPES = [((32, 56, 56, 64), 64), ((32, 28, 28, 128), 128), ((32, 14, 14, 256), 256),
+                ((32, 7, 7, 512), 512), ((1, 7, 7, 512), 512), ((2, 9, 9, 36), 70),
+                ((3, 13, 10, 64), 64), ((2, 9, 5, 192), 1000), ((1, 1, 1, 1), 1)]
+_C3_IDS = [f"{'x'.join(map(str, x))}-{co}" for x, co in C3_DW_SHAPES]
+
+
+@pytest.mark.parametrize("x_shape,cout", C3_DW_SHAPES, ids=_C3_IDS)
+def test_c3_dw_tiles_cover_every_pixel_once_in_whole_stages(x_shape, cout):
+    """Every pixel in exactly one chunk of whole 32-pixel stages (the last
+    chunk ends past M by less than a chunk), at most one wave of blocks
+    unless the (tap, Cin) row tiles alone exceed it, a 1-D grid within
+    CUDA's limit of 2^31 - 1 blocks, N = Cout rounded up to 64, 128 or 256;
+    ResNet-50's batch-32 shapes fill at least half a wave."""
+    sms = 132
+    m, cin = math.prod(x_shape[:3]), x_shape[3]
+    n, chunk, splits = tfc.c3_dw_tiles(m, cin, cout, sms)
+    assert n == (64 if cout <= 64 else 128 if cout <= 128 else 256)
+    assert chunk > 0 and chunk % 32 == 0
+    starts = [k * chunk for k in range(splits)]
+    assert sum(min(m, s0 + chunk) - s0 for s0 in starts) == m and all(s0 < m for s0 in starts)
+    panels = 9 * -(-cin // 64)
+    tiles = -(-panels // 2) * -(-cout // n)
+    wave = (2 if n == 64 else 1) * sms
+    assert tiles * splits <= max(tiles, wave) and tiles * splits <= 2 ** 31 - 1
+    if x_shape[0] == 32:
+        assert tiles * splits * 2 > wave
+
+
+@pytest.mark.parametrize("x_shape,cout", C3_DW_SHAPES, ids=_C3_IDS)
+def test_c3_dw_wrapper_hands_the_kernel_tma_operands(monkeypatch, x_shape, cout):
+    """The 3x3 dW kernel gets x as (M, Cin8) and z, dz as (M, Cout8) pixel
+    rows (a Cin or Cout that is not a multiple of 8 as a zero-padded copy;
+    aligned operands as views of themselves), the NHWC geometry, their row
+    strides, relu_in, the column tile and chunk of c3_dw_tiles, and (splits,
+    9, Cin, Cout) f32 partials, none with one split (the kernel then stores
+    dW itself); dst, scale and shift as they are; dW has w's shape."""
+    rec = _stub_bwd(monkeypatch)
+    cin = x_shape[3]
+    m = math.prod(x_shape[:3])
+    x, w = _meta(x_shape), _meta((3, 3, cin, cout))
+    s = _meta((cin,), torch.float32)
+    z, dz = _meta((*x_shape[:3], cout)), _meta((*x_shape[:3], cout))
+    dst = _meta((2, cout), torch.float32)
+    dw = tfc.conv3x3_bwd_dw(x, s, s, w, z, dz, dst, True)
+    args = rec.args["conv3x3_dw"]
+    cin8, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
+    n, chunk, splits = tfc.c3_dw_tiles(m, cin, cout, 132)
+    assert args[8:] == (*x_shape[:3], cin, cout, cin8, cout8, 1, n, chunk)
+    xk, sk, tk, zk, dzk, dstk, partial, dwk = args[:8]
+    assert xk.shape == (m, cin8) and zk.shape == dzk.shape == (m, cout8)
+    assert (xk._base is x) is (cin8 == cin) and (dzk._base is dz) is (cout8 == cout)
+    assert sk is s and tk is s and dstk is dst
+    assert partial.shape == (splits if splits > 1 else 0, 9, cin, cout)
+    assert partial.dtype == torch.float32
+    assert dwk is dw and dw.shape == (3, 3, cin, cout) and dw.dtype == torch.bfloat16
+
+
+def _bad_c3_dw_args(case):
+    """3x3 dW arguments on "meta" tensors, one of them wrong."""
+    n, h, wd, cin, cout = 2, 9, 5, 40, 24
+    a = {"x": _meta((n, h, wd, cin)), "scale": _meta((cin,), torch.float32),
+         "shift": _meta((cin,), torch.float32), "w": _meta((3, 3, cin, cout)),
+         "z": _meta((n, h, wd, cout)), "dz": _meta((n, h, wd, cout)),
+         "dst": _meta((2, cout), torch.float32)}
+    if case == "f32 x":
+        a["x"] = _meta((n, h, wd, cin), torch.float32)
+    elif case == "f64 scale":
+        a["scale"] = _meta((cin,), torch.float64)
+    elif case == "z of another image":
+        a["z"] = _meta((n, wd, h, cout))
+    elif case == "pointwise w":
+        a["w"] = _meta((cin, cout))
+    elif case == "strided x":
+        a["x"] = _meta((n, h, 2 * wd, cin))[:, :, ::2]
+    elif case == "x rank 2":
+        a["x"] = _meta((n * h * wd, cin))
+    elif case == "dst on the CPU":
+        a["dst"] = torch.zeros((2, cout))
+    return a
+
+
+@pytest.mark.parametrize("case,err,msg", [
+    ("f32 x", TypeError, "x must be torch.bfloat16"),
+    ("f64 scale", TypeError, "scale must be torch.float32"),
+    ("z of another image", ValueError, "z must have shape"),
+    ("pointwise w", ValueError, "w must be"),
+    ("strided x", ValueError, "x must be contiguous"),
+    ("x rank 2", ValueError, "x must have rank 4"),
+    ("dst on the CPU", ValueError, "dst is on cpu"),
+    ("all well", ValueError, "the kernel takes CUDA tensors")])
+def test_c3_dw_wrapper_refuses_bad_arguments_off_the_cpu(monkeypatch, case, err, msg):
+    """Off the CPU ("meta" tensors reach the kernel's wrapper without a
+    card) the 3x3 dW wrapper refuses what its kernel does not take, before
+    the kernel library is built or a launch is counted; arguments it takes
+    are refused for the device alone. No fallback to the plain version."""
+
+    def unbuilt():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(tfc._BWD, "get", unbuilt)
+    a = _bad_c3_dw_args(case)
+    before = dict(tfc.launch_counts)
+    with pytest.raises(err, match=msg):
+        tfc.conv3x3_bwd_dw(a["x"], a["scale"], a["shift"], a["w"], a["z"], a["dz"], a["dst"],
+                           True)
+    assert dict(tfc.launch_counts) == before
+
+
+def test_c3_dw_padding_adds_nothing():
+    """The padded pixel rows of a ragged Cin and Cout hold the operands
+    unchanged and zeros past them; on what the kernel reads of them (Cin
+    columns of x, Cout columns of z and dz) the plain version gives the same
+    dW, and with the padding read as channels, dW's rows and columns past
+    Cin and Cout are 0 and the rest is unchanged."""
+    rng = np.random.default_rng(4)
+    n, h, wd, cin, cout = 2, 5, 4, 36, 70
+    x = torch.from_numpy(rng.standard_normal((n, h, wd, cin)).astype(np.float32)).bfloat16()
+    s = torch.from_numpy((rng.standard_normal(cin) * 0.2 + 1).astype(np.float32))
+    t = torch.from_numpy((rng.standard_normal(cin) * 0.1).astype(np.float32))
+    w = torch.zeros((3, 3, cin, cout), dtype=torch.bfloat16)
+    z = torch.from_numpy(rng.standard_normal((n, h, wd, cout)).astype(np.float32)).bfloat16()
+    dz = torch.from_numpy(rng.standard_normal((n, h, wd, cout)).astype(np.float32)).bfloat16()
+    dst = torch.from_numpy((rng.standard_normal((2, cout)) * 0.01).astype(np.float32))
+    xp, zp, dzp = tfc._dw_operands(x, z, dz)
+    m = n * h * wd
+    assert xp.shape == (m, 40) and zp.shape == dzp.shape == (m, 72)
+    assert not xp[:, cin:].any() and not zp[:, cout:].any() and not dzp[:, cout:].any()
+    assert torch.equal(xp[:, :cin], x.reshape(m, cin)) and torch.equal(dzp[:, :cout],
+                                                                        dz.reshape(m, cout))
+    want = tfc.conv3x3_bwd_dw_plain(x, s, t, w, z, dz, dst, True)
+    got = tfc.conv3x3_bwd_dw_plain(xp[:, :cin].reshape(x.shape), s, t, w,
+                                   zp[:, :cout].reshape(z.shape),
+                                   dzp[:, :cout].reshape(dz.shape), dst, True)
+    assert torch.equal(got, want)
+    wide = tfc.conv3x3_bwd_dw_plain(
+        xp.reshape(n, h, wd, 40), F.pad(s, (0, 4)), F.pad(t, (0, 4)),
+        torch.zeros((3, 3, 40, 72), dtype=torch.bfloat16), zp.reshape(n, h, wd, 72),
+        dzp.reshape(n, h, wd, 72), F.pad(dst, (0, 2)), True)
+    assert not wide[:, :, cin:].any() and not wide[:, :, :, cout:].any()
+    torch.testing.assert_close(wide[:, :, :cin, :cout].float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-6)
 
 
 def test_pw_dw_padding_adds_nothing():
@@ -546,7 +701,7 @@ def test_pw_dw_padding_adds_nothing():
     z = torch.from_numpy(rng.standard_normal((m, cout)).astype(np.float32)).bfloat16()
     dz = torch.from_numpy(rng.standard_normal((m, cout)).astype(np.float32)).bfloat16()
     dst = torch.from_numpy((rng.standard_normal((2, cout)) * 0.01).astype(np.float32))
-    xp, zp, dzp = tfc._pw_dw_operands(x, z, dz)
+    xp, zp, dzp = tfc._dw_operands(x, z, dz)
     assert xp.shape == (m, 40) and zp.shape == dzp.shape == (m, 72)
     assert not xp[:, cin:].any() and not zp[:, cout:].any() and not dzp[:, cout:].any()
     assert torch.equal(xp[:, :cin], x) and torch.equal(zp[:, :cout], z)
@@ -555,7 +710,7 @@ def test_pw_dw_padding_adds_nothing():
     got = tfc.pw_conv_bwd_dw_plain(xp[:, :cin], s, t, w, zp[:, :cout], dzp[:, :cout], dst, True)
     assert torch.equal(got, want)
     aligned = _meta((64, 64))
-    assert all(a is aligned for a in tfc._pw_dw_operands(aligned, aligned, aligned))
+    assert all(a is aligned for a in tfc._dw_operands(aligned, aligned, aligned))
 
 
 def _bad_dw_args(case):
