@@ -256,14 +256,15 @@ def make_inputs(gen, x_shape, w_shape, fan_in):
 
 def shape_cases():
     """(op, Cin, Cout, H=W, launches per forward, batch): the 19 ResNet-50
-    shapes at batch 32, then ragged cases: batch 1 at 7x7 (M = 49) and
-    channel counts off the tile."""
+    shapes at batch 32, then ragged cases: batch 1 at 7x7 (M = 49), channel
+    counts off the tile, and a 3x3 below one 128-row tile (M = 75)."""
     cases = [("pw_conv", ci, co, hw, n, BATCH) for ci, co, hw, n in PW_CASES]
     cases += [("conv3x3", c, c, hw, n, BATCH) for c, hw, n in C3_CASES]
     return cases + [
         ("pw_conv", 1024, 512, 7, 0, 1), ("pw_conv", 2048, 512, 7, 0, 1),
         ("pw_conv", 512, 2048, 7, 0, 1), ("conv3x3", 512, 512, 7, 0, 1),
-        ("pw_conv", 36, 70, 13, 0, 3), ("conv3x3", 36, 70, 9, 0, 2)]
+        ("pw_conv", 36, 70, 13, 0, 3), ("conv3x3", 36, 70, 9, 0, 2),
+        ("conv3x3", 200, 136, 5, 0, 3)]
 
 
 def case_inputs(gen, op, cin, cout, hw, batch):
@@ -517,10 +518,11 @@ def check_bwd_case(fc, op, args, relu_in):
 
 def backward_phase(fc):
     """Phase 2b: the four backward kernels against their plain versions at
-    the shapes of phase 2, both relu_in, a nonzero dstats, and both dW
-    kernels rerun bit for bit; times of each kernel (CUDA events and device only),
-    its plain version and the library call (both ways) at the 19 shapes,
-    and each kernel's total over a train step's launches."""
+    the shapes of phase 2, both relu_in, a nonzero dstats, and every kernel
+    rerun bit for bit (dx with dscale and dshift); times of each kernel
+    (CUDA events and device only), its plain version and the library call
+    (both ways) at the 19 shapes, and each kernel's total over a train
+    step's launches."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
     for op, cin, cout, hw, count, batch in shape_cases():
@@ -535,11 +537,16 @@ def backward_phase(fc):
                 + " ".join(f"{n} max_abs_err {row[f'{n}_max_abs_err']:.3g} "
                            f"(err/tol {row[f'{n}_err_over_tol']:.3g})"
                            for n in ("dx", "dw", "dscale", "dshift")))
+        kdx = fc.pw_conv_bwd_dx if op == "pw_conv" else fc.conv3x3_bwd_dx
         kdw = fc.pw_conv_bwd_dw if op == "pw_conv" else fc.conv3x3_bwd_dw
+        row["dx_rerun_bit_identical"] = all(
+            all(bool(torch.equal(a, b)) for a, b in zip(*(kdx(*args, r) for _ in range(2))))
+            for r in (False, True))
         row["dw_rerun_bit_identical"] = all(
             bool(torch.equal(*(kdw(*args, r) for _ in range(2)))) for r in (False, True))
-        row["ok"] = row["ok"] and row["dw_rerun_bit_identical"]
-        line += f"; dw rerun bit-identical {row['dw_rerun_bit_identical']}"
+        row["ok"] = row["ok"] and row["dx_rerun_bit_identical"] and row["dw_rerun_bit_identical"]
+        line += (f"; dx rerun bit-identical {row['dx_rerun_bit_identical']}"
+                 f", dw rerun bit-identical {row['dw_rerun_bit_identical']}")
         if count:
             flops = 2.0 * m * taps * cin * cout
             x_b, io_b = m * cin * 2 + 2 * cin * 4, 2 * m * cout * 2 + 2 * cout * 4

@@ -17,23 +17,22 @@
 // The f32 products and sums are written with __fmul_rn/__fadd_rn where the
 // plain version rounds each step, so the two round alike.
 //
-// Design. The pointwise dx, the pointwise dW and the 3x3 dW are Hopper
-// kernels (pw_bwd_dx_kernel_sm90, pw_bwd_dw_kernel_sm90 and
-// conv3x3_bwd_dw_kernel_sm90 below: TMA rings, register-A wgmma, dz_eff
-// formed on chip). The 3x3 dx is an implicit GEMM with 64x64 output tiles,
-// four warps of 16x16x16 bf16 WMMA into f32 accumulators, depth in steps of
-// 32 through two shared-memory stages (the next step's global loads wait in
-// registers while the tensor cores work).
+// Design. All four are Hopper kernels (TMA rings on full/empty mbarriers,
+// wgmma with the A operand formed in registers, dz_eff formed on chip):
+// pw_bwd_dx_kernel_sm90, conv3x3_bwd_dx_kernel_sm90, pw_bwd_dw_kernel_sm90
+// and conv3x3_bwd_dw_kernel_sm90 below.
 //
-// 3x3 dx: rows = pixels, columns = Cin, depth = 9 * Cout. The A tile is
-//   dz_eff, formed from dz, z and dst as it is read. The tap (dy, dx) of
-//   output pixel (h, w) reads dz_eff at (h+1-dy, w+1-dx): the transposed
-//   conv with the taps flipped. An out-of-image tap loads 0, NOT dz_eff of a
-//   zero pixel (which would add dst[0]): the Pallas kernel forms dz_eff over
-//   the valid pixels only and scatters into a zero halo. The epilogue
-//   recomputes u from x, applies the ReLU mask and the scale, stores dx, and
-//   writes per-block column partials of du*x and du that a second kernel
-//   sums over the row tiles in a fixed order.
+// dx (both): rows = pixels, columns = Cin, depth = Cout (for the 3x3, nine
+//   taps x Cout). A = dz_eff, formed from the dz and z tiles and dst as it
+//   is read into registers. The 3x3's tap (dy, dx) of output pixel (h, w)
+//   reads dz_eff at (h+1-dy, w+1-dx): the transposed conv with the taps
+//   flipped, loaded by TMA at the negated row offset of the forward's tap.
+//   An out-of-image tap gives 0, NOT dz_eff of a zero pixel (which would add
+//   dst[0]): the Pallas kernel forms dz_eff over the valid pixels only and
+//   scatters into a zero halo. The epilogue recomputes u from x, applies the
+//   ReLU mask and the scale, stores dx, and writes per-block column partials
+//   of du*x and du that a second kernel sums over the row tiles in a fixed
+//   order.
 // dW (both): rows = Cin (for the 3x3, (tap, Cin)), columns = Cout, depth =
 //   pixels. The output is small and the depth huge (stage 1 at batch 32:
 //   one 64x256 tile over 100352 pixels). The TPU accumulated over a
@@ -47,232 +46,14 @@
 // the pointwise ones and the 64-channel stage-1 ones by bytes (see
 // chip_smoke.py phase 2b). Times are in PERF.md.
 
-#include <mma.h>
-
 #include "fused_conv_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-// 3x3 dx kernel: A tile [row][k] (pixels x Cout-depth), B tile [n][k] (Cin x
-// Cout-depth, read as col-major K x N)
-constexpr int LDK = BK + 8;
-constexpr int LDC = BN + 4;
-constexpr int DX_STAGE = BM * LDK + BN * LDK;                  // bf16 elements
-constexpr int DX_AB_BYTES = 2 * DX_STAGE * 2;
-constexpr int C_BYTES = BM * LDC * 4;
-constexpr int DX_SMEM = DX_AB_BYTES > C_BYTES ? DX_AB_BYTES : C_BYTES;
-
 __device__ __forceinline__ float dz_eff(float dz, float z, float d0, float d1) {
   // (dz + dst0) + (2z) * dst1, each step rounded, as the plain version
   return __fadd_rn(__fadd_rn(dz, d0), __fmul_rn(2.f * z, d1));
-}
-
-// 8 channels of dz_eff from raw dz/z registers; channels past n_valid are 0
-__device__ __forceinline__ uint4 dz_eff8(uint4 rdz, uint4 rz, const float* dst,
-                                         int cout, int c, int n_valid) {
-  const __nv_bfloat16* d = reinterpret_cast<const __nv_bfloat16*>(&rdz);
-  const __nv_bfloat16* zz = reinterpret_cast<const __nv_bfloat16*>(&rz);
-  uint4 out;
-  __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(&out);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float e = 0.f;
-    if (j < n_valid) {
-      e = dz_eff(__bfloat162float(d[j]), __bfloat162float(zz[j]),
-                 __ldg(dst + c + j), __ldg(dst + cout + c + j));
-    }
-    ob[j] = __float2bfloat16_rn(e);
-  }
-  return out;
-}
-
-// pixel m -> (image, row, col) of an H x W image
-struct Pixel {
-  long long n;
-  int h, w;
-};
-
-__device__ __forceinline__ Pixel pixel_of(int m, int H, int W) {
-  const int hw = H * W;
-  const int n = m / hw;
-  const int r = m - n * hw;
-  Pixel p;
-  p.n = n;
-  p.h = r / W;
-  p.w = r - p.h * W;
-  return p;
-}
-
-// ---------------------------------------------------------------------------
-// 3x3 dx, dscale, dshift
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(THREADS)
-conv3x3_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ shift,
-                   const __nv_bfloat16* __restrict__ w,
-                   const __nv_bfloat16* __restrict__ z,
-                   const __nv_bfloat16* __restrict__ dz,
-                   const float* __restrict__ dst,
-                   __nv_bfloat16* __restrict__ dx,
-                   float* __restrict__ partial,
-                   int M, int H, int W, int Cin, int Cout, int relu_in) {
-  constexpr int TAPS = 9;
-  __shared__ __align__(128) unsigned char smem[DX_SMEM];
-  __shared__ float red[2][2][BN];
-
-  __nv_bfloat16* As[2];
-  __nv_bfloat16* Bs[2];
-  As[0] = reinterpret_cast<__nv_bfloat16*>(smem);
-  Bs[0] = As[0] + BM * LDK;
-  As[1] = Bs[0] + BN * LDK;
-  Bs[1] = As[1] + BM * LDK;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;   // first input channel of the tile
-
-  // A tile: each thread stages one 8-channel chunk of rows r and r + 32
-  const int a_row = tid >> 2;
-  const int a_kc = (tid & 3) * 8;
-  bool a_valid[2];
-  Pixel a_px[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + a_row + 32 * i;
-    a_valid[i] = m < M;
-    a_px[i] = pixel_of(a_valid[i] ? m : 0, H, W);
-  }
-  // B tile: each thread stages one 8-channel (Cout) chunk of Cin rows r, r + 32
-  const int b_row = tid >> 2;
-  const int b_kc = (tid & 3) * 8;
-
-  const int CK = (Cout + BK - 1) / BK;
-  const int KT = TAPS * CK;
-
-  uint4 rdz[2], rz[2], rb[2];
-  int na[2];
-
-  auto load = [&](int kt) {
-    const int tap = kt / CK;
-    const int c0 = (kt - tap * CK) * BK;
-    const int c = c0 + a_kc;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      long long pix = -1;
-      if (a_valid[i]) {
-        // flipped tap: the transposed conv
-        const int hs = a_px[i].h + 1 - tap / 3;
-        const int ws = a_px[i].w + 1 - tap % 3;
-        if (hs >= 0 && hs < H && ws >= 0 && ws < W) {
-          pix = (a_px[i].n * H + hs) * W + ws;
-        }
-      }
-      const int nv = pix >= 0 ? min(8, Cout - c) : 0;
-      na[i] = nv;
-      rdz[i] = nv > 0 ? load8(dz + pix * Cout + c, nv) : make_uint4(0u, 0u, 0u, 0u);
-      rz[i] = nv > 0 ? load8(z + pix * Cout + c, nv) : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int ci = n0 + b_row + 32 * j;
-      const int co = c0 + b_kc;
-      const int nv = ci < Cin ? min(8, Cout - co) : 0;
-      rb[j] = nv > 0 ? load8(w + ((long long)tap * Cin + ci) * Cout + co, nv)
-                     : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-
-  auto store = [&](int kt, int buf) {
-    const int tap = kt / CK;
-    const int c = (kt - tap * CK) * BK + a_kc;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      *reinterpret_cast<uint4*>(As[buf] + (a_row + 32 * i) * LDK + a_kc) =
-          dz_eff8(rdz[i], rz[i], dst, Cout, c, na[i]);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      *reinterpret_cast<uint4*>(Bs[buf] + (b_row + 32 * j) * LDK + b_kc) = rb[j];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  load(0);
-  store(0, 0);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < KT) load(kt + 1);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As[cur] + (wm * 32 + i * 16) * LDK + kk, LDK);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs[cur] + (wn * 32 + j * 16) * LDK + kk, LDK);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (kt + 1 < KT) store(kt + 1, cur ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  // epilogue: thread (c, half) walks 32 rows of column c; neighbouring
-  // threads touch neighbouring channels of one row (coalesced)
-  const int c = tid & (BN - 1);
-  const int half = tid / BN;
-  const int ci = n0 + c;
-  float s_dux = 0.f, s_du = 0.f;
-  if (ci < Cin) {
-    const float sc = __ldg(scale + ci);
-    const float sh = __ldg(shift + ci);
-    for (int r = half * (BM / 2); r < (half + 1) * (BM / 2); ++r) {
-      const int m = m0 + r;
-      if (m >= M) break;
-      const long long off = (long long)m * Cin + ci;
-      const float xv = __bfloat162float(x[off]);
-      float du = Cs[r * LDC + c];
-      if (relu_in && !(__fadd_rn(__fmul_rn(xv, sc), sh) > 0.f)) du = 0.f;
-      dx[off] = __float2bfloat16_rn(__fmul_rn(du, sc));
-      s_dux += du * xv;
-      s_du += du;
-    }
-  }
-  red[0][half][c] = s_dux;
-  red[1][half][c] = s_du;
-  __syncthreads();
-  if (tid < BN && n0 + tid < Cin) {
-    const long long base = (long long)blockIdx.x * 2 * Cin + n0 + tid;
-    partial[base] = red[0][0][tid] + red[0][1][tid];
-    partial[base + Cin] = red[1][0][tid] + red[1][1][tid];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -302,15 +83,7 @@ conv3x3_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x,
 //   reference masks rows >= m_valid. The next stage's dz_eff is formed while
 //   this stage's wgmma runs (two sets of A registers); dxn = dz_eff W^T
 //   accumulates in registers over the whole depth.
-// - Epilogue, from the accumulator registers: x of the thread's rows and
-//   channels from the shared x tile (0 past M and Cin, as the reference's
-//   zero-padded rows), u = x scale + shift, the ReLU mask, dx = bf16(du
-//   scale) written over x in the tile and stored by TMA (which writes no row
-//   past M); du*x and du of the thread's two rows go to a shared table of
-//   the block's 64 row groups (columns swizzled by row: conflict-free), and
-//   one thread per channel sums its 64 entries in order into the block's
-//   partials, which stats_reduce_kernel sums over the row blocks in order.
-//   No float atomics: reruns give the same bits.
+// - Epilogue: dx_epilogue below, from the accumulator registers.
 // Bound on an H100: at ResNet-50's shapes the bytes (x, dz, z, dx once).
 constexpr int PW_BM = 128;                 // pixel rows per block
 constexpr int PW_BK = 64;                  // Cout depth per stage
@@ -338,6 +111,102 @@ struct PwDx {
   static_assert(RED_BYTES <= STAGES * STAGE_BYTES, "the row sums reuse the ring");
   static_assert((2 * STAGES + 1) * 8 <= 64, "the barriers fit");
 };
+
+// Where a dx block's epilogue finds its tiles
+struct DxTiles {
+  unsigned char* sx;   // the x tile, N / 64 panels of 128 rows: x, then dx
+  float* red;          // [du*x, du][PW_GROUPS row groups][N], over the spent ring
+  float* ssc;          // [scale; shift] of the block's N channels
+  uint64_t* bar_x;     // the x tile's barrier
+  int m0, n0, tile_m;  // the block's first row and channel, its row tile
+};
+
+// The dx kernels' epilogue (the consumers), from the accumulator registers:
+// x of the thread's rows and channels from the shared x tile (0 past M and
+// Cin, as the reference's zero-padded rows), u = x scale + shift, the ReLU
+// mask, dx = bf16(du scale) written over x in the tile and stored by TMA
+// (which writes no row past M and no column past Cin). du*x and du of the
+// thread's rows below M (live0, live1: by position) go to a shared table of
+// the block's 64 row groups (columns swizzled by row group: conflict-free),
+// and one thread per channel sums its 64 entries in order into the block's
+// partials (row tiles, 2, Cin), which stats_reduce_kernel sums over the row
+// tiles in order. No float atomics: reruns give the same bits.
+template <int N>
+__device__ __forceinline__ void dx_epilogue(float (&acc)[PwDx<N>::NH][PwDx<N>::NW / 2],
+                                            const DxTiles& t, const CUtensorMap* mdx,
+                                            const float* __restrict__ scale,
+                                            const float* __restrict__ shift,
+                                            float* __restrict__ partial, int Cin, int relu_in,
+                                            bool live0, bool live1) {
+  using namespace hopper;
+  using L = PwDx<N>;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  const int c = threadIdx.x % 4;
+  const int lr = (warp / 4) * 64 + (warp % 4) * 16 + g;  // the thread's rows lr, lr + 8
+  // the block's scale and shift (0 past Cin) beside the tile
+  for (int i = threadIdx.x; i < 2 * N; i += PW_CONSUMERS) {
+    const int col = t.n0 + (i < N ? i : i - N);
+    t.ssc[i] = col < Cin ? __ldg((i < N ? scale : shift) + col) : 0.f;
+  }
+  mbar_wait(t.bar_x, 0);
+  named_barrier(1, PW_CONSUMERS);  // both warpgroups are done with the ring; ssc is written
+  const int rg = warp * 8 + g;     // this thread's row group
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < L::NW / 8; ++i) {
+      const int cl = h * L::NW + 8 * i + 2 * c;  // the block's column of this pair
+      const float2 sc = *reinterpret_cast<const float2*>(t.ssc + cl);
+      const float2 sh = *reinterpret_cast<const float2*>(t.ssc + N + cl);
+      unsigned char* panel = t.sx + (cl / 64) * PW_BM * 128;
+      float dux0 = 0.f, dux1 = 0.f, du0s = 0.f, du1s = 0.f;
+#pragma unroll
+      for (int slot = 0; slot < 2; ++slot) {
+        const int r = lr + 8 * slot;
+        uint32_t* word = reinterpret_cast<uint32_t*>(
+            panel + r * 128 + ((((cl % 64) / 8) ^ (r & 7)) << 4) + 4 * c);
+        const uint32_t wx = *word;
+        const float2 fx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wx));
+        float du0 = acc[h][4 * i + 2 * slot], du1 = acc[h][4 * i + 2 * slot + 1];
+        if (relu_in) {
+          if (!(__fadd_rn(__fmul_rn(fx.x, sc.x), sh.x) > 0.f)) du0 = 0.f;
+          if (!(__fadd_rn(__fmul_rn(fx.y, sc.y), sh.y) > 0.f)) du1 = 0.f;
+        }
+        *word = pack_bf16(__fmul_rn(du0, sc.x), __fmul_rn(du1, sc.y));
+        if (slot ? live1 : live0) {
+          dux0 += du0 * fx.x;
+          dux1 += du1 * fx.y;
+          du0s += du0;
+          du1s += du1;
+        }
+      }
+      const int pc = cl ^ (g << 3);  // swizzled by row group: conflict-free
+      *reinterpret_cast<float2*>(t.red + rg * N + pc) = make_float2(dux0, dux1);
+      *reinterpret_cast<float2*>(t.red + (PW_GROUPS + rg) * N + pc) = make_float2(du0s, du1s);
+    }
+  }
+  fence_proxy_async();             // dx in the tile, for the TMA store
+  named_barrier(1, PW_CONSUMERS);
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < N / 64; ++p) tma_store_2d(mdx, t.sx + p * PW_BM * 128, t.n0 + p * 64, t.m0);
+    tma_store_commit();
+  }
+  for (int cl = threadIdx.x; cl < N; cl += PW_CONSUMERS) {
+    const int col = t.n0 + cl;
+    if (col >= Cin) break;
+    float s1 = 0.f, s2 = 0.f;
+    for (int r = 0; r < PW_GROUPS; ++r) {
+      const int pc = cl ^ ((r & 7) << 3);
+      s1 += t.red[r * N + pc];
+      s2 += t.red[(PW_GROUPS + r) * N + pc];
+    }
+    const long long base = static_cast<long long>(t.tile_m) * 2 * Cin + col;
+    partial[base] = s1;
+    partial[base + Cin] = s2;
+  }
+  if (threadIdx.x == 0) tma_store_wait_read();
+}
 
 template <int N>
 __global__ void __launch_bounds__(PwDx<N>::THREADS, PwDx<N>::MIN_BLOCKS)
@@ -484,67 +353,9 @@ pw_bwd_dx_kernel_sm90(__grid_constant__ const CUtensorMap mdz,
     if (j + 1 < nk) step(a1, a0, j + 1);
   }
 
-  // epilogue: the block's scale and shift (0 past Cin) beside the tile
-  for (int i = threadIdx.x; i < 2 * N; i += PW_CONSUMERS) {
-    const int col = n0 + (i < N ? i : i - N);
-    ssc[i] = col < Cin ? __ldg((i < N ? scale : shift) + col) : 0.f;
-  }
-  float* red = reinterpret_cast<float*>(ring);  // [du*x, du][64 row groups][N], over the ring
-  mbar_wait(bar_x, 0);
-  named_barrier(1, PW_CONSUMERS);  // both warpgroups are done with the ring; ssc is written
-  const int rg = warp * 8 + g;     // this thread's row group
-#pragma unroll
-  for (int h = 0; h < L::NH; ++h) {
-#pragma unroll
-    for (int i = 0; i < L::NW / 8; ++i) {
-      const int cl = h * L::NW + 8 * i + 2 * c;  // the block's column of this pair
-      const float2 sc = *reinterpret_cast<const float2*>(ssc + cl);
-      const float2 sh = *reinterpret_cast<const float2*>(ssc + N + cl);
-      unsigned char* panel = sx + (cl / 64) * PW_BM * 128;
-      float dux0 = 0.f, dux1 = 0.f, du0s = 0.f, du1s = 0.f;
-#pragma unroll
-      for (int slot = 0; slot < 2; ++slot) {
-        const int r = lr + 8 * slot;
-        uint32_t* word = reinterpret_cast<uint32_t*>(
-            panel + r * 128 + ((((cl % 64) / 8) ^ (r & 7)) << 4) + 4 * c);
-        const uint32_t wx = *word;
-        const float2 fx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wx));
-        float du0 = acc[h][4 * i + 2 * slot], du1 = acc[h][4 * i + 2 * slot + 1];
-        if (relu_in) {
-          if (!(__fadd_rn(__fmul_rn(fx.x, sc.x), sh.x) > 0.f)) du0 = 0.f;
-          if (!(__fadd_rn(__fmul_rn(fx.y, sc.y), sh.y) > 0.f)) du1 = 0.f;
-        }
-        *word = pack_bf16(__fmul_rn(du0, sc.x), __fmul_rn(du1, sc.y));
-        dux0 += du0 * fx.x;
-        dux1 += du1 * fx.y;
-        du0s += du0;
-        du1s += du1;
-      }
-      const int pc = cl ^ (g << 3);  // swizzled by row group: conflict-free
-      *reinterpret_cast<float2*>(red + rg * N + pc) = make_float2(dux0, dux1);
-      *reinterpret_cast<float2*>(red + (PW_GROUPS + rg) * N + pc) = make_float2(du0s, du1s);
-    }
-  }
-  fence_proxy_async();             // dx in the tile, for the TMA store
-  named_barrier(1, PW_CONSUMERS);
-  if (threadIdx.x == 0) {
-    for (int p = 0; p < N / 64; ++p) tma_store_2d(&mdx, sx + p * PW_BM * 128, n0 + p * 64, m0);
-    tma_store_commit();
-  }
-  for (int cl = threadIdx.x; cl < N; cl += PW_CONSUMERS) {
-    const int col = n0 + cl;
-    if (col >= Cin) break;
-    float s1 = 0.f, s2 = 0.f;
-    for (int r = 0; r < PW_GROUPS; ++r) {
-      const int pc = cl ^ ((r & 7) << 3);
-      s1 += red[r * N + pc];
-      s2 += red[(PW_GROUPS + r) * N + pc];
-    }
-    const long long base = static_cast<long long>(blockIdx.x) * 2 * Cin + col;
-    partial[base] = s1;
-    partial[base + Cin] = s2;
-  }
-  if (threadIdx.x == 0) tma_store_wait_read();
+  const DxTiles tiles{sx, reinterpret_cast<float*>(ring), ssc, bar_x, m0, n0,
+                      static_cast<int>(blockIdx.x)};
+  dx_epilogue<N>(acc, tiles, &mdx, scale, shift, partial, Cin, relu_in, live0, live1);
 }
 
 template <int N>
@@ -565,6 +376,247 @@ int launch_pw_dx_sm90(const CUtensorMap& mdz, const CUtensorMap& mz, const CUten
   return static_cast<int>(launch_stats_reduce(static_cast<const float*>(partial),
                                               static_cast<int>(grid.x), 2 * cin,
                                               static_cast<float*>(gst), s));
+}
+
+// ---------------------------------------------------------------------------
+// 3x3 dx, dscale, dshift on Hopper: the pointwise dx over nine flipped taps
+// ---------------------------------------------------------------------------
+// The transposed 3x3 SAME conv as one GEMM: rows = pixels (M), columns =
+// Cin, depth = 9 taps x Cout, in stages of 64 channels of Cout of one tap.
+// A block owns 128 pixel rows x N input channels (N = 64 or 128, planned by
+// the wrapper: fused_conv.c3_dx_tiles) in PwDx<N>'s geometry, ring and
+// epilogue, with a producer warp; the column tiles of one row tile are neighbours in launch order,
+// so the dz and z tiles they share come from L2.
+// - The producer loads the block's x tile for the epilogue, then streams,
+//   per stage, the dz and z tiles (128 x 64) of the tap's source pixels and
+//   the tap's W tile (N x 64 of (Cin, Cout), K-major as stored), with the
+//   stage's 64 entries of dst[0] and dst[1] beside them (bulk copies). The
+//   flipped tap: tap (dy, dx) of output pixel m reads dz_eff at pixel m -
+//   ((dy-1)W + (dx-1)), the reference's (h+1-dy, w+1-dx), so the tiles load
+//   at row m0 minus the forward's offset (TMA takes a negative or
+//   past-the-end start and zero-fills; a box wholly outside dz is not loaded:
+//   every row of it is masked). W goes through a 3-D map (Cout, Cin, taps):
+//   a box past Cin is zero-filled and never reads the next tap's rows.
+// - A = dz_eff formed straight into wgmma's register A layout, as in the
+//   pointwise dx, then the halo by POSITION: a row whose tap source lies
+//   outside its image (past the SAME padding, at the other end of the image
+//   row, in the neighbouring image: at 7x7 and 13x10 a tile spans images),
+//   or a row at or past M, gives 0. Not dz_eff of TMA's zero fill, which is
+//   dst[0]. The rows are the block's fixed output pixels, so each thread
+//   finds its two rows' nine in-image bits once, in the prologue, and the
+//   loop counts (tap, Cout chunk) on: no division in it. The next stage's A
+//   is formed while this stage's wgmma runs.
+// - Epilogue: dx_epilogue, the pointwise dx's.
+// Bound on an H100: bytes at ResNet-50's 56x56 and 28x28 shapes (x, dz, z,
+// dx once), tensor-core operations at 14x14 and 7x7 (9 Cin Cout MACs a
+// pixel).
+struct C3DxArgs {
+  const float* scale;   // (Cin,)
+  const float* shift;
+  const float* dst;     // [dst0; dst1], rows of ldy entries, 16-byte aligned
+  float* partial;       // (row tiles, 2, Cin)
+  int M, H, W, Cin, Cout, ldy, relu_in, col_tiles;
+};
+
+template <int N>
+__global__ void __launch_bounds__(PwDx<N>::THREADS, PwDx<N>::MIN_BLOCKS)
+conv3x3_bwd_dx_kernel_sm90(__grid_constant__ const CUtensorMap mdz,
+                           __grid_constant__ const CUtensorMap mz,
+                           __grid_constant__ const CUtensorMap mw,
+                           __grid_constant__ const CUtensorMap mx,
+                           __grid_constant__ const CUtensorMap mdx, const C3DxArgs a) {
+  using namespace hopper;
+  using L = PwDx<N>;
+  static_assert(!L::WIDE, "the 3x3 dx takes N = 64 or 128");
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sx = smem;
+  unsigned char* ring = smem + L::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* bar_x = empty + STAGES;
+  float* sdst = reinterpret_cast<float*>(smem + L::DST);
+
+  const int tile_m = blockIdx.x / a.col_tiles;
+  const int m0 = tile_m * PW_BM;
+  const int n0 = (blockIdx.x - tile_m * a.col_tiles) * N;
+  const int steps = 9 * ((a.Cout + PW_BK - 1) / PW_BK);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], PW_CONSUMERS / 32);
+    }
+    mbar_init(bar_x, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= PW_CONSUMERS) {  // the producer
+    if (threadIdx.x == PW_CONSUMERS) {
+      mbar_expect_tx(bar_x, L::X_BYTES);
+      for (int p = 0; p < N / 64; ++p) {
+        tma_load_2d(sx + p * PW_BM * 128, &mx, bar_x, n0 + p * 64, m0);
+      }
+      int tap = 0, c0 = 0;  // stage j's tap and first channel of Cout
+      for (int j = 0; j < steps; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(&empty[s], (j / STAGES - 1) & 1);
+        unsigned char* st = ring + s * L::STAGE_BYTES;
+        const int row = m0 - ((tap / 3 - 1) * a.W + tap % 3 - 1);  // the flipped tap
+        const bool rows_in = row < a.M && row + PW_BM > 0;
+        // dst's entries of the stage: ldy is a multiple of 8, so whole 32 bytes
+        const uint32_t dbytes = min(PW_BK, a.ldy - c0) * 4;
+        mbar_expect_tx(&full[s], (rows_in ? 2 * L::ROWS_BYTES : 0) + L::W_BYTES + 2 * dbytes);
+        if (rows_in) {
+          tma_load_2d(st, &mdz, &full[s], c0, row);
+          tma_load_2d(st + L::ROWS_BYTES, &mz, &full[s], c0, row);
+        }
+        tma_load_3d(st + 2 * L::ROWS_BYTES, &mw, &full[s], c0, n0, tap);
+        bulk_load(sdst + s * 2 * PW_BK, a.dst + c0, dbytes, &full[s]);
+        bulk_load(sdst + s * 2 * PW_BK + PW_BK, a.dst + a.ldy + c0, dbytes, &full[s]);
+        c0 += PW_BK;
+        if (c0 >= a.Cout) {
+          c0 = 0;
+          ++tap;
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg owns tile rows [wg*64, wg*64 + 64); this thread
+  // holds tile rows lr (slot 0) and lr + 8 (slot 1)
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  const int lr = wg * 64 + (warp % 4) * 16 + g;
+  // the halo of the two rows: bit tap set where the row lies below M and its
+  // tap source (h+1-dy, w+1-dx) in its image
+  uint32_t halo[2];
+#pragma unroll
+  for (int slot = 0; slot < 2; ++slot) {
+    const int m = m0 + lr + 8 * slot;
+    const int r = m % (a.H * a.W);
+    const int h = r / a.W, w = r - h * a.W;
+    halo[slot] = 0u;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const bool in = static_cast<unsigned>(h + 1 - tap / 3) < static_cast<unsigned>(a.H) &&
+                      static_cast<unsigned>(w + 1 - tap % 3) < static_cast<unsigned>(a.W);
+      halo[slot] |= (m < a.M && in ? 1u : 0u) << tap;
+    }
+  }
+  float acc[L::NH][L::NW / 2];
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < L::NW / 2; ++i) acc[h][i] = 0.f;
+  }
+
+  // stage j's dz_eff in wgmma's register A layout, as the pointwise dx's,
+  // then the halo. The stages are formed in order: f_tap and f_c0 are the
+  // next one's tap and first channel of Cout.
+  int f_tap = 0, f_c0 = 0;
+  const auto build = [&](uint32_t (&av)[PW_BK / 16][4], int j) {
+    const unsigned char* tdz = ring + (j % STAGES) * L::STAGE_BYTES;
+    const unsigned char* tz = tdz + L::ROWS_BYTES;
+    const float* sd = sdst + (j % STAGES) * 2 * PW_BK;
+    const bool ok0 = (halo[0] >> f_tap) & 1u, ok1 = (halo[1] >> f_tap) & 1u;
+#pragma unroll
+    for (int kk = 0; kk < PW_BK / 16; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int cc = 16 * kk + 8 * half + 2 * c;  // the stage's column
+        // past Cout dst is 0 (the shared slice may hold stale values there);
+        // dst[0] and 2 dst[1], doubled once for both rows: z (2 dst[1]) is
+        // the same rounding as dz_eff()'s (2z) dst[1]. Calling dz_eff() here
+        // measured 0.81 -> 1.19 ms a step on an H100 (PERF.md)
+        const bool in0 = f_c0 + cc < a.Cout, in1 = f_c0 + cc + 1 < a.Cout;
+        const float2 s0 = *reinterpret_cast<const float2*>(sd + cc);
+        const float2 s1 = *reinterpret_cast<const float2*>(sd + PW_BK + cc);
+        const float d0x = in0 ? s0.x : 0.f, d0y = in1 ? s0.y : 0.f;
+        const float d1x = in0 ? 2.f * s1.x : 0.f, d1y = in1 ? 2.f * s1.y : 0.f;
+#pragma unroll
+        for (int slot = 0; slot < 2; ++slot) {
+          const int r = lr + 8 * slot;
+          const uint32_t wdz = sw128_word(tdz, r, 2 * kk + half, c);
+          const uint32_t wz = sw128_word(tz, r, 2 * kk + half, c);
+          const float2 fdz = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wdz));
+          const float2 fz = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wz));
+          const float e0 = __fadd_rn(__fadd_rn(fdz.x, d0x), __fmul_rn(fz.x, d1x));
+          const float e1 = __fadd_rn(__fadd_rn(fdz.y, d0y), __fmul_rn(fz.y, d1y));
+          // the halo by position, after forming
+          av[kk][2 * half + slot] = (slot ? ok1 : ok0) ? pack_bf16(e0, e1) : 0u;
+        }
+      }
+    }
+    f_c0 += PW_BK;
+    if (f_c0 >= a.Cout) {
+      f_c0 = 0;
+      ++f_tap;
+    }
+  };
+  // dxn += dz_eff W^T for stage j (W's tile, N rows of Cin by 64 of Cout, is
+  // K-major); the next stage's A is formed under it, then the stage is freed
+  const auto step = [&](const uint32_t (&av)[PW_BK / 16][4], uint32_t (&next)[PW_BK / 16][4],
+                        int j) {
+    const __nv_bfloat16* tw = reinterpret_cast<const __nv_bfloat16*>(
+        ring + (j % STAGES) * L::STAGE_BYTES + 2 * L::ROWS_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PW_BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < L::NH; ++h) {
+        wgmma_rs<0>(acc[h], av[kk], desc_kmajor(tw + h * L::NW * 64 + kk * 16), 1);
+      }
+    }
+    wgmma_commit();
+    if (j + 1 < steps) {
+      mbar_wait(&full[(j + 1) % STAGES], ((j + 1) / STAGES) & 1);
+      build(next, j + 1);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < L::NH; ++h) fence_regs(acc[h]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % STAGES]);
+  };
+  uint32_t a0[PW_BK / 16][4], a1[PW_BK / 16][4];
+  mbar_wait(&full[0], 0);
+  build(a0, 0);
+  for (int j = 0; j < steps; j += 2) {
+    step(a0, a1, j);
+    if (j + 1 < steps) step(a1, a0, j + 1);
+  }
+
+  const DxTiles tiles{sx, reinterpret_cast<float*>(ring),
+                      reinterpret_cast<float*>(smem + L::SC), bar_x, m0, n0, tile_m};
+  dx_epilogue<N>(acc, tiles, &mdx, a.scale, a.shift, a.partial, a.Cin, a.relu_in,
+                 m0 + lr < a.M, m0 + lr + 8 < a.M);
+}
+
+template <int N>
+int launch_c3_dx_sm90(const CUtensorMap& mdz, const CUtensorMap& mz, const CUtensorMap& mw,
+                      const CUtensorMap& mx, const CUtensorMap& mdx, C3DxArgs a, void* gst,
+                      cudaStream_t s) {
+  const int bytes = PwDx<N>::BYTES;
+  static bool done[64] = {};  // per N: each instantiation opts in for itself
+  const int err = hopper::opt_in_smem(conv3x3_bwd_dx_kernel_sm90<N>, bytes, done);
+  if (err != 0) return err;
+  const int row_tiles = (a.M + PW_BM - 1) / PW_BM;
+  a.col_tiles = (a.Cin + N - 1) / N;
+  const long long blocks = static_cast<long long>(row_tiles) * a.col_tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  conv3x3_bwd_dx_kernel_sm90<N><<<static_cast<unsigned>(blocks), PwDx<N>::THREADS, bytes, s>>>(
+      mdz, mz, mw, mx, mdx, a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      launch_stats_reduce(a.partial, row_tiles, 2 * a.Cin, static_cast<float*>(gst), s));
 }
 
 // ---------------------------------------------------------------------------
@@ -1232,38 +1284,17 @@ int launch_c3_dw_sm90(const CUtensorMap& mx, const CUtensorMap& mdz, const CUten
       launch_dw_reduce(a.partial, a.splits, 9LL * a.Cin * a.Cout, a.dw, s));
 }
 
-int launch_conv3x3_dx(const void* x, const void* scale, const void* shift, const void* w,
-                      const void* z, const void* dz, const void* dst, void* dx, void* partial,
-                      void* gst, int m, int h, int wd, int cin, int cout, int relu_in,
-                      void* stream) {
-  if (m <= 0 || cin <= 0 || cout <= 0 || (cin + BN - 1) / BN > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid((m + BM - 1) / BM, (cin + BN - 1) / BN);
-  auto* pp = static_cast<float*>(partial);
-  conv3x3_bwd_dx_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(dz),
-      static_cast<const float*>(dst), static_cast<__nv_bfloat16*>(dx), pp, m, h, wd, cin, cout,
-      relu_in);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_stats_reduce(pp, (int)grid.x, 2 * cin, static_cast<float*>(gst), s);
-}
-
 }  // namespace
 
 extern "C" {
 
-// tile sizes: 0 -> rows per 3x3 dx block (sizes its (tiles, 2, Cin) partials),
-// 1 -> rows per pointwise dx block (sizes its partials), 2 -> dW rows per
+// tile sizes: 0 -> rows per 3x3 dx block, 1 -> rows per pointwise dx block
+// (each sizes its kernel's (row tiles, 2, Cin) partials), 2 -> dW rows per
 // block (input channels of a pointwise dW block; two 64-row panels of the
 // 3x3's (tap, Cin) rows), 3 -> pixels per dW stage (a pixel chunk of either
 // dW is a multiple)
 int dl4j_fused_conv_bwd_tile(int which) {
-  const int tiles[4] = {BM, PW_BM, DW_ROWS, DW_BK};
+  const int tiles[4] = {PW_BM, PW_BM, DW_ROWS, DW_BK};
   return which >= 0 && which < 4 ? tiles[which] : 0;
 }
 
@@ -1299,14 +1330,43 @@ int dl4j_pw_conv_bwd_dx(const void* x, const void* scale, const void* shift,
   return run(mdz, mz, mw, mx, mdx, scale, shift, dst, partial, gst, m, cin, cout, relu_in, s);
 }
 
-// NHWC x (n, h, wd, cin), HWIO w (3, 3, cin, cout), z/dz (n, h, wd, cout)
-int dl4j_conv3x3_bwd_dx(const void* x, const void* scale, const void* shift,
-                        const void* w, const void* z, const void* dz, const void* dst,
-                        void* dx, void* partial, void* gst, int n, int h, int wd,
-                        int cin, int cout, int relu_in, void* stream) {
-  if (n <= 0 || h <= 0 || wd <= 0) return (int)cudaErrorInvalidValue;
-  return launch_conv3x3_dx(x, scale, shift, w, z, dz, dst, dx, partial, gst, n * h * wd, h,
-                           wd, cin, cout, relu_in, stream);
+// NHWC x (n, h, wd, cin) bf16 with row stride ldx, scale/shift (cin,) f32,
+// HWIO w (3, 3, cin, cout) and z/dz (n, h, wd, cout) bf16 with row stride
+// ldy, dst (2, ldy) f32 (0 past cout) -> dx (n, h, wd, cin) bf16 with row
+// stride ldx, gst (2, cin) f32 = [dscale; dshift]; partial is (ceil(m/128),
+// 2, cin) f32. tile_n: the column tile (64 or 128). What TMA reads and
+// writes: ldx and ldy multiples of 8, x, dx, w, z, dz and dst 16-byte
+// aligned. Returns cudaGetLastError(), or 1000 + the CUresult of a failed
+// tensor-map encoding.
+int dl4j_conv3x3_bwd_dx(const void* x, const void* scale, const void* shift, const void* w,
+                        const void* z, const void* dz, const void* dst, void* dx, void* partial,
+                        void* gst, int n, int h, int wd, int cin, int cout, int ldx, int ldy,
+                        int relu_in, int tile_n, void* stream) {
+  const auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  };
+  const long long m = static_cast<long long>(n) * h * wd;
+  // the furthest row a block reads: m0 + 127 + (wd + 1) < m + wd + 128
+  if (n <= 0 || h <= 0 || wd <= 0 || m + wd + PW_BM > 0x7fffffffLL || cin <= 0 || cout <= 0 ||
+      ldx < cin || ldx % 8 || ldy < cout || ldy % 8 || (tile_n != 64 && tile_n != 128) ||
+      misaligned(x) || misaligned(dx) || misaligned(w) || misaligned(z) || misaligned(dz) ||
+      misaligned(dst)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = static_cast<int>(m);
+  CUtensorMap mdz, mz, mw, mx, mdx;
+  int rc = hopper::encode_rows(&mdz, dz, cout, rows, ldy, PW_BM);
+  if (rc == 0) rc = hopper::encode_rows(&mz, z, cout, rows, ldy, PW_BM);
+  if (rc == 0) rc = hopper::encode_stack(&mw, w, cout, cin, 9, ldy, tile_n);
+  if (rc == 0) rc = hopper::encode_rows(&mx, x, cin, rows, ldx, PW_BM);
+  if (rc == 0) rc = hopper::encode_rows(&mdx, dx, cin, rows, ldx, PW_BM);
+  if (rc != 0) return rc;
+  const C3DxArgs a{static_cast<const float*>(scale), static_cast<const float*>(shift),
+                   static_cast<const float*>(dst), static_cast<float*>(partial), rows, h, wd,
+                   cin, cout, ldy, relu_in, 0};
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto run = tile_n == 64 ? launch_c3_dx_sm90<64> : launch_c3_dx_sm90<128>;
+  return run(mdz, mz, mw, mx, mdx, a, gst, s);
 }
 
 // x (m, cin) bf16 with row stride ldx, scale/shift (cin,) f32, z/dz (m, cout)

@@ -1,6 +1,7 @@
-// Pieces shared by the fused conv+BN+ReLU kernels (fused_conv.cu: forward,
-// fused_conv_bwd.cu: backward). Each .cu file is its own shared library, so
-// everything here has internal linkage.
+// What the fused conv+BN+ReLU kernels share (fused_conv.cu: forward,
+// fused_conv_bwd.cu: backward): the fixed-order sum of their per-block
+// column partials. Each .cu file is its own shared library, so everything
+// here has internal linkage.
 
 #pragma once
 
@@ -9,26 +10,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int BM = 64;          // output rows per block
-constexpr int BN = 64;          // output columns per block
-constexpr int BK = 32;          // depth per pipeline step
-constexpr int THREADS = 128;    // four warps, 2x2 over the 64x64 tile
-
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, int n_valid) {
-  // 8 consecutive bf16 values; entries past n_valid read as 0
-  if (n_valid >= 8 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  unsigned short* dst = reinterpret_cast<unsigned short*>(&v);
-  const unsigned short* src = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (j < n_valid) dst[j] = src[j];
-  }
-  return v;
-}
 
 // partial (tiles, cols) -> out (cols): a fixed summation order, so the
 // column sums are the same on every run

@@ -24,10 +24,10 @@ conv through its statistics.
 
 Dispatch: a CPU tensor goes to the plain versions (``*_plain``). A CUDA
 tensor goes to the kernels (bf16 in and out, f32 accumulation), or the
-wrapper raises: there is no fallback. The forward kernel (both ops), the
-pointwise dx and both dW kernels are Hopper designs (TMA tile loads,
-wgmma): a Cin, Cout or base their TMA loads cannot read reaches them
-through :func:`tma_rows`, a zero-padded layout copy for the same kernel. Each launch
+wrapper raises: there is no fallback. Every kernel is a Hopper design (TMA
+tile loads, wgmma): a Cin, Cout or base their TMA loads cannot read reaches
+them through :func:`tma_rows`, a zero-padded layout copy for the same
+kernel. Each launch
 adds one to ``launch_counts[name]`` (``launch.py``, shared with the int8
 matmul):
 
@@ -197,10 +197,11 @@ _FWD = KernelLibrary("fused_conv",
                      "dl4j_fused_conv_tile")
 #: tiles of the backward: "m" rows of a 3x3 dx block, "p" rows of a
 #: pointwise dx block (each dx kernel's partials have one row per row
-#: block), "c" dW rows of a block (input channels of a pointwise dW block,
-#: two 64-row panels of the 3x3's (tap, Cin) rows), "s" pixels of a dW stage
+#: block: they are sized by the key, not by a constant), "c" dW rows of a
+#: block (input channels of a pointwise dW block, two 64-row panels of the
+#: 3x3's (tap, Cin) rows), "s" pixels of a dW stage
 _BWD = KernelLibrary("fused_conv_bwd", {
-    "dl4j_pw_conv_bwd_dx": (10, 5), "dl4j_conv3x3_bwd_dx": (10, 6),
+    "dl4j_pw_conv_bwd_dx": (10, 5), "dl4j_conv3x3_bwd_dx": (10, 9),
     "dl4j_pw_conv_bwd_dw": (8, 8), "dl4j_conv3x3_bwd_dw": (8, 10)},
     "dl4j_fused_conv_bwd_tile", tile_keys="mpcs")
 #: TMA reads 16-byte aligned bases and row strides (8 bf16)
@@ -327,17 +328,26 @@ def tma_rows(t: torch.Tensor, cols: int) -> torch.Tensor:
     return out
 
 
-def _pw_dx_operands(x, w, z, dz, dst):
-    """(x, w, z, dz, dst, Cout8) as the pointwise dx kernel reads them: Cin
-    and Cout rounded up to a multiple of 8 (TMA's 16-byte row stride), the
-    padded columns zero, so they add nothing to ``dz_eff W^T`` and x's are
-    never read (dx takes x's padded width, and its padding is dropped after
-    the launch); dst (2, Cout8) 16-byte aligned."""
-    cin, cout = w.shape
-    cout8 = -(-cout // 8) * 8
-    x = tma_rows(x, -(-cin // 8) * 8)
-    w, z, dz = (tma_rows(t, cout8) for t in (w, z, dz))
+def _dx_operands(x, w, z, dz, dst):
+    """(x, w, z, dz, dst, Cout8) as the dx kernels read them: x, z and dz as
+    :func:`_dw_operands` gives them, w as (taps * Cin, Cout8) rows (the
+    3x3's kernel reads them through a 3-D map of (Cout, Cin, 9)) and dst as
+    (2, Cout8), zero past Cout, so padded columns add nothing to ``dz_eff
+    W^T`` (x's are never read: dx takes x's padded width, and its padding is
+    dropped after the launch)."""
+    cout8 = -(-w.shape[-1] // 8) * 8
+    x, z, dz = _dw_operands(x, z, dz)
+    w = tma_rows(w if w.dim() == 2 else w.reshape(-1, w.shape[-1]), cout8)
     return x, w, z, dz, _tma_vector(dst, cout8), cout8
+
+
+def c3_dx_tiles(cin: int) -> int:
+    """The column tile ``n`` of the 3x3 dx kernel: 64 for a Cin of at most
+    64, else 128. A block forms the same dz_eff, over the same nine-tap
+    depth, whatever its ``n``: narrower tiles form it more often, wider ones
+    fill fewer SMs. Measured on an H100 at ResNet-50's batch-32 shapes
+    (PERF.md), 128 beat 64 wherever Cin > 64, and 256 lost at every shape."""
+    return 64 if cin <= 64 else 128
 
 
 def _fused_bwd_dx(op: str, x, scale, shift, w, z, dz, dst, relu_in: bool):
@@ -348,22 +358,23 @@ def _fused_bwd_dx(op: str, x, scale, shift, w, z, dz, dst, relu_in: bool):
         zeros = torch.zeros((cin,), dtype=torch.float32, device=x.device)
         return torch.empty_like(x), zeros, zeros.clone()
     lib = _BWD.get()
+    relu = int(bool(relu_in))
     with torch.cuda.device(x.device):
         rows = _BWD.tile["p" if pointwise else "m"]
         partial = torch.empty((-(-m // rows), 2, cin), dtype=torch.float32, device=x.device)
         gst = torch.empty((2, cin), dtype=torch.float32, device=x.device)
-        if pointwise:  # dx is written by TMA too: x's padded row stride
-            x, w, z, dz, dst, cout = _pw_dx_operands(x, w, z, dz, dst)
-            dx = torch.empty_like(x)
-            fn, ints = lib.dl4j_pw_conv_bwd_dx, (m, cin, cout, x.shape[1])
+        # dx is written by TMA: it takes x's padded row stride
+        xk, wk, zk, dzk, dstk, cout8 = _dx_operands(x, w, z, dz, dst)
+        dx = torch.empty_like(xk)
+        if pointwise:
+            fn, ints = lib.dl4j_pw_conv_bwd_dx, (m, cin, cout8, xk.shape[1], relu)
         else:
-            dx = torch.empty_like(x)
-            fn, ints = lib.dl4j_conv3x3_bwd_dx, (*dims, cin, cout)
-        _launch(fn, op, (*_ptrs(x, scale, shift, w, z, dz, dst, dx, partial, gst),
-                         *ints, int(bool(relu_in))))
+            n = c3_dx_tiles(cin)
+            fn, ints = lib.dl4j_conv3x3_bwd_dx, (*dims, cin, cout, xk.shape[1], cout8, relu, n)
+        _launch(fn, op, (*_ptrs(xk, scale, shift, wk, zk, dzk, dstk, dx, partial, gst), *ints))
         if dx.shape[-1] != cin:
             dx = dx[:, :cin].contiguous()
-    return dx, gst[0], gst[1]
+    return dx.reshape(x.shape), gst[0], gst[1]
 
 
 def _dw_chunks(m: int, cout: int, row_tiles: int, sms: int, step: int
@@ -403,11 +414,12 @@ def c3_dw_tiles(m: int, cin: int, cout: int, sms: int, rows: int = 128,
 
 
 def _dw_operands(x, z, dz):
-    """(x, z, dz) as the dW kernels' TMA loads read them: (M, Cin8) and (M,
-    Cout8) rows (Cin and Cout rounded up to a multiple of 8, TMA's 16-byte
-    row stride; the 3x3's NHWC tensors as their pixel rows), 16-byte
-    aligned; the kernels' maps stop at Cin and Cout, so padded columns are
-    never read."""
+    """(x, z, dz) as the backward kernels' TMA loads read them: (M, Cin8)
+    and (M, Cout8) rows (Cin and Cout rounded up to a multiple of 8, TMA's
+    16-byte row stride; the 3x3's NHWC tensors as their pixel rows),
+    16-byte aligned: the tensors themselves (or views of them) where they
+    are so, else a copy whose padded columns are zero (the dW kernels'
+    maps stop at Cin and Cout and never read them)."""
     rows = lambda t: t if t.dim() == 2 else t.reshape(-1, t.shape[-1])  # noqa: E731
     cin, cout = x.shape[-1], z.shape[-1]
     return (tma_rows(rows(x), -(-cin // 8) * 8), tma_rows(rows(z), -(-cout // 8) * 8),

@@ -25,11 +25,19 @@ is timed at each given number of pixel chunks instead of its planner's
 (``fused_conv.c3_dw_tiles`` overridden), to choose the planner's split::
 
     python3 scripts/torch_conv_bwd_times.py --dw-only --op conv3x3 --splits 1,2,4,7
+
+With ``--dx-only`` it times the 3x3 dx kernel alone the same way, beside
+``conv2d_input``'s device time, at the four 3x3 shapes; with ``--tile-n
+64,128`` at each given column tile N instead of its planner's
+(``fused_conv.c3_dx_tiles`` overridden), to choose the planner's N::
+
+    python3 scripts/torch_conv_bwd_times.py --dx-only --tile-n 64,128
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import os
@@ -79,6 +87,42 @@ def dw_alone(cs, fc, op, splits=()):
     return rows, {f"{op}_dw": {"kernel_device_ms": total}}
 
 
+def dx_alone(cs, fc, tile_ns=()):
+    """Device ms of the 3x3 dx kernel and of ``conv2d_input`` at the four
+    3x3 shapes of a batch-32 ResNet-50 step (phase 2b's inputs), and their
+    sums over the step's launches; with ``tile_ns``, the kernel at each
+    forced column tile N (a row per shape and N, no step sum)."""
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 2)
+    plan = fc.c3_dx_tiles
+    rows = []
+    for c, hw, count in cs.C3_CASES:
+        (x, s, t, w), _, _ = cs.case_inputs(gen, "conv3x3", c, c, hw, cs.BATCH)
+        args = cs.bwd_case(fc, gen, "conv3x3", x, s, t, w)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib_ms = cs.graph_ms(functools.partial(
+            torch.nn.grad.conv2d_input, x.permute(0, 3, 1, 2).shape, wc,
+            args[5].permute(0, 3, 1, 2), padding=1))
+        for n in tile_ns or [plan(c)]:
+            fc.c3_dx_tiles = lambda *a, n=n: n
+            try:
+                ms = cs.graph_ms(lambda: fc.conv3x3_bwd_dx(*args, True))
+            finally:
+                fc.c3_dx_tiles = plan
+            rows.append({"cin": c, "cout": c, "hw": hw, "launches_per_forward": count,
+                         "tile_n": n, "dx_kernel_device_ms": ms,
+                         "dx_library_device_ms": lib_ms})
+            print(f"conv3x3_dx {c}->{c} @{hw}x{hw} batch {cs.BATCH}, N {n}: device only "
+                  f"(CUDA graph) {ms:.4f} ms; conv2d_input {lib_ms:.4f} ms", flush=True)
+    if tile_ns:
+        return rows, {}
+    total = sum(r["launches_per_forward"] * r["dx_kernel_device_ms"] for r in rows)
+    lib = sum(r["launches_per_forward"] * r["dx_library_device_ms"] for r in rows)
+    launches = sum(r["launches_per_forward"] for r in rows)
+    print(f"conv3x3_dx over a train step's {launches} launches: device only {total:.4f} ms; "
+          f"conv2d_input {lib:.4f} ms", flush=True)
+    return rows, {"conv3x3_dx": {"kernel_device_ms": total, "library_device_ms": lib}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=REPO, help="the tree whose package is timed")
@@ -90,10 +134,20 @@ def main() -> int:
     ap.add_argument("--splits", default="",
                     help="with --dw-only --op conv3x3: pixel chunk counts to time, "
                          "comma-separated, in place of the planner's")
+    ap.add_argument("--dx-only", action="store_true",
+                    help="time the 3x3 dx kernel alone, without the checks")
+    ap.add_argument("--tile-n", default="",
+                    help="with --dx-only: column tiles N to time, comma-separated, "
+                         "in place of the planner's")
     args = ap.parse_args()
     splits = [int(k) for k in args.splits.split(",") if k]
+    tile_ns = [int(k) for k in args.tile_n.split(",") if k]
     if splits and not (args.dw_only and args.op == "conv3x3"):
         ap.error("--splits takes --dw-only --op conv3x3")
+    if args.dw_only and args.dx_only:
+        ap.error("--dw-only and --dx-only exclude each other")
+    if tile_ns and not args.dx_only:
+        ap.error("--tile-n takes --dx-only")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -108,8 +162,12 @@ def main() -> int:
         raise RuntimeError(f"imported {fc.__file__}, not the package under {root}")
     card = cs.smi_line()
     print(f"conv backward times of {root}: {card}", flush=True)
-    rows, summary = (dw_alone(cs, fc, args.op, splits) if args.dw_only
-                     else cs.backward_phase(fc))
+    if args.dw_only:
+        rows, summary = dw_alone(cs, fc, args.op, splits)
+    elif args.dx_only:
+        rows, summary = dx_alone(cs, fc, tile_ns)
+    else:
+        rows, summary = cs.backward_phase(fc)
     os.makedirs("chiprun_out", exist_ok=True)
     name = f"conv_bwd_times{'_' + args.label if args.label else ''}.json"
     with open(os.path.join("chiprun_out", name), "w") as f:

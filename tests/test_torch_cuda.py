@@ -781,6 +781,192 @@ def test_c3_dw_kernel_opts_in_per_instantiation_in_any_order(card, tmp_path, ord
         assert torch.equal(got[key], want[key]), key
 
 
+def _assert_c3_dx_matches_plain(args, relu_in):
+    """The 3x3 dx kernel against its plain version, twice: the same bits on
+    the rerun (dx, dscale and dshift), dx within ``_bwd_tolerances``' limit,
+    dscale and dshift within the statistics limit, all finite; returns the
+    kernel's (dx, dscale, dshift), the plain version's and dx's limit."""
+    got = fc.conv3x3_bwd_dx(*args, relu_in)
+    again = fc.conv3x3_bwd_dx(*args, relu_in)
+    want = fc.conv3x3_bwd_dx_plain(*args, relu_in)
+    torch.cuda.synchronize()
+    dx = got[0]
+    assert dx.dtype == torch.bfloat16 and dx.shape == args[0].shape
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    tol, _ = _bwd_tolerances("c3", *args, relu_in, want[0], torch.zeros_like(args[3]))
+    err = (dx.float() - want[0].float()).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+    rows = args[0].float().reshape(-1, args[0].shape[-1]).abs().sum(0)
+    for g, p in zip(got[1:], want[1:]):
+        lim = 1e-3 + 1e-4 * p.abs() + 1e-5 * rows * float(want[0].float().abs().max() + 1)
+        assert bool(((g - p).abs() <= lim).all()), float(((g - p).abs() / lim).max())
+    return got, want, tol
+
+
+# (x shape, Cout): the 3x3 dW's cases, 1x1 images, W = 1 images, M below one
+# 128-row tile with Cin and Cout off 8, and Cin and Cout off 64
+C3_DX_CASES = C3_DW_CASES + [((2, 1, 1, 64), 64), ((4, 6, 1, 64), 72), ((1, 5, 7, 44), 20),
+                             ((2, 9, 5, 200), 136)]
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("x_shape,cout", C3_DX_CASES,
+                         ids=[f"{'x'.join(map(str, x))}-{c}" for x, c in C3_DX_CASES])
+def test_c3_dx_kernel_matches_plain(card, x_shape, cout, relu_in):
+    """The Hopper 3x3 dx kernel (dx, dscale, dshift) against its plain
+    version at ResNet-50's four 3x3 shapes at batch 32, batch 1 at 7x7,
+    36 -> 70 at 9x9, 13x10 images (tiles span images, rows wrap), 1x1 and
+    W = 1 images (every tap but one, or three, in the halo), M below one
+    tile and channels off 8 and 64, a nonzero dstats; a rerun gives the same
+    bits; one launch a call."""
+    cin = x_shape[3]
+    args = _bwd_inputs("c3", x_shape, (3, 3, cin, cout), seed=sum(x_shape) + cout + 7)
+    fc.reset_launch_counts()
+    _assert_c3_dx_matches_plain(args, relu_in)
+    assert dict(fc.launch_counts) == {"conv3x3_dx": 2}
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("x_shape,cout", [((2, 14, 14, 64), 64), ((3, 7, 7, 256), 128),
+                                          ((2, 13, 10, 128), 256), ((2, 9, 1, 64), 64)],
+                         ids=["14x14-64", "7x7-256", "13x10-128", "9x1-64"])
+def test_c3_dx_kernel_halo_closed_form(card, x_shape, cout, relu_in):
+    """dz = z = 0 and dst = (c, 0): dz_eff is c inside the image and the SAME
+    halo 0, so dxn[q, ci] is the sum, over the taps whose source pixel q -
+    ((dy-1)W + (dx-1)) lies in q's image, of sum_co c[co] W[tap, ci, co]. The
+    kernel's dx is that (masked and scaled) within the limit; the halo
+    matters: the sum over all nine taps is far over the limit at the border.
+    7x7 tiles span images, 13x10 rows wrap inside a tile, W = 1 leaves only
+    the middle column of taps."""
+    n, h, wd, cin = x_shape
+    x, s, t, w, _, _, dst = _bwd_inputs("c3", x_shape, (3, 3, cin, cout), seed=h * wd + cin + 3)
+    zero = torch.zeros((n, h, wd, cout), dtype=torch.bfloat16, device="cuda")
+    c = dst[0].bfloat16().float()
+    args = (x, s, t, w, zero, zero, torch.stack([c, torch.zeros_like(c)]))
+    (dx, _, _), _, tol = _assert_c3_dx_matches_plain(args, relu_in)
+    hh = torch.arange(h, device="cuda").view(1, h, 1, 1)
+    ww = torch.arange(wd, device="cuda").view(1, 1, wd, 1)
+    want = torch.zeros((n, h, wd, cin), dtype=torch.float64, device="cuda")
+    every = torch.zeros_like(want)
+    for dy in range(3):
+        for dx_ in range(3):
+            v = w[dy, dx_].double() @ c.double()                 # (Cin,)
+            inside = ((hh + 1 - dy >= 0) & (hh + 1 - dy < h) & (ww + 1 - dx_ >= 0)
+                      & (ww + 1 - dx_ < wd))
+            want += inside * v
+            every += v
+    keep = (x.float() * s + t > 0) if relu_in else torch.ones_like(want, dtype=torch.bool)
+    want_dx = want * keep * s.double()
+    err = (dx.double() - want_dx).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+    lost = ((every - want) * keep * s.double()).abs()
+    assert float((lost / tol).max()) > 10
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+def test_c3_dx_kernel_masks_rows_past_m(card, relu_in):
+    """3 images of 7x7 are M = 147 pixels, 109 short of two 128-row tiles.
+    Those rows read TMA's zero fill, whose dz_eff would be dst[0] (here 4
+    up to noise), and their x is zero fill, so u = shift > 0 and the ReLU
+    keeps their du. The kernel leaves them out of dscale and dshift by
+    position: it is within the limit, and a dshift that took in their du (as
+    the rows of zero images padded onto the batch, which lie in an image)
+    would be more than 10x over it."""
+    x_shape, cout = (3, 7, 7, 256), 256
+    x, s, t, w, z, dz, dst = _bwd_inputs("c3", x_shape, (3, 3, 256, cout), seed=61)
+    dst = torch.stack([dst[0] + 4.0, dst[1]])
+    dz = (dz.float() - 4.0).bfloat16()
+    t = t.abs() + 0.1
+    args = (x, s, t, w, z, dz, dst)
+    _, (dx_p, _, dt_p), _ = _assert_c3_dx_matches_plain(args, relu_in)
+    pad = lambda a: torch.cat([a, a.new_zeros((3, *a.shape[1:]))])  # noqa: E731
+    g = fc._dz_eff(pad(x), pad(z), pad(dz), dst)
+    rows = chip_smoke._transposed_conv(g, w.float()).reshape(-1, 256)[147:256]
+    lost = rows.sum(0)                                   # u = shift > 0 on those rows
+    lim = (1e-3 + 1e-4 * dt_p.abs()
+           + 1e-5 * x.float().abs().reshape(-1, 256).sum(0) * float(dx_p.float().abs().max() + 1))
+    assert float((lost.abs() / lim).max()) > 10
+
+
+@pytest.mark.parametrize("x_shape,cout", [((2, 9, 5, 36), 70), ((2, 9, 5, 96), 160),
+                                          ((2, 9, 5, 192), 1000), ((2, 3, 5, 1), 1),
+                                          ((3, 7, 7, 64), 8), ((2, 5, 5, 520), 64)],
+                         ids=["36-70", "96-160", "192-1000", "1-1", "64-8", "520-64"])
+def test_c3_dx_kernel_channels_past_cin_and_cout(card, x_shape, cout):
+    """Channels past Cin and Cout: a column tile of 1, 36, 64 or 96 channels
+    (the rest of the tile past Cin: W's rows zero-filled, dx not stored), a
+    last tile of 192 or 520, Cout past the last 64-channel stage (70, 160,
+    1000, 1, 8). scale and shift are views whose memory past Cin is NaN, and
+    a launch before left NaN in the ring: the kernel's dx, dscale and dshift
+    are finite and within the limit."""
+    cin = x_shape[3]
+    args = list(_bwd_inputs("c3", x_shape, (3, 3, cin, cout), seed=3 * cin + cout + 1))
+    args[1], args[2] = _past_the_end(args[1]), _past_the_end(args[2])
+    nan = torch.full((*x_shape[:3], cout), float("nan"), device="cuda").bfloat16()
+    fc.conv3x3_bwd_dx(args[0], args[1], args[2], args[3], nan, nan, args[6], True)
+    for relu_in in (False, True):
+        _assert_c3_dx_matches_plain(tuple(args), relu_in)
+
+
+def test_c3_dx_kernel_reads_misaligned_views_through_the_padded_copy(card):
+    """x, w, z and dz at bases off 16 bytes go through the padded layout
+    copy: the same kernel, the same bits as on aligned tensors."""
+    x, s, t, w, z, dz, dst = _bwd_inputs("c3", (4, 14, 14, 128), (3, 3, 128, 128), seed=67)
+
+    def off(a):
+        v = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:].view(a.shape)
+        v.copy_(a)
+        assert v.data_ptr() % 16 and v.is_contiguous()
+        return v
+
+    fc.reset_launch_counts()
+    a = fc.conv3x3_bwd_dx(x, s, t, w, z, dz, dst, True)
+    b_ = fc.conv3x3_bwd_dx(off(x), s, t, off(w), off(z), off(dz), dst, True)
+    assert dict(fc.launch_counts) == {"conv3x3_dx": 2}
+    assert all(torch.equal(p, q) for p, q in zip(a, b_))
+
+
+_C3_DX_OPT_IN_RUN = """
+import torch
+from deeplearning4j_tpu_torch.nn.ops import fused_conv as fc
+
+def run(order):
+    # the column tile N forced to each of 64 and 128 in turn, at Cin 128
+    out, plan = {}, fc.c3_dx_tiles
+    for key in order:
+        fc.c3_dx_tiles = lambda *a, n=key: n
+        g = torch.Generator().manual_seed(key)
+        x = torch.randn((4, 28, 28, 128), generator=g).bfloat16().cuda()
+        s = (torch.randn(128, generator=g) * 0.2 + 1).cuda()
+        t = (torch.randn(128, generator=g) * 0.1).cuda()
+        w = (torch.randn((3, 3, 128, 96), generator=g) * 0.03).bfloat16().cuda()
+        z = torch.randn((4, 28, 28, 96), generator=g).bfloat16().cuda()
+        dz = (torch.randn((4, 28, 28, 96), generator=g) * 0.1).bfloat16().cuda()
+        dst = (torch.randn((2, 96), generator=g) * 0.01).cuda()
+        out[key] = [v.cpu() for v in fc.conv3x3_bwd_dx(x, s, t, w, z, dz, dst, True)]
+    fc.c3_dx_tiles = plan
+    return out
+"""
+
+
+@pytest.mark.parametrize("order", [(64, 128), (128, 64)], ids=["64-first", "128-first"])
+def test_c3_dx_kernel_opts_in_per_instantiation_in_any_order(card, tmp_path, order):
+    """The 3x3 dx kernel's N-64 and N-128 instantiations share a function
+    type; each asks for its own shared memory above 48 KB (about 99 and 180
+    KB), whichever runs first in a fresh process. The fresh
+    process's results equal this one's bit for bit."""
+    path = tmp_path / "out.pt"
+    script = _C3_DX_OPT_IN_RUN + f"torch.save(run({order!r}), {str(path)!r})\n"
+    subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True, timeout=600)
+    got = torch.load(path)
+    ns = {}
+    exec(_C3_DX_OPT_IN_RUN, ns)
+    want = ns["run"](order)
+    for key in order:
+        assert all(torch.equal(a, b) for a, b in zip(got[key], want[key])), key
+
+
 def _narrow_conf():
     gb = (NeuralNetConfiguration.builder().seed(5).weight_init("relu")
           .updater(Nesterovs(1e-3, 0.9)).l2(1e-4)

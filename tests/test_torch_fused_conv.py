@@ -370,11 +370,11 @@ def _stub(monkeypatch, lib, names, tile):
     return rec
 
 
-def _stub_bwd(monkeypatch):
+def _stub_bwd(monkeypatch, rows=128):
     monkeypatch.setattr(tfc, "_sm_count", lambda index: 132)
     return _stub(monkeypatch, tfc._BWD, ("dl4j_pw_conv_bwd_dx", "dl4j_conv3x3_bwd_dx",
                                          "dl4j_pw_conv_bwd_dw", "dl4j_conv3x3_bwd_dw"),
-                 {"m": 64, "p": 128, "c": 128, "s": 32})
+                 {"m": rows, "p": 128, "c": 128, "s": 32})
 
 
 def _stub_fwd(monkeypatch, rows=128):
@@ -427,7 +427,7 @@ def test_pw_dx_padding_adds_nothing():
     z = torch.from_numpy(rng.standard_normal((m, cout)).astype(np.float32)).bfloat16()
     dz = torch.from_numpy(rng.standard_normal((m, cout)).astype(np.float32)).bfloat16()
     dst = torch.from_numpy((rng.standard_normal((2, cout)) * 0.01).astype(np.float32))
-    xp, wp, zp, dzp, dstp, cout8 = tfc._pw_dx_operands(x, w, z, dz, dst)
+    xp, wp, zp, dzp, dstp, cout8 = tfc._dx_operands(x, w, z, dz, dst)
     assert xp.shape == (m, 40) and not xp[:, 36:].any() and torch.equal(xp[:, :36], x)
     assert cout8 == 72 and wp.shape == (cin, 72) and zp.shape == dzp.shape == (m, 72)
     assert dstp.shape == (2, 72) and not dstp[:, 70:].any() and not wp[:, 70:].any()
@@ -439,17 +439,23 @@ def test_pw_dx_padding_adds_nothing():
         torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7, atol=1e-6)
 
 
-def test_conv3x3_dx_keeps_its_64_row_partials(monkeypatch):
-    rec = _stub_bwd(monkeypatch)
-    x = _meta((2, 7, 7, 64))
-    w = _meta((3, 3, 64, 64))
-    s = _meta((64,), torch.float32)
-    z = dz = _meta((2, 7, 7, 64))
-    dst = _meta((2, 64), torch.float32)
-    tfc.conv3x3_bwd_dx(x, s, s, w, z, dz, dst, False)
-    args = rec.args["conv3x3_dx"]
-    assert args[10:] == (2, 7, 7, 64, 64, 0)
-    assert args[3] is w and args[5] is dz and args[8].shape == (-(-98 // 64), 2, 64)
+def test_conv3x3_dx_sizes_partials_by_the_m_tile(monkeypatch):
+    """The 3x3 dx kernel's partials have one row per row block of the tile
+    the library reports (its "m" key: sized by the key, not by a constant),
+    64-row partials for 64-row tiles as for the kernel's 128; aligned NHWC
+    operands reach it as views of themselves."""
+    for rows in (64, 128):
+        rec = _stub_bwd(monkeypatch, rows)
+        x = _meta((2, 7, 7, 64))
+        w = _meta((3, 3, 64, 64))
+        s = _meta((64,), torch.float32)
+        z = dz = _meta((2, 7, 7, 64))
+        dst = _meta((2, 64), torch.float32)
+        tfc.conv3x3_bwd_dx(x, s, s, w, z, dz, dst, False)
+        args = rec.args["conv3x3_dx"]
+        assert args[10:] == (2, 7, 7, 64, 64, 64, 64, 0, tfc.c3_dx_tiles(64))
+        assert args[3]._base is w and args[5]._base is dz
+        assert args[8].shape == (-(-98 // rows), 2, 64)
 
 
 # (M, Cin, Cout) of ResNet-50's fifteen pointwise convs at batch 32, batch 1
@@ -602,7 +608,8 @@ def test_c3_dw_wrapper_hands_the_kernel_tma_operands(monkeypatch, x_shape, cout)
 
 
 def _bad_c3_dw_args(case):
-    """3x3 dW arguments on "meta" tensors, one of them wrong."""
+    """3x3 backward (dW or dx) arguments on "meta" tensors, one of them
+    wrong."""
     n, h, wd, cin, cout = 2, 9, 5, 40, 24
     a = {"x": _meta((n, h, wd, cin)), "scale": _meta((cin,), torch.float32),
          "shift": _meta((cin,), torch.float32), "w": _meta((3, 3, cin, cout)),
@@ -685,6 +692,123 @@ def test_c3_dw_padding_adds_nothing():
     assert not wide[:, :, cin:].any() and not wide[:, :, :, cout:].any()
     torch.testing.assert_close(wide[:, :, :cin, :cout].float(), want.float(), rtol=2.0 ** -7,
                                atol=1e-6)
+
+
+# (x shape, Cout) of the 3x3 dx: the dW's shapes, W = 1 images, M < 128 and
+# Cin past one 256-channel tile
+C3_DX_SHAPES = C3_DW_SHAPES + [((4, 6, 1, 64), 72), ((1, 3, 40, 200), 8),
+                               ((2, 5, 5, 520), 64)]
+_C3_DX_IDS = [f"{'x'.join(map(str, x))}-{co}" for x, co in C3_DX_SHAPES]
+
+
+@pytest.mark.parametrize("x_shape,cout", C3_DX_SHAPES, ids=_C3_DX_IDS)
+def test_c3_dx_tiles_give_a_valid_n(x_shape, cout):
+    """The 3x3 dx kernel's column tile is 64 for a Cin of at most 64, else
+    128 (the grid covers a wider Cin in such tiles); the 1-D grid stays
+    within CUDA's 2^31 - 1 blocks."""
+    m, cin = math.prod(x_shape[:3]), x_shape[3]
+    n = tfc.c3_dx_tiles(cin)
+    assert n == (64 if cin <= 64 else 128)
+    assert -(-m // 128) * -(-cin // n) <= 2 ** 31 - 1
+
+
+def test_c3_dx_tiles_take_the_fastest_measured_n():
+    """At ResNet-50's four 3x3 shapes at batch 32 on 132 SMs the planner
+    takes the column tile that was fastest there on an H100 (PERF.md): 64 at
+    56x56 (Cin 64), 128 at 28x28, 14x14 and 7x7."""
+    assert [tfc.c3_dx_tiles(c) for c in (64, 128, 256, 512)] == [64, 128, 128, 128]
+
+
+@pytest.mark.parametrize("x_shape,cout", C3_DX_SHAPES, ids=_C3_DX_IDS)
+def test_c3_dx_wrapper_hands_the_kernel_tma_operands(monkeypatch, x_shape, cout):
+    """The 3x3 dx kernel gets x as (M, Cin8) pixel rows, w as (9 Cin, Cout8)
+    rows (the kernel reads them through a (Cout, Cin, 9) map), z and dz as
+    (M, Cout8) pixel rows and dst as (2, Cout8) with zeros past Cout: a Cin
+    or Cout that is not a multiple of 8 (TMA's 16-byte row stride) as a
+    zero-padded copy, aligned operands as views of themselves; the NHWC
+    geometry, Cin, Cout, the row strides, relu_in and c3_dx_tiles' column
+    tile; dx takes x's padded rows and partials one row per 128-row block.
+    dx comes back in x's shape, dscale and dshift as (Cin,)."""
+    rec = _stub_bwd(monkeypatch)
+    cin = x_shape[3]
+    m = math.prod(x_shape[:3])
+    x, w = _meta(x_shape), _meta((3, 3, cin, cout))
+    s = _meta((cin,), torch.float32)
+    z, dz = _meta((*x_shape[:3], cout)), _meta((*x_shape[:3], cout))
+    dst = _meta((2, cout), torch.float32)
+    dx, ds, dt = tfc.conv3x3_bwd_dx(x, s, s, w, z, dz, dst, True)
+    args = rec.args["conv3x3_dx"]
+    cin8, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
+    assert args[10:] == (*x_shape[:3], cin, cout, cin8, cout8, 1, tfc.c3_dx_tiles(cin))
+    xk, sk, tk, wk, zk, dzk, dstk, dxk, partial, gst = args[:10]
+    assert xk.shape == dxk.shape == (m, cin8) and wk.shape == (9 * cin, cout8)
+    assert zk.shape == dzk.shape == (m, cout8) and dstk.shape == (2, cout8)
+    assert (xk._base is x) is (cin8 == cin) and (wk._base is w) is (cout8 == cout)
+    assert (zk._base is z) is (cout8 == cout) and (dzk._base is dz) is (cout8 == cout)
+    assert (dstk is dst) is (cout8 == cout) and sk is s and tk is s
+    assert partial.shape == (-(-m // 128), 2, cin) and partial.dtype == torch.float32
+    assert gst.shape == (2, cin)
+    assert dx.shape == x.shape and dx.dtype == torch.bfloat16
+    assert ds.shape == dt.shape == (cin,)
+
+
+@pytest.mark.parametrize("case,err,msg", [
+    ("f32 x", TypeError, "x must be torch.bfloat16"),
+    ("f64 scale", TypeError, "scale must be torch.float32"),
+    ("z of another image", ValueError, "z must have shape"),
+    ("pointwise w", ValueError, "w must be"),
+    ("strided x", ValueError, "x must be contiguous"),
+    ("x rank 2", ValueError, "x must have rank 4"),
+    ("dst on the CPU", ValueError, "dst is on cpu"),
+    ("all well", ValueError, "the kernel takes CUDA tensors")])
+def test_c3_dx_wrapper_refuses_bad_arguments_off_the_cpu(monkeypatch, case, err, msg):
+    """Off the CPU ("meta" tensors reach the kernel's wrapper without a
+    card) the 3x3 dx wrapper refuses what its kernel does not take, before
+    the kernel library is built or a launch is counted; arguments it takes
+    are refused for the device alone. No fallback to the plain version."""
+
+    def unbuilt():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(tfc._BWD, "get", unbuilt)
+    a = _bad_c3_dw_args(case)
+    before = dict(tfc.launch_counts)
+    with pytest.raises(err, match=msg):
+        tfc.conv3x3_bwd_dx(a["x"], a["scale"], a["shift"], a["w"], a["z"], a["dz"], a["dst"],
+                           True)
+    assert dict(tfc.launch_counts) == before
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+def test_c3_dx_padding_adds_nothing(relu_in):
+    """The padded operands of a ragged Cin and Cout hold the operands
+    unchanged and zeros past them: x's padded columns are never read (the
+    kernel's maps stop at Cin), and with w, z, dz and dst read at Cout8 the
+    plain version gives the same dx, dscale and dshift (up to the f32
+    summation order of the longer product)."""
+    rng = np.random.default_rng(5)
+    n, h, wd, cin, cout = 2, 5, 4, 36, 70
+    x = torch.from_numpy(rng.standard_normal((n, h, wd, cin)).astype(np.float32)).bfloat16()
+    s = torch.from_numpy((rng.standard_normal(cin) * 0.2 + 1).astype(np.float32))
+    t = torch.from_numpy((rng.standard_normal(cin) * 0.1).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32)
+                         ).bfloat16()
+    z = torch.from_numpy(rng.standard_normal((n, h, wd, cout)).astype(np.float32)).bfloat16()
+    dz = torch.from_numpy(rng.standard_normal((n, h, wd, cout)).astype(np.float32)).bfloat16()
+    dst = torch.from_numpy((rng.standard_normal((2, cout)) * 0.01).astype(np.float32))
+    xp, wp, zp, dzp, dstp, cout8 = tfc._dx_operands(x, w, z, dz, dst)
+    m = n * h * wd
+    assert cout8 == 72 and xp.shape == (m, 40) and wp.shape == (9 * cin, 72)
+    assert zp.shape == dzp.shape == (m, 72) and dstp.shape == (2, 72)
+    assert not xp[:, cin:].any() and torch.equal(xp[:, :cin], x.reshape(m, cin))
+    for a, b in ((w.reshape(9 * cin, cout), wp), (z.reshape(m, cout), zp),
+                 (dz.reshape(m, cout), dzp), (dst, dstp)):
+        assert torch.equal(a, b[:, :cout]) and not b[:, cout:].any()
+    padded = tfc.conv3x3_bwd_dx_plain(x, s, t, wp.reshape(3, 3, cin, 72),
+                                      zp.reshape(n, h, wd, 72), dzp.reshape(n, h, wd, 72),
+                                      dstp, relu_in)
+    for a, b in zip(tfc.conv3x3_bwd_dx_plain(x, s, t, w, z, dz, dst, relu_in), padded):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7, atol=1e-5)
 
 
 def test_pw_dw_padding_adds_nothing():
