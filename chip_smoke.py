@@ -12,7 +12,9 @@ it runs (phase 2 also at the forward's trap cases: the 3x3 halo, images
 sharing a block, rows past M, a box past Cin, a misaligned x, reruns bit
 for bit; phase 2b both dW kernels' reruns bit for bit; both by device
 time beside CUDA events), and the int8 matmul
-(phase 2c) at VGG16's and LeNet's head shapes;
+(phase 2c) at VGG16's and LeNet's head shapes and ragged ones, also against
+the f64 product (f32 stays f32), reruns and buckets bit for bit, by device
+time beside CUDA events;
 serves a full-width bf16 ResNet-50 (random weights from a seed) through
 ``InferenceEngine`` (phase 3), and trains it with ``ComputationGraph.fit``
 (phase 4): gradients against the plain path on the card, the kernel
@@ -613,19 +615,25 @@ def backward_phase(fc):
 
 def int8_cases():
     """(B, K, N, dtype, launches per VGG16 forward at this B): VGG16's three
-    heads at buckets 1, 8 and 32 in f32 (the VGG16 path) and bf16, LeNet's
-    two heads, and a ragged case."""
+    heads at buckets 1, 8 and 32 in f32 (the VGG16 path) and bf16, the first
+    head at B 33 (a second row block), LeNet's two heads, and ragged cases
+    (N % 16 != 0 with N % 4 == 0 and K off the 64-deep stage; N odd to 4)."""
     cases = [(b, k, n, dt, 1 if dt == torch.float32 else 0)
              for b in (1, 8, 32) for k, n in VGG_HEADS
              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(33, *VGG_HEADS[0], dt, 0) for dt in (torch.float32, torch.bfloat16)]
     cases += [(b, k, n, torch.float32, 0) for b in (1, 8) for k, n in LENET_HEADS]
-    return cases + [(3, 777, 130, torch.float32, 0), (3, 777, 130, torch.bfloat16, 0)]
+    return cases + [(b, k, n, dt, 0) for b, k, n in ((5, 1000, 1000), (3, 777, 130))
+                    for dt in (torch.float32, torch.bfloat16)]
 
 
 def check_int8(im, x, q, s):
     """Kernel vs plain version: |k - p| <= 2K*2^-24*(|x|.|q|)*s, the f32
     summation-order difference; for bf16 x plus one bf16 step of |p| for the
-    output and one for the scale. Returns (max_abs_err, err/tol)."""
+    output and one for the scale. For f32 x also the f64 gate: max |k - y64|
+    <= 4 max |p - y64| + 2^-24 max |y64| (f32 stays f32). Returns
+    (max_abs_err, err/tol, the gate's (kernel err, plain err, limit) or
+    None)."""
     yk = im.int8_matmul(x, q, s)
     yp = im.int8_matmul_plain(x, q, s)
     torch.cuda.synchronize()
@@ -635,57 +643,93 @@ def check_int8(im, x, q, s):
     err = (yk.float() - yp.float()).abs()
     if not bool(torch.isfinite(yk.float()).all()):
         raise AssertionError("int8_matmul returned non-finite values")
-    return float(err.max()), float((err / tol.clamp_min(1e-30)).max())
+    gate = None
+    if x.dtype == torch.float32:
+        y64 = (x.double() @ q.double()) * s.double()
+        gate = (float((yk.double() - y64).abs().max()), float((yp.double() - y64).abs().max()))
+        gate += (4 * gate[1] + F32_EPS * float(y64.abs().max()),)
+    return float(err.max()), float((err / tol.clamp_min(1e-30)).max()), gate
+
+
+def int8_bound(b, k, n, dtype):
+    """(bound_ms, bound_by, bytes ms, operations ms): x, q, scale read and y
+    written once at 3.35 TB/s; the kernel's bf16 passes over q (three planes
+    of an f32 x, one of a bf16 x), P * 2BKN, at 989 TFLOP/s."""
+    flops = (3 if dtype == torch.float32 else 1) * 2.0 * b * k * n
+    nbytes = b * k * 4 + k * n + n * 4 + b * n * 4
+    return (*bound(flops, nbytes), nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3)
 
 
 def int8_phase(im):
-    """Phase 2c: the int8 kernel against its plain version on the card;
-    times summed over the three head launches of one VGG16 forward at
-    B = 1 and 32 (f32 x): the kernel, the plain version, and the library's
-    f32 matmul on the dequantized weight."""
+    """Phase 2c: the int8 kernel against its plain version and the f64
+    product on the card; times summed over the three head launches of one
+    VGG16 forward at B = 1 and 32 (f32 x), by CUDA events and device only
+    (CUDA graph): the kernel, the plain version, and the library's f32
+    matmul on the dequantized weight."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    timed = ("kernel_ms", "plain_ms", "library_ms", "kernel_device_ms", "plain_device_ms",
+             "library_device_ms")
     rows, sums = [], {}
     for b, k, n, dt, count in int8_cases():
         x = torch.randn(b, k, generator=gen, device="cuda").to(dt)
         w = torch.randn(k, n, generator=gen, device="cuda") * math.sqrt(2.0 / k)
         q, s = im.quantize_int8(w)
         q, s = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
-        err, ratio = check_int8(im, x, q, s)
+        err, ratio, gate = check_int8(im, x, q, s)
         row = {"b": b, "k": k, "n": n, "dtype": str(dt).split(".")[-1],
                "launches_per_forward": count, "max_abs_err": err, "err_over_tol": ratio}
+        gate_txt = ""
+        if gate is not None:
+            row.update(f64_err_kernel=gate[0], f64_err_plain=gate[1], f64_limit=gate[2])
+            gate_txt = (f" f64 gate max|k-y64| {gate[0]:.3g} <= 4 max|p-y64| + 2^-24 max|y64| "
+                        f"= {gate[2]:.3g} (plain {gate[1]:.3g})")
         timing = ""
         if count and b in (1, 32):
             wf = q.float() * s
-            row["kernel_ms"] = time_ms(lambda: im.int8_matmul(x, q, s))
-            row["plain_ms"] = time_ms(lambda: im.int8_matmul_plain(x, q, s))
-            row["library_ms"] = time_ms(lambda: torch.matmul(x, wf))
-            flops = 2.0 * b * k * n
-            nbytes = b * k * 4 + k * n + n * 4 + b * n * 4
-            row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)
-            acc = sums.setdefault(b, {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                                      "bound_ms": 0.0, "bound_bytes_ms": 0.0,
-                                      "bound_ops_ms": 0.0})
-            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms"):
+            fns = {"kernel": lambda: im.int8_matmul(x, q, s),
+                   "plain": lambda: im.int8_matmul_plain(x, q, s),
+                   "library": lambda: torch.matmul(x, wf)}
+            for name, fn in fns.items():
+                row[f"{name}_ms"] = time_ms(fn)
+                row[f"{name}_device_ms"] = graph_ms(fn)
+            row["bound_ms"], row["bound_by"], bytes_ms, ops_ms = int8_bound(b, k, n, dt)
+            acc = sums.setdefault(b, dict.fromkeys(timed + ("bound_ms", "bound_bytes_ms",
+                                                            "bound_ops_ms"), 0.0))
+            for key in timed + ("bound_ms",):
                 acc[key] += row[key]
-            acc["bound_bytes_ms"] += nbytes / PEAK_BYTES * 1e3
-            acc["bound_ops_ms"] += flops / PEAK_F32_FLOPS * 1e3
-            timing = (f" kernel_ms {row['kernel_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-                      f"library_ms {row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+            acc["bound_bytes_ms"] += bytes_ms
+            acc["bound_ops_ms"] += ops_ms
+            timing = (f" kernel_ms {row['kernel_ms']:.4f} (device only, CUDA graph: "
+                      f"{row['kernel_device_ms']:.4f}) plain_ms {row['plain_ms']:.4f} (device "
+                      f"{row['plain_device_ms']:.4f}) library_ms {row['library_ms']:.4f} (device "
+                      f"{row['library_device_ms']:.4f}) bound_ms {row['bound_ms']:.4f} "
                       f"({row['bound_by']})")
         rows.append(row)
+        ok = ratio <= 1 and (gate is None or gate[0] <= gate[2])
         print(f"phase 2c kernel int8_matmul B {b} K {k} N {n} {row['dtype']}: max_abs_err "
               f"{err:.3g} err/tol {ratio:.3g} (tol = 2K*2^-24*(|x|.|q|)*s"
-              f"{' + 2*2^-7|p|' if dt == torch.bfloat16 else ''}){timing} "
-              f"{'ok' if ratio <= 1 else 'FAIL'}", flush=True)
-        if ratio > 1:
-            raise AssertionError(f"int8_matmul disagrees with its plain version: {row}")
+              f"{' + 2*2^-7|p|' if dt == torch.bfloat16 else ''});{gate_txt}{timing} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"int8_matmul disagrees with its plain version or the f64 "
+                                 f"product: {row}")
+        if b == 32 and k == VGG_HEADS[0][0] and n == VGG_HEADS[0][1]:
+            same = (torch.equal(im.int8_matmul(x, q, s), im.int8_matmul(x, q, s))
+                    and torch.equal(im.int8_matmul(x[:1].contiguous(), q, s),
+                                    im.int8_matmul(x, q, s)[:1]))
+            print(f"phase 2c rerun and bucket bits (B 32 {row['dtype']}, the first head): "
+                  f"reruns and row 0 at B 1 == B 32 bit for bit {same}", flush=True)
+            if not same:
+                raise AssertionError(f"int8_matmul reruns or buckets differ: {row}")
     for b, acc in sums.items():
         acc["bound_by"] = "operations" if acc["bound_ops_ms"] >= acc["bound_bytes_ms"] else "bytes"
-        print(f"phase 2c VGG16 heads B {b}: kernel_ms {acc['kernel_ms']:.4f} plain_ms "
-              f"{acc['plain_ms']:.4f} library_ms {acc['library_ms']:.4f} (torch.matmul on the "
-              f"dequantized f32 weight) bound_ms {acc['bound_ms']:.4f} ({acc['bound_by']}: "
-              f"bytes {acc['bound_bytes_ms']:.4f} at 3.35 TB/s, operations "
-              f"{acc['bound_ops_ms']:.4f} at the 67 TFLOP/s f32 CUDA-core peak)", flush=True)
+        print(f"phase 2c VGG16 heads B {b}: kernel_ms {acc['kernel_ms']:.4f} (device only, "
+              f"CUDA graph: {acc['kernel_device_ms']:.4f}) plain_ms {acc['plain_ms']:.4f} "
+              f"(device {acc['plain_device_ms']:.4f}) library_ms {acc['library_ms']:.4f} "
+              f"(device {acc['library_device_ms']:.4f}; torch.matmul on the dequantized f32 "
+              f"weight) bound_ms {acc['bound_ms']:.4f} ({acc['bound_by']}: bytes "
+              f"{acc['bound_bytes_ms']:.4f} at 3.35 TB/s, operations {acc['bound_ops_ms']:.4f}: "
+              f"three bf16 passes at 989 TFLOP/s)", flush=True)
     summary = {**sums[32], "max_abs_err": max(r["max_abs_err"] for r in rows),
                "b1": sums[1]}
     return rows, summary
@@ -2990,8 +3034,12 @@ def main() -> int:
             entry_k["vgg16"] = s["vgg16"]
         elif name == "int8_matmul":
             entry_k["launches_per_forward"] = vgg["per_forward"].get(name, 0)
-            entry_k["b1"] = {k: s["b1"][k] for k in ("kernel_ms", "plain_ms", "bound_ms",
-                                                     "bound_by", "library_ms")}
+            entry_k["device_ms"] = s["kernel_device_ms"]
+            entry_k["plain_device_ms"] = s["plain_device_ms"]
+            entry_k["library_device_ms"] = s["library_device_ms"]
+            entry_k["b1"] = {k: s["b1"][k] for k in (
+                "kernel_ms", "kernel_device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms")}
         else:
             entry_k["launches_per_train_step"] = train["launches_per_step"].get(name, 0)
             entry_k["device_ms"] = s["kernel_device_ms"]

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels, the fused
-// conv forward and the pointwise-conv dx and dW kernels: mbarriers, TMA tile
-// loads, transposed ldmatrix, wgmma descriptors and instructions, and the
-// host-side encoding of a head-split operand, a row-major matrix or a stack
-// of them as a TMA tensor map.
+// conv kernels and the int8 matmul: mbarriers, TMA tile loads, transposed
+// ldmatrix, wgmma descriptors and instructions, and the host-side encoding
+// of a head-split operand, a row-major matrix (bf16 or int8) or a stack of
+// them as a TMA tensor map.
 //
 // Shared-memory tiles are 128-byte swizzled rows of 64 bf16 (the layout TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with layout type 1):
@@ -293,6 +293,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(acc), "n"(TB));
 }
 
+// D (64 x 32) += A (64 x 16, registers) . B (16 x 32, shared memory)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
 // D (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared memory)
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
@@ -477,6 +493,27 @@ inline int encode_rows(CUtensorMap* out, const void* base, int cols, int rows,
   cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   cuuint32_t estride[2] = {1, 1};
   const CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_ERROR + static_cast<int>(r);
+}
+
+// A row-major int8 matrix (rows x cols, row stride `stride` bytes) as a 2-D
+// tensor map: boxes of 128 columns (128 bytes) by `box_rows` rows, 128-byte
+// swizzled (byte c of row r lands in 16-byte chunk (c / 16) ^ (r % 8) of the
+// box's row r), zero-filled out of bounds. The caller has checked a 16-byte
+// aligned base and a stride that is a multiple of 16. Returns 0 or
+// MAP_ERROR + the CUresult.
+inline int encode_bytes(CUtensorMap* out, const void* base, int cols, int rows,
+                        long long stride, int box_rows) {
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return MAP_ERROR + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  cuuint64_t gdim[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  cuuint64_t gstride[1] = {static_cast<cuuint64_t>(stride)};
+  cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t estride[2] = {1, 1};
+  const CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
                             gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

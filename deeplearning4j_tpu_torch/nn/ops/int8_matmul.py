@@ -18,6 +18,13 @@ Dispatch: :func:`int8_matmul` takes the plain version
 the kernel (``csrc/int8_matmul.cu``, which replaces the reference's
 ``_int8_kernel``) or raises: there is no fallback, and no probe. Each launch
 adds one to ``launch_counts["int8_matmul"]`` (``launch.py``).
+
+The kernel keeps f32 exact on the tensor cores: an f32 ``x`` is split into
+three bf16 planes (:func:`x_planes_plain` is the split's plain version, which
+the kernel's pre-pass mirrors), each product of a plane and ``q`` is exact
+in f32, and the three passes are summed in f32. The host side here plans
+the depth split (:func:`int8_split`) and how ``q`` reaches the kernel's
+stages (:func:`q_route`).
 """
 
 from __future__ import annotations
@@ -68,32 +75,64 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
     return (x @ q.to(x.dtype)) * scale.to(x.dtype)
 
 
+def x_planes_plain(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 planes the kernel multiplies ``q`` by, ``(P, B, K)``: for
+    an f32 ``x`` (P = 3) hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi
+    - mid), each rounded to nearest (the subtractions are exact in f32, and
+    hi + mid + lo is x within 2^-24 |x|); a bf16 ``x`` is its own plane.
+    The kernel's pre-pass computes the same bits (``csrc/int8_matmul.cu``
+    ``int8_planes_kernel``); this version serves the tests."""
+    if x.dtype == torch.bfloat16:
+        return x.unsqueeze(0)
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
-_LIB = KernelLibrary("int8_matmul", {"dl4j_int8_matmul": (5, 6)},
+_LIB = KernelLibrary("int8_matmul", {"dl4j_int8_matmul": (6, 7)},
                      "dl4j_int8_matmul_tile", tile_keys="rnk")
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
+#: the depth split: at least MIN_STAGES stages a chunk (one per consumer
+#: warpgroup of a block), unless K is shallower
+MIN_STAGES = 2
 
-#: the K split: chunks of at least MIN_CHUNK depths (unless K is smaller),
-#: about BLOCKS_PER_SM blocks per SM
-MIN_CHUNK = 128
-BLOCKS_PER_SM = 4
+#: how the kernel's producer brings q into a stage
+ROUTE_TMA, ROUTE_WORDS, ROUTE_BYTES = 0, 1, 2
 
 
-def int8_split(k: int, n: int, sms: int, cols: int) -> Tuple[int, int]:
+def int8_split(k: int, n: int, sms: int, cols: int, depth: int) -> Tuple[int, int]:
     """``(chunk, splits)``: the kernel splits the depth ``k`` into ``splits``
-    chunks of ``chunk`` (a multiple of 32, at least ``MIN_CHUNK`` unless
-    ``k`` is smaller), one grid row each, so that about ``BLOCKS_PER_SM``
-    blocks per SM are in flight even when the output is one column tile of
-    ``cols``. It depends on ``k``, ``n`` and the SM count only, never on the
-    rows: a row's summation order is the same in every batch bucket."""
+    chunks of ``chunk`` (whole stages of ``depth``, at least ``MIN_STAGES``
+    of them unless ``k`` is shallower), one grid row each, so that the
+    column tiles of ``cols`` times the chunks make about one wave of blocks
+    (one block per SM) and never more. It depends on ``k``, ``n`` and the SM
+    count only, never on the rows: a row's summation order is the same in
+    every batch bucket."""
     col_tiles = -(-n // cols)
-    splits = max(1, min(-(-k // MIN_CHUNK), -(-sms * BLOCKS_PER_SM // col_tiles)))
-    chunk = -(-(-(-k // splits)) // 32) * 32
+    stages = -(-k // depth)
+    splits = max(1, min(-(-stages // MIN_STAGES), sms // col_tiles))
+    chunk = -(-stages // splits) * depth
     return chunk, -(-k // chunk)
+
+
+def q_route(n: int, address: int) -> int:
+    """How ``q`` (``n`` columns, first byte at ``address``) reaches the
+    kernel's stages: by TMA when its rows start on 16-byte boundaries
+    (``ROUTE_TMA``), else by 4-byte ``cp.async`` when they start on 4-byte
+    ones (``ROUTE_WORDS``), else byte by byte (``ROUTE_BYTES``)."""
+    if n % 16 == 0 and address % 16 == 0:
+        return ROUTE_TMA
+    if n % 4 == 0 and address % 4 == 0:
+        return ROUTE_WORDS
+    return ROUTE_BYTES
 
 
 def _kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -116,13 +155,17 @@ def _kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     if k == 0:
         return torch.zeros((b, n), dtype=x.dtype, device=x.device)
     lib = _LIB.get()
-    chunk, splits = int8_split(k, n, sm_count(x.device.index or 0), _LIB.tile["n"])
+    chunk, splits = int8_split(k, n, sm_count(x.device.index or 0), _LIB.tile["n"],
+                               _LIB.tile["k"])
+    bf16 = x.dtype == torch.bfloat16
     with torch.cuda.device(x.device):
+        planes = torch.empty((1 if bf16 else 3, b, -(-k // 8) * 8), dtype=torch.bfloat16,
+                             device=x.device)
         partial = torch.empty((splits, b, n), dtype=torch.float32, device=x.device)
         y = torch.empty((b, n), dtype=x.dtype, device=x.device)
         launch(lib.dl4j_int8_matmul, OP,
-               (*ptrs(x, q, scale32, partial, y), b, k, n, chunk, splits,
-                int(x.dtype == torch.bfloat16)))
+               (*ptrs(x, q, scale32, planes, partial, y), b, k, n, chunk, splits, int(bf16),
+                q_route(n, q.data_ptr())))
     return y
 
 

@@ -11,9 +11,10 @@ summation-order difference over the product's depth K; statistics,
 ``dscale`` and ``dshift`` rtol 1e-4, atol 1e-3 plus 1e-5 of the sum of
 their terms' magnitudes. The int8 matmul: ``|k - p| <= 2*K*2^-24*(|x|.|q|)*s``
 (f32 summation order), plus for bf16 ``x`` one bf16 step of ``|p|`` for the
-output and one for the scale. The LSTM cell against the plain version run in
-f32 on its operands widened exactly and rounded once to the kernel's output
-dtype: f32 outputs within the reference probe's 1e-5, bf16 outputs within one
+output and one for the scale; for f32 ``x`` also max ``|k - y64|`` <= 4 max
+``|p - y64|`` + 2^-24 max ``|y64|`` against the f64 product. The LSTM cell
+against the plain version run in f32 on its operands widened exactly and
+rounded once to the kernel's output dtype: f32 outputs within the reference probe's 1e-5, bf16 outputs within one
 bf16 step of ``|ref|`` plus 2e-5 (``_lstm_tol``); a row's bits do not depend
 on its batch. The flash-attention forward against the plain version run in
 f32 on its operands widened exactly: f32 ``o`` and ``lse`` within 1e-5; bf16
@@ -1063,20 +1064,38 @@ def test_train_step_on_the_card_goes_through_the_kernels(card):
                for p in d.values())
 
 
-# (B, K, N): VGG16's three heads at buckets 1, 8, 32, LeNet's two heads, and
-# ragged shapes (N not a multiple of 4; more rows than one block holds)
+# (B, K, N): VGG16's three heads at buckets 1, 8, 32 and 33 (a second row
+# block), LeNet's two heads, and ragged shapes (N % 16 != 0 with N % 4 == 0
+# and K off the 64-deep stage; N not a multiple of 4; more rows than one
+# block holds)
 INT8_CASES = [(b, k, n) for b in (1, 8, 32)
               for k, n in ((25088, 4096), (4096, 4096), (4096, 1000))]
+INT8_CASES += [(33, 25088, 4096), (5, 1000, 1000)]
 INT8_CASES += [(8, 2450, 500), (8, 500, 10), (3, 777, 130), (40, 300, 70)]
+
+
+def _int8_case(b, k, n, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, k, generator=g).to(dtype).cuda()
+    q, s = im.quantize_int8(torch.randn(k, n, generator=g) * math.sqrt(2.0 / k))
+    return x, torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+
+
+def _int8_f64_gate(x, q, s, y, ref):
+    """f32 stays f32: the kernel's max |y - y64| against the f64 oracle is
+    at most 4x the plain f32 version's plus 2^-24 max |y64| (one plane, or
+    TF32, would be ~2^-9 |x||q| off)."""
+    y64 = (x.double() @ q.double()) * s.double()
+    err_k = float((y.double() - y64).abs().max())
+    err_p = float((ref.double() - y64).abs().max())
+    limit = 4 * err_p + 2.0 ** -24 * float(y64.abs().max())
+    return err_k, err_p, limit
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,k,n", INT8_CASES, ids=[f"{b}x{k}x{n}" for b, k, n in INT8_CASES])
 def test_int8_kernel_matches_plain(card, b, k, n, dtype):
-    g = torch.Generator().manual_seed(b * 7 + k + n)
-    x = torch.randn(b, k, generator=g).to(dtype).cuda()
-    q, s = im.quantize_int8(torch.randn(k, n, generator=g) * math.sqrt(2.0 / k))
-    q, s = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+    x, q, s = _int8_case(b, k, n, dtype, b * 7 + k + n)
     before = fc.launch_counts["int8_matmul"]
     y = im.int8_matmul(x, q, s)
     assert fc.launch_counts["int8_matmul"] == before + 1
@@ -1087,9 +1106,26 @@ def test_int8_kernel_matches_plain(card, b, k, n, dtype):
     if dtype == torch.bfloat16:
         tol = tol + 2 * 2.0 ** -7 * ref.float().abs()
     assert bool(((y.float() - ref.float()).abs() <= tol).all())
+    if dtype == torch.float32:
+        err_k, err_p, limit = _int8_f64_gate(x, q, s, y, ref)
+        assert err_k <= limit, (err_k, err_p, limit)
     # the same bits in every run, and a row's bits in every bucket
     assert torch.equal(im.int8_matmul(x, q, s), y)
     assert torch.equal(im.int8_matmul(x[:1].contiguous(), q, s), y[:1])
+
+
+@pytest.mark.parametrize("offset,route", [(4, im.ROUTE_WORDS), (1, im.ROUTE_BYTES)])
+def test_int8_kernel_takes_q_off_tmas_alignment(card, offset, route):
+    """A q whose base is 4 or 1 bytes off a 16-byte boundary goes by 4-byte
+    cp.async or byte by byte (TMA needs 16-byte aligned rows) and gives the
+    bits of an aligned q."""
+    x, q, s = _int8_case(8, 4096, 1024, torch.float32, offset)
+    buf = torch.empty(q.numel() + offset, dtype=torch.int8, device="cuda")
+    qv = buf[offset:].view(q.shape)
+    qv.copy_(q)
+    assert im.q_route(q.shape[1], qv.data_ptr()) == route
+    assert im.q_route(q.shape[1], q.data_ptr()) == im.ROUTE_TMA
+    assert torch.equal(im.int8_matmul(x, qv, s), im.int8_matmul(x, q, s))
 
 
 def test_int8_kernel_refusals(card):

@@ -171,5 +171,157 @@ def test_kernel_route_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tim._kernel(torch.zeros(2, 3), torch.zeros(3, 4, dtype=torch.int8), torch.ones(4))
     # the depth split depends on K, N and the SM count, never on the rows
-    assert tim.int8_split(25088, 4096, 132, 512) == (384, 66)
-    assert tim.int8_split(500, 10, 132, 512) == (128, 4)
+    assert tim.int8_split(25088, 4096, 132, 256, 64) == (3136, 8)
+    assert tim.int8_split(500, 10, 132, 256, 64) == (128, 4)
+
+
+# ---------------------------------------------------------------- the planner
+# (K, N): VGG16's three heads, LeNet's two, ragged shapes, a depth below one
+# stage and a width of many column tiles
+SPLIT_SHAPES = [(25088, 4096), (4096, 4096), (4096, 1000), (2450, 500), (500, 10),
+                (777, 130), (40, 7), (64, 70000)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("k,n", SPLIT_SHAPES, ids=[f"{k}x{n}" for k, n in SPLIT_SHAPES])
+def test_int8_split_covers_the_depth_in_one_wave(k, n, sms):
+    """Chunks of whole 64-deep stages, at least two of them unless K is
+    shallower, none empty, splits <= 65535, and the column tiles times the
+    chunks at most one block per SM (unless one chunk already exceeds it)."""
+    chunk, splits = tim.int8_split(k, n, sms, 256, 64)
+    stages = -(-k // 64)
+    assert chunk % 64 == 0 and chunk * splits >= k and chunk * (splits - 1) < k
+    assert chunk >= 64 * min(stages, tim.MIN_STAGES)
+    assert 1 <= splits <= 65535
+    assert splits == 1 or -(-n // 256) * splits <= sms
+
+
+def test_int8_split_fills_the_card_at_vgg16s_heads():
+    """One wave of blocks on 132 SMs at VGG16's heads: 16 column tiles x 8
+    chunks at the 4096-wide heads, 4 x 32 at the 1000-wide one."""
+    assert [tim.int8_split(k, n, 132, 256, 64) for k, n in ((25088, 4096), (4096, 4096),
+                                                            (4096, 1000))] == [
+        (3136, 8), (512, 8), (128, 32)]
+
+
+def _stub_kernel(monkeypatch, sms=132):
+    """The kernel route on "meta" tensors, with the library, the CUDA-only
+    checks and the launch stubbed: returns the argument tuples the C entry
+    would get."""
+    import contextlib
+
+    calls = []
+    monkeypatch.setattr(tim._LIB, "get", lambda: type("H", (), {"dl4j_int8_matmul": None})())
+    monkeypatch.setattr(tim._LIB, "tile", {"r": 32, "n": 256, "k": 64})
+    monkeypatch.setattr(tim, "launch", lambda fn, op, args: calls.append(args))
+    monkeypatch.setattr(tim, "ptrs", lambda *ts: ts)  # the launch sees the tensors
+    monkeypatch.setattr(tim, "check_kernel_args", lambda op, x, specs: None)
+    monkeypatch.setattr(tim, "sm_count", lambda index: sms)
+    monkeypatch.setattr(tim.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,n", [(25088, 4096), (4096, 1000), (777, 130)],
+                         ids=["25088x4096", "4096x1000", "777x130"])
+def test_kernel_route_plans_the_same_split_for_every_bucket(monkeypatch, k, n, dtype):
+    """The wrapper hands the kernel the same chunk and split count at B 1,
+    8, 32 and 33; planes of (P, B, K rounded up to 8) bf16 (P = 3 for f32
+    x, 1 for bf16) and (splits, B, N) f32 partials; the x_bf16 flag."""
+    calls = _stub_kernel(monkeypatch)
+    q = torch.zeros((k, n), dtype=torch.int8, device="meta")
+    s = torch.zeros((n,), dtype=torch.float32, device="meta")
+    plans = set()
+    for b in (1, 8, 32, 33):
+        y = tim._kernel(torch.zeros((b, k), dtype=dtype, device="meta"), q, s)
+        assert y.shape == (b, n) and y.dtype == dtype
+        x, qk, sk, planes, partial, yk, bk, kk, nk, chunk, splits, bf16, route = calls[-1]
+        assert (bk, kk, nk, bf16) == (b, k, n, int(dtype == torch.bfloat16))
+        assert planes.shape == (1 if bf16 else 3, b, -(-k // 8) * 8)
+        assert planes.dtype == torch.bfloat16
+        assert partial.shape == (splits, b, n) and partial.dtype == torch.float32
+        assert route == tim.q_route(n, 0) and yk is y
+        plans.add((chunk, splits))
+    assert plans == {tim.int8_split(k, n, 132, 256, 64)}
+
+
+@pytest.mark.parametrize("n,address,route", [
+    (4096, 0, tim.ROUTE_TMA), (4096, 1024, tim.ROUTE_TMA), (16, 256, tim.ROUTE_TMA),
+    (4096, 8, tim.ROUTE_WORDS), (1000, 0, tim.ROUTE_WORDS), (500, 4, tim.ROUTE_WORDS),
+    (1000, 2, tim.ROUTE_BYTES), (10, 0, tim.ROUTE_BYTES), (130, 0, tim.ROUTE_BYTES),
+    (70, 512, tim.ROUTE_BYTES), (4096, 1, tim.ROUTE_BYTES)])
+def test_q_route_follows_tmas_and_cp_asyncs_alignment(n, address, route):
+    """q goes by TMA only where its rows start on 16-byte boundaries (the
+    tensor map's row stride), by 4-byte cp.async where they start on 4-byte
+    ones, else byte by byte."""
+    assert tim.q_route(n, address) == route
+
+
+# --------------------------------------------------------------- the x planes
+def _wide_x(shape, seed):
+    """Normal values scaled over twelve decades, a few exact zeros and
+    powers of two: the planes' exponents move with x's."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape) * 10.0 ** rng.uniform(-6, 6, shape)
+    x.flat[::17] = 0.0
+    x.flat[5::23] = 2.0 ** rng.integers(-20, 20, x.flat[5::23].shape)
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_x_planes_are_bf16_and_sum_back_to_x(seed):
+    """hi, mid and lo are bf16 values (hi = bf16(x), mid = bf16(x - hi), lo =
+    bf16(x - hi - mid), each rounded to nearest), and hi + mid + lo is x
+    within 2^-24 |x|; a bf16 x is its own single plane."""
+    x = _wide_x((7, 333), seed)
+    planes = tim.x_planes_plain(x)
+    assert planes.shape == (3, 7, 333) and planes.dtype == torch.bfloat16
+    hi, mid, lo = planes.double()
+    x64 = x.double()
+    assert torch.equal(planes[0], x.to(torch.bfloat16))
+    assert torch.equal(planes[1], (x - planes[0].float()).to(torch.bfloat16))
+    back = (hi + mid + lo - x64).abs()
+    assert bool((back <= 2.0 ** -24 * x64.abs()).all()), float((back / x64.abs()).max())
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(tim.x_planes_plain(xb), xb.unsqueeze(0))
+
+
+def _planes_times_q(x, q, s, n_planes):
+    """(sum over the first n_planes planes of plane @ q) * s, in f32: the
+    kernel's arithmetic up to the f32 summation order."""
+    planes = tim.x_planes_plain(torch.from_numpy(x))[:n_planes].float()
+    qf = torch.from_numpy(q).float()
+    acc = torch.zeros((x.shape[0], q.shape[1]))
+    for p in planes:
+        acc = acc + p @ qf
+    return (acc * torch.from_numpy(s)).numpy()
+
+
+@pytest.mark.parametrize("b,k,n", CASES, ids=[f"{b}x{k}x{n}" for b, k, n in CASES])
+def test_three_planes_match_the_pallas_kernel(b, k, n):
+    """Three bf16 planes times q, summed in f32, agree with JAX's
+    int8_matmul (f32 x, the Pallas kernel run by its interpreter) within the
+    f32 bound of the plain version."""
+    x = _rand((b, k), b * 1000 + k)
+    q, s = jim.quantize_int8(_rand((k, n), n, 0.2))
+    want = np.asarray(jim.int8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s),
+                                      interpret=True), np.float32)
+    err = np.abs(_planes_times_q(x, q, s, 3) - want)
+    assert (err <= _bound(x, q, s, False, want)).all(), float(err.max())
+
+
+ONE_PLANE_CASES = [c for c in CASES if c[1] <= 777]
+
+
+@pytest.mark.parametrize("b,k,n", ONE_PLANE_CASES,
+                         ids=[f"{b}x{k}x{n}" for b, k, n in ONE_PLANE_CASES])
+def test_one_bf16_plane_fails_the_f32_bound(b, k, n):
+    """x rounded once to bf16 (a single plane, as TF32 or one bf16 pass
+    would round it) misses the same bound: the bound can fail. (At K 2450
+    the bound's 2K term is wide enough to hold even one plane.)"""
+    x = _rand((b, k), b * 1000 + k)
+    q, s = jim.quantize_int8(_rand((k, n), n, 0.2))
+    want = np.asarray(jim.int8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s),
+                                      interpret=True), np.float32)
+    err = np.abs(_planes_times_q(x, q, s, 1) - want)
+    assert not (err <= _bound(x, q, s, False, want)).all()
