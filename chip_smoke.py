@@ -24,8 +24,10 @@ engine and an f32 engine; phase 6 drives the entry points: the HTTP server
 over the int8 VGG16 engine, ``cli serve --smoke`` on a LeNet checkpoint
 written by the port, and ``/reload``. Phase 2d holds the fused LSTM cell
 against its plain version at TextGenerationLSTM's shapes (f32, bf16 and the
-mixed compute-dtype flow, with and without peepholes) and checks that a
-row's bits do not depend on its batch. Phase 7 serves a full-width
+mixed compute-dtype flow, with and without peepholes), times it by device
+time beside CUDA events and ``torch.lstm_cell``, and checks that a row's
+bits do not depend on its batch (across the kernel's row tiles) and that
+reruns give the same bits. Phase 7 serves a full-width
 TextGenerationLSTM (77 characters, two GravesLSTM(256); seeded) through a
 32-slot ``GenerationEngine`` (64 requests, half greedy, half sampled):
 exact launch counts, a teacher-forced comparison with the plain path on the
@@ -1357,9 +1359,25 @@ def library_cell(args):
     return lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)
 
 
+def lstm_rows_alone(fl, args, hk, ck) -> bool:
+    """Whether each row of a call's ``h'`` and ``c'`` equals that row run
+    alone (B 1), bit for bit."""
+    return all(
+        torch.equal(o1, o[r:r + 1]) for r in range(hk.shape[0])
+        for o1, o in zip(fl.fused_lstm_cell(*[a[r:r + 1].contiguous() if i < 3 else a
+                                              for i, a in enumerate(args)]), (hk, ck)))
+
+
+LSTM_TIMED = ("kernel_ms", "plain_ms", "library_ms", "kernel_device_ms", "plain_device_ms",
+              "library_device_ms")
+
+
 def lstm_phase(fl):
     """Phase 2d: the fused cell against its plain version on the card at
-    every case; times at the f32 shapes; the batch-invariance check."""
+    every case; times at the f32 shapes (and bf16 GravesLSTM at B 32) by
+    CUDA events and device only (CUDA graph), the kernel, the plain version
+    and, without peepholes, ``torch.lstm_cell``; batch invariance across
+    row tiles and bitwise reruns."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     rows = []
     for b, n_in, n, pe, dt in lstm_cases():
@@ -1383,10 +1401,10 @@ def lstm_phase(fl):
                "finite": bool(torch.isfinite(hk.float()).all() and torch.isfinite(ck.float()).all())}
         timing = ""
         if (dt == "f32" and n == LSTM_UNITS) or (dt == "bf16" and pe and b == 32):
+            fns = {"kernel": lambda: fl.fused_lstm_cell(*args),
+                   "plain": lambda: fl.reference_lstm_cell(*args)}
+            row["library_ms"] = row["library_device_ms"] = None
             with torch.inference_mode():
-                row["kernel_ms"] = time_ms(lambda: fl.fused_lstm_cell(*args))
-                row["plain_ms"] = time_ms(lambda: fl.reference_lstm_cell(*args))
-                row["library_ms"] = None
                 if not pe and dt == "f32":
                     lib = library_cell(args)
                     hl, cl = lib()
@@ -1394,11 +1412,17 @@ def lstm_phase(fl):
                     if lib_err > 1e-4:
                         raise AssertionError(f"torch.lstm_cell on the reordered weights differs "
                                              f"from the plain cell by {lib_err}")
-                    row["library_ms"] = time_ms(lib)
+                    fns["library"] = lib
+                for name, fn in fns.items():
+                    row[f"{name}_ms"] = time_ms(fn)
+                    row[f"{name}_device_ms"] = graph_ms(fn)
             row["bound_ms"], row["bound_by"] = lstm_cost(args, hk.dtype)
-            timing = (f" kernel_ms {row['kernel_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-                      f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']}) library_ms "
-                      + ("none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"))
+            timing = (f" kernel_ms {row['kernel_ms']:.4f} (device only, CUDA graph: "
+                      f"{row['kernel_device_ms']:.4f}) plain_ms {row['plain_ms']:.4f} (device "
+                      f"{row['plain_device_ms']:.4f}) bound_ms {row['bound_ms']:.5f} "
+                      f"({row['bound_by']}) library_ms "
+                      + ("none" if row["library_ms"] is None else
+                         f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f})"))
         rows.append(row)
         ok = row["err_over_tol"] <= 1 and row["finite"]
         print(f"phase 2d kernel fused_lstm_cell B {b} n_in {n_in} n {n} "
@@ -1408,38 +1432,55 @@ def lstm_phase(fl):
               f"{row['err_over_tol']:.3g}{timing} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"fused_lstm_cell disagrees with its plain version: {row}")
-    # batch invariance: each row of a 32-row call equals the row alone, bitwise
-    invariant = {}
+    # batch invariance: each row of a 32-row call, and of 33- and 65-row calls
+    # (which cross a row tile of the kernel's plan), equals the row alone,
+    # bitwise; and a rerun of each call gives the same bits
+    invariant, reruns = {}, {}
     for dt in ("f32", "bf16"):
         for n_in in (TEXTGEN_VOCAB, LSTM_UNITS):
-            args = lstm_args(gen, 32, n_in, LSTM_UNITS, True, LSTM_DTYPES[dt])
-            with torch.inference_mode():
-                hk, ck = fl.fused_lstm_cell(*args)
-                same = all(
-                    torch.equal(o1, o[r:r + 1]) for r in range(32)
-                    for o1, o in zip(fl.fused_lstm_cell(*[a[r:r + 1].contiguous() if i < 3 else a
-                                                           for i, a in enumerate(args)]), (hk, ck)))
-            invariant[f"{dt}_n_in{n_in}"] = same
-    print(f"phase 2d batch invariance (row r at B 1 == row r at B 32, bitwise): {invariant}",
-          flush=True)
+            for b in (32, 33, 65):
+                args = lstm_args(gen, b, n_in, LSTM_UNITS, True, LSTM_DTYPES[dt])
+                with torch.inference_mode():
+                    hk, ck = fl.fused_lstm_cell(*args)
+                    h2, c2 = fl.fused_lstm_cell(*args)
+                    invariant[f"{dt}_n_in{n_in}_b{b}"] = lstm_rows_alone(fl, args, hk, ck)
+                reruns[f"{dt}_n_in{n_in}_b{b}"] = torch.equal(hk, h2) and torch.equal(ck, c2)
+    print(f"phase 2d batch invariance (each row at B 32, 33, 65 == the row at B 1, bitwise): "
+          f"{invariant}; reruns bitwise equal: {reruns}", flush=True)
     if not all(invariant.values()):
         raise AssertionError(f"fused_lstm_cell is not batch-invariant: {invariant}")
+    if not all(reruns.values()):
+        raise AssertionError(f"fused_lstm_cell reruns differ: {reruns}")
 
     def step(b, pe):
         mine = [r for r in rows if r["dtype"] == "f32" and r["b"] == b and r["peephole"] == pe
                 and r["n"] == LSTM_UNITS]
-        out = {k: sum(r[k] for r in mine) for k in ("kernel_ms", "plain_ms", "bound_ms")}
-        out["library_ms"] = (None if pe else sum(r["library_ms"] for r in mine))
+        out = {k: sum(r[k] for r in mine) for k in LSTM_TIMED + ("bound_ms",)
+               if not (pe and k.startswith("library"))}
+        if pe:
+            out["library_ms"] = out["library_device_ms"] = None
         weight = {k: sum(r["bound_ms"] for r in mine if r["bound_by"] == k)
                   for k in ("bytes", "operations")}
         out["bound_by"] = max(weight, key=weight.get)
         return out
 
-    summary = {**step(32, True), "max_abs_err": max(r["max_abs_err"] for r in rows),
+    by_batch = {b: {"peephole": step(b, True), "no_peephole": step(b, False)}
+                for b in (1, 8, 32, 64)}
+    for b, st in by_batch.items():
+        g, p = st["peephole"], st["no_peephole"]
+        print(f"phase 2d step B {b} (2 cells, f32, device only by CUDA graph, events in "
+              f"parentheses): GravesLSTM kernel {g['kernel_device_ms']:.4f} "
+              f"({g['kernel_ms']:.4f}); no peepholes kernel {p['kernel_device_ms']:.4f} "
+              f"({p['kernel_ms']:.4f}), torch.lstm_cell {p['library_device_ms']:.4f} "
+              f"({p['library_ms']:.4f}); plain {g['plain_device_ms']:.4f}; bound "
+              f"{g['bound_ms']:.5f} ({g['bound_by']})", flush=True)
+    summary = {**by_batch[32]["peephole"], "max_abs_err": max(r["max_abs_err"] for r in rows),
                "max_err_over_tol": max(r["err_over_tol"] for r in rows),
-               "b1": step(1, True), "no_peephole_b32": step(32, False),
-               "no_peephole_b1": step(1, False), "batch_invariant": invariant}
-    print(f"phase 2d one decode step (2 cells, B 32, GravesLSTM, f32): {summary}", flush=True)
+               "b1": by_batch[1]["peephole"], "no_peephole_b32": by_batch[32]["no_peephole"],
+               "no_peephole_b1": by_batch[1]["no_peephole"], "by_batch": by_batch,
+               "batch_invariant": invariant, "reruns_equal": reruns}
+    print(f"phase 2d one decode step (2 cells, B 32, GravesLSTM, f32): "
+          f"{ {k: v for k, v in summary.items() if k != 'by_batch'} }", flush=True)
     return rows, summary
 
 
@@ -3018,6 +3059,9 @@ def main() -> int:
         if name == "fused_lstm_cell":
             entry_k["launches_per_decode_step"] = gen["launches_per_decode_step"]
             entry_k["launches_per_prefill_by_bucket"] = gen["launches_per_prefill_by_bucket"]
+            entry_k["device_ms"] = s["kernel_device_ms"]
+            entry_k["plain_device_ms"] = s["plain_device_ms"]
+            entry_k["library_device_ms"] = s["library_device_ms"]
             entry_k["b1"] = s["b1"]
             entry_k["no_peephole"] = {"b32": s["no_peephole_b32"], "b1": s["no_peephole_b1"]}
         elif name == "flash_attention_fwd":

@@ -21,6 +21,11 @@ Counterpart of ``deeplearning4j_tpu/nn/ops/fused_lstm.py``::
   its dtype (f32 or bf16); the outputs are bf16 when ``x``, the weights and
   the carries all are, else f32, which is the dtype the reference's
   promotion gives them.
+- The host side plans the kernel's tiles (:func:`lstm_tiles`: the hidden
+  units and rows a block owns, and the depth split, which depends on the
+  widths alone) and how each operand reaches the kernel's stages
+  (:func:`lstm_route`: by TMA or 16-byte copies, by 4-byte ``cp.async``,
+  or element by element, from its row length and base address).
 - The backward (the reference's ``_cell_bwd_math``, an XLA composition)
   comes with the recurrent training slice: a CUDA call that would record a
   gradient raises :class:`NotImplementedError`.
@@ -31,7 +36,8 @@ Counterpart of ``deeplearning4j_tpu/nn/ops/fused_lstm.py``::
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,6 +48,7 @@ from deeplearning4j_tpu_torch.nn.ops.launch import (  # noqa: F401  (counters re
     launch_counts,
     ptrs,
     reset_launch_counts,
+    sm_count,
 )
 
 OP = "fused_lstm_cell"
@@ -89,8 +96,70 @@ def reference_lstm_cell(x, h, c, Wx, Wh, b, pI=None, pF=None, pO=None
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
-_LIB = KernelLibrary("fused_lstm", {"dl4j_fused_lstm_cell": (11, 7)},
-                     "dl4j_fused_lstm_tile", tile_keys="urk")
+_LIB = KernelLibrary("fused_lstm", {"dl4j_fused_lstm_cell": (11, 12)},
+                     "dl4j_fused_lstm_tile", tile_keys="dws")
+
+#: the kernel's depth split (``csrc/fused_lstm.cu`` D and WARPS; the card
+#: tests hold them to the library's tile query): stages of STAGE_DEPTH
+#: depths of [x | h], the x stages first; warp w of DEPTH_WARPS sums depths
+#: [w d, (w + 1) d) of every stage, d = STAGE_DEPTH / DEPTH_WARPS, and the
+#: warps' sums are added in warp order
+STAGE_DEPTH, DEPTH_WARPS = 128, 8
+
+#: a block's hidden units (all four gates) and rows; 4 units of bf16 would
+#: make a TMA box row of 8 bytes, under its 16
+UNITS_F32, UNITS_BF16, ROWS = (4, 8), (8,), (8, 16, 32)
+
+#: how an operand reaches the kernel's stages: the weights by TMA and the
+#: rows of x and h by 16-byte ``cp.async`` (ROUTE_WIDE), by 4-byte
+#: ``cp.async`` (ROUTE_WORDS), or by loads and shared stores (ROUTE_ELEMENTS)
+ROUTE_WIDE, ROUTE_WORDS, ROUTE_ELEMENTS = 0, 1, 2
+
+
+class LstmTiles(NamedTuple):
+    units: int        # hidden units a block, with all four gates
+    rows: int         # rows of x a block
+    depth: int        # depths of [x | h] a stage
+    x_stages: int     # stages over Wx and x, then
+    h_stages: int     # stages over Wh and h
+    warp_depths: int  # depths of each stage one warp sums, warps in order
+
+
+@functools.lru_cache(maxsize=256)
+def lstm_tiles(b: int, n_in: int, n: int, w_bf16: bool, sms: int) -> LstmTiles:
+    """The kernel's plan for ``b`` rows of a cell of widths ``n_in`` and
+    ``n``: among the tiles (units, rows) whose grid of ceil(n / units) x
+    ceil(b / rows) blocks fits one wave (one block an SM), the one with the
+    least work a block (units x rows), among equals the most units: the
+    weights come by TMA, which moves bytes more cheaply than the rows'
+    copies, so a block of more units and fewer rows is faster, though it
+    reads the weights once more from L2 (PERF.md § 6, PR 17); where none
+    fits, the largest tile. The depth split comes from the widths alone,
+    never from ``b`` or the tile: a row's summation order is the same in
+    every batch."""
+    best = None
+    for units in (UNITS_BF16 if w_bf16 else UNITS_F32):
+        for rows in ROWS:
+            blocks = -(-n // units) * -(-b // rows)
+            work = units * rows if blocks <= sms else -units * rows
+            cost = (blocks > sms, work, -units, -rows)
+            if best is None or cost < best[0]:
+                best = (cost, units, rows)
+    return LstmTiles(best[1], best[2], STAGE_DEPTH, -(-n_in // STAGE_DEPTH),
+                     -(-n // STAGE_DEPTH), STAGE_DEPTH // DEPTH_WARPS)
+
+
+def lstm_route(row_bytes: int, address: int) -> int:
+    """How an operand whose rows are ``row_bytes`` long, first byte at
+    ``address``, reaches the kernel's stages: ROUTE_WIDE when every row
+    starts on a 16-byte boundary (what a TMA map's strides and a 16-byte
+    copy need), else ROUTE_WORDS on 4-byte boundaries, else ROUTE_ELEMENTS
+    (bf16 rows of an odd length)."""
+    if row_bytes % 16 == 0 and address % 16 == 0:
+        return ROUTE_WIDE
+    if row_bytes % 4 == 0 and address % 4 == 0:
+        return ROUTE_WORDS
+    return ROUTE_ELEMENTS
 
 
 def output_dtype(x, h, w) -> torch.dtype:
@@ -125,13 +194,19 @@ def _kernel(x, h, c, Wx, Wh, b, peeps) -> Tuple[torch.Tensor, torch.Tensor]:
     if n_in == 0:
         raise ValueError(f"{OP}: the kernel needs n_in >= 1")
     lib = _LIB.get()
-    p = ptrs(*peeps) if peeps is not None else (0, 0, 0)
     bf = torch.bfloat16
+    plan = lstm_tiles(batch, n_in, n, wdt == bf, sm_count(x.device.index or 0))
+    operands = ptrs(x, h, c, Wx, Wh, b)
+    px, ph, _, pwx, pwh, _ = operands
+    w_row = n * Wx.element_size()
+    routes = (max(lstm_route(w_row, pwx), lstm_route(w_row, pwh)),
+              lstm_route(n_in * x.element_size(), px), lstm_route(n * h.element_size(), ph))
+    p = ptrs(*peeps) if peeps is not None else (0, 0, 0)
     with torch.cuda.device(x.device):
         launch(lib.dl4j_fused_lstm_cell, OP,
-               (*ptrs(x, h, c, Wx, Wh, b), *p, *ptrs(h_new, c_new),
+               (*operands, *p, *ptrs(h_new, c_new),
                 batch, n_in, n, int(x.dtype == bf), int(wdt == bf), int(sdt == bf),
-                int(peeps is not None)))
+                int(peeps is not None), plan.units, plan.rows, *routes))
     return h_new, c_new
 
 

@@ -65,11 +65,12 @@ def _device_time_us(evt) -> float:
 GROUPS = (
     ("flash-attention kernels", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                  "flash_bwd_dkv_kernel")),
-    ("fused LSTM cell kernels", ("lstm_cell_kernel",)),
+    ("fused LSTM cell kernels", ("lstm_cell_kernel_sm90",)),
     ("fused Adam kernel", ("fused_adam_kernel",)),
     ("collectives (NCCL)", ("nccl",)),
     ("concatenations (torch.cat)", ("catarraybatchedcopy",)),
-    ("int8_matmul kernels", ("int8_partial_kernel", "int8_reduce_kernel")),
+    ("int8_matmul kernels", ("int8_planes_kernel", "int8_matmul_kernel_sm90",
+                             "int8_reduce_kernel")),
     ("fused conv kernels", ("fused_conv_fwd_kernel", "conv3x3_bwd_dx_kernel",
                             "pw_bwd_dx_kernel", "pw_bwd_dw_kernel", "conv3x3_bwd_dw_kernel",
                             "dw_reduce_kernel", "stats_reduce", "splitk_reduce")),

@@ -49,7 +49,7 @@ from deeplearning4j_tpu_torch.updaters import Nesterovs
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-import chip_smoke  # noqa: E402  (phase 2f's oracle of the flash backward)
+import chip_smoke  # noqa: E402  (phase 2f's oracle of the flash backward, phase 2d's row check)
 
 pytestmark = pytest.mark.cuda
 
@@ -1253,6 +1253,137 @@ def test_lstm_kernel_refusals(card):
         fl.fused_lstm_cell(args[0].t().contiguous().t(), *args[1:])
     with pytest.raises(ValueError):
         fl.fused_lstm_cell(args[0][:, :7].contiguous(), *args[1:])
+
+
+def _lstm_check(fl, args):
+    """One kernel call against the plain version in f32 on the widened
+    operands (``_lstm_tol``); returns the call's outputs."""
+    with torch.inference_mode():
+        hk, ck = fl.fused_lstm_cell(*args)
+        h32, c32 = fl.reference_lstm_cell(*[a.float() for a in args])
+    torch.cuda.synchronize()
+    for k_, r32 in ((hk, h32), (ck, c32)):
+        err = (k_.float() - r32.to(k_.dtype).float()).abs()
+        assert bool((err <= _lstm_tol(r32, k_.dtype)).all()), float(err.max())
+    return hk, ck
+
+
+def _routes(fl, args):
+    """The routes the wrapper gives the weights, x and h."""
+    x, h, _, wx, wh = args[:5]
+    n, w_row = h.shape[1], h.shape[1] * wx.element_size()
+    return (max(fl.lstm_route(w_row, wx.data_ptr()), fl.lstm_route(w_row, wh.data_ptr())),
+            fl.lstm_route(x.shape[1] * x.element_size(), x.data_ptr()),
+            fl.lstm_route(n * h.element_size(), h.data_ptr()))
+
+
+def test_lstm_kernel_depth_split_matches_the_planner(card):
+    """The library's stage depth and warp count are the planner's."""
+    from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
+
+    fl._LIB.get()
+    assert (fl._LIB.tile["d"], fl._LIB.tile["w"]) == (fl.STAGE_DEPTH, fl.DEPTH_WARPS)
+
+
+LSTM_TILE_CROSSING = [(b, n_in) for b in (33, 65) for n_in in (77, 256)]
+
+
+@pytest.mark.parametrize("dt", sorted(LSTM_DTYPES))
+@pytest.mark.parametrize("b,n_in", LSTM_TILE_CROSSING,
+                         ids=[f"{b}x{i}" for b, i in LSTM_TILE_CROSSING])
+def test_lstm_kernel_rows_across_row_tiles_equal_the_row_alone(card, b, n_in, dt):
+    """B 33 and 65 span more than one row tile of the kernel's plan; each
+    row equals the row alone (B 1) bit for bit, and the call its plain
+    version within ``_lstm_tol``."""
+    from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
+
+    args = _lstm_args(b, n_in, 256, True, LSTM_DTYPES[dt], seed=b * 7 + n_in)
+    plan = fl.lstm_tiles(b, n_in, 256, args[3].dtype == BF16,
+                         torch.cuda.get_device_properties(0).multi_processor_count)
+    assert b > plan.rows
+    hk, ck = _lstm_check(fl, args)
+    with torch.inference_mode():
+        assert chip_smoke.lstm_rows_alone(fl, args, hk, ck)
+
+
+@pytest.mark.parametrize("dt", sorted(LSTM_DTYPES))
+@pytest.mark.parametrize("b", [1, 32])
+def test_lstm_kernel_long_depth_runs_the_ring_many_times(card, b, dt):
+    """n_in 1200: 10 + 2 stages of 128 depths through the ring's 4 slots;
+    within ``_lstm_tol`` of the plain version, a row alone bit for bit."""
+    from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
+
+    args = _lstm_args(b, 1200, 256, True, LSTM_DTYPES[dt], seed=b + 1200)
+    hk, ck = _lstm_check(fl, args)
+    with torch.inference_mode():
+        h1, c1 = fl.fused_lstm_cell(*[a[-1:].contiguous() if i < 3 else a
+                                      for i, a in enumerate(args)])
+    assert torch.equal(h1, hk[-1:]) and torch.equal(c1, ck[-1:])
+
+
+def _off16(t, nbytes=4):
+    """A copy of ``t`` as a contiguous view whose base is ``nbytes`` past a
+    16-byte boundary."""
+    off = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == nbytes
+    return view
+
+
+@pytest.mark.parametrize("dt", sorted(LSTM_DTYPES))
+@pytest.mark.parametrize("b", [1, 32])
+def test_lstm_kernel_takes_operands_off_16_bytes_by_cp_async(card, b, dt):
+    """Weights, x and h whose bases are 4 bytes off 16 go by 4-byte
+    cp.async instead of TMA and 16-byte copies; the bits are those of the
+    aligned call (the route does not change the summation order)."""
+    from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
+
+    args = _lstm_args(b, 256, 256, True, LSTM_DTYPES[dt], seed=b + 3)
+    off = [_off16(a) if i in (0, 1, 3, 4) else a for i, a in enumerate(args)]
+    assert _routes(fl, args) == (fl.ROUTE_WIDE,) * 3
+    assert _routes(fl, off) == (fl.ROUTE_WORDS,) * 3
+    hk, ck = _lstm_check(fl, args)
+    ho, co = _lstm_check(fl, off)
+    assert torch.equal(ho, hk) and torch.equal(co, ck)
+
+
+# (B, n_in, n, dtype, routes of the weights, x and h)
+LSTM_ROUTE_CASES = [
+    (3, 33, 100, "bf16", (1, 2, 1)),    # n 100 in bf16: 200-byte strips; odd n_in in bf16
+    (5, 77, 100, "mixed", (1, 2, 0)),   # the same weights, f32 carries
+    (4, 10, 33, "bf16", (2, 1, 2)),     # odd n in bf16: element by element
+    (7, 77, 100, "f32", (0, 1, 0)),     # n_in 77 in f32: 308-byte rows
+]
+
+
+@pytest.mark.parametrize("b,n_in,n,dt,routes", LSTM_ROUTE_CASES,
+                         ids=[f"{b}x{i}x{n}-{dt}" for b, i, n, dt, _ in LSTM_ROUTE_CASES])
+def test_lstm_kernel_copies_what_tma_cannot_read(card, b, n_in, n, dt, routes):
+    """Rows and strips that are not 16-byte aligned take 4-byte cp.async or
+    element copies into the same stage layout: within ``_lstm_tol``, each
+    row alone bit for bit."""
+    from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
+
+    args = _lstm_args(b, n_in, n, True, LSTM_DTYPES[dt], seed=b * n)
+    assert _routes(fl, args) == routes
+    hk, ck = _lstm_check(fl, args)
+    with torch.inference_mode():
+        assert chip_smoke.lstm_rows_alone(fl, args, hk, ck)
+
+
+@pytest.mark.parametrize("dt", sorted(LSTM_DTYPES))
+@pytest.mark.parametrize("n_in", [77, 256])
+def test_lstm_kernel_reruns_are_bitwise_equal(card, n_in, dt):
+    """Three calls on the same operands (B 32, GravesLSTM) give the same
+    bits: no float atomics, a fixed summation order."""
+    from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
+
+    args = _lstm_args(32, n_in, 256, True, LSTM_DTYPES[dt], seed=n_in)
+    with torch.inference_mode():
+        outs = [fl.fused_lstm_cell(*args) for _ in range(3)]
+    assert all(torch.equal(h, outs[0][0]) and torch.equal(c, outs[0][1]) for h, c in outs[1:])
 
 
 def _textgen(units=32, vocab=20):

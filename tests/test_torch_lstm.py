@@ -144,6 +144,193 @@ def test_cell_for_routes_like_the_reference():
         tfl.cell_for(plain)(*args)
 
 
+# ------------------------------------------------ the kernel's host side
+# The CUDA kernel runs only on the card (tests/test_torch_cuda.py); its
+# plan, its routes and the wrapper's checks are host code, held here.
+# (B, n_in, n): TextGenerationLSTM's two cells at the prefill row and the
+# decode batches, batches past one row tile, the ragged card case, a narrow
+# cell, a long depth, a wide batch, one hidden unit
+TILE_SHAPES = ([(b, n_in, 256) for n_in in (77, 256) for b in (1, 8, 32, 33, 64, 65)]
+               + [(3, 33, 100), (4, 8, 16), (1, 1200, 256), (1000, 77, 256), (5, 3, 1)])
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("w_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,n_in,n", TILE_SHAPES, ids=[f"{b}x{i}x{n}" for b, i, n in TILE_SHAPES])
+def test_lstm_tiles_cover_n_and_b(b, n_in, n, w_bf16, sms):
+    """A tile the kernel has (4 units only with f32 weights), a grid that
+    covers the hidden units and the rows with no block wholly past them,
+    stages that cover n_in and n, and one wave of blocks whenever some tile
+    fits one."""
+    t = tfl.lstm_tiles(b, n_in, n, w_bf16, sms)
+    units = tfl.UNITS_BF16 if w_bf16 else tfl.UNITS_F32
+    assert t.units in units and t.rows in tfl.ROWS
+    gx, gy = -(-n // t.units), -(-b // t.rows)
+    assert (gx - 1) * t.units < n <= gx * t.units
+    assert (gy - 1) * t.rows < b <= gy * t.rows
+    assert (t.x_stages - 1) * t.depth < n_in <= t.x_stages * t.depth
+    assert (t.h_stages - 1) * t.depth < n <= t.h_stages * t.depth
+    fits = any(-(-n // u) * -(-b // r) <= sms for u in units for r in tfl.ROWS)
+    assert (gx * gy <= sms) == fits
+
+
+@pytest.mark.parametrize("n_in,n", [(77, 256), (256, 256), (33, 100), (1200, 256), (8, 16)])
+def test_lstm_tiles_split_the_depth_the_same_way_for_every_batch_and_tile(n_in, n):
+    """The depth split (stage depth, x and h stages, each warp's depths)
+    depends on n_in and n alone: the same at every batch, for either
+    weight type and SM count, whichever tile the batch gets."""
+    plans = [tfl.lstm_tiles(b, n_in, n, w, sms) for b in range(1, 131)
+             for w in (False, True) for sms in (132, 1)]
+    assert {p[2:] for p in plans} == {(tfl.STAGE_DEPTH, -(-n_in // tfl.STAGE_DEPTH),
+                                       -(-n // tfl.STAGE_DEPTH),
+                                       tfl.STAGE_DEPTH // tfl.DEPTH_WARPS)}
+    assert len({p[:2] for p in plans}) > 2  # the tiles do change with the batch
+
+
+@pytest.mark.parametrize("n_in", [77, 256])
+def test_lstm_tiles_fill_about_one_wave_at_textgens_shapes(n_in):
+    """On 132 SMs: every 4-unit slice of n 256 at B 1 and 8 (64 blocks, the
+    most without splitting the depth across blocks), 128 blocks of 8 units
+    at B 32 and 64; bf16 weights (8 units) 32, 32, 128 and 128."""
+    f32 = {b: tfl.lstm_tiles(b, n_in, 256, False, 132)[:2] for b in (1, 8, 32, 64)}
+    bf16 = {b: tfl.lstm_tiles(b, n_in, 256, True, 132)[:2] for b in (1, 8, 32, 64)}
+    assert f32 == {1: (4, 8), 8: (4, 8), 32: (8, 8), 64: (8, 16)}
+    assert bf16 == {1: (8, 8), 8: (8, 8), 32: (8, 8), 64: (8, 16)}
+    for plans in (f32, bf16):
+        assert [-(-256 // u) * -(-b // r) for b, (u, r) in plans.items()] == \
+            ([64, 64, 128, 128] if plans is f32 else [32, 32, 128, 128])
+
+
+@pytest.mark.parametrize("row_bytes,address,route", [
+    (1024, 0, tfl.ROUTE_WIDE), (512, 4096, tfl.ROUTE_WIDE), (400, 512, tfl.ROUTE_WIDE),
+    (200, 0, tfl.ROUTE_WORDS), (308, 0, tfl.ROUTE_WORDS), (1024, 4, tfl.ROUTE_WORDS),
+    (1024, 8, tfl.ROUTE_WORDS), (20, 12, tfl.ROUTE_WORDS),
+    (154, 0, tfl.ROUTE_ELEMENTS), (66, 0, tfl.ROUTE_ELEMENTS), (1024, 2, tfl.ROUTE_ELEMENTS),
+    (2, 0, tfl.ROUTE_ELEMENTS)])
+def test_lstm_route_follows_the_row_length_and_the_base(row_bytes, address, route):
+    """An operand goes by TMA (the weights) or 16-byte copies (x, h) only
+    where every row starts on a 16-byte boundary: n 256 in f32 or bf16, n
+    100 in f32; by 4-byte cp.async where they start on 4-byte ones: n 100
+    in bf16, n_in 77 in f32, a base 4 or 8 bytes off; else element by
+    element: n_in 77 or n 33 in bf16, a base 2 bytes off."""
+    assert tfl.lstm_route(row_bytes, address) == route
+
+
+def _stub_kernel(monkeypatch, sms=132):
+    """The kernel route on "meta" tensors with the library and the launch
+    stubbed, the wrapper's checks run but for the last, the device type:
+    returns the argument tuples the C entry would get."""
+    import contextlib
+
+    calls = []
+    check = tfl.check_kernel_args
+
+    def checks_but_the_device(op, x, specs):
+        try:
+            check(op, x, specs)
+        except ValueError as e:  # the last check: "meta" is not CUDA
+            if "CUDA tensors" not in str(e):
+                raise
+        else:
+            raise AssertionError("a meta tensor passed the device check")
+
+    monkeypatch.setattr(tfl._LIB, "get", lambda: type("H", (), {"dl4j_fused_lstm_cell": None})())
+    monkeypatch.setattr(tfl, "launch", lambda fn, op, args: calls.append(args))
+    monkeypatch.setattr(tfl, "check_kernel_args", checks_but_the_device)
+    monkeypatch.setattr(tfl, "sm_count", lambda index: sms)
+    monkeypatch.setattr(tfl.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    return calls
+
+
+def _meta_cell(b, n_in, n, peephole, dtypes):
+    tx, tw, ts = dtypes
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device="meta")  # noqa: E731
+    args = [z((b, n_in), tx), z((b, n), ts), z((b, n), ts), z((n_in, 4 * n), tw),
+            z((n, 4 * n), tw), z((4 * n,), tw)]
+    return args, ([z((n,), tw) for _ in range(3)] if peephole else None)
+
+
+META_DTYPES = {"f32": (torch.float32,) * 3, "bf16": (torch.bfloat16,) * 3,
+               "mixed": (torch.bfloat16, torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("peephole", [False, True], ids=["plain", "peephole"])
+@pytest.mark.parametrize("dt", sorted(META_DTYPES))
+@pytest.mark.parametrize("n_in,n", [(77, 256), (256, 256), (33, 100)], ids=["77", "256", "33x100"])
+def test_kernel_route_plans_the_same_depth_split_for_every_batch(monkeypatch, n_in, n, dt,
+                                                                  peephole):
+    """At B 1, 8, 32, 33, 64 and 65 the wrapper checks the operands, hands
+    the kernel the planner's tile (whose depth split is the same at every
+    B), the routes of the operands' row lengths (a "meta" tensor's base is
+    0), the type flags, and outputs of the reference's promotion."""
+    calls = _stub_kernel(monkeypatch)
+    tx, tw, ts = META_DTYPES[dt]
+    splits = set()
+    for b in (1, 8, 32, 33, 64, 65):
+        args, peeps = _meta_cell(b, n_in, n, peephole, META_DTYPES[dt])
+        h, c = tfl._kernel(*args, peeps)
+        odt = torch.bfloat16 if dt == "bf16" else torch.float32
+        assert h.shape == c.shape == (b, n) and h.dtype == c.dtype == odt
+        ints = calls[-1][11:]
+        assert len(calls[-1]) == 11 + 12
+        bk, ik, nk, xb, wb, sb, pe, units, rows, w_route, x_route, h_route = ints
+        assert (bk, ik, nk, pe) == (b, n_in, n, int(peephole))
+        assert (xb, wb, sb) == tuple(int(t == torch.bfloat16) for t in (tx, tw, ts))
+        plan = tfl.lstm_tiles(b, n_in, n, tw == torch.bfloat16, 132)
+        assert (units, rows) == plan[:2]
+        assert (w_route, x_route, h_route) == (
+            tfl.lstm_route(n * args[3].element_size(), 0),
+            tfl.lstm_route(n_in * args[0].element_size(), 0),
+            tfl.lstm_route(n * args[1].element_size(), 0))
+        splits.add(plan[2:])
+    assert len(splits) == 1
+
+
+def test_kernel_route_refuses_what_it_does_not_take(monkeypatch):
+    """On "meta" tensors the wrapper refuses f16, carries of two types, a
+    wrong shape, a strided view and n_in 0 before it launches anything."""
+    calls = _stub_kernel(monkeypatch)
+    args, peeps = _meta_cell(4, 8, 16, True, META_DTYPES["f32"])
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        tfl._kernel(args[0].half(), *args[1:], peeps)
+    with pytest.raises(TypeError):
+        tfl._kernel(args[0], args[1], args[2].bfloat16(), *args[3:], peeps)
+    with pytest.raises(ValueError, match="shape"):
+        tfl._kernel(args[0], args[1], args[2], args[3][:7], args[4], args[5], peeps)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfl._kernel(torch.zeros(8, 4, device="meta").t(), *args[1:], peeps)
+    with pytest.raises(ValueError, match="n_in >= 1"):
+        empty, _ = _meta_cell(4, 0, 16, False, META_DTYPES["f32"])
+        tfl._kernel(*empty, None)
+    assert calls == []
+
+
+def test_serve_profile_groups_the_kernels_by_their_current_names():
+    """``scripts/torch_serve_profile.py`` puts the LSTM cell's and the int8
+    matmul's kernels, as the profiler names them, in their own groups, not
+    in "other"."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "torch_serve_profile.py")
+    spec = importlib.util.spec_from_file_location("torch_serve_profile", path)
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    names = {
+        "void (anonymous namespace)::lstm_cell_kernel_sm90<float, float, float, 4, 2>"
+        "(CUtensorMap, CUtensorMap, (anonymous namespace)::Args)": "fused LSTM cell kernels",
+        "void (anonymous namespace)::int8_planes_kernel<float, 3>(float const*, "
+        "__nv_bfloat16*, int, int, int)": "int8_matmul kernels",
+        "void (anonymous namespace)::int8_matmul_kernel_sm90<3>(CUtensorMap, CUtensorMap, "
+        "(anonymous namespace)::Args)": "int8_matmul kernels",
+        "void (anonymous namespace)::int8_reduce_kernel<float>(float const*, float const*, "
+        "float*, int, int, int)": "int8_matmul kernels",
+    }
+    for name, group in names.items():
+        out = prof.groups([{"name": name, "device_us": 1.0}])
+        assert out[group] == 1.0 and out["other"] == 0.0, name
+
+
 # -------------------------------------------------------------------- layers
 def _net(pkg, body, n_in=5, head="rnn", compute_dtype=None):
     """``body`` (a function of the layer module) on recurrent input of
