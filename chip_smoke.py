@@ -19,7 +19,13 @@ serves a full-width bf16 ResNet-50 (random weights from a seed) through
 ``InferenceEngine`` (phase 3), and trains it with ``ComputationGraph.fit``
 (phase 4): gradients against the plain path on the card, the kernel
 launches of each train step, five steps whose score falls, and the train
-speed. Phase 5 serves a full-width f32 VGG16 (seeded) in an int8-head
+speed; phase 4b trains it again through ``ComputationGraph.fit`` at
+``steps_per_call=4`` (deterministic cuDNN): two bundles, each one replay of
+a captured CUDA graph, against eight eager steps bit for bit (params,
+momentum, BN state, scores), the launches the capture records (four
+steps' worth), the kernels by name and count in a profiler trace of one
+replay, and train images/s and peak memory, bundled and eager, in turns.
+Phase 5 serves a full-width f32 VGG16 (seeded) in an int8-head
 engine and an f32 engine; phase 6 drives the entry points: the HTTP server
 over the int8 VGG16 engine, ``cli serve --smoke`` on a LeNet checkpoint
 written by the port, and ``/reload``. Phase 2d holds the fused LSTM cell
@@ -61,7 +67,12 @@ steps with exact launch counts (the fused convs' and one fused Adam per f32
 Adam group) and a falling score; a checkpoint written mid-fit restored with
 its updater state, whose next step equals the uninterrupted run's; train
 images/s; and LeNet through ``MultiLayerNetwork.fit`` and the wrapper,
-replicated and sharded, bit for bit. Each phase prints one or more lines;
+replicated and sharded, bit for bit. Phase 10b runs phase 10's wrapper at
+``steps_per_call=2`` (one captured graph a bundle, the NCCL collectives and
+one fused Adam a step inside it, Adam's ``alpha`` from the bundle's device
+buffer) against the same wrapper at 1, bit for bit, with its launches, a
+profiler trace of one replay and images/s in turns, and LeNet's
+``MultiLayerNetwork.fit`` at 4 against 1. Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
 prints them), and
@@ -1012,6 +1023,202 @@ def train_phase(fc, card: str):
             "plain_images_per_s": BATCH / plain_step_s,
             "plain_ms_per_step": plain_step_s * 1e3, "peak_mem_gib": peak_gib,
             "lr": TRAIN_LR}
+
+
+# phase 4b: phase 4's model through ComputationGraph.fit at steps_per_call=4:
+# two bundles (two replays of one captured CUDA graph) against eight eager steps
+BUNDLE_K = 4
+BUNDLE_BATCHES = 8
+# the kernel names a profiler trace shows, and the launch counters each one
+# answers to (one forward kernel serves the pointwise conv and the 3x3)
+TRACE_NAMES = {"fused_conv_fwd_kernel_sm90": ("pw_conv", "conv3x3"),
+               "pw_bwd_dx_kernel_sm90": ("pw_conv_dx",),
+               "pw_bwd_dw_kernel_sm90": ("pw_conv_dw",),
+               "conv3x3_bwd_dx_kernel_sm90": ("conv3x3_dx",),
+               "conv3x3_bwd_dw_kernel_sm90": ("conv3x3_dw",),
+               "fused_adam_kernel": ("fused_adam",)}
+
+
+def trace_kernels(fn):
+    """``fn()`` under ``torch.profiler`` -> (launches in the trace by
+    TRACE_NAMES name, device busy ms of the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts, busy_us = dict.fromkeys(TRACE_NAMES, 0), 0.0
+    for evt in prof.key_averages():
+        if evt.device_type.name not in ("CUDA", "PrivateUse1"):
+            continue
+        busy_us += next((float(getattr(evt, a)) for a in ("self_device_time_total",
+                                                          "self_cuda_time_total")
+                         if getattr(evt, a, None) is not None), 0.0)
+        for name in TRACE_NAMES:
+            if name in evt.key:
+                counts[name] += int(evt.count)
+    return counts, busy_us / 1e3
+
+
+def trace_want(launches):
+    """The trace counts by TRACE_NAMES name that wrapper launch counts give."""
+    return {name: sum(launches.get(k, 0) for k in keys) for name, keys in TRACE_NAMES.items()}
+
+
+def _tensors_equal(a, b) -> bool:
+    """Every leaf of two state trees (a graph's dicts or a list network's
+    lists of dicts of tensors) torch.equal."""
+    def as_dict(t):
+        return dict(enumerate(t)) if isinstance(t, list) else t
+
+    la, lb = dict(_flat(as_dict(a))), dict(_flat(as_dict(b)))
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
+
+
+def _states_equal(a, b) -> dict:
+    return {"params": _tensors_equal(a.params_, b.params_),
+            "updater": _tensors_equal(a.opt_state_, b.opt_state_),
+            "layer_state": _tensors_equal(a.state_, b.state_)}
+
+
+def _bundle_scores(model, seen):
+    """The per-step scores of a bundled fit: ``seen`` holds
+    ``model.bundle_scores_`` as each batch was handed out; the last bundle's
+    is on the model."""
+    bundles = []
+    for s in seen + [model.bundle_scores_]:
+        if s is not None and all(s is not b for b in bundles):
+            bundles.append(s)
+    return [float(v) for b in bundles for v in b.host()]
+
+
+def _in_turns(runs, rounds=2):
+    """Each ``(label, fn)`` of ``runs`` timed in turns (a b b a ...): host
+    seconds per call (synchronized) and the peak allocated and reserved GiB,
+    by label."""
+    order = [r for i in range(rounds) for r in (runs if i % 2 == 0 else runs[::-1])]
+    out = {label: {"s": [], "peak_gib": [], "peak_reserved_gib": []} for label, _ in runs}
+    for label, fn in order:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[label]["s"].append(time.perf_counter() - t0)
+        out[label]["peak_gib"].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        out[label]["peak_reserved_gib"].append(torch.cuda.max_memory_reserved() / 2 ** 30)
+    return out
+
+
+def _deterministic_cudnn(fn):
+    """``fn()`` with cuDNN deterministic and not benchmarking (eager steps
+    and replays then pick the same convolution algorithms)."""
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+
+
+def bundled_train_phase(fc, card: str, train: dict):
+    """Phase 4b: phase 4's full-width bf16 ResNet-50 (Nesterovs(TRAIN_LR,
+    0.9)) through ``ComputationGraph.fit`` at ``steps_per_call`` BUNDLE_K,
+    against the same model's eager steps, under deterministic cuDNN."""
+    return _deterministic_cudnn(lambda: _bundled_train(fc, card, train))
+
+
+def _bundled_train(fc, card, train):
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.train import pipeline
+    from deeplearning4j_tpu_torch.updaters import Nesterovs
+
+    eager, _ = resnet50(updater=Nesterovs(TRAIN_LR, 0.9))
+    bundled, _ = resnet50(updater=Nesterovs(TRAIN_LR, 0.9))
+    bundled.conf.global_conf.steps_per_call = BUNDLE_K
+    rng = np.random.default_rng(SEED + 4)
+    batches = [DataSet(rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32),
+                       np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)])
+               for _ in range(BUNDLE_BATCHES)]
+    eager_scores = []
+    for ds in batches:
+        eager.fit(ExistingDataSetIterator([ds]))
+        eager_scores.append(eager.score_)
+    eager_scores = [float(v) for v in eager_scores]
+
+    # the main path: counts from 0 just before, read just after (the warm-up
+    # steps before the capture launch eagerly, the capture records each
+    # launch once, the replays count none)
+    seen = []
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    bundled.fit(RecordingIterator(batches, lambda i: seen.append(bundled.bundle_scores_)))
+    torch.cuda.synchronize()
+    first_fit_s = time.perf_counter() - t0
+    main_launches = dict(fc.launch_counts)
+    captured = dict(bundled._bundled.captured_launches)
+    scores = _bundle_scores(bundled, seen)
+    equal = _states_equal(eager, bundled)
+    want_capture = {k: BUNDLE_K * v for k, v in STEP_LAUNCHES.items()}
+    want_main = {k: (BUNDLE_K + pipeline.WARMUP_STEPS) * v for k, v in STEP_LAUNCHES.items()}
+    print(f"phase 4b bundled fit: ResNet-50 (phase 4's model), ComputationGraph.fit at "
+          f"steps_per_call={BUNDLE_K}, {BUNDLE_BATCHES} batches of {BATCH} (2 bundles, "
+          f"deterministic cuDNN): vs {BUNDLE_BATCHES} eager steps torch.equal "
+          f"{equal}; scores equal {scores == eager_scores} ({[round(v, 5) for v in scores]}); "
+          f"launches captured in the graph {captured} ({BUNDLE_K} x phase 4's per step: "
+          f"{captured == want_capture}); main-path launches {main_launches} (the "
+          f"{pipeline.WARMUP_STEPS} warm-up steps' and the capture's); first fit incl. "
+          f"warm-up and capture {first_fit_s:.2f}s", flush=True)
+
+    # one replay under the profiler: a fit of BUNDLE_K batches is one bundle
+    fc.reset_launch_counts()
+    trace, busy_ms = trace_kernels(
+        lambda: bundled.fit(ExistingDataSetIterator(batches[:BUNDLE_K])))
+    replay_launches = sum(fc.launch_counts.values())
+    print(f"phase 4b trace of one replay: kernels by name {trace} (want "
+          f"{trace_want(captured)}), device busy {busy_ms:.3f} ms for {BUNDLE_K} steps; "
+          f"wrapper launches during the replay {replay_launches} (0: no eager step)",
+          flush=True)
+
+    timed = _in_turns([
+        ("eager", lambda: eager.fit(ExistingDataSetIterator(batches))),
+        ("bundled", lambda: bundled.fit(ExistingDataSetIterator(batches)))])
+    speed = {label: {"images_per_s": [BATCH * BUNDLE_BATCHES / t for t in r["s"]],
+                     "ms_per_step": [t * 1e3 / BUNDLE_BATCHES for t in r["s"]],
+                     "peak_gib": r["peak_gib"], "peak_reserved_gib": r["peak_reserved_gib"]}
+             for label, r in timed.items()}
+    fmt = lambda v: [round(x, 2) for x in v]  # noqa: E731
+    print(f"phase 4b speed (in turns: eager, bundled, bundled, eager; {BUNDLE_BATCHES} batches "
+          f"a fit, host clock, synchronized): eager {fmt(speed['eager']['images_per_s'])} "
+          f"images/s ({fmt(speed['eager']['ms_per_step'])} ms a step), bundled "
+          f"{fmt(speed['bundled']['images_per_s'])} images/s "
+          f"({fmt(speed['bundled']['ms_per_step'])} ms a step); peak allocated GiB eager "
+          f"{fmt(speed['eager']['peak_gib'])} bundled {fmt(speed['bundled']['peak_gib'])}, "
+          f"reserved eager {fmt(speed['eager']['peak_reserved_gib'])} bundled "
+          f"{fmt(speed['bundled']['peak_reserved_gib'])} (both models held); phase 4 "
+          f"{train['images_per_s']:.1f} images/s; on {card}", flush=True)
+
+    failed = []
+    if not all(equal.values()) or scores != eager_scores:
+        failed.append(f"bundles differ from eager steps: {equal}, scores {scores} vs "
+                      f"{eager_scores}")
+    if captured != want_capture or main_launches != want_main:
+        failed.append(f"captured {captured} (want {want_capture}), main path "
+                      f"{main_launches} (want {want_main})")
+    if trace != trace_want(captured) or replay_launches:
+        failed.append(f"the replay's trace {trace} != {trace_want(captured)} or it "
+                      f"launched {replay_launches} eagerly")
+    if not _finite(bundled) or not all(math.isfinite(v) for v in scores):
+        failed.append("bundled fit not finite")
+    del eager, bundled
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"k": BUNDLE_K, "equal": equal, "scores": scores, "eager_scores": eager_scores,
+            "main_launches": main_launches, "captured_launches": captured,
+            "trace_one_replay": trace, "trace_busy_ms": busy_ms,
+            "first_fit_s": first_fit_s, "speed": speed}
 
 
 def spread_softmax(model, x: np.ndarray, target: float = 0.3) -> float:
@@ -2985,6 +3192,125 @@ def zero1_phase(fc, fu, card: str, train: dict):
                       "scores": lenet_scores}}
 
 
+ZERO1_BUNDLE_K = 2            # phase 10b: the ZeRO-1 wrapper at steps_per_call=2
+ZERO1_BUNDLE_BATCHES = 4
+LENET_BUNDLE_K = 4            # phase 10b: LeNet MultiLayerNetwork.fit at steps_per_call=4
+LENET_BUNDLE_BATCHES = 8
+
+
+def bundled_zero1_phase(fc, fu, card: str, zero1: dict):
+    """Phase 10b: phase 10's ResNet-50 (Adam(ADAM_LR)) through
+    ``ParallelWrapper(workers=1, sharded_update=True)`` at ``steps_per_call``
+    ZERO1_BUNDLE_K against the same wrapper at 1, and LeNet's
+    ``MultiLayerNetwork.fit`` at LENET_BUNDLE_K against 1, under
+    deterministic cuDNN."""
+    return _deterministic_cudnn(lambda: _bundled_zero1(fc, fu, card, zero1))
+
+
+def _bundled_zero1(fc, fu, card, zero1):
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import LeNet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, zero
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    k = ZERO1_BUNDLE_K
+    single, _ = resnet50(updater=Adam(ADAM_LR))
+    bundled, _ = resnet50(updater=Adam(ADAM_LR))
+    n_groups = sum(i is not None for i in fu.resolve_group_impls(zero.build_layout(bundled, 1)))
+    rng = np.random.default_rng(SEED + 12)
+    batches = [DataSet(rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32),
+                       np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)])
+               for _ in range(ZERO1_BUNDLE_BATCHES)]
+    p1 = ParallelWrapper.builder(single).workers(1).sharded_update(True).build()
+    pk = ParallelWrapper.builder(bundled).workers(1).sharded_update(True).steps_per_call(k) \
+        .build()
+    marks = []
+    p1.fit(RecordingIterator(batches, lambda i: marks.append(single.score_)))
+    single_scores = [float(v) for v in marks[1:] + [single.score_]]
+
+    # the main path: counts from 0 just before, read just after
+    seen = []
+    fc.reset_launch_counts()
+    pk.fit(RecordingIterator(batches, lambda i: seen.append(bundled.bundle_scores_)))
+    torch.cuda.synchronize()
+    main_launches = dict(fc.launch_counts)
+    captured = dict(pk._bstep._runner.captured_launches)
+    scores = _bundle_scores(bundled, seen)
+    equal = _states_equal(single, bundled)
+    want_capture = dict({n: k * v for n, v in STEP_LAUNCHES.items()}, fused_adam=k * n_groups)
+    print(f"phase 10b bundled ZeRO-1: ResNet-50 (phase 10's model), Adam({ADAM_LR}), "
+          f"ParallelWrapper(workers=1, sharded_update) at steps_per_call={k}, "
+          f"{ZERO1_BUNDLE_BATCHES} batches (deterministic cuDNN): vs the same wrapper at 1 "
+          f"torch.equal {equal}; scores equal {scores == single_scores}; launches captured "
+          f"{captured} (want {want_capture}); main-path launches {main_launches}",
+          flush=True)
+    fc.reset_launch_counts()
+    trace, busy_ms = trace_kernels(lambda: pk.fit(ExistingDataSetIterator(batches[:k])))
+    replay_launches = sum(fc.launch_counts.values())
+    print(f"phase 10b trace of one replay: kernels by name {trace} (want "
+          f"{trace_want(captured)}: fused_adam_kernel {k} x G {n_groups}), device busy "
+          f"{busy_ms:.3f} ms for {k} steps; wrapper launches during the replay "
+          f"{replay_launches}", flush=True)
+    timed_batches = batches * (TIMED_STEPS // ZERO1_BUNDLE_BATCHES) \
+        + batches[:TIMED_STEPS % ZERO1_BUNDLE_BATCHES]
+    timed = _in_turns([
+        ("single", lambda: p1.fit(ExistingDataSetIterator(timed_batches))),
+        ("bundled", lambda: pk.fit(ExistingDataSetIterator(timed_batches)))])
+    speed = {label: {"images_per_s": [BATCH * len(timed_batches) / t for t in r["s"]],
+                     "ms_per_step": [t * 1e3 / len(timed_batches) for t in r["s"]],
+                     "peak_gib": r["peak_gib"], "peak_reserved_gib": r["peak_reserved_gib"]}
+             for label, r in timed.items()}
+    fmt = lambda v: [round(x, 2) for x in v]  # noqa: E731
+    print(f"phase 10b speed (in turns: k 1, k {k}, k {k}, k 1; one fit of "
+          f"{len(timed_batches)} batches incl. its re-shard and gather, host clock, "
+          f"synchronized): k 1 {fmt(speed['single']['images_per_s'])} images/s, k {k} "
+          f"{fmt(speed['bundled']['images_per_s'])} images/s; peak allocated GiB "
+          f"{fmt(speed['single']['peak_gib'])} / {fmt(speed['bundled']['peak_gib'])}, "
+          f"reserved {fmt(speed['single']['peak_reserved_gib'])} / "
+          f"{fmt(speed['bundled']['peak_reserved_gib'])} (both models held); phase 10 "
+          f"{zero1['images_per_s']:.1f} images/s; on {card}", flush=True)
+    failed = []
+    if not all(equal.values()) or scores != single_scores:
+        failed.append(f"ZeRO-1 bundles differ from single steps: {equal}, scores {scores} "
+                      f"vs {single_scores}")
+    if captured != want_capture or trace != trace_want(captured) or replay_launches:
+        failed.append(f"ZeRO-1 bundle: captured {captured} (want {want_capture}), trace "
+                      f"{trace}, eager launches in the replay {replay_launches}")
+    del single, bundled, p1, pk
+    torch.cuda.empty_cache()
+
+    # LeNet: MultiLayerNetwork.fit at LENET_BUNDLE_K against 1
+    rng = np.random.default_rng(SEED + 13)
+    lbatches = [DataSet(rng.standard_normal((64, 28, 28, 1)).astype(np.float32),
+                        np.eye(10, dtype=np.float32)[rng.integers(0, 10, 64)])
+                for _ in range(LENET_BUNDLE_BATCHES)]
+    a = LeNet(num_classes=10, seed=SEED, updater=Adam(ADAM_LR)).init()
+    b = LeNet(num_classes=10, seed=SEED, updater=Adam(ADAM_LR)).init()
+    b.conf.global_conf.steps_per_call = LENET_BUNDLE_K
+    lenet_single = []
+    for ds in lbatches:
+        a.fit(ExistingDataSetIterator([ds]))
+        lenet_single.append(a.score_)
+    lenet_single = [float(v) for v in lenet_single]
+    seen = []
+    b.fit(RecordingIterator(lbatches, lambda i: seen.append(b.bundle_scores_)))
+    lenet_scores = _bundle_scores(b, seen)
+    lenet_equal = _states_equal(a, b)
+    print(f"phase 10b LeNet: MultiLayerNetwork.fit at steps_per_call={LENET_BUNDLE_K}, "
+          f"{LENET_BUNDLE_BATCHES} batches of 64, Adam({ADAM_LR}) (alpha from the bundle's "
+          f"device buffer): vs {LENET_BUNDLE_BATCHES} single steps torch.equal "
+          f"{lenet_equal}, scores equal {lenet_scores == lenet_single}", flush=True)
+    if not all(lenet_equal.values()) or lenet_scores != lenet_single:
+        failed.append(f"LeNet bundles differ: {lenet_equal}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"k": k, "equal": equal, "scores": scores, "single_scores": single_scores,
+            "main_launches": main_launches, "captured_launches": captured,
+            "fused_groups": n_groups, "trace_one_replay": trace, "trace_busy_ms": busy_ms,
+            "speed": speed, "phase10_images_per_s": zero1["images_per_s"],
+            "lenet": {"k": LENET_BUNDLE_K, "equal": lenet_equal, "scores": lenet_scores}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3020,6 +3346,7 @@ def main() -> int:
     adam_rows, summary["fused_adam"] = adam_phase(fu)
     serve = serve_phase(fc, card)
     train = train_phase(fc, card)
+    bundle = bundled_train_phase(fc, card, train)
     e8, x, vgg = vgg_phase(fc, im, card)
     entry = entry_points_phase(e8, x)
     gen_engine, seq_engine, prompts, outs, gen = generation_phase(fl, card)
@@ -3029,6 +3356,7 @@ def main() -> int:
     del lm_gen, lm_predict
     lm_train = lm_train_phase(fa, card)
     zero1 = zero1_phase(fc, fu, card, train)
+    zero1_bundle = bundled_zero1_phase(fc, fu, card, zero1)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -3099,7 +3427,8 @@ def main() -> int:
                    "lstm_cases": lstm_rows, "flash_cases": flash_rows,
                    "flash_bwd_cases": flash_bwd_rows, "adam_cases": adam_rows,
                    "summary": summary,
-                   "serve": serve, "train": train, "vgg16": vgg, "generation": gen,
+                   "serve": serve, "train": train, "train_bundled": bundle,
+                   "zero1_bundled": zero1_bundle, "vgg16": vgg, "generation": gen,
                    "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
                    "entry_points": entry, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,11 @@
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet  # noqa: F401
 from deeplearning4j_tpu_torch.data.iterators import (  # noqa: F401
+    BatchBundle,
     DataSetIterator,
     ExistingDataSetIterator,
     ExistingMultiDataSetIterator,
     ListDataSetIterator,
     MultiDataSetIterator,
+    iter_bundled,
 )

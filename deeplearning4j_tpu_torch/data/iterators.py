@@ -1,14 +1,18 @@
 """DataSetIterator protocol and the iterators ``fit`` consumes.
 
 Counterpart of ``deeplearning4j_tpu/data/iterators.py`` (the subset the
-training slices need): ``has_next()/next()/reset()`` plus Python
-iteration. Pre-processors, async prefetch and the other combinators come
-with the data slice (ROADMAP § A).
+training slices need): ``has_next()/next()/reset()/batch()`` plus Python
+iteration, and the batch stacker of the bundled train step
+(:class:`BatchBundle`, :func:`iter_grouped`, :func:`iter_bundled`).
+Pre-processors, async prefetch (and its ``bundle_size`` stage) and the
+other combinators come with the data slice (ROADMAP § A8).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Callable, Iterable, Iterator, List
+
+import numpy as np
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 
@@ -24,6 +28,10 @@ class DataSetIterator:
 
     def reset(self) -> None:
         raise NotImplementedError
+
+    def batch(self) -> int:
+        """Configured minibatch size (0 if unknown)."""
+        return 0
 
     def __iter__(self) -> Iterator[DataSet]:
         while self.has_next():
@@ -56,6 +64,9 @@ class ListDataSetIterator(DataSetIterator):
     def reset(self) -> None:
         self._pos = 0
 
+    def batch(self) -> int:
+        return self._batch
+
 
 class ExistingDataSetIterator(DataSetIterator):
     """Iterate a list of prepared DataSets (reference
@@ -75,6 +86,9 @@ class ExistingDataSetIterator(DataSetIterator):
 
     def reset(self) -> None:
         self._pos = 0
+
+    def batch(self) -> int:
+        return self._ds[0].num_examples() if self._ds else 0
 
 
 class MultiDataSetIterator:
@@ -118,3 +132,87 @@ class ExistingMultiDataSetIterator(MultiDataSetIterator):
 
     def reset(self):
         self._pos = 0
+
+
+class BatchBundle:
+    """K consecutive same-layout minibatches stacked on a new leading axis
+    (features ``(K, B, ...)``, host numpy): one call of the bundled train
+    step (``train/pipeline.py``) consumes the whole object and takes K
+    optimizer steps."""
+
+    __slots__ = ("features", "labels", "features_mask", "labels_mask", "k")
+
+    def __init__(self, features, labels, features_mask, labels_mask, k: int):
+        self.features = features
+        self.labels = labels
+        self.features_mask = features_mask
+        self.labels_mask = labels_mask
+        self.k = int(k)
+
+    @staticmethod
+    def compat_key(ds: DataSet) -> tuple:
+        """Batches may share a bundle iff these match: shapes, dtypes and
+        mask presence (the K steps of one bundle need one operand layout)."""
+        return (_sig(ds.features), _sig(ds.labels), _sig(ds.features_mask),
+                _sig(ds.labels_mask))
+
+    @classmethod
+    def stack(cls, datasets: List[DataSet]) -> "BatchBundle":
+        def st(key):
+            arrs = [getattr(d, key) for d in datasets]
+            return None if arrs[0] is None else np.stack([np.asarray(a) for a in arrs])
+
+        return cls(st("features"), st("labels"), st("features_mask"),
+                   st("labels_mask"), len(datasets))
+
+    def unstack(self) -> List[DataSet]:
+        """Back to K single batches (views): the single-step path, for a
+        consumer that cannot run the bundle (a data-parallel wrapper that
+        must pad this batch size)."""
+        def cut(a, j):
+            return None if a is None else a[j]
+
+        return [DataSet(self.features[j], cut(self.labels, j), cut(self.features_mask, j),
+                        cut(self.labels_mask, j)) for j in range(self.k)]
+
+
+def _sig(a):
+    return None if a is None else (tuple(a.shape), str(a.dtype))
+
+
+def multi_compat_key(mds) -> tuple:
+    """MultiDataSet analog of :meth:`BatchBundle.compat_key`: shapes, dtypes
+    and mask presence per slot."""
+    return (tuple(_sig(f) for f in mds.features), tuple(_sig(lab) for lab in mds.labels),
+            tuple(_sig(m) for m in mds.features_masks),
+            tuple(_sig(m) for m in mds.labels_masks))
+
+
+def iter_grouped(stream: Iterable, k: int, key: Callable) -> Iterator:
+    """Group consecutive ``key``-compatible items of ``stream`` into
+    length-``k`` lists. The ragged tail, and any run broken by a key
+    change, is yielded item by item (callers route lists to the bundled
+    step and bare items to the single step). A stream is one epoch, so a
+    group never crosses an epoch boundary."""
+    buf: List = []
+    cur = None
+    for item in stream:
+        ik = key(item)
+        if buf and ik != cur:
+            yield from buf
+            buf = []
+        buf.append(item)
+        cur = ik
+        if len(buf) == k:
+            yield buf
+            buf = []
+    yield from buf
+
+
+def iter_bundled(stream: Iterable[DataSet], k: int) -> Iterator:
+    """Group consecutive compatible DataSets of ``stream`` into
+    :class:`BatchBundle` objects of exactly ``k`` steps; the ragged tail and
+    any run broken by a shape, dtype or mask-layout change are yielded as
+    single DataSets."""
+    for item in iter_grouped(stream, k, BatchBundle.compat_key):
+        yield BatchBundle.stack(item) if isinstance(item, list) else item

@@ -185,6 +185,16 @@ class NeuralNetConfiguration:
         self._g.sharded_update = bool(b)
         return self
 
+    def steps_per_call(self, k: int) -> "NeuralNetConfiguration":
+        """Bundled train steps (``train/pipeline.py``): ``fit`` stacks ``k``
+        consecutive same-shaped batches and takes their ``k`` optimizer
+        steps in one call, bit-identical to ``k`` single steps. On the card
+        a bundle is one replay of a captured CUDA graph; on the CPU, ``k``
+        eager steps in order. Ragged epoch tails and shape changes take
+        single steps; tBPTT configurations refuse ``k > 1``."""
+        self._g.steps_per_call = int(k)
+        return self
+
     def _global_conf(self) -> GlobalConf:
         if self._reg_kwargs:
             self._g.regularization = _reg.RegularizationConf(**self._reg_kwargs)

@@ -22,9 +22,11 @@ float inputs to the compute dtype, as the reference does. The cast happens
 inside the differentiated function, so the gradients the updater sees are
 f32. ``_value_and_grad`` and ``_apply_step`` are the two halves of the step,
 which ``ParallelWrapper`` calls apart; ``sharded_update`` is the wrapper's
-knob and a plain ``fit`` ignores it, as the reference's does. Fault policy,
-rematerialization, telemetry, listeners, bundled steps and tBPTT are not
-ported yet and raise.
+knob and a plain ``fit`` ignores it, as the reference's does.
+``steps_per_call > 1`` bundles consecutive same-layout batches into one call
+of K steps (``train/pipeline.py``): K eager steps on the CPU, one replay of a
+captured CUDA graph on the card. Fault policy, rematerialization,
+telemetry, listeners and tBPTT are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ from deeplearning4j_tpu_torch.data.iterators import (
     DataSetIterator,
     ListDataSetIterator,
     MultiDataSetIterator,
+    iter_grouped,
+    multi_compat_key,
 )
 from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
     ComputationGraphConfiguration,
@@ -55,6 +59,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     unflatten_tensors,
 )
 from deeplearning4j_tpu_torch.regularization import as_regularization
+from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 from deeplearning4j_tpu_torch.updaters import as_updater
 
 NOT_PORTED = "not ported yet (ROADMAP § A, training slices)"
@@ -76,6 +81,10 @@ class ComputationGraph:
         self.iteration = 0
         self.epoch = 0
         self.score_: Optional[torch.Tensor] = None
+        #: the bundled step of ``fit`` (``steps_per_call > 1``), and the
+        #: per-step scores of the last bundle it ran (on the device)
+        self._bundled: Optional[_pipeline.BundledStep] = None
+        self.bundle_scores_: Optional[_pipeline.BundleScores] = None
         self._compute_dtype = _dtype_of(getattr(conf.global_conf, "compute_dtype", None))
         self._output_layers()
 
@@ -243,19 +252,25 @@ class ComputationGraph:
     def _batch(self, mds: MultiDataSet):
         """A MultiDataSet's arrays as tensors on the model's device: float
         features as given (the forward casts them), float labels in f32."""
+        feats, labels, lmasks = self._batch_tensors(mds)
+        dev = self.device
+        return ([f.to(dev) for f in feats], [lab.to(dev) for lab in labels],
+                [None if m is None else m.to(dev) for m in lmasks])
+
+    @staticmethod
+    def _batch_tensors(mds: MultiDataSet):
+        """:meth:`_batch`'s tensors on the host; the arrays of ``mds`` may
+        carry a leading K axis (:func:`stack_multi`: a bundled step's
+        stacked batch)."""
         if any(m is not None for m in mds.features_masks):
             raise NotImplementedError(f"feature masks are {NOT_PORTED}")
 
-        def dev(a, label=False):
+        def tensor(a, label=False):
             t = torch.from_numpy(np.ascontiguousarray(a))
-            if label and t.is_floating_point():
-                t = t.to(torch.float32)
-            return t.to(self.device)
+            return t.to(torch.float32) if label and t.is_floating_point() else t
 
-        feats = [dev(f) for f in mds.features]
-        labels = [dev(lab, True) for lab in mds.labels]
-        lmasks = [None if m is None else dev(m, True) for m in mds.labels_masks]
-        return feats, labels, lmasks
+        return ([tensor(f) for f in mds.features], [tensor(lab, True) for lab in mds.labels],
+                [None if m is None else tensor(m, True) for m in mds.labels_masks])
 
     def _value_and_grad(self, feats, labels, lmasks):
         """(loss, new_state, grads) of a train-mode forward at ``params_``;
@@ -313,23 +328,46 @@ class ComputationGraph:
     def fit(self, data: Union[DataSet, MultiDataSet, DataSetIterator,
                               MultiDataSetIterator],
             epochs: int = 1, batch_size: int = 32) -> "ComputationGraph":
-        """Train: one step per minibatch, ``epochs`` passes."""
+        """Train: one step per minibatch, ``epochs`` passes. With
+        ``steps_per_call`` k > 1, every k consecutive batches of one layout
+        take one bundled call (``train/pipeline.py``); the ragged tail of an
+        epoch and a change of shape take single steps."""
         if self.params_ is None:
             raise ValueError("init() the graph (or load params) first")
         if isinstance(data, DataSet):
             data = ListDataSetIterator(data, batch_size)
         if isinstance(data, MultiDataSet):
             data = MultiDataSetIterator.from_list([data])
+        k = _pipeline.resolve_steps_per_call(self)
         self._check_trainable()
-        for _ in range(epochs):
-            for ds in data:
-                self._fit_batch(_as_multi(ds))
-            data.reset()
-            self.epoch += 1
+        bstep = self._bundle_step(k) if k > 1 else None
+        try:
+            for _ in range(epochs):
+                stream = (_as_multi(ds) for ds in data)
+                if bstep is not None:
+                    stream = iter_grouped(stream, k, multi_compat_key)
+                for item in stream:
+                    if isinstance(item, list):
+                        self.bundle_scores_ = bstep(self._batch_tensors(stack_multi(item)))
+                    else:
+                        self._fit_batch(item)
+                data.reset()
+                self.epoch += 1
+        finally:
+            if bstep is not None:
+                bstep.release()
         return self
 
     def _fit_batch(self, mds: MultiDataSet) -> None:
         self._apply_step(*self._value_and_grad(*self._batch(mds)))
+
+    def _bundle_step(self, k: int) -> "_pipeline.BundledStep":
+        """The bundled step of ``fit`` at ``k``, kept across fits (on the
+        card it holds the captured graph)."""
+        if self._bundled is None or self._bundled.k != k:
+            self._bundled = _pipeline.BundledStep(
+                self, k, lambda batch: self._apply_step(*self._value_and_grad(*batch)))
+        return self._bundled
 
     def _apply_step(self, loss, new_state, grads) -> None:
         """The second half of a train step (``_value_and_grad`` is the
@@ -347,6 +385,20 @@ class ComputationGraph:
         self.opt_state_ = dict(zip(names, new_opt))
         self.state_ = new_state
         self.iteration += 1
+
+
+def stack_multi(group: List[MultiDataSet]) -> MultiDataSet:
+    """K same-layout MultiDataSets as one whose arrays carry a leading K
+    axis (the stacked batch of a bundled step)."""
+    def st(arrays):
+        return None if arrays[0] is None else np.stack([np.asarray(a) for a in arrays])
+
+    first = group[0]
+    return MultiDataSet(
+        [st([m.features[i] for m in group]) for i in range(len(first.features))],
+        [st([m.labels[i] for m in group]) for i in range(len(first.labels))],
+        [st([m.features_masks[i] for m in group]) for i in range(len(first.features_masks))],
+        [st([m.labels_masks[i] for m in group]) for i in range(len(first.labels_masks))])
 
 
 def _as_multi(ds: Union[DataSet, MultiDataSet]) -> MultiDataSet:

@@ -27,9 +27,12 @@ normalization layers, the output layer and a layer's ``keep_fp32_params``)
 and float inputs to the compute dtype, as the reference does; int8 serving
 weights (``W_q8``) stay int8 and their ``W_scale`` is cast like any float
 param. The cast happens inside the differentiated function, so the
-gradients the updater sees are f32. Fault policy, rematerialization,
-telemetry, listeners, bundled steps and tBPTT are not ported yet and raise
-(:func:`check_train_conf`).
+gradients the updater sees are f32. ``steps_per_call > 1`` bundles
+consecutive same-shaped batches into one call of K steps
+(``train/pipeline.py``): K eager steps on the CPU, one replay of a captured
+CUDA graph on the card, bit-identical to K single steps either way. Fault
+policy, rematerialization, telemetry, listeners and tBPTT are not ported yet
+and raise (:func:`check_train_conf`).
 """
 
 from __future__ import annotations
@@ -42,7 +45,12 @@ import torch
 
 from deeplearning4j_tpu_torch import _dtype_of, resolve_device
 from deeplearning4j_tpu_torch.data.dataset import DataSet
-from deeplearning4j_tpu_torch.data.iterators import DataSetIterator, ListDataSetIterator
+from deeplearning4j_tpu_torch.data.iterators import (
+    BatchBundle,
+    DataSetIterator,
+    ListDataSetIterator,
+    iter_bundled,
+)
 from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.layers.base import check_trainable
 from deeplearning4j_tpu_torch.nn.conf.layers.norm import BatchNormalization
@@ -50,6 +58,7 @@ from deeplearning4j_tpu_torch.regularization import (
     as_regularization,
     normalize_layer_gradients,
 )
+from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 from deeplearning4j_tpu_torch.updaters import as_updater
 
 Tensors = Dict[str, torch.Tensor]
@@ -59,7 +68,7 @@ NOT_PORTED = "not ported yet (ROADMAP § A, slice 4: the rest of the training co
 
 def check_train_conf(conf, not_ported: str) -> None:
     """Refuse, at train time, the global training options the port does not
-    have yet: the fault policy, remat, telemetry, bundled steps and tBPTT.
+    have yet: the fault policy, remat, telemetry and tBPTT.
     (``sharded_update`` is for ``ParallelWrapper``: a plain ``fit`` ignores
     it, as the reference's does.) Shared by MultiLayerNetwork and
     ComputationGraph."""
@@ -72,7 +81,6 @@ def check_train_conf(conf, not_ported: str) -> None:
         (knob("fault_policy") is not None, "fault_policy"),
         (knob("remat_policy") not in (None, "none"), "remat_policy"),
         (knob("telemetry") not in (None, False), "telemetry"),
-        (knob("steps_per_call", 1) > 1, "steps_per_call > 1 (bundled steps)"),
         (conf.backprop_type == "tbptt", "tbptt"),
     ]
     names = [what for bad, what in refused if bad]
@@ -160,6 +168,10 @@ class MultiLayerNetwork:
         self.iteration = 0
         self.epoch = 0
         self.score_: Optional[torch.Tensor] = None
+        #: the bundled step of ``fit`` (``steps_per_call > 1``), and the
+        #: per-step scores of the last bundle it ran (on the device)
+        self._bundled: Optional[_pipeline.BundledStep] = None
+        self.bundle_scores_: Optional[_pipeline.BundleScores] = None
         #: the streaming state of :meth:`rnn_time_step`
         self._rnn_carries: Optional[List[Any]] = None
         self._compute_dtype = _dtype_of(getattr(conf.global_conf, "compute_dtype", None))
@@ -411,16 +423,22 @@ class MultiLayerNetwork:
         """A DataSet's arrays as tensors on the model's device: float
         features as given (the forward casts them), float labels and masks
         in f32."""
-        def dev(a, f32=False):
+        return tuple(None if t is None else t.to(self.device)
+                     for t in self._batch_tensors(ds))
+
+    @staticmethod
+    def _batch_tensors(ds):
+        """:meth:`_batch`'s tensors where the arrays lie (numpy: on the host).
+        ``ds`` may be a :class:`BatchBundle`, whose arrays carry a leading K
+        axis: the stacked batch of a bundled step."""
+        def tensor(a, f32=False):
             if a is None:
                 return None
             t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-            if f32 and t.is_floating_point():
-                t = t.to(torch.float32)
-            return t.to(self.device)
+            return t.to(torch.float32) if f32 and t.is_floating_point() else t
 
-        return (dev(ds.features), dev(ds.labels, True), dev(ds.features_mask, True),
-                dev(ds.labels_mask, True))
+        return (tensor(ds.features), tensor(ds.labels, True), tensor(ds.features_mask, True),
+                tensor(ds.labels_mask, True))
 
     def score(self, ds: Optional[DataSet] = None) -> float:
         """The last train step's score, or the eval-mode loss plus the
@@ -490,22 +508,43 @@ class MultiLayerNetwork:
             batch_size: int = 32) -> "MultiLayerNetwork":
         """Train: one step per minibatch, ``epochs`` passes. ``data`` is a
         DataSet (cut into ``batch_size`` minibatches), an iterator of
-        DataSets, or a features array with ``labels``."""
+        DataSets, or a features array with ``labels``. With
+        ``steps_per_call`` k > 1, every k consecutive batches of one layout
+        take one bundled call (``train/pipeline.py``); the ragged tail of an
+        epoch and a change of shape take single steps."""
         if self.params_ is None:
             raise ValueError("init() the network (or load params) first")
         if isinstance(data, np.ndarray):
             data = DataSet(data, labels)
         it = ListDataSetIterator(data, batch_size) if isinstance(data, DataSet) else data
+        k = _pipeline.resolve_steps_per_call(self)
         self._check_trainable()
-        for _ in range(epochs):
-            for ds in it:
-                self._fit_batch(ds)
-            it.reset()
-            self.epoch += 1
+        bstep = self._bundle_step(k) if k > 1 else None
+        try:
+            for _ in range(epochs):
+                for item in (iter_bundled(it, k) if bstep is not None else it):
+                    if isinstance(item, BatchBundle):
+                        self.bundle_scores_ = bstep(self._batch_tensors(item))
+                    else:
+                        self._fit_batch(item)
+                it.reset()
+                self.epoch += 1
+        finally:
+            if bstep is not None:
+                bstep.release()
         return self
 
     def _fit_batch(self, ds: DataSet) -> None:
         self._apply_step(*self._value_and_grad(*self._batch(ds)))
+
+    def _bundle_step(self, k: int) -> "_pipeline.BundledStep":
+        """The bundled step of ``fit`` at ``k``, kept across fits (on the
+        card it holds the captured graph)."""
+        cached = self._bundled
+        if cached is None or cached.k != k:
+            cached = self._bundled = _pipeline.BundledStep(
+                self, k, lambda batch: self._apply_step(*self._value_and_grad(*batch)))
+        return cached
 
 
 

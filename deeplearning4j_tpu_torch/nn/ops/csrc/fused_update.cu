@@ -10,7 +10,10 @@
 //   v' = b2*v + ((1-b2)*g)*g
 //   p' = p - (alpha*m') / (sqrt(v') + eps)
 // with alpha = lr*sqrt(1-b2^t)/(1-b1^t) computed on the host by the same
-// scalar pipeline as the eager updater (updaters.Adam.alpha).
+// scalar pipeline as the eager updater (updaters.Adam.alpha). Two entries:
+// dl4j_fused_adam takes alpha by value; dl4j_fused_adam_dev reads it from a
+// device pointer, the one f32 a bundled train step's CUDA graph reads for
+// its step (the host writes each step's alpha there before a replay).
 //
 // Bit-exactness. The contract is torch.equal against the port's eager
 // Adam.apply on the card (p, m and v, the zero padding lanes included), as
@@ -72,7 +75,9 @@ __device__ __forceinline__ void adam_at(const float* p, const float* g, const fl
 
 __global__ void __launch_bounds__(THREADS)
 fused_adam_kernel(const float* p, const float* g, const float* m, const float* v, float* po,
-                  float* mo, float* vo, long long n, int vectorized, Scalars s) {
+                  float* mo, float* vo, long long n, int vectorized, Scalars s,
+                  const float* alpha_ptr) {
+  if (alpha_ptr != nullptr) s.alpha = *alpha_ptr;
   const long long stride = (long long)gridDim.x * THREADS;
   const long long first = (long long)blockIdx.x * THREADS + threadIdx.x;
   long long done = 0;
@@ -99,6 +104,24 @@ fused_adam_kernel(const float* p, const float* g, const float* m, const float* v
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
 
+// alpha_ptr null: alpha by value; else the kernel reads alpha there
+int launch_adam(const void* p, const void* g, const void* m, const void* v, void* po, void* mo,
+                void* vo, int n, int max_blocks, float alpha, const float* alpha_ptr, float b1,
+                float c1, float b2, float c2, float eps, void* stream) {
+  if (n <= 0 || max_blocks <= 0) return (int)cudaErrorInvalidValue;
+  const bool vec = aligned16(p) && aligned16(g) && aligned16(m) && aligned16(v) &&
+                   aligned16(po) && aligned16(mo) && aligned16(vo);
+  const long long items = vec ? ((long long)n + VEC - 1) / VEC : (long long)n;
+  long long blocks = (items + THREADS - 1) / THREADS;
+  if (blocks > max_blocks) blocks = max_blocks;
+  const Scalars s{alpha, b1, c1, b2, c2, eps};
+  fused_adam_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p), static_cast<const float*>(g), static_cast<const float*>(m),
+      static_cast<const float*>(v), static_cast<float*>(po), static_cast<float*>(mo),
+      static_cast<float*>(vo), (long long)n, vec ? 1 : 0, s, alpha_ptr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -111,18 +134,18 @@ int dl4j_fused_adam_tile(int which) { return which == 0 ? THREADS : VEC; }
 int dl4j_fused_adam(const void* p, const void* g, const void* m, const void* v, void* po,
                     void* mo, void* vo, int n, int max_blocks, float alpha, float b1, float c1,
                     float b2, float c2, float eps, void* stream) {
-  if (n <= 0 || max_blocks <= 0) return (int)cudaErrorInvalidValue;
-  const bool vec = aligned16(p) && aligned16(g) && aligned16(m) && aligned16(v) &&
-                   aligned16(po) && aligned16(mo) && aligned16(vo);
-  const long long items = vec ? ((long long)n + VEC - 1) / VEC : (long long)n;
-  long long blocks = (items + THREADS - 1) / THREADS;
-  if (blocks > max_blocks) blocks = max_blocks;
-  const Scalars s{alpha, b1, c1, b2, c2, eps};
-  fused_adam_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(g), static_cast<const float*>(m),
-      static_cast<const float*>(v), static_cast<float*>(po), static_cast<float*>(mo),
-      static_cast<float*>(vo), (long long)n, vec ? 1 : 0, s);
-  return (int)cudaGetLastError();
+  return launch_adam(p, g, m, v, po, mo, vo, n, max_blocks, alpha, nullptr, b1, c1, b2, c2, eps,
+                     stream);
+}
+
+// The same update with alpha read from the device: alpha points to one f32
+// on the card, read by every thread when the kernel runs (a captured CUDA
+// graph replays this launch with whatever the host copied there since).
+int dl4j_fused_adam_dev(const void* p, const void* g, const void* m, const void* v,
+                        const void* alpha, void* po, void* mo, void* vo, int n, int max_blocks,
+                        float b1, float c1, float b2, float c2, float eps, void* stream) {
+  return launch_adam(p, g, m, v, po, mo, vo, n, max_blocks, 0.0f,
+                     static_cast<const float*>(alpha), b1, c1, b2, c2, eps, stream);
 }
 
 }  // extern "C"

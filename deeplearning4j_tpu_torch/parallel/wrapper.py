@@ -28,6 +28,15 @@ the rank count is padded with repeated rows whose label-mask weight is 0
 reduction subsumes ``averaging_frequency``, which is accepted and warns, as
 the reference's does.
 
+``steps_per_call`` k > 1 (the builder's knob or the configuration's):
+every k consecutive batches of one layout take one bundled call of k of the
+steps above (``train/pipeline.py``; for ZeRO-1, ``make_sharded_train_step``'s
+bundled variant): k eager steps on the CPU, one replay of a captured CUDA
+graph on the card, collectives included. A bundle whose batch needs padding
+takes single steps; an iterator whose every batch needs padding never
+builds the bundled step. The reference bundles only a
+``MultiLayerNetwork``; here a ``ComputationGraph`` bundles too.
+
 Batch statistics: the reference's program takes a train-mode BN layer's
 statistics over the global batch; a rank here would take them over its own
 rows. So a network with batch statistics (``BatchNormalization``, the fused
@@ -44,9 +53,15 @@ from typing import Optional
 import numpy as np
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.data.iterators import DataSetIterator
-from deeplearning4j_tpu_torch.nn.multilayer import NOT_PORTED
+from deeplearning4j_tpu_torch.data.iterators import (
+    BatchBundle,
+    DataSetIterator,
+    iter_bundled,
+    iter_grouped,
+    multi_compat_key,
+)
 from deeplearning4j_tpu_torch.parallel.mesh import TrainingMesh
+from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 
 
 class CrossRankBatchStatsError(NotImplementedError):
@@ -69,8 +84,8 @@ class ParallelWrapper:
             return self
 
         def steps_per_call(self, k: int) -> "ParallelWrapper.Builder":
-            """Bundled steps; defaults to the configuration's knob. Only 1
-            is ported (a larger value raises at ``fit``)."""
+            """Bundled steps (``train/pipeline.py``); defaults to the
+            configuration's knob."""
             self._steps = int(k)
             return self
 
@@ -125,15 +140,16 @@ class ParallelWrapper:
         self.steps_per_call = steps_per_call
         self._zstep = None
         self._zlayout = None
+        #: the bundled step (k > 1), built at the first fit that bundles
+        self._bstep = None
+        self._bstep_key = None
         # ComputationGraph batches are per-input lists; MLN takes arrays
         self._is_graph = hasattr(model.conf, "network_inputs")
 
-    def _check(self) -> None:
+    def _check(self) -> int:
+        """Refuse what the port cannot train; returns the bundle size."""
         m = self.model
-        k = (self.steps_per_call if self.steps_per_call is not None
-             else getattr(m.conf.global_conf, "steps_per_call", 1))
-        if k > 1:
-            raise NotImplementedError(f"steps_per_call > 1 (bundled steps): {NOT_PORTED}")
+        k = _pipeline.resolve_steps_per_call(m, requested=self.steps_per_call)
         m._check_trainable()
         if self.mesh.n_data > 1:
             stats = [type(layer).__name__ for layer in _layers(m) if _has_batch_stats(layer)]
@@ -143,14 +159,22 @@ class ParallelWrapper:
                     f"{self.mesh.n_data} ranks each would see only its own rows, "
                     "where the reference takes the global batch's. Cross-rank "
                     "batch statistics are not ported yet (ROADMAP § A3)")
+        return k
 
     def fit(self, it: DataSetIterator, epochs: int = 1) -> None:
         """Data-parallel fit over ``it`` (every rank iterates the same
         global batches); final partial batches are padded with repeated
-        rows whose loss weight is zero (gradient-exact)."""
+        rows whose loss weight is zero (gradient-exact). With
+        ``steps_per_call`` k > 1, k consecutive batches of one layout that
+        need no padding take one bundled call."""
         m = self.model
-        self._check()
+        k = self._check()
         mesh = self.mesh
+        if k > 1:
+            b = getattr(it, "batch", lambda: 0)()
+            if b and b % mesh.n_data:
+                # every batch needs padding: no bundle could ever run
+                k = 1
         zref = None
         if self.sharded_update:
             from deeplearning4j_tpu_torch.parallel.zero import (
@@ -166,17 +190,35 @@ class ParallelWrapper:
             # mid-fit serializers read m.opt_state_, which is stale while the
             # live state is the sharded zopt: they call this hook first
             m._opt_state_sync = lambda: unshard_model_opt_state(m, zlayout, zref[0], mesh)
+        bstep = self._bundle_step(k) if k > 1 else None
+
+        def run_single(ds):
+            batch = self._pack_batch(ds)
+            if zref is not None:
+                m.params_, zref[0], m.state_, m.score_ = self._zstep(zref[0], batch)
+                m.iteration += 1
+            else:
+                loss, new_state, grads = m._value_and_grad(*batch)
+                m._apply_step(*_mean_over_ranks(mesh, loss, new_state, grads))
+
         finished = False
         try:
             for _ in range(epochs):
-                for ds in it:
-                    batch = self._pack_batch(ds)
-                    if zref is not None:
-                        m.params_, zref[0], m.state_, m.score_ = self._zstep(zref[0], batch)
-                        m.iteration += 1
+                for item in self._stream(it, k):
+                    if not isinstance(item, (list, BatchBundle)):
+                        run_single(item)
+                        continue
+                    stacked = self._pack_bundle(item)
+                    if stacked is None:
+                        # needs padding, which a stacked bundle cannot take
+                        for ds in (item if isinstance(item, list) else item.unstack()):
+                            run_single(ds)
+                    elif zref is not None:
+                        m.params_, zref[0], m.state_, scores = bstep(zref[0], stacked)
+                        m.iteration += k
+                        m.score_, m.bundle_scores_ = scores.dev[-1], scores
                     else:
-                        loss, new_state, grads = m._value_and_grad(*batch)
-                        m._apply_step(*_mean_over_ranks(mesh, loss, new_state, grads))
+                        m.bundle_scores_ = bstep(stacked)
                 it.reset()
                 m.epoch += 1
             finished = True
@@ -188,6 +230,61 @@ class ParallelWrapper:
                 # gathers; the canonical opt state is then the fit's start
                 if finished or mesh.n_data == 1:
                     unshard_model_opt_state(m, self._zlayout, zref[0], mesh)
+            if bstep is not None:
+                bstep.release()
+
+    def _bundle_step(self, k: int):
+        """The bundled step at ``k`` (kept across fits; on the card it holds
+        the captured graph): ZeRO-1's bundled sharded step, or the
+        replicated step under :class:`~deeplearning4j_tpu_torch.train.
+        pipeline.BundledStep`."""
+        key = (k, self.sharded_update)
+        if self._bstep_key != key:
+            m, mesh = self.model, self.mesh
+            if self.sharded_update:
+                from deeplearning4j_tpu_torch.parallel.zero import make_sharded_train_step
+
+                self._bstep, _ = make_sharded_train_step(m, mesh, steps_per_call=k)
+            else:
+                self._bstep = _pipeline.BundledStep(
+                    m, k, lambda batch: m._apply_step(
+                        *_mean_over_ranks(mesh, *m._value_and_grad(*batch))))
+            self._bstep_key = key
+        return self._bstep
+
+    def _stream(self, it, k: int):
+        """One epoch of ``it``: single batches, or with k > 1 bundles of k
+        same-layout batches (a ``BatchBundle``; for a graph, a list of
+        MultiDataSets) and single ones."""
+        if k <= 1:
+            return iter(it)
+        if self._is_graph:
+            from deeplearning4j_tpu_torch.nn.graph import _as_multi
+
+            return iter_grouped((_as_multi(ds) for ds in it), k, multi_compat_key)
+        return iter_bundled(it, k)
+
+    def _pack_bundle(self, item):
+        """This rank's rows (axis 1) of a bundle's stacked batch, as the
+        model's ``_batch_tensors`` gives them; None when the batch needs
+        padding."""
+        n, r = self.mesh.n_data, self.mesh.rank
+        if self._is_graph:
+            from deeplearning4j_tpu_torch.nn.graph import stack_multi
+
+            if item[0].num_examples() % n:
+                return None
+            mds = stack_multi(item)
+            cut = _cutter(*_block(item[0].num_examples(), n, r), axis=1)
+            return self.model._batch_tensors(MultiDataSet(
+                [cut(f) for f in mds.features], [cut(lab) for lab in mds.labels],
+                [cut(x) for x in mds.features_masks], [cut(x) for x in mds.labels_masks]))
+        if item.features.shape[1] % n:
+            return None
+        cut = _cutter(*_block(item.features.shape[1], n, r), axis=1)
+        return self.model._batch_tensors(BatchBundle(
+            cut(item.features), cut(item.labels), cut(item.features_mask),
+            cut(item.labels_mask), item.k))
 
     def _pack_batch(self, ds):
         """This rank's block of rows of the (padded) global batch, as the
@@ -232,9 +329,9 @@ def _block(b: int, n: int, r: int):
     return r * per, (r + 1) * per
 
 
-def _cutter(lo: int, hi: int):
+def _cutter(lo: int, hi: int, axis: int = 0):
     def cut(a):
-        return None if a is None else a[lo:hi]
+        return None if a is None else a[(slice(None),) * axis + (slice(lo, hi),)]
     return cut
 
 

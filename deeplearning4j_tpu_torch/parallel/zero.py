@@ -50,7 +50,7 @@ from deeplearning4j_tpu_torch.updaters import Updater, as_updater
 Tensors = Dict[str, torch.Tensor]
 
 #: the step variants the port does not have yet
-NOT_PORTED = "not ported yet (ROADMAP § A3: the guarded, bundled and telemetry sharded steps)"
+NOT_PORTED = "not ported yet (ROADMAP § A3: the guarded and telemetry sharded steps)"
 
 
 class _Entry:
@@ -284,7 +284,7 @@ def unshard_model_opt_state(model, layout: ShardedUpdateLayout,
 def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
                             telemetry=None):
     """The ZeRO-1 data-parallel train step over ``mesh`` (a TrainingMesh),
-    unguarded, one step per call. Returns ``(step, layout)``.
+    unguarded. Returns ``(step, layout)``.
 
     ``step(zopt, batch)`` runs at the model's params, state, iteration and
     epoch on this rank's ``batch`` (the model's ``_batch`` of its rows) and
@@ -293,9 +293,14 @@ def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
     (``all_reduce``), :func:`apply_sharded_updates` with ``t = iteration +
     1``, the score being the loss plus the regularization score before the
     update. The fused Adam kernel takes the f32 Adam groups (resolved once
-    here). A fault policy, ``steps_per_call > 1`` or telemetry raise."""
+    here).
+
+    With ``steps_per_call`` k > 1 the step is the bundled variant
+    (:class:`BundledShardedStep`): ``step(zopt, stacked)`` takes k such steps
+    over a stacked batch (the rank's rows of k batches, a leading k axis)
+    and returns ``(new_params, new_zopt, new_state, BundleScores)``, again
+    without changing the model. A fault policy or telemetry raise."""
     refused = [what for bad, what in ((policy is not None, "fault_policy"),
-                                      (int(steps_per_call) > 1, "steps_per_call > 1"),
                                       (telemetry is not None, "telemetry")) if bad]
     if refused:
         raise NotImplementedError(f"sharded step with {', '.join(refused)}: {NOT_PORTED}")
@@ -317,4 +322,50 @@ def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
         new_params = np_list if names is None else dict(zip(names, np_list))
         return new_params, new_zopt, new_state, loss + model._reg_score(model.params_)
 
+    if int(steps_per_call) > 1:
+        return BundledShardedStep(model, step, int(steps_per_call)), layout
     return step, layout
+
+
+class BundledShardedStep:
+    """k ZeRO-1 steps per call (the reference's bundled sharded step, JAX
+    ``parallel/zero.py:432-473``): the single step under
+    ``train/pipeline.BundledStep``, carrying params, this rank's updater
+    shards and the layer state; on the card one replay of a captured CUDA
+    graph, collectives included."""
+
+    def __init__(self, model, step, k: int):
+        from deeplearning4j_tpu_torch.train.pipeline import BundledStep
+
+        self.model, self.k = model, k
+        self._zopt = None
+
+        def one(batch):
+            model.params_, self._zopt, model.state_, model.score_ = step(self._zopt, batch)
+            model.iteration += 1
+
+        def get():
+            return (model.params_, self._zopt, model.state_)
+
+        def put(tree):
+            model.params_, self._zopt, model.state_ = tree
+
+        self._runner = BundledStep(model, k, one, get, put)
+
+    def __call__(self, zopt, stacked):
+        """``(new_params, new_zopt, new_state, BundleScores)`` of k steps
+        from the model's params, state and iteration and ``zopt``; the model
+        is left as it was (the results may be the runner's static buffers,
+        which the next call reads, so the caller hands them back)."""
+        m = self.model
+        saved = (m.params_, m.state_, m.iteration, m.score_)
+        self._zopt = zopt
+        try:
+            scores = self._runner(stacked)
+            return m.params_, self._zopt, m.state_, scores
+        finally:
+            m.params_, m.state_, m.iteration, m.score_ = saved
+
+    def release(self) -> None:
+        """:meth:`BundledStep.release` for the model's tensors."""
+        self._runner.release()

@@ -15,6 +15,14 @@ scalars do. This slice ports ``Sgd``, ``NoOp``, ``Nesterovs`` and ``Adam``
 (whose :meth:`Adam.alpha` the fused-Adam kernel shares), and ``RmsProp`` as
 configuration data; a configuration naming another updater still loads,
 and :func:`as_updater` raises when it is trained.
+
+``apply`` takes each per-step scalar through :meth:`Updater.step_scalar`:
+the host pipeline (a 0-dim f32 tensor on the CPU), unless a bundled train
+step is being captured into a CUDA graph (``train/pipeline.py``). Then a
+scalar that changes with the step (Adam's bias-corrected ``alpha``, any
+schedule other than a fixed one) comes from a device buffer that the host
+fills before each replay by the same pipeline, so that the graph does not
+freeze the value of the step it was captured at.
 """
 
 from __future__ import annotations
@@ -24,9 +32,30 @@ from typing import Dict, Tuple
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.serde import TaggedConf
-from deeplearning4j_tpu_torch.schedules import as_schedule
+from deeplearning4j_tpu_torch.schedules import FixedSchedule, as_schedule
 
 State = Dict[str, torch.Tensor]
+
+#: the scalar feed of a bundled step being captured (``train/pipeline.py``),
+#: else None: set only through :func:`scalar_feed`
+_FEED = None
+
+
+class scalar_feed:
+    """Context manager: route :meth:`Updater.step_scalar` through ``feed``
+    (an object with ``take(updater, kind, t, iteration, epoch)``)."""
+
+    def __init__(self, feed):
+        self.feed = feed
+
+    def __enter__(self):
+        global _FEED
+        self.prev, _FEED = _FEED, self.feed
+        return self.feed
+
+    def __exit__(self, *exc):
+        global _FEED
+        _FEED = self.prev
 
 
 def _schedule_dict(value) -> dict:
@@ -46,6 +75,26 @@ class Updater(TaggedConf):
     def lr(self, iteration, epoch) -> torch.Tensor:
         return self._sched("learning_rate", iteration, epoch)
 
+    def scalar_value(self, kind: str, t, iteration, epoch) -> torch.Tensor:
+        """The host pipeline of one per-step scalar: ``kind`` is a schedule
+        key of this updater ("learning_rate", "momentum") or "alpha"."""
+        if kind == "alpha":
+            return self.alpha(t, iteration, epoch)
+        return self._sched(kind, iteration, epoch)
+
+    def varies(self, kind: str) -> bool:
+        """Whether the scalar ``kind`` can change from step to step (a fixed
+        schedule cannot)."""
+        return kind == "alpha" or not isinstance(as_schedule(self[kind]), FixedSchedule)
+
+    def step_scalar(self, kind: str, t, iteration, epoch) -> torch.Tensor:
+        """A per-step scalar as ``apply`` uses it: :meth:`scalar_value`, or,
+        while a bundled step is captured, the feed's device scalar for a
+        value that varies between steps."""
+        if _FEED is None or not self.varies(kind):
+            return self.scalar_value(kind, t, iteration, epoch)
+        return _FEED.take(self, kind, t, iteration, epoch)
+
     def init_state(self, param: torch.Tensor) -> State:
         return {}
 
@@ -58,7 +107,7 @@ class Sgd(Updater):
         super().__init__({"learning_rate": _schedule_dict(learning_rate)})
 
     def apply(self, grad, state, t, iteration, epoch):
-        return self.lr(iteration, epoch) * grad, state
+        return self.step_scalar("learning_rate", t, iteration, epoch) * grad, state
 
 
 class NoOp(Updater):
@@ -82,9 +131,9 @@ class Nesterovs(Updater):
         return {"v": torch.zeros_like(param)}
 
     def apply(self, grad, state, t, iteration, epoch):
-        mu = self._sched("momentum", iteration, epoch)
+        mu = self.step_scalar("momentum", t, iteration, epoch)
         v_prev = state["v"]
-        v = mu * v_prev - self.lr(iteration, epoch) * grad
+        v = mu * v_prev - self.step_scalar("learning_rate", t, iteration, epoch) * grad
         return mu * v_prev - (1.0 + mu) * v, {"v": v}
 
 
@@ -110,7 +159,7 @@ class Adam(Updater):
         b1, b2 = self["beta1"], self["beta2"]
         m = b1 * state["m"] + (1 - b1) * grad
         v = b2 * state["v"] + (1 - b2) * grad * grad
-        alpha = self.alpha(t, iteration, epoch)
+        alpha = self.step_scalar("alpha", t, iteration, epoch)
         return alpha * m / (torch.sqrt(v) + self["epsilon"]), {"m": m, "v": v}
 
 

@@ -6,6 +6,7 @@ Run from the repository root on a CUDA card::
     python3 scripts/torch_train_profile.py                        # ResNet-50
     python3 scripts/torch_train_profile.py --model transformerlm  # TransformerLM
     python3 scripts/torch_train_profile.py --model resnet50_zero1 # ParallelWrapper, ZeRO-1
+    python3 scripts/torch_train_profile.py --steps-per-call 4     # + bundled steps
 
 ``resnet50`` builds the model of ``chip_smoke.py``'s phase 4 (full-width bf16
 ResNet-50, 1000 classes, 224x224, fused bottlenecks, seeded random weights
@@ -25,7 +26,13 @@ the fused Adam, ``all_gather``, scatter back), of it the flatten of params
 and gradients and the kernel alone; beside them the replicated step
 (``all_reduce``, per-tensor eager Adam) and one ``ParallelWrapper.fit`` call
 of one batch (the step plus the re-shard and gather of the updater state).
-Each profile uses ``torch.profiler`` (CPU +
+``--steps-per-call K`` (ResNet-50 and its ZeRO-1 step) adds, beside those,
+a fit of K batches at ``steps_per_call`` K through the same entry point
+(``ComputationGraph.fit``, or the ZeRO-1 ``ParallelWrapper``): one replay of
+the bundle's captured CUDA graph (captured before the profile), its copies
+of the stacked batch and the K steps' updater scalars, and the copies that
+end a fit; its rows also give host and device ms per step. Each profile
+uses ``torch.profiler`` (CPU +
 CUDA activities) and prints host milliseconds per call, device busy
 milliseconds, the device's idle share, device ops per call, the device time
 by group of kernel names and the top entries; the full tables go to
@@ -49,8 +56,8 @@ import chip_smoke  # noqa: E402  (the train phases' models, SEED, smi_line)
 from torch_serve_profile import profile_calls  # noqa: E402
 
 
-def resnet50_calls():
-    from deeplearning4j_tpu_torch.data import DataSet
+def resnet50_calls(k: int):
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
     from deeplearning4j_tpu_torch.updaters import Nesterovs
 
     model, _ = chip_smoke.resnet50(updater=Nesterovs(chip_smoke.TRAIN_LR, 0.9))
@@ -59,10 +66,17 @@ def resnet50_calls():
     y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, chip_smoke.BATCH)]
     ds = DataSet(x, y)
     model.fit(ds)
-    return {f"train step, batch {chip_smoke.BATCH}": lambda: model.fit(ds)}
+    calls = {f"train step, batch {chip_smoke.BATCH}": lambda: model.fit(ds)}
+    if k > 1:
+        bundled, _ = chip_smoke.resnet50(updater=Nesterovs(chip_smoke.TRAIN_LR, 0.9))
+        bundled.conf.global_conf.steps_per_call = k
+        bundled.fit(ExistingDataSetIterator([ds] * k))  # captures the graph
+        calls[f"bundled fit of {k} batches (one replay), batch {chip_smoke.BATCH}"] = \
+            lambda: bundled.fit(ExistingDataSetIterator([ds] * k))
+    return calls
 
 
-def resnet50_zero1_calls():
+def resnet50_zero1_calls(k: int):
     from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
     from deeplearning4j_tpu_torch.nn.graph import _as_multi
     from deeplearning4j_tpu_torch.nn.multilayer import apply_layer_updates
@@ -107,7 +121,15 @@ def resnet50_zero1_calls():
         loss, new_state, g = _mean_over_ranks(mesh, *model._value_and_grad(*batch))
         apply_layer_updates(layers, p_list, [g[n] for n in names], o_list, 2, 1, 0)
 
-    return {f"ZeRO-1 step (the wrapper's sharded step), batch {chip_smoke.BATCH}": sharded_step,
+    calls = {}
+    if k > 1:
+        bundled, _ = chip_smoke.resnet50(updater=Adam(chip_smoke.ADAM_LR))
+        pk = ParallelWrapper(bundled, mesh=mesh, sharded_update=True, steps_per_call=k)
+        pk.fit(ExistingDataSetIterator([ds] * k))  # captures the graph
+        calls[f"bundled ParallelWrapper.fit of {k} batches (one replay), batch "
+              f"{chip_smoke.BATCH}"] = lambda: pk.fit(ExistingDataSetIterator([ds] * k))
+    return {**calls,
+            f"ZeRO-1 step (the wrapper's sharded step), batch {chip_smoke.BATCH}": sharded_step,
             "  of it: loss and gradients": lambda: model._value_and_grad(*batch),
             "  of it: sharded update (flatten, reduce_scatter, fused Adam, all_gather, "
             "scatter)": sharded_update,
@@ -120,7 +142,7 @@ def resnet50_zero1_calls():
                 lambda: pw.fit(ExistingDataSetIterator([ds]))}
 
 
-def transformer_calls():
+def transformer_calls(k: int):
     from deeplearning4j_tpu_torch.models import transformer_lm as tlm
     from deeplearning4j_tpu_torch.updaters import Adam
 
@@ -170,13 +192,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("resnet50", "transformerlm", "resnet50_zero1"),
                     default="resnet50")
+    ap.add_argument("--steps-per-call", type=int, default=1,
+                    help="also profile a bundled fit of this many batches (ResNet-50)")
     args = ap.parse_args()
+    if args.steps_per_call > 1 and args.model == "transformerlm":
+        ap.error("--steps-per-call: TransformerLM.fit_batch does not bundle")
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
     card = chip_smoke.smi_line()
     calls = {"resnet50": resnet50_calls, "transformerlm": transformer_calls,
-             "resnet50_zero1": resnet50_zero1_calls}[args.model]()
+             "resnet50_zero1": resnet50_zero1_calls}[args.model](args.steps_per_call)
     out = {"card": card, "torch": torch.__version__}
     for label, fn in calls.items():
         r = profile_calls(fn, 5)
@@ -192,6 +218,8 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     name = "train_profile.json" if args.model == "resnet50" else \
         f"train_profile_{args.model}.json"
+    if args.steps_per_call > 1:
+        name = name.replace(".json", f"_k{args.steps_per_call}.json")
     with open(os.path.join("chiprun_out", name), "w") as f:
         json.dump(out, f, indent=1)
     return 0

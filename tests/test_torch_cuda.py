@@ -2016,3 +2016,83 @@ def test_wrapper_on_the_card_sharded_equals_replicated(card):
         nets.append(net)
     assert np.array_equal(nets[0].params_flat(), nets[1].params_flat())
     assert np.array_equal(nets[0].opt_state_flat(), nets[1].opt_state_flat())
+
+
+@pytest.mark.parametrize("t", [1, 2, 1000])
+@pytest.mark.parametrize("n", [1, 4097, 1_000_003])
+def test_fused_adam_alpha_by_pointer_is_the_value_entry(card, n, t):
+    """The entry that reads alpha from the card (what a captured bundle
+    replays) gives the value entry's p', m' and v' bit for bit, and reads
+    the value there when the kernel runs: a graph captured at one alpha and
+    replayed after the buffer changed gives the new alpha's bits."""
+    from deeplearning4j_tpu_torch.nn.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.nn.ops import launch as ops_launch
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    upd = Adam(1e-3)
+    p, grad, m, v = _adam_inputs(card, n, seed=n + 7 * t)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    alpha = upd.alpha(t, t - 1, 0)
+    buf = alpha.to(card)
+    ops_launch.reset_launch_counts()
+    by_value = fu.fused_adam_apply(p, grad, m, v, alpha, **kw)
+    by_pointer = fu.fused_adam_apply(p, grad, m, v, buf, **kw)
+    assert dict(ops_launch.launch_counts) == {"fused_adam": 2}
+    assert all(torch.equal(a, b) for a, b in zip(by_value, by_pointer))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fu.fused_adam_apply(p, grad, m, v, buf, **kw)
+    later = upd.alpha(t + 1, t, 0)
+    buf.copy_(later)
+    graph.replay()
+    want = fu.fused_adam_apply(p, grad, m, v, later, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(replayed, want))
+
+
+def test_narrow_graph_bundle_on_the_card_equals_its_single_steps(card):
+    """The narrow fused-bottleneck graph at steps_per_call=2: two bundles
+    (one captured CUDA graph, replayed twice) leave params, Nesterovs slots,
+    BN state and scores equal to four single steps, under deterministic
+    cuDNN; the graph holds two steps' kernel launches, a replay launches
+    none eagerly, and tensors taken after the fit keep their values through
+    a later fit."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.train import pipeline
+
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        single, _ = _model_and_plain()
+        bundled, _ = _model_and_plain()
+        bundled.conf.global_conf.steps_per_call = 2
+        rng = np.random.default_rng(11)
+        batches = [DataSet(rng.standard_normal((6, 20, 20, 3)).astype(np.float32),
+                           np.eye(10, dtype=np.float32)[rng.integers(0, 10, 6)])
+                   for _ in range(4)]
+        scores = []
+        for ds in batches:
+            single.fit(ExistingDataSetIterator([ds]))
+            scores.append(float(single.score_))
+        fc.reset_launch_counts()
+        bundled.fit(ExistingDataSetIterator(batches[:2]))
+        first = bundled.bundle_scores_
+        bundled.fit(ExistingDataSetIterator(batches[2:]))
+        step = {"pw_conv": 8, "conv3x3": 3, "pw_conv_dx": 8, "pw_conv_dw": 8,
+                "conv3x3_dx": 3, "conv3x3_dw": 3}
+        assert bundled._bundled.captured_launches == {k: 2 * v for k, v in step.items()}
+        assert dict(fc.launch_counts) == {
+            k: (2 + pipeline.WARMUP_STEPS) * v for k, v in step.items()}
+        assert list(first.host()) + list(bundled.bundle_scores_.host()) == scores
+        for tree in ("params_", "opt_state_", "state_"):
+            a, b = getattr(single, tree), getattr(bundled, tree)
+            for v in a:
+                flat_a = pipeline.tree_leaves(a[v])
+                flat_b = pipeline.tree_leaves(b[v])
+                assert all(torch.equal(x, y) for x, y in zip(flat_a, flat_b)), (tree, v)
+        held = [t.clone() for t in pipeline.tree_leaves(bundled.params_)]
+        refs = pipeline.tree_leaves(bundled.params_)
+        bundled.fit(ExistingDataSetIterator(batches[:2]))
+        assert all(torch.equal(r, h) for r, h in zip(refs, held))
+        assert bundled.iteration == 6
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det

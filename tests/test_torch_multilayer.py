@@ -85,7 +85,7 @@ def test_unported_zoo_names_and_features_raise():
     with pytest.raises(ZooModelNotPortedError, match="ROADMAP"):
         ModelSelector.select("alexnet")
     conf = CONFS["lenet"](PORT)
-    conf.global_conf.steps_per_call = 4  # bundled steps: not ported
+    conf.global_conf.telemetry = True  # in-graph telemetry: not ported
     net = TNet(conf).init(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         net.fit(inputs("lenet", 2), np.eye(10, dtype=np.float32)[:2])

@@ -162,7 +162,7 @@ def test_score_and_gradients_match_jax(name):
 
 def test_fit_refusals():
     conf = dense(PORT)
-    conf.global_conf.steps_per_call = 4
+    conf.global_conf.telemetry = True
     net = TNet(conf).init(device="cpu")
     x, y = data("dense", 4, seed=0)
     with pytest.raises(NotImplementedError, match="slice 4: the rest of the training core"):

@@ -13,7 +13,9 @@ package, on the CPU.
   a ``FileStore`` under the session's temporary directory, never a fixed
   port) run the cases of ``tests/test_sharded_update.py::TestWrapperParity``
   (``tests/test_torch_parallel_ranks.py``), held against the JAX package's
-  ``ParallelWrapper`` with as many workers on the virtual CPU mesh. Each
+  ``ParallelWrapper`` with as many workers on the virtual CPU mesh; and
+  bundled steps (``steps_per_call`` 2), replicated and ZeRO-1, against the
+  same ranks at 1 (bit for bit) and the JAX wrapper's bundled fit. Each
   world size spawns once per session; the xdist workers share the result
   through a file lock.
 
@@ -233,11 +235,15 @@ def test_wrapper_refusals_and_knobs():
         ParallelWrapper.builder(net).workers(2).build()
     with pytest.warns(UserWarning, match="averaging_frequency"):
         ParallelWrapper.builder(net).averaging_frequency(5)
-    pw = ParallelWrapper.builder(net).steps_per_call(4).build()
-    with pytest.raises(NotImplementedError, match="bundled steps"):
+    telemetry = port_net(jax_net())
+    telemetry.conf.global_conf.telemetry = True
+    pw = ParallelWrapper.builder(telemetry).steps_per_call(4).build()
+    with pytest.raises(NotImplementedError, match="telemetry"):
         pw.fit(TExisting([TDataSet(*ranks.blobs(4))]))
-    with pytest.raises(NotImplementedError, match="A3"):
-        tzero.make_sharded_train_step(net, TrainingMesh(1, device="cpu"), steps_per_call=2)
+    for refused in ({"policy": True}, {"telemetry": True}):
+        with pytest.raises(NotImplementedError, match="A3"):
+            tzero.make_sharded_train_step(net, TrainingMesh(1, device="cpu"),
+                                          steps_per_call=2, **refused)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         pw = (ParallelWrapper.builder(net).workers(1).prefetch_buffer(2)
@@ -367,3 +373,38 @@ def test_ranks_ragged_last_batch(rank_runs, world):
 @pytest.mark.parametrize("world", WORLDS)
 def test_ranks_refuse_batch_statistics(rank_runs, world):
     assert bool(rank_runs(world)["bn/refused"])
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_bundled_steps_equal_single_steps_and_track_jax(rank_runs, world, sharded):
+    """``steps_per_call`` 2 on 2 and 4 gloo ranks, replicated and ZeRO-1,
+    over five batches (two bundles and a ragged single step an epoch), two
+    epochs: bit-equal to the same ranks at 1, and within PARITY_TOL of the
+    JAX wrapper's bundled fit (``test_pipeline.py::TestDataParallelBundling::
+    test_parallel_wrapper_bundled_parity`` and ``::test_parallel_wrapper_zero1_bundled_parity``)."""
+    out = rank_runs(world)
+    key = f"bundle/{'sharded' if sharded else 'repl'}"
+    for what in ("params", "opt", "score", "iteration"):
+        np.testing.assert_array_equal(out[f"{key}/k2/{what}"], out[f"{key}/k1/{what}"])
+    assert int(out[f"{key}/k2/iteration"]) == 10
+    data = JExisting([JDataSet(x, y) for x, y in ranks.bundle_batches()])
+    ref, _ = jax_fit(world, sharded, 2, it=data, steps=2)
+    assert_close(out, f"{key}/k2", ref)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_skip_bundling_when_always_padding(rank_runs, world):
+    """Batches of 5 rows, which every rank count here must pad: no bundled
+    step is built (the reference clamps to k = 1 up front,
+    ``test_pipeline.py::test_parallel_wrapper_skips_bundling_when_always_padding``),
+    and the fit equals k = 1's bit for bit and the JAX wrapper's within
+    PARITY_TOL."""
+    out = rank_runs(world)
+    assert bool(out["padding/no_bundled_step"])
+    np.testing.assert_array_equal(out["padding/k2/params"], out["padding/k1/params"])
+    np.testing.assert_array_equal(out["padding/k2/opt"], out["padding/k1/opt"])
+    data = JExisting([JDataSet(x, y) for x, y in ranks.padded_batches()])
+    ref, jpw = jax_fit(world, False, 1, it=data, steps=2)
+    assert jpw._bstep is None
+    assert_close(out, "padding/k2", ref)

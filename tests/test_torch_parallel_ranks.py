@@ -6,7 +6,8 @@ JAX package's initial params (carried as arrays in ``init.npz``), trains
 them through ``ParallelWrapper`` and, on rank 0, writes what it got to
 ``out.npz`` for the test to hold against the JAX package's
 ``ParallelWrapper``. The networks and datasets are the ones of
-``tests/test_sharded_update.py::TestWrapperParity``. Imports no JAX, and
+``tests/test_sharded_update.py::TestWrapperParity``, and for bundled steps
+``tests/test_pipeline.py``'s ``_batches``-style data. Imports no JAX, and
 holds no tests itself: its name keeps it among the port's test files.
 """
 
@@ -19,10 +20,13 @@ import torch.distributed as dist
 N_IN, N_HID, N_OUT = 5, 7, 3
 
 
-def build(pkg, mixed_precision=False, sharded_knob=False, gradnorm=False, bn=False):
-    """The TestWrapperParity network in ``pkg`` = (conf, layers, updaters)."""
+def build(pkg, mixed_precision=False, sharded_knob=False, gradnorm=False, bn=False, steps=1):
+    """The TestWrapperParity network in ``pkg`` = (conf, layers, updaters);
+    ``steps``: its ``steps_per_call``."""
     conf, layers, upd = pkg
     b = conf.NeuralNetConfiguration.builder().seed(3).updater(upd.Adam(0.01))
+    if steps > 1:
+        b = b.steps_per_call(steps)
     if mixed_precision:
         b = b.compute_dtype("bfloat16")
     if sharded_knob:
@@ -40,6 +44,17 @@ def blobs(n=32, seed=0):
     x = rng.standard_normal((n, N_IN)).astype(np.float32)
     y = np.eye(N_OUT, dtype=np.float32)[rng.integers(0, N_OUT, n)]
     return x, y
+
+
+def bundle_batches():
+    """Five batches of 8 rows: at ``steps_per_call`` 2, two bundles and a
+    ragged single step an epoch."""
+    return [blobs(8, seed=20 + i) for i in range(5)]
+
+
+def padded_batches():
+    """Four batches of 5 rows, which 2 and 4 ranks must both pad."""
+    return [blobs(5, seed=30 + i) for i in range(4)]
 
 
 #: case -> the network options of its replicated and sharded runs
@@ -158,6 +173,21 @@ def _cases(rank, world, root):
         net = _net(init)
         fit(net, sharded, 2, ListDataSetIterator(DataSet(x, y), 8))
         save(f"ragged/{'sharded' if sharded else 'repl'}", net)
+
+    # bundled steps (steps_per_call 2) against single steps, replicated and
+    # sharded, 2 epochs; batches every rank count must pad never bundle
+    for sharded in (False, True):
+        for k in (1, 2):
+            net = _net(init, steps=k)
+            fit(net, sharded, 2, ExistingDataSetIterator(
+                [DataSet(x, y) for x, y in bundle_batches()]))
+            save(f"bundle/{'sharded' if sharded else 'repl'}/k{k}", net)
+    for k in (1, 2):
+        net = _net(init, steps=k)
+        pw = fit(net, False, 1, ExistingDataSetIterator(
+            [DataSet(x, y) for x, y in padded_batches()]))
+        save(f"padding/k{k}", net)
+    out["padding/no_bundled_step"] = np.bool_(pw._bstep is None)
 
     # batch statistics on several ranks are refused
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
