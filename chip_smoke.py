@@ -72,7 +72,19 @@ replicated and sharded, bit for bit. Phase 10b runs phase 10's wrapper at
 one fused Adam a step inside it, Adam's ``alpha`` from the bundle's device
 buffer) against the same wrapper at 1, bit for bit, with its launches, a
 profiler trace of one replay and images/s in turns, and LeNet's
-``MultiLayerNetwork.fit`` at 4 against 1. Each phase prints one or more lines;
+``MultiLayerNetwork.fit`` at 4 against 1. On one rank the batch statistics
+need no collective, and phases 10 and 10b run none; phase 10b holds a small
+BN network whose statistics go through the one-rank NCCL sum anyway, at 2
+against 1 with the sums counted eager and captured. Phase 2h holds the shared-training
+encoder against a plain version (another selection) at ResNet-50's and
+VGG16's flat gradient sizes, with device times beside ``torch.topk``. Phase
+10c trains phase 10's model on two spawned ranks sharing the card (gloo on
+CUDA tensors, replicated) against this process's one rank: one step's mean
+gradient under phase 4's rule, the BN running statistics, the score, and the
+same ranks with per-rank statistics farther from it. Phase 11 trains the
+zoo's LeNet through ``SharedTrainingMaster``: one step against the step
+written out plainly, replicated against sharded (one fused Adam a step),
+bundled against single steps, bit for bit, and ms a step. Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
 prints them), and
@@ -915,6 +927,27 @@ def grad_agreement(gk, gp, g32):
     ok = finite and all(rels[n] <= GRAD_REL_TOL or ratios[n] <= GRAD_NOISE_FACTOR for n in rels)
     ok = ok and float(np.median(list(to_f32.values()))) <= GRAD_F32_MEDIAN
     return ok, rels, ratios, to_f32
+
+
+def stats_launches(model, steps: int) -> dict:
+    """The batch-statistics collectives that ``steps`` train steps of
+    ``model`` make on a mesh, by their ``launch_counts`` names: each site one
+    forward and one backward a step; a site is a bf16/f16
+    BatchNormalization (``(Σx, Σx²)``), each of an f32 one's two passes, and
+    each conv of a fused bottleneck (three, four with the projection)."""
+    from deeplearning4j_tpu_torch.parallel import mesh
+
+    graph = hasattr(model.conf, "network_inputs")
+    layers = [model._layer(n) for n in model.layer_names] if graph else model.layers
+    low = model._compute_dtype in (torch.bfloat16, torch.float16)
+    sites = 0
+    for layer in layers:
+        kind = type(layer).__name__
+        if kind == "BatchNormalization":
+            sites += 1 if low else 2
+        elif kind == "FusedResNetBottleneck":
+            sites += 4 if layer.project else 3
+    return {mesh.STATS_FORWARD: steps * sites, mesh.STATS_BACKWARD: steps * sites}
 
 
 def _finite(model) -> bool:
@@ -2972,6 +3005,95 @@ def adam_phase(fu):
                                            "bound_ms": vgg_bound_ms}}
 
 
+# phase 2h: the shared-training encoder at the real models' flat sizes
+ENCODE_SIZES = {"ResNet-50": 25_557_032, "VGG16": VGG16_PARAMS}
+ENCODE_CAPACITY = 16384
+ENCODE_THRESHOLD = 1e-3
+
+
+def plain_encode(flat, threshold, capacity):
+    """The threshold encode written another way than the port's stable sort
+    of every score: the k-th score from ``torch.topk``, every element above
+    it and the lowest-index elements equal to it (a cumsum), the kept ones
+    by index (``nonzero``, a host sync) in a stable sort by score.
+    -> ((indices, values, count), residual)."""
+    mag = flat.abs()
+    score = torch.where(mag >= threshold, mag, torch.full_like(mag, -1.0))
+    kth = torch.topk(score, capacity).values[-1]
+    above, equal = score > kth, score == kth
+    keep = above | (equal & (torch.cumsum(equal, 0) <= capacity - above.sum()))
+    kept = torch.nonzero(keep).reshape(-1)
+    vals, order = torch.sort(score[kept], descending=True, stable=True)
+    idx = kept[order]
+    valid = vals > 0
+    send = torch.where(valid, torch.sign(flat[idx]) * threshold, torch.zeros_like(vals))
+    residual = flat.clone()
+    residual[idx] = flat[idx] - send
+    return (torch.where(valid, idx, -1).to(torch.int32), send,
+            valid.sum().to(torch.int32)), residual
+
+
+def plain_decode(indices, values, n):
+    """Messages ``indices``/``values`` (ranks, K) added into a dense (n,)
+    vector rank by rank."""
+    out = torch.zeros(n, dtype=torch.float32, device=values.device)
+    for idx, val in zip(indices, values):
+        keep = idx >= 0
+        out[idx[keep].long()] += val[keep]
+    return out
+
+
+def encoder_phase():
+    """Phase 2h: ``parallel/compression.py``'s encode and decode at
+    ResNet-50's and VGG16's flat gradient sizes (capacity 16384, threshold
+    1e-3, seeded N(0, 1e-3) gradients): message, residual and decode
+    torch.equal to the plain versions (another selection: top-k, the ties
+    filled by index), reruns bit-identical; device times beside
+    ``torch.topk`` alone. Plain torch, not a kernel port: no row of
+    the kernels' table."""
+    from deeplearning4j_tpu_torch.parallel import compression as pc
+
+    out, failed = {}, []
+    for name, n in ENCODE_SIZES.items():
+        g = torch.Generator(device="cuda").manual_seed(SEED + n % 9973)
+        grad = torch.randn(n, generator=g, device="cuda") * 1e-3
+        thr = torch.full((), ENCODE_THRESHOLD, dtype=torch.float32, device="cuda")
+        msg, res = pc.threshold_encode(grad, thr, ENCODE_CAPACITY)
+        again, res2 = pc.threshold_encode(grad, thr, ENCODE_CAPACITY)
+        (p_idx, p_val, p_count), p_res = plain_encode(grad, thr, ENCODE_CAPACITY)
+        dec = pc.threshold_decode(msg, n)
+        p_dec = plain_decode(p_idx[None], p_val[None], n)
+        torch.cuda.synchronize()
+        equal = {"indices": torch.equal(msg.indices, p_idx),
+                 "values": torch.equal(msg.values, p_val),
+                 "count": torch.equal(msg.count, p_count),
+                 "residual": torch.equal(res, p_res), "decode": torch.equal(dec, p_dec)}
+        rerun = all(torch.equal(a, b) for a, b in zip(msg, again)) and torch.equal(res, res2)
+        del again, res2, p_res, p_dec
+        encode_ms = graph_ms(lambda: pc.threshold_encode(grad, thr, ENCODE_CAPACITY),
+                             calls=5, replays=4)
+        decode_ms = graph_ms(lambda: pc.threshold_decode(msg, n), calls=5, replays=4)
+        topk_ms = graph_ms(lambda: torch.topk(grad.abs(), ENCODE_CAPACITY), calls=5,
+                           replays=4)
+        plain_ms = time_ms(lambda: plain_encode(grad, thr, ENCODE_CAPACITY))
+        out[name] = {"n": n, "equal": equal, "rerun_identical": rerun,
+                     "count": int(msg.count), "encode_graph_ms": encode_ms,
+                     "decode_graph_ms": decode_ms, "topk_graph_ms": topk_ms,
+                     "plain_encode_ms": plain_ms}
+        print(f"phase 2h encoder {name} {n:,} elements, capacity {ENCODE_CAPACITY}, threshold "
+              f"{ENCODE_THRESHOLD}: {int(msg.count)} sent; vs the plain version (topk, ties "
+              f"filled by index) torch.equal {equal}; reruns bit-identical {rerun}; device ms (CUDA "
+              f"graph): encode {encode_ms:.4f}, decode {decode_ms:.4f}, torch.topk of |g| "
+              f"alone {topk_ms:.4f}; plain encode {plain_ms:.4f} ms (events)", flush=True)
+        if not (all(equal.values()) and rerun):
+            failed.append((name, equal, rerun))
+        del grad, msg, res, dec
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"the encoder disagrees with its plain version: {failed}")
+    return out
+
+
 class RecordingIterator:
     """Iterates ``batches``, calling ``before(i)`` ahead of handing out
     batch i (a train step follows each): where a step's launches are read,
@@ -3194,6 +3316,8 @@ def zero1_phase(fc, fu, card: str, train: dict):
 
 ZERO1_BUNDLE_K = 2            # phase 10b: the ZeRO-1 wrapper at steps_per_call=2
 ZERO1_BUNDLE_BATCHES = 4
+#: phase 10b's statistics-collective net: rows, image side, channels, width, classes
+STATS_NET = (16, 16, 32, 16, 10)
 LENET_BUNDLE_K = 4            # phase 10b: LeNet MultiLayerNetwork.fit at steps_per_call=4
 LENET_BUNDLE_BATCHES = 8
 
@@ -3278,6 +3402,7 @@ def _bundled_zero1(fc, fu, card, zero1):
                       f"{trace}, eager launches in the replay {replay_launches}")
     del single, bundled, p1, pk
     torch.cuda.empty_cache()
+    stats = _bundled_stats_collectives(fc, failed)
 
     # LeNet: MultiLayerNetwork.fit at LENET_BUNDLE_K against 1
     rng = np.random.default_rng(SEED + 13)
@@ -3308,7 +3433,388 @@ def _bundled_zero1(fc, fu, card, zero1):
             "main_launches": main_launches, "captured_launches": captured,
             "fused_groups": n_groups, "trace_one_replay": trace, "trace_busy_ms": busy_ms,
             "speed": speed, "phase10_images_per_s": zero1["images_per_s"],
-            "lenet": {"k": LENET_BUNDLE_K, "equal": lenet_equal, "scores": lenet_scores}}
+            "stats_collectives": stats, "lenet": {"k": LENET_BUNDLE_K, "equal": lenet_equal, "scores": lenet_scores}}
+
+
+def _bundled_stats_collectives(fc, failed: list) -> dict:
+    """Phase 10b's check of the batch-statistics collectives under capture.
+    On one rank the wrapper takes the rows' own statistics with no
+    collective; here a small bf16 network (a projecting fused bottleneck, a
+    BatchNormalization) takes them through the one-rank NCCL sum all the
+    same, as a step over several cards does, through
+    ``ParallelWrapper(workers=1, sharded_update)`` at ZERO1_BUNDLE_K against
+    1: torch.equal, with each step's sums counted eager and captured."""
+    import deeplearning4j_tpu_torch.nn.conf as conf
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn import batch_stats
+    from deeplearning4j_tpu_torch.nn.conf import layers
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    k, (rows, side, cin, width, classes) = ZERO1_BUNDLE_K, STATS_NET
+    def net():
+        return MultiLayerNetwork(
+            conf.NeuralNetConfiguration.builder().seed(SEED).updater(Adam(ADAM_LR))
+            .compute_dtype("bfloat16").list()
+            .layer(layers.FusedResNetBottleneck(width=width, project=True))
+            .layer(layers.BatchNormalization())
+            .layer(layers.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(layers.OutputLayer(n_out=classes, activation="softmax"))
+            .set_input_type(conf.InputType.convolutional(side, side, cin)).build()).init()
+
+    single, bundled = net(), net()
+    rng = np.random.default_rng(SEED + 14)
+    batches = [DataSet(rng.standard_normal((rows, side, side, cin)).astype(np.float32),
+                       np.eye(classes, dtype=np.float32)[rng.integers(0, classes, rows)])
+               for _ in range(ZERO1_BUNDLE_BATCHES)]
+    p1 = ParallelWrapper.builder(single).workers(1).sharded_update(True).build()
+    pk = ParallelWrapper.builder(bundled).workers(1).sharded_update(True).steps_per_call(k) \
+        .build()
+    per_step = stats_launches(single, 1)
+    with batch_stats.across_ranks(p1.mesh.all_reduce_sum, p1.mesh.n_data):
+        fc.reset_launch_counts()
+        p1.fit(ExistingDataSetIterator(batches))
+        eager = {n: fc.launch_counts.get(n, 0) for n in per_step}
+        pk.fit(ExistingDataSetIterator(batches))
+    torch.cuda.synchronize()
+    captured = {n: pk._bstep._runner.captured_launches.get(n, 0) for n in per_step}
+    equal = _states_equal(single, bundled)
+    want_eager = {n: len(batches) * v for n, v in per_step.items()}
+    want_captured = {n: k * v for n, v in per_step.items()}
+    print(f"phase 10b statistics collectives under capture: {rows}x{side}x{side}x{cin} "
+          f"bf16, fused bottleneck (width {width}, projecting) + BatchNormalization, "
+          f"their statistics through the one-rank NCCL sum; steps_per_call={k} vs 1 "
+          f"torch.equal {equal}; sums eager {eager} (want {want_eager}), captured "
+          f"{captured} (want {want_captured})", flush=True)
+    if not all(equal.values()) or eager != want_eager or captured != want_captured:
+        failed.append(f"statistics collectives under capture: equal {equal}, eager {eager} "
+                      f"(want {want_eager}), captured {captured} (want {want_captured})")
+    return {"equal": equal, "eager": eager, "captured": captured}
+
+
+# phase 10c: two ranks share the card over gloo (NCCL refuses two ranks on
+# one device); each trains phase 10's ResNet-50 on its 16 rows of 32
+SHARED_CARD_RANKS = 2
+SHARED_CARD_TIMED = 2         # steps timed after the compared one
+# BN running statistics after one step, per tensor ||s_2 - s_1|| / ||s_1||:
+# the same f32 sums of bf16 conv outputs, which the two runs round alike except
+# where the conv kernels' tiling differs between 16 and 32 rows
+STATE_REL_TOL = 2.0 ** -7
+SCORE_REL_TOL = 1e-3          # phase 4's score rule
+
+
+def _flat_grads(grads) -> dict:
+    return {k: v.detach().float().cpu() for k, v in _flat(grads)}
+
+
+def _rank_10c(rank: int, root: str) -> None:
+    """One of phase 10c's ranks (a spawned process): the model phase 10c's
+    process saved, its 16 rows of the batch through ParallelWrapper(workers=2)
+    on a gloo group over CUDA tensors: the mean gradient of one step with
+    cross-rank and with per-rank statistics, then fit steps; rank 0 saves."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.ops import launch
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, TrainingMesh
+    from deeplearning4j_tpu_torch.parallel.wrapper import _mean_over_ranks
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(root, "store"),
+                                                         SHARED_CARD_RANKS),
+                            rank=rank, world_size=SHARED_CARD_RANKS)
+    try:
+        saved = torch.load(os.path.join(root, "model.pt"), weights_only=False)
+        model, _ = resnet50(updater=Adam(ADAM_LR))
+        model.params_, model.state_ = saved["params"], saved["state"]
+        ds = saved["ds"]
+        pw = ParallelWrapper.builder(model).workers(SHARED_CARD_RANKS).build()
+        mesh = pw.mesh
+        batch = pw._pack_batch(ds)
+        out = {"host_staged": mesh.host_staged, "rows": int(batch[0][0].shape[0])}
+        _, _, grads = _mean_over_ranks(mesh, *pw._value_and_grad(batch))
+        out["grads"] = _flat_grads(grads)
+        del grads
+        real = TrainingMesh.batch_stats
+        TrainingMesh.batch_stats = lambda self: contextlib.nullcontext()
+        try:
+            _, _, grads = _mean_over_ranks(mesh, *pw._value_and_grad(batch))
+        finally:
+            TrainingMesh.batch_stats = real
+        out["grads_per_rank"] = _flat_grads(grads)
+        del grads
+        launch.reset_launch_counts()
+        pw.fit(ExistingDataSetIterator([ds]))
+        torch.cuda.synchronize()
+        out["launches_per_step"] = dict(launch.launch_counts)
+        out["state"] = {k: v.float().cpu() for k, v in _flat(model.state_)}
+        out["score"] = float(model.score_)
+        t0 = time.perf_counter()
+        pw.fit(ExistingDataSetIterator([ds] * SHARED_CARD_TIMED))
+        torch.cuda.synchronize()
+        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / SHARED_CARD_TIMED
+        if rank == 0:
+            torch.save(out, os.path.join(root, "rank0.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _tensor_rel(a: dict, b: dict) -> dict:
+    return {k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30)) for k in b}
+
+
+def shared_card_phase(card: str):
+    """Phase 10c: two ranks on the one card (gloo on CUDA tensors), phase
+    10's full-width bf16 ResNet-50 through ParallelWrapper(workers=2),
+    replicated, each on its 16 rows of one seeded batch of 32, against this
+    process's one-rank run (NCCL) on the 32 rows: one step's mean gradient
+    under phase 4's gradient rule, the BN running statistics and the score
+    after the step; the same ranks with per-rank statistics must be farther
+    from the one-rank gradient."""
+    import torch.multiprocessing as mp
+
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.ops import launch
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.wrapper import _mean_over_ranks
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    model, plain = resnet50(updater=Adam(ADAM_LR))
+    rng = np.random.default_rng(SEED + 14)
+    ds = DataSet(rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32),
+                 np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)])
+    with tempfile.TemporaryDirectory(dir=os.getcwd(), prefix=".phase10c-") as root:
+        torch.save({"params": model.params_, "state": model.state_, "ds": ds},
+                   os.path.join(root, "model.pt"))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_rank_10c, args=(root,), nprocs=SHARED_CARD_RANKS,
+                                 join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=600):
+                pass
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+        ranks_s = time.perf_counter() - t0
+        two = torch.load(os.path.join(root, "rank0.pt"), weights_only=False)
+
+    # this process: one rank (phase 10's NCCL group) on the 32 rows, and the
+    # plain path in f32 as the bf16 noise yardstick of phase 4's rule
+    pw = ParallelWrapper.builder(model).workers(1).build()
+    _, _, grads = _mean_over_ranks(pw.mesh, *pw._value_and_grad(pw._pack_batch(ds)))
+    one = _flat_grads(grads)
+    del grads
+    f32_conf = copy.deepcopy(plain.conf)
+    f32_conf.global_conf.compute_dtype = None
+    g32 = _flat_grads(twin(model, f32_conf).compute_gradient_and_score(ds)[0])
+    launch.reset_launch_counts()
+    pw.fit(ExistingDataSetIterator([ds]))
+    torch.cuda.synchronize()
+    one_launches = dict(launch.launch_counts)
+    state_one = {k: v.float().cpu() for k, v in _flat(model.state_)}
+    score_one = float(model.score_)
+    ok, rels, ratios, to_f32 = grad_agreement(two["grads"], one, g32)
+    _, rels_local, _, _ = grad_agreement(two["grads_per_rank"], one, g32)
+    dist_cross = float(np.median(list(rels.values())))
+    dist_local = float(np.median(list(rels_local.values())))
+    state_rel = _tensor_rel(two["state"], state_one)
+    score_rel = abs(two["score"] - score_one) / abs(score_one)
+    want = dict(STEP_LAUNCHES, **stats_launches(model, 1))
+    want_one = dict(STEP_LAUNCHES)
+    q = _quantiles
+    print(f"phase 10c two ranks on one card: {SHARED_CARD_RANKS} processes, gloo on CUDA "
+          f"tensors (host-staged {two['host_staged']}), ParallelWrapper(workers=2) replicated, "
+          f"{two['rows']} rows each of one batch of {BATCH}; vs this process's one rank "
+          f"(NCCL) on {BATCH} rows: gradient rule of phase 4 {'ok' if ok else 'FAIL'}, "
+          f"||g_2 - g_1|| / ||g_1|| {q(rels)}, ||g_2 - g_1|| / ||g_1 - g_f32|| {q(ratios)}; "
+          f"with per-rank statistics ||g - g_1|| / ||g_1|| {q(rels_local)} (median "
+          f"{dist_local:.4g} vs cross-rank {dist_cross:.4g}); BN running statistics after the "
+          f"step, per tensor ||s_2 - s_1|| / ||s_1|| {q(state_rel)} (tol {STATE_REL_TOL}); "
+          f"score {two['score']:.6g} vs {score_one:.6g} (rel {score_rel:.3g}, tol "
+          f"{SCORE_REL_TOL})", flush=True)
+    print(f"phase 10c launches and collectives per step: ranks {two['launches_per_step']} "
+          f"(want {want}), one rank {one_launches} (want {want_one}); "
+          f"{two['ms_per_step']:.1f} ms per step on "
+          f"the two ranks (host clock; gloo stages each all_reduce through the host, so this "
+          f"is no speed figure); the ranks' processes took {ranks_s:.1f}s; on {card}",
+          flush=True)
+    failed = []
+    if not ok or not dist_cross < dist_local:
+        failed.append(f"gradients: rule {ok}, cross-rank {dist_cross} vs per-rank {dist_local}")
+    if max(state_rel.values()) > STATE_REL_TOL or score_rel > SCORE_REL_TOL:
+        failed.append(f"state {max(state_rel.values())} or score {score_rel} off")
+    if two["launches_per_step"] != want or one_launches != want_one:
+        failed.append(f"launches {two['launches_per_step']} / {one_launches}, want {want} / "
+                      f"{want_one}")
+    if not two["host_staged"]:
+        failed.append("the ranks' mesh is not gloo on CUDA")
+    del model, plain, pw
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"grad_rel_err": rels, "grad_err_over_bf16_noise": ratios,
+            "grad_rel_err_per_rank_stats": rels_local, "median_rel_cross": dist_cross,
+            "median_rel_per_rank": dist_local, "state_rel": state_rel,
+            "score": two["score"], "score_one_rank": score_one,
+            "launches_per_step": two["launches_per_step"], "one_rank_launches": one_launches,
+            "ms_per_step": two["ms_per_step"], "ranks_s": ranks_s}
+
+
+# phase 11: SharedTrainingMaster on the zoo's LeNet
+MASTER_BATCH = 64
+MASTER_STEPS = 3
+MASTER_BUNDLE_K = 2
+MASTER_BUNDLE_BATCHES = 4
+MASTER_TIMED = 8
+
+
+def _plain_master_step(model, ds, residual, threshold, capacity):
+    """One shared-training step on one rank written out plainly: the
+    gradient, phase 2h's plain selection, the decode, the eager per-layer
+    ``Adam.apply``. -> (params, opt, residual, score); the model unchanged."""
+    from deeplearning4j_tpu_torch.nn.multilayer import apply_layer_updates
+
+    loss, _, grads = model._value_and_grad(*model._batch(ds))
+    flat = torch.cat([g.reshape(-1) for d in grads for _, g in sorted(d.items())])
+    (idx, val, _), new_res = plain_encode(residual + flat, threshold, capacity)
+    summed = plain_decode(idx[None], val[None], flat.numel())
+    synced, off = [], 0
+    for d in grads:
+        o = {}
+        for k in sorted(d):
+            o[k] = summed[off:off + d[k].numel()].view(d[k].shape)
+            off += d[k].numel()
+        synced.append(o)
+    params, opt = apply_layer_updates(model.layers, model.params_, synced,
+                                      model._ensure_opt_state(), model.iteration + 1,
+                                      model.iteration, model.epoch)
+    return params, opt, new_res, loss
+
+
+def master_phase(fu, card: str):
+    """Phase 11: SharedTrainingMaster on the zoo's LeNet (Adam(1e-3), batch
+    64, threshold 1e-3, capacity 16384 of 431k params: the message is full)
+    on phase 10's one-rank NCCL group, deterministic cuDNN."""
+    return _deterministic_cudnn(lambda: _master(fu, card))
+
+
+def _master(fu, card):
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import LeNet
+    from deeplearning4j_tpu_torch.nn.ops import launch
+    from deeplearning4j_tpu_torch.parallel import SharedTrainingMaster, zero
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    def lenet(k=1):
+        net = LeNet(num_classes=10, seed=SEED, updater=Adam(1e-3)).init()
+        net.conf.global_conf.steps_per_call = k
+        return net
+
+    def master(sharded=False):
+        return (SharedTrainingMaster.builder(ENCODE_THRESHOLD)
+                .update_capacity(ENCODE_CAPACITY).sharded_update(sharded).build())
+
+    rng = np.random.default_rng(SEED + 15)
+    batches = [DataSet(rng.standard_normal((MASTER_BATCH, 28, 28, 1)).astype(np.float32),
+                       np.eye(10, dtype=np.float32)[rng.integers(0, 10, MASTER_BATCH)])
+               for _ in range(MASTER_BUNDLE_BATCHES)]
+    failed = []
+
+    # (a) one step against the same step written out plainly
+    net = lenet()
+    n_params = net.num_params()
+    thr = torch.full((), ENCODE_THRESHOLD, dtype=torch.float32, device="cuda")
+    want = _plain_master_step(net, batches[0], torch.zeros(n_params, device="cuda"), thr,
+                              min(ENCODE_CAPACITY, n_params))
+    m = master()
+    m.fit(net, ExistingDataSetIterator(batches[:1]))
+    torch.cuda.synchronize()
+    got = (net.params_, net.opt_state_, m._residual, net.score_)
+    one_step = {"params": _tensors_equal(got[0], want[0]),
+                "updater": _tensors_equal(got[1], want[1]),
+                "residual": torch.equal(got[2], want[2]), "score": torch.equal(got[3], want[3])}
+    sent = int(min(ENCODE_CAPACITY, n_params))
+    print(f"phase 11 one step: SharedTrainingMaster on LeNet ({n_params:,} params, capacity "
+          f"{ENCODE_CAPACITY}, threshold {ENCODE_THRESHOLD}, Adam(1e-3), batch {MASTER_BATCH}, "
+          f"{m.mesh}) vs the step written out plainly (phase 2h's plain selection, decode, eager "
+          f"Adam.apply): torch.equal {one_step}", flush=True)
+    if not all(one_step.values()):
+        failed.append(f"one step differs from the plain step: {one_step}")
+
+    # (b) the main path: replicated and sharded masters, MASTER_STEPS steps;
+    # counts from 0 just before the sharded fit, read just after
+    nets, masters = [], []
+    for sharded in (False, True):
+        net, mm = lenet(), master(sharded)
+        if sharded:
+            launch.reset_launch_counts()
+        mm.fit(net, ExistingDataSetIterator(batches[:1] * MASTER_STEPS))
+        torch.cuda.synchronize()
+        nets.append(net)
+        masters.append(mm)
+    main_launches = dict(launch.launch_counts)
+    groups = sum(i is not None for i in fu.resolve_group_impls(zero.build_layout(nets[1], 1)))
+    equal = _states_equal(*nets)
+    equal["residual"] = torch.equal(masters[0]._residual, masters[1]._residual)
+    magnitude = masters[1].residual_magnitude()
+    print(f"phase 11 steps: {MASTER_STEPS} steps, replicated vs sharded_update(True) "
+          f"torch.equal {equal}; main-path launches (sharded) {main_launches} (want fused_adam "
+          f"{MASTER_STEPS} x G {groups}); residual_magnitude {magnitude:.6g}; scores "
+          f"{float(nets[0].score_):.6g} / {float(nets[1].score_):.6g}", flush=True)
+    if not all(equal.values()) or main_launches.get("fused_adam", 0) != MASTER_STEPS * groups \
+            or groups != 1 or not math.isfinite(magnitude):
+        failed.append(f"masters: equal {equal}, launches {main_launches}, G {groups}, "
+                      f"residual magnitude {magnitude}")
+
+    # (c) steps_per_call MASTER_BUNDLE_K against 1, sharded: params, slots,
+    # residual and scores bit for bit
+    single, bundled = lenet(), lenet(MASTER_BUNDLE_K)
+    ms, mb = master(True), master(True)
+    marks = []
+    for ds in batches:
+        ms.fit(single, ExistingDataSetIterator([ds]))
+        marks.append(float(single.score_))
+    seen = []
+    launch.reset_launch_counts()
+    mb.fit(bundled, RecordingIterator(batches, lambda i: seen.append(bundled.bundle_scores_)))
+    torch.cuda.synchronize()
+    captured = dict(mb._bstep.captured_launches)
+    scores = _bundle_scores(bundled, seen)
+    bundle_equal = _states_equal(single, bundled)
+    bundle_equal["residual"] = torch.equal(ms._residual, mb._residual)
+    print(f"phase 11 bundled: sharded master at steps_per_call={MASTER_BUNDLE_K}, "
+          f"{MASTER_BUNDLE_BATCHES} batches, vs the same master at 1 torch.equal "
+          f"{bundle_equal}, scores equal {scores == marks}; launches captured {captured}",
+          flush=True)
+    if not all(bundle_equal.values()) or scores != marks \
+            or captured != {"fused_adam": MASTER_BUNDLE_K * groups}:
+        failed.append(f"bundles differ: {bundle_equal}, scores {scores} vs {marks}, "
+                      f"captured {captured}")
+
+    # (d) ms per step, eager and bundled, in turns
+    timed = batches * (MASTER_TIMED // MASTER_BUNDLE_BATCHES)
+    speed = _in_turns([("eager", lambda: ms.fit(single, ExistingDataSetIterator(timed))),
+                       ("bundled", lambda: mb.fit(bundled, ExistingDataSetIterator(timed)))])
+    ms_per_step = {label: [t * 1e3 / len(timed) for t in r["s"]] for label, r in speed.items()}
+    fmt = lambda v: [round(x, 3) for x in v]  # noqa: E731
+    print(f"phase 11 speed (in turns: eager, bundled, bundled, eager; {len(timed)} steps a fit, "
+          f"host clock, synchronized): ms per step eager {fmt(ms_per_step['eager'])}, bundled "
+          f"(k {MASTER_BUNDLE_K}) {fmt(ms_per_step['bundled'])}; on {card}", flush=True)
+    del nets, masters, single, bundled, ms, mb
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"one_step_equal": one_step, "sharded_equal": equal, "main_launches": main_launches,
+            "launches_per_step": {"fused_adam": groups}, "fused_groups": groups,
+            "residual_magnitude": magnitude, "bundle_equal": bundle_equal,
+            "captured_launches": captured, "ms_per_step": ms_per_step, "params": n_params}
 
 
 def main() -> int:
@@ -3344,6 +3850,7 @@ def main() -> int:
     flash_bwd_rows, bwd_flash_summary = flash_bwd_phase(fa)
     summary.update(bwd_flash_summary)
     adam_rows, summary["fused_adam"] = adam_phase(fu)
+    encoder = encoder_phase()
     serve = serve_phase(fc, card)
     train = train_phase(fc, card)
     bundle = bundled_train_phase(fc, card, train)
@@ -3357,6 +3864,8 @@ def main() -> int:
     lm_train = lm_train_phase(fa, card)
     zero1 = zero1_phase(fc, fu, card, train)
     zero1_bundle = bundled_zero1_phase(fc, fu, card, zero1)
+    shared_card = shared_card_phase(card)
+    master = master_phase(fu, card)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -3402,6 +3911,7 @@ def main() -> int:
             entry_k["by_shape"] = s["by_shape"]
         elif name == "fused_adam":
             entry_k["launches_per_train_step"] = zero1["launches_per_step"].get(name, 0)
+            entry_k["launches_shared_training_master"] = master["main_launches"].get(name, 0)
             entry_k["elements"] = s["elements"]
             entry_k["vgg16"] = s["vgg16"]
         elif name == "int8_matmul":
@@ -3419,7 +3929,7 @@ def main() -> int:
         kernels.append(entry_k)
     import torch.distributed as dist
 
-    dist.destroy_process_group()  # phase 10's one-rank NCCL group
+    dist.destroy_process_group()  # phase 10's one-rank NCCL group (phases 10-11)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build_s": build_s,
@@ -3428,7 +3938,9 @@ def main() -> int:
                    "flash_bwd_cases": flash_bwd_rows, "adam_cases": adam_rows,
                    "summary": summary,
                    "serve": serve, "train": train, "train_bundled": bundle,
-                   "zero1_bundled": zero1_bundle, "vgg16": vgg, "generation": gen,
+                   "zero1_bundled": zero1_bundle, "encoder": encoder,
+                   "shared_card": shared_card, "shared_training_master": master,
+                   "vgg16": vgg, "generation": gen,
                    "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
                    "entry_points": entry, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,12 @@ BatchNormalization's normalize (+ReLU) into its input read. The per-channel
 fold coefficients are computed here in f32: in eval from the running
 statistics, in train from the convs' statistics (so the gradient of each BN
 reaches its conv through the ``stats`` cotangent) while the running
-statistics move by the EMA.
+statistics move by the EMA. Inside a data-parallel train step that spans
+several ranks (``nn/batch_stats.across_ranks``) each conv's (2, C)
+statistics are summed over the ranks first (one differentiable sum a conv,
+whose backward sums the statistics' cotangent, the kernels' ``dst``, over
+the ranks) and divided by the rows of all ranks: the global batch's, as
+the reference's one program takes them.
 
 Routing follows the reference: the differentiable kernel ops run for CUDA
 tensors in bf16 unless ``use_pallas is False`` (the option keeps the
@@ -25,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.nn import batch_stats
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import FeedForwardLayer
@@ -143,8 +149,11 @@ class FusedResNetBottleneck(FeedForwardLayer):
         new_state = {}
 
         def fold(tag, stats):
+            rows = m
+            if train:
+                (stats,), rows = batch_stats.global_sums([stats], m)
             s, t, (r_mean, r_var) = self._bn_fold(
-                stats, m, params[f"gamma_{tag}"], params[f"beta_{tag}"],
+                stats, rows, params[f"gamma_{tag}"], params[f"beta_{tag}"],
                 state[f"mean_{tag}"], state[f"var_{tag}"], train)
             new_state[f"mean_{tag}"], new_state[f"var_{tag}"] = r_mean, r_var
             return s, t

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch import activations as _act
+from deeplearning4j_tpu_torch.nn import batch_stats
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer
@@ -62,15 +63,25 @@ class BatchNormalization(Layer):
             raise ValueError("BatchNormalization needs its running-stat state")
         if train:
             dims = tuple(range(x.dim() - 1))
+            across = batch_stats.crosses_ranks()
+
+            def means(*ts):  # over the batch, or over the global batch of the ranks
+                if not across:
+                    return [t.mean(dims) for t in ts]
+                sums, rows = batch_stats.global_sums([t.sum(dims) for t in ts],
+                                                     x.numel() // x.shape[-1])
+                return [s / rows for s in sums]
+
             if x.dtype in (torch.bfloat16, torch.float16):
                 xf = x.float()
-                mean = xf.mean(dims)
-                var = (xf * xf).mean(dims) - mean * mean
+                mean, sq = means(xf, xf * xf)
+                var = sq - mean * mean
                 # jnp.maximum: gradient 0.5 at a tie
                 var = torch.maximum(var, torch.zeros_like(var))
             else:
-                mean = x.mean(dims)
-                var = x.var(dims, unbiased=False)
+                (mean,) = means(x)
+                var = (means((x - mean) ** 2)[0] if across
+                       else x.var(dims, unbiased=False))
             # the running statistics are state, not differentiated
             new_state = {
                 "mean": (self.decay * state["mean"] + (1 - self.decay) * mean).detach(),

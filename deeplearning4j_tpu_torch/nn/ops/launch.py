@@ -5,7 +5,8 @@ Each wrapper adds one to ``launch_counts[name]`` where it launches its
 kernel, and nowhere else, so a run can show that its main path went
 through the kernels: callers reset the counter to 0 around the work they
 want to attribute. Every kernel module of ``nn/ops`` counts into this
-counter.
+counter, and so do the batch-statistics collectives of
+``parallel/mesh.py``, under their own names.
 """
 
 from __future__ import annotations

@@ -38,11 +38,15 @@ builds the bundled step. The reference bundles only a
 ``MultiLayerNetwork``; here a ``ComputationGraph`` bundles too.
 
 Batch statistics: the reference's program takes a train-mode BN layer's
-statistics over the global batch; a rank here would take them over its own
-rows. So a network with batch statistics (``BatchNormalization``, the fused
-ResNet bottleneck) on more than one rank is refused
-(:class:`CrossRankBatchStatsError`) until cross-rank statistics come (ROADMAP
-§ A3). On one rank nothing changes.
+statistics over the global (padded) batch. Each step here runs its loss and
+gradient half inside the mesh's ``batch_stats`` context, where
+``BatchNormalization`` and the fused ResNet bottleneck sum their
+per-channel sums over the ranks (``parallel/mesh.py``); the padded rows
+enter them, as they enter the reference's. On one rank they take their own
+rows, with no collective.
+
+A mesh over gloo with CUDA tensors (two ranks sharing a card) takes the
+replicated update only: the sharded update and bundled steps refuse it.
 """
 
 from __future__ import annotations
@@ -62,10 +66,6 @@ from deeplearning4j_tpu_torch.data.iterators import (
 )
 from deeplearning4j_tpu_torch.parallel.mesh import TrainingMesh
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
-
-
-class CrossRankBatchStatsError(NotImplementedError):
-    """A network with train-mode batch statistics on more than one rank."""
 
 
 class ParallelWrapper:
@@ -151,15 +151,15 @@ class ParallelWrapper:
         m = self.model
         k = _pipeline.resolve_steps_per_call(m, requested=self.steps_per_call)
         m._check_trainable()
-        if self.mesh.n_data > 1:
-            stats = [type(layer).__name__ for layer in _layers(m) if _has_batch_stats(layer)]
-            if stats:
-                raise CrossRankBatchStatsError(
-                    f"{sorted(set(stats))} take batch statistics in train mode; on "
-                    f"{self.mesh.n_data} ranks each would see only its own rows, "
-                    "where the reference takes the global batch's. Cross-rank "
-                    "batch statistics are not ported yet (ROADMAP § A3)")
+        if k > 1:
+            self.mesh.refuse_host_staged("a bundled step", "a collective a CUDA graph captures")
         return k
+
+    def _value_and_grad(self, batch):
+        """The loss and gradient half of a step on this rank's rows, with
+        the batch statistics of the global batch."""
+        with self.mesh.batch_stats():
+            return self.model._value_and_grad(*batch)
 
     def fit(self, it: DataSetIterator, epochs: int = 1) -> None:
         """Data-parallel fit over ``it`` (every rank iterates the same
@@ -198,8 +198,7 @@ class ParallelWrapper:
                 m.params_, zref[0], m.state_, m.score_ = self._zstep(zref[0], batch)
                 m.iteration += 1
             else:
-                loss, new_state, grads = m._value_and_grad(*batch)
-                m._apply_step(*_mean_over_ranks(mesh, loss, new_state, grads))
+                m._apply_step(*_mean_over_ranks(mesh, *self._value_and_grad(batch)))
 
         finished = False
         try:
@@ -248,7 +247,7 @@ class ParallelWrapper:
             else:
                 self._bstep = _pipeline.BundledStep(
                     m, k, lambda batch: m._apply_step(
-                        *_mean_over_ranks(mesh, *m._value_and_grad(*batch))))
+                        *_mean_over_ranks(mesh, *self._value_and_grad(batch))))
             self._bstep_key = key
         return self._bstep
 
@@ -309,19 +308,6 @@ class ParallelWrapper:
 
     def shutdown(self):  # API parity; nothing to tear down
         pass
-
-
-def _layers(model):
-    if hasattr(model.conf, "network_inputs"):
-        return [model._layer(n) for n in model.layer_names]
-    return model.layers
-
-
-def _has_batch_stats(layer) -> bool:
-    from deeplearning4j_tpu_torch.nn.conf.layers.fused_block import FusedResNetBottleneck
-    from deeplearning4j_tpu_torch.nn.conf.layers.norm import BatchNormalization
-
-    return isinstance(layer, (BatchNormalization, FusedResNetBottleneck))
 
 
 def _block(b: int, n: int, r: int):

@@ -179,7 +179,7 @@ class ShardedUpdateLayout:
 def apply_sharded_updates(layout: ShardedUpdateLayout, params: Sequence[Tensors],
                           grads: Sequence[Tensors], zopt: Sequence[Tensors],
                           t, iteration, epoch, mesh=None,
-                          fused_impls: Optional[Sequence] = None
+                          fused_impls: Optional[Sequence] = None, reduced: bool = False
                           ) -> Tuple[List[Tensors], List[Tensors]]:
     """The sharded analog of ``apply_layer_updates``: per-layer gradient
     normalization -> l1/l2/weight-decay -> flat sharded updater.
@@ -193,18 +193,21 @@ def apply_sharded_updates(layout: ShardedUpdateLayout, params: Sequence[Tensors]
     all-gathered, so every rank returns the same params. ``fused_impls``
     (from ``nn.ops.fused_update.resolve_group_impls``, one per group, None:
     the reference) replaces ``updater.apply`` and the subtraction with the
-    one-pass fused update, bit-exact against it. Inputs are not changed."""
+    one-pass fused update, bit-exact against it. ``reduced``: ``grads`` is
+    already the global gradient, the same on every rank (the shared-training
+    master's decoded update), so each rank takes its chunk of it without a
+    reduction. Inputs are not changed."""
     layers = layout.layers
     split = mesh is not None
     # gradient normalization is not linear: with several ranks it needs the
     # global gradient, so reduce first and take the chunk of the result
-    reduce_first = split and mesh.n_data > 1 and any(
+    reduce_first = split and not reduced and mesh.n_data > 1 and any(
         _normalizes(layer) for layer, skip in zip(layers, layout.skip) if not skip)
     if reduce_first:
         keys = [(i, k) for i, skip in enumerate(layout.skip) if not skip for k in grads[i]]
-        reduced = mesh.all_reduce_mean([grads[i][k] for i, k in keys])
+        means = mesh.all_reduce_mean([grads[i][k] for i, k in keys])
         grads = [dict(g) for g in grads]
-        for (i, k), g in zip(keys, reduced):
+        for (i, k), g in zip(keys, means):
             grads[i][k] = g
     adjusted: List[Optional[Tensors]] = []
     for i, layer in enumerate(layers):
@@ -230,7 +233,7 @@ def apply_sharded_updates(layout: ShardedUpdateLayout, params: Sequence[Tensors]
         if split:
             r = mesh.rank
             p2d = p2d[r:r + 1]
-            g2d = g2d[r:r + 1] if reduce_first else mesh.reduce_scatter_mean(g2d)
+            g2d = g2d[r:r + 1] if reduce_first or reduced else mesh.reduce_scatter_mean(g2d)
         impl = fused_impls[gi] if fused_impls is not None else None
         if impl is not None:
             np2d, new_state = impl(grp.updater, p2d, g2d, state, t, iteration, epoch)
@@ -292,8 +295,9 @@ def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
     the model: the gradients of the local rows, the global mean loss
     (``all_reduce``), :func:`apply_sharded_updates` with ``t = iteration +
     1``, the score being the loss plus the regularization score before the
-    update. The fused Adam kernel takes the f32 Adam groups (resolved once
-    here).
+    update. The loss and gradients take the batch statistics of the global
+    batch (the mesh's ``batch_stats``). The fused Adam kernel takes the f32
+    Adam groups (resolved once here).
 
     With ``steps_per_call`` k > 1 the step is the bundled variant
     (:class:`BundledShardedStep`): ``step(zopt, stacked)`` takes k such steps
@@ -306,13 +310,15 @@ def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
         raise NotImplementedError(f"sharded step with {', '.join(refused)}: {NOT_PORTED}")
     from deeplearning4j_tpu_torch.nn.ops import fused_update as _fused_update
 
+    mesh.refuse_host_staged("the sharded update", "reduce_scatter and all_gather")
     model._check_trainable()
     names, layers, params = _model_layer_view(model)
     layout = ShardedUpdateLayout(layers, params, mesh.n_data)
     fused_impls = _fused_update.resolve_group_impls(layout)
 
     def step(zopt, batch):
-        loss, new_state, grads = model._value_and_grad(*batch)
+        with mesh.batch_stats():
+            loss, new_state, grads = model._value_and_grad(*batch)
         (loss,) = mesh.all_reduce_mean([loss])
         _, _, p_list = _model_layer_view(model)
         g_list = grads if names is None else [grads[n] for n in names]

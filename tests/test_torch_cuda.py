@@ -2096,3 +2096,91 @@ def test_narrow_graph_bundle_on_the_card_equals_its_single_steps(card):
         assert bundled.iteration == 6
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+
+
+@pytest.mark.parametrize("n,capacity", [(1000, 64), (777, 777), (4097, 300), (25_557_032, 16384)])
+def test_threshold_encode_on_the_card_is_the_cpus_bit_for_bit(card, n, capacity):
+    """``parallel/compression.py`` on CUDA tensors: the message (indices,
+    values, count), the residual and the decodes equal the CPU's on the same
+    input bit for bit (the CPU's are held to JAX's by
+    ``tests/test_torch_compression.py``), with exact ties at the threshold
+    and at the capacity's cut; two runs agree."""
+    from deeplearning4j_tpu_torch.parallel import compression as pc
+
+    g = torch.Generator().manual_seed(n)
+    grad = torch.randn(n, generator=g) * 1e-3
+    grad[: n // 4] = torch.tensor([1e-3, -1e-3, 2e-3, -2e-3, 0.0])[
+        torch.randint(0, 5, (n // 4,), generator=g)]
+    cpu_msg, cpu_res = pc.threshold_encode(grad, 1e-3, capacity)
+    runs = [pc.threshold_encode(grad.to(card), 1e-3, capacity) for _ in range(2)]
+    for msg, res in runs:
+        for a, b in zip(msg, cpu_msg):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(res.cpu(), cpu_res)
+        assert torch.equal(pc.threshold_decode(msg, n).cpu(), pc.threshold_decode(cpu_msg, n))
+    packed, res = pc.bitmap_encode(grad.to(card), 1e-3)
+    cpu_packed, cpu_res = pc.bitmap_encode(grad, 1e-3)
+    assert torch.equal(packed.cpu(), cpu_packed) and torch.equal(res.cpu(), cpu_res)
+    assert torch.equal(pc.bitmap_decode(packed, 1e-3, n).cpu(),
+                       pc.bitmap_decode(cpu_packed, 1e-3, n))
+
+
+GLOO_ON_CUDA = r"""
+import os, sys, tempfile
+import numpy as np, torch, torch.distributed as dist
+from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.conf import layers as L
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.parallel import ParallelWrapper, SharedTrainingMaster, TrainingMesh
+from deeplearning4j_tpu_torch.parallel.mesh import MeshInitError
+from deeplearning4j_tpu_torch.parallel.zero import make_sharded_train_step
+from deeplearning4j_tpu_torch.updaters import Adam
+
+store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "store"), 1)
+dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+mesh = TrainingMesh(1, device="cuda")
+assert mesh.host_staged
+
+def net(steps=1, bn=False):
+    b = NeuralNetConfiguration.builder().seed(3).updater(Adam(1e-2))
+    if steps > 1:
+        b = b.steps_per_call(steps)
+    b = b.list().layer(L.DenseLayer(n_out=16, activation="tanh"))
+    if bn:
+        b = b.layer(L.BatchNormalization())
+    return MultiLayerNetwork(b.layer(L.OutputLayer(n_out=3, activation="softmax"))
+                             .set_input_type(InputType.feed_forward(8)).build()).init()
+
+rng = np.random.default_rng(0)
+ds = DataSet(rng.standard_normal((16, 8)).astype(np.float32),
+             np.eye(3, dtype=np.float32)[rng.integers(0, 3, 16)])
+refused = []
+for what, fn in [
+        ("make_sharded_train_step", lambda: make_sharded_train_step(net(), mesh)),
+        ("sharded wrapper", lambda: ParallelWrapper(net(), mesh=mesh, sharded_update=True)
+         .fit(ExistingDataSetIterator([ds]))),
+        ("bundled wrapper", lambda: ParallelWrapper(net(2), mesh=mesh)
+         .fit(ExistingDataSetIterator([ds, ds]))),
+        ("master", lambda: SharedTrainingMaster(mesh=mesh).fit(net(), ExistingDataSetIterator([ds])))]:
+    try:
+        fn()
+    except MeshInitError as e:
+        assert "gloo" in str(e), e
+        refused.append(what)
+m = net(bn=True)
+ParallelWrapper(m, mesh=mesh).fit(ExistingDataSetIterator([ds]), epochs=2)
+assert m.iteration == 2 and np.isfinite(m.params_flat()).all()
+print("refused", len(refused), refused)
+"""
+
+
+def test_gloo_on_cuda_takes_only_the_replicated_update(card):
+    """A one-rank gloo group on CUDA tensors (what two ranks sharing a card
+    use): the replicated wrapper trains a BN network; the sharded step, the
+    sharded and bundled wrappers and the master refuse with MeshInitError
+    naming gloo. A subprocess: this one may hold another default group."""
+    res = subprocess.run([sys.executable, "-c", GLOO_ON_CUDA], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "refused 4" in res.stdout, res.stdout

@@ -15,9 +15,16 @@ package, on the CPU.
   (``tests/test_torch_parallel_ranks.py``), held against the JAX package's
   ``ParallelWrapper`` with as many workers on the virtual CPU mesh; and
   bundled steps (``steps_per_call`` 2), replicated and ZeRO-1, against the
-  same ranks at 1 (bit for bit) and the JAX wrapper's bundled fit. Each
-  world size spawns once per session; the xdist workers share the result
-  through a file lock.
+  same ranks at 1 (bit for bit) and the JAX wrapper's bundled fit. The same
+  runs train networks with batch statistics (a ``BatchNormalization``
+  network, two narrow fused bottlenecks; f32 and bf16; ragged and bundled)
+  with the global batch's statistics, and the BN network once with each
+  rank's own (farther from JAX than the tolerance); and
+  ``SharedTrainingMaster`` against JAX's master on as many virtual devices
+  (messages index for index where the selection has a margin, params and
+  slots, bundled, mid-fit checkpoint, refusals, and JAX's convergence and
+  direction tests). Each world size spawns once per session; the xdist
+  workers share the result through a file lock.
 
 Tolerances (float32 params, Adam slots and scores): PARITY_TOL (1e-5,
 absolute). JAX averages the gradient inside one program; the ranks here
@@ -56,7 +63,9 @@ from deeplearning4j_tpu.data.iterators import ListDataSetIterator as JList
 from deeplearning4j_tpu.nn.conf import layers as jlayers
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JNet
 from deeplearning4j_tpu.parallel import ParallelWrapper as JWrapper
+from deeplearning4j_tpu.parallel import SharedTrainingMaster as JMaster
 from deeplearning4j_tpu.parallel import zero as jzero
+from deeplearning4j_tpu.parallel.mesh import TrainingMesh as JMesh
 from deeplearning4j_tpu_torch import interop
 from deeplearning4j_tpu_torch import updaters as tupd
 from deeplearning4j_tpu_torch.data import DataSet as TDataSet
@@ -70,6 +79,10 @@ from deeplearning4j_tpu_torch.parallel.mesh import MeshInitError
 
 PARITY_TOL = 1e-5
 BF16_TOL = 1e-3
+NOISE_FACTOR = 2.0
+#: the shared-training cases' selection margin: no |work| within it of the
+#: threshold or of the capacity's cut
+SELECTION_MARGIN = 1e-5
 SPAWN_TIMEOUT_S = 240
 
 JAX = (jconf, jlayers, jupd)
@@ -198,6 +211,32 @@ def test_one_rank_wrapper_equals_fit_replicated_and_sharded():
     assert nets[2]._opt_state_sync is None
 
 
+def test_one_rank_wrapper_takes_batch_statistics_without_collectives():
+    """On one rank the rows are the global batch: the BN network through the
+    replicated and the sharded wrapper equals ``fit`` bit for bit, running
+    statistics included, and no batch-statistics collective runs."""
+    from deeplearning4j_tpu_torch.nn.ops import launch
+    from deeplearning4j_tpu_torch.parallel import mesh
+
+    jnet = jax_net(bn=True)
+    nets = [port_net(jnet, bn=True) for _ in range(3)]
+    x, y = ranks.blobs()
+    for _ in range(3):
+        nets[0].fit(TDataSet(x, y))
+    launch.reset_launch_counts()
+    ParallelWrapper.builder(nets[1]).workers(1).build().fit(
+        TExisting([TDataSet(x, y)]), epochs=3)
+    ParallelWrapper.builder(nets[2]).workers(1).sharded_update(True).build().fit(
+        TExisting([TDataSet(x, y)]), epochs=3)
+    assert not {mesh.STATS_FORWARD, mesh.STATS_BACKWARD} & {
+        k for k, n in launch.launch_counts.items() if n}
+    for other in nets[1:]:
+        np.testing.assert_array_equal(other.params_flat(), nets[0].params_flat())
+        np.testing.assert_array_equal(other.opt_state_flat(), nets[0].opt_state_flat())
+        np.testing.assert_array_equal(ranks.state_flat(other), ranks.state_flat(nets[0]))
+        assert other.score() == nets[0].score()
+
+
 def test_graph_fit_ignores_the_sharded_update_knob():
     """``ComputationGraph.fit`` trains a configuration that sets
     ``sharded_update`` as one without it (the reference's ``fit`` never
@@ -285,10 +324,13 @@ def rank_runs(tmp_path_factory):
                 fcntl.flock(lock, fcntl.LOCK_EX)
                 out = root / "out.npz"
                 if not out.exists():
-                    jnet = jax_net()
-                    np.savez(root / "init.npz", **{f"p{i}/{k}": np.asarray(v)
-                                                   for i, p in enumerate(jnet.params_)
-                                                   for k, v in p.items()})
+                    init = {}
+                    for a, opts in ranks.ARCHS.items():
+                        jnet = jax_net(**opts)
+                        for tag, tree in (("p", jnet.params_), ("s", jnet.state_)):
+                            init.update({f"{a}/{tag}{i}/{k}": np.asarray(v)
+                                         for i, d in enumerate(tree) for k, v in d.items()})
+                    np.savez(root / "init.npz", **init)
                     _spawn(world, str(root))
                 cache[world] = dict(np.load(out))
         return cache[world]
@@ -298,22 +340,34 @@ def rank_runs(tmp_path_factory):
 
 def jax_fit(world, sharded, epochs, it=None, **opts):
     net = jax_net(**opts)
-    ds = JDataSet(*ranks.blobs())
+    ds = JDataSet(*ranks.batch_for(opts, world))
     pw = JWrapper.builder(net).workers(world).sharded_update(sharded).build()
     pw.fit(it if it is not None else JExisting([ds]), epochs=epochs)
     return net, pw
 
 
+def jax_state_flat(jnet) -> np.ndarray:
+    """The JAX network's layer state in ``ranks.state_flat``'s order."""
+    chunks = [np.asarray(d[k], np.float32).reshape(-1) for d in jnet.state_ for k in sorted(d)]
+    return np.concatenate(chunks) if chunks else np.zeros((0,), np.float32)
+
+
 def assert_close(out, key, jnet, tol=PARITY_TOL):
+    """Params, updater state and layer state (BN running statistics)."""
     np.testing.assert_allclose(out[f"{key}/params"], jnet.params_flat(), rtol=0, atol=tol)
     np.testing.assert_allclose(out[f"{key}/opt"], jnet.opt_state_flat(), rtol=0, atol=tol)
+    np.testing.assert_allclose(out[f"{key}/state"], jax_state_flat(jnet), rtol=0, atol=tol)
     assert int(out[f"{key}/iteration"]) == jnet.iteration
 
 
 WORLDS = [2, 4]
 
 
-@pytest.mark.parametrize("case", sorted(ranks.VARIANTS))
+#: bf16 compute with batch statistics: after Adam's steps, noise (below)
+NOISY = ("bn_bf16", "fused_bf16")
+
+
+@pytest.mark.parametrize("case", sorted(c for c in ranks.VARIANTS if c not in NOISY))
 @pytest.mark.parametrize("world", WORLDS)
 def test_ranks_track_jax_replicated_and_sharded(rank_runs, world, case):
     out = rank_runs(world)
@@ -370,11 +424,6 @@ def test_ranks_ragged_last_batch(rank_runs, world):
         assert_close(out, f"ragged/{'sharded' if sharded else 'repl'}", ref)
 
 
-@pytest.mark.parametrize("world", WORLDS)
-def test_ranks_refuse_batch_statistics(rank_runs, world):
-    assert bool(rank_runs(world)["bn/refused"])
-
-
 @pytest.mark.parametrize("sharded", [False, True])
 @pytest.mark.parametrize("world", WORLDS)
 def test_ranks_bundled_steps_equal_single_steps_and_track_jax(rank_runs, world, sharded):
@@ -408,3 +457,241 @@ def test_ranks_skip_bundling_when_always_padding(rank_runs, world):
     ref, jpw = jax_fit(world, False, 1, it=data, steps=2)
     assert jpw._bstep is None
     assert_close(out, "padding/k2", ref)
+
+
+# ----------------------------------------------------- batch statistics
+def _max_err(out, key, jnet) -> dict:
+    return {"params": np.abs(out[f"{key}/params"] - jnet.params_flat()).max(),
+            "opt": np.abs(out[f"{key}/opt"] - jnet.opt_state_flat()).max(),
+            "state": np.abs(out[f"{key}/state"] - jax_state_flat(jnet)).max()}
+
+
+@pytest.mark.parametrize("case", NOISY)
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_bf16_batch_statistics_track_jax(rank_runs, world, case):
+    """bf16 compute with BatchNormalization or the fused bottleneck, on 2
+    and 4 ranks, replicated and sharded, against JAX's wrapper with as
+    many workers.
+
+    After the first step the BN running statistics and the score, which
+    come from the first forward, are held at BF16_TOL (measured: 2.6e-5 and
+    6e-8 from JAX's; a rank's own rows move them by ~1e-2). So is the
+    backward through the cross-rank sums: after one step from zero slots
+    Adam's m is 0.1 g and v 0.001 g², so the slots carry the mean gradient.
+    The ranks' slots are within BF16_TOL of the port's one-process step on
+    the global batch (measured at 2 ranks: 1.5e-4 BN, 2.2e-4 fused; with
+    the backward's sum left out 1.2e-2 and 3.2e-2), and no farther from
+    JAX's wrapper than that one-process step is from JAX's one-device
+    step (which equals JAX's wrapper's), give or take BF16_TOL (the fused
+    net's bf16 gradient is 1.1e-2 from JAX's in one process already).
+
+    After three Adam(0.01) steps the params are bf16 noise in both
+    packages: Adam moves a param by ~lr whatever the size of its gradient,
+    so a gradient that bf16 rounding flips moves it by 2 lr. JAX's own
+    2-worker fit of the fused network is 0.059 from its one-device fit
+    (the order of the statistics' sums changes bf16 roundings), the port's
+    one-process fit 0.059 from JAX's. So the three-step params, slots and
+    statistics are held to NOISE_FACTOR times the larger of those two
+    distances, as ``tests/test_torch_train.py`` holds bf16 gradients."""
+    out = rank_runs(world)
+    opts = ranks.VARIANTS[case]
+    x, y = ranks.batch_for(opts, world)
+    step1_device = jax_net(**opts)
+    step1_device.fit(JDataSet(x, y), epochs=1, batch_size=len(x))
+    step1_process = port_net(jax_net(**opts), **opts)
+    step1_process.fit(TDataSet(x, y), epochs=1, batch_size=len(x))
+    step1_noise = np.abs(step1_process.opt_state_flat() - step1_device.opt_state_flat()).max()
+    one_device = jax_net(**opts)
+    one_device.fit(JDataSet(x, y), epochs=3, batch_size=len(x))
+    one_process = port_net(jax_net(**opts), **opts)
+    one_process.fit(TDataSet(x, y), epochs=3, batch_size=len(x))
+    for sharded in (False, True):
+        key = f"{case}/{'sharded' if sharded else 'repl'}"
+        first, _ = jax_fit(world, sharded, 1, **opts)
+        np.testing.assert_allclose(out[f"{key}/step1/state"], jax_state_flat(first),
+                                   rtol=0, atol=BF16_TOL)
+        assert abs(float(out[f"{key}/step1/score"]) - float(first.score())) <= BF16_TOL
+        np.testing.assert_allclose(out[f"{key}/step1/opt"], step1_process.opt_state_flat(),
+                                   rtol=0, atol=BF16_TOL)
+        to_jax = np.abs(out[f"{key}/step1/opt"] - first.opt_state_flat()).max()
+        assert to_jax <= step1_noise + BF16_TOL, (key, to_jax, step1_noise)
+        ref, _ = jax_fit(world, sharded, 3, **opts)
+        noise = {"params": max(np.abs(ref.params_flat() - one_device.params_flat()).max(),
+                               np.abs(one_process.params_flat()
+                                      - one_device.params_flat()).max()),
+                 "opt": max(np.abs(ref.opt_state_flat() - one_device.opt_state_flat()).max(),
+                            np.abs(one_process.opt_state_flat()
+                                   - one_device.opt_state_flat()).max()),
+                 "state": max(np.abs(jax_state_flat(ref) - jax_state_flat(one_device)).max(),
+                              np.abs(ranks.state_flat(one_process)
+                                     - jax_state_flat(one_device)).max())}
+        for what, err in _max_err(out, key, ref).items():
+            assert err <= NOISE_FACTOR * noise[what] + BF16_TOL, (key, what, err, noise[what])
+        assert int(out[f"{key}/iteration"]) == ref.iteration == 3
+    np.testing.assert_allclose(out[f"{case}/sharded/params"], out[f"{case}/repl/params"],
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_per_rank_statistics_miss_jax(rank_runs, world):
+    """Non-vacuity: the f32 BN network trained with each rank's own
+    statistics (the batch-statistics context left out) is farther from
+    JAX's wrapper than PARITY_TOL, in params and running statistics, where
+    the cross-rank run is within it (``test_ranks_track_jax_replicated_and_sharded``)."""
+    out = rank_runs(world)
+    ref, _ = jax_fit(world, False, 3, bn=True)
+    err = _max_err(out, "bn_f32/per_rank", ref)
+    assert err["params"] > 10 * PARITY_TOL and err["state"] > 10 * PARITY_TOL, err
+    assert_close(out, "bn_f32/repl", ref)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_ragged_last_batch_enters_the_batch_statistics(rank_runs, world):
+    """The BN network over 29 rows in batches of 8: the last batch is padded
+    to the rank count with cycled real rows whose loss weight is 0, and
+    those rows enter the batch statistics, as in JAX's wrapper."""
+    out = rank_runs(world)
+    x, y = ranks.blobs(29, seed=4)
+    for sharded in (False, True):
+        ref, _ = jax_fit(world, sharded, 2, it=JList(JDataSet(x, y), 8), bn=True)
+        assert_close(out, f"ragged_bn/{'sharded' if sharded else 'repl'}", ref)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_bundled_batch_statistics_equal_single_steps(rank_runs, world, sharded):
+    """The BN network at ``steps_per_call`` 2 over five batches of 8, two
+    epochs: bit-equal to the same ranks at 1 (params, slots, running
+    statistics, score), and within PARITY_TOL of JAX's bundled wrapper."""
+    out = rank_runs(world)
+    key = f"bundle_bn/{'sharded' if sharded else 'repl'}"
+    for what in ("params", "opt", "state", "score", "iteration"):
+        np.testing.assert_array_equal(out[f"{key}/k2/{what}"], out[f"{key}/k1/{what}"])
+    data = JExisting([JDataSet(x, y) for x, y in ranks.bundle_batches()])
+    ref, _ = jax_fit(world, sharded, 2, it=data, steps=2, bn=True)
+    assert_close(out, f"{key}/k2", ref)
+
+
+# ----------------------------------------------------- shared training
+def jax_master(world, sharded=False, threshold=ranks.SHARED_THRESHOLD, **opts):
+    return (JMaster.builder(threshold).mesh(JMesh(data=world, devices=jax.devices()[:world]))
+            .sharded_update(sharded).build())
+
+
+def _selection_margin(work, threshold, capacity) -> float:
+    """How far every |work| of one rank lies from the threshold and, when
+    more elements qualify than the message holds, from the capacity's cut."""
+    mag = np.abs(work.astype(np.float64))
+    gap = np.abs(mag - threshold).min()
+    over = np.sort(mag[mag >= threshold])[::-1]
+    if over.size > capacity:
+        gap = min(gap, over[capacity - 1] - over[capacity])
+    return float(gap)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("world", WORLDS)
+def test_shared_master_tracks_jax(rank_runs, world, sharded):
+    """``SharedTrainingMaster`` at threshold 1e-5 on ``TestSharedMasterSharded``'s
+    network, one epoch of 32 rows a fit, three fits, against JAX's master on
+    as many virtual devices. JAX's message is not observable, its residual
+    is: an element it sent moved its residual by the threshold, so at each
+    step the ranks' work vectors (within ~1e-9 of JAX's) tell which
+    elements JAX sent, and JAX's work is its residual plus what it sent.
+    Selection is discontinuous, so each step first asserts the margin: no
+    |work| of JAX's within SELECTION_MARGIN of the threshold or of the
+    capacity's cut. Then every rank's message holds exactly the elements
+    JAX sent, and params, slots, score, residual and
+    ``residual_magnitude()`` are within PARITY_TOL."""
+    out = rank_runs(world)
+    key = f"shared/{'sharded' if sharded else 'repl'}"
+    thr = ranks.SHARED_THRESHOLD
+    capacity = int(out[f"{key}/capacity"])
+    net = jax_net()
+    master = jax_master(world, sharded)
+    ds = JDataSet(*ranks.blobs())
+    for step in range(ranks.SHARED_STEPS):
+        master.fit(net, JExisting([ds]), epochs=1)
+        residual = np.asarray(master._residual)
+        work = out[f"{key}/work{step}"]
+        sent = np.abs(work - residual) > thr / 2
+        jax_work = residual + thr * np.sign(work - residual) * sent
+        for r in range(world):
+            assert _selection_margin(jax_work[r], thr, capacity) > SELECTION_MARGIN, (step, r)
+            idx = out[f"{key}/indices{step}"][r]
+            assert sorted(idx[idx >= 0].tolist()) == np.flatnonzero(sent[r]).tolist(), (step, r)
+            assert int(out[f"{key}/count{step}"][r][0]) == int(sent[r].sum())
+        np.testing.assert_allclose(out[f"{key}/residual{step}"], residual, rtol=0,
+                                   atol=PARITY_TOL)
+    assert_close(out, key, net)
+    assert abs(float(out[f"{key}/score"]) - float(net.score_)) <= PARITY_TOL
+    assert abs(float(out[f"{key}/residual_magnitude"])
+               - master.residual_magnitude()) <= PARITY_TOL * 1e-2
+    assert (master._layout is not None) == sharded
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_shared_master_config_knob_enables_sharding(rank_runs, world):
+    out = rank_runs(world)
+    assert bool(out["shared/knob/on"])
+    net = jax_net(sharded_knob=True)
+    master = jax_master(world)
+    master.fit(net, JExisting([JDataSet(*ranks.blobs())]), epochs=1)
+    assert master._layout is not None
+    assert_close(out, "shared/knob", net)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("world", WORLDS)
+def test_shared_master_bundled_steps_equal_single_steps(rank_runs, world, sharded):
+    """``steps_per_call`` 2 over five batches of 8 (two bundles and a single
+    step an epoch), two epochs: params, slots, score and every rank's
+    residual bit-equal to the same master at 1."""
+    out = rank_runs(world)
+    key = f"shared/bundle/{'sharded' if sharded else 'repl'}"
+    for what in ("params", "opt", "score", "iteration", "residual"):
+        np.testing.assert_array_equal(out[f"{key}/k2/{what}"], out[f"{key}/k1/{what}"])
+    assert int(out[f"{key}/k2/iteration"]) == 10
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_shared_master_midfit_checkpoint_gathers_opt_state(rank_runs, world):
+    """A zip written in the middle of a sharded master's fit (at iteration
+    2) holds the gathered updater state of that iteration: JAX's master
+    after two steps."""
+    out = rank_runs(world)
+    assert bool(out["shared/midfit/hook_cleared"])
+    net = jax_net()
+    master = jax_master(world, True)
+    master.fit(net, JExisting([JDataSet(*ranks.blobs())] * 2), epochs=1)
+    assert_close(out, "shared/midfit", net)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_shared_master_refusals(rank_runs, world):
+    """A model with layer state, a second model and a batch that does not
+    divide by the ranks raise ``ValueError``, as JAX's master does."""
+    out = rank_runs(world)
+    for what in ("stateful", "second_model", "indivisible"):
+        assert bool(out[f"shared/refuses/{what}"]), what
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_shared_master_converges(rank_runs, world):
+    """``tests/test_parity_tail.py::TestSharedTrainingMaster::test_compressed_dp_converges``
+    on the ranks: the last of 60 scores is below half the first."""
+    out = rank_runs(world)
+    scores = out["shared/converge/scores"]
+    assert scores[-1] < 0.5 * scores[0], (scores[0], scores[-1])
+    assert np.isfinite(float(out["shared/converge/residual_magnitude"]))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_shared_master_tracks_exact_dp_direction(rank_runs, world):
+    """``::test_compressed_updates_track_exact_dp_direction`` on the ranks:
+    after 20 fits the master's accumulated update has a cosine above 0.7
+    with the port's replicated wrapper's."""
+    out = rank_runs(world)
+    d_exact, d_comp = out["shared/direction/exact"], out["shared/direction/compressed"]
+    cos = float(d_exact @ d_comp / (np.linalg.norm(d_exact) * np.linalg.norm(d_comp) + 1e-12))
+    assert cos > 0.7, cos
