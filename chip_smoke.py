@@ -84,7 +84,32 @@ gradient under phase 4's rule, the BN running statistics, the score, and the
 same ranks with per-rank statistics farther from it. Phase 11 trains the
 zoo's LeNet through ``SharedTrainingMaster``: one step against the step
 written out plainly, replicated against sharded (one fused Adam a step),
-bundled against single steps, bit for bit, and ms a step. Each phase prints one or more lines;
+bundled against single steps, bit for bit, and ms a step. Phase 12 guards
+phase 10's ResNet-50 with a fault policy: (a) the guarded step's gradients
+(loss scaled by 2^15, unscaled) against the unguarded step's by phase 4's
+rule, the device time of the verdict, the unscale and the selects, and
+five guarded fit steps with phase 4's launches; (b) the skip guard alone
+with NaN injected at step 2 of 5, ``torch.equal`` to a guarded run on the
+other four batches, and the guard without faults against an unguarded run;
+(b') the same with loss scaling, the scale halved after the poisoned step,
+phase 4's rule on the params' displacement against the run without it;
+(c) both at ``steps_per_call=5`` with the poison inside the one bundle,
+bit-equal to their eager runs with the same fault state; (d) each fused
+conv kernel on operands whose sums overflow (non-finite exactly where its
+plain version is), and a fit from a loss scale whose step overflows: the
+skipped steps keep the params and halve the scale until a step is finite;
+(e) the guarded ZeRO-1 wrapper: the poisoned step keeps p, m and v, one
+``fused_adam`` a group, k 2 == k 1; (f) the guarded master on LeNet keeps
+params and residual; (g) images/s guarded against unguarded, eager and
+bundled, in turns. Phase 13 serves phase 3's ResNet-50 through
+``ParallelInference`` (``sequential`` and ``inplace`` with 3 replicas
+``np.array_equal`` to ``model.output`` under 8 concurrent callers,
+``batched`` by phase 3's rule with its dispatches counted), through an
+``InferenceEngine`` over ``["cuda:0", "cuda:0"]`` (twice phase 3's conv
+launches a bucket-32 dispatch, phase 3's rule against one device), runs
+``cli serve --workers 1 --smoke`` and ``--workers`` one more than the cards
+(the typed refusal), and times requests/s batched against sequential.
+Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
 prints them), and
@@ -98,6 +123,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import gc
 import json
 import math
 import os
@@ -215,9 +241,14 @@ def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+    gc.collect()
+    gc.disable()  # an older graph collected inside the capture would end it
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    finally:
+        gc.enable()
     graph.replay()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3817,6 +3848,584 @@ def _master(fu, card):
             "captured_launches": captured, "ms_per_step": ms_per_step, "params": n_params}
 
 
+# phase 12: the fault policy on phase 10's ResNet-50 (Adam(ADAM_LR)), seeded
+# batches of BATCH, deterministic cuDNN
+GUARD_BATCHES = 5             # the poisoned fits' batches
+GUARD_POISON = 2              # the step whose gradients are injected NaN
+GUARD_K = 5                   # (c): the poisoned fit in one bundle
+GUARD_TIMED_K = 4             # (g): bundled fits at steps_per_call 4 ...
+GUARD_TIMED = 8               # ... of 8 batches, eager and bundled
+GUARD_OVERFLOW_FROM = 96      # (d): the loss scales probed, 2^k for k from here
+GUARD_OVERFLOW_STEPS = 5      # (d): fit steps from twice the first overflowing scale
+
+
+def _displacement(model, p0) -> dict:
+    """{name: param - its value in p0} over a graph's params (f32)."""
+    return {n: t.float() - p0[n].float() for n, t in _flat(model.params_)}
+
+
+def _fault_states_equal(a, b) -> bool:
+    fa, fb = a.fault_state_, b.fault_state_
+    return fa is not None and fb is not None and fa.keys() == fb.keys() and all(
+        torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def _kernel_overflow_probe(fc):
+    """A context recording the fused-conv backward kernels that produced a
+    non-finite output (dx, dscale, dshift, dW): from finite inputs ("made",
+    an overflow inside the kernel) or from non-finite ones ("carried"); the
+    probe of phase 12 (d), on no main path."""
+    seen = {"made": set(), "carried": set()}
+    saved = dict(fc._OPS)
+
+    def finite(ts):
+        return all(bool(torch.isfinite(a).all()) for a in ts
+                   if isinstance(a, torch.Tensor) and a.is_floating_point())
+
+    def wrap(name, fn):
+        def run(*args):
+            out = fn(*args)
+            if not finite(out if isinstance(out, tuple) else (out,)):
+                seen["made" if finite(args) else "carried"].add(name)
+            return out
+        return run
+
+    class Probe:
+        def __enter__(self):
+            for op, (fwd, dx, dw) in saved.items():
+                base = "pw_conv" if op == "pw" else "conv3x3"
+                fc._OPS[op] = (fwd, wrap(f"{base}_dx", dx), wrap(f"{base}_dw", dw))
+            return seen
+
+        def __exit__(self, *exc):
+            fc._OPS.update(saved)
+
+    return Probe()
+
+
+def overflow_kernels(fc) -> dict:
+    """Phase 12 (d): each fused-conv kernel at a ResNet-50 shape (pointwise
+    256 -> 64 and 3x3 64 -> 64 at 56x56, batch 2) on finite bf16 operands,
+    all positive, whose f32 sums overflow in half the pixel rows (those rows
+    of x, or of dz, scaled to 2^64 or 2^125): the kernel's outputs are
+    non-finite exactly where the plain version's are and finite elsewhere,
+    so no epilogue, statistics partial or bf16 conversion saturates the
+    overflow or drops it; both halves present. -> {kernel: ok}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+
+    def pos(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    out = {}
+    for op, cin, cout in (("pw_conv", 256, 64), ("conv3x3", 64, 64)):
+        xs = (2 * 56 * 56, cin) if op == "pw_conv" else (2, 56, 56, cin)
+        ws = (cin, cout) if op == "pw_conv" else (3, 3, cin, cout)
+        half = xs[0] // 2
+        s, t = torch.ones(cin, device="cuda"), torch.zeros(cin, device="cuda")
+        x = pos(xs, 1.0, 2.0)
+        big = x.clone()
+        big[:half] *= 2.0 ** 64
+        w = pos(ws, 0.5, 1.0)
+        fwd, plain = ((fc.pw_conv_fwd, fc.pw_conv_plain) if op == "pw_conv"
+                      else (fc.conv3x3_fwd, fc.conv3x3_plain))
+        pairs = {op: (fwd(big.bfloat16(), s, t, (w * 2.0 ** 64).bfloat16()),
+                      plain(big.bfloat16(), s, t, (w * 2.0 ** 64).bfloat16()))}
+        xb, wb = x.bfloat16(), w.bfloat16()
+        z, _ = plain(xb, s, t, wb)
+        dz = pos(tuple(z.shape), 0.5, 1.0)
+        dz[:half] *= 2.0 ** 125
+        dz = dz.bfloat16()
+        dst = pos((2, cout), 1e-3, 2e-3)
+        bwd = ((fc.pw_conv_bwd_dx, fc.pw_conv_bwd_dx_plain, fc.pw_conv_bwd_dw,
+                fc.pw_conv_bwd_dw_plain) if op == "pw_conv" else
+               (fc.conv3x3_bwd_dx, fc.conv3x3_bwd_dx_plain, fc.conv3x3_bwd_dw,
+                fc.conv3x3_bwd_dw_plain))
+        args = (xb, s, t, wb, z, dz, dst, False)
+        pairs[f"{op}_dx"] = (bwd[0](*args), bwd[1](*args))
+        pairs[f"{op}_dw"] = (bwd[2](*args), bwd[3](*args))
+        for name, (k, p) in pairs.items():
+            ks = k if isinstance(k, tuple) else (k,)
+            ps = p if isinstance(p, tuple) else (p,)
+            masks = [(torch.isfinite(a.float()), torch.isfinite(b.float())) for a, b in zip(ks, ps)]
+            out[name] = {"ok": all(torch.equal(a, b) for a, b in masks)
+                         and not bool(masks[0][1].all()),
+                         "non_finite": [int((~b).sum()) for _, b in masks],
+                         "elements": [int(b.numel()) for _, b in masks]}
+    return out
+
+
+def guard_phase(fc, fu, card: str):
+    """Phase 12: the fault policy (train/faults.py) on the full-width bf16
+    ResNet-50 through ``ComputationGraph.fit``, the ZeRO-1 wrapper and, on
+    LeNet, ``SharedTrainingMaster``, under deterministic cuDNN."""
+    return _deterministic_cudnn(lambda: _guard(fc, fu, card))
+
+
+def _guard(fc, fu, card):
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import LeNet
+    from deeplearning4j_tpu_torch.nn.graph import _as_multi
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, SharedTrainingMaster, zero
+    from deeplearning4j_tpu_torch.train import faults
+    from deeplearning4j_tpu_torch.train import pipeline
+    from deeplearning4j_tpu_torch.train.faults import FaultPolicy, fault_injection
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    failed = []
+    rng = np.random.default_rng(SEED + 20)
+    batches = [DataSet(rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32),
+                       np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)])
+               for _ in range(GUARD_BATCHES)]
+    kept = [b for i, b in enumerate(batches) if i != GUARD_POISON]
+    skip_only, scaled = FaultPolicy(loss_scaling=False), FaultPolicy()
+
+    def net(policy=None, k=1):
+        model, plain = resnet50(updater=Adam(ADAM_LR))
+        if policy is not None:
+            model.set_fault_policy(policy)
+        model.conf.global_conf.steps_per_call = k
+        return model, plain
+
+    def fit(model, data, poison=None):
+        with fault_injection([] if poison is None else [poison]):
+            model.fit(ExistingDataSetIterator(data))
+        torch.cuda.synchronize()
+
+    def free(*models):
+        for m in models:
+            m.params_ = m.state_ = m.opt_state_ = m.fault_state_ = m._bundled = None
+        torch.cuda.empty_cache()
+
+    # (a) gradients of the guarded step (loss scaled by 2^15, unscaled) vs
+    # the unguarded step's, phase 4's rule; the verdict's and the selects'
+    # device time; then the main path: guarded fit steps, counts from 0
+    guarded, plain = net(scaled)
+    unguarded_conf = copy.deepcopy(guarded.conf)
+    unguarded_conf.global_conf.fault_policy = None
+    f32_conf = copy.deepcopy(plain.conf)
+    f32_conf.global_conf.compute_dtype = None
+    batch = guarded._batch(_as_multi(batches[0]))
+    scale = guarded._step_scale()
+    _, _, gk = guarded._value_and_grad(*batch, scale=scale)
+    _, _, gp = twin(guarded, unguarded_conf)._value_and_grad(*batch)
+    _, _, g32 = twin(guarded, f32_conf)._value_and_grad(*batch)
+    grads_ok, rels, ratios, to_f32 = grad_agreement(*(dict(_flat(g)) for g in (gk, gp, g32)))
+    verdict = faults.all_finite(gk)
+    verdict_ms = graph_ms(lambda: faults.all_finite(gk), calls=5)
+    opt = guarded._ensure_opt_state()
+    tree = (guarded.params_, opt, guarded.state_)
+    other = pipeline.tree_map(lambda t: t.clone(), tree)
+    n_select = len(pipeline.tree_leaves(tree))
+    select_bytes = 3 * sum(t.numel() * t.element_size() for t in pipeline.tree_leaves(tree))
+    select_ms = graph_ms(lambda: faults.where_tree(verdict, other, tree), calls=5)
+    unscale_ms = graph_ms(lambda: faults.unscale(scale, gk, scale), calls=5)
+    del gk, gp, g32, other, opt, tree
+    guarded.opt_state_ = None
+    q = _quantiles
+    print(f"phase 12 (a) gradients: ResNet-50 (phase 10's model, Adam({ADAM_LR})) with "
+          f"FaultPolicy() (loss scaling on: bf16), scale {float(scale):g}: guarded vs "
+          f"unguarded step over {len(rels)} tensors ||g_g - g_u|| / ||g_u|| {q(rels)}; "
+          f"/ ||g_u - g_f32|| {q(ratios)}; ||g_g - g_f32|| / ||g_u - g_f32|| {q(to_f32)} "
+          f"{'ok' if grads_ok else 'FAIL'}; device time by CUDA graph: verdict over "
+          f"{len(rels)} gradients {verdict_ms:.4f} ms, unscale {unscale_ms:.4f} ms, selects "
+          f"over {n_select} tensors (params, Adam slots, BN state; {select_bytes / 1e6:.1f} MB "
+          f"moved, bound {select_bytes / PEAK_BYTES * 1e3:.4f} ms) {select_ms:.4f} ms",
+          flush=True)
+    if not grads_ok or not bool(verdict):
+        failed.append("(a) guarded gradients disagree with the unguarded step's")
+    fc.reset_launch_counts()
+    per_step, scales = [], []
+    for ds in batches:
+        before = dict(fc.launch_counts)
+        guarded.fit(ExistingDataSetIterator([ds]))
+        per_step.append({k: fc.launch_counts[k] - before.get(k, 0) for k in fc.launch_counts})
+        scales.append(guarded.loss_scale)
+    main_launches = dict(fc.launch_counts)
+    print(f"phase 12 (a) steps: {GUARD_BATCHES} guarded fit steps, launches per step "
+          f"{per_step[0]}; main-path launches {main_launches}; loss scales {scales}; "
+          f"bad steps {guarded.bad_step_count}; score {float(guarded.score_):.6g}", flush=True)
+    if any(st != STEP_LAUNCHES for st in per_step) or guarded.bad_step_count \
+            or not _finite(guarded) or set(scales) != {float(scale)}:
+        failed.append(f"(a) guarded steps: launches {per_step}, bad {guarded.bad_step_count}, "
+                      f"scales {scales}")
+    free(guarded, plain)
+
+    # (b) the skip guard alone, NaN injected at step GUARD_POISON of
+    # GUARD_BATCHES, against a guarded run on the other batches; and the guard
+    # without faults against an unguarded run on the card
+    b1, _ = net(skip_only)
+    fit(b1, batches, GUARD_POISON)
+    b2, _ = net(skip_only)
+    fit(b2, kept)
+    equal_b = _states_equal(b1, b2)
+    ub, _ = net()
+    fit(ub, kept)
+    noop_equal = _states_equal(b2, ub)
+    noop_dp = float(np.abs(b2.params_flat() - ub.params_flat()).max())
+    upd = Adam(ADAM_LR)
+    ts = torch.arange(1, 1001, dtype=torch.int32)
+    alpha_dev = upd.alpha(ts.cuda(), 0, 0).cpu()
+    alpha_host = torch.stack([upd.alpha(int(t), 0, 0) for t in ts])
+    alpha_diff = int((alpha_dev != alpha_host).sum())
+    alpha_first = ts[alpha_dev != alpha_host][:5].tolist()
+    alpha_ulps = int((alpha_dev.view(torch.int32) - alpha_host.view(torch.int32)).abs().max())
+    print(f"phase 12 (b) skip guard alone (FaultPolicy(loss_scaling=False)), NaN at step "
+          f"{GUARD_POISON} of {GUARD_BATCHES}: vs a guarded run on the other {len(kept)} "
+          f"batches torch.equal {equal_b}, bad steps {b1.bad_step_count}; guard without "
+          f"faults vs unguarded on the card torch.equal {noop_equal} (max|dp| {noop_dp:.3g}); "
+          f"Adam alpha from the device clock vs the host's for t 1..1000: {alpha_diff} "
+          f"differ (first at t {alpha_first}), at most {alpha_ulps} ulp", flush=True)
+    if not all(equal_b.values()) or b1.bad_step_count != 1:
+        failed.append(f"(b) skipped step: equal {equal_b}, bad {b1.bad_step_count}")
+    free(b2, ub)
+
+    # (b') the same with loss scaling: the scale halves after the poisoned
+    # step; against the removed-batch run by phase 4's rule on the params'
+    # displacement, the f32 plain path's on the same batches as yardstick
+    b3, _ = net(scaled)
+    p0 = {n: t for n, t in _flat(b3.params_)}
+    trace = []
+    with fault_injection([GUARD_POISON]):
+        for ds in batches:
+            b3.fit(ExistingDataSetIterator([ds]))
+            trace.append(b3.loss_scale)
+    b4, plain4 = net(scaled)
+    m32 = twin(b4, f32_conf)
+    fit(b4, kept)
+    fit(m32, kept)
+    ok_b3, rels3, ratios3, to_f32_3 = grad_agreement(
+        _displacement(b3, p0), _displacement(b4, p0), _displacement(m32, p0))
+    s0 = float(scaled.init_loss_scale)
+    want_trace = [s0] * GUARD_POISON + [s0 / 2] * (GUARD_BATCHES - GUARD_POISON)
+    print(f"phase 12 (b') loss scaling on, NaN at step {GUARD_POISON}: scale trace {trace} "
+          f"(want {want_trace}), bad steps {b3.bad_step_count}; displacement vs the "
+          f"removed-batch run ||d - d_r|| / ||d_r|| {q(rels3)}, / ||d_r - d_f32|| {q(ratios3)}, "
+          f"||d - d_f32|| / ||d_r - d_f32|| {q(to_f32_3)} {'ok' if ok_b3 else 'FAIL'}",
+          flush=True)
+    if trace != want_trace or b3.bad_step_count != 1 or not ok_b3:
+        failed.append(f"(b') trace {trace}, bad {b3.bad_step_count}, rule {ok_b3}")
+    free(b4, plain4, m32)
+
+    # (c) (b) and (b') at steps_per_call GUARD_K, the poison inside the one
+    # bundle: bit-equal to their eager runs, the fault state (the scale
+    # trace's end) too
+    bundle = {}
+    for label, policy, eager in (("skip", skip_only, b1), ("scaled", scaled, b3)):
+        c, _ = net(policy, GUARD_K)
+        fc.reset_launch_counts()
+        fit(c, batches, GUARD_POISON)
+        bundle[label] = {"equal": _states_equal(c, eager),
+                         "fault_state": _fault_states_equal(c, eager),
+                         "bundles": len(c.bundle_scores_),
+                         "captured": dict(c._bundled.captured_launches),
+                         "main_launches": dict(fc.launch_counts),
+                         "loss_scale": c.loss_scale, "bad": c.bad_step_count}
+        free(c)
+    print(f"phase 12 (c) bundled at steps_per_call={GUARD_K} (one replay of a captured "
+          f"graph), poison inside: {bundle}", flush=True)
+    want_capture = {k: GUARD_K * v for k, v in STEP_LAUNCHES.items()}
+    for label, r in bundle.items():
+        if not all(r["equal"].values()) or not r["fault_state"] or r["bundles"] != GUARD_K \
+                or r["captured"] != want_capture:
+            failed.append(f"(c) {label}: {r}")
+    free(b1, b3)
+
+    # (d) overflow: each kernel on operands whose sums overflow; then the
+    # lowest loss scale 2^k (k from GUARD_OVERFLOW_FROM) whose step has
+    # non-finite gradients, and where the first non-finite value is made; a
+    # fit from twice that scale skips its first steps and backs off until
+    # they are finite
+    kernel_overflow = overflow_kernels(fc)
+    print(f"phase 12 (d) kernels on overflowing operands (non-finite where the plain "
+          f"version is, finite elsewhere): {kernel_overflow}", flush=True)
+    if not all(r["ok"] for r in kernel_overflow.values()):
+        failed.append(f"(d) a kernel saturated or dropped an overflow: {kernel_overflow}")
+    d, _ = net(FaultPolicy(loss_scaling=True))
+    _, _, g1 = d._value_and_grad(*d._batch(_as_multi(batches[0])))
+    g_max = max(float(t.abs().max()) for _, t in _flat(g1))
+    del g1
+    # the step's largest gradient times a loss scale must pass f32's 2^128
+    # below 2^127: where it is under 4, the rows' loss weight (a label mask
+    # of one weight, as the wrapper's padding uses) makes it 4 or more
+    weight = 2.0 ** max(0, math.ceil(math.log2(4.0 / g_max)))
+    probe_ds = DataSet(batches[0].features, batches[0].labels, None,
+                       np.full((BATCH, 1), weight, np.float32))
+    batch = d._batch(_as_multi(probe_ds))
+    k_over, probed, in_kernels = None, [], {}
+    for k in range(GUARD_OVERFLOW_FROM, 128):
+        with _kernel_overflow_probe(fc) as seen:
+            loss, _, g = d._value_and_grad(
+                *batch, scale=torch.tensor(2.0 ** k, dtype=torch.float32, device="cuda"))
+            ok = bool(faults.all_finite(g))
+        probed.append((k, ok, math.isfinite(float(loss))))
+        if not ok:
+            k_over, in_kernels = k, {n: sorted(v) for n, v in seen.items()}
+            break
+    free(d)
+    overflow = {"kernels": kernel_overflow, "k": k_over, "max_abs_grad_at_scale_1": g_max,
+                "loss_weight": weight, "loss_finite": probed[-1][2], "kernel_outputs": in_kernels}
+    if k_over is None:
+        failed.append(f"(d) no loss scale up to 2^127 overflows the step's gradients "
+                      f"(max |g| at scale 1: {g_max:.4g}): {probed[-4:]}")
+        print(f"phase 12 (d) overflow probe: max |g| at scale 1 {g_max:.4g}; {probed[-4:]} "
+              f"FAIL", flush=True)
+    else:
+        # the probed batch at every step: each meets the probed scales; a
+        # skipped step halves the scale and keeps the params, a good one
+        # keeps the scale (no growth in GUARD_OVERFLOW_STEPS) and moves them
+        init = 2.0 ** (k_over + 1)
+        dn, _ = net(FaultPolicy(init_loss_scale=init))
+        steps, scale_now = [], init
+        for _ in range(GUARD_OVERFLOW_STEPS):
+            held = [t.clone() for _, t in _flat(dn.params_)]
+            bad0 = dn.bad_step_count
+            dn.fit(ExistingDataSetIterator([probe_ds]))
+            skipped = dn.bad_step_count - bad0 == 1
+            kept = all(torch.equal(a, b) for a, (_, b) in zip(held, _flat(dn.params_)))
+            want = scale_now / 2 if skipped else scale_now
+            steps.append({"log2_scale": math.log2(scale_now), "skipped": skipped,
+                          "params_kept": kept, "scale_ok": dn.loss_scale == want})
+            scale_now = dn.loss_scale
+        overflow.update(init_scale=init, steps=steps)
+        print(f"phase 12 (d) overflow: max |g| at scale 1 {g_max:.4g}, loss weight "
+              f"{weight:g}; gradients first non-finite at scale 2^{k_over} (loss times scale "
+              f"finite: {probed[-1][2]}); fused-conv backward kernels with non-finite outputs "
+              f"{in_kernels}; fit from 2^{k_over + 1}, step by step: {steps}; params finite "
+              f"{_finite(dn)}", flush=True)
+        if not (steps[0]["skipped"] and any(not st["skipped"] for st in steps) and _finite(dn)
+                and all(st["scale_ok"] and st["params_kept"] == st["skipped"] for st in steps)):
+            failed.append(f"(d) overflow fit: {overflow}")
+        free(dn)
+
+    # (e) phase 10's ZeRO-1 wrapper, guarded, at k 1 (the poisoned step's p,
+    # m, v kept, one fused Adam a group) and k 2 (== k 1)
+    z1, _ = net(scaled)
+    pw = ParallelWrapper.builder(z1).workers(1).sharded_update(True).build()
+    pw.fit(ExistingDataSetIterator(batches[:1]))
+    before = (pipeline.tree_map(lambda t: t.clone(), z1.params_),
+              pipeline.tree_map(lambda t: t.clone(), z1.opt_state_))
+    fc.reset_launch_counts()
+    with fault_injection([1]):
+        pw.fit(ExistingDataSetIterator(batches[1:2]))
+    torch.cuda.synchronize()
+    zero_launches = dict(fc.launch_counts)
+    kept_pmv = {"params": _tensors_equal(before[0], z1.params_),
+                "slots": _tensors_equal(before[1], z1.opt_state_)}
+    pw.fit(ExistingDataSetIterator(batches[2:4]))
+    groups = sum(i is not None for i in fu.resolve_group_impls(zero.build_layout(z1, 1)))
+    z2, _ = net(scaled)
+    with fault_injection([1]):
+        (ParallelWrapper.builder(z2).workers(1).sharded_update(True).steps_per_call(2).build()
+         .fit(ExistingDataSetIterator(batches[:4])))
+    torch.cuda.synchronize()
+    k2_equal = _states_equal(z1, z2)
+    k2_equal["fault_state"] = _fault_states_equal(z1, z2)
+    print(f"phase 12 (e) guarded ZeRO-1 wrapper (workers=1, sharded_update): the poisoned "
+          f"step keeps p, m, v torch.equal {kept_pmv}, launches in it {zero_launches} (want "
+          f"fused_adam {groups} = G); k 2 vs k 1 over 4 batches torch.equal {k2_equal}; bad "
+          f"steps {z1.bad_step_count} / {z2.bad_step_count}, scales {z1.loss_scale} / "
+          f"{z2.loss_scale}", flush=True)
+    if not all(kept_pmv.values()) or zero_launches != dict(STEP_LAUNCHES, fused_adam=groups) \
+            or not all(k2_equal.values()) or z1.bad_step_count != 1:
+        failed.append(f"(e) ZeRO-1: kept {kept_pmv}, launches {zero_launches}, k2 {k2_equal}")
+    free(z1, z2)
+
+    # (f) the LeNet master, guarded: the skipped step keeps the params and
+    # the residual
+    rng = np.random.default_rng(SEED + 21)
+    lb = [DataSet(rng.standard_normal((MASTER_BATCH, 28, 28, 1)).astype(np.float32),
+                  np.eye(10, dtype=np.float32)[rng.integers(0, 10, MASTER_BATCH)])
+          for _ in range(3)]
+    lnet = LeNet(num_classes=10, seed=SEED, updater=Adam(1e-3)).init()
+    lnet.set_fault_policy(FaultPolicy())
+    master = (SharedTrainingMaster.builder(ENCODE_THRESHOLD).update_capacity(ENCODE_CAPACITY)
+              .build())
+    master.fit(lnet, ExistingDataSetIterator(lb[:1]))
+    held = ([t.clone() for t in pipeline.tree_leaves(lnet.params_)], master._residual.clone())
+    with fault_injection([1]):
+        master.fit(lnet, ExistingDataSetIterator(lb[1:2]))
+    master_kept = {"params": all(torch.equal(a, b) for a, b in
+                                 zip(held[0], pipeline.tree_leaves(lnet.params_))),
+                   "residual": torch.equal(held[1], master._residual)}
+    master.fit(lnet, ExistingDataSetIterator(lb[2:]))
+    moved = not all(torch.equal(a, b) for a, b in zip(held[0], pipeline.tree_leaves(lnet.params_)))
+    print(f"phase 12 (f) guarded SharedTrainingMaster on LeNet: the skipped step keeps "
+          f"{master_kept}; bad steps {lnet.bad_step_count}; trains after it {moved}", flush=True)
+    if not all(master_kept.values()) or lnet.bad_step_count != 1 or not moved:
+        failed.append(f"(f) master: {master_kept}, bad {lnet.bad_step_count}, moved {moved}")
+    del lnet, master
+
+    # (g) images/s, guarded against unguarded, eager and bundled, in turns
+    ug, _ = net()
+    gd, _ = net(scaled)
+    timed = (batches * 2)[:GUARD_TIMED]
+    speed = {}
+    for mode, k in (("eager", 1), ("bundled", GUARD_TIMED_K)):
+        for m in (ug, gd):
+            m.conf.global_conf.steps_per_call = k
+            m.fit(ExistingDataSetIterator(timed))  # warm (and capture)
+        runs = _in_turns([("unguarded", lambda: ug.fit(ExistingDataSetIterator(timed))),
+                          ("guarded", lambda: gd.fit(ExistingDataSetIterator(timed)))])
+        speed[mode] = {label: [BATCH * GUARD_TIMED / t for t in r["s"]]
+                       for label, r in runs.items()}
+    fmt = lambda v: [round(x, 2) for x in v]  # noqa: E731
+    print(f"phase 12 (g) speed (in turns: unguarded, guarded, guarded, unguarded; "
+          f"{GUARD_TIMED} batches a fit, host clock, synchronized): eager images/s "
+          f"unguarded {fmt(speed['eager']['unguarded'])} guarded "
+          f"{fmt(speed['eager']['guarded'])}; bundled (k {GUARD_TIMED_K}) unguarded "
+          f"{fmt(speed['bundled']['unguarded'])} guarded {fmt(speed['bundled']['guarded'])}; "
+          f"on {card}", flush=True)
+    free(ug, gd)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"main_launches": dict(main_launches, fused_adam=zero_launches.get("fused_adam", 0)),
+            "launches_per_step": per_step[0], "zero1_poisoned_step_launches": zero_launches,
+            "grad_rel_err": rels, "verdict_ms": verdict_ms, "select_ms": select_ms,
+            "select_tensors": n_select, "select_bytes": select_bytes,
+            "unscale_ms": unscale_ms, "skip_equal": equal_b, "noop_equal": noop_equal,
+            "noop_max_dp": noop_dp, "alpha_differ": alpha_diff, "alpha_first_t": alpha_first,
+            "alpha_max_ulps": alpha_ulps,
+            "scaled_trace": trace, "bundles": bundle, "overflow": overflow,
+            "zero1": {"kept": kept_pmv, "k2_equal": k2_equal, "groups": groups},
+            "master_kept": master_kept, "speed": speed}
+
+
+# phase 13: ParallelInference and the shared engine on phase 3's model
+PI_THREADS = 8                # callers
+PI_ROWS = 4                   # rows a request
+PI_REQUESTS = 6               # requests a caller in the timed runs
+
+
+def _threads(fn, n):
+    """``fn(i)`` for i < n on n threads at once -> {i: result}; the first
+    exception raises."""
+    import threading
+
+    out, errors = {}, []
+
+    def call(i):
+        try:
+            out[i] = fn(i)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _serve_rule(got, ref):
+    """Phase 3's rule: (max |dp|, every decided row's top-1 equal)."""
+    dp = float(np.abs(got - ref).max())
+    top2 = np.sort(ref, 1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * dp
+    return dp, bool((got.argmax(1) == ref.argmax(1))[decided].all())
+
+
+def parallel_inference_phase(fc, card: str, serve: dict):
+    """Phase 13: ``ParallelInference`` (sequential, inplace, batched) and an
+    ``InferenceEngine`` sharing each dispatch over two devices (the card
+    named twice) on phase 3's served bf16 ResNet-50, under deterministic
+    cuDNN; ``cli serve --workers``."""
+    return _deterministic_cudnn(lambda: _parallel_inference(fc, card, serve))
+
+
+def _parallel_inference(fc, card, serve):
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+
+    failed = []
+    model, _ = resnet50()
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((PI_THREADS * PI_ROWS, 224, 224, 3)).astype(np.float32)
+    rows = [x[i * PI_ROWS:(i + 1) * PI_ROWS] for i in range(PI_THREADS)]
+    ref = [model.output_single(r) for r in rows]
+
+    seq = ParallelInference.builder(model).inference_mode("sequential").build()
+    seq_equal = all(np.array_equal(seq.output(r), want) for r, want in zip(rows, ref))
+    inplace = ParallelInference.builder(model).inference_mode("inplace").workers(3).build()
+    got = _threads(lambda i: inplace.output(rows[i]), PI_THREADS)
+    inplace_equal = all(np.array_equal(got[i], ref[i]) for i in range(PI_THREADS))
+    batched = (ParallelInference.builder(model).batch_limit(BATCH).max_wait_ms(20).build())
+    got = _threads(lambda i: batched.output(rows[i]), PI_THREADS)
+    rule = [_serve_rule(got[i], ref[i]) for i in range(PI_THREADS)]
+    batched_dp = max(r[0] for r in rule)
+    dispatches = batched.metrics.dispatches
+    print(f"phase 13 ParallelInference: ResNet-50 (phase 3's model), {PI_THREADS} callers x "
+          f"{PI_ROWS} rows: sequential == model.output {seq_equal}; inplace (3 replicas: the "
+          f"model and 2 clones) == model.output on each caller's rows {inplace_equal}; batched "
+          f"{dispatches} dispatches, max|dp| vs model.output {batched_dp:.3g} (tol "
+          f"{SERVE_PROB_TOL}), decided top-1 equal {all(r[1] for r in rule)}", flush=True)
+    if not (seq_equal and inplace_equal) or batched_dp > SERVE_PROB_TOL \
+            or not all(r[1] for r in rule) or not 1 <= dispatches < PI_THREADS:
+        failed.append(f"ParallelInference: sequential {seq_equal}, inplace {inplace_equal}, "
+                      f"batched dp {batched_dp}, dispatches {dispatches}")
+
+    # the shared engine: two row blocks of 16 a bucket-32 dispatch, one caller
+    one = InferenceEngine(model, buckets=[BATCH])
+    two = InferenceEngine(model, buckets=[BATCH], devices=["cuda:0", "cuda:0"])
+    one.warmup()
+    two.warmup()
+    fc.reset_launch_counts()
+    y2 = two.infer(x)
+    shared_launches = dict(fc.launch_counts)
+    y1 = one.infer(x)
+    dp2, top2_ok = _serve_rule(y2, y1)
+    want = {k: 2 * v for k, v in serve["per_forward"].items()}
+    t_one = time_ms(lambda: one.infer(x))
+    t_two = time_ms(lambda: two.infer(x))
+    print(f"phase 13 shared engine: devices [cuda:0, cuda:0], bucket {BATCH}: launches in one "
+          f"dispatch {shared_launches} (want {want}); vs the one-device engine max|dp| "
+          f"{dp2:.3g}, decided top-1 equal {top2_ok}; ms a dispatch (events) one device "
+          f"{t_one:.2f}, two blocks {t_two:.2f}", flush=True)
+    if shared_launches != want or dp2 > SERVE_PROB_TOL or not top2_ok:
+        failed.append(f"shared engine: launches {shared_launches}, dp {dp2}")
+
+    # requests/s, batched against sequential, in turns
+    def storm(pi):
+        return lambda: _threads(lambda i: [pi.output(rows[i]) for _ in range(PI_REQUESTS)],
+                                PI_THREADS)
+
+    timed = _in_turns([("sequential", storm(seq)), ("batched", storm(batched))])
+    rps = {label: [PI_THREADS * PI_REQUESTS / t for t in r["s"]] for label, r in timed.items()}
+    batched.shutdown()
+    seq.shutdown()
+    inplace.shutdown()
+
+    # cli serve --workers: 1 serves; one more than the cards refuses, typed
+    cards = torch.cuda.device_count()
+    cli = {}
+    for n in (1, cards + 1):
+        r = subprocess.run([sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "serve",
+                            "--model", "lenet", "--workers", str(n), "--port", "0", "--smoke"],
+                           capture_output=True, text=True, timeout=300)
+        cli[n] = {"exit": r.returncode, "smoke_ok": "smoke: HTTP 200 ok" in r.stdout,
+                  "typed": "NotEnoughDevicesError" in r.stderr
+                  and f"has {cards}" in r.stderr}
+    fmt = lambda v: [round(t, 1) for t in v]  # noqa: E731
+    print(f"phase 13 requests/s (in turns: sequential, batched, batched, sequential; "
+          f"{PI_THREADS} callers x {PI_REQUESTS} requests of {PI_ROWS} rows, host clock): "
+          f"sequential {fmt(rps['sequential'])}, batched {fmt(rps['batched'])}; cli serve "
+          f"--workers 1 --smoke {cli[1]}, --workers {cards + 1} {cli[cards + 1]}; on {card}",
+          flush=True)
+    if cli[1]["exit"] != 0 or not cli[1]["smoke_ok"] or cli[cards + 1]["exit"] == 0 \
+            or not cli[cards + 1]["typed"]:
+        failed.append(f"cli serve --workers: {cli}")
+    del model, one, two
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"main_launches": shared_launches, "sequential_equal": seq_equal,
+            "inplace_equal": inplace_equal, "batched_max_dp": batched_dp,
+            "batched_dispatches": dispatches, "shared_max_dp": dp2, "ms_one_device": t_one,
+            "ms_two_blocks": t_two, "requests_per_s": rps, "cli": cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3866,6 +4475,8 @@ def main() -> int:
     zero1_bundle = bundled_zero1_phase(fc, fu, card, zero1)
     shared_card = shared_card_phase(card)
     master = master_phase(fu, card)
+    guard = guard_phase(fc, fu, card)
+    pinf = parallel_inference_phase(fc, card, serve)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -3926,6 +4537,12 @@ def main() -> int:
             entry_k["launches_per_train_step"] = train["launches_per_step"].get(name, 0)
             entry_k["device_ms"] = s["kernel_device_ms"]
             entry_k["library_device_ms"] = s["library_device_ms"]
+        # phase 12's guarded steps (the convs' five fit steps, the fused
+        # Adam's poisoned ZeRO-1 step) and phase 13's shared-engine dispatch
+        if name in guard["main_launches"]:
+            entry_k["launches_guarded"] = guard["main_launches"][name]
+        if name in pinf["main_launches"]:
+            entry_k["launches_shared_engine"] = pinf["main_launches"][name]
         kernels.append(entry_k)
     import torch.distributed as dist
 
@@ -3942,7 +4559,8 @@ def main() -> int:
                    "shared_card": shared_card, "shared_training_master": master,
                    "vgg16": vgg, "generation": gen,
                    "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
-                   "entry_points": entry, "kernels": kernels}, f, indent=1)
+                   "entry_points": entry, "guard": guard, "parallel_inference": pinf,
+                   "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

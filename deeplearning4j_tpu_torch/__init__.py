@@ -51,6 +51,25 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return d
 
 
+class NotEnoughDevicesError(DeviceUnavailableError):
+    """More CUDA cards were asked for than the machine has."""
+
+
+def resolve_devices(n: int, device: Union[str, torch.device, None] = None) -> list:
+    """``n`` devices of ``device``'s type (default :data:`DEFAULT_DEVICE`):
+    the first ``n`` CUDA cards, or ``n`` CPU entries. Raises
+    :class:`NotEnoughDevicesError` naming both counts when fewer than ``n``
+    cards exist; never places two of the ``n`` on one card."""
+    kind = torch.device(DEFAULT_DEVICE if device is None else device).type
+    if kind == "cpu":
+        return [torch.device("cpu")] * int(n)
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        raise NotEnoughDevicesError(
+            f"{n} workers need {n} CUDA cards, one each; this machine has {have}")
+    return [torch.device("cuda", i) for i in range(int(n))]
+
+
 def _dtype_of(name: Optional[str]) -> Optional[torch.dtype]:
     if name is None:
         return None

@@ -5,7 +5,7 @@ Counterpart of the ``serve`` subcommand of ``deeplearning4j_tpu/cli.py``
 
     python -m deeplearning4j_tpu_torch.cli serve --model <zoo name | ckpt.zip | ckpt dir> \\
         --port 8080 --batch-limit 32 --max-wait-ms 5 [--int8-serving] [--device cpu] \\
-        [--seq-buckets 8,16,32,64] [--gen-slots N --gen-max-length L \\
+        [--workers N] [--seq-buckets 8,16,32,64] [--gen-slots N --gen-max-length L \\
          --gen-prefill-buckets ... --gen-queue-limit Q]
 
 A zoo name serves fresh seeded weights; a checkpoint zip or directory (its
@@ -15,11 +15,15 @@ model's ``serving_seq_buckets`` hint pads rank-3 requests along time unless
 continuous-batching decode slots (a recurrent network). ``--smoke`` sends
 one request through the HTTP stack (and one greedy ``/generate`` with
 ``--gen-slots``), prints ``smoke: HTTP 200 ok`` and exits 0 (1 on failure).
-The model runs on the CUDA card unless ``--device cpu`` is given. The
-reference's other subcommands (training, data, chaos, ...) and the serve
-flags for the mesh, workers, speculative decoding, the prefix cache, the
-registry and the controllers come with later slices (ROADMAP § A) and are
-refused.
+The model runs on the CUDA card unless ``--device cpu`` is given.
+``--workers N`` (N > 1) shares each dispatch over the first N cards, a row
+block a card (``InferenceEngine(devices=...)``; with ``--device cpu``, N
+CPU entries); with fewer than N cards it exits with
+``NotEnoughDevicesError``, naming both counts, before it loads the model.
+The reference's other subcommands (training, data, chaos, ...) and the
+serve flags for the tensor-parallel mesh, speculative decoding, the prefix
+cache, the registry and the controllers come with later slices (ROADMAP §
+A) and are refused.
 """
 
 from __future__ import annotations
@@ -32,7 +36,6 @@ _NOT_PORTED_FLAGS = {
     "--mesh": "the serving mesh (ROADMAP § A, slice 7)",
     "--mesh-policy": "the serving mesh (ROADMAP § A, slice 7)",
     "--cpu-mesh": "the serving mesh (ROADMAP § A, slice 7)",
-    "--workers": "data-parallel serving (ROADMAP § A, slice 4)",
     "--spec-decode-k": "speculative decoding (ROADMAP § A, slice 6)",
     "--spec-draft-mode": "speculative decoding (ROADMAP § A, slice 6)",
     "--prefix-cache-mb": "the shared-prefix cache (ROADMAP § A, slice 6)",
@@ -62,6 +65,9 @@ def _serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="where the model runs (default the CUDA card; 'cpu' "
                          "for the CPU)")
+    ap.add_argument("--workers", type=int, default=1,
+                    help=">1 shares each dispatched batch over that many devices "
+                         "(the first N cards; N CPU entries with --device cpu)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080,
                     help="0 binds an ephemeral port (printed at startup)")
@@ -124,6 +130,7 @@ def serve_main(argv) -> int:
     _refuse_not_ported(ap, argv)
     args = ap.parse_args(argv)
 
+    from deeplearning4j_tpu_torch import resolve_devices
     from deeplearning4j_tpu_torch.models.selector import ZOO, ModelSelector
     from deeplearning4j_tpu_torch.obs.metrics import default_registry
     from deeplearning4j_tpu_torch.serving import (
@@ -142,8 +149,14 @@ def serve_main(argv) -> int:
         seq_buckets = ZOO[key].serving_seq_buckets
     buckets = BucketPolicy(batch_buckets=batch_buckets, max_batch=args.batch_limit,
                            seq_buckets=seq_buckets)
-    eng_kwargs = dict(buckets=buckets, device=args.device,
-                      metrics=ServingMetrics(registry=default_registry()))
+    eng_kwargs = dict(buckets=buckets, metrics=ServingMetrics(registry=default_registry()))
+    device = args.device
+    if args.workers > 1:
+        # before the model loads: never N replicas on one card
+        eng_kwargs["devices"] = resolve_devices(args.workers, args.device)
+        device = eng_kwargs["devices"][0]
+    else:
+        eng_kwargs["device"] = device
     if args.int8_serving:
         if key in ZOO and not getattr(ZOO[key], "serving_int8", True):
             ap.error(f"--int8-serving: zoo model {key!r} declares "
@@ -154,12 +167,14 @@ def serve_main(argv) -> int:
         eng_kwargs["checkpoint_dir"] = args.checkpoint_dir
     if key in ZOO:
         model, origin = ModelSelector.load_or_init(
-            args.model, device=args.device, num_classes=args.num_classes)
+            args.model, device=device, num_classes=args.num_classes)
         engine = InferenceEngine(model, **eng_kwargs)
     else:
         engine = InferenceEngine.from_checkpoint(args.model, **eng_kwargs)
         origin = engine.describe()["source"]
-    print(f"serving {type(engine.model).__name__} from {origin} on {engine.device} "
+    where = (engine.device if len(engine.devices) == 1
+             else "[" + ", ".join(map(str, engine.devices)) + "]")
+    print(f"serving {type(engine.model).__name__} from {origin} on {where} "
           f"({engine.buckets!r}"
           + (f", int8 heads {engine.int8_report}" if engine.int8_serving else "")
           + ")", flush=True)

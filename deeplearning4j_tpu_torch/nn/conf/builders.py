@@ -185,6 +185,19 @@ class NeuralNetConfiguration:
         self._g.sharded_update = bool(b)
         return self
 
+    def fault_policy(self, policy) -> "NeuralNetConfiguration":
+        """Step-level fault tolerance (``train/faults.FaultPolicy``): a
+        non-finite gradient guard in the train step (a bad batch skips the
+        update instead of poisoning the params) and dynamic loss scaling
+        under a ``compute_dtype``. Pass a FaultPolicy, or True for the
+        defaults; None disables."""
+        from deeplearning4j_tpu_torch.train.faults import FaultPolicy
+
+        if policy is True:
+            policy = FaultPolicy()
+        self._g.fault_policy = policy
+        return self
+
     def steps_per_call(self, k: int) -> "NeuralNetConfiguration":
         """Bundled train steps (``train/pipeline.py``): ``fit`` stacks ``k``
         consecutive same-shaped batches and takes their ``k`` optimizer

@@ -4,10 +4,11 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/serde.py``: every config object
 becomes a dict with an ``@class`` tag and the same field names, so the two
 packages read and write the same configuration dicts.
 
-Training-side configs that this slice carries but does not interpret
-(updaters, schedules, regularization, weight distributions, constraints,
-fault policies, telemetry) are kept as :class:`TaggedConf`: their JSON dict,
-written back unchanged.
+Training-side configs that the port carries but does not interpret
+(weight distributions, constraints, telemetry) are kept as
+:class:`TaggedConf`: their JSON dict, written back unchanged. A
+``FaultPolicy`` decodes into ``train/faults.FaultPolicy``, whose module
+registers itself when first asked for.
 """
 
 from __future__ import annotations
@@ -19,7 +20,11 @@ from typing import Any, Dict
 _CLASSES: Dict[str, type] = {}
 
 # @class names of GlobalConf fields the port carries as plain data
-_OPAQUE_CLASSES = ("FaultPolicy", "TelemetryConf")
+_OPAQUE_CLASSES = ("TelemetryConf",)
+
+# @class names registered by a module that this one cannot import at its top
+# (it imports this one): imported at the first lookup
+_LAZY = {"FaultPolicy": "deeplearning4j_tpu_torch.train.faults"}
 
 
 class UnknownConfigClassError(KeyError):
@@ -37,6 +42,10 @@ def register(cls: type) -> type:
 
 
 def lookup(name: str) -> type:
+    if name not in _CLASSES and name in _LAZY:
+        import importlib
+
+        importlib.import_module(_LAZY[name])
     if name not in _CLASSES:
         raise UnknownConfigClassError(
             f"Unknown config class '{name}' (not ported yet, or misspelled). "

@@ -25,8 +25,10 @@ which ``ParallelWrapper`` calls apart; ``sharded_update`` is the wrapper's
 knob and a plain ``fit`` ignores it, as the reference's does.
 ``steps_per_call > 1`` bundles consecutive same-layout batches into one call
 of K steps (``train/pipeline.py``): K eager steps on the CPU, one replay of a
-captured CUDA graph on the card. Fault policy, rematerialization,
-telemetry, listeners and tBPTT are not ported yet and raise.
+captured CUDA graph on the card. A fault policy makes the step the
+reference's guarded one (``nn/multilayer.guarded_update``,
+``train/faults.py``), eager and bundled. Rematerialization, telemetry,
+listeners and tBPTT are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -53,12 +55,15 @@ from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
 from deeplearning4j_tpu_torch.nn.conf.layers.base import check_trainable
 from deeplearning4j_tpu_torch.nn.multilayer import (
     apply_layer_updates,
+    bundle_step_of,
     cast_layer_params_for_compute,
     check_train_conf,
     flatten_tensors,
+    guarded_update,
     unflatten_tensors,
 )
 from deeplearning4j_tpu_torch.regularization import as_regularization
+from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 from deeplearning4j_tpu_torch.updaters import as_updater
 
@@ -67,7 +72,7 @@ NOT_PORTED = "not ported yet (ROADMAP § A, training slices)"
 Tensors = Dict[str, torch.Tensor]
 
 
-class ComputationGraph:
+class ComputationGraph(_faults.GuardedModel):
     def __init__(self, conf: ComputationGraphConfiguration):
         # a private copy: layers of the caller's conf are never shared
         self.conf = conf = copy.deepcopy(conf)
@@ -84,7 +89,11 @@ class ComputationGraph:
         #: the bundled step of ``fit`` (``steps_per_call > 1``), and the
         #: per-step scores of the last bundle it ran (on the device)
         self._bundled: Optional[_pipeline.BundledStep] = None
+        self._bundled_key = None
         self.bundle_scores_: Optional[_pipeline.BundleScores] = None
+        #: the fault policy's state (``train/faults.py``), 0-dim tensors on
+        #: the device; None without a policy or before the first step
+        self.fault_state_: Optional[Dict[str, torch.Tensor]] = None
         self._compute_dtype = _dtype_of(getattr(conf.global_conf, "compute_dtype", None))
         self._output_layers()
 
@@ -118,9 +127,21 @@ class ComputationGraph:
             state[name] = {k: v.to(device) for k, v in
                            layer.init_layer_state(lt[name], dtype).items()}
         self.params_, self.state_, self.device = params, state, device
-        self.opt_state_ = None
+        self.opt_state_ = self.fault_state_ = None
         self.iteration = self.epoch = 0
         return self
+
+    def clone(self) -> "ComputationGraph":
+        """A deep copy (the reference's ``clone()``): the configuration
+        through its JSON, params, layer state and updater state copied on
+        the model's device, ``iteration`` and ``epoch`` carried over."""
+        net = ComputationGraph(ComputationGraphConfiguration.from_json(self.conf.to_json()))
+        if self.params_ is not None:
+            net.params_, net.state_, net.opt_state_ = _pipeline.tree_map(
+                lambda t: t.detach().clone(), (self.params_, self.state_, self.opt_state_))
+            net.device = self.device
+            net.iteration, net.epoch = self.iteration, self.epoch
+        return net
 
     def num_params(self) -> int:
         return int(sum(t.numel() for p in self.params_.values() for t in p.values()))
@@ -272,20 +293,25 @@ class ComputationGraph:
         return ([tensor(f) for f in mds.features], [tensor(lab, True) for lab in mds.labels],
                 [None if m is None else tensor(m, True) for m in mds.labels_masks])
 
-    def _value_and_grad(self, feats, labels, lmasks):
+    def _value_and_grad(self, feats, labels, lmasks, scale=None):
         """(loss, new_state, grads) of a train-mode forward at ``params_``;
-        grads has the layout of ``params_``."""
+        grads has the layout of ``params_``. ``scale``: the fault policy's
+        loss scale (the gradients of ``loss * scale``, loss and gradients
+        multiplied back by ``1 / scale``)."""
         diff = {v: {k: t.detach().requires_grad_() for k, t in p.items()}
                 for v, p in self.params_.items()}
         loss, new_state = self._loss_and_new_state(diff, self.state_, feats,
                                                    labels, lmasks)
+        if scale is not None:
+            loss = loss * scale
         leaves = [(v, k) for v, p in diff.items() for k in p]
         flat = torch.autograd.grad(loss, [diff[v][k] for v, k in leaves],
                                    allow_unused=True) if leaves else ()
         grads: Dict[str, Tensors] = {v: {} for v in diff}
         for (v, k), g in zip(leaves, flat):
             grads[v][k] = torch.zeros_like(diff[v][k]) if g is None else g
-        return loss.detach(), new_state, grads
+        loss, grads = _faults.unscale(loss.detach(), grads, scale)
+        return loss, new_state, grads
 
     def score(self, ds: Optional[Union[DataSet, MultiDataSet]] = None) -> float:
         """The last train step's score, or the eval-mode loss plus the
@@ -340,6 +366,9 @@ class ComputationGraph:
             data = MultiDataSetIterator.from_list([data])
         k = _pipeline.resolve_steps_per_call(self)
         self._check_trainable()
+        policy = self._active_fault_policy()
+        if policy is not None:
+            self._ensure_fault_state(policy)
         bstep = self._bundle_step(k) if k > 1 else None
         try:
             for _ in range(epochs):
@@ -351,6 +380,7 @@ class ComputationGraph:
                         self.bundle_scores_ = bstep(self._batch_tensors(stack_multi(item)))
                     else:
                         self._fit_batch(item)
+                    _faults.check_fault_state(policy, self.fault_state_, owner=self)
                 data.reset()
                 self.epoch += 1
         finally:
@@ -359,31 +389,33 @@ class ComputationGraph:
         return self
 
     def _fit_batch(self, mds: MultiDataSet) -> None:
-        self._apply_step(*self._value_and_grad(*self._batch(mds)))
+        self._train_step(self._batch(mds))
+
+    def _train_step(self, batch) -> None:
+        """One train step on a batch of ``_batch`` tensors."""
+        self._apply_step(*self._value_and_grad(*batch, scale=self._step_scale()))
 
     def _bundle_step(self, k: int) -> "_pipeline.BundledStep":
-        """The bundled step of ``fit`` at ``k``, kept across fits (on the
-        card it holds the captured graph)."""
-        if self._bundled is None or self._bundled.k != k:
-            self._bundled = _pipeline.BundledStep(
-                self, k, lambda batch: self._apply_step(*self._value_and_grad(*batch)))
-        return self._bundled
+        return bundle_step_of(self, k, self._train_step)
 
     def _apply_step(self, loss, new_state, grads) -> None:
         """The second half of a train step (``_value_and_grad`` is the
-        first): the per-layer updates from ``grads``, the score (``loss``
-        plus the regularization score before the update), the new state,
+        first): the per-layer updates from ``grads`` (guarded under a fault
+        policy, ``nn/multilayer.guarded_update``), the score (``loss`` plus
+        the regularization score before the update), the new state,
         ``iteration + 1``."""
         opt_state = self._ensure_opt_state()
         names = self.layer_names
-        new_params, new_opt = apply_layer_updates(
-            [self._layer(n) for n in names], [self.params_[n] for n in names],
-            [grads[n] for n in names], [opt_state[n] for n in names],
-            self.iteration + 1, self.iteration, self.epoch)
+
+        def update(grads, t, it):
+            new_params, new_opt = apply_layer_updates(
+                [self._layer(n) for n in names], [self.params_[n] for n in names],
+                [grads[n] for n in names], [opt_state[n] for n in names], t, it, self.epoch)
+            return dict(zip(names, new_params)), dict(zip(names, new_opt)), new_state
+
         self.score_ = loss + self._reg_score(self.params_)
-        self.params_ = dict(zip(names, new_params))
-        self.opt_state_ = dict(zip(names, new_opt))
-        self.state_ = new_state
+        self.params_, self.opt_state_, self.state_ = guarded_update(
+            self, grads, update, (self.params_, opt_state, self.state_))
         self.iteration += 1
 
 

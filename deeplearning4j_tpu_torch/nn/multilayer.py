@@ -30,9 +30,17 @@ param. The cast happens inside the differentiated function, so the
 gradients the updater sees are f32. ``steps_per_call > 1`` bundles
 consecutive same-shaped batches into one call of K steps
 (``train/pipeline.py``): K eager steps on the CPU, one replay of a captured
-CUDA graph on the card, bit-identical to K single steps either way. Fault
-policy, rematerialization, telemetry, listeners and tBPTT are not ported yet
-and raise (:func:`check_train_conf`).
+CUDA graph on the card, bit-identical to K single steps either way.
+
+A fault policy (``GlobalConf.fault_policy``, ``set_fault_policy``) makes
+the step the reference's guarded one (``train/faults.py``): the loss
+scaled and the gradients unscaled, faults injected, one all-finite verdict
+over the gradients, the updater at ``t = good_count + 1``, params, updater
+state and layer state kept where the verdict is false, the fault state
+advanced; all on the device, with the divergence tripwire after each step
+(each bundle) only when ``max_consecutive_bad_steps`` is set.
+Rematerialization, telemetry, listeners and tBPTT are not ported yet and
+raise (:func:`check_train_conf`).
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from deeplearning4j_tpu_torch.regularization import (
     as_regularization,
     normalize_layer_gradients,
 )
+from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 from deeplearning4j_tpu_torch.updaters import as_updater
 
@@ -68,7 +77,7 @@ NOT_PORTED = "not ported yet (ROADMAP § A, slice 4: the rest of the training co
 
 def check_train_conf(conf, not_ported: str) -> None:
     """Refuse, at train time, the global training options the port does not
-    have yet: the fault policy, remat, telemetry and tBPTT.
+    have yet: remat, telemetry and tBPTT.
     (``sharded_update`` is for ``ParallelWrapper``: a plain ``fit`` ignores
     it, as the reference's does.) Shared by MultiLayerNetwork and
     ComputationGraph."""
@@ -78,7 +87,6 @@ def check_train_conf(conf, not_ported: str) -> None:
         return getattr(g, name, default)
 
     refused = [
-        (knob("fault_policy") is not None, "fault_policy"),
         (knob("remat_policy") not in (None, "none"), "remat_policy"),
         (knob("telemetry") not in (None, False), "telemetry"),
         (conf.backprop_type == "tbptt", "tbptt"),
@@ -156,7 +164,41 @@ def apply_layer_updates(layers, params: List[Tensors], grads: List[Tensors],
     return new_params, new_opt
 
 
-class MultiLayerNetwork:
+def guarded_update(model, grads, update, old):
+    """One optimizer step of ``model`` under its fault policy, or unguarded
+    without one. ``update(grads, t, iteration)`` returns the new state tree
+    (params, updater state, layer state) and ``old`` is the current one.
+    Unguarded: ``update`` at ``t = iteration + 1``. Guarded: the armed
+    faults injected, the verdict over the gradients, ``update`` at ``t =
+    good_count + 1`` and iteration ``good_count`` (device tensors), the old
+    tree kept where the verdict is false, the fault state advanced. Shared
+    by both model types and the wrapper's replicated step."""
+    policy = model._active_fault_policy()
+    if policy is None:
+        return update(grads, model.iteration + 1, model.iteration)
+    fstate = model._ensure_fault_state(policy)
+    grads = _faults.inject_gradient_faults(grads, model.iteration)
+    finite = _faults.all_finite(grads)
+    good = fstate["good_count"]
+    new = update(grads, good + 1, good)
+    if policy.skips(model._compute_dtype):
+        new = _faults.where_tree(finite, new, old)
+    model.fault_state_ = _faults.advance_fault_state(policy, fstate, finite)
+    return new
+
+
+def bundle_step_of(model, k: int, one_step) -> "_pipeline.BundledStep":
+    """The model's bundled step at ``k``, kept across fits (on the card it
+    holds the captured graph) and made anew when ``k`` or the fault policy
+    changes (the graph holds the policy's constants)."""
+    key = (k, model._active_fault_policy())
+    if model._bundled is None or model._bundled_key != key:
+        model._bundled = _pipeline.BundledStep(model, k, one_step)
+        model._bundled_key = key
+    return model._bundled
+
+
+class MultiLayerNetwork(_faults.GuardedModel):
     def __init__(self, conf: MultiLayerConfiguration):
         # a private copy: layers of the caller's conf are never shared
         self.conf = conf = copy.deepcopy(conf)
@@ -171,7 +213,11 @@ class MultiLayerNetwork:
         #: the bundled step of ``fit`` (``steps_per_call > 1``), and the
         #: per-step scores of the last bundle it ran (on the device)
         self._bundled: Optional[_pipeline.BundledStep] = None
+        self._bundled_key = None
         self.bundle_scores_: Optional[_pipeline.BundleScores] = None
+        #: the fault policy's state (``train/faults.py``), 0-dim tensors on
+        #: the device; None without a policy or before the first step
+        self.fault_state_: Optional[Dict[str, torch.Tensor]] = None
         #: the streaming state of :meth:`rnn_time_step`
         self._rnn_carries: Optional[List[Any]] = None
         self._compute_dtype = _dtype_of(getattr(conf.global_conf, "compute_dtype", None))
@@ -194,9 +240,21 @@ class MultiLayerNetwork:
             state.append(map_tensors(lambda t: t.to(device),
                                      layer.init_layer_state(types[i], dtype)))
         self.params_, self.state_, self.device = params, state, device
-        self.opt_state_ = None
+        self.opt_state_ = self.fault_state_ = None
         self.iteration = self.epoch = 0
         return self
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A deep copy (the reference's ``clone()``): the configuration
+        through its JSON, params, layer state and updater state copied on
+        the model's device, ``iteration`` and ``epoch`` carried over."""
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_json(self.conf.to_json()))
+        if self.params_ is not None:
+            net.params_, net.state_, net.opt_state_ = _pipeline.tree_map(
+                lambda t: t.detach().clone(), (self.params_, self.state_, self.opt_state_))
+            net.device = self.device
+            net.iteration, net.epoch = self.iteration, self.epoch
+        return net
 
     def _is_output(self, i: int) -> bool:
         return i == len(self.layers) - 1 and self.layers[i].is_output_layer
@@ -475,33 +533,47 @@ class MultiLayerNetwork:
                 for layer, p in zip(self.layers, self.params_)]
         return self.opt_state_
 
-    def _value_and_grad(self, features, labels, fmask, lmask):
+    def _value_and_grad(self, features, labels, fmask, lmask, scale=None):
         """The first half of a train step: ``(loss, new_states, grads)`` of a
         train-mode forward at ``params_``; grads has the layout of
-        ``params_``."""
+        ``params_``. ``scale`` (the fault policy's loss scale, a 0-dim
+        tensor): the gradients are taken of ``loss * scale`` and the loss
+        and gradients come back multiplied by ``1 / scale``."""
         diff = [{k: t.detach().requires_grad_() for k, t in p.items()}
                 for p in self.params_]
         loss, new_states = self._loss_and_new_state(diff, self.state_, features,
                                                     labels, fmask, lmask)
+        if scale is not None:
+            loss = loss * scale
         leaves = [(i, k) for i, p in enumerate(diff) for k in p]
         flat = torch.autograd.grad(loss, [diff[i][k] for i, k in leaves],
                                    allow_unused=True) if leaves else ()
         grads: List[Tensors] = [{} for _ in diff]
         for (i, k), g in zip(leaves, flat):
             grads[i][k] = torch.zeros_like(diff[i][k]) if g is None else g
-        return loss.detach(), new_states, grads
+        loss, grads = _faults.unscale(loss.detach(), grads, scale)
+        return loss, new_states, grads
 
     def _apply_step(self, loss, new_states, grads) -> None:
-        """The second half: the per-layer updates from ``grads``, the score
-        (``loss`` plus the regularization score before the update), the
-        new state, ``iteration + 1``."""
+        """The second half: the per-layer updates from ``grads`` (guarded
+        under a fault policy, :func:`guarded_update`), the score (``loss``
+        plus the regularization score before the update), the new state,
+        ``iteration + 1``."""
         opt_state = self._ensure_opt_state()
-        new_params, new_opt = apply_layer_updates(
-            self.layers, self.params_, grads, opt_state,
-            self.iteration + 1, self.iteration, self.epoch)
+
+        def update(grads, t, it):
+            new_params, new_opt = apply_layer_updates(self.layers, self.params_, grads,
+                                                      opt_state, t, it, self.epoch)
+            return new_params, new_opt, new_states
+
         self.score_ = loss + self._reg_score(self.params_)
-        self.params_, self.opt_state_, self.state_ = new_params, new_opt, new_states
+        self.params_, self.opt_state_, self.state_ = guarded_update(
+            self, grads, update, (self.params_, opt_state, self.state_))
         self.iteration += 1
+
+    def _train_step(self, batch) -> None:
+        """One train step on a batch of ``_batch`` tensors."""
+        self._apply_step(*self._value_and_grad(*batch, scale=self._step_scale()))
 
     def fit(self, data: Union[DataSet, DataSetIterator, np.ndarray],
             labels: Optional[np.ndarray] = None, epochs: int = 1,
@@ -519,6 +591,9 @@ class MultiLayerNetwork:
         it = ListDataSetIterator(data, batch_size) if isinstance(data, DataSet) else data
         k = _pipeline.resolve_steps_per_call(self)
         self._check_trainable()
+        policy = self._active_fault_policy()
+        if policy is not None:
+            self._ensure_fault_state(policy)
         bstep = self._bundle_step(k) if k > 1 else None
         try:
             for _ in range(epochs):
@@ -527,6 +602,7 @@ class MultiLayerNetwork:
                         self.bundle_scores_ = bstep(self._batch_tensors(item))
                     else:
                         self._fit_batch(item)
+                    _faults.check_fault_state(policy, self.fault_state_, owner=self)
                 it.reset()
                 self.epoch += 1
         finally:
@@ -535,16 +611,10 @@ class MultiLayerNetwork:
         return self
 
     def _fit_batch(self, ds: DataSet) -> None:
-        self._apply_step(*self._value_and_grad(*self._batch(ds)))
+        self._train_step(self._batch(ds))
 
     def _bundle_step(self, k: int) -> "_pipeline.BundledStep":
-        """The bundled step of ``fit`` at ``k``, kept across fits (on the
-        card it holds the captured graph)."""
-        cached = self._bundled
-        if cached is None or cached.k != k:
-            cached = self._bundled = _pipeline.BundledStep(
-                self, k, lambda batch: self._apply_step(*self._value_and_grad(*batch)))
-        return cached
+        return bundle_step_of(self, k, self._train_step)
 
 
 

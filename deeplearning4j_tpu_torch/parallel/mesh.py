@@ -165,6 +165,15 @@ class TrainingMesh:
             off += t.numel()
         return out
 
+    def all_true(self, flag: torch.Tensor) -> torch.Tensor:
+        """A 0-dim bool that is true iff ``flag`` is true on every rank (one
+        collective on more than one rank; on one rank, ``flag``)."""
+        if self.n_data == 1:
+            return flag
+        bad = (~flag).to(torch.float32).reshape(1)
+        dist.all_reduce(bad)
+        return bad[0] == 0
+
     def reduce_scatter_mean(self, rows: torch.Tensor) -> torch.Tensor:
         """``rows`` (n_data, chunk): this rank's row of the mean over the
         ranks, as (1, chunk)."""

@@ -27,10 +27,19 @@ such steps a call (``train/pipeline.py``): eagerly on the CPU, one replay of
 a captured CUDA graph on the card, the residual carried beside the params
 and updater state.
 
+Under the model's fault policy (``train/faults.py``) the master has the
+skip guard only, as the reference's: no loss scaling (the residual carries
+values across steps, which a changing scale would make inconsistent). Its
+verdict covers the decoded summed update and every rank's new residual (a
+NaN in a local gradient is never encoded, since NaN compares false, so it
+can rot the residual while the update stays finite), agreed over the ranks
+by one collective; a false verdict keeps the params, the updater state and
+the residual, and the updater's clock is ``good_count``.
+
 The master binds to its first model, refuses a model with layer state
 (BatchNorm running statistics), whose state it would not carry, as the
-reference does, and refuses what the model's own ``fit`` refuses (the fault
-policy, ROADMAP § A2; the port's models take no listeners yet, § A8).
+reference does, and refuses what the model's own ``fit`` refuses (the
+port's models take no listeners yet, ROADMAP § A8).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from deeplearning4j_tpu_torch.data.iterators import BatchBundle, DataSetIterator
 from deeplearning4j_tpu_torch.parallel.compression import gather_and_decode, threshold_encode
 from deeplearning4j_tpu_torch.parallel.mesh import TrainingMesh
 from deeplearning4j_tpu_torch.parallel.wrapper import _block, _cutter
+from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 
 
@@ -108,6 +118,7 @@ class SharedTrainingMaster:
         self._residual: Optional[torch.Tensor] = None
         self._zopt = None
         self._bstep = None
+        self._bstep_policy = None
 
     # ------------------------------------------------------------------ bind
     def _bind(self, model) -> None:
@@ -145,45 +156,72 @@ class SharedTrainingMaster:
         self.model = model
 
     # ------------------------------------------------------------------ step
+    def _policy(self):
+        """The model's fault policy as this master applies it: active as
+        for an f32 model (it never scales the loss)."""
+        return _faults.active_policy(
+            getattr(self.model.conf.global_conf, "fault_policy", None), None)
+
     def _step(self, batch) -> None:
         """One step on this rank's rows ``batch`` (the model's ``_batch``):
         the model's params, updater state (or this rank's shards) and the
-        residual move; ``score_`` is the mean loss; ``iteration + 1``."""
+        residual move (guarded: where the verdict holds); ``score_`` is the
+        mean loss; ``iteration + 1``."""
         m, mesh = self.model, self.mesh
         loss, _, grads = m._value_and_grad(*batch)
         flat = torch.cat([grads[i][k].reshape(-1) for i in range(len(grads))
                           for k in sorted(grads[i])])
         work = self._residual + flat
-        msg, self._residual = threshold_encode(work, self._thr, self._capacity)
+        msg, residual = threshold_encode(work, self._thr, self._capacity)
         summed = gather_and_decode(msg, flat, mesh) / mesh.n_data
         (mean_loss,) = mesh.all_reduce_mean([loss])
         synced = _unflatten(summed, grads)
+        policy = self._policy()
         t, it = m.iteration + 1, m.iteration
+        if policy is not None:
+            fstate = m._ensure_fault_state(policy, scaling=False)
+            synced = _faults.inject_gradient_faults(synced, m.iteration)
+            finite = mesh.all_true(_faults.all_finite(synced)
+                                   & _faults.all_finite(residual))
+            it = fstate["good_count"]
+            t = it + 1
+        opt = self._zopt if self._layout is not None else m._ensure_opt_state()
         if self._layout is not None:
             from deeplearning4j_tpu_torch.parallel.zero import apply_sharded_updates
 
-            m.params_, self._zopt = apply_sharded_updates(
-                self._layout, m.params_, synced, self._zopt, t, it, m.epoch, mesh=mesh,
+            new_params, new_opt = apply_sharded_updates(
+                self._layout, m.params_, synced, opt, t, it, m.epoch, mesh=mesh,
                 fused_impls=self._fused_impls, reduced=True)
         else:
             from deeplearning4j_tpu_torch.nn.multilayer import apply_layer_updates
 
-            m.params_, m.opt_state_ = apply_layer_updates(
-                m.layers, m.params_, synced, m._ensure_opt_state(), t, it, m.epoch)
+            new_params, new_opt = apply_layer_updates(m.layers, m.params_, synced, opt, t,
+                                                      it, m.epoch)
+        if policy is not None:
+            if policy.skip_nonfinite:
+                new_params, new_opt, residual = _faults.where_tree(
+                    finite, (new_params, new_opt, residual),
+                    (m.params_, opt, self._residual))
+            m.fault_state_ = _faults.advance_fault_state(policy, fstate, finite)
+        m.params_, self._residual = new_params, residual
+        if self._layout is not None:
+            self._zopt = new_opt
+        else:
+            m.opt_state_ = new_opt
         m.score_ = mean_loss
         m.iteration += 1
 
     def _carry(self):
         """(get, put) of what a bundle carries: params, updater state (or
-        this rank's shards) and the residual."""
+        this rank's shards), the residual and the fault state."""
         m = self.model
 
         def get():
             opt = self._zopt if self._layout is not None else m._ensure_opt_state()
-            return (m.params_, opt, self._residual)
+            return (m.params_, opt, self._residual, m.fault_state_)
 
         def put(tree):
-            m.params_, opt, self._residual = tree
+            m.params_, opt, self._residual, m.fault_state_ = tree
             if self._layout is not None:
                 self._zopt = opt
             else:
@@ -205,9 +243,14 @@ class SharedTrainingMaster:
         batches). A collective throughout: every rank calls it."""
         self._bind(model)
         k = _pipeline.resolve_steps_per_call(model, requested=self.steps_per_call)
-        if k > 1 and (self._bstep is None or self._bstep.k != k):
+        policy = self._policy()
+        if policy is not None:
+            model._ensure_fault_state(policy, scaling=False)
+        if k > 1 and (self._bstep is None or self._bstep.k != k
+                      or self._bstep_policy != policy):
             get, put = self._carry()
             self._bstep = _pipeline.BundledStep(model, k, self._step, get, put)
+            self._bstep_policy = policy
         sync = None
         if self._layout is not None:
             from deeplearning4j_tpu_torch.parallel.zero import (
@@ -237,6 +280,7 @@ class SharedTrainingMaster:
                         self._step(model._batch(DataSet(*self._rows(
                             [item.features, item.labels, item.features_mask,
                              item.labels_mask], 0))))
+                    _faults.check_fault_state(policy, model.fault_state_, owner=model)
                 it.reset()
                 model.epoch += 1
             finished = True

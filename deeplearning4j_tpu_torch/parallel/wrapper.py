@@ -47,6 +47,13 @@ rows, with no collective.
 
 A mesh over gloo with CUDA tensors (two ranks sharing a card) takes the
 replicated update only: the sharded update and bundled steps refuse it.
+
+Under the model's fault policy (``train/faults.py``) every step is the
+guarded one, as the reference's: replicated, the model's own guarded update
+on the mean gradient, which every rank holds alike; ZeRO-1, the guarded
+sharded step (``parallel/zero.py``, a verdict per rank agreed by one
+collective). The divergence tripwire runs after each step or bundle when
+``max_consecutive_bad_steps`` is set.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from deeplearning4j_tpu_torch.data.iterators import (
     multi_compat_key,
 )
 from deeplearning4j_tpu_torch.parallel.mesh import TrainingMesh
+from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 
 
@@ -139,6 +147,7 @@ class ParallelWrapper:
         self.sharded_update = bool(sharded_update)
         self.steps_per_call = steps_per_call
         self._zstep = None
+        self._zstep_policy = None
         self._zlayout = None
         #: the bundled step (k > 1), built at the first fit that bundles
         self._bstep = None
@@ -157,9 +166,10 @@ class ParallelWrapper:
 
     def _value_and_grad(self, batch):
         """The loss and gradient half of a step on this rank's rows, with
-        the batch statistics of the global batch."""
+        the batch statistics of the global batch (and the loss scale of
+        the model's fault policy)."""
         with self.mesh.batch_stats():
-            return self.model._value_and_grad(*batch)
+            return self.model._value_and_grad(*batch, scale=self.model._step_scale())
 
     def fit(self, it: DataSetIterator, epochs: int = 1) -> None:
         """Data-parallel fit over ``it`` (every rank iterates the same
@@ -170,6 +180,9 @@ class ParallelWrapper:
         m = self.model
         k = self._check()
         mesh = self.mesh
+        policy = m._active_fault_policy()
+        if policy is not None:
+            m._ensure_fault_state(policy)
         if k > 1:
             b = getattr(it, "batch", lambda: 0)()
             if b and b % mesh.n_data:
@@ -183,8 +196,9 @@ class ParallelWrapper:
                 unshard_model_opt_state,
             )
 
-            if self._zstep is None:
-                self._zstep, self._zlayout = make_sharded_train_step(m, mesh)
+            if self._zstep is None or self._zstep_policy != policy:
+                self._zstep, self._zlayout = make_sharded_train_step(m, mesh, policy=policy)
+                self._zstep_policy = policy
             zlayout = self._zlayout
             zref = [shard_model_opt_state(m, zlayout, mesh=mesh)]
             # mid-fit serializers read m.opt_state_, which is stale while the
@@ -195,7 +209,11 @@ class ParallelWrapper:
         def run_single(ds):
             batch = self._pack_batch(ds)
             if zref is not None:
-                m.params_, zref[0], m.state_, m.score_ = self._zstep(zref[0], batch)
+                out = self._zstep(zref[0], batch)
+                if policy is not None:
+                    m.params_, zref[0], m.state_, m.fault_state_, m.score_ = out
+                else:
+                    m.params_, zref[0], m.state_, m.score_ = out
                 m.iteration += 1
             else:
                 m._apply_step(*_mean_over_ranks(mesh, *self._value_and_grad(batch)))
@@ -204,20 +222,23 @@ class ParallelWrapper:
         try:
             for _ in range(epochs):
                 for item in self._stream(it, k):
-                    if not isinstance(item, (list, BatchBundle)):
+                    bundle = isinstance(item, (list, BatchBundle))
+                    stacked = self._pack_bundle(item) if bundle else None
+                    if not bundle:
                         run_single(item)
-                        continue
-                    stacked = self._pack_bundle(item)
-                    if stacked is None:
+                    elif stacked is None:
                         # needs padding, which a stacked bundle cannot take
                         for ds in (item if isinstance(item, list) else item.unstack()):
                             run_single(ds)
                     elif zref is not None:
-                        m.params_, zref[0], m.state_, scores = bstep(zref[0], stacked)
+                        m.params_, zref[0], m.state_, *fs, scores = bstep(zref[0], stacked)
+                        if fs:
+                            m.fault_state_ = fs[0]
                         m.iteration += k
                         m.score_, m.bundle_scores_ = scores.dev[-1], scores
                     else:
                         m.bundle_scores_ = bstep(stacked)
+                    _faults.check_fault_state(policy, m.fault_state_, owner=m)
                 it.reset()
                 m.epoch += 1
             finished = True
@@ -237,13 +258,15 @@ class ParallelWrapper:
         the captured graph): ZeRO-1's bundled sharded step, or the
         replicated step under :class:`~deeplearning4j_tpu_torch.train.
         pipeline.BundledStep`."""
-        key = (k, self.sharded_update)
+        policy = self.model._active_fault_policy()
+        key = (k, self.sharded_update, policy)
         if self._bstep_key != key:
             m, mesh = self.model, self.mesh
             if self.sharded_update:
                 from deeplearning4j_tpu_torch.parallel.zero import make_sharded_train_step
 
-                self._bstep, _ = make_sharded_train_step(m, mesh, steps_per_call=k)
+                self._bstep, _ = make_sharded_train_step(m, mesh, policy=policy,
+                                                         steps_per_call=k)
             else:
                 self._bstep = _pipeline.BundledStep(
                     m, k, lambda batch: m._apply_step(

@@ -32,6 +32,16 @@ with a normalizing layer and more than one rank the gradient is all-reduced
 first and each rank takes its chunk of the global result. The per-leaf
 variant of the TransformerLM trainer (``zero1_extend_spec``) comes with
 ``DistributedLMTrainer`` (ROADMAP § A7).
+
+Under a fault policy the step is the guarded one (``train/faults.py``). The
+reference takes its verdict on the global gradient before the scatter;
+here each rank holds its chunk of the summed gradient after it, so each
+rank checks its chunks (:func:`apply_sharded_updates` with ``verdict``) and
+one collective on the flag (``TrainingMesh.all_true``) makes every rank
+agree. (A verdict on the local, unsummed gradients would be wrong: finite
+terms can sum to inf.) The updater runs on every step, one fused Adam a
+group, and the select keeps the old params, updater shards and layer state
+where the verdict is false.
 """
 
 from __future__ import annotations
@@ -45,12 +55,13 @@ from deeplearning4j_tpu_torch.regularization import (
     as_regularization,
     normalize_layer_gradients,
 )
+from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.updaters import Updater, as_updater
 
 Tensors = Dict[str, torch.Tensor]
 
-#: the step variants the port does not have yet
-NOT_PORTED = "not ported yet (ROADMAP § A3: the guarded and telemetry sharded steps)"
+#: the step variant the port does not have yet
+NOT_PORTED = "not ported yet (ROADMAP § A2.2: the telemetry sharded step)"
 
 
 class _Entry:
@@ -179,8 +190,8 @@ class ShardedUpdateLayout:
 def apply_sharded_updates(layout: ShardedUpdateLayout, params: Sequence[Tensors],
                           grads: Sequence[Tensors], zopt: Sequence[Tensors],
                           t, iteration, epoch, mesh=None,
-                          fused_impls: Optional[Sequence] = None, reduced: bool = False
-                          ) -> Tuple[List[Tensors], List[Tensors]]:
+                          fused_impls: Optional[Sequence] = None, reduced: bool = False,
+                          verdict: bool = False):
     """The sharded analog of ``apply_layer_updates``: per-layer gradient
     normalization -> l1/l2/weight-decay -> flat sharded updater.
     (Constraints, which the reference applies last, are refused at train
@@ -196,7 +207,10 @@ def apply_sharded_updates(layout: ShardedUpdateLayout, params: Sequence[Tensors]
     one-pass fused update, bit-exact against it. ``reduced``: ``grads`` is
     already the global gradient, the same on every rank (the shared-training
     master's decoded update), so each rank takes its chunk of it without a
-    reduction. Inputs are not changed."""
+    reduction. Returns ``(new_params, new_zopt)``; with ``verdict``, also
+    whether every element of this rank's chunks of the (reduced) gradient
+    is finite, a 0-dim bool on the device: ``(new_params, new_zopt, ok)``.
+    Inputs are not changed."""
     layers = layout.layers
     split = mesh is not None
     # gradient normalization is not linear: with several ranks it needs the
@@ -227,6 +241,7 @@ def apply_sharded_updates(layout: ShardedUpdateLayout, params: Sequence[Tensors]
 
     new_params: List[Tensors] = [dict(p) for p in params]
     new_zopt: List[Tensors] = []
+    oks = []
     for gi, (grp, state) in enumerate(zip(layout.groups, zopt)):
         g2d = layout._flatten_group(grp, adjusted)
         p2d = layout._flatten_group(grp, params)
@@ -234,6 +249,8 @@ def apply_sharded_updates(layout: ShardedUpdateLayout, params: Sequence[Tensors]
             r = mesh.rank
             p2d = p2d[r:r + 1]
             g2d = g2d[r:r + 1] if reduce_first or reduced else mesh.reduce_scatter_mean(g2d)
+        if verdict:
+            oks.append(torch.isfinite(g2d).all())
         impl = fused_impls[gi] if fused_impls is not None else None
         if impl is not None:
             np2d, new_state = impl(grp.updater, p2d, g2d, state, t, iteration, epoch)
@@ -244,6 +261,9 @@ def apply_sharded_updates(layout: ShardedUpdateLayout, params: Sequence[Tensors]
             np2d = mesh.all_gather(np2d)
         layout._scatter_group(grp, np2d, new_params)
         new_zopt.append(new_state)
+    if verdict:
+        ok = torch.stack(oks).all() if oks else torch.ones((), dtype=torch.bool)
+        return new_params, new_zopt, ok
     return new_params, new_zopt
 
 
@@ -287,7 +307,8 @@ def unshard_model_opt_state(model, layout: ShardedUpdateLayout,
 def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
                             telemetry=None):
     """The ZeRO-1 data-parallel train step over ``mesh`` (a TrainingMesh),
-    unguarded. Returns ``(step, layout)``.
+    guarded under ``policy`` (a ``FaultPolicy``). Returns ``(step,
+    layout)``.
 
     ``step(zopt, batch)`` runs at the model's params, state, iteration and
     epoch on this rank's ``batch`` (the model's ``_batch`` of its rows) and
@@ -303,11 +324,18 @@ def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
     (:class:`BundledShardedStep`): ``step(zopt, stacked)`` takes k such steps
     over a stacked batch (the rank's rows of k batches, a leading k axis)
     and returns ``(new_params, new_zopt, new_state, BundleScores)``, again
-    without changing the model. A fault policy or telemetry raise."""
-    refused = [what for bad, what in ((policy is not None, "fault_policy"),
-                                      (telemetry is not None, "telemetry")) if bad]
-    if refused:
-        raise NotImplementedError(f"sharded step with {', '.join(refused)}: {NOT_PORTED}")
+    without changing the model.
+
+    With ``policy`` (normally the model's active one) the step is the
+    guarded one, as the reference's: it reads the model's ``fault_state_``
+    (made if missing) and returns ``(new_params, new_zopt, new_state,
+    new_fault_state, score)`` (bundled: ``BundleScores`` last): the loss
+    scaled (under loss scaling), the armed faults injected, the updater at
+    ``t = good_count + 1``, the verdict over this rank's chunks of the
+    summed gradient agreed by one collective, the selects, the fault state
+    advanced. Telemetry raises."""
+    if telemetry is not None:
+        raise NotImplementedError(f"sharded step with telemetry: {NOT_PORTED}")
     from deeplearning4j_tpu_torch.nn.ops import fused_update as _fused_update
 
     mesh.refuse_host_staged("the sharded update", "reduce_scatter and all_gather")
@@ -317,19 +345,37 @@ def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
     fused_impls = _fused_update.resolve_group_impls(layout)
 
     def step(zopt, batch):
+        fstate = None
+        if policy is not None:
+            fstate = model._ensure_fault_state(policy)
+        scale = fstate.get("loss_scale") if fstate is not None else None
         with mesh.batch_stats():
-            loss, new_state, grads = model._value_and_grad(*batch)
+            loss, new_state, grads = model._value_and_grad(*batch, scale=scale)
         (loss,) = mesh.all_reduce_mean([loss])
         _, _, p_list = _model_layer_view(model)
+        if fstate is not None:
+            grads = _faults.inject_gradient_faults(grads, model.iteration)
+            it = fstate["good_count"]
+            t = it + 1
+        else:
+            t, it = model.iteration + 1, model.iteration
         g_list = grads if names is None else [grads[n] for n in names]
-        np_list, new_zopt = apply_sharded_updates(
-            layout, p_list, g_list, zopt, model.iteration + 1, model.iteration,
-            model.epoch, mesh=mesh, fused_impls=fused_impls)
+        np_list, new_zopt, *ok = apply_sharded_updates(
+            layout, p_list, g_list, zopt, t, it, model.epoch, mesh=mesh,
+            fused_impls=fused_impls, verdict=fstate is not None)
         new_params = np_list if names is None else dict(zip(names, np_list))
-        return new_params, new_zopt, new_state, loss + model._reg_score(model.params_)
+        score = loss + model._reg_score(model.params_)
+        if fstate is None:
+            return new_params, new_zopt, new_state, score
+        finite = mesh.all_true(ok[0])
+        if policy.skips(model._compute_dtype):
+            new_params, new_zopt, new_state = _faults.where_tree(
+                finite, (new_params, new_zopt, new_state), (model.params_, zopt, model.state_))
+        return (new_params, new_zopt, new_state,
+                _faults.advance_fault_state(policy, fstate, finite), score)
 
     if int(steps_per_call) > 1:
-        return BundledShardedStep(model, step, int(steps_per_call)), layout
+        return BundledShardedStep(model, step, int(steps_per_call), policy is not None), layout
     return step, layout
 
 
@@ -337,40 +383,47 @@ class BundledShardedStep:
     """k ZeRO-1 steps per call (the reference's bundled sharded step, JAX
     ``parallel/zero.py:432-473``): the single step under
     ``train/pipeline.BundledStep``, carrying params, this rank's updater
-    shards and the layer state; on the card one replay of a captured CUDA
-    graph, collectives included."""
+    shards, the layer state and the fault state; on the card one replay of
+    a captured CUDA graph, collectives included."""
 
-    def __init__(self, model, step, k: int):
+    def __init__(self, model, step, k: int, guarded: bool = False):
         from deeplearning4j_tpu_torch.train.pipeline import BundledStep
 
-        self.model, self.k = model, k
+        self.model, self.k, self.guarded = model, k, guarded
         self._zopt = None
 
         def one(batch):
-            model.params_, self._zopt, model.state_, model.score_ = step(self._zopt, batch)
+            out = step(self._zopt, batch)
+            if guarded:
+                (model.params_, self._zopt, model.state_, model.fault_state_,
+                 model.score_) = out
+            else:
+                model.params_, self._zopt, model.state_, model.score_ = out
             model.iteration += 1
 
         def get():
-            return (model.params_, self._zopt, model.state_)
+            return (model.params_, self._zopt, model.state_, model.fault_state_)
 
         def put(tree):
-            model.params_, self._zopt, model.state_ = tree
+            model.params_, self._zopt, model.state_, model.fault_state_ = tree
 
         self._runner = BundledStep(model, k, one, get, put)
 
     def __call__(self, zopt, stacked):
         """``(new_params, new_zopt, new_state, BundleScores)`` of k steps
-        from the model's params, state and iteration and ``zopt``; the model
+        from the model's params, state, fault state and iteration and
+        ``zopt`` (guarded: ``new_fault_state`` before the scores); the model
         is left as it was (the results may be the runner's static buffers,
         which the next call reads, so the caller hands them back)."""
         m = self.model
-        saved = (m.params_, m.state_, m.iteration, m.score_)
+        saved = (m.params_, m.state_, m.fault_state_, m.iteration, m.score_)
         self._zopt = zopt
         try:
             scores = self._runner(stacked)
-            return m.params_, self._zopt, m.state_, scores
+            out = (m.params_, self._zopt, m.state_)
+            return out + ((m.fault_state_, scores) if self.guarded else (scores,))
         finally:
-            m.params_, m.state_, m.iteration, m.score_ = saved
+            m.params_, m.state_, m.fault_state_, m.iteration, m.score_ = saved
 
     def release(self) -> None:
         """:meth:`BundledStep.release` for the model's tensors."""

@@ -32,10 +32,21 @@ feature mask), run through the model's forward, and sliced back.
   new snapshot before the swap. Serving threads read the snapshot
   reference once per request, so a request is computed under one version.
 
+- ``devices=[d0, ..., dN-1]`` shares each dispatch over N devices, the
+  role ``mesh=TrainingMesh(data=N)`` plays in the reference (``engine.py:
+  119-175, 233-240, 269-270, 423-426, 493-500``): buckets that N does not
+  divide are dropped with the reference's warning (its ``ValueError`` when
+  none is left), every device holds a replica of the snapshot (one per
+  distinct device), and each padded bucket is cut into N equal row blocks,
+  block i run on device i (all launched before any is read back), the
+  results joined on the host in order. ``warmup``, ``reload`` and the int8
+  snapshot act on every replica. A list may name one device twice, which
+  drives the split on one CPU or one card.
+
 PyTorch runs eagerly, so there is no compiled-program counter: ``warmup()``
-runs every bucket shape once. The mesh, the cost sheet, the flight/chaos
-hooks, bucket retuning and per-bucket CUDA graphs come with later slices
-(ROADMAP § A).
+runs every bucket shape once. The tensor-parallel serving mesh, the cost
+sheet, the flight/chaos hooks, bucket retuning and per-bucket CUDA graphs
+come with later slices (ROADMAP § A).
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ import os
 import threading
 import time
 import warnings
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,19 +68,27 @@ from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 
 
 class _Snapshot:
-    """One immutable serving model version."""
+    """One immutable serving model version: ``replicas`` holds (params,
+    state) on each of the engine's devices, in the engine's device order;
+    ``params`` and ``state`` are the first device's."""
 
-    __slots__ = ("model", "params", "state", "conf_json", "version", "source",
-                 "loaded_at")
+    __slots__ = ("model", "replicas", "conf_json", "version", "source", "loaded_at")
 
-    def __init__(self, model, params, state, conf_json, version, source):
+    def __init__(self, model, replicas, conf_json, version, source):
         self.model = model
-        self.params = params
-        self.state = state
+        self.replicas = replicas
         self.conf_json = conf_json
         self.version = int(version)
         self.source = source
         self.loaded_at = time.time()
+
+    @property
+    def params(self):
+        return self.replicas[0][0]
+
+    @property
+    def state(self):
+        return self.replicas[0][1]
 
 
 def conf_input_type(conf):
@@ -150,20 +169,43 @@ class InferenceEngine:
     ``buckets``: a :class:`BucketPolicy`, or a list of batch sizes.
     ``device``: where the snapshot lives and requests run (default the CUDA
     card; :class:`~deeplearning4j_tpu_torch.DeviceUnavailableError` without
-    one). ``checkpoint_dir``: the default ``reload`` source. ``metrics``: a
-    :class:`ServingMetrics` (default a private one)."""
+    one). ``devices``: several devices (in place of ``device``) over which
+    each dispatch is shared, row block by row block. ``checkpoint_dir``:
+    the default ``reload`` source. ``metrics``: a :class:`ServingMetrics`
+    (default a private one)."""
 
     def __init__(self, model, buckets=None, device=None,
                  checkpoint_dir: Optional[str] = None,
                  metrics: Optional[ServingMetrics] = None,
-                 int8_serving: bool = False):
-        self.device = resolve_device(device)
+                 int8_serving: bool = False, devices: Optional[Sequence] = None):
+        if devices is not None and device is not None:
+            raise ValueError("pass device= or devices=, not both")
+        self.devices: List[torch.device] = [
+            resolve_device(d) for d in (devices if devices is not None else [device])]
+        if not self.devices:
+            raise ValueError("devices= names no device")
+        self.device = self.devices[0]
         if buckets is None:
             buckets = BucketPolicy()
         elif not isinstance(buckets, BucketPolicy):
             buckets = BucketPolicy(batch_buckets=buckets)
         # own copy: oversize growth never mutates a policy shared elsewhere
         self.buckets = buckets.copy()
+        n = len(self.devices)
+        if n > 1:
+            # the row blocks must be even: keep only buckets N divides
+            keep = [b for b in self.buckets.batch_buckets if b % n == 0]
+            dropped = [b for b in self.buckets.batch_buckets if b % n]
+            if not keep:
+                raise ValueError(
+                    f"no batch bucket in {self.buckets.batch_buckets} is divisible by "
+                    f"the {n} devices; raise batch_limit or pass batch_buckets that are "
+                    "multiples of it")
+            if dropped:
+                warnings.warn(
+                    f"dropping batch buckets {dropped}: not divisible by the {n} "
+                    f"devices; serving with {keep}", stacklevel=2)
+                self.buckets.batch_buckets = keep
         self.checkpoint_dir = checkpoint_dir
         self.metrics = metrics if metrics is not None else ServingMetrics()
         #: every snapshot of this engine (init and reloads) serves int8
@@ -185,7 +227,9 @@ class InferenceEngine:
         from deeplearning4j_tpu_torch.train.model_serializer import ModelGuesser
 
         path = resolve_checkpoint_source(source)
-        model = ModelGuesser.load_model_guess(path, device=kwargs.get("device"))
+        devices = kwargs.get("devices")
+        model = ModelGuesser.load_model_guess(
+            path, device=devices[0] if devices else kwargs.get("device"))
         if os.path.isdir(source):
             kwargs.setdefault("checkpoint_dir", source)
         eng = cls(model, **kwargs)
@@ -210,16 +254,22 @@ class InferenceEngine:
         if model.params_ is None:
             raise ValueError("init() the model (or load params) before serving")
 
-    def _snapshot_params(self, model):
-        """The model's params as this engine serves them: heads quantized
-        (int8 engines), cast for the compute dtype, on the device."""
+    def _replicas(self, model) -> list:
+        """(params, state) of ``model`` as this engine serves them, on each
+        of its devices: heads quantized (int8 engines), cast for the compute
+        dtype; one copy a distinct device."""
         self._check_servable(model)
         params = model.params_
         if self.int8_serving:
             from deeplearning4j_tpu_torch.nn.ops.int8_matmul import quantize_model_params
 
             params, self.int8_report = quantize_model_params(model)
-        return _place(model.compute_params(params), self.device)
+        params = model.compute_params(params)
+        placed = {}
+        for d in self.devices:
+            if str(d) not in placed:
+                placed[str(d)] = (_place(params, d), _place(model.state_, d))
+        return [placed[str(d)] for d in self.devices]
 
     @staticmethod
     def _conf_json(model) -> str:
@@ -230,9 +280,8 @@ class InferenceEngine:
         return None if _serves_itself(model) else conf_example_shape(model.conf)
 
     def _build_snapshot(self, model, version: int, source) -> _Snapshot:
-        params = self._snapshot_params(model)
-        return _Snapshot(model, params, _place(model.state_, self.device),
-                         self._conf_json(model), version, source)
+        return _Snapshot(model, self._replicas(model), self._conf_json(model), version,
+                         source)
 
     # -- properties ---------------------------------------------------------
     @property
@@ -256,6 +305,7 @@ class InferenceEngine:
             "warm": self.warm,
             "buckets": repr(self.buckets),
             "device": str(self.device),
+            "devices": [str(d) for d in self.devices],
             "int8_serving": self.int8_serving,
             "int8_report": self.int8_report,
             "checkpoint_fingerprint": (None if self._fingerprint is None
@@ -312,28 +362,38 @@ class InferenceEngine:
 
     def _forward_raw(self, snap: _Snapshot, xp: np.ndarray,
                      mp: Optional[np.ndarray] = None) -> np.ndarray:
-        """The exact-shape forward under ``snap``, no padding."""
-        model = snap.model
-        xt = torch.from_numpy(np.ascontiguousarray(xp)).to(self.device)
+        """The exact-shape forward under ``snap``, no padding: with N
+        devices, row block i on device i, every block launched before any
+        is read back, joined in order."""
+        n = len(self.devices)
+        xs = np.split(xp, n) if n > 1 else [xp]
+        ms = np.split(mp, n) if n > 1 and mp is not None else [mp] * n
         with torch.inference_mode():
-            if _serves_itself(model):
-                y = model.serving_forward(snap.params, xt)
-            elif isinstance(model, MultiLayerNetwork):
-                mt = None if mp is None else torch.from_numpy(
-                    np.ascontiguousarray(mp, np.float32)).to(self.device)
-                y, _, _ = model._forward(snap.params, snap.state, xt, cast_params=False,
-                                         fmask=mt)
-            else:
-                if mp is not None:
-                    raise NotImplementedError(
-                        "feature masks into a ComputationGraph are not ported yet "
-                        "(ROADMAP § A)")
-                acts, _, _ = model._forward(snap.params, snap.state, [xt],
-                                            cast_params=False)
-                y = acts[model.conf.network_outputs[0]]
-            if y.dtype in (torch.bfloat16, torch.float16):
-                y = y.float()
-            return y.cpu().numpy()
+            ys = [self._forward_block(snap.model, rep, d, x, m)
+                  for rep, d, x, m in zip(snap.replicas, self.devices, xs, ms)]
+            out = [(y.float() if y.dtype in (torch.bfloat16, torch.float16) else y)
+                   .cpu().numpy() for y in ys]
+        return out[0] if n == 1 else np.concatenate(out, axis=0)
+
+    @staticmethod
+    def _forward_block(model, replica, device, xb: np.ndarray,
+                       mb: Optional[np.ndarray]) -> torch.Tensor:
+        """One block's forward on ``device`` with its ``replica`` (params,
+        state); the result stays on the device."""
+        params, state = replica
+        xt = torch.from_numpy(np.ascontiguousarray(xb)).to(device)
+        if _serves_itself(model):
+            return model.serving_forward(params, xt)
+        if isinstance(model, MultiLayerNetwork):
+            mt = None if mb is None else torch.from_numpy(
+                np.ascontiguousarray(mb, np.float32)).to(device)
+            y, _, _ = model._forward(params, state, xt, cast_params=False, fmask=mt)
+            return y
+        if mb is not None:
+            raise NotImplementedError(
+                "feature masks into a ComputationGraph are not ported yet (ROADMAP § A)")
+        acts, _, _ = model._forward(params, state, [xt], cast_params=False)
+        return acts[model.conf.network_outputs[0]]
 
     # -- warmup -------------------------------------------------------------
     def _warm_snapshot(self, snap: _Snapshot, example_shape) -> int:
@@ -387,9 +447,8 @@ class InferenceEngine:
             same_arch = conf_json == old.conf_json
             if same_arch:
                 # params and state only: the old layer graph stays
-                snap = _Snapshot(old.model, self._snapshot_params(new_model),
-                                 _place(new_model.state_, self.device),
-                                 old.conf_json, old.version + 1, path)
+                snap = _Snapshot(old.model, self._replicas(new_model), old.conf_json,
+                                 old.version + 1, path)
             else:
                 snap = self._build_snapshot(new_model, version=old.version + 1,
                                             source=path)

@@ -8,6 +8,12 @@ way; a graph's vertices sorted by name) and ``meta.json`` (iteration,
 epoch, model type). A zip written by either package restores in the
 other.
 
+``meta.json`` also carries the fault guard's state (``fault_state``: the
+counters and the loss scale, as the reference writes them), which restore
+reads back, so a guarded run resumes with its skip count, its updater clock
+and its loss scale; the reference's RNG chain is not written (the port has
+no dropout RNG yet, ROADMAP § A2.3).
+
 ``updaterState.bin`` holds the updater slots as one f32 vector (layers in
 order, param names, then slot names sorted: ``opt_state_flat``), written
 when the model has updater state and ``save_updater`` (the default) is
@@ -112,6 +118,7 @@ class ModelSerializer:
                 meta = json.loads(z.read(META_ENTRY).decode())
                 net.iteration = int(meta.get("iteration", 0))
                 net.epoch = int(meta.get("epoch", 0))
+                _restore_fault_state(net, meta)
         return net
 
     @staticmethod
@@ -156,11 +163,11 @@ class ModelSerializer:
 
 
 def _build_meta(model) -> dict:
-    """``meta.json``: the counters, the model type and where it was written.
-    (The reference also records its RNG chain and fault-guard state, which
-    the port's models do not have yet.)"""
+    """``meta.json``: the counters, the model type, where it was written and
+    the fault guard's state. (The reference also records its RNG chain,
+    which the port's models do not have yet.)"""
     device = getattr(model, "device", None)
-    return {
+    meta = {
         "iteration": int(model.iteration),
         "epoch": int(model.epoch),
         "model_type": type(model).__name__,
@@ -168,6 +175,30 @@ def _build_meta(model) -> dict:
         "topology": {"n_devices": 1,
                      "backend": "cpu" if device is None else torch.device(device).type},
     }
+    fstate = getattr(model, "fault_state_", None)
+    if fstate is not None:
+        meta["fault_state"] = {k: (float(v) if v.is_floating_point() else int(v))
+                               for k, v in fstate.items()}
+    return meta
+
+
+def _restore_fault_state(net, meta: dict) -> None:
+    """The inverse of :func:`_build_meta`'s ``fault_state`` (a zip without
+    it leaves the fresh model's)."""
+    fs = meta.get("fault_state")
+    if not fs:
+        return
+
+    def i32(v):
+        return torch.tensor(int(v), dtype=torch.int32, device=net.device)
+
+    st = {"bad_count": i32(fs.get("bad_count", 0)), "consec": i32(fs.get("consec", 0)),
+          "good_count": i32(fs.get("good_count", net.iteration))}
+    if "loss_scale" in fs:
+        st["loss_scale"] = torch.tensor(float(fs["loss_scale"]), dtype=torch.float32,
+                                        device=net.device)
+        st["scale_good"] = i32(fs.get("scale_good", 0))
+    net.fault_state_ = st
 
 
 class ModelGuesser:

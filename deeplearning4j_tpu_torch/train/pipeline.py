@@ -31,6 +31,15 @@ the stacked batch, the per-step updater scalars and the K scores:
   the graph a slot of a (K, n) device buffer, and before each replay the
   host fills it by the unchanged host pipeline (``Updater.scalar_value``),
   the same f32 bits an eager step uses;
+- under a fault policy (``train/faults.py``) the fault state rides in the
+  carry with the rest, and the verdict, the selects and the fault state's
+  advance are device operations inside the graph: no host sync within a
+  replay. The guarded step's updater clock is the carried ``good_count``,
+  so its ``alpha`` is computed in the graph from it (no feed slot), and
+  where fault injection is armed at capture, each step compares its
+  iteration, which the host writes into a (K,) device buffer before each
+  replay (``updaters.step_iteration``), with the armed set. The divergence
+  tripwire runs once a bundle, after it (the model's ``fit``);
 - the scores stay on the card: a :class:`BundleScores` holds a copy that no
   later replay writes, fetched to the host at most once;
 - :meth:`BundledStep.release`, at the end of a fit, replaces every static
@@ -38,7 +47,10 @@ the stacked batch, the per-step updater scalars and the K scores:
   ``fit`` never change under a later replay.
 
 Capture runs a warm-up of eager steps on a side stream first (discarded),
-which also records which scalars a step asks for. Anything that syncs the
+which also records which scalars a step asks for. Python's garbage
+collector is paused while the graph is captured (after one collection): an
+earlier graph collected inside the capture (a dropped model's bundle, held
+in a reference cycle) would tear it down. Anything that syncs the
 host inside the step fails the capture, which raises
 :class:`BundleCaptureError`: a bundle on the card never quietly runs eager
 steps. The graph keeps the memory of one step's intermediates (its private
@@ -51,6 +63,7 @@ take no listeners yet, so nothing forces ``k = 1`` today.
 
 from __future__ import annotations
 
+import gc
 import json
 from typing import Any, Callable, List, Optional, Sequence
 
@@ -188,6 +201,8 @@ class _ScalarFeed:
         self.slots = {}
         self.specs = []          # per slot: (updater, kind, dt, dit)
         self.buf: Optional[torch.Tensor] = None
+        #: (K,) int64: step j's host iteration, filled before each replay
+        self.ibuf: Optional[torch.Tensor] = None
         self.j = 0
         self.base = 0
 
@@ -213,6 +228,16 @@ class _ScalarFeed:
                 f"updater scalar {kind!r} of {dict(upd)} was not asked for in the warm-up")
         return self.buf[self.j, slot]
 
+    def iteration(self, iteration: int):
+        """Step j's host iteration: the int in the warm-up, ``ibuf[j]``
+        while capturing."""
+        if self.buf is None:
+            return iteration
+        if iteration != self.base:
+            raise BundleCaptureError(
+                f"a step asked for iteration {iteration} while running at {self.base}")
+        return self.ibuf[self.j]
+
     def host_values(self, iteration: int, epoch: int, k: int) -> torch.Tensor:
         """(k, slots) f32 on the host: each slot of step j at iteration
         ``iteration + j``, by the updater's host pipeline."""
@@ -226,12 +251,13 @@ class _ScalarFeed:
 
 def default_carry(model):
     """(get, put) of the state a model's own steps carry: ``params_``,
-    ``opt_state_`` (made if missing) and ``state_``."""
+    ``opt_state_`` (made if missing), ``state_`` and ``fault_state_`` (None
+    without a fault policy)."""
     def get():
-        return (model.params_, model._ensure_opt_state(), model.state_)
+        return (model.params_, model._ensure_opt_state(), model.state_, model.fault_state_)
 
     def put(tree):
-        model.params_, model.opt_state_, model.state_ = tree
+        model.params_, model.opt_state_, model.state_, model.fault_state_ = tree
 
     return get, put
 
@@ -337,6 +363,7 @@ class BundledStep:
                 torch.cuda.synchronize(dev)
             self._feed.buf = torch.zeros((k, max(1, len(self._feed.specs))),
                                          dtype=torch.float32, device=dev)
+            self._feed.ibuf = torch.zeros((k,), dtype=torch.int64, device=dev)
             self.put(self._static)
             m.iteration, m.score_ = it0, score0
             if not self.emulate:
@@ -344,12 +371,20 @@ class BundledStep:
                                                              pin_memory=True), stacked)
                 self._stage_scalars = torch.empty(tuple(self._feed.buf.shape),
                                                   dtype=torch.float32, pin_memory=True)
+                self._stage_iters = torch.empty((k,), dtype=torch.int64, pin_memory=True)
                 self._copied = torch.cuda.Event()
                 self._copied.record()
                 graph = torch.cuda.CUDAGraph()
                 before = dict(_launch.launch_counts)
-                with torch.cuda.graph(graph):
-                    self._body()
+                gc.collect()
+                collecting = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph):
+                        self._body()
+                finally:
+                    if collecting:
+                        gc.enable()
                 self.captured_launches = {
                     name: n - before.get(name, 0) for name, n in _launch.launch_counts.items()
                     if n != before.get(name, 0)}
@@ -394,10 +429,12 @@ class BundledStep:
         pinned staging, which waits only for the copies of the bundle
         before)."""
         scalars = self._feed.host_values(iteration, epoch, self.k)
+        iters = torch.arange(iteration, iteration + self.k, dtype=torch.int64)
         if self.emulate:
             for st, src in zip(tree_leaves(self._sbatch), tree_leaves(stacked)):
                 st.copy_(src)
             self._feed.buf.copy_(scalars)
+            self._feed.ibuf.copy_(iters)
             return
         self._copied.synchronize()
         for stage, st, src in zip(tree_leaves(self._stage), tree_leaves(self._sbatch),
@@ -406,6 +443,8 @@ class BundledStep:
             st.copy_(stage, non_blocking=True)
         self._stage_scalars.copy_(scalars)
         self._feed.buf.copy_(self._stage_scalars, non_blocking=True)
+        self._stage_iters.copy_(iters)
+        self._feed.ibuf.copy_(self._stage_iters, non_blocking=True)
         self._copied.record()
 
     def release(self) -> None:

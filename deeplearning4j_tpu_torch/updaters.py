@@ -23,6 +23,13 @@ scalar that changes with the step (Adam's bias-corrected ``alpha``, any
 schedule other than a fixed one) comes from a device buffer that the host
 fills before each replay by the same pipeline, so that the graph does not
 freeze the value of the step it was captured at.
+
+Under a fault policy (``train/faults.py``) the guarded step's clock is the
+fault state's ``good_count``, a 0-dim int32 tensor on the device: ``t`` is
+then that tensor plus one, and Adam's ``alpha`` is computed on the device
+from it by the same operations as on the host (bit-equal on the CPU), so
+that no step reads the clock back and a bundle's captured graph follows the
+skips.
 """
 
 from __future__ import annotations
@@ -58,6 +65,14 @@ class scalar_feed:
         _FEED = self.prev
 
 
+def step_iteration(iteration: int):
+    """The host iteration of the step being run, as the step sees it:
+    ``iteration`` itself, or, while a bundled step is captured, the device
+    scalar that the host fills with each step's iteration before a replay
+    (what fault injection compares, ``train/faults.py``)."""
+    return iteration if _FEED is None else _FEED.iteration(iteration)
+
+
 def _schedule_dict(value) -> dict:
     return {"@schedule": True, **as_schedule(value).to_dict()}
 
@@ -90,8 +105,9 @@ class Updater(TaggedConf):
     def step_scalar(self, kind: str, t, iteration, epoch) -> torch.Tensor:
         """A per-step scalar as ``apply`` uses it: :meth:`scalar_value`, or,
         while a bundled step is captured, the feed's device scalar for a
-        value that varies between steps."""
-        if _FEED is None or not self.varies(kind):
+        value that varies between steps. A device ``t`` (the guarded step's
+        clock) is computed from on the device, feed or not."""
+        if _FEED is None or not self.varies(kind) or isinstance(t, torch.Tensor):
             return self.scalar_value(kind, t, iteration, epoch)
         return _FEED.take(self, kind, t, iteration, epoch)
 
@@ -150,8 +166,10 @@ class Adam(Updater):
     def alpha(self, t, iteration, epoch) -> torch.Tensor:
         """The bias-corrected step size ``lr*sqrt(1-b2^t)/(1-b1^t)``, a 0-dim
         f32 tensor: the one scalar pipeline of :meth:`apply` and of the fused
-        update (``nn/ops/fused_update.py``), so both use the same bits."""
-        tf = torch.tensor(float(t), dtype=torch.float32)
+        update (``nn/ops/fused_update.py``), so both use the same bits. A
+        tensor ``t`` (the guarded step's clock) gives alpha on its device."""
+        tf = (t.to(torch.float32) if isinstance(t, torch.Tensor)
+              else torch.tensor(float(t), dtype=torch.float32))
         return (self.lr(iteration, epoch) * torch.sqrt(1 - self["beta2"] ** tf)
                 / (1 - self["beta1"] ** tf))
 

@@ -2098,6 +2098,68 @@ def test_narrow_graph_bundle_on_the_card_equals_its_single_steps(card):
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
 
 
+def test_guarded_narrow_graph_bundle_on_the_card_equals_its_eager_steps(card):
+    """The narrow bf16 graph under a fault policy with loss scaling and NaN
+    injected at step 1 (inside the first bundle): at steps_per_call=2 the
+    two bundles leave params, Nesterovs slots, BN state and the fault state
+    (the scale backed off once) equal to four eager guarded steps, under
+    deterministic cuDNN; the skipped step leaves the eager run's params as
+    they were."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.train import pipeline
+    from deeplearning4j_tpu_torch.train.faults import FaultPolicy, fault_injection
+
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        pol = FaultPolicy(init_loss_scale=2.0 ** 10, scale_growth_interval=2)
+        eager, _ = _model_and_plain()
+        bundled, _ = _model_and_plain()
+        for m in (eager, bundled):
+            m.set_fault_policy(pol)
+        bundled.conf.global_conf.steps_per_call = 2
+        rng = np.random.default_rng(12)
+        batches = [DataSet(rng.standard_normal((6, 20, 20, 3)).astype(np.float32),
+                           np.eye(10, dtype=np.float32)[rng.integers(0, 10, 6)])
+                   for _ in range(4)]
+        with fault_injection([1]):
+            eager.fit(ExistingDataSetIterator(batches[:1]))
+            kept = [t.clone() for t in pipeline.tree_leaves(eager.params_)]
+            eager.fit(ExistingDataSetIterator(batches[1:2]))
+            assert all(torch.equal(a, b)
+                       for a, b in zip(kept, pipeline.tree_leaves(eager.params_)))
+            eager.fit(ExistingDataSetIterator(batches[2:]))
+            bundled.fit(ExistingDataSetIterator(batches))
+        for tree in ("params_", "opt_state_", "state_", "fault_state_"):
+            a = pipeline.tree_leaves(getattr(eager, tree))
+            b = pipeline.tree_leaves(getattr(bundled, tree))
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), tree
+        assert eager.bad_step_count == bundled.bad_step_count == 1
+        assert eager.loss_scale == bundled.loss_scale == 2.0 ** 10
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+
+
+def test_shared_engine_on_one_card_twice_splits_each_dispatch(card):
+    """``InferenceEngine(devices=["cuda:0", "cuda:0"])`` on the narrow bf16
+    graph: a dispatch at bucket 4 runs as two row blocks of 2 (twice one
+    block's launches) and answers within phase 3's rule of the one-device
+    engine (probabilities within 0.03)."""
+    model, _ = _model_and_plain()
+    one = InferenceEngine(model, buckets=[4])
+    two = InferenceEngine(model, buckets=[4], devices=["cuda:0", "cuda:0"])
+    x = np.random.default_rng(5).standard_normal((3, 20, 20, 3)).astype(np.float32)
+    fc.reset_launch_counts()
+    single = InferenceEngine(model, buckets=[2]).infer(x[:2])
+    per_block = dict(fc.launch_counts)
+    fc.reset_launch_counts()
+    split = two.infer(x)
+    assert dict(fc.launch_counts) == {k: 2 * v for k, v in per_block.items()}
+    assert np.abs(split - one.infer(x)).max() <= chip_smoke.SERVE_PROB_TOL
+    assert np.abs(split[:2] - single).max() <= chip_smoke.SERVE_PROB_TOL
+    assert two.describe()["devices"] == ["cuda:0", "cuda:0"]
+
+
 @pytest.mark.parametrize("n,capacity", [(1000, 64), (777, 777), (4097, 300), (25_557_032, 16384)])
 def test_threshold_encode_on_the_card_is_the_cpus_bit_for_bit(card, n, capacity):
     """``parallel/compression.py`` on CUDA tensors: the message (indices,

@@ -83,5 +83,6 @@ def test_the_data_parallel_modules_are_checked():
     them."""
     rel = {str(p.relative_to(REPO)) for p in _port_sources()}
     for name in ("parallel/__init__.py", "parallel/mesh.py", "parallel/wrapper.py",
-                 "parallel/zero.py", "nn/ops/fused_update.py"):
+                 "parallel/zero.py", "nn/ops/fused_update.py", "parallel/inference.py",
+                 "train/faults.py"):
         assert f"deeplearning4j_tpu_torch/{name}" in rel, name

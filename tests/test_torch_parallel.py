@@ -76,6 +76,7 @@ from deeplearning4j_tpu_torch.nn.ops import fused_update as fu
 from deeplearning4j_tpu_torch.parallel import ParallelWrapper, TrainingMesh
 from deeplearning4j_tpu_torch.parallel import zero as tzero
 from deeplearning4j_tpu_torch.parallel.mesh import MeshInitError
+from deeplearning4j_tpu_torch.train.faults import FaultPolicy
 
 PARITY_TOL = 1e-5
 BF16_TOL = 1e-3
@@ -279,10 +280,12 @@ def test_wrapper_refusals_and_knobs():
     pw = ParallelWrapper.builder(telemetry).steps_per_call(4).build()
     with pytest.raises(NotImplementedError, match="telemetry"):
         pw.fit(TExisting([TDataSet(*ranks.blobs(4))]))
-    for refused in ({"policy": True}, {"telemetry": True}):
-        with pytest.raises(NotImplementedError, match="A3"):
-            tzero.make_sharded_train_step(net, TrainingMesh(1, device="cpu"),
-                                          steps_per_call=2, **refused)
+    # the guarded sharded step is in; the telemetry one still raises
+    tzero.make_sharded_train_step(net, TrainingMesh(1, device="cpu"), steps_per_call=2,
+                                  policy=FaultPolicy())
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        tzero.make_sharded_train_step(net, TrainingMesh(1, device="cpu"),
+                                      steps_per_call=2, telemetry=True)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         pw = (ParallelWrapper.builder(net).workers(1).prefetch_buffer(2)
@@ -457,6 +460,39 @@ def test_ranks_skip_bundling_when_always_padding(rank_runs, world):
     ref, jpw = jax_fit(world, False, 1, it=data, steps=2)
     assert jpw._bstep is None
     assert_close(out, "padding/k2", ref)
+
+
+# ----------------------------------------------------------- the guard
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_guarded_wrapper_skips_the_poisoned_step(rank_runs, world):
+    """The fault policy on 2 and 4 ranks with NaN at step 1 of 3: the
+    replicated wrapper tracks JAX's unguarded wrapper on the batches with
+    the poisoned one removed (2 steps) at PARITY_TOL, ZeRO-1 (its verdict on
+    each rank's chunks of the summed gradient, agreed by one collective)
+    matches replicated at 1e-6, and every rank counts one skipped step."""
+    out = rank_runs(world)
+    removed, _ = jax_fit(world, False, 2)
+    # the host iteration counts every batch seen, the skipped one too
+    removed.iteration += 1
+    assert_close(out, "guard/repl", removed)
+    for what in ("params", "opt"):
+        np.testing.assert_allclose(out[f"guard/sharded/{what}"], out[f"guard/repl/{what}"],
+                                   rtol=0, atol=1e-6)
+    for key in ("guard/repl", "guard/sharded"):
+        assert out[f"{key}/bad_counts"].tolist() == [1] * world
+        assert int(out[f"{key}/good_count"]) == 2 and int(out[f"{key}/iteration"]) == 3
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_guarded_master_keeps_params_and_residual(rank_runs, world):
+    """SharedTrainingMaster with the fault policy (the skip guard alone):
+    the poisoned step leaves the params and the residual unchanged on every
+    rank, and training then goes on, finite."""
+    out = rank_runs(world)
+    assert bool(out["guard/master/params_kept"]) and bool(out["guard/master/residual_kept"])
+    assert bool(out["guard/master/finite"]) and bool(out["guard/master/moved"])
+    assert out["guard/master/bad_counts"].tolist() == [1] * world
+    assert int(out["guard/master/good_count"]) == 2
 
 
 # ----------------------------------------------------- batch statistics

@@ -275,7 +275,54 @@ def _cases(rank, world, root):
         save(f"padding/k{k}", net)
     out["padding/no_bundled_step"] = np.bool_(pw._bstep is None)
 
+    out.update(_guard_cases(world, init, save, ds))
     out.update(_shared_cases(rank, world, root, init, save, CheckpointingIterator))
+    return out
+
+
+def _guard_cases(world, init, save, ds):
+    """The fault policy on the wrapper, replicated and ZeRO-1, and on the
+    master: 3 epochs of the 32 blobs with NaN injected at step 1 (the
+    skipped step), every rank's bad-step count gathered; the master's
+    params and residual around the poisoned step, and its updater clock."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, SharedTrainingMaster
+    from deeplearning4j_tpu_torch.train.faults import FaultPolicy, fault_injection
+
+    out = {}
+
+    def bad_counts(net):
+        t = torch.tensor([net.bad_step_count], dtype=torch.int64)
+        rows = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(rows, t)
+        return torch.cat(rows).numpy()
+
+    for sharded in (False, True):
+        key = f"guard/{'sharded' if sharded else 'repl'}"
+        net = _net(init)
+        net.set_fault_policy(FaultPolicy())
+        with fault_injection([1]):
+            (ParallelWrapper.builder(net).workers(world).sharded_update(sharded).build()
+             .fit(ExistingDataSetIterator([ds]), epochs=3))
+        save(key, net)
+        out[f"{key}/bad_counts"] = bad_counts(net)
+        out[f"{key}/good_count"] = np.int64(net.fault_state_["good_count"])
+
+    net = _net(init)
+    net.set_fault_policy(FaultPolicy())
+    master = SharedTrainingMaster.builder(SHARED_THRESHOLD).build()
+    it = ExistingDataSetIterator([ds])
+    with fault_injection([1]):
+        master.fit(net, it)
+        before = (net.params_flat().copy(), master._residual.clone())
+        master.fit(net, it)  # iteration 1: poisoned, skipped
+        out["guard/master/params_kept"] = np.bool_(np.array_equal(before[0], net.params_flat()))
+        out["guard/master/residual_kept"] = np.bool_(torch.equal(before[1], master._residual))
+        master.fit(net, it)
+    out["guard/master/bad_counts"] = bad_counts(net)
+    out["guard/master/good_count"] = np.int64(net.fault_state_["good_count"])
+    out["guard/master/finite"] = np.bool_(np.isfinite(net.params_flat()).all())
+    out["guard/master/moved"] = np.bool_(not np.array_equal(before[0], net.params_flat()))
     return out
 
 
