@@ -109,6 +109,22 @@ bundled, in turns. Phase 13 serves phase 3's ResNet-50 through
 launches a bucket-32 dispatch, phase 3's rule against one device), runs
 ``cli serve --workers 1 --smoke`` and ``--workers`` one more than the cards
 (the typed refusal), and times requests/s batched against sequential.
+Phase 14 trains with the builder's global knobs: (a) the full-width
+ResNet-50 built with Nadam on a warmup-cosine schedule, l1, l2 on biases,
+weight decay and the per-layer l2 clip, 8 eager steps with phase 4's
+launches (no fused Adam) and a falling score, the same batches at
+``steps_per_call=4`` bit for bit (the schedule and Nadam's bias corrections
+from the bundle's feed), guarded with ``FaultPolicy()`` and NaN at step 3
+(the skipped step keeps params and slots, the updater's clock skips it,
+k 4 == eager), and images/s beside phase 4b's Nesterovs models in turns;
+(b) phase 10's ZeRO-1 wrapper under AMSGrad: one sharded update bit-equal
+to the per-layer one, no fused Adam, a zip written mid-fit restoring m, v
+and v_hat whose next step equals the uninterrupted run's; (c) LeNet built
+through the builder (updater by name, leakyrelu, xavier_uniform, bias_init,
+l1, the clip) one fit step under each of the six other adaptive updaters,
+each update on the card against the CPU ``apply`` on the step's own
+gradients, and the 22 losses' values and gradients on the card against the
+CPU.
 Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
@@ -4426,6 +4442,459 @@ def _parallel_inference(fc, card, serve):
             "ms_two_blocks": t_two, "requests_per_s": rps, "cli": cli}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the builder's global knobs, every updater, loss and schedule
+# ---------------------------------------------------------------------------
+KNOB_STEPS = 8                # (a) eager steps, and the same batches bundled ...
+KNOB_K = 4                    # ... at steps_per_call KNOB_K
+KNOB_POISON = 3               # (a) the NaN-poisoned step of the guarded runs
+KNOB_NOISE = 0.05             # (a) each batch: one seeded batch plus this much noise
+KNOB_L1 = 1e-7                # (a) the knobs: l1, l2 (the zoo's), l2 on biases,
+KNOB_L2 = 1e-4                #     weight decay and the per-layer l2 clip
+KNOB_L2_BIAS = 1e-4
+KNOB_WEIGHT_DECAY = 1e-5
+KNOB_CLIP = 1.0
+KNOB_ZERO1_STEPS = 3          # (b) sharded AMSGrad steps before the zip
+NEW_UPDATERS = ("AdaMax", "Nadam", "AMSGrad", "AdaGrad", "AdaDelta", "RmsProp")
+KNOB_LENET_BATCH = 64         # (c) LeNet rows; the losses' rows
+KNOB_REL_TOL = 1e-6           # (c) card vs CPU: an update's, a loss's value and gradient
+
+
+def knob_builder(k: int = 1, policy=None):
+    """Phase 14's builder: Nadam on a warmup-cosine learning rate, l1, l2,
+    l2 on biases, weight decay, the per-layer l2 clip, bf16 compute."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.schedules import CosineSchedule, WarmupSchedule
+    from deeplearning4j_tpu_torch.updaters import Nadam
+
+    b = (NeuralNetConfiguration.builder().seed(SEED)
+         .updater(Nadam(WarmupSchedule(2, CosineSchedule(1e-4, 16))))
+         .l1(KNOB_L1).l2(KNOB_L2).l2_bias(KNOB_L2_BIAS).weight_decay(KNOB_WEIGHT_DECAY)
+         .gradient_normalization("clip_l2_per_layer", KNOB_CLIP)
+         .compute_dtype("bfloat16").steps_per_call(k))
+    return b if policy is None else b.fault_policy(policy)
+
+
+def resnet50_knobbed(k: int = 1, policy=None):
+    """The zoo's full-width bf16 fused ResNet-50 with phase 14's training
+    knobs in place of its own: every layer inherits them from the builder's
+    global configuration, as a build does; BN randomized as phase 3's."""
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    conf = ResNet50(num_classes=1000, height=224, width=224, fused_pallas=True,
+                    compute_dtype="bfloat16", seed=SEED).conf()
+    # the global configuration the builder hands its layers at build()
+    g = knob_builder(k, policy)._global_conf()
+    g.weight_init = conf.global_conf.weight_init
+    for v in conf.vertices.values():
+        layer = getattr(v, "layer", None)
+        if layer is not None:
+            layer.updater = layer.regularization = layer.gradient_normalization = None
+            layer.inherit_defaults(g)
+    conf.global_conf = g
+    model = ComputationGraph(conf).init()
+    randomize_bn(model, SEED)
+    return model
+
+
+class record_updates:
+    """Context manager: every ``apply`` of updater class ``cls`` appends
+    (grad, state, t, iteration, epoch, update, new state), cloned, to
+    ``sink``."""
+
+    def __init__(self, cls, sink):
+        self.cls, self.sink = cls, sink
+
+    def __enter__(self):
+        self.orig = orig = self.cls.apply
+        sink = self.sink
+
+        def apply(upd, grad, state, t, iteration, epoch):
+            out = orig(upd, grad, state, t, iteration, epoch)
+            sink.append((grad.clone(), {k: v.clone() for k, v in state.items()}, t, iteration,
+                         epoch, out[0].clone(), {k: v.clone() for k, v in out[1].items()}))
+            return out
+
+        self.cls.apply = apply
+
+    def __exit__(self, *exc):
+        self.cls.apply = self.orig
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| in f64 (||a - b|| where b is 0)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den > 0 else float((a - b).norm())
+
+
+def knobs_phase(fc, fu, card: str, bundle: dict):
+    """Phase 14: phase 14's knobs on the full-width ResNet-50 (eager,
+    bundled, guarded), phase 10's ZeRO-1 wrapper under AMSGrad, and LeNet
+    under each new updater; every loss on the card against the CPU."""
+    return _deterministic_cudnn(lambda: _knobs(fc, fu, card, bundle))
+
+
+def _knobs(fc, fu, card, bundle):
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.train import pipeline
+    from deeplearning4j_tpu_torch.train.faults import FaultPolicy, fault_injection
+    from deeplearning4j_tpu_torch.updaters import Nadam, Nesterovs
+
+    failed = []
+    rng = np.random.default_rng(SEED + 30)
+    x0 = rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32)
+    y0 = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)]
+    batches = [DataSet(x0 + KNOB_NOISE * rng.standard_normal(x0.shape).astype(np.float32), y0)
+               for _ in range(KNOB_STEPS)]
+
+    def free(*models):
+        for m in models:
+            m.params_ = m.state_ = m.opt_state_ = m.fault_state_ = m._bundled = None
+        torch.cuda.empty_cache()
+
+    # (a) the main path: 8 eager steps, counts from 0 just before, each
+    # step's read as the next batch is handed out; then the same batches at
+    # steps_per_call 4 (two replays of one captured graph)
+    eager, bundled = resnet50_knobbed(), resnet50_knobbed(KNOB_K)
+    marks = []
+    fc.reset_launch_counts()
+    eager.fit(RecordingIterator(batches, lambda i: marks.append(
+        (dict(fc.launch_counts), None if eager.score_ is None else float(eager.score_)))))
+    torch.cuda.synchronize()
+    main_launches = dict(fc.launch_counts)
+    marks.append((main_launches, float(eager.score_)))
+    per_step = [{k: b[0].get(k, 0) - a[0].get(k, 0) for k in b[0]}
+                for a, b in zip(marks, marks[1:])]
+    eager_scores = [s for _, s in marks[1:]]
+    seen = []
+    fc.reset_launch_counts()
+    bundled.fit(RecordingIterator(batches, lambda i: seen.append(bundled.bundle_scores_)))
+    torch.cuda.synchronize()
+    bundled_launches = dict(fc.launch_counts)
+    captured = dict(bundled._bundled.captured_launches)
+    slots = sorted({kind for _, kind, _, _ in bundled._bundled._feed.specs})
+    scores = _bundle_scores(bundled, seen)
+    equal = _states_equal(eager, bundled)
+    want_capture = {k: KNOB_K * v for k, v in STEP_LAUNCHES.items()}
+    want_bundled = {k: (KNOB_K + pipeline.WARMUP_STEPS) * v for k, v in STEP_LAUNCHES.items()}
+    print(f"phase 14 (a) knobs: ResNet-50 1000 classes 224x224 bf16 fused through "
+          f"ComputationGraph.fit, batch {BATCH}, deterministic cuDNN; builder: "
+          f"updater Nadam(WarmupSchedule(2, CosineSchedule(1e-4, 16))), l1 {KNOB_L1}, l2 "
+          f"{KNOB_L2}, l2_bias {KNOB_L2_BIAS}, weight_decay {KNOB_WEIGHT_DECAY}, "
+          f"gradient_normalization clip_l2_per_layer {KNOB_CLIP}; {KNOB_STEPS} eager steps: "
+          f"scores {[round(s, 5) for s in eager_scores]}; launches per step {per_step[0]} "
+          f"(fused_adam {main_launches.get('fused_adam', 0)})", flush=True)
+    print(f"phase 14 (a) bundled at steps_per_call={KNOB_K} (two replays) vs the {KNOB_STEPS} "
+          f"eager steps torch.equal {equal}; scores equal {scores == eager_scores}; the "
+          f"feed's per-step scalars {slots}; launches captured {captured} ({KNOB_K} x a "
+          f"step's: {captured == want_capture}); main-path launches {bundled_launches}",
+          flush=True)
+    if any(s != STEP_LAUNCHES for s in per_step) or main_launches.get("fused_adam", 0):
+        failed.append(f"(a) an eager step launched {per_step}, expected {STEP_LAUNCHES}")
+    if not all(equal.values()) or scores != eager_scores:
+        failed.append(f"(a) bundles differ from eager steps: {equal}")
+    if captured != want_capture or bundled_launches != want_bundled:
+        failed.append(f"(a) captured {captured}, main path {bundled_launches}")
+    if not (_finite(eager) and all(math.isfinite(s) for s in eager_scores)
+            and eager_scores[-1] < eager_scores[0]):
+        failed.append(f"(a) not finite, or score {eager_scores[-1]} not below "
+                      f"{eager_scores[0]}")
+    if set(slots) != {"inv_bias1", "inv_bias1_next", "inv_bias2", "learning_rate"}:
+        failed.append(f"(a) the feed's scalars {slots}")
+
+    # (a) images/s: the knobs, eager and bundled, beside phase 4b's
+    # Nesterovs models, in turns
+    nest_e, _ = resnet50(updater=Nesterovs(TRAIN_LR, 0.9))
+    nest_b, _ = resnet50(updater=Nesterovs(TRAIN_LR, 0.9))
+    nest_b.conf.global_conf.steps_per_call = KNOB_K
+    nest_b.fit(ExistingDataSetIterator(batches))  # capture
+    runs = [("knobs eager", lambda: eager.fit(ExistingDataSetIterator(batches))),
+            ("knobs bundled", lambda: bundled.fit(ExistingDataSetIterator(batches))),
+            ("Nesterovs eager", lambda: nest_e.fit(ExistingDataSetIterator(batches))),
+            ("Nesterovs bundled", lambda: nest_b.fit(ExistingDataSetIterator(batches)))]
+    timed = _in_turns(runs)
+    speed = {label: [BATCH * KNOB_STEPS / t for t in r["s"]] for label, r in timed.items()}
+    fmt = lambda v: [round(x, 2) for x in v]  # noqa: E731
+    print(f"phase 14 (a) speed (in turns: a b c d d c b a; {KNOB_STEPS} batches a fit, host "
+          f"clock, synchronized), images/s: "
+          + "; ".join(f"{label} {fmt(v)}" for label, v in speed.items())
+          + f"; phase 4b in this run: {fmt(bundle['speed']['eager']['images_per_s'])} eager, "
+          f"{fmt(bundle['speed']['bundled']['images_per_s'])} bundled; on {card}", flush=True)
+    free(eager, bundled, nest_e, nest_b)
+
+    # (a) guarded: FaultPolicy() (loss scaling on under bf16), NaN at step
+    # KNOB_POISON; eager (the updater's clock recorded) and at k 4 (the
+    # poison inside the first replay)
+    clock = []
+
+    class Clock:
+        def __enter__(self):
+            self.orig = orig = Nadam.inv_bias1
+
+            def inv_bias1(upd, t, iteration, epoch):
+                clock.append(int(t) if isinstance(t, torch.Tensor) else t)
+                return orig(upd, t, iteration, epoch)
+
+            Nadam.inv_bias1 = inv_bias1
+
+        def __exit__(self, *exc):
+            Nadam.inv_bias1 = self.orig
+
+    g_eager = resnet50_knobbed(1, FaultPolicy())
+    kept = {}
+
+    def around_poison(i):
+        if i == KNOB_POISON:
+            kept["before"] = (pipeline.tree_map(lambda t: t.clone(), g_eager.params_),
+                              pipeline.tree_map(lambda t: t.clone(), g_eager.opt_state_))
+        elif i == KNOB_POISON + 1:
+            kept["params"] = _tensors_equal(kept["before"][0], g_eager.params_)
+            kept["slots"] = _tensors_equal(kept["before"][1], g_eager.opt_state_)
+            del kept["before"]
+
+    with fault_injection([KNOB_POISON]), Clock():
+        g_eager.fit(RecordingIterator(batches, around_poison))
+    torch.cuda.synchronize()
+    # one clock reading a param a step: the step's t where all of them agree
+    n = len(clock) // KNOB_STEPS
+    chunks = [clock[i * n:(i + 1) * n] for i in range(KNOB_STEPS)]
+    clock = [c[0] if len(set(c)) == 1 else c for c in chunks]
+    want_clock = list(range(1, KNOB_POISON + 2)) + list(range(KNOB_POISON + 1, KNOB_STEPS))
+    g_bundled = resnet50_knobbed(KNOB_K, FaultPolicy())
+    fc.reset_launch_counts()
+    with fault_injection([KNOB_POISON]):
+        g_bundled.fit(ExistingDataSetIterator(batches))
+    torch.cuda.synchronize()
+    g_launches = dict(fc.launch_counts)
+    g_equal = _states_equal(g_eager, g_bundled)
+    g_equal["fault_state"] = _fault_states_equal(g_eager, g_bundled)
+    good = int(g_eager.fault_state_["good_count"])
+    print(f"phase 14 (a) guarded (FaultPolicy(), NaN at step {KNOB_POISON}): the skipped "
+          f"step keeps {kept}; the updater's clock t by step {clock} (want {want_clock}); "
+          f"good steps {good}, bad {g_eager.bad_step_count}, loss scale {g_eager.loss_scale}; "
+          f"k {KNOB_K} vs eager torch.equal {g_equal}; launches {g_launches}", flush=True)
+    if not (kept.get("params") and kept.get("slots")) or clock != want_clock \
+            or good != KNOB_STEPS - 1 or g_eager.bad_step_count != 1 or not all(g_equal.values()) \
+            or g_launches.get("fused_adam", 0) or not _finite(g_eager):
+        failed.append(f"(a) guarded: kept {kept}, clock {clock}, equal {g_equal}")
+    free(g_eager, g_bundled)
+
+    zero1 = _knobs_zero1(fc, fu, failed)
+    lenet = _knobs_lenet(fc, failed)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"main_launches": main_launches, "launches_per_step": per_step[0],
+            "scores": eager_scores, "bundled_equal": equal, "captured": captured,
+            "feed": slots, "speed": speed,
+            "guarded": {"kept": kept, "clock": clock, "equal": g_equal,
+                        "launches": g_launches},
+            "zero1": zero1, "lenet": lenet}
+
+
+def _knobs_zero1(fc, fu, failed):
+    """Phase 14 (b): phase 10's ZeRO-1 wrapper under AMSGrad."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.graph import _as_multi
+    from deeplearning4j_tpu_torch.nn.multilayer import apply_layer_updates
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, TrainingMesh, zero
+    from deeplearning4j_tpu_torch.train.model_serializer import ModelSerializer
+    from deeplearning4j_tpu_torch.updaters import AMSGrad
+
+    mesh = TrainingMesh(workers=1, device="cuda")
+    model, _ = resnet50(updater=AMSGrad(ADAM_LR))
+    rng = np.random.default_rng(SEED + 31)
+    ds = DataSet(rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32),
+                 np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)])
+    names = model.layer_names
+    layers = [model._layer(nm) for nm in names]
+    _, _, grads = model._value_and_grad(*model._batch(_as_multi(ds)))
+    g = torch.Generator().manual_seed(SEED)
+
+    def slots(t):
+        v = torch.rand(t.shape, generator=g) * 1e-6
+        return {"m": (torch.randn(t.shape, generator=g) * 1e-3).cuda(), "v": v.cuda(),
+                "v_hat": (v + torch.rand(t.shape, generator=g) * 1e-6 *
+                          (torch.rand(t.shape, generator=g) < 0.5)).cuda()}
+
+    opt = {nm: {pn: slots(t) for pn, t in model.params_[nm].items()} for nm in names}
+    p_list, g_list = [model.params_[nm] for nm in names], [grads[nm] for nm in names]
+    o_list = [opt[nm] for nm in names]
+    ref_p, ref_o = apply_layer_updates(layers, p_list, g_list, o_list, 3, 2, 0)
+    layout = zero.build_layout(model, mesh.n_data)
+    impls = fu.resolve_group_impls(layout)
+    fc.reset_launch_counts()
+    got_p, zopt = zero.apply_sharded_updates(layout, p_list, g_list,
+                                             layout.shard_opt_state(o_list, mesh), 3, 2, 0,
+                                             mesh=mesh, fused_impls=impls)
+    got_o = layout.unshard_opt_state(zopt, o_list, mesh)
+    torch.cuda.synchronize()
+    one_update = fc.launch_counts.get("fused_adam", 0)
+    unequal = [f"{nm}/{k}" for nm, a, b in zip(names, got_p, ref_p) for k in b
+               if not torch.equal(a[k], b[k])]
+    unequal += [f"{nm}/{k}/{s}" for nm, a, b in zip(names, got_o, ref_o) for k in b
+                for s in b[k] if not torch.equal(a[k][s], b[k][s])]
+    n_tensors = sum(len(b) for b in ref_p) + sum(len(b[k]) for b in ref_o for k in b)
+    print(f"phase 14 (b) ZeRO-1 under AMSGrad({ADAM_LR}) (phase 10's model, {mesh}): "
+          f"{len(layout.groups)} groups, fused impls {sum(i is not None for i in impls)}; one "
+          f"sharded update vs per-layer eager AMSGrad.apply: {n_tensors - len(unequal)}/"
+          f"{n_tensors} params and slots (m, v, v_hat) torch.equal; fused_adam launches "
+          f"{one_update}", flush=True)
+    if unequal or one_update or any(i is not None for i in impls):
+        failed.append(f"(b) one update: {unequal[:5]}, {one_update} fused_adam launches")
+    del grads, opt, p_list, g_list, o_list, ref_p, ref_o, got_p, got_o, zopt
+
+    pw = ParallelWrapper.builder(model).workers(1).sharded_update(True).build()
+    fc.reset_launch_counts()
+    pw.fit(ExistingDataSetIterator([ds] * KNOB_ZERO1_STEPS))
+    torch.cuda.synchronize()
+    launches = dict(fc.launch_counts)
+    at = model.iteration + 1
+    with tempfile.TemporaryDirectory(dir=os.getcwd(), prefix=".phase14-") as tmp:
+        path = os.path.join(tmp, "midfit.zip")
+
+        def write_at(i):
+            if model.iteration == at:
+                ModelSerializer.write_model(model, path)
+
+        pw.fit(RecordingIterator([ds] * 2, write_at))
+        uninterrupted = (model.params_flat(), model.opt_state_flat())
+        zip_mib = os.path.getsize(path) / 2 ** 20
+        resumed = ModelSerializer.restore_computation_graph(path)
+    restored_slots = sorted({s for nm in resumed.opt_state_ for pn in resumed.opt_state_[nm]
+                             for s in resumed.opt_state_[nm][pn]})
+    v_hat_set = max(float(resumed.opt_state_[nm][pn]["v_hat"].abs().max())
+                    for nm in resumed.opt_state_ for pn in resumed.opt_state_[nm])
+    restored_it = resumed.iteration
+    ParallelWrapper.builder(resumed).workers(1).sharded_update(True).build().fit(
+        ExistingDataSetIterator([ds]))
+    torch.cuda.synchronize()
+    p_equal = np.array_equal(resumed.params_flat(), uninterrupted[0])
+    o_equal = np.array_equal(resumed.opt_state_flat(), uninterrupted[1])
+    want = {k: KNOB_ZERO1_STEPS * v for k, v in STEP_LAUNCHES.items()}
+    print(f"phase 14 (b) {KNOB_ZERO1_STEPS} sharded steps: launches {launches} (fused_adam 0); "
+          f"zip written mid-fit at iteration {at} ({zip_mib:.1f} MiB), restored at "
+          f"{restored_it} with slots {restored_slots} (max |v_hat| {v_hat_set:.3g}); its next "
+          f"step vs the uninterrupted run: params equal {p_equal}, slots equal {o_equal}",
+          flush=True)
+    if launches != want or restored_slots != ["m", "v", "v_hat"] or not v_hat_set > 0 \
+            or not (p_equal and o_equal and restored_it == at):
+        failed.append(f"(b) launches {launches}, slots {restored_slots}, resumed equal "
+                      f"{p_equal}/{o_equal}")
+    model.params_ = model.opt_state_ = resumed.params_ = resumed.opt_state_ = None
+    del model, resumed, pw
+    torch.cuda.empty_cache()
+    return {"one_update_equal": not unequal, "launches": launches, "zip_mib": zip_mib,
+            "restored_slots": restored_slots, "resumed_equal": bool(p_equal and o_equal)}
+
+
+def knob_lenet(name: str):
+    """LeNet at full width (28x28x1, 10 classes) built through the builder:
+    the updater by name, leakyrelu, xavier_uniform, bias 0.01, l1 and the
+    per-layer l2 clip; on the card."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        ConvolutionLayer,
+        DenseLayer,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder().seed(SEED).updater(name.lower())
+            .activation("leakyrelu").weight_init("xavier_uniform").bias_init(0.01)
+            .l1(1e-5).gradient_normalization("clip_l2_per_layer", KNOB_CLIP).list()
+            .layer(ConvolutionLayer(n_out=20, kernel_size=5, convolution_mode="same"))
+            .layer(SubsamplingLayer(kernel_size=2, stride=2, pooling_type="max"))
+            .layer(ConvolutionLayer(n_out=50, kernel_size=5, convolution_mode="same"))
+            .layer(SubsamplingLayer(kernel_size=2, stride=2, pooling_type="max"))
+            .layer(DenseLayer(n_out=500))
+            .layer(OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.convolutional(28, 28, 1)).build())
+    return MultiLayerNetwork(conf).init()
+
+
+def loss_inputs(name: str, rng, b: int, c: int):
+    """(labels, preout) for loss ``name`` in its label domain."""
+    preout = (rng.standard_normal((b, c)) * 2).astype(np.float32)
+    if name in ("mcxent", "negativeloglikelihood"):
+        return np.eye(c, dtype=np.float32)[rng.integers(0, c, b)], preout
+    if name == "sparse_mcxent":
+        return rng.integers(0, c, b).astype(np.int64), preout
+    if name in ("kl_divergence", "kld"):
+        p = rng.random((b, c)).astype(np.float32) + 0.05
+        return (p / p.sum(-1, keepdims=True)).astype(np.float32), preout
+    if name in ("xent", "reconstruction_crossentropy"):
+        return (rng.random((b, c)) > 0.5).astype(np.float32), preout
+    if name in ("hinge", "squared_hinge"):
+        return np.where(rng.random((b, c)) > 0.5, 1.0, -1.0).astype(np.float32), preout
+    if name in ("poisson", "msle", "mean_squared_logarithmic_error"):
+        return (rng.random((b, c)) * 3).astype(np.float32), preout
+    return rng.standard_normal((b, c)).astype(np.float32), preout
+
+
+def _knobs_lenet(fc, failed):
+    """Phase 14 (c): LeNet under each new updater, one fit step on the card,
+    each update against the CPU ``apply`` on the step's own gradients; every
+    loss's value and gradient on the card against the CPU."""
+    from deeplearning4j_tpu_torch import losses
+    from deeplearning4j_tpu_torch import updaters as upd
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+
+    rng = np.random.default_rng(SEED + 32)
+    ds = DataSet(rng.standard_normal((KNOB_LENET_BATCH, 28, 28, 1)).astype(np.float32),
+                 np.eye(10, dtype=np.float32)[rng.integers(0, 10, KNOB_LENET_BATCH)])
+    out = {}
+    for name in NEW_UPDATERS:
+        net = knob_lenet(name)
+        sink = []
+        fc.reset_launch_counts()
+        with record_updates(upd._UPDATERS[name], sink):
+            net.fit(ExistingDataSetIterator([ds]))
+        torch.cuda.synchronize()
+        launches = sum(fc.launch_counts.values())
+        errs = []
+        for grad, state, t, it, ep, update, new_state in sink:
+            cpu = upd.as_updater(net.layers[0].updater)
+            ref, ref_state = cpu.apply(grad.cpu(), {k: v.cpu() for k, v in state.items()},
+                                       t, it, ep)
+            errs.append(max([_rel(update, ref)]
+                            + [_rel(new_state[k], ref_state[k]) for k in ref_state]))
+        out[name] = {"params": len(sink), "max_rel": max(errs), "launches": launches,
+                     "score": float(net.score_)}
+        if len(sink) != 8 or max(errs) > KNOB_REL_TOL or launches \
+                or not math.isfinite(out[name]["score"]):
+            failed.append(f"(c) {name}: {out[name]}")
+        del net
+    print(f"phase 14 (c) LeNet 28x28x1 (builder: updater by name, leakyrelu, xavier_uniform, "
+          f"bias_init 0.01, l1 1e-5, clip_l2_per_layer {KNOB_CLIP}), one fit step of batch "
+          f"{KNOB_LENET_BATCH} under each new updater; the update and slots on the card vs "
+          f"the CPU apply on the step's own gradients, max ||d|| / ||ref|| over the 8 params "
+          f"(tol {KNOB_REL_TOL}): "
+          + ", ".join(f"{n} {r['max_rel']:.3g}" for n, r in out.items()), flush=True)
+
+    loss_err = {}
+    for name in losses.names():
+        labels, preout = loss_inputs(name, rng, KNOB_LENET_BATCH, 10)
+        vals, grads = [], []
+        for dev in ("cuda", "cpu"):
+            x = torch.tensor(preout, device=dev, requires_grad=True)
+            v = losses.get(name)(torch.tensor(labels, device=dev), x)
+            v.sum().backward()
+            vals.append(v.detach())
+            grads.append(x.grad)
+        loss_err[name] = max(_rel(vals[0], vals[1]), _rel(grads[0], grads[1]))
+    bad = {n: e for n, e in loss_err.items() if not e <= KNOB_REL_TOL}
+    print(f"phase 14 (c) losses: the {len(loss_err)} losses' values and gradients on the card "
+          f"vs the CPU ({KNOB_LENET_BATCH} x 10, default activations), max ||d|| / ||ref|| "
+          f"{max(loss_err.values()):.3g} ({max(loss_err, key=loss_err.get)}); over tol "
+          f"{KNOB_REL_TOL}: {bad or 'none'}", flush=True)
+    if bad:
+        failed.append(f"(c) losses {bad}")
+    return {"updaters": out, "losses": loss_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4477,6 +4946,7 @@ def main() -> int:
     master = master_phase(fu, card)
     guard = guard_phase(fc, fu, card)
     pinf = parallel_inference_phase(fc, card, serve)
+    knobs = knobs_phase(fc, fu, card, bundle)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -4543,6 +5013,11 @@ def main() -> int:
             entry_k["launches_guarded"] = guard["main_launches"][name]
         if name in pinf["main_launches"]:
             entry_k["launches_shared_engine"] = pinf["main_launches"][name]
+        # phase 14's eager steps under the knobs (Nadam: no fused Adam) and
+        # its sharded AMSGrad steps
+        if name in STEP_LAUNCHES or name == "fused_adam":
+            entry_k["launches_knobs"] = (knobs["main_launches"].get(name, 0)
+                                         + knobs["zero1"]["launches"].get(name, 0))
         kernels.append(entry_k)
     import torch.distributed as dist
 
@@ -4560,7 +5035,7 @@ def main() -> int:
                    "vgg16": vgg, "generation": gen,
                    "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
                    "entry_points": entry, "guard": guard, "parallel_inference": pinf,
-                   "kernels": kernels}, f, indent=1)
+                   "knobs": knobs, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -75,3 +75,10 @@ def _dtype_of(name: Optional[str]) -> Optional[torch.dtype]:
         return None
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16, "float64": torch.float64}[name]
+
+
+def param_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """The params' dtype for a configuration's ``dtype``: as
+    :func:`_dtype_of`, except "float64", which gives f32 as the reference
+    does (JAX runs with x64 off, so its float64 arrays are f32)."""
+    return torch.float32 if name == "float64" else _dtype_of(name)

@@ -39,15 +39,20 @@ class DataSetIterator:
 
 
 class ListDataSetIterator(DataSetIterator):
-    """Iterate a host DataSet in minibatches."""
+    """Iterate a host DataSet in minibatches; ``drop_last`` leaves out a
+    ragged last batch, as the reference does."""
 
-    def __init__(self, data: DataSet, batch_size: int = 32):
+    def __init__(self, data: DataSet, batch_size: int = 32, drop_last: bool = False):
         self._data = data
         self._batch = int(batch_size)
+        self._drop_last = bool(drop_last)
         self._pos = 0
 
     def has_next(self) -> bool:
-        return self._pos < self._data.num_examples()
+        remaining = self._data.num_examples() - self._pos
+        if remaining <= 0:
+            return False
+        return not (self._drop_last and remaining < self._batch)
 
     def next(self) -> DataSet:
         lo = self._pos

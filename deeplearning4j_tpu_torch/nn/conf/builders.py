@@ -154,20 +154,63 @@ class NeuralNetConfiguration:
         return self
 
     def updater(self, u) -> "NeuralNetConfiguration":
-        """An updater config, e.g. ``updaters.Nesterovs(0.1, 0.9)``."""
-        if not isinstance(u, _upd.TaggedConf):
-            raise NotImplementedError(
-                "updater by name is not ported yet (ROADMAP § A); pass an "
-                "updaters.* config")
-        self._g.updater = u
+        """An updater config (e.g. ``updaters.Nesterovs(0.1, 0.9)``), or a
+        class name ("adam", case-insensitive) for its defaults, as the
+        reference's ``updaters.get``."""
+        self._g.updater = _upd.get(u)
         return self
 
     def weight_init(self, w) -> "NeuralNetConfiguration":
+        """A scheme name (``initializers``) or a ``Distribution``."""
         self._g.weight_init = w
+        return self
+
+    def dist(self, d) -> "NeuralNetConfiguration":
+        """The ``Distribution`` the "distribution" weight init draws from."""
+        self._g.distribution = d
+        return self
+
+    def activation(self, a: str) -> "NeuralNetConfiguration":
+        self._g.activation = a
+        return self
+
+    def bias_init(self, b: float) -> "NeuralNetConfiguration":
+        self._g.bias_init = float(b)
+        return self
+
+    def l1(self, v: float) -> "NeuralNetConfiguration":
+        self._reg_kwargs["l1"] = float(v)
         return self
 
     def l2(self, v: float) -> "NeuralNetConfiguration":
         self._reg_kwargs["l2"] = float(v)
+        return self
+
+    def l1_bias(self, v: float) -> "NeuralNetConfiguration":
+        self._reg_kwargs["l1_bias"] = float(v)
+        return self
+
+    def l2_bias(self, v: float) -> "NeuralNetConfiguration":
+        self._reg_kwargs["l2_bias"] = float(v)
+        return self
+
+    def weight_decay(self, v: float) -> "NeuralNetConfiguration":
+        self._reg_kwargs["weight_decay"] = float(v)
+        return self
+
+    def gradient_normalization(self, mode: str, threshold: float = 1.0
+                               ) -> "NeuralNetConfiguration":
+        """One of ``regularization.normalize_layer_gradients``' modes, on
+        each layer's raw gradients before the updater."""
+        self._g.gradient_normalization = mode
+        self._g.gradient_normalization_threshold = float(threshold)
+        return self
+
+    def dtype(self, dt: str) -> "NeuralNetConfiguration":
+        """The params' dtype: "float32", "bfloat16" or "float16"; "float64"
+        gives f32 params, as the reference does with x64 off
+        (:func:`deeplearning4j_tpu_torch.param_dtype`)."""
+        self._g.dtype = dt
         return self
 
     def compute_dtype(self, dt: Optional[str]) -> "NeuralNetConfiguration":
@@ -206,6 +249,33 @@ class NeuralNetConfiguration:
         eager steps in order. Ragged epoch tails and shape changes take
         single steps; tBPTT configurations refuse ``k > 1``."""
         self._g.steps_per_call = int(k)
+        return self
+
+    def async_queue_size(self, n: int) -> "NeuralNetConfiguration":
+        """The prefetch queue depth of the reference's fit loops (default
+        4). Configuration data here: the port's ``fit`` has no prefetch
+        thread yet (ROADMAP § A8)."""
+        self._g.async_queue_size = int(n)
+        return self
+
+    def telemetry(self, conf) -> "NeuralNetConfiguration":
+        """In-graph training telemetry: the reference's ``TelemetryConf``
+        dict (True for its defaults), or None. Stored and written to the
+        JSON; training with it is refused until it is ported (ROADMAP §
+        A8, ``check_train_conf``)."""
+        if conf is True:
+            conf = serde.TaggedConf({"@class": "TelemetryConf", "grad_norm": True,
+                                     "param_norm": True, "update_ratio": True,
+                                     "loss_scale": True})
+        self._g.telemetry = conf
+        return self
+
+    def remat_policy(self, policy: Optional[str]) -> "NeuralNetConfiguration":
+        """Backward-pass rematerialization ("save_conv_outputs", "dots",
+        "nothing"; None for none). Stored and written to the JSON; training
+        with it is refused until it is ported (ROADMAP § A2.2,
+        ``check_train_conf``)."""
+        self._g.remat_policy = policy
         return self
 
     def _global_conf(self) -> GlobalConf:

@@ -178,6 +178,10 @@ class GraphBuilder:
                   preprocessor=None) -> "GraphBuilder":
         return self.add_vertex(name, LayerVertex(layer, preprocessor), *inputs)
 
+    def layer(self, name: str, layer: Layer, *inputs: str) -> "GraphBuilder":
+        """The reference's alias of :meth:`add_layer`."""
+        return self.add_layer(name, layer, *inputs)
+
     def add_vertex(self, name: str, vertex: GraphVertex, *inputs: str) -> "GraphBuilder":
         if name in self._vertices or name in self._inputs:
             raise ValueError(f"Duplicate vertex name '{name}'")

@@ -233,7 +233,7 @@ class FeedForwardLayer(Layer):
         return _init.init_weights(
             gen, shape, fan_in, fan_out,
             self.weight_init if self.weight_init is not None else "xavier",
-            dtype=dtype)
+            dtype=dtype, distribution=self.distribution)
 
     def _bias(self, shape, dtype):
         b0 = self.bias_init if self.bias_init is not None else 0.0

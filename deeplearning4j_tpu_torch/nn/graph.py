@@ -39,7 +39,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import _dtype_of, resolve_device
+from deeplearning4j_tpu_torch import _dtype_of, param_dtype, resolve_device
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.data.iterators import (
     DataSetIterator,
@@ -116,7 +116,7 @@ class ComputationGraph(_faults.GuardedModel):
             raise ValueError("Configuration needs set_input_types(...) before init()")
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(self.conf.global_conf.seed)
-        dtype = _dtype_of(self.conf.global_conf.dtype)
+        dtype = param_dtype(self.conf.global_conf.dtype)
         lt = self.conf.layer_input_types()
         params: Dict[str, Tensors] = {}
         state: Dict[str, Tensors] = {}
@@ -194,7 +194,7 @@ class ComputationGraph(_faults.GuardedModel):
             params = self.compute_params(params)
         # float inputs take the compute dtype, else the params dtype (the
         # reference runs with x64 off: a float64 array computes in f32)
-        in_dt = self._compute_dtype or _dtype_of(conf.global_conf.dtype)
+        in_dt = self._compute_dtype or param_dtype(conf.global_conf.dtype)
         inputs = [x.to(in_dt) if x.is_floating_point() else x for x in inputs]
         acts: Dict[str, torch.Tensor] = dict(zip(conf.network_inputs, inputs))
         out_inputs: Dict[str, torch.Tensor] = {}

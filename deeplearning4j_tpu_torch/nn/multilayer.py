@@ -51,7 +51,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import _dtype_of, resolve_device
+from deeplearning4j_tpu_torch import _dtype_of, param_dtype, resolve_device
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterators import (
     BatchBundle,
@@ -231,7 +231,7 @@ class MultiLayerNetwork(_faults.GuardedModel):
             raise ValueError("Configuration needs set_input_type(...) before init()")
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(self.conf.global_conf.seed)
-        dtype = _dtype_of(self.conf.global_conf.dtype)
+        dtype = param_dtype(self.conf.global_conf.dtype)
         types = self.conf.layer_types()
         params, state = [], []
         for i, layer in enumerate(self.layers):
@@ -302,7 +302,7 @@ class MultiLayerNetwork(_faults.GuardedModel):
             params = self.compute_params(params)
         # float inputs take the compute dtype, else the params dtype (the
         # reference runs with x64 off: a float64 array computes in f32)
-        in_dt = self._compute_dtype or _dtype_of(self.conf.global_conf.dtype)
+        in_dt = self._compute_dtype or param_dtype(self.conf.global_conf.dtype)
         if x.is_floating_point():
             x = x.to(in_dt)
         n = len(self.layers)

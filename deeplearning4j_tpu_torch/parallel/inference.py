@@ -104,8 +104,12 @@ class ParallelInference:
         return ParallelInference.Builder(model)
 
     def __init__(self, model, mode: str = "batched", batch_limit: int = 32,
-                 queue_limit: int = 64, workers: Optional[int] = None,
+                 queue_limit: int = 64, mesh=None, workers: Optional[int] = None,
                  max_wait_ms: float = 2.0, buckets: Union[bool, Sequence[int]] = True):
+        """``mesh``: the reference's ``TrainingMesh`` slot, kept at its
+        position so positional calls bind as there; like the reference, it
+        is accepted and never read (the devices come from the model, or
+        from an ``InferenceEngine(devices=[...])``)."""
         if mode not in (self.INFERENCE_MODE_SEQUENTIAL, self.INFERENCE_MODE_BATCHED,
                         self.INFERENCE_MODE_INPLACE):
             raise ValueError(f"Unknown inference mode {mode!r}")

@@ -575,8 +575,13 @@ def test_training_surfaces_refuse():
         tnet.fit(*_seq())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnet.layers[-1].compute_score(tnet.params_[-1], None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tupd.RmsProp(1e-2).apply(torch.zeros(2), {"r": torch.zeros(2)}, 1, 0, 0)
+    # RmsProp, the TextGen configuration's updater, now trains: its update
+    # is the reference's
+    g = torch.tensor([0.5, -2.0])
+    mine, slots = tupd.RmsProp(1e-2).apply(g, {"r": torch.zeros(2)}, 1, 0, 0)
+    theirs, jslots = JRmsProp(1e-2).apply(jnp.asarray(g.numpy()), {"r": jnp.zeros(2)}, 1, 0, 0)
+    np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), rtol=1e-6)
+    np.testing.assert_allclose(slots["r"].numpy(), np.asarray(jslots["r"]), rtol=1e-6)
     assert set(tupd.RmsProp().init_state(torch.zeros(3))) == {"r"}
 
 
