@@ -124,7 +124,27 @@ through the builder (updater by name, leakyrelu, xavier_uniform, bias_init,
 l1, the clip) one fit step under each of the six other adaptive updaters,
 each update on the card against the CPU ``apply`` on the step's own
 gradients, and the 22 losses' values and gradients on the card against the
-CPU.
+CPU. Phase 15 trains with dropout, weight noise and constraints: (a) the
+zoo's VGG16 with its dropout 0.5 on both dense layers (f32, 224x224, batch
+32, Nesterovs(1e-3, 0.9)), four eager steps against the same batches in one
+bundle of 4 bit for bit, a falling eval score, the trained model's zip
+served through phase 5's int8 checks (3 ``int8_matmul`` a forward), and
+images/s beside the same net with dropout 0 in turns; (b) phase 4's
+ResNet-50 with Dropout(0.5) on its output layer's input, DropConnect(0.9)
+and a max-norm constraint on its W: eager against one bundle bit for bit
+with phase 4's launches a step, a guarded run whose poisoned step keeps
+params, slots and the constrained W, one ZeRO-1 update under Adam (one
+``fused_adam`` a group, the constrained W ``torch.equal`` to the per-layer
+update's); (c) a MultiLayerNetwork of 12 TransformerBlocks (input dropout
+0.1) and a SelfAttentionLayer (attention dropout 0.1) at the
+TransformerLM's widths (d 768, 12 heads, T 512, batch 16, bf16): one
+step's gradients against the plain path by phase 4's rule, exactly 12 flash
+forward, dq and dk/dv launches a step and 13 forwards in eval, eager against
+one bundle bit for bit, tokens/s beside the stack without dropout; (d) every
+variant's moments at f32 and bf16 on the card, the card's draw bits equal
+to the CPU's, each variant and constraint on a CPU draw within 1e-6 of the
+CPU, and a mask draw's device time beside ``torch.rand``'s; (e) a mid-fit
+zip of (b)'s model whose next step equals the uninterrupted run's.
 Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
@@ -1348,13 +1368,34 @@ def vgg_phase(fc, im, card: str):
     """Phase 5: full-width f32 VGG16 (1000 classes, 224x224x3, seeded) in an
     int8-head engine and an f32 engine, buckets [1, 8, 32]."""
     from deeplearning4j_tpu_torch.models import VGG16
-    from deeplearning4j_tpu_torch.serving import InferenceEngine
 
     t0 = time.perf_counter()
     model = VGG16(num_classes=1000, seed=SEED).init()
     rng = np.random.default_rng(SEED + 7)
     x = rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32)
     scale = spread_softmax(model, x)
+    e8, e32, out, failed = int8_vgg_serving(fc, im, model, x, "phase 5", scale, t0, card)
+    s8, l8, m8 = _speed(e8, x)
+    s32, l32, m32 = _speed(e32, x)
+    print(f"phase 5 speed: int8 heads {s8:.1f} images/s at bucket 32, {l8:.2f} ms median at "
+          f"bucket 1, peak {m8:.2f} GiB; f32 {s32:.1f} images/s, {l32:.2f} ms, peak "
+          f"{m32:.2f} GiB (host clock, copies included) on {card}", flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    out["int8"] = {"images_per_s_b32": s8, "latency_ms_b1": l8, "peak_gib": m8}
+    out["f32"] = {"images_per_s_b32": s32, "latency_ms_b1": l32, "peak_gib": m32}
+    return e8, x, out
+
+
+def int8_vgg_serving(fc, im, model, x, label: str, scale: float, t0: float, card: str):
+    """Phase 5's serving checks of a VGG16 ``model`` (its output W already
+    spread) on ``x``: an int8-head and an f32 engine at buckets [1, 8, 32],
+    the launches of one int8 forward (counts from 0 just before the
+    warmup), the int8 path against its plain heads, padding, buckets,
+    top-1 on decided rows, the spread of the softmax. Returns (int8 engine,
+    f32 engine, results, failures), printing under ``label``."""
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+
     e8 = InferenceEngine(model, buckets=[1, 8, 32], int8_serving=True)
     e32 = InferenceEngine(model, buckets=[1, 8, 32])
     init_s = time.perf_counter() - t0
@@ -1362,9 +1403,9 @@ def vgg_phase(fc, im, card: str):
     heads = e8._snap.params[VGG_FIRST_HEAD:]
     snap_ok = all("W" not in p and p["W_q8"].dtype == torch.int8
                   and p["W_q8"].device.type == e8.device.type for p in heads)
-    print(f"phase 5 setup: VGG16 1000 classes 224x224x3 f32, {model.num_params():,} params, "
+    print(f"{label} setup: VGG16 1000 classes 224x224x3 f32, {model.num_params():,} params, "
           f"init {init_s:.1f}s, output W scaled by {scale:.4g}; int8 report {rep}; "
-          f"snapshot heads hold W_q8/W_scale only: {snap_ok}", flush=True)
+          f"snapshot heads hold W_q8/W_scale only: {snap_ok}; on {card}", flush=True)
 
     # the main path: counts from 0 just before, read just after
     fc.reset_launch_counts()
@@ -1380,9 +1421,9 @@ def vgg_phase(fc, im, card: str):
     warm32 = e32.warmup()
     f1, f7, f8, f32 = (e32.infer(x[:n]) for n in (1, 7, 8, BATCH))
     f32_launches = sum(fc.launch_counts.values())
-    print(f"phase 5 serve: warmup int8 {warm8} f32 {warm32}; launches in one int8 forward "
+    print(f"{label} serve: warmup int8 {warm8} f32 {warm32}; launches in one int8 forward "
           f"{per_forward}, main-path launches {main_launches}; f32 engine launches "
-          f"{f32_launches}", flush=True)
+          f"{f32_launches}; on {card}", flush=True)
 
     # the int8 heads on their plain version, from the snapshot's activations
     # into the first head
@@ -1404,19 +1445,14 @@ def vgg_phase(fc, im, card: str):
     decided = (top2[:, 1] - top2[:, 0]) > 2 * dp
     agree = r32.argmax(1) == f32.argmax(1)
     maxprob = float(f32.max(1).mean())
-    print(f"phase 5 check: rows sum to 1 (max dev int8 {_row_sum_dev(r32):.3g}, f32 "
+    print(f"{label} check: rows sum to 1 (max dev int8 {_row_sum_dev(r32):.3g}, f32 "
           f"{_row_sum_dev(f32):.3g}); int8 vs its plain heads on the card max|dp| {d_plain:.3g} "
           f"(tol {INT8_PLAIN_TOL}); padding (7 rows in bucket 8 vs the same rows of 8) "
           f"max|dp| int8 {pad8:.3g} f32 {pad32:.3g} (tol {PAD_TOL}); across buckets (1 and 7 "
           f"rows vs 32) max|dp| int8 {cross8:.3g} f32 {cross32:.3g} (tol {BUCKET_TOL}); int8 vs f32 max|dp| {dp:.3g}, top-1 agreement "
           f"{int(agree.sum())}/{BATCH} ({int(decided.sum())} rows with f32 top-2 gap > "
-          f"2 max|dp|, all of which must agree); mean max prob {maxprob:.3f}", flush=True)
-
-    s8, l8, m8 = _speed(e8, x)
-    s32, l32, m32 = _speed(e32, x)
-    print(f"phase 5 speed: int8 heads {s8:.1f} images/s at bucket 32, {l8:.2f} ms median at "
-          f"bucket 1, peak {m8:.2f} GiB; f32 {s32:.1f} images/s, {l32:.2f} ms, peak "
-          f"{m32:.2f} GiB (host clock, copies included) on {card}", flush=True)
+          f"2 max|dp|, all of which must agree); mean max prob {maxprob:.3f}; on {card}",
+          flush=True)
 
     failed = []
     if per_forward != {"int8_matmul": 3} or f32_launches:
@@ -1438,18 +1474,14 @@ def vgg_phase(fc, im, card: str):
         failed.append("int8 top-1 differs from f32 on a decided row")
     if not 0.05 <= maxprob <= 0.9:
         failed.append(f"mean max probability {maxprob} outside [0.05, 0.9]")
-    if failed:
-        raise AssertionError("; ".join(failed))
-    return e8, x, {
+    return e8, e32, {
         "main_launches": main_launches, "per_forward": per_forward,
         "f32_engine_launches": f32_launches, "int8_report": rep, "output_w_scale": scale,
         "max_abs_dp_vs_plain_heads": d_plain, "pad_diff_int8": pad8, "pad_diff_f32": pad32,
         "bucket_diff_int8": cross8, "bucket_diff_f32": cross32,
         "max_abs_dp_int8_vs_f32": dp, "top1_agree": int(agree.sum()),
         "rows_decided": int(decided.sum()), "mean_max_prob": maxprob,
-        "int8": {"images_per_s_b32": s8, "latency_ms_b1": l8, "peak_gib": m8},
-        "f32": {"images_per_s_b32": s32, "latency_ms_b1": l32, "peak_gib": m32},
-        "warmup_int8": warm8, "warmup_f32": warm32}
+        "warmup_int8": warm8, "warmup_f32": warm32}, failed
 
 
 def _http(port, method, path, body=None):
@@ -4895,6 +4927,524 @@ def _knobs_lenet(fc, failed):
     return {"updaters": out, "losses": loss_err}
 
 
+# phase 15: dropout, weight noise and constraints on every fit path
+DROP_STEPS = 4                # (a)-(c): eager steps, then the same batches in one bundle
+DROP_K = 4                    # ... at steps_per_call DROP_K
+DROP_NOISE = 0.05             # each batch: one seeded batch plus this much noise
+DROP_CONNECT = 0.9            # (b) the output layer's DropConnect retain probability
+DROP_MAX_NORM = 0.5           # (b) the output W's max-norm constraint (active from init)
+NORM_SLACK = 1 + 1e-5         # (b) a constrained column's f32 norm, recomputed over 2048 rows
+DROP_POISON = 2               # (b) the guarded run's NaN step
+BLOCKS = dict(d=768, heads=12, layers=12, t=512, batch=16, classes=1000, dropout=0.1,
+              attention_dropout=0.1)  # (c): LM_TRAIN_CONF's widths
+MOMENT_ROWS = 1024            # (d) variants on (MOMENT_ROWS, MOMENT_ROWS) tensors
+DROP_REL_TOL = 1e-6           # (d) card vs CPU on one draw; a constraint
+
+
+def _noisy_batches(rng, shape, classes, n):
+    """``n`` batches: one seeded batch plus DROP_NOISE noise each."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    x0 = rng.standard_normal(shape).astype(np.float32)
+    y0 = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, shape[0])]
+    return [DataSet(x0 + DROP_NOISE * rng.standard_normal(shape).astype(np.float32), y0)
+            for _ in range(n)], DataSet(x0, y0)
+
+
+def _eager_and_bundled(fc, eager, bundled, batches):
+    """``eager`` fit one batch at a time (each step's launches read), then
+    ``bundled`` (steps_per_call DROP_K) on the same batches; returns
+    (per-step launches, main-path launches, eager scores, bundled scores,
+    states equal, captured launches, bundled fit launches)."""
+    marks = []
+    fc.reset_launch_counts()
+    eager.fit(RecordingIterator(batches, lambda i: marks.append(
+        (dict(fc.launch_counts), None if eager.score_ is None else float(eager.score_)))))
+    torch.cuda.synchronize()
+    main = dict(fc.launch_counts)
+    marks.append((main, float(eager.score_)))
+    keys = set(main)
+    per_step = [{k: b[0].get(k, 0) - a[0].get(k, 0) for k in keys}
+                for a, b in zip(marks, marks[1:])]
+    eager_scores = [s for _, s in marks[1:]]
+    seen = []
+    fc.reset_launch_counts()
+    bundled.fit(RecordingIterator(batches, lambda i: seen.append(bundled.bundle_scores_)))
+    torch.cuda.synchronize()
+    return (per_step, main, eager_scores, _bundle_scores(bundled, seen),
+            _states_equal(eager, bundled), dict(bundled._bundled.captured_launches),
+            dict(fc.launch_counts))
+
+
+def dropout_phase(fc, fa, im, card: str):
+    """Phase 15: the zoo's VGG16 trained with its dropout and served int8;
+    ResNet-50 with dropout, DropConnect and a constraint (eager, bundled,
+    guarded, ZeRO-1, a mid-fit zip); a transformer-block stack with input
+    and attention dropout at the TransformerLM's widths; every variant on
+    the card against the CPU."""
+    return _deterministic_cudnn(lambda: _dropout(fc, fa, im, card))
+
+
+def _dropout(fc, fa, im, card):
+    failed = []
+    t0 = time.perf_counter()
+    variants = _dropout_variants(failed)
+    vgg = _dropout_vgg(fc, im, card, failed)
+    res = _dropout_resnet(fc, card, failed)
+    blocks = _dropout_blocks(fc, fa, card, failed)
+    print(f"phase 15 took {time.perf_counter() - t0:.1f}s; on {card}", flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"variants": variants, "vgg16": vgg, "resnet50": res, "blocks": blocks}
+
+
+def _dropout_variants(failed):
+    """(d) Every variant on the card: its draw's moments at f32 and bf16,
+    the card's bits of a draw equal the CPU's, its combine on a CPU draw fed
+    in within DROP_REL_TOL of the CPU's, each constraint likewise; and the
+    device time of a draw at (c)'s attention-mask shape."""
+    from deeplearning4j_tpu_torch import regularization as R
+    from deeplearning4j_tpu_torch.nn.conf import dropouts as D
+
+    n = MOMENT_ROWS
+    src = D.NoiseSource(SEED, 5, rank=0).child(1)
+    bits_equal = torch.equal(src.bits(n * n, "cuda").cpu(), src.bits(n * n, "cpu"))
+    ones = torch.ones((n, n), device="cuda")
+    x = torch.randn((n, n), generator=torch.Generator().manual_seed(SEED))
+    rows = {}
+    for dt, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        cases = {
+            "Dropout(0.5)": (D.Dropout(0.5), ones, 1.0, 1.0),
+            "AlphaDropout(0.2)": (D.AlphaDropout(0.2), x.cuda(), 0.0, 1.0),
+            "GaussianDropout(0.25)": (D.GaussianDropout(0.25), ones, 1.0, (1 / 3) ** 0.5),
+            "GaussianNoise(0.2)": (D.GaussianNoise(0.2), ones, 1.0, 0.2),
+        }
+        for name, (v, inp, mean, std) in cases.items():
+            y = v.apply(inp.to(dt), src).float()
+            got_mean, got_std = float(y.mean()), float(y.std())
+            draw = v.draw(D.NoiseSource(SEED, 6), (n, n), dt, "cpu")
+            want = v.apply(x.to(dt), D.FedNoise([draw])).float()
+            fed = v.apply(x.to(dt).cuda(), D.FedNoise([draw.cuda()])).float().cpu()
+            err = float((fed - want).abs().max())
+            tol = DROP_REL_TOL if dt == torch.float32 else 2.0 ** -7 * float(want.abs().max())
+            ok = abs(got_mean - mean) <= 0.01 + 5 * std / n and abs(got_std / std - 1) <= 0.02
+            rows[f"{name} {label}"] = {"mean": got_mean, "std": got_std, "fed_max_abs": err,
+                                       "ok": ok and err <= tol}
+        for name, wn in (("DropConnect(0.9)", D.DropConnect(0.9)),
+                         ("WeightNoise(0.05)", D.WeightNoise(0.05))):
+            p = {"W": x.to(dt), "b": x[0].to(dt)}
+            draws = [wn.draw(D.NoiseSource(SEED, 7), x.shape, dt, "cpu")]
+            want = wn.apply_to_params(p, D.FedNoise(draws))["W"].float()
+            got = wn.apply_to_params({k: v.cuda() for k, v in p.items()},
+                                     D.FedNoise([d.cuda() for d in draws]))["W"].float().cpu()
+            err = float((got - want).abs().max())
+            tol = DROP_REL_TOL if dt == torch.float32 else 2.0 ** -7 * float(want.abs().max())
+            rows[f"{name} {label}"] = {"fed_max_abs": err, "ok": err <= tol}
+    w = torch.randn((3, 3, 256, 512), generator=torch.Generator().manual_seed(SEED + 1)) * 0.05
+    for name, c in (("MaxNorm(0.5)", R.MaxNormConstraint(0.5)),
+                    ("MinMaxNorm(0.2, 0.6, 0.8)", R.MinMaxNormConstraint(0.2, 0.6, 0.8)),
+                    ("NonNegative", R.NonNegativeConstraint()), ("UnitNorm", R.UnitNormConstraint())):
+        err = float((c.apply(w.cuda()).cpu() - c.apply(w)).abs().max())
+        rows[f"constraint {name}"] = {"max_abs": err, "ok": err <= DROP_REL_TOL}
+    shape = (BLOCKS["batch"], BLOCKS["heads"], BLOCKS["t"], BLOCKS["t"])
+    mask_ms = graph_ms(lambda: src.bernoulli(0.9, shape, "cuda"))
+    rand_ms = graph_ms(lambda: torch.rand(shape, device="cuda") < 0.9)
+    print(f"phase 15 (d) variants on the card: a draw's bits equal the CPU's {bits_equal}; "
+          + "; ".join(f"{k} {({a: (round(b, 6) if isinstance(b, float) else b) for a, b in v.items()})}"
+                      for k, v in rows.items())
+          + f"; a bernoulli draw at the attention mask's shape {shape}: {mask_ms:.4f} ms device "
+          f"(CUDA graph; torch.rand(...) < 0.9, Philox, as the yardstick: {rand_ms:.4f} ms) on "
+          f"{smi_line()}", flush=True)
+    bad = [k for k, v in rows.items() if not v["ok"]]
+    if bad or not bits_equal:
+        failed.append(f"(d) variants {bad}, bits equal {bits_equal}")
+    return {"bits_equal": bits_equal, "rows": rows, "attention_mask_draw_ms": mask_ms,
+            "torch_rand_mask_ms": rand_ms}
+
+
+def _dropout_vgg(fc, im, card, failed):
+    """(a) The zoo's VGG16 (dropout 0.5 on both dense layers), Nesterovs
+    (TRAIN_LR, 0.9), 224x224, batch 32: DROP_STEPS eager steps and the same
+    batches in one bundle of DROP_K, bit for bit; the eval score falls; the
+    trained model's zip served through phase 5's int8 checks; images/s
+    beside the same net with dropout 0, in turns."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models import VGG16
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train.model_serializer import ModelSerializer
+    from deeplearning4j_tpu_torch.updaters import Nesterovs
+
+    rng = np.random.default_rng(SEED + 40)
+    batches, ds0 = _noisy_batches(rng, (BATCH, 224, 224, 3), 1000, DROP_STEPS)
+
+    def vgg(k=1, dropout=True):
+        conf = VGG16(num_classes=1000, height=224, width=224, seed=SEED,
+                     updater=Nesterovs(TRAIN_LR, 0.9)).conf()
+        conf.global_conf.steps_per_call = k
+        if not dropout:
+            for layer in conf.layers:
+                layer.dropout = 0.0
+        model = MultiLayerNetwork(conf).init()
+        spread_softmax(model, ds0.features)
+        return model
+
+    eager, bundled = vgg(), vgg(DROP_K)
+    drops = [layer.dropout for layer in eager.layers if layer.dropout]
+    before = eager.score(ds0)
+    (per_step, main, scores, b_scores, equal, captured,
+     b_launches) = _eager_and_bundled(fc, eager, bundled, batches)
+    after = eager.score(ds0)
+    print(f"phase 15 (a) VGG16 as the zoo builds it (dropout {drops} on the dense layers' "
+          f"inputs), f32, 224x224, batch {BATCH}, Nesterovs({TRAIN_LR}, 0.9), output W spread: "
+          f"{DROP_STEPS} eager steps, scores {[round(v, 5) for v in scores]}; launches of the "
+          f"custom kernels {main}; eval score on the seeded batch {before:.5f} -> {after:.5f}; "
+          f"one bundle of {DROP_K} (one replay of a captured graph) vs the eager steps "
+          f"torch.equal {equal}, scores equal {b_scores == scores}; on {card}", flush=True)
+    if not all(equal.values()) or b_scores != scores:
+        failed.append(f"(a) VGG16 bundle differs from eager steps: {equal}")
+    if not (after < before and all(math.isfinite(v) for v in scores)) or len(drops) != 2:
+        failed.append(f"(a) VGG16 eval score {before} -> {after}, scores {scores}")
+    if any(main.values()):
+        failed.append(f"(a) VGG16 training launched custom kernels {main}")
+
+    # images/s: dropout 0.5 against the same net with dropout 0, eager and
+    # bundled, in turns
+    plain_e, plain_b = vgg(dropout=False), vgg(DROP_K, dropout=False)
+    plain_b.fit(ExistingDataSetIterator(batches))  # capture
+    runs = [("dropout eager", lambda: eager.fit(ExistingDataSetIterator(batches))),
+            ("dropout bundled", lambda: bundled.fit(ExistingDataSetIterator(batches))),
+            ("no dropout eager", lambda: plain_e.fit(ExistingDataSetIterator(batches))),
+            ("no dropout bundled", lambda: plain_b.fit(ExistingDataSetIterator(batches)))]
+    timed = _in_turns(runs)
+    speed = {label: [BATCH * DROP_STEPS / t for t in r["s"]] for label, r in timed.items()}
+    print(f"phase 15 (a) VGG16 speed (in turns: a b c d d c b a; {DROP_STEPS} batches a fit, "
+          f"host clock, synchronized), images/s: "
+          + "; ".join(f"{label} {[round(v, 2) for v in vals]}" for label, vals in speed.items())
+          + f"; peak GiB {({k: [round(g, 2) for g in r['peak_gib']] for k, r in timed.items()})}"
+          f"; on {card}", flush=True)
+    for m in (bundled, plain_e, plain_b):
+        m.params_ = m.state_ = m.opt_state_ = m._bundled = None
+    torch.cuda.empty_cache()
+
+    # the trained model's zip, served int8 with phase 5's checks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.getcwd(), prefix=".phase15-") as tmp:
+        path = os.path.join(tmp, "vgg16.zip")
+        ModelSerializer.write_model(eager, path, save_updater=False)
+        served = ModelSerializer.restore_multi_layer_network(path)
+    same = np.array_equal(served.params_flat(), eager.params_flat())
+    scale = spread_softmax(served, ds0.features)
+    _, _, serve, serve_failed = int8_vgg_serving(fc, im, served, ds0.features,
+                                                 "phase 15 (a) served", scale, t0, card)
+    failed += [f"(a) served: {f}" for f in serve_failed]
+    if not same:
+        failed.append("(a) the zip's params differ from the trained model's")
+    eager.params_ = eager.state_ = eager.opt_state_ = None
+    served.params_ = served.state_ = None
+    torch.cuda.empty_cache()
+    return {"scores": scores, "eval_score": [before, after], "bundled_equal": equal,
+            "captured": captured, "bundled_launches": b_launches, "speed": speed,
+            "serve": serve}
+
+
+def resnet50_noisy(k: int = 1, policy=None, updater=None):
+    """Phase 4's full-width bf16 fused ResNet-50 (randomized BN) with
+    Dropout(0.5) on its output layer's input, DropConnect(DROP_CONNECT) on
+    its params and MaxNormConstraint(DROP_MAX_NORM) on its W."""
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.conf.layers import DropConnect, Dropout
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.regularization import MaxNormConstraint
+    from deeplearning4j_tpu_torch.updaters import Nesterovs
+
+    conf = ResNet50(num_classes=1000, height=224, width=224, fused_pallas=True,
+                    compute_dtype="bfloat16", seed=SEED,
+                    updater=updater or Nesterovs(TRAIN_LR, 0.9)).conf()
+    out = conf.vertices["output"].layer
+    out.dropout, out.weight_noise = Dropout(0.5), DropConnect(DROP_CONNECT)
+    out.constraints = [MaxNormConstraint(DROP_MAX_NORM)]
+    conf.global_conf.steps_per_call = k
+    conf.global_conf.fault_policy = policy
+    model = ComputationGraph(conf).init()
+    randomize_bn(model, SEED)
+    return model
+
+
+def _dropout_resnet(fc, card, failed):
+    """(b) ResNet-50 with dropout, DropConnect and a max-norm constraint on
+    its output layer: eager == one bundle of DROP_K, phase 4's launches a
+    step; guarded with NaN at step DROP_POISON (kept params, slots and the
+    constrained W); one ZeRO-1 update under Adam (a fused Adam a group, the
+    constrained W equal to the per-layer update's); (e) a mid-fit zip whose
+    next step equals the uninterrupted run's."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.graph import _as_multi
+    from deeplearning4j_tpu_torch.nn.multilayer import apply_layer_updates
+    from deeplearning4j_tpu_torch.nn.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.parallel import TrainingMesh, zero
+    from deeplearning4j_tpu_torch.train import pipeline
+    from deeplearning4j_tpu_torch.train.faults import FaultPolicy, fault_injection
+    from deeplearning4j_tpu_torch.train.model_serializer import ModelSerializer
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    rng = np.random.default_rng(SEED + 41)
+    batches, _ = _noisy_batches(rng, (BATCH, 224, 224, 3), 1000, DROP_STEPS + 1)
+    eager, bundled = resnet50_noisy(), resnet50_noisy(DROP_K)
+    w0 = torch.linalg.norm(eager.params_["output"]["W"], dim=0)
+    (per_step, main, scores, b_scores, equal, captured,
+     b_launches) = _eager_and_bundled(fc, eager, bundled, batches[:DROP_STEPS])
+    w_norm = float(torch.linalg.norm(eager.params_["output"]["W"], dim=0).max())
+    want_capture = {k: DROP_K * v for k, v in STEP_LAUNCHES.items()}
+    print(f"phase 15 (b) ResNet-50 1000 classes 224x224 bf16 fused, batch {BATCH}, "
+          f"Nesterovs({TRAIN_LR}, 0.9), output layer Dropout(0.5) on its input, "
+          f"DropConnect({DROP_CONNECT}), MaxNormConstraint({DROP_MAX_NORM}) on W (column norms "
+          f"from init: max {float(w0.max()):.4f}); {DROP_STEPS} eager steps: scores "
+          f"{[round(v, 5) for v in scores]}, launches per step {per_step[0]}; output W's "
+          f"largest column norm after {w_norm:.6f}; one bundle of {DROP_K} vs eager torch.equal "
+          f"{equal}, scores equal {b_scores == scores}, launches captured {captured}; on "
+          f"{card}", flush=True)
+    if any(s != STEP_LAUNCHES for s in per_step) or captured != want_capture:
+        failed.append(f"(b) launches a step {per_step}, captured {captured}")
+    if not all(equal.values()) or b_scores != scores:
+        failed.append(f"(b) bundle differs from eager steps: {equal}")
+    if not (all(math.isfinite(v) for v in scores) and w_norm <= DROP_MAX_NORM * NORM_SLACK
+            and float(w0.max()) > DROP_MAX_NORM):
+        failed.append(f"(b) scores {scores}, constrained W norm {w_norm}")
+
+    # (e) a mid-fit zip: written after the eager steps, its next step against
+    # the uninterrupted run's
+    with tempfile.TemporaryDirectory(dir=os.getcwd(), prefix=".phase15-") as tmp:
+        path = os.path.join(tmp, "midfit.zip")
+        ModelSerializer.write_model(eager, path)
+        zip_mib = os.path.getsize(path) / 2 ** 20
+        eager.fit(ExistingDataSetIterator(batches[DROP_STEPS:]))
+        resumed = ModelSerializer.restore_computation_graph(path)
+    resumed.fit(ExistingDataSetIterator(batches[DROP_STEPS:]))
+    torch.cuda.synchronize()
+    resume_equal = {"params": bool(np.array_equal(resumed.params_flat(), eager.params_flat())),
+                    "updater": bool(np.array_equal(resumed.opt_state_flat(),
+                                                   eager.opt_state_flat())),
+                    "score": float(resumed.score_) == float(eager.score_)}
+    print(f"phase 15 (e) mid-fit zip ({zip_mib:.1f} MiB, iteration {DROP_STEPS}, dropout "
+          f"seed and position in meta.json): its next step vs the uninterrupted run's "
+          f"{resume_equal} (deterministic cuDNN); on {card}", flush=True)
+    if not all(resume_equal.values()):
+        failed.append(f"(e) resumed step differs: {resume_equal}")
+    for m in (eager, bundled, resumed):
+        m.params_ = m.state_ = m.opt_state_ = m._bundled = None
+    torch.cuda.empty_cache()
+
+    # guarded: NaN at step DROP_POISON keeps params, slots and the constrained W
+    guarded = resnet50_noisy(1, FaultPolicy())
+    kept = {}
+
+    def around_poison(i):
+        if i == DROP_POISON:
+            kept["before"] = (pipeline.tree_map(lambda t: t.clone(), guarded.params_),
+                              pipeline.tree_map(lambda t: t.clone(), guarded.opt_state_))
+        elif i == DROP_POISON + 1:
+            kept["params"] = _tensors_equal(kept["before"][0], guarded.params_)
+            kept["slots"] = _tensors_equal(kept["before"][1], guarded.opt_state_)
+            kept["W"] = torch.equal(kept["before"][0]["output"]["W"],
+                                    guarded.params_["output"]["W"])
+            del kept["before"]
+
+    fc.reset_launch_counts()
+    with fault_injection([DROP_POISON]):
+        guarded.fit(RecordingIterator(batches[:DROP_STEPS], around_poison))
+    torch.cuda.synchronize()
+    g_launches = dict(fc.launch_counts)
+    g_norm = float(torch.linalg.norm(guarded.params_["output"]["W"], dim=0).max())
+    print(f"phase 15 (b) guarded (FaultPolicy(), NaN at step {DROP_POISON}): the skipped step "
+          f"keeps {kept}; bad steps {guarded.bad_step_count}, loss scale "
+          f"{guarded.loss_scale}; output W's largest column norm {g_norm:.6f}; launches "
+          f"{g_launches}; on {card}", flush=True)
+    if not all(kept.get(k) for k in ("params", "slots", "W")) or guarded.bad_step_count != 1 \
+            or g_norm > DROP_MAX_NORM * NORM_SLACK or not _finite(guarded):
+        failed.append(f"(b) guarded: kept {kept}, bad {guarded.bad_step_count}")
+    guarded.params_ = guarded.state_ = guarded.opt_state_ = None
+    torch.cuda.empty_cache()
+
+    # one ZeRO-1 update under Adam against the per-layer update
+    model = resnet50_noisy(updater=Adam(ADAM_LR))
+    mesh = TrainingMesh(workers=1, device="cuda")
+    names = model.layer_names
+    layers = [model._layer(nm) for nm in names]
+    _, _, grads = model._value_and_grad(*model._batch(_as_multi(batches[0])))
+    g = torch.Generator().manual_seed(SEED)
+    opt = {nm: {pn: {"m": (torch.randn(t.shape, generator=g) * 1e-3).cuda(),
+                     "v": (torch.rand(t.shape, generator=g) * 1e-6).cuda()}
+                for pn, t in model.params_[nm].items()} for nm in names}
+    p_list, g_list, o_list = ([model.params_[nm] for nm in names], [grads[nm] for nm in names],
+                              [opt[nm] for nm in names])
+    ref_p, ref_o = apply_layer_updates(layers, p_list, g_list, o_list, 3, 2, 0)
+    layout = zero.build_layout(model, mesh.n_data)
+    impls = fu.resolve_group_impls(layout)
+    fc.reset_launch_counts()
+    got_p, zopt = zero.apply_sharded_updates(layout, p_list, g_list,
+                                             layout.shard_opt_state(o_list, mesh), 3, 2, 0,
+                                             mesh=mesh, fused_impls=impls)
+    torch.cuda.synchronize()
+    z_launches = dict(fc.launch_counts)
+    got_o = layout.unshard_opt_state(zopt, o_list, mesh)
+    out_i = names.index("output")
+    w_equal = torch.equal(got_p[out_i]["W"], ref_p[out_i]["W"])
+    unequal = [f"{nm}/{k}" for nm, a, b in zip(names, got_p, ref_p) for k in b
+               if not torch.equal(a[k], b[k])]
+    unequal += [f"{nm}/{k}/{s_}" for nm, a, b in zip(names, got_o, ref_o) for k in b
+                for s_ in b[k] if not torch.equal(a[k][s_], b[k][s_])]
+    z_norm = float(torch.linalg.norm(got_p[out_i]["W"], dim=0).max())
+    print(f"phase 15 (b) ZeRO-1 under Adam({ADAM_LR}) ({mesh}): {len(layout.groups)} groups, "
+          f"fused_adam launches {z_launches.get('fused_adam', 0)}; the constrained output W "
+          f"torch.equal to the per-layer update's {w_equal} (largest column norm "
+          f"{z_norm:.6f}); params and slots unequal {unequal[:5]}; on {card}",
+          flush=True)
+    if not w_equal or unequal or z_launches.get("fused_adam", 0) != len(layout.groups) \
+            or z_norm > DROP_MAX_NORM * NORM_SLACK:
+        failed.append(f"(b) ZeRO-1: W equal {w_equal}, unequal {unequal[:5]}, launches "
+                      f"{z_launches}")
+    del grads, opt, p_list, g_list, o_list, ref_p, ref_o, got_p, got_o, zopt
+    model.params_ = model.state_ = model.opt_state_ = None
+    torch.cuda.empty_cache()
+    return {"main_launches": main, "launches_per_step": per_step[0], "scores": scores,
+            "bundled_equal": equal, "captured": captured, "bundled_launches": b_launches,
+            "resume_equal": resume_equal, "zip_mib": zip_mib,
+            "guarded": {"kept": kept, "launches": g_launches},
+            "zero1": {"launches": z_launches, "w_equal": w_equal, "groups": len(layout.groups)}}
+
+
+def block_stack(k: int = 1, dropout: bool = True):
+    """(c)'s MultiLayerNetwork (:func:`block_conf`) on the card."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    return MultiLayerNetwork(block_conf(k, dropout=dropout)).init()
+
+
+def block_conf(k: int = 1, compute_dtype="bfloat16", dropout: bool = True):
+    """(c)'s configuration at the TransformerLM's widths: positional
+    embedding, BLOCKS["layers"] TransformerBlocks with input dropout, one
+    SelfAttentionLayer with attention dropout (both 0 without ``dropout``),
+    average pooling, a softmax over BLOCKS["classes"]; Adam(LM_TRAIN_LR);
+    seeded."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    c = BLOCKS
+    b = (NeuralNetConfiguration.builder().seed(SEED).updater(Adam(LM_TRAIN_LR))
+         .steps_per_call(k))
+    if compute_dtype:
+        b = b.compute_dtype(compute_dtype)
+    b = b.list().layer(L.PositionalEmbeddingLayer(max_length=c["t"]))
+    for _ in range(c["layers"]):
+        b = b.layer(L.TransformerBlock(n_heads=c["heads"], causal=True,
+                                       dropout=c["dropout"] if dropout else 0.0))
+    return (b.layer(L.SelfAttentionLayer(
+                n_heads=c["heads"], attention_dropout=c["attention_dropout"] if dropout else 0.0))
+            .layer(L.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(L.OutputLayer(n_out=c["classes"], activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.recurrent(c["d"], c["t"])).build())
+
+
+def _dropout_blocks(fc, fa, card, failed):
+    """(c) The block stack: one step's gradients against the plain path
+    (phase 4's rule; the same masks on every path), exactly 12 flash
+    forward, dq and dk/dv launches a step (the blocks; the dropout layer
+    takes the einsum path), eager == one bundle of DROP_K."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf.layers import attention
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    c = BLOCKS
+    rng = np.random.default_rng(SEED + 42)
+    batches, ds0 = _noisy_batches(rng, (c["batch"], c["t"], c["d"]), c["classes"], DROP_STEPS)
+    want_step = {fa.OP: c["layers"], fa.OP_DQ: c["layers"], fa.OP_DKV: c["layers"]}
+
+    # gradients: the kernel path, the plain path (flash routed off), the
+    # plain path in f32; one step's noise (the same masks) for all three
+    model = block_stack()
+    batch = model._batch(ds0)
+
+    def grads_of(m):
+        g = m._value_and_grad(*batch, noise=model.step_noise())
+        return g[0], {k: v.float() for k, v in _flat(dict(enumerate(g[2])))}
+
+    fc.reset_launch_counts()
+    loss_k, gk = grads_of(model)
+    torch.cuda.synchronize()
+    g_launches = {k: v for k, v in fc.launch_counts.items() if v}
+    route = attention._flash_attention_route
+    attention._flash_attention_route = lambda *a, **kw: False
+    try:
+        fc.reset_launch_counts()
+        loss_p, gp = grads_of(model)
+        plain_launches = sum(fc.launch_counts.values())
+        f32 = MultiLayerNetwork(block_conf(compute_dtype=None))
+        f32.params_, f32.state_, f32.device = model.params_, model.state_, model.device
+        loss_32, g32 = grads_of(f32)
+    finally:
+        attention._flash_attention_route = route
+    ok, rels, ratios, to_f32 = grad_agreement(gk, gp, g32)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    print(f"phase 15 (c) block stack: d {c['d']}, {c['heads']} heads, {c['layers']} "
+          f"TransformerBlocks (input dropout {c['dropout']}), a SelfAttentionLayer (attention "
+          f"dropout {c['attention_dropout']}), T {c['t']}, batch {c['batch']}, bf16, "
+          f"{model.num_params():,} params; one step's gradients over {len(rels)} tensors: "
+          f"||g_k - g_p|| / ||g_p|| {_quantiles(rels)}; ||g_k - g_p|| / ||g_p - g_f32|| "
+          f"{_quantiles(ratios)}; ||g_k - g_f32|| / ||g_p - g_f32|| {_quantiles(to_f32)} "
+          f"{'ok' if ok else 'FAIL'}; loss {float(loss_k):.6g} vs plain {float(loss_p):.6g} "
+          f"(rel {loss_rel:.3g}), f32 {float(loss_32):.6g}; launches {g_launches}, plain "
+          f"{plain_launches}; on {card}", flush=True)
+    if not ok or loss_rel > SCORE_REL_TOL or g_launches != want_step or plain_launches:
+        failed.append(f"(c) gradients ok {ok}, loss rel {loss_rel}, launches {g_launches}")
+    del gk, gp, g32, f32
+
+    # the main path: DROP_STEPS eager steps, then one bundle of DROP_K
+    bundled = block_stack(DROP_K)
+    (per_step, main, scores, b_scores, equal, captured,
+     b_launches) = _eager_and_bundled(fc, model, bundled, batches)
+    fc.reset_launch_counts()
+    model.score(ds0)
+    eval_launches = dict(fc.launch_counts)
+    want_capture = {k: DROP_K * v for k, v in want_step.items()}
+    print(f"phase 15 (c) {DROP_STEPS} eager steps, Adam({LM_TRAIN_LR}): scores "
+          f"{[round(v, 5) for v in scores]}; launches per step {per_step} (want {want_step}: "
+          f"the blocks' flash kernels, none from the attention-dropout layer); eval forward "
+          f"{eval_launches} (the dropout layer on the flash route without dropout); one "
+          f"bundle of {DROP_K} vs eager torch.equal {equal}, scores equal {b_scores == scores}, "
+          f"launches captured {captured}; on {card}", flush=True)
+    if any(s != want_step for s in per_step) or captured != want_capture:
+        failed.append(f"(c) launches a step {per_step}, captured {captured}")
+    if eval_launches != {fa.OP: c["layers"] + 1}:
+        failed.append(f"(c) eval launches {eval_launches}")
+    if not all(equal.values()) or b_scores != scores:
+        failed.append(f"(c) bundle differs from eager steps: {equal}")
+    if not all(math.isfinite(v) for v in scores):
+        failed.append(f"(c) scores {scores}")
+    plain_e, plain_b = block_stack(dropout=False), block_stack(DROP_K, dropout=False)
+    plain_b.fit(ExistingDataSetIterator(batches))  # capture
+
+    def fit(m):
+        return lambda: m.fit(ExistingDataSetIterator(batches))
+
+    timed = _in_turns([("dropout eager", fit(model)), ("dropout bundled", fit(bundled)),
+                       ("no dropout eager", fit(plain_e)), ("no dropout bundled", fit(plain_b))])
+    tokens = c["batch"] * c["t"] * DROP_STEPS
+    speed = {label: [tokens / t for t in r["s"]] for label, r in timed.items()}
+    print(f"phase 15 (c) speed (in turns: a b c d d c b a; {DROP_STEPS} batches a fit, host "
+          f"clock, synchronized), train tokens/s: "
+          + "; ".join(f"{k} {[round(v, 1) for v in vals]}" for k, vals in speed.items())
+          + f"; on {card}", flush=True)
+    for m in (model, bundled, plain_e, plain_b):
+        m.params_ = m.state_ = m.opt_state_ = m._bundled = None
+    torch.cuda.empty_cache()
+    return {"main_launches": main, "launches_per_step": per_step[0], "scores": scores,
+            "bundled_equal": equal, "captured": captured, "bundled_launches": b_launches,
+            "eval_launches": eval_launches, "speed": speed,
+            "gradients": {"ok": ok, "rel": rels, "ratio": ratios, "to_f32": to_f32,
+                          "loss_rel": loss_rel}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4947,6 +5497,7 @@ def main() -> int:
     guard = guard_phase(fc, fu, card)
     pinf = parallel_inference_phase(fc, card, serve)
     knobs = knobs_phase(fc, fu, card, bundle)
+    drop = dropout_phase(fc, fa, im, card)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -5018,6 +5569,13 @@ def main() -> int:
         if name in STEP_LAUNCHES or name == "fused_adam":
             entry_k["launches_knobs"] = (knobs["main_launches"].get(name, 0)
                                          + knobs["zero1"]["launches"].get(name, 0))
+        # phase 15: the noisy ResNet-50's eager steps and its ZeRO-1 update,
+        # the block stack's eager steps, the trained VGG16's served path
+        dropout_launches = sum(d.get(name, 0) for d in (
+            drop["resnet50"]["main_launches"], drop["resnet50"]["zero1"]["launches"],
+            drop["blocks"]["main_launches"], drop["vgg16"]["serve"]["main_launches"]))
+        if dropout_launches:
+            entry_k["launches_dropout"] = dropout_launches
         kernels.append(entry_k)
     import torch.distributed as dist
 
@@ -5035,7 +5593,7 @@ def main() -> int:
                    "vgg16": vgg, "generation": gen,
                    "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
                    "entry_points": entry, "guard": guard, "parallel_inference": pinf,
-                   "knobs": knobs, "kernels": kernels}, f, indent=1)
+                   "knobs": knobs, "dropout": drop, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,17 @@
 """The ported layer catalog: what ResNet-50, VGG16/LeNet, the recurrent
-networks (TextGenerationLSTM) and the transformer layers need."""
+networks (TextGenerationLSTM) and the transformer layers need, and the
+dropout and weight-noise classes a layer takes (``nn/conf/dropouts.py``)."""
+
+from deeplearning4j_tpu_torch.nn.conf.dropouts import (  # noqa: F401
+    AlphaDropout,
+    DropConnect,
+    Dropout,
+    GaussianDropout,
+    GaussianNoise,
+    IDropout,
+    IWeightNoise,
+    WeightNoise,
+)
 
 from deeplearning4j_tpu_torch.nn.conf.layers.attention import (  # noqa: F401
     LayerNormalization,

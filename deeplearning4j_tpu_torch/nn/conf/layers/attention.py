@@ -21,11 +21,16 @@ hd)``.
   operands' dtype, the scale rounded to it (a Python float is weakly typed
   in JAX), the softmax as ``jax.nn.softmax`` writes it (its sum in f32 under
   bf16), ``p`` in the operands' dtype before ``p @ v``.
-- :class:`SelfAttentionLayer`, :class:`TransformerBlock` and
-  :class:`PositionalEmbeddingLayer` have the reference's fields, ``@class``
-  names and params. Attention dropout and the train-mode forward of these
-  layers come with ``MultiLayerNetwork.fit`` and raise
-  :class:`NotImplementedError`.
+- Attention dropout (:func:`dense_attention`'s ``dropout_rate``) drops
+  entries of the softmax ``p``, keeping ``p / keep``, before ``p @ v``; a
+  nonzero rate takes the einsum path, as the reference's routes it.
+- :class:`SelfAttentionLayer`, :class:`TransformerBlock`,
+  :class:`LayerNormalization` and :class:`PositionalEmbeddingLayer` have the
+  reference's fields, ``@class`` names and params, and train with the
+  forward they use in eval; :class:`SelfAttentionLayer` adds its attention
+  dropout in training (from its noise stream). In training on the card a
+  flash-routed attention runs the flash forward kernel and the dq and dk/dv
+  kernels in its backward (``nn/ops/flash_attention.FlashAttention``).
 """
 
 from __future__ import annotations
@@ -39,15 +44,12 @@ from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers.base import FeedForwardLayer, Layer
+from deeplearning4j_tpu_torch.nn.conf.dropouts import inverted_dropout
+from deeplearning4j_tpu_torch.nn.conf.layers.base import LAYER_STREAM, FeedForwardLayer, Layer
 from deeplearning4j_tpu_torch.nn.ops.flash_attention import MAX_SEQ_LEN, flash_attention
 
 _NEG_INF = -1e30
 BLOCKED_ATTENTION_MIN_T = 1024
-
-NO_TRAINING = ("attention dropout and the train-mode forward of the attention layers "
-               "come with MultiLayerNetwork.fit (ROADMAP § A, slice 4: the rest of the "
-               "training core)")
 
 
 def _layer_norm(x, gamma, beta, eps: float = 1e-5):
@@ -73,7 +75,7 @@ class LayerNormalization(Layer):
         return {"gamma": torch.ones((self.n_feat,), dtype=dtype),
                 "beta": torch.zeros((self.n_feat,), dtype=dtype)}
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         return _layer_norm(x, params["gamma"], params["beta"], self.eps), state or {}
 
 
@@ -89,10 +91,11 @@ def _weak(value: float, dtype: torch.dtype) -> float:
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax`` over the last axis, op for op: ``exp(x - max)`` in
-    x's dtype, divided by its sum (taken in f32 and rounded to x's dtype, as
-    ``jnp.sum`` does for bf16)."""
+    x's dtype, divided by its sum (taken in f32, or f64 for f64, and rounded
+    to x's dtype, as ``jnp.sum`` does for bf16)."""
     u = torch.exp(x - x.amax(-1, keepdim=True))
-    return u / u.float().sum(-1, keepdim=True).to(x.dtype)
+    acc = torch.promote_types(u.dtype, torch.float32)
+    return u / u.to(acc).sum(-1, keepdim=True).to(x.dtype)
 
 
 def _flash_attention_route(q, k, causal, mask, dropout_rate, segment_ids=None,
@@ -159,11 +162,11 @@ def dense_attention(q, k, v, *, causal: bool, mask=None, dropout_rate: float = 0
                     dropout_rng=None, segment_ids=None):
     """Softmax attention, q, k, v: (b, h, T, hd). ``mask``: a (b, T) key
     padding mask; ``segment_ids``: (b, T) ints for packed sequences (tokens
-    attend within their own segment; composes with ``causal``). Runs the
-    flash kernel where :func:`_flash_attention_route` allows, else the
-    blocked path (T >= 1024), else the einsum path."""
-    if dropout_rate > 0.0 and dropout_rng is not None:
-        raise NotImplementedError(f"dense_attention: {NO_TRAINING}")
+    attend within their own segment; composes with ``causal``);
+    ``dropout_rate`` with ``dropout_rng`` (a noise source) drops entries of
+    the softmax probabilities. Runs the flash kernel where
+    :func:`_flash_attention_route` allows, else the blocked path (T >= 1024,
+    no dropout), else the einsum path."""
     T = q.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
     if segment_ids is not None:
@@ -177,17 +180,16 @@ def dense_attention(q, k, v, *, causal: bool, mask=None, dropout_rate: float = 0
                 return _blocked_attention(q, k, v, causal=causal, mask=mask, scale=scale,
                                           block_q=bq, segment_ids=segment_ids)
     s = _masked(_scores(q, k, scale), causal, mask, segment_ids)
-    return torch.matmul(_softmax(s), v)
+    p = _softmax(s)
+    if dropout_rate > 0.0 and dropout_rng is not None:
+        keep = 1.0 - dropout_rate
+        p = inverted_dropout(p, dropout_rng.bernoulli(keep, p.shape, p.device), keep)
+    return torch.matmul(p, v)
 
 
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
-def _refuse_training(layer, train: bool) -> None:
-    if train:
-        raise NotImplementedError(f"{type(layer).__name__}: {NO_TRAINING}")
-
-
 @serde.register
 class SelfAttentionLayer(FeedForwardLayer):
     """Multi-head self-attention over (b, T, d); ``n_out`` (default
@@ -225,11 +227,12 @@ class SelfAttentionLayer(FeedForwardLayer):
         b, T, _ = x.shape
         return (x @ W).reshape(b, T, self.n_heads, -1).transpose(1, 2)
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
-        _refuse_training(self, train)
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         b, T, _ = x.shape
         q, k, v = (self._heads(x, params[n]) for n in ("Wq", "Wk", "Wv"))
-        o = dense_attention(q, k, v, causal=self.causal, mask=mask)
+        rate = self.attention_dropout if (train and rng is not None) else 0.0
+        o = dense_attention(q, k, v, causal=self.causal, mask=mask, dropout_rate=rate,
+                            dropout_rng=rng.child(LAYER_STREAM) if rate else None)
         o = o.transpose(1, 2).reshape(b, T, self.n_out)
         y = o @ params["Wo"] + params["bo"]
         if mask is not None:
@@ -297,8 +300,7 @@ class TransformerBlock(FeedForwardLayer):
         m_in = _layer_norm(x, params["ln2_g"], params["ln2_b"])
         return x + self.mlp(params, m_in)
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
-        _refuse_training(self, train)
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         y = self.block_apply(params, x, mask=mask)
         if mask is not None:
             y = y * mask[..., None]
@@ -325,7 +327,7 @@ class PositionalEmbeddingLayer(Layer):
         return {"pos": 0.02 * torch.randn((self.max_length, self.n_feat), generator=gen,
                                           dtype=torch.float32).to(dtype)}
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         T = x.shape[1]
         if self.mode == "learned":
             return x + params["pos"][:T][None], state or {}

@@ -7,12 +7,17 @@ match) and the same methods:
 - ``initialize(input_type)`` / ``get_output_type(input_type)``
 - ``init_params(gen, input_type, dtype)`` -> dict of tensors (on the CPU)
 - ``init_layer_state(input_type, dtype)`` -> dict (BN running stats)
-- ``apply(params, x, state=..., train=False, mask=None)`` -> (y, new_state)
+- ``apply(params, x, state=..., train=False, rng=None, mask=None)`` ->
+  (y, new_state)
 
 ``train=True`` takes batch statistics where a layer has them (BN) and
-returns the new running state. Input dropout and weight noise are not
-ported yet: the graph refuses a layer that configures them
-(:func:`check_trainable`).
+returns the new running state. ``rng`` is the layer's noise stream
+(``nn/conf/dropouts.NoiseSource``) in training, None otherwise; a layer that
+draws noise of its own (attention dropout) reads it. The networks apply a
+layer's input dropout (:func:`apply_input_dropout`) and weight noise
+(:func:`apply_weight_noise`) around its ``apply``, as the reference's
+``_forward`` does; its constraints follow each update
+(``regularization.apply_constraints``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from deeplearning4j_tpu_torch import updaters as _upd
 # the module, not the name: importing regularization first loads this
 # package part-way (regularization -> nn.conf.serde -> nn.conf -> here)
 from deeplearning4j_tpu_torch import regularization as _reg
-from deeplearning4j_tpu_torch.nn.conf import serde
+from deeplearning4j_tpu_torch.nn.conf import dropouts, serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 
 Params = Dict[str, torch.Tensor]
@@ -82,11 +87,12 @@ class Layer:
         return {}
 
     def apply(self, params: Params, x: torch.Tensor, *,
-              state: Optional[LayerState] = None, train: bool = False,
+              state: Optional[LayerState] = None, train: bool = False, rng=None,
               mask: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, LayerState]:
         """``mask``: the (b, T) feature mask of recurrent input, or None;
-        layers that do not read it ignore it."""
+        layers that do not read it ignore it. ``rng``: the layer's noise
+        stream in training (read by layers that draw noise themselves)."""
         raise NotImplementedError
 
     def n_params(self, input_type: InputType) -> int:
@@ -119,20 +125,37 @@ class Layer:
         return f"{type(self).__name__}({fields})"
 
 
-def check_trainable(layer: Layer) -> None:
-    """Refuse, at train time, the layer options this slice does not port:
-    input dropout, weight noise and parameter constraints."""
-    what = []
-    if not isinstance(layer.dropout, (int, float)) or layer.dropout:
-        what.append(f"dropout={layer.dropout!r}")
-    if layer.weight_noise is not None:
-        what.append("weight_noise")
-    if layer.constraints:
-        what.append("constraints")
-    if what:
-        raise NotImplementedError(
-            f"{type(layer).__name__} ({layer.name}): {', '.join(what)} "
-            "not ported yet (ROADMAP § A, training slices)")
+#: the sub-streams of a layer's noise stream
+INPUT_DROPOUT_STREAM, WEIGHT_NOISE_STREAM, LAYER_STREAM = 0, 1, 2
+
+
+def apply_input_dropout(layer: Layer, x: torch.Tensor, train: bool, rng) -> torch.Tensor:
+    """The layer's dropout on its *input* in training (reference
+    ``BaseLayer.applyDropOutIfNecessary``): a float is plain inverted dropout
+    (the drop probability), an object an ``IDropout``; identity outside
+    training. ``rng``: the layer's noise stream."""
+    d = layer.dropout
+    if not train or d is None:
+        return x
+    if isinstance(d, (int, float)):
+        if d <= 0.0:
+            return x
+        d = dropouts.Dropout(d)
+    if rng is None:
+        raise ValueError(f"Layer {layer.name}: dropout requires an rng during training")
+    return d.apply(x, rng.child(INPUT_DROPOUT_STREAM))
+
+
+def apply_weight_noise(layer: Layer, params: Params, train: bool, rng) -> Params:
+    """The layer's ``IWeightNoise`` on its params in training (reference
+    ``BaseLayer.getParamsWithNoise``), from a sub-stream of the layer's that
+    every rank draws alike (the params are the same on every rank)."""
+    wn = getattr(layer, "weight_noise", None)
+    if not train or wn is None or not params:
+        return params
+    if rng is None:
+        raise ValueError(f"Layer {layer.name}: weight noise requires an rng")
+    return wn.apply_to_params(params, rng.child(WEIGHT_NOISE_STREAM).shared())
 
 
 class GlobalConf:

@@ -121,7 +121,7 @@ class ConvolutionLayer(BaseConvLayer):
             p["b"] = self._bias((self.n_out,), dtype)
         return p
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         (lh, hh), (lw, hw) = _spatial_pads(self, x, self.dilation)
         xc = _nchw(x)
         if (lh, lw) != (hh, hw):
@@ -160,7 +160,7 @@ class SubsamplingLayer(Layer):
         w = _conv_out(input_type.width, kw, sw, pw, self.convolution_mode)
         return InputType.convolutional(h, w, input_type.channels)
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         if self.pooling_type != "max":
             raise NotImplementedError(
                 f"pooling type '{self.pooling_type}' is not ported yet "

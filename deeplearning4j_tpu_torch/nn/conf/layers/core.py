@@ -38,7 +38,7 @@ class DenseLayer(FeedForwardLayer):
                                        self.n_out, dtype),
                 "b": self._bias((self.n_out,), dtype)}
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         return self.act_fn()(_affine(params, x)), state or {}
 
 
@@ -50,7 +50,7 @@ class ActivationLayer(Layer):
         super().__init__(**kwargs)
         self.activation = activation
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         return _act.get(self.activation)(x), state or {}
 
 

@@ -129,7 +129,7 @@ class FusedResNetBottleneck(FeedForwardLayer):
         inv = torch.rsqrt(var + self.eps)
         return gamma * inv, beta - mean * inv * gamma, new_running
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         if state is None or "mean_a" not in state:
             raise ValueError("FusedResNetBottleneck needs its running-stat state")
         if self.uses_kernels(x):

@@ -58,7 +58,7 @@ class BatchNormalization(Layer):
         return {"mean": torch.zeros((self.n_feat,), dtype=dtype),
                 "var": torch.ones((self.n_feat,), dtype=dtype)}
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         if state is None or "mean" not in state:
             raise ValueError("BatchNormalization needs its running-stat state")
         if train:

@@ -60,7 +60,7 @@ class GlobalPoolingLayer(Layer):
             return (x.abs() ** p).sum(dim=dims) ** (1.0 / p)
         raise ValueError(f"Unknown pooling type {pt}")
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         if x.dim() == 3:  # (b, T, d): over time, mask-aware
             mask_b = None if mask is None else mask[..., None]
             y = self._pool(x, (1,), mask_b)

@@ -61,12 +61,12 @@ class BaseRecurrentLayer(FeedForwardLayer):
     def init_carry(self, batch: int, dtype=torch.float32, device="cpu") -> Any:
         raise NotImplementedError
 
-    def apply_with_carry(self, params, x, carry, *, mask=None, train=False):
+    def apply_with_carry(self, params, x, carry, *, mask=None, train=False, rng=None):
         raise NotImplementedError
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         carry = self.init_carry(x.shape[0], x.dtype, x.device)
-        y, _ = self.apply_with_carry(params, x, carry, mask=mask, train=train)
+        y, _ = self.apply_with_carry(params, x, carry, mask=mask, train=train, rng=rng)
         return y, state or {}
 
 
@@ -156,7 +156,7 @@ class LSTM(BaseRecurrentLayer):
         h_new = o * act(c_new)
         return (h_new, c_new), h_new
 
-    def apply_with_carry(self, params, x, carry, *, mask=None, train=False):
+    def apply_with_carry(self, params, x, carry, *, mask=None, train=False, rng=None):
         return _masked_scan(lambda c, xt: self._step(params, c, xt), carry, x, mask)
 
 
@@ -221,7 +221,7 @@ class SimpleRnn(BaseRecurrentLayer):
         h_new = act(_mm(x_t, params["Wx"]) + _mm(carry, params["Wh"]) + params["b"])
         return h_new, h_new
 
-    def apply_with_carry(self, params, x, carry, *, mask=None, train=False):
+    def apply_with_carry(self, params, x, carry, *, mask=None, train=False, rng=None):
         return _masked_scan(lambda c, xt: self._step(params, c, xt), carry, x, mask)
 
 
@@ -263,14 +263,15 @@ class Bidirectional(_Wrapper):
         return {"fwd": self.layer.init_params(gen, input_type, dtype),
                 "bwd": self.layer.init_params(gen, input_type, dtype)}
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         b = x.shape[0]
         carry_f = self.layer.init_carry(b, x.dtype, x.device)
         carry_b = self.layer.init_carry(b, x.dtype, x.device)
-        y_f, _ = self.layer.apply_with_carry(params["fwd"], x, carry_f, mask=mask, train=train)
+        y_f, _ = self.layer.apply_with_carry(params["fwd"], x, carry_f, mask=mask, train=train,
+                                             rng=rng)
         mask_rev = None if mask is None else torch.flip(mask, dims=(1,))
         y_b, _ = self.layer.apply_with_carry(params["bwd"], torch.flip(x, dims=(1,)), carry_b,
-                                             mask=mask_rev, train=train)
+                                             mask=mask_rev, train=train, rng=rng)
         y_b = torch.flip(y_b, dims=(1,))
         if self.mode == "concat":
             return torch.cat([y_f, y_b], dim=-1), state or {}
@@ -307,8 +308,8 @@ class LastTimeStep(_Wrapper):
     def init_params(self, gen, input_type, dtype=torch.float32):
         return self.layer.init_params(gen, input_type, dtype)
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
-        y, st = self.layer.apply(params, x, state=state, train=train, mask=mask)
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
+        y, st = self.layer.apply(params, x, state=state, train=train, rng=rng, mask=mask)
         if mask is None:
             return y[:, -1, :], st
         # the last unmasked index of each example
@@ -332,11 +333,11 @@ class MaskZeroLayer(_Wrapper):
     def init_params(self, gen, input_type, dtype=torch.float32):
         return self.layer.init_params(gen, input_type, dtype)
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         if mask is not None:
             fill = torch.tensor(self.masking_value, dtype=x.dtype, device=x.device)
             x = torch.where(mask[..., None] > 0, x, fill)
-        return self.layer.apply(params, x, state=state, train=train, mask=mask)
+        return self.layer.apply(params, x, state=state, train=train, rng=rng, mask=mask)
 
 
 @serde.register
@@ -359,7 +360,7 @@ class RnnOutputLayer(FeedForwardLayer):
                                        dtype),
                 "b": self._bias((self.n_out,), dtype)}
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         y = self.act_fn()(_affine(params, x))
         if mask is not None:
             y = y * mask[..., None]
@@ -381,7 +382,7 @@ class RnnLossLayer(Layer):
         self.loss = loss
         self.activation = activation
 
-    def apply(self, params, x, *, state=None, train=False, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         y = _act.get(self.activation)(x)
         if mask is not None:
             y = y * mask[..., None]

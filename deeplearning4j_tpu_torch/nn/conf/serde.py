@@ -4,11 +4,16 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/serde.py``: every config object
 becomes a dict with an ``@class`` tag and the same field names, so the two
 packages read and write the same configuration dicts.
 
-Training-side configs that the port carries but does not interpret
-(weight distributions, constraints, telemetry) are kept as
-:class:`TaggedConf`: their JSON dict, written back unchanged. A
-``FaultPolicy`` decodes into ``train/faults.FaultPolicy``, whose module
-registers itself when first asked for.
+Updaters, schedules, distributions and the regularization config are
+:class:`TaggedConf` dicts with their maths (``updaters.py``,
+``initializers.py``, ``regularization.py``); a telemetry config, which the
+port carries but does not interpret, is kept as its JSON dict, written back
+unchanged. A ``{"@type": "constraint"}`` dict decodes into its class in
+``regularization.py``; the dropout and weight-noise classes
+(``nn/conf/dropouts.py``) resolve by ``@class``; both modules load with
+the layer catalog. A ``FaultPolicy`` decodes into
+``train/faults.FaultPolicy``, whose module registers itself when first
+asked for.
 """
 
 from __future__ import annotations
@@ -77,6 +82,8 @@ def decode(data: Any) -> Any:
     if isinstance(data, list):
         return [decode(d) for d in data]
     if isinstance(data, dict):
+        if data.get("@type") == "constraint":
+            return lookup(data["@class"]).from_dict(data)
         if "@type" in data or data.get("@class") in _OPAQUE_CLASSES:
             return TaggedConf(copy.deepcopy(data))
         if "@class" in data:

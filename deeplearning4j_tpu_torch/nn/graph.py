@@ -29,6 +29,15 @@ captured CUDA graph on the card. A fault policy makes the step the
 reference's guarded one (``nn/multilayer.guarded_update``,
 ``train/faults.py``), eager and bundled. Rematerialization, telemetry,
 listeners and tBPTT are not ported yet and raise.
+
+Dropout, weight noise and constraints as in the reference's graph, per
+layer vertex: preprocessor -> input dropout -> weight noise -> ``apply``,
+the input of an output layer taken after its dropout; an output layer's
+weight noise is applied in the score path only (a second draw in the
+forward would noise the same step twice); constraints follow the shared
+update. The dropout RNG is the model's, as ``nn/multilayer.py`` describes:
+:meth:`ComputationGraph.step_noise` at the step's iteration, one stream a
+layer vertex (its index in ``layer_names``).
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
     ComputationGraphConfiguration,
     LayerVertex,
 )
-from deeplearning4j_tpu_torch.nn.conf.layers.base import check_trainable
+from deeplearning4j_tpu_torch.nn.conf.dropouts import NoiseSource
+from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_input_dropout, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.multilayer import (
     apply_layer_updates,
     bundle_step_of,
@@ -65,7 +75,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
 from deeplearning4j_tpu_torch.regularization import as_regularization
 from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
-from deeplearning4j_tpu_torch.updaters import as_updater
+from deeplearning4j_tpu_torch.updaters import as_updater, step_iteration
 
 NOT_PORTED = "not ported yet (ROADMAP § A, training slices)"
 
@@ -79,6 +89,7 @@ class ComputationGraph(_faults.GuardedModel):
         self.topo = conf.topological_order
         self.layer_names: List[str] = [
             n for n in self.topo if isinstance(conf.vertices[n], LayerVertex)]
+        self._layer_index = {n: i for i, n in enumerate(self.layer_names)}
         self.params_: Optional[Dict[str, Tensors]] = None
         self.state_: Optional[Dict[str, Tensors]] = None
         self.opt_state_: Optional[Dict[str, Dict[str, Tensors]]] = None
@@ -95,6 +106,11 @@ class ComputationGraph(_faults.GuardedModel):
         #: the device; None without a policy or before the first step
         self.fault_state_: Optional[Dict[str, torch.Tensor]] = None
         self._compute_dtype = _dtype_of(getattr(conf.global_conf, "compute_dtype", None))
+        #: the dropout RNG's seed (its position is the step's iteration)
+        self.noise_seed = int(conf.global_conf.seed)
+        #: the dtype float inputs take in the forward when set (the gradient
+        #: checker's float64); None: the compute or params dtype
+        self._input_dtype: Optional[torch.dtype] = None
         self._output_layers()
 
     def _layer(self, name: str):
@@ -141,7 +157,14 @@ class ComputationGraph(_faults.GuardedModel):
                 lambda t: t.detach().clone(), (self.params_, self.state_, self.opt_state_))
             net.device = self.device
             net.iteration, net.epoch = self.iteration, self.epoch
+        net.noise_seed = self.noise_seed
         return net
+
+    def step_noise(self, rank: int = 0, ranked_params: bool = False) -> NoiseSource:
+        """The noise source of the next train step on ``rank`` (as
+        ``MultiLayerNetwork.step_noise``)."""
+        return NoiseSource(self.noise_seed, step_iteration(self.iteration), rank,
+                           ranked_params=ranked_params)
 
     def num_params(self) -> int:
         return int(sum(t.numel() for p in self.params_.values() for t in p.values()))
@@ -183,18 +206,19 @@ class ComputationGraph(_faults.GuardedModel):
         return out
 
     def _forward(self, params, state, inputs, *, train: bool = False,
-                 cast_params: bool = True):
+                 cast_params: bool = True, noise=None):
         """Forward walk over the topological order. Returns ``(acts,
         out_inputs, new_state)``: every vertex's activation, the input of
-        each output layer (what its score is computed from), and each
-        layer's new state. ``cast_params=False`` when ``params`` is already
-        the output of :meth:`compute_params`."""
+        each output layer (what its score is computed from, after its input
+        dropout), and each layer's new state. ``cast_params=False`` when
+        ``params`` is already the output of :meth:`compute_params`.
+        ``noise``: the step's noise source in training."""
         conf = self.conf
         if self._compute_dtype is not None and cast_params:
             params = self.compute_params(params)
         # float inputs take the compute dtype, else the params dtype (the
         # reference runs with x64 off: a float64 array computes in f32)
-        in_dt = self._compute_dtype or param_dtype(conf.global_conf.dtype)
+        in_dt = self._input_dtype or self._compute_dtype or param_dtype(conf.global_conf.dtype)
         inputs = [x.to(in_dt) if x.is_floating_point() else x for x in inputs]
         acts: Dict[str, torch.Tensor] = dict(zip(conf.network_inputs, inputs))
         out_inputs: Dict[str, torch.Tensor] = {}
@@ -206,15 +230,23 @@ class ComputationGraph(_faults.GuardedModel):
                 x = in_acts[0]
                 if v.preprocessor is not None:
                     x = v.preprocessor.pre_process(x)
+                r = self._stream(noise, name)
+                x = apply_input_dropout(v.layer, x, train, r)
+                p_n = params.get(name, {})
                 if v.layer.is_output_layer:
                     out_inputs[name] = x
-                y, st = v.layer.apply(params.get(name, {}), x,
-                                      state=state.get(name, {}), train=train)
+                else:
+                    p_n = apply_weight_noise(v.layer, p_n, train, r)
+                y, st = v.layer.apply(p_n, x, state=state.get(name, {}), train=train, rng=r)
                 acts[name] = y
                 new_state[name] = st if st is not None else {}
             else:
                 acts[name] = v.apply(in_acts)
         return acts, out_inputs, new_state
+
+    def _stream(self, noise, name: str):
+        """Layer vertex ``name``'s noise stream (None without noise)."""
+        return None if noise is None else noise.child(self._layer_index[name])
 
     def _as_input(self, x) -> torch.Tensor:
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
@@ -244,23 +276,27 @@ class ComputationGraph(_faults.GuardedModel):
 
     # ----------------------------------------------------------------- scoring
     def _loss_and_new_state(self, params, state, features, labels, lmasks,
-                            train: bool = True):
+                            train: bool = True, noise=None):
         """Mean per-example loss summed over the outputs (f32: under a
         compute dtype the output layer's input is widened first), and the
-        layers' new state."""
-        _, out_inputs, new_state = self._forward(params, state, features, train=train)
+        layers' new state. An output layer's weight noise is drawn here."""
+        _, out_inputs, new_state = self._forward(params, state, features, train=train,
+                                                 noise=noise)
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, name in enumerate(self.conf.network_outputs):
             x = out_inputs[name]
             if self._compute_dtype is not None:
                 x = x.float()
             lmask = lmasks[i] if i < len(lmasks) else None
-            per_ex = self._layer(name).compute_score(params[name], x, labels[i], lmask)
+            p_out = apply_weight_noise(self._layer(name), params[name],
+                                       train and noise is not None, self._stream(noise, name))
+            per_ex = self._layer(name).compute_score(p_out, x, labels[i], lmask)
             loss = loss + per_ex.mean()
         return loss, new_state
 
-    @torch.no_grad()
     def _reg_score(self, params) -> torch.Tensor:
+        """The regularization score of ``params`` (differentiable where they
+        require gradients: the gradient checker's loss)."""
         s = torch.zeros((), dtype=torch.float32, device=self.device)
         for name in self.layer_names:
             reg = as_regularization(self._layer(name).regularization)
@@ -293,15 +329,17 @@ class ComputationGraph(_faults.GuardedModel):
         return ([tensor(f) for f in mds.features], [tensor(lab, True) for lab in mds.labels],
                 [None if m is None else tensor(m, True) for m in mds.labels_masks])
 
-    def _value_and_grad(self, feats, labels, lmasks, scale=None):
+    def _value_and_grad(self, feats, labels, lmasks, scale=None, noise=None):
         """(loss, new_state, grads) of a train-mode forward at ``params_``;
         grads has the layout of ``params_``. ``scale``: the fault policy's
         loss scale (the gradients of ``loss * scale``, loss and gradients
-        multiplied back by ``1 / scale``)."""
+        multiplied back by ``1 / scale``). ``noise``: the step's noise source
+        (default :meth:`step_noise` on rank 0)."""
         diff = {v: {k: t.detach().requires_grad_() for k, t in p.items()}
                 for v, p in self.params_.items()}
-        loss, new_state = self._loss_and_new_state(diff, self.state_, feats,
-                                                   labels, lmasks)
+        loss, new_state = self._loss_and_new_state(
+            diff, self.state_, feats, labels, lmasks,
+            noise=self.step_noise() if noise is None else noise)
         if scale is not None:
             loss = loss * scale
         leaves = [(v, k) for v, p in diff.items() for k in p]
@@ -340,8 +378,6 @@ class ComputationGraph(_faults.GuardedModel):
 
     def _check_trainable(self) -> None:
         check_train_conf(self.conf, NOT_PORTED)
-        for name in self.layer_names:
-            check_trainable(self._layer(name))
 
     def _ensure_opt_state(self) -> Dict[str, Dict[str, Tensors]]:
         if self.opt_state_ is None:

@@ -41,6 +41,24 @@ advanced; all on the device, with the divergence tripwire after each step
 (each bundle) only when ``max_consecutive_bad_steps`` is set.
 Rematerialization, telemetry, listeners and tBPTT are not ported yet and
 raise (:func:`check_train_conf`).
+
+Dropout, weight noise and constraints run as in the reference's
+``_forward``: per layer, preprocessor -> input dropout -> (stop) -> weight
+noise -> ``apply``, so the output layer's input is dropped too; the output
+layer's weight noise is applied where its score is computed; constraints
+last in each update. The dropout RNG is the model's, seeded from the
+configuration's ``seed`` (``noise_seed``), as the reference's ``_rng``:
+:meth:`MultiLayerNetwork.step_noise` gives the step's
+``nn/conf/dropouts.NoiseSource``, whose draw position is the step's
+iteration (each step takes one position) and whose streams are the layer
+indices. A draw is a pure function of (seed, position, rank, stream,
+element index), made where it is used: inside a captured bundle the
+position is the iteration the host writes into the bundle's buffer before
+each replay (``updaters.step_iteration``), so k bundled steps draw what k
+eager steps draw, bit for bit. A rematerialized region (ROADMAP § A2.2)
+that recomputes a dropout redraws the same bits from the same source; it
+needs no generator state saved or restored (``torch.utils.checkpoint``
+restores only the default generators, which the draws do not use).
 """
 
 from __future__ import annotations
@@ -60,15 +78,17 @@ from deeplearning4j_tpu_torch.data.iterators import (
     iter_bundled,
 )
 from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.conf.layers.base import check_trainable
+from deeplearning4j_tpu_torch.nn.conf.dropouts import NoiseSource
+from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_input_dropout, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.conf.layers.norm import BatchNormalization
 from deeplearning4j_tpu_torch.regularization import (
+    apply_constraints,
     as_regularization,
     normalize_layer_gradients,
 )
 from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
-from deeplearning4j_tpu_torch.updaters import as_updater
+from deeplearning4j_tpu_torch.updaters import as_updater, step_iteration
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -135,9 +155,8 @@ def apply_layer_updates(layers, params: List[Tensors], grads: List[Tensors],
                         ) -> Tuple[List[Tensors], List[Dict[str, Tensors]]]:
     """One optimizer step over every layer, in the reference's order:
     gradient normalization -> l1/l2/weight-decay gradient term -> updater
-    -> ``param - update``. (Parameter constraints, which the reference
-    applies last, are refused at train time by ``check_trainable``.)
-    Returns new params and new updater state; the inputs are not changed."""
+    -> ``param - update`` -> the layer's constraints. Returns new params and
+    new updater state; the inputs are not changed."""
     new_params, new_opt = [], []
     for layer, p_i, g_i, o_i in zip(layers, params, grads, opt_state):
         if not p_i:
@@ -159,7 +178,7 @@ def apply_layer_updates(layers, params: List[Tensors], grads: List[Tensors],
             delta, new_slot = upd.apply(g, o_i[name], t, iteration, epoch)
             np_i[name] = p_i[name] - delta
             no_i[name] = new_slot
-        new_params.append(np_i)
+        new_params.append(apply_constraints(layer, np_i))
         new_opt.append(no_i)
     return new_params, new_opt
 
@@ -221,6 +240,11 @@ class MultiLayerNetwork(_faults.GuardedModel):
         #: the streaming state of :meth:`rnn_time_step`
         self._rnn_carries: Optional[List[Any]] = None
         self._compute_dtype = _dtype_of(getattr(conf.global_conf, "compute_dtype", None))
+        #: the dropout RNG's seed (its position is the step's iteration)
+        self.noise_seed = int(conf.global_conf.seed)
+        #: the dtype float inputs take in the forward when set (the gradient
+        #: checker's float64); None: the compute or params dtype
+        self._input_dtype: Optional[torch.dtype] = None
 
     # ------------------------------------------------------------------ init
     def init(self, device=None) -> "MultiLayerNetwork":
@@ -254,7 +278,16 @@ class MultiLayerNetwork(_faults.GuardedModel):
                 lambda t: t.detach().clone(), (self.params_, self.state_, self.opt_state_))
             net.device = self.device
             net.iteration, net.epoch = self.iteration, self.epoch
+        net.noise_seed = self.noise_seed
         return net
+
+    def step_noise(self, rank: int = 0, ranked_params: bool = False) -> NoiseSource:
+        """The noise source of the next train step on ``rank``: the model's
+        seed at the step's draw position, its iteration (inside a captured
+        bundle the device scalar the host fills before each replay).
+        ``ranked_params``: the params' noise differs by rank too."""
+        return NoiseSource(self.noise_seed, step_iteration(self.iteration), rank,
+                           ranked_params=ranked_params)
 
     def _is_output(self, i: int) -> bool:
         return i == len(self.layers) - 1 and self.layers[i].is_output_layer
@@ -273,7 +306,7 @@ class MultiLayerNetwork(_faults.GuardedModel):
     def _forward(self, params, state, x: torch.Tensor, *, train: bool = False,
                  stop_before: Optional[int] = None, cast_params: bool = True,
                  fmask: Optional[torch.Tensor] = None,
-                 carries: Optional[List[Any]] = None
+                 carries: Optional[List[Any]] = None, noise=None
                  ) -> Tuple[torch.Tensor, List[Tensors], List[Any]]:
         """The forward. Returns ``(x, new_states, new_carries)``: ``x`` is
         the activation into layer ``stop_before`` (after its preprocessor),
@@ -286,23 +319,28 @@ class MultiLayerNetwork(_faults.GuardedModel):
         :meth:`_init_carries` gives); ``new_carries`` holds each recurrent
         layer's final state where a carry was given, else None.
         ``cast_params=False`` when ``params`` is already the output of
-        :meth:`compute_params`."""
+        :meth:`compute_params`. ``noise``: the step's noise source in
+        training (layer i draws from its stream ``i``); a layer with dropout
+        or weight noise needs one when ``train``."""
         x, _, new_states, new_carries = self._walk(
             params, state, x, train=train, stop_before=stop_before,
-            cast_params=cast_params, fmask=fmask, carries=carries)
+            cast_params=cast_params, fmask=fmask, carries=carries, noise=noise)
         return x, new_states, new_carries
 
     def _walk(self, params, state, x, *, train, stop_before, cast_params, fmask,
-              carries):
+              carries, noise=None):
         """:meth:`_forward`'s walk; also returns the feature mask as it
-        stands at ``x`` (the label mask of a time-series head)."""
+        stands at ``x`` (the label mask of a time-series head). Per layer, as
+        the reference: preprocessor, input dropout, the stop, weight noise,
+        ``apply``: the input into layer ``stop_before`` is dropped too."""
         from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
 
         if self._compute_dtype is not None and cast_params:
             params = self.compute_params(params)
         # float inputs take the compute dtype, else the params dtype (the
         # reference runs with x64 off: a float64 array computes in f32)
-        in_dt = self._compute_dtype or param_dtype(self.conf.global_conf.dtype)
+        in_dt = (self._input_dtype or self._compute_dtype
+                 or param_dtype(self.conf.global_conf.dtype))
         if x.is_floating_point():
             x = x.to(in_dt)
         n = len(self.layers)
@@ -316,15 +354,18 @@ class MultiLayerNetwork(_faults.GuardedModel):
                 prep = self.conf.preprocessors[i]
                 x = prep.pre_process(x, mask)
                 mask = prep.feed_forward_mask(mask)
+            r = None if noise is None else noise.child(i)
+            x = apply_input_dropout(layer, x, train, r)
             if i >= stop:
                 break
+            p_i = apply_weight_noise(layer, params[i], train, r)
             if (carries is not None and isinstance(layer, BaseRecurrentLayer)
                     and carries[i] is not None):
-                x, new_carries[i] = layer.apply_with_carry(params[i], x, carries[i],
-                                                           mask=mask, train=train)
+                x, new_carries[i] = layer.apply_with_carry(p_i, x, carries[i], mask=mask,
+                                                           train=train, rng=r)
                 st = state[i]
             else:
-                x, st = layer.apply(params[i], x, state=state[i], train=train, mask=mask)
+                x, st = layer.apply(p_i, x, state=state[i], train=train, rng=r, mask=mask)
             new_states.append(st if st is not None else {})
             if layer.is_recurrent and mask is not None:
                 pass  # recurrent layers keep the (b, T) mask
@@ -450,24 +491,30 @@ class MultiLayerNetwork(_faults.GuardedModel):
         return last
 
     def _loss_and_new_state(self, params, state, features, labels, fmask, lmask,
-                            train: bool = True):
+                            train: bool = True, noise=None):
         """Mean per-example loss of the output layer (f32: under a compute
         dtype its input is widened first) and the layers' new state. The
-        label mask defaults to the feature mask as it reaches the head."""
+        label mask defaults to the feature mask as it reaches the head.
+        ``noise``: the step's noise source in training; the output layer's
+        input dropout comes from the walk, its weight noise is applied here
+        (the walk stops before the output layer, so nothing draws it twice)."""
         n = len(self.layers)
         x, mask, new_states, _ = self._walk(params, state, features, train=train,
                                             stop_before=n - 1, cast_params=True,
-                                            fmask=fmask, carries=None)
+                                            fmask=fmask, carries=None, noise=noise)
         if self._compute_dtype is not None:
             x = x.float()  # loss and softmax in full precision
         out_layer = self._output_layer()
-        per_ex = out_layer.compute_score(params[-1], x, labels,
+        p_out = apply_weight_noise(out_layer, params[-1], train and noise is not None,
+                                   None if noise is None else noise.child(n - 1))
+        per_ex = out_layer.compute_score(p_out, x, labels,
                                          lmask if lmask is not None else mask)
         new_states.append(state[-1])
         return per_ex.mean(), new_states
 
-    @torch.no_grad()
     def _reg_score(self, params) -> torch.Tensor:
+        """The regularization score of ``params`` (differentiable where they
+        require gradients: the gradient checker's loss)."""
         s = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer, p in zip(self.layers, params):
             reg = as_regularization(layer.regularization)
@@ -523,8 +570,6 @@ class MultiLayerNetwork(_faults.GuardedModel):
 
     def _check_trainable(self) -> None:
         check_train_conf(self.conf, NOT_PORTED)
-        for layer in self.layers:
-            check_trainable(layer)
 
     def _ensure_opt_state(self) -> List[Dict[str, Tensors]]:
         if self.opt_state_ is None:
@@ -533,16 +578,18 @@ class MultiLayerNetwork(_faults.GuardedModel):
                 for layer, p in zip(self.layers, self.params_)]
         return self.opt_state_
 
-    def _value_and_grad(self, features, labels, fmask, lmask, scale=None):
+    def _value_and_grad(self, features, labels, fmask, lmask, scale=None, noise=None):
         """The first half of a train step: ``(loss, new_states, grads)`` of a
         train-mode forward at ``params_``; grads has the layout of
         ``params_``. ``scale`` (the fault policy's loss scale, a 0-dim
         tensor): the gradients are taken of ``loss * scale`` and the loss
-        and gradients come back multiplied by ``1 / scale``."""
+        and gradients come back multiplied by ``1 / scale``. ``noise``: the
+        step's noise source (default :meth:`step_noise` on rank 0)."""
         diff = [{k: t.detach().requires_grad_() for k, t in p.items()}
                 for p in self.params_]
-        loss, new_states = self._loss_and_new_state(diff, self.state_, features,
-                                                    labels, fmask, lmask)
+        loss, new_states = self._loss_and_new_state(
+            diff, self.state_, features, labels, fmask, lmask,
+            noise=self.step_noise() if noise is None else noise)
         if scale is not None:
             loss = loss * scale
         leaves = [(i, k) for i, p in enumerate(diff) for k in p]

@@ -36,6 +36,10 @@ can rot the residual while the update stays finite), agreed over the ranks
 by one collective; a false verdict keeps the params, the updater state and
 the residual, and the updater's clock is ``good_count``.
 
+Each rank's dropout and weight-noise draws are its own: the rank keys
+every draw (``model.step_noise(rank, ranked_params=True)``), as the
+reference folds the axis index into the step's rng.
+
 The master binds to its first model, refuses a model with layer state
 (BatchNorm running statistics), whose state it would not carry, as the
 reference does, and refuses what the model's own ``fit`` refuses (the
@@ -168,7 +172,10 @@ class SharedTrainingMaster:
         residual move (guarded: where the verdict holds); ``score_`` is the
         mean loss; ``iteration + 1``."""
         m, mesh = self.model, self.mesh
-        loss, _, grads = m._value_and_grad(*batch)
+        # every mask of this rank its own, the params' noise too: the
+        # reference folds the rank into the step's whole rng
+        loss, _, grads = m._value_and_grad(
+            *batch, noise=m.step_noise(mesh.rank, ranked_params=True))
         flat = torch.cat([grads[i][k].reshape(-1) for i in range(len(grads))
                           for k in sorted(grads[i])])
         work = self._residual + flat

@@ -48,6 +48,13 @@ rows, with no collective.
 A mesh over gloo with CUDA tensors (two ranks sharing a card) takes the
 replicated update only: the sharded update and bundled steps refuse it.
 
+Dropout draws per rank (``model.step_noise(rank)``): the reference draws
+its masks over the global batch, so no two rows share one, and here each
+rank's rows take masks of their own; weight noise, which the reference
+draws once a step for the replicated params, is the same on every rank.
+Constraints follow the update on every rank alike (replicated) or after
+the all-gather (ZeRO-1).
+
 Under the model's fault policy (``train/faults.py``) every step is the
 guarded one, as the reference's: replicated, the model's own guarded update
 on the mean gradient, which every rank holds alike; ZeRO-1, the guarded
@@ -167,9 +174,12 @@ class ParallelWrapper:
     def _value_and_grad(self, batch):
         """The loss and gradient half of a step on this rank's rows, with
         the batch statistics of the global batch (and the loss scale of
-        the model's fault policy)."""
+        the model's fault policy) and this rank's noise: its rows' masks
+        its own, the params' noise the same on every rank."""
+        m = self.model
         with self.mesh.batch_stats():
-            return self.model._value_and_grad(*batch, scale=self.model._step_scale())
+            return m._value_and_grad(*batch, scale=m._step_scale(),
+                                     noise=m.step_noise(self.mesh.rank))
 
     def fit(self, it: DataSetIterator, epochs: int = 1) -> None:
         """Data-parallel fit over ``it`` (every rank iterates the same

@@ -52,6 +52,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from deeplearning4j_tpu_torch.regularization import (
+    apply_constraints,
     as_regularization,
     normalize_layer_gradients,
 )
@@ -193,9 +194,9 @@ def apply_sharded_updates(layout: ShardedUpdateLayout, params: Sequence[Tensors]
                           fused_impls: Optional[Sequence] = None, reduced: bool = False,
                           verdict: bool = False):
     """The sharded analog of ``apply_layer_updates``: per-layer gradient
-    normalization -> l1/l2/weight-decay -> flat sharded updater.
-    (Constraints, which the reference applies last, are refused at train
-    time by ``check_trainable``.)
+    normalization -> l1/l2/weight-decay -> flat sharded updater -> (after
+    the all-gather, on the whole params every rank holds) each layer's
+    constraints.
 
     Without a mesh, ``grads`` is the gradient and ``zopt`` holds (N, chunk)
     slots, as the reference's ``mesh=None`` leg. With a mesh, ``grads`` is
@@ -261,6 +262,9 @@ def apply_sharded_updates(layout: ShardedUpdateLayout, params: Sequence[Tensors]
             np2d = mesh.all_gather(np2d)
         layout._scatter_group(grp, np2d, new_params)
         new_zopt.append(new_state)
+    for i, layer in enumerate(layers):
+        if not layout.skip[i]:
+            new_params[i] = apply_constraints(layer, new_params[i])
     if verdict:
         ok = torch.stack(oks).all() if oks else torch.ones((), dtype=torch.bool)
         return new_params, new_zopt, ok
@@ -350,7 +354,8 @@ def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
             fstate = model._ensure_fault_state(policy)
         scale = fstate.get("loss_scale") if fstate is not None else None
         with mesh.batch_stats():
-            loss, new_state, grads = model._value_and_grad(*batch, scale=scale)
+            loss, new_state, grads = model._value_and_grad(
+                *batch, scale=scale, noise=model.step_noise(mesh.rank))
         (loss,) = mesh.all_reduce_mean([loss])
         _, _, p_list = _model_layer_view(model)
         if fstate is not None:

@@ -10,9 +10,15 @@ Counterpart of ``deeplearning4j_tpu/regularization.py``:
   bottleneck's ``beta_*`` gets no l2 while its ``gamma_*`` and ``W_*`` do,
   exactly as in the reference.
 - :func:`normalize_layer_gradients`: the gradient-normalization modes.
-
-Parameter constraints come with a later slice: a layer that has any raises
-when it is trained.
+- The parameter constraints (:class:`MaxNormConstraint`,
+  :class:`MinMaxNormConstraint`, :class:`NonNegativeConstraint`,
+  :class:`UnitNormConstraint`), applied to a layer's new params after each
+  update, last (``nn/multilayer.apply_layer_updates``,
+  ``parallel/zero.apply_sharded_updates``). Only a param named exactly
+  ``W`` is constrained (``applies_to``); norms are taken over every axis but
+  the last (per output unit: a dense ``W`` (nIn, nOut), an HWIO conv
+  kernel). They serialize as the reference's ``{"@type": "constraint",
+  "@class": ..., ...}`` dicts.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.serde import TaggedConf
 
 
@@ -110,3 +117,97 @@ def normalize_layer_gradients(grads: Dict[str, torch.Tensor], mode: Optional[str
             out[k] = g * torch.where(norm > threshold, threshold / norm, 1.0)
         return out
     raise ValueError(f"Unknown gradient normalization '{mode}'")
+
+
+# ---------------------------------------------------------------------------
+# Constraints (applied to params after each update)
+# ---------------------------------------------------------------------------
+class Constraint:
+    """Base parameter constraint (reference ``nn/conf/constraint/BaseConstraint``)."""
+
+    applies_to = ("W",)  # param names; the reference constrains weights only
+
+    def apply(self, param: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def to_dict(self) -> dict:
+        return {"@type": "constraint", "@class": type(self).__name__, **self.__dict__}
+
+    @staticmethod
+    def from_dict(d: dict) -> "Constraint":
+        d = {k: v for k, v in d.items() if k != "@type"}
+        cls = _CONSTRAINTS[d.pop("@class")]
+        obj = cls.__new__(cls)
+        obj.__dict__.update(d)
+        return obj
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.__dict__ == other.__dict__
+
+
+def _norm(param: torch.Tensor) -> torch.Tensor:
+    """The L2 norm over every axis but the last (per output unit), kept as
+    broadcastable dims, with the reference's ``+ 1e-12`` under the root."""
+    axes = tuple(range(param.dim() - 1)) if param.dim() > 1 else (0,)
+    return torch.sqrt(torch.sum(param ** 2, dim=axes, keepdim=True) + 1e-12)
+
+
+@serde.register
+class MaxNormConstraint(Constraint):
+    def __init__(self, max_norm: float = 1.0):
+        self.max_norm = float(max_norm)
+
+    def apply(self, param):
+        return param * torch.clamp(self.max_norm / _norm(param), max=1.0)
+
+
+@serde.register
+class MinMaxNormConstraint(Constraint):
+    def __init__(self, min_norm: float = 0.0, max_norm: float = 1.0, rate: float = 1.0):
+        self.min_norm = float(min_norm)
+        self.max_norm = float(max_norm)
+        self.rate = float(rate)
+
+    def apply(self, param):
+        norm = _norm(param)
+        clipped = torch.clamp(norm, self.min_norm, self.max_norm)
+        target = self.rate * clipped + (1 - self.rate) * norm
+        return param * (target / norm)
+
+
+@serde.register
+class NonNegativeConstraint(Constraint):
+    def __init__(self):
+        pass
+
+    def apply(self, param):
+        return torch.clamp(param, min=0.0)
+
+
+@serde.register
+class UnitNormConstraint(Constraint):
+    def __init__(self):
+        pass
+
+    def apply(self, param):
+        return param / _norm(param)
+
+
+_CONSTRAINTS = {
+    c.__name__: c
+    for c in [MaxNormConstraint, MinMaxNormConstraint, NonNegativeConstraint, UnitNormConstraint]
+}
+
+
+def apply_constraints(layer, new_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A layer's constraints over its new params, in the configured order
+    (the reference's ``BaseOptimizer.applyConstraints``); ``new_params`` is
+    not changed."""
+    if not layer.constraints:
+        return new_params
+    out = dict(new_params)
+    for c in layer.constraints:
+        for name in out:
+            if name in c.applies_to:
+                out[name] = c.apply(out[name])
+    return out

@@ -11,8 +11,13 @@ other.
 ``meta.json`` also carries the fault guard's state (``fault_state``: the
 counters and the loss scale, as the reference writes them), which restore
 reads back, so a guarded run resumes with its skip count, its updater clock
-and its loss scale; the reference's RNG chain is not written (the port has
-no dropout RNG yet, ROADMAP § A2.3).
+and its loss scale, and the dropout RNG's position under a key of the
+port's own, ``dropout_noise`` (``{"seed", "position"}``: the model's
+``noise_seed`` and the draw position of its next step, its iteration), so a
+run restored mid-fit draws the masks the uninterrupted run would have. The
+reference writes its RNG chain as ``rng`` (a uint32 key of its own PRNG):
+the port never writes that key and ignores it on restore, and the
+reference ignores ``dropout_noise``.
 
 ``updaterState.bin`` holds the updater slots as one f32 vector (layers in
 order, param names, then slot names sorted: ``opt_state_flat``), written
@@ -163,9 +168,8 @@ class ModelSerializer:
 
 
 def _build_meta(model) -> dict:
-    """``meta.json``: the counters, the model type, where it was written and
-    the fault guard's state. (The reference also records its RNG chain,
-    which the port's models do not have yet.)"""
+    """``meta.json``: the counters, the model type, where it was written,
+    the fault guard's state and the dropout RNG's position."""
     device = getattr(model, "device", None)
     meta = {
         "iteration": int(model.iteration),
@@ -175,6 +179,9 @@ def _build_meta(model) -> dict:
         "topology": {"n_devices": 1,
                      "backend": "cpu" if device is None else torch.device(device).type},
     }
+    if getattr(model, "noise_seed", None) is not None:
+        meta["dropout_noise"] = {"seed": int(model.noise_seed),
+                                 "position": int(model.iteration)}
     fstate = getattr(model, "fault_state_", None)
     if fstate is not None:
         meta["fault_state"] = {k: (float(v) if v.is_floating_point() else int(v))
@@ -183,8 +190,12 @@ def _build_meta(model) -> dict:
 
 
 def _restore_fault_state(net, meta: dict) -> None:
-    """The inverse of :func:`_build_meta`'s ``fault_state`` (a zip without
-    it leaves the fresh model's)."""
+    """The inverse of :func:`_build_meta`'s ``fault_state`` and
+    ``dropout_noise`` (a zip without them leaves the fresh model's; the
+    position is the restored iteration)."""
+    noise = meta.get("dropout_noise")
+    if noise:
+        net.noise_seed = int(noise["seed"])
     fs = meta.get("fault_state")
     if not fs:
         return

@@ -40,6 +40,12 @@ the stacked batch, the per-step updater scalars and the K scores:
   iteration, which the host writes into a (K,) device buffer before each
   replay (``updaters.step_iteration``), with the armed set. The divergence
   tripwire runs once a bundle, after it (the model's ``fit``);
+- dropout and weight noise draw from the model's counter-based noise
+  source (``nn/conf/dropouts.NoiseSource``) at the step's iteration, which
+  inside a captured bundle is the same device buffer fault injection reads
+  (``updaters.step_iteration``): each step of a replay draws fresh masks,
+  the masks k eager steps draw, and no generator state advances in the
+  warm-up or the capture (nothing is saved or restored around them);
 - the scores stay on the card: a :class:`BundleScores` holds a copy that no
   later replay writes, fetched to the host at most once;
 - :meth:`BundledStep.release`, at the end of a fit, replaces every static

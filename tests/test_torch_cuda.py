@@ -2246,3 +2246,141 @@ def test_gloo_on_cuda_takes_only_the_replicated_update(card):
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "refused 4" in res.stdout, res.stdout
+
+
+# --------------------------------------------------------------- dropout
+DROPOUT_VARIANTS = {"Dropout": lambda: L.Dropout(0.3), "AlphaDropout": lambda: L.AlphaDropout(0.2),
+                    "GaussianDropout": lambda: L.GaussianDropout(0.25),
+                    "GaussianNoise": lambda: L.GaussianNoise(0.2)}
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4097, 50_331_648])
+def test_noise_source_bits_on_the_card_are_the_cpus(card, n):
+    """The counter-based draws are integer hashing: the card's bits equal
+    the CPU's for the same key (n up to phase 15's attention mask)."""
+    from deeplearning4j_tpu_torch.nn.conf.dropouts import NoiseSource
+
+    src = NoiseSource(20261016, 7, rank=1).child(3)
+    got = src.bits(n, "cuda")
+    want = src.bits(n, "cpu")
+    assert torch.equal(got.cpu(), want)
+    pos = torch.tensor(7, device="cuda")
+    assert torch.equal(NoiseSource(20261016, pos, rank=1).child(3).bits(n, "cuda"), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(DROPOUT_VARIANTS))
+def test_dropout_variant_on_the_card_is_the_cpus_on_one_draw(card, name, dtype):
+    """Each variant's draw made on the CPU, fed to its combine on the card
+    and on the CPU: within 1e-6 (f32; bf16 one rounding step); and its own
+    draw on the card keeps the variant's moments."""
+    from deeplearning4j_tpu_torch.nn.conf.dropouts import FedNoise, NoiseSource
+
+    v = DROPOUT_VARIANTS[name]()
+    x = torch.randn((512, 512), generator=torch.Generator().manual_seed(4)).to(dtype)
+    draw = v.draw(NoiseSource(1, 2), x.shape, dtype, "cpu")
+    want = v.apply(x, FedNoise([draw])).float()
+    got = v.apply(x.cuda(), FedNoise([draw.cuda()])).float().cpu()
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    y = v.apply(x.cuda() if name == "AlphaDropout" else torch.ones_like(x).cuda(),
+                NoiseSource(1, 3)).float()
+    if name == "AlphaDropout":
+        assert abs(float(y.mean())) < 0.05 and abs(float(y.std()) - 1) < 0.05
+    else:
+        assert abs(float(y.mean()) - 1.0) < 0.02
+
+
+@pytest.mark.parametrize("name", ["MaxNormConstraint", "MinMaxNormConstraint",
+                                  "NonNegativeConstraint", "UnitNormConstraint"])
+def test_constraint_on_the_card_is_the_cpus(card, name):
+    from deeplearning4j_tpu_torch import regularization as R
+
+    c = {"MaxNormConstraint": lambda: R.MaxNormConstraint(0.5),
+         "MinMaxNormConstraint": lambda: R.MinMaxNormConstraint(0.2, 0.6, 0.8)}.get(
+        name, getattr(R, name))()
+    w = torch.randn((3, 3, 64, 128), generator=torch.Generator().manual_seed(5))
+    assert float((c.apply(w.cuda()).cpu() - c.apply(w)).abs().max()) <= 1e-6
+
+
+def test_noisy_narrow_graph_bundle_on_the_card_equals_its_eager_steps(card):
+    """The narrow graph with input dropout and DropConnect on its output
+    layer and a max-norm constraint on its W: at steps_per_call=2 the two
+    bundles leave params, slots, BN state and scores equal to four eager
+    steps (the draws' position read from the bundle's buffer inside the
+    graph), under deterministic cuDNN; each step drew fresh masks."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.regularization import MaxNormConstraint
+    from deeplearning4j_tpu_torch.train import pipeline
+
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        models = []
+        for k in (1, 2):
+            conf = _narrow_conf()
+            out = conf.vertices["output"].layer
+            out.dropout, out.weight_noise = L.Dropout(0.5), L.DropConnect(0.9)
+            out.constraints = [MaxNormConstraint(0.3)]
+            conf.global_conf.steps_per_call = k
+            models.append(ComputationGraph(conf).init())
+        eager, bundled = models
+        x = np.random.default_rng(13).standard_normal((6, 20, 20, 3)).astype(np.float32)
+        y = np.eye(10, dtype=np.float32)[np.random.default_rng(14).integers(0, 10, 6)]
+        batches = [DataSet(x, y)] * 4
+        scores = []
+        for ds in batches:
+            eager.fit(ExistingDataSetIterator([ds]))
+            scores.append(float(eager.score_))
+        bundled.fit(ExistingDataSetIterator(batches))
+        assert len(set(scores)) == 4
+        for tree in ("params_", "opt_state_", "state_"):
+            a = pipeline.tree_leaves(getattr(eager, tree))
+            b = pipeline.tree_leaves(getattr(bundled, tree))
+            assert all(torch.equal(p, q) for p, q in zip(a, b)), tree
+        assert float(bundled.score_) == scores[-1]
+        norms = torch.linalg.norm(bundled.params_["output"]["W"], dim=0)
+        assert float(norms.max()) <= 0.3 + 1e-6
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+
+
+def test_block_stack_trains_through_the_flash_kernels_in_the_blocks_only(card):
+    """A narrow MultiLayerNetwork of two TransformerBlocks (input dropout)
+    and a SelfAttentionLayer with attention dropout, bf16 at T 128: a train
+    step launches the flash forward, dq and dk/dv twice (the blocks; the
+    dropout layer takes the einsum path); eval launches the forward three
+    times; the k-2 bundle equals two eager steps."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train import pipeline
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    def build(k):
+        b = (NeuralNetConfiguration.builder().seed(3).updater(Adam(1e-3))
+             .compute_dtype("bfloat16").steps_per_call(k).list()
+             .layer(L.PositionalEmbeddingLayer(max_length=128)))
+        for _ in range(2):
+            b = b.layer(L.TransformerBlock(n_heads=2, dropout=0.1))
+        return MultiLayerNetwork(
+            b.layer(L.SelfAttentionLayer(n_heads=2, attention_dropout=0.1))
+            .layer(L.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(L.OutputLayer(n_out=5, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.recurrent(64, 128)).build()).init()
+
+    rng = np.random.default_rng(15)
+    ds = DataSet(rng.standard_normal((4, 128, 64)).astype(np.float32),
+                 np.eye(5, dtype=np.float32)[rng.integers(0, 5, 4)])
+    eager, bundled = build(1), build(2)
+    fa.reset_launch_counts()
+    eager.fit(ExistingDataSetIterator([ds]))
+    torch.cuda.synchronize()
+    assert dict(fa.launch_counts) == {fa.OP: 2, fa.OP_DQ: 2, fa.OP_DKV: 2}
+    eager.fit(ExistingDataSetIterator([ds]))
+    bundled.fit(ExistingDataSetIterator([ds, ds]))
+    assert all(torch.equal(a, b) for a, b in zip(
+        pipeline.tree_leaves((eager.params_, eager.opt_state_)),
+        pipeline.tree_leaves((bundled.params_, bundled.opt_state_))))
+    fa.reset_launch_counts()
+    eager.output(ds.features)
+    assert dict(fa.launch_counts) == {fa.OP: 3}

@@ -212,6 +212,62 @@ def test_one_rank_wrapper_equals_fit_replicated_and_sharded():
     assert nets[2]._opt_state_sync is None
 
 
+@pytest.mark.parametrize("sharded", [False, True])
+def test_one_rank_wrapper_with_dropout_equals_fit(sharded):
+    """The noisy network (dropout, weight noise, constraints): one rank's
+    wrapper, replicated or ZeRO-1, gives ``fit``'s bits: the same masks
+    (rank 0's, the step's iteration) and the constraints after the update
+    (for ZeRO-1 after the all-gather)."""
+    a = ranks._net(_dense_init(), noisy=True)
+    b = ranks._net(_dense_init(), noisy=True)
+    x, y = ranks.blobs()
+    for _ in range(3):
+        a.fit(TDataSet(x, y))
+    ParallelWrapper.builder(b).workers(1).sharded_update(sharded).build().fit(
+        TExisting([TDataSet(x, y)]), epochs=3)
+    np.testing.assert_array_equal(b.params_flat(), a.params_flat())
+    np.testing.assert_array_equal(b.opt_state_flat(), a.opt_state_flat())
+    assert b.score() == a.score()
+    for p in b.params_:
+        assert float(torch.linalg.norm(p["W"], dim=0).max()) <= ranks.NOISY_MAX_NORM + 1e-6
+
+
+def _dense_init():
+    """The dense network's JAX params as ``init.npz`` holds them."""
+    jnet = jax_net()
+    init = {}
+    for tag, tree in (("p", jnet.params_), ("s", jnet.state_)):
+        init.update({f"dense/{tag}{i}/{k}": np.asarray(v)
+                     for i, d in enumerate(tree) for k, v in d.items()})
+    return init
+
+
+def test_sharded_update_applies_constraints_as_the_per_layer_update():
+    """``apply_sharded_updates`` (the reference's ``mesh=None`` leg, 4
+    shards, Adam) constrains the gathered params as ``apply_layer_updates``
+    does: every param and slot ``torch.equal``."""
+    from deeplearning4j_tpu_torch.nn.multilayer import apply_layer_updates
+    from deeplearning4j_tpu_torch.parallel import zero
+
+    net = ranks._net(_dense_init(), noisy=True)
+    x, y = ranks.blobs()
+    net.fit(TDataSet(x, y))
+    loss, _, grads = net._value_and_grad(*net._batch(TDataSet(x, y)))
+    layout = zero.ShardedUpdateLayout(net.layers, net.params_, 4)
+    ref_p, ref_o = apply_layer_updates(net.layers, net.params_, grads, net.opt_state_, 2, 1, 0)
+    got_p, zopt = zero.apply_sharded_updates(layout, net.params_, grads,
+                                             layout.shard_opt_state(net.opt_state_), 2, 1, 0)
+    got_o = layout.unshard_opt_state(zopt, net.opt_state_)
+    for a, b in zip(got_p, ref_p):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    for a, b in zip(got_o, ref_o):
+        assert all(torch.equal(a[k][s], b[k][s]) for k in b for s in b[k])
+    # the constraint is active: columns sit at the max norm
+    norms = [torch.linalg.norm(p["W"], dim=0) for p in got_p]
+    assert all(float(n.max()) <= ranks.NOISY_MAX_NORM + 1e-6 for n in norms)
+    assert any(float(n.max()) >= ranks.NOISY_MAX_NORM - 1e-6 for n in norms)
+
+
 def test_one_rank_wrapper_takes_batch_statistics_without_collectives():
     """On one rank the rows are the global batch: the BN network through the
     replicated and the sharded wrapper equals ``fit`` bit for bit, running
@@ -481,6 +537,43 @@ def test_ranks_guarded_wrapper_skips_the_poisoned_step(rank_runs, world):
     for key in ("guard/repl", "guard/sharded"):
         assert out[f"{key}/bad_counts"].tolist() == [1] * world
         assert int(out[f"{key}/good_count"]) == 2 and int(out[f"{key}/iteration"]) == 3
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_draw_their_own_dropout_masks(rank_runs, world):
+    """In a wrapper step each rank's rows take masks of their own (no two
+    ranks share one, as no two rows of the reference's global batch do);
+    the params' DropConnect mask is one for all ranks (the reference draws
+    it once a step); the master folds the rank into every draw."""
+    out = rank_runs(world)
+    for key in ("dropout/wrapper/alpha_masks", "dropout/master/alpha_masks",
+                "dropout/master/connect_masks"):
+        masks = out[key]
+        assert masks.shape[0] == world
+        for i in range(world):
+            for j in range(i + 1, world):
+                assert not np.array_equal(masks[i], masks[j]), (key, i, j)
+    connect = out["dropout/wrapper/connect_masks"]
+    assert all(np.array_equal(connect[0], connect[r]) for r in range(world))
+    assert 0.8 < connect.mean() < 0.97
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_dropout_sharded_equals_replicated_and_bundles(rank_runs, world):
+    """The noisy network over the ranks: ZeRO-1 within PARITY_TOL of the
+    replicated update (the same masks; the mean gradient summed in another
+    order), the constraint held by both; bundles of 2 equal single steps bit
+    for bit, replicated and sharded."""
+    out = rank_runs(world)
+    for part in ("params", "opt"):
+        np.testing.assert_allclose(out[f"dropout/sharded/{part}"], out[f"dropout/repl/{part}"],
+                                   rtol=0, atol=PARITY_TOL)
+    for tag in ("repl", "sharded"):
+        assert out[f"dropout/{tag}/w_norms"].max() <= ranks.NOISY_MAX_NORM + 1e-6
+        assert int(out[f"dropout/{tag}/iteration"]) == 3
+        for part in ("params", "opt", "score", "iteration"):
+            np.testing.assert_array_equal(out[f"dropout/bundle/{tag}/k2/{part}"],
+                                          out[f"dropout/bundle/{tag}/k1/{part}"])
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -28,14 +28,31 @@ IMAGE, CHANNELS, WIDTH, ROWS_PER_RANK = 8, 3, 8, 8
 #: the shared-training cases' threshold (TestSharedMasterSharded's)
 SHARED_THRESHOLD = 1e-5
 SHARED_STEPS = 3
+#: the noisy network's max-norm constraint
+NOISY_MAX_NORM = 0.5
 
 
 def build(pkg, mixed_precision=False, sharded_knob=False, gradnorm=False, bn=False,
-          fused=False, steps=1):
+          fused=False, steps=1, noisy=False):
     """The TestWrapperParity network in ``pkg`` = (conf, layers, updaters),
     with a BatchNormalization after its first layer (``bn``), or the fused
-    bottleneck network (``fused``); ``steps``: its ``steps_per_call``."""
+    bottleneck network (``fused``); ``steps``: its ``steps_per_call``;
+    ``noisy``: AlphaDropout and DropConnect on the first layer, dropout on
+    the output layer's input and a max-norm constraint on both ``W``."""
     conf, layers, upd = pkg
+    if noisy:
+        import importlib
+
+        reg = importlib.import_module(layers.__name__.split(".")[0] + ".regularization")
+        first = {"dropout": layers.AlphaDropout(0.2), "weight_noise": layers.DropConnect(0.9),
+                 "constraints": [reg.MaxNormConstraint(NOISY_MAX_NORM)]}
+        last = {"dropout": 0.3, "constraints": [reg.MaxNormConstraint(NOISY_MAX_NORM)]}
+        b = conf.NeuralNetConfiguration.builder().seed(3).updater(upd.Adam(0.01))
+        if steps > 1:
+            b = b.steps_per_call(steps)
+        return (b.list().layer(layers.DenseLayer(n_out=N_HID, activation="tanh", **first))
+                .layer(layers.OutputLayer(n_out=N_OUT, activation="softmax", **last))
+                .set_input_type(conf.InputType.feed_forward(N_IN)).build())
     b = conf.NeuralNetConfiguration.builder().seed(3).updater(upd.Adam(0.01))
     if steps > 1:
         b = b.steps_per_call(steps)
@@ -276,6 +293,7 @@ def _cases(rank, world, root):
     out["padding/no_bundled_step"] = np.bool_(pw._bstep is None)
 
     out.update(_guard_cases(world, init, save, ds))
+    out.update(_dropout_cases(rank, world, init, save, ds))
     out.update(_shared_cases(rank, world, root, init, save, CheckpointingIterator))
     return out
 
@@ -323,6 +341,64 @@ def _guard_cases(world, init, save, ds):
     out["guard/master/good_count"] = np.int64(net.fault_state_["good_count"])
     out["guard/master/finite"] = np.bool_(np.isfinite(net.params_flat()).all())
     out["guard/master/moved"] = np.bool_(not np.array_equal(before[0], net.params_flat()))
+    return out
+
+
+def _dropout_cases(rank, world, init, save, ds):
+    """The noisy network: the masks each rank draws in one wrapper step and
+    one master step (gathered), replicated and sharded fits, and bundled
+    (steps_per_call 2) against single steps."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import dropouts
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, SharedTrainingMaster
+
+    out = {}
+
+    def gathered(t):
+        rows = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(rows, t.contiguous())
+        return torch.stack(rows).numpy()
+
+    seen = {}
+    originals = {cls: cls.combine for cls in (dropouts.AlphaDropout, dropouts.DropConnect)}
+
+    def recording(cls):
+        def combine(self, x, mask):
+            seen.setdefault(cls.__name__, mask.clone())
+            return originals[cls](self, x, mask)
+        return combine
+
+    for cls in originals:
+        cls.combine = recording(cls)
+    try:
+        net = _net(init, noisy=True)
+        ParallelWrapper.builder(net).workers(world).build().fit(ExistingDataSetIterator([ds]))
+        out["dropout/wrapper/alpha_masks"] = gathered(seen["AlphaDropout"].to(torch.uint8))
+        out["dropout/wrapper/connect_masks"] = gathered(seen["DropConnect"].to(torch.uint8))
+        seen.clear()
+        net = _net(init, noisy=True)
+        SharedTrainingMaster.builder(SHARED_THRESHOLD).build().fit(
+            net, ExistingDataSetIterator([ds]))
+        out["dropout/master/alpha_masks"] = gathered(seen["AlphaDropout"].to(torch.uint8))
+        out["dropout/master/connect_masks"] = gathered(seen["DropConnect"].to(torch.uint8))
+    finally:
+        for cls, fn in originals.items():
+            cls.combine = fn
+
+    for sharded in (False, True):
+        tag = "sharded" if sharded else "repl"
+        net = _net(init, noisy=True)
+        (ParallelWrapper.builder(net).workers(world).sharded_update(sharded).build()
+         .fit(ExistingDataSetIterator([ds]), epochs=3))
+        save(f"dropout/{tag}", net)
+        out[f"dropout/{tag}/w_norms"] = np.concatenate(
+            [torch.linalg.norm(p["W"], dim=0).numpy() for p in net.params_])
+        for k in (1, 2):
+            net = _net(init, steps=k, noisy=True)
+            (ParallelWrapper.builder(net).workers(world).sharded_update(sharded).build()
+             .fit(ExistingDataSetIterator([DataSet(x, y) for x, y in bundle_batches()]),
+                  epochs=2))
+            save(f"dropout/bundle/{tag}/k{k}", net)
     return out
 
 

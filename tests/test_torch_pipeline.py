@@ -394,3 +394,83 @@ def test_changes_between_fits_reach_the_next_bundle(emulate):
         net.fit(data)
     assert_same(a, b)
     assert a.iteration == 8
+
+
+# ------------------------------------------------------------------ dropout
+def noisy_mlp(k, policy=None):
+    """``mlp`` with every kind of noise: AlphaDropout and DropConnect on the
+    hidden layer, plain dropout on the output layer's input and weight
+    noise on its params, a max-norm constraint on both ``W``."""
+    from deeplearning4j_tpu_torch.regularization import MaxNormConstraint
+
+    b = (tconf.NeuralNetConfiguration.builder().seed(7).updater(tupd.Adam(1e-3))
+         .steps_per_call(k))
+    if policy is not None:
+        b = b.fault_policy(policy)
+    return (b.list()
+            .layer(tlayers.DenseLayer(n_out=16, activation="relu",
+                                      dropout=tlayers.AlphaDropout(0.2),
+                                      weight_noise=tlayers.DropConnect(0.9),
+                                      constraints=[MaxNormConstraint(0.8)]))
+            .layer(tlayers.OutputLayer(n_out=3, activation="softmax", loss="mcxent",
+                                       dropout=0.3, weight_noise=tlayers.WeightNoise(0.02),
+                                       constraints=[MaxNormConstraint(0.8)]))
+            .set_input_type(tconf.InputType.feed_forward(12)).build())
+
+
+def noisy_graph(k):
+    conf = graph(PORT, k)
+    conf.vertices["d0"].layer.dropout = tlayers.GaussianDropout(0.3)
+    conf.vertices["out"].layer.dropout = 0.25
+    conf.vertices["out"].layer.weight_noise = tlayers.DropConnect(0.8)
+    return conf
+
+
+@pytest.mark.parametrize("emulate", [False, True])
+@pytest.mark.parametrize("kind", ["mln", "graph", "guarded", "wrapper", "wrapper-zero1"])
+def test_dropout_bundles_equal_single_steps(kind, emulate):
+    """With dropout, weight noise and constraints, k bundled steps equal k
+    eager steps bit for bit (params, slots, scores), eager and on the card's
+    path run without the graph (``emulate``: the step's draw position comes
+    from the bundle's iteration buffer, a device scalar); each step draws
+    fresh masks (the scores of one repeated batch differ)."""
+    from deeplearning4j_tpu_torch.train.faults import FaultPolicy
+
+    k = 2 if kind.startswith("graph") else 4
+    if kind == "graph":
+        rng = np.random.default_rng(3)
+        x = rng.standard_normal((8, 4)).astype(np.float32)
+        y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 8)]
+        data = [TDataSet(x, y)] * 5
+        a, b = TGraph(noisy_graph(1)).init(device="cpu"), TGraph(noisy_graph(k)).init(device="cpu")
+    else:
+        x, y = batches(1)[0]
+        data = [TDataSet(x, y)] * 9
+        policy = FaultPolicy() if kind == "guarded" else None
+        a = TNet(noisy_mlp(1, policy)).init(device="cpu")
+        b = TNet(noisy_mlp(k, policy)).init(device="cpu")
+    if kind.startswith("wrapper"):
+        sharded = kind == "wrapper-zero1"
+        ParallelWrapper.builder(a).workers(1).sharded_update(sharded).build().fit(
+            TExisting(data))
+        pw = ParallelWrapper.builder(b).workers(1).sharded_update(sharded).build()
+        if emulate:
+            step = pw._bundle_step(k)
+            (step._runner if sharded else step).emulate = True
+        pw.fit(TExisting(data))
+        seen = [float(s) for s in b.bundle_scores_.host()]
+    else:
+        if emulate:
+            emulated(b, k)
+        scores = []
+        for ds in data:
+            a.fit(TExisting([ds]))
+            scores.append(float(a.score_))
+        b.fit(TExisting(data))
+        seen = scores
+        a.epoch = b.epoch  # a fit a batch above: one epoch each
+        bundle = b.bundle_scores_.host()
+        assert [float(s) for s in bundle] == scores[len(data) // k * k - k:len(data) // k * k]
+    assert_same(a, b)
+    assert torch.equal(a.score_, b.score_)
+    assert len(set(seen)) > 1  # one batch, fresh masks each step

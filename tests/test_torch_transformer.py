@@ -18,10 +18,11 @@ the CPU, with params carried from JAX through ``interop``.
   op by op, so logits agree within 4 bf16 steps (4 * 2^-7) of the largest
   |logit|, and tokens are identical up to the first step whose JAX top-2
   gap is within twice the measured logit difference.
-- The typed refusals: MoE, ``decode_steps``, manual parallelism, attention
-  dropout and the attention layers' train mode; ``fit_batch`` and
-  ``lm_loss``'s gradients, refused before training was ported, now run
-  (their parity with JAX is in ``test_torch_transformer_train.py``).
+- The typed refusals: MoE, ``decode_steps``, manual parallelism;
+  ``fit_batch`` and ``lm_loss``'s gradients, refused before training was
+  ported, now run (their parity with JAX is in
+  ``test_torch_transformer_train.py``), and so do attention dropout and the
+  attention layers' train mode (``test_torch_attention_train.py``).
 - ``compute_params``' cache follows replaced and trained params (a freed
   tensor's ``id`` reused by a new one served a stale cast before).
 """
@@ -145,12 +146,23 @@ def test_attention_layers_eval_forward_matches_jax(jlayer, masked):
 
 
 def test_attention_layers_refuse_training():
+    """No longer refused: a TransformerBlock trains with its eval forward,
+    and ``dense_attention`` with a dropout rate drops entries of ``p`` (the
+    mask fed in: all kept gives the undropped result; all dropped, zeros)."""
+    from deeplearning4j_tpu_torch.nn.conf.dropouts import FedNoise
+
     params, tlayer = _layer_pair(jatt.TransformerBlock(n_in=8, n_heads=2), 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlayer.apply({k: _t(v) for k, v in params.items()}, torch.zeros(1, 4, 8), train=True)
-    q = torch.zeros(1, 1, 8, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.dense_attention(q, q, q, causal=True, dropout_rate=0.1, dropout_rng=object())
+    tp = {k: _t(v) for k, v in params.items()}
+    x = _t(np.random.default_rng(2).standard_normal((1, 4, 8)))
+    assert torch.equal(tlayer.apply(tp, x, train=True)[0], tlayer.apply(tp, x)[0])
+    q = _t(np.random.default_rng(3).standard_normal((1, 1, 8, 4)))
+    plain = tatt.dense_attention(q, q, q, causal=True)
+    kept = tatt.dense_attention(q, q, q, causal=True, dropout_rate=0.5,
+                                dropout_rng=FedNoise([np.ones((1, 1, 8, 8), bool)]))
+    torch.testing.assert_close(kept, 2 * plain, rtol=0, atol=F32_TOL)
+    dropped = tatt.dense_attention(q, q, q, causal=True, dropout_rate=0.5,
+                                   dropout_rng=FedNoise([np.zeros((1, 1, 8, 8), bool)]))
+    assert not dropped.any()
 
 
 def test_gelu_is_the_tanh_approximation():
