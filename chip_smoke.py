@@ -145,6 +145,19 @@ variant's moments at f32 and bf16 on the card, the card's draw bits equal
 to the CPU's, each variant and constraint on a CPU draw within 1e-6 of the
 CPU, and a mask draw's device time beside ``torch.rand``'s; (e) a mid-fit
 zip of (b)'s model whose next step equals the uninterrupted run's.
+Phase 16 rematerializes (``remat_policy``): (a) phase 4's ResNet-50 under
+none, save_conv_outputs, dots and nothing, two eager steps and one bundle
+of 4 each ``torch.equal`` to none's, the launches of a step (each
+bottleneck's forward kernels again in the backward), the second step's
+peak memory (nothing's below none's), and images/s eager and bundled of
+all four in turns; (b) one guarded ZeRO-1 step under nothing ``torch.equal``
+to none's (one ``fused_adam``); (c) (b)'s 12-block stack with and without
+dropout, one step's gradients under nothing ``torch.equal`` to none's with
+the flash forward launched twice as often, and ``set_learning_rate`` between
+two bundles against eager steps bit for bit; (d) the networks' other
+methods: ``evaluate`` against an ``Evaluation`` of ``output``,
+``feed_forward``, ``train_step_fn`` against a fit step, VGG16's
+``predict`` and ``to_computation_graph``.
 Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
@@ -5313,25 +5326,25 @@ def _dropout_resnet(fc, card, failed):
             "zero1": {"launches": z_launches, "w_equal": w_equal, "groups": len(layout.groups)}}
 
 
-def block_stack(k: int = 1, dropout: bool = True):
+def block_stack(k: int = 1, dropout: bool = True, updater=None):
     """(c)'s MultiLayerNetwork (:func:`block_conf`) on the card."""
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
-    return MultiLayerNetwork(block_conf(k, dropout=dropout)).init()
+    return MultiLayerNetwork(block_conf(k, dropout=dropout, updater=updater)).init()
 
 
-def block_conf(k: int = 1, compute_dtype="bfloat16", dropout: bool = True):
+def block_conf(k: int = 1, compute_dtype="bfloat16", dropout: bool = True, updater=None):
     """(c)'s configuration at the TransformerLM's widths: positional
     embedding, BLOCKS["layers"] TransformerBlocks with input dropout, one
     SelfAttentionLayer with attention dropout (both 0 without ``dropout``),
-    average pooling, a softmax over BLOCKS["classes"]; Adam(LM_TRAIN_LR);
-    seeded."""
+    average pooling, a softmax over BLOCKS["classes"]; Adam(LM_TRAIN_LR)
+    unless ``updater``; seeded."""
     from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.conf import layers as L
     from deeplearning4j_tpu_torch.updaters import Adam
 
     c = BLOCKS
-    b = (NeuralNetConfiguration.builder().seed(SEED).updater(Adam(LM_TRAIN_LR))
+    b = (NeuralNetConfiguration.builder().seed(SEED).updater(updater or Adam(LM_TRAIN_LR))
          .steps_per_call(k))
     if compute_dtype:
         b = b.compute_dtype(compute_dtype)
@@ -5445,6 +5458,351 @@ def _dropout_blocks(fc, fa, card, failed):
                           "loss_rel": loss_rel}}
 
 
+REMAT_POLICIES = ("none", "save_conv_outputs", "dots", "nothing")
+REMAT_STEPS = 2               # (a) eager steps under each policy, then ...
+REMAT_K = 4                   # ... the first REMAT_K batches in one bundle
+REMAT_TIMED = 8               # (a) batches a timed fit, eager and bundled
+#: (a) a rematerialized ResNet-50 step: each bottleneck's forward kernels run
+#: again in the backward (its region is recomputed whole), the stem's cuDNN
+#: convolution is no kernel of the port
+REMAT_STEP_LAUNCHES = dict(STEP_LAUNCHES, pw_conv=2 * STEP_LAUNCHES["pw_conv"],
+                           conv3x3=2 * STEP_LAUNCHES["conv3x3"])
+REMAT_LR = 3e-3               # (c) the learning rate set between two bundles
+REMAT_LR_STEPS = 4            # (c) steps before and after set_learning_rate
+EVAL_ROWS = 64                # (d) the examples evaluate runs over
+
+
+def _launch_deltas(marks):
+    """Per-step launch counts from the cumulative counts read before each
+    step and after the last."""
+    keys = set().union(*marks)
+    return [{k: b.get(k, 0) - a.get(k, 0) for k in keys if b.get(k, 0) - a.get(k, 0)}
+            for a, b in zip(marks, marks[1:])]
+
+
+def _add_launches(total, more):
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def remat_phase(fc, fu, fa, card: str):
+    """Phase 16: rematerialization (``remat_policy``) on the card, and the
+    networks' other public methods (evaluation, introspection, conversion,
+    the pure train step)."""
+    return _deterministic_cudnn(lambda: _remat(fc, fu, fa, card))
+
+
+def _remat(fc, fu, fa, card):
+    failed = []
+    t0 = time.perf_counter()
+    res = _remat_resnet(fc, card, failed)
+    zero1 = _remat_zero1(fc, fu, card, failed)
+    blocks = _remat_blocks(fc, fa, card, failed)
+    methods = _network_methods(fc, card, failed)
+    main = {}
+    for part in (res, zero1, blocks):
+        _add_launches(main, part["main_launches"])
+    path = list(STEP_LAUNCHES) + ["fused_adam", fa.OP, fa.OP_DQ, fa.OP_DKV]
+    idle = [k for k in path if not main.get(k)]
+    print(f"phase 16 main-path launches under remat {main}; took "
+          f"{time.perf_counter() - t0:.1f}s; on {card}", flush=True)
+    if idle:
+        failed.append(f"kernels of the path never launched under remat: {idle}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"main_launches": main, "resnet50": res, "zero1": zero1, "blocks": blocks,
+            "methods": methods}
+
+
+def _remat_resnet(fc, card, failed):
+    """(a) Phase 4's ResNet-50 (Nesterovs) under each policy: REMAT_STEPS
+    eager steps (the second one's peak memory above what was held when it
+    began) and one bundle of REMAT_K, each torch.equal to no remat's; the
+    launches of each step and of the capture; images/s eager and bundled,
+    all policies in turns."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.updaters import Nesterovs
+
+    rng = np.random.default_rng(SEED + 50)
+    batches = [DataSet(rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32),
+                       np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)])
+               for _ in range(REMAT_TIMED)]
+    base, _ = resnet50(updater=Nesterovs(TRAIN_LR, 0.9))
+
+    def model_of(policy, k=1):
+        m = base.clone()
+        m.conf.global_conf.remat_policy = None if policy == "none" else policy
+        m.conf.global_conf.steps_per_call = k
+        return m
+
+    models, out, main = {}, {}, {}
+    for policy in REMAT_POLICIES:
+        eager = model_of(policy)
+        marks, mem = [], {}
+
+        def before(i):
+            torch.cuda.synchronize()
+            marks.append(dict(fc.launch_counts))
+            if i == REMAT_STEPS - 1:
+                torch.cuda.reset_peak_memory_stats()
+                mem["held"] = torch.cuda.memory_allocated()
+
+        fc.reset_launch_counts()
+        eager.fit(RecordingIterator(batches[:REMAT_STEPS], before))
+        torch.cuda.synchronize()
+        mem["peak"] = torch.cuda.max_memory_allocated()
+        marks.append(dict(fc.launch_counts))
+        if policy != "none":
+            _add_launches(main, marks[-1])
+        per_step = _launch_deltas(marks)
+        bundled = model_of(policy, REMAT_K)
+        bundled.fit(ExistingDataSetIterator(batches[:REMAT_K]))
+        torch.cuda.synchronize()
+        captured = dict(bundled._bundled.captured_launches)
+        models[policy] = (eager, bundled)
+        step_gib = (mem["peak"] - mem["held"]) / 2 ** 30
+        want = STEP_LAUNCHES if policy == "none" else REMAT_STEP_LAUNCHES
+        equal = ({"eager": _states_equal(eager, models["none"][0]),
+                  "bundled": _states_equal(bundled, models["none"][1]),
+                  "scores": (float(eager.score_) == float(models["none"][0].score_)
+                             and float(bundled.score_) == float(models["none"][1].score_))}
+                 if policy != "none" else None)
+        out[policy] = {"launches_per_step": per_step, "captured": captured,
+                       "step_peak_gib": step_gib, "peak_gib": mem["peak"] / 2 ** 30,
+                       "held_gib": mem["held"] / 2 ** 30, "equal_to_none": equal}
+        print(f"phase 16 (a) ResNet-50 1000 classes 224x224 bf16 fused, batch {BATCH}, "
+              f"Nesterovs({TRAIN_LR}, 0.9), remat_policy {policy}: {REMAT_STEPS} eager steps, "
+              f"launches per step {per_step}; the second step's peak "
+              f"{mem['peak'] / 2 ** 30:.3f} GiB allocated, {step_gib:.3f} GiB above the "
+              f"{mem['held'] / 2 ** 30:.3f} held when it began; one bundle of {REMAT_K}: "
+              f"launches captured {captured}; vs none torch.equal {equal}; on {card}",
+              flush=True)
+        if any(st != want for st in per_step) or \
+                captured != {k: REMAT_K * v for k, v in want.items()}:
+            failed.append(f"(a) {policy}: launches {per_step}, captured {captured}")
+        if equal is not None and not (all(equal["eager"].values())
+                                      and all(equal["bundled"].values()) and equal["scores"]):
+            failed.append(f"(a) {policy} differs from no remat: {equal}")
+        if not (_finite(eager) and _finite(bundled)):
+            failed.append(f"(a) {policy}: params not finite")
+    if not out["nothing"]["step_peak_gib"] < out["none"]["step_peak_gib"]:
+        failed.append(f"(a) nothing's step peak {out['nothing']['step_peak_gib']} GiB not below "
+                      f"none's {out['none']['step_peak_gib']}")
+
+    runs = []
+    for policy in REMAT_POLICIES:
+        for mode, m in zip(("eager", "bundled"), models[policy]):
+            runs.append((f"{policy} {mode}",
+                         lambda m=m: m.fit(ExistingDataSetIterator(batches))))
+    timed = _in_turns(runs)
+    speed = {label: [BATCH * REMAT_TIMED / t for t in r["s"]] for label, r in timed.items()}
+    print(f"phase 16 (a) speed (in turns: the {len(runs)} runs, then back; {REMAT_TIMED} batches "
+          f"a fit, host clock, synchronized), train images/s: "
+          + "; ".join(f"{k} {[round(v, 2) for v in vals]}" for k, vals in speed.items())
+          + f"; peak allocated GiB "
+          + "; ".join(f"{k} {[round(v, 3) for v in r['peak_gib']]}" for k, r in timed.items())
+          + f"; on {card}", flush=True)
+    for eager, bundled in models.values():
+        for m in (eager, bundled):
+            m.params_ = m.state_ = m.opt_state_ = m._bundled = None
+    base.params_ = base.state_ = None
+    del models
+    torch.cuda.empty_cache()
+    return {"main_launches": main, "policies": out, "speed": speed,
+            "peaks_in_turns_gib": {k: r["peak_gib"] for k, r in timed.items()}}
+
+
+def _remat_zero1(fc, fu, card, failed):
+    """(b) Phase 10's ResNet-50 (Adam) guarded (FaultPolicy()) through the
+    ZeRO-1 wrapper: one step under "nothing" torch.equal to the same step
+    without remat, one fused Adam a group."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, zero
+    from deeplearning4j_tpu_torch.train.faults import FaultPolicy
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    rng = np.random.default_rng(SEED + 51)
+    ds = DataSet(rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32),
+                 np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)])
+    nets, launches = {}, {}
+    for policy in (None, "nothing"):
+        model, _ = resnet50(updater=Adam(ADAM_LR))
+        model.set_fault_policy(FaultPolicy())
+        model.conf.global_conf.remat_policy = policy
+        fc.reset_launch_counts()
+        ParallelWrapper.builder(model).workers(1).sharded_update(True).build().fit(
+            ExistingDataSetIterator([ds]))
+        torch.cuda.synchronize()
+        nets[policy], launches[policy] = model, dict(fc.launch_counts)
+    got, ref = nets["nothing"], nets[None]
+    groups = sum(i is not None for i in fu.resolve_group_impls(zero.build_layout(got, 1)))
+    equal = _states_equal(got, ref)
+    equal["fault_state"] = _fault_states_equal(got, ref)
+    equal["score"] = float(got.score_) == float(ref.score_)
+    print(f"phase 16 (b) guarded ZeRO-1 wrapper (workers=1, sharded_update, FaultPolicy(), "
+          f"Adam({ADAM_LR})), one step under remat_policy nothing vs none: torch.equal {equal}; "
+          f"launches {launches['nothing']} (none: {launches[None]}; fused_adam {groups} = G); "
+          f"on {card}", flush=True)
+    if not all(equal.values()) or launches["nothing"] != dict(REMAT_STEP_LAUNCHES,
+                                                              fused_adam=groups):
+        failed.append(f"(b) ZeRO-1 under remat: {equal}, launches {launches['nothing']}")
+    for m in nets.values():
+        m.params_ = m.state_ = m.opt_state_ = m.fault_state_ = None
+    torch.cuda.empty_cache()
+    return {"main_launches": launches["nothing"], "equal": equal, "groups": groups}
+
+
+def _remat_blocks(fc, fa, card, failed):
+    """(c) The 12-block stack of phase 15 (c) under "nothing", with and
+    without dropout: one step's loss, new state and gradients torch.equal
+    to no remat, the flash launches of each; then, with Nesterovs (a fixed
+    learning rate, which a captured bundle holds as a constant), one bundle
+    of REMAT_LR_STEPS, set_learning_rate(REMAT_LR), another bundle: equal to
+    eager steps at the two rates bit for bit."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.train import pipeline
+    from deeplearning4j_tpu_torch.updaters import Nesterovs
+
+    c = BLOCKS
+    rng = np.random.default_rng(SEED + 52)
+    batches, ds0 = _noisy_batches(rng, (c["batch"], c["t"], c["d"]), c["classes"],
+                                  REMAT_LR_STEPS)
+    grads, main = {}, {}
+    for dropout in (True, False):
+        model = block_stack(dropout=dropout)
+        batch, noise = model._batch(ds0), model.step_noise()
+        got = {}
+        for policy in (None, "nothing"):
+            model.conf.global_conf.remat_policy = policy
+            fc.reset_launch_counts()
+            g = model._value_and_grad(*batch, noise=noise)
+            torch.cuda.synchronize()
+            got[policy] = (g, {k: v for k, v in fc.launch_counts.items() if v})
+        (g0, l0), (g1, l1) = got[None], got["nothing"]
+        equal = (torch.equal(g0[0], g1[0])
+                 and all(torch.equal(a, b) for a, b in zip(pipeline.tree_leaves(g0[1:]),
+                                                           pipeline.tree_leaves(g1[1:]))))
+        want = dict(l0, **{fa.OP: 2 * l0.get(fa.OP, 0)})
+        tag = "dropout" if dropout else "no dropout"
+        grads[tag] = {"equal": equal, "launches": l1, "launches_none": l0}
+        print(f"phase 16 (c) block stack ({c['layers']} TransformerBlocks, d {c['d']}, T "
+              f"{c['t']}, batch {c['batch']}, bf16, {tag}): one step's loss, state and "
+              f"gradients under remat_policy nothing torch.equal to none {equal}; launches "
+              f"{l1} (none: {l0}; the forward's again in the backward); on {card}", flush=True)
+        if not equal or l1 != want or not l0.get(fa.OP):
+            failed.append(f"(c) {tag}: equal {equal}, launches {l1} (want {want})")
+        model.params_ = model.state_ = None
+
+    # set_learning_rate between two bundles: the main path's fit steps
+    def stack(k):
+        m = block_stack(k, updater=Nesterovs(LM_TRAIN_LR, 0.9))
+        m.conf.global_conf.remat_policy = "nothing"
+        return m
+
+    eager, bundled = stack(1), stack(REMAT_LR_STEPS)
+    marks = []
+    fc.reset_launch_counts()
+    eager.fit(RecordingIterator(batches, lambda i: marks.append(dict(fc.launch_counts))))
+    torch.cuda.synchronize()
+    marks.append(dict(fc.launch_counts))
+    per_step = _launch_deltas(marks)
+    _add_launches(main, marks[-1])
+    bundled.fit(ExistingDataSetIterator(batches))
+    first = bundled._bundled
+    for m in (eager, bundled):
+        m.set_learning_rate(REMAT_LR)
+    fc.reset_launch_counts()
+    eager.fit(ExistingDataSetIterator(batches))
+    torch.cuda.synchronize()
+    _add_launches(main, fc.launch_counts)
+    bundled.fit(ExistingDataSetIterator(batches))
+    torch.cuda.synchronize()
+    remade = bundled._bundled is not first
+    equal = _states_equal(eager, bundled)
+    equal["score"] = float(eager.score_) == float(bundled.score_)
+    print(f"phase 16 (c) Nesterovs({LM_TRAIN_LR}, 0.9), remat_policy nothing, dropout: "
+          f"{REMAT_LR_STEPS} eager steps, launches per step {per_step}; one bundle of "
+          f"{REMAT_LR_STEPS}, set_learning_rate({REMAT_LR}), another bundle (remade {remade}) "
+          f"vs the same eager steps torch.equal {equal}; scores {float(eager.score_):.6g}; on "
+          f"{card}", flush=True)
+    if not (remade and all(equal.values())):
+        failed.append(f"(c) set_learning_rate between bundles: remade {remade}, {equal}")
+    if any(st != per_step[0] for st in per_step) or not per_step[0].get(fa.OP_DQ):
+        failed.append(f"(c) launches a step {per_step}")
+    for m in (eager, bundled):
+        m.params_ = m.state_ = m.opt_state_ = m._bundled = None
+    torch.cuda.empty_cache()
+    return {"main_launches": main, "gradients": grads, "launches_per_step": per_step[0],
+            "lr_bundle_remade": remade, "lr_equal": equal}
+
+
+def _network_methods(fc, card, failed):
+    """(d) A2.4 on the card: evaluate on phase 4's ResNet-50 over EVAL_ROWS
+    examples against an Evaluation fed with its output, feed_forward's
+    output vertex against output, train_step_fn's step against a fit step;
+    the zoo's VGG16 (f32, W spread): predict against output's argmax, and
+    to_computation_graph's output against the network's."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.evaluation import Evaluation
+    from deeplearning4j_tpu_torch.models import VGG16
+    from deeplearning4j_tpu_torch.nn.graph import _as_multi
+    from deeplearning4j_tpu_torch.train import pipeline
+    from deeplearning4j_tpu_torch.updaters import Nesterovs
+
+    rng = np.random.default_rng(SEED + 53)
+    x = rng.standard_normal((EVAL_ROWS, 224, 224, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, EVAL_ROWS)]
+    model, _ = resnet50(updater=Nesterovs(TRAIN_LR, 0.9))
+    ev = model.evaluate(DataSet(x, y), top_n=5)
+    out = model.output_single(x)
+    ref = Evaluation(top_n=5)
+    ref.eval(y, out)
+    eval_equal = (np.array_equal(ev.confusion.matrix, ref.confusion.matrix)
+                  and ev.top_n_accuracy() == ref.top_n_accuracy())
+    ff = model.feed_forward(x[:8])
+    ff_equal = np.array_equal(ff["output"], model.output_single(x[:8]))
+
+    ds = DataSet(x[:BATCH], y[:BATCH])
+    feats, labels, lmasks = model._batch(_as_multi(ds))
+    opt = model._ensure_opt_state()
+    step = model.train_step_fn()
+    got = step(model.params_, opt, model.state_, feats, labels, None, lmasks, None,
+               model.iteration, model.epoch)
+    model.fit(ExistingDataSetIterator([ds]))
+    torch.cuda.synchronize()
+    want = (model.params_, model.opt_state_, model.state_, model.score_)
+    la, lb = pipeline.tree_leaves(got), pipeline.tree_leaves(want)
+    step_equal = len(la) == len(lb) and all(torch.equal(a, b) for a, b in zip(la, lb))
+    print(f"phase 16 (d) ResNet-50 (phase 4's): evaluate over {EVAL_ROWS} examples (top-5) == "
+          f"an Evaluation fed with output on the card {eval_equal} (accuracy "
+          f"{ev.accuracy():.4f}, top-5 {ev.top_n_accuracy():.4f}); feed_forward's output "
+          f"vertex == output {ff_equal} ({len(ff)} activations); train_step_fn's step == one fit "
+          f"step torch.equal {step_equal} ({len(la)} tensors); on {card}", flush=True)
+    model.params_ = model.state_ = model.opt_state_ = None
+    del got, want, la, lb
+    torch.cuda.empty_cache()
+
+    vgg = VGG16(num_classes=1000, height=224, width=224, seed=SEED).init()
+    spread_softmax(vgg, x[:BATCH])
+    cg = vgg.to_computation_graph()
+    yv, yg = vgg.output(x[:BATCH]), cg.output_single(x[:BATCH])
+    graph_equal = bool(np.array_equal(yv, yg))
+    predict_equal = bool(np.array_equal(vgg.predict(x[:BATCH]), yv.argmax(-1)))
+    print(f"phase 16 (d) VGG16 (f32, W spread): to_computation_graph ({len(cg.layer_names)} "
+          f"layer vertices) output == the network's {graph_equal} (max |diff| "
+          f"{float(np.abs(yv - yg).max()):.3g}); predict == output.argmax {predict_equal}; "
+          f"layer_size of the first conv {vgg.layer_size(0)}; on {card}", flush=True)
+    for m in (vgg, cg):
+        m.params_ = m.state_ = None
+    torch.cuda.empty_cache()
+    result = {"evaluate_equal": eval_equal, "feed_forward_equal": ff_equal,
+              "train_step_fn_equal": step_equal, "to_computation_graph_equal": graph_equal,
+              "predict_equal": predict_equal, "accuracy": ev.accuracy()}
+    if not all(v for k, v in result.items() if k != "accuracy"):
+        failed.append(f"(d) network methods: {result}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -5498,6 +5856,7 @@ def main() -> int:
     pinf = parallel_inference_phase(fc, card, serve)
     knobs = knobs_phase(fc, fu, card, bundle)
     drop = dropout_phase(fc, fa, im, card)
+    remat = remat_phase(fc, fu, fa, card)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -5576,6 +5935,9 @@ def main() -> int:
             drop["blocks"]["main_launches"], drop["vgg16"]["serve"]["main_launches"]))
         if dropout_launches:
             entry_k["launches_dropout"] = dropout_launches
+        # phase 16: the rematerialized ResNet-50's eager steps, the guarded
+        # ZeRO-1 step and the block stack's steps, recomputes included
+        entry_k["launches_remat"] = remat["main_launches"].get(name, 0)
         kernels.append(entry_k)
     import torch.distributed as dist
 
@@ -5593,7 +5955,8 @@ def main() -> int:
                    "vgg16": vgg, "generation": gen,
                    "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
                    "entry_points": entry, "guard": guard, "parallel_inference": pinf,
-                   "knobs": knobs, "dropout": drop, "kernels": kernels}, f, indent=1)
+                   "knobs": knobs, "dropout": drop, "remat": remat, "kernels": kernels},
+                  f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.nn import remat
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (
@@ -112,6 +113,9 @@ class ConvolutionLayer(BaseConvLayer):
     """2D convolution. W: (kh, kw, inC, outC) HWIO; fan_in = kh*kw*inC,
     fan_out = kh*kw*outC."""
 
+    #: what :meth:`apply` names for the remat policy (``nn/remat.py``)
+    checkpoint_names = ("conv_out",)
+
     def init_params(self, gen, input_type, dtype=torch.float32):
         kh, kw = self.kernel_size
         p = {"W": self._draw_weight(gen, (kh, kw, self.n_in, self.n_out),
@@ -129,8 +133,12 @@ class ConvolutionLayer(BaseConvLayer):
             lh = lw = 0
         w = params["W"].permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        y = F.conv2d(xc, w, stride=tuple(self.stride), padding=(lh, lw),
-                     dilation=tuple(self.dilation))
+        # the raw convolution is "conv_out", as in the reference: under the
+        # "save_conv_outputs" remat policy it is kept, its bias and
+        # activation recomputed from it; elsewhere the name changes nothing
+        with remat.checkpoint_name("conv_out"):
+            y = F.conv2d(xc, w, stride=tuple(self.stride), padding=(lh, lw),
+                         dilation=tuple(self.dilation))
         y = _nhwc(y)
         if self.has_bias:
             y = y + params["b"]

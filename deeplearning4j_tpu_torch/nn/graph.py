@@ -1,8 +1,10 @@
 """ComputationGraph: DAG network runtime, inference and training.
 
 Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``init``, the forward
-walk over the topological order, ``output``/``output_single``, and the
-train side: ``fit``, ``score``, ``compute_gradient_and_score``. PyTorch
+walk over the topological order, ``output``/``output_single``,
+``feed_forward``, the streaming ``rnn_time_step``, the train side: ``fit``,
+``score``, ``compute_gradient_and_score``, the pure ``train_step_fn``,
+``set_learning_rate``; the evaluate family and ``summary``. PyTorch
 runs the walk eagerly; there is no compiled program. The train step is the
 reference's unguarded one: loss (f32) and new layer state from a train-mode
 forward, gradients by autograd, then the per-layer update pipeline
@@ -27,8 +29,9 @@ knob and a plain ``fit`` ignores it, as the reference's does.
 of K steps (``train/pipeline.py``): K eager steps on the CPU, one replay of a
 captured CUDA graph on the card. A fault policy makes the step the
 reference's guarded one (``nn/multilayer.guarded_update``,
-``train/faults.py``), eager and bundled. Rematerialization, telemetry,
-listeners and tBPTT are not ported yet and raise.
+``train/faults.py``), eager and bundled. ``remat_policy`` makes each layer
+vertex's train-mode step a checkpointed region (``nn/remat.py``).
+Telemetry, listeners and tBPTT are not ported yet and raise.
 
 Dropout, weight noise and constraints as in the reference's graph, per
 layer vertex: preprocessor -> input dropout -> weight noise -> ``apply``,
@@ -43,7 +46,8 @@ layer vertex (its index in ``layer_names``).
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional, Union
+import functools
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -64,12 +68,14 @@ from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
 from deeplearning4j_tpu_torch.nn.conf.dropouts import NoiseSource
 from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_input_dropout, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.multilayer import (
+    NetworkMethods,
     apply_layer_updates,
     bundle_step_of,
     cast_layer_params_for_compute,
     check_train_conf,
     flatten_tensors,
     guarded_update,
+    remat_policy_of,
     unflatten_tensors,
 )
 from deeplearning4j_tpu_torch.regularization import as_regularization
@@ -82,7 +88,7 @@ NOT_PORTED = "not ported yet (ROADMAP § A, training slices)"
 Tensors = Dict[str, torch.Tensor]
 
 
-class ComputationGraph(_faults.GuardedModel):
+class ComputationGraph(NetworkMethods):
     def __init__(self, conf: ComputationGraphConfiguration):
         # a private copy: layers of the caller's conf are never shared
         self.conf = conf = copy.deepcopy(conf)
@@ -111,6 +117,8 @@ class ComputationGraph(_faults.GuardedModel):
         #: the dtype float inputs take in the forward when set (the gradient
         #: checker's float64); None: the compute or params dtype
         self._input_dtype: Optional[torch.dtype] = None
+        #: the streaming state of :meth:`rnn_time_step`
+        self._rnn_carries: Optional[Dict[str, Any]] = None
         self._output_layers()
 
     def _layer(self, name: str):
@@ -206,13 +214,17 @@ class ComputationGraph(_faults.GuardedModel):
         return out
 
     def _forward(self, params, state, inputs, *, train: bool = False,
-                 cast_params: bool = True, noise=None):
+                 cast_params: bool = True, noise=None, remat=None, carries=None):
         """Forward walk over the topological order. Returns ``(acts,
         out_inputs, new_state)``: every vertex's activation, the input of
         each output layer (what its score is computed from, after its input
         dropout), and each layer's new state. ``cast_params=False`` when
         ``params`` is already the output of :meth:`compute_params`.
-        ``noise``: the step's noise source in training."""
+        ``noise``: the step's noise source in training. ``remat``: a
+        train-mode forward's remat policy (each layer vertex but the output
+        layers one checkpointed region), or None. ``carries``: recurrent
+        layer vertex name -> the state to start from (:meth:`_init_carries`);
+        then ``new_carries``, their final states, is returned fourth."""
         conf = self.conf
         if self._compute_dtype is not None and cast_params:
             params = self.compute_params(params)
@@ -223,26 +235,57 @@ class ComputationGraph(_faults.GuardedModel):
         acts: Dict[str, torch.Tensor] = dict(zip(conf.network_inputs, inputs))
         out_inputs: Dict[str, torch.Tensor] = {}
         new_state: Dict[str, Tensors] = {}
+        new_carries: Dict[str, Any] = {}
         for name in self.topo:
             v = conf.vertices[name]
             in_acts = [acts[s] for s in conf.vertex_inputs[name]]
-            if isinstance(v, LayerVertex):
-                x = in_acts[0]
-                if v.preprocessor is not None:
-                    x = v.preprocessor.pre_process(x)
-                r = self._stream(noise, name)
-                x = apply_input_dropout(v.layer, x, train, r)
-                p_n = params.get(name, {})
-                if v.layer.is_output_layer:
-                    out_inputs[name] = x
-                else:
-                    p_n = apply_weight_noise(v.layer, p_n, train, r)
-                y, st = v.layer.apply(p_n, x, state=state.get(name, {}), train=train, rng=r)
-                acts[name] = y
-                new_state[name] = st if st is not None else {}
-            else:
+            if not isinstance(v, LayerVertex):
                 acts[name] = v.apply(in_acts)
+                continue
+            r = self._stream(noise, name)
+            p_n, st_n = params.get(name, {}), state.get(name, {})
+            if v.layer.is_output_layer:
+                # the score reads the input after its dropout; the head is
+                # no region
+                out_inputs[name] = x = self._vertex_input(v, in_acts[0], train, r)
+                y, st = v.layer.apply(p_n, x, state=st_n, train=train, rng=r)
+                c = None
+            else:
+                step = functools.partial(self._vertex_step, v, p_n, st_n, train, r,
+                                         None if carries is None else carries.get(name))
+                if remat is not None and train:
+                    y, st, c = remat.region(v.layer, step, in_acts[0])
+                else:
+                    y, st, c = step(in_acts[0])
+            acts[name] = y
+            new_state[name] = st if st is not None else {}
+            if c is not None:
+                new_carries[name] = c
+        if carries is not None:
+            return acts, out_inputs, new_state, new_carries
         return acts, out_inputs, new_state
+
+    @staticmethod
+    def _vertex_input(v, x, train: bool, r):
+        """A layer vertex's input: its preprocessor, then its input dropout."""
+        if v.preprocessor is not None:
+            x = v.preprocessor.pre_process(x)
+        return apply_input_dropout(v.layer, x, train, r)
+
+    def _vertex_step(self, v, p_n, st_n, train: bool, r, carry, x):
+        """One layer vertex (not an output layer): ``(y, new_state,
+        new_carry)`` from its input ``x`` (its preprocessor, input dropout,
+        weight noise and ``apply``; from ``carry`` where it is a recurrent
+        layer's)."""
+        from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
+
+        x = self._vertex_input(v, x, train, r)
+        p_n = apply_weight_noise(v.layer, p_n, train, r)
+        if carry is not None and isinstance(v.layer, BaseRecurrentLayer):
+            y, c = v.layer.apply_with_carry(p_n, x, carry, mask=None, train=train, rng=r)
+            return y, st_n, c
+        y, st = v.layer.apply(p_n, x, state=st_n, train=train, rng=r)
+        return y, st, None
 
     def _stream(self, noise, name: str):
         """Layer vertex ``name``'s noise stream (None without noise)."""
@@ -260,13 +303,7 @@ class ComputationGraph(_faults.GuardedModel):
         with torch.inference_mode():
             acts, _, _ = self._forward(self.params_, self.state_,
                                        [self._as_input(x) for x in inputs])
-        out = []
-        for name in self.conf.network_outputs:
-            y = acts[name]
-            if y.dtype in (torch.bfloat16, torch.float16):
-                y = y.float()
-            out.append(y.cpu().numpy())
-        return out
+        return [_host(acts[name]) for name in self.conf.network_outputs]
 
     def output_single(self, *inputs) -> np.ndarray:
         ys = self.output(*inputs)
@@ -276,12 +313,13 @@ class ComputationGraph(_faults.GuardedModel):
 
     # ----------------------------------------------------------------- scoring
     def _loss_and_new_state(self, params, state, features, labels, lmasks,
-                            train: bool = True, noise=None):
+                            train: bool = True, noise=None, remat=None):
         """Mean per-example loss summed over the outputs (f32: under a
         compute dtype the output layer's input is widened first), and the
-        layers' new state. An output layer's weight noise is drawn here."""
+        layers' new state. An output layer's weight noise is drawn here.
+        ``remat``: the train step's remat policy."""
         _, out_inputs, new_state = self._forward(params, state, features, train=train,
-                                                 noise=noise)
+                                                 noise=noise, remat=remat)
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, name in enumerate(self.conf.network_outputs):
             x = out_inputs[name]
@@ -329,17 +367,21 @@ class ComputationGraph(_faults.GuardedModel):
         return ([tensor(f) for f in mds.features], [tensor(lab, True) for lab in mds.labels],
                 [None if m is None else tensor(m, True) for m in mds.labels_masks])
 
-    def _value_and_grad(self, feats, labels, lmasks, scale=None, noise=None):
-        """(loss, new_state, grads) of a train-mode forward at ``params_``;
-        grads has the layout of ``params_``. ``scale``: the fault policy's
-        loss scale (the gradients of ``loss * scale``, loss and gradients
-        multiplied back by ``1 / scale``). ``noise``: the step's noise source
-        (default :meth:`step_noise` on rank 0)."""
+    def _value_and_grad(self, feats, labels, lmasks, scale=None, noise=None, params=None,
+                        state=None):
+        """(loss, new_state, grads) of a train-mode forward at ``params`` and
+        ``state`` (default ``params_``, ``state_``), under the configuration's
+        remat policy; grads has the layout of ``params_``. ``scale``: the
+        fault policy's loss scale (the gradients of ``loss * scale``, loss
+        and gradients multiplied back by ``1 / scale``). ``noise``: the
+        step's noise source (default :meth:`step_noise` on rank 0)."""
+        params = self.params_ if params is None else params
         diff = {v: {k: t.detach().requires_grad_() for k, t in p.items()}
-                for v, p in self.params_.items()}
+                for v, p in params.items()}
         loss, new_state = self._loss_and_new_state(
-            diff, self.state_, feats, labels, lmasks,
-            noise=self.step_noise() if noise is None else noise)
+            diff, self.state_ if state is None else state, feats, labels, lmasks,
+            noise=self.step_noise() if noise is None else noise,
+            remat=remat_policy_of(self))
         if scale is not None:
             loss = loss * scale
         leaves = [(v, k) for v, p in diff.items() for k in p]
@@ -441,18 +483,104 @@ class ComputationGraph(_faults.GuardedModel):
         the regularization score before the update), the new state,
         ``iteration + 1``."""
         opt_state = self._ensure_opt_state()
-        names = self.layer_names
 
         def update(grads, t, it):
-            new_params, new_opt = apply_layer_updates(
-                [self._layer(n) for n in names], [self.params_[n] for n in names],
-                [grads[n] for n in names], [opt_state[n] for n in names], t, it, self.epoch)
-            return dict(zip(names, new_params)), dict(zip(names, new_opt)), new_state
+            return self._layer_updates(self.params_, grads, opt_state, t, it,
+                                       self.epoch) + (new_state,)
 
         self.score_ = loss + self._reg_score(self.params_)
         self.params_, self.opt_state_, self.state_ = guarded_update(
             self, grads, update, (self.params_, opt_state, self.state_))
         self.iteration += 1
+
+    def _layer_updates(self, params, grads, opt_state, t, iteration, epoch):
+        """:func:`apply_layer_updates` over the layer vertices' dicts."""
+        names = self.layer_names
+        new_params, new_opt = apply_layer_updates(
+            [self._layer(n) for n in names], [params[n] for n in names],
+            [grads[n] for n in names], [opt_state[n] for n in names], t, iteration, epoch)
+        return dict(zip(names, new_params)), dict(zip(names, new_opt))
+
+    def _pure_grads(self, params, state, features, labels, fmasks, lmasks, scale, noise):
+        if fmasks is not None and any(m is not None for m in fmasks):
+            raise NotImplementedError(f"feature masks are {NOT_PORTED}")
+        return self._value_and_grad(list(features), list(labels), list(lmasks or []),
+                                    scale=scale, noise=noise, params=params, state=state)
+
+    def _updater_layers(self):
+        return [self._layer(n) for n in self.layer_names]
+
+    # -------------------------------------------------- evaluation, streaming
+    def _eval_output(self, ds: DataSet) -> np.ndarray:
+        if ds.features_mask is not None:
+            raise NotImplementedError(f"feature masks are {NOT_PORTED}")
+        return self.output_single(ds.features)
+
+    def feed_forward(self, *inputs, train: bool = False) -> Dict[str, np.ndarray]:
+        """Every vertex's activation, the network inputs included, by name
+        (the reference's ``feedForward``), as numpy; ``train``: layers in
+        train mode (BN batch statistics, dropout from
+        :meth:`introspection_noise`), the model unchanged."""
+        with torch.no_grad():
+            acts, _, _ = self._forward(self.params_, self.state_,
+                                       [self._as_input(x) for x in inputs], train=train,
+                                       noise=self.introspection_noise() if train else None)
+        return {k: _host(v) for k, v in acts.items()}
+
+    def _init_carries(self, batch: int, dtype=torch.float32) -> Dict[str, Any]:
+        """Zero recurrent state for ``batch`` rows on the model's device, by
+        recurrent layer vertex."""
+        from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
+
+        return {n: self._layer(n).init_carry(batch, dtype, self.device)
+                for n in self.layer_names if isinstance(self._layer(n), BaseRecurrentLayer)}
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_carries = None
+
+    def rnn_time_step(self, *inputs) -> List[np.ndarray]:
+        """Stateful streaming inference (the reference's ``rnnTimeStep``):
+        the recurrent state carries over from the last call. A 2-D input is
+        one time step, and a 3-D output then comes back as its last step."""
+        feats, squeeze = [], False
+        for x in inputs:
+            x = self._as_input(x)
+            if x.dim() == 2:
+                x, squeeze = x[:, None, :], True
+            feats.append(x)
+        if self._rnn_carries is None:
+            # the input's dtype, as the reference (which has no float64)
+            dt = torch.float32 if feats[0].dtype == torch.float64 else feats[0].dtype
+            self._rnn_carries = self._init_carries(feats[0].shape[0], dt)
+        with torch.inference_mode():
+            acts, _, _, self._rnn_carries = self._forward(self.params_, self.state_, feats,
+                                                          carries=self._rnn_carries)
+        out = []
+        for name in self.conf.network_outputs:
+            y = _host(acts[name])
+            out.append(y[:, -1, :] if squeeze and y.ndim == 3 else y)
+        return out
+
+    def summary(self) -> str:
+        """Vertex table: name, kind, inputs, #params (the reference's)."""
+        rows = [("vertex", "kind", "inputs", "params")]
+        total = 0
+        for name in self.topo:
+            v = self.conf.vertices[name]
+            kind = type(v.layer).__name__ if isinstance(v, LayerVertex) else type(v).__name__
+            n = 0
+            if self.params_ is not None and name in self.params_ and isinstance(v, LayerVertex):
+                n = int(sum(t.numel() for t in self.params_[name].values()))
+            total += n
+            rows.append((name, kind, ", ".join(self.conf.vertex_inputs.get(name, ())),
+                         f"{n:,}"))
+        for name in self.conf.network_inputs:
+            rows.insert(1, (name, "NetworkInput", "", "0"))
+        widths = [max(len(r[c]) for r in rows) for c in range(4)]
+        lines = ["  ".join(r[c].ljust(widths[c]) for c in range(4)) for r in rows]
+        lines.insert(1, "-" * (sum(widths) + 6))
+        lines.append(f"Total parameters: {total:,}")
+        return "\n".join(lines)
 
 
 def stack_multi(group: List[MultiDataSet]) -> MultiDataSet:
@@ -467,6 +595,13 @@ def stack_multi(group: List[MultiDataSet]) -> MultiDataSet:
         [st([m.labels[i] for m in group]) for i in range(len(first.labels))],
         [st([m.features_masks[i] for m in group]) for i in range(len(first.features_masks))],
         [st([m.labels_masks[i] for m in group]) for i in range(len(first.labels_masks))])
+
+
+def _host(y: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy on the host (f32 for a bf16 or f16 one)."""
+    if y.dtype in (torch.bfloat16, torch.float16):
+        y = y.float()
+    return y.cpu().numpy()
 
 
 def _as_multi(ds: Union[DataSet, MultiDataSet]) -> MultiDataSet:

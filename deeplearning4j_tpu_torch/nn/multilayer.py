@@ -4,8 +4,13 @@ update pipeline shared by the train steps.
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``, the
 forward with feature masks and recurrent carries (eval and train mode),
 ``output``, the streaming ``rnn_time_step`` family, the train side
-(``fit``, ``score``, ``compute_gradient_and_score``), the flat parameter
-and updater-state vectors and ``summary``. PyTorch runs the step eagerly;
+(``fit``, ``score``, ``compute_gradient_and_score``, the pure
+``train_step_fn``, ``set_learning_rate``), evaluation (``evaluate``,
+``evaluate_roc``, ``evaluate_roc_multi_class``, ``evaluate_regression``,
+``f1_score``, ``predict``; ``evaluation/``), introspection
+(``feed_forward``, ``score_examples``, ``layer_size``, ``summary``),
+``to_computation_graph`` and the flat parameter and updater-state vectors.
+PyTorch runs the step eagerly;
 there is no compiled program. The train step is the reference's unguarded
 one, split in two halves that ``ParallelWrapper`` calls apart: loss (f32)
 and new layer state from a train-mode forward, gradients by autograd
@@ -39,8 +44,12 @@ over the gradients, the updater at ``t = good_count + 1``, params, updater
 state and layer state kept where the verdict is false, the fault state
 advanced; all on the device, with the divergence tripwire after each step
 (each bundle) only when ``max_consecutive_bad_steps`` is set.
-Rematerialization, telemetry, listeners and tBPTT are not ported yet and
-raise (:func:`check_train_conf`).
+
+``remat_policy`` (or the ``DL4J_TPU_REMAT`` environment variable) makes the
+train-mode forward of every fit path rematerialize (``nn/remat.py``): each
+layer a checkpointed region, what the policy does not keep recomputed in
+the backward; the gradients are the same bits. Telemetry, listeners and
+tBPTT are not ported yet and raise (:func:`check_train_conf`).
 
 Dropout, weight noise and constraints run as in the reference's
 ``_forward``: per layer, preprocessor -> input dropout -> (stop) -> weight
@@ -55,15 +64,17 @@ indices. A draw is a pure function of (seed, position, rank, stream,
 element index), made where it is used: inside a captured bundle the
 position is the iteration the host writes into the bundle's buffer before
 each replay (``updaters.step_iteration``), so k bundled steps draw what k
-eager steps draw, bit for bit. A rematerialized region (ROADMAP § A2.2)
-that recomputes a dropout redraws the same bits from the same source; it
-needs no generator state saved or restored (``torch.utils.checkpoint``
-restores only the default generators, which the draws do not use).
+eager steps draw, bit for bit. A rematerialized region that recomputes a
+dropout redraws the same bits from the same source; it needs no generator
+state saved or restored. ``feed_forward(train=True)`` draws from a stream
+of its own (:meth:`MultiLayerNetwork.introspection_noise`), never the next
+step's.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -77,6 +88,7 @@ from deeplearning4j_tpu_torch.data.iterators import (
     ListDataSetIterator,
     iter_bundled,
 )
+from deeplearning4j_tpu_torch.nn import remat as _remat
 from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.dropouts import NoiseSource
 from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_input_dropout, apply_weight_noise
@@ -88,16 +100,41 @@ from deeplearning4j_tpu_torch.regularization import (
 )
 from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
-from deeplearning4j_tpu_torch.updaters import as_updater, step_iteration
+from deeplearning4j_tpu_torch.updaters import _schedule_dict, as_updater, step_iteration
 
 Tensors = Dict[str, torch.Tensor]
 
 NOT_PORTED = "not ported yet (ROADMAP § A, slice 4: the rest of the training core)"
+#: the refusal of the in-graph train-step telemetry, which feeds listeners
+TELEMETRY_NOT_PORTED = "train-step telemetry is not ported yet (ROADMAP § A8)"
+#: the first path element of the noise streams of :meth:`feed_forward` in
+#: train mode (a layer's stream starts with its index, never this)
+INTROSPECTION_STREAM = 0x7FFF0001
+
+
+#: ``GlobalConf.remat_policy`` (or the ``DL4J_TPU_REMAT`` environment
+#: override) -> a ``RematPolicy`` or None (the reference's name)
+_resolve_remat_policy = _remat.resolve
+
+
+def remat_policy_of(model) -> Optional[_remat.RematPolicy]:
+    """The remat policy ``model``'s train steps take now."""
+    return _resolve_remat_policy(getattr(model.conf.global_conf, "remat_policy", None))
+
+
+def step_key(model) -> tuple:
+    """What a captured train step of ``model`` holds as constants besides
+    its layout: the fault policy, the remat policy, and the learning rates
+    (a version that :meth:`set_learning_rate` moves on). A cached bundle
+    whose key differs is made anew."""
+    return (model._active_fault_policy(), remat_policy_of(model),
+            getattr(model, "_lr_version", 0))
 
 
 def check_train_conf(conf, not_ported: str) -> None:
     """Refuse, at train time, the global training options the port does not
-    have yet: remat, telemetry and tBPTT.
+    have yet: telemetry and tBPTT; and an unknown ``remat_policy`` (a
+    ``ValueError``, as the reference's).
     (``sharded_update`` is for ``ParallelWrapper``: a plain ``fit`` ignores
     it, as the reference's does.) Shared by MultiLayerNetwork and
     ComputationGraph."""
@@ -107,13 +144,13 @@ def check_train_conf(conf, not_ported: str) -> None:
         return getattr(g, name, default)
 
     refused = [
-        (knob("remat_policy") not in (None, "none"), "remat_policy"),
         (knob("telemetry") not in (None, False), "telemetry"),
         (conf.backprop_type == "tbptt", "tbptt"),
     ]
     names = [what for bad, what in refused if bad]
     if names:
         raise NotImplementedError(f"{', '.join(names)}: {not_ported}")
+    _resolve_remat_policy(knob("remat_policy"))
 
 
 def cast_layer_params_for_compute(layer, p: Tensors, cd: torch.dtype, *,
@@ -208,16 +245,141 @@ def guarded_update(model, grads, update, old):
 
 def bundle_step_of(model, k: int, one_step) -> "_pipeline.BundledStep":
     """The model's bundled step at ``k``, kept across fits (on the card it
-    holds the captured graph) and made anew when ``k`` or the fault policy
-    changes (the graph holds the policy's constants)."""
-    key = (k, model._active_fault_policy())
+    holds the captured graph) and made anew when ``k`` or :func:`step_key`
+    changes (the graph holds the fault policy's constants, the remat
+    policy's regions and fixed learning rates)."""
+    key = (k,) + step_key(model)
     if model._bundled is None or model._bundled_key != key:
         model._bundled = _pipeline.BundledStep(model, k, one_step)
         model._bundled_key = key
     return model._bundled
 
 
-class MultiLayerNetwork(_faults.GuardedModel):
+class NetworkMethods(_faults.GuardedModel):
+    """What ``MultiLayerNetwork`` and ``ComputationGraph`` share besides the
+    fault policy (:class:`~deeplearning4j_tpu_torch.train.faults.
+    GuardedModel`): the evaluate family, ``set_learning_rate``, the pure
+    ``train_step_fn`` and the noise of a train-mode ``feed_forward``. The
+    model provides ``_eval_output(ds)`` (the network's output for a
+    DataSet's features, numpy), ``_updater_layers()``, ``_layer_updates``
+    and ``_pure_grads``."""
+
+    # ------------------------------------------------------------ evaluation
+    def _evaluate_with(self, it, ev):
+        """The evaluate family's loop: each DataSet of ``it`` (a DataSet is
+        cut into batches of 256) through the network, its labels, output and
+        label mask into ``ev``; ``it`` is reset afterwards."""
+        if isinstance(it, DataSet):
+            it = ListDataSetIterator(it, 256)
+        for ds in it:
+            ev.eval(ds.labels, self._eval_output(ds), mask=ds.labels_mask)
+        it.reset()
+        return ev
+
+    def evaluate(self, it: Union[DataSetIterator, DataSet], top_n: int = 1):
+        """Classification metrics over ``it`` (an ``Evaluation``, top-N
+        accuracy with ``top_n``)."""
+        from deeplearning4j_tpu_torch.evaluation import Evaluation
+
+        return self._evaluate_with(it, Evaluation(top_n=top_n))
+
+    def evaluate_roc(self, it, threshold_steps: int = 0):
+        """Binary ROC over ``it`` (exact with ``threshold_steps`` 0)."""
+        from deeplearning4j_tpu_torch.evaluation import ROC
+
+        return self._evaluate_with(it, ROC(threshold_steps))
+
+    def evaluate_roc_multi_class(self, it, threshold_steps: int = 0):
+        """One-vs-all ROC per class over ``it``."""
+        from deeplearning4j_tpu_torch.evaluation import ROCMultiClass
+
+        return self._evaluate_with(it, ROCMultiClass(threshold_steps))
+
+    def evaluate_regression(self, it: Union[DataSetIterator, DataSet]):
+        """Regression metrics over ``it``."""
+        from deeplearning4j_tpu_torch.evaluation import RegressionEvaluation
+
+        return self._evaluate_with(it, RegressionEvaluation())
+
+    # --------------------------------------------------------------- control
+    def set_learning_rate(self, lr: float) -> None:
+        """A fixed learning rate ``lr`` for every layer's updater that has
+        one (the reference's ``setLearningRate``). It takes effect at the
+        next step: a bundled step captured at the old rate (which holds a
+        fixed rate as a constant) is dropped, the model's and any wrapper's
+        (:func:`step_key`)."""
+        for layer in self._updater_layers():
+            upd = as_updater(layer.updater)
+            if upd.get("learning_rate") is not None:
+                upd["learning_rate"] = _schedule_dict(float(lr))
+                layer.updater = upd
+        self._bundled = None
+        self._lr_version = getattr(self, "_lr_version", 0) + 1
+
+    setLearningRate = set_learning_rate
+
+    def introspection_noise(self) -> NoiseSource:
+        """The noise of one ``feed_forward(train=True)``: the model's seed at
+        its iteration on a stream of its own (:data:`INTROSPECTION_STREAM`,
+        then a count of such calls), so that it never draws what a fit step
+        draws and no two calls draw alike."""
+        self._introspections = getattr(self, "_introspections", 0) + 1
+        return NoiseSource(self.noise_seed, self.iteration, 0,
+                           (INTROSPECTION_STREAM, self._introspections))
+
+    def train_step_fn(self, telemetry=None):
+        """The pure train step (the reference's ``train_step_fn``)::
+
+            step(params, opt_state, state, features, labels, fmask, lmask,
+                 noise, iteration, epoch) -> (new_params, new_opt, new_states, score)
+
+        one ``fit`` step's computation (the remat policy included) on the
+        trees given, which it does not change (a graph's ``features``,
+        ``labels``, ``lmask`` are lists, its ``fmask`` None). ``noise`` None
+        draws the model's stream at ``iteration``. Under an active fault
+        policy it is the guarded step, as the reference's: ``step(params,
+        opt_state, state, fstate, features, ...)`` -> ``(new_params, new_opt,
+        new_states, new_fstate, score)``. ``telemetry`` is refused."""
+        if telemetry is not None:
+            raise NotImplementedError(TELEMETRY_NOT_PORTED)
+        self._check_trainable()
+        policy = self._active_fault_policy()
+
+        def grads_of(params, state, features, labels, fmask, lmask, noise, iteration, scale):
+            noise = NoiseSource(self.noise_seed, iteration) if noise is None else noise
+            return self._pure_grads(params, state, features, labels, fmask, lmask, scale, noise)
+
+        if policy is None:
+            def step(params, opt_state, state, features, labels, fmask, lmask, noise,
+                     iteration, epoch):
+                loss, new_states, grads = grads_of(params, state, features, labels, fmask,
+                                                   lmask, noise, iteration, None)
+                new_params, new_opt = self._layer_updates(params, grads, opt_state,
+                                                          iteration + 1, iteration, epoch)
+                return new_params, new_opt, new_states, loss + self._reg_score(params)
+
+            return step
+        scaling = policy.scaling_active(self._compute_dtype)
+
+        def gstep(params, opt_state, state, fstate, features, labels, fmask, lmask, noise,
+                  iteration, epoch):
+            loss, new_states, grads = grads_of(params, state, features, labels, fmask, lmask,
+                                               noise, iteration,
+                                               fstate["loss_scale"] if scaling else None)
+            grads = _faults.inject_gradient_faults(grads, iteration)
+            finite = _faults.all_finite(grads)
+            good = fstate["good_count"]
+            new = self._layer_updates(params, grads, opt_state, good + 1, good, epoch) \
+                + (new_states,)
+            if policy.skips(self._compute_dtype):
+                new = _faults.where_tree(finite, new, (params, opt_state, state))
+            return (*new, _faults.advance_fault_state(policy, fstate, finite),
+                    loss + self._reg_score(params))
+
+        return gstep
+
+
+class MultiLayerNetwork(NetworkMethods):
     def __init__(self, conf: MultiLayerConfiguration):
         # a private copy: layers of the caller's conf are never shared
         self.conf = conf = copy.deepcopy(conf)
@@ -306,7 +468,7 @@ class MultiLayerNetwork(_faults.GuardedModel):
     def _forward(self, params, state, x: torch.Tensor, *, train: bool = False,
                  stop_before: Optional[int] = None, cast_params: bool = True,
                  fmask: Optional[torch.Tensor] = None,
-                 carries: Optional[List[Any]] = None, noise=None
+                 carries: Optional[List[Any]] = None, noise=None, remat=None
                  ) -> Tuple[torch.Tensor, List[Tensors], List[Any]]:
         """The forward. Returns ``(x, new_states, new_carries)``: ``x`` is
         the activation into layer ``stop_before`` (after its preprocessor),
@@ -321,20 +483,23 @@ class MultiLayerNetwork(_faults.GuardedModel):
         ``cast_params=False`` when ``params`` is already the output of
         :meth:`compute_params`. ``noise``: the step's noise source in
         training (layer i draws from its stream ``i``); a layer with dropout
-        or weight noise needs one when ``train``."""
-        x, _, new_states, new_carries = self._walk(
+        or weight noise needs one when ``train``. ``remat``: a train-mode
+        forward's :class:`~deeplearning4j_tpu_torch.nn.remat.RematPolicy`
+        (each layer one checkpointed region), or None."""
+        x, _, new_states, new_carries, _ = self._walk(
             params, state, x, train=train, stop_before=stop_before,
-            cast_params=cast_params, fmask=fmask, carries=carries, noise=noise)
+            cast_params=cast_params, fmask=fmask, carries=carries, noise=noise,
+            remat=remat)
         return x, new_states, new_carries
 
     def _walk(self, params, state, x, *, train, stop_before, cast_params, fmask,
-              carries, noise=None):
+              carries, noise=None, remat=None, collect: bool = False):
         """:meth:`_forward`'s walk; also returns the feature mask as it
-        stands at ``x`` (the label mask of a time-series head). Per layer, as
-        the reference: preprocessor, input dropout, the stop, weight noise,
-        ``apply``: the input into layer ``stop_before`` is dropped too."""
-        from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
-
+        stands at ``x`` (the label mask of a time-series head) and, with
+        ``collect``, every layer's activation. Per layer, as the reference:
+        preprocessor, input dropout, the stop, weight noise, ``apply``: the
+        input into layer ``stop_before`` is dropped too. Under ``remat`` a
+        layer's whole step is one region."""
         if self._compute_dtype is not None and cast_params:
             params = self.compute_params(params)
         # float inputs take the compute dtype, else the params dtype (the
@@ -348,30 +513,51 @@ class MultiLayerNetwork(_faults.GuardedModel):
         mask = fmask
         new_states: List[Tensors] = []
         new_carries: List[Any] = [None] * n
+        acts: List[torch.Tensor] = []
         for i in range(n):
-            layer = self.layers[i]
-            if i in self.conf.preprocessors:
-                prep = self.conf.preprocessors[i]
-                x = prep.pre_process(x, mask)
-                mask = prep.feed_forward_mask(mask)
             r = None if noise is None else noise.child(i)
-            x = apply_input_dropout(layer, x, train, r)
             if i >= stop:
+                x, mask = self._layer_input(i, x, mask, train, r)
                 break
-            p_i = apply_weight_noise(layer, params[i], train, r)
-            if (carries is not None and isinstance(layer, BaseRecurrentLayer)
-                    and carries[i] is not None):
-                x, new_carries[i] = layer.apply_with_carry(p_i, x, carries[i], mask=mask,
-                                                           train=train, rng=r)
-                st = state[i]
+            carry = None if carries is None else carries[i]
+            step = functools.partial(self._layer_step, i, params[i], state[i], train, r, carry)
+            if remat is not None and train:
+                x, mask, st, new_carries[i] = remat.region(self.layers[i], step, x, mask)
             else:
-                x, st = layer.apply(p_i, x, state=state[i], train=train, rng=r, mask=mask)
-            new_states.append(st if st is not None else {})
-            if layer.is_recurrent and mask is not None:
-                pass  # recurrent layers keep the (b, T) mask
-            elif x.dim() == 2 and mask is not None and mask.dim() > 1:
-                mask = None  # consumed by a pooling or last-step layer
-        return x, mask, new_states, new_carries
+                x, mask, st, new_carries[i] = step(x, mask)
+            new_states.append(st)
+            if collect:
+                acts.append(x)
+        return x, mask, new_states, new_carries, acts
+
+    def _layer_input(self, i: int, x, mask, train: bool, r):
+        """Layer ``i``'s input: its preprocessor, then its input dropout."""
+        if i in self.conf.preprocessors:
+            prep = self.conf.preprocessors[i]
+            x = prep.pre_process(x, mask)
+            mask = prep.feed_forward_mask(mask)
+        return apply_input_dropout(self.layers[i], x, train, r), mask
+
+    def _layer_step(self, i: int, p_i, st_i, train: bool, r, carry, x, mask):
+        """One layer of the walk: ``(x, mask, new_state, new_carry)`` after
+        layer ``i`` (its input, weight noise and ``apply``; from ``carry``
+        where it is a recurrent layer's)."""
+        from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
+
+        layer = self.layers[i]
+        x, mask = self._layer_input(i, x, mask, train, r)
+        p_i = apply_weight_noise(layer, p_i, train, r)
+        new_carry = None
+        if carry is not None and isinstance(layer, BaseRecurrentLayer):
+            x, new_carry = layer.apply_with_carry(p_i, x, carry, mask=mask, train=train, rng=r)
+            st = st_i
+        else:
+            x, st = layer.apply(p_i, x, state=st_i, train=train, rng=r, mask=mask)
+        if layer.is_recurrent and mask is not None:
+            pass  # recurrent layers keep the (b, T) mask
+        elif x.dim() == 2 and mask is not None and mask.dim() > 1:
+            mask = None  # consumed by a pooling or last-step layer
+        return x, mask, st if st is not None else {}, new_carry
 
     def _init_carries(self, batch: int, dtype=torch.float32) -> List[Any]:
         """Zero recurrent state for ``batch`` rows on the model's device: a
@@ -490,18 +676,20 @@ class MultiLayerNetwork(_faults.GuardedModel):
             raise ValueError(f"Last layer {last} is not an output layer")
         return last
 
-    def _loss_and_new_state(self, params, state, features, labels, fmask, lmask,
-                            train: bool = True, noise=None):
-        """Mean per-example loss of the output layer (f32: under a compute
-        dtype its input is widened first) and the layers' new state. The
-        label mask defaults to the feature mask as it reaches the head.
-        ``noise``: the step's noise source in training; the output layer's
-        input dropout comes from the walk, its weight noise is applied here
-        (the walk stops before the output layer, so nothing draws it twice)."""
+    def _per_example(self, params, state, features, labels, fmask, lmask,
+                     train: bool = True, noise=None, remat=None):
+        """The output layer's unreduced loss (f32: under a compute dtype its
+        input is widened first) and the layers' new state. The label mask
+        defaults to the feature mask as it reaches the head. ``noise``: the
+        step's noise source in training; the output layer's input dropout
+        comes from the walk, its weight noise is applied here (the walk
+        stops before the output layer, so nothing draws it twice).
+        ``remat``: the train step's remat policy (the head is no region)."""
         n = len(self.layers)
-        x, mask, new_states, _ = self._walk(params, state, features, train=train,
-                                            stop_before=n - 1, cast_params=True,
-                                            fmask=fmask, carries=None, noise=noise)
+        x, mask, new_states, _, _ = self._walk(params, state, features, train=train,
+                                               stop_before=n - 1, cast_params=True,
+                                               fmask=fmask, carries=None, noise=noise,
+                                               remat=remat)
         if self._compute_dtype is not None:
             x = x.float()  # loss and softmax in full precision
         out_layer = self._output_layer()
@@ -510,6 +698,13 @@ class MultiLayerNetwork(_faults.GuardedModel):
         per_ex = out_layer.compute_score(p_out, x, labels,
                                          lmask if lmask is not None else mask)
         new_states.append(state[-1])
+        return per_ex, new_states
+
+    def _loss_and_new_state(self, params, state, features, labels, fmask, lmask,
+                            train: bool = True, noise=None, remat=None):
+        """The mean of :meth:`_per_example`'s loss, and the new state."""
+        per_ex, new_states = self._per_example(params, state, features, labels, fmask, lmask,
+                                               train=train, noise=noise, remat=remat)
         return per_ex.mean(), new_states
 
     def _reg_score(self, params) -> torch.Tensor:
@@ -578,18 +773,22 @@ class MultiLayerNetwork(_faults.GuardedModel):
                 for layer, p in zip(self.layers, self.params_)]
         return self.opt_state_
 
-    def _value_and_grad(self, features, labels, fmask, lmask, scale=None, noise=None):
+    def _value_and_grad(self, features, labels, fmask, lmask, scale=None, noise=None,
+                        params=None, state=None):
         """The first half of a train step: ``(loss, new_states, grads)`` of a
-        train-mode forward at ``params_``; grads has the layout of
-        ``params_``. ``scale`` (the fault policy's loss scale, a 0-dim
-        tensor): the gradients are taken of ``loss * scale`` and the loss
-        and gradients come back multiplied by ``1 / scale``. ``noise``: the
-        step's noise source (default :meth:`step_noise` on rank 0)."""
+        train-mode forward at ``params`` and ``state`` (default ``params_``,
+        ``state_``), under the configuration's remat policy; grads has the
+        layout of ``params_``. ``scale`` (the fault policy's loss scale, a
+        0-dim tensor): the gradients are taken of ``loss * scale`` and the
+        loss and gradients come back multiplied by ``1 / scale``. ``noise``:
+        the step's noise source (default :meth:`step_noise` on rank 0)."""
+        params = self.params_ if params is None else params
         diff = [{k: t.detach().requires_grad_() for k, t in p.items()}
-                for p in self.params_]
+                for p in params]
         loss, new_states = self._loss_and_new_state(
-            diff, self.state_, features, labels, fmask, lmask,
-            noise=self.step_noise() if noise is None else noise)
+            diff, self.state_ if state is None else state, features, labels, fmask, lmask,
+            noise=self.step_noise() if noise is None else noise,
+            remat=remat_policy_of(self))
         if scale is not None:
             loss = loss * scale
         leaves = [(i, k) for i, p in enumerate(diff) for k in p]
@@ -609,9 +808,8 @@ class MultiLayerNetwork(_faults.GuardedModel):
         opt_state = self._ensure_opt_state()
 
         def update(grads, t, it):
-            new_params, new_opt = apply_layer_updates(self.layers, self.params_, grads,
-                                                      opt_state, t, it, self.epoch)
-            return new_params, new_opt, new_states
+            return self._layer_updates(self.params_, grads, opt_state, t, it,
+                                       self.epoch) + (new_states,)
 
         self.score_ = loss + self._reg_score(self.params_)
         self.params_, self.opt_state_, self.state_ = guarded_update(
@@ -662,6 +860,96 @@ class MultiLayerNetwork(_faults.GuardedModel):
 
     def _bundle_step(self, k: int) -> "_pipeline.BundledStep":
         return bundle_step_of(self, k, self._train_step)
+
+    def _layer_updates(self, params, grads, opt_state, t, iteration, epoch):
+        return apply_layer_updates(self.layers, params, grads, opt_state, t, iteration, epoch)
+
+    def _pure_grads(self, params, state, features, labels, fmask, lmask, scale, noise):
+        return self._value_and_grad(features, labels, fmask, lmask, scale=scale, noise=noise,
+                                    params=params, state=state)
+
+    def _updater_layers(self):
+        return self.layers
+
+    # ------------------------------------------------- evaluation, introspection
+    def _eval_output(self, ds: DataSet) -> np.ndarray:
+        return self.output(ds.features, mask=ds.features_mask)
+
+    def predict(self, x) -> np.ndarray:
+        """The predicted class index of each example (time-distributed
+        outputs: (b, T) indices)."""
+        return np.argmax(self.output(x), axis=-1)
+
+    def f1_score(self, ds: Union[DataSet, DataSetIterator]) -> float:
+        """F1 of :meth:`evaluate` (the reference's ``f1Score``)."""
+        return float(self.evaluate(ds).f1())
+
+    def feed_forward(self, x, train: bool = False) -> List[np.ndarray]:
+        """Every layer's activation for ``x`` (the reference's
+        ``feedForward``), as numpy; ``train``: layers in train mode (BN
+        batch statistics, dropout from :meth:`introspection_noise`), the
+        model unchanged."""
+        with torch.no_grad():
+            _, _, _, _, acts = self._walk(
+                self.params_, self.state_, self._as_input(x), train=train, stop_before=None,
+                cast_params=True, fmask=None, carries=None,
+                noise=self.introspection_noise() if train else None, collect=True)
+        return [self._host(a) for a in acts]
+
+    def score_examples(self, ds: DataSet, add_regularization_terms: bool = True) -> np.ndarray:
+        """Each example's loss (the reference's ``scoreExamples``): the
+        output layer's unreduced eval-mode loss, plus the regularization
+        score where ``add_regularization_terms``."""
+        with torch.no_grad():
+            per_ex, _ = self._per_example(self.params_, self.state_, *self._batch(ds),
+                                          train=False)
+            if add_regularization_terms:
+                per_ex = per_ex + self._reg_score(self.params_)
+        return self._host(per_ex)
+
+    def layer_size(self, layer_idx: int) -> int:
+        """Layer ``layer_idx``'s output size: n_out of a dense or recurrent
+        layer, the channels of a convolutional one, 0 where undefined."""
+        types = self.conf.layer_types()
+        out = self.layers[layer_idx].get_output_type(types[layer_idx])
+        if out.kind in ("feedforward", "recurrent"):
+            return int(out.size)
+        if out.kind == "convolutional":
+            return int(out.channels)
+        return 0
+
+    def to_computation_graph(self):
+        """The same network as a ``ComputationGraph`` (the reference's
+        ``toComputationGraph``): the chain "input" -> "layer_0" -> ... ->
+        "layer_{n-1}", each preprocessor on its layer's vertex; params,
+        layer state and updater state copied, ``iteration`` and ``epoch``
+        carried over, so outputs and steps match."""
+        from deeplearning4j_tpu_torch.nn.conf.graph_builder import GraphBuilder
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+        gb = GraphBuilder(copy.deepcopy(self.conf.global_conf))
+        gb.add_inputs("input")
+        prev = "input"
+        for i, layer in enumerate(self.layers):
+            gb.add_layer(f"layer_{i}", copy.deepcopy(layer), prev,
+                         preprocessor=copy.deepcopy(self.conf.preprocessors.get(i)))
+            prev = f"layer_{i}"
+        gb.set_outputs(prev)
+        if self.conf.input_type is not None:
+            gb.set_input_types(self.conf.input_type)
+        cg = ComputationGraph(gb.build())
+        cg.noise_seed = self.noise_seed
+        if self.params_ is not None:
+            def copied(trees):
+                return None if trees is None else {
+                    f"layer_{i}": _pipeline.tree_map(lambda t: t.detach().clone(), tree)
+                    for i, tree in enumerate(trees)}
+
+            cg.params_, cg.state_ = copied(self.params_), copied(self.state_)
+            cg.opt_state_ = copied(self.opt_state_)
+            cg.device = self.device
+            cg.iteration, cg.epoch = self.iteration, self.epoch
+        return cg
 
 
 

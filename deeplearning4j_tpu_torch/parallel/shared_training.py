@@ -54,6 +54,7 @@ import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterators import BatchBundle, DataSetIterator, iter_bundled
+from deeplearning4j_tpu_torch.nn.multilayer import step_key
 from deeplearning4j_tpu_torch.parallel.compression import gather_and_decode, threshold_encode
 from deeplearning4j_tpu_torch.parallel.mesh import TrainingMesh
 from deeplearning4j_tpu_torch.parallel.wrapper import _block, _cutter
@@ -122,7 +123,7 @@ class SharedTrainingMaster:
         self._residual: Optional[torch.Tensor] = None
         self._zopt = None
         self._bstep = None
-        self._bstep_policy = None
+        self._bstep_key = None
 
     # ------------------------------------------------------------------ bind
     def _bind(self, model) -> None:
@@ -253,11 +254,13 @@ class SharedTrainingMaster:
         policy = self._policy()
         if policy is not None:
             model._ensure_fault_state(policy, scaling=False)
-        if k > 1 and (self._bstep is None or self._bstep.k != k
-                      or self._bstep_policy != policy):
+        # the bundle holds the policy's constants, the remat regions and fixed
+        # learning rates (``step_key``)
+        key = (k, policy) + step_key(model)
+        if k > 1 and (self._bstep is None or self._bstep_key != key):
             get, put = self._carry()
             self._bstep = _pipeline.BundledStep(model, k, self._step, get, put)
-            self._bstep_policy = policy
+            self._bstep_key = key
         sync = None
         if self._layout is not None:
             from deeplearning4j_tpu_torch.parallel.zero import (

@@ -78,6 +78,7 @@ from deeplearning4j_tpu_torch.data.iterators import (
     iter_grouped,
     multi_compat_key,
 )
+from deeplearning4j_tpu_torch.nn.multilayer import step_key
 from deeplearning4j_tpu_torch.parallel.mesh import TrainingMesh
 from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
@@ -154,7 +155,7 @@ class ParallelWrapper:
         self.sharded_update = bool(sharded_update)
         self.steps_per_call = steps_per_call
         self._zstep = None
-        self._zstep_policy = None
+        self._zstep_key = None
         self._zlayout = None
         #: the bundled step (k > 1), built at the first fit that bundles
         self._bstep = None
@@ -206,9 +207,9 @@ class ParallelWrapper:
                 unshard_model_opt_state,
             )
 
-            if self._zstep is None or self._zstep_policy != policy:
+            if self._zstep is None or self._zstep_key != step_key(m):
                 self._zstep, self._zlayout = make_sharded_train_step(m, mesh, policy=policy)
-                self._zstep_policy = policy
+                self._zstep_key = step_key(m)
             zlayout = self._zlayout
             zref = [shard_model_opt_state(m, zlayout, mesh=mesh)]
             # mid-fit serializers read m.opt_state_, which is stale while the
@@ -265,11 +266,12 @@ class ParallelWrapper:
 
     def _bundle_step(self, k: int):
         """The bundled step at ``k`` (kept across fits; on the card it holds
-        the captured graph): ZeRO-1's bundled sharded step, or the
+        the captured graph, made anew when the model's ``step_key`` moves):
+        ZeRO-1's bundled sharded step, or the
         replicated step under :class:`~deeplearning4j_tpu_torch.train.
         pipeline.BundledStep`."""
         policy = self.model._active_fault_policy()
-        key = (k, self.sharded_update, policy)
+        key = (k, self.sharded_update) + step_key(self.model)
         if self._bstep_key != key:
             m, mesh = self.model, self.mesh
             if self.sharded_update:

@@ -156,11 +156,16 @@ def test_knobs_reach_the_layers_and_train():
 
 
 def test_telemetry_and_remat_stay_refused_at_train_time():
-    for knob in ("telemetry", "remat_policy"):
-        net = TNet(knob_conf(PORT, knob)).init(device="cpu")
-        x = np.zeros((2, 5), np.float32)
-        with pytest.raises(NotImplementedError, match=knob):
-            net.fit(x, np.eye(3, dtype=np.float32)[:2])
+    """Telemetry stays refused at train time; the remat_policy knob now
+    trains (rematerialization is ported: ``tests/test_torch_remat.py``)."""
+    x = np.zeros((2, 5), np.float32)
+    net = TNet(knob_conf(PORT, "telemetry")).init(device="cpu")
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        net.fit(x, np.eye(3, dtype=np.float32)[:2])
+    net = TNet(knob_conf(PORT, "remat_policy")).init(device="cpu")
+    assert net.conf.global_conf.remat_policy == "save_conv_outputs"
+    net.fit(x, np.eye(3, dtype=np.float32)[:2])
+    assert net.iteration == 1 and np.isfinite(net.score())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "float64"])

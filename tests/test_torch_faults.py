@@ -351,7 +351,15 @@ def test_bundle_made_anew_when_the_policy_changes():
 
 # ------------------------------------------------------------- refusals
 def test_remat_telemetry_and_tbptt_still_refused():
-    for knob, value in (("remat_policy", "full"), ("telemetry", True)):
+    """Telemetry and tBPTT stay refused under a fault policy; remat is
+    ported, so an unknown policy ("full") raises the reference's
+    ``ValueError`` before any step."""
+    n = TNet(conf(PORT, FaultPolicy())).init(device="cpu")
+    n.conf.global_conf.remat_policy = "full"
+    with pytest.raises(ValueError, match="unknown remat_policy: 'full'"):
+        n.fit(TDataSet(*batches(1)[0]))
+    assert n.iteration == 0
+    for knob, value in (("telemetry", True),):
         n = TNet(conf(PORT, FaultPolicy())).init(device="cpu")
         setattr(n.conf.global_conf, knob, value)
         with pytest.raises(NotImplementedError, match=knob):

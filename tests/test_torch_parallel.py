@@ -576,6 +576,26 @@ def test_ranks_dropout_sharded_equals_replicated_and_bundles(rank_runs, world):
                                           out[f"dropout/bundle/{tag}/k1/{part}"])
 
 
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_remat_equals_no_remat(rank_runs, world, policy):
+    """Under the remat policy the fused network (cross-rank statistics
+    inside the regions), the noisy network and the BN network's bundles of
+    2 train over the ranks, replicated and ZeRO-1, to the bits of the same
+    runs without remat; so does the master."""
+    out = rank_runs(world)
+    for tag in ("repl", "sharded"):
+        for mine, theirs in ((f"fused/{tag}", f"fused_f32/{tag}"),
+                             (f"dropout/{tag}", f"dropout/{tag}"),
+                             (f"bundle_bn/{tag}", f"bundle_bn/{tag}/k2")):
+            for part in ("params", "opt", "state", "score", "iteration"):
+                np.testing.assert_array_equal(out[f"remat/{policy}/{mine}/{part}"],
+                                              out[f"{theirs}/{part}"], err_msg=mine)
+    for part in ("params", "score", "iteration"):
+        np.testing.assert_array_equal(out[f"remat/master/nothing/{part}"],
+                                      out[f"remat/master/None/{part}"])
+
+
 @pytest.mark.parametrize("world", WORLDS)
 def test_ranks_guarded_master_keeps_params_and_residual(rank_runs, world):
     """SharedTrainingMaster with the fault policy (the skip guard alone):

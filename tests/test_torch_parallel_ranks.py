@@ -294,8 +294,52 @@ def _cases(rank, world, root):
 
     out.update(_guard_cases(world, init, save, ds))
     out.update(_dropout_cases(rank, world, init, save, ds))
+    out.update(_remat_cases(world, init, save, ds))
     out.update(_shared_cases(rank, world, root, init, save, CheckpointingIterator))
     return out
+
+
+def _remat_cases(world, init, save, ds):
+    """Rematerialization over the ranks, under "nothing" and "dots": the
+    fused network (its statistics summed over the ranks inside each region,
+    so the recompute repeats those collectives on every rank in the same
+    order), the noisy network and the BN network's bundles of 2, replicated
+    and sharded, as the runs without remat above (``fused_f32/*``,
+    ``dropout/*``, ``bundle_bn/*/k2``); the master on the noisy network
+    with and without remat."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, SharedTrainingMaster
+
+    def net_of(policy, **opts):
+        net = _net(init, **opts)
+        net.conf.global_conf.remat_policy = policy
+        return net
+
+    def fit(net, sharded, epochs, batches):
+        (ParallelWrapper.builder(net).workers(world).sharded_update(sharded).build()
+         .fit(ExistingDataSetIterator(batches), epochs=epochs))
+
+    images_ds = [DataSet(*batch_for({"fused": True}, world))]
+    bundles = [DataSet(x, y) for x, y in bundle_batches()]
+    for policy in ("nothing", "dots"):
+        for sharded in (False, True):
+            tag = "sharded" if sharded else "repl"
+            net = net_of(policy, fused=True)
+            fit(net, sharded, 1, images_ds)
+            fit(net, sharded, 2, images_ds)
+            save(f"remat/{policy}/fused/{tag}", net)
+            net = net_of(policy, noisy=True)
+            fit(net, sharded, 3, [ds])
+            save(f"remat/{policy}/dropout/{tag}", net)
+            net = net_of(policy, steps=2, bn=True)
+            fit(net, sharded, 2, bundles)
+            save(f"remat/{policy}/bundle_bn/{tag}", net)
+    for policy in (None, "nothing"):
+        net = net_of(policy, noisy=True)
+        SharedTrainingMaster.builder(SHARED_THRESHOLD).build().fit(
+            net, ExistingDataSetIterator([ds]), epochs=2)
+        save(f"remat/master/{policy}", net)
+    return {}
 
 
 def _guard_cases(world, init, save, ds):

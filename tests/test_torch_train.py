@@ -489,13 +489,19 @@ def _assert_within_noise(port_bf16, jax_bf16, port_f32, jax_f32):
 
 
 def test_fit_refuses_what_is_not_ported():
+    """Telemetry is refused at train time; remat is ported (a "dots" graph
+    trains, ``tests/test_torch_remat.py``), and so is dropout."""
     tc = _narrow(tconf, tlayers, tupd, None)
-    tc.global_conf.remat_policy = "dots"
+    tc.global_conf.telemetry = True
     tg = TGraph(tc).init(device="cpu")
     x = np.zeros((2, 15, 17, 3), np.float32)
     y = np.eye(10, dtype=np.float32)[:2]
-    with pytest.raises(NotImplementedError, match="remat_policy.*ROADMAP"):
+    with pytest.raises(NotImplementedError, match="telemetry.*ROADMAP"):
         tg.fit(TDataSet(x, y))
+    tc = _narrow(tconf, tlayers, tupd, None)
+    tc.global_conf.remat_policy = "dots"
+    remat = TGraph(tc).init(device="cpu").fit(TDataSet(x, y))
+    assert remat.iteration == 1 and math.isfinite(remat.score())
     # dropout is ported: a fused bottleneck's input dropout trains
     tc = _narrow(tconf, tlayers, tupd, None)
     tc.vertices["b0"].layer.dropout = 0.5
