@@ -158,6 +158,24 @@ two bundles against eager steps bit for bit; (d) the networks' other
 methods: ``evaluate`` against an ``Evaluation`` of ``output``,
 ``feed_forward``, ``train_step_fn`` against a fit step, VGG16's
 ``predict`` and ``to_computation_graph``.
+Phase 17 runs the rest of the zoo: (a) AlexNet, SimpleCNN, GoogLeNet,
+Darknet19, TinyYOLO, YOLO2, FaceNetNN4Small2 and InceptionResNetV1 at their
+full default widths (f32, seeded, BN randomized): the parameter count, two
+rows served through ``InferenceEngine`` against the same model on the CPU
+(TF32 off on both) within ``ZOO_CPU_TOL`` of the largest output, images/s
+at bucket 32; (b) YOLO2 (the YOLO loss), FaceNetNN4Small2 (the center
+loss) and Darknet19 (``LossLayer``) trained two steps eager against one
+bundle of two, ``torch.equal`` (params, updater state, layer state with the
+centers, score), the centers moving on the first step, YOLO2's boxes
+decoded and suppressed, images/s in turns; (c) AlexNet with int8 heads:
+exactly 3 ``int8_matmul`` launches a forward, by the wrappers' counts and
+in a profiler trace, within ``INT8_PLAIN_TOL`` of the plain int8 heads; (d)
+ResNet-50 with ``stem_space_to_depth`` (bf16, fused): 36/16 launches a
+forward, 36/16/36/36/16/16 a step, four eager steps against one bundle of
+four bit for bit; (e) LeNet's committed pretrained fixture through
+``init_pretrained`` with its sha256, against its golden output; (f) ``cli
+serve --model alexnet --int8-serving --smoke``. ``main`` prints each
+phase's host seconds (``timing:``).
 Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
@@ -4659,10 +4677,10 @@ def _knobs(fc, fu, card, bundle):
             ("knobs bundled", lambda: bundled.fit(ExistingDataSetIterator(batches))),
             ("Nesterovs eager", lambda: nest_e.fit(ExistingDataSetIterator(batches))),
             ("Nesterovs bundled", lambda: nest_b.fit(ExistingDataSetIterator(batches)))]
-    timed = _in_turns(runs)
+    timed = _in_turns(runs, rounds=1)
     speed = {label: [BATCH * KNOB_STEPS / t for t in r["s"]] for label, r in timed.items()}
     fmt = lambda v: [round(x, 2) for x in v]  # noqa: E731
-    print(f"phase 14 (a) speed (in turns: a b c d d c b a; {KNOB_STEPS} batches a fit, host "
+    print(f"phase 14 (a) speed (in turns: a b c d; {KNOB_STEPS} batches a fit, host "
           f"clock, synchronized), images/s: "
           + "; ".join(f"{label} {fmt(v)}" for label, v in speed.items())
           + f"; phase 4b in this run: {fmt(bundle['speed']['eager']['images_per_s'])} eager, "
@@ -5128,9 +5146,9 @@ def _dropout_vgg(fc, im, card, failed):
             ("dropout bundled", lambda: bundled.fit(ExistingDataSetIterator(batches))),
             ("no dropout eager", lambda: plain_e.fit(ExistingDataSetIterator(batches))),
             ("no dropout bundled", lambda: plain_b.fit(ExistingDataSetIterator(batches)))]
-    timed = _in_turns(runs)
+    timed = _in_turns(runs, rounds=1)
     speed = {label: [BATCH * DROP_STEPS / t for t in r["s"]] for label, r in timed.items()}
-    print(f"phase 15 (a) VGG16 speed (in turns: a b c d d c b a; {DROP_STEPS} batches a fit, "
+    print(f"phase 15 (a) VGG16 speed (in turns: a b c d; {DROP_STEPS} batches a fit, "
           f"host clock, synchronized), images/s: "
           + "; ".join(f"{label} {[round(v, 2) for v in vals]}" for label, vals in speed.items())
           + f"; peak GiB {({k: [round(g, 2) for g in r['peak_gib']] for k, r in timed.items()})}"
@@ -5441,10 +5459,11 @@ def _dropout_blocks(fc, fa, card, failed):
         return lambda: m.fit(ExistingDataSetIterator(batches))
 
     timed = _in_turns([("dropout eager", fit(model)), ("dropout bundled", fit(bundled)),
-                       ("no dropout eager", fit(plain_e)), ("no dropout bundled", fit(plain_b))])
+                       ("no dropout eager", fit(plain_e)), ("no dropout bundled", fit(plain_b))],
+                      rounds=1)
     tokens = c["batch"] * c["t"] * DROP_STEPS
     speed = {label: [tokens / t for t in r["s"]] for label, r in timed.items()}
-    print(f"phase 15 (c) speed (in turns: a b c d d c b a; {DROP_STEPS} batches a fit, host "
+    print(f"phase 15 (c) speed (in turns: a b c d; {DROP_STEPS} batches a fit, host "
           f"clock, synchronized), train tokens/s: "
           + "; ".join(f"{k} {[round(v, 1) for v in vals]}" for k, vals in speed.items())
           + f"; on {card}", flush=True)
@@ -5594,9 +5613,9 @@ def _remat_resnet(fc, card, failed):
         for mode, m in zip(("eager", "bundled"), models[policy]):
             runs.append((f"{policy} {mode}",
                          lambda m=m: m.fit(ExistingDataSetIterator(batches))))
-    timed = _in_turns(runs)
+    timed = _in_turns(runs, rounds=1)
     speed = {label: [BATCH * REMAT_TIMED / t for t in r["s"]] for label, r in timed.items()}
-    print(f"phase 16 (a) speed (in turns: the {len(runs)} runs, then back; {REMAT_TIMED} batches "
+    print(f"phase 16 (a) speed (in turns: the {len(runs)} runs once; {REMAT_TIMED} batches "
           f"a fit, host clock, synchronized), train images/s: "
           + "; ".join(f"{k} {[round(v, 2) for v in vals]}" for k, vals in speed.items())
           + f"; peak allocated GiB "
@@ -5803,6 +5822,387 @@ def _network_methods(fc, card, failed):
     return result
 
 
+# ---------------------------------------------------------------- phase 17
+#: (a) the eight zoo models the slice adds, at their full default width:
+#: (name, constructor kwargs, image side)
+ZOO_MODELS = [("alexnet", {}, 224), ("simplecnn", {"num_classes": 10}, 48),
+              ("googlenet", {}, 224), ("darknet19", {}, 224),
+              ("tinyyolo", {"num_classes": 20}, 416), ("yolo2", {"num_classes": 20}, 416),
+              ("facenetnn4small2", {}, 160), ("inceptionresnetv1", {}, 160)]
+ZOO_CPU_ROWS = 2              # (a) rows held against the CPU (f32, TF32 off on both)
+ZOO_CPU_TOL = 1e-4            # (a) card vs CPU, of the largest output (cuDNN's f32 order)
+ZOO_TIMED = 5                 # (a) bucket-32 requests timed
+ZOO_TRAIN = ("yolo2", "facenetnn4small2", "darknet19")   # (b)
+ZOO_TRAIN_BATCH = 16          # (b) rows a train step
+ZOO_K = 2                     # (b) steps a bundle, against as many eager steps
+S2D_STEPS = 4                 # (d) eager steps, then the same batches in one bundle
+LENET_SHA256 = "8d16369d4cc18397794baad462ed3689f1b60eaf7be7377fae1c1a143a0784c5"
+
+
+def zoo_randomize(model, seed: int) -> None:
+    """Seeded BN running statistics and affine params (BN is otherwise the
+    identity), and a YOLO head's last conv scaled by 0.1 (its box sizes are
+    exponentials of it), on a model of either type, in place."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import Yolo2OutputLayer
+
+    g = torch.Generator().manual_seed(seed)
+    graph = isinstance(model.params_, dict)
+    keys = model.layer_names if graph else list(range(len(model.layers)))
+    layers = [model.conf.vertices[k].layer for k in keys] if graph else model.layers
+    for i, k in enumerate(keys):
+        p, s = model.params_[k], model.state_[k]
+        for name, t in p.items():
+            if name == "gamma":
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+            elif name == "beta":
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+        if "mean" in s:
+            s["mean"].copy_(torch.randn(s["mean"].shape, generator=g) * 0.1)
+            s["var"].copy_(torch.rand(s["var"].shape, generator=g) + 0.5)
+        if isinstance(layers[i], Yolo2OutputLayer):
+            w = model.params_[keys[i - 1]]["W"]
+            w.mul_(0.1)
+
+
+def zoo_model(name, kwargs, device=None, **more):
+    from deeplearning4j_tpu_torch.models import ZOO
+
+    model = ZOO[name](seed=SEED, **kwargs, **more).init(device=device)
+    with torch.no_grad():
+        zoo_randomize(model, SEED)
+    return model
+
+
+def cpu_twin(model, name, kwargs, **more):
+    """The same model on the CPU holding ``model``'s tensors (copied)."""
+    from deeplearning4j_tpu_torch import interop
+    from deeplearning4j_tpu_torch.models import ZOO
+
+    cpu = ZOO[name](seed=SEED, **kwargs, **more).init(device="cpu")
+    interop.load_jax_params(cpu, interop.export_params(model), interop.export_state(model))
+    return cpu
+
+
+def _zoo_finite(model) -> bool:
+    groups = model.params_.values() if isinstance(model.params_, dict) else model.params_
+    return all(bool(torch.isfinite(t).all()) for d in groups for t in d.values())
+
+
+def _zoo_out(model, x):
+    return model.output_single(x) if hasattr(model, "output_single") else model.output(x)
+
+
+def zoo_phase(fc, im, card: str):
+    """Phase 17: the rest of the model zoo (ROADMAP § A4a): (a) each of the
+    eight models served at full width, (b) three of them trained eager and
+    bundled, (c) AlexNet's int8 heads, (d) ResNet-50's space-to-depth stem
+    on the fused kernels, (e) ``init_pretrained``, (f) ``cli serve
+    alexnet --int8-serving --smoke``."""
+    return _deterministic_cudnn(lambda: _zoo(fc, im, card))
+
+
+def _zoo(fc, im, card):
+    failed = []
+    t0 = time.perf_counter()
+    served = _zoo_serve(card, failed)
+    trained = _zoo_train(card, failed)
+    int8 = _zoo_int8(fc, im, card, failed)
+    s2d = _zoo_s2d(fc, card, failed)
+    entry = _zoo_entry_points(card, failed)
+    main = {}
+    for part in (int8, s2d):
+        _add_launches(main, part["main_launches"])
+    idle = [k for k in list(STEP_LAUNCHES) + ["int8_matmul"] if not main.get(k)]
+    print(f"phase 17 main-path launches {main}; took {time.perf_counter() - t0:.1f}s; "
+          f"on {card}", flush=True)
+    if idle:
+        failed.append(f"kernels of the path never launched: {idle}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"main_launches": main, "served": served, "trained": trained, "int8": int8,
+            "s2d": s2d, "entry_points": entry}
+
+
+def _zoo_serve(card, failed):
+    """(a) Each model at its full default width on the card (f32, seeded,
+    randomized BN): its parameter count, one batch through InferenceEngine
+    held against the same model on the CPU, images/s at bucket 32."""
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+
+    out = {}
+    for name, kwargs, side in ZOO_MODELS:
+        t0 = time.perf_counter()
+        model = zoo_model(name, kwargs)
+        x = np.random.default_rng(SEED + 60).standard_normal(
+            (BATCH, side, side, 3)).astype(np.float32)
+        engine = InferenceEngine(model, buckets=[ZOO_CPU_ROWS, BATCH])
+        warm = engine.warmup()
+        got = engine.infer(x[:ZOO_CPU_ROWS])
+        want = _zoo_out(cpu_twin(model, name, kwargs), x[:ZOO_CPU_ROWS])
+        err = float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-30))
+        engine.infer(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(ZOO_TIMED):
+            r32 = engine.infer(x)
+        ips = BATCH * ZOO_TIMED / (time.perf_counter() - t1)
+        n = model.num_params()
+        out[name] = {"params": n, "shape": list(got.shape), "rel_err_vs_cpu": err,
+                     "images_per_s_b32": ips, "warmup": warm,
+                     "init_s": time.perf_counter() - t0}
+        print(f"phase 17 (a) {name} {side}x{side}x3 {kwargs or 'defaults'}: {n:,} params; "
+              f"output {tuple(got.shape)}; {ZOO_CPU_ROWS} rows vs the same model on the CPU "
+              f"max|d| / max|y| {err:.3g} (tol {ZOO_CPU_TOL}); {ips:.1f} images/s at bucket "
+              f"{BATCH} (host clock, copies included); on {card}", flush=True)
+        if err > ZOO_CPU_TOL or not np.isfinite(r32).all():
+            failed.append(f"(a) {name}: card vs CPU {err}")
+        del engine, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_labels(name, b, rng, classes):
+    if name != "yolo2":
+        return np.eye(classes, dtype=np.float32)[rng.integers(0, classes, b)]
+    grid = 416 // 32
+    lab = np.zeros((b, grid, grid, 4 + classes), np.float32)
+    for ex in range(b):
+        for _ in range(3):
+            cy, cx = rng.integers(0, grid, 2)
+            x1, y1 = cx + 0.5 * rng.random(), cy + 0.5 * rng.random()
+            lab[ex, cy, cx, :4] = [x1, y1, x1 + 0.5 + 3 * rng.random(), y1 + 0.5 + 3 * rng.random()]
+            lab[ex, cy, cx, 4:] = 0
+            lab[ex, cy, cx, 4 + rng.integers(0, classes)] = 1.0
+    return lab
+
+
+def _zoo_train(card, failed):
+    """(b) YOLO2 (the YOLO loss), FaceNetNN4Small2 (the center loss) and
+    Darknet19 (LossLayer) at full width, Nesterovs(TRAIN_LR, 0.9): ZOO_K
+    eager steps against one bundle of ZOO_K, torch.equal (params, updater
+    state, layer state with the centers, the scores); the centers move on
+    the first step; YOLO2's boxes decoded and suppressed; images/s eager and
+    bundled in turns."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf.layers import non_max_suppression
+    from deeplearning4j_tpu_torch.updaters import Nesterovs
+
+    out = {}
+    for name in ZOO_TRAIN:
+        kwargs, side = next((k, s) for n, k, s in ZOO_MODELS if n == name)
+        classes = kwargs.get("num_classes", 1000)
+        rng = np.random.default_rng(SEED + 70)
+        batches = [DataSet(rng.standard_normal((ZOO_TRAIN_BATCH, side, side, 3)).astype(
+            np.float32), _zoo_labels(name, ZOO_TRAIN_BATCH, rng, classes))
+            for _ in range(ZOO_K)]
+        base = zoo_model(name, kwargs, updater=Nesterovs(TRAIN_LR, 0.9))
+        eager, bundled = base.clone(), base.clone()
+        bundled.conf.global_conf.steps_per_call = ZOO_K
+        moved = None
+        for i, ds in enumerate(batches):
+            eager.fit(ExistingDataSetIterator([ds]))
+            if i == 0 and name == "facenetnn4small2":
+                moved = bool(eager.state_["output"]["centers"].abs().max() > 0)
+        bundled.fit(ExistingDataSetIterator(batches))
+        torch.cuda.synchronize()
+        equal = _states_equal(eager, bundled)
+        scores = (float(eager.score_), float(bundled.score_))
+        res = {"equal": equal, "scores": scores, "captured": bundled._bundled is not None}
+        if name == "facenetnn4small2":
+            res["centers_moved_on_step_1"] = moved
+            if not moved:
+                failed.append("(b) the centers did not move on the first step")
+        if name == "yolo2":
+            # the boxes of the model the steps started from (its confidences
+            # spread about 0.5; two steps at this rate push most toward 0)
+            layer = base.conf.vertices["yolo"].layer
+            act = base.output_single(batches[0].features[:4])
+            conf = act.reshape(act.shape[:3] + (layer.n_boxes, -1))[..., 4]
+            thr = float(np.quantile(conf, 0.9))  # the most confident tenth of the boxes
+            objs = layer.get_predicted_objects(act, threshold=thr)
+            kept = non_max_suppression(objs, 0.45)
+            res["detections"] = {"threshold": thr, "boxes": len(objs), "after_nms": len(kept)}
+            if not objs or not 0 < len(kept) <= len(objs) or any(
+                    all(k is not o for o in objs) for k in kept):
+                failed.append(f"(b) YOLO2 decoding: {len(objs)} boxes, {len(kept)} kept")
+        timed = _in_turns([("eager", lambda: eager.fit(ExistingDataSetIterator(batches))),
+                           ("bundled", lambda: bundled.fit(ExistingDataSetIterator(batches)))])
+        res["images_per_s"] = {k: [ZOO_TRAIN_BATCH * ZOO_K / t for t in v["s"]]
+                               for k, v in timed.items()}
+        out[name] = res
+        print(f"phase 17 (b) {name} {side}x{side} batch {ZOO_TRAIN_BATCH}, Nesterovs("
+              f"{TRAIN_LR}, 0.9): {ZOO_K} eager steps vs one bundle of {ZOO_K}: torch.equal "
+              f"{equal}, scores {scores}"
+              + (f", centers moved on step 1 {moved}" if moved is not None else "")
+              + (f", boxes {res['detections']}" if "detections" in res else "")
+              + f"; train images/s (in turns) "
+              + "; ".join(f"{k} {[round(v, 1) for v in vals]}"
+                          for k, vals in res["images_per_s"].items())
+              + f"; on {card}", flush=True)
+        if not all(equal.values()) or scores[0] != scores[1] or not res["captured"]:
+            failed.append(f"(b) {name}: bundled differs from eager {equal} {scores}")
+        if not _zoo_finite(eager):
+            failed.append(f"(b) {name}: params not finite")
+        for m in (base, eager, bundled):
+            m.params_ = m.state_ = m.opt_state_ = m._bundled = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_int8(fc, im, card, failed):
+    """(c) AlexNet (1000 classes, 224x224) served with int8 heads: exactly 3
+    int8_matmul launches a forward, by the wrappers' counts and in a
+    profiler trace, and the output against the plain int8 version of the
+    same three heads on the same activations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+
+    model = zoo_model("alexnet", {})
+    x = np.random.default_rng(SEED + 80).standard_normal((BATCH, 224, 224, 3)).astype(
+        np.float32)
+    scale = spread_softmax(model, x)
+    e8 = InferenceEngine(model, buckets=[1, BATCH], int8_serving=True)
+    fc.reset_launch_counts()
+    e8.warmup()
+    before = dict(fc.launch_counts)
+    r32 = e8.infer(x)
+    after = dict(fc.launch_counts)
+    main = dict(fc.launch_counts)
+    per_forward = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e8.infer(x)
+        torch.cuda.synchronize()
+    traced = sum(int(e.count) for e in prof.key_averages()
+                 if e.device_type.name == "CUDA" and "int8_matmul_kernel_sm90" in e.key)
+    first = len(model.layers) - 3
+    heads = e8._snap.params[first:]
+    with torch.inference_mode():
+        a, _, _ = model._forward(e8._snap.params, e8._snap.state, torch.from_numpy(x).cuda(),
+                                 stop_before=first, cast_params=False)
+        for i, p in enumerate(heads):
+            z = im.int8_matmul_plain(a, p["W_q8"], p["W_scale"]) + p["b"]
+            a = torch.relu(z) if i < len(heads) - 1 else torch.softmax(z, -1)
+        ref = a.cpu().numpy()
+    d_plain = float(np.abs(r32 - ref).max())
+    maxprob = float(r32.max(1).mean())
+    print(f"phase 17 (c) AlexNet 1000 classes 224x224 f32, int8 heads {e8.int8_report}, "
+          f"output W scaled by {scale:.4g}: launches in one forward {per_forward}, "
+          f"int8_matmul_kernel_sm90 in a profiler trace of one forward {traced}; vs the plain "
+          f"int8 heads max|dp| {d_plain:.3g} (tol {INT8_PLAIN_TOL}); mean max prob "
+          f"{maxprob:.3f}; on {card}", flush=True)
+    if per_forward != {"int8_matmul": 3} or traced != 3:
+        failed.append(f"(c) int8 launches {per_forward}, traced {traced}")
+    if d_plain > INT8_PLAIN_TOL or not 0.05 <= maxprob <= 0.9:
+        failed.append(f"(c) int8 heads vs plain {d_plain}, mean max prob {maxprob}")
+    res = {"main_launches": main, "per_forward": per_forward, "traced": traced,
+           "max_abs_dp_vs_plain_heads": d_plain, "int8_report": e8.int8_report,
+           "mean_max_prob": maxprob}
+    del e8, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _zoo_s2d(fc, card, failed):
+    """(d) ResNet-50 with the space-to-depth stem, bf16, fused: the launches
+    of one forward (36/16) and of each train step (36/16/36/36/16/16),
+    S2D_STEPS eager steps against one bundle of S2D_STEPS bit for bit."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.updaters import Nesterovs
+
+    rng = np.random.default_rng(SEED + 90)
+    batches = [DataSet(rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32),
+                       np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)])
+               for _ in range(S2D_STEPS)]
+    base, _ = resnet50(updater=Nesterovs(TRAIN_LR, 0.9), stem_space_to_depth=True)
+    if type(base.conf.vertices["stem_s2d"].layer).__name__ != "SpaceToDepthLayer":
+        failed.append("(d) no space-to-depth stem")
+    fc.reset_launch_counts()
+    y = base.output_single(batches[0].features)
+    forward = {k: v for k, v in fc.launch_counts.items() if v}
+    main = dict(fc.launch_counts)
+    eager, bundled = base.clone(), base.clone()
+    bundled.conf.global_conf.steps_per_call = S2D_STEPS
+    marks = []
+
+    def before(i):
+        torch.cuda.synchronize()
+        marks.append(dict(fc.launch_counts))
+
+    fc.reset_launch_counts()
+    eager.fit(RecordingIterator(batches, before))
+    torch.cuda.synchronize()
+    marks.append(dict(fc.launch_counts))
+    _add_launches(main, marks[-1])
+    per_step = _launch_deltas(marks)
+    bundled.fit(ExistingDataSetIterator(batches))
+    torch.cuda.synchronize()
+    captured = dict(bundled._bundled.captured_launches)
+    equal = _states_equal(eager, bundled)
+    scores = (float(eager.score_), float(bundled.score_))
+    print(f"phase 17 (d) ResNet-50 stem_space_to_depth 1000 classes 224x224 bf16 fused, "
+          f"{base.num_params():,} params: one forward launched {forward} (output "
+          f"{tuple(y.shape)}, rows sum to 1 within {_row_sum_dev(y):.2g}); {S2D_STEPS} eager "
+          f"steps launched {per_step}; one bundle of {S2D_STEPS}: captured {captured}, vs the "
+          f"eager steps torch.equal {equal}, scores {scores}; on {card}", flush=True)
+    if forward != {"pw_conv": 36, "conv3x3": 16}:
+        failed.append(f"(d) one forward launched {forward}")
+    if any(st != STEP_LAUNCHES for st in per_step) or \
+            captured != {k: S2D_STEPS * v for k, v in STEP_LAUNCHES.items()}:
+        failed.append(f"(d) step launches {per_step}, captured {captured}")
+    if not all(equal.values()) or scores[0] != scores[1] or not _zoo_finite(eager):
+        failed.append(f"(d) bundled differs from eager: {equal} {scores}")
+    res = {"main_launches": main, "per_forward": forward, "per_step": per_step,
+           "captured": captured, "equal": equal, "scores": scores}
+    for m in (base, eager, bundled):
+        m.params_ = m.state_ = m.opt_state_ = m._bundled = None
+    torch.cuda.empty_cache()
+    return res
+
+
+def _zoo_entry_points(card, failed):
+    """(e) LeNet's committed pretrained fixture restored on the card through
+    ``init_pretrained`` with its sha256, against its golden output; (f) ``cli
+    serve alexnet --int8-serving --smoke``."""
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(root, "tests", "fixtures", "zoo", "lenet_synthmnist.zip")
+    golden = np.load(os.path.join(root, "tests", "fixtures", "zoo",
+                                  "lenet_synthmnist_golden.npz"))
+    net = LeNet(num_classes=10).init_pretrained(path=fixture, checksum=LENET_SHA256)
+    y = net.output(golden["x"])
+    err = float(np.abs(y - golden["y"]).max())
+    ok = net.device.type == "cuda" and np.allclose(y, golden["y"], atol=1e-5, rtol=1e-4)
+    print(f"phase 17 (e) LeNet.init_pretrained(lenet_synthmnist.zip, sha256) on "
+          f"{net.device}: vs the golden output max|d| {err:.3g} (atol 1e-5, rtol 1e-4) "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        failed.append(f"(e) init_pretrained vs golden {err}")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "serve",
+                        "--model", "alexnet", "--int8-serving", "--port", "0", "--smoke"],
+                       cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=300)
+    cli_ok = r.returncode == 0 and "smoke: HTTP 200 ok" in r.stdout
+    print(f"phase 17 (f) cli serve --model alexnet --int8-serving --port 0 --smoke: exit "
+          f"{r.returncode} in {time.perf_counter() - t0:.1f}s; "
+          f"{' | '.join(r.stdout.strip().splitlines())}; on {card}", flush=True)
+    if not cli_ok:
+        failed.append(f"(f) cli serve alexnet failed: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+    return {"pretrained_max_abs_err": err, "cli_exit": r.returncode}
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its host seconds printed (the script's time limit)."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        print(f"timing: {phase.__name__} {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -5827,36 +6227,37 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"phase 1 ptxas {lib}: {line.strip()}", flush=True)
 
-    rows, summary = kernels_phase(fc)
-    bwd_rows, bwd_summary = backward_phase(fc)
+    rows, summary = timed(kernels_phase, fc)
+    bwd_rows, bwd_summary = timed(backward_phase, fc)
     summary.update(bwd_summary)
-    int8_rows, summary["int8_matmul"] = int8_phase(im)
-    lstm_rows, summary["fused_lstm_cell"] = lstm_phase(fl)
-    flash_rows, summary["flash_attention_fwd"] = flash_phase(fa)
-    flash_bwd_rows, bwd_flash_summary = flash_bwd_phase(fa)
+    int8_rows, summary["int8_matmul"] = timed(int8_phase, im)
+    lstm_rows, summary["fused_lstm_cell"] = timed(lstm_phase, fl)
+    flash_rows, summary["flash_attention_fwd"] = timed(flash_phase, fa)
+    flash_bwd_rows, bwd_flash_summary = timed(flash_bwd_phase, fa)
     summary.update(bwd_flash_summary)
-    adam_rows, summary["fused_adam"] = adam_phase(fu)
-    encoder = encoder_phase()
-    serve = serve_phase(fc, card)
-    train = train_phase(fc, card)
-    bundle = bundled_train_phase(fc, card, train)
-    e8, x, vgg = vgg_phase(fc, im, card)
-    entry = entry_points_phase(e8, x)
-    gen_engine, seq_engine, prompts, outs, gen = generation_phase(fl, card)
-    entry["generate"] = generation_entry_points(seq_engine, gen_engine, prompts, outs)
-    lm_gen, lm_predict, lm_prompts, lm_outs, lm = lm_phase(fa, card)
-    entry["transformer"] = lm_entry_points(lm_predict, lm_gen, lm_prompts, lm_outs)
+    adam_rows, summary["fused_adam"] = timed(adam_phase, fu)
+    encoder = timed(encoder_phase)
+    serve = timed(serve_phase, fc, card)
+    train = timed(train_phase, fc, card)
+    bundle = timed(bundled_train_phase, fc, card, train)
+    e8, x, vgg = timed(vgg_phase, fc, im, card)
+    entry = timed(entry_points_phase, e8, x)
+    gen_engine, seq_engine, prompts, outs, gen = timed(generation_phase, fl, card)
+    entry["generate"] = timed(generation_entry_points, seq_engine, gen_engine, prompts, outs)
+    lm_gen, lm_predict, lm_prompts, lm_outs, lm = timed(lm_phase, fa, card)
+    entry["transformer"] = timed(lm_entry_points, lm_predict, lm_gen, lm_prompts, lm_outs)
     del lm_gen, lm_predict
-    lm_train = lm_train_phase(fa, card)
-    zero1 = zero1_phase(fc, fu, card, train)
-    zero1_bundle = bundled_zero1_phase(fc, fu, card, zero1)
-    shared_card = shared_card_phase(card)
-    master = master_phase(fu, card)
-    guard = guard_phase(fc, fu, card)
-    pinf = parallel_inference_phase(fc, card, serve)
-    knobs = knobs_phase(fc, fu, card, bundle)
-    drop = dropout_phase(fc, fa, im, card)
-    remat = remat_phase(fc, fu, fa, card)
+    lm_train = timed(lm_train_phase, fa, card)
+    zero1 = timed(zero1_phase, fc, fu, card, train)
+    zero1_bundle = timed(bundled_zero1_phase, fc, fu, card, zero1)
+    shared_card = timed(shared_card_phase, card)
+    master = timed(master_phase, fu, card)
+    guard = timed(guard_phase, fc, fu, card)
+    pinf = timed(parallel_inference_phase, fc, card, serve)
+    knobs = timed(knobs_phase, fc, fu, card, bundle)
+    drop = timed(dropout_phase, fc, fa, im, card)
+    remat = timed(remat_phase, fc, fu, fa, card)
+    zoo = timed(zoo_phase, fc, im, card)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -5938,6 +6339,9 @@ def main() -> int:
         # phase 16: the rematerialized ResNet-50's eager steps, the guarded
         # ZeRO-1 step and the block stack's steps, recomputes included
         entry_k["launches_remat"] = remat["main_launches"].get(name, 0)
+        # phase 17: AlexNet's int8 heads served, the space-to-depth ResNet-50's
+        # forward and eager steps
+        entry_k["launches_zoo"] = zoo["main_launches"].get(name, 0)
         kernels.append(entry_k)
     import torch.distributed as dist
 
@@ -5955,7 +6359,8 @@ def main() -> int:
                    "vgg16": vgg, "generation": gen,
                    "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
                    "entry_points": entry, "guard": guard, "parallel_inference": pinf,
-                   "knobs": knobs, "dropout": drop, "remat": remat, "kernels": kernels},
+                   "knobs": knobs, "dropout": drop, "remat": remat, "zoo": zoo,
+                   "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

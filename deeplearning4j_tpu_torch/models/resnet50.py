@@ -4,7 +4,9 @@ global average pool, softmax.
 Counterpart of ``deeplearning4j_tpu/models/resnet50.py``; ``conf()`` mirrors
 it line for line and builds the same configuration dict. With
 ``fused_pallas=True`` each bottleneck is one ``FusedResNetBottleneck``,
-whose convs run the CUDA kernels in bf16 on the card.
+whose convs run the CUDA kernels in bf16 on the card. With
+``stem_space_to_depth=True`` the stem is a 2x2 ``SpaceToDepthLayer`` and a
+4x4/1 conv.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     ConvolutionLayer,
     GlobalPoolingLayer,
     OutputLayer,
+    SpaceToDepthLayer,
     SubsamplingLayer,
 )
 from deeplearning4j_tpu_torch.updaters import Nesterovs
@@ -85,10 +88,13 @@ class ResNet50(ZooModel):
                                                      self.channels))
         )
         if self.kwargs.get("stem_space_to_depth"):
-            raise NotImplementedError(
-                "stem_space_to_depth (SpaceToDepthLayer) is not ported yet "
-                "(ROADMAP § A)")
-        x = self._conv_bn(gb, "stem", "input", 64, 7, 2)
+            # 2x2 space-to-depth: 12 channels at half resolution, and a 4x4/1
+            # conv in place of the 7x7/2 (its receptive field on the s2d
+            # grid); the same 112x112x64 stem output at 224
+            gb.add_layer("stem_s2d", SpaceToDepthLayer(block_size=2), "input")
+            x = self._conv_bn(gb, "stem", "stem_s2d", 64, 4, 1)
+        else:
+            x = self._conv_bn(gb, "stem", "input", 64, 7, 2)
         gb.add_layer("stem_pool",
                      SubsamplingLayer(kernel_size=3, stride=2,
                                       convolution_mode="same"), x)

@@ -1,10 +1,9 @@
-"""ModelSelector: name-based zoo lookup.
+"""ModelSelector and PretrainedType: name-based zoo lookup.
 
-Counterpart of ``deeplearning4j_tpu/models/selector.py``. The port's zoo
-holds the architectures ported so far; the reference's other names
-(AlexNet, Darknet19, FaceNet, GoogLeNet, SimpleCNN, TinyYOLO, YOLO2) raise :class:`ZooModelNotPortedError`. A zoo name always
-initializes fresh seeded weights: there is no pretrained lookup and no
-download.
+Counterpart of ``deeplearning4j_tpu/models/selector.py``: the reference's
+13 zoo names. A zoo name initializes fresh seeded weights
+(``ZooModel.init``); pretrained weights come through
+``ZooModel.init_pretrained``.
 """
 
 from __future__ import annotations
@@ -12,40 +11,47 @@ from __future__ import annotations
 import os
 from typing import Dict, Type
 
+from deeplearning4j_tpu_torch.models.alexnet import AlexNet
+from deeplearning4j_tpu_torch.models.darknet import YOLO2, Darknet19, TinyYOLO
+from deeplearning4j_tpu_torch.models.facenet import FaceNetNN4Small2, InceptionResNetV1
+from deeplearning4j_tpu_torch.models.googlenet import GoogLeNet
 from deeplearning4j_tpu_torch.models.lenet import LeNet
 from deeplearning4j_tpu_torch.models.resnet50 import ResNet50
+from deeplearning4j_tpu_torch.models.simplecnn import SimpleCNN
 from deeplearning4j_tpu_torch.models.textgen_lstm import TextGenerationLSTM
 from deeplearning4j_tpu_torch.models.vgg import VGG16, VGG19
 from deeplearning4j_tpu_torch.models.zoo import ZooModel
 
-ZOO: Dict[str, Type[ZooModel]] = {
-    m.name: m for m in (LeNet, ResNet50, TextGenerationLSTM, VGG16, VGG19)}
 
-#: zoo names of the reference that the port does not have yet
-NOT_PORTED = ("alexnet", "darknet19", "facenetnn4small2", "googlenet",
-              "inceptionresnetv1", "simplecnn", "tinyyolo", "yolo2")
+class PretrainedType:
+    IMAGENET = "imagenet"
+    MNIST = "mnist"
+    CIFAR10 = "cifar10"
+    VGGFACE = "vggface"
+
+
+ZOO: Dict[str, Type[ZooModel]] = {
+    m.name: m
+    for m in (AlexNet, Darknet19, FaceNetNN4Small2, GoogLeNet, InceptionResNetV1, LeNet,
+              ResNet50, SimpleCNN, TextGenerationLSTM, TinyYOLO, VGG16, VGG19, YOLO2)}
 
 
 class UnknownZooModelError(KeyError):
     """Requested zoo model name is not registered."""
 
 
-class ZooModelNotPortedError(NotImplementedError):
-    """A zoo model of the reference that the port does not have yet."""
-
-
 class ModelSelector:
     @staticmethod
     def select(name: str, **kwargs) -> ZooModel:
         key = name.lower()
-        if key in NOT_PORTED:
-            raise ZooModelNotPortedError(
-                f"zoo model '{name}' is not ported yet (ROADMAP § A); "
-                f"ported: {sorted(ZOO)}")
         if key not in ZOO:
             raise UnknownZooModelError(
                 f"Unknown zoo model '{name}'; available: {sorted(ZOO)}")
         return ZOO[key](**kwargs)
+
+    @staticmethod
+    def available() -> list:
+        return sorted(ZOO)
 
     @staticmethod
     def load_or_init(source: str, device=None, **kwargs):
@@ -54,7 +60,7 @@ class ModelSelector:
         checkpoint zip restores it, a checkpoint directory restores its
         newest valid zip. Returns ``(model, origin)``."""
         key = source.lower()
-        if key in ZOO or key in NOT_PORTED:
+        if key in ZOO:
             return ModelSelector.select(source, **kwargs).init(device=device), key
         from deeplearning4j_tpu_torch.train.model_serializer import ModelGuesser
 

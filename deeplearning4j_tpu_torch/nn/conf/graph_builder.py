@@ -5,7 +5,9 @@ vertices, named inputs/outputs, per-vertex input lists, validation, a
 deterministic topological order and type inference. The configuration dict
 (``to_dict``/``to_json``) is the reference's, so a configuration written by
 either package builds in the other. ``build`` inserts input preprocessors
-where the reference's graph builder does (``builders.infer_preprocessor``).
+where the reference's graph builder does (``builders.infer_preprocessor``),
+and a layer given several inputs reads them through an implicit
+``"{name}-merge"`` MergeVertex, as the reference's builder adds.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import json
 from typing import Dict, List, Optional, Sequence
 
 from deeplearning4j_tpu_torch.nn.conf import serde
-from deeplearning4j_tpu_torch.nn.conf.graph_vertices import GraphVertex
+from deeplearning4j_tpu_torch.nn.conf.graph_vertices import GraphVertex, MergeVertex
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import GlobalConf, Layer
 
@@ -187,12 +189,19 @@ class GraphBuilder:
             raise ValueError(f"Duplicate vertex name '{name}'")
         if not inputs:
             raise ValueError(f"Vertex '{name}' needs at least one input")
+        inputs = list(inputs)
         if isinstance(vertex, LayerVertex) and len(inputs) > 1:
-            raise NotImplementedError(
-                "a multi-input layer needs the implicit MergeVertex, which is "
-                "not ported yet (ROADMAP § A)")
+            # a layer takes one input: the reference's builder merges a
+            # multi-input layer's inputs in an implicit MergeVertex first
+            merge_name = f"{name}-merge"
+            if merge_name in self._vertices or merge_name in self._inputs:
+                raise ValueError(
+                    f"Implicit merge name '{merge_name}' collides; merge inputs explicitly")
+            self._vertices[merge_name] = MergeVertex()
+            self._vertex_inputs[merge_name] = inputs
+            inputs = [merge_name]
         self._vertices[name] = vertex
-        self._vertex_inputs[name] = list(inputs)
+        self._vertex_inputs[name] = inputs
         return self
 
     def set_outputs(self, *names: str) -> "GraphBuilder":

@@ -1,12 +1,13 @@
 """Convolution and spatial pooling layers, NHWC with HWIO weights.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/layers/conv.py`` (slice 1:
-``ConvolutionLayer`` and ``SubsamplingLayer`` max). The public layout is
-the reference's: NHWC activations, (kh, kw, in, out) weights. Inside, the
-NHWC tensor is viewed as NCHW with channels_last strides for
-``F.conv2d``/``F.max_pool2d`` (the reference leaves these ops to XLA outside
-Pallas, so they are not kernels of the port), and results come back as
-contiguous NHWC.
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers/conv.py``:
+``ConvolutionLayer``, ``SubsamplingLayer`` (max, avg, pnorm) and
+``SpaceToDepthLayer``; the other spatial layers come with the rest of the
+layer catalog (ROADMAP § A4). The public layout is the reference's: NHWC
+activations, (kh, kw, in, out) weights. Inside, the NHWC tensor is viewed
+as NCHW with channels_last strides for ``F.conv2d`` and the pooling ops
+(the reference leaves these ops to XLA outside Pallas, so they are not
+kernels of the port), and results come back as contiguous NHWC.
 
 ConvolutionMode "same" follows XLA's SAME padding, which is asymmetric at
 stride 2: total = max((ceil(in/s) - 1)*s + k_eff - in, 0), lo = total // 2,
@@ -147,7 +148,8 @@ class ConvolutionLayer(BaseConvLayer):
 
 @serde.register
 class SubsamplingLayer(Layer):
-    """Spatial pooling: max (avg and pnorm wait for a later slice)."""
+    """Spatial pooling: max, avg (the mean over the window's in-image
+    elements: padding is not counted) or pnorm ((sum |x|^p)^(1/p))."""
 
     def __init__(self, pooling_type: str = "max", kernel_size: IntPair = 2,
                  stride: IntPair = 2, padding: IntPair = 0,
@@ -168,14 +170,53 @@ class SubsamplingLayer(Layer):
         w = _conv_out(input_type.width, kw, sw, pw, self.convolution_mode)
         return InputType.convolutional(h, w, input_type.channels)
 
+    def _window_sums(self, xc: torch.Tensor, pads) -> torch.Tensor:
+        """Each window's sum over an NCHW view, zeros padded explicitly
+        (XLA's "same" pads can be asymmetric; ``avg_pool2d`` pads evenly)."""
+        (lh, hh), (lw, hw) = pads
+        xc = F.pad(xc, (lw, hw, lh, hh))
+        return F.avg_pool2d(xc, tuple(self.kernel_size), tuple(self.stride),
+                            divisor_override=1)
+
     def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
-        if self.pooling_type != "max":
-            raise NotImplementedError(
-                f"pooling type '{self.pooling_type}' is not ported yet "
-                "(ROADMAP § A)")
-        # at equal values in a window, the gradient may go to another
-        # element than XLA's select-and-scatter picks (after a ReLU, zeros)
-        (lh, hh), (lw, hw) = _spatial_pads(self, x)
-        xc = F.pad(_nchw(x), (lw, hw, lh, hh), value=float("-inf"))
-        y = F.max_pool2d(xc, tuple(self.kernel_size), tuple(self.stride))
+        pads = _spatial_pads(self, x)
+        (lh, hh), (lw, hw) = pads
+        pt = self.pooling_type
+        if pt == "max":
+            # at equal values in a window, the gradient may go to another
+            # element than XLA's select-and-scatter picks (after a ReLU, zeros)
+            xc = F.pad(_nchw(x), (lw, hw, lh, hh), value=float("-inf"))
+            y = F.max_pool2d(xc, tuple(self.kernel_size), tuple(self.stride))
+        elif pt in ("avg", "average"):
+            # divided by the count of in-image elements, as the reference
+            # counts them: a ones image reduced with the same padding
+            ones = torch.ones((1, 1) + tuple(x.shape[1:3]), dtype=x.dtype, device=x.device)
+            y = self._window_sums(_nchw(x), pads) / self._window_sums(ones, pads)
+        elif pt == "pnorm":
+            p = float(self.pnorm)
+            y = self._window_sums(_nchw(x.abs() ** p), pads) ** (1.0 / p)
+        else:
+            raise ValueError(f"Unknown pooling type {self.pooling_type}")
         return _nhwc(y), state or {}
+
+
+@serde.register
+class SpaceToDepthLayer(Layer):
+    """Each ``block_size`` x ``block_size`` block of pixels into one pixel
+    of ``block_size**2 * c`` channels, in (block row, block col, channel)
+    order, the reference's (a stem conv's carried weights depend on it)."""
+
+    def __init__(self, block_size: int = 2, **kwargs):
+        super().__init__(**kwargs)
+        self.block_size = int(block_size)
+
+    def get_output_type(self, input_type):
+        bs = self.block_size
+        return InputType.convolutional(input_type.height // bs, input_type.width // bs,
+                                       input_type.channels * bs * bs)
+
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
+        b, h, w, c = x.shape
+        bs = self.block_size
+        y = x.reshape(b, h // bs, bs, w // bs, bs, c).permute(0, 1, 3, 2, 4, 5)
+        return y.reshape(b, h // bs, w // bs, bs * bs * c), state or {}

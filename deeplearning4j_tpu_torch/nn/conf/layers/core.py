@@ -1,4 +1,5 @@
-"""Core feed-forward layers: ActivationLayer, DenseLayer, OutputLayer.
+"""Core feed-forward layers: ActivationLayer, DenseLayer, OutputLayer,
+LossLayer.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers/core.py``. Dense and
 output layers go through ``int8_matmul.serving_matmul``, as the reference's
@@ -75,3 +76,22 @@ class BaseOutputLayer(DenseLayer):
 @serde.register
 class OutputLayer(BaseOutputLayer):
     pass
+
+
+@serde.register
+class LossLayer(Layer):
+    """A loss head without params: the activation on its input in
+    inference, the loss of its input (as the pre-activation) in training."""
+
+    is_output_layer = True
+
+    def __init__(self, loss: str = "mcxent", activation: str = "identity", **kwargs):
+        super().__init__(**kwargs)
+        self.loss = loss
+        self.activation = activation
+
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
+        return _act.get(self.activation)(x), state or {}
+
+    def compute_score(self, params, x, labels, mask=None) -> torch.Tensor:
+        return _losses.get(self.loss)(labels, x, self.activation, mask)

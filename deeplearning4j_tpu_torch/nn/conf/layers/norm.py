@@ -1,4 +1,4 @@
-"""BatchNormalization.
+"""BatchNormalization and LocalResponseNormalization.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers/norm.py``. Eval mode
 normalizes with the running statistics; train mode with the batch's, over
@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import activations as _act
 from deeplearning4j_tpu_torch.nn import batch_stats
@@ -101,3 +102,26 @@ class BatchNormalization(Layer):
         if self.activation != "identity":
             y = _act.get(self.activation)(y)
         return y, new_state
+
+
+@serde.register
+class LocalResponseNormalization(Layer):
+    """Across-channel LRN (AlexNet's; the reference's defaults k=2, n=5,
+    alpha=1e-4, beta=0.75): ``x / (k + alpha * sum of x² over n adjacent
+    channels) ** beta``, the window over the last (NHWC channel) axis,
+    zero past the edges, summed in the reference's order."""
+
+    def __init__(self, k: float = 2.0, n: float = 5.0, alpha: float = 1e-4,
+                 beta: float = 0.75, **kwargs):
+        super().__init__(**kwargs)
+        self.k = float(k)
+        self.n = float(n)
+        self.alpha = float(alpha)
+        self.beta = float(beta)
+
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
+        half = int(self.n) // 2
+        c = x.shape[-1]
+        padded = F.pad(x * x, (half, half))
+        window = sum(padded[..., i:i + c] for i in range(int(self.n)))
+        return x / (self.k + self.alpha * window) ** self.beta, state or {}

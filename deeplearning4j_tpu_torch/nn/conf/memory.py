@@ -4,8 +4,9 @@ The part of ``deeplearning4j_tpu/nn/conf/memory.py`` (``:27-186``) that the
 generation engine's memory report reads (``serving/generate.py``): for a
 list configuration, a per-layer count of parameters, updater slots and
 activation elements, and the bytes they take for a batch size. The
-reference's int8-serving and ZeRO-1 terms, its text rendering and the graph
-report come with later slices (ROADMAP § A).
+reference's int8-serving and ZeRO-1 terms and its text rendering come with
+later slices; the graph report comes with the rest of the layer catalog
+(ROADMAP § A4).
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ reference's: FF ``(b, s)``, RNN ``(b, T, s)``, CNN ``(b, h, w, c)`` NHWC, so
 a flatten is in (h, w, c) order, as ``x.reshape(b, -1)`` is in JAX, and a
 dense weight that follows a conv stack lines up with the reference's row
 for row. A preprocessor also maps the feature mask
-(:meth:`InputPreProcessor.feed_forward_mask`). The CNN <-> RNN pair comes
-with a later slice (ROADMAP § A).
+(:meth:`InputPreProcessor.feed_forward_mask`). The CNN <-> RNN pair and
+the reference's other preprocessors come with the rest of the layer
+catalog (ROADMAP § A4).
 """
 
 from __future__ import annotations

@@ -31,7 +31,11 @@ captured CUDA graph on the card. A fault policy makes the step the
 reference's guarded one (``nn/multilayer.guarded_update``,
 ``train/faults.py``), eager and bundled. ``remat_policy`` makes each layer
 vertex's train-mode step a checkpointed region (``nn/remat.py``).
-Telemetry, listeners and tBPTT are not ported yet and raise.
+A vertex is called as the reference calls it, ``apply(inputs, masks,
+train=, rng=None)``, its masks None: a graph takes no feature masks yet
+(ROADMAP § A4). A ``CenterLossOutputLayer``'s score reads its centers and
+its train step moves them (``nn/conf/layers/special.py``). Telemetry,
+listeners and tBPTT are not ported yet and raise.
 
 Dropout, weight noise and constraints as in the reference's graph, per
 layer vertex: preprocessor -> input dropout -> weight noise -> ``apply``,
@@ -67,6 +71,7 @@ from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
 )
 from deeplearning4j_tpu_torch.nn.conf.dropouts import NoiseSource
 from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_input_dropout, apply_weight_noise
+from deeplearning4j_tpu_torch.nn.conf.layers.special import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.nn.multilayer import (
     NetworkMethods,
     apply_layer_updates,
@@ -84,6 +89,9 @@ from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 from deeplearning4j_tpu_torch.updaters import as_updater, step_iteration
 
 NOT_PORTED = "not ported yet (ROADMAP § A, training slices)"
+#: the refusal of feature masks into a graph (they come with the
+#: time-series vertices)
+MASKS_NOT_PORTED = "feature masks into a ComputationGraph are not ported yet (ROADMAP § A4)"
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -240,7 +248,8 @@ class ComputationGraph(NetworkMethods):
             v = conf.vertices[name]
             in_acts = [acts[s] for s in conf.vertex_inputs[name]]
             if not isinstance(v, LayerVertex):
-                acts[name] = v.apply(in_acts)
+                # no feature masks reach a graph yet: every vertex sees None
+                acts[name] = v.apply(in_acts, [None] * len(in_acts), train=train, rng=None)
                 continue
             r = self._stream(noise, name)
             p_n, st_n = params.get(name, {}), state.get(name, {})
@@ -326,9 +335,16 @@ class ComputationGraph(NetworkMethods):
             if self._compute_dtype is not None:
                 x = x.float()
             lmask = lmasks[i] if i < len(lmasks) else None
-            p_out = apply_weight_noise(self._layer(name), params[name],
+            layer = self._layer(name)
+            p_out = apply_weight_noise(layer, params[name],
                                        train and noise is not None, self._stream(noise, name))
-            per_ex = self._layer(name).compute_score(p_out, x, labels[i], lmask)
+            if isinstance(layer, CenterLossOutputLayer):
+                # the score reads the centers from before this step's update
+                per_ex = layer.compute_score(p_out, x, labels[i], lmask, state=state[name])
+                if train:
+                    new_state[name] = layer.update_centers(new_state[name], x, labels[i])
+            else:
+                per_ex = layer.compute_score(p_out, x, labels[i], lmask)
             loss = loss + per_ex.mean()
         return loss, new_state
 
@@ -358,7 +374,7 @@ class ComputationGraph(NetworkMethods):
         carry a leading K axis (:func:`stack_multi`: a bundled step's
         stacked batch)."""
         if any(m is not None for m in mds.features_masks):
-            raise NotImplementedError(f"feature masks are {NOT_PORTED}")
+            raise NotImplementedError(MASKS_NOT_PORTED)
 
         def tensor(a, label=False):
             t = torch.from_numpy(np.ascontiguousarray(a))
@@ -503,7 +519,7 @@ class ComputationGraph(NetworkMethods):
 
     def _pure_grads(self, params, state, features, labels, fmasks, lmasks, scale, noise):
         if fmasks is not None and any(m is not None for m in fmasks):
-            raise NotImplementedError(f"feature masks are {NOT_PORTED}")
+            raise NotImplementedError(MASKS_NOT_PORTED)
         return self._value_and_grad(list(features), list(labels), list(lmasks or []),
                                     scale=scale, noise=noise, params=params, state=state)
 
@@ -513,7 +529,7 @@ class ComputationGraph(NetworkMethods):
     # -------------------------------------------------- evaluation, streaming
     def _eval_output(self, ds: DataSet) -> np.ndarray:
         if ds.features_mask is not None:
-            raise NotImplementedError(f"feature masks are {NOT_PORTED}")
+            raise NotImplementedError(MASKS_NOT_PORTED)
         return self.output_single(ds.features)
 
     def feed_forward(self, *inputs, train: bool = False) -> Dict[str, np.ndarray]:

@@ -93,6 +93,7 @@ from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.dropouts import NoiseSource
 from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_input_dropout, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.conf.layers.norm import BatchNormalization
+from deeplearning4j_tpu_torch.nn.conf.layers.special import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.regularization import (
     apply_constraints,
     as_regularization,
@@ -695,9 +696,15 @@ class MultiLayerNetwork(NetworkMethods):
         out_layer = self._output_layer()
         p_out = apply_weight_noise(out_layer, params[-1], train and noise is not None,
                                    None if noise is None else noise.child(n - 1))
-        per_ex = out_layer.compute_score(p_out, x, labels,
-                                         lmask if lmask is not None else mask)
-        new_states.append(state[-1])
+        lmask = lmask if lmask is not None else mask
+        if isinstance(out_layer, CenterLossOutputLayer):
+            # the score reads the centers from before this step's update
+            per_ex = out_layer.compute_score(p_out, x, labels, lmask, state=state[-1])
+            new_states.append(out_layer.update_centers(state[-1], x, labels) if train
+                              else state[-1])
+        else:
+            per_ex = out_layer.compute_score(p_out, x, labels, lmask)
+            new_states.append(state[-1])
         return per_ex, new_states
 
     def _loss_and_new_state(self, params, state, features, labels, fmask, lmask,

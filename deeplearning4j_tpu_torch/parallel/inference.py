@@ -39,7 +39,7 @@ def _model_output(model, x, mask=None) -> np.ndarray:
     if hasattr(model, "output_single"):
         if mask is not None:
             raise NotImplementedError(
-                "feature masks into a ComputationGraph are not ported yet (ROADMAP § A)")
+                "feature masks into a ComputationGraph are not ported yet (ROADMAP § A4)")
         return model.output_single(x)
     return model.output(x, mask=mask)
 

@@ -391,7 +391,7 @@ class InferenceEngine:
             return y
         if mb is not None:
             raise NotImplementedError(
-                "feature masks into a ComputationGraph are not ported yet (ROADMAP § A)")
+                "feature masks into a ComputationGraph are not ported yet (ROADMAP § A4)")
         acts, _, _ = model._forward(params, state, [xt], cast_params=False)
         return acts[model.conf.network_outputs[0]]
 

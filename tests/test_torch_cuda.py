@@ -2384,3 +2384,90 @@ def test_block_stack_trains_through_the_flash_kernels_in_the_blocks_only(card):
     fa.reset_launch_counts()
     eager.output(ds.features)
     assert dict(fa.launch_counts) == {fa.OP: 3}
+
+
+# ----------------------------------------------- the rest of the zoo (A4a)
+ZOO_SMALL = [("alexnet", dict(num_classes=7, height=96, width=96)),
+             ("simplecnn", dict(num_classes=5)),
+             ("googlenet", dict(num_classes=4, height=64, width=64)),
+             ("darknet19", dict(num_classes=4, height=64, width=64)),
+             ("tinyyolo", dict(num_classes=3, height=64, width=64)),
+             ("yolo2", dict(num_classes=3, height=64, width=64)),
+             ("facenetnn4small2", dict(num_classes=5, height=64, width=64, embedding_size=32)),
+             ("inceptionresnetv1", dict(num_classes=5, height=64, width=64,
+                                        embedding_size=32))]
+
+
+@pytest.mark.parametrize("name,kw", ZOO_SMALL, ids=[n for n, _ in ZOO_SMALL])
+def test_zoo_model_served_on_the_card_is_the_cpus(card, name, kw):
+    """Phase 17 (a) at a small size: the model served through
+    InferenceEngine on the card against the same weights on the CPU (f32,
+    TF32 off), within chip_smoke.ZOO_CPU_TOL of the largest output."""
+    model = chip_smoke.zoo_model(name, kw)
+    side = kw.get("height", 48)
+    x = np.random.default_rng(3).standard_normal((3, side, side, 3)).astype(np.float32)
+    got = InferenceEngine(model, buckets=[4]).infer(x)
+    want = chip_smoke._zoo_out(chip_smoke.cpu_twin(model, name, kw), x)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= chip_smoke.ZOO_CPU_TOL * np.abs(want).max()
+
+
+def test_alexnet_int8_heads_launch_three_kernels_and_match_the_plain_heads(card):
+    """Phase 17 (c) at 96x96: one int8 forward launches exactly 3
+    int8_matmul, and its output is the plain int8 heads' on the same
+    activations within chip_smoke.INT8_PLAIN_TOL."""
+    model = chip_smoke.zoo_model("alexnet", dict(num_classes=7, height=96, width=96))
+    x = np.random.default_rng(4).standard_normal((8, 96, 96, 3)).astype(np.float32)
+    chip_smoke.spread_softmax(model, x)
+    e8 = InferenceEngine(model, buckets=[8], int8_serving=True)
+    e8.warmup()
+    fc.reset_launch_counts()
+    got = e8.infer(x)
+    assert dict(fc.launch_counts) == {"int8_matmul": 3}
+    first = len(model.layers) - 3
+    with torch.inference_mode():
+        a, _, _ = model._forward(e8._snap.params, e8._snap.state, torch.from_numpy(x).cuda(),
+                                 stop_before=first, cast_params=False)
+        for i, p in enumerate(e8._snap.params[first:]):
+            z = im.int8_matmul_plain(a, p["W_q8"], p["W_scale"]) + p["b"]
+            a = torch.relu(z) if i < 2 else torch.softmax(z, -1)
+    assert np.abs(got - a.cpu().numpy()).max() <= chip_smoke.INT8_PLAIN_TOL
+
+
+def test_space_to_depth_resnet50_runs_the_fused_kernels_and_bundles_exactly(card):
+    """Phase 17 (d) at 64x64, batch 4: the space-to-depth ResNet-50 (bf16,
+    fused) launches 36/16 forward kernels a forward and 36/16/36/36/16/16 a
+    step; two eager steps equal one bundle of 2 bit for bit (deterministic
+    cuDNN)."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models import ResNet50
+
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        base = ResNet50(num_classes=10, height=64, width=64, fused_pallas=True,
+                        compute_dtype="bfloat16", stem_space_to_depth=True,
+                        updater=Nesterovs(1e-3, 0.9)).init()
+        chip_smoke.randomize_bn(base, 5)
+        rng = np.random.default_rng(6)
+        batches = [DataSet(rng.standard_normal((4, 64, 64, 3)).astype(np.float32),
+                           np.eye(10, dtype=np.float32)[rng.integers(0, 10, 4)])
+                   for _ in range(2)]
+        fc.reset_launch_counts()
+        base.output_single(batches[0].features)
+        assert {k: v for k, v in fc.launch_counts.items() if v} == {"pw_conv": 36,
+                                                                    "conv3x3": 16}
+        eager, bundled = base.clone(), base.clone()
+        bundled.conf.global_conf.steps_per_call = 2
+        fc.reset_launch_counts()
+        eager.fit(ExistingDataSetIterator(batches[:1]))
+        assert {k: v for k, v in fc.launch_counts.items() if v} == chip_smoke.STEP_LAUNCHES
+        eager.fit(ExistingDataSetIterator(batches[1:]))
+        bundled.fit(ExistingDataSetIterator(batches))
+        assert bundled._bundled.captured_launches == {
+            k: 2 * v for k, v in chip_smoke.STEP_LAUNCHES.items()}
+        assert chip_smoke._states_equal(eager, bundled) == {
+            "params": True, "updater": True, "layer_state": True}
+        assert float(eager.score_) == float(bundled.score_)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det

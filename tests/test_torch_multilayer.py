@@ -25,8 +25,7 @@ from deeplearning4j_tpu.nn.conf.builders import MultiLayerConfiguration as JConf
 from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
 from deeplearning4j_tpu.train.model_serializer import ModelSerializer as JSer
 from deeplearning4j_tpu_torch.interop import load_jax_params
-from deeplearning4j_tpu_torch.models import VGG16, ZOO, ModelSelector
-from deeplearning4j_tpu_torch.models.selector import ZooModelNotPortedError
+from deeplearning4j_tpu_torch.models import VGG16, ZOO, AlexNet, ModelSelector
 from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration as TConf
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import CnnToFeedForwardPreProcessor
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph as TGraph
@@ -81,9 +80,12 @@ def test_graph_builder_inserts_the_references_preprocessor():
 
 
 def test_unported_zoo_names_and_features_raise():
-    assert sorted(ZOO) == ["lenet", "resnet50", "textgenlstm", "vgg16", "vgg19"]
-    with pytest.raises(ZooModelNotPortedError, match="ROADMAP"):
-        ModelSelector.select("alexnet")
+    """Every reference zoo name is ported (the zoo's own tests are in
+    ``test_torch_zoo.py``); in-graph telemetry still raises."""
+    assert sorted(ZOO) == ["alexnet", "darknet19", "facenetnn4small2", "googlenet",
+                           "inceptionresnetv1", "lenet", "resnet50", "simplecnn",
+                           "textgenlstm", "tinyyolo", "vgg16", "vgg19", "yolo2"]
+    assert isinstance(ModelSelector.select("alexnet"), AlexNet)
     conf = CONFS["lenet"](PORT)
     conf.global_conf.telemetry = True  # in-graph telemetry: not ported
     net = TNet(conf).init(device="cpu")

@@ -218,8 +218,12 @@ def test_resnet50_full_size_shapes_and_launch_plan():
 
 
 def test_space_to_depth_stem_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TResNet50(stem_space_to_depth=True).conf()
+    """The space-to-depth stem is ported now: it builds, with the fused
+    bottlenecks, the same 112x112x64 stem output (its parity with JAX is in
+    ``test_torch_zoo.py``)."""
+    conf = TResNet50(stem_space_to_depth=True, fused_pallas=True).conf()
+    assert type(conf.vertices["stem_s2d"].layer).__name__ == "SpaceToDepthLayer"
+    assert conf.layer_input_types()["stem_pool"].height == 112
 
 
 def test_load_jax_params_rejects_mismatches(resnet50_weights):
