@@ -174,8 +174,23 @@ ResNet-50 with ``stem_space_to_depth`` (bf16, fused): 36/16 launches a
 forward, 36/16/36/36/16/16 a step, four eager steps against one bundle of
 four bit for bit; (e) LeNet's committed pretrained fixture through
 ``init_pretrained`` with its sha256, against its golden output; (f) ``cli
-serve --model alexnet --int8-serving --smoke``. ``main`` prints each
-phase's host seconds (``timing:``).
+serve --model alexnet --int8-serving --smoke``.
+Phase 18 runs BASELINE config #3, the masked LSTM sentiment graph
+(dl4j-examples' Word2VecSentimentRNN: 300-wide word vectors, reviews of 1 to
+256 steps, batch 64, LSTM(256) -> ``LastTimeStepVertex`` on the tokens'
+mask -> softmax over 2 classes; Adam(5e-3), l2 1e-5, element-wise clip 1;
+f32, seeded): (a) served through ``output_single(masks=)``,
+``InferenceEngine`` and batched ``ParallelInference`` against the same
+model on the CPU within ``SENT_CPU_TOL`` of the largest output, exactly 256
+``fused_lstm_cell`` launches a forward; (b) one step's gradients, the kernel
+forward with the plain backward (``FusedLstmCell``), against the plain cell
+by phase 4's rule (the plain path in f64 as the yardstick); (c) three eager
+steps then one bundle of two ``torch.equal`` to five eager steps (params,
+Adam slots, every score), and a guarded step on a poisoned batch keeping
+params and slots; (d) ``lstm_cell_bwd`` alone at phase 2d's shapes against
+autograd of the plain cell, timed beside ``torch.lstm_cell``'s backward;
+(e) sequences/s served at bucket 32 and trained eager and bundled, in one
+round. ``main`` prints each phase's host seconds (``timing:``).
 Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
@@ -1224,8 +1239,9 @@ def _bundle_scores(model, seen):
     return [float(v) for b in bundles for v in b.host()]
 
 
-def _in_turns(runs, rounds=2):
-    """Each ``(label, fn)`` of ``runs`` timed in turns (a b b a ...): host
+def _in_turns(runs, rounds=1):
+    """Each ``(label, fn)`` of ``runs`` timed in turns (a b, then b a with
+    ``rounds`` 2, ...): host
     seconds per call (synchronized) and the peak allocated and reserved GiB,
     by label."""
     order = [r for i in range(rounds) for r in (runs if i % 2 == 0 else runs[::-1])]
@@ -1320,7 +1336,7 @@ def _bundled_train(fc, card, train):
                      "peak_gib": r["peak_gib"], "peak_reserved_gib": r["peak_reserved_gib"]}
              for label, r in timed.items()}
     fmt = lambda v: [round(x, 2) for x in v]  # noqa: E731
-    print(f"phase 4b speed (in turns: eager, bundled, bundled, eager; {BUNDLE_BATCHES} batches "
+    print(f"phase 4b speed (in turns: eager, bundled; {BUNDLE_BATCHES} batches "
           f"a fit, host clock, synchronized): eager {fmt(speed['eager']['images_per_s'])} "
           f"images/s ({fmt(speed['eager']['ms_per_step'])} ms a step), bundled "
           f"{fmt(speed['bundled']['images_per_s'])} images/s "
@@ -1693,10 +1709,11 @@ def lstm_cost(args, out_dtype):
     return bound(flops, nbytes, peak)
 
 
-def library_cell(args):
-    """``torch.lstm_cell`` on the same weights, reordered to its [i, f, g, o]
+def library_operands(args):
+    """The cell's operands as ``torch.lstm_cell`` takes them: ``(x, h, c,
+    w_ih, w_hh, b_ih, b_hh)``, the weights reordered to its [i, f, g, o]
     gates and (4n, K) layout (a non-peephole cell only: no single PyTorch
-    call has the peepholes). Built once, outside the timed call."""
+    call has the peepholes)."""
     x, h, c, wx, wh, b = args[:6]
     n = h.shape[1]
 
@@ -1704,8 +1721,14 @@ def library_cell(args):
         i, f, o, g = w.split(n, dim=-1)
         return torch.cat([i, f, g, o], dim=-1)
 
-    w_ih, w_hh = ifgo(wx).t().contiguous(), ifgo(wh).t().contiguous()
-    b_ih, b_hh = ifgo(b).contiguous(), torch.zeros_like(b)
+    return (x, h, c, ifgo(wx).t().contiguous(), ifgo(wh).t().contiguous(),
+            ifgo(b).contiguous(), torch.zeros_like(b))
+
+
+def library_cell(args):
+    """``torch.lstm_cell`` on the same weights (:func:`library_operands`),
+    built once, outside the timed call."""
+    x, h, c, w_ih, w_hh, b_ih, b_hh = library_operands(args)
     return lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)
 
 
@@ -3495,7 +3518,7 @@ def _bundled_zero1(fc, fu, card, zero1):
                      "peak_gib": r["peak_gib"], "peak_reserved_gib": r["peak_reserved_gib"]}
              for label, r in timed.items()}
     fmt = lambda v: [round(x, 2) for x in v]  # noqa: E731
-    print(f"phase 10b speed (in turns: k 1, k {k}, k {k}, k 1; one fit of "
+    print(f"phase 10b speed (in turns: k 1, k {k}; one fit of "
           f"{len(timed_batches)} batches incl. its re-shard and gather, host clock, "
           f"synchronized): k 1 {fmt(speed['single']['images_per_s'])} images/s, k {k} "
           f"{fmt(speed['bundled']['images_per_s'])} images/s; peak allocated GiB "
@@ -3914,7 +3937,7 @@ def _master(fu, card):
                        ("bundled", lambda: mb.fit(bundled, ExistingDataSetIterator(timed)))])
     ms_per_step = {label: [t * 1e3 / len(timed) for t in r["s"]] for label, r in speed.items()}
     fmt = lambda v: [round(x, 3) for x in v]  # noqa: E731
-    print(f"phase 11 speed (in turns: eager, bundled, bundled, eager; {len(timed)} steps a fit, "
+    print(f"phase 11 speed (in turns: eager, bundled; {len(timed)} steps a fit, "
           f"host clock, synchronized): ms per step eager {fmt(ms_per_step['eager'])}, bundled "
           f"(k {MASTER_BUNDLE_K}) {fmt(ms_per_step['bundled'])}; on {card}", flush=True)
     del nets, masters, single, bundled, ms, mb
@@ -4348,7 +4371,7 @@ def _guard(fc, fu, card):
         speed[mode] = {label: [BATCH * GUARD_TIMED / t for t in r["s"]]
                        for label, r in runs.items()}
     fmt = lambda v: [round(x, 2) for x in v]  # noqa: E731
-    print(f"phase 12 (g) speed (in turns: unguarded, guarded, guarded, unguarded; "
+    print(f"phase 12 (g) speed (in turns: unguarded, guarded; "
           f"{GUARD_TIMED} batches a fit, host clock, synchronized): eager images/s "
           f"unguarded {fmt(speed['eager']['unguarded'])} guarded "
           f"{fmt(speed['eager']['guarded'])}; bundled (k {GUARD_TIMED_K}) unguarded "
@@ -4487,7 +4510,7 @@ def _parallel_inference(fc, card, serve):
                   "typed": "NotEnoughDevicesError" in r.stderr
                   and f"has {cards}" in r.stderr}
     fmt = lambda v: [round(t, 1) for t in v]  # noqa: E731
-    print(f"phase 13 requests/s (in turns: sequential, batched, batched, sequential; "
+    print(f"phase 13 requests/s (in turns: sequential, batched; "
           f"{PI_THREADS} callers x {PI_REQUESTS} requests of {PI_ROWS} rows, host clock): "
           f"sequential {fmt(rps['sequential'])}, batched {fmt(rps['batched'])}; cli serve "
           f"--workers 1 --smoke {cli[1]}, --workers {cards + 1} {cli[cards + 1]}; on {card}",
@@ -4677,7 +4700,7 @@ def _knobs(fc, fu, card, bundle):
             ("knobs bundled", lambda: bundled.fit(ExistingDataSetIterator(batches))),
             ("Nesterovs eager", lambda: nest_e.fit(ExistingDataSetIterator(batches))),
             ("Nesterovs bundled", lambda: nest_b.fit(ExistingDataSetIterator(batches)))]
-    timed = _in_turns(runs, rounds=1)
+    timed = _in_turns(runs)
     speed = {label: [BATCH * KNOB_STEPS / t for t in r["s"]] for label, r in timed.items()}
     fmt = lambda v: [round(x, 2) for x in v]  # noqa: E731
     print(f"phase 14 (a) speed (in turns: a b c d; {KNOB_STEPS} batches a fit, host "
@@ -5146,7 +5169,7 @@ def _dropout_vgg(fc, im, card, failed):
             ("dropout bundled", lambda: bundled.fit(ExistingDataSetIterator(batches))),
             ("no dropout eager", lambda: plain_e.fit(ExistingDataSetIterator(batches))),
             ("no dropout bundled", lambda: plain_b.fit(ExistingDataSetIterator(batches)))]
-    timed = _in_turns(runs, rounds=1)
+    timed = _in_turns(runs)
     speed = {label: [BATCH * DROP_STEPS / t for t in r["s"]] for label, r in timed.items()}
     print(f"phase 15 (a) VGG16 speed (in turns: a b c d; {DROP_STEPS} batches a fit, "
           f"host clock, synchronized), images/s: "
@@ -5459,8 +5482,7 @@ def _dropout_blocks(fc, fa, card, failed):
         return lambda: m.fit(ExistingDataSetIterator(batches))
 
     timed = _in_turns([("dropout eager", fit(model)), ("dropout bundled", fit(bundled)),
-                       ("no dropout eager", fit(plain_e)), ("no dropout bundled", fit(plain_b))],
-                      rounds=1)
+                       ("no dropout eager", fit(plain_e)), ("no dropout bundled", fit(plain_b))])
     tokens = c["batch"] * c["t"] * DROP_STEPS
     speed = {label: [tokens / t for t in r["s"]] for label, r in timed.items()}
     print(f"phase 15 (c) speed (in turns: a b c d; {DROP_STEPS} batches a fit, host "
@@ -5613,7 +5635,7 @@ def _remat_resnet(fc, card, failed):
         for mode, m in zip(("eager", "bundled"), models[policy]):
             runs.append((f"{policy} {mode}",
                          lambda m=m: m.fit(ExistingDataSetIterator(batches))))
-    timed = _in_turns(runs, rounds=1)
+    timed = _in_turns(runs)
     speed = {label: [BATCH * REMAT_TIMED / t for t in r["s"]] for label, r in timed.items()}
     print(f"phase 16 (a) speed (in turns: the {len(runs)} runs once; {REMAT_TIMED} batches "
           f"a fit, host clock, synchronized), train images/s: "
@@ -5782,10 +5804,10 @@ def _network_methods(fc, card, failed):
     ff_equal = np.array_equal(ff["output"], model.output_single(x[:8]))
 
     ds = DataSet(x[:BATCH], y[:BATCH])
-    feats, labels, lmasks = model._batch(_as_multi(ds))
+    feats, labels, fmasks, lmasks = model._batch(_as_multi(ds))
     opt = model._ensure_opt_state()
     step = model.train_step_fn()
-    got = step(model.params_, opt, model.state_, feats, labels, None, lmasks, None,
+    got = step(model.params_, opt, model.state_, feats, labels, fmasks, lmasks, None,
                model.iteration, model.epoch)
     model.fit(ExistingDataSetIterator([ds]))
     torch.cuda.synchronize()
@@ -6194,6 +6216,340 @@ def _zoo_entry_points(card, failed):
     return {"pretrained_max_abs_err": err, "cli_exit": r.returncode}
 
 
+# --------------------------------------------------------------------------
+# phase 18: BASELINE config #3, the masked LSTM sentiment graph
+# --------------------------------------------------------------------------
+# dl4j-examples Word2VecSentimentRNN at full width: 300-wide word vectors,
+# reviews cut to 256 steps, batch 64, LSTM(256, tanh) -> the last valid step
+# (LastTimeStepVertex on the tokens' mask) -> softmax MCXENT over 2 classes;
+# Adam(5e-3), l2 1e-5, xavier, element-wise gradient clip 1.0
+SENT_D, SENT_T, SENT_B, SENT_N = 300, 256, 64, 256
+SENT_SERVE_B = 32             # (e) the served bucket
+SENT_CPU_TOL = 1e-4           # (a) card vs the same model on the CPU, of the largest output
+SENT_PI_THREADS = 8           # (a) concurrent ParallelInference callers
+SENT_BWD_TOL = 1e-5           # (d) lstm_cell_bwd vs autograd, of the largest element
+SENT_TIMED = 2                # (e) timed calls a round
+
+
+def sentiment_conf(k: int = 1, policy=None):
+    """Config #3 as the repo's ComputationGraph form (f32)."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.graph_vertices import LastTimeStepVertex
+    from deeplearning4j_tpu_torch.nn.conf.layers import LSTM, OutputLayer
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    b = (NeuralNetConfiguration.builder().seed(SEED + 80).updater(Adam(5e-3)).l2(1e-5)
+         .weight_init("xavier")
+         .gradient_normalization("clip_element_wise_absolute_value", 1.0))
+    if k > 1:
+        b = b.steps_per_call(k)
+    if policy is not None:
+        b = b.fault_policy(policy)
+    return (b.graph_builder().add_inputs("tokens")
+            .add_layer("lstm", LSTM(n_out=SENT_N, activation="tanh"), "tokens")
+            .add_vertex("last", LastTimeStepVertex(mask_input="tokens"), "lstm")
+            .add_layer("out", OutputLayer(n_out=2, activation="softmax", loss="mcxent"), "last")
+            .set_outputs("out").set_input_types(InputType.recurrent(SENT_D, SENT_T)).build())
+
+
+def sentiment_batch(seed: int):
+    """(x, y, mask) of SENT_B reviews: seeded word vectors, seeded lengths
+    1..SENT_T (the first row 1 step, the second all of them), one-hot
+    labels."""
+    rng = np.random.default_rng(seed)
+    b = SENT_B
+    x = (rng.standard_normal((b, SENT_T, SENT_D)) * 0.5).astype(np.float32)
+    lens = rng.integers(1, SENT_T + 1, b)
+    lens[0], lens[1 % b] = 1, SENT_T
+    mask = (np.arange(SENT_T)[None, :] < lens[:, None]).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[rng.integers(0, 2, b)]
+    return x, y, mask
+
+
+def sentiment_model(k: int = 1, policy=None, device="cuda"):
+    """Config #3 initialized from its seed, its LSTM's biases spread so the
+    gates are not all at their init values."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    model = ComputationGraph(sentiment_conf(k, policy)).init(device=device)
+    g = torch.Generator().manual_seed(SEED + 81)
+    p = model.params_["lstm"]
+    p["b"] = p["b"] + (torch.randn(p["b"].shape, generator=g) * 0.3).to(p["b"].device)
+    return model
+
+
+def sentiment_phase(fl, card: str):
+    """Phase 18: BASELINE config #3 (the masked LSTM sentiment graph) at full
+    width: (a) served through ``output_single(masks=)``, ``InferenceEngine``
+    and batched ``ParallelInference`` against the same model on the CPU,
+    SENT_T cell launches a forward; (b) one step's gradients, the kernel
+    forward with the plain backward, against the plain cell (phase 4's
+    rule, the plain path in f64 as the yardstick: the model is f32); (c)
+    three eager fit steps then one bundle of two against five eager steps,
+    torch.equal, and a guarded step on a poisoned batch; (d) the cell's
+    backward alone at phase 2d's shapes against autograd of the plain cell,
+    timed beside ``torch.lstm_cell``'s backward; (e) sequences/s served and
+    trained, eager and bundled, in one round."""
+    failed = []
+    t0 = time.perf_counter()
+    served = _sentiment_serve(fl, card, failed)
+    grads = _sentiment_grads(fl, card, failed)
+    train = _sentiment_train(fl, card, failed)
+    bwd = _sentiment_bwd(fl, card, failed)
+    main = {}
+    for part in (served, grads, train):
+        _add_launches(main, part["main_launches"])
+    print(f"phase 18 main-path launches {main}; took {time.perf_counter() - t0:.1f}s; "
+          f"on {card}", flush=True)
+    if not main.get("fused_lstm_cell"):
+        failed.append("the LSTM cell was never launched on the path")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"main_launches": main, "served": served, "grads": grads, "train": train,
+            "backward": bwd, "launches_per_forward": served["launches_per_forward"],
+            "summary": bwd["summary"]}
+
+
+def _sentiment_serve(fl, card, failed):
+    """(a) and (e)'s serving half."""
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving import BucketPolicy, InferenceEngine
+    from deeplearning4j_tpu_torch.train import pipeline
+
+    model = sentiment_model()
+    cpu = sentiment_model(device="cpu")
+    cpu.params_ = pipeline.tree_map(lambda t: t.detach().cpu().clone(), model.params_)
+    x, _, m = sentiment_batch(SEED + 82)
+    want = cpu.output_single(x, masks=[m])
+    scale = float(np.abs(want).max())
+    engine = InferenceEngine(model, buckets=BucketPolicy(batch_buckets=[SENT_SERVE_B, SENT_B],
+                                                         seq_buckets=[SENT_T]))
+    warm = engine.warmup()
+    pi = ParallelInference(model, mode="batched", batch_limit=SENT_B)
+    rows = SENT_B // SENT_PI_THREADS
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    got = model.output_single(x, masks=[m])
+    torch.cuda.synchronize()
+    per_forward = fl.launch_counts["fused_lstm_cell"]
+    fl.reset_launch_counts()
+    got_engine = engine.infer(x[:SENT_SERVE_B], m[:SENT_SERVE_B])
+    per_engine = fl.launch_counts["fused_lstm_cell"]
+    got_pi = _threads(lambda i: pi.output(x[i * rows:(i + 1) * rows], m[i * rows:(i + 1) * rows],
+                                          timeout=120), SENT_PI_THREADS)
+    torch.cuda.synchronize()
+    main = dict(fl.launch_counts)
+    main["fused_lstm_cell"] += per_forward
+    pi.shutdown()
+    got_pi = np.concatenate([got_pi[i] for i in range(SENT_PI_THREADS)])
+    errs = {"output_single": float(np.abs(got - want).max()) / scale,
+            "engine": float(np.abs(got_engine - want[:SENT_SERVE_B]).max()) / scale,
+            "parallel_inference": float(np.abs(got_pi - want).max()) / scale}
+    unmasked = float(np.abs(model.output_single(x) - got).max()) / scale
+    seq_s = _in_turns([("served", lambda: [engine.infer(x[:SENT_SERVE_B], m[:SENT_SERVE_B])
+                                           for _ in range(SENT_TIMED)])])
+    served_per_s = [SENT_SERVE_B * SENT_TIMED / t for t in seq_s["served"]["s"]]
+    print(f"phase 18 (a) config #3 (Word2VecSentimentRNN: {SENT_D}-wide vectors, T {SENT_T}, "
+          f"LSTM({SENT_N}) -> LastTimeStepVertex -> softmax 2; f32, TF32 off), {SENT_B} reviews "
+          f"of lengths 1..{SENT_T}: card vs the same model on the CPU, max|d| / max|y| "
+          f"{errs} (tol {SENT_CPU_TOL}); fused_lstm_cell launches a forward "
+          f"{per_forward} (output_single), {per_engine} (engine, bucket {SENT_SERVE_B} x "
+          f"{SENT_T}); unmasked vs masked {unmasked:.3g}; engine warm-up {warm}; served "
+          f"{[round(v, 1) for v in served_per_s]} sequences/s at bucket {SENT_SERVE_B} "
+          f"(host clock, copies included); on {card}", flush=True)
+    if max(errs.values()) > SENT_CPU_TOL or not np.isfinite(got).all():
+        failed.append(f"(a) card vs CPU {errs}")
+    if per_forward != SENT_T or per_engine != SENT_T:
+        failed.append(f"(a) {per_forward} / {per_engine} cell launches a forward, not {SENT_T}")
+    if unmasked < 1e-3:
+        failed.append("(a) the mask changed nothing")
+    del engine, model, cpu
+    torch.cuda.empty_cache()
+    return {"rel_err_vs_cpu": errs, "launches_per_forward": per_forward,
+            "launches_per_engine_forward": per_engine, "unmasked_vs_masked": unmasked,
+            "warmup": warm, "sequences_per_s_b32": served_per_s, "main_launches": main}
+
+
+def _sentiment_grads(fl, card, failed):
+    """(b) One train-mode step's gradients: the kernel forward with the
+    plain backward against autograd through the plain cell, both f32, by
+    phase 4's rule with the plain path in f64 as the yardstick."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import _as_multi
+    from deeplearning4j_tpu_torch.train import pipeline
+
+    model = sentiment_model()
+    batch = model._batch(_as_multi(DataSet(*sentiment_batch(SEED + 83))))
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    _, _, gk = model._value_and_grad(*batch)
+    torch.cuda.synchronize()
+    main = dict(fl.launch_counts)
+    # the plain path: every step takes the plain cell (the layer calls
+    # fused_lstm.fused_lstm_cell by name), in f32 and in f64
+    kept, fl.fused_lstm_cell = fl.fused_lstm_cell, fl.reference_lstm_cell
+    try:
+        _, _, gp = model._value_and_grad(*batch)
+        model._input_dtype = torch.float64
+        _, _, g64 = model._value_and_grad(
+            *batch, params=pipeline.tree_map(lambda t: t.double(), model.params_))
+    finally:
+        fl.fused_lstm_cell, model._input_dtype = kept, None
+    ok, rels, ratios, to64 = grad_agreement(*(dict(_flat(g)) for g in (gk, gp, g64)))
+    print(f"phase 18 (b) one step's gradients (batch {SENT_B}): kernel forward + plain "
+          f"backward vs the plain cell, ||g_k - g_p|| / ||g_p|| {rels}; / ||g_p - g_f64|| "
+          f"{ratios}; ||g_k - g_f64|| / ||g_p - g_f64|| {to64} (phase 4's rule, the plain "
+          f"path in f64 as the yardstick); cell launches in the step {main}; on {card}",
+          flush=True)
+    if not ok:
+        failed.append(f"(b) gradients {rels} {ratios} {to64}")
+    if main.get("fused_lstm_cell") != SENT_T:
+        failed.append(f"(b) {main} cell launches in a step, not {SENT_T}")
+    del model
+    torch.cuda.empty_cache()
+    return {"ok": ok, "rel_to_plain": rels, "ratio_to_f64_noise": ratios,
+            "to_f64_over_plain": to64, "main_launches": main}
+
+
+def _sentiment_train(fl, card, failed):
+    """(c) and (e)'s train half: three eager steps then one bundle of two
+    against five eager steps (params, Adam slots, every score, torch.equal);
+    a guarded step on a poisoned batch keeps params and slots; sequences/s
+    trained eager and bundled in one round."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.train.faults import FaultPolicy
+    from deeplearning4j_tpu_torch.train import pipeline
+
+    data = [DataSet(*sentiment_batch(SEED + 84 + i)) for i in range(5)]
+    eager, bundled = sentiment_model(), sentiment_model(k=2)
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    scores_e, scores_b = [], []
+    for ds in data:
+        eager.fit(ExistingDataSetIterator([ds]))
+        scores_e.append(float(eager.score_))
+    per_step = fl.launch_counts["fused_lstm_cell"] // len(data)
+    for ds in data[:3]:
+        bundled.fit(ExistingDataSetIterator([ds]))
+        scores_b.append(float(bundled.score_))
+    bundled.fit(ExistingDataSetIterator(data[3:]))
+    torch.cuda.synchronize()
+    main = dict(fl.launch_counts)
+    scores_b += [float(v) for v in bundled.bundle_scores_.host()]
+    equal = _states_equal(eager, bundled)
+    captured = bundled._bundled is not None and bundled._bundled._graph is not None
+    # a guarded step on a poisoned batch (a NaN inside a review's valid
+    # steps) keeps params and slots
+    guarded = sentiment_model(policy=FaultPolicy())
+    guarded.fit(ExistingDataSetIterator(data[:1]))
+    before = pipeline.tree_map(lambda t: t.clone(), (guarded.params_, guarded.opt_state_))
+    px = data[1].features.copy()
+    px[1, 3, 7] = np.nan
+    guarded.fit(ExistingDataSetIterator([DataSet(px, data[1].labels, data[1].features_mask)]))
+    torch.cuda.synchronize()
+    kept = (_tensors_equal(guarded.params_, before[0])
+            and _tensors_equal(guarded.opt_state_, before[1]))
+    bad = guarded.bad_step_count
+    timed_runs = _in_turns([("eager", lambda: [eager.fit(ExistingDataSetIterator([ds]))
+                                               for ds in data[3:]]),
+                            ("bundled", lambda: bundled.fit(ExistingDataSetIterator(data[3:])))])
+    per_s = {k: [SENT_B * 2 / t for t in v["s"]] for k, v in timed_runs.items()}
+    print(f"phase 18 (c) Adam(5e-3), l2 1e-5, element-wise clip 1.0: 5 eager steps vs 3 eager "
+          f"+ one bundle of 2: torch.equal {equal}, scores equal {scores_e == scores_b} "
+          f"({[round(s, 5) for s in scores_e]}), captured {captured}, {per_step} cell "
+          f"launches an eager step; guarded step on a poisoned batch keeps params and slots "
+          f"{kept} (bad steps {bad}); (e) trained sequences/s (in one round, batch {SENT_B}) "
+          + "; ".join(f"{k} {[round(v, 1) for v in vals]}" for k, vals in per_s.items())
+          + f"; on {card}", flush=True)
+    if not all(equal.values()) or scores_e != scores_b or not captured:
+        failed.append(f"(c) bundled differs from eager {equal} {scores_e} {scores_b}")
+    if per_step != SENT_T:
+        failed.append(f"(c) {per_step} cell launches an eager step, not {SENT_T}")
+    if not kept or bad != 1:
+        failed.append(f"(c) the poisoned step moved the model (kept {kept}, bad {bad})")
+    for m in (eager, bundled, guarded):
+        m.params_ = m.state_ = m.opt_state_ = m.fault_state_ = m._bundled = None
+    torch.cuda.empty_cache()
+    return {"equal": equal, "scores": scores_e, "captured": captured, "launches_per_step": per_step,
+            "poisoned_step_kept": kept, "sequences_per_s": per_s, "main_launches": main}
+
+
+def _sentiment_bwd(fl, card, failed):
+    """(d) ``lstm_cell_bwd`` alone at phase 2d's f32 shapes and config #3's
+    against autograd of the plain cell on the card, within SENT_BWD_TOL of
+    each gradient's largest element; device time (CUDA graph) beside the
+    backward of ``torch.lstm_cell`` (its forward and backward less its
+    forward) for the non-peephole cells."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 85)
+    cases = [(b, n_in, LSTM_UNITS, pe) for n_in in (TEXTGEN_VOCAB, LSTM_UNITS)
+             for b in (1, 8, 32, 64) for pe in (False, True)]
+    cases += [(3, 33, 100, False), (3, 33, 100, True), (SENT_B, SENT_D, SENT_N, False)]
+    rows = []
+    for b, n_in, n, pe in cases:
+        args = lstm_args(gen, b, n_in, n, pe, LSTM_DTYPES["f32"])
+        dh = torch.randn(b, n, generator=gen, device="cuda")
+        dc = torch.randn(b, n, generator=gen, device="cuda")
+        peeps = tuple(args[6:]) if pe else None
+        got = fl.lstm_cell_bwd(*args[:6], peeps, dh, dc)
+        ins = [a.detach().clone().requires_grad_() for a in args]
+        h2, c2 = fl.reference_lstm_cell(*ins)
+        want = torch.autograd.grad((h2, c2), ins, (dh, dc))
+        err = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                  for g, w in zip(got, want))
+        row = {"b": b, "n_in": n_in, "n": n, "peephole": pe, "rel_err": err,
+               "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want))}
+        flops = 3 * 2.0 * b * (n_in + n) * 4 * n + 60.0 * b * n
+        nbytes = 4.0 * (2 * (b * n_in + n_in * 4 * n + n * 4 * n + 4 * n + 2 * b * n)
+                        + 2 * b * n + (6 * n if pe else 0))
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)
+        if (b, n_in) in ((32, LSTM_UNITS), (SENT_B, SENT_D)):
+            fn = lambda: fl.lstm_cell_bwd(*args[:6], peeps, dh, dc)  # noqa: E731
+            row["kernel_ms"] = time_ms(fn)
+            row["kernel_device_ms"] = graph_ms(fn)
+            ref_ins = [a.detach().clone().requires_grad_() for a in args]
+
+            def autograd_bwd():
+                h, c = fl.reference_lstm_cell(*ref_ins)
+                return torch.autograd.grad((h, c), ref_ins, (dh, dc))
+
+            row["plain_ms"] = time_ms(autograd_bwd)
+            row["plain_device_ms"] = graph_ms(autograd_bwd)
+            row["library_ms"] = row["library_device_ms"] = None
+            if not pe:
+                lib_ins = [t.detach().clone().requires_grad_() for t in library_operands(args)]
+                xl, hl, cl, w_ih, w_hh, b_ih, b_hh = lib_ins
+
+                def lib():
+                    return torch.lstm_cell(xl, (hl, cl), w_ih, w_hh, b_ih, b_hh)
+
+                def lib_both():
+                    return torch.autograd.grad(lib(), lib_ins, (dh, dc))
+
+                row["library_device_ms"] = graph_ms(lib_both) - graph_ms(lib)
+                row["library_ms"] = time_ms(lib_both) - time_ms(lib)
+        rows.append(row)
+        ok = err <= SENT_BWD_TOL
+        timing = ("" if "kernel_ms" not in row else
+                  f" lstm_cell_bwd {row['kernel_device_ms']:.4f} ms (device; events "
+                  f"{row['kernel_ms']:.4f}), plain cell fwd+autograd bwd "
+                  f"{row['plain_device_ms']:.4f}, torch.lstm_cell bwd "
+                  + ("none" if row["library_device_ms"] is None else
+                     f"{row['library_device_ms']:.4f}")
+                  + f", bound {row['bound_ms']:.5f} ({row['bound_by']})")
+        print(f"phase 18 (d) lstm_cell_bwd B {b} n_in {n_in} n {n} "
+              f"{'peephole' if pe else 'plain'} f32 vs autograd of the plain cell: "
+              f"max|d| / max|g| {err:.3g} (tol {SENT_BWD_TOL}){timing} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(f"(d) lstm_cell_bwd {row}")
+    main_row = next(r for r in rows if (r["b"], r["n_in"]) == (SENT_B, SENT_D))
+    summary = {k: main_row[k] for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                                        "plain_device_ms", "library_ms", "library_device_ms",
+                                        "bound_ms", "bound_by")}
+    summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return {"rows": rows, "summary": summary}
+
+
 def timed(phase, *args):
     """``phase(*args)``, its host seconds printed (the script's time limit)."""
     t0 = time.perf_counter()
@@ -6258,6 +6614,7 @@ def main() -> int:
     drop = timed(dropout_phase, fc, fa, im, card)
     remat = timed(remat_phase, fc, fu, fa, card)
     zoo = timed(zoo_phase, fc, im, card)
+    sent = timed(sentiment_phase, fl, card)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -6342,6 +6699,13 @@ def main() -> int:
         # phase 17: AlexNet's int8 heads served, the space-to-depth ResNet-50's
         # forward and eager steps
         entry_k["launches_zoo"] = zoo["main_launches"].get(name, 0)
+        # phase 18: config #3 served (output_single, the engine, batched
+        # ParallelInference), one step's gradients and the eager, bundled and
+        # guarded steps; the cell's plain backward beside torch.lstm_cell's
+        entry_k["launches_sentiment"] = sent["main_launches"].get(name, 0)
+        if name == "fused_lstm_cell":
+            entry_k["launches_per_forward_sentiment"] = sent["launches_per_forward"]
+            entry_k["backward_sentiment"] = sent["summary"]
         kernels.append(entry_k)
     import torch.distributed as dist
 
@@ -6360,7 +6724,7 @@ def main() -> int:
                    "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
                    "entry_points": entry, "guard": guard, "parallel_inference": pinf,
                    "knobs": knobs, "dropout": drop, "remat": remat, "zoo": zoo,
-                   "kernels": kernels},
+                   "sentiment": sent, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,7 +13,9 @@ from __future__ import annotations
 from typing import Callable, Iterable, Iterator, List
 
 import numpy as np
+import torch
 
+from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 
 
@@ -162,10 +164,20 @@ class BatchBundle:
                 _sig(ds.labels_mask))
 
     @classmethod
-    def stack(cls, datasets: List[DataSet]) -> "BatchBundle":
+    def stack(cls, datasets: List[DataSet], device_put=False) -> "BatchBundle":
+        """The K batches stacked as host numpy; ``device_put``: as tensors on
+        a device instead (True: the default device, the CUDA card; or a
+        device), the host-to-device copy paid here rather than in the
+        step."""
+        dev = None if device_put is False else resolve_device(
+            None if device_put is True else device_put)
+
         def st(key):
             arrs = [getattr(d, key) for d in datasets]
-            return None if arrs[0] is None else np.stack([np.asarray(a) for a in arrs])
+            if arrs[0] is None:
+                return None
+            out = np.stack([np.asarray(a) for a in arrs])
+            return out if dev is None else torch.from_numpy(out).to(dev)
 
         return cls(st("features"), st("labels"), st("features_mask"),
                    st("labels_mask"), len(datasets))
@@ -214,10 +226,11 @@ def iter_grouped(stream: Iterable, k: int, key: Callable) -> Iterator:
     yield from buf
 
 
-def iter_bundled(stream: Iterable[DataSet], k: int) -> Iterator:
+def iter_bundled(stream: Iterable[DataSet], k: int, device_put=False) -> Iterator:
     """Group consecutive compatible DataSets of ``stream`` into
-    :class:`BatchBundle` objects of exactly ``k`` steps; the ragged tail and
-    any run broken by a shape, dtype or mask-layout change are yielded as
-    single DataSets."""
+    :class:`BatchBundle` objects of exactly ``k`` steps (``device_put``: as
+    :meth:`BatchBundle.stack`); the ragged tail and any run broken by a
+    shape, dtype or mask-layout change are yielded as single DataSets."""
     for item in iter_grouped(stream, k, BatchBundle.compat_key):
-        yield BatchBundle.stack(item) if isinstance(item, list) else item
+        yield (BatchBundle.stack(item, device_put=device_put) if isinstance(item, list)
+               else item)

@@ -35,6 +35,15 @@ class Distribution(TaggedConf):
     def kwargs(self) -> dict:
         return {k: v for k, v in self.items() if k not in ("@type", "kind")}
 
+    def to_dict(self) -> dict:
+        """The reference's ``to_dict``: ``kind`` and the parameters."""
+        return {"kind": self.kind, **self.kwargs}
+
+    @staticmethod
+    def from_dict(d: dict) -> "Distribution":
+        d = {k: v for k, v in d.items() if k != "@type"}
+        return Distribution(d.pop("kind"), **d)
+
     def sample(self, gen: torch.Generator, shape: Sequence[int],
                dtype=torch.float32) -> torch.Tensor:
         k, p, shape = self.kind, self.kwargs, tuple(shape)
@@ -124,8 +133,8 @@ _ALIASES = {k.replace("_", ""): k for k in _SCHEMES if "_" in k}
 
 
 def init_weights(gen: torch.Generator, shape: Sequence[int], fan_in: float,
-                 fan_out: float, scheme="xavier", dtype=torch.float32,
-                 distribution=None) -> torch.Tensor:
+                 fan_out: float, scheme="xavier", distribution=None,
+                 dtype=torch.float32) -> torch.Tensor:
     """Draw a weight tensor on the CPU by the named scheme (the reference's
     ``WeightInitUtil.initWeights``): e.g. ``xavier`` N(0, 2/(fanIn+fanOut)),
     ``xavier_uniform`` U(±sqrt(6/(fanIn+fanOut))), ``relu`` N(0, 2/fanIn),

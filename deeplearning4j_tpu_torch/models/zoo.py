@@ -15,7 +15,7 @@ staged one kept), and loads it on ``device`` (default the CUDA card).
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 CACHE_DIR = os.environ.get(
     "DL4J_TPU_DATA", os.path.join(os.path.expanduser("~"), ".deeplearning4j_tpu"))
@@ -89,6 +89,23 @@ class ZooModel:
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
         return ComputationGraph(conf).init(device=device)
+
+    # --------------------------------------------------------------- serving
+    def serving_input_shape(self) -> Optional[tuple]:
+        """The per-example input shape for serving warm-up, from the built
+        configuration's input type (None when it declares none)."""
+        from deeplearning4j_tpu_torch.serving.engine import conf_example_shape
+
+        return conf_example_shape(self.conf())
+
+    def serving_bucket_policy(self, max_batch: int = 32,
+                              batch_buckets: Optional[Sequence[int]] = None):
+        """The model's serving bucket policy: the caller's batch buckets and
+        this model's ``serving_seq_buckets``."""
+        from deeplearning4j_tpu_torch.serving.buckets import BucketPolicy
+
+        return BucketPolicy(batch_buckets=batch_buckets, max_batch=max_batch,
+                            seq_buckets=self.serving_seq_buckets)
 
     # ------------------------------------------------------------ pretrained
     def pretrained_url(self, dataset: str = "imagenet") -> Optional[str]:

@@ -272,9 +272,9 @@ class NeuralNetConfiguration:
 
     def remat_policy(self, policy: Optional[str]) -> "NeuralNetConfiguration":
         """Backward-pass rematerialization ("save_conv_outputs", "dots",
-        "nothing"; None for none). Stored and written to the JSON; training
-        with it is refused until it is ported (ROADMAP § A2.2,
-        ``check_train_conf``)."""
+        "nothing"; None for none), written to the JSON: every fit path
+        rematerializes under it (``nn/remat.py``); an unknown name raises
+        ``ValueError`` at train time (``check_train_conf``)."""
         self._g.remat_policy = policy
         return self
 

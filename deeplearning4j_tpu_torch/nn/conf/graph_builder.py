@@ -7,7 +7,8 @@ deterministic topological order and type inference. The configuration dict
 either package builds in the other. ``build`` inserts input preprocessors
 where the reference's graph builder does (``builders.infer_preprocessor``),
 and a layer given several inputs reads them through an implicit
-``"{name}-merge"`` MergeVertex, as the reference's builder adds.
+``"{name}-merge"`` MergeVertex, as the reference's builder adds; a
+DuplicateToTimeSeriesVertex's ``timesteps_input`` becomes its second input.
 """
 
 from __future__ import annotations
@@ -16,7 +17,11 @@ import json
 from typing import Dict, List, Optional, Sequence
 
 from deeplearning4j_tpu_torch.nn.conf import serde
-from deeplearning4j_tpu_torch.nn.conf.graph_vertices import GraphVertex, MergeVertex
+from deeplearning4j_tpu_torch.nn.conf.graph_vertices import (
+    DuplicateToTimeSeriesVertex,
+    GraphVertex,
+    MergeVertex,
+)
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import GlobalConf, Layer
 
@@ -94,6 +99,17 @@ class ComputationGraphConfiguration:
         self.tbptt_back_length = int(tbptt_back_length)
         self.topological_order = topological_order(self.network_inputs,
                                                    self.vertex_inputs)
+
+    def vertex_types(self) -> Dict[str, InputType]:
+        """The output InputType of every network input and vertex (needs
+        ``input_types``)."""
+        if self.input_types is None:
+            raise ValueError("input_types not set")
+        types: Dict[str, InputType] = dict(zip(self.network_inputs, self.input_types))
+        for name in self.topological_order:
+            in_types = [types[src] for src in self.vertex_inputs[name]]
+            types[name] = self.vertices[name].get_output_type(*in_types)
+        return types
 
     def layer_input_types(self) -> Dict[str, InputType]:
         """InputType seen by each LayerVertex's layer."""
@@ -200,6 +216,11 @@ class GraphBuilder:
             self._vertices[merge_name] = MergeVertex()
             self._vertex_inputs[merge_name] = inputs
             inputs = [merge_name]
+        # the timestep source a DuplicateToTimeSeriesVertex names in its
+        # constructor becomes a real edge, for type inference and the walk
+        if (isinstance(vertex, DuplicateToTimeSeriesVertex)
+                and vertex.timesteps_input not in inputs):
+            inputs.append(vertex.timesteps_input)
         self._vertices[name] = vertex
         self._vertex_inputs[name] = inputs
         return self

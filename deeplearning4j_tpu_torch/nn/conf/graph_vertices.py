@@ -2,17 +2,18 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/graph_vertices.py``: Merge,
 ElementWise, Subset, Stack/Unstack, L2/L2Normalize, Scale/Shift,
-PoolHelper, Reshape and Preprocessor, with the reference's ``@class`` names
-and fields, so a configuration dict reads and writes the same in either
-package. A vertex is a pure function of its input activations:
+PoolHelper, Reshape, Preprocessor and the three time-series vertices, with
+the reference's ``@class`` names and fields, so a configuration dict reads
+and writes the same in either package. A vertex is a pure function of its input activations:
 ``apply(inputs, masks, *, train=False, rng=None)``, and
 ``feed_forward_mask(masks)`` gives the mask of its output. Activations are
 NHWC / ``(b, T, size)``, so a merge along features is ``dim=-1`` in every
 family.
 
-The three time-series vertices (LastTimeStep, DuplicateToTimeSeries,
-ReverseTimeSeries) read feature masks, which a graph does not take yet:
-building or decoding one raises :class:`TimeSeriesVertexNotPortedError`.
+The three time-series vertices read feature masks: LastTimeStep and
+ReverseTimeSeries the mask of the vertex or input their ``mask_input``
+names (the graph hands it over as the first mask), DuplicateToTimeSeries
+the mask of its second input, whose steps it copies.
 """
 
 from __future__ import annotations
@@ -311,38 +312,62 @@ class PreprocessorVertex(GraphVertex):
         return cls(serde.decode(data["preprocessor"]))
 
 
-class TimeSeriesVertexNotPortedError(NotImplementedError):
-    """A time-series vertex, which needs a graph's feature masks."""
+@serde.register
+class LastTimeStepVertex(GraphVertex):
+    """(b, T, s) -> (b, s): each example's last valid step by the mask of
+    ``mask_input`` (a network input or vertex, resolved by the graph), the
+    last step without a mask. It consumes the mask."""
 
+    def __init__(self, mask_input: Optional[str] = None):
+        self.mask_input = mask_input
 
-class _TimeSeriesVertex(GraphVertex):
-    """A vertex of the reference that reads feature masks: refused, in code
-    and in JSON, until a graph takes them."""
+    def get_output_type(self, *input_types: InputType) -> InputType:
+        return InputType.feed_forward(input_types[0].size)
 
-    def __init__(self, *args, **kwargs):
-        raise self._refusal()
+    def apply(self, inputs, masks, *, train=False, rng=None):
+        x, m = inputs[0], masks[0]
+        if m is None:
+            return x[:, -1, :]
+        idx = torch.clamp(m.to(torch.int32).sum(dim=1) - 1, 0, x.shape[1] - 1)
+        return x[torch.arange(x.shape[0], device=x.device), idx.to(torch.int64)]
 
-    @classmethod
-    def from_dict(cls, data: dict):
-        raise cls._refusal()
-
-    @classmethod
-    def _refusal(cls) -> TimeSeriesVertexNotPortedError:
-        return TimeSeriesVertexNotPortedError(
-            f"{cls.__name__} needs feature masks into a ComputationGraph, which are "
-            "not ported yet (ROADMAP § A4)")
+    def feed_forward_mask(self, masks):
+        return None
 
 
 @serde.register
-class LastTimeStepVertex(_TimeSeriesVertex):
-    pass
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """(b, s) -> (b, T, s), T from the second input, which the builder wires
+    from ``timesteps_input``; the output's mask is that input's."""
+
+    def __init__(self, timesteps_input: str):
+        self.timesteps_input = timesteps_input
+
+    def get_output_type(self, *input_types: InputType) -> InputType:
+        ts = input_types[1].timesteps if len(input_types) > 1 else None
+        return InputType.recurrent(input_types[0].size, ts)
+
+    def apply(self, inputs, masks, *, train=False, rng=None):
+        x, ref = inputs[0], inputs[1]
+        return x[:, None, :].expand(x.shape[0], ref.shape[1], x.shape[1])
+
+    def feed_forward_mask(self, masks):
+        return masks[1] if len(masks) > 1 else None
 
 
 @serde.register
-class DuplicateToTimeSeriesVertex(_TimeSeriesVertex):
-    pass
+class ReverseTimeSeriesVertex(GraphVertex):
+    """The time axis reversed; with the mask of ``mask_input``, only each
+    example's valid prefix (the padded steps stay where they are)."""
 
+    def __init__(self, mask_input: Optional[str] = None):
+        self.mask_input = mask_input
 
-@serde.register
-class ReverseTimeSeriesVertex(_TimeSeriesVertex):
-    pass
+    def apply(self, inputs, masks, *, train=False, rng=None):
+        x, m = inputs[0], masks[0]
+        if m is None:
+            return torch.flip(x, dims=(1,))
+        lengths = m.to(torch.int32).sum(dim=1).to(torch.int64)[:, None]
+        t = torch.arange(x.shape[1], device=x.device)[None, :]
+        idx = torch.where(t < lengths, lengths - 1 - t, t)
+        return torch.take_along_dim(x, idx[:, :, None], dim=1)

@@ -124,6 +124,10 @@ class Layer:
         fields = {k: v for k, v in self.__dict__.items() if v is not None and v != []}
         return f"{type(self).__name__}({fields})"
 
+    def clone(self) -> "Layer":
+        """A copy through the configuration dict."""
+        return Layer.from_dict(self.to_dict())
+
 
 #: the sub-streams of a layer's noise stream
 INPUT_DROPOUT_STREAM, WEIGHT_NOISE_STREAM, LAYER_STREAM = 0, 1, 2

@@ -42,6 +42,10 @@ class DenseLayer(FeedForwardLayer):
     def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
         return self.act_fn()(_affine(params, x)), state or {}
 
+    def pre_output(self, params, x):
+        """``x W + b`` before the activation."""
+        return _affine(params, x)
+
 
 @serde.register
 class ActivationLayer(Layer):

@@ -148,12 +148,13 @@ def check_gradients_graph(net, mds, eps: float = DEFAULT_EPS,
     state64 = _to64(net.state_, dev)
     feats = [_to64(a, dev) for a in mds.features]
     labels = [_to64(a, dev) for a in mds.labels]
+    fmasks = [_to64(a, dev) for a in mds.features_masks]
     lmasks = [_to64(a, dev) for a in mds.labels_masks]
     noise = NoiseSource(rng_seed, 0)
 
     def loss_fn(p):
-        loss, _ = net._loss_and_new_state(p, state64, feats, labels, lmasks, train=True,
-                                          noise=noise)
+        loss, _ = net._loss_and_new_state(p, state64, feats, labels, fmasks, lmasks,
+                                          train=True, noise=noise)
         return loss + net._reg_score(p)
 
     with _Float64Inputs(net):

@@ -31,11 +31,21 @@ captured CUDA graph on the card. A fault policy makes the step the
 reference's guarded one (``nn/multilayer.guarded_update``,
 ``train/faults.py``), eager and bundled. ``remat_policy`` makes each layer
 vertex's train-mode step a checkpointed region (``nn/remat.py``).
-A vertex is called as the reference calls it, ``apply(inputs, masks,
-train=, rng=None)``, its masks None: a graph takes no feature masks yet
-(ROADMAP § A4). A ``CenterLossOutputLayer``'s score reads its centers and
-its train step moves them (``nn/conf/layers/special.py``). Telemetry,
-listeners and tBPTT are not ported yet and raise.
+A ``CenterLossOutputLayer``'s score reads its centers and its train step
+moves them (``nn/conf/layers/special.py``). Telemetry, listeners and tBPTT
+are not ported yet and raise.
+
+Feature masks flow as in the reference's walk: one (b, T) mask a network
+input (``output(*inputs, masks=)``, a MultiDataSet's ``features_masks``),
+through each layer vertex's preprocessor (``feed_forward_mask``) into its
+layer's ``mask=``; a recurrent layer keeps it, a layer whose output is 2-D
+(pooling) consumes it; a vertex is called as the reference calls it,
+``apply(inputs, masks, train=, rng=None)``, and ``feed_forward_mask`` gives
+its output's mask; LastTimeStep and ReverseTimeSeries read the mask of the
+vertex or input their ``mask_input`` names. An output layer's label mask
+defaults to the feature mask that reaches it. A bundled step is kept per
+mask presence of the batch's slots (:func:`mask_presence`), so a masked and
+an unmasked batch never share a captured graph.
 
 Dropout, weight noise and constraints as in the reference's graph, per
 layer vertex: preprocessor -> input dropout -> weight noise -> ``apply``,
@@ -51,7 +61,7 @@ from __future__ import annotations
 
 import copy
 import functools
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -70,6 +80,10 @@ from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
     LayerVertex,
 )
 from deeplearning4j_tpu_torch.nn.conf.dropouts import NoiseSource
+from deeplearning4j_tpu_torch.nn.conf.graph_vertices import (
+    LastTimeStepVertex,
+    ReverseTimeSeriesVertex,
+)
 from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_input_dropout, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.conf.layers.special import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.nn.multilayer import (
@@ -80,6 +94,8 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     check_train_conf,
     flatten_tensors,
     guarded_update,
+    init_generator,
+    mask_after,
     remat_policy_of,
     unflatten_tensors,
 )
@@ -89,17 +105,15 @@ from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 from deeplearning4j_tpu_torch.updaters import as_updater, step_iteration
 
 NOT_PORTED = "not ported yet (ROADMAP § A, training slices)"
-#: the refusal of feature masks into a graph (they come with the
-#: time-series vertices)
-MASKS_NOT_PORTED = "feature masks into a ComputationGraph are not ported yet (ROADMAP § A4)"
 
 Tensors = Dict[str, torch.Tensor]
 
 
 class ComputationGraph(NetworkMethods):
-    def __init__(self, conf: ComputationGraphConfiguration):
-        # a private copy: layers of the caller's conf are never shared
-        self.conf = conf = copy.deepcopy(conf)
+    def __init__(self, conf: ComputationGraphConfiguration, *, copy_conf: bool = True):
+        # a private copy: layers of the caller's conf are never shared;
+        # copy_conf=False for a conf nothing else holds
+        self.conf = conf = copy.deepcopy(conf) if copy_conf else conf
         self.topo = conf.topological_order
         self.layer_names: List[str] = [
             n for n in self.topo if isinstance(conf.vertices[n], LayerVertex)]
@@ -140,14 +154,15 @@ class ComputationGraph(NetworkMethods):
         return list(self.conf.network_outputs)
 
     # ------------------------------------------------------------------ init
-    def init(self, device=None) -> "ComputationGraph":
-        """Draw the params on the CPU from a ``torch.Generator`` seeded with
-        the configuration's ``seed``, and place params and state on
-        ``device`` (default the CUDA card)."""
+    def init(self, rng=None, device=None) -> "ComputationGraph":
+        """Draw the params on the CPU from ``rng`` (a seed or a CPU
+        ``torch.Generator``; default one seeded with the configuration's
+        ``seed``), and place params and state on ``device`` (default the
+        CUDA card)."""
         if self.conf.input_types is None:
             raise ValueError("Configuration needs set_input_types(...) before init()")
         device = resolve_device(device)
-        gen = torch.Generator().manual_seed(self.conf.global_conf.seed)
+        gen = init_generator(rng, self.conf.global_conf.seed)
         dtype = param_dtype(self.conf.global_conf.dtype)
         lt = self.conf.layer_input_types()
         params: Dict[str, Tensors] = {}
@@ -167,7 +182,8 @@ class ComputationGraph(NetworkMethods):
         """A deep copy (the reference's ``clone()``): the configuration
         through its JSON, params, layer state and updater state copied on
         the model's device, ``iteration`` and ``epoch`` carried over."""
-        net = ComputationGraph(ComputationGraphConfiguration.from_json(self.conf.to_json()))
+        net = ComputationGraph(ComputationGraphConfiguration.from_json(self.conf.to_json()),
+                               copy_conf=False)
         if self.params_ is not None:
             net.params_, net.state_, net.opt_state_ = _pipeline.tree_map(
                 lambda t: t.detach().clone(), (self.params_, self.state_, self.opt_state_))
@@ -222,17 +238,20 @@ class ComputationGraph(NetworkMethods):
         return out
 
     def _forward(self, params, state, inputs, *, train: bool = False,
-                 cast_params: bool = True, noise=None, remat=None, carries=None):
+                 cast_params: bool = True, noise=None, remat=None, carries=None,
+                 fmasks=None):
         """Forward walk over the topological order. Returns ``(acts,
-        out_inputs, new_state)``: every vertex's activation, the input of
-        each output layer (what its score is computed from, after its input
-        dropout), and each layer's new state. ``cast_params=False`` when
-        ``params`` is already the output of :meth:`compute_params`.
-        ``noise``: the step's noise source in training. ``remat``: a
-        train-mode forward's remat policy (each layer vertex but the output
-        layers one checkpointed region), or None. ``carries``: recurrent
-        layer vertex name -> the state to start from (:meth:`_init_carries`);
-        then ``new_carries``, their final states, is returned fourth."""
+        out_inputs, new_state)``: every vertex's activation, ``(x, mask)``
+        of each output layer (the input its score is computed from, after
+        its input dropout, and the feature mask that reaches it), and each
+        layer's new state. ``cast_params=False`` when ``params`` is already
+        the output of :meth:`compute_params`. ``noise``: the step's noise
+        source in training. ``remat``: a train-mode forward's remat policy
+        (each layer vertex but the output layers one checkpointed region),
+        or None. ``carries``: recurrent layer vertex name -> the state to
+        start from (:meth:`_init_carries`); then ``new_carries``, their
+        final states, is returned fourth. ``fmasks``: one feature mask (or
+        None) a network input."""
         conf = self.conf
         if self._compute_dtype is not None and cast_params:
             params = self.compute_params(params)
@@ -241,32 +260,43 @@ class ComputationGraph(NetworkMethods):
         in_dt = self._input_dtype or self._compute_dtype or param_dtype(conf.global_conf.dtype)
         inputs = [x.to(in_dt) if x.is_floating_point() else x for x in inputs]
         acts: Dict[str, torch.Tensor] = dict(zip(conf.network_inputs, inputs))
-        out_inputs: Dict[str, torch.Tensor] = {}
+        masks: Dict[str, Optional[torch.Tensor]] = {n: None for n in conf.network_inputs}
+        for n, m in zip(conf.network_inputs, fmasks or ()):
+            masks[n] = m
+        out_inputs: Dict[str, tuple] = {}
         new_state: Dict[str, Tensors] = {}
         new_carries: Dict[str, Any] = {}
         for name in self.topo:
             v = conf.vertices[name]
-            in_acts = [acts[s] for s in conf.vertex_inputs[name]]
+            srcs = conf.vertex_inputs[name]
+            in_acts = [acts[s] for s in srcs]
+            in_masks = [masks[s] for s in srcs]
             if not isinstance(v, LayerVertex):
-                # no feature masks reach a graph yet: every vertex sees None
-                acts[name] = v.apply(in_acts, [None] * len(in_acts), train=train, rng=None)
+                # a time-series vertex reads the mask its mask_input names
+                if isinstance(v, (LastTimeStepVertex, ReverseTimeSeriesVertex)) \
+                        and v.mask_input:
+                    in_masks = [masks.get(v.mask_input)] + in_masks[1:]
+                acts[name] = v.apply(in_acts, in_masks, train=train, rng=None)
+                masks[name] = v.feed_forward_mask(in_masks)
                 continue
             r = self._stream(noise, name)
             p_n, st_n = params.get(name, {}), state.get(name, {})
             if v.layer.is_output_layer:
                 # the score reads the input after its dropout; the head is
                 # no region
-                out_inputs[name] = x = self._vertex_input(v, in_acts[0], train, r)
-                y, st = v.layer.apply(p_n, x, state=st_n, train=train, rng=r)
+                x, m = self._vertex_input(v, in_acts[0], in_masks[0], train, r)
+                out_inputs[name] = (x, m)
+                y, st = v.layer.apply(p_n, x, state=st_n, train=train, rng=r, mask=m)
                 c = None
             else:
                 step = functools.partial(self._vertex_step, v, p_n, st_n, train, r,
                                          None if carries is None else carries.get(name))
                 if remat is not None and train:
-                    y, st, c = remat.region(v.layer, step, in_acts[0])
+                    y, m, st, c = remat.region(v.layer, step, in_acts[0], in_masks[0])
                 else:
-                    y, st, c = step(in_acts[0])
+                    y, m, st, c = step(in_acts[0], in_masks[0])
             acts[name] = y
+            masks[name] = mask_after(v.layer, y, m)
             new_state[name] = st if st is not None else {}
             if c is not None:
                 new_carries[name] = c
@@ -275,26 +305,28 @@ class ComputationGraph(NetworkMethods):
         return acts, out_inputs, new_state
 
     @staticmethod
-    def _vertex_input(v, x, train: bool, r):
-        """A layer vertex's input: its preprocessor, then its input dropout."""
+    def _vertex_input(v, x, m, train: bool, r):
+        """A layer vertex's input and mask: its preprocessor (which maps the
+        mask too), then its input dropout."""
         if v.preprocessor is not None:
-            x = v.preprocessor.pre_process(x)
-        return apply_input_dropout(v.layer, x, train, r)
+            x = v.preprocessor.pre_process(x, m)
+            m = v.preprocessor.feed_forward_mask(m)
+        return apply_input_dropout(v.layer, x, train, r), m
 
-    def _vertex_step(self, v, p_n, st_n, train: bool, r, carry, x):
-        """One layer vertex (not an output layer): ``(y, new_state,
-        new_carry)`` from its input ``x`` (its preprocessor, input dropout,
-        weight noise and ``apply``; from ``carry`` where it is a recurrent
-        layer's)."""
+    def _vertex_step(self, v, p_n, st_n, train: bool, r, carry, x, m):
+        """One layer vertex (not an output layer): ``(y, mask, new_state,
+        new_carry)`` from its input ``x`` and mask ``m`` (its preprocessor,
+        input dropout, weight noise and ``apply``; from ``carry`` where it is
+        a recurrent layer's); ``mask`` is the one its layer saw."""
         from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
 
-        x = self._vertex_input(v, x, train, r)
+        x, m = self._vertex_input(v, x, m, train, r)
         p_n = apply_weight_noise(v.layer, p_n, train, r)
         if carry is not None and isinstance(v.layer, BaseRecurrentLayer):
-            y, c = v.layer.apply_with_carry(p_n, x, carry, mask=None, train=train, rng=r)
-            return y, st_n, c
-        y, st = v.layer.apply(p_n, x, state=st_n, train=train, rng=r)
-        return y, st, None
+            y, c = v.layer.apply_with_carry(p_n, x, carry, mask=m, train=train, rng=r)
+            return y, m, st_n, c
+        y, st = v.layer.apply(p_n, x, state=st_n, train=train, rng=r, mask=m)
+        return y, m, st, None
 
     def _stream(self, noise, name: str):
         """Layer vertex ``name``'s noise stream (None without noise)."""
@@ -304,37 +336,48 @@ class ComputationGraph(NetworkMethods):
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
         return t.to(self.device)
 
+    def _as_masks(self, masks) -> Optional[List[Optional[torch.Tensor]]]:
+        """Feature masks as f32 tensors on the model's device (None stays)."""
+        if masks is None:
+            return None
+        return [None if m is None else self._as_input(m).float() for m in masks]
+
     # -------------------------------------------------------------- inference
-    def output(self, *inputs) -> List[np.ndarray]:
-        """Multi-output inference: one numpy array per network output."""
+    def output(self, *inputs, masks: Optional[Sequence] = None) -> List[np.ndarray]:
+        """Multi-output inference: one numpy array per network output.
+        ``masks``: one (b, T) feature mask (or None) a network input."""
         if self.params_ is None:
             raise ValueError("init() the graph (or load params) first")
         with torch.inference_mode():
             acts, _, _ = self._forward(self.params_, self.state_,
-                                       [self._as_input(x) for x in inputs])
+                                       [self._as_input(x) for x in inputs],
+                                       fmasks=self._as_masks(masks))
         return [_host(acts[name]) for name in self.conf.network_outputs]
 
-    def output_single(self, *inputs) -> np.ndarray:
-        ys = self.output(*inputs)
+    def output_single(self, *inputs, masks: Optional[Sequence] = None) -> np.ndarray:
+        ys = self.output(*inputs, masks=masks)
         if len(ys) != 1:
             raise ValueError(f"Graph has {len(ys)} outputs; use output()")
         return ys[0]
 
     # ----------------------------------------------------------------- scoring
-    def _loss_and_new_state(self, params, state, features, labels, lmasks,
+    def _loss_and_new_state(self, params, state, features, labels, fmasks, lmasks,
                             train: bool = True, noise=None, remat=None):
         """Mean per-example loss summed over the outputs (f32: under a
         compute dtype the output layer's input is widened first), and the
-        layers' new state. An output layer's weight noise is drawn here.
-        ``remat``: the train step's remat policy."""
+        layers' new state. An output layer's label mask defaults to the
+        feature mask that reaches it. An output layer's weight noise is drawn
+        here. ``remat``: the train step's remat policy."""
         _, out_inputs, new_state = self._forward(params, state, features, train=train,
-                                                 noise=noise, remat=remat)
+                                                 noise=noise, remat=remat, fmasks=fmasks)
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, name in enumerate(self.conf.network_outputs):
-            x = out_inputs[name]
+            x, m = out_inputs[name]
             if self._compute_dtype is not None:
                 x = x.float()
-            lmask = lmasks[i] if i < len(lmasks) else None
+            lmask = lmasks[i] if lmasks is not None and i < len(lmasks) else None
+            if lmask is None:
+                lmask = m
             layer = self._layer(name)
             p_out = apply_weight_noise(layer, params[name],
                                        train and noise is not None, self._stream(noise, name))
@@ -361,30 +404,28 @@ class ComputationGraph(NetworkMethods):
         return s
 
     def _batch(self, mds: MultiDataSet):
-        """A MultiDataSet's arrays as tensors on the model's device: float
-        features as given (the forward casts them), float labels in f32."""
-        feats, labels, lmasks = self._batch_tensors(mds)
-        dev = self.device
-        return ([f.to(dev) for f in feats], [lab.to(dev) for lab in labels],
-                [None if m is None else m.to(dev) for m in lmasks])
+        """A MultiDataSet's arrays as tensors on the model's device,
+        ``(features, labels, feature masks, label masks)``: float features
+        as given (the forward casts them), float labels and masks in f32."""
+        return _pipeline.tree_map(lambda t: t.to(self.device), self._batch_tensors(mds))
 
     @staticmethod
     def _batch_tensors(mds: MultiDataSet):
         """:meth:`_batch`'s tensors on the host; the arrays of ``mds`` may
         carry a leading K axis (:func:`stack_multi`: a bundled step's
         stacked batch)."""
-        if any(m is not None for m in mds.features_masks):
-            raise NotImplementedError(MASKS_NOT_PORTED)
-
-        def tensor(a, label=False):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            return t.to(torch.float32) if label and t.is_floating_point() else t
+        def tensor(a, f32=False):
+            if a is None:
+                return None
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+            return t.to(torch.float32) if f32 and t.is_floating_point() else t
 
         return ([tensor(f) for f in mds.features], [tensor(lab, True) for lab in mds.labels],
-                [None if m is None else tensor(m, True) for m in mds.labels_masks])
+                [tensor(m, True) for m in mds.features_masks],
+                [tensor(m, True) for m in mds.labels_masks])
 
-    def _value_and_grad(self, feats, labels, lmasks, scale=None, noise=None, params=None,
-                        state=None):
+    def _value_and_grad(self, feats, labels, fmasks=None, lmasks=None, scale=None,
+                        noise=None, params=None, state=None):
         """(loss, new_state, grads) of a train-mode forward at ``params`` and
         ``state`` (default ``params_``, ``state_``), under the configuration's
         remat policy; grads has the layout of ``params_``. ``scale``: the
@@ -395,7 +436,7 @@ class ComputationGraph(NetworkMethods):
         diff = {v: {k: t.detach().requires_grad_() for k, t in p.items()}
                 for v, p in params.items()}
         loss, new_state = self._loss_and_new_state(
-            diff, self.state_ if state is None else state, feats, labels, lmasks,
+            diff, self.state_ if state is None else state, feats, labels, fmasks, lmasks,
             noise=self.step_noise() if noise is None else noise,
             remat=remat_policy_of(self))
         if scale is not None:
@@ -416,18 +457,16 @@ class ComputationGraph(NetworkMethods):
             if self.score_ is None:
                 raise ValueError("No score available; fit() first or pass a DataSet")
             return float(self.score_)
-        feats, labels, lmasks = self._batch(_as_multi(ds))
         with torch.no_grad():
-            loss, _ = self._loss_and_new_state(self.params_, self.state_, feats,
-                                               labels, lmasks, train=False)
+            loss, _ = self._loss_and_new_state(self.params_, self.state_,
+                                               *self._batch(_as_multi(ds)), train=False)
             return float(loss + self._reg_score(self.params_))
 
     def compute_gradient_and_score(self, ds: Union[DataSet, MultiDataSet]):
         """(gradients in the layout of ``params_``, score) of one train-mode
         forward on ``ds``; nothing is updated."""
         self._check_trainable()
-        feats, labels, lmasks = self._batch(_as_multi(ds))
-        loss, _, grads = self._value_and_grad(feats, labels, lmasks)
+        loss, _, grads = self._value_and_grad(*self._batch(_as_multi(ds)))
         return grads, float(loss + self._reg_score(self.params_))
 
     # ------------------------------------------------------------------- fit
@@ -463,14 +502,14 @@ class ComputationGraph(NetworkMethods):
         policy = self._active_fault_policy()
         if policy is not None:
             self._ensure_fault_state(policy)
-        bstep = self._bundle_step(k) if k > 1 else None
         try:
             for _ in range(epochs):
                 stream = (_as_multi(ds) for ds in data)
-                if bstep is not None:
+                if k > 1:
                     stream = iter_grouped(stream, k, multi_compat_key)
                 for item in stream:
                     if isinstance(item, list):
+                        bstep = self._bundle_step(k, mask_presence(item[0]))
                         self.bundle_scores_ = bstep(self._batch_tensors(stack_multi(item)))
                     else:
                         self._fit_batch(item)
@@ -478,8 +517,10 @@ class ComputationGraph(NetworkMethods):
                 data.reset()
                 self.epoch += 1
         finally:
-            if bstep is not None:
-                bstep.release()
+            if k > 1 and self._bundled is not None:
+                # the model's state lies in the buffers of the bundle that
+                # ran last
+                self._bundled.release()
         return self
 
     def _fit_batch(self, mds: MultiDataSet) -> None:
@@ -489,8 +530,10 @@ class ComputationGraph(NetworkMethods):
         """One train step on a batch of ``_batch`` tensors."""
         self._apply_step(*self._value_and_grad(*batch, scale=self._step_scale()))
 
-    def _bundle_step(self, k: int) -> "_pipeline.BundledStep":
-        return bundle_step_of(self, k, self._train_step)
+    def _bundle_step(self, k: int, masks=None) -> "_pipeline.BundledStep":
+        """The bundled step at ``k`` for batches of the mask presence
+        ``masks`` (:func:`mask_presence`)."""
+        return bundle_step_of(self, k, self._train_step, variant=masks)
 
     def _apply_step(self, loss, new_state, grads) -> None:
         """The second half of a train step (``_value_and_grad`` is the
@@ -518,29 +561,30 @@ class ComputationGraph(NetworkMethods):
         return dict(zip(names, new_params)), dict(zip(names, new_opt))
 
     def _pure_grads(self, params, state, features, labels, fmasks, lmasks, scale, noise):
-        if fmasks is not None and any(m is not None for m in fmasks):
-            raise NotImplementedError(MASKS_NOT_PORTED)
-        return self._value_and_grad(list(features), list(labels), list(lmasks or []),
-                                    scale=scale, noise=noise, params=params, state=state)
+        return self._value_and_grad(list(features), list(labels),
+                                    None if fmasks is None else list(fmasks),
+                                    list(lmasks or []), scale=scale, noise=noise,
+                                    params=params, state=state)
 
     def _updater_layers(self):
         return [self._layer(n) for n in self.layer_names]
 
     # -------------------------------------------------- evaluation, streaming
     def _eval_output(self, ds: DataSet) -> np.ndarray:
-        if ds.features_mask is not None:
-            raise NotImplementedError(MASKS_NOT_PORTED)
-        return self.output_single(ds.features)
+        return self.output_single(ds.features, masks=[ds.features_mask])
 
-    def feed_forward(self, *inputs, train: bool = False) -> Dict[str, np.ndarray]:
+    def feed_forward(self, *inputs, train: bool = False,
+                     masks: Optional[Sequence] = None) -> Dict[str, np.ndarray]:
         """Every vertex's activation, the network inputs included, by name
         (the reference's ``feedForward``), as numpy; ``train``: layers in
         train mode (BN batch statistics, dropout from
-        :meth:`introspection_noise`), the model unchanged."""
+        :meth:`introspection_noise`), the model unchanged; ``masks``: one
+        feature mask (or None) a network input."""
         with torch.no_grad():
             acts, _, _ = self._forward(self.params_, self.state_,
                                        [self._as_input(x) for x in inputs], train=train,
-                                       noise=self.introspection_noise() if train else None)
+                                       noise=self.introspection_noise() if train else None,
+                                       fmasks=self._as_masks(masks))
         return {k: _host(v) for k, v in acts.items()}
 
     def _init_carries(self, batch: int, dtype=torch.float32) -> Dict[str, Any]:
@@ -597,6 +641,15 @@ class ComputationGraph(NetworkMethods):
         lines.insert(1, "-" * (sum(widths) + 6))
         lines.append(f"Total parameters: {total:,}")
         return "\n".join(lines)
+
+
+def mask_presence(mds: MultiDataSet) -> Optional[tuple]:
+    """Which slots of a batch carry a feature mask and a label mask (None
+    where none does): the key of a graph's bundled steps beside their
+    layout."""
+    key = (tuple(m is not None for m in mds.features_masks),
+           tuple(m is not None for m in mds.labels_masks))
+    return key if any(key[0] + key[1]) else None
 
 
 def stack_multi(group: List[MultiDataSet]) -> MultiDataSet:

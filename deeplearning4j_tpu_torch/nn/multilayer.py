@@ -244,16 +244,46 @@ def guarded_update(model, grads, update, old):
     return new
 
 
-def bundle_step_of(model, k: int, one_step) -> "_pipeline.BundledStep":
-    """The model's bundled step at ``k``, kept across fits (on the card it
-    holds the captured graph) and made anew when ``k`` or :func:`step_key`
-    changes (the graph holds the fault policy's constants, the remat
-    policy's regions and fixed learning rates)."""
+def bundle_step_of(model, k: int, one_step, variant=None) -> "_pipeline.BundledStep":
+    """The model's bundled step at ``k`` for batches of kind ``variant`` (a
+    graph's mask presence), kept across fits (on the card it holds the
+    captured graph) and made anew when ``k`` or :func:`step_key` changes
+    (the graph holds the fault policy's constants, the remat policy's
+    regions and fixed learning rates). ``model._bundled`` is the one handed
+    out last; the other variants' wait in ``model._parked_bundles`` (a model
+    with one variant parks none, so clearing ``_bundled`` frees its
+    graph)."""
     key = (k,) + step_key(model)
-    if model._bundled is None or model._bundled_key != key:
-        model._bundled = _pipeline.BundledStep(model, k, one_step)
-        model._bundled_key = key
-    return model._bundled
+    cur = model._bundled
+    parked = getattr(model, "_parked_bundles", None) or {}
+    if cur is None or model._bundled_key != key:
+        cur, parked = None, {}
+    if cur is not None and cur.variant == variant:
+        return cur
+    if cur is not None:
+        parked[cur.variant] = cur
+    bstep = parked.pop(variant, None) or _pipeline.BundledStep(model, k, one_step)
+    bstep.variant = variant
+    model._bundled, model._bundled_key, model._parked_bundles = bstep, key, parked
+    return bstep
+
+
+def mask_after(layer, y: torch.Tensor, mask):
+    """The feature mask of a layer's output ``y`` given the mask its input
+    had: a recurrent layer keeps the (b, T) mask, a 2-D output (pooling, a
+    last-step layer) consumes it, else it passes."""
+    if mask is not None and not layer.is_recurrent and y.dim() == 2 and mask.dim() > 1:
+        return None
+    return mask
+
+
+def init_generator(rng, seed: int) -> torch.Generator:
+    """The CPU generator of a network's ``init(rng=)``: ``rng`` itself (a
+    ``torch.Generator``), one seeded with ``rng`` (an int), or with the
+    configuration's ``seed`` for None."""
+    if isinstance(rng, torch.Generator):
+        return rng
+    return torch.Generator().manual_seed(int(seed if rng is None else rng))
 
 
 class NetworkMethods(_faults.GuardedModel):
@@ -336,7 +366,7 @@ class NetworkMethods(_faults.GuardedModel):
 
         one ``fit`` step's computation (the remat policy included) on the
         trees given, which it does not change (a graph's ``features``,
-        ``labels``, ``lmask`` are lists, its ``fmask`` None). ``noise`` None
+        ``labels``, ``fmask`` and ``lmask`` are lists, one entry a slot). ``noise`` None
         draws the model's stream at ``iteration``. Under an active fault
         policy it is the guarded step, as the reference's: ``step(params,
         opt_state, state, fstate, features, ...)`` -> ``(new_params, new_opt,
@@ -381,9 +411,10 @@ class NetworkMethods(_faults.GuardedModel):
 
 
 class MultiLayerNetwork(NetworkMethods):
-    def __init__(self, conf: MultiLayerConfiguration):
-        # a private copy: layers of the caller's conf are never shared
-        self.conf = conf = copy.deepcopy(conf)
+    def __init__(self, conf: MultiLayerConfiguration, *, copy_conf: bool = True):
+        # a private copy: layers of the caller's conf are never shared;
+        # copy_conf=False for a conf nothing else holds
+        self.conf = conf = copy.deepcopy(conf) if copy_conf else conf
         self.layers = conf.layers
         self.params_: Optional[List[Tensors]] = None
         self.state_: Optional[List[Tensors]] = None
@@ -410,14 +441,15 @@ class MultiLayerNetwork(NetworkMethods):
         self._input_dtype: Optional[torch.dtype] = None
 
     # ------------------------------------------------------------------ init
-    def init(self, device=None) -> "MultiLayerNetwork":
-        """Draw the params on the CPU from a ``torch.Generator`` seeded with
-        the configuration's ``seed``, and place params and state on
-        ``device`` (default the CUDA card)."""
+    def init(self, rng=None, device=None) -> "MultiLayerNetwork":
+        """Draw the params on the CPU from ``rng`` (a seed or a CPU
+        ``torch.Generator``; default one seeded with the configuration's
+        ``seed``), and place params and state on ``device`` (default the
+        CUDA card)."""
         if self.conf.input_type is None:
             raise ValueError("Configuration needs set_input_type(...) before init()")
         device = resolve_device(device)
-        gen = torch.Generator().manual_seed(self.conf.global_conf.seed)
+        gen = init_generator(rng, self.conf.global_conf.seed)
         dtype = param_dtype(self.conf.global_conf.dtype)
         types = self.conf.layer_types()
         params, state = [], []
@@ -435,7 +467,8 @@ class MultiLayerNetwork(NetworkMethods):
         """A deep copy (the reference's ``clone()``): the configuration
         through its JSON, params, layer state and updater state copied on
         the model's device, ``iteration`` and ``epoch`` carried over."""
-        net = MultiLayerNetwork(MultiLayerConfiguration.from_json(self.conf.to_json()))
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_json(self.conf.to_json()),
+                                copy_conf=False)
         if self.params_ is not None:
             net.params_, net.state_, net.opt_state_ = _pipeline.tree_map(
                 lambda t: t.detach().clone(), (self.params_, self.state_, self.opt_state_))
@@ -554,11 +587,7 @@ class MultiLayerNetwork(NetworkMethods):
             st = st_i
         else:
             x, st = layer.apply(p_i, x, state=st_i, train=train, rng=r, mask=mask)
-        if layer.is_recurrent and mask is not None:
-            pass  # recurrent layers keep the (b, T) mask
-        elif x.dim() == 2 and mask is not None and mask.dim() > 1:
-            mask = None  # consumed by a pooling or last-step layer
-        return x, mask, st if st is not None else {}, new_carry
+        return x, mask_after(layer, x, mask), st if st is not None else {}, new_carry
 
     def _init_carries(self, batch: int, dtype=torch.float32) -> List[Any]:
         """Zero recurrent state for ``batch`` rows on the model's device: a

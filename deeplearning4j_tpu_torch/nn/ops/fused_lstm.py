@@ -26,9 +26,12 @@ Counterpart of ``deeplearning4j_tpu/nn/ops/fused_lstm.py``::
   widths alone) and how each operand reaches the kernel's stages
   (:func:`lstm_route`: by TMA or 16-byte copies, by 4-byte ``cp.async``,
   or element by element, from its row length and base address).
-- The backward (the reference's ``_cell_bwd_math``, an XLA composition)
-  comes with the recurrent training slice: a CUDA call that would record a
-  gradient raises :class:`NotImplementedError`.
+- The backward is :func:`lstm_cell_bwd`, the reference's ``_cell_bwd_math``
+  (an XLA composition, not a Pallas kernel) in plain PyTorch: it recomputes
+  the gates from the saved inputs. A CUDA call that records a gradient goes
+  through :class:`FusedLstmCell`, an ``autograd.Function`` whose forward
+  launches the kernel and whose backward is :func:`lstm_cell_bwd`; a call
+  under ``no_grad``/``inference_mode`` launches the kernel alone.
 - :func:`cell_for` routes a layer as the reference does: only a
   ``tanh``/``sigmoid`` cell qualifies, and a ``GravesLSTM`` (found by its
   MRO) takes the peepholes.
@@ -54,12 +57,6 @@ from deeplearning4j_tpu_torch.nn.ops.launch import (  # noqa: F401  (counters re
 OP = "fused_lstm_cell"
 
 _DTYPES = (torch.float32, torch.bfloat16)
-
-NO_BACKWARD = ("the fused LSTM cell's backward comes with the recurrent "
-               "training slice (ROADMAP § A, slice 5: tBPTT and the LSTM "
-               "backward); run the forward under torch.no_grad() or "
-               "inference_mode()")
-
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with JAX's promotion (bf16 against f32 computes in f32)."""
@@ -91,6 +88,55 @@ def reference_lstm_cell(x, h, c, Wx, Wh, b, pI=None, pF=None, pO=None
         c_new = f * c + i * g
     h_new = o * torch.tanh(c_new)
     return h_new, c_new
+
+
+def lstm_cell_bwd(x, h, c, Wx, Wh, b, peeps, dh, dc) -> Tuple[torch.Tensor, ...]:
+    """The cell's backward, the reference's ``_cell_bwd_math``: the gates
+    recomputed from the saved inputs, then the standard LSTM cell gradient,
+    with JAX's dtype promotion (:func:`_mm`). Returns ``(dx, dh_prev,
+    dc_prev, dWx, dWh, db)``, and ``(dpI, dpF, dpO)`` after them with
+    peepholes; the parameters' gradients in their parameters' dtypes."""
+    pI, pF, pO = peeps if peeps is not None else (None, None, None)
+    z = _mm(x, Wx) + _mm(h, Wh) + b
+    n = h.shape[-1]
+    zi, zf, zo, zg = z[:, :n], z[:, n:2 * n], z[:, 2 * n:3 * n], z[:, 3 * n:]
+    if pI is not None:
+        i = torch.sigmoid(zi + pI * c)
+        f = torch.sigmoid(zf + pF * c)
+    else:
+        i = torch.sigmoid(zi)
+        f = torch.sigmoid(zf)
+    g = torch.tanh(zg)
+    c_new = f * c + i * g
+    o = torch.sigmoid(zo + pO * c_new if pO is not None else zo)
+    tanh_c = torch.tanh(c_new)
+
+    do = dh * tanh_c
+    dzo = do * o * (1.0 - o)
+    dc_t = dc + dh * o * (1.0 - tanh_c * tanh_c)
+    if pO is not None:
+        dc_t = dc_t + dzo * pO
+    di = dc_t * g
+    df = dc_t * c
+    dg = dc_t * i
+    dzi = di * i * (1.0 - i)
+    dzf = df * f * (1.0 - f)
+    dzg = dg * (1.0 - g * g)
+    dc_prev = dc_t * f
+    if pI is not None:
+        dc_prev = dc_prev + dzi * pI + dzf * pF
+    dz = torch.cat([dzi, dzf, dzo, dzg], dim=1)
+    dx = _mm(dz, Wx.t())
+    dh_prev = _mm(dz, Wh.t())
+    dWx = _mm(x.t(), dz)
+    dWh = _mm(h.t(), dz)
+    db = torch.sum(dz, dim=0)
+    out = (dx, dh_prev, dc_prev, dWx.to(Wx.dtype), dWh.to(Wh.dtype), db.to(b.dtype))
+    if pI is not None:
+        return out + (torch.sum(dzi * c, dim=0).to(pI.dtype),
+                      torch.sum(dzf * c, dim=0).to(pF.dtype),
+                      torch.sum(dzo * c_new, dim=0).to(pO.dtype))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -210,19 +256,41 @@ def _kernel(x, h, c, Wx, Wh, b, peeps) -> Tuple[torch.Tensor, torch.Tensor]:
     return h_new, c_new
 
 
+class FusedLstmCell(torch.autograd.Function):
+    """The cell on the card with a gradient: the forward launches the kernel
+    and saves its inputs, the backward is :func:`lstm_cell_bwd` on them (the
+    reference's ``custom_vjp``). ``apply(x, h, c, Wx, Wh, b[, pI, pF,
+    pO])``."""
+
+    @staticmethod
+    def forward(ctx, x, h, c, Wx, Wh, b, *peeps):
+        ctx.save_for_backward(x, h, c, Wx, Wh, b, *peeps)
+        return _kernel(x, h, c, Wx, Wh, b, peeps or None)
+
+    @staticmethod
+    def backward(ctx, dh, dc):
+        x, h, c, Wx, Wh, b, *peeps = ctx.saved_tensors
+        # each gradient comes back in its input's dtype (autograd casts dx,
+        # dh and dc as the reference's cotangents are cast)
+        return lstm_cell_bwd(x, h, c, Wx, Wh, b, tuple(peeps) or None, dh, dc)
+
+
 def fused_lstm_cell(x, h, c, Wx, Wh, b, pI=None, pF=None, pO=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One LSTM step -> ``(h', c')``; peepholes (GravesLSTM) when
-    ``pI``/``pF``/``pO`` are given. A CPU ``x`` takes the plain version; a
-    CUDA ``x`` the kernel (contiguous f32/bf16 operands, ``h`` and ``c`` of
-    one dtype, the weights of one dtype), or it raises. Forward only."""
+    ``pI``/``pF``/``pO`` are given. A CPU ``x`` takes the plain version
+    (autograd differentiates it); a CUDA ``x`` the kernel (contiguous
+    f32/bf16 operands, ``h`` and ``c`` of one dtype, the weights of one
+    dtype), or it raises. Where a gradient is recorded the CUDA call goes
+    through :class:`FusedLstmCell` (the kernel forward, the plain
+    backward)."""
     if x.device.type == "cpu":
         return reference_lstm_cell(x, h, c, Wx, Wh, b, pI, pF, pO)
-    peeps = None if pI is None else (pI, pF, pO)
+    peeps = () if pI is None else (pI, pF, pO)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, h, c, Wx, Wh, b, *(peeps or ()))):
-        raise NotImplementedError(f"{OP}: {NO_BACKWARD}")
-    return _kernel(x, h, c, Wx, Wh, b, peeps)
+            t.requires_grad for t in (x, h, c, Wx, Wh, b, *peeps)):
+        return FusedLstmCell.apply(x, h, c, Wx, Wh, b, *peeps)
+    return _kernel(x, h, c, Wx, Wh, b, peeps or None)
 
 
 # ---------------------------------------------------------------------------

@@ -179,17 +179,19 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     return _kernel(x, q, scale)
 
 
-def serving_matmul(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """``x @ params["W"]``, or the int8 route when ``params`` carries the
-    quantized form (``W_q8``/``W_scale``). The f32 route promotes as JAX
-    does (a bf16 ``x`` against f32 params computes in f32). Takes rank-2
-    ``(B, K)`` and rank-3 ``(B, T, K)`` activations (per-timestep heads)."""
-    q = params.get("W" + Q_SUFFIX)
+def serving_matmul(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                   name: str = "W") -> torch.Tensor:
+    """``x @ params[name]``, or the int8 route when ``params`` carries the
+    quantized form (``{name}_q8``/``{name}_scale``). The f32 route promotes
+    as JAX does (a bf16 ``x`` against f32 params computes in f32). Takes
+    rank-2 ``(B, K)`` and rank-3 ``(B, T, K)`` activations (per-timestep
+    heads)."""
+    q = params.get(name + Q_SUFFIX)
     if q is None:
-        w = params["W"]
+        w = params[name]
         dt = torch.promote_types(x.dtype, w.dtype)
         return x.to(dt) @ w.to(dt)
-    scale = params["W" + SCALE_SUFFIX]
+    scale = params[name + SCALE_SUFFIX]
     if x.dim() == 2:
         return int8_matmul(x, q, scale)
     lead = tuple(x.shape[:-1])
@@ -213,16 +215,17 @@ def quantizable_layer(layer) -> bool:
     return isinstance(layer, (DenseLayer, BaseOutputLayer, RnnOutputLayer))
 
 
-def quantize_layer_params(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """One layer's param dict with ``W`` replaced by its quantized form (on
-    the weight's device). The same dict when ``W`` is absent or not 2-D."""
-    w = params.get("W")
+def quantize_layer_params(params: Dict[str, torch.Tensor],
+                          name: str = "W") -> Dict[str, torch.Tensor]:
+    """One layer's param dict with ``name`` replaced by its quantized form
+    (on the weight's device). The same dict when it is absent or not 2-D."""
+    w = params.get(name)
     if w is None or w.dim() != 2:
         return params
     q, s = quantize_int8(w)
-    out = {k: v for k, v in params.items() if k != "W"}
-    out["W" + Q_SUFFIX] = torch.from_numpy(q).to(w.device)
-    out["W" + SCALE_SUFFIX] = torch.from_numpy(s).to(w.device)
+    out = {k: v for k, v in params.items() if k != name}
+    out[name + Q_SUFFIX] = torch.from_numpy(q).to(w.device)
+    out[name + SCALE_SUFFIX] = torch.from_numpy(s).to(w.device)
     return out
 
 

@@ -34,13 +34,10 @@ import numpy as np
 
 
 def _model_output(model, x, mask=None) -> np.ndarray:
-    """``model``'s output for ``x``: a ComputationGraph through its single
-    output."""
+    """``model``'s output for ``x`` and its feature mask: a ComputationGraph
+    through its single output."""
     if hasattr(model, "output_single"):
-        if mask is not None:
-            raise NotImplementedError(
-                "feature masks into a ComputationGraph are not ported yet (ROADMAP § A4)")
-        return model.output_single(x)
+        return model.output_single(x, masks=[mask])
     return model.output(x, mask=mask)
 
 

@@ -65,6 +65,14 @@ class RegularizationConf(TaggedConf):
             term = t if term is None else term + t
         return term
 
+    def to_dict(self) -> dict:
+        """The reference's ``to_dict``: the six coefficients."""
+        return {k: v for k, v in self.items() if k != "@type"}
+
+    @staticmethod
+    def from_dict(d: dict) -> "RegularizationConf":
+        return RegularizationConf(**{k: v for k, v in d.items() if not k.startswith("@")})
+
     def score_term(self, param_name: str, param: torch.Tensor) -> torch.Tensor:
         """0.5*l2*sum(p^2) + l1*sum|p|, accumulated in f32 (f64 stays f64)."""
         l1, l2, _ = self.coeffs_for(param_name)

@@ -384,15 +384,12 @@ class InferenceEngine:
         xt = torch.from_numpy(np.ascontiguousarray(xb)).to(device)
         if _serves_itself(model):
             return model.serving_forward(params, xt)
+        mt = None if mb is None else torch.from_numpy(
+            np.ascontiguousarray(mb, np.float32)).to(device)
         if isinstance(model, MultiLayerNetwork):
-            mt = None if mb is None else torch.from_numpy(
-                np.ascontiguousarray(mb, np.float32)).to(device)
             y, _, _ = model._forward(params, state, xt, cast_params=False, fmask=mt)
             return y
-        if mb is not None:
-            raise NotImplementedError(
-                "feature masks into a ComputationGraph are not ported yet (ROADMAP § A4)")
-        acts, _, _ = model._forward(params, state, [xt], cast_params=False)
+        acts, _, _ = model._forward(params, state, [xt], cast_params=False, fmasks=[mt])
         return acts[model.conf.network_outputs[0]]
 
     # -- warmup -------------------------------------------------------------

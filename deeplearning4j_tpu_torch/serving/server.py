@@ -140,7 +140,7 @@ class InferenceServer:
     def queue_depth(self) -> int:
         return self.batcher.queue_depth()
 
-    def predict(self, x: np.ndarray, timeout_s: Optional[float] = None, mask=None):
+    def predict(self, x: np.ndarray, mask=None, timeout_s: Optional[float] = None):
         """``(outputs, model_version)``; the version is the snapshot's that
         computed them. ``mask``: the (b, T) feature mask of rank-3 input."""
         timeout = DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s

@@ -290,6 +290,8 @@ class BundledStep:
         if int(k) < 2:
             raise ValueError(f"a bundle takes at least 2 steps, got {k}")
         self.model, self.k, self.one_step = model, int(k), one_step
+        #: the kind of batch it is kept for (a graph's mask presence)
+        self.variant = None
         dget, dput = default_carry(model)
         self.get, self.put = get or dget, put or dput
         #: run the graph path's body eagerly on the CPU (tests only): the

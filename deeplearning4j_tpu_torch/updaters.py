@@ -41,6 +41,7 @@ host count) still comes from the bundle's feed there.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Tuple
 
 import torch
@@ -150,6 +151,17 @@ class Updater(TaggedConf):
 
     def init_state(self, param: torch.Tensor) -> State:
         return {}
+
+    def to_dict(self) -> dict:
+        """The reference's ``Updater.to_dict``: ``@class``, then the fields,
+        a schedule as its ``{"@schedule": True, ...}`` dict."""
+        return {k: v for k, v in copy.deepcopy(dict(self)).items() if k != "@type"}
+
+    @staticmethod
+    def from_dict(d: dict) -> "Updater":
+        """The updater a :meth:`to_dict` dict (the reference's, or one read
+        from JSON) describes."""
+        return as_updater({"@type": "updater", **d})
 
     def apply(self, grad, state, t, iteration, epoch) -> Tuple[torch.Tensor, State]:
         raise NotImplementedError

@@ -1237,14 +1237,29 @@ def test_lstm_kernel_matches_plain(card, b, n_in, n, peephole, dt):
 
 
 def test_lstm_kernel_refusals(card):
+    """Where a gradient is recorded the cell goes through its autograd
+    function (the kernel forward, one launch; the plain backward): its
+    gradients are autograd's through the plain cell within the f32 limit.
+    The kernel's dtype and contiguity refusals stay."""
     from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
 
-    args = _lstm_args(4, 8, 16, True, LSTM_DTYPES["f32"], seed=1)
-    grad = [a.clone().requires_grad_(i == 3) for i, a in enumerate(args)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fl.fused_lstm_cell(*grad)
-    with torch.no_grad():
-        fl.fused_lstm_cell(*grad)  # no gradient is recorded: the kernel runs
+    for peephole in (False, True):
+        args = _lstm_args(4, 8, 16, peephole, LSTM_DTYPES["f32"], seed=1)
+        grad = [a.clone().requires_grad_() for a in args]
+        before = fl.launch_counts["fused_lstm_cell"]
+        h2, c2 = fl.fused_lstm_cell(*grad)
+        assert fl.launch_counts["fused_lstm_cell"] == before + 1
+        dh, dc = torch.randn_like(h2), torch.randn_like(c2)
+        got = torch.autograd.grad((h2, c2), grad, (dh, dc))
+        ref = [a.clone().requires_grad_() for a in args]
+        want = torch.autograd.grad(fl.reference_lstm_cell(*ref), ref, (dh, dc))
+        assert fl.launch_counts["fused_lstm_cell"] == before + 1  # the backward is plain
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            assert float((g - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1.0)
+        with torch.no_grad():
+            fl.fused_lstm_cell(*grad)  # no gradient is recorded: the kernel alone
+        assert fl.launch_counts["fused_lstm_cell"] == before + 2
     with pytest.raises(TypeError):
         fl.fused_lstm_cell(args[0].half(), *args[1:])
     with pytest.raises(TypeError):  # h and c of two dtypes
@@ -2471,3 +2486,44 @@ def test_space_to_depth_resnet50_runs_the_fused_kernels_and_bundles_exactly(card
         assert float(eager.score_) == float(bundled.score_)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+
+
+def test_masked_sentiment_graph_on_the_card(card):
+    """A narrow config #3 (LSTM -> LastTimeStepVertex on the tokens' mask ->
+    softmax) on the card: the served output is the same model's on the CPU
+    (1e-5 of the largest value) with T cell launches a forward; a step's
+    gradients (the kernel forward, the plain backward) are the CPU's (1e-4
+    of each tensor's largest value); a bundle of two equals two eager steps
+    bit for bit and its capture holds 2 T cell launches."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.train import pipeline
+
+    saved = (chip_smoke.SENT_D, chip_smoke.SENT_T, chip_smoke.SENT_B, chip_smoke.SENT_N)
+    chip_smoke.SENT_D, chip_smoke.SENT_T, chip_smoke.SENT_B, chip_smoke.SENT_N = 12, 9, 6, 20
+    try:
+        model = chip_smoke.sentiment_model()
+        cpu = chip_smoke.sentiment_model(device="cpu")
+        cpu.params_ = pipeline.tree_map(lambda t: t.detach().cpu().clone(), model.params_)
+        x, y, m = chip_smoke.sentiment_batch(5)
+        before = fl.launch_counts["fused_lstm_cell"]
+        got = model.output_single(x, masks=[m])
+        assert fl.launch_counts["fused_lstm_cell"] == before + 9
+        want = cpu.output_single(x, masks=[m])
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+        gk, sk = model.compute_gradient_and_score(DataSet(x, y, m))
+        gc, sc = cpu.compute_gradient_and_score(DataSet(x, y, m))
+        assert abs(sk - sc) <= 1e-5 * abs(sc)
+        for (name, a), (_, b) in zip(chip_smoke._flat(gk), chip_smoke._flat(gc)):
+            assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+        eager = chip_smoke.sentiment_model()
+        bundled = chip_smoke.sentiment_model(k=2)
+        data = [DataSet(*chip_smoke.sentiment_batch(6 + i)) for i in range(2)]
+        for ds in data:
+            eager.fit(ExistingDataSetIterator([ds]))
+        bundled.fit(ExistingDataSetIterator(data))
+        assert bundled._bundled.captured_launches == {"fused_lstm_cell": 18}
+        assert all(chip_smoke._states_equal(eager, bundled).values())
+        assert torch.equal(eager.score_, bundled.score_)
+    finally:
+        chip_smoke.SENT_D, chip_smoke.SENT_T, chip_smoke.SENT_B, chip_smoke.SENT_N = saved

@@ -298,11 +298,7 @@ def test_set_learning_rate_matches_jax():
 
 
 def _step_args(net, ds, graph):
-    b = net._batch(_as_multi(ds)) if graph else net._batch(ds)
-    if graph:
-        feats, labels, lmasks = b
-        return feats, labels, None, lmasks
-    return b
+    return net._batch(_as_multi(ds)) if graph else net._batch(ds)
 
 
 @pytest.mark.parametrize("guarded", [False, True], ids=["plain", "guarded"])

@@ -12,8 +12,10 @@ package's, on the CPU.
   L2Normalize, L2, Stack/Unstack, Reshape, Preprocessor and PoolHelper
   vertices) whose forward and one ``fit`` step equal JAX's from carried
   params at 1e-5.
-- The three time-series vertices refuse, constructed or decoded, with
-  ``TimeSeriesVertexNotPortedError`` naming ROADMAP § A4.
+- The three time-series vertices (LastTimeStep, DuplicateToTimeSeries,
+  ReverseTimeSeries), masked and unmasked: output, output mask and output
+  type equal JAX's at 1e-6, and their JSON reads both ways; the builder
+  wires DuplicateToTimeSeries' ``timesteps_input`` as JAX's does.
 """
 
 import json
@@ -190,15 +192,71 @@ def test_vertex_errors_match_jax():
             V.PoolHelperVertex().get_output_type(it.feed_forward(4))
 
 
-@pytest.mark.parametrize("name", ["LastTimeStepVertex", "DuplicateToTimeSeriesVertex",
-                                  "ReverseTimeSeriesVertex"])
-def test_time_series_vertices_are_refused(name):
-    with pytest.raises(TV.TimeSeriesVertexNotPortedError, match="ROADMAP § A4"):
-        getattr(TV, name)("in")
-    jv = getattr(JV, name)("in")
-    with pytest.raises(TV.TimeSeriesVertexNotPortedError, match="ROADMAP § A4"):
-        tserde.decode(jserde.encode(jv))
-    assert issubclass(TV.TimeSeriesVertexNotPortedError, NotImplementedError)
+# name -> (constructor, input shapes, mask shapes or None per input (each
+# mask a ragged prefix of ones, a row of zeros among them), input types)
+TIME_SERIES_CASES = {
+    "LastTimeStepVertex": (lambda V: V.LastTimeStepVertex(mask_input="in"), [(5, 7, 3)],
+                           [("recurrent", (3, 7))]),
+    "DuplicateToTimeSeriesVertex": (lambda V: V.DuplicateToTimeSeriesVertex("seq"),
+                                    [(5, 3), (5, 7, 2)],
+                                    [("feedforward", (3,)), ("recurrent", (2, 7))]),
+    "ReverseTimeSeriesVertex": (lambda V: V.ReverseTimeSeriesVertex(mask_input="in"),
+                                [(5, 7, 3)], [("recurrent", (3, 7))]),
+}
+
+
+def _prefix_mask(b, t, seed):
+    lens = np.random.default_rng(seed).integers(0, t + 1, b)
+    lens[0] = t
+    return (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("name", sorted(TIME_SERIES_CASES))
+def test_time_series_vertex_matches_jax(name, masked):
+    """Each time-series vertex's output, output mask and output type equal
+    JAX's (1e-6), with and without masks; its JSON reads both ways."""
+    make, shapes, types = TIME_SERIES_CASES[name]
+    jv, tv = make(JV), make(TV)
+    xs = [_rand(s, i) for i, s in enumerate(shapes)]
+    ms = [_prefix_mask(s[0], s[1], 10 + i) if masked and len(s) == 3 else None
+          for i, s in enumerate(shapes)]
+    jm = [None if m is None else jnp.asarray(m) for m in ms]
+    tm = [None if m is None else torch.from_numpy(m) for m in ms]
+    want = np.asarray(jv.apply([jnp.asarray(x) for x in xs], jm))
+    got = tv.apply([torch.from_numpy(x) for x in xs], tm)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    jmask, tmask = jv.feed_forward_mask(jm), tv.feed_forward_mask(tm)
+    assert (jmask is None) == (tmask is None)
+    if jmask is not None:
+        np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    jt = jv.get_output_type(*[_itype(jconf, k, d) for k, d in types])
+    tt = tv.get_output_type(*[_itype(tconf, k, d) for k, d in types])
+    assert tt.to_dict() == jt.to_dict()
+    jd, td = jserde.encode(jv), tserde.encode(tv)
+    assert json.loads(json.dumps(td)) == json.loads(json.dumps(jd))
+    assert tserde.decode(jd) == tv and jserde.decode(td) == jv
+
+
+def test_duplicate_to_time_series_is_wired_as_an_edge():
+    """The builder adds a DuplicateToTimeSeriesVertex's ``timesteps_input``
+    as its second input, as JAX's builder does."""
+    confs = []
+    for conf, layers, upd, V, P in (JAX, PORT):
+        gb = (conf.NeuralNetConfiguration.builder().graph_builder().add_inputs("seq", "ctx")
+              .add_vertex("dup", V.DuplicateToTimeSeriesVertex("seq"), "ctx")
+              .add_vertex("both", V.MergeVertex(), "seq", "dup")
+              .add_layer("out", layers.RnnOutputLayer(n_out=2, activation="softmax",
+                                                      loss="mcxent"), "both")
+              .set_outputs("out")
+              .set_input_types(conf.InputType.recurrent(3, 6), conf.InputType.feed_forward(4)))
+        confs.append(gb.build())
+    j, t = confs
+    assert t.vertex_inputs["dup"] == ["ctx", "seq"] == j.vertex_inputs["dup"]
+    assert json.loads(t.to_json()) == json.loads(j.to_json())
+    assert {k: v.to_dict() for k, v in t.vertex_types().items()} == \
+        {k: v.to_dict() for k, v in j.vertex_types().items()}
 
 
 # ------------------------------------------------------------- the builder
