@@ -190,7 +190,25 @@ Adam slots, every score), and a guarded step on a poisoned batch keeping
 params and slots; (d) ``lstm_cell_bwd`` alone at phase 2d's shapes against
 autograd of the plain cell, timed beside ``torch.lstm_cell``'s backward;
 (e) sequences/s served at bucket 32 and trained eager and bundled, in one
-round. ``main`` prints each phase's host seconds (``timing:``).
+round. Phase 19 runs the rest of the layer catalog at full width: (a) the
+zoo's fused bf16 ResNet-50 with every layer vertex from the stem through
+stage 2 in a ``FrozenLayer`` and stage 3 and a 10-class head trained
+(Nesterovs(1e-3, 0.9), batch 32): exactly 36 ``pw_conv`` + 16 ``conv3x3`` a
+step and only stage 3's backward kernels, three eager steps against one
+bundle of three ``torch.equal``, the frozen params and BN statistics bit
+for bit, the head's first update against the trainable tail on the CPU from
+the card's frozen features; (b) MobileNet-v1 (alpha 1.0, 224x224, 1000
+classes, f32, TF32 off; Keras's layout of depthwise and pointwise convs,
+BN and relu6) served by an f32 and an int8-head engine at buckets 1 and 32
+against the CPU, one ``int8_matmul`` a forward, images/s, one train step's
+gradients against the CPU by phase 4's rule; (c) a learned-embedding
+classifier (``EmbeddingSequenceLayer`` 20000 -> 300, ``LastTimeStep`` of an
+LSTM(256), T 100 masked, batch 32): card vs CPU, 100 ``fused_lstm_cell`` a
+forward, three eager steps against one bundle ``torch.equal``; (d)
+``pretrain`` of an AutoEncoder and a VariationalAutoencoder on MNIST-shaped
+binary data, each layer's score falling, one fed ``pretrain_layer`` step
+card vs CPU; (e) the memory reports of (a)-(c) beside the measured peaks.
+``main`` prints each phase's host seconds (``timing:``).
 Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
 kernels' JSON summary, the card's name and power limit (as ``nvidia-smi``
@@ -6550,6 +6568,564 @@ def _sentiment_bwd(fl, card, failed):
     return {"rows": rows, "summary": summary}
 
 
+# --------------------------------------------------------------------------
+# phase 19: the rest of the layer catalog
+# --------------------------------------------------------------------------
+# (a) transfer learning: the zoo's fused bf16 ResNet-50 with every layer
+# vertex from the stem through stage 2 frozen (the reference's feature
+# extractor, built by hand: TransferLearning is not ported yet) and stage 3
+# and a 10-class OutputLayer trained; (b) MobileNet-v1 (Howard et al. 2017,
+# Table 1; Keras's mobilenet.py layout) at alpha 1.0, 224x224, 1000
+# classes, f32; (c) a learned-embedding sentiment classifier; (d) greedy
+# pretraining of an AutoEncoder and a VariationalAutoencoder on MNIST-shaped
+# binary data; (e) the memory reports of (a)-(c) beside the peaks measured
+CAT_STEPS = 3                 # (a), (c): eager steps, against one bundle of as many
+CAT_TAIL = ("s3b0", "s3b1", "s3b2", "avgpool", "output")   # (a) what trains
+CAT_HEAD_TOL = 1e-4           # (a) card vs CPU on the head's first update, of its largest element
+CAT_CPU_TOL = 1e-4            # (b), (c): card vs CPU, of the largest output or gradient
+CAT_CPU_ROWS = 8              # (b): the rows of the card-vs-CPU train step
+#: (a) the backward launches of one step: stage 3's blocks alone. Block 0
+#: (projection, stride 2) reads the frozen output, so its conv a and its
+#: projection take a dW kernel and no dx; its 3x3 and conv c both; blocks
+#: 1 and 2 every dx and dW
+STAGE3_BWD = {"pw_conv_dx": 1 + 2 + 2, "pw_conv_dw": 3 + 2 + 2, "conv3x3_dx": 3,
+              "conv3x3_dw": 3}
+MOBILENET_BLOCKS = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2)] + \
+    [(512, 1)] * 5 + [(1024, 2), (1024, 1)]
+MOBILENET_SIZE, MOBILENET_CLASSES = 224, 1000
+EMB_VOCAB, EMB_D, EMB_T, EMB_N, EMB_B = 20000, 300, 100, 256, 32
+PRE_IN, PRE_B, PRE_BATCHES = 784, 128, 10
+PRE_REL_TOL = 1e-5            # (d) card vs CPU on one fed pretrain step
+
+
+def transfer_resnet50():
+    """(a)'s network: the zoo's fused bf16 ResNet-50 with 10 classes,
+    Nesterovs(TRAIN_LR, 0.9), every layer vertex before stage 3 wrapped in
+    a FrozenLayer (which takes the configuration's defaults, as the
+    reference's transfer-learning builder gives them); BN randomized."""
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.conf.graph_builder import LayerVertex
+    from deeplearning4j_tpu_torch.nn.conf.layers import FrozenLayer
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.updaters import Nesterovs
+
+    conf = ResNet50(num_classes=10, height=224, width=224, fused_pallas=True,
+                    compute_dtype="bfloat16", seed=SEED + 90,
+                    updater=Nesterovs(TRAIN_LR, 0.9)).conf()
+    frozen = []
+    for name, v in conf.vertices.items():
+        if isinstance(v, LayerVertex) and name not in CAT_TAIL:
+            v.layer = FrozenLayer(layer=v.layer)
+            v.layer.inherit_defaults(conf.global_conf)
+            frozen.append(name)
+    model = ComputationGraph(conf).init()
+    randomize_bn(model, SEED + 91)
+    return model, frozen
+
+
+def tail_graph(model, feature_type, compute_dtype):
+    """(a)'s trainable tail (stage 3, pooling, the head) as a graph of its
+    own on the CPU, holding ``model``'s tensors, in ``compute_dtype``."""
+    from deeplearning4j_tpu_torch.nn.conf.graph_builder import GraphBuilder
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    g = copy.deepcopy(model.conf.global_conf)
+    g.compute_dtype, g.steps_per_call = compute_dtype, 1
+    gb = GraphBuilder(g).add_inputs("features")
+    prev = "features"
+    for name in CAT_TAIL:
+        gb.add_layer(name, copy.deepcopy(model.conf.vertices[name].layer), prev)
+        prev = name
+    tail = ComputationGraph(gb.set_outputs(prev).set_input_types(feature_type).build())
+    tail.init(device="cpu")
+    for name in CAT_TAIL:
+        tail.params_[name] = {k: t.detach().cpu().clone() for k, t in model.params_[name].items()}
+        tail.state_[name] = {k: t.detach().cpu().clone() for k, t in model.state_[name].items()}
+    return tail
+
+
+def catalog_phase(fc, im, fl, card: str):
+    """Phase 19: the rest of the layer catalog at full width, (a)-(e) as
+    described above; each part's main-path launches counted from 0 just
+    before it and read just after."""
+    failed = []
+    t0 = time.perf_counter()
+    transfer = _catalog_transfer(fc, card, failed)
+    mobile = _catalog_mobilenet(im, card, failed)
+    emb = _catalog_embedding(fl, card, failed)
+    pre = _catalog_pretrain(card, failed)
+    memory = _catalog_memory(transfer, mobile, emb, card)
+    main = {}
+    for part in (transfer, mobile, emb):
+        _add_launches(main, part["main_launches"])
+    print(f"phase 19 main-path launches {main}; took {time.perf_counter() - t0:.1f}s; "
+          f"on {card}", flush=True)
+    for name in ("pw_conv", "conv3x3", "pw_conv_dx", "pw_conv_dw", "conv3x3_dx", "conv3x3_dw",
+                 "int8_matmul", "fused_lstm_cell"):
+        if not main.get(name):
+            failed.append(f"{name} was never launched on the path")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"main_launches": main, "transfer": transfer, "mobilenet": mobile,
+            "embedding": emb, "pretrain": pre, "memory": memory}
+
+
+def _catalog_transfer(fc, card, failed):
+    """(a) Three eager steps on one batch of 32 against one bundle of three
+    (torch.equal, deterministic cuDNN); the frozen tensors unchanged; the
+    launches of each step; the first step's head update against the tail
+    trained on the CPU from the card's frozen features, bf16 (and in f32,
+    the yardstick of bf16 rounding)."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import InputType
+    from deeplearning4j_tpu_torch.train import pipeline
+
+    model, frozen = transfer_resnet50()
+    bundled = model.clone()
+    bundled.conf.global_conf.steps_per_call = CAT_STEPS
+    rng = np.random.default_rng(SEED + 92)
+    x = rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, BATCH)]
+    ds = DataSet(x, y)
+    before = pipeline.tree_map(lambda t: t.clone(), (
+        {n: model.params_[n] for n in frozen}, {n: model.state_[n] for n in frozen}))
+    head0 = {k: t.detach().cpu().clone() for k, t in model.params_["output"].items()}
+    # the head's first update on the CPU: the tail from the card's frozen
+    # features (bf16 values, exact in f32), bf16 and f32
+    feats = model.feed_forward(x)["s2b5"]
+    ftype = InputType.convolutional(*feats.shape[1:])
+    upd = {}
+    for dt in ("bfloat16", None):
+        tail = tail_graph(model, ftype, dt)
+        tail.fit(DataSet(feats, y))
+        upd[dt] = {k: tail.params_["output"][k] - head0[k] for k in head0}
+    del tail
+
+    def eager_steps():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        per_step, scores, head1 = [], [], None
+        for i in range(CAT_STEPS):
+            seen = dict(fc.launch_counts)
+            model.fit(ExistingDataSetIterator([ds]))
+            per_step.append({k: v - seen.get(k, 0) for k, v in fc.launch_counts.items()
+                             if v != seen.get(k, 0)})
+            scores.append(float(model.score_))
+            if i == 0:
+                head1 = {k: t.detach().cpu().clone() for k, t in model.params_["output"].items()}
+        torch.cuda.synchronize()
+        return per_step, scores, head1, dict(fc.launch_counts), torch.cuda.max_memory_allocated()
+
+    per_step, scores, head1, main, peak = _deterministic_cudnn(eager_steps)
+    _deterministic_cudnn(lambda: bundled.fit(ExistingDataSetIterator([ds] * CAT_STEPS)))
+    torch.cuda.synchronize()
+    scores_b = [float(v) for v in bundled.bundle_scores_.host()]
+    equal = _states_equal(model, bundled)
+    captured = bundled._bundled is not None and bundled._bundled._graph is not None
+    kept = {"eager": _tensors_equal({n: model.params_[n] for n in frozen}, before[0])
+            and _tensors_equal({n: model.state_[n] for n in frozen}, before[1]),
+            "bundled": _tensors_equal({n: bundled.params_[n] for n in frozen}, before[0])
+            and _tensors_equal({n: bundled.state_[n] for n in frozen}, before[1])}
+    want = dict(STEP_LAUNCHES, **STAGE3_BWD)
+    card_upd = {k: head1[k] - head0[k] for k in head0}
+    top = max(float(u.abs().max()) for u in upd["bfloat16"].values())
+    err = max(float((card_upd[k] - upd["bfloat16"][k]).abs().max()) for k in head0) / top
+    noise = max(float((upd[None][k] - upd["bfloat16"][k]).abs().max()) for k in head0) / top
+    head_ok = err <= CAT_HEAD_TOL or err <= GRAD_NOISE_FACTOR * noise
+    falling = all(math.isfinite(s) for s in scores) and scores[-1] < scores[0]
+    print(f"phase 19 (a) transfer learning: ResNet-50 fused bf16, {len(frozen)} frozen layer "
+          f"vertices (stem .. s2b5), stage 3 + OutputLayer(10) trained, Nesterovs({TRAIN_LR}, "
+          f"0.9), batch {BATCH}: {CAT_STEPS} eager steps vs one bundle of {CAT_STEPS}: "
+          f"torch.equal {equal}, scores equal {scores == scores_b} "
+          f"({[round(s, 5) for s in scores]}), captured {captured}; frozen params and BN "
+          f"statistics unchanged {kept}; launches a step {per_step} (want {want}); the head's "
+          f"first update vs the tail on the CPU from the card's frozen features: max|d| / "
+          f"max|u| {err:.3g} (tol {CAT_HEAD_TOL}, or {GRAD_NOISE_FACTOR} x the bf16 yardstick "
+          f"{noise:.3g}: the CPU tail in f32 vs bf16); peak {peak / 2 ** 30:.2f} GiB; on {card}",
+          flush=True)
+    if not all(equal.values()) or scores != scores_b or not captured:
+        failed.append(f"(a) bundled differs from eager {equal} {scores} {scores_b}")
+    if not all(kept.values()):
+        failed.append(f"(a) a frozen tensor moved {kept}")
+    if any(s != want for s in per_step):
+        failed.append(f"(a) launches a step {per_step}, not {want}")
+    if not head_ok:
+        failed.append(f"(a) head update card vs CPU {err} (bf16 yardstick {noise})")
+    if not falling:
+        failed.append(f"(a) scores {scores} not finite and falling")
+    conf = model.conf
+    for m in (model, bundled):
+        m.params_ = m.state_ = m.opt_state_ = m._bundled = None
+    torch.cuda.empty_cache()
+    return {"equal": equal, "scores": scores, "captured": captured, "frozen_kept": kept,
+            "launches_per_step": per_step[0], "head_rel_err": err, "head_bf16_noise": noise,
+            "peak_bytes": peak, "main_launches": main, "conf": conf}
+
+
+def mobilenet_v1(alpha=1.0, size=MOBILENET_SIZE, classes=MOBILENET_CLASSES):
+    """MobileNet-v1 as Keras's ``mobilenet.py`` lays it out, as a
+    MultiLayerNetwork configuration: a zero pad of (0, 1, 0, 1) before each
+    stride-2 conv ("truncate"), convs without bias, each followed by BN and
+    relu6; global average pooling and the classifier. Adam(1e-3), f32."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    def bn():
+        return L.BatchNormalization(activation="relu6")
+
+    lb = (NeuralNetConfiguration.builder().seed(SEED + 93).updater(Adam(1e-3))
+          .weight_init("xavier").list()
+          .layer(L.ZeroPaddingLayer(pad=(0, 1, 0, 1)))
+          .layer(L.ConvolutionLayer(n_out=int(32 * alpha), kernel_size=3, stride=2,
+                                    has_bias=False, activation="identity"))
+          .layer(bn()))
+    for filters, stride in MOBILENET_BLOCKS:
+        if stride == 2:
+            lb = lb.layer(L.ZeroPaddingLayer(pad=(0, 1, 0, 1)))
+        lb = (lb.layer(L.DepthwiseConvolution2D(
+            kernel_size=3, stride=stride, has_bias=False, activation="identity",
+            convolution_mode="same" if stride == 1 else "truncate"))
+              .layer(bn())
+              .layer(L.ConvolutionLayer(n_out=int(filters * alpha), kernel_size=1,
+                                        has_bias=False, activation="identity"))
+              .layer(bn()))
+    return (lb.layer(L.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(L.OutputLayer(n_out=classes, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.convolutional(size, size, 3)).build())
+
+
+def calibrate_bn(model, x) -> None:
+    """Each BN layer's running statistics set, in order, to the batch
+    statistics of its input on ``x`` (with the calibrated layers before it),
+    and its gamma and beta randomized from the seed: a seeded MobileNet's
+    activations otherwise shrink layer by layer to nothing."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+
+    g = torch.Generator().manual_seed(SEED + 94)
+    with torch.no_grad():  # the new tensors are trained later: no inference tensors
+        xt = torch.from_numpy(x).to(model.device)
+        for i, layer in enumerate(model.layers):
+            if not isinstance(layer, BatchNormalization):
+                continue
+            h, _, _ = model._forward(model.params_, model.state_, xt, stop_before=i)
+            dims = tuple(range(h.dim() - 1))
+            model.state_[i] = {"mean": h.mean(dims), "var": h.var(dims, unbiased=False)}
+            p = model.params_[i]
+            p["gamma"] = (torch.rand(p["gamma"].shape, generator=g) * 0.4 + 0.8).to(h.device)
+            p["beta"] = (torch.randn(p["beta"].shape, generator=g) * 0.1).to(h.device)
+
+
+def _cpu_copy(model, build):
+    """``build()``'s network on the CPU holding ``model``'s tensors."""
+    from deeplearning4j_tpu_torch.train import pipeline
+
+    cpu = build().init(device="cpu")
+    cpu.params_, cpu.state_ = pipeline.tree_map(lambda t: t.detach().cpu().clone(),
+                                                (model.params_, model.state_))
+    return cpu
+
+
+def _catalog_mobilenet(im, card, failed):
+    """(b) MobileNet-v1 served by an f32 and an int8-head engine at buckets 1
+    and 32 against the same model on the CPU; the int8 engine against the
+    plain int8 head on the snapshot's activations; the launches of a
+    forward; images/s and peak memory; one train step against the CPU."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.ops import launch
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+
+    def build():
+        return MultiLayerNetwork(mobilenet_v1())
+
+    model = build().init()
+    rng = np.random.default_rng(SEED + 95)
+    s = MOBILENET_SIZE
+    x = rng.standard_normal((BATCH, s, s, 3)).astype(np.float32)
+    y = np.eye(MOBILENET_CLASSES, dtype=np.float32)[rng.integers(0, MOBILENET_CLASSES, BATCH)]
+    calibrate_bn(model, x)
+    scale = spread_softmax(model, x)
+    cpu = _cpu_copy(model, build)
+    want = cpu.output(x)
+    top = float(np.abs(want).max())
+    e32 = InferenceEngine(model, buckets=[1, BATCH])
+    e8 = InferenceEngine(model, buckets=[1, BATCH], int8_serving=True)
+    torch.cuda.synchronize()
+    launch.reset_launch_counts()
+    warm = {"f32": e32.warmup()}
+    f1, f32 = e32.infer(x[:1]), e32.infer(x)
+    f32_launches = sum(launch.launch_counts.values())
+    warm["int8"] = e8.warmup()
+    per_forward = {}
+    for rows in (1, BATCH):
+        seen = launch.launch_counts["int8_matmul"]
+        r = e8.infer(x[:rows])
+        per_forward[rows] = launch.launch_counts["int8_matmul"] - seen
+    torch.cuda.synchronize()
+    main = dict(launch.launch_counts)
+    r32 = r
+    snap = e8._snap
+    n = len(model.layers)
+    with torch.inference_mode():
+        a, _, _ = model._forward(snap.params, snap.state, torch.from_numpy(x).cuda(),
+                                 stop_before=n - 1, cast_params=False)
+        p = snap.params[n - 1]
+        ref8 = torch.softmax(im.int8_matmul_plain(a, p["W_q8"], p["W_scale"]) + p["b"],
+                             -1).cpu().numpy()
+    errs = {"output": float(np.abs(model.output(x) - want).max()) / top,
+            "engine_b32": float(np.abs(f32 - want).max()) / top,
+            "engine_b1": float(np.abs(f1 - want[:1]).max()) / top}
+    d_plain = float(np.abs(r32 - ref8).max())
+    s8, l8, m8 = _speed(e8, x)
+    s32, l32, m32 = _speed(e32, x)
+    # one train step's gradients, card vs CPU, on CAT_CPU_ROWS rows (the
+    # CPU's depthwise backward is slow), by phase 4's rule with the CPU's
+    # gradients in f64 as the yardstick: relu6 and train-mode BN make an f32
+    # gradient element move with the order of a sum, on either device
+    ds = DataSet(x[:CAT_CPU_ROWS], y[:CAT_CPU_ROWS])
+    torch.cuda.reset_peak_memory_stats()
+    gk, score_k = model.compute_gradient_and_score(ds)
+    gc_, score_c = cpu.compute_gradient_and_score(ds)
+    cpu._input_dtype = torch.float64
+    _, _, g64 = cpu._value_and_grad(*cpu._batch(ds), params=[
+        {k: t.double() for k, t in p.items()} for p in cpu.params_])
+    cpu._input_dtype = None
+    gtop = max(float(g.abs().max()) for d in gc_ for g in d.values())
+    gerr = max(float((gk[i][k].cpu() - g).abs().max()) for i, d in enumerate(gc_)
+               for k, g in d.items()) / gtop
+    grads_ok, rels, ratios, to64 = grad_agreement(*(
+        {f"{i}/{k}": g.cpu() for i, d in enumerate(gs) for k, g in d.items()}
+        for gs in (gk, gc_, g64)))
+    model.fit(DataSet(x, y))
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated()
+    fit_ok = bool(np.isfinite(model.score()))
+    print(f"phase 19 (b) MobileNet-v1 alpha 1.0 {s}x{s} {MOBILENET_CLASSES} classes f32 (TF32 "
+          f"off), {model.num_params():,} params, BN calibrated, output W x {scale:.4g}: card vs "
+          f"the CPU, max|d| / max|y| {errs} (tol {CAT_CPU_TOL}); int8 engine vs the plain int8 "
+          f"head max|dp| {d_plain:.3g} (tol {INT8_PLAIN_TOL}); int8_matmul launches a forward "
+          f"{per_forward}, f32 engine {f32_launches}; warm-up {warm}; served int8 {s8:.1f} "
+          f"images/s at bucket {BATCH}, {l8:.2f} ms at bucket 1, peak {m8:.2f} GiB; f32 "
+          f"{s32:.1f} images/s, {l32:.2f} ms, peak {m32:.2f} GiB (host clock, copies); one train "
+          f"step's gradients ({CAT_CPU_ROWS} rows) card vs CPU max|d| / max|g| {gerr:.3g}; "
+          f"||g_card - g_cpu|| / ||g_cpu|| {_quantiles(rels)}, ||g_card - g_f64|| / "
+          f"||g_cpu - g_f64|| {_quantiles(to64)} (phase 4's rule, the CPU in f64 as the "
+          f"yardstick: {grads_ok}); score {score_k:.6g} vs {score_c:.6g}; a fit step at batch "
+          f"{BATCH} finite {fit_ok}, peak {train_peak / 2 ** 30:.2f} GiB; on {card}", flush=True)
+    if max(errs.values()) > CAT_CPU_TOL or not np.isfinite(f32).all():
+        failed.append(f"(b) card vs CPU {errs}")
+    if d_plain > INT8_PLAIN_TOL:
+        failed.append(f"(b) int8 engine vs the plain int8 head {d_plain}")
+    if per_forward != {1: 1, BATCH: 1} or f32_launches:
+        failed.append(f"(b) int8 launches a forward {per_forward}, f32 engine {f32_launches}")
+    if not grads_ok or abs(score_k - score_c) > CAT_CPU_TOL * abs(score_c) or not fit_ok:
+        failed.append(f"(b) train step card vs CPU {gerr} {score_k} {score_c} {fit_ok}")
+    conf = model.conf
+    del e8, e32, cpu
+    model.params_ = model.state_ = model.opt_state_ = None
+    torch.cuda.empty_cache()
+    return {"rel_err_vs_cpu": errs, "int8_vs_plain_head": d_plain,
+            "int8_launches_per_forward": per_forward, "f32_engine_launches": f32_launches,
+            "images_per_s_b32": {"int8": s8, "f32": s32}, "latency_ms_b1": {"int8": l8, "f32": l32},
+            "serve_peak_gib": {"int8": m8, "f32": m32}, "grad_max_rel_err_vs_cpu": gerr,
+            "grad_rel_to_cpu": rels, "grad_to_f64_over_cpu": to64,
+            "train_peak_bytes": train_peak, "warmup": warm, "main_launches": main,
+            "conf": conf}
+
+
+def embedding_conf(k: int = 1):
+    """(c)'s network: EmbeddingSequenceLayer(EMB_VOCAB -> EMB_D) ->
+    LastTimeStep(LSTM(EMB_N)) -> softmax over 2 classes; Adam(5e-3), f32."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    b = NeuralNetConfiguration.builder().seed(SEED + 96).updater(Adam(5e-3)).weight_init("xavier")
+    if k > 1:
+        b = b.steps_per_call(k)
+    return (b.list()
+            .layer(L.EmbeddingSequenceLayer(n_in=EMB_VOCAB, n_out=EMB_D))
+            .layer(L.LastTimeStep(layer=L.LSTM(n_out=EMB_N, activation="tanh")))
+            .layer(L.OutputLayer(n_out=2, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.recurrent(1, EMB_T)).build())
+
+
+def embedding_batch(seed: int):
+    """(ids, labels, mask): EMB_B reviews of Zipf-distributed token ids
+    (repeated tokens in every review) as floats, lengths 1..EMB_T."""
+    rng = np.random.default_rng(seed)
+    ids = (np.minimum(rng.zipf(1.3, (EMB_B, EMB_T)), EMB_VOCAB) - 1).astype(np.float32)
+    lens = rng.integers(1, EMB_T + 1, EMB_B)
+    lens[0], lens[1] = 1, EMB_T
+    mask = (np.arange(EMB_T)[None, :] < lens[:, None]).astype(np.float32)
+    return ids, np.eye(2, dtype=np.float32)[rng.integers(0, 2, EMB_B)], mask
+
+
+def _catalog_embedding(fl, card, failed):
+    """(c) The learned-embedding classifier: card vs CPU, EMB_T cell
+    launches a forward, three eager steps against one bundle of three."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    eager = MultiLayerNetwork(embedding_conf()).init()
+    bundled = eager.clone()
+    bundled.conf.global_conf.steps_per_call = CAT_STEPS
+    cpu = _cpu_copy(eager, lambda: MultiLayerNetwork(embedding_conf()))
+    data = [DataSet(*embedding_batch(SEED + 97 + i)) for i in range(CAT_STEPS)]
+    x, _, m = data[0].features, data[0].labels, data[0].features_mask
+    repeats = int(sum(len(r) - len(np.unique(r)) for r in x))
+    want = cpu.output(x, mask=m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fl.reset_launch_counts()
+    got = eager.output(x, mask=m)
+    torch.cuda.synchronize()
+    per_forward = fl.launch_counts["fused_lstm_cell"]
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    scores = []
+    for ds in data:
+        eager.fit(ExistingDataSetIterator([ds]))
+        scores.append(float(eager.score_))
+    bundled.fit(ExistingDataSetIterator(data))
+    torch.cuda.synchronize()
+    main = dict(fl.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    scores_b = [float(v) for v in bundled.bundle_scores_.host()]
+    equal = _states_equal(eager, bundled)
+    captured = bundled._bundled is not None and bundled._bundled._graph is not None
+    print(f"phase 19 (c) embedding classifier: EmbeddingSequenceLayer({EMB_VOCAB} -> {EMB_D}) "
+          f"-> LastTimeStep(LSTM({EMB_N})) -> softmax 2, T {EMB_T} masked, batch {EMB_B}, f32, "
+          f"Adam(5e-3); {repeats} repeated tokens in the first batch: card vs the CPU max|d| / "
+          f"max|y| {err:.3g} (tol {CAT_CPU_TOL}); fused_lstm_cell launches a forward "
+          f"{per_forward}; {CAT_STEPS} eager steps vs one bundle of {CAT_STEPS}: torch.equal "
+          f"{equal}, scores equal {scores == scores_b} ({[round(v, 5) for v in scores]}), "
+          f"captured {captured}; peak {peak / 2 ** 30:.2f} GiB; on {card}", flush=True)
+    if err > CAT_CPU_TOL or not np.isfinite(got).all():
+        failed.append(f"(c) card vs CPU {err}")
+    if per_forward != EMB_T:
+        failed.append(f"(c) {per_forward} cell launches a forward, not {EMB_T}")
+    if not all(equal.values()) or scores != scores_b or not captured:
+        failed.append(f"(c) bundled differs from eager {equal} {scores} {scores_b}")
+    conf = eager.conf
+    for net in (eager, bundled):
+        net.params_ = net.state_ = net.opt_state_ = net._bundled = None
+    torch.cuda.empty_cache()
+    return {"rel_err_vs_cpu": err, "launches_per_forward": per_forward, "equal": equal,
+            "scores": scores, "captured": captured, "repeated_tokens": repeats,
+            "peak_bytes": peak, "main_launches": main, "conf": conf}
+
+
+def pretrain_conf():
+    """(d)'s network: AutoEncoder(784 -> 500, corruption 0.3) ->
+    VariationalAutoencoder(500 -> [256] -> 32 -> [256], Bernoulli) ->
+    softmax over 10 classes; Adam(1e-3), f32."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    return (NeuralNetConfiguration.builder().seed(SEED + 98).updater(Adam(1e-3))
+            .weight_init("xavier").list()
+            .layer(L.AutoEncoder(n_out=500, corruption_level=0.3, activation="sigmoid"))
+            .layer(L.VariationalAutoencoder(
+                n_out=32, encoder_layer_sizes=(256,), decoder_layer_sizes=(256,),
+                reconstruction_distribution=L.BernoulliReconstructionDistribution(),
+                activation="relu"))
+            .layer(L.OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(PRE_IN)).build())
+
+
+def _catalog_pretrain(card, failed):
+    """(d) ``pretrain`` over PRE_BATCHES batches: each pretrained layer's
+    score finite and falling; one fed ``pretrain_layer`` step of the VAE,
+    card vs CPU; then a fit step."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf.dropouts import FedNoise
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train import pipeline
+
+    rng = np.random.default_rng(SEED + 99)
+    x = (rng.random((PRE_B * PRE_BATCHES, PRE_IN)) < 0.2).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, PRE_B * PRE_BATCHES)]
+    data = [DataSet(x[i * PRE_B:(i + 1) * PRE_B], y[i * PRE_B:(i + 1) * PRE_B])
+            for i in range(PRE_BATCHES)]
+    model = MultiLayerNetwork(pretrain_conf()).init()
+
+    class Scores(ExistingDataSetIterator):
+        """Records the score each step leaves, as the next batch is asked for."""
+
+        def __init__(self, batches):
+            super().__init__(batches)
+            self.seen = []
+
+        def next(self):
+            if model.score_ is not None and model.iteration > len(self.seen):
+                self.seen.append(float(model.score_))
+            return super().next()
+
+    it = Scores(data)
+    model.pretrain(it, epochs=1)
+    it.seen.append(float(model.score_))
+    ae, vae = it.seen[:PRE_BATCHES], it.seen[PRE_BATCHES:]
+    falls = {name: all(math.isfinite(v) for v in sc) and len(sc) == PRE_BATCHES
+             and sc[-1] < sc[0] for name, sc in (("autoencoder", ae), ("vae", vae))}
+    # one fed step of the VAE (its eps given), card vs CPU
+    cpu = _cpu_copy(model, lambda: MultiLayerNetwork(pretrain_conf()))
+    cpu.opt_state_ = pipeline.tree_map(lambda t: t.detach().cpu().clone(), model.opt_state_)
+    cpu.iteration = model.iteration
+    eps = np.random.default_rng(SEED + 100).standard_normal((PRE_B, 32)).astype(np.float32)
+    for net in (model, cpu):
+        net.pretrain_layer(1, ExistingDataSetIterator(data[:1]), noise=FedNoise([eps]))
+    top = max(float(t.abs().max()) for t in cpu.params_[1].values())
+    err = max(float((model.params_[1][k].cpu() - t).abs().max())
+              for k, t in cpu.params_[1].items()) / top
+    score_err = abs(model.score() - cpu.score()) / abs(cpu.score())
+    model.fit(data[0])
+    fit_ok = bool(np.isfinite(model.score()))
+    print(f"phase 19 (d) pretraining: AutoEncoder({PRE_IN} -> 500, corruption 0.3) -> VAE(500 "
+          f"-> [256] -> 32 -> [256], Bernoulli) -> softmax 10, Adam(1e-3), "
+          f"{PRE_BATCHES} binary batches of {PRE_B}: pretrain scores autoencoder "
+          f"{[round(v, 4) for v in ae]}, vae {[round(v, 4) for v in vae]} (finite and falling "
+          f"{falls}); one fed pretrain_layer step of the VAE card vs CPU max|d| / max|p| "
+          f"{err:.3g}, score {score_err:.3g} (tol {PRE_REL_TOL}); a fit step after, finite "
+          f"{fit_ok}; on {card}", flush=True)
+    if not all(falls.values()):
+        failed.append(f"(d) pretrain scores {falls} {ae} {vae}")
+    if err > PRE_REL_TOL or score_err > PRE_REL_TOL or not fit_ok:
+        failed.append(f"(d) fed pretrain step card vs CPU {err} {score_err} {fit_ok}")
+    model.params_ = model.opt_state_ = None
+    return {"autoencoder_scores": ae, "vae_scores": vae, "falls": falls,
+            "fed_step_rel_err": err, "fed_step_score_rel_err": score_err}
+
+
+def _catalog_memory(transfer, mobile, emb, card):
+    """(e) The memory reports of (a), (b) and (c) beside the peaks measured
+    (printed, not held)."""
+    from deeplearning4j_tpu_torch.nn.conf.memory import memory_report_graph, memory_report_mln
+
+    rows = {}
+    for name, rep, peak in (
+            ("transfer_resnet50", memory_report_graph(transfer.pop("conf"), "transfer"),
+             transfer["peak_bytes"]),
+            ("mobilenet_v1", memory_report_mln(mobile.pop("conf"), "mobilenet"),
+             mobile["train_peak_bytes"]),
+            ("embedding_lstm", memory_report_mln(emb.pop("conf"), "embedding"),
+             emb["peak_bytes"])):
+        rows[name] = {"train_bytes_b32": rep.total_memory_bytes(BATCH, training=True),
+                      "infer_bytes_b32": rep.total_memory_bytes(BATCH, training=False),
+                      "infer_int8_bytes_b32": rep.total_memory_bytes(BATCH, training=False,
+                                                                     int8_weights=True),
+                      "params": rep.total_params, "measured_peak_bytes": peak}
+        print(f"phase 19 (e) memory report {name}: {rep.total_params:,} params; estimated "
+              f"{rows[name]['train_bytes_b32'] / 2 ** 20:.1f} MiB training at batch {BATCH}, "
+              f"{rows[name]['infer_bytes_b32'] / 2 ** 20:.1f} MiB inference, "
+              f"{rows[name]['infer_int8_bytes_b32'] / 2 ** 20:.1f} MiB with int8 heads; measured "
+              f"peak {peak / 2 ** 20:.1f} MiB (torch.cuda.max_memory_allocated of the run); on "
+              f"{card}", flush=True)
+    return rows
+
+
 def timed(phase, *args):
     """``phase(*args)``, its host seconds printed (the script's time limit)."""
     t0 = time.perf_counter()
@@ -6615,6 +7191,7 @@ def main() -> int:
     remat = timed(remat_phase, fc, fu, fa, card)
     zoo = timed(zoo_phase, fc, im, card)
     sent = timed(sentiment_phase, fl, card)
+    catalog = timed(catalog_phase, fc, im, fl, card)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -6706,6 +7283,10 @@ def main() -> int:
         if name == "fused_lstm_cell":
             entry_k["launches_per_forward_sentiment"] = sent["launches_per_forward"]
             entry_k["backward_sentiment"] = sent["summary"]
+        # phase 19: the transfer-learning ResNet-50's eager steps, MobileNet's
+        # int8 engine (warm-up and two requests), the embedding classifier's
+        # forward and eager steps
+        entry_k["launches_catalog"] = catalog["main_launches"].get(name, 0)
         kernels.append(entry_k)
     import torch.distributed as dist
 
@@ -6724,7 +7305,7 @@ def main() -> int:
                    "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
                    "entry_points": entry, "guard": guard, "parallel_inference": pinf,
                    "knobs": knobs, "dropout": drop, "remat": remat, "zoo": zoo,
-                   "sentiment": sent, "kernels": kernels},
+                   "sentiment": sent, "catalog": catalog, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

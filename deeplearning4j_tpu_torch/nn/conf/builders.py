@@ -19,9 +19,26 @@ from deeplearning4j_tpu_torch import updaters as _upd
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import GlobalConf, Layer
-from deeplearning4j_tpu_torch.nn.conf.layers.conv import BaseConvLayer, SubsamplingLayer
-from deeplearning4j_tpu_torch.nn.conf.layers.core import BaseOutputLayer, DenseLayer
+from deeplearning4j_tpu_torch.nn.conf.layers.conv import (
+    BaseConvLayer,
+    Convolution1DLayer,
+    Cropping2D,
+    SpaceToBatchLayer,
+    SpaceToDepthLayer,
+    SubsamplingLayer,
+    Upsampling2D,
+    ZeroPaddingLayer,
+)
+from deeplearning4j_tpu_torch.nn.conf.layers.core import (
+    AutoEncoder,
+    BaseOutputLayer,
+    DenseLayer,
+    ElementWiseMultiplicationLayer,
+)
+from deeplearning4j_tpu_torch.nn.conf.layers.norm import LocalResponseNormalization
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import BaseRecurrentLayer
+from deeplearning4j_tpu_torch.nn.conf.layers.special import CenterLossOutputLayer
+from deeplearning4j_tpu_torch.nn.conf.layers.variational import VariationalAutoencoder
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor,
     FeedForwardToCnnPreProcessor,
@@ -34,12 +51,27 @@ from deeplearning4j_tpu_torch import regularization as _reg
 CONF_FORMAT_VERSION = 1
 
 
+#: layers that take image input: a flat image is reshaped for them
+_CNN_LAYERS = (SubsamplingLayer, Upsampling2D, ZeroPaddingLayer, Cropping2D,
+               SpaceToBatchLayer, SpaceToDepthLayer, LocalResponseNormalization)
+#: layers that take (b, n) input: an image is flattened for them
+_FF_LAYERS = (DenseLayer, BaseOutputLayer, AutoEncoder, ElementWiseMultiplicationLayer,
+              CenterLossOutputLayer, VariationalAutoencoder)
+
+
+def _needs_cnn_input(layer: Layer) -> bool:
+    if isinstance(layer, Convolution1DLayer):
+        return False
+    return isinstance(layer, (BaseConvLayer,) + _CNN_LAYERS)
+
+
 def infer_preprocessor(input_type: InputType, layer: Layer
                        ) -> Optional[InputPreProcessor]:
     """The preprocessor the reference inserts in front of ``layer`` for
-    ``input_type`` (``InputTypeUtil`` / ``setInputType``), or None."""
+    ``input_type`` (``InputTypeUtil`` / ``setInputType``), or None. A
+    wrapper (``FrozenLayer``) is taken as it is, as the reference takes it."""
     kind = input_type.kind
-    if isinstance(layer, (BaseConvLayer, SubsamplingLayer)):
+    if _needs_cnn_input(layer):
         if kind == "convolutional_flat":
             return FeedForwardToCnnPreProcessor(
                 input_type.height, input_type.width, input_type.channels)
@@ -48,7 +80,7 @@ def infer_preprocessor(input_type: InputType, layer: Layer
                 f"Cannot feed feedforward input into CNN layer {layer}; "
                 "set an explicit preprocessor or input type")
         return None
-    if isinstance(layer, DenseLayer):
+    if isinstance(layer, _FF_LAYERS):
         if kind == "convolutional":
             return CnnToFeedForwardPreProcessor(
                 input_type.height, input_type.width, input_type.channels)
@@ -59,7 +91,7 @@ def infer_preprocessor(input_type: InputType, layer: Layer
         # a dense layer on recurrent input runs per timestep, without the
         # reference's Rnn<->FF reshape round trip
         return None
-    if isinstance(layer, BaseRecurrentLayer) or layer.is_recurrent:
+    if isinstance(layer, (BaseRecurrentLayer, Convolution1DLayer)) or layer.is_recurrent:
         if kind == "feedforward":
             raise ValueError(
                 f"Cannot feed feedforward input into recurrent layer {layer}")

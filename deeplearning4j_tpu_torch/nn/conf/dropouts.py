@@ -150,6 +150,9 @@ class FedNoise:
     def bernoulli(self, keep: float, shape, device) -> torch.Tensor:
         return self._next(shape, device).to(torch.bool)
 
+    def uniform(self, shape, device, salt: int = 0) -> torch.Tensor:
+        return self._next(shape, device).to(torch.float32)
+
     def normal(self, shape, dtype, device) -> torch.Tensor:
         return self._next(shape, device).to(dtype)
 

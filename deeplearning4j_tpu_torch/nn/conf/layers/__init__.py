@@ -1,8 +1,7 @@
-"""The ported layer catalog: what the zoo (ResNet-50, VGG16/19, LeNet,
-AlexNet, SimpleCNN, GoogLeNet, the Darknet family, the face-embedding
-models), the recurrent networks (TextGenerationLSTM) and the transformer
-layers need, and the dropout and weight-noise classes a layer takes
-(``nn/conf/dropouts.py``)."""
+"""The layer catalog: every layer of the reference's
+``nn/conf/layers`` but the mixture-of-experts layers (``MixtureOfExpertsLayer``,
+``MoETransformerBlock``), and the dropout and weight-noise classes a layer
+takes (``nn/conf/dropouts.py``)."""
 
 from deeplearning4j_tpu_torch.nn.conf.dropouts import (  # noqa: F401
     AlphaDropout,
@@ -28,14 +27,33 @@ from deeplearning4j_tpu_torch.nn.conf.layers.base import (  # noqa: F401
 )
 from deeplearning4j_tpu_torch.nn.conf.layers.conv import (  # noqa: F401
     BaseConvLayer,
+    Convolution1DLayer,
     ConvolutionLayer,
+    Cropping2D,
+    Deconvolution2D,
+    DepthwiseConvolution2D,
+    Pooling1D,
+    Pooling2D,
+    SeparableConvolution2D,
+    SpaceToBatchLayer,
     SpaceToDepthLayer,
+    Subsampling1DLayer,
     SubsamplingLayer,
+    Upsampling1D,
+    Upsampling2D,
+    ZeroPadding1DLayer,
+    ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.conf.layers.core import (  # noqa: F401
     ActivationLayer,
+    AutoEncoder,
     BaseOutputLayer,
     DenseLayer,
+    DropoutLayer,
+    DummyLayer,
+    ElementWiseMultiplicationLayer,
+    EmbeddingLayer,
+    EmbeddingSequenceLayer,
     LossLayer,
     OutputLayer,
 )
@@ -53,7 +71,10 @@ from deeplearning4j_tpu_torch.nn.conf.layers.objdetect import (  # noqa: F401
     iou,
     non_max_suppression,
 )
-from deeplearning4j_tpu_torch.nn.conf.layers.pooling import GlobalPoolingLayer  # noqa: F401
+from deeplearning4j_tpu_torch.nn.conf.layers.pooling import (  # noqa: F401
+    GlobalPoolingLayer,
+    MaskLayer,
+)
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (  # noqa: F401
     LSTM,
     BaseRecurrentLayer,
@@ -66,4 +87,15 @@ from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (  # noqa: F401
     RnnOutputLayer,
     SimpleRnn,
 )
-from deeplearning4j_tpu_torch.nn.conf.layers.special import CenterLossOutputLayer  # noqa: F401
+from deeplearning4j_tpu_torch.nn.conf.layers.special import (  # noqa: F401
+    CenterLossOutputLayer,
+    FrozenLayer,
+)
+from deeplearning4j_tpu_torch.nn.conf.layers.variational import (  # noqa: F401
+    BernoulliReconstructionDistribution,
+    CompositeReconstructionDistribution,
+    ExponentialReconstructionDistribution,
+    GaussianReconstructionDistribution,
+    LossFunctionWrapper,
+    VariationalAutoencoder,
+)

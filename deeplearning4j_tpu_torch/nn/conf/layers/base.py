@@ -129,6 +129,18 @@ class Layer:
         return Layer.from_dict(self.to_dict())
 
 
+class LayerWrapper(Layer):
+    """A layer around an inner ``layer`` whose shape inference and
+    defaults it forwards."""
+
+    def initialize(self, input_type):
+        self.layer.initialize(input_type)
+
+    def inherit_defaults(self, defaults):
+        super().inherit_defaults(defaults)
+        self.layer.inherit_defaults(defaults)
+
+
 #: the sub-streams of a layer's noise stream
 INPUT_DROPOUT_STREAM, WEIGHT_NOISE_STREAM, LAYER_STREAM = 0, 1, 2
 

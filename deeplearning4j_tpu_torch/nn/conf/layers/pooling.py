@@ -1,10 +1,11 @@
-"""Global pooling over space.
+"""Global pooling over space or time, and MaskLayer.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers/pooling.py``: CNN input
 ``(b, h, w, c)`` pools over space to ``(b, c)``, recurrent input
 ``(b, T, d)`` over time to ``(b, d)``, skipping masked steps. The unmasked
 mean accumulates in f32 and is cast back to the input dtype, as
-``jnp.mean`` does for bf16.
+``jnp.mean`` does for bf16. ``MaskLayer`` zeroes the masked steps of
+recurrent input.
 """
 
 from __future__ import annotations
@@ -69,3 +70,14 @@ class GlobalPoolingLayer(Layer):
         else:
             raise ValueError(f"GlobalPooling expects 3d/4d input, got {tuple(x.shape)}")
         return y, state or {}
+
+
+@serde.register
+class MaskLayer(Layer):
+    """Recurrent input times its (b, T) feature mask; other input, or no
+    mask, passes unchanged."""
+
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
+        if mask is not None and x.dim() == 3:
+            x = x * mask[..., None]
+        return x, state or {}

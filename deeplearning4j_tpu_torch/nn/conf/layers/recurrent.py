@@ -31,7 +31,7 @@ import torch
 from deeplearning4j_tpu_torch import activations as _act
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers.base import FeedForwardLayer, Layer
+from deeplearning4j_tpu_torch.nn.conf.layers.base import FeedForwardLayer, Layer, LayerWrapper
 from deeplearning4j_tpu_torch.nn.conf.layers.core import _affine
 from deeplearning4j_tpu_torch.nn.ops.fused_lstm import _mm
 
@@ -225,20 +225,8 @@ class SimpleRnn(BaseRecurrentLayer):
         return _masked_scan(lambda c, xt: self._step(params, c, xt), carry, x, mask)
 
 
-class _Wrapper(Layer):
-    """A layer around an inner ``layer`` whose shape inference and
-    defaults it forwards."""
-
-    def initialize(self, input_type):
-        self.layer.initialize(input_type)
-
-    def inherit_defaults(self, defaults):
-        super().inherit_defaults(defaults)
-        self.layer.inherit_defaults(defaults)
-
-
 @serde.register
-class Bidirectional(_Wrapper):
+class Bidirectional(LayerWrapper):
     """Runs the wrapped recurrent layer forward and on the time-reversed
     sequence; modes concat | add | mul | ave."""
 
@@ -295,7 +283,7 @@ class GravesBidirectionalLSTM(Bidirectional):
 
 
 @serde.register
-class LastTimeStep(_Wrapper):
+class LastTimeStep(LayerWrapper):
     """Wraps a recurrent layer and emits its last (unmasked) step."""
 
     def __init__(self, layer: Optional[Layer] = None, **kwargs):
@@ -318,7 +306,7 @@ class LastTimeStep(_Wrapper):
 
 
 @serde.register
-class MaskZeroLayer(_Wrapper):
+class MaskZeroLayer(LayerWrapper):
     """Sets the inputs of masked timesteps to ``masking_value`` before the
     wrapped layer."""
 

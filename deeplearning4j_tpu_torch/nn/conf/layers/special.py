@@ -1,8 +1,19 @@
-"""CenterLossOutputLayer.
+"""FrozenLayer and CenterLossOutputLayer.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/layers/special.py``
-(``FrozenLayer`` comes with the rest of the layer catalog, ROADMAP § A4).
-The loss is the classification loss plus ``lambda/2 * ||f - c_y||²``, the
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers/special.py``.
+
+``FrozenLayer`` wraps any layer, the transfer-learning building block: the
+wrapped layer runs in inference mode even in training (BN's running
+statistics, which it does not move; no dropout), and no update touches its
+params or updater state (``nn/multilayer.apply_layer_updates``, the ZeRO-1
+layout of ``parallel/zero.py``). The networks record no gradient for its
+params, so a frozen prefix runs no backward at all, while gradients still
+flow through a frozen layer to trainable layers before it. Its
+regularization terms still count in the score, as the reference's
+``_reg_score`` counts them. Under a compute dtype it keeps the wrapped
+layer's f32 params in f32 (``nn/multilayer.cast_layer_params_for_compute``).
+
+``CenterLossOutputLayer``'s loss is the classification loss plus ``lambda/2 * ||f - c_y||²``, the
 distance of each example's input features ``f`` to its class's center. The
 centers are layer state, not params: no gradient reaches them. The networks
 move them after the score, from the head's input, in training only
@@ -17,13 +28,58 @@ takes them.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from deeplearning4j_tpu_torch import losses as _losses
 from deeplearning4j_tpu_torch.nn import batch_stats
 from deeplearning4j_tpu_torch.nn.conf import serde
-from deeplearning4j_tpu_torch.nn.conf.layers.base import FeedForwardLayer
+from deeplearning4j_tpu_torch.nn.conf.layers.base import FeedForwardLayer, Layer, LayerWrapper
 from deeplearning4j_tpu_torch.nn.conf.layers.core import _affine
+
+
+def is_frozen(layer) -> bool:
+    """Whether no update touches ``layer``'s params."""
+    return getattr(layer, "is_frozen", False)
+
+
+@serde.register
+class FrozenLayer(LayerWrapper):
+    """``layer`` run in inference mode and never updated."""
+
+    is_frozen = True
+
+    def __init__(self, layer: Optional[Layer] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.layer = layer
+
+    @property
+    def is_output_layer(self):
+        return self.layer.is_output_layer
+
+    @property
+    def is_recurrent(self):
+        return self.layer.is_recurrent
+
+    @property
+    def checkpoint_names(self):
+        return getattr(self.layer, "checkpoint_names", ())
+
+    def get_output_type(self, input_type):
+        return self.layer.get_output_type(input_type)
+
+    def init_params(self, gen, input_type, dtype=torch.float32):
+        return self.layer.init_params(gen, input_type, dtype)
+
+    def init_layer_state(self, input_type, dtype=torch.float32):
+        return self.layer.init_layer_state(input_type, dtype)
+
+    def apply(self, params, x, *, state=None, train=False, rng=None, mask=None):
+        return self.layer.apply(params, x, state=state, train=False, rng=rng, mask=mask)
+
+    def compute_score(self, params, x, labels, mask=None):
+        return self.layer.compute_score(params, x, labels, mask)
 
 
 @serde.register

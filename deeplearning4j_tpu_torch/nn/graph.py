@@ -92,10 +92,13 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     bundle_step_of,
     cast_layer_params_for_compute,
     check_train_conf,
+    differentiable,
     flatten_tensors,
+    gradients_of,
     guarded_update,
     init_generator,
     mask_after,
+    pretrain_layer_steps,
     remat_policy_of,
     unflatten_tensors,
 )
@@ -239,7 +242,7 @@ class ComputationGraph(NetworkMethods):
 
     def _forward(self, params, state, inputs, *, train: bool = False,
                  cast_params: bool = True, noise=None, remat=None, carries=None,
-                 fmasks=None):
+                 fmasks=None, stop_before_vertex: Optional[str] = None):
         """Forward walk over the topological order. Returns ``(acts,
         out_inputs, new_state)``: every vertex's activation, ``(x, mask)``
         of each output layer (the input its score is computed from, after
@@ -251,7 +254,8 @@ class ComputationGraph(NetworkMethods):
         or None. ``carries``: recurrent layer vertex name -> the state to
         start from (:meth:`_init_carries`); then ``new_carries``, their
         final states, is returned fourth. ``fmasks``: one feature mask (or
-        None) a network input."""
+        None) a network input. ``stop_before_vertex``: the walk ends before
+        that vertex (its inputs' activations are in ``acts``)."""
         conf = self.conf
         if self._compute_dtype is not None and cast_params:
             params = self.compute_params(params)
@@ -267,6 +271,8 @@ class ComputationGraph(NetworkMethods):
         new_state: Dict[str, Tensors] = {}
         new_carries: Dict[str, Any] = {}
         for name in self.topo:
+            if name == stop_before_vertex:
+                break
             v = conf.vertices[name]
             srcs = conf.vertex_inputs[name]
             in_acts = [acts[s] for s in srcs]
@@ -433,20 +439,14 @@ class ComputationGraph(NetworkMethods):
         and gradients multiplied back by ``1 / scale``). ``noise``: the
         step's noise source (default :meth:`step_noise` on rank 0)."""
         params = self.params_ if params is None else params
-        diff = {v: {k: t.detach().requires_grad_() for k, t in p.items()}
-                for v, p in params.items()}
+        diff = differentiable({v: self._layer(v) for v in params}, params)
         loss, new_state = self._loss_and_new_state(
             diff, self.state_ if state is None else state, feats, labels, fmasks, lmasks,
             noise=self.step_noise() if noise is None else noise,
             remat=remat_policy_of(self))
         if scale is not None:
             loss = loss * scale
-        leaves = [(v, k) for v, p in diff.items() for k in p]
-        flat = torch.autograd.grad(loss, [diff[v][k] for v, k in leaves],
-                                   allow_unused=True) if leaves else ()
-        grads: Dict[str, Tensors] = {v: {} for v in diff}
-        for (v, k), g in zip(leaves, flat):
-            grads[v][k] = torch.zeros_like(diff[v][k]) if g is None else g
+        grads = gradients_of(loss, diff)
         loss, grads = _faults.unscale(loss.detach(), grads, scale)
         return loss, new_state, grads
 
@@ -568,6 +568,40 @@ class ComputationGraph(NetworkMethods):
 
     def _updater_layers(self):
         return [self._layer(n) for n in self.layer_names]
+
+    # --------------------------------------------------------------- pretrain
+    def pretrain(self, it, epochs: int = 1, noise=None) -> "ComputationGraph":
+        """Greedy unsupervised pretraining of every layer vertex whose layer
+        can be pretrained, in topological order (``noise``: as
+        :meth:`pretrain_layer`'s, the draws of all of them)."""
+        for name in self.layer_names:
+            if self._layer(name).is_pretrain_layer:
+                self.pretrain_layer(name, it, epochs=epochs, noise=noise)
+        return self
+
+    def pretrain_layer(self, name: str, it, epochs: int = 1, noise=None) -> "ComputationGraph":
+        """Unsupervised pretraining of layer vertex ``name``: the walk in
+        inference mode up to the vertex, its input through its preprocessor,
+        then the layer's ``pretrain_loss`` minimized over its params alone
+        (``nn/multilayer.pretrain_layer_steps``; ``noise``: the draws of every
+        step, for tests). A layer that cannot be pretrained raises
+        ``ValueError``."""
+        if not self._layer(name).is_pretrain_layer:
+            raise ValueError(f"Layer vertex '{name}' is not pretrainable")
+        v = self.conf.vertices[name]
+        src = self.conf.vertex_inputs[name][0]
+
+        def layer_input(ds):
+            feats = [self._as_input(f) for f in _as_multi(ds).features]
+            acts, _, _ = self._forward(self.params_, self.state_, feats,
+                                       stop_before_vertex=name)
+            x = acts[src]
+            # no feature masks reach the walk here, so the mask is None
+            return x if v.preprocessor is None else v.preprocessor.pre_process(x, None)
+
+        pretrain_layer_steps(self, name, self._layer_index[name], it, epochs, layer_input,
+                             noise)
+        return self
 
     # -------------------------------------------------- evaluation, streaming
     def _eval_output(self, ds: DataSet) -> np.ndarray:

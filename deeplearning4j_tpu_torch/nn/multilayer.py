@@ -93,7 +93,7 @@ from deeplearning4j_tpu_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.dropouts import NoiseSource
 from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_input_dropout, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.conf.layers.norm import BatchNormalization
-from deeplearning4j_tpu_torch.nn.conf.layers.special import CenterLossOutputLayer
+from deeplearning4j_tpu_torch.nn.conf.layers.special import CenterLossOutputLayer, is_frozen
 from deeplearning4j_tpu_torch.regularization import (
     apply_constraints,
     as_regularization,
@@ -157,8 +157,11 @@ def check_train_conf(conf, not_ported: str) -> None:
 def cast_layer_params_for_compute(layer, p: Tensors, cd: torch.dtype, *,
                                   is_output: bool) -> Tensors:
     """Mixed-precision cast of one layer's params: float params -> ``cd``,
-    except normalization layers, output layers and ``keep_fp32_params``.
-    Shared by MultiLayerNetwork and ComputationGraph."""
+    except normalization layers, output layers and ``keep_fp32_params``; a
+    ``FrozenLayer`` as the layer it wraps. Shared by MultiLayerNetwork and
+    ComputationGraph."""
+    if is_frozen(layer):
+        layer = layer.layer
     if isinstance(layer, BatchNormalization) or is_output:
         return p
     keep = getattr(layer, "keep_fp32_params", ())
@@ -193,11 +196,12 @@ def apply_layer_updates(layers, params: List[Tensors], grads: List[Tensors],
                         ) -> Tuple[List[Tensors], List[Dict[str, Tensors]]]:
     """One optimizer step over every layer, in the reference's order:
     gradient normalization -> l1/l2/weight-decay gradient term -> updater
-    -> ``param - update`` -> the layer's constraints. Returns new params and
-    new updater state; the inputs are not changed."""
+    -> ``param - update`` -> the layer's constraints. A frozen layer, and
+    one without params, keeps its params and updater state. Returns new
+    params and new updater state; the inputs are not changed."""
     new_params, new_opt = [], []
     for layer, p_i, g_i, o_i in zip(layers, params, grads, opt_state):
-        if not p_i:
+        if not p_i or is_frozen(layer):
             new_params.append(p_i)
             new_opt.append(o_i)
             continue
@@ -219,6 +223,78 @@ def apply_layer_updates(layers, params: List[Tensors], grads: List[Tensors],
         new_params.append(apply_constraints(layer, np_i))
         new_opt.append(no_i)
     return new_params, new_opt
+
+
+def differentiable(layers, params):
+    """``params`` (a list of dicts, or a dict of dicts keyed like
+    ``layers``) detached, each tensor of a trainable layer recording its
+    gradient; a frozen layer's record none, so its part of the forward
+    records no backward unless its input needs one."""
+    if isinstance(params, dict):
+        return {k: {n: t.detach().requires_grad_(not is_frozen(layers[k]))
+                    for n, t in p.items()} for k, p in params.items()}
+    return [{n: t.detach().requires_grad_(not is_frozen(layer)) for n, t in p.items()}
+            for layer, p in zip(layers, params)]
+
+
+def gradients_of(loss: torch.Tensor, diff):
+    """The gradients of ``loss`` in the layout of ``diff``
+    (:func:`differentiable`): zeros for a frozen layer's tensors and for
+    tensors the loss does not reach."""
+    keys = diff.keys() if isinstance(diff, dict) else range(len(diff))
+    leaves = [(i, k) for i in keys for k in diff[i] if diff[i][k].requires_grad]
+    flat = torch.autograd.grad(loss, [diff[i][k] for i, k in leaves],
+                               allow_unused=True) if leaves else ()
+    got = dict(zip(leaves, flat))
+    out = {i: {} for i in keys} if isinstance(diff, dict) else [{} for _ in diff]
+    for i in keys:
+        for k, t in diff[i].items():
+            g = got.get((i, k))
+            out[i][k] = torch.zeros_like(t) if g is None else g
+    return out
+
+
+def pretrain_layer_steps(model, key, stream: int, it, epochs: int, layer_input,
+                         noise=None) -> None:
+    """Unsupervised pretraining of the layer at ``key`` (an index of
+    ``params_`` or a vertex name), shared by both networks: per batch of
+    ``it``, its input (``layer_input(ds)``, the inference-mode forward up to
+    the layer) into the layer's ``pretrain_loss``, minimized over the
+    layer's own params through :func:`apply_layer_updates` (normalization,
+    regularization, updater, constraints); each step sets ``score_`` and
+    advances ``iteration``. The draws of a step come from the layer's
+    stream ``stream`` of :meth:`step_noise`, or all from ``noise`` where
+    given (a ``FedNoise``: the draws of every step, in order)."""
+    layer = model._updater_layers()[stream]
+    opt = model._ensure_opt_state()
+    for _ in range(epochs):
+        for ds in it:
+            p0 = model.params_[key]
+            with torch.no_grad():
+                x = layer_input(ds)
+            p = {k: t.detach().requires_grad_() for k, t in p0.items()}
+            if p and x.is_floating_point():
+                # a compute-dtype input meets the f32 params in f32, as
+                # JAX promotes the product
+                x = x.to(torch.promote_types(x.dtype, next(iter(p.values())).dtype))
+            r = model.step_noise().child(stream) if noise is None else noise
+            loss = layer.pretrain_loss(p, x, r)
+            grads = gradients_of(loss, [p])[0]
+            (new_p,), (new_o,) = apply_layer_updates(
+                [layer], [p0], [grads], [opt[key]], model.iteration + 1, model.iteration,
+                model.epoch)
+            model.params_ = _with(model.params_, key, new_p)
+            model.opt_state_ = opt = _with(opt, key, new_o)
+            model.score_ = loss.detach()
+            model.iteration += 1
+        it.reset()
+
+
+def _with(tree, key, value):
+    """A copy of the list or dict ``tree`` with ``value`` at ``key``."""
+    if isinstance(tree, dict):
+        return {**tree, key: value}
+    return [value if j == key else v for j, v in enumerate(tree)]
 
 
 def guarded_update(model, grads, update, old):
@@ -819,20 +895,14 @@ class MultiLayerNetwork(NetworkMethods):
         loss and gradients come back multiplied by ``1 / scale``. ``noise``:
         the step's noise source (default :meth:`step_noise` on rank 0)."""
         params = self.params_ if params is None else params
-        diff = [{k: t.detach().requires_grad_() for k, t in p.items()}
-                for p in params]
+        diff = differentiable(self.layers, params)
         loss, new_states = self._loss_and_new_state(
             diff, self.state_ if state is None else state, features, labels, fmask, lmask,
             noise=self.step_noise() if noise is None else noise,
             remat=remat_policy_of(self))
         if scale is not None:
             loss = loss * scale
-        leaves = [(i, k) for i, p in enumerate(diff) for k in p]
-        flat = torch.autograd.grad(loss, [diff[i][k] for i, k in leaves],
-                                   allow_unused=True) if leaves else ()
-        grads: List[Tensors] = [{} for _ in diff]
-        for (i, k), g in zip(leaves, flat):
-            grads[i][k] = torch.zeros_like(diff[i][k]) if g is None else g
+        grads = gradients_of(loss, diff)
         loss, grads = _faults.unscale(loss.detach(), grads, scale)
         return loss, new_states, grads
 
@@ -906,6 +976,37 @@ class MultiLayerNetwork(NetworkMethods):
 
     def _updater_layers(self):
         return self.layers
+
+    # --------------------------------------------------------------- pretrain
+    def pretrain(self, it: DataSetIterator, epochs: int = 1, noise=None
+                 ) -> "MultiLayerNetwork":
+        """Greedy layer-wise unsupervised pretraining of every layer that can
+        be pretrained (``is_pretrain_layer``), in order (``noise``: as
+        :meth:`pretrain_layer`'s, the draws of all of them)."""
+        for i, layer in enumerate(self.layers):
+            if layer.is_pretrain_layer:
+                self.pretrain_layer(i, it, epochs=epochs, noise=noise)
+        return self
+
+    def pretrain_layer(self, layer_idx: int, it: DataSetIterator, epochs: int = 1,
+                       noise=None) -> "MultiLayerNetwork":
+        """Unsupervised pretraining of layer ``layer_idx``: each batch's
+        features through layers ``[0, layer_idx)`` in inference mode, then
+        the layer's ``pretrain_loss`` minimized over its params alone, one
+        step a batch (:func:`pretrain_layer_steps`; ``noise``: the draws of
+        every step, for tests). A layer that cannot be pretrained raises
+        ``ValueError``."""
+        layer = self.layers[layer_idx]
+        if not layer.is_pretrain_layer:
+            raise ValueError(f"Layer {layer_idx} ({layer}) is not pretrainable")
+
+        def layer_input(ds):
+            x, _, _ = self._forward(self.params_, self.state_, self._as_input(ds.features),
+                                    stop_before=layer_idx)
+            return x
+
+        pretrain_layer_steps(self, layer_idx, layer_idx, it, epochs, layer_input, noise)
+        return self
 
     # ------------------------------------------------- evaluation, introspection
     def _eval_output(self, ds: DataSet) -> np.ndarray:

@@ -51,6 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.conf.layers.special import is_frozen
 from deeplearning4j_tpu_torch.regularization import (
     apply_constraints,
     as_regularization,
@@ -106,8 +107,8 @@ class ShardedUpdateLayout:
 
     ``layers`` is the layer list (MultiLayerNetwork order, or the
     ComputationGraph's topological layer order) and ``params`` the matching
-    list of name -> tensor dicts. Parameter-less layers are skipped, as in
-    ``apply_layer_updates``.
+    list of name -> tensor dicts. Frozen and parameter-less layers are
+    skipped, as in ``apply_layer_updates``.
     """
 
     def __init__(self, layers: Sequence, params: Sequence[Tensors], n_shards: int):
@@ -117,7 +118,7 @@ class ShardedUpdateLayout:
         self.groups: List[_Group] = []
         by_key: Dict[Tuple[str, Any], _Group] = {}
         for i, (layer, p_i) in enumerate(zip(self.layers, params)):
-            skip = not p_i
+            skip = not p_i or is_frozen(layer)
             self.skip.append(skip)
             if skip:
                 continue

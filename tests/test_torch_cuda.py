@@ -2527,3 +2527,183 @@ def test_masked_sentiment_graph_on_the_card(card):
         assert torch.equal(eager.score_, bundled.score_)
     finally:
         chip_smoke.SENT_D, chip_smoke.SENT_T, chip_smoke.SENT_B, chip_smoke.SENT_N = saved
+
+
+# ------------------------------------------------------- the rest of the catalog
+CATALOG_LAYERS = {
+    "deconv_k2s2_same": (L.Deconvolution2D, dict(n_out=4, kernel_size=2, stride=2,
+                                                 convolution_mode="same"), (5, 6, 3)),
+    "deconv_k3s2_pad1": (L.Deconvolution2D, dict(n_out=4, kernel_size=3, stride=2, padding=1),
+                         (5, 6, 3)),
+    "depthwise_dm2_s2": (L.DepthwiseConvolution2D, dict(kernel_size=3, stride=2,
+                                                        depth_multiplier=2), (9, 8, 3)),
+    "depthwise_same_dil2": (L.DepthwiseConvolution2D, dict(kernel_size=3, dilation=2,
+                                                           convolution_mode="same"), (9, 8, 3)),
+    "separable_dm2_same": (L.SeparableConvolution2D, dict(n_out=5, kernel_size=3,
+                                                          depth_multiplier=2, stride=2,
+                                                          convolution_mode="same"), (9, 8, 3)),
+    "upsampling2d": (L.Upsampling2D, dict(size=(2, 3)), (4, 5, 3)),
+    "zeropad": (L.ZeroPaddingLayer, dict(pad=(0, 1, 2, 1)), (4, 5, 3)),
+    "cropping": (L.Cropping2D, dict(crop=(1, 0, 0, 2)), (4, 5, 3)),
+    "space_to_batch": (L.SpaceToBatchLayer, dict(blocks=2), (4, 6, 3)),
+    "conv1d_same_s2": (L.Convolution1DLayer, dict(n_out=4, kernel_size=4, stride=2,
+                                                  convolution_mode="same"), (9, 3)),
+    "pool1d_avg_same": (L.Subsampling1DLayer, dict(pooling_type="avg", kernel_size=3, stride=2,
+                                                   convolution_mode="same"), (9, 3)),
+    "pool1d_max": (L.Subsampling1DLayer, dict(kernel_size=2, stride=2), (9, 3)),
+    "upsampling1d": (L.Upsampling1D, dict(size=3), (4, 3)),
+    "zeropad1d": (L.ZeroPadding1DLayer, dict(pad=(2, 1)), (4, 3)),
+    "elementwise": (L.ElementWiseMultiplicationLayer, dict(activation="tanh"), (5,)),
+    "autoencoder": (L.AutoEncoder, dict(n_out=4, activation="sigmoid"), (6,)),
+}
+
+
+def _catalog_layer(cls, kw, shape):
+    layer = cls(**kw)
+    if hasattr(layer, "weight_init"):
+        layer.weight_init, layer.activation = "xavier", layer.activation or "identity"
+    itype = (InputType.convolutional(*shape) if len(shape) == 3 else
+             InputType.recurrent(shape[1], shape[0]) if len(shape) == 2 else
+             InputType.feed_forward(shape[0]))
+    layer.initialize(itype)
+    return layer, layer.init_params(torch.Generator().manual_seed(3), itype)
+
+
+@pytest.mark.parametrize("name", sorted(CATALOG_LAYERS))
+def test_catalog_layer_on_the_card_is_the_cpus(card, name):
+    """Each new layer's output and gradients (input and params) on the card
+    within 1e-5 of the largest value of the same layer on the CPU (f32,
+    TF32 off)."""
+    cls, kw, shape = CATALOG_LAYERS[name]
+    layer, params = _catalog_layer(cls, kw, shape)
+    x = torch.randn((3,) + shape, generator=torch.Generator().manual_seed(4))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev).detach().requires_grad_() for k, v in params.items()}
+        xd = x.to(dev).detach().requires_grad_()
+        y, _ = layer.apply(p, xd, state={}, train=True)
+        r = torch.randn(y.shape, generator=torch.Generator().manual_seed(5)).to(dev)
+        (y * r).sum().backward()
+        out[dev] = [y.detach().cpu(), xd.grad.cpu()] + [
+            (torch.zeros_like(v) if v.grad is None else v.grad).cpu() for v in p.values()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1.0)
+
+
+def test_embedding_gradient_on_the_card_is_deterministic(card):
+    """An EmbeddingSequenceLayer's gradient over a batch of heavily repeated
+    ids: two runs bit for bit (F.embedding's backward sums repeated rows in
+    a fixed order), and within 1e-5 of the CPU's."""
+    layer, params = _catalog_layer(L.EmbeddingSequenceLayer, dict(n_in=50, n_out=64),
+                                   (1, 40))
+    ids = torch.from_numpy(np.minimum(np.random.default_rng(6).zipf(1.2, (32, 40)), 50) - 1.0)
+    g = torch.randn((32, 40, 64), generator=torch.Generator().manual_seed(7))
+    grads = []
+    for dev in ("cuda", "cuda", "cpu"):
+        w = params["W"].to(dev).requires_grad_()
+        y, _ = layer.apply({"W": w}, ids.float().to(dev))
+        (y * g.to(dev)).sum().backward()
+        grads.append(w.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert float((grads[0] - grads[2]).abs().max()) <= 1e-5 * float(grads[2].abs().max())
+
+
+def test_frozen_fused_blocks_launch_no_backward_kernel(card):
+    """Two frozen fused bottlenecks then two trainable ones (bf16): a step
+    launches every block's forward kernels, no backward kernel of a frozen
+    block, and the first trainable block's conv a and projection a dW
+    kernel without a dx (chip_smoke.STAGE3_BWD's rule); the frozen params
+    stay bit for bit."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train import pipeline
+
+    F_, B = L.FrozenLayer, L.FusedResNetBottleneck
+    conf = (NeuralNetConfiguration.builder().seed(2).updater(Nesterovs(1e-3, 0.9))
+            .compute_dtype("bfloat16").list()
+            .layer(F_(layer=B(width=16, project=True)))
+            .layer(F_(layer=B(width=16)))
+            .layer(B(width=32, stride=2, project=True))
+            .layer(B(width=32))
+            .layer(L.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(L.OutputLayer(n_out=3, activation="softmax"))
+            .set_input_type(InputType.convolutional(8, 8, 3)).build())
+    net = MultiLayerNetwork(conf).init()
+    x = np.random.default_rng(8).standard_normal((4, 8, 8, 3)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[[0, 1, 2, 0]]
+    before = pipeline.tree_map(lambda t: t.clone(), net.params_[:2])
+    fc.reset_launch_counts()
+    net.fit(DataSet(x, y))
+    torch.cuda.synchronize()
+    assert dict(fc.launch_counts) == {"pw_conv": 10, "conv3x3": 4, "pw_conv_dx": 3,
+                                      "pw_conv_dw": 5, "conv3x3_dx": 2, "conv3x3_dw": 2}
+    assert all(torch.equal(a, b) for p, q in zip(net.params_[:2], before)
+               for a, b in zip(p.values(), q.values()))
+
+
+def test_vae_pretrain_step_on_the_card_is_the_cpus(card):
+    """One fed pretrain_layer step of an AutoEncoder -> VAE network on the
+    card within 1e-5 of the CPU's (params and score)."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf.dropouts import FedNoise
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    def build(dev):
+        conf = (NeuralNetConfiguration.builder().seed(9).updater(Adam(1e-3)).list()
+                .layer(L.AutoEncoder(n_out=12, corruption_level=0.3))
+                .layer(L.VariationalAutoencoder(
+                    n_out=4, encoder_layer_sizes=(8,), decoder_layer_sizes=(8,),
+                    reconstruction_distribution=L.BernoulliReconstructionDistribution(),
+                    num_samples=2))
+                .layer(L.OutputLayer(n_out=3, activation="softmax"))
+                .set_input_type(InputType.feed_forward(20)).build())
+        return MultiLayerNetwork(conf).init(rng=1, device=dev)
+
+    rng = np.random.default_rng(10)
+    x = (rng.random((16, 20)) < 0.3).astype(np.float32)
+    draws = {0: [rng.random((16, 20)) < 0.7],
+             1: [rng.standard_normal((16, 4)).astype(np.float32) for _ in range(2)]}
+    nets = {dev: build(dev) for dev in ("cpu", "cuda")}
+    for i in (0, 1):
+        for net in nets.values():
+            net.pretrain_layer(i, ExistingDataSetIterator([DataSet(x)]),
+                               noise=FedNoise(draws[i]))
+        for k, t in nets["cpu"].params_[i].items():
+            got = nets["cuda"].params_[i][k].cpu()
+            assert float((got - t).abs().max()) <= 1e-5 * float(t.abs().max()), (i, k)
+        assert abs(nets["cuda"].score() - nets["cpu"].score()) <= 1e-5 * abs(nets["cpu"].score())
+
+
+def test_narrow_mobilenet_int8_head_on_the_card(card):
+    """A narrow MobileNet-v1 (alpha 0.25, 64x64, 10 classes) served with an
+    int8 head: one int8_matmul a forward, within chip_smoke.INT8_PLAIN_TOL
+    of the plain int8 head; the f32 engine none, within 1e-4 of the CPU."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    def build():
+        return MultiLayerNetwork(chip_smoke.mobilenet_v1(alpha=0.25, size=64, classes=10))
+
+    model = build().init()
+    x = np.random.default_rng(11).standard_normal((4, 64, 64, 3)).astype(np.float32)
+    chip_smoke.calibrate_bn(model, x)
+    chip_smoke.spread_softmax(model, x)
+    cpu = chip_smoke._cpu_copy(model, build)
+    e8 = InferenceEngine(model, buckets=[4], int8_serving=True)
+    e32 = InferenceEngine(model, buckets=[4])
+    e8.warmup()
+    e32.warmup()
+    fc.reset_launch_counts()
+    got8 = e8.infer(x)
+    assert dict(fc.launch_counts) == {"int8_matmul": 1}
+    got32 = e32.infer(x)
+    assert dict(fc.launch_counts) == {"int8_matmul": 1}
+    want = cpu.output(x)
+    assert np.abs(got32 - want).max() <= 1e-4 * np.abs(want).max()
+    n = len(model.layers)
+    with torch.inference_mode():
+        a, _, _ = model._forward(e8._snap.params, e8._snap.state, torch.from_numpy(x).cuda(),
+                                 stop_before=n - 1, cast_params=False)
+        p = e8._snap.params[n - 1]
+        ref = torch.softmax(im.int8_matmul_plain(a, p["W_q8"], p["W_scale"]) + p["b"], -1)
+    assert np.abs(got8 - ref.cpu().numpy()).max() <= chip_smoke.INT8_PLAIN_TOL

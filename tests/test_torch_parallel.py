@@ -559,6 +559,25 @@ def test_ranks_draw_their_own_dropout_masks(rank_runs, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_ranks_frozen_layers(rank_runs, world):
+    """Frozen layers over the ranks: replicated and ZeRO-1 within PARITY_TOL
+    of JAX's wrapper; the frozen params (two dense layers') equal to their
+    initial values there and under the master."""
+    out = rank_runs(world)
+    init = jax_net(frozen=True)
+    sizes = [sum(int(np.prod(v.shape)) for v in p.values()) for p in init.params_]
+    lo, hi = sizes[0], sizes[0] + sizes[1] + sizes[2]
+    for sharded in (False, True):
+        tag = "sharded" if sharded else "repl"
+        jnet, _ = jax_fit(world, sharded, 3, frozen=True)
+        assert_close(out, f"frozen/{tag}", jnet)
+    for tag in ("repl", "sharded", "master"):
+        np.testing.assert_array_equal(out[f"frozen/{tag}/params"][lo:hi],
+                                      init.params_flat()[lo:hi])
+        assert not np.array_equal(out[f"frozen/{tag}/params"][:lo], init.params_flat()[:lo])
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_ranks_dropout_sharded_equals_replicated_and_bundles(rank_runs, world):
     """The noisy network over the ranks: ZeRO-1 within PARITY_TOL of the
     replicated update (the same masks; the mean gradient summed in another

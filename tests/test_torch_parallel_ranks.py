@@ -33,12 +33,14 @@ NOISY_MAX_NORM = 0.5
 
 
 def build(pkg, mixed_precision=False, sharded_knob=False, gradnorm=False, bn=False,
-          fused=False, steps=1, noisy=False):
+          fused=False, steps=1, noisy=False, frozen=False):
     """The TestWrapperParity network in ``pkg`` = (conf, layers, updaters),
     with a BatchNormalization after its first layer (``bn``), or the fused
     bottleneck network (``fused``); ``steps``: its ``steps_per_call``;
     ``noisy``: AlphaDropout and DropConnect on the first layer, dropout on
-    the output layer's input and a max-norm constraint on both ``W``."""
+    the output layer's input and a max-norm constraint on both ``W``;
+    ``frozen``: two frozen dense layers between the first layer and the
+    output (no layer state: the master takes none)."""
     conf, layers, upd = pkg
     if noisy:
         import importlib
@@ -68,6 +70,13 @@ def build(pkg, mixed_precision=False, sharded_knob=False, gradnorm=False, bn=Fal
                 .layer(layers.OutputLayer(n_out=N_OUT, activation="softmax"))
                 .set_input_type(conf.InputType.convolutional(IMAGE, IMAGE, CHANNELS))
                 .build())
+    if frozen:
+        frozen_layers = layers.FrozenLayer
+        return (b.list().layer(layers.DenseLayer(n_out=N_HID, activation="tanh"))
+                .layer(frozen_layers(layer=layers.DenseLayer(n_out=N_HID, activation="relu")))
+                .layer(frozen_layers(layer=layers.DenseLayer(n_out=N_HID, activation="tanh")))
+                .layer(layers.OutputLayer(n_out=N_OUT, activation="softmax"))
+                .set_input_type(conf.InputType.feed_forward(N_IN)).build())
     kw = {"gradient_normalization": "renormalize_l2_per_layer"} if gradnorm else {}
     b = b.list().layer(layers.DenseLayer(n_out=N_HID, activation="tanh", **kw))
     if bn:
@@ -78,11 +87,14 @@ def build(pkg, mixed_precision=False, sharded_knob=False, gradnorm=False, bn=Fal
 
 def arch(opts) -> str:
     """The key of a network's initial params in ``init.npz``."""
-    return "fused" if opts.get("fused") else "bn" if opts.get("bn") else "dense"
+    for a in ("fused", "bn", "frozen"):
+        if opts.get(a):
+            return a
+    return "dense"
 
 
 #: architecture -> the network options that build it
-ARCHS = {"dense": {}, "bn": {"bn": True}, "fused": {"fused": True}}
+ARCHS = {"dense": {}, "bn": {"bn": True}, "fused": {"fused": True}, "frozen": {"frozen": True}}
 
 
 def blobs(n=32, seed=0):
@@ -296,7 +308,25 @@ def _cases(rank, world, root):
     out.update(_dropout_cases(rank, world, init, save, ds))
     out.update(_remat_cases(world, init, save, ds))
     out.update(_shared_cases(rank, world, root, init, save, CheckpointingIterator))
+    _frozen_cases(world, init, save, ds)
     return out
+
+
+def _frozen_cases(world, init, save, ds):
+    """The network with frozen layers: 3 epochs replicated and ZeRO-1, and 2
+    under the shared-training master."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, SharedTrainingMaster
+
+    for sharded in (False, True):
+        net = _net(init, frozen=True)
+        (ParallelWrapper.builder(net).workers(world).sharded_update(sharded).build()
+         .fit(ExistingDataSetIterator([ds]), epochs=3))
+        save(f"frozen/{'sharded' if sharded else 'repl'}", net)
+    net = _net(init, frozen=True)
+    SharedTrainingMaster.builder(SHARED_THRESHOLD).build().fit(
+        net, ExistingDataSetIterator([ds]), epochs=2)
+    save("frozen/master", net)
 
 
 def _remat_cases(world, init, save, ds):
