@@ -208,6 +208,25 @@ forward, three eager steps against one bundle ``torch.equal``; (d)
 ``pretrain`` of an AutoEncoder and a VariationalAutoencoder on MNIST-shaped
 binary data, each layer's score falling, one fed ``pretrain_layer`` step
 card vs CPU; (e) the memory reports of (a)-(c) beside the measured peaks.
+Phase 20 trains the zoo's TextGenerationLSTM with tBPTT and drives the
+listeners, telemetry and early stopping: (a) TextGenerationLSTM (77
+classes, 2 x GravesLSTM(256), RmsProp(1e-2), tBPTT 40/40, f32 with TF32
+off) fit on batches of 32 sequences of 1000 characters of a seeded order-2
+Markov chain: exactly 2000 ``fused_lstm_cell`` launches a batch, the score
+falling over three batches, one batch within 1e-4 (of the largest element)
+of a CPU twin, a poisoned chunk keeping params, slots and carries,
+``ParallelWrapper(workers=1)`` tBPTT ``torch.equal`` to ``fit``,
+characters/s; (b) the same model as a ``ComputationGraph``, one batch
+within 1e-5 of (a); (c) phase 4's ResNet-50 with Score, CollectScores,
+Performance, Checkpoint and an introspecting ParamAndGradient listener:
+four eager steps ``torch.equal`` to four without, the introspected
+gradients the step's, a k-4 bundle with one score fetch equal to the eager
+steps, the checkpoint's next step equal to the uninterrupted one, telemetry
+within 1e-6 of norms of the step's own tensors eager, at k 4, guarded and
+in the ZeRO-1 step, images/s with and without telemetry; (d) early
+stopping on LeNet, ``EarlyStoppingTrainer`` and
+``EarlyStoppingParallelTrainer(workers=1)`` alike, the best model restoring
+to its recorded score.
 ``main`` prints each phase's host seconds (``timing:``).
 Each phase prints one or more lines;
 any failure raises, and the script exits nonzero. The last three lines are the
@@ -231,6 +250,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -7126,6 +7146,526 @@ def _catalog_memory(transfer, mobile, emb, card):
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 20: truncated BPTT, listeners, telemetry and early stopping
+# --------------------------------------------------------------------------
+TBPTT_CLASSES, TBPTT_UNITS, TBPTT_L = 77, 256, 40   # the zoo's TextGenerationLSTM
+TBPTT_B, TBPTT_T = 32, 1000   # GravesLSTMCharModellingExample's miniBatchSize, exampleLength
+TBPTT_BATCHES = 3             # (a)'s main path: fit batches, the score falling over them
+TBPTT_CPU_TOL = 1e-4          # the first chunk's gradients, card vs CPU, x the largest
+# one batch's params and RmsProp slots, card and CPU against the CPU in f64:
+# per tensor ||x_card - x_f64|| / ||x_cpu - x_f64||, median over tensors (phase
+# 4's rule): RmsProp's first steps move every param by ~4.5 lr whatever the
+# size of its gradient, so a gradient within f32 rounding of 0 takes either
+# sign in either run, and the runs part by ~0.09 there
+TBPTT_F64_MEDIAN = 1.25
+TBPTT_GRAPH_TOL = 1e-5        # the graph's batch vs the list network's on the card
+TEL_TOL = 1e-6                # telemetry vs norms of the step's own tensors, relative
+LISTEN_STEPS = 4              # (c): eager steps with and without listeners
+ES_BATCH, ES_TRAIN, ES_VAL, ES_LR = 64, 4, 2, 1e-3
+
+
+def markov_text(seed: int, b: int = TBPTT_B, t: int = TBPTT_T, classes: int = TBPTT_CLASSES):
+    """One-hot (x, y) of ``b`` rows of a seeded order-2 Markov chain over
+    ``classes`` symbols (each pair of symbols is followed by one of three,
+    with probabilities 0.6, 0.3, 0.1): text with structure, so that the
+    score can fall; y is x shifted by one step."""
+    rng = np.random.default_rng(seed)
+    table = np.random.default_rng(SEED + 199).integers(0, classes, (classes, classes, 3))
+    seq = np.empty((b, t + 1), np.int64)
+    seq[:, :2] = rng.integers(0, classes, (b, 2))
+    pick = rng.choice(3, size=(b, t + 1), p=[0.6, 0.3, 0.1])
+    rows = np.arange(b)
+    for i in range(2, t + 1):
+        seq[:, i] = table[seq[:, i - 2], seq[:, i - 1], pick[rows, i]]
+    eye = np.eye(classes, dtype=np.float32)
+    return eye[seq[:, :-1]], eye[seq[:, 1:]]
+
+
+def tbptt_phase(fl, fc, fu, card: str):
+    """Phase 20: (a) the zoo's TextGenerationLSTM (77 classes, 2 x
+    GravesLSTM(256), RmsProp(1e-2), tBPTT 40/40; f32, TF32 off) trained with
+    ``fit`` on batches of 32 sequences of 1000 characters of a seeded order-2
+    Markov chain: exactly 2 x 1000 ``fused_lstm_cell`` launches a batch, the
+    score falling over three batches, one batch's params and RmsProp slots
+    within TBPTT_CPU_TOL of a CPU twin's, a poisoned chunk keeping params,
+    slots and carries, ``ParallelWrapper(workers=1)`` tBPTT ``torch.equal``
+    to ``fit``, characters/s; (b) the same model as a ``ComputationGraph``,
+    one batch within TBPTT_GRAPH_TOL of (a)'s; (c) phase 4's ResNet-50 with
+    listeners: four eager steps with Score, CollectScores, Performance,
+    Checkpoint (every 2 iterations, keep last 1) and an introspecting
+    ParamAndGradient listener ``torch.equal`` to four without, the
+    introspected gradients ``torch.equal`` to the step's, a k-4 bundle with
+    bundle-aware listeners (one score fetch) equal to the eager steps, the
+    checkpoint's next step equal to the uninterrupted one, telemetry within
+    TEL_TOL of the step's own tensors eager, at k 4, guarded (a poisoned
+    step: update_norm 0, bad_count 1) and in the ZeRO-1 step (one
+    ``fused_adam`` a group), images/s with and without telemetry in one
+    round; (d) early stopping on LeNet (BASELINE #1): ``EarlyStoppingTrainer``
+    and ``EarlyStoppingParallelTrainer(workers=1)`` give the same result and
+    the best model restores to its recorded score."""
+    failed = []
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        lstm = _tbptt_lstm(fl, card, failed)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    listen = _deterministic_cudnn(lambda: _listeners_resnet(fc, fu, card, failed))
+    stop = _deterministic_cudnn(lambda: _early_stopping_lenet(card, failed))
+    main = {}
+    for part in (lstm, listen):
+        _add_launches(main, part["main_launches"])
+    print(f"phase 20 main-path launches {main}; took {time.perf_counter() - t0:.1f}s; "
+          f"on {card}", flush=True)
+    if not main.get("fused_lstm_cell") or not main.get("pw_conv") or not main.get("fused_adam"):
+        failed.append("a kernel of the path was never launched")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"main_launches": main, "lstm": lstm, "listeners": listen, "early_stopping": stop}
+
+
+def _lstm_twin(model, device):
+    """A TextGenerationLSTM on ``device`` holding copies of ``model``'s
+    params (its updater state made fresh)."""
+    from deeplearning4j_tpu_torch.models.textgen_lstm import TextGenerationLSTM
+
+    twin = TextGenerationLSTM(num_classes=TBPTT_CLASSES, units=TBPTT_UNITS,
+                              seed=SEED).init(device=device)
+    twin.params_ = [{k: t.detach().to(device).clone() for k, t in p.items()}
+                    for p in model.params_]
+    return twin
+
+
+def _tensor_names(net, part):
+    """(name, tensor) of a list network's params or updater slots, in
+    checkpoint order."""
+    if part == "params":
+        return [(f"{i}/{k}", p[k]) for i, p in enumerate(net.params_) for k in sorted(p)]
+    return list(_opt_tensors(net.opt_state_))
+
+
+def _rel_max(a, b) -> float:
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+def _tbptt_lstm(fl, card, failed):
+    """(a) and (b)."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.train import pipeline
+    from deeplearning4j_tpu_torch.train.faults import FaultPolicy, fault_injection
+
+    data = [DataSet(*markov_text(SEED + 200 + i)) for i in range(TBPTT_BATCHES)]
+    model = _textgen_start()
+    conf = model.conf
+    upd = dict(model.layers[0].updater)
+    if (conf.backprop_type, conf.tbptt_fwd_length, upd.get("@class")) != \
+            ("tbptt", TBPTT_L, "RmsProp"):
+        failed.append(f"(a) the zoo's configuration is {conf.backprop_type}/"
+                      f"{conf.tbptt_fwd_length}/{upd.get('@class')}")
+    start = [{k: t.clone() for k, t in p.items()} for p in model.params_]
+
+    def fresh(device="cuda"):
+        net = _lstm_twin(model, device)
+        net.params_ = [{k: t.to(device).clone() for k, t in p.items()} for p in start]
+        return net
+
+    # the main path: counts from 0 just before, read just after
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    scores, per_batch, secs = [], [], []
+    for i, ds in enumerate(data):
+        before = fl.launch_counts.get("fused_lstm_cell", 0)
+        t = time.perf_counter()
+        model.fit(ExistingDataSetIterator([ds]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        per_batch.append(fl.launch_counts.get("fused_lstm_cell", 0) - before)
+        scores.append(model.score())
+        if i == 0:
+            one = (model.params_flat(), model.opt_state_flat(), scores[0])
+            card1 = types.SimpleNamespace(params_=pipeline.tree_map(
+                lambda v: v.clone(), model.params_), opt_state_=pipeline.tree_map(
+                lambda v: v.clone(), model.opt_state_))
+    main = dict(fl.launch_counts)
+    chars_s = [TBPTT_B * TBPTT_T / s for s in secs]
+    chunks = -(-TBPTT_T // TBPTT_L)
+    print(f"phase 20 (a) TextGenerationLSTM {TBPTT_CLASSES} classes, 2 x GravesLSTM"
+          f"({TBPTT_UNITS}), RmsProp(1e-2), tBPTT {TBPTT_L}/{TBPTT_L}, f32 TF32 off: "
+          f"{TBPTT_BATCHES} batches of {TBPTT_B} x {TBPTT_T} characters ({chunks} chunks "
+          f"a batch); fused_lstm_cell launches a batch {per_batch} (want "
+          f"{2 * TBPTT_T}); scores {[round(s, 4) for s in scores]}; iteration "
+          f"{model.iteration}; characters/s (host clock, a batch) "
+          f"{[round(c, 1) for c in chars_s]}; main-path launches {main}", flush=True)
+    if any(n != 2 * TBPTT_T for n in per_batch):
+        failed.append(f"(a) fused_lstm_cell launches a batch {per_batch}")
+    if not all(math.isfinite(s) for s in scores) or not scores[-1] < scores[0]:
+        failed.append(f"(a) scores {scores} not finite or not falling")
+    if model.iteration != TBPTT_BATCHES:
+        failed.append(f"(a) iteration {model.iteration} after {TBPTT_BATCHES} batches")
+
+    # the CPU twins, f32 and f64: one batch from the same start; and the
+    # first chunk's gradients, card vs CPU
+    t = time.perf_counter()
+    cpu = fresh("cpu")
+    cpu.fit(ExistingDataSetIterator([data[0]]))
+    cpu64 = fresh("cpu")
+    cpu64.params_ = [{k: v.double() for k, v in d.items()} for d in cpu64.params_]
+    cpu64._input_dtype = torch.float64
+    cpu64.fit(ExistingDataSetIterator([data[0]]))
+    cpu_s = time.perf_counter() - t
+    p_err, o_err = _rel_max(one[0], cpu.params_flat()), _rel_max(one[1], cpu.opt_state_flat())
+    ratios = {}
+    for part in ("params", "slots"):
+        for i, names in enumerate(zip(*[_tensor_names(n, part) for n in (card1, cpu, cpu64)])):
+            (nm, a), (_, b), (_, f) = names
+            far = float(torch.linalg.vector_norm((b.double() - f.double()).flatten()))
+            ratios[f"{part}/{nm}"] = (float(torch.linalg.vector_norm(
+                (a.double().cpu() - f.double()).flatten())) / max(far, 1e-30))
+    med = {part: float(np.median([v for k, v in ratios.items() if k.startswith(part)]))
+           for part in ("params", "slots")}
+    chunk0 = DataSet(data[0].features[:, :TBPTT_L], data[0].labels[:, :TBPTT_L])
+    gc_, _ = fresh().compute_gradient_and_score(chunk0)
+    gp_, _ = fresh("cpu").compute_gradient_and_score(chunk0)
+    g_rel = max(float((gc_[i][k].cpu() - gp_[i][k]).abs().max()) for i in range(len(gp_))
+                for k in gp_[i]) / max(float(gp_[i][k].abs().max()) for i in range(len(gp_))
+                                       for k in gp_[i])
+    # (b) the same model as a ComputationGraph, one batch on the card
+    cg = fresh().to_computation_graph()
+    cg.conf.backprop_type, cg.conf.tbptt_fwd_length = "tbptt", TBPTT_L
+    cg.fit(ExistingDataSetIterator([data[0]]))
+    g_err = float(np.abs(cg.params_flat() - one[0]).max())
+    go_err = float(np.abs(cg.opt_state_flat() - one[1]).max())
+    # ParallelWrapper(workers=1) tBPTT against fit
+    wnet = fresh()
+    ParallelWrapper.builder(wnet).workers(1).build().fit(ExistingDataSetIterator([data[0]]))
+    torch.cuda.synchronize()
+    w_equal = (np.array_equal(wnet.params_flat(), one[0])
+               and np.array_equal(wnet.opt_state_flat(), one[1]))
+    # the guard: a poisoned chunk keeps params, slots and carries
+    gnet = fresh()
+    gnet.set_fault_policy(FaultPolicy())
+    step = gnet.tbptt_step_fn()
+    opt = gnet._ensure_opt_state()
+    fstate = gnet._ensure_fault_state(gnet._active_fault_policy())
+    g = torch.Generator().manual_seed(SEED + 202)
+    carries = [None if c is None else tuple(torch.randn(t.shape, generator=g).cuda() for t in c)
+               for c in gnet._init_carries(TBPTT_B)]
+    x, y = (torch.from_numpy(a[:, :TBPTT_L]).cuda() for a in (data[0].features, data[0].labels))
+    with fault_injection(nan_grad_steps=[0]):
+        p, o, _, f, c, _ = step(gnet.params_, opt, gnet.state_, fstate, carries, x, y, None,
+                                None, None, 0, 0)
+    torch.cuda.synchronize()
+    kept = all(torch.equal(a, b) for a, b in zip(
+        pipeline.tree_leaves((p, o, c)), pipeline.tree_leaves((gnet.params_, opt, carries))))
+    bad = int(f["bad_count"])
+    print(f"phase 20 (a) the first chunk's gradients, card vs CPU: max|dg| / max|g| "
+          f"{g_rel:.3g} (tol {TBPTT_CPU_TOL}); one batch, card vs CPU twin: max|dp| / max|p| "
+          f"{p_err:.3g}, max|dr| / max|r| {o_err:.3g}; against the CPU in f64, per tensor "
+          f"||x_card - x_f64|| / ||x_cpu - x_f64|| median params {med['params']:.3g}, slots "
+          f"{med['slots']:.3g} (<= {TBPTT_F64_MEDIAN}; {_quantiles(ratios)}; the CPU batches "
+          f"took {cpu_s:.1f}s); "
+          f"ParallelWrapper(workers=1) tBPTT == fit (params, slots) {w_equal}; a poisoned "
+          f"chunk keeps params, slots and carries {kept} (bad_count {bad}); (b) the graph's "
+          f"batch vs (a)'s max|dp| {g_err:.3g}, max|dr| {go_err:.3g} (tol {TBPTT_GRAPH_TOL}); "
+          f"on {card}", flush=True)
+    if g_rel > TBPTT_CPU_TOL or max(med.values()) > TBPTT_F64_MEDIAN:
+        failed.append(f"(a) card vs CPU: gradients {g_rel:.3g}, f64 yardstick {med}")
+    if not w_equal:
+        failed.append("(a) ParallelWrapper tBPTT differs from fit")
+    if not kept or bad != 1:
+        failed.append(f"(a) the poisoned chunk moved the model (kept {kept}, bad {bad})")
+    if g_err > TBPTT_GRAPH_TOL or go_err > TBPTT_GRAPH_TOL:
+        failed.append(f"(b) the graph differs by {g_err:.3g} / {go_err:.3g}")
+    del card1
+    for m in (model, cg, wnet, gnet):
+        m.params_ = m.state_ = m.opt_state_ = None
+    torch.cuda.empty_cache()
+    return {"main_launches": main, "launches_per_batch": per_batch, "scores": scores,
+            "chars_per_s": chars_s, "cpu_rel_err": {"params": p_err, "slots": o_err},
+            "chunk_grad_rel_err": g_rel, "f64_ratio_median": med,
+            "cpu_batch_s": cpu_s, "graph_err": {"params": g_err, "slots": go_err},
+            "wrapper_equal": w_equal, "poisoned_chunk_kept": kept}
+
+
+def _textgen_start():
+    """The zoo's TextGenerationLSTM at full width on the card, seeded, its
+    biases and peepholes randomized."""
+    from deeplearning4j_tpu_torch.models.textgen_lstm import TextGenerationLSTM
+
+    model = TextGenerationLSTM(num_classes=TBPTT_CLASSES, units=TBPTT_UNITS, seed=SEED).init()
+    randomize_lstm(model, SEED + 201)
+    return model
+
+
+class _TelemetryRows:
+    """Listener: every step's telemetry as a dict of floats."""
+
+    def __init__(self):
+        self.rows = []
+
+    def telemetry_done(self, model, it0, epoch, bt):
+        for j in range(len(bt)):
+            self.rows.append(bt.step(j))
+
+    def iteration_done(self, model, iteration, epoch):
+        pass
+
+
+class _FirstGradients:
+    """Listener: the introspected gradients of iteration 1."""
+
+    def __init__(self):
+        self.grads = None
+
+    def needs_introspection(self, next_iteration):
+        return next_iteration == 1
+
+    def on_gradient_calculation(self, model, gradients):
+        self.grads = gradients
+
+    def iteration_done(self, model, iteration, epoch):
+        pass
+
+
+def _norm64(tensors) -> float:
+    """The L2 norm in f64 over ``tensors``."""
+    return math.sqrt(sum(float(torch.sum(t.double() ** 2)) for t in tensors))
+
+
+def _own_norms(grads, before, after) -> dict:
+    """Global norms of a step's own tensors (f64): its gradients, the params
+    before it and the update it applied."""
+    g = [t for _, t in _flat(grads)]
+    p0 = dict(_flat(before))
+    p1 = dict(_flat(after))
+    pn = _norm64(p0.values())
+    un = _norm64([p1[k].float() - p0[k].float() for k in p0])
+    return {"grad_norm": _norm64(g), "param_norm": pn, "update_norm": un,
+            "update_ratio": un / max(pn, 1e-12)}
+
+
+def _tel_err(got: dict, want: dict) -> float:
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want)
+
+
+def _listeners_resnet(fc, fu, card, failed):
+    """(c), under deterministic cuDNN."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.obs import telemetry as tel
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, zero
+    from deeplearning4j_tpu_torch.train import listeners as tl
+    from deeplearning4j_tpu_torch.train import pipeline
+    from deeplearning4j_tpu_torch.train.faults import FaultPolicy, fault_injection
+    from deeplearning4j_tpu_torch.train.model_serializer import ModelSerializer
+    from deeplearning4j_tpu_torch.updaters import Adam, Nesterovs
+
+    def it(batches):
+        return ExistingDataSetIterator(list(batches))
+
+    start, _ = resnet50(updater=Nesterovs(TRAIN_LR, 0.9))
+    rng = np.random.default_rng(SEED + 210)
+    data = [DataSet(rng.standard_normal((BATCH, 224, 224, 3)).astype(np.float32),
+                    np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)])
+            for _ in range(LISTEN_STEPS + 1)]
+    g0, _ = start.compute_gradient_and_score(data[0])
+    plain = start.clone()
+    plain.fit(it(data[:LISTEN_STEPS]))
+    # the main path: counts from 0 just before, read just after
+    with tempfile.TemporaryDirectory(dir=os.getcwd(), prefix=".phase20-") as tmp:
+        lines = []
+        collect = tl.CollectScoresIterationListener()
+        perf = tl.PerformanceListener(2, printer=lines.append)
+        ckpt = tl.CheckpointListener(tmp, save_every_n_iterations=2, keep_mode="last",
+                                     keep_last=1)
+        pg = tl.ParamAndGradientIterationListener(LISTEN_STEPS, output_to_console=False,
+                                                  file=os.path.join(tmp, "pg.tsv"))
+        first = _FirstGradients()
+        model = start.clone()
+        model.set_listeners(tl.ScoreIterationListener(1, lines.append), collect, perf, ckpt,
+                            pg, first)
+        torch.cuda.synchronize()
+        fc.reset_launch_counts()
+        t = time.perf_counter()
+        model.fit(it(data[:LISTEN_STEPS]))
+        torch.cuda.synchronize()
+        listen_s = time.perf_counter() - t
+        main = dict(fc.launch_counts)
+        equal = _states_equal(model, plain)
+        files = sorted(os.listdir(tmp))
+        with open(os.path.join(tmp, "pg.tsv")) as f:
+            pg_rows = len(f.read().splitlines())
+        resumed = ModelSerializer.restore_computation_graph(ckpt.checkpoints[-1])
+    grads_equal = first.grads is not None and all(
+        np.array_equal(first.grads[v][k], g0[v][k].float().cpu().numpy())
+        for v in g0 for k in g0[v])
+    # a k-4 bundle with bundle-aware listeners and telemetry
+    bundled = start.clone()
+    bundled.conf.global_conf.steps_per_call = LISTEN_STEPS
+    bundled.conf.global_conf.telemetry = True
+    bcollect, brows = tl.CollectScoresIterationListener(), _TelemetryRows()
+    bundled.set_listeners(tl.ScoreIterationListener(2, lines.append), bcollect, brows)
+    fetches = pipeline._host_fetches
+    bundled.fit(it(data[:LISTEN_STEPS]))
+    torch.cuda.synchronize()
+    fetches = pipeline._host_fetches - fetches
+    b_equal = _states_equal(bundled, plain)
+    captured = bundled._bundled is not None and bundled._bundled._graph is not None
+    # telemetry eager: the first step against its own tensors, four steps
+    # against the bundle's and the plain run
+    one = start.clone()
+    one.conf.global_conf.telemetry = True
+    one.fit(it(data[:1]))
+    torch.cuda.synchronize()
+    own = _own_norms(g0, start.params_, one.params_)
+    got1 = {k: float(v) for k, v in one.step_telemetry_.items()}
+    e1 = _tel_err(got1, own)
+    teager = start.clone()
+    teager.conf.global_conf.telemetry = True
+    erows = _TelemetryRows()
+    teager.set_listeners(erows)
+    teager.fit(it(data[:LISTEN_STEPS]))
+    t_equal = _states_equal(teager, plain)
+    ek = max(_tel_err(b, e) for b, e in zip(brows.rows, erows.rows)) if brows.rows else 1.0
+    # guarded: a poisoned step
+    guarded = start.clone()
+    guarded.conf.global_conf.telemetry = True
+    guarded.set_fault_policy(FaultPolicy())
+    with fault_injection(nan_grad_steps=[0]):
+        guarded.fit(it(data[:1]))
+    gt = {k: float(v) for k, v in guarded.step_telemetry_.items()}
+    # the checkpoint's next step against the uninterrupted run's
+    plain.fit(it(data[LISTEN_STEPS:]))
+    resumed.fit(it(data[LISTEN_STEPS:]))
+    torch.cuda.synchronize()
+    r_equal = _states_equal(resumed, plain)
+    # images/s with and without telemetry, one round
+    runs = _in_turns([("plain", lambda: plain.fit(it(data[:LISTEN_STEPS]))),
+                      ("telemetry", lambda: teager.fit(it(data[:LISTEN_STEPS])))])
+    per_s = {k: [BATCH * LISTEN_STEPS / s for s in v["s"]] for k, v in runs.items()}
+    for m in (start, plain, model, resumed, bundled, one, teager, guarded):
+        m.params_ = m.state_ = m.opt_state_ = m.fault_state_ = m._bundled = None
+    del g0, first
+    torch.cuda.empty_cache()
+    # the ZeRO-1 step with telemetry: Adam, one fused_adam a group
+    zm, _ = resnet50(updater=Adam(ADAM_LR))
+    zm.conf.global_conf.telemetry = True
+    gz, _ = zm.compute_gradient_and_score(data[0])
+    p0 = {v: {k: t.clone() for k, t in d.items()} for v, d in zm.params_.items()}
+    groups = sum(i is not None for i in fu.resolve_group_impls(zero.build_layout(zm, 1)))
+    torch.cuda.synchronize()
+    fc.reset_launch_counts()
+    ParallelWrapper.builder(zm).workers(1).sharded_update(True).build().fit(it(data[:1]))
+    torch.cuda.synchronize()
+    zlaunch = dict(fc.launch_counts)
+    zown = _own_norms(gz, p0, zm.params_)
+    ez = _tel_err({k: float(v) for k, v in zm.step_telemetry_.items()}, zown)
+    _add_launches(main, zlaunch)
+    zm.params_ = zm.state_ = zm.opt_state_ = None
+    del gz, p0
+    torch.cuda.empty_cache()
+    print(f"phase 20 (c) ResNet-50 bf16 fused, batch {BATCH}, deterministic cuDNN: "
+          f"{LISTEN_STEPS} eager steps with Score, CollectScores, Performance, Checkpoint "
+          f"(every 2, keep last 1) and introspecting ParamAndGradient listeners == without "
+          f"{equal} ({listen_s:.1f}s with them); introspected gradients == the step's "
+          f"{grads_equal}; files kept {files} ({pg_rows} gradient-listener lines); "
+          f"collected {[(i, round(s, 4)) for i, s in collect.scores]}; k-{LISTEN_STEPS} "
+          f"bundle == eager {b_equal} (captured {captured}), {fetches} score fetch, "
+          f"collected {bcollect.scores == collect.scores}; the checkpoint's next step == the "
+          f"uninterrupted one {r_equal}; telemetry: first step vs its own tensors rel "
+          f"{e1:.3g}, bundle vs eager rel {ek:.3g}, telemetry run == plain {t_equal}, "
+          f"guarded poisoned step {gt}, ZeRO-1 step ({zlaunch.get('fused_adam', 0)} "
+          f"fused_adam, G {groups}) rel {ez:.3g} (tol {TEL_TOL}); images/s (one round) "
+          + "; ".join(f"{k} {[round(v, 1) for v in vals]}" for k, vals in per_s.items())
+          + f"; on {card}", flush=True)
+    checks = {"listeners == without": all(equal.values()), "gradients": grads_equal,
+              "files": files == sorted([os.path.basename(ckpt.checkpoints[-1]), "pg.tsv"])
+              and len(ckpt.checkpoints) == 1 and pg_rows == 2,
+              "scores": [i for i, _ in collect.scores] == list(range(1, LISTEN_STEPS + 1)),
+              "bundle": all(b_equal.values()) and captured and fetches == 1
+              and bcollect.scores == collect.scores,
+              "resumed": all(r_equal.values()),
+              "telemetry eager": e1 <= TEL_TOL and all(t_equal.values()),
+              "telemetry k4": ek <= TEL_TOL and len(brows.rows) == LISTEN_STEPS,
+              "telemetry guarded": gt.get("update_norm") == 0.0 and gt.get("bad_count") == 1,
+              "telemetry zero1": ez <= TEL_TOL and zlaunch.get("fused_adam") == groups}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        failed.append(f"(c) {bad}")
+    return {"main_launches": main, "checks": checks, "listen_s": listen_s,
+            "telemetry_rel_err": {"eager": e1, "k4": ek, "zero1": ez}, "guarded": gt,
+            "images_per_s": per_s, "fused_adam_groups": groups}
+
+
+def lenet_mnist_like(seed: int, n: int):
+    """``n`` MNIST-shaped batches of ES_BATCH: a seeded 28x28 template a
+    class plus noise, one-hot labels (10 classes)."""
+    rng = np.random.default_rng(seed)
+    templates = np.random.default_rng(SEED + 219).uniform(0, 1, (10, 28, 28, 1))
+    out = []
+    for _ in range(n):
+        cls = rng.integers(0, 10, ES_BATCH)
+        x = (templates[cls] + rng.normal(0, 1.0, (ES_BATCH, 28, 28, 1))).astype(np.float32)
+        out.append((x, np.eye(10, dtype=np.float32)[cls]))
+    return out
+
+
+def _early_stopping_lenet(card, failed):
+    """(d), under deterministic cuDNN."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import LeNet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.train import earlystopping as es
+    from deeplearning4j_tpu_torch.updaters import Adam
+
+    train = [DataSet(x, y) for x, y in lenet_mnist_like(SEED + 220, ES_TRAIN)]
+    val = [DataSet(x, y) for x, y in lenet_mnist_like(SEED + 221, ES_VAL)]
+    results, rescored = [], []
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.getcwd(), prefix=".phase20-") as tmp:
+        for parallel in (False, True):
+            net = LeNet(num_classes=10, seed=SEED, updater=Adam(ES_LR)).init()
+            cfg = (es.EarlyStoppingConfiguration.Builder()
+                   .score_calculator(es.DataSetLossCalculator(ExistingDataSetIterator(val)))
+                   .epoch_termination_conditions(es.MaxEpochsTerminationCondition(5),
+                                                 es.ScoreImprovementEpochTerminationCondition(2))
+                   .model_saver(es.LocalFileModelSaver(os.path.join(tmp, str(parallel))))
+                   .build())
+            train_it = ExistingDataSetIterator(train)
+            trainer = (es.EarlyStoppingParallelTrainer(
+                cfg, net, train_it, wrapper=ParallelWrapper.builder(net).workers(1).build())
+                if parallel else es.EarlyStoppingTrainer(cfg, net, train_it))
+            r = trainer.fit()
+            best = r.get_best_model()
+            rescored.append(es.DataSetLossCalculator(ExistingDataSetIterator(val))
+                            .calculate_score(best))
+            results.append(r)
+    es_s = time.perf_counter() - t
+    a, b = results
+    same = (a.termination_reason == b.termination_reason
+            and a.termination_details == b.termination_details
+            and a.best_model_epoch == b.best_model_epoch
+            and a.score_vs_epoch == b.score_vs_epoch)
+    restores = all(abs(s - r.best_model_score) <= 1e-6 * abs(r.best_model_score)
+                   for s, r in zip(rescored, results))
+    print(f"phase 20 (d) LeNet (BASELINE #1), Adam({ES_LR}), {ES_TRAIN} batches of "
+          f"{ES_BATCH} an epoch, DataSetLossCalculator on {ES_VAL} batches, MaxEpochs(5) + "
+          f"ScoreImprovement(2): {a.termination_reason} ({a.termination_details}), best epoch "
+          f"{a.best_model_epoch} score {a.best_model_score:.6g}, scores "
+          f"{ {e: round(s, 5) for e, s in a.score_vs_epoch.items()} }; "
+          f"EarlyStoppingParallelTrainer(workers=1) gives the same result {same}; the best "
+          f"models (zips) rescore {[round(s, 6) for s in rescored]} ({restores}); "
+          f"{es_s:.1f}s; on {card}", flush=True)
+    if not same or not restores or a.best_model_epoch < 0:
+        failed.append(f"(d) early stopping: same {same}, restores {restores}")
+    return {"reason": a.termination_reason, "details": a.termination_details,
+            "best_model_epoch": a.best_model_epoch, "best_model_score": a.best_model_score,
+            "score_vs_epoch": {str(k): v for k, v in a.score_vs_epoch.items()},
+            "parallel_same": same, "best_restores": restores}
+
+
 def timed(phase, *args):
     """``phase(*args)``, its host seconds printed (the script's time limit)."""
     t0 = time.perf_counter()
@@ -7192,6 +7732,7 @@ def main() -> int:
     zoo = timed(zoo_phase, fc, im, card)
     sent = timed(sentiment_phase, fl, card)
     catalog = timed(catalog_phase, fc, im, fl, card)
+    tbptt = timed(tbptt_phase, fl, fc, fu, card)
 
     # launches: the fused convs' from the train phase's main path (TRAIN_STEPS
     # fit steps), the int8 matmul's from phase 5's (the int8 VGG16 engine),
@@ -7287,6 +7828,14 @@ def main() -> int:
         # int8 engine (warm-up and two requests), the embedding classifier's
         # forward and eager steps
         entry_k["launches_catalog"] = catalog["main_launches"].get(name, 0)
+        # phase 20: the TextGenerationLSTM's tBPTT batches (the cell's), the
+        # ResNet-50's eager steps with listeners and the telemetry ZeRO-1
+        # step (the convs' and the fused Adam's)
+        if name == "fused_lstm_cell":
+            entry_k["launches_tbptt"] = tbptt["lstm"]["main_launches"].get(name, 0)
+            entry_k["launches_per_tbptt_batch"] = tbptt["lstm"]["launches_per_batch"][0]
+        else:
+            entry_k["launches_listeners"] = tbptt["listeners"]["main_launches"].get(name, 0)
         kernels.append(entry_k)
     import torch.distributed as dist
 
@@ -7305,7 +7854,8 @@ def main() -> int:
                    "transformer": lm, "transformer_train": lm_train, "zero1": zero1,
                    "entry_points": entry, "guard": guard, "parallel_inference": pinf,
                    "knobs": knobs, "dropout": drop, "remat": remat, "zoo": zoo,
-                   "sentiment": sent, "catalog": catalog, "kernels": kernels},
+                   "sentiment": sent, "catalog": catalog, "tbptt": tbptt,
+                   "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

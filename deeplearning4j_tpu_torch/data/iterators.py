@@ -1,7 +1,7 @@
 """DataSetIterator protocol and the iterators ``fit`` consumes.
 
 Counterpart of ``deeplearning4j_tpu/data/iterators.py`` (the subset the
-training slices need): ``has_next()/next()/reset()/batch()`` plus Python
+fit loops need): ``has_next()/next()/reset()/batch()`` plus Python
 iteration, and the batch stacker of the bundled train step
 (:class:`BatchBundle`, :func:`iter_grouped`, :func:`iter_bundled`).
 Pre-processors, async prefetch (and its ``bundle_size`` stage) and the

@@ -3,10 +3,10 @@ GravesLSTM layers and a per-timestep softmax head.
 
 Counterpart of ``deeplearning4j_tpu/models/textgen_lstm.py`` (``:21-42``):
 the same configuration, so its JSON is the reference's. The configuration
-names ``RmsProp(1e-2)`` and tBPTT 40/40 for training; the port carries
-both as configuration data and serves the model (``InferenceEngine`` with
-sequence buckets, ``GenerationEngine``); training comes with the recurrent
-training slice (ROADMAP § A).
+names ``RmsProp(1e-2)`` and tBPTT 40/40, which ``fit`` trains with
+(``nn/multilayer.py``: chunks of 40 steps, one update a chunk); the model
+serves through ``InferenceEngine`` (sequence buckets) and
+``GenerationEngine``.
 """
 
 from __future__ import annotations

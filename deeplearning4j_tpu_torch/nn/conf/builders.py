@@ -291,14 +291,16 @@ class NeuralNetConfiguration:
         return self
 
     def telemetry(self, conf) -> "NeuralNetConfiguration":
-        """In-graph training telemetry: the reference's ``TelemetryConf``
-        dict (True for its defaults), or None. Stored and written to the
-        JSON; training with it is refused until it is ported (ROADMAP §
-        A8, ``check_train_conf``)."""
+        """In-graph training telemetry (``obs/telemetry.TelemetryConf``):
+        the gradient's and params' global norms, the update's norm and its
+        ratio to the params', the loss scale, computed on the device inside
+        every train step and handed to listeners (``telemetry_done``) with
+        one host fetch a bundle. A ``TelemetryConf``, True for its
+        defaults, or None. Training is the same bits with it on or off."""
+        from deeplearning4j_tpu_torch.obs.telemetry import TelemetryConf
+
         if conf is True:
-            conf = serde.TaggedConf({"@class": "TelemetryConf", "grad_norm": True,
-                                     "param_norm": True, "update_ratio": True,
-                                     "loss_scale": True})
+            conf = TelemetryConf()
         self._g.telemetry = conf
         return self
 
@@ -358,9 +360,11 @@ class ListBuilder:
 
     def backprop_type(self, t: str, fwd_length: int = 20,
                       back_length: int = 20) -> "ListBuilder":
-        """``"standard"`` or ``"tbptt"`` with its forward/backward lengths:
-        configuration data (the JSON both packages write). Training with
-        it comes with the recurrent training slice (ROADMAP § A)."""
+        """``"standard"`` or ``"tbptt"`` (truncated backpropagation through
+        time) with its forward/backward lengths: ``fit`` cuts a 3-D batch
+        into chunks of ``fwd_length`` steps, one update a chunk, the
+        recurrent state carried across chunks without a gradient.
+        ``back_length`` is stored and not read, as in the reference."""
         self._backprop_type = t.lower()
         self._tbptt_fwd = int(fwd_length)
         self._tbptt_back = int(back_length)

@@ -180,6 +180,9 @@ class GraphBuilder:
         self._vertices: Dict[str, GraphVertex] = {}
         self._vertex_inputs: Dict[str, List[str]] = {}
         self._input_types: Optional[List[InputType]] = None
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def add_inputs(self, *names: str) -> "GraphBuilder":
         for n in names:
@@ -229,6 +232,15 @@ class GraphBuilder:
         self._outputs = list(names)
         return self
 
+    def backprop_type(self, t: str, fwd_length: int = 20,
+                      back_length: int = 20) -> "GraphBuilder":
+        """``"standard"`` or ``"tbptt"`` with its forward/backward lengths,
+        as the list builder's (``back_length`` is stored, not read)."""
+        self._backprop_type = t.lower()
+        self._tbptt_fwd = int(fwd_length)
+        self._tbptt_back = int(back_length)
+        return self
+
     def build(self) -> ComputationGraphConfiguration:
         from deeplearning4j_tpu_torch.nn.conf.builders import infer_preprocessor
 
@@ -265,4 +277,6 @@ class GraphBuilder:
         return ComputationGraphConfiguration(
             global_conf=self._g, network_inputs=self._inputs,
             network_outputs=self._outputs, vertices=self._vertices,
-            vertex_inputs=self._vertex_inputs, input_types=self._input_types)
+            vertex_inputs=self._vertex_inputs, input_types=self._input_types,
+            backprop_type=self._backprop_type, tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back)

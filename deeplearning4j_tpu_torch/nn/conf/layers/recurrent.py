@@ -18,8 +18,8 @@ forward, with masks and carries). Layout at the API is the reference's:
   for CUDA tensors. Other activations run the layer's own step.
 - Matmuls promote as JAX does (:func:`fused_lstm._mm`): under
   ``compute_dtype`` a bf16 ``x`` meets f32 carries and computes in f32.
-- ``compute_score`` (training) comes with the training core (ROADMAP § A,
-  slice 4) and raises.
+- The heads' ``compute_score`` is the per-example loss over every time
+  step, the label mask broadcast over the outputs as ``mask[..., None]``.
 """
 
 from __future__ import annotations
@@ -29,15 +29,12 @@ from typing import Any, Optional
 import torch
 
 from deeplearning4j_tpu_torch import activations as _act
+from deeplearning4j_tpu_torch import losses as _losses
 from deeplearning4j_tpu_torch.nn.conf import serde
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import FeedForwardLayer, Layer, LayerWrapper
 from deeplearning4j_tpu_torch.nn.conf.layers.core import _affine
 from deeplearning4j_tpu_torch.nn.ops.fused_lstm import _mm
-
-NO_SCORE = ("training the recurrent heads is not ported yet (ROADMAP § A, "
-            "slice 4: the rest of the training core)")
-
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of a carry: a tensor or a tuple of tensors."""
@@ -355,7 +352,10 @@ class RnnOutputLayer(FeedForwardLayer):
         return y, state or {}
 
     def compute_score(self, params, x, labels, mask=None):
-        raise NotImplementedError(f"RnnOutputLayer.compute_score: {NO_SCORE}")
+        """Per-example loss of the (b, T, nOut) pre-activations; masked
+        steps contribute nothing."""
+        m = None if mask is None else mask[..., None]
+        return _losses.get(self.loss)(labels, _affine(params, x), self.activation, m)
 
 
 @serde.register
@@ -377,4 +377,6 @@ class RnnLossLayer(Layer):
         return y, state or {}
 
     def compute_score(self, params, x, labels, mask=None):
-        raise NotImplementedError(f"RnnLossLayer.compute_score: {NO_SCORE}")
+        """Per-example loss of the input taken as the pre-activation."""
+        m = None if mask is None else mask[..., None]
+        return _losses.get(self.loss)(labels, x, self.activation, m)

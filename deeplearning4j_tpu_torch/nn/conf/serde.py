@@ -6,13 +6,12 @@ packages read and write the same configuration dicts.
 
 Updaters, schedules, distributions and the regularization config are
 :class:`TaggedConf` dicts with their maths (``updaters.py``,
-``initializers.py``, ``regularization.py``); a telemetry config, which the
-port carries but does not interpret, is kept as its JSON dict, written back
-unchanged. A ``{"@type": "constraint"}`` dict decodes into its class in
+``initializers.py``, ``regularization.py``). A ``{"@type": "constraint"}`` dict decodes into its class in
 ``regularization.py``; the dropout and weight-noise classes
 (``nn/conf/dropouts.py``) resolve by ``@class``; both modules load with
 the layer catalog. A ``FaultPolicy`` decodes into
-``train/faults.FaultPolicy``, whose module registers itself when first
+``train/faults.FaultPolicy`` and a ``TelemetryConf`` into
+``obs/telemetry.TelemetryConf``, whose modules register them when first
 asked for.
 """
 
@@ -24,12 +23,10 @@ from typing import Any, Dict
 # config classes resolvable from @class tags, filled by register() calls
 _CLASSES: Dict[str, type] = {}
 
-# @class names of GlobalConf fields the port carries as plain data
-_OPAQUE_CLASSES = ("TelemetryConf",)
-
 # @class names registered by a module that this one cannot import at its top
 # (it imports this one): imported at the first lookup
-_LAZY = {"FaultPolicy": "deeplearning4j_tpu_torch.train.faults"}
+_LAZY = {"FaultPolicy": "deeplearning4j_tpu_torch.train.faults",
+         "TelemetryConf": "deeplearning4j_tpu_torch.obs.telemetry"}
 
 
 class UnknownConfigClassError(KeyError):
@@ -84,7 +81,7 @@ def decode(data: Any) -> Any:
     if isinstance(data, dict):
         if data.get("@type") == "constraint":
             return lookup(data["@class"]).from_dict(data)
-        if "@type" in data or data.get("@class") in _OPAQUE_CLASSES:
+        if "@type" in data:
             return TaggedConf(copy.deepcopy(data))
         if "@class" in data:
             return lookup(data["@class"]).from_dict(data)

@@ -32,8 +32,16 @@ reference's guarded one (``nn/multilayer.guarded_update``,
 ``train/faults.py``), eager and bundled. ``remat_policy`` makes each layer
 vertex's train-mode step a checkpointed region (``nn/remat.py``).
 A ``CenterLossOutputLayer``'s score reads its centers and its train step
-moves them (``nn/conf/layers/special.py``). Telemetry, listeners and tBPTT
-are not ported yet and raise.
+moves them (``nn/conf/layers/special.py``). Listeners and telemetry as in
+``nn/multilayer.py``.
+
+Truncated BPTT (``GraphBuilder.backprop_type("tbptt")``, the reference's
+graph ``doTruncatedBPTT``): the batch's time-series arrays (3-D features and
+labels, 2-D masks of the batch's length) are cut into chunks of
+``tbptt_fwd_length`` steps and each chunk is one update from the recurrent
+state the previous one left, detached; the other inputs go whole into every
+chunk. As the reference's, this path takes no fault policy: it warns that
+the policy is not applied and runs the chunks unguarded.
 
 Feature masks flow as in the reference's walk: one (b, T) mask a network
 input (``output(*inputs, masks=)``, a MultiDataSet's ``features_masks``),
@@ -88,10 +96,13 @@ from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_input_dropout, ap
 from deeplearning4j_tpu_torch.nn.conf.layers.special import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.nn.multilayer import (
     NetworkMethods,
+    _host_array,
     apply_layer_updates,
     bundle_step_of,
     cast_layer_params_for_compute,
+    TBPTT_LABELS,
     check_train_conf,
+    detach_carries,
     differentiable,
     flatten_tensors,
     gradients_of,
@@ -100,14 +111,13 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     mask_after,
     pretrain_layer_steps,
     remat_policy_of,
+    tbptt_chunks,
     unflatten_tensors,
 )
 from deeplearning4j_tpu_torch.regularization import as_regularization
 from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 from deeplearning4j_tpu_torch.updaters import as_updater, step_iteration
-
-NOT_PORTED = "not ported yet (ROADMAP § A, training slices)"
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -144,6 +154,12 @@ class ComputationGraph(NetworkMethods):
         self._input_dtype: Optional[torch.dtype] = None
         #: the streaming state of :meth:`rnn_time_step`
         self._rnn_carries: Optional[Dict[str, Any]] = None
+        #: the training listeners (``train/listeners.py``)
+        self.listeners: List[Any] = []
+        #: the rows of the last batch a fit step took (``PerformanceListener``)
+        self.last_batch_size: Optional[int] = None
+        #: the last train step's telemetry dict (device tensors), or None
+        self.step_telemetry_: Optional[Dict[str, torch.Tensor]] = None
         self._output_layers()
 
     def _layer(self, name: str):
@@ -368,14 +384,17 @@ class ComputationGraph(NetworkMethods):
 
     # ----------------------------------------------------------------- scoring
     def _loss_and_new_state(self, params, state, features, labels, fmasks, lmasks,
-                            train: bool = True, noise=None, remat=None):
+                            train: bool = True, noise=None, remat=None, carries=None):
         """Mean per-example loss summed over the outputs (f32: under a
         compute dtype the output layer's input is widened first), and the
         layers' new state. An output layer's label mask defaults to the
         feature mask that reaches it. An output layer's weight noise is drawn
-        here. ``remat``: the train step's remat policy."""
-        _, out_inputs, new_state = self._forward(params, state, features, train=train,
-                                                 noise=noise, remat=remat, fmasks=fmasks)
+        here. ``remat``: the train step's remat policy. ``carries`` (a tBPTT
+        chunk): the walk starts from them, and their final values come back
+        third."""
+        walked = self._forward(params, state, features, train=train, noise=noise,
+                               remat=remat, fmasks=fmasks, carries=carries)
+        out_inputs, new_state = walked[1], walked[2]
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, name in enumerate(self.conf.network_outputs):
             x, m = out_inputs[name]
@@ -395,6 +414,8 @@ class ComputationGraph(NetworkMethods):
             else:
                 per_ex = layer.compute_score(p_out, x, labels[i], lmask)
             loss = loss + per_ex.mean()
+        if carries is not None:
+            return loss, new_state, walked[3]
         return loss, new_state
 
     def _reg_score(self, params) -> torch.Tensor:
@@ -431,23 +452,28 @@ class ComputationGraph(NetworkMethods):
                 [tensor(m, True) for m in mds.labels_masks])
 
     def _value_and_grad(self, feats, labels, fmasks=None, lmasks=None, scale=None,
-                        noise=None, params=None, state=None):
+                        noise=None, params=None, state=None, carries=None):
         """(loss, new_state, grads) of a train-mode forward at ``params`` and
         ``state`` (default ``params_``, ``state_``), under the configuration's
         remat policy; grads has the layout of ``params_``. ``scale``: the
         fault policy's loss scale (the gradients of ``loss * scale``, loss
         and gradients multiplied back by ``1 / scale``). ``noise``: the
-        step's noise source (default :meth:`step_noise` on rank 0)."""
+        step's noise source (default :meth:`step_noise` on rank 0).
+        ``carries`` (a tBPTT chunk): the walk starts from them, and the
+        final carries, detached, come back fourth."""
         params = self.params_ if params is None else params
         diff = differentiable({v: self._layer(v) for v in params}, params)
-        loss, new_state = self._loss_and_new_state(
+        out = self._loss_and_new_state(
             diff, self.state_ if state is None else state, feats, labels, fmasks, lmasks,
             noise=self.step_noise() if noise is None else noise,
-            remat=remat_policy_of(self))
+            remat=remat_policy_of(self), carries=carries)
+        loss, new_state = out[0], out[1]
         if scale is not None:
             loss = loss * scale
         grads = gradients_of(loss, diff)
         loss, grads = _faults.unscale(loss.detach(), grads, scale)
+        if carries is not None:
+            return loss, new_state, grads, detach_carries(out[2])
         return loss, new_state, grads
 
     def score(self, ds: Optional[Union[DataSet, MultiDataSet]] = None) -> float:
@@ -470,11 +496,8 @@ class ComputationGraph(NetworkMethods):
         return grads, float(loss + self._reg_score(self.params_))
 
     # ------------------------------------------------------------------- fit
-    def set_listeners(self, *listeners) -> None:
-        raise NotImplementedError(f"training listeners are {NOT_PORTED}")
-
     def _check_trainable(self) -> None:
-        check_train_conf(self.conf, NOT_PORTED)
+        check_train_conf(self.conf)
 
     def _ensure_opt_state(self) -> Dict[str, Dict[str, Tensors]]:
         if self.opt_state_ is None:
@@ -490,41 +513,104 @@ class ComputationGraph(NetworkMethods):
         """Train: one step per minibatch, ``epochs`` passes. With
         ``steps_per_call`` k > 1, every k consecutive batches of one layout
         take one bundled call (``train/pipeline.py``); the ragged tail of an
-        epoch and a change of shape take single steps."""
+        epoch and a change of shape take single steps. Under
+        ``backprop_type("tbptt")`` a batch whose first input is 3-D is
+        trained in chunks (:meth:`_fit_tbptt_batch`)."""
         if self.params_ is None:
             raise ValueError("init() the graph (or load params) first")
         if isinstance(data, DataSet):
             data = ListDataSetIterator(data, batch_size)
         if isinstance(data, MultiDataSet):
             data = MultiDataSetIterator.from_list([data])
-        k = _pipeline.resolve_steps_per_call(self)
-        self._check_trainable()
-        policy = self._active_fault_policy()
-        if policy is not None:
-            self._ensure_fault_state(policy)
-        try:
-            for _ in range(epochs):
-                stream = (_as_multi(ds) for ds in data)
-                if k > 1:
-                    stream = iter_grouped(stream, k, multi_compat_key)
-                for item in stream:
-                    if isinstance(item, list):
-                        bstep = self._bundle_step(k, mask_presence(item[0]))
-                        self.bundle_scores_ = bstep(self._batch_tensors(stack_multi(item)))
-                    else:
-                        self._fit_batch(item)
-                    _faults.check_fault_state(policy, self.fault_state_, owner=self)
-                data.reset()
-                self.epoch += 1
-        finally:
-            if k > 1 and self._bundled is not None:
-                # the model's state lies in the buffers of the bundle that
-                # ran last
-                self._bundled.release()
+        self._fit_epochs(data, epochs)
         return self
 
+    def _epoch_stream(self, it, k: int):
+        stream = (_as_multi(ds) for ds in it)
+        return iter_grouped(stream, k, multi_compat_key) if k > 1 else stream
+
+    def _fit_item(self, item, k: int) -> None:
+        if isinstance(item, list):
+            bstep = self._bundle_step(k, mask_presence(item[0]))
+            self._fit_bundle(bstep, self._batch_tensors(stack_multi(item)))
+        elif (getattr(self.conf, "backprop_type", "standard") == "tbptt"
+              and np.ndim(item.features[0]) == 3):
+            self._fit_tbptt_batch(item)
+        else:
+            self._fit_batch(item)
+
+    def _release_bundles(self) -> None:
+        # the model's state lies in the buffers of the bundle that ran last
+        if self._bundled is not None:
+            self._bundled.release()
+
     def _fit_batch(self, mds: MultiDataSet) -> None:
-        self._train_step(self._batch(mds))
+        self._fit_single(self._batch(mds))
+
+    # ----------------------------------------------------------------- tBPTT
+    def _fit_tbptt_batch(self, mds: MultiDataSet) -> None:
+        """One batch of truncated BPTT over the graph: each time-series array
+        (3-D data, a 2-D mask, of the first input's length) cut by chunk,
+        the others whole; one unguarded update a chunk from the carries the
+        last one left; then ``iteration + 1`` and ``iteration_done``."""
+        if self._active_fault_policy() is not None:
+            import warnings
+
+            warnings.warn(
+                "fault_policy is not applied on the ComputationGraph tBPTT path: "
+                "non-finite gradient chunks are NOT skipped and loss scaling is off "
+                "(use MultiLayerNetwork tBPTT or standard backprop for guarded training)",
+                stacklevel=4)
+        for lab in mds.labels:
+            if lab is not None and np.ndim(lab) != 3:
+                raise ValueError("tBPTT requires per-timestep labels (batch, time, nOut); "
+                                 f"got shape {tuple(np.shape(lab))}")
+        feats, labels, fmasks, lmasks = self._batch(mds)
+        T = feats[0].shape[1]
+
+        def cut(a, lo, hi, is_mask=False):
+            if a is None:
+                return None
+            seq = (a.dim() == 3 or (is_mask and a.dim() == 2)) and a.shape[1] == T
+            return a[:, lo:hi] if seq else a
+
+        carries = self._init_carries(feats[0].shape[0])
+        opt_state = self._ensure_opt_state()
+        for c, lo, hi in tbptt_chunks(T, self.conf.tbptt_fwd_length):
+            loss, new_state, grads, carries = self._value_and_grad(
+                [cut(f, lo, hi) for f in feats], [cut(lab, lo, hi) for lab in labels],
+                [cut(m, lo, hi, True) for m in fmasks], [cut(m, lo, hi, True) for m in lmasks],
+                noise=self.chunk_noise(c), carries=carries)
+            self.score_ = loss + self._reg_score(self.params_)
+            self.params_, opt_state = self._layer_updates(
+                self.params_, grads, opt_state, self.iteration + 1, self.iteration, self.epoch)
+            self.opt_state_ = opt_state
+            self.state_ = new_state
+        self.iteration += 1
+        self.last_batch_size = int(feats[0].shape[0])
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.epoch)
+
+    def _introspect(self, batch):
+        """Every vertex's activation (numpy, by name; an output layer's from
+        its weight-noised params) and the gradients of the step on ``batch``
+        that comes next, with its noise."""
+        feats, labels, fmasks, lmasks = batch
+        noise = self.step_noise()
+        with torch.no_grad():
+            acts, out_inputs, _ = self._forward(self.params_, self.state_, feats, train=True,
+                                                noise=noise, fmasks=fmasks)
+            for name in self.conf.network_outputs:
+                layer = self._layer(name)
+                x, m = out_inputs[name]
+                if self._compute_dtype is not None:
+                    x = x.float()
+                r = self._stream(noise, name)
+                acts[name], _ = layer.apply(apply_weight_noise(layer, self.params_[name], True, r),
+                                            x, state=self.state_[name], train=True, rng=r, mask=m)
+        _, _, grads = self._value_and_grad(feats, labels, fmasks, lmasks,
+                                           scale=self._step_scale(), noise=noise)
+        return {k: _host_array(v) for k, v in acts.items()}, grads
 
     def _train_step(self, batch) -> None:
         """One train step on a batch of ``_batch`` tensors."""

@@ -9,8 +9,9 @@ forward with feature masks and recurrent carries (eval and train mode),
 ``evaluate_roc``, ``evaluate_roc_multi_class``, ``evaluate_regression``,
 ``f1_score``, ``predict``; ``evaluation/``), introspection
 (``feed_forward``, ``score_examples``, ``layer_size``, ``summary``),
-``to_computation_graph`` and the flat parameter and updater-state vectors.
-PyTorch runs the step eagerly;
+``to_computation_graph``, the flat parameter and updater-state vectors,
+truncated BPTT (``backprop_type("tbptt")``), training listeners and the
+in-graph telemetry. PyTorch runs the step eagerly;
 there is no compiled program. The train step is the reference's unguarded
 one, split in two halves that ``ParallelWrapper`` calls apart: loss (f32)
 and new layer state from a train-mode forward, gradients by autograd
@@ -48,8 +49,31 @@ advanced; all on the device, with the divergence tripwire after each step
 ``remat_policy`` (or the ``DL4J_TPU_REMAT`` environment variable) makes the
 train-mode forward of every fit path rematerialize (``nn/remat.py``): each
 layer a checkpointed region, what the policy does not keep recomputed in
-the backward; the gradients are the same bits. Telemetry, listeners and
-tBPTT are not ported yet and raise (:func:`check_train_conf`).
+the backward; the gradients are the same bits.
+
+Listeners (``train/listeners.py``) are called as the reference calls them:
+``on_epoch_start``/``on_epoch_end`` around each epoch, ``iteration_done``
+after each step (a bundle: ``bundle_done``, or a replay step by step),
+``on_fit_end`` when ``fit`` returns or raises; a listener with an
+introspection hook gets the activations and gradients of one extra pass
+before the step, with the step's own noise (:meth:`NetworkMethods.
+_run_introspection`). With ``GlobalConf.telemetry`` each step computes its
+telemetry dict on the device (``obs/telemetry.py``: the norms of the
+gradients the update read, of the params, of the update), left in
+``step_telemetry_`` and handed to ``telemetry_done``; it only reads, so
+the step is the same bits with it on or off.
+
+Truncated BPTT (the reference's ``doTruncatedBPTT``): a batch with 3-D
+features is cut along time into chunks of ``tbptt_fwd_length`` steps (the
+last one as it comes); each chunk is one update from the recurrent state the
+previous chunk left (detached: no gradient crosses a boundary), its score
+the chunk's loss plus the regularization score. Every chunk of a batch runs
+at the batch's iteration (Adam's ``t`` is shared, guarded or not), which
+advances once after the last chunk; under a fault policy each chunk is
+guarded and the carries are kept with the params where its verdict is
+false, the fault state advances a chunk and the tripwire runs a batch. Each
+chunk draws its noise from a stream of its own
+(:meth:`NetworkMethods.chunk_noise`).
 
 Dropout, weight noise and constraints run as in the reference's
 ``_forward``: per layer, preprocessor -> input dropout -> (stop) -> weight
@@ -94,6 +118,7 @@ from deeplearning4j_tpu_torch.nn.conf.dropouts import NoiseSource
 from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_input_dropout, apply_weight_noise
 from deeplearning4j_tpu_torch.nn.conf.layers.norm import BatchNormalization
 from deeplearning4j_tpu_torch.nn.conf.layers.special import CenterLossOutputLayer, is_frozen
+from deeplearning4j_tpu_torch.obs import telemetry as _telemetry
 from deeplearning4j_tpu_torch.regularization import (
     apply_constraints,
     as_regularization,
@@ -105,12 +130,11 @@ from deeplearning4j_tpu_torch.updaters import _schedule_dict, as_updater, step_i
 
 Tensors = Dict[str, torch.Tensor]
 
-NOT_PORTED = "not ported yet (ROADMAP § A, slice 4: the rest of the training core)"
-#: the refusal of the in-graph train-step telemetry, which feeds listeners
-TELEMETRY_NOT_PORTED = "train-step telemetry is not ported yet (ROADMAP § A8)"
 #: the first path element of the noise streams of :meth:`feed_forward` in
 #: train mode (a layer's stream starts with its index, never this)
 INTROSPECTION_STREAM = 0x7FFF0001
+#: the first path element of a tBPTT chunk's noise stream
+TBPTT_STREAM = 0x7FFF0002
 
 
 #: ``GlobalConf.remat_policy`` (or the ``DL4J_TPU_REMAT`` environment
@@ -125,33 +149,19 @@ def remat_policy_of(model) -> Optional[_remat.RematPolicy]:
 
 def step_key(model) -> tuple:
     """What a captured train step of ``model`` holds as constants besides
-    its layout: the fault policy, the remat policy, and the learning rates
-    (a version that :meth:`set_learning_rate` moves on). A cached bundle
-    whose key differs is made anew."""
+    its layout: the fault policy, the remat policy, the learning rates
+    (a version that :meth:`set_learning_rate` moves on) and the telemetry
+    configuration. A cached bundle whose key differs is made anew."""
     return (model._active_fault_policy(), remat_policy_of(model),
-            getattr(model, "_lr_version", 0))
+            getattr(model, "_lr_version", 0), _telemetry.telemetry_key(model))
 
 
-def check_train_conf(conf, not_ported: str) -> None:
-    """Refuse, at train time, the global training options the port does not
-    have yet: telemetry and tBPTT; and an unknown ``remat_policy`` (a
-    ``ValueError``, as the reference's).
-    (``sharded_update`` is for ``ParallelWrapper``: a plain ``fit`` ignores
-    it, as the reference's does.) Shared by MultiLayerNetwork and
-    ComputationGraph."""
-    g = conf.global_conf
-
-    def knob(name, default=None):  # configurations older than a knob lack it
-        return getattr(g, name, default)
-
-    refused = [
-        (knob("telemetry") not in (None, False), "telemetry"),
-        (conf.backprop_type == "tbptt", "tbptt"),
-    ]
-    names = [what for bad, what in refused if bad]
-    if names:
-        raise NotImplementedError(f"{', '.join(names)}: {not_ported}")
-    _resolve_remat_policy(knob("remat_policy"))
+def check_train_conf(conf) -> None:
+    """Refuse, at train time, an unknown ``remat_policy`` (a ``ValueError``,
+    as the reference's). (``sharded_update`` is for ``ParallelWrapper``: a
+    plain ``fit`` ignores it, as the reference's does.) Shared by
+    MultiLayerNetwork and ComputationGraph."""
+    _resolve_remat_policy(getattr(conf.global_conf, "remat_policy", None))
 
 
 def cast_layer_params_for_compute(layer, p: Tensors, cd: torch.dtype, *,
@@ -297,27 +307,65 @@ def _with(tree, key, value):
     return [value if j == key else v for j, v in enumerate(tree)]
 
 
-def guarded_update(model, grads, update, old):
+def guarded_update(model, grads, update, old, clock_on_iteration: bool = False):
     """One optimizer step of ``model`` under its fault policy, or unguarded
     without one. ``update(grads, t, iteration)`` returns the new state tree
-    (params, updater state, layer state) and ``old`` is the current one.
-    Unguarded: ``update`` at ``t = iteration + 1``. Guarded: the armed
-    faults injected, the verdict over the gradients, ``update`` at ``t =
-    good_count + 1`` and iteration ``good_count`` (device tensors), the old
-    tree kept where the verdict is false, the fault state advanced. Shared
-    by both model types and the wrapper's replicated step."""
+    (params first, then updater state, layer state and what else the step
+    carries) and ``old`` is the current one. Unguarded: ``update`` at ``t =
+    iteration + 1``. Guarded: the armed faults injected, the verdict over
+    the gradients, ``update`` at ``t = good_count + 1`` and iteration
+    ``good_count`` (device tensors), the old tree kept where the verdict is
+    false, the fault state advanced. Under the model's telemetry the step's
+    telemetry dict goes to ``model.step_telemetry_`` (else None).
+    ``clock_on_iteration`` (a tBPTT chunk, as the reference's): the guarded
+    update too runs at ``t = iteration + 1``, so that the policy without
+    faults leaves the chunks' shared clock as it is. Shared by both model
+    types and the wrapper's replicated step."""
     policy = model._active_fault_policy()
+    tconf = _telemetry.resolve(model)
     if policy is None:
-        return update(grads, model.iteration + 1, model.iteration)
+        new = update(grads, model.iteration + 1, model.iteration)
+        model.step_telemetry_ = (None if tconf is None else
+                                 _telemetry.step_telemetry(tconf, grads, old[0], new[0]))
+        return new
     fstate = model._ensure_fault_state(policy)
+    scale = fstate.get("loss_scale") if policy.scaling_active(model._compute_dtype) else None
     grads = _faults.inject_gradient_faults(grads, model.iteration)
     finite = _faults.all_finite(grads)
-    good = fstate["good_count"]
+    good = model.iteration if clock_on_iteration else fstate["good_count"]
     new = update(grads, good + 1, good)
     if policy.skips(model._compute_dtype):
         new = _faults.where_tree(finite, new, old)
     model.fault_state_ = _faults.advance_fault_state(policy, fstate, finite)
+    model.step_telemetry_ = (None if tconf is None else _telemetry.step_telemetry(
+        tconf, grads, old[0], new[0], fstate=model.fault_state_, scale=scale))
     return new
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy (f32 for a bf16 or f16 one)."""
+    t = t.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def detach_carries(carries):
+    """Recurrent carries cut from the graph that made them: the next tBPTT
+    chunk starts from their values, and no gradient crosses the boundary."""
+    return _pipeline.tree_map(lambda t: t.detach(), carries)
+
+
+def tbptt_chunks(T: int, length: int):
+    """``(chunk index, lo, hi)`` of a tBPTT batch of ``T`` steps cut into
+    chunks of ``length`` (the last one shorter where ``length`` does not
+    divide ``T``)."""
+    return [(c, lo, min(lo + length, T)) for c, lo in enumerate(range(0, T, length))]
+
+
+TBPTT_LABELS = ("tBPTT requires per-timestep labels (batch, time, nOut); got labels shape "
+                "{shape}. For per-sequence labels use standard backprop (the reference has "
+                "the same requirement).")
 
 
 def bundle_step_of(model, k: int, one_step, variant=None) -> "_pipeline.BundledStep":
@@ -366,10 +414,112 @@ class NetworkMethods(_faults.GuardedModel):
     """What ``MultiLayerNetwork`` and ``ComputationGraph`` share besides the
     fault policy (:class:`~deeplearning4j_tpu_torch.train.faults.
     GuardedModel`): the evaluate family, ``set_learning_rate``, the pure
-    ``train_step_fn`` and the noise of a train-mode ``feed_forward``. The
-    model provides ``_eval_output(ds)`` (the network's output for a
-    DataSet's features, numpy), ``_updater_layers()``, ``_layer_updates``
-    and ``_pure_grads``."""
+    ``train_step_fn``, the noise of a train-mode ``feed_forward`` and of a
+    tBPTT chunk, the listeners and the fit loop's epoch. The model provides
+    ``_eval_output(ds)`` (the network's output for a DataSet's features,
+    numpy), ``_updater_layers()``, ``_layer_updates``, ``_pure_grads``,
+    ``_introspect(batch)`` and the epoch's parts (``_epoch_stream``,
+    ``_fit_item``, ``_release_bundles``)."""
+
+    # ------------------------------------------------------------- listeners
+    def set_listeners(self, *listeners) -> None:
+        """The training listeners (``train/listeners.py``), in call order."""
+        self.listeners = list(listeners)
+
+    def add_listeners(self, *listeners) -> None:
+        self.listeners.extend(listeners)
+
+    def _run_introspection(self, batch) -> None:
+        """The introspection hooks of the coming step, where a listener wants
+        them: one extra forward and gradient pass on ``batch`` (the
+        ``_batch`` tensors) at the model's state with the step's own noise,
+        the activations to ``on_forward_pass`` and the gradients (the
+        layout of ``params_``, numpy) to ``on_gradient_calculation``. The
+        model is not changed."""
+        from deeplearning4j_tpu_torch.train.listeners import _hook_recipients
+
+        it_next = self.iteration + 1
+        fwd_to = _hook_recipients(self.listeners, "on_forward_pass", it_next)
+        grad_to = _hook_recipients(self.listeners, "on_gradient_calculation", it_next)
+        if not (fwd_to or grad_to):
+            return
+        acts, grads = self._introspect(batch)
+        for lst in fwd_to:
+            lst.on_forward_pass(self, acts)
+        if grad_to:
+            host = _pipeline.tree_map(_host_array, grads)
+            for lst in grad_to:
+                lst.on_gradient_calculation(self, host)
+
+    def chunk_noise(self, chunk: int, rank: int = 0) -> NoiseSource:
+        """The noise of tBPTT chunk ``chunk`` of the step at the model's
+        iteration, on ``rank``: a stream of its own a chunk
+        (:data:`TBPTT_STREAM`, then the chunk's index), so that the chunks
+        of one batch, which share the iteration, draw different masks."""
+        return NoiseSource(self.noise_seed, step_iteration(self.iteration), rank,
+                           (TBPTT_STREAM, int(chunk)))
+
+    # -------------------------------------------------------------------- fit
+    def _fit_one_epoch(self, it) -> None:
+        """One pass over ``it`` (the reference's ``_fit_one_epoch``, which
+        the early-stopping trainer calls): ``on_epoch_start``, each batch a
+        step, a bundle of them or a tBPTT batch, the fault tripwire after
+        each, ``it.reset()``, ``epoch + 1``, ``on_epoch_end``."""
+        from deeplearning4j_tpu_torch.train.listeners import (
+            dispatch_epoch_end,
+            dispatch_epoch_start,
+        )
+
+        if self.params_ is None:
+            raise ValueError("init() the network (or load params) first")
+        dispatch_epoch_start(self.listeners, self)
+        k = _pipeline.resolve_steps_per_call(self)
+        self._check_trainable()
+        policy = self._active_fault_policy()
+        if policy is not None:
+            self._ensure_fault_state(policy)
+        try:
+            for item in self._epoch_stream(it, k):
+                self._fit_item(item, k)
+                _faults.check_fault_state(policy, self.fault_state_, owner=self)
+        finally:
+            if k > 1:
+                self._release_bundles()
+        it.reset()
+        self.epoch += 1
+        dispatch_epoch_end(self.listeners, self)
+
+    def _fit_epochs(self, it, epochs: int) -> None:
+        """``epochs`` passes of :meth:`_fit_one_epoch`, then ``on_fit_end``
+        (also when one raised)."""
+        from deeplearning4j_tpu_torch.train.listeners import dispatch_fit_end
+
+        try:
+            for _ in range(epochs):
+                self._fit_one_epoch(it)
+        finally:
+            dispatch_fit_end(self.listeners, self)
+
+    def _fit_bundle(self, bstep, stacked) -> None:
+        """One bundled call on ``stacked`` (host tensors with a leading K
+        axis), then its listener calls (telemetry first)."""
+        it0 = self.iteration
+        self.bundle_scores_ = scores = bstep(stacked)
+        self.last_batch_size = int(_pipeline.tree_leaves(stacked)[0].shape[1])
+        _pipeline.dispatch_bundle_listeners(self, it0, self.epoch, scores,
+                                            telem=bstep.telemetry)
+
+    def _fit_single(self, batch) -> None:
+        """One step on ``batch`` (the ``_batch`` tensors) with its listener
+        calls: introspection before, then telemetry, ``on_backward_pass``,
+        ``iteration_done``."""
+        from deeplearning4j_tpu_torch.train.listeners import dispatch_step_done
+
+        self._run_introspection(batch)
+        it0 = self.iteration
+        self._train_step(batch)
+        self.last_batch_size = int(_pipeline.tree_leaves(batch[0])[0].shape[0])
+        dispatch_step_done(self, it0, self.step_telemetry_)
 
     # ------------------------------------------------------------ evaluation
     def _evaluate_with(self, it, ev):
@@ -446,9 +596,11 @@ class NetworkMethods(_faults.GuardedModel):
         draws the model's stream at ``iteration``. Under an active fault
         policy it is the guarded step, as the reference's: ``step(params,
         opt_state, state, fstate, features, ...)`` -> ``(new_params, new_opt,
-        new_states, new_fstate, score)``. ``telemetry`` is refused."""
-        if telemetry is not None:
-            raise NotImplementedError(TELEMETRY_NOT_PORTED)
+        new_states, new_fstate, score)``. ``telemetry`` (a ``TelemetryConf``,
+        or True for its defaults) appends the step's telemetry dict to the
+        outputs."""
+        if telemetry is True:
+            telemetry = _telemetry.TelemetryConf()
         self._check_trainable()
         policy = self._active_fault_policy()
 
@@ -463,7 +615,10 @@ class NetworkMethods(_faults.GuardedModel):
                                                    lmask, noise, iteration, None)
                 new_params, new_opt = self._layer_updates(params, grads, opt_state,
                                                           iteration + 1, iteration, epoch)
-                return new_params, new_opt, new_states, loss + self._reg_score(params)
+                out = (new_params, new_opt, new_states, loss + self._reg_score(params))
+                if telemetry is not None:
+                    out += (_telemetry.step_telemetry(telemetry, grads, params, new_params),)
+                return out
 
             return step
         scaling = policy.scaling_active(self._compute_dtype)
@@ -480,8 +635,13 @@ class NetworkMethods(_faults.GuardedModel):
                 + (new_states,)
             if policy.skips(self._compute_dtype):
                 new = _faults.where_tree(finite, new, (params, opt_state, state))
-            return (*new, _faults.advance_fault_state(policy, fstate, finite),
-                    loss + self._reg_score(params))
+            new_fstate = _faults.advance_fault_state(policy, fstate, finite)
+            out = (*new, new_fstate, loss + self._reg_score(params))
+            if telemetry is not None:
+                out += (_telemetry.step_telemetry(
+                    telemetry, grads, params, new[0], fstate=new_fstate,
+                    scale=fstate["loss_scale"] if scaling else None),)
+            return out
 
         return gstep
 
@@ -515,6 +675,12 @@ class MultiLayerNetwork(NetworkMethods):
         #: the dtype float inputs take in the forward when set (the gradient
         #: checker's float64); None: the compute or params dtype
         self._input_dtype: Optional[torch.dtype] = None
+        #: the training listeners (``train/listeners.py``)
+        self.listeners: List[Any] = []
+        #: the rows of the last batch a fit step took (``PerformanceListener``)
+        self.last_batch_size: Optional[int] = None
+        #: the last train step's telemetry dict (device tensors), or None
+        self.step_telemetry_: Optional[Dict[str, torch.Tensor]] = None
 
     # ------------------------------------------------------------------ init
     def init(self, rng=None, device=None) -> "MultiLayerNetwork":
@@ -783,19 +949,20 @@ class MultiLayerNetwork(NetworkMethods):
         return last
 
     def _per_example(self, params, state, features, labels, fmask, lmask,
-                     train: bool = True, noise=None, remat=None):
+                     train: bool = True, noise=None, remat=None, carries=None):
         """The output layer's unreduced loss (f32: under a compute dtype its
-        input is widened first) and the layers' new state. The label mask
-        defaults to the feature mask as it reaches the head. ``noise``: the
-        step's noise source in training; the output layer's input dropout
-        comes from the walk, its weight noise is applied here (the walk
-        stops before the output layer, so nothing draws it twice).
-        ``remat``: the train step's remat policy (the head is no region)."""
+        input is widened first), the layers' new state and the recurrent
+        layers' final carries (None entries without ``carries``). The label
+        mask defaults to the feature mask as it reaches the head. ``noise``:
+        the step's noise source in training; the output layer's input
+        dropout comes from the walk, its weight noise is applied here (the
+        walk stops before the output layer, so nothing draws it twice).
+        ``remat``: the train step's remat policy (the head is no region).
+        ``carries``: the recurrent state to start from (a tBPTT chunk)."""
         n = len(self.layers)
-        x, mask, new_states, _, _ = self._walk(params, state, features, train=train,
-                                               stop_before=n - 1, cast_params=True,
-                                               fmask=fmask, carries=None, noise=noise,
-                                               remat=remat)
+        x, mask, new_states, new_carries, _ = self._walk(
+            params, state, features, train=train, stop_before=n - 1, cast_params=True,
+            fmask=fmask, carries=carries, noise=noise, remat=remat)
         if self._compute_dtype is not None:
             x = x.float()  # loss and softmax in full precision
         out_layer = self._output_layer()
@@ -810,13 +977,17 @@ class MultiLayerNetwork(NetworkMethods):
         else:
             per_ex = out_layer.compute_score(p_out, x, labels, lmask)
             new_states.append(state[-1])
-        return per_ex, new_states
+        return per_ex, new_states, new_carries
 
     def _loss_and_new_state(self, params, state, features, labels, fmask, lmask,
-                            train: bool = True, noise=None, remat=None):
-        """The mean of :meth:`_per_example`'s loss, and the new state."""
-        per_ex, new_states = self._per_example(params, state, features, labels, fmask, lmask,
-                                               train=train, noise=noise, remat=remat)
+                            train: bool = True, noise=None, remat=None, carries=None):
+        """The mean of :meth:`_per_example`'s loss, and the new state (and
+        with ``carries``, the final carries third)."""
+        per_ex, new_states, new_carries = self._per_example(
+            params, state, features, labels, fmask, lmask, train=train, noise=noise,
+            remat=remat, carries=carries)
+        if carries is not None:
+            return per_ex.mean(), new_states, new_carries
         return per_ex.mean(), new_states
 
     def _reg_score(self, params) -> torch.Tensor:
@@ -872,11 +1043,8 @@ class MultiLayerNetwork(NetworkMethods):
         return grads, float(loss + self._reg_score(self.params_))
 
     # ------------------------------------------------------------------- fit
-    def set_listeners(self, *listeners) -> None:
-        raise NotImplementedError(f"training listeners are {NOT_PORTED}")
-
     def _check_trainable(self) -> None:
-        check_train_conf(self.conf, NOT_PORTED)
+        check_train_conf(self.conf)
 
     def _ensure_opt_state(self) -> List[Dict[str, Tensors]]:
         if self.opt_state_ is None:
@@ -886,41 +1054,56 @@ class MultiLayerNetwork(NetworkMethods):
         return self.opt_state_
 
     def _value_and_grad(self, features, labels, fmask, lmask, scale=None, noise=None,
-                        params=None, state=None):
+                        params=None, state=None, carries=None):
         """The first half of a train step: ``(loss, new_states, grads)`` of a
         train-mode forward at ``params`` and ``state`` (default ``params_``,
         ``state_``), under the configuration's remat policy; grads has the
         layout of ``params_``. ``scale`` (the fault policy's loss scale, a
         0-dim tensor): the gradients are taken of ``loss * scale`` and the
         loss and gradients come back multiplied by ``1 / scale``. ``noise``:
-        the step's noise source (default :meth:`step_noise` on rank 0)."""
+        the step's noise source (default :meth:`step_noise` on rank 0).
+        ``carries`` (a tBPTT chunk): the forward starts from them, and the
+        final carries, detached, come back fourth."""
         params = self.params_ if params is None else params
         diff = differentiable(self.layers, params)
-        loss, new_states = self._loss_and_new_state(
+        out = self._loss_and_new_state(
             diff, self.state_ if state is None else state, features, labels, fmask, lmask,
             noise=self.step_noise() if noise is None else noise,
-            remat=remat_policy_of(self))
+            remat=remat_policy_of(self), carries=carries)
+        loss, new_states = out[0], out[1]
         if scale is not None:
             loss = loss * scale
         grads = gradients_of(loss, diff)
         loss, grads = _faults.unscale(loss.detach(), grads, scale)
+        if carries is not None:
+            return loss, new_states, grads, detach_carries(out[2])
         return loss, new_states, grads
 
-    def _apply_step(self, loss, new_states, grads) -> None:
+    def _apply_step(self, loss, new_states, grads, carries=None) -> Any:
         """The second half: the per-layer updates from ``grads`` (guarded
         under a fault policy, :func:`guarded_update`), the score (``loss``
         plus the regularization score before the update), the new state,
-        ``iteration + 1``."""
+        ``iteration + 1``. A tBPTT chunk passes ``carries`` = (the chunk's
+        final carries, the ones it started from): the guard keeps the old
+        ones where it skips, the carries to go on from are returned, and
+        the iteration stays (it advances once a batch)."""
         opt_state = self._ensure_opt_state()
 
         def update(grads, t, it):
-            return self._layer_updates(self.params_, grads, opt_state, t, it,
-                                       self.epoch) + (new_states,)
+            out = self._layer_updates(self.params_, grads, opt_state, t, it,
+                                      self.epoch) + (new_states,)
+            return out if carries is None else out + (carries[0],)
 
+        old = (self.params_, opt_state, self.state_)
         self.score_ = loss + self._reg_score(self.params_)
-        self.params_, self.opt_state_, self.state_ = guarded_update(
-            self, grads, update, (self.params_, opt_state, self.state_))
+        new = guarded_update(self, grads, update,
+                             old if carries is None else old + (carries[1],),
+                             clock_on_iteration=carries is not None)
+        self.params_, self.opt_state_, self.state_ = new[:3]
+        if carries is not None:
+            return new[3]
         self.iteration += 1
+        return None
 
     def _train_step(self, batch) -> None:
         """One train step on a batch of ``_batch`` tensors."""
@@ -934,35 +1117,134 @@ class MultiLayerNetwork(NetworkMethods):
         DataSets, or a features array with ``labels``. With
         ``steps_per_call`` k > 1, every k consecutive batches of one layout
         take one bundled call (``train/pipeline.py``); the ragged tail of an
-        epoch and a change of shape take single steps."""
+        epoch and a change of shape take single steps. Under
+        ``backprop_type("tbptt")`` a batch of 3-D features is trained in
+        chunks (:meth:`_fit_tbptt_batch`). The listeners'
+        ``on_fit_end`` runs when it returns or raises."""
         if self.params_ is None:
             raise ValueError("init() the network (or load params) first")
         if isinstance(data, np.ndarray):
             data = DataSet(data, labels)
         it = ListDataSetIterator(data, batch_size) if isinstance(data, DataSet) else data
-        k = _pipeline.resolve_steps_per_call(self)
-        self._check_trainable()
-        policy = self._active_fault_policy()
-        if policy is not None:
-            self._ensure_fault_state(policy)
-        bstep = self._bundle_step(k) if k > 1 else None
-        try:
-            for _ in range(epochs):
-                for item in (iter_bundled(it, k) if bstep is not None else it):
-                    if isinstance(item, BatchBundle):
-                        self.bundle_scores_ = bstep(self._batch_tensors(item))
-                    else:
-                        self._fit_batch(item)
-                    _faults.check_fault_state(policy, self.fault_state_, owner=self)
-                it.reset()
-                self.epoch += 1
-        finally:
-            if bstep is not None:
-                bstep.release()
+        self._fit_epochs(it, epochs)
         return self
 
+    def _epoch_stream(self, it, k: int):
+        return iter_bundled(it, k) if k > 1 else it
+
+    def _fit_item(self, item, k: int) -> None:
+        if isinstance(item, BatchBundle):
+            self._fit_bundle(self._bundle_step(k), self._batch_tensors(item))
+        elif self.conf.backprop_type == "tbptt" and np.ndim(item.features) == 3:
+            self._fit_tbptt_batch(item)
+        else:
+            self._fit_batch(item)
+
+    def _release_bundles(self) -> None:
+        if self._bundled is not None:
+            self._bundled.release()
+
     def _fit_batch(self, ds: DataSet) -> None:
-        self._train_step(self._batch(ds))
+        self._fit_single(self._batch(ds))
+
+    # ----------------------------------------------------------------- tBPTT
+    def tbptt_step_fn(self):
+        """The pure tBPTT chunk step (the reference's ``tbptt_step_fn``)::
+
+            step(params, opt_state, state, carries, features, labels, fmask,
+                 lmask, noise, iteration, epoch)
+              -> (new_params, new_opt, new_states, new_carries, score)
+
+        one chunk's computation on the trees given, which it does not
+        change: the forward from ``carries``, the update at ``t = iteration
+        + 1``, the score the loss plus the regularization score before the
+        update; ``new_carries`` detached. ``noise`` None draws chunk 0's
+        stream at ``iteration``. Under an active fault policy it is the
+        guarded chunk: ``step(params, opt_state, state, fstate, carries,
+        ...)`` -> ``(new_params, new_opt, new_states, new_fstate,
+        new_carries, score)``, the carries kept with the rest where the
+        verdict is false, the update still at ``t = iteration + 1``."""
+        self._check_trainable()
+        policy = self._active_fault_policy()
+
+        def chunk(params, opt_state, state, fstate, carries, features, labels, fmask, lmask,
+                  noise, iteration, epoch):
+            if noise is None:
+                noise = NoiseSource(self.noise_seed, iteration, 0, (TBPTT_STREAM, 0))
+            scale = (fstate["loss_scale"] if policy is not None
+                     and policy.scaling_active(self._compute_dtype) else None)
+            loss, new_states, grads, new_carries = self._value_and_grad(
+                features, labels, fmask, lmask, scale=scale, noise=noise, params=params,
+                state=state, carries=carries)
+            score = loss + self._reg_score(params)
+            if policy is None:
+                new_params, new_opt = self._layer_updates(params, grads, opt_state,
+                                                          iteration + 1, iteration, epoch)
+                return new_params, new_opt, new_states, new_carries, score
+            grads = _faults.inject_gradient_faults(grads, iteration)
+            finite = _faults.all_finite(grads)
+            # the chunks' shared clock, guarded or not (the reference's)
+            new = self._layer_updates(params, grads, opt_state, iteration + 1, iteration,
+                                      epoch) + (new_states, new_carries)
+            if policy.skips(self._compute_dtype):
+                new = _faults.where_tree(finite, new, (params, opt_state, state, carries))
+            new_params, new_opt, new_states, new_carries = new
+            return (new_params, new_opt, new_states,
+                    _faults.advance_fault_state(policy, fstate, finite), new_carries, score)
+
+        if policy is None:
+            def step(params, opt_state, state, carries, features, labels, fmask, lmask,
+                     noise, iteration, epoch):
+                return chunk(params, opt_state, state, None, carries, features, labels,
+                             fmask, lmask, noise, iteration, epoch)
+
+            return step
+        return chunk
+
+    def _fit_tbptt_batch(self, ds: DataSet) -> None:
+        """One batch of truncated BPTT (the reference's ``doTruncatedBPTT``):
+        the chunks of ``tbptt_fwd_length`` steps in order, each one update
+        from the carries the previous one left, then ``iteration + 1`` and
+        ``iteration_done``. Labels that are not 3-D raise ``ValueError``."""
+        if ds.labels is not None and np.ndim(ds.labels) != 3:
+            raise ValueError(TBPTT_LABELS.format(shape=tuple(np.shape(ds.labels))))
+        batch = self._batch(ds)
+        carries = self._init_carries(batch[0].shape[0])
+        for c, lo, hi in tbptt_chunks(batch[0].shape[1], self.conf.tbptt_fwd_length):
+            chunk = tuple(None if a is None else a[:, lo:hi] for a in batch)
+            carries = self._tbptt_chunk(chunk, carries, c)
+        self.iteration += 1
+        self.last_batch_size = int(batch[0].shape[0])
+        # the reference's tBPTT path calls iteration_done alone
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.epoch)
+
+    def _tbptt_chunk(self, chunk, carries, c: int):
+        """One chunk's update on the model's state (guarded under its fault
+        policy); returns the carries the next chunk starts from."""
+        loss, new_states, grads, new_carries = self._value_and_grad(
+            *chunk, scale=self._step_scale(), noise=self.chunk_noise(c), carries=carries)
+        return self._apply_step(loss, new_states, grads, carries=(new_carries, carries))
+
+    def _introspect(self, batch):
+        """The activations (every layer's, numpy) and the gradients of the
+        step on ``batch`` that comes next, with its noise."""
+        features, labels, fmask, lmask = batch
+        noise = self.step_noise()
+        n = len(self.layers)
+        with torch.no_grad():
+            x, mask, _, _, acts = self._walk(
+                self.params_, self.state_, features, train=True, stop_before=n - 1,
+                cast_params=True, fmask=fmask, carries=None, noise=noise, collect=True)
+            if self._compute_dtype is not None:
+                x = x.float()
+            out = self._output_layer()
+            r = noise.child(n - 1)
+            y, _ = out.apply(apply_weight_noise(out, self.params_[-1], True, r), x,
+                             state=self.state_[-1], train=True, rng=r, mask=mask)
+        _, _, grads = self._value_and_grad(features, labels, fmask, lmask,
+                                           scale=self._step_scale(), noise=noise)
+        return [_host_array(a) for a in acts] + [_host_array(y)], grads
 
     def _bundle_step(self, k: int) -> "_pipeline.BundledStep":
         return bundle_step_of(self, k, self._train_step)
@@ -1038,8 +1320,8 @@ class MultiLayerNetwork(NetworkMethods):
         output layer's unreduced eval-mode loss, plus the regularization
         score where ``add_regularization_terms``."""
         with torch.no_grad():
-            per_ex, _ = self._per_example(self.params_, self.state_, *self._batch(ds),
-                                          train=False)
+            per_ex, _, _ = self._per_example(self.params_, self.state_, *self._batch(ds),
+                                             train=False)
             if add_regularization_terms:
                 per_ex = per_ex + self._reg_score(self.params_)
         return self._host(per_ex)

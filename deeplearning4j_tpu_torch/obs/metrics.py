@@ -3,9 +3,9 @@
 A copy of the part of ``deeplearning4j_tpu/obs/metrics.py`` (``:49-311``)
 that the serving metrics use: counters, gauges (settable, or a callback
 read at scrape time), the bounded ring histogram, the Prometheus text and
-the process-wide :func:`default_registry`. The
-training and data-pipeline publishers come with their slices (ROADMAP
-§ A).
+the process-wide :func:`default_registry`; and the per-thread consumer-wait
+total (``:378-388``) that ``PerformanceListener`` reads. The training and
+data-pipeline publishers come with their slices (ROADMAP § A8, A9).
 
 - **Bounded memory.** Histograms keep a fixed-size ring of recent
   observations, never an unbounded list.
@@ -272,3 +272,23 @@ def default_registry() -> MetricsRegistry:
         if _default is None:
             _default = MetricsRegistry()
         return _default
+
+
+# --------------------------------------------------------------------------
+# consumer waits, per thread
+# --------------------------------------------------------------------------
+# A fit loop and its PerformanceListener run on one thread, so a per-thread
+# total attributes prefetch-queue waits to that fit alone, however many
+# fits run at once.
+_consumer_wait_local = threading.local()
+
+
+def add_consumer_wait(seconds: float) -> None:
+    """Add ``seconds`` of waiting on an empty prefetch queue to the calling
+    thread's total."""
+    _consumer_wait_local.total = getattr(_consumer_wait_local, "total", 0.0) + float(seconds)
+
+
+def thread_consumer_wait_seconds() -> float:
+    """The calling thread's total prefetch-queue wait, in seconds."""
+    return getattr(_consumer_wait_local, "total", 0.0)

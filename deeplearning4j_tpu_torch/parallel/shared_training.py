@@ -42,8 +42,9 @@ reference folds the axis index into the step's rng.
 
 The master binds to its first model, refuses a model with layer state
 (BatchNorm running statistics), whose state it would not carry, as the
-reference does, and refuses what the model's own ``fit`` refuses (the
-port's models take no listeners yet, ROADMAP § A8).
+reference does, and refuses what the model's own ``fit`` refuses. It calls
+the model's listeners as the reference's does: the epoch hooks,
+``iteration_done`` after each step, a bundle's ``bundle_done`` or replay.
 """
 
 from __future__ import annotations
@@ -277,22 +278,36 @@ class SharedTrainingMaster:
                 unshard_model_opt_state(model, layout, self._zopt, self.mesh)
 
             model._opt_state_sync = sync
+        from deeplearning4j_tpu_torch.train.listeners import (
+            dispatch_epoch_end,
+            dispatch_epoch_start,
+        )
+
         finished = False
         try:
             for _ in range(epochs):
+                dispatch_epoch_start(model.listeners, model)
                 for item in (iter_bundled(it, k) if k > 1 else it):
+                    it0 = model.iteration
                     if isinstance(item, BatchBundle):
                         stacked = model._batch_tensors(BatchBundle(*self._rows(
                             [item.features, item.labels, item.features_mask,
                              item.labels_mask], 1), item.k))
-                        model.bundle_scores_ = self._bstep(stacked)
+                        model.bundle_scores_ = scores = self._bstep(stacked)
+                        model.last_batch_size = int(item.features.shape[1])
+                        _faults.check_fault_state(policy, model.fault_state_, owner=model)
+                        _pipeline.dispatch_bundle_listeners(model, it0, model.epoch, scores)
                     else:
                         self._step(model._batch(DataSet(*self._rows(
                             [item.features, item.labels, item.features_mask,
                              item.labels_mask], 0))))
-                    _faults.check_fault_state(policy, model.fault_state_, owner=model)
+                        model.last_batch_size = int(item.features.shape[0])
+                        _faults.check_fault_state(policy, model.fault_state_, owner=model)
+                        for lst in model.listeners:
+                            lst.iteration_done(model, model.iteration, model.epoch)
                 it.reset()
                 model.epoch += 1
+                dispatch_epoch_end(model.listeners, model)
             finished = True
         finally:
             if sync is not None:

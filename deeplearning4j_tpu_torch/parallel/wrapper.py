@@ -61,6 +61,15 @@ on the mean gradient, which every rank holds alike; ZeRO-1, the guarded
 sharded step (``parallel/zero.py``, a verdict per rank agreed by one
 collective). The divergence tripwire runs after each step or bundle when
 ``max_consecutive_bad_steps`` is set.
+
+The model's listeners are called as by its own ``fit`` (epoch hooks,
+``iteration_done`` a step, a bundle's ``bundle_done`` or replay,
+``on_fit_end``), with the model's telemetry: replicated, the model's step
+computes it on the mean gradient; ZeRO-1, the sharded step's (global norms).
+Truncated BPTT (``backprop_type("tbptt")``, a MultiLayerNetwork, the
+replicated update only, as the reference's): each rank runs the chunks of
+its own rows of the (padded) batch from carries that stay on the rank, the
+gradients of each chunk averaged over the ranks before its update.
 """
 
 from __future__ import annotations
@@ -78,8 +87,9 @@ from deeplearning4j_tpu_torch.data.iterators import (
     iter_grouped,
     multi_compat_key,
 )
-from deeplearning4j_tpu_torch.nn.multilayer import step_key
+from deeplearning4j_tpu_torch.nn.multilayer import TBPTT_LABELS, step_key, tbptt_chunks
 from deeplearning4j_tpu_torch.parallel.mesh import TrainingMesh
+from deeplearning4j_tpu_torch.obs import telemetry as _telemetry
 from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.train import pipeline as _pipeline
 
@@ -157,6 +167,7 @@ class ParallelWrapper:
         self._zstep = None
         self._zstep_key = None
         self._zlayout = None
+        self._ztelem = False
         #: the bundled step (k > 1), built at the first fit that bundles
         self._bstep = None
         self._bstep_key = None
@@ -188,8 +199,22 @@ class ParallelWrapper:
         rows whose loss weight is zero (gradient-exact). With
         ``steps_per_call`` k > 1, k consecutive batches of one layout that
         need no padding take one bundled call."""
+        from deeplearning4j_tpu_torch.train.listeners import (
+            dispatch_epoch_end,
+            dispatch_epoch_start,
+            dispatch_fit_end,
+            dispatch_step_done,
+        )
+
         m = self.model
+        use_tbptt = m.conf.backprop_type == "tbptt"
+        if use_tbptt and self._is_graph:
+            raise NotImplementedError("ParallelWrapper tBPTT is supported for "
+                                      "MultiLayerNetwork; fit the ComputationGraph directly")
         k = self._check()
+        if self.sharded_update and use_tbptt:
+            raise NotImplementedError("sharded_update does not support tBPTT configs; use "
+                                      "the standard replicated update for tBPTT training")
         mesh = self.mesh
         policy = m._active_fault_policy()
         if policy is not None:
@@ -208,8 +233,10 @@ class ParallelWrapper:
             )
 
             if self._zstep is None or self._zstep_key != step_key(m):
-                self._zstep, self._zlayout = make_sharded_train_step(m, mesh, policy=policy)
+                self._zstep, self._zlayout = make_sharded_train_step(
+                    m, mesh, policy=policy, telemetry=_telemetry.resolve(m))
                 self._zstep_key = step_key(m)
+            self._ztelem = _telemetry.resolve(m) is not None
             zlayout = self._zlayout
             zref = [shard_model_opt_state(m, zlayout, mesh=mesh)]
             # mid-fit serializers read m.opt_state_, which is stale while the
@@ -219,8 +246,11 @@ class ParallelWrapper:
 
         def run_single(ds):
             batch = self._pack_batch(ds)
+            it0 = m.iteration
             if zref is not None:
                 out = self._zstep(zref[0], batch)
+                if self._ztelem:
+                    *out, m.step_telemetry_ = out
                 if policy is not None:
                     m.params_, zref[0], m.state_, m.fault_state_, m.score_ = out
                 else:
@@ -228,32 +258,48 @@ class ParallelWrapper:
                 m.iteration += 1
             else:
                 m._apply_step(*_mean_over_ranks(mesh, *self._value_and_grad(batch)))
+            m.last_batch_size = int(ds.num_examples())
+            dispatch_step_done(m, it0, m.step_telemetry_)
+
+        def run_bundle(stacked, n_rows):
+            it0 = m.iteration
+            if zref is not None:
+                m.params_, zref[0], m.state_, *fs, scores = bstep(zref[0], stacked)
+                if fs:
+                    m.fault_state_ = fs[0]
+                m.iteration += k
+                m.score_, m.bundle_scores_ = scores.dev[-1], scores
+            else:
+                m.bundle_scores_ = scores = bstep(stacked)
+            m.last_batch_size = n_rows
+            _pipeline.dispatch_bundle_listeners(m, it0, m.epoch, scores, telem=bstep.telemetry)
 
         finished = False
         try:
             for _ in range(epochs):
+                dispatch_epoch_start(m.listeners, m)
                 for item in self._stream(it, k):
                     bundle = isinstance(item, (list, BatchBundle))
                     stacked = self._pack_bundle(item) if bundle else None
                     if not bundle:
-                        run_single(item)
+                        if use_tbptt and np.ndim(item.features) == 3:
+                            self._fit_tbptt(item)
+                        else:
+                            run_single(item)
                     elif stacked is None:
                         # needs padding, which a stacked bundle cannot take
                         for ds in (item if isinstance(item, list) else item.unstack()):
                             run_single(ds)
-                    elif zref is not None:
-                        m.params_, zref[0], m.state_, *fs, scores = bstep(zref[0], stacked)
-                        if fs:
-                            m.fault_state_ = fs[0]
-                        m.iteration += k
-                        m.score_, m.bundle_scores_ = scores.dev[-1], scores
                     else:
-                        m.bundle_scores_ = bstep(stacked)
+                        run_bundle(stacked, int(item[0].num_examples()) if isinstance(item, list)
+                                   else int(item.features.shape[1]))
                     _faults.check_fault_state(policy, m.fault_state_, owner=m)
                 it.reset()
                 m.epoch += 1
+                dispatch_epoch_end(m.listeners, m)
             finished = True
         finally:
+            dispatch_fit_end(m.listeners, m)
             if zref is not None:
                 m._opt_state_sync = None
                 # a collective: after a failure on several ranks the peers
@@ -278,7 +324,8 @@ class ParallelWrapper:
                 from deeplearning4j_tpu_torch.parallel.zero import make_sharded_train_step
 
                 self._bstep, _ = make_sharded_train_step(m, mesh, policy=policy,
-                                                         steps_per_call=k)
+                                                         steps_per_call=k,
+                                                         telemetry=_telemetry.resolve(m))
             else:
                 self._bstep = _pipeline.BundledStep(
                     m, k, lambda batch: m._apply_step(
@@ -341,8 +388,32 @@ class ParallelWrapper:
         return self.model._batch(DataSet(cut(ds.features), cut(ds.labels),
                                          cut(ds.features_mask), cut(ds.labels_mask)))
 
+    def _fit_tbptt(self, ds) -> None:
+        """One tBPTT batch under the mesh: this rank's rows of the (padded)
+        batch in chunks from carries of its own, each chunk's loss and
+        gradients averaged over the ranks before the model's (guarded)
+        update; then ``iteration + 1``, the tripwire and ``iteration_done``."""
+        m = self.model
+        if ds.labels is not None and np.ndim(ds.labels) != 3:
+            raise ValueError(TBPTT_LABELS.format(shape=tuple(np.shape(ds.labels))))
+        batch = self._pack_batch(ds)
+        carries = m._init_carries(batch[0].shape[0])
+        for c, lo, hi in tbptt_chunks(batch[0].shape[1], m.conf.tbptt_fwd_length):
+            chunk = tuple(None if a is None else a[:, lo:hi] for a in batch)
+            with self.mesh.batch_stats():
+                loss, new_states, grads, new_carries = m._value_and_grad(
+                    *chunk, scale=m._step_scale(), noise=m.chunk_noise(c, self.mesh.rank),
+                    carries=carries)
+            carries = m._apply_step(*_mean_over_ranks(self.mesh, loss, new_states, grads),
+                                    carries=(new_carries, carries))
+        m.iteration += 1
+        m.last_batch_size = int(ds.num_examples())
+        for lst in m.listeners:
+            lst.iteration_done(m, m.iteration, m.epoch)
+
     def shutdown(self):  # API parity; nothing to tear down
         pass
+
 
 
 def _block(b: int, n: int, r: int):

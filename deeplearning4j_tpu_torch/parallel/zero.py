@@ -42,6 +42,14 @@ agree. (A verdict on the local, unsummed gradients would be wrong: finite
 terms can sum to inf.) The updater runs on every step, one fused Adam a
 group, and the select keeps the old params, updater shards and layer state
 where the verdict is false.
+
+With telemetry (``obs/telemetry.py``) the step also returns its telemetry
+dict. The reference takes the gradient's norm on the global gradient before
+the scatter; here, on one rank, the rank's gradient is the global one, and
+on several each rank sums the squares of its chunks of the mean gradient
+(one extra ``reduce_scatter`` a group, of the raw gradients) and the ranks
+add their sums (one ``all_reduce`` of a scalar). The params' and the
+update's norms are taken on the replicated params.
 """
 
 from __future__ import annotations
@@ -61,10 +69,6 @@ from deeplearning4j_tpu_torch.train import faults as _faults
 from deeplearning4j_tpu_torch.updaters import Updater, as_updater
 
 Tensors = Dict[str, torch.Tensor]
-
-#: the step variant the port does not have yet
-NOT_PORTED = "not ported yet (ROADMAP § A2.2: the telemetry sharded step)"
-
 
 class _Entry:
     """One parameter's slice of a group's flat vector."""
@@ -338,10 +342,16 @@ def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
     scaled (under loss scaling), the armed faults injected, the updater at
     ``t = good_count + 1``, the verdict over this rank's chunks of the
     summed gradient agreed by one collective, the selects, the fault state
-    advanced. Telemetry raises."""
-    if telemetry is not None:
-        raise NotImplementedError(f"sharded step with telemetry: {NOT_PORTED}")
+    advanced.
+
+    With ``telemetry`` (a ``TelemetryConf``, or True for its defaults) the
+    step returns its telemetry dict last (the bundled variant leaves the
+    stacked dicts in its ``telemetry``)."""
     from deeplearning4j_tpu_torch.nn.ops import fused_update as _fused_update
+    from deeplearning4j_tpu_torch.obs import telemetry as _telemetry
+
+    if telemetry is True:
+        telemetry = _telemetry.TelemetryConf()
 
     mesh.refuse_host_staged("the sharded update", "reduce_scatter and all_gather")
     model._check_trainable()
@@ -371,18 +381,50 @@ def make_sharded_train_step(model, mesh, policy=None, steps_per_call: int = 1,
             fused_impls=fused_impls, verdict=fstate is not None)
         new_params = np_list if names is None else dict(zip(names, np_list))
         score = loss + model._reg_score(model.params_)
+        telem = ()
         if fstate is None:
-            return new_params, new_zopt, new_state, score
+            if telemetry is not None:
+                telem = (_telemetry.step_telemetry(
+                    telemetry, grads, model.params_, new_params,
+                    grad_norm=_global_grad_norm(layout, g_list, mesh)),)
+            return (new_params, new_zopt, new_state, score) + telem
         finite = mesh.all_true(ok[0])
         if policy.skips(model._compute_dtype):
             new_params, new_zopt, new_state = _faults.where_tree(
                 finite, (new_params, new_zopt, new_state), (model.params_, zopt, model.state_))
-        return (new_params, new_zopt, new_state,
-                _faults.advance_fault_state(policy, fstate, finite), score)
+        new_fstate = _faults.advance_fault_state(policy, fstate, finite)
+        if telemetry is not None:
+            telem = (_telemetry.step_telemetry(
+                telemetry, grads, model.params_, new_params, fstate=new_fstate, scale=scale,
+                grad_norm=_global_grad_norm(layout, g_list, mesh)),)
+        return (new_params, new_zopt, new_state, new_fstate, score) + telem
 
     if int(steps_per_call) > 1:
-        return BundledShardedStep(model, step, int(steps_per_call), policy is not None), layout
+        return BundledShardedStep(model, step, int(steps_per_call), policy is not None,
+                                  telemetry is not None), layout
     return step, layout
+
+
+@torch.no_grad()
+def _global_grad_norm(layout: ShardedUpdateLayout, grads: Sequence[Tensors],
+                      mesh) -> torch.Tensor:
+    """The norm of the mean over the ranks of each rank's ``grads`` (the
+    raw gradients, before normalization and the l1/l2 terms), f32: on one
+    rank its own gradients' norm; on several, each rank's chunks of the
+    reduce-scattered groups, the squares summed over the ranks."""
+    from deeplearning4j_tpu_torch.obs.telemetry import global_norm
+
+    if mesh.n_data == 1:
+        return global_norm([g for i, g in enumerate(grads) if not layout.skip[i]])
+    total = None
+    for grp in layout.groups:
+        chunk = mesh.reduce_scatter_mean(layout._flatten_group(grp, grads))
+        s = torch.sum(torch.square(chunk.to(torch.float32)))
+        total = s if total is None else total + s
+    if total is None:
+        return torch.zeros((), dtype=torch.float32)
+    (total,) = mesh.all_reduce_mean([total])
+    return torch.sqrt(total * mesh.n_data)
 
 
 class BundledShardedStep:
@@ -392,7 +434,7 @@ class BundledShardedStep:
     shards, the layer state and the fault state; on the card one replay of
     a captured CUDA graph, collectives included."""
 
-    def __init__(self, model, step, k: int, guarded: bool = False):
+    def __init__(self, model, step, k: int, guarded: bool = False, telemetry: bool = False):
         from deeplearning4j_tpu_torch.train.pipeline import BundledStep
 
         self.model, self.k, self.guarded = model, k, guarded
@@ -400,6 +442,8 @@ class BundledShardedStep:
 
         def one(batch):
             out = step(self._zopt, batch)
+            if telemetry:
+                *out, model.step_telemetry_ = out
             if guarded:
                 (model.params_, self._zopt, model.state_, model.fault_state_,
                  model.score_) = out
@@ -430,6 +474,11 @@ class BundledShardedStep:
             return out + ((m.fault_state_, scores) if self.guarded else (scores,))
         finally:
             m.params_, m.state_, m.fault_state_, m.iteration, m.score_ = saved
+
+    @property
+    def telemetry(self):
+        """The last call's stacked telemetry (name -> (k,) tensor), or None."""
+        return self._runner.telemetry
 
     def release(self) -> None:
         """:meth:`BundledStep.release` for the model's tensors."""

@@ -2,8 +2,8 @@
 guard, dynamic loss scaling, fault injection and the checkpoint helpers.
 
 Counterpart of ``deeplearning4j_tpu/train/faults.py`` (``:60-356`` and the
-checkpoint helpers ``validate_checkpoint`` ``:380``,
-``checkpoint_fingerprint`` ``:515``, ``latest_valid_checkpoint`` ``:543``):
+checkpoint helpers ``:380-606``: validation, retention, the newest valid
+checkpoint):
 
 - :class:`FaultPolicy` rides on ``GlobalConf.fault_policy`` and round-trips
   through the configuration JSON of either package, key for key.
@@ -27,9 +27,14 @@ checkpoint helpers ``validate_checkpoint`` ``:380``,
   eager step and once per bundle.
 
 The reference's flight-recorder events (``nan_skip``, ``divergence_trip``
-and the dump before the raise) come with ROADMAP § A9; here the tripwire
-returns the per-owner bad-count delta that would feed them, and raises.
-Elastic training and checkpoint retention come with § A8.
+and the dump before the raise, ``tmp_sweep``, ``checkpoint_write``,
+``checkpoint_fallback``, ``checkpoint_load``) come with ROADMAP § A9; here
+the tripwire returns the per-owner bad-count delta that would feed them,
+and raises. Checkpoint retention (:func:`save_checkpoint` with
+``keep_last``, :func:`prune_checkpoints`, :func:`sweep_stale_tmp`,
+:func:`load_latest_valid`) writes and removes files with plain ``os``
+calls, where the reference goes through its chaos file layer (also § A9).
+Elastic training comes with § A8.
 """
 
 from __future__ import annotations
@@ -76,8 +81,9 @@ class FaultPolicy:
     - ``init_loss_scale`` / ``scale_growth_interval`` / ``scale_backoff`` /
       ``scale_growth`` / ``min_loss_scale`` / ``max_loss_scale``: the
       loss-scale schedule (back off on overflow, grow after N good steps).
-    - ``keep_last``: checkpoint retention, read by the reference's
-      ``save_checkpoint`` (ROADMAP § A8); carried here as configuration.
+    - ``keep_last``: checkpoint retention, carried as configuration as the
+      reference carries it (no step reads it; :func:`save_checkpoint`
+      takes its own ``keep_last``).
     """
 
     def __init__(self, skip_nonfinite: bool = True,
@@ -436,6 +442,88 @@ def checkpoint_files(directory: str) -> List[str]:
     return [p for _, p in sorted(out)]
 
 
+def is_valid_checkpoint(path: str) -> bool:
+    return validate_checkpoint(path)[0]
+
+
+#: staging files older than this (seconds) are debris of a crashed write
+_TMP_SWEEP_AGE_S = 900.0
+
+
+def sweep_stale_tmp(directory: str, max_age_s: float = _TMP_SWEEP_AGE_S,
+                    surface: Optional[str] = None, recursive: bool = False) -> List[str]:
+    """Remove the staging files of earlier crashed atomic writes (older than
+    ``max_age_s``: a younger one may belong to a writer about to publish
+    it); returns the removed paths. ``surface`` names the caller in the
+    reference's ``tmp_sweep`` flight event (ROADMAP § A9: not recorded
+    here)."""
+    import time
+
+    removed: List[str] = []
+    if not os.path.isdir(directory):
+        return removed
+    now = time.time()
+    walk = ([(root, files) for root, _d, files in os.walk(directory)] if recursive
+            else [(directory, os.listdir(directory))])
+    for root, names in walk:
+        for name in names:
+            if _TMP_MARKER not in name:
+                continue
+            p = os.path.join(root, name)
+            try:
+                if os.path.isfile(p) and now - os.path.getmtime(p) > max_age_s:
+                    os.remove(p)
+                    removed.append(p)
+            except OSError:
+                pass
+    return removed
+
+
+def prune_checkpoints(directory: str, keep_last: Optional[int]) -> List[str]:
+    """Delete all but the newest ``keep_last`` checkpoints (and stale
+    staging files); returns the removed paths."""
+    removed: List[str] = list(sweep_stale_tmp(directory))
+    if keep_last is None:
+        return removed
+    files = checkpoint_files(directory)
+    for p in files[: max(len(files) - int(keep_last), 0)]:
+        try:
+            os.remove(p)
+            removed.append(p)
+        except OSError:
+            pass
+    return removed
+
+
+def save_checkpoint(model, directory: str, keep_last: Optional[int] = None,
+                    stem: Optional[str] = None) -> str:
+    """Atomic write of ``model`` (with its updater state) into
+    ``directory``, then keep-last-``keep_last`` retention; returns the
+    path."""
+    from deeplearning4j_tpu_torch.train.model_serializer import ModelSerializer
+
+    os.makedirs(directory, exist_ok=True)
+    name = (stem or f"checkpoint_iter_{int(model.iteration):08d}") + ".zip"
+    path = os.path.join(directory, name)
+    ModelSerializer.write_model(model, path, save_updater=True)
+    prune_checkpoints(directory, keep_last)
+    return path
+
+
+def checkpoint_error_class(reason: str) -> str:
+    """The coarse class of a :func:`validate_checkpoint` failure reason."""
+    r = reason.lower()
+    if "crc" in r:
+        return "crc_mismatch"
+    if "unreadable" in r:
+        return "unreadable_zip"
+    if "missing" in r:
+        return "missing_entries"
+    if "not a file" in r:
+        return "not_a_file"
+    return "invalid"
+
+
 def checkpoint_fingerprint(path: str) -> Tuple[int, int]:
     """Cheap identity of a checkpoint's on-disk content: ``(mtime_ns,
     size)``. Atomic publishes change both together, so an unchanged
@@ -467,3 +555,13 @@ def latest_valid_checkpoint(directory: str, missing_ok: bool = False
     raise FileNotFoundError(
         f"no VALID checkpoint in {directory!r} "
         f"({len(candidates)} candidates, all corrupt)")
+
+
+def load_latest_valid(directory: str, device=None):
+    """Restore the newest valid checkpoint in ``directory`` (its model type
+    read from the zip) on ``device`` (default the card); returns ``(model,
+    path)``."""
+    from deeplearning4j_tpu_torch.train.model_serializer import ModelGuesser
+
+    path = latest_valid_checkpoint(directory)
+    return ModelGuesser.load_model_guess(path, device=device), path

@@ -62,15 +62,23 @@ host inside the step fails the capture, which raises
 steps. The graph keeps the memory of one step's intermediates (its private
 pool) for as long as it lives; a new layout recaptures.
 
-Listeners (the reference's ``dispatch_bundle_listeners``, the prefetch
-thread's ``bundle_size`` stage) come with ROADMAP § A8; the port's models
-take no listeners yet, so nothing forces ``k = 1`` today.
+Listeners (the reference's ``dispatch_bundle_listeners``): after a bundle,
+a listener with a ``bundle_done`` hook gets the bundle's
+:class:`BundleScores`, fetched to the host once however many read it, and
+the others ``iteration_done`` step by step with ``model.score_`` that
+step's score. Under telemetry (``obs/telemetry.py``) each step leaves its
+telemetry dict in ``model.step_telemetry_``; the bundle stacks the K dicts
+(on the card into static buffers the graph writes) and hands them to
+``telemetry_done`` first. A listener that needs a host callback between
+steps makes the fit take single steps (:func:`bundling_blockers`). The
+reference's prefetch thread (``bundle_size``) comes with ROADMAP § A8.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import logging
 from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
@@ -78,6 +86,8 @@ import torch
 
 from deeplearning4j_tpu_torch import updaters as _updaters
 from deeplearning4j_tpu_torch.nn.ops import launch as _launch
+
+log = logging.getLogger(__name__)
 
 #: eager steps run on a side stream before a capture (discarded)
 WARMUP_STEPS = 2
@@ -122,12 +132,21 @@ _PER_STEP_HOOKS = ("on_forward_pass", "on_gradient_calculation", "on_backward_pa
 def bundling_blockers(listeners: Sequence[Any]) -> List[str]:
     """Listener needs that require a host callback between steps, and so
     force ``steps_per_call = 1``, as ``Type.reason`` strings (the
-    reference's rule). The port's models take no listeners yet (ROADMAP §
-    A8), so this is empty today."""
+    reference's rule): the introspection and backward hooks, and
+    ``requires_per_step_state`` (a listener that reads the model at an
+    iteration: a bundle's replay of ``iteration_done`` would hand it the
+    bundle's last state). A composite reports its children's
+    (``bundling_blockers()`` of its own)."""
+    from deeplearning4j_tpu_torch.train.listeners import _has_hook
+
     out = set()
     for lst in listeners:
+        own = getattr(lst, "bundling_blockers", None)
+        if callable(own):
+            out.update(own())
+            continue
         for h in _PER_STEP_HOOKS:
-            if callable(getattr(lst, h, None)):
+            if _has_hook(lst, h):
                 out.add(f"{type(lst).__name__}.{h}")
         if getattr(lst, "requires_per_step_state", False):
             out.add(f"{type(lst).__name__}.requires_per_step_state")
@@ -148,17 +167,48 @@ def resolve_steps_per_call(model, requested: Optional[int] = None) -> int:
     if getattr(model.conf, "backprop_type", "standard") == "tbptt":
         raise ValueError(
             "steps_per_call > 1 cannot bundle tBPTT fits: chunk steps share one host "
-            "iteration and carries cross chunk boundaries outside the step; use "
+            "iteration and carries cross chunk boundaries outside the graph; use "
             "steps_per_call=1 for tBPTT configurations")
-    if bundling_blockers(getattr(model, "listeners", [])):
+    blockers = bundling_blockers(getattr(model, "listeners", []))
+    if blockers:
+        log.info("steps_per_call=%d forced to 1: listener hooks need per-step host "
+                 "callbacks (%s)", k, ", ".join(blockers))
         return 1
     return k
 
 
-def dispatch_bundle_listeners(model, it0: int, epoch: int, scores: BundleScores) -> None:
-    """The reference hands a bundle's scores to its listeners here; the port
-    has no listeners yet."""
-    raise NotImplementedError("bundle listeners are not ported yet (ROADMAP § A8)")
+def dispatch_bundle_listeners(model, it0: int, epoch: int, scores: BundleScores,
+                              telem=None) -> None:
+    """One bundle's listener calls: its stacked telemetry (``telem``, a dict
+    of (K,) tensors) to ``telemetry_done`` first, then
+    :func:`dispatch_bundle_to` over the model's listeners."""
+    if telem is not None:
+        from deeplearning4j_tpu_torch.obs import telemetry as _telemetry
+
+        _telemetry.dispatch_telemetry(model.listeners, model, it0, epoch,
+                                      _telemetry.BundleTelemetry(telem, len(scores)))
+    dispatch_bundle_to(model.listeners, model, it0, epoch, scores)
+
+
+def dispatch_bundle_to(listeners: Sequence[Any], model, it0: int, epoch: int,
+                       bs: BundleScores) -> None:
+    """``bundle_done`` to the listeners that have it; ``iteration_done``
+    step by step to the others, with ``model.score_`` that step's score (a
+    device scalar: only a listener that reads it syncs); ``model.score_``
+    is the last step's after."""
+    k = len(bs)
+    legacy = []
+    for lst in listeners:
+        if hasattr(lst, "bundle_done"):
+            lst.bundle_done(model, it0, epoch, bs)
+        else:
+            legacy.append(lst)
+    if legacy:
+        for j in range(k):
+            model.score_ = bs.dev[j]
+            for lst in legacy:
+                lst.iteration_done(model, it0 + j + 1, epoch)
+    model.score_ = bs.dev[k - 1]
 
 
 # --------------------------------------------------------------------------
@@ -268,6 +318,14 @@ def default_carry(model):
     return get, put
 
 
+def _stack_telemetry(telems):
+    """The K steps' telemetry dicts stacked, or None where a step left
+    none."""
+    if not telems or any(t is None for t in telems):
+        return None
+    return {k: torch.stack([t[k] for t in telems]) for k in telems[0]}
+
+
 class BundledStep:
     """K steps of ``one_step`` per call over a stacked batch.
 
@@ -303,14 +361,20 @@ class BundledStep:
         #: the kernel launches the last captured graph holds (the wrappers
         #: count a launch when the capture records it): one replay's
         self.captured_launches = {}
+        #: the last call's stacked telemetry (name -> (K,) tensor), or None
+        #: when the steps leave none (``model.step_telemetry_``)
+        self.telemetry = None
+        self._telem_out = None
 
     def __call__(self, stacked) -> BundleScores:
         if self.model.device.type == "cuda" or self.emulate:
             return self._replay(stacked)
-        m, scores = self.model, []
+        m, scores, telems = self.model, [], []
         for j in range(self.k):
             self.one_step(tree_map(lambda t: t[j], stacked))
             scores.append(m.score_)
+            telems.append(getattr(m, "step_telemetry_", None))
+        self.telemetry = _stack_telemetry(telems)
         return BundleScores(torch.stack(scores))
 
     # -- the graph path -----------------------------------------------------
@@ -336,6 +400,8 @@ class BundledStep:
         m.iteration += self.k
         scores = self._scores.clone()
         m.score_ = scores[-1]
+        self.telemetry = (None if self._telem_out is None
+                          else {k: v.clone() for k, v in self._telem_out.items()})
         return BundleScores(scores)
 
     def _capture(self, carry, stacked, key) -> None:
@@ -419,17 +485,21 @@ class BundledStep:
         """The K steps over the static buffers, then the last step's state
         written back into them: what the graph holds."""
         m = self.model
-        scores = []
+        scores, telems = [], []
         with _updaters.scalar_feed(self._feed):
             for j in range(self.k):
                 self._feed.begin(j, m.iteration)
                 self.one_step(self._views[j])
                 scores.append(m.score_)
+                telems.append(getattr(m, "step_telemetry_", None))
         with torch.no_grad():
             for st, new in zip(tree_leaves(self._static), tree_leaves(self.get())):
                 if new is not st:
                     st.copy_(new)
             self._scores.copy_(torch.stack(scores))
+            # made inside the capture: tensors of the graph's pool, which
+            # each replay writes
+            self._telem_out = _stack_telemetry(telems)
 
     def _load(self, stacked, iteration: int, epoch: int) -> None:
         """The stacked batch and the K steps' updater scalars into their

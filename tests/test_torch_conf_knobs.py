@@ -156,12 +156,16 @@ def test_knobs_reach_the_layers_and_train():
 
 
 def test_telemetry_and_remat_stay_refused_at_train_time():
-    """Telemetry stays refused at train time; the remat_policy knob now
-    trains (rematerialization is ported: ``tests/test_torch_remat.py``)."""
+    """Both knobs now train: the telemetry knob (in-graph telemetry is
+    ported: ``tests/test_torch_telemetry.py``) leaves each step's
+    telemetry dict, and the remat_policy knob rematerializes
+    (``tests/test_torch_remat.py``)."""
     x = np.zeros((2, 5), np.float32)
     net = TNet(knob_conf(PORT, "telemetry")).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        net.fit(x, np.eye(3, dtype=np.float32)[:2])
+    net.fit(x, np.eye(3, dtype=np.float32)[:2])
+    assert net.iteration == 1
+    assert sorted(net.step_telemetry_) == ["grad_norm", "param_norm", "update_norm",
+                                           "update_ratio"]
     net = TNet(knob_conf(PORT, "remat_policy")).init(device="cpu")
     assert net.conf.global_conf.remat_policy == "save_conv_outputs"
     net.fit(x, np.eye(3, dtype=np.float32)[:2])

@@ -351,23 +351,29 @@ def test_bundle_made_anew_when_the_policy_changes():
 
 # ------------------------------------------------------------- refusals
 def test_remat_telemetry_and_tbptt_still_refused():
-    """Telemetry and tBPTT stay refused under a fault policy; remat is
-    ported, so an unknown policy ("full") raises the reference's
-    ``ValueError`` before any step."""
+    """An unknown remat policy ("full") still raises the reference's
+    ``ValueError`` before any step. Telemetry and tBPTT are ported: under a
+    fault policy a telemetry fit is the same bits as one without, and
+    reports the guard's ``bad_count``; a tBPTT configuration given 2-D
+    features takes the standard step, as the reference's."""
     n = TNet(conf(PORT, FaultPolicy())).init(device="cpu")
     n.conf.global_conf.remat_policy = "full"
     with pytest.raises(ValueError, match="unknown remat_policy: 'full'"):
         n.fit(TDataSet(*batches(1)[0]))
     assert n.iteration == 0
-    for knob, value in (("telemetry", True),):
-        n = TNet(conf(PORT, FaultPolicy())).init(device="cpu")
-        setattr(n.conf.global_conf, knob, value)
-        with pytest.raises(NotImplementedError, match=knob):
-            n.fit(TDataSet(*batches(1)[0]))
+    plain = TNet(conf(PORT, FaultPolicy())).init(device="cpu")
+    plain.fit(TDataSet(*batches(1)[0]))
+    n = TNet(conf(PORT, FaultPolicy())).init(device="cpu")
+    n.conf.global_conf.telemetry = True
+    n.fit(TDataSet(*batches(1)[0]))
+    np.testing.assert_array_equal(n.params_flat(), plain.params_flat())
+    assert int(n.step_telemetry_["bad_count"]) == 0
+    assert float(n.step_telemetry_["update_norm"]) > 0
     n = TNet(conf(PORT, FaultPolicy())).init(device="cpu")
     n.conf.backprop_type = "tbptt"
-    with pytest.raises(NotImplementedError, match="tbptt"):
-        n.fit(TDataSet(*batches(1)[0]))
+    n.fit(TDataSet(*batches(1)[0]))
+    np.testing.assert_array_equal(n.params_flat(), plain.params_flat())
+    assert n.iteration == 1
 
 
 # ------------------------------------------------------------ checkpoints

@@ -570,11 +570,21 @@ def test_wrapper_conf_json_loads_in_both_directions(name):
 
 
 def test_training_surfaces_refuse():
-    _, tnet = _pair(BODIES["lstm"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnet.fit(*_seq())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnet.layers[-1].compute_score(tnet.params_[-1], None, None)
+    """Nothing refuses any more: the recurrent head's score is JAX's (with
+    its label mask), and a fit on per-timestep labels takes one step whose
+    score is that score's mean plus nothing (no regularization)."""
+    jnet, tnet = _pair(BODIES["lstm"])
+    x, mask = _seq()
+    rng = np.random.default_rng(4)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, x.shape[:2])]
+    h = rng.standard_normal((3, 7, 6)).astype(np.float32)
+    mine = tnet.layers[-1].compute_score(tnet.params_[-1], torch.from_numpy(h),
+                                         torch.from_numpy(y), torch.from_numpy(mask))
+    theirs = jnet.layers[-1].compute_score(jnet.params_[-1], jnp.asarray(h), jnp.asarray(y),
+                                           jnp.asarray(mask))
+    np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), rtol=1e-5, atol=1e-6)
+    tnet.fit(x, y)
+    assert tnet.iteration == 1 and np.isfinite(tnet.score())
     # RmsProp, the TextGen configuration's updater, now trains: its update
     # is the reference's
     g = torch.tensor([0.5, -2.0])

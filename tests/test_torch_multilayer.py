@@ -81,16 +81,17 @@ def test_graph_builder_inserts_the_references_preprocessor():
 
 def test_unported_zoo_names_and_features_raise():
     """Every reference zoo name is ported (the zoo's own tests are in
-    ``test_torch_zoo.py``); in-graph telemetry still raises."""
+    ``test_torch_zoo.py``); in-graph telemetry is ported too: a LeNet fit
+    with it leaves its telemetry dict."""
     assert sorted(ZOO) == ["alexnet", "darknet19", "facenetnn4small2", "googlenet",
                            "inceptionresnetv1", "lenet", "resnet50", "simplecnn",
                            "textgenlstm", "tinyyolo", "vgg16", "vgg19", "yolo2"]
     assert isinstance(ModelSelector.select("alexnet"), AlexNet)
     conf = CONFS["lenet"](PORT)
-    conf.global_conf.telemetry = True  # in-graph telemetry: not ported
+    conf.global_conf.telemetry = True
     net = TNet(conf).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net.fit(inputs("lenet", 2), np.eye(10, dtype=np.float32)[:2])
+    net.fit(inputs("lenet", 2), np.eye(10, dtype=np.float32)[:2])
+    assert np.isfinite(float(net.step_telemetry_["grad_norm"]))
 
 
 # -------------------------------------------------------------------- forward

@@ -161,14 +161,22 @@ def test_score_and_gradients_match_jax(name):
 
 
 def test_fit_refusals():
+    """What ``fit`` refused is ported: a telemetry fit is the same bits as
+    one without it, and ``set_listeners`` takes listeners that ``fit``
+    calls."""
+    from deeplearning4j_tpu_torch.train.listeners import CollectScoresIterationListener
+
     conf = dense(PORT)
     conf.global_conf.telemetry = True
     net = TNet(conf).init(device="cpu")
+    plain = TNet(dense(PORT)).init(device="cpu")
     x, y = data("dense", 4, seed=0)
-    with pytest.raises(NotImplementedError, match="slice 4: the rest of the training core"):
-        net.fit(x, y)
-    with pytest.raises(NotImplementedError, match="listeners"):
-        TNet(dense(PORT)).init(device="cpu").set_listeners(object())
+    net.fit(x, y)
+    collect = CollectScoresIterationListener()
+    plain.set_listeners(collect)
+    plain.fit(x, y)
+    np.testing.assert_array_equal(net.params_flat(), plain.params_flat())
+    assert net.step_telemetry_ is not None and collect.scores == [(1, plain.score())]
 
 
 def test_fit_ignores_the_sharded_update_knob():

@@ -306,7 +306,8 @@ def _step_args(net, ds, graph):
 def test_train_step_fn_equals_a_fit_step(kind, guarded, narrow_pair):
     """The pure step on the model's trees (which it leaves unchanged) gives
     what one fit step leaves on the model, bit for bit; guarded: with the
-    fault state too."""
+    fault state too. With telemetry the same outputs come first and the
+    step's telemetry dict last."""
     if kind == "mln":
         _, net = conv_bn_pair()
         x, y = mlt.data("conv_bn", 8, seed=8)
@@ -328,6 +329,13 @@ def test_train_step_fn_equals_a_fit_step(kind, guarded, narrow_pair):
     for a, b in zip(pipeline.tree_leaves((net.params_, opt, net.state_)),
                     pipeline.tree_leaves(trees)):
         assert torch.equal(a, b)
+    tstep = net.train_step_fn(telemetry=True)
+    pre = (fstate,) if guarded else ()
+    *tout, telem = tstep(net.params_, opt, net.state_, *pre, *args, None, net.iteration,
+                         net.epoch)
+    for a, b in zip(pipeline.tree_leaves(tout), pipeline.tree_leaves(out)):
+        assert torch.equal(a, b)
+    assert ("bad_count" in telem) == guarded and float(telem["update_norm"]) > 0
     net.fit(ExistingDataSetIterator([ds]))
     want = (net.params_, net.opt_state_, net.state_) + (
         (net.fault_state_,) if guarded else ()) + (net.score_,)
@@ -335,8 +343,6 @@ def test_train_step_fn_equals_a_fit_step(kind, guarded, narrow_pair):
     assert len(got) == len(pipeline.tree_leaves(want))
     for a, b in zip(got, pipeline.tree_leaves(want)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="A8"):
-        net.train_step_fn(telemetry=object())
 
 
 @pytest.mark.parametrize("kind", ["mln", "graph"])

@@ -334,14 +334,14 @@ def test_wrapper_refusals_and_knobs():
     telemetry = port_net(jax_net())
     telemetry.conf.global_conf.telemetry = True
     pw = ParallelWrapper.builder(telemetry).steps_per_call(4).build()
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        pw.fit(TExisting([TDataSet(*ranks.blobs(4))]))
-    # the guarded sharded step is in; the telemetry one still raises
+    pw.fit(TExisting([TDataSet(*ranks.blobs(4))]))
+    assert "grad_norm" in telemetry.step_telemetry_
+    # the guarded sharded step and the telemetry one are both in
     tzero.make_sharded_train_step(net, TrainingMesh(1, device="cpu"), steps_per_call=2,
                                   policy=FaultPolicy())
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tzero.make_sharded_train_step(net, TrainingMesh(1, device="cpu"),
-                                      steps_per_call=2, telemetry=True)
+    step = tzero.make_sharded_train_step(net, TrainingMesh(1, device="cpu"),
+                                         steps_per_call=2, telemetry=True)[0]
+    assert step.telemetry is None
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         pw = (ParallelWrapper.builder(net).workers(1).prefetch_buffer(2)
@@ -863,3 +863,42 @@ def test_shared_master_tracks_exact_dp_direction(rank_runs, world):
     d_exact, d_comp = out["shared/direction/exact"], out["shared/direction/compressed"]
     cos = float(d_exact @ d_comp / (np.linalg.norm(d_exact) * np.linalg.norm(d_comp) + 1e-12))
     assert cos > 0.7, cos
+
+
+# ------------------------------------------------- tBPTT and telemetry, ranks
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_tbptt_equals_one_process_fit(rank_runs, world):
+    """Replicated tBPTT over the ranks (each rank its rows' chunks, the
+    gradients of each chunk averaged over the ranks, the 5-row batch
+    padded) equals one process's ``fit`` within PARITY_TOL: the same
+    updates, the mean gradient summed in another order."""
+    out = rank_runs(world)
+    net = ranks.tbptt_net()
+    net.fit(TExisting([TDataSet(x, y) for x, y in ranks.tbptt_batches()]), epochs=2)
+    for part, mine in (("params", net.params_flat()), ("opt", net.opt_state_flat())):
+        np.testing.assert_allclose(out[f"tbptt/repl/{part}"], mine, rtol=0, atol=PARITY_TOL)
+    assert float(out["tbptt/repl/score"]) == pytest.approx(net.score(), abs=PARITY_TOL)
+    assert int(out["tbptt/repl/iteration"]) == 4
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_telemetry_equals_one_process(rank_runs, world):
+    """The telemetry of the replicated and the ZeRO-1 wrapper over the
+    ranks, single steps and bundles of 2 (the sharded step's gradient norm
+    from each rank's chunks of the mean gradient), equals an eager
+    one-process fit's within 1e-6 relative, step for step; the params move
+    as without telemetry."""
+    from test_torch_parallel_ranks import TelemetryRecorder
+
+    out = rank_runs(world)
+    net = port_net(jax_net())
+    net.conf.global_conf.telemetry = True
+    rec = TelemetryRecorder()
+    net.set_listeners(rec)
+    net.fit(TExisting([TDataSet(x, y) for x, y in ranks.bundle_batches()]))
+    want = np.asarray(rec.rows)
+    assert want.shape == (5, 4)
+    for tag in ("repl/k1", "repl/k2", "sharded/k1", "sharded/k2"):
+        np.testing.assert_allclose(out[f"telemetry/{tag}/rows"], want, rtol=1e-6, atol=0)
+        np.testing.assert_allclose(out[f"telemetry/{tag}/params"], net.params_flat(), rtol=0,
+                                   atol=PARITY_TOL)

@@ -309,6 +309,80 @@ def _cases(rank, world, root):
     out.update(_remat_cases(world, init, save, ds))
     out.update(_shared_cases(rank, world, root, init, save, CheckpointingIterator))
     _frozen_cases(world, init, save, ds)
+    out.update(_tbptt_cases(world, init, save, ds))
+    return out
+
+
+#: the tBPTT network's sequence length and chunk length (a short last chunk)
+TBPTT_T, TBPTT_L = 9, 4
+
+
+def tbptt_net():
+    """The port's GravesLSTM(6) + RnnOutputLayer network under tBPTT 4/4,
+    its params drawn from seed 11 on the CPU (the same on every rank)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    tconf, tlayers, tupd = _port()
+    conf = (tconf.NeuralNetConfiguration.builder().seed(11).updater(tupd.Adam(1e-2)).list()
+            .layer(tlayers.GravesLSTM(n_out=6, activation="tanh"))
+            .layer(tlayers.RnnOutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(tconf.InputType.recurrent(4))
+            .backprop_type("tbptt", TBPTT_L, TBPTT_L).build())
+    return MultiLayerNetwork(conf).init(device="cpu")
+
+
+def tbptt_batches():
+    """Two batches of sequences: 8 rows, and 5, which pads on 2 and 4
+    ranks."""
+    rng = np.random.default_rng(3)
+    out = []
+    for b in (8, 5):
+        x = rng.standard_normal((b, TBPTT_T, 4)).astype(np.float32)
+        y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, (b, TBPTT_T))]
+        out.append((x, y))
+    return out
+
+
+class TelemetryRecorder:
+    """Each step's telemetry signals, in sorted order of their names."""
+
+    def __init__(self):
+        self.rows = []
+
+    def telemetry_done(self, model, it0, epoch, bt):
+        host = bt.host()
+        for j in range(len(bt)):
+            self.rows.append([float(host[k][j]) for k in sorted(host)])
+
+    def iteration_done(self, model, iteration, epoch):
+        pass
+
+
+def _tbptt_cases(world, init, save, ds):
+    """Replicated tBPTT over the ranks (2 epochs of the two batches); and
+    the f32 network with telemetry, replicated and ZeRO-1, single steps and
+    bundles of 2, its per-step telemetry recorded."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.obs.telemetry import TelemetryConf
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    out = {}
+    net = tbptt_net()
+    (ParallelWrapper.builder(net).workers(world).build()
+     .fit(ExistingDataSetIterator([DataSet(x, y) for x, y in tbptt_batches()]), epochs=2))
+    save("tbptt/repl", net)
+    for sharded in (False, True):
+        for k in (1, 2):
+            tag = f"{'sharded' if sharded else 'repl'}/k{k}"
+            net = _net(init, steps=k)
+            net.conf.global_conf.telemetry = TelemetryConf()
+            rec = TelemetryRecorder()
+            net.set_listeners(rec)
+            batches = [DataSet(x, y) for x, y in bundle_batches()]
+            (ParallelWrapper.builder(net).workers(world).sharded_update(sharded).build()
+             .fit(ExistingDataSetIterator(batches), epochs=1))
+            save(f"telemetry/{tag}", net)
+            out[f"telemetry/{tag}/rows"] = np.asarray(rec.rows, np.float64)
     return out
 
 

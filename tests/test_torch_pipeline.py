@@ -285,8 +285,8 @@ def test_tbptt_refuses_bundles():
 
 def test_listener_hooks_would_force_single_steps():
     """The reference's rule: a listener with a per-step host hook (or that
-    snapshots the model each step) forces k = 1; the port's models take no
-    listeners yet, so their k is the configuration's."""
+    snapshots the model each step) forces k = 1; without one k is the
+    configuration's, and a bundle's scores reach the listeners."""
     class Backward:
         def on_backward_pass(self, model):
             pass
@@ -300,8 +300,18 @@ def test_listener_hooks_would_force_single_steps():
     assert pipeline.resolve_steps_per_call(net) == 4
     net.listeners = [Backward()]
     assert pipeline.resolve_steps_per_call(net) == 1
-    with pytest.raises(NotImplementedError, match="A8"):
-        pipeline.dispatch_bundle_listeners(net, 0, 0, None)
+
+    class Legacy:
+        def __init__(self):
+            self.seen = []
+
+        def iteration_done(self, model, iteration, epoch):
+            self.seen.append((iteration, float(model.score_)))
+
+    net.listeners = [Legacy()]
+    pipeline.dispatch_bundle_listeners(net, 4, 0, pipeline.BundleScores(
+        torch.tensor([1.0, 2.0])))
+    assert net.listeners[0].seen == [(5, 1.0), (6, 2.0)] and float(net.score_) == 2.0
 
 
 def test_conf_round_trips_through_json():
